@@ -1,0 +1,69 @@
+"""DataFrame and GroupedData of the slice.
+
+Counterpart of spark_rapids_tpu/api/dataframe.py: filter / where,
+group_by / groupBy, agg and collect.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import pyarrow as pa
+
+from ..expr.aggregates import AggregateExpression
+from ..expr.core import Alias, AttributeReference, Expression, Literal
+from ..plan import logical as L
+from .column import Column
+
+
+def _to_expr(c) -> Expression:
+    if isinstance(c, Column):
+        return c.expr
+    if isinstance(c, Expression):
+        return c
+    if isinstance(c, str):
+        return AttributeReference(c)
+    return Literal(c)
+
+
+class DataFrame:
+    def __init__(self, lp: L.LogicalPlan, session):
+        self._lp = lp
+        self.session = session
+
+    def filter(self, condition) -> "DataFrame":
+        return DataFrame(L.Filter(_to_expr(condition), self._lp),
+                         self.session)
+
+    where = filter
+
+    def group_by(self, *cols) -> "GroupedData":
+        return GroupedData([_to_expr(c) for c in cols], self)
+
+    groupBy = group_by
+
+    def agg(self, *aggs) -> "DataFrame":
+        return self.group_by().agg(*aggs)
+
+    def collect(self) -> pa.Table:
+        return self.session.execute(self._lp)
+
+
+class GroupedData:
+    def __init__(self, grouping: List[Expression], df: DataFrame):
+        self.grouping = grouping
+        self.df = df
+
+    def agg(self, *aggs) -> DataFrame:
+        out = []
+        for a in aggs:
+            e = a.expr if isinstance(a, Column) else a
+            name = a._alias if isinstance(a, Column) else None
+            if isinstance(e, Alias) and isinstance(e.child,
+                                                   AggregateExpression):
+                name, e = e.name, e.child
+            if not isinstance(e, AggregateExpression):
+                raise TypeError(f"not an aggregate: {e}")
+            out.append(AggregateExpression(e.func, name or e.name))
+        return DataFrame(L.Aggregate(self.grouping, out, self.df._lp),
+                         self.df.session)

@@ -1,0 +1,144 @@
+"""Scan, project and filter operators.
+
+Counterpart of spark_rapids_tpu/exec/basic.py (LocalScanExec,
+ProjectExec, FilterExec).  Operators evaluate their expressions eagerly
+on the batch's device; the filter's compaction is kernel K1.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional, Sequence
+
+import pyarrow as pa
+
+from ..columnar.device import DeviceBatch, batch_to_device
+from ..columnar.interop import from_arrow_type
+from ..expr.core import (EvalContext, Expression, ScalarValue,
+                         bind_expression, make_column, output_name)
+from .base import Exec, ExecContext
+from .filter_common import apply_filter
+
+
+class LocalScanExec(Exec):
+    """Scan over an in-memory Arrow table, split into partitions and,
+    with ``batch_rows``, into batches of at most that many rows."""
+
+    def __init__(self, table: pa.Table, num_partitions: int = 1,
+                 batch_rows: Optional[int] = None,
+                 pin_cache: Optional[dict] = None):
+        super().__init__([])
+        self.table = table
+        self._names = list(table.schema.names)
+        self._types = [from_arrow_type(f.type) for f in table.schema]
+        self._num_partitions = max(1, num_partitions)
+        self.batch_rows = batch_rows
+        # uploaded batches kept on the device across collects, owned by
+        # the logical LocalRelation: a DataFrame queried again is not
+        # uploaded again (the reference's pinned scan cache; its eviction
+        # under memory pressure is not ported)
+        self.pin_cache = pin_cache
+
+    @property
+    def output_names(self):
+        return self._names
+
+    @property
+    def output_types(self):
+        return self._types
+
+    @property
+    def num_partitions(self):
+        return self._num_partitions
+
+    def execute_partition(self, pid, ctx: ExecContext
+                          ) -> Iterator[DeviceBatch]:
+        if self.pin_cache is None:
+            yield from self._produce_partition(pid, ctx)
+            return
+        key = (pid, self._num_partitions, self.batch_rows, ctx.device)
+        if key not in self.pin_cache:
+            self.pin_cache[key] = list(self._produce_partition(pid, ctx))
+        yield from self.pin_cache[key]
+
+    def _produce_partition(self, pid, ctx: ExecContext
+                           ) -> Iterator[DeviceBatch]:
+        n = self.table.num_rows
+        per = -(-n // self._num_partitions)
+        start = min(pid * per, n)
+        length = min(per, n - start)
+        chunk = self.table.slice(start, length)
+        rows = self.batch_rows or max(length, 1)
+        offset = 0
+        while True:
+            piece = chunk.slice(offset, min(rows, length - offset))
+            rb = pa.RecordBatch.from_arrays(
+                [c.combine_chunks() for c in piece.columns],
+                names=self._names)
+            yield batch_to_device(rb, ctx.device)
+            offset += rows
+            if offset >= length:
+                break
+
+
+class ProjectExec(Exec):
+    def __init__(self, exprs: Sequence[Expression], child: Exec):
+        super().__init__([child])
+        self.exprs = list(exprs)
+        self._bound = [bind_expression(e, child.output_names,
+                                       child.output_types)
+                       for e in self.exprs]
+
+    @property
+    def output_names(self):
+        return [output_name(e) for e in self.exprs]
+
+    @property
+    def output_types(self):
+        return [b.data_type() for b in self._bound]
+
+    def describe(self):
+        return f"Project [{', '.join(e.sql() for e in self.exprs)}]"
+
+    def _compute(self, batch: DeviceBatch) -> DeviceBatch:
+        ctx = EvalContext(batch)
+        cols = []
+        for b in self._bound:
+            v = b.eval(ctx)
+            if isinstance(v, ScalarValue):
+                v = make_column(ctx, b.data_type(), v.value,
+                                None if v.value is not None else False)
+            cols.append(v.col)
+        return DeviceBatch(cols, batch.num_rows, self.output_names)
+
+    def execute_partition(self, pid, ctx):
+        for b in self.children[0].execute_partition(pid, ctx):
+            yield self._compute(b)
+
+
+class FilterExec(Exec):
+    """Filter with device-side stable compaction (kernel K1)."""
+
+    def __init__(self, condition: Expression, child: Exec):
+        super().__init__([child])
+        self.condition = condition
+        self._bound = bind_expression(condition, child.output_names,
+                                      child.output_types)
+
+    @property
+    def output_names(self):
+        return self.children[0].output_names
+
+    @property
+    def output_types(self):
+        return self.children[0].output_types
+
+    def describe(self):
+        return f"Filter [{self.condition.sql()}]"
+
+    def _compute(self, batch: DeviceBatch) -> DeviceBatch:
+        pred = self._bound.eval(EvalContext(batch))
+        return apply_filter(batch, pred, self.output_names)
+
+    def execute_partition(self, pid, ctx):
+        for b in self.children[0].execute_partition(pid, ctx):
+            yield self._compute(b)

@@ -1,0 +1,138 @@
+"""Declarative aggregate functions: Sum, Count, Average.
+
+Counterpart of spark_rapids_tpu/expr/aggregates.py.  Each function
+declares its update stage (input expression and segmented op per
+buffer), its buffer types, its merge ops over partial buffers, and the
+expression that evaluates the final value from merged buffers.  Ops are
+``sum`` and ``countvalid`` (the count of non-null rows); a buffer's
+group is null when no row contributed to it.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import List, Optional, Tuple
+
+import torch
+
+from .. import types as t
+from .arithmetic import Cast
+from .core import (ColumnValue, EvalContext, Expression, Literal,
+                   bind_expression, make_column)
+
+PARTIAL = "Partial"
+FINAL = "Final"
+COMPLETE = "Complete"
+
+
+class AggregateFunction(Expression):
+    def __init__(self, child: Optional[Expression] = None):
+        self.children = (child,) if child is not None else ()
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def update(self) -> List[Tuple[Expression, str]]:
+        raise NotImplementedError
+
+    def buffer_types(self) -> List[t.DataType]:
+        raise NotImplementedError
+
+    def merge_ops(self) -> List[str]:
+        raise NotImplementedError
+
+    def evaluate(self, ctx: EvalContext, buffers: List[ColumnValue]
+                 ) -> ColumnValue:
+        raise NotImplementedError
+
+
+class Sum(AggregateFunction):
+    def data_type(self):
+        return t.LONG if t.is_integral(self.child.data_type()) else t.DOUBLE
+
+    def update(self):
+        return [(Cast(self.child, self.data_type()), "sum")]
+
+    def buffer_types(self):
+        return [self.data_type()]
+
+    def merge_ops(self):
+        return ["sum"]
+
+    def evaluate(self, ctx, buffers):
+        return buffers[0]
+
+
+class Count(AggregateFunction):
+    """count(expr), or count(*) when there is no child."""
+
+    def data_type(self):
+        return t.LONG
+
+    def update(self):
+        target = self.children[0] if self.children else Literal(1, t.INT)
+        return [(target, "countvalid")]
+
+    def buffer_types(self):
+        return [t.LONG]
+
+    def merge_ops(self):
+        return ["sum"]
+
+    def evaluate(self, ctx, buffers):
+        # never null: a slot no row reached counts 0
+        return make_column(ctx, t.LONG, buffers[0].col.data, None)
+
+
+class Average(AggregateFunction):
+    def data_type(self):
+        return t.DOUBLE
+
+    def update(self):
+        return [(Cast(self.child, t.DOUBLE), "sum"),
+                (self.child, "countvalid")]
+
+    def buffer_types(self):
+        return [t.DOUBLE, t.LONG]
+
+    def merge_ops(self):
+        return ["sum", "sum"]
+
+    def evaluate(self, ctx, buffers):
+        s, c = buffers
+        cnt = c.col.data
+        nonzero = cnt > 0
+        safe = torch.where(nonzero, cnt, torch.ones_like(cnt))
+        return make_column(ctx, t.DOUBLE, s.col.data / safe, nonzero)
+
+
+class AggregateExpression(Expression):
+    """An aggregate function bound to its output name."""
+
+    def __init__(self, func: AggregateFunction, name: Optional[str] = None):
+        self.children = (func,)
+        self.func = func
+        self.name = name or func.sql()
+
+    def with_children(self, children):
+        c = super().with_children(children)
+        c.func = c.children[0]
+        return c
+
+    def data_type(self):
+        return self.func.data_type()
+
+    def sql(self):
+        return self.name
+
+
+def bind_aggregate(ae: AggregateExpression, names, dtypes
+                   ) -> AggregateExpression:
+    """Bind the function's child expressions against an input schema."""
+    fn = ae.func
+    if fn.children:
+        fn = copy.copy(fn)
+        fn.children = tuple(bind_expression(c, names, dtypes)
+                            for c in ae.func.children)
+    return AggregateExpression(fn, ae.name)

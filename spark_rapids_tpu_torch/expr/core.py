@@ -1,0 +1,254 @@
+"""Expression IR core.
+
+Counterpart of spark_rapids_tpu/expr/core.py.  Expressions evaluate
+eagerly over an ``EvalContext`` holding a DeviceBatch; a column result
+is a ``ColumnValue`` over torch tensors on the batch's device, a
+literal a ``ScalarValue``.  Null semantics follow Spark: each op
+combines its children's validity, and the data under a null is zero.
+The reference's literal parameterisation (expr/params.py) exists to
+share compiled programs and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Type
+
+import torch
+
+from .. import types as t
+from ..columnar.device import DeviceBatch, DeviceColumn
+
+
+class ColumnValue:
+    __slots__ = ("col",)
+
+    def __init__(self, col: DeviceColumn):
+        self.col = col
+
+    @property
+    def dtype(self) -> t.DataType:
+        return self.col.dtype
+
+
+class ScalarValue:
+    __slots__ = ("value", "dtype")
+
+    def __init__(self, value: Any, dtype: t.DataType):
+        self.value = value
+        self.dtype = dtype
+
+
+class EvalContext:
+    """The batch an expression tree evaluates over."""
+
+    __slots__ = ("batch", "capacity", "device")
+
+    def __init__(self, batch: DeviceBatch):
+        self.batch = batch
+        self.capacity = batch.capacity
+        self.device = batch.device
+
+
+class Expression:
+    children: Tuple["Expression", ...] = ()
+
+    def data_type(self) -> t.DataType:
+        raise NotImplementedError(type(self).__name__)
+
+    def with_children(self, children: Sequence["Expression"]) -> "Expression":
+        import copy
+        c = copy.copy(self)
+        c.children = tuple(children)
+        return c
+
+    def transform_up(self, fn: Callable[["Expression"], "Expression"]
+                     ) -> "Expression":
+        new = [c.transform_up(fn) for c in self.children]
+        node = self if all(a is b for a, b in zip(new, self.children)) \
+            else self.with_children(new)
+        return fn(node)
+
+    def sql(self) -> str:
+        args = ", ".join(c.sql() for c in self.children)
+        return f"{type(self).__name__.lower()}({args})"
+
+    def __repr__(self):
+        return self.sql()
+
+    def eval(self, ctx: EvalContext):
+        fn = _EVALUATORS.get(type(self))
+        if fn is None:
+            raise NotImplementedError(
+                f"expression {type(self).__name__} is not ported yet")
+        return fn(self, ctx)
+
+
+_EVALUATORS: Dict[Type[Expression], Callable] = {}
+
+
+def evaluator(cls: Type[Expression]):
+    def deco(fn):
+        _EVALUATORS[cls] = fn
+        return fn
+    return deco
+
+
+def infer_literal_type(value: Any) -> t.DataType:
+    if isinstance(value, bool):
+        return t.BOOLEAN
+    if isinstance(value, int):
+        return t.INT if -(2**31) <= value < 2**31 else t.LONG
+    if isinstance(value, float):
+        return t.DOUBLE
+    raise NotImplementedError(
+        f"literal {value!r} of type {type(value).__name__} is not ported yet")
+
+
+class Literal(Expression):
+    def __init__(self, value: Any, dtype: Optional[t.DataType] = None):
+        if hasattr(value, "item"):              # numpy scalar
+            value = value.item()
+        self.value = value
+        self.dtype = dtype if dtype is not None else infer_literal_type(value)
+
+    def data_type(self):
+        return self.dtype
+
+    def sql(self):
+        return str(self.value)
+
+
+@evaluator(Literal)
+def _eval_literal(e: Literal, ctx: EvalContext):
+    return ScalarValue(e.value, e.dtype)
+
+
+class AttributeReference(Expression):
+    """Unresolved column reference by name."""
+
+    def __init__(self, name: str, dtype: Optional[t.DataType] = None):
+        self.name = name
+        self.dtype = dtype
+
+    def data_type(self):
+        if self.dtype is None:
+            raise ValueError(f"unresolved attribute {self.name}")
+        return self.dtype
+
+    def sql(self):
+        return self.name
+
+
+class BoundReference(Expression):
+    """Column reference bound to an input ordinal."""
+
+    def __init__(self, ordinal: int, dtype: t.DataType, name: str = ""):
+        self.ordinal = ordinal
+        self.dtype = dtype
+        self.name = name or f"input[{ordinal}]"
+
+    def data_type(self):
+        return self.dtype
+
+    def sql(self):
+        return self.name
+
+
+@evaluator(BoundReference)
+def _eval_bound(e: BoundReference, ctx: EvalContext):
+    return ColumnValue(ctx.batch.columns[e.ordinal])
+
+
+class Alias(Expression):
+    def __init__(self, child: Expression, name: str):
+        self.children = (child,)
+        self.name = name
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def data_type(self):
+        return self.child.data_type()
+
+    def sql(self):
+        return f"{self.child.sql()} AS {self.name}"
+
+
+@evaluator(Alias)
+def _eval_alias(e: Alias, ctx: EvalContext):
+    return e.child.eval(ctx)
+
+
+def output_name(e: Expression) -> str:
+    if isinstance(e, (Alias, AttributeReference, BoundReference)):
+        return e.name
+    return e.sql()
+
+
+def bind_expression(expr: Expression, names: Sequence[str],
+                    dtypes: Sequence[t.DataType]) -> Expression:
+    """Replace AttributeReference by BoundReference against a schema."""
+    index = {n: i for i, n in enumerate(names)}
+
+    def fn(e: Expression) -> Expression:
+        if isinstance(e, AttributeReference):
+            if e.name not in index:
+                raise ValueError(f"column {e.name!r} not in {list(names)}")
+            i = index[e.name]
+            return BoundReference(i, dtypes[i], e.name)
+        return e
+    return expr.transform_up(fn)
+
+
+# ---------------------------------------------------------------------------
+# evaluation helpers
+# ---------------------------------------------------------------------------
+
+def data_of(v):
+    """A value's data: a tensor for a column, a Python scalar (zero for a
+    null) for a literal."""
+    if isinstance(v, ColumnValue):
+        return v.col.data
+    if v.value is None:
+        return False if v.dtype == t.BOOLEAN else 0
+    return v.value
+
+
+def validity_of(v):
+    """A bool tensor, None for all-valid, or False for an all-null
+    literal."""
+    if isinstance(v, ColumnValue):
+        return v.col.validity
+    return None if v.value is not None else False
+
+
+def and_validity(ctx: EvalContext, *vals):
+    out = None
+    for v in vals:
+        if v is None:
+            continue
+        if v is False:
+            return torch.zeros(ctx.capacity, dtype=torch.bool,
+                               device=ctx.device)
+        out = v if out is None else (out & v)
+    return out
+
+
+def make_column(ctx: EvalContext, dtype: t.DataType, data,
+                validity) -> ColumnValue:
+    """A column of ``dtype`` from a tensor or a Python scalar (broadcast);
+    ``validity`` is a bool tensor, None (all valid) or False (all null).
+    The data under a null is set to zero."""
+    dev = ctx.device
+    if validity is None:
+        validity = torch.ones(ctx.capacity, dtype=torch.bool, device=dev)
+    elif validity is False:
+        validity = torch.zeros(ctx.capacity, dtype=torch.bool, device=dev)
+    if isinstance(data, torch.Tensor) and data.dim() == 1:
+        data = data.to(dtype.torch_dtype)
+    else:
+        data = torch.full((ctx.capacity,), data, dtype=dtype.torch_dtype,
+                          device=dev)
+    data = torch.where(validity, data, torch.zeros_like(data))
+    return ColumnValue(DeviceColumn(dtype, data, validity))

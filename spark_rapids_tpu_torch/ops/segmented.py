@@ -1,0 +1,79 @@
+"""Order-preserving key words and segment boundaries.
+
+Counterpart of spark_rapids_tpu/ops/segmented.py.  The reference builds
+uint64 key words; torch has no uint64 arithmetic (``+``, ``~``, ``>>``
+and ``searchsorted`` raise for it), and a plain cast to int64 would
+misorder words at or above 2^63 without an error.  So every word is
+carried as int64 holding (reference word XOR 2^63): signed int64 order
+then equals the reference's unsigned order.  Narrow words (the uint8
+null word, the uint32 word of an INT) are carried as their int64 value,
+which keeps their order too.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from .. import types as t
+from ..columnar.device import DeviceColumn
+from .scan import cumsum
+
+_LOW63 = 0x7FFFFFFFFFFFFFFF
+
+
+def encode_int_ordered(data: torch.Tensor) -> torch.Tensor:
+    """Integer key word.  The reference flips the sign bit into a uint64;
+    flipped back, that word is the int64 value itself."""
+    return data.to(torch.int64)
+
+
+def encode_float_ordered(data: torch.Tensor) -> torch.Tensor:
+    """float64 key word in Spark's total order: -0.0 equals 0.0, NaN is
+    canonical and sorts after +inf."""
+    d = data.to(torch.float64)
+    d = torch.where(d == 0.0, torch.zeros_like(d), d)
+    d = torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
+    bits = d.view(torch.int64)
+    return torch.where(bits < 0, bits ^ _LOW63, bits)
+
+
+def key_words_for_column(col: DeviceColumn) -> List[torch.Tensor]:
+    """Grouping key words for one column, most significant first: the
+    null word (nulls first), then the value word."""
+    words = [col.validity.to(torch.int64)]
+    dtype = col.dtype
+    if dtype == t.DOUBLE:
+        words.append(encode_float_ordered(col.data))
+    elif dtype in (t.LONG, t.INT, t.BOOLEAN):
+        words.append(encode_int_ordered(col.data))
+    else:
+        raise NotImplementedError(f"key words for {dtype} are not ported")
+    return words
+
+
+def lexsort(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable ascending lexicographic argsort (most significant word
+    first); int32 order.  Runs kernel K2 on CUDA tensors."""
+    from .carry import sort_order
+    return sort_order(key_words)
+
+
+def segment_boundaries(sorted_words: Sequence[torch.Tensor],
+                       live_sorted: torch.Tensor) -> torch.Tensor:
+    """New-group flags over sorted rows: a live row that is the first row
+    or differs from the previous row in any key word."""
+    n = live_sorted.shape[0]
+    new_group = torch.zeros(n, dtype=torch.bool, device=live_sorted.device)
+    if n == 0:
+        return new_group
+    new_group[0] = True
+    for w in sorted_words:
+        new_group[1:] |= w[1:] != w[:-1]
+    return new_group & live_sorted
+
+
+def segment_ids(new_group: torch.Tensor) -> torch.Tensor:
+    return (cumsum(new_group.to(torch.int32), dtype=torch.int32) - 1
+            ).to(torch.int32)
