@@ -102,18 +102,57 @@ def _profile(torch, fn):
             busy += end - start
         last = end if last is None else max(last, end)
     busy /= 1e3
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    gathers = sum(ms for name, ms in per_name.items()
+                  if "gather" in name or "index_elementwise" in name)
     return dict(wall_ms=wall, busy_ms=busy,
                 idle_share=max(0.0, 1.0 - busy / wall),
-                top=[(name[:60], ms) for name, ms in top])
+                top=[(name[:60], ms) for name, ms in top],
+                gather_ms=gathers)
+
+
+def _k3_diff(torch, a, b, what):
+    """Raises unless K3's result ``a`` equals its plain version's ``b``:
+    groups, first rows, counts and int sums exactly, float sums to
+    FLOAT_RTOL.  Returns the largest float difference."""
+    if a[3] != b[3] or not torch.equal(a[0], b[0]):
+        raise AssertionError(f"K3 groups or first rows differ {what}")
+    err = 0.0
+    for s, s_p, c, c_p in zip(a[1], b[1], a[2], b[2]):
+        if not torch.equal(c, c_p):
+            raise AssertionError(f"K3 counts differ {what}")
+        if s is None:
+            continue
+        if s.dtype == torch.int64:
+            if not torch.equal(s, s_p):
+                raise AssertionError(f"K3 integer sums differ {what}")
+            continue
+        finite = torch.isfinite(s_p)
+        if finite.any():
+            err = max(err, float((s - s_p)[finite].abs().max()))
+        if not torch.allclose(s, s_p, rtol=FLOAT_RTOL, atol=0.0,
+                              equal_nan=True):
+            raise AssertionError(f"K3 float sums differ {what} by {err}")
+    return err
+
+
+def _k3_same_bits(torch, a, b):
+    """Two K3 results are the same bits (float sums compared as int64)."""
+    def bits(x):
+        return x.view(torch.int64) if x.dtype == torch.float64 else x
+    return a[3] == b[3] and torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[2], b[2])) and all(
+        (x is None and y is None) or torch.equal(bits(x), bits(y))
+        for x, y in zip(a[1], b[1]))
 
 
 def _edge_cases(torch, dev, carry, agg_mod):
     """Each kernel against its plain version on the card at shapes the
     full-size run does not reach: partial and single tiles, no rows,
     more lanes than one launch takes, extreme and tied keys, nulls,
-    +-inf and NaN, padding rows, the ungrouped aggregate.  Returns the
-    number of cases checked."""
+    +-inf and NaN, dead rows, the ungrouped aggregate, groups that end
+    at, before and after a tile edge.  Returns the number of cases
+    checked."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand_ints(n, lo, hi):
@@ -125,7 +164,7 @@ def _edge_cases(torch, dev, carry, agg_mod):
     extremes = torch.tensor([-2**63, 2**63 - 1, -1, 0, 1, 2**62],
                             device=dev)
     cases = 0
-    for n in (0, 1, 31, 4095, 4097, 100_003):
+    for n in (0, 1, 31, 4095, 4096, 4097, 8193, 100_003):
         # K1: every lane width, 20 lanes (two launches), some rows kept
         keep = rand_bool(n, 0.3)
         lanes = [rand_ints(n, -2**62, 2**62) for _ in range(6)]
@@ -147,11 +186,11 @@ def _edge_cases(torch, dev, carry, agg_mod):
         if not torch.equal(carry.sort_order(words),
                            carry.sort_order_plain(words)):
             raise AssertionError(f"K2 differs at n={n}")
-        # K3: sorted keys with a null word, padding rows at the end,
-        # wrapping int sums, floats with +-inf and NaN
+        # K3: keys with a null word read through the order, dead rows,
+        # wrapping int sums, floats with +-inf and NaN; and the same rows
+        # already in key order (no order)
         order = carry.sort_order_plain(words[:2])
-        sw = [w[order.long()] for w in words[:2]]
-        live = torch.arange(n, device=dev) < (n - n // 7)
+        live = rand_bool(n, 0.85)
         f = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
         pick = torch.rand(n, generator=gen, device=dev)
         f = torch.where(pick < 0.02, float("inf"), f)
@@ -159,19 +198,39 @@ def _edge_cases(torch, dev, carry, agg_mod):
         f = torch.where((pick > 0.04) & (pick < 0.05), float("nan"), f)
         vals = [rand_ints(n, 2**61, 2**62), f, None]
         contribs = [live & rand_bool(n, 0.9) for _ in vals]
+        idx = order.long()
         for global_agg in (False, True):
-            a = agg_mod.segment_reduce_sorted(sw, live, vals, contribs,
-                                              global_agg)
-            b = agg_mod.segment_reduce_sorted_plain(sw, live, vals,
-                                                    contribs, global_agg)
-            same = a[3] == b[3] and torch.equal(a[0], b[0]) and all(
-                torch.equal(x, y) for x, y in zip(a[2], b[2]))
-            same = same and torch.equal(a[1][0], b[1][0]) and \
-                torch.allclose(a[1][1], b[1][1], rtol=FLOAT_RTOL, atol=0.0,
-                               equal_nan=True)
-            if not same:
-                raise AssertionError(f"K3 differs at n={n}, "
-                                     f"global={global_agg}")
+            for args in ((words[:2], live, vals, contribs, global_agg,
+                          order),
+                         ([w[idx] for w in words[:2]], live[idx],
+                          [None if v is None else v[idx] for v in vals],
+                          [c[idx] for c in contribs], global_agg, None)):
+                _k3_diff(torch, agg_mod.segment_reduce_sorted(*args),
+                         agg_mod.segment_reduce_sorted_plain(*args),
+                         f"at n={n}, global={global_agg}")
+        cases += 1
+    # K3 at tile edges (4096 rows): groups of these sizes in key order,
+    # rows shuffled; one group over rows 4000-8190; one group over 100,003
+    # rows that is not the ungrouped aggregate
+    for sizes in ([4095], [4096], [4097], [8193], [4095, 4096, 4097, 8193, 7],
+                  [4000, 4191, 100], [100_003]):
+        n = sum(sizes)
+        perm = torch.randperm(n, generator=gen, device=dev)
+        key = torch.repeat_interleave(
+            torch.arange(len(sizes), device=dev),
+            torch.tensor(sizes, device=dev))[perm]
+        words = [torch.ones(n, dtype=torch.int64, device=dev), key * 7 - 3]
+        order = carry.sort_order_plain(words)
+        vals = [rand_ints(n, -2**62, 2**62),
+                torch.rand(n, generator=gen, device=dev,
+                           dtype=torch.float64), None]
+        contribs = [rand_bool(n, 0.9) for _ in vals]
+        args = (words, None, vals, contribs, False, order)
+        a = agg_mod.segment_reduce_sorted(*args)
+        _k3_diff(torch, a, agg_mod.segment_reduce_sorted_plain(*args),
+                 f"for groups of {sizes} rows")
+        if a[3] != len(sizes):
+            raise AssertionError(f"K3 found {a[3]} groups in {sizes}")
         cases += 1
     return cases
 
@@ -209,7 +268,6 @@ def main() -> int:
     from spark_rapids_tpu_torch.expr.core import EvalContext
     from spark_rapids_tpu_torch.ops import carry
     from spark_rapids_tpu_torch.ops import segmented as seg
-    from spark_rapids_tpu_torch.ops.gather import gather_column
 
     dev = torch.device("cuda")
     failures = []
@@ -306,83 +364,81 @@ def main() -> int:
             bound_ms=bound(8 * len(words) * n + 4 * n))
         print(f"K2 sort_order: rows {n}, words {len(words)}, exact")
 
-        sorted_words = [w.index_select(0, order) for w in words]
-        vals = [gather_column(agg_mod._prefix(v, n), order)
-                for v in val_cols]
-        live = torch.ones(n, dtype=torch.bool, device=dev)
-        sum_lanes = [v.data if op == "sum" else None
-                     for v, op in zip(vals, agg._update_ops)]
-        contribs = [v.validity for v in vals]
-        res = agg_mod.segment_reduce_sorted(sorted_words, live, sum_lanes,
-                                            contribs, False)
-        res_p = agg_mod.segment_reduce_sorted_plain(sorted_words, live,
-                                                    sum_lanes, contribs,
-                                                    False)
+        # K3 reads every lane in input order, through K2's order
+        vals = [agg_mod._prefix(v, n) for v in val_cols]
+        sum_lanes, contribs, _ = agg_mod.k3_ops(vals, agg._update_ops)
+        k3_args = (words, None, sum_lanes, contribs, False, order)
+        res = agg_mod.segment_reduce_sorted(*k3_args)
+        k3_err = _k3_diff(torch, res, agg_mod.segment_reduce_sorted_plain(
+            *k3_args), "at q1's shapes")
         groups = res[3]
-        if groups != res_p[3] or not torch.equal(res[0], res_p[0]):
-            raise AssertionError("K3 groups differ from its plain version")
-        k3_err = 0.0
-        for s, s_p, c, c_p in zip(res[1], res_p[1], res[2], res_p[2]):
-            if not torch.equal(c, c_p):
-                raise AssertionError("K3 counts differ")
-            if s is None:
-                continue
-            if s.dtype == torch.int64:
-                if not torch.equal(s, s_p):
-                    raise AssertionError("K3 integer sums differ")
-            else:
-                k3_err = max(k3_err, float((s - s_p).abs().max()))
-                if not torch.allclose(s, s_p, rtol=FLOAT_RTOL, atol=0.0,
-                                      equal_nan=True):
-                    raise AssertionError(f"K3 float sums differ by {k3_err}")
-        lengths = torch.diff(torch.cat([
-            res[0].long(), torch.tensor([n], device=dev)]))
-        float_lanes = [s for s in sum_lanes
-                       if s is not None and s.dtype == torch.float64]
-        op_bytes = sum(9 if s is not None else 1 for s in sum_lanes) * n
+        # group ids in input order, for the library yardstick: one
+        # index_add_ of each float lane into its group
+        sorted_ids = torch.cumsum(seg.segment_boundaries(
+            [w.index_select(0, order) for w in words],
+            torch.ones(n, dtype=torch.bool, device=dev)), 0) - 1
+        ids = torch.empty_like(sorted_ids).index_put_(
+            (order.long(),), sorted_ids)
+        float_lanes = [x for x in sum_lanes
+                       if x is not None and x.dtype == torch.float64]
+        distinct = {x.data_ptr(): x for x in sum_lanes + contribs
+                    if x is not None}
+        in_bytes = (4 + 8 * len(words)) * n + sum(
+            x.element_size() * n for x in distinct.values())
         out_bytes = groups * (4 + 8 * len(sum_lanes)
-                              + 8 * sum(s is not None for s in sum_lanes))
+                              + 8 * sum(x is not None for x in sum_lanes))
+        k3_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted(*k3_args))
         kernel_rows["segment_reduce_sorted"] = dict(
             source="spark_rapids_tpu_torch/csrc/segment_reduce.cu",
             replaces="spark_rapids_tpu/exec/aggregate.py:50",
             max_abs_err=k3_err,
-            ms=cuda_ms(lambda: agg_mod.segment_reduce_sorted(
-                sorted_words, live, sum_lanes, contribs, False)),
+            ms=k3_ms,
             plain_ms=cuda_ms(lambda: agg_mod.segment_reduce_sorted_plain(
-                sorted_words, live, sum_lanes, contribs, False)),
-            # torch.segment_reduce sums only the float lane(s): the closest
-            # one-call library equivalent
-            library_ms=cuda_ms(lambda: [torch.segment_reduce(
-                x, "sum", lengths=lengths) for x in float_lanes]),
-            bound_ms=bound(8 * len(words) * n + n + op_bytes + out_bytes))
+                *k3_args)),
+            library_ms=cuda_ms(lambda: [torch.zeros(
+                groups, dtype=torch.float64, device=dev).index_add_(
+                0, ids, x) for x in float_lanes]),
+            bound_ms=bound(in_bytes + out_bytes))
         print(f"K3 segment_reduce_sorted: rows {n}, groups {groups}, ints "
-              f"exact, float max abs err {k3_err:.3g}")
+              f"exact, float max abs err {k3_err:.3g}, {k3_ms:.3f} ms, "
+              f"bound {kernel_rows['segment_reduce_sorted']['bound_ms']:.3f}"
+              f" ms ({in_bytes + out_bytes} bytes)")
 
-        # a hot key: 40 % of the rows in one group, folded by one thread
+        # a hot key: 40 % of the rows in one group
         gen = torch.Generator(device=dev).manual_seed(SEED)
         hot_keys = torch.where(
             torch.rand(n, generator=gen, device=dev) < 0.4,
             torch.zeros(n, dtype=torch.int64, device=dev),
             torch.randint(0, 100_000, (n,), generator=gen, device=dev))
-        hot_words = [sorted_words[0], torch.sort(hot_keys).values]
-        hot = agg_mod.segment_reduce_sorted(hot_words, live, sum_lanes,
-                                            contribs, False)
-        hot_p = agg_mod.segment_reduce_sorted_plain(hot_words, live,
-                                                    sum_lanes, contribs,
-                                                    False)
-        if hot[3] != hot_p[3] or not all(
-                torch.equal(c, c_p) for c, c_p in zip(hot[2], hot_p[2])):
-            raise AssertionError("K3 differs from its plain version on a "
-                                 "hot key")
-        hot_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted(
-            hot_words, live, sum_lanes, contribs, False))
+        hot_words = [words[0], hot_keys]
+        hot_args = (hot_words, None, sum_lanes, contribs, False,
+                    carry.sort_order(hot_words))
+        hot = agg_mod.segment_reduce_sorted(*hot_args)
+        _k3_diff(torch, hot, agg_mod.segment_reduce_sorted_plain(*hot_args),
+                 "on a hot key")
+        hot_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted(*hot_args))
         hot_plain_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted_plain(
-            hot_words, live, sum_lanes, contribs, False))
+            *hot_args))
+        ratio = hot_ms / k3_ms
         print(f"K3 hot key: rows {n}, groups {hot[3]}, largest group "
               f"{int(hot[2][-1].max())} rows: {hot_ms:.3f} ms, plain "
-              f"{hot_plain_ms:.3f} ms")
-        del batch, filtered, outs, outs_p, lanes, keep, vals, sorted_words
-        del key_cols, val_cols
+              f"{hot_plain_ms:.3f} ms; uniform keys {k3_ms:.3f} ms; hot / "
+              f"uniform {ratio:.3f}")
+        if ratio > 2.0:
+            raise AssertionError(f"K3 on a hot key takes {ratio:.2f}x its "
+                                 "time on uniform keys (at most 2x)")
+        # the same input gives the same bits on every run
+        for what, args, first in (("q1", k3_args, res), ("hot key", hot_args,
+                                                          hot)):
+            for _ in range(2):
+                if not _k3_same_bits(torch, agg_mod.segment_reduce_sorted(
+                        *args), first):
+                    raise AssertionError(f"K3 is not deterministic on "
+                                         f"{what}")
+        print("K3 deterministic: two more runs on q1 and on the hot key "
+              "give the same bits")
+        del batch, filtered, outs, outs_p, lanes, keep, vals, ids
+        del key_cols, val_cols, hot_args, k3_args, sorted_ids
     except Exception:
         failures.append("kernel phase")
         traceback.print_exc()
@@ -467,7 +523,8 @@ def main() -> int:
         print(f"trace of a warm DataFrame q1: wall {trace['wall_ms']:.2f} ms, "
               f"device busy {trace['busy_ms']:.2f} ms, idle share "
               f"{trace['idle_share']:.3f}; top kernels (ms): "
-              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"]))
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"])
+              + f"; torch gather kernels {trace['gather_ms']:.3f} ms")
     except Exception:
         failures.append("stage split")
         traceback.print_exc()
@@ -501,6 +558,12 @@ def main() -> int:
                 failures.append(f"{name} not launched on the {run} run")
     if len(launches) < 2:
         failures.append("launch counts missing")
+    elif launches["batches"]["sort_order"] != ROWS // BATCH_ROWS + 1:
+        # one sort per batch and the canonical merge's, which K3 then
+        # reads through: no second sort of the merge input
+        failures.append(f"sort_order launched "
+                        f"{launches['batches']['sort_order']} times on the "
+                        f"batches run, not {ROWS // BATCH_ROWS + 1}")
 
     if kernel_rows:
         print(json.dumps({"kernels": [

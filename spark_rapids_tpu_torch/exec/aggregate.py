@@ -3,11 +3,12 @@
 Counterpart of spark_rapids_tpu/exec/aggregate.py (TpuHashAggregateExec
 and its _group_reduce).  Per batch: evaluate the grouping keys and the
 update inputs, build order-preserving int64 key words, sort the live
-rows stably by them (kernel K2), and reduce each group (kernel K3).
-Across batches: concatenate the partial buffers, order them by key and
-buffer words (the canonical keyed merge), and reduce again with the
-merge ops.  COMPLETE and FINAL modes then evaluate the result
-expressions over the buffers.
+rows stably by them (kernel K2), and reduce each group (kernel K3),
+which reads the lanes through K2's order: no lane is gathered into key
+order first.  Across batches: concatenate the partial buffers, order
+them by key and buffer words (the canonical keyed merge), and reduce
+again through that order with the merge ops.  COMPLETE and FINAL modes
+then evaluate the result expressions over the buffers.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..expr.core import (ColumnValue, EvalContext, Expression,
                          bind_expression, make_column, output_name)
 from ..ops import segmented as seg
 from ..ops.carry import sort_order
-from ..ops.gather import gather_batch, gather_column
+from ..ops.gather import gather_column
 from .base import Exec, ExecContext
 from .concat import concat_batches
 
@@ -38,29 +39,42 @@ _MAX_WORDS = _MAX_OPS = 16                     # kMaxWords / kMaxOps in csrc
 
 
 # ---------------------------------------------------------------------------
-# K3: grouped reduce over key-sorted rows
+# K3: grouped reduce over rows read in key order
 # ---------------------------------------------------------------------------
 
-def segment_reduce_sorted_plain(sorted_words: Sequence[torch.Tensor],
-                                live_sorted: torch.Tensor,
+def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
+                                live: Optional[torch.Tensor],
                                 values: Sequence[Optional[torch.Tensor]],
                                 contribs: Sequence[torch.Tensor],
-                                global_agg: bool):
-    """Plain version of K3, from boundaries, segment ids and index_add_.
-    See ``segment_reduce_sorted`` for the result."""
-    n = int(live_sorted.shape[0])
-    dev = live_sorted.device
+                                global_agg: bool,
+                                order: Optional[torch.Tensor] = None):
+    """Plain version of K3: the lanes put in key order by index_select,
+    then boundaries, segment ids and index_add_.  See
+    ``segment_reduce_sorted`` for the arguments and the result."""
+    if order is not None:
+        idx = order.to(torch.int64)
+        words = [w.index_select(0, idx) for w in words]
+        live = None if live is None else live.index_select(0, idx)
+        values = [None if v is None else v.index_select(0, idx)
+                  for v in values]
+        contribs = [c.index_select(0, idx) for c in contribs]
+    lanes = _lanes(words, live, values, contribs)
+    n, dev = int(lanes[0].shape[0]), lanes[0].device
+    if live is None:
+        live = torch.ones(n, dtype=torch.bool, device=dev)
     if global_agg:
         groups = 1
         ids = torch.zeros(n, dtype=torch.int64, device=dev)
         first_row = torch.zeros(1, dtype=torch.int32, device=dev)
     else:
-        new_group = seg.segment_boundaries(sorted_words, live_sorted)
+        new_group = seg.segment_boundaries(words, live)
         first_row = torch.nonzero(new_group).flatten().to(torch.int32)
         groups = int(first_row.shape[0])
-        ids = seg.segment_ids(new_group).clamp(min=0).to(torch.int64)
+        ids = seg.segment_ids(new_group).to(torch.int64)
+    grouped = ids >= 0            # rows before the first start: no group
     sums, counts = [], []
     for v, c in zip(values, contribs):
+        c = c & grouped
         idx = ids[c]
 
         def per_group(x, dtype):
@@ -89,45 +103,66 @@ def segment_reduce_sorted_plain(sorted_words: Sequence[torch.Tensor],
         s = torch.where((n_ni > 0) & (n_pi == 0) & (n_nan == 0),
                         torch.full_like(s, float("-inf")), s)
         sums.append(torch.where(cnt > 0, s, torch.zeros_like(s)))
+    if order is not None and n > 0:
+        first_row = order.index_select(0, first_row.to(torch.int64))
     return first_row, sums, counts, groups
 
 
-def segment_reduce_sorted(sorted_words: Sequence[torch.Tensor],
-                          live_sorted: torch.Tensor,
+def _lanes(words, live, values, contribs) -> List[torch.Tensor]:
+    lanes = [x for x in (*words, live, *values, *contribs) if x is not None]
+    if not lanes:
+        raise ValueError("segment_reduce_sorted needs a key word, the live "
+                         "flags or an op")
+    return lanes
+
+
+def segment_reduce_sorted(words: Sequence[torch.Tensor],
+                          live: Optional[torch.Tensor],
                           values: Sequence[Optional[torch.Tensor]],
                           contribs: Sequence[torch.Tensor],
-                          global_agg: bool):
-    """Reduce key-sorted rows per group (K3).
+                          global_agg: bool,
+                          order: Optional[torch.Tensor] = None):
+    """Reduce rows per group, reading them in key order (K3).
 
-    A group starts at a live row that is the first row or differs from
-    the previous row in a key word; with ``global_agg`` all rows form one
-    group.  Per op k, ``contribs[k]`` marks the rows that contribute and
+    Every lane is in input order; ``order`` (int32, K2's permutation)
+    puts them in key order -- sorted row i is input row ``order[i]`` --
+    or is None when they already are.  A group starts at a live row
+    (``live`` None: every row) that is the first sorted row or differs
+    from the previous one in a key word; rows before the first start
+    belong to no group; with ``global_agg`` all rows form one group.  Per
+    op k, ``contribs[k]`` marks the rows that contribute and
     ``values[k]`` is the int64 or float64 lane to sum (None for a count).
-    Returns (first_row int32[G], sums, counts int64[G], G): int64 sums
-    wrap mod 2^64; float64 sums add the finite values and are NaN if any
-    NaN or both infinities contribute, else +-inf if one does; a sum with
-    no contributor is 0."""
-    if live_sorted.device.type == "cpu":
-        return segment_reduce_sorted_plain(sorted_words, live_sorted, values,
-                                           contribs, global_agg)
-    present = [v for v in values if v is not None]
-    kernels.require_cuda("segment_reduce_sorted", live_sorted,
-                         *sorted_words, *contribs, *present)
-    n = int(live_sorted.shape[0])
-    if len(sorted_words) > _MAX_WORDS or len(values) > _MAX_OPS:
+    Returns (first_row int32[G], sums, counts int64[G], G), groups in key
+    order, ``first_row[g]`` the input row of group g's first sorted row:
+    int64 sums wrap mod 2^64; float64 sums add the finite values and are
+    NaN if any NaN or both infinities contribute, else +-inf if one
+    does; a sum with no contributor is 0."""
+    lanes = _lanes(words, live, values, contribs)
+    if order is not None:
+        lanes.append(order)
+    if lanes[0].device.type == "cpu":
+        return segment_reduce_sorted_plain(words, live, values, contribs,
+                                           global_agg, order)
+    kernels.require_cuda("segment_reduce_sorted", *lanes)
+    n = int(lanes[0].shape[0])
+    if len(words) > _MAX_WORDS or len(values) > _MAX_OPS:
         raise ValueError(f"segment_reduce_sorted: at most {_MAX_WORDS} key "
                          f"words and {_MAX_OPS} ops")
-    if live_sorted.dtype != torch.bool or any(
-            c.dtype != torch.bool or c.shape != (n,) for c in contribs):
+    if any(c.dtype != torch.bool or c.shape != (n,)
+           for c in [*contribs, *([] if live is None else [live])]):
         raise TypeError("segment_reduce_sorted: live and contributor masks "
                         f"must be bool[{n}]")
-    if any(w.dtype != torch.int64 or w.shape != (n,) for w in sorted_words):
+    if any(w.dtype != torch.int64 or w.shape != (n,) for w in words):
         raise TypeError(f"segment_reduce_sorted: key words must be int64[{n}]")
+    present = [v for v in values if v is not None]
     if any(v.dtype not in (torch.int64, torch.float64) or v.shape != (n,)
            for v in present):
         raise TypeError("segment_reduce_sorted: values must be int64 or "
                         f"float64[{n}]")
-    dev = live_sorted.device
+    if order is not None and (order.dtype != torch.int32
+                              or order.shape != (n,)):
+        raise TypeError(f"segment_reduce_sorted: order must be int32[{n}]")
+    dev = lanes[0].device
     m = max(n, 1)
     lib = kernels.library("segment_reduce")
     kinds = [_KIND_COUNT if v is None else
@@ -138,15 +173,17 @@ def segment_reduce_sorted(sorted_words: Sequence[torch.Tensor],
     counts = [torch.empty(m, dtype=torch.int64, device=dev) for _ in values]
     first_row = torch.empty(m, dtype=torch.int32, device=dev)
     groups = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * kernels.num_tiles(lib, n) + m,
-                          dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        max(lib.srt_segment_reduce_scratch_bytes(n, len(values)) // 8, 1),
+        dtype=torch.int64, device=dev)
     kernels.check(lib, lib.srt_segment_reduce(
-        kernels.pointers(sorted_words), len(sorted_words),
-        live_sorted.data_ptr(), n, int(global_agg), len(values),
-        kernels.pointers(values), kernels.pointers(contribs),
+        kernels.pointers(words), len(words),
+        None if live is None else live.data_ptr(),
+        None if order is None else order.data_ptr(), n, int(global_agg),
+        len(values), kernels.pointers(values), kernels.pointers(contribs),
         kernels.ints(kinds), kernels.pointers(sums),
         kernels.pointers(counts), first_row.data_ptr(), groups.data_ptr(),
-        scratch.data_ptr(), kernels.stream(live_sorted)),
+        scratch.data_ptr(), kernels.stream(lanes[0])),
         "segment_reduce_sorted")
     segment_reduce_sorted.launches += 1
     g = int(groups.item())
@@ -171,18 +208,41 @@ def _padded(x: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
+def k3_ops(vals: List[DeviceColumn], ops: List[str]):
+    """K3's value lanes and contributor masks for ``vals`` reduced by
+    ``ops``, and for each op the index of the K3 op whose result it
+    takes.  A count of a lane's valid rows is also the contributor count
+    of an earlier op over the same validity lane (avg's sum and count),
+    so K3 folds that lane once."""
+    k3_vals, k3_contribs, take, by_lane = [], [], [], {}
+    for v, op in zip(vals, ops):
+        lane = v.validity.data_ptr()
+        if op == "countvalid" and lane in by_lane:
+            take.append(by_lane[lane])
+            continue
+        by_lane.setdefault(lane, len(k3_vals))
+        take.append(len(k3_vals))
+        k3_vals.append(v.data if op == "sum" else None)
+        k3_contribs.append(v.validity)
+    return k3_vals, k3_contribs, take
+
+
 def _group_reduce(key_cols: List[DeviceColumn],
                   value_cols: List[DeviceColumn], ops: List[str],
-                  num_rows: int, global_agg: bool
+                  num_rows: int, global_agg: bool,
+                  order: Optional[torch.Tensor] = None
                   ) -> Tuple[List[DeviceColumn], List[DeviceColumn], int]:
     """Group the first ``num_rows`` rows by ``key_cols`` and reduce each
-    value column with its op (``sum`` or ``countvalid``).  Returns
-    (key columns, value columns, group count); the outputs hold one row
-    per group, padded to a capacity bucket.
+    value column with its op (``sum`` or ``countvalid``).  ``order``, when
+    given, is a permutation that already sorts the rows by key; else the
+    rows are sorted here (K2).  Returns (key columns, value columns, group
+    count); the outputs hold one row per group, padded to a capacity
+    bucket.
 
     The reference sorts every row with a leading live word so padding
-    sorts last; live rows are always a prefix here, so only the prefix
-    is sorted, which gives the same order."""
+    sorts last, and carries every lane through the sort; live rows are
+    always a prefix here, so only the prefix is sorted, which gives the
+    same order, and K3 reads the lanes through the order."""
     for op in ops:
         if op not in ("sum", "countvalid"):
             raise NotImplementedError(f"aggregate op {op!r} is not ported")
@@ -190,37 +250,21 @@ def _group_reduce(key_cols: List[DeviceColumn],
     keys = [_prefix(c, n) for c in key_cols]
     vals = [_prefix(c, n) for c in value_cols]
     words = [w for kc in keys for w in seg.key_words_for_column(kc)]
-    order = sort_order(words) if words else None
-    moved = {}
-
-    def in_order(lane: torch.Tensor) -> torch.Tensor:
-        # a lane in key order: only the lanes K3 reads are gathered, and
-        # a lane several ops share (avg's sum and count) only once
-        if order is None:
-            return lane
-        key = (lane.data_ptr(), lane.dtype)
-        if key not in moved:
-            moved[key] = lane.index_select(0, order)
-        return moved[key]
-
-    dev = vals[0].data.device if vals else keys[0].data.device
-    live = torch.ones(n, dtype=torch.bool, device=dev)
+    if order is None and words:
+        order = sort_order(words)
+    k3_vals, k3_contribs, take = k3_ops(vals, ops)
     first_row, sums, counts, groups = segment_reduce_sorted(
-        [in_order(w) for w in words], live,
-        [in_order(v.data) if op == "sum" else None
-         for v, op in zip(vals, ops)],
-        [in_order(v.validity) for v in vals], global_agg)
-    # each group's key is read at its first row, in input order
-    first_in = first_row if order is None else order.index_select(
-        0, first_row)
+        words, None, k3_vals, k3_contribs, global_agg, order)
     cap = bucket_for(groups)
     out_keys = []
     for kc in keys:
-        g = gather_column(kc, first_in)
+        # each group's key is read at its first row, in input order
+        g = gather_column(kc, first_row)
         out_keys.append(DeviceColumn(kc.dtype, _padded(g.data, cap),
                                      _padded(g.validity, cap)))
     out_vals = []
-    for vc, op, s, cnt in zip(vals, ops, sums, counts):
+    for vc, op, i in zip(vals, ops, take):
+        s, cnt = sums[i], counts[i]
         if op == "countvalid":
             out_vals.append(DeviceColumn(
                 t.LONG, _padded(cnt, cap),
@@ -309,23 +353,22 @@ class GpuHashAggregateExec(Exec):
         return DeviceBatch(ok + ov, n, self._group_names + self._buffer_names)
 
     def _merge_batch(self, batch: DeviceBatch) -> DeviceBatch:
-        if self.stable_merge:
-            batch = self._canonicalize_merge_input(batch)
         k = len(self.grouping)
+        order = self._canonical_order(batch) if self.stable_merge else None
         ok, ov, n = _group_reduce(list(batch.columns[:k]),
                                   list(batch.columns[k:]), self._merge_ops,
-                                  batch.num_rows, not self.grouping)
+                                  batch.num_rows, not self.grouping, order)
         return DeviceBatch(ok + ov, n, self._group_names + self._buffer_names)
 
-    def _canonicalize_merge_input(self, batch: DeviceBatch) -> DeviceBatch:
-        """The live rows ordered by key and buffer value words, so the fold
-        order within a group is a function of content (stable_merge)."""
+    def _canonical_order(self, batch: DeviceBatch) -> torch.Tensor:
+        """The live rows' order by key and buffer value words, so the fold
+        order within a group is a function of content (stable_merge).  The
+        key words lead, so the order also sorts the rows by key, as the
+        stable key sort of rows put in this order would."""
         n = batch.num_rows
-        live = DeviceBatch([_prefix(c, n) for c in batch.columns], n,
-                           batch.names)
-        words = [w for c in live.columns
-                 for w in seg.key_words_for_column(c)]
-        return gather_batch(live, seg.lexsort(words), None, n)
+        words = [w for c in batch.columns
+                 for w in seg.key_words_for_column(_prefix(c, n))]
+        return seg.lexsort(words)
 
     def _evaluate_batch(self, batch: DeviceBatch) -> DeviceBatch:
         k = len(self.grouping)

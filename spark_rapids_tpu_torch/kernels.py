@@ -42,8 +42,9 @@ _SIGNATURES = {
         "srt_radix_pass": [_P, _P, _P, _P, _I, _I, _P, _P],
     },
     "segment_reduce": {
-        "srt_segment_reduce": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P],
+        "srt_segment_reduce": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P],
+        "srt_segment_reduce_scratch_bytes": [_I, _I],
     },
 }
 

@@ -5,7 +5,8 @@ through jnp on the CPU; the port's ``_group_reduce`` and
 ``GpuHashAggregateExec`` on ``device="cpu"``, where kernels K2 and K3
 run their plain PyTorch versions.  Integer sums and counts must match
 exactly; float sums to a relative 1e-9, because the reference adds a
-group's values by a segmented prefix scan and the port in row order.
+group's values by a segmented prefix scan and the port in another
+order (row order in the plain version, tiles and a fixed tree in K3).
 """
 
 import jax.numpy as jnp
@@ -26,12 +27,16 @@ from spark_rapids_tpu.expr import predicates as rpred
 from spark_rapids_tpu.testing.asserts import assert_tables_equal
 from spark_rapids_tpu_torch.columnar import device as pdev
 from spark_rapids_tpu_torch.exec import aggregate as pagg
+from spark_rapids_tpu_torch.exec import concat as pconcat
 from spark_rapids_tpu_torch.exec.base import ExecContext as PExecContext
 from spark_rapids_tpu_torch.exec.basic import FilterExec as PFilterExec
 from spark_rapids_tpu_torch.exec.basic import LocalScanExec as PLocalScanExec
 from spark_rapids_tpu_torch.expr import aggregates as paggs
 from spark_rapids_tpu_torch.expr import core as pcore
 from spark_rapids_tpu_torch.expr import predicates as ppred
+from spark_rapids_tpu_torch.ops import carry as pcarry
+from spark_rapids_tpu_torch.ops import gather as pgather
+from spark_rapids_tpu_torch.ops import segmented as pseg
 
 FLOAT_RTOL = 1e-9
 
@@ -79,13 +84,12 @@ def _compare_column(rc, pc_, n, exact=True):
                                    equal_nan=True)
 
 
-@pytest.mark.parametrize("global_agg", [False, True])
-def test_group_reduce_matches_reference(global_agg):
-    rng = np.random.default_rng(11)
-    n = 900
-    table = q1_table(rng, n)
+def _check_group_reduce(table, global_agg):
+    """The port's _group_reduce equals the reference's on ``table``:
+    sum(v) wraps; sum(f) with +-inf, nan, -0.0; two counts.  Returns the
+    group count."""
+    n = table.num_rows
     ref, mine = _columns(table, n)
-    # k groups; sum(v) wraps; sum(f) with +-inf, nan, -0.0; two counts
     r_keys = [] if global_agg else [ref.columns[0]]
     p_keys = [] if global_agg else [mine.columns[0]]
     ops = ["sum", "sum", "countvalid", "countvalid"]
@@ -97,13 +101,49 @@ def test_group_reduce_matches_reference(global_agg):
                                     live, global_agg)
     pk, pv, pn = pagg._group_reduce(p_keys, p_vals, ops, n, global_agg)
     groups = int(rn)
-    assert pn == groups == (1 if global_agg else 41)   # 40 keys and null
+    assert pn == groups
     for rc, pc_ in zip(rk, pk):
         _compare_column(rc, pc_, groups)
     for rc, pc_ in zip(rv, pv):
         _compare_column(rc, pc_, groups,
                         exact=pc_.data.dtype != torch.float64)
     assert pagg.segment_reduce_sorted.launches == 0   # plain version
+    return groups
+
+
+@pytest.mark.parametrize("global_agg", [False, True])
+def test_group_reduce_matches_reference(global_agg):
+    table = q1_table(np.random.default_rng(11), 900)
+    groups = _check_group_reduce(table, global_agg)
+    assert groups == (1 if global_agg else 41)        # 40 keys and null
+
+
+def test_group_reduce_hot_key_matches_reference():
+    """40 % of the rows under one key, nulls in k and v, +-inf and NaN in
+    f: the input on which one thread folding a whole group was slowest."""
+    rng = np.random.default_rng(16)
+    n = 3000
+    table = q1_table(rng, n)
+    k = np.where(rng.random(n) < 0.4, 7, rng.integers(0, 40, n))
+    table = table.set_column(0, "k", pa.array(k.astype(np.int64),
+                                              mask=rng.random(n) < 0.05))
+    assert _check_group_reduce(table, False) == 41
+
+
+@pytest.mark.parametrize("sizes", [[4095], [4096], [4097], [8193],
+                                   [4000, 4191, 100]],
+                         ids=["4095", "4096", "4097", "8193",
+                              "rows_4000_to_8190"])
+def test_group_reduce_at_tile_edges_matches_reference(sizes):
+    """Groups that end at, before and after K3's 4096-row tile edge, in
+    key order; the rows are shuffled, so K3 reads them through K2's
+    order.  The last layout has one group over sorted rows 4000-8190."""
+    rng = np.random.default_rng(17)
+    n = sum(sizes)
+    k = np.repeat(np.arange(len(sizes), dtype=np.int64) * 5 - 3, sizes)
+    table = q1_table(rng, n).set_column(0, "k",
+                                        pa.array(rng.permutation(k)))
+    assert _check_group_reduce(table, False) == len(sizes)
 
 
 def test_group_reduce_of_no_rows():
@@ -135,6 +175,44 @@ def test_segment_reduce_plain_folds_in_row_order():
     assert np.isnan(sums[0].tolist()[1])              # +inf and -inf
     assert sums[1].tolist() == [-2**63, 12]           # wraps mod 2^64
     assert counts[2].tolist() == [2, 3]
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("global_agg", [False, True])
+def test_segment_reduce_through_order_equals_sorted_lanes(global_agg):
+    """K3's interface: lanes in input order read through ``order`` give
+    what the same lanes gathered into key order first give, with
+    ``first_row`` naming input rows."""
+    rng = np.random.default_rng(15)
+    n = 3000
+    words = [torch.from_numpy((rng.random(n) < 0.95).astype(np.int64)),
+             torch.from_numpy(rng.integers(-30, 30, n))]
+    order = pcarry.sort_order(words)
+    f = rng.random(n)
+    pick = rng.random(n)
+    f = np.where(pick < 0.01, np.inf, np.where(pick > 0.995, np.nan, f))
+    vals = [torch.from_numpy(rng.integers(2**61, 2**62, n)),
+            torch.from_numpy(f), None]
+    live = torch.from_numpy(rng.random(n) < 0.9)
+    contribs = [live & torch.from_numpy(rng.random(n) < 0.8)
+                for _ in vals]
+    idx = order.long()
+    old = pagg.segment_reduce_sorted(
+        [w[idx] for w in words], live[idx],
+        [None if v is None else v[idx] for v in vals],
+        [c[idx] for c in contribs], global_agg)
+    new = pagg.segment_reduce_sorted(words, live, vals, contribs,
+                                     global_agg, order)
+    assert new[3] == old[3] and (new[3] == 1) == global_agg
+    assert torch.equal(new[0], order[old[0].long()])
+    for a, b in zip(new[1] + new[2], old[1] + old[2]):
+        assert (a is None and b is None) or _same_bits(a, b)
+    assert pagg.segment_reduce_sorted.launches == 0   # plain version
 
 
 # ---------------------------------------------------------------------------
@@ -198,3 +276,32 @@ def test_stable_merge_ignores_batch_arrival_order():
             PExecContext("cpu")).sort_by("k")
         outs.append(out)
     assert outs[0].equals(outs[1])
+
+
+def test_merge_reads_through_canonical_order():
+    """The merge hands the canonical keyed order straight to the grouped
+    reduce; the old route gathered the batch by that order and sorted it
+    by key again.  Both give the same bits."""
+    table = q1_table(np.random.default_rng(18), 2400, specials=False)
+    node = _port_plan(table, 300, ("Complete",))
+    ctx = PExecContext("cpu")
+    partials = [node._update_batch(b)
+                for b in node.children[0].execute_partition(0, ctx)]
+    assert len(partials) == 8
+    names = node._group_names + node._buffer_names
+    merged_in = pconcat.concat_batches(
+        partials, names, node._key_types() + node._buffer_types)
+    got = node._merge_batch(merged_in)
+
+    n = merged_in.num_rows
+    live = pdev.DeviceBatch([pagg._prefix(c, n) for c in merged_in.columns],
+                            n, names)
+    words = [w for c in live.columns for w in pseg.key_words_for_column(c)]
+    canon = pgather.gather_batch(live, pseg.lexsort(words), None, n)
+    ok, ov, groups = pagg._group_reduce(
+        list(canon.columns[:1]), list(canon.columns[1:]), node._merge_ops,
+        n, False)
+    assert got.num_rows == groups
+    for a, b in zip(got.columns, ok + ov):
+        assert _same_bits(a.data, b.data)
+        assert torch.equal(a.validity, b.validity)
