@@ -235,6 +235,57 @@ def _edge_cases(torch, dev, carry, agg_mod):
     return cases
 
 
+def _k2_edge_cases(torch, dev, carry, tile):
+    """K2 against its plain version around its tile of ``tile`` rows:
+    three words with ties and extremes, a word varying in all 64 bits,
+    all-equal keys (the order must be the identity) and 12 words, each
+    varying in two digits, so later words are read through the order.
+    Returns the number of cases checked."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def rand_ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev)
+
+    extremes = torch.tensor([-2**63, 2**63 - 1, -1, 0, 1, 2**62],
+                            device=dev)
+    cases = 0
+    for n in (tile - 1, tile, tile + 1, 2 * tile + 1):
+        full = rand_ints(n, -2**63, 2**63 - 1)
+        full[:2] = extremes[:2]
+        for what, words in (
+                ("three words", [rand_ints(n, 0, 2),
+                                 extremes[rand_ints(n, 0, len(extremes))],
+                                 rand_ints(n, -5, 5)]),
+                ("a word varying in all 64 bits", [full]),
+                ("all-equal keys",
+                 [torch.full((n,), -7, dtype=torch.int64, device=dev)] * 2),
+                ("12 words", [rand_ints(n, 0, 7) << (8 * (j % 7) + 6)
+                              for j in range(12)])):
+            order = carry.sort_order(words)
+            if not torch.equal(order, carry.sort_order_plain(words)):
+                raise AssertionError(f"K2 differs on {what} at n={n}")
+            if what == "all-equal keys" and not torch.equal(
+                    order, torch.arange(n, dtype=torch.int32, device=dev)):
+                raise AssertionError(f"K2 moved equal keys at n={n}")
+            cases += 1
+    return cases
+
+
+def _k2_passes(carry, words):
+    """The passes K2 runs on ``words`` (its pass counter over one call),
+    after checking them against the plan from the plain histogram."""
+    carry.sort_order.passes = 0
+    carry.sort_order(words)
+    ran = carry.sort_order.passes
+    n = int(words[0].shape[0])
+    planned = len(carry.plan_passes(carry.varying_digits(
+        carry.digit_histogram_plain(words), n)))
+    if ran != planned:
+        raise AssertionError(f"K2 ran {ran} passes, the plain histogram "
+                             f"plans {planned}")
+    return ran
+
+
 def main() -> int:
     try:
         import torch
@@ -352,8 +403,9 @@ def main() -> int:
         order_p = carry.sort_order_plain(words)
         if not torch.equal(order, order_p):
             raise AssertionError("K2 differs from its plain version")
+        k2_passes = _k2_passes(carry, words)
         kernel_rows["sort_order"] = dict(
-            source="spark_rapids_tpu_torch/csrc/radix_sort.cu",
+            source="spark_rapids_tpu_torch/csrc/onesweep.cu",
             replaces="spark_rapids_tpu/ops/carry.py:80",
             max_abs_err=0.0,
             ms=cuda_ms(lambda: carry.sort_order(words)),
@@ -362,7 +414,39 @@ def main() -> int:
             # word gives the same order
             library_ms=cuda_ms(lambda: torch.sort(words[-1], stable=True)),
             bound_ms=bound(8 * len(words) * n + 4 * n))
-        print(f"K2 sort_order: rows {n}, words {len(words)}, exact")
+        print(f"K2 sort_order: rows {n}, words {len(words)}, passes "
+              f"{k2_passes}, exact, "
+              f"{kernel_rows['sort_order']['ms']:.3f} ms, library "
+              f"{kernel_rows['sort_order']['library_ms']:.3f} ms")
+
+        # K2 at the canonical merge's shape: the word list the 8-batch run
+        # sorts once it has concatenated the batches' partial results
+        merge_agg = GpuHashAggregateExec(
+            [A("k")], aggs, COMPLETE,
+            FilterExec(filt_expr, LocalScanExec(table, batch_rows=BATCH_ROWS)))
+        merge_words = []
+        canonical = merge_agg._canonical_order
+
+        def capture(b):
+            merge_words[:] = [w for c in b.columns for w in
+                              seg.key_words_for_column(
+                                  agg_mod._prefix(c, b.num_rows))]
+            return canonical(b)
+
+        merge_agg._canonical_order = capture
+        merge_agg.execute_collect(ExecContext(dev))
+        if not merge_words:
+            raise AssertionError("the 8-batch run made no canonical merge")
+        if not torch.equal(carry.sort_order(merge_words),
+                           carry.sort_order_plain(merge_words)):
+            raise AssertionError("K2 differs at the merge's shape")
+        m_passes = _k2_passes(carry, merge_words)
+        m_ms = cuda_ms(lambda: carry.sort_order(merge_words))
+        m_plain = cuda_ms(lambda: carry.sort_order_plain(merge_words))
+        print(f"K2 at the canonical merge's shape: rows "
+              f"{merge_words[0].shape[0]}, words {len(merge_words)}, passes "
+              f"{m_passes}, exact, {m_ms:.3f} ms, plain {m_plain:.3f} ms")
+        del merge_agg, merge_words
 
         # K3 reads every lane in input order, through K2's order
         vals = [agg_mod._prefix(v, n) for v in val_cols]
@@ -447,6 +531,10 @@ def main() -> int:
         cases = _edge_cases(torch, dev, carry, agg_mod)
         print(f"edge cases: K1, K2, K3 equal their plain versions at "
               f"{cases} sizes from 0 to 100,003 rows")
+        tile = kernels.library("onesweep").srt_tile_rows()
+        cases = _k2_edge_cases(torch, dev, carry, tile)
+        print(f"K2 edge cases: {cases} cases equal the plain version around "
+              f"its tile of {tile} rows")
     except Exception:
         failures.append("edge cases")
         traceback.print_exc()

@@ -1,6 +1,5 @@
 // Stable counting partition of rows into B buckets, shared by the
-// compaction (K1, B = 2), radix sort (K2, B = 16) and segment-start
-// (K3, B = 2) kernels.
+// compaction (K1, B = 2) and segment-start (K3, B = 2) kernels.
 //
 // Three launches, each over tiles of kTile consecutive rows:
 //   1. tile_counts_kernel: rows of each bucket per tile, by warp ballots;
@@ -10,7 +9,7 @@
 //      row inside its bucket with ballots, and hands (row, destination,
 //      bucket) to a writer.
 // Rows of a bucket keep their input order, which is what makes the
-// compaction and every radix pass stable.
+// compaction stable.
 //
 // The work is bound by device-memory bytes: each pass reads the bucket
 // source twice (count, scatter) and moves each lane once.  Ballots keep

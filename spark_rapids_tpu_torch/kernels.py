@@ -27,7 +27,7 @@ PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 HEADERS = ("partition.cuh",)
-SOURCES = ("compact", "radix_sort", "segment_reduce")
+SOURCES = ("compact", "onesweep", "segment_reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,9 +37,9 @@ _SIGNATURES = {
     "compact": {
         "srt_compact": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     },
-    "radix_sort": {
-        "srt_diff_bits": [_P, _I, _P, _P],
-        "srt_radix_pass": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "onesweep": {
+        "srt_sort_histogram": [_P, _I, _I, _P, _P, _P, _P],
+        "srt_sort_pass": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],
     },
     "segment_reduce": {
         "srt_segment_reduce": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,

@@ -113,11 +113,35 @@ def sort_order_plain(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
     return order.to(torch.int32)
 
 
-def _radix_passes(varying: Sequence[int]) -> List[Tuple[int, int]]:
-    """(word, shift) of every 4-bit digit that varies, least significant
+_SIGN = -2**63           # int64 with only the sign bit set
+_DIGITS = 8              # 8-bit digits of a 64-bit word
+_MAX_WORDS = 16          # words per histogram launch (kMaxWords in csrc)
+
+
+def digit_histogram_plain(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain version of K2's histogram step: ``counts[j, d, b]`` is the
+    number of rows of word j whose digit d (bits 8d to 8d+7 of the word
+    with its sign bit flipped) is b.  int64[words, 8, 256]."""
+    rows = []
+    for w in key_words:
+        u = w ^ _SIGN
+        rows.append(torch.stack([
+            torch.bincount((u >> (8 * d)) & 255, minlength=256)
+            for d in range(_DIGITS)]))
+    return torch.stack(rows)
+
+
+def varying_digits(counts: torch.Tensor, n: int) -> List[List[bool]]:
+    """Per word and digit, whether the digit varies: no bucket of its
+    histogram holds all n rows."""
+    return (counts.amax(-1) < n).tolist()
+
+
+def plan_passes(varying: Sequence[Sequence[bool]]) -> List[Tuple[int, int]]:
+    """(word, shift) of every 8-bit digit that varies, least significant
     word and digit first."""
-    return [(j, shift) for j in reversed(range(len(varying)))
-            for shift in range(0, 64, 4) if (varying[j] >> shift) & 15]
+    return [(j, 8 * d) for j in reversed(range(len(varying)))
+            for d in range(_DIGITS) if varying[j][d]]
 
 
 def sort_order(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -135,38 +159,59 @@ def sort_order(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
         return sort_order_plain(words)
     kernels.require_cuda("sort_order", *words)
     dev = words[0].device
-    lib = kernels.library("radix_sort")
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    lib = kernels.library("onesweep")
     st = kernels.stream(words[0])
-    varying_dev = torch.zeros(len(words), dtype=torch.int64, device=dev)
-    for j, w in enumerate(words):
-        kernels.check(lib, lib.srt_diff_bits(
-            w.data_ptr(), n, varying_dev.data_ptr() + 8 * j, st), "sort_order")
-    passes = _radix_passes(varying_dev.cpu().tolist())
+    nw = len(words)
+    # per word: 8 x 256 counts (bucket starts after the launch) and 8
+    # varying flags; a done counter per launch of up to 16 words
+    table = torch.zeros(nw * (_DIGITS * 256 + _DIGITS + 1),
+                        dtype=torch.int32, device=dev)
+    hist = table[:nw * _DIGITS * 256]
+    flags = table[hist.numel():hist.numel() + nw * _DIGITS]
+    done = table[hist.numel() + flags.numel():]
+    for c in range(0, nw, _MAX_WORDS):
+        chunk = words[c:c + _MAX_WORDS]
+        kernels.check(lib, lib.srt_sort_histogram(
+            kernels.pointers(chunk), len(chunk), n,
+            hist.data_ptr() + 4 * _DIGITS * 256 * c, done.data_ptr() + 4 * c,
+            flags.data_ptr() + 4 * _DIGITS * c, st), "sort_order")
     sort_order.launches += 1
-    order = torch.arange(n, dtype=torch.int32, device=dev)
+    passes = plan_passes(flags.view(nw, _DIGITS).cpu().tolist())
+    sort_order.passes += len(passes)
     if not passes:
-        return order
-    spare = torch.empty_like(order)
-    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
-    scratch = torch.empty(32 * kernels.num_tiles(lib, n), dtype=torch.int32,
-                          device=dev)
-    key_in = None
+        return torch.arange(n, dtype=torch.int32, device=dev)
+    # look-back state: 256 words per tile, one tile counter per pass
+    tiles = kernels.num_tiles(lib, n)
+    status = torch.zeros(tiles * 256 + len(passes), dtype=torch.int64,
+                         device=dev)
+    counters = status.data_ptr() + 8 * tiles * 256
+    ords = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    carried = len(passes) > len({j for j, _ in passes})
+    keys = [torch.empty(n, dtype=torch.int64, device=dev)
+            for _ in range(2 if carried else 0)]
+    order = key = None
     for p, (j, shift) in enumerate(passes):
-        if p == 0 or passes[p - 1][0] != j:
-            # first digit of a word: the word in the current row order
-            key_in = words[j] if p == 0 else words[j].index_select(0, order)
+        first_of_word = p == 0 or passes[p - 1][0] != j
         last_of_word = p + 1 == len(passes) or passes[p + 1][0] != j
         key_out = None if last_of_word else keys[p % 2]
-        kernels.check(lib, lib.srt_radix_pass(
-            key_in.data_ptr(), order.data_ptr(),
-            None if key_out is None else key_out.data_ptr(),
-            spare.data_ptr(), n, shift, scratch.data_ptr(), st), "sort_order")
-        order, spare = spare, order
-        key_in = key_out
+        # a word's first pass reads the word itself, through the order
+        # after the first word; later passes read the carried keys
+        key_in = words[j] if first_of_word else key
+        through = int(first_of_word and order is not None)
+        kernels.check(lib, lib.srt_sort_pass(
+            key_in.data_ptr(), None if order is None else order.data_ptr(),
+            through, None if key_out is None else key_out.data_ptr(),
+            ords[p % 2].data_ptr(), n, shift,
+            hist.data_ptr() + 4 * (j * _DIGITS * 256 + (shift // 8) * 256),
+            status.data_ptr(), counters + 8 * p, p + 1, st), "sort_order")
+        order, key = ords[p % 2], key_out
     return order
 
 
 sort_order.launches = 0
+sort_order.passes = 0      # radix passes run, over all calls
 
 
 def sort_rows(key_words: Sequence[torch.Tensor],

@@ -228,14 +228,6 @@ def test_sort_is_stable_on_equal_keys():
     assert order == threes + fives
 
 
-def test_radix_passes_skip_constant_digits():
-    # q1's keys (< 100,000) vary in the low 17 bits: five 4-bit digits
-    assert pcarry._radix_passes([0, (1 << 17) - 1]) == [
-        (1, 0), (1, 4), (1, 8), (1, 12), (1, 16)]
-    assert pcarry._radix_passes([1, 0]) == [(0, 0)]
-    assert pcarry._radix_passes([0, -1])[-1] == (1, 60)
-
-
 @pytest.mark.parametrize("keep_frac", [0.0, 0.4, 1.0])
 def test_compact_rows_matches_reference(keep_frac):
     rng = np.random.default_rng(5)
