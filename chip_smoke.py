@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from csrc/ with nvcc, holds each
-against its plain PyTorch version at the main path's shapes, then drives
-the main path -- bench q1, scan -> filter(v > -500000) -> group by k:
-sum(v), avg(f), count(*) -> collect -- over 2^25 rows, twice: through
+against its plain PyTorch version at the main paths' shapes, then drives
+the two main paths.  Bench q1, scan -> filter(v > -500000) -> group by
+k: sum(v), avg(f), count(*) -> collect, over 2^25 rows, twice: through
 the DataFrame API as one batch, and at exec level as 8 batches of
-4,194,304 rows (update -> concat -> merge -> evaluate).  Each result is
-compared with pyarrow's group-by on the host.  Launch counts are reset
-just before each main-path run and must be > 0 for every kernel after
-it.  Needs one CUDA card; exits non-zero and prints no result without
-one, or when any phase fails.  The last line is a JSON object.
+4,194,304 rows (update -> concat -> merge -> evaluate).  Bench q2, the
+2^25-row fact table inner-joined USING k with the 100,000-row dimension
+-> group by k: sum(w) -> collect, through the DataFrame API, and the
+hash join alone at exec level.  Each result is compared with pyarrow on
+the host.  Launch counts are reset just before each main-path run and
+must be > 0 after it for every kernel of that path.  Needs one CUDA
+card; exits non-zero and prints no result without one, or when any
+phase fails.  The last line is a JSON object.
 """
 
 import json
@@ -32,6 +35,9 @@ THRESHOLD = -(10**6) // 2  # bench.py q1's filter constant
 SEED = 42                 # bench.py make_tables' seed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 FLOAT_RTOL = 1e-9          # float sums add in another order than the oracle
+DIM_ROWS = 100_000         # bench.py make_tables' dimension
+HOT_COPIES = 10_000        # build rows of the hot key in K5's skew check
+HOT_PROBE_ROWS = 1 << 20   # probe rows of that check, 1 % on the hot key
 
 
 def _card_line():
@@ -42,14 +48,20 @@ def _card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def _make_table(n):
-    """bench.py make_tables' fact table, from the same seed."""
+def _make_tables(n):
+    """bench.py make_tables' fact and dimension tables, from the same
+    seed (the dimension drawn after the fact, from the same generator)."""
     rng = np.random.default_rng(SEED)
-    return pa.table({
+    fact = pa.table({
         "k": pa.array(rng.integers(0, 100_000, n).astype(np.int64)),
         "v": pa.array(rng.integers(-(10**6), 10**6, n).astype(np.int64)),
         "f": pa.array(rng.random(n)),
     })
+    dim = pa.table({
+        "k": pa.array(np.arange(DIM_ROWS, dtype=np.int64)),
+        "w": pa.array(rng.random(DIM_ROWS)),
+    })
+    return fact, dim
 
 
 def _oracle(table):
@@ -286,6 +298,166 @@ def _k2_passes(carry, words):
     return ran
 
 
+def _same_expansion(torch, a, b):
+    """Two results of expand_pairs are the same: indices, and every
+    column's data and validity."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and all(
+        torch.equal(x.data, y.data) and torch.equal(x.validity, y.validity)
+        for x, y in zip(list(a[2]) + list(a[3]), list(b[2]) + list(b[3]))))
+
+
+def _join_case(torch, jk, bucket_for, build_cols, n_b, probe_cols, n_p,
+               what):
+    """K2 + K4 (count_matches) and K5 (expand_pairs) against their plain
+    versions on one build and probe side, the first column of each the
+    key, for inner, left and full joins, at an output capacity equal to
+    the total and at its capacity bucket.  Returns the inner total."""
+    dev = probe_cols[0].data.device
+    cap_b, cap_p = build_cols[0].capacity, probe_cols[0].capacity
+    blive = torch.arange(cap_b, device=dev) < n_b
+    plive = torch.arange(cap_p, device=dev) < n_p
+    bh = jk.combined_key_hash(build_cols[:1], cap_b, side="build")
+    ph = jk.combined_key_hash(probe_cols[:1], cap_p, side="probe")
+    before = jk.join_probe.launches
+    got = jk.count_matches(bh, blive, ph, plive)
+    if cap_p and jk.join_probe.launches <= before:
+        raise AssertionError(f"K4 (join_probe) did not launch {what}")
+    want = jk.count_matches_plain(bh, blive, ph, plive)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"K4 (count_matches) differs {what}")
+    order, lo, counts = got
+    inner = None
+    for how in ("inner", "left", "full"):
+        ends = torch.cumsum(jk.effective_counts(counts, plive, how), 0)
+        total = int(ends[-1]) if cap_p else 0
+        inner = total if inner is None else inner
+        for out_cap in sorted({max(total, 1), bucket_for(max(total, 1))}):
+            args = (ends, lo, counts, order, total, out_cap, probe_cols,
+                    build_cols)
+            before = jk.expand_pairs.launches
+            got = jk.expand_pairs(*args)
+            if jk.expand_pairs.launches <= before:
+                raise AssertionError(f"K5 (expand_pairs) did not launch "
+                                     f"{what}, {how} join")
+            if not _same_expansion(torch, got,
+                                   jk.expand_pairs_plain(*args)):
+                raise AssertionError(f"K5 (expand_pairs) differs {what}, "
+                                     f"{how} join, capacity {out_cap}")
+    return inner
+
+
+def _join_edge_cases(torch, dev, jk, t, DeviceColumn, bucket_for):
+    """K4 and K5 against their plain versions on the card at shapes q2
+    does not reach: empty and dead build and probe sides, all-null keys
+    on either side, build keys repeated 1-64 times, half the probe keys
+    missing, probe and output counts around the kernels' blocks of 256,
+    keys at +-2^63.  Returns the number of cases checked."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rand_ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev)
+
+    def side(keys, null_frac=0.0, build=False):
+        n = int(keys.shape[0])
+        valid = torch.rand(n, generator=gen, device=dev) >= null_frac
+
+        def column(dtype, data, v=valid):
+            return DeviceColumn(dtype, torch.where(
+                v, data, torch.zeros_like(data)), v)
+        some = torch.rand(n, generator=gen, device=dev) >= 0.2
+        cols = [column(t.LONG, keys),
+                column(t.DOUBLE, torch.rand(n, generator=gen, device=dev,
+                                            dtype=torch.float64), some)]
+        if not build:
+            cols += [column(t.INT, rand_ints(n, -2**31, 2**31).to(
+                         torch.int32), some),
+                     column(t.BOOLEAN, torch.rand(
+                         n, generator=gen, device=dev) < 0.5, some)]
+        return cols
+
+    extremes = torch.tensor([-2**63, 2**63 - 1, -1, 0, 1, 2**62],
+                            device=dev)
+    many = torch.repeat_interleave(torch.arange(500, device=dev),
+                                   rand_ints(500, 1, 65))
+    many = many[torch.randperm(many.shape[0], generator=gen, device=dev)]
+    uniq = torch.arange(1000, device=dev)
+    cases = [
+        ("with no build rows", side(uniq[:0], build=True), 0,
+         side(rand_ints(1000, 0, 1000), 0.1), 1000),
+        ("with 1,024 dead build rows",
+         side(torch.arange(1024, device=dev), build=True), 0,
+         side(rand_ints(1000, 0, 1000)), 1000),
+        ("with no probe rows", side(uniq, build=True), 1000,
+         side(uniq[:0]), 0),
+        ("with 1,024 dead probe rows", side(uniq, build=True), 1000,
+         side(rand_ints(1024, 0, 1000)), 0),
+        ("with all-null build keys", side(uniq, 1.0, build=True), 1000,
+         side(rand_ints(3000, 0, 1000)), 3000),
+        ("with all-null probe keys", side(uniq, build=True), 1000,
+         side(rand_ints(3000, 0, 1000), 1.0), 3000),
+        ("on build keys repeated 1-64 times", side(many, 0.05, build=True),
+         int(many.shape[0]) - 7, side(rand_ints(5000, 0, 520), 0.05), 4990),
+        ("with half the probe keys missing", side(uniq, build=True), 1000,
+         side(rand_ints(5000, 0, 2000), 0.1), 5000),
+        ("on keys at +-2^63", side(extremes[rand_ints(300, 0, 6)], 0.1,
+                                   build=True), 300,
+         side(extremes[rand_ints(2000, 0, 6)], 0.1), 2000),
+    ]
+    # probe and output counts at and around the blocks of 256
+    for n in (1, 255, 256, 257, 511, 512, 513, 4097):
+        cases.append((f"at {n} probe rows and pairs",
+                      side(uniq, build=True), 1000,
+                      side(rand_ints(n, 0, 1000)), n))
+    for what, bcols, n_b, pcols, n_p in cases:
+        total = _join_case(torch, jk, bucket_for, bcols, n_b, pcols, n_p,
+                           what)
+        if what.startswith("at ") and total != n_p:
+            raise AssertionError(f"{total} pairs {what}")
+    return len(cases)
+
+
+def _k5_hot_key(torch, dev, jk, t, DeviceColumn, bucket_for):
+    """K5 on a hot key: HOT_COPIES build rows share one key that 1 % of
+    HOT_PROBE_ROWS probe rows hit; the other build keys are 0..99,999 once
+    and the other probe rows hit them uniformly.  Checks K5 against its
+    plain version; returns (pairs, output capacity, K5's arguments)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    hot = DIM_ROWS
+    bkeys = torch.cat([torch.arange(DIM_ROWS, device=dev),
+                       torch.full((HOT_COPIES,), hot, device=dev)])
+    nb = int(bkeys.shape[0])
+    pkeys = torch.where(
+        torch.rand(HOT_PROBE_ROWS, generator=gen, device=dev) < 0.01,
+        torch.full((HOT_PROBE_ROWS,), hot, device=dev),
+        torch.randint(0, DIM_ROWS, (HOT_PROBE_ROWS,), generator=gen,
+                      device=dev))
+
+    def col(dtype, data):
+        return DeviceColumn(dtype, data, torch.ones(
+            data.shape[0], dtype=torch.bool, device=dev))
+    build = [col(t.LONG, bkeys), col(t.DOUBLE, torch.rand(
+        nb, generator=gen, device=dev, dtype=torch.float64))]
+    probe = [col(t.LONG, pkeys), col(t.LONG, torch.randint(
+        -10**6, 10**6, (HOT_PROBE_ROWS,), generator=gen, device=dev)),
+        col(t.DOUBLE, torch.rand(HOT_PROBE_ROWS, generator=gen, device=dev,
+                                 dtype=torch.float64))]
+    live_b = torch.ones(nb, dtype=torch.bool, device=dev)
+    live_p = torch.ones(HOT_PROBE_ROWS, dtype=torch.bool, device=dev)
+    order, lo, counts = jk.count_matches(
+        jk.combined_key_hash(build[:1], nb, side="build"), live_b,
+        jk.combined_key_hash(probe[:1], HOT_PROBE_ROWS, side="probe"),
+        live_p)
+    ends = torch.cumsum(jk.effective_counts(counts, live_p, "inner"), 0)
+    total = int(ends[-1])
+    out_cap = bucket_for(total)
+    args = (ends, lo, counts, order, total, out_cap, probe, build)
+    if not _same_expansion(torch, jk.expand_pairs(*args),
+                           jk.expand_pairs_plain(*args)):
+        raise AssertionError("K5 differs from its plain version on the hot "
+                             "key")
+    return total, out_cap, args
+
+
 def main() -> int:
     try:
         import torch
@@ -303,11 +475,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, here)
     from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch import types as t
     from spark_rapids_tpu_torch.api import functions as F
     from spark_rapids_tpu_torch.api.column import col
     from spark_rapids_tpu_torch.api.session import GpuSession
-    from spark_rapids_tpu_torch.columnar.device import (batch_to_arrow,
-                                                        batch_to_device)
+    from spark_rapids_tpu_torch.columnar.device import (DeviceColumn,
+                                                        batch_to_arrow,
+                                                        batch_to_device,
+                                                        bucket_for)
     from spark_rapids_tpu_torch.exec import aggregate as agg_mod
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
     from spark_rapids_tpu_torch.exec.base import ExecContext
@@ -317,7 +492,9 @@ def main() -> int:
         COMPLETE, AggregateExpression, Average, Count, Sum)
     from spark_rapids_tpu_torch.expr.core import AttributeReference as A
     from spark_rapids_tpu_torch.expr.core import EvalContext
+    from spark_rapids_tpu_torch.exec.join import HashJoinExec
     from spark_rapids_tpu_torch.ops import carry
+    from spark_rapids_tpu_torch.ops import join_kernels as jk
     from spark_rapids_tpu_torch.ops import segmented as seg
 
     dev = torch.device("cuda")
@@ -353,8 +530,13 @@ def main() -> int:
     def bound(nbytes):
         return nbytes / HBM_BYTES_PER_S * 1e3
 
-    table = _make_table(ROWS)
+    table, dim = _make_tables(ROWS)
     want = _oracle(table)
+    t1 = time.perf_counter()
+    joined = table.join(dim, "k", join_type="inner")
+    q2_want = joined.group_by("k").aggregate([("w", "sum")]).sort_by("k")
+    print(f"pyarrow q2 oracle: {joined.num_rows} joined rows, "
+          f"{q2_want.num_rows} groups, {time.perf_counter() - t1:.1f} s")
     filt_expr = (col("v") > THRESHOLD).expr
     aggs = [AggregateExpression(Sum(A("v")), "sv"),
             AggregateExpression(Average(A("f")), "af"),
@@ -539,17 +721,136 @@ def main() -> int:
         failures.append("edge cases")
         traceback.print_exc()
 
+    # ---- kernel phase, q2: K4 and K5 against their plain versions ------
+    q2_pairs = None
+    try:
+        def upload(tbl):
+            return batch_to_device(pa.RecordBatch.from_arrays(
+                [c.combine_chunks() for c in tbl.columns],
+                names=tbl.column_names), dev)
+        fact_b, dim_b = upload(table), upload(dim)
+        cap_b, cap_p = dim_b.capacity, fact_b.capacity
+        blive = torch.arange(cap_b, device=dev) < dim_b.num_rows
+        plive = torch.arange(cap_p, device=dev) < fact_b.num_rows
+        bh = jk.combined_key_hash(dim_b.columns[:1], cap_b, side="build")
+        ph = jk.combined_key_hash(fact_b.columns[:1], cap_p, side="probe")
+        order, lo, counts = jk.count_matches(bh, blive, ph, plive)
+        if not all(torch.equal(x, y) for x, y in zip(
+                (order, lo, counts),
+                jk.count_matches_plain(bh, blive, ph, plive))):
+            raise AssertionError("K2 + K4 (count_matches) differ from their "
+                                 "plain version at q2's shapes")
+        sorted_h = torch.where(blive, bh, torch.full_like(bh, -1))[
+            order.long()]
+        k4_args = (sorted_h, ph, plive)
+        if not all(torch.equal(x, y) for x, y in zip(
+                jk.join_probe(*k4_args), jk.join_probe_plain(*k4_args))):
+            raise AssertionError("K4 differs from its plain version")
+        sw, pw = sorted_h ^ -2**63, ph ^ -2**63
+        kernel_rows["join_probe"] = dict(
+            source="spark_rapids_tpu_torch/csrc/join_probe.cu",
+            replaces="spark_rapids_tpu/ops/join_kernels.py:73",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: jk.join_probe(*k4_args)),
+            plain_ms=cuda_ms(lambda: jk.join_probe_plain(*k4_args)),
+            library_ms=cuda_ms(lambda: (torch.searchsorted(sw, pw),
+                                        torch.searchsorted(sw, pw,
+                                                           right=True))),
+            # per probe row: hash 8 B and live flag 1 B in, lo 4 B and count
+            # 8 B out; per build row: its sorted hash 8 B in
+            bound_ms=bound(21 * cap_p + 8 * cap_b))
+        eff = jk.effective_counts(counts, plive, "inner")
+        ends = torch.cumsum(eff, 0)
+        q2_pairs = int(ends[-1])
+        out_cap = bucket_for(q2_pairs)
+        k5_args = (ends, lo, counts, order, q2_pairs, out_cap,
+                   fact_b.columns, dim_b.columns)
+        res = jk.expand_pairs(*k5_args)
+        if not _same_expansion(torch, res, jk.expand_pairs_plain(*k5_args)):
+            raise AssertionError("K5 differs from its plain version at q2's "
+                                 "shapes")
+        bsel = res[1][:q2_pairs].long()
+        probe_lanes = [x for c in fact_b.columns for x in (c.data, c.validity)]
+        build_lanes = [x for c in dim_b.columns for x in (c.data, c.validity)]
+
+        def library():
+            rows = torch.repeat_interleave(torch.arange(cap_p, device=dev),
+                                           eff, output_size=q2_pairs)
+            return ([x.index_select(0, rows) for x in probe_lanes]
+                    + [x.index_select(0, bsel) for x in build_lanes])
+
+        def lane_bytes(lanes, n):
+            return sum(x.element_size() for x in lanes) * n
+        # in: ends 8 B, lo 4 B, counts 8 B and the probe lanes per probe
+        # row, order 4 B and the build lanes per build row; out: the two
+        # int32 indices and every lane per output position
+        k5_bytes = (20 * cap_p + lane_bytes(probe_lanes, cap_p) + 4 * cap_b
+                    + lane_bytes(build_lanes, cap_b) + 8 * out_cap
+                    + lane_bytes(probe_lanes + build_lanes, out_cap))
+        kernel_rows["expand_pairs"] = dict(
+            source="spark_rapids_tpu_torch/csrc/join_expand.cu",
+            replaces="spark_rapids_tpu/ops/join_kernels.py:130",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: jk.expand_pairs(*k5_args)),
+            plain_ms=cuda_ms(lambda: jk.expand_pairs_plain(*k5_args)),
+            library_ms=cuda_ms(library),
+            bound_ms=bound(k5_bytes))
+        for name, nbytes in (("K4 join_probe", 21 * cap_p + 8 * cap_b),
+                             ("K5 expand_pairs", k5_bytes)):
+            r = kernel_rows["join_probe" if name.startswith("K4")
+                            else "expand_pairs"]
+            print(f"{name}: probe rows {fact_b.num_rows} (capacity {cap_p}),"
+                  f" build rows {dim_b.num_rows} (capacity {cap_b}), pairs "
+                  f"{q2_pairs}, exact, {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} "
+                  f"ms, bound {r['bound_ms']:.3f} ms ({nbytes} bytes)")
+        del fact_b, dim_b, bh, ph, order, lo, counts, sorted_h, sw, pw, eff
+        del ends, res, bsel, probe_lanes, build_lanes, k4_args, k5_args
+    except Exception:
+        failures.append("kernel phase (q2)")
+        traceback.print_exc()
+
+    try:
+        hot_pairs, hot_cap, hot_args = _k5_hot_key(torch, dev, jk, t,
+                                                   DeviceColumn, bucket_for)
+        hot_ms = cuda_ms(lambda: jk.expand_pairs(*hot_args))
+        del hot_args
+        uniform_ms = kernel_rows["expand_pairs"]["ms"]
+        ratio = (hot_ms / hot_pairs) / (uniform_ms / q2_pairs)
+        print(f"K5 hot key: {HOT_PROBE_ROWS} probe rows, 1 % on a key with "
+              f"{HOT_COPIES} build rows: {hot_pairs} pairs (capacity "
+              f"{hot_cap}), exact, {hot_ms:.3f} ms, "
+              f"{hot_ms / hot_pairs * 1e6:.3f} ns a pair; uniform (q2) "
+              f"{uniform_ms / q2_pairs * 1e6:.3f} ns a pair; hot / uniform "
+              f"{ratio:.3f}")
+        if ratio > 2.0:
+            raise AssertionError(f"K5 on a hot key takes {ratio:.2f}x its "
+                                 "time a pair on uniform keys (at most 2x)")
+    except Exception:
+        failures.append("K5 hot key")
+        traceback.print_exc()
+
+    try:
+        cases = _join_edge_cases(torch, dev, jk, t, DeviceColumn, bucket_for)
+        print(f"join edge cases: K2 + K4 and K5 (inner, left, full) equal "
+              f"their plain versions in {cases} cases")
+    except Exception:
+        failures.append("join edge cases")
+        traceback.print_exc()
+
     # ---- main path: DataFrame API, one batch -------------------------
+    wrappers = {"compact_rows": carry.compact_lanes,
+                "sort_order": carry.sort_order,
+                "segment_reduce_sorted": agg_mod.segment_reduce_sorted,
+                "join_probe": jk.join_probe,
+                "expand_pairs": jk.expand_pairs}
+
     def count_reset():
-        for fn in (carry.compact_lanes, carry.sort_order,
-                   agg_mod.segment_reduce_sorted):
+        for fn in wrappers.values():
             fn.launches = 0
 
     def counts():
-        return {"compact_rows": carry.compact_lanes.launches,
-                "sort_order": carry.sort_order.launches,
-                "segment_reduce_sorted":
-                    agg_mod.segment_reduce_sorted.launches}
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     launches = {}
     try:
@@ -640,13 +941,140 @@ def main() -> int:
         failures.append("main path (8 batches)")
         traceback.print_exc()
 
-    for run, per in launches.items():
-        for name, count in per.items():
-            if count <= 0:
+    # ---- main path: q2 through the DataFrame API ----------------------
+    def check_q2(got, what):
+        got = got.sort_by("k")
+        if got.column_names != ["k", "sw"]:
+            raise AssertionError(f"{what}: columns {got.column_names}")
+        if got.num_rows != q2_want.num_rows or not np.array_equal(
+                got["k"].to_numpy(), q2_want["k"].to_numpy()):
+            raise AssertionError(f"{what}: {got.num_rows} groups, oracle "
+                                 f"{q2_want.num_rows}, or other keys")
+        sw, ww = got["sw"].to_numpy(), q2_want["w_sum"].to_numpy()
+        if not np.all(np.isfinite(sw)) or not np.allclose(
+                sw, ww, rtol=FLOAT_RTOL, atol=0.0):
+            raise AssertionError(f"{what}: sum(w) differs by up to "
+                                 f"{np.max(np.abs(sw - ww))}")
+
+    q2_session = q2df = None
+    try:
+        q2_session = GpuSession()
+        q2df = (q2_session.create_dataframe(table)
+                .join(q2_session.create_dataframe(dim), on="k", how="inner")
+                .group_by(col("k"))
+                .agg(F.sum(col("w")).alias("sw")))
+        t1 = time.perf_counter()
+        check_q2(q2df.collect(), "DataFrame q2 (cold)")
+        cold_wall = time.perf_counter() - t1
+        count_reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        got = q2df.collect()
+        torch.cuda.synchronize()
+        launches["q2"] = counts()
+        check_q2(got, "DataFrame q2")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            q2df.collect()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        print(f"main path DataFrame q2 ({ROWS} fact rows joined with "
+              f"{DIM_ROWS} dimension rows, then grouped by k): cold wall "
+              f"{cold_wall * 1e3:.1f} ms (upload included); warm wall median "
+              f"of 3 {sorted(walls)[1]:.1f} ms ({', '.join(f'{w:.1f}' for w in walls)}), "
+              f"{ROWS / sorted(walls)[1] / 1e3:.1f} M fact rows/s, "
+              f"{got.num_rows} groups, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches {launches['q2']}")
+        # the hash join alone, at exec level
+        join = HashJoinExec([A("k")], [A("k")], "inner", None,
+                            LocalScanExec(table), LocalScanExec(dim))
+        out = join.execute_collect(ExecContext(dev))
+        if out.num_rows != joined.num_rows:
+            raise AssertionError(f"exec-level join: {out.num_rows} rows, "
+                                 f"pyarrow {joined.num_rows}")
+        if pc.sum(out["v"]).as_py() != pc.sum(joined["v"]).as_py():
+            raise AssertionError("exec-level join: sum(v) differs")
+        sw_got, sw_want = pc.sum(out["w"]).as_py(), pc.sum(joined["w"]).as_py()
+        if not np.isclose(sw_got, sw_want, rtol=FLOAT_RTOL, atol=0.0):
+            raise AssertionError(f"exec-level join: sum(w) {sw_got} vs "
+                                 f"{sw_want}")
+        print(f"exec-level HashJoinExec inner: {out.num_rows} rows, sum(v) "
+              f"exact, sum(w) within {FLOAT_RTOL:g}")
+        del out, join
+    except Exception:
+        failures.append("main path (q2)")
+        traceback.print_exc()
+
+    # ---- where q2's time goes: stage by stage, and a trace -------------
+    try:
+        agg_q2 = q2_session.last_plan
+        project = agg_q2.children[0]
+        join = project.children[0]
+        ctx = ExecContext(dev)
+        probe = next(iter(join.children[0].execute_partition(0, ctx)))
+        build = join._collect_build(ctx)
+        for _ in range(2):                 # the second pass is reported
+            stages, st = {}, {}
+            t1 = time.perf_counter()
+
+            def hash_sides():
+                st["hashes"] = join._hash_keys(build, probe)
+
+            def count():
+                bh, blive, ph, st["plive"] = st["hashes"]
+                st["order"], st["lo"], st["counts"] = jk.count_matches(
+                    bh, blive, ph, st["plive"])
+
+            def expand():
+                st["out"], _ = join._expand(build, probe, st["order"],
+                                            st["lo"], st["counts"],
+                                            st["plive"], "inner")
+
+            for name, step in (
+                    ("hash", hash_sides), ("count", count),
+                    ("expand", expand),
+                    ("project", lambda: st.update(
+                        out=project._compute(st["out"]))),
+                    ("update", lambda: st.update(
+                        out=agg_q2._update_batch(st["out"]))),
+                    ("evaluate", lambda: st.update(
+                        out=agg_q2._evaluate_batch(st["out"]))),
+                    ("download", lambda: st.update(
+                        out=batch_to_arrow(st["out"])))):
+                step()
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                stages[name] = (now - t1) * 1e3
+                t1 = now
+        print("q2 stages (ms): " + " ".join(f"{k}={v:.2f}"
+                                            for k, v in stages.items()))
+        del st, probe, build
+        trace = _profile(torch, q2df.collect)
+        print(f"trace of a warm DataFrame q2: wall {trace['wall_ms']:.2f} ms, "
+              f"device busy {trace['busy_ms']:.2f} ms, idle share "
+              f"{trace['idle_share']:.3f}; top kernels (ms): "
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"]))
+    except Exception:
+        failures.append("q2 stage split")
+        traceback.print_exc()
+
+    path_kernels = {
+        "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "q2": ("sort_order", "join_probe", "expand_pairs",
+               "segment_reduce_sorted")}
+    for run, names in path_kernels.items():
+        if run not in launches:
+            failures.append(f"launch counts of the {run} run missing")
+            continue
+        for name in names:
+            if launches[run][name] <= 0:
                 failures.append(f"{name} not launched on the {run} run")
-    if len(launches) < 2:
-        failures.append("launch counts missing")
-    elif launches["batches"]["sort_order"] != ROWS // BATCH_ROWS + 1:
+    if "batches" in launches and \
+            launches["batches"]["sort_order"] != ROWS // BATCH_ROWS + 1:
         # one sort per batch and the canonical merge's, which K3 then
         # reads through: no second sort of the merge input
         failures.append(f"sort_order launched "
@@ -654,10 +1082,14 @@ def main() -> int:
                         f"batches run, not {ROWS // BATCH_ROWS + 1}")
 
     if kernel_rows:
+        # launches on the main path each kernel belongs to: q1 for K1-K3,
+        # q2 for K4 and K5
+        run_of = {"join_probe": "q2", "expand_pairs": "q2"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],
-                 launches=launches.get("dataframe", {}).get(name, 0),
+                 launches=launches.get(run_of.get(name, "dataframe"),
+                                       {}).get(name, 0),
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by="bytes", library_ms=r["library_ms"])

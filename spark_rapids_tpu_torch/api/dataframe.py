@@ -1,7 +1,7 @@
 """DataFrame and GroupedData of the slice.
 
 Counterpart of spark_rapids_tpu/api/dataframe.py: filter / where,
-group_by / groupBy, agg and collect.
+group_by / groupBy, agg, join and collect.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from typing import List
 
 import pyarrow as pa
 
+from ..exec.join import JOIN_TYPES
 from ..expr.aggregates import AggregateExpression
 from ..expr.core import Alias, AttributeReference, Expression, Literal
 from ..plan import logical as L
@@ -44,6 +45,33 @@ class DataFrame:
 
     def agg(self, *aggs) -> "DataFrame":
         return self.group_by().agg(*aggs)
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Join with ``other``: ``on`` is a column name or a list of names
+        (USING: one key column in the output) or a condition; ``how`` one
+        of inner, left, right, full, left_semi, left_anti, cross, or a
+        Spark alias of one."""
+        how = {"leftsemi": "left_semi", "semi": "left_semi",
+               "leftanti": "left_anti", "anti": "left_anti",
+               "outer": "full", "fullouter": "full",
+               "leftouter": "left", "rightouter": "right"}.get(
+                   how.lower().replace("_", ""), how.lower())
+        if how not in JOIN_TYPES:
+            raise ValueError(f"unknown join type {how!r}; expected one of "
+                             f"{', '.join(JOIN_TYPES)} or a Spark alias")
+        cond = None
+        using = None
+        if on is not None:
+            if isinstance(on, str):
+                using = [on]
+            elif isinstance(on, (list, tuple)) and on and \
+                    isinstance(on[0], str):
+                using = list(on)
+            else:
+                cond = _to_expr(on)
+        return DataFrame(L.Join(self._lp, other._lp, how, cond, using),
+                         self.session)
 
     def collect(self) -> pa.Table:
         return self.session.execute(self._lp)

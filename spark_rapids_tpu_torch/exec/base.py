@@ -9,7 +9,7 @@ have no counterpart yet.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import pyarrow as pa
 
@@ -40,6 +40,14 @@ class Exec:
     @property
     def num_partitions(self) -> int:
         return self.children[0].num_partitions if self.children else 1
+
+    def estimated_size_bytes(self) -> Optional[int]:
+        """Rough output size for planning (the join's build-side choice);
+        None when unknown."""
+        sizes = [c.estimated_size_bytes() for c in self.children]
+        if not sizes or any(s is None for s in sizes):
+            return None
+        return sum(sizes)
 
     def execute_partition(self, pid: int, ctx: ExecContext
                           ) -> Iterator[DeviceBatch]:

@@ -50,6 +50,9 @@ class LocalScanExec(Exec):
     def num_partitions(self):
         return self._num_partitions
 
+    def estimated_size_bytes(self):
+        return self.table.nbytes
+
     def execute_partition(self, pid, ctx: ExecContext
                           ) -> Iterator[DeviceBatch]:
         if self.pin_cache is None:

@@ -252,3 +252,11 @@ def make_column(ctx: EvalContext, dtype: t.DataType, data,
                           device=dev)
     data = torch.where(validity, data, torch.zeros_like(data))
     return ColumnValue(DeviceColumn(dtype, data, validity))
+
+
+def all_null_column(ctx: EvalContext, dtype: t.DataType) -> ColumnValue:
+    """A column of ``dtype`` that is null in every row."""
+    return ColumnValue(DeviceColumn(
+        dtype,
+        torch.zeros(ctx.capacity, dtype=dtype.torch_dtype, device=ctx.device),
+        torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)))

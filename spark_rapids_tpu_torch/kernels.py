@@ -27,12 +27,14 @@ PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 HEADERS = ("partition.cuh",)
-SOURCES = ("compact", "onesweep", "segment_reduce")
+SOURCES = ("compact", "onesweep", "segment_reduce", "join_probe",
+           "join_expand")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "compact": {
         "srt_compact": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
@@ -45,6 +47,13 @@ _SIGNATURES = {
         "srt_segment_reduce": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P],
         "srt_segment_reduce_scratch_bytes": [_I, _I],
+    },
+    "join_probe": {
+        "srt_join_probe": [_P, _I, _P, _P, _I, _P, _P, _P],
+    },
+    "join_expand": {
+        "srt_join_expand": [_P, _I, _P, _P, _P, _I, _L, _L, _P, _P, _I, _P,
+                            _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -98,6 +98,14 @@ def compact_rows(keep: torch.Tensor, cols: Sequence[DeviceColumn]
     return out_cols, n_kept
 
 
+def mask_validity(col: DeviceColumn, mask: torch.Tensor) -> DeviceColumn:
+    """AND ``mask`` into a column's validity; the data under the new
+    nulls becomes zero, as everywhere in the port."""
+    validity = col.validity & mask
+    return DeviceColumn(col.dtype, torch.where(
+        validity, col.data, torch.zeros_like(col.data)), validity)
+
+
 # ---------------------------------------------------------------------------
 # K2: stable lexicographic sort
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Logical plan nodes of the slice: LocalRelation, Filter, Aggregate.
+"""Logical plan nodes of the slice: LocalRelation, Filter, Aggregate, Join.
 
 Counterpart of spark_rapids_tpu/plan/logical.py; each node resolves its
 output schema.
@@ -6,7 +6,7 @@ output schema.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import pyarrow as pa
 
@@ -62,3 +62,37 @@ class Aggregate(LogicalPlan):
             names.append(a.name)
             dtypes.append(bind_aggregate(a, cn, ct).data_type())
         return names, dtypes
+
+
+class Join(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, how: str,
+                 condition: Optional[Expression] = None,
+                 using: Optional[List[str]] = None):
+        self.children = (left, right)
+        self.how = how  # inner, left, right, full, left_semi, left_anti, cross
+        self.condition = condition
+        self.using = using
+
+    def schema(self):
+        ln, lt = self.children[0].schema()
+        rn, rt = self.children[1].schema()
+        if self.how in ("left_semi", "left_anti"):
+            return ln, lt
+        if self.using:
+            # USING (as plan_join projects it): the key columns first, then
+            # each side's other columns
+            names, types = [], []
+            for k in self.using:
+                names.append(k)
+                types.append(rt[rn.index(k)] if self.how == "right"
+                             else lt[ln.index(k)])
+            for n, t_ in zip(ln, lt):
+                if n not in self.using:
+                    names.append(n)
+                    types.append(t_)
+            for n, t_ in zip(rn, rt):
+                if n not in self.using:
+                    names.append(n)
+                    types.append(t_)
+            return names, types
+        return ln + rn, lt + rt

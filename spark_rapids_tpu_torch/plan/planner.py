@@ -1,9 +1,10 @@
 """Logical plan -> device execs.
 
 Counterpart of spark_rapids_tpu/plan/planner.py together with the
-aggregate conversion of plan/overrides.py (_convert_aggregate): with one
-partition, an aggregate plans as a single COMPLETE-mode
-GpuHashAggregateExec.  The reference's tagging, cost model and CPU
+aggregate and join conversions of plan/overrides.py (_convert_aggregate,
+_convert_join): with one partition, an aggregate plans as a single
+COMPLETE-mode GpuHashAggregateExec, and a join through
+exec/join.py:plan_join.  The reference's tagging, cost model and CPU
 fallback are not ported yet, so a node or a multi-partition aggregate
 outside the slice raises NotImplementedError.
 """
@@ -14,6 +15,7 @@ from . import logical as L
 from ..exec.aggregate import GpuHashAggregateExec
 from ..exec.base import Exec
 from ..exec.basic import FilterExec, LocalScanExec
+from ..exec.join import plan_join
 from ..expr.aggregates import COMPLETE
 
 
@@ -31,5 +33,7 @@ def plan(lp: L.LogicalPlan) -> Exec:
                 "shuffle exchange, which is not ported yet")
         return GpuHashAggregateExec(lp.grouping, lp.aggregates, COMPLETE,
                                     child)
+    if isinstance(lp, L.Join):
+        return plan_join(lp, plan(lp.children[0]), plan(lp.children[1]))
     raise NotImplementedError(
         f"logical plan node {type(lp).__name__} is not ported yet")
