@@ -4,20 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from csrc/ with nvcc, holds each
-against its plain PyTorch version at the main paths' shapes, then drives
-the two main paths.  Bench q1, scan -> filter(v > -500000) -> group by
-k: sum(v), avg(f), count(*) -> collect, over 2^25 rows, twice: through
-the DataFrame API as one batch, and at exec level as 8 batches of
-4,194,304 rows (update -> concat -> merge -> evaluate).  Bench q2, the
-2^25-row fact table inner-joined USING k with the 100,000-row dimension
--> group by k: sum(w) -> collect, through the DataFrame API, and the
-hash join alone at exec level.  Each result is compared with pyarrow on
-the host.  Launch counts are reset just before each main-path run and
-must be > 0 after it for every kernel of that path.  Needs one CUDA
-card; exits non-zero and prints no result without one, or when any
-phase fails.  The last line is a JSON object.
+against its plain PyTorch version at the main paths' shapes and at edge
+cases (the join kernels K6, K4 and K5 on 27 join cases and a hot key;
+K3 on a group-by of 9 columns with 17 sums), then drives the two main
+paths.  Bench q1, scan -> filter(v > -500000) -> group by k: sum(v),
+avg(f), count(*) -> collect, over 2^25 rows, twice: through the
+DataFrame API as one batch, and at exec level as 8 batches of 4,194,304
+rows (update -> concat -> merge -> evaluate).  Bench q2, the 2^25-row
+fact table inner-joined USING k with the 100,000-row dimension -> group
+by k: sum(w) -> collect, through the DataFrame API, and the hash join
+alone at exec level.  Each result is compared with pyarrow on the host.
+Launch counts are reset just before each main-path run and must be > 0
+after it for every kernel of that path.  Needs one CUDA card; exits
+non-zero and prints no result without one, or when any phase fails.
+The last line is a JSON object.
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -38,6 +41,9 @@ FLOAT_RTOL = 1e-9          # float sums add in another order than the oracle
 DIM_ROWS = 100_000         # bench.py make_tables' dimension
 HOT_COPIES = 10_000        # build rows of the hot key in K5's skew check
 HOT_PROBE_ROWS = 1 << 20   # probe rows of that check, 1 % on the hot key
+WIDE_ROWS = 1 << 20        # rows of the wide group-by check
+WIDE_KEYS = 9              # its grouping columns: 18 key words
+WIDE_SUMS = 17             # its sums: 17 K3 ops, two sets of launches
 
 
 def _card_line():
@@ -99,12 +105,13 @@ def _profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans, per_name = [], {}
+    spans, per_name, named = [], {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
+        named.append((start, e.name[:48], (end - start) / 1e3))
         per_name[e.name] = per_name.get(e.name, 0.0) + (end - start) / 1e3
     busy, last = 0.0, None
     for start, end in sorted(spans):
@@ -120,7 +127,10 @@ def _profile(torch, fn):
     return dict(wall_ms=wall, busy_ms=busy,
                 idle_share=max(0.0, 1.0 - busy / wall),
                 top=[(name[:60], ms) for name, ms in top],
-                gather_ms=gathers)
+                gather_ms=gathers,
+                before_probe=list(itertools.takewhile(
+                    lambda e: "probe_kernel" not in e[0],
+                    [(name, ms) for _, name, ms in sorted(named)])))
 
 
 def _k3_diff(torch, a, b, what):
@@ -247,6 +257,87 @@ def _edge_cases(torch, dev, carry, agg_mod):
     return cases
 
 
+def _wide_table(n):
+    """WIDE_KEYS grouping columns of every key type (a few values each,
+    some nulls) and WIDE_SUMS int and float columns to sum."""
+    rng = np.random.default_rng(SEED + 5)
+    cols = {}
+    for i in range(WIDE_KEYS):
+        kind = i % 4
+        if kind == 0:
+            vals = rng.integers(0, 3, n)
+        elif kind == 1:
+            vals = rng.integers(-1, 2, n).astype(np.int32)
+        elif kind == 2:
+            vals = rng.random(n) < 0.5
+        else:
+            vals = rng.choice([0.5, -1.5, 2.0], n)
+        cols[f"k{i}"] = pa.array(vals, mask=rng.random(n) < 0.02)
+    for j in range(WIDE_SUMS):
+        vals = rng.random(n) if j % 3 == 2 else rng.integers(-10**6, 10**6, n)
+        cols[f"v{j}"] = pa.array(vals, mask=rng.random(n) < 0.05)
+    return pa.table(cols)
+
+
+def _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
+                   session, F, col, rows=WIDE_ROWS):
+    """A group-by of WIDE_KEYS columns with WIDE_SUMS sums, more key words
+    and ops than one K3 launch set takes: K3 against its plain version,
+    and the query through the session against pyarrow (keys and int sums
+    exactly, float sums to FLOAT_RTOL).  K3 must launch in both."""
+    table = _wide_table(rows)
+    keys = [f"k{i}" for i in range(WIDE_KEYS)]
+    batch = batch_to_device(pa.RecordBatch.from_arrays(
+        [c.combine_chunks() for c in table.columns],
+        names=table.column_names), dev)
+    n = batch.num_rows
+    words = [w for c in batch.columns[:WIDE_KEYS]
+             for w in seg.key_words_for_column(agg_mod._prefix(c, n))]
+    vals = [agg_mod._prefix(c, n) for c in batch.columns[WIDE_KEYS:]]
+    sums, contribs, _ = agg_mod.k3_ops(vals, ["sum"] * WIDE_SUMS)
+    args = (words, None, sums, contribs, False, carry.sort_order(words))
+    k3 = agg_mod.segment_reduce_sorted
+    before = k3.launches
+    res = k3(*args)
+    if dev.type == "cuda" and k3.launches <= before:
+        raise AssertionError("K3 did not launch on the wide group-by")
+    _k3_diff(torch, res, agg_mod.segment_reduce_sorted_plain(*args),
+             f"with {WIDE_KEYS} grouping columns and {WIDE_SUMS} sums")
+    before = k3.launches
+    got = (session.create_dataframe(table)
+           .group_by(*[col(k) for k in keys])
+           .agg(*[F.sum(col(f"v{j}")).alias(f"s{j}")
+                  for j in range(WIDE_SUMS)])).collect()
+    if dev.type == "cuda" and k3.launches <= before:
+        raise AssertionError("K3 did not launch on the wide group-by "
+                             "through the session")
+    want = table.group_by(keys).aggregate(
+        [(f"v{j}", "sum") for j in range(WIDE_SUMS)])
+
+    order_by = [(k, "ascending") for k in keys]
+    got, want = got.sort_by(order_by), want.sort_by(order_by)
+    if got.num_rows != want.num_rows or got.num_rows != res[3]:
+        raise AssertionError(f"wide group-by: {got.num_rows} groups, "
+                             f"pyarrow {want.num_rows}, K3 {res[3]}")
+    for k in keys:
+        if not got[k].combine_chunks().equals(want[k].combine_chunks()):
+            raise AssertionError(f"wide group-by: key {k} differs")
+    for j in range(WIDE_SUMS):
+        a = got[f"s{j}"].combine_chunks()
+        b = want[f"v{j}_sum"].combine_chunks()
+        if not a.is_null().equals(b.is_null()):
+            raise AssertionError(f"wide group-by: nulls of s{j} differ")
+        a, b = a.drop_null().to_numpy(), b.drop_null().to_numpy()
+        same = np.array_equal(a, b) if j % 3 != 2 else np.allclose(
+            a, b, rtol=FLOAT_RTOL, atol=0.0)
+        if not same:
+            raise AssertionError(f"wide group-by: s{j} differs")
+    print(f"K3 wide group-by: {rows} rows, {WIDE_KEYS} grouping columns "
+          f"({len(words)} key words), {WIDE_SUMS} sums, {res[3]} groups: "
+          f"K3 equals its plain version and the session's result equals "
+          f"pyarrow's")
+
+
 def _k2_edge_cases(torch, dev, carry, tile):
     """K2 against its plain version around its tile of ``tile`` rows:
     three words with ties and extremes, a word varying in all 64 bits,
@@ -300,32 +391,44 @@ def _k2_passes(carry, words):
 
 def _same_expansion(torch, a, b):
     """Two results of expand_pairs are the same: indices, and every
-    column's data and validity."""
+    column's data bits and validity."""
+    def bits(x):
+        return x.view(torch.int64) if x.dtype == torch.float64 else x
     return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and all(
-        torch.equal(x.data, y.data) and torch.equal(x.validity, y.validity)
+        torch.equal(bits(x.data), bits(y.data))
+        and torch.equal(x.validity, y.validity)
         for x, y in zip(list(a[2]) + list(a[3]), list(b[2]) + list(b[3]))))
 
 
 def _join_case(torch, jk, bucket_for, build_cols, n_b, probe_cols, n_p,
-               what):
-    """K2 + K4 (count_matches) and K5 (expand_pairs) against their plain
-    versions on one build and probe side, the first column of each the
-    key, for inner, left and full joins, at an output capacity equal to
-    the total and at its capacity bucket.  Returns the inner total."""
-    dev = probe_cols[0].data.device
+               what, nkeys=1, null_matches=False):
+    """K6 on both sides' keys, K6 + K2 + K4 (count_matches) and K5
+    (expand_pairs) against their plain versions on one build and probe
+    side whose first ``nkeys`` columns are the key, for inner, left and
+    full joins, at an output capacity equal to the total and at its
+    capacity bucket.  Fails unless K6 launched (for each side with rows),
+    K4 (where there are probe rows) and K5.  Returns the inner total."""
     cap_b, cap_p = build_cols[0].capacity, probe_cols[0].capacity
-    blive = torch.arange(cap_b, device=dev) < n_b
-    plive = torch.arange(cap_p, device=dev) < n_p
-    bh = jk.combined_key_hash(build_cols[:1], cap_b, side="build")
-    ph = jk.combined_key_hash(probe_cols[:1], cap_p, side="probe")
+    bkeys, pkeys = build_cols[:nkeys], probe_cols[:nkeys]
+    for side, keys, cap in (("build", bkeys, cap_b), ("probe", pkeys, cap_p)):
+        before = jk.combined_key_hash.launches
+        got = jk.combined_key_hash(keys, cap, null_matches, side)
+        if cap and jk.combined_key_hash.launches <= before:
+            raise AssertionError(f"K6 (key_hash) did not launch on the "
+                                 f"{side} side {what}")
+        if not torch.equal(got, jk.combined_key_hash_plain(
+                keys, cap, null_matches, side)):
+            raise AssertionError(f"K6 (key_hash) differs on the {side} side "
+                                 f"{what}")
     before = jk.join_probe.launches
-    got = jk.count_matches(bh, blive, ph, plive)
+    got = jk.count_matches(bkeys, n_b, pkeys, n_p, null_matches)
     if cap_p and jk.join_probe.launches <= before:
         raise AssertionError(f"K4 (join_probe) did not launch {what}")
-    want = jk.count_matches_plain(bh, blive, ph, plive)
+    want = jk.count_matches_plain(bkeys, n_b, pkeys, n_p, null_matches)
     if not all(torch.equal(x, y) for x, y in zip(got, want)):
-        raise AssertionError(f"K4 (count_matches) differs {what}")
+        raise AssertionError(f"K6 + K2 + K4 (count_matches) differ {what}")
     order, lo, counts = got
+    plive = torch.arange(cap_p, device=lo.device) < n_p
     inner = None
     for how in ("inner", "left", "full"):
         ends = torch.cumsum(jk.effective_counts(counts, plive, how), 0)
@@ -347,27 +450,36 @@ def _join_case(torch, jk, bucket_for, build_cols, n_b, probe_cols, n_p,
 
 
 def _join_edge_cases(torch, dev, jk, t, DeviceColumn, bucket_for):
-    """K4 and K5 against their plain versions on the card at shapes q2
+    """K6, K4 and K5 against their plain versions on the card at shapes q2
     does not reach: empty and dead build and probe sides, all-null keys
     on either side, build keys repeated 1-64 times, half the probe keys
     missing, probe and output counts around the kernels' blocks of 256,
-    keys at +-2^63.  Returns the number of cases checked."""
+    keys at +-2^63; INT, BOOLEAN and DOUBLE keys (+-0.0, NaN, +-inf, a
+    subnormal), keys of 2 and 3 columns, null keys on both sides with
+    nulls matching or not, one key on every live build row, all-distinct
+    keys, and a capacity far above the live rows.  Returns the number of
+    cases checked."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
 
     def rand_ints(n, lo, hi):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev)
 
-    def side(keys, null_frac=0.0, build=False):
-        n = int(keys.shape[0])
-        valid = torch.rand(n, generator=gen, device=dev) >= null_frac
+    def column(dtype, data, valid):
+        return DeviceColumn(dtype, torch.where(
+            valid, data, torch.zeros_like(data)), valid)
 
-        def column(dtype, data, v=valid):
-            return DeviceColumn(dtype, torch.where(
-                v, data, torch.zeros_like(data)), v)
+    def side(keys, null_frac=0.0, build=False):
+        """Key column(s) (a tensor, or a list of (type, data) key columns),
+        then payload columns."""
+        if isinstance(keys, torch.Tensor):
+            keys = [(t.LONG, keys)]
+        n = int(keys[0][1].shape[0])
+        cols = [column(dtype, data, torch.rand(
+                    n, generator=gen, device=dev) >= null_frac)
+                for dtype, data in keys]
         some = torch.rand(n, generator=gen, device=dev) >= 0.2
-        cols = [column(t.LONG, keys),
-                column(t.DOUBLE, torch.rand(n, generator=gen, device=dev,
-                                            dtype=torch.float64), some)]
+        cols.append(column(t.DOUBLE, torch.rand(
+            n, generator=gen, device=dev, dtype=torch.float64), some))
         if not build:
             cols += [column(t.INT, rand_ints(n, -2**31, 2**31).to(
                          torch.int32), some),
@@ -377,50 +489,102 @@ def _join_edge_cases(torch, dev, jk, t, DeviceColumn, bucket_for):
 
     extremes = torch.tensor([-2**63, 2**63 - 1, -1, 0, 1, 2**62],
                             device=dev)
+    doubles = torch.tensor([0.0, -0.0, float("nan"), -float("nan"),
+                            float("inf"), -float("inf"), 1e-310, -1.5, 2.5,
+                            1e300], dtype=torch.float64, device=dev)
     many = torch.repeat_interleave(torch.arange(500, device=dev),
                                    rand_ints(500, 1, 65))
     many = many[torch.randperm(many.shape[0], generator=gen, device=dev)]
     uniq = torch.arange(1000, device=dev)
+
+    def ints(n, hi):
+        return (t.INT, rand_ints(n, -hi, hi).to(torch.int32))
+
+    def bools(n):
+        return (t.BOOLEAN, torch.rand(n, generator=gen, device=dev) < 0.5)
+
+    def dbls(n):
+        return (t.DOUBLE, doubles[rand_ints(n, 0, len(doubles))])
+
+    def longs(n, hi):
+        return (t.LONG, rand_ints(n, 0, hi))
+
+    # (what, build columns, live build rows, probe columns, live probe
+    # rows, key columns, nulls match)
     cases = [
         ("with no build rows", side(uniq[:0], build=True), 0,
-         side(rand_ints(1000, 0, 1000), 0.1), 1000),
+         side(rand_ints(1000, 0, 1000), 0.1), 1000, 1, False),
         ("with 1,024 dead build rows",
          side(torch.arange(1024, device=dev), build=True), 0,
-         side(rand_ints(1000, 0, 1000)), 1000),
+         side(rand_ints(1000, 0, 1000)), 1000, 1, False),
         ("with no probe rows", side(uniq, build=True), 1000,
-         side(uniq[:0]), 0),
+         side(uniq[:0]), 0, 1, False),
         ("with 1,024 dead probe rows", side(uniq, build=True), 1000,
-         side(rand_ints(1024, 0, 1000)), 0),
+         side(rand_ints(1024, 0, 1000)), 0, 1, False),
         ("with all-null build keys", side(uniq, 1.0, build=True), 1000,
-         side(rand_ints(3000, 0, 1000)), 3000),
+         side(rand_ints(3000, 0, 1000)), 3000, 1, False),
         ("with all-null probe keys", side(uniq, build=True), 1000,
-         side(rand_ints(3000, 0, 1000), 1.0), 3000),
+         side(rand_ints(3000, 0, 1000), 1.0), 3000, 1, False),
         ("on build keys repeated 1-64 times", side(many, 0.05, build=True),
-         int(many.shape[0]) - 7, side(rand_ints(5000, 0, 520), 0.05), 4990),
+         int(many.shape[0]) - 7, side(rand_ints(5000, 0, 520), 0.05), 4990,
+         1, False),
         ("with half the probe keys missing", side(uniq, build=True), 1000,
-         side(rand_ints(5000, 0, 2000), 0.1), 5000),
+         side(rand_ints(5000, 0, 2000), 0.1), 5000, 1, False),
         ("on keys at +-2^63", side(extremes[rand_ints(300, 0, 6)], 0.1,
                                    build=True), 300,
-         side(extremes[rand_ints(2000, 0, 6)], 0.1), 2000),
+         side(extremes[rand_ints(2000, 0, 6)], 0.1), 2000, 1, False),
     ]
     # probe and output counts at and around the blocks of 256
     for n in (1, 255, 256, 257, 511, 512, 513, 4097):
         cases.append((f"at {n} probe rows and pairs",
                       side(uniq, build=True), 1000,
-                      side(rand_ints(n, 0, 1000)), n))
-    for what, bcols, n_b, pcols, n_p in cases:
+                      side(rand_ints(n, 0, 1000)), n, 1, False))
+    cases += [
+        ("on INT keys", side([ints(2000, 300)], 0.05, build=True), 1990,
+         side([ints(4000, 400)], 0.05), 4000, 1, False),
+        ("on BOOLEAN keys", side([bools(50)], 0.1, build=True), 50,
+         side([bools(3000)], 0.1), 2990, 1, False),
+        ("on DOUBLE keys with +-0.0, NaN, +-inf and a subnormal",
+         side([dbls(200)], 0.05, build=True), 200,
+         side([dbls(3000)], 0.05), 3000, 1, False),
+        ("on 2-column keys", side([longs(3000, 40), ints(3000, 5)], 0.02,
+                                  build=True), 3000,
+         side([longs(6000, 50), ints(6000, 6)], 0.02), 6000, 2, False),
+        ("on 3-column keys",
+         side([ints(1500, 4), dbls(1500), bools(1500)], 0.02, build=True),
+         1500, side([ints(4000, 5), dbls(4000), bools(4000)], 0.02), 4000,
+         3, False),
+        ("on null keys of both sides, nulls not matching",
+         side([longs(800, 60), dbls(800)], 0.2, build=True), 800,
+         side([longs(3000, 70), dbls(3000)], 0.2), 3000, 2, False),
+        ("on null keys of both sides, nulls matching",
+         side([longs(800, 60), dbls(800)], 0.2, build=True), 800,
+         side([longs(3000, 70), dbls(3000)], 0.2), 3000, 2, True),
+        ("on one key on every live build row",
+         side(torch.full((2048,), 7, device=dev), build=True), 2000,
+         side(rand_ints(3000, 5, 9)), 3000, 1, False),
+        ("on all-distinct build keys",
+         side(torch.randperm(50_000, generator=gen, device=dev) * 3,
+              build=True), 50_000,
+         side(rand_ints(20_000, 0, 150_000)), 20_000, 1, False),
+        ("at a capacity far above the live rows",
+         side(rand_ints(65_536, 0, 100), build=True), 37,
+         side(rand_ints(65_536, 0, 100)), 1000, 1, False),
+    ]
+    for what, bcols, n_b, pcols, n_p, nkeys, null_matches in cases:
         total = _join_case(torch, jk, bucket_for, bcols, n_b, pcols, n_p,
-                           what)
-        if what.startswith("at ") and total != n_p:
+                           what, nkeys, null_matches)
+        if what.startswith("at ") and "probe rows" in what and total != n_p:
             raise AssertionError(f"{total} pairs {what}")
     return len(cases)
 
 
-def _k5_hot_key(torch, dev, jk, t, DeviceColumn, bucket_for):
-    """K5 on a hot key: HOT_COPIES build rows share one key that 1 % of
-    HOT_PROBE_ROWS probe rows hit; the other build keys are 0..99,999 once
-    and the other probe rows hit them uniformly.  Checks K5 against its
-    plain version; returns (pairs, output capacity, K5's arguments)."""
+def _hot_key(torch, dev, jk, t, DeviceColumn, bucket_for):
+    """K4 and K5 on a hot key: HOT_COPIES build rows share one key that 1 %
+    of HOT_PROBE_ROWS probe rows hit; the other build keys are
+    0..99,999 once and the other probe rows hit them uniformly.  Checks K4
+    and K5 against their plain versions; returns (pairs, output capacity,
+    K5's arguments, K4's arguments)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     hot = DIM_ROWS
     bkeys = torch.cat([torch.arange(DIM_ROWS, device=dev),
@@ -441,21 +605,25 @@ def _k5_hot_key(torch, dev, jk, t, DeviceColumn, bucket_for):
         -10**6, 10**6, (HOT_PROBE_ROWS,), generator=gen, device=dev)),
         col(t.DOUBLE, torch.rand(HOT_PROBE_ROWS, generator=gen, device=dev,
                                  dtype=torch.float64))]
-    live_b = torch.ones(nb, dtype=torch.bool, device=dev)
     live_p = torch.ones(HOT_PROBE_ROWS, dtype=torch.bool, device=dev)
-    order, lo, counts = jk.count_matches(
-        jk.combined_key_hash(build[:1], nb, side="build"), live_b,
-        jk.combined_key_hash(probe[:1], HOT_PROBE_ROWS, side="probe"),
-        live_p)
+    side = jk.sort_build(jk.combined_key_hash(build[:1], nb, side="build"),
+                         torch.ones(nb, dtype=torch.bool, device=dev))
+    k4_args = (side, probe[:1], HOT_PROBE_ROWS)
+    lo, counts = jk.join_probe(*k4_args)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (lo, counts), jk.join_probe_keys_plain(side.sorted_hash,
+                                                   *k4_args[1:]))):
+        raise AssertionError("K4 differs from its plain version on the hot "
+                             "key")
     ends = torch.cumsum(jk.effective_counts(counts, live_p, "inner"), 0)
     total = int(ends[-1])
     out_cap = bucket_for(total)
-    args = (ends, lo, counts, order, total, out_cap, probe, build)
+    args = (ends, lo, counts, side.order, total, out_cap, probe, build)
     if not _same_expansion(torch, jk.expand_pairs(*args),
                            jk.expand_pairs_plain(*args)):
         raise AssertionError("K5 differs from its plain version on the hot "
                              "key")
-    return total, out_cap, args
+    return total, out_cap, args, k4_args
 
 
 def main() -> int:
@@ -721,7 +889,7 @@ def main() -> int:
         failures.append("edge cases")
         traceback.print_exc()
 
-    # ---- kernel phase, q2: K4 and K5 against their plain versions ------
+    # ---- kernel phase, q2: K6, K4 and K5 against their plain versions --
     q2_pairs = None
     try:
         def upload(tbl):
@@ -730,35 +898,112 @@ def main() -> int:
                 names=tbl.column_names), dev)
         fact_b, dim_b = upload(table), upload(dim)
         cap_b, cap_p = dim_b.capacity, fact_b.capacity
-        blive = torch.arange(cap_b, device=dev) < dim_b.num_rows
-        plive = torch.arange(cap_p, device=dev) < fact_b.num_rows
-        bh = jk.combined_key_hash(dim_b.columns[:1], cap_b, side="build")
-        ph = jk.combined_key_hash(fact_b.columns[:1], cap_p, side="probe")
-        order, lo, counts = jk.count_matches(bh, blive, ph, plive)
+        n_b, n_p = dim_b.num_rows, fact_b.num_rows
+        bkeys, pkeys = dim_b.columns[:1], fact_b.columns[:1]
+        blive = torch.arange(cap_b, device=dev) < n_b
+        plive = torch.arange(cap_p, device=dev) < n_p
+        # K6 hashes the build side on the main path; the probe side's
+        # hashes are checked too, and the probe below is held against
+        # them
+        bh = jk.combined_key_hash(bkeys, cap_b, side="build")
+        ph = jk.combined_key_hash(pkeys, cap_p, side="probe")
+        for what, mine, plain in (
+                ("build", bh, jk.combined_key_hash_plain(bkeys, cap_b,
+                                                         side="build")),
+                ("probe", ph, jk.combined_key_hash_plain(pkeys, cap_p,
+                                                         side="probe"))):
+            if not torch.equal(mine, plain):
+                raise AssertionError(f"K6 differs from its plain version on "
+                                     f"the {what} side at q2's shapes")
+        # per row: the 8 B key, its 1 B validity, the 8 B hash
+        k6_bytes = 17 * cap_b
+        kernel_rows["key_hash"] = dict(
+            source="spark_rapids_tpu_torch/csrc/key_hash.cu",
+            replaces="spark_rapids_tpu/ops/join_kernels.py:43",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: jk.combined_key_hash(bkeys, cap_b,
+                                                    side="build")),
+            plain_ms=cuda_ms(lambda: jk.combined_key_hash_plain(
+                bkeys, cap_b, side="build")),
+            # no single PyTorch call computes the hash
+            library_ms=None,
+            bound_ms=bound(k6_bytes))
+        k6_probe_ms = cuda_ms(lambda: jk.combined_key_hash(pkeys, cap_p,
+                                                           side="probe"))
+        k6_probe_plain_ms = cuda_ms(lambda: jk.combined_key_hash_plain(
+            pkeys, cap_p, side="probe"))
+        r = kernel_rows["key_hash"]
+        print(f"K6 key_hash: build side {cap_b} rows, exact, "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({k6_bytes} bytes); probe side "
+              f"{cap_p} rows (hashed inside K4 on the main path), exact, "
+              f"{k6_probe_ms:.3f} ms, plain {k6_probe_plain_ms:.3f} ms, "
+              f"bound {bound(17 * cap_p):.3f} ms")
+
+        # K2 and K4's table once per build side, the fused K4 per probe
+        # batch
+        side = jk.sort_build(bh, blive)
+        lo, counts = jk.join_probe(side, pkeys, n_p)
+        order = side.order
+        for what, plain in (
+                ("its plain version",
+                 jk.join_probe_keys_plain(side.sorted_hash, pkeys, n_p)),
+                ("the searches on K6's probe hashes",
+                 jk.join_probe_plain(side.sorted_hash, ph, plive))):
+            if not (torch.equal(lo, plain[0]) and torch.equal(counts,
+                                                              plain[1])):
+                raise AssertionError(f"K4 differs from {what} at q2's "
+                                     "shapes")
         if not all(torch.equal(x, y) for x, y in zip(
                 (order, lo, counts),
-                jk.count_matches_plain(bh, blive, ph, plive))):
-            raise AssertionError("K2 + K4 (count_matches) differ from their "
-                                 "plain version at q2's shapes")
-        sorted_h = torch.where(blive, bh, torch.full_like(bh, -1))[
-            order.long()]
-        k4_args = (sorted_h, ph, plive)
-        if not all(torch.equal(x, y) for x, y in zip(
-                jk.join_probe(*k4_args), jk.join_probe_plain(*k4_args))):
-            raise AssertionError("K4 differs from its plain version")
-        sw, pw = sorted_h ^ -2**63, ph ^ -2**63
+                jk.count_matches_plain(bkeys, n_b, pkeys, n_p))):
+            raise AssertionError("K6 + K2 + K4 (count_matches) differ from "
+                                 "their plain versions at q2's shapes")
+
+        def k4():
+            # the table (one launch a build side) and the probe
+            table = jk.hash_table(side.sorted_hash)
+            return jk.join_probe(jk.BuildSide(order, side.sorted_hash,
+                                              table), pkeys, n_p)
+        for _ in range(3):
+            if not all(torch.equal(x, y) for x, y in zip(k4(), (lo, counts))):
+                raise AssertionError("K4 is not deterministic: a rebuilt "
+                                     "table gives other bits")
+        print("K4 deterministic: three runs, each with its table rebuilt, "
+              "give the same bits")
+        slots = int(side.table.shape[0]) // 2
+        sw = side.sorted_hash ^ -2**63
+
+        def library():
+            # the path K4 replaces: the torch hash composition on the
+            # probe side, then two searchsorted
+            pw = jk.combined_key_hash_plain(pkeys, cap_p,
+                                            side="probe") ^ -2**63
+            return (torch.searchsorted(sw, pw),
+                    torch.searchsorted(sw, pw, right=True))
+        # per probe row: the 8 B key and 1 B validity in, lo 4 B and count
+        # 8 B out; per build row its sorted hash 8 B; per slot 16 B
+        k4_bytes = 21 * cap_p + 8 * cap_b + 16 * slots
         kernel_rows["join_probe"] = dict(
             source="spark_rapids_tpu_torch/csrc/join_probe.cu",
             replaces="spark_rapids_tpu/ops/join_kernels.py:73",
             max_abs_err=0.0,
-            ms=cuda_ms(lambda: jk.join_probe(*k4_args)),
-            plain_ms=cuda_ms(lambda: jk.join_probe_plain(*k4_args)),
-            library_ms=cuda_ms(lambda: (torch.searchsorted(sw, pw),
-                                        torch.searchsorted(sw, pw,
-                                                           right=True))),
-            # per probe row: hash 8 B and live flag 1 B in, lo 4 B and count
-            # 8 B out; per build row: its sorted hash 8 B in
-            bound_ms=bound(21 * cap_p + 8 * cap_b))
+            ms=cuda_ms(k4),
+            plain_ms=cuda_ms(lambda: jk.join_probe_keys_plain(
+                side.sorted_hash, pkeys, n_p)),
+            library_ms=cuda_ms(library),
+            bound_ms=bound(k4_bytes),
+            table_ms=cuda_ms(lambda: jk.hash_table(side.sorted_hash)),
+            probe_ms=cuda_ms(lambda: jk.join_probe(side, pkeys, n_p)),
+            probe_rows=cap_p)
+        r = kernel_rows["join_probe"]
+        print(f"K4 join_probe: probe rows {n_p} (capacity {cap_p}), build "
+              f"rows {n_b} (capacity {cap_b}), {slots} slots, exact, "
+              f"{r['ms']:.3f} ms (table {r['table_ms']:.3f}, probe "
+              f"{r['probe_ms']:.3f}), plain {r['plain_ms']:.3f} ms, "
+              f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} "
+              f"ms ({k4_bytes} bytes)")
+
         eff = jk.effective_counts(counts, plive, "inner")
         ends = torch.cumsum(eff, 0)
         q2_pairs = int(ends[-1])
@@ -795,26 +1040,39 @@ def main() -> int:
             plain_ms=cuda_ms(lambda: jk.expand_pairs_plain(*k5_args)),
             library_ms=cuda_ms(library),
             bound_ms=bound(k5_bytes))
-        for name, nbytes in (("K4 join_probe", 21 * cap_p + 8 * cap_b),
-                             ("K5 expand_pairs", k5_bytes)):
-            r = kernel_rows["join_probe" if name.startswith("K4")
-                            else "expand_pairs"]
-            print(f"{name}: probe rows {fact_b.num_rows} (capacity {cap_p}),"
-                  f" build rows {dim_b.num_rows} (capacity {cap_b}), pairs "
-                  f"{q2_pairs}, exact, {r['ms']:.3f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} "
-                  f"ms, bound {r['bound_ms']:.3f} ms ({nbytes} bytes)")
-        del fact_b, dim_b, bh, ph, order, lo, counts, sorted_h, sw, pw, eff
-        del ends, res, bsel, probe_lanes, build_lanes, k4_args, k5_args
+        r = kernel_rows["expand_pairs"]
+        print(f"K5 expand_pairs: probe rows {n_p} (capacity {cap_p}), build "
+              f"rows {n_b} (capacity {cap_b}), pairs {q2_pairs}, exact, "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({k5_bytes} bytes)")
+        del fact_b, dim_b, bh, ph, side, order, lo, counts, sw, eff, ends
+        del res, bsel, probe_lanes, build_lanes, k5_args, bkeys, pkeys
     except Exception:
         failures.append("kernel phase (q2)")
         traceback.print_exc()
 
     try:
-        hot_pairs, hot_cap, hot_args = _k5_hot_key(torch, dev, jk, t,
-                                                   DeviceColumn, bucket_for)
+        hot_pairs, hot_cap, hot_args, hot_k4 = _hot_key(
+            torch, dev, jk, t, DeviceColumn, bucket_for)
         hot_ms = cuda_ms(lambda: jk.expand_pairs(*hot_args))
-        del hot_args
+        hot_k4_ms = cuda_ms(lambda: jk.join_probe(*hot_k4))
+        # the same draw at q2's probe size, so the launch's fixed cost does
+        # not decide the time a row
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        big = [DeviceColumn(t.LONG, torch.where(
+            torch.rand(ROWS, generator=gen, device=dev) < 0.01,
+            torch.full((ROWS,), DIM_ROWS, device=dev),
+            torch.randint(0, DIM_ROWS, (ROWS,), generator=gen, device=dev)),
+            torch.ones(ROWS, dtype=torch.bool, device=dev))]
+        hot_side = hot_k4[0]
+        if not all(torch.equal(x, y) for x, y in zip(
+                jk.join_probe(hot_side, big, ROWS),
+                jk.join_probe_keys_plain(hot_side.sorted_hash, big, ROWS))):
+            raise AssertionError(f"K4 differs from its plain version on the "
+                                 f"hot key at {ROWS} probe rows")
+        big_k4_ms = cuda_ms(lambda: jk.join_probe(hot_side, big, ROWS))
+        del hot_args, hot_k4, hot_side, big
         uniform_ms = kernel_rows["expand_pairs"]["ms"]
         ratio = (hot_ms / hot_pairs) / (uniform_ms / q2_pairs)
         print(f"K5 hot key: {HOT_PROBE_ROWS} probe rows, 1 % on a key with "
@@ -826,22 +1084,40 @@ def main() -> int:
         if ratio > 2.0:
             raise AssertionError(f"K5 on a hot key takes {ratio:.2f}x its "
                                  "time a pair on uniform keys (at most 2x)")
+        r = kernel_rows["join_probe"]
+        uniform_row = r["probe_ms"] / r["probe_rows"]
+        for rows, ms in ((HOT_PROBE_ROWS, hot_k4_ms), (ROWS, big_k4_ms)):
+            print(f"K4 hot key: {rows} probe rows, 1 % on the hot key, "
+                  f"exact, probe {ms:.3f} ms, {ms / rows * 1e6:.4f} ns a "
+                  f"probe row; uniform (q2) {uniform_row * 1e6:.4f} ns a "
+                  f"probe row; hot / uniform "
+                  f"{ms / rows / uniform_row:.3f}")
     except Exception:
-        failures.append("K5 hot key")
+        failures.append("hot key (K4, K5)")
         traceback.print_exc()
 
     try:
         cases = _join_edge_cases(torch, dev, jk, t, DeviceColumn, bucket_for)
-        print(f"join edge cases: K2 + K4 and K5 (inner, left, full) equal "
-              f"their plain versions in {cases} cases")
+        print(f"join edge cases: K6, K6 + K2 + K4 and K5 (inner, left, full) "
+              f"equal their plain versions in {cases} cases, each launching "
+              f"K6, K4 (with probe rows) and K5")
     except Exception:
         failures.append("join edge cases")
+        traceback.print_exc()
+
+    try:
+        _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
+                       GpuSession(), F, col)
+    except Exception:
+        failures.append("K3 wide group-by")
         traceback.print_exc()
 
     # ---- main path: DataFrame API, one batch -------------------------
     wrappers = {"compact_rows": carry.compact_lanes,
                 "sort_order": carry.sort_order,
                 "segment_reduce_sorted": agg_mod.segment_reduce_sorted,
+                "key_hash": jk.combined_key_hash,
+                "hash_table": jk.hash_table,
                 "join_probe": jk.join_probe,
                 "expand_pairs": jk.expand_pairs}
 
@@ -1020,13 +1296,9 @@ def main() -> int:
             stages, st = {}, {}
             t1 = time.perf_counter()
 
-            def hash_sides():
-                st["hashes"] = join._hash_keys(build, probe)
-
             def count():
-                bh, blive, ph, st["plive"] = st["hashes"]
-                st["order"], st["lo"], st["counts"] = jk.count_matches(
-                    bh, blive, ph, st["plive"])
+                st["order"], st["lo"], st["counts"], st["plive"] = \
+                    join._count(st["side"], probe)
 
             def expand():
                 st["out"], _ = join._expand(build, probe, st["order"],
@@ -1034,7 +1306,11 @@ def main() -> int:
                                             st["plive"], "inner")
 
             for name, step in (
-                    ("hash", hash_sides), ("count", count),
+                    ("hash", lambda: st.update(
+                        hashes=join._hash_keys(build))),
+                    ("build", lambda: st.update(
+                        side=jk.sort_build(*st["hashes"]))),
+                    ("count", count),
                     ("expand", expand),
                     ("project", lambda: st.update(
                         out=project._compute(st["out"]))),
@@ -1057,6 +1333,11 @@ def main() -> int:
               f"device busy {trace['busy_ms']:.2f} ms, idle share "
               f"{trace['idle_share']:.3f}; top kernels (ms): "
               + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"]))
+        before = trace["before_probe"]
+        print(f"q2 trace, device work before K4's probe in launch order: "
+              f"{len(before)} items, {sum(ms for _, ms in before):.3f} ms, "
+              f"the longest {max((ms for _, ms in before), default=0):.3f} "
+              f"ms: " + ", ".join(f"{n}={ms:.3f}" for n, ms in before))
     except Exception:
         failures.append("q2 stage split")
         traceback.print_exc()
@@ -1064,8 +1345,8 @@ def main() -> int:
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
-        "q2": ("sort_order", "join_probe", "expand_pairs",
-               "segment_reduce_sorted")}
+        "q2": ("key_hash", "sort_order", "hash_table", "join_probe",
+               "expand_pairs", "segment_reduce_sorted")}
     for run, names in path_kernels.items():
         if run not in launches:
             failures.append(f"launch counts of the {run} run missing")
@@ -1083,8 +1364,8 @@ def main() -> int:
 
     if kernel_rows:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
-        # q2 for K4 and K5
-        run_of = {"join_probe": "q2", "expand_pairs": "q2"}
+        # q2 for K4-K6
+        run_of = {"key_hash": "q2", "join_probe": "q2", "expand_pairs": "q2"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],

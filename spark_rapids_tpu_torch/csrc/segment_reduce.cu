@@ -31,6 +31,9 @@
 //      group begun at that tile's last start: its tail partial, then the
 //      head partials of the following tiles up to and including the next
 //      tile with a start, folded by a fixed tree.
+// Steps 4-5 run once for each set of up to 16 ops (the ops of a set are
+// passed by value); the key words of any count are read through a
+// device array of pointers.
 // So every thread folds 16 rows whatever the key skew: a hot key that
 // holds 10M rows spans ~2,460 tiles and costs a ~2,460-partial tree in
 // step 5, not a 10M-row loop on one thread.  No float atomics: every
@@ -51,25 +54,28 @@
 
 namespace {
 
-constexpr int kMaxWords = 16;
-constexpr int kMaxOps = 16;
+// Ops folded by one set of launches (the by-value Ops struct); more ops
+// run in further sets over the same start masks and group offsets.
+constexpr int kOpsPerLaunch = 16;
 constexpr int kCount = 0;
 constexpr int kSumInt = 1;
 constexpr int kSumFloat = 2;
 constexpr int kRows = srt::kRounds;  // consecutive sorted rows a thread
 constexpr unsigned kPosInf = 1, kNegInf = 2, kNaN = 4;
 
+// The key words: a device array of count pointers, so a key of any
+// width fits one launch.
 struct Words {
-  const long long* w[kMaxWords];
+  const long long* const* w;
   int count;
 };
 
 struct Ops {
-  const void* vals[kMaxOps];
-  const unsigned char* contrib[kMaxOps];
-  int kind[kMaxOps];
-  void* sums[kMaxOps];
-  long long* counts[kMaxOps];
+  const void* vals[kOpsPerLaunch];
+  const unsigned char* contrib[kOpsPerLaunch];
+  int kind[kOpsPerLaunch];
+  void* sums[kOpsPerLaunch];
+  long long* counts[kOpsPerLaunch];
   int count;
 };
 
@@ -433,21 +439,27 @@ struct Layout {
   int* varying;
 };
 
-// head and tail partials [tiles][nops], start masks [tiles][kThreads],
-// tile start counts and tile group offsets [tiles], varying [kMaxWords]
-long long layout_bytes(int n, int nops) {
+int ops_per_launch(int nops) {
+  return nops < kOpsPerLaunch ? nops : kOpsPerLaunch;
+}
+
+// head and tail partials [tiles][ops of one launch], start masks
+// [tiles][kThreads], tile start counts and tile group offsets [tiles],
+// varying [max(nwords, 1)]
+long long layout_bytes(int n, int nwords, int nops) {
   const long long tiles = srt::num_tiles(n);
-  return tiles * (2ll * nops * sizeof(Acc) +
+  return tiles * (2ll * ops_per_launch(nops) * sizeof(Acc) +
                   srt::kThreads * sizeof(unsigned short) + 2 * sizeof(int)) +
-         kMaxWords * sizeof(int);
+         (nwords > 1 ? nwords : 1) * sizeof(int);
 }
 
 Layout layout(void* scratch, int n, int nops) {
   const long long tiles = srt::num_tiles(n);
+  const long long parts = tiles * ops_per_launch(nops);
   Layout l;
   l.head = static_cast<Acc*>(scratch);
-  l.tail = l.head + tiles * nops;
-  l.masks = reinterpret_cast<unsigned short*>(l.tail + tiles * nops);
+  l.tail = l.head + parts;
+  l.masks = reinterpret_cast<unsigned short*>(l.tail + parts);
   l.tile_counts = reinterpret_cast<int*>(l.masks + tiles * srt::kThreads);
   l.tile_offsets = l.tile_counts + tiles;
   l.varying = l.tile_offsets + tiles;
@@ -456,22 +468,27 @@ Layout layout(void* scratch, int n, int nops) {
 
 }  // namespace
 
-// Bytes of scratch that srt_segment_reduce needs for n rows and nops ops
-// (under 2^31 for any n < 2^31 and nops <= 16).
-extern "C" int srt_segment_reduce_scratch_bytes(int n, int nops) {
-  return static_cast<int>(layout_bytes(n, nops));
+// Bytes of scratch that srt_segment_reduce needs for n rows, nwords key
+// words and nops ops.
+extern "C" long long srt_segment_reduce_scratch_bytes(int n, int nwords,
+                                                      int nops) {
+  return layout_bytes(n, nwords, nops);
 }
 
-// words: host array of nwords device pointers to int64[n] key words;
+// words: device array of nwords device pointers to int64[n] key words;
 // live: bool[n] or null (every row live); order: int32[n] or null (the
 // rows are already in key order); all lanes in input order, sorted row
 // i being input row order[i].  Per op k: vals[k] (int64 or float64[n],
 // null for a count), contrib[k] (bool[n]), kind[k] (0 count, 1 int64
 // sum, 2 float64 sum), sums[k] (int64 or float64[max(n, 1)], null for a
-// count), counts[k] (int64[max(n, 1)]).  Groups fill slots [0, *groups)
-// in key order; first_row[g] is the input row of group g's first sorted
-// row.  Rows before the first group start belong to no group.  scratch:
-// srt_segment_reduce_scratch_bytes(n, nops) bytes, 8-byte aligned.
+// count), counts[k] (int64[max(n, 1)]); host arrays of nops entries.
+// Groups fill slots [0, *groups) in key order; first_row[g] is the input
+// row of group g's first sorted row.  Rows before the first group start
+// belong to no group.  The starts are found once; the ops are folded
+// kOpsPerLaunch at a time, each set with its own fold and fixup
+// launches, so an op's result does not depend on how many ops there are.
+// scratch: srt_segment_reduce_scratch_bytes(n, nwords, nops) bytes,
+// 8-byte aligned.
 extern "C" int srt_segment_reduce(const long long* const* words, int nwords,
                                   const unsigned char* live,
                                   const int* order, int n, int global_agg,
@@ -481,35 +498,44 @@ extern "C" int srt_segment_reduce(const long long* const* words, int nwords,
                                   long long* const* counts, int* first_row,
                                   int* groups, void* scratch,
                                   cudaStream_t stream) {
-  if (nwords < 0 || nwords > kMaxWords || nops < 0 || nops > kMaxOps ||
-      n < 0)
+  if (nwords < 0 || nops < 0 || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Ops ops;
-  ops.count = nops;
-  for (int k = 0; k < nops; ++k) {
+  for (int k = 0; k < nops; ++k)
     if (kind[k] < kCount || kind[k] > kSumFloat)
       return static_cast<int>(cudaErrorInvalidValue);
-    ops.vals[k] = vals[k];
-    ops.contrib[k] = contrib[k];
-    ops.kind[k] = kind[k];
-    ops.sums[k] = sums[k];
-    ops.counts[k] = counts[k];
-  }
+  // the ops of set s: [s * kOpsPerLaunch, +ops.count)
+  auto op_set = [&](int s) {
+    Ops ops;
+    ops.count = ops_per_launch(nops - s * kOpsPerLaunch);
+    for (int j = 0; j < ops.count; ++j) {
+      const int k = s * kOpsPerLaunch + j;
+      ops.vals[j] = vals[k];
+      ops.contrib[j] = contrib[k];
+      ops.kind[j] = kind[k];
+      ops.sums[j] = sums[k];
+      ops.counts[j] = counts[k];
+    }
+    return ops;
+  };
+  const int sets = nops > 0 ? (nops + kOpsPerLaunch - 1) / kOpsPerLaunch : 1;
+  cudaError_t err = cudaSuccess;
   if (n == 0) {
     if (global_agg) {
-      empty_global_kernel<<<1, 1, 0, stream>>>(ops, first_row, groups);
-      return static_cast<int>(cudaGetLastError());
+      for (int s = 0; s < sets && err == cudaSuccess; ++s) {
+        empty_global_kernel<<<1, 1, 0, stream>>>(op_set(s), first_row,
+                                                 groups);
+        err = cudaGetLastError();
+      }
+      return static_cast<int>(err);
     }
     return static_cast<int>(
         cudaMemsetAsync(groups, 0, sizeof(int), stream));
   }
-  Words w;
-  w.count = nwords;
-  for (int k = 0; k < nwords; ++k) w.w[k] = words[k];
+  const Words w{words, nwords};
   const int tiles = srt::num_tiles(n);
   const Layout l = layout(scratch, n, nops);
-  cudaError_t err =
-      cudaMemsetAsync(l.varying, 0, kMaxWords * sizeof(int), stream);
+  err = cudaMemsetAsync(l.varying, 0, (nwords > 1 ? nwords : 1) * sizeof(int),
+                        stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!global_agg && nwords > 0) {
     varying_kernel<<<tiles < 1056 ? tiles : 1056, srt::kThreads, 0,
@@ -525,24 +551,29 @@ extern "C" int srt_segment_reduce(const long long* const* words, int nwords,
       l.tile_counts, tiles, l.tile_offsets, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // one launch per op, so one contributor mask at a time shares the L2
-  // cache with the value lane's gathers
-  for (int k = 0; k < (nops > 0 ? nops : 1); ++k) {
-    int* fr = k == 0 ? first_row : nullptr;
-    const int kk = k < nops ? kind[k] : kCount;
-    if (kk == kSumInt)
-      fold_kernel<kSumInt><<<tiles, srt::kThreads, 0, stream>>>(
-          ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
-    else if (kk == kSumFloat)
-      fold_kernel<kSumFloat><<<tiles, srt::kThreads, 0, stream>>>(
-          ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
-    else
-      fold_kernel<kCount><<<tiles, srt::kThreads, 0, stream>>>(
-          ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
+  for (int s = 0; s < sets; ++s) {
+    const Ops ops = op_set(s);
+    // one launch per op, so one contributor mask at a time shares the L2
+    // cache with the value lane's gathers
+    for (int k = 0; k < (ops.count > 0 ? ops.count : 1); ++k) {
+      int* fr = s == 0 && k == 0 ? first_row : nullptr;
+      const int kk = k < ops.count ? ops.kind[k] : kCount;
+      if (kk == kSumInt)
+        fold_kernel<kSumInt><<<tiles, srt::kThreads, 0, stream>>>(
+            ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
+      else if (kk == kSumFloat)
+        fold_kernel<kSumFloat><<<tiles, srt::kThreads, 0, stream>>>(
+            ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
+      else
+        fold_kernel<kCount><<<tiles, srt::kThreads, 0, stream>>>(
+            ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    fixup_kernel<<<tiles, srt::kThreads, 0, stream>>>(
+        ops, l.tile_counts, l.tile_offsets, tiles, l.head, l.tail);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fixup_kernel<<<tiles, srt::kThreads, 0, stream>>>(
-      ops, l.tile_counts, l.tile_offsets, tiles, l.head, l.tail);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -21,6 +21,7 @@ import torch
 
 from .. import kernels
 from .. import types as t
+from ..analysis.determinism import ORDER_DEPENDENT, ORDER_STABLE, Determinism
 from ..columnar.device import (DeviceBatch, DeviceColumn, batch_to_device,
                                bucket_for)
 from ..columnar.interop import to_arrow_schema
@@ -35,7 +36,6 @@ from .base import Exec, ExecContext
 from .concat import concat_batches
 
 _KIND_COUNT, _KIND_SUM_INT, _KIND_SUM_FLOAT = 0, 1, 2
-_MAX_WORDS = _MAX_OPS = 16                     # kMaxWords / kMaxOps in csrc
 
 
 # ---------------------------------------------------------------------------
@@ -145,9 +145,6 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                                            global_agg, order)
     kernels.require_cuda("segment_reduce_sorted", *lanes)
     n = int(lanes[0].shape[0])
-    if len(words) > _MAX_WORDS or len(values) > _MAX_OPS:
-        raise ValueError(f"segment_reduce_sorted: at most {_MAX_WORDS} key "
-                         f"words and {_MAX_OPS} ops")
     if any(c.dtype != torch.bool or c.shape != (n,)
            for c in [*contribs, *([] if live is None else [live])]):
         raise TypeError("segment_reduce_sorted: live and contributor masks "
@@ -174,10 +171,12 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     first_row = torch.empty(m, dtype=torch.int32, device=dev)
     groups = torch.empty(1, dtype=torch.int32, device=dev)
     scratch = torch.empty(
-        max(lib.srt_segment_reduce_scratch_bytes(n, len(values)) // 8, 1),
+        max(lib.srt_segment_reduce_scratch_bytes(n, len(words),
+                                                 len(values)) // 8, 1),
         dtype=torch.int64, device=dev)
+    word_ptrs = kernels.device_int64s([w.data_ptr() for w in words], dev)
     kernels.check(lib, lib.srt_segment_reduce(
-        kernels.pointers(words), len(words),
+        word_ptrs.data_ptr(), len(words),
         None if live is None else live.data_ptr(),
         None if order is None else order.data_ptr(), n, int(global_agg),
         len(values), kernels.pointers(values), kernels.pointers(contribs),
@@ -280,7 +279,7 @@ class GpuHashAggregateExec(Exec):
 
     # Canonical keyed merge: partial buffers are ordered by key and buffer
     # value words before the merge folds them, so float sums do not depend
-    # on batch arrival order (the reference's tpudsan determinism class).
+    # on batch arrival order (``determinism()``).
     stable_merge: bool = True
 
     def __init__(self, grouping: Sequence[Expression],
@@ -326,6 +325,21 @@ class GpuHashAggregateExec(Exec):
         if self.mode == PARTIAL:
             return self._key_types() + self._buffer_types
         return self._key_types() + [ae.data_type() for ae in self.aggregates]
+
+    def determinism(self):
+        scoped = self.mode == PARTIAL   # partial buffers regroup with the
+        #                                 input split
+        if any(bt == t.DOUBLE for bt in self._buffer_types) and \
+                not self.stable_merge:
+            return Determinism(
+                ORDER_DEPENDENT, "float partial buffers fold in batch "
+                "arrival order (stable_merge off): a different arrival "
+                "order changes the sums", partition_scoped=scoped,
+                canonicalizable=True)
+        return Determinism(
+            ORDER_STABLE, "group emission order follows arrival; the "
+            "canonical keyed merge makes buffer folds "
+            "content-determined", partition_scoped=scoped)
 
     def describe(self):
         return (f"GpuHashAggregate(mode={self.mode}, keys="

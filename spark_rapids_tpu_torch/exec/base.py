@@ -4,7 +4,7 @@ Counterpart of spark_rapids_tpu/exec/base.py.  An operator yields
 DeviceBatches per partition; ``execute_collect`` runs every partition,
 downloads each batch with ``.cpu()`` and returns one Arrow table.  The
 reference's jit cache, metrics, semaphore, spill and speculation hooks
-have no counterpart yet.
+have no counterpart yet; the determinism declarations do.
 """
 
 from __future__ import annotations
@@ -48,6 +48,13 @@ class Exec:
         if not sizes or any(s is None for s in sizes):
             return None
         return sum(sizes)
+
+    def determinism(self):
+        """Declared replay class (analysis/determinism.py): None for an
+        operator whose output is a row-wise function of its input
+        (bit_exact), else a Determinism.  Overridden where the reference
+        overrides it, by the same rules."""
+        return None
 
     def execute_partition(self, pid: int, ctx: ExecContext
                           ) -> Iterator[DeviceBatch]:

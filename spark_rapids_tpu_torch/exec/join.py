@@ -2,14 +2,16 @@
 
 Counterpart of spark_rapids_tpu/exec/join.py (HashJoinExec,
 NestedLoopJoinExec, split_equi_condition, plan_join).  An equi-join
-hashes both sides' keys into one 64-bit word per row, sorts the build
-side's hashes once (kernel K2) and, per probe batch: finds each probe
-row's match range (K4), reads the total number of output rows on the
-host once, and expands the pairs at a capacity bucket of that total,
-gathering both sides' columns in the same kernel (K5).  The build side
-is always the right child; a right join is planned flipped.  Output row
-order follows the probe side, and a probe row's build rows come in
-sorted-hash order, as in the reference, so the two agree row for row.
+hashes the build side's keys into one 64-bit word per row (kernel K6),
+sorts the hashes (K2) and builds K4's hash table over them, once per
+build side; then, per probe batch: hashes each probe row's keys and
+finds its match range in one kernel (K4), reads the total number of
+output rows on the host once, and expands the pairs at a capacity
+bucket of that total, gathering both sides' columns in the same kernel
+(K5).  The build side is always the right child; a right join is
+planned flipped.  Output row order follows the probe side, and a probe
+row's build rows come in sorted-hash order, as in the reference, so the
+two agree row for row.
 
 Not ported yet: string keys and payloads (the span sizing of the
 reference's count phase), the broadcast and shuffled joins (more than
@@ -25,6 +27,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import pyarrow as pa
 import torch
 
+from ..analysis.determinism import ORDER_STABLE, Determinism
 from ..columnar.device import DeviceBatch, batch_to_device, bucket_for
 from ..columnar.interop import to_arrow_schema
 from ..expr.conditional import Coalesce
@@ -146,29 +149,32 @@ class HashJoinExec(Exec):
             return list(l.output_types)
         return list(l.output_types) + list(r.output_types)
 
+    def determinism(self):
+        return Determinism(
+            ORDER_STABLE, "probe-order emission: output row order "
+            "follows probe-side arrival, matched multiset is invariant")
+
     def describe(self):
         ks = ", ".join(f"{a.sql()}={b.sql()}"
                        for a, b in zip(self.left_keys, self.right_keys))
         return f"HashJoin {self.how} on [{ks}]"
 
-    # --- phase 1: hash and probe ---------------------------------------------
-    def _hash_keys(self, build: DeviceBatch, probe: DeviceBatch):
-        """(build hashes, build live flags, probe hashes, probe live
-        flags)."""
-        bctx, pctx = EvalContext(build), EvalContext(probe)
-        bkeys = [_column(bctx, k, k.eval(bctx)) for k in self.right_keys]
-        pkeys = [_column(pctx, k, k.eval(pctx)) for k in self.left_keys]
-        return (jk.combined_key_hash(bkeys, build.capacity, side="build"),
-                _live(build),
-                jk.combined_key_hash(pkeys, probe.capacity, side="probe"),
-                _live(probe))
+    # --- phase 1: build and probe ---------------------------------------------
+    def _hash_keys(self, build: DeviceBatch):
+        """(build hashes, build live flags): K6 over the build side's
+        keys.  The probe side's hashes are computed inside K4."""
+        ctx = EvalContext(build)
+        keys = [_column(ctx, k, k.eval(ctx)) for k in self.right_keys]
+        return (jk.combined_key_hash(keys, build.capacity, side="build"),
+                _live(build))
 
-    def _count(self, build: DeviceBatch, probe: DeviceBatch):
+    def _count(self, side: jk.BuildSide, probe: DeviceBatch):
         """(order, lo, counts, probe live flags): build rows
-        ``order[lo[i]:lo[i] + counts[i]]`` match probe row i."""
-        bh, blive, ph, plive = self._hash_keys(build, probe)
-        order, lo, counts = jk.count_matches(bh, blive, ph, plive)
-        return order, lo, counts, plive
+        ``order[lo[i]:lo[i] + counts[i]]`` match probe row i (K4)."""
+        ctx = EvalContext(probe)
+        keys = [_column(ctx, k, k.eval(ctx)) for k in self.left_keys]
+        lo, counts = jk.join_probe(side, keys, probe.num_rows)
+        return side.order, lo, counts, _live(probe)
 
     # --- phase 2: expansion ---------------------------------------------------
     def _expand(self, build: DeviceBatch, probe: DeviceBatch, order, lo,
@@ -245,10 +251,12 @@ class HashJoinExec(Exec):
     def execute_partition(self, pid, ctx: ExecContext
                           ) -> Iterator[DeviceBatch]:
         build = self._collect_build(ctx)
+        # hashed, sorted and tabled once for every probe batch
+        side = jk.sort_build(*self._hash_keys(build))
         names = self.output_names
         matched_acc = None
         for probe in self.children[0].execute_partition(pid, ctx):
-            order, lo, counts, plive = self._count(build, probe)
+            order, lo, counts, plive = self._count(side, probe)
             if self.how in ("right", "full"):
                 matched = jk.build_matched_flags(order, lo, counts, plive,
                                                  build.capacity)
@@ -298,6 +306,11 @@ class NestedLoopJoinExec(Exec):
     def output_types(self):
         return (list(self.children[0].output_types)
                 + list(self.children[1].output_types))
+
+    def determinism(self):
+        return Determinism(
+            ORDER_STABLE, "cross-product emission order follows both "
+            "sides' arrival; matched multiset is invariant")
 
     def describe(self):
         return f"NestedLoopJoin {self.how}"

@@ -26,8 +26,8 @@ import torch
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-HEADERS = ("partition.cuh",)
-SOURCES = ("compact", "onesweep", "segment_reduce", "join_probe",
+HEADERS = ("partition.cuh", "join_hash.cuh")
+SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "join_expand")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,10 +46,15 @@ _SIGNATURES = {
     "segment_reduce": {
         "srt_segment_reduce": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P],
-        "srt_segment_reduce_scratch_bytes": [_I, _I],
+        "srt_segment_reduce_scratch_bytes": [_I, _I, _I],
+    },
+    "key_hash": {
+        "srt_key_hash": [_P, _I, _I, _I, _I, _P, _P],
     },
     "join_probe": {
-        "srt_join_probe": [_P, _I, _P, _P, _I, _P, _P, _P],
+        "srt_join_table_slots": [_I],
+        "srt_join_build_table": [_P, _I, _P, _I, _P],
+        "srt_join_probe": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     },
     "join_expand": {
         "srt_join_expand": [_P, _I, _P, _P, _P, _I, _L, _L, _P, _P, _I, _P,
@@ -156,6 +161,15 @@ def pointers(tensors) -> ctypes.Array:
     """A host array of device pointers (0 for None)."""
     ptrs = [0 if x is None else x.data_ptr() for x in tensors]
     return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+
+
+def device_int64s(values, device) -> torch.Tensor:
+    """An int64 array on ``device`` (pointers, kinds) that a kernel reads,
+    copied from pinned host memory on the current stream, so the host
+    does not wait for the device."""
+    host = torch.tensor(list(values) or [0], dtype=torch.int64,
+                        pin_memory=True)
+    return host.to(device, non_blocking=True)
 
 
 def ints(values) -> ctypes.Array:

@@ -1,13 +1,15 @@
-"""Equi-join kernels: key hashing, the probe (kernel K4) and the pair
-expansion with the row gathers of both sides (kernel K5).
+"""Equi-join kernels: key hashing (kernel K6), the probe (kernel K4) and
+the pair expansion with the row gathers of both sides (kernel K5).
 
-Counterpart of spark_rapids_tpu/ops/join_kernels.py.  The build side's
-keys collapse to one 64-bit combined hash per row; the build hashes are
-sorted once (kernel K2), each probe row finds its range of equal hashes
-by two binary searches (K4), and every output position finds its probe
-row by a binary search over the running match counts and gathers both
-sides' lanes (K5).  Equal keys always hash equally; unequal keys collide
-with probability ~2^-64, the reference's documented tradeoff.
+Counterpart of spark_rapids_tpu/ops/join_kernels.py.  Each side's keys
+collapse to one 64-bit combined hash per row.  The build side's hashes
+are written by K6, sorted once (kernel K2) and put in K4's hash table,
+one entry per run of equal hashes; each probe row's hash is computed
+inside K4 and looked up there (a miss takes its exact position from a
+binary search); every output position finds its probe row by a
+binary search over the running match counts and gathers both sides'
+lanes (K5).  Equal keys always hash equally; unequal keys collide with
+probability ~2^-64, the reference's documented tradeoff.
 
 Hashes are the reference's uint64 bits carried in int64 tensors (torch
 has no uint64 arithmetic): multiplication and addition wrap the same,
@@ -22,7 +24,7 @@ counts the call in its ``launches`` attribute.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,25 +63,38 @@ def _mix64(h: torch.Tensor) -> torch.Tensor:
     return h ^ _shr(h, 31)
 
 
+# Key column kinds of csrc/join_hash.cuh, and the lane type each reads.
+_KEY_KINDS = {t.BOOLEAN: (0, torch.bool), t.INT: (1, torch.int32),
+              t.LONG: (2, torch.int64), t.DOUBLE: (3, torch.float64)}
+
+
 def _key_word(col: DeviceColumn) -> torch.Tensor:
     """The reference's uint64 value word of a key column, as int64 bits:
     the port's order-preserving word (ops/segmented.py) with its sign bit
     flipped back."""
-    if col.dtype not in (t.BOOLEAN, t.INT, t.LONG, t.DOUBLE):
-        raise NotImplementedError(
-            f"join keys of type {col.dtype} are not ported yet")
     if col.data.is_floating_point():
         return encode_float_ordered(col.data) ^ _SIGN
     return encode_int_ordered(col.data) ^ _SIGN
 
 
-def combined_key_hash(key_cols: Sequence[DeviceColumn], cap: int,
-                      null_matches: bool = False,
-                      side: str = "build") -> torch.Tensor:
-    """int64[cap] holding the reference's uint64 combined hash over the
-    key columns, bit for bit; a row with any null key gets a per-row
-    side-specific sentinel so nulls never match (unless
-    ``null_matches``, for null-safe equality)."""
+def _check_keys(key_cols: Sequence[DeviceColumn], cap: int) -> None:
+    if not key_cols:
+        raise ValueError("a join key hash needs at least one key column")
+    for col in key_cols:
+        if col.dtype not in _KEY_KINDS:
+            raise NotImplementedError(
+                f"join keys of type {col.dtype} are not ported yet")
+        if col.data.shape != (cap,) or col.validity.shape != (cap,):
+            raise ValueError(f"join key column {col} does not have {cap} "
+                             "rows")
+
+
+def combined_key_hash_plain(key_cols: Sequence[DeviceColumn], cap: int,
+                            null_matches: bool = False,
+                            side: str = "build") -> torch.Tensor:
+    """Plain version of K6: the hash as a chain of torch passes over whole
+    lanes.  See ``combined_key_hash``."""
+    _check_keys(key_cols, cap)
     dev = key_cols[0].data.device
     h = torch.full((cap,), _SEED, dtype=torch.int64, device=dev)
     any_null = torch.zeros(cap, dtype=torch.bool, device=dev)
@@ -94,54 +109,64 @@ def combined_key_hash(key_cols: Sequence[DeviceColumn], cap: int,
     return h
 
 
+def _key_desc(what: str, key_cols: Sequence[DeviceColumn], cap: int
+              ) -> torch.Tensor:
+    """The key columns as csrc/join_hash.cuh's KeyCols reads them: a
+    device array of their data pointers, validity pointers and kinds."""
+    _check_keys(key_cols, cap)
+    kernels.require_cuda(what, *[x for c in key_cols
+                                 for x in (c.data, c.validity)])
+    for col in key_cols:
+        dtype = _KEY_KINDS[col.dtype][1]
+        if col.data.dtype != dtype or col.validity.dtype != torch.bool:
+            raise TypeError(f"{what}: key column {col} must hold {dtype} "
+                            "with a bool validity lane")
+    return kernels.device_int64s(
+        [c.data.data_ptr() for c in key_cols]
+        + [c.validity.data_ptr() for c in key_cols]
+        + [_KEY_KINDS[c.dtype][0] for c in key_cols],
+        key_cols[0].data.device)
+
+
+def combined_key_hash(key_cols: Sequence[DeviceColumn], cap: int,
+                      null_matches: bool = False,
+                      side: str = "build") -> torch.Tensor:
+    """int64[cap] holding the reference's uint64 combined hash over the
+    key columns, bit for bit (K6); a row with any null key gets a
+    per-row side-specific sentinel so nulls never match (unless
+    ``null_matches``, for null-safe equality)."""
+    if side not in ("build", "probe"):
+        raise ValueError(f"side must be 'build' or 'probe', not {side!r}")
+    if key_cols and key_cols[0].data.device.type == "cpu":
+        return combined_key_hash_plain(key_cols, cap, null_matches, side)
+    desc = _key_desc("combined_key_hash", key_cols, cap)
+    dev = key_cols[0].data.device
+    out = torch.empty(cap, dtype=torch.int64, device=dev)
+    if cap == 0:
+        return out
+    lib = kernels.library("key_hash")
+    kernels.check(lib, lib.srt_key_hash(
+        desc.data_ptr(), len(key_cols), cap, int(null_matches),
+        int(side == "probe"), out.data_ptr(), kernels.stream(out)),
+        "combined_key_hash")
+    combined_key_hash.launches += 1
+    return out
+
+
+combined_key_hash.launches = 0
+
+
 # ---------------------------------------------------------------------------
-# K4: the probe
+# the build side: K2's sort and K4's table
 # ---------------------------------------------------------------------------
 
-def join_probe_plain(sorted_hash: torch.Tensor, probe_hash: torch.Tensor,
-                     probe_live: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K4: two searchsorted calls on the XOR-2^63
-    words.  See ``join_probe``."""
-    s = sorted_hash ^ _SIGN
-    p = probe_hash ^ _SIGN
-    lo = torch.searchsorted(s, p)
-    hi = torch.searchsorted(s, p, right=True)
-    counts = torch.where(probe_live, hi - lo, torch.zeros_like(lo))
-    return lo.to(torch.int32), counts.to(torch.int64)
-
-
-def join_probe(sorted_hash: torch.Tensor, probe_hash: torch.Tensor,
-               probe_live: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per probe row, its range of equal hashes in ``sorted_hash`` (hash
-    bits in ascending unsigned order) (K4).  Returns (lo int32, counts
-    int64): ``lo`` is the unsigned lower bound of every probe row's hash,
-    live or not (the reference's searchsorted side="left"); ``counts`` is
-    the number of equal hashes, 0 where the row is dead."""
-    if probe_hash.device.type == "cpu":
-        return join_probe_plain(sorted_hash, probe_hash, probe_live)
-    kernels.require_cuda("join_probe", sorted_hash, probe_hash, probe_live)
-    nb, n = int(sorted_hash.shape[0]), int(probe_hash.shape[0])
-    if sorted_hash.dtype != torch.int64 or probe_hash.dtype != torch.int64 \
-            or probe_live.dtype != torch.bool or probe_live.shape != (n,):
-        raise TypeError("join_probe: hashes must be int64 and probe_live "
-                        f"bool[{n}]")
-    dev = probe_hash.device
-    lo = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty(n, dtype=torch.int64, device=dev)
-    if n == 0:
-        return lo, counts
-    lib = kernels.library("join_probe")
-    kernels.check(lib, lib.srt_join_probe(
-        sorted_hash.data_ptr(), nb, probe_hash.data_ptr(),
-        probe_live.data_ptr(), n, lo.data_ptr(), counts.data_ptr(),
-        kernels.stream(probe_hash)), "join_probe")
-    join_probe.launches += 1
-    return lo, counts
-
-
-join_probe.launches = 0
+class BuildSide(NamedTuple):
+    """The build side as the probe reads it: K2's order of the build
+    hashes (dead rows parked last), the hashes in that order (ascending
+    unsigned), and K4's hash table over them (None on the CPU)."""
+    order: torch.Tensor
+    sorted_hash: torch.Tensor
+    table: Optional[torch.Tensor]
 
 
 def _parked_build(build_hash: torch.Tensor,
@@ -151,27 +176,154 @@ def _parked_build(build_hash: torch.Tensor,
                        torch.full_like(build_hash, _PARKED))
 
 
-def count_matches_plain(build_hash, build_live, probe_hash, probe_live):
-    """Plain version of ``count_matches``: a stable argsort of the build
-    words, then K4's plain version."""
+def hash_table(sorted_hash: torch.Tensor) -> torch.Tensor:
+    """K4's table over the sorted build hashes (CUDA only): one 16-byte
+    slot (hash, run start, run length) per run of equal hashes, in an
+    open-addressing table of at least twice as many slots as rows."""
+    kernels.require_cuda("hash_table", sorted_hash)
+    if sorted_hash.dtype != torch.int64 or sorted_hash.dim() != 1:
+        raise TypeError("hash_table: sorted hashes must be int64[n]")
+    nb = int(sorted_hash.shape[0])
+    lib = kernels.library("join_probe")
+    slots = lib.srt_join_table_slots(nb)
+    if slots < 0:
+        raise ValueError(f"hash_table: {nb} build rows; at most 2^29 - 1")
+    table = torch.empty(2 * slots, dtype=torch.int64,
+                        device=sorted_hash.device)
+    kernels.check(lib, lib.srt_join_build_table(
+        sorted_hash.data_ptr(), nb, table.data_ptr(), slots,
+        kernels.stream(sorted_hash)), "hash_table")
+    if nb:
+        hash_table.launches += 1
+    return table
+
+
+hash_table.launches = 0
+
+
+def sort_build_plain(build_hash: torch.Tensor, build_live: torch.Tensor
+                     ) -> BuildSide:
+    """Plain version of ``sort_build``: a stable argsort, no table."""
     bh = _parked_build(build_hash, build_live)
     order = torch.argsort(bh ^ _SIGN, stable=True).to(torch.int32)
-    lo, counts = join_probe_plain(bh[order.long()], probe_hash, probe_live)
-    return order, lo, counts
+    return BuildSide(order, bh[order.long()], None)
 
 
-def count_matches(build_hash: torch.Tensor, build_live: torch.Tensor,
-                  probe_hash: torch.Tensor, probe_live: torch.Tensor
+def sort_build(build_hash: torch.Tensor, build_live: torch.Tensor
+               ) -> BuildSide:
+    """The build side sorted by hash (K2) with K4's table over it, made
+    once per build side and read by every probe batch."""
+    bh = _parked_build(build_hash, build_live)
+    order = sort_order([bh ^ _SIGN])
+    sorted_hash = bh[order.long()]
+    table = None if bh.device.type == "cpu" else hash_table(sorted_hash)
+    return BuildSide(order, sorted_hash, table)
+
+
+# ---------------------------------------------------------------------------
+# K4: the probe, with the probe side's hash fused in
+# ---------------------------------------------------------------------------
+
+def _live_rows(cap: int, num_rows: int, device) -> torch.Tensor:
+    return torch.arange(cap, device=device) < num_rows
+
+
+def join_probe_plain(sorted_hash: torch.Tensor, probe_hash: torch.Tensor,
+                     probe_live: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per probe hash its range of equal hashes in ``sorted_hash``, by two
+    searchsorted calls on the XOR-2^63 words: (lo int32, counts int64),
+    ``lo`` the unsigned lower bound of every row, live or not (the
+    reference's searchsorted side="left"), ``counts`` 0 where the row is
+    dead."""
+    s = sorted_hash ^ _SIGN
+    p = probe_hash ^ _SIGN
+    lo = torch.searchsorted(s, p)
+    hi = torch.searchsorted(s, p, right=True)
+    counts = torch.where(probe_live, hi - lo, torch.zeros_like(lo))
+    return lo.to(torch.int32), counts.to(torch.int64)
+
+
+def join_probe_keys_plain(sorted_hash: torch.Tensor,
+                          key_cols: Sequence[DeviceColumn], num_rows: int,
+                          null_matches: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: the probe side's hashes by K6's plain version,
+    then ``join_probe_plain``.  See ``join_probe``."""
+    cap = int(key_cols[0].data.shape[0]) if key_cols else 0
+    ph = combined_key_hash_plain(key_cols, cap, null_matches, side="probe")
+    return join_probe_plain(sorted_hash, ph,
+                            _live_rows(cap, num_rows, ph.device))
+
+
+def join_probe(build: BuildSide, key_cols: Sequence[DeviceColumn],
+               num_rows: int, null_matches: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per probe row, its range of equal hashes in the sorted build hashes
+    (K4): the row's combined key hash (side "probe") is computed from
+    ``key_cols`` and looked up, never written out.  The first
+    ``num_rows`` rows are live.  Returns (lo int32, counts int64) as
+    ``join_probe_plain`` on those hashes: build rows
+    ``build.order[lo[i]:lo[i] + counts[i]]`` match probe row i."""
+    cap = int(key_cols[0].data.shape[0]) if key_cols else 0
+    if build.sorted_hash.device.type == "cpu":
+        return join_probe_keys_plain(build.sorted_hash, key_cols, num_rows,
+                                     null_matches)
+    desc = _key_desc("join_probe", key_cols, cap)
+    kernels.require_cuda("join_probe", build.sorted_hash, build.table,
+                         key_cols[0].data)
+    if build.sorted_hash.dtype != torch.int64 or \
+            build.table.dtype != torch.int64:
+        raise TypeError("join_probe: sorted hashes and table must be int64")
+    if not 0 <= num_rows <= cap:
+        raise ValueError(f"join_probe: {num_rows} live rows of {cap}")
+    dev = build.sorted_hash.device
+    lo = torch.empty(cap, dtype=torch.int32, device=dev)
+    counts = torch.empty(cap, dtype=torch.int64, device=dev)
+    if cap == 0:
+        return lo, counts
+    lib = kernels.library("join_probe")
+    kernels.check(lib, lib.srt_join_probe(
+        build.sorted_hash.data_ptr(), int(build.sorted_hash.shape[0]),
+        build.table.data_ptr(), int(build.table.shape[0]) // 2,
+        desc.data_ptr(), len(key_cols), cap, num_rows, int(null_matches),
+        lo.data_ptr(), counts.data_ptr(), kernels.stream(lo)), "join_probe")
+    join_probe.launches += 1
+    return lo, counts
+
+
+join_probe.launches = 0
+
+
+def count_matches_plain(build_cols: Sequence[DeviceColumn], n_b: int,
+                        probe_cols: Sequence[DeviceColumn], n_p: int,
+                        null_matches: bool = False):
+    """Plain version of ``count_matches``: K6's, K2's and K4's plain
+    versions."""
+    cap_b = int(build_cols[0].data.shape[0])
+    bh = combined_key_hash_plain(build_cols, cap_b, null_matches, "build")
+    build = sort_build_plain(bh, _live_rows(cap_b, n_b, bh.device))
+    lo, counts = join_probe_keys_plain(build.sorted_hash, probe_cols, n_p,
+                                       null_matches)
+    return build.order, lo, counts
+
+
+def count_matches(build_cols: Sequence[DeviceColumn], n_b: int,
+                  probe_cols: Sequence[DeviceColumn], n_p: int,
+                  null_matches: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-probe-row match ranges against the sorted build side: K2
-    sorts the build hashes (dead rows parked last), K4 probes them.
+    """Per-probe-row match ranges of one build and one probe side, the
+    first ``n_b`` and ``n_p`` rows of each live: K6 hashes the build
+    keys, K2 sorts them (dead rows parked last), K4 builds its table and
+    probes it with the probe keys' hashes.
 
     Returns (order int32[cap_b], lo int32[cap_p], counts int64[cap_p]):
     build rows ``order[lo[i]:lo[i] + counts[i]]`` match probe row i."""
-    bh = _parked_build(build_hash, build_live)
-    order = sort_order([bh ^ _SIGN])
-    lo, counts = join_probe(bh[order.long()], probe_hash, probe_live)
-    return order, lo, counts
+    cap_b = int(build_cols[0].data.shape[0])
+    bh = combined_key_hash(build_cols, cap_b, null_matches, "build")
+    build = sort_build(bh, _live_rows(cap_b, n_b, bh.device))
+    lo, counts = join_probe(build, probe_cols, n_p, null_matches)
+    return build.order, lo, counts
 
 
 def effective_counts(counts: torch.Tensor, probe_live: torch.Tensor,

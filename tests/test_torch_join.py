@@ -21,6 +21,10 @@ from spark_rapids_tpu.api import functions as RF
 from spark_rapids_tpu.api.column import col as rcol
 from spark_rapids_tpu.api.session import TpuSession
 from spark_rapids_tpu.columnar.device import DeviceColumn as RColumn
+from spark_rapids_tpu.exec import join as rjoin
+from spark_rapids_tpu.exec.base import ExecContext as RExecContext
+from spark_rapids_tpu.exec.basic import LocalScanExec as RLocalScanExec
+from spark_rapids_tpu.expr import core as rcore
 from spark_rapids_tpu.ops import gather as rgather
 from spark_rapids_tpu.ops import join_kernels as rjk
 from spark_rapids_tpu.testing.asserts import assert_tables_equal
@@ -109,10 +113,10 @@ def test_combined_key_hash_matches_reference(case, xp):
             want = rjk.combined_key_hash(XPS[xp], ref_cols, cap,
                                          null_matches=null_matches,
                                          side=side)
-            got = pjk.combined_key_hash(port_cols, cap,
-                                        null_matches=null_matches,
-                                        side=side)
-            np.testing.assert_array_equal(as_int64(want), got.numpy())
+            for fn in (pjk.combined_key_hash, pjk.combined_key_hash_plain):
+                got = fn(port_cols, cap, null_matches=null_matches,
+                         side=side)
+                np.testing.assert_array_equal(as_int64(want), got.numpy())
 
 
 def test_equal_keys_hash_alike_across_widths_and_zero_signs():
@@ -131,30 +135,32 @@ def test_equal_keys_hash_alike_across_widths_and_zero_signs():
 
 
 # ---------------------------------------------------------------------------
-# count_matches (K2 + K4), expand_pairs (K5), build_matched_flags
+# count_matches (K6 + K2 + K4), expand_pairs (K5), build_matched_flags
 # ---------------------------------------------------------------------------
 
-def join_inputs(seed, cap_b=300, cap_p=500, n_b=260, n_p=450):
-    """Build and probe hashes over duplicated, null and dead rows, as the
-    reference makes them: (reference hashes and live flags, port's)."""
+def join_inputs(seed, cap_b=300, cap_p=500, n_b=260, n_p=450,
+                kinds=("int64",), null_matches=False):
+    """Build and probe keys over duplicated, null and dead rows: (the
+    reference's hashes and live flags, as it makes them; the port's key
+    columns and live row counts)."""
     rng = np.random.default_rng(seed)
-    ref_b, port_b = key_columns(rng, ["int64"], cap_b, 0.05)
-    ref_p, port_p = key_columns(rng, ["int64"], cap_p, 0.05)
-    # many-to-many: build keys repeat, a third of the probe keys miss
-    bkeys = rng.integers(0, 120, cap_b)
-    pkeys = rng.integers(0, 180, cap_p)
-    for ref, port, keys in ((ref_b, port_b, bkeys), (ref_p, port_p, pkeys)):
-        ref[0].data = keys.astype(np.int64)
-        port[0].data = torch.from_numpy(keys.astype(np.int64))
-    bh = rjk.combined_key_hash(np, ref_b, cap_b, side="build")
-    ph = rjk.combined_key_hash(np, ref_p, cap_p, side="probe")
+    ref_b, port_b = key_columns(rng, kinds, cap_b, 0.05)
+    ref_p, port_p = key_columns(rng, kinds, cap_p, 0.05)
+    if list(kinds) == ["int64"]:
+        # many-to-many: build keys repeat, a third of the probe keys miss
+        bkeys = rng.integers(0, 120, cap_b)
+        pkeys = rng.integers(0, 180, cap_p)
+        for ref, port, keys in ((ref_b, port_b, bkeys),
+                                (ref_p, port_p, pkeys)):
+            ref[0].data = keys.astype(np.int64)
+            port[0].data = torch.from_numpy(keys.astype(np.int64))
+    bh = rjk.combined_key_hash(np, ref_b, cap_b, null_matches=null_matches,
+                               side="build")
+    ph = rjk.combined_key_hash(np, ref_p, cap_p, null_matches=null_matches,
+                               side="probe")
     blive = np.arange(cap_b) < n_b
     plive = np.arange(cap_p) < n_p
-    mine = (pjk.combined_key_hash(port_b, cap_b, side="build"),
-            torch.from_numpy(blive),
-            pjk.combined_key_hash(port_p, cap_p, side="probe"),
-            torch.from_numpy(plive))
-    return (bh, blive, ph, plive), mine
+    return (bh, blive, ph, plive), (port_b, n_b, port_p, n_p)
 
 
 def ref_arrays(xp, arrays):
@@ -164,6 +170,8 @@ def ref_arrays(xp, arrays):
 @pytest.mark.parametrize("xp", sorted(XPS))
 @pytest.mark.parametrize("seed", [0, 1])
 def test_count_matches_matches_reference(seed, xp):
+    """K6, K2 and K4 (their plain versions here) from the key columns
+    equal the reference's count_matches on the reference's hashes."""
     ref_in, mine = join_inputs(seed)
     want = [np.asarray(x) for x in rjk.count_matches(
         XPS[xp], *ref_arrays(XPS[xp], ref_in))]
@@ -176,12 +184,45 @@ def test_count_matches_matches_reference(seed, xp):
     assert want[2].sum() > want[2].astype(bool).sum()   # many-to-many
 
 
+PROBE_CASES = {
+    "long": (("int64",), False),
+    "three_keys": (("int32", "float64", "bool"), False),
+    "three_keys_null_matches": (("int32", "float64", "bool"), True),
+    "two_keys_null_matches": (("int64", "float64"), True),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_join_probe_from_keys_matches_reference(case, seed):
+    """K4's plain version (the probe keys hashed, then the two searches)
+    gives the reference's lo and counts on the reference's hashes, also
+    on keys of several columns with -0.0, NaN and nulls that match."""
+    kinds, null_matches = PROBE_CASES[case]
+    ref_in, (bcols, n_b, pcols, n_p) = join_inputs(
+        seed, kinds=kinds, null_matches=null_matches)
+    _, want_lo, want_counts = rjk.count_matches(np, *ref_in)
+    bh = pjk.combined_key_hash_plain(bcols, 300, null_matches, "build")
+    build = pjk.sort_build_plain(bh, torch.arange(300) < n_b)
+    for lo, counts in (
+            pjk.join_probe_keys_plain(build.sorted_hash, pcols, n_p,
+                                      null_matches),
+            pjk.join_probe(build, pcols, n_p, null_matches)):
+        np.testing.assert_array_equal(lo.numpy(), want_lo)
+        np.testing.assert_array_equal(counts.numpy(), want_counts)
+    assert want_counts.sum() > 0
+
+
 def test_count_matches_on_an_empty_build_side():
-    _, (bh, blive, ph, plive) = join_inputs(2)
-    order, lo, counts = pjk.count_matches(bh, torch.zeros_like(blive), ph,
-                                          plive)
-    assert not counts.any() and torch.equal(
-        lo, torch.zeros_like(lo))
+    ref_in, (bcols, _, pcols, n_p) = join_inputs(2)
+    bh, blive, ph, plive = ref_in
+    _, want_lo, want_counts = rjk.count_matches(np, bh, np.zeros_like(blive),
+                                                ph, plive)
+    for fn in (pjk.count_matches, pjk.count_matches_plain):
+        order, lo, counts = fn(bcols, 0, pcols, n_p)
+        assert not counts.any() and torch.equal(lo, torch.zeros_like(lo))
+        np.testing.assert_array_equal(lo.numpy(), want_lo)
+        np.testing.assert_array_equal(counts.numpy(), want_counts)
 
 
 def ref_column(rng, cap, null_frac=0.1):
@@ -196,7 +237,7 @@ def ref_column(rng, cap, null_frac=0.1):
 @pytest.mark.parametrize("xp", sorted(XPS))
 @pytest.mark.parametrize("how", ["inner", "left", "full"])
 def test_expand_pairs_matches_reference(how, xp):
-    ref_in, mine = join_inputs(3)
+    ref_in, _ = join_inputs(3)
     order, lo, counts = rjk.count_matches(np, *ref_in)
     plive = ref_in[3]
     eff = np.where(plive, np.maximum(counts, 1) if how != "inner" else counts,
@@ -241,14 +282,15 @@ def test_expand_pairs_matches_reference(how, xp):
 
 @pytest.mark.parametrize("xp", sorted(XPS))
 def test_build_matched_flags_matches_reference(xp):
-    ref_in, mine = join_inputs(5)
+    ref_in, _ = join_inputs(5)
     order, lo, counts = rjk.count_matches(np, *ref_in)
     x = XPS[xp]
     want = np.asarray(rjk.build_matched_flags(
         x, *ref_arrays(x, [order, lo, counts, ref_in[3]]), order.shape[0]))
     got = pjk.build_matched_flags(
         torch.from_numpy(order), torch.from_numpy(lo),
-        torch.from_numpy(counts), mine[3], order.shape[0])
+        torch.from_numpy(counts), torch.from_numpy(ref_in[3]),
+        order.shape[0])
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < ref_in[1].sum()
 
@@ -396,6 +438,33 @@ def test_q2_plan_and_exec_level_join(sessions):
     assert got["v"].to_numpy().sum() == want["v"].to_numpy().sum()
     np.testing.assert_allclose(got["w"].to_numpy().sum(),
                                want["w"].to_numpy().sum(), rtol=FLOAT_RTOL)
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "full", "left_semi",
+                                 "left_anti"])
+def test_build_side_prepared_once_over_probe_batches(how, monkeypatch):
+    """The build side is hashed, sorted and tabled once for all probe
+    batches, and the join gives the reference's rows in its order."""
+    fact, dim = case_tables(12, n_fact=1500, n_dim=250)
+    calls = []
+    sort_build = pjk.sort_build
+
+    def counted(*args):
+        calls.append(1)
+        return sort_build(*args)
+    monkeypatch.setattr(pjk, "sort_build", counted)
+    join = HashJoinExec([AttributeReference("k")], [AttributeReference("k")],
+                        how, None, LocalScanExec(fact, batch_rows=400),
+                        LocalScanExec(dim))
+    got = join.execute_collect(ExecContext("cpu"))
+    ref = rjoin.HashJoinExec([rcore.AttributeReference("k")],
+                             [rcore.AttributeReference("k")], how, None,
+                             RLocalScanExec(fact, batch_rows=400),
+                             RLocalScanExec(dim))
+    want = ref.execute_collect(RExecContext())
+    assert len(calls) == 1
+    assert got.num_rows > 0
+    assert_tables_equal(want, got, ignore_order=False)
 
 
 UNSUPPORTED = {

@@ -154,3 +154,34 @@ def test_outside_the_slice_raises(sessions):
     with pytest.raises(NotImplementedError, match="not ported"):
         (port_session.create_dataframe(table)
          .filter(pcol("v") > None).collect())
+
+
+def test_wide_group_by_matches_reference():
+    """A group-by of 9 columns of every key type (18 key words) with 17
+    sums, more than one set of K3 launches takes on the card; here the
+    plain versions, against the reference session."""
+    rng = np.random.default_rng(31)
+    n = 3000
+    cols = {}
+    for i in range(9):
+        kind = i % 4
+        vals = (rng.integers(0, 3, n) if kind == 0 else
+                rng.integers(-1, 2, n).astype(np.int32) if kind == 1 else
+                rng.random(n) < 0.5 if kind == 2 else
+                rng.choice([0.5, -1.5, 2.0], n))
+        cols[f"k{i}"] = pa.array(vals, mask=rng.random(n) < 0.05)
+    for j in range(17):
+        vals = rng.random(n) if j % 3 == 2 else rng.integers(-10**6, 10**6, n)
+        cols[f"v{j}"] = pa.array(vals, mask=rng.random(n) < 0.1)
+    table = pa.table(cols)
+    outs = []
+    for session, F, col in ((TpuSession.builder().get_or_create(), RF, rcol),
+                            (GpuSession(device="cpu"), PF, pcol)):
+        outs.append(session.create_dataframe(table)
+                    .group_by(*[col(f"k{i}") for i in range(9)])
+                    .agg(*[F.sum(col(f"v{j}")).alias(f"s{j}")
+                           for j in range(17)]).collect())
+    want, got = outs
+    assert got.schema == want.schema
+    assert got.num_rows > 1000
+    assert_tables_equal(want, got, approximate_float=FLOAT_RTOL)
