@@ -5,8 +5,9 @@
 
 Builds the port's hand-written kernels from csrc/ with nvcc, holds each
 against its plain PyTorch version at the main paths' shapes and at edge
-cases (the join kernels K6, K4 and K5 on 27 join cases and a hot key;
-K3 on a group-by of 9 columns with 17 sums), then drives the two main
+cases (the join kernels K6, K4, K7 and K5 on 27 join cases and a hot
+key, K7 and K5 on the shapes K5's merge-path tiles must get right; K3 on
+a group-by of 9 columns with 17 sums), then drives the two main
 paths.  Bench q1, scan -> filter(v > -500000) -> group by k: sum(v),
 avg(f), count(*) -> collect, over 2^25 rows, twice: through the
 DataFrame API as one batch, and at exec level as 8 batches of 4,194,304
@@ -402,12 +403,13 @@ def _same_expansion(torch, a, b):
 
 def _join_case(torch, jk, bucket_for, build_cols, n_b, probe_cols, n_p,
                what, nkeys=1, null_matches=False):
-    """K6 on both sides' keys, K6 + K2 + K4 (count_matches) and K5
-    (expand_pairs) against their plain versions on one build and probe
-    side whose first ``nkeys`` columns are the key, for inner, left and
-    full joins, at an output capacity equal to the total and at its
-    capacity bucket.  Fails unless K6 launched (for each side with rows),
-    K4 (where there are probe rows) and K5.  Returns the inner total."""
+    """K6 on both sides' keys, K6 + K2 + K4 (count_matches), K7
+    (expand_ends) and K5 (expand_pairs) against their plain versions on
+    one build and probe side whose first ``nkeys`` columns are the key,
+    for inner, left and full joins, at an output capacity equal to the
+    total and at its capacity bucket.  Fails unless K6 launched (for each
+    side with rows), K4 and K7 (where there are probe rows) and K5.
+    Returns the inner total."""
     cap_b, cap_p = build_cols[0].capacity, probe_cols[0].capacity
     bkeys, pkeys = build_cols[:nkeys], probe_cols[:nkeys]
     for side, keys, cap in (("build", bkeys, cap_b), ("probe", pkeys, cap_p)):
@@ -431,8 +433,7 @@ def _join_case(torch, jk, bucket_for, build_cols, n_b, probe_cols, n_p,
     plive = torch.arange(cap_p, device=lo.device) < n_p
     inner = None
     for how in ("inner", "left", "full"):
-        ends = torch.cumsum(jk.effective_counts(counts, plive, how), 0)
-        total = int(ends[-1]) if cap_p else 0
+        ends, total = _same_ends(torch, jk, counts, plive, how)
         inner = total if inner is None else inner
         for out_cap in sorted({max(total, 1), bucket_for(max(total, 1))}):
             args = (ends, lo, counts, order, total, out_cap, probe_cols,
@@ -615,8 +616,7 @@ def _hot_key(torch, dev, jk, t, DeviceColumn, bucket_for):
                                                    *k4_args[1:]))):
         raise AssertionError("K4 differs from its plain version on the hot "
                              "key")
-    ends = torch.cumsum(jk.effective_counts(counts, live_p, "inner"), 0)
-    total = int(ends[-1])
+    ends, total = _same_ends(torch, jk, counts, live_p, "inner")
     out_cap = bucket_for(total)
     args = (ends, lo, counts, side.order, total, out_cap, probe, build)
     if not _same_expansion(torch, jk.expand_pairs(*args),
@@ -624,6 +624,96 @@ def _hot_key(torch, dev, jk, t, DeviceColumn, bucket_for):
         raise AssertionError("K5 differs from its plain version on the hot "
                              "key")
     return total, out_cap, args, k4_args
+
+
+def _same_ends(torch, jk, counts, live, how):
+    """K7 against its plain version: the running sums and the total,
+    exactly.  Fails unless K7 launched.  Returns (ends, total)."""
+    before = jk.expand_ends.launches
+    ends, total = jk.expand_ends(counts, live, how)
+    if counts.shape[0] and jk.expand_ends.launches <= before:
+        raise AssertionError(f"K7 (expand_ends) did not launch on "
+                             f"{counts.shape[0]} rows, {how} join")
+    want = jk.expand_ends_plain(counts, live, how)
+    if not (torch.equal(ends, want[0]) and torch.equal(total, want[1])):
+        raise AssertionError(f"K7 (expand_ends) differs on "
+                             f"{counts.shape[0]} rows, {how} join")
+    return ends, int(total)
+
+
+def _expand_cases(torch, dev, jk, t, DeviceColumn, tile):
+    """K7 and K5 against their plain versions on the shapes K5's merge-path
+    tiles must get right, on counts made here (not by K4): K7 around its
+    tile of 4,096 rows, with dead rows and all misses; K5 behind a run of
+    zero-count rows longer than K5's tile of ``tile`` merge items, on one
+    row with more pairs than a tile, at a capacity far above the total,
+    and with 40 columns of every width, all in one launch.  Returns the
+    number of cases checked."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def rand_ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev)
+
+    def columns(n, k):
+        cols = []
+        for i in range(k):
+            kind = i % 4
+            if kind == 0:
+                dtype, data = t.LONG, rand_ints(n, -2**62, 2**62)
+            elif kind == 1:
+                dtype, data = t.INT, rand_ints(n, -2**31, 2**31).to(
+                    torch.int32)
+            elif kind == 2:
+                dtype, data = t.BOOLEAN, torch.rand(
+                    n, generator=gen, device=dev) < 0.5
+            else:
+                dtype, data = t.DOUBLE, torch.rand(
+                    n, generator=gen, device=dev, dtype=torch.float64)
+            valid = torch.rand(n, generator=gen, device=dev) >= 0.1
+            cols.append(DeviceColumn(dtype, torch.where(
+                valid, data, torch.zeros_like(data)), valid))
+        return cols
+
+    cases = 0
+    for n in (1, 4095, 4096, 4097, 3 * 4096 + 5, 100_003):
+        # matches, and all misses
+        for counts in (rand_ints(n, 0, 4),
+                       torch.zeros(n, dtype=torch.int64, device=dev)):
+            live = torch.rand(n, generator=gen, device=dev) < 0.9
+            for how in ("inner", "left", "full"):
+                _same_ends(torch, jk, counts, live, how)
+                cases += 1
+    nb = 20_000
+    order = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
+    zero_run = rand_ints(6 * tile, 0, 3)
+    zero_run[tile // 3:tile // 3 + 3 * tile] = 0
+    hot_row = rand_ints(3000, 0, 3)
+    hot_row[1234] = 4 * tile
+    for what, counts, extra, ncols in (
+            ("behind a run of zero-count rows longer than a tile",
+             zero_run, 0, 4),
+            ("on one row with more pairs than a tile", hot_row, 0, 4),
+            ("at a capacity far above the total", rand_ints(5000, 0, 3),
+             7 * 5000, 4),
+            ("with 40 columns", rand_ints(5000, 0, 4), 100, 20)):
+        n = int(counts.shape[0])
+        live = torch.rand(n, generator=gen, device=dev) < 0.95
+        lo = rand_ints(n, 0, nb - int(counts.max())).to(torch.int32)
+        probe, build = columns(n, ncols), columns(nb, ncols)
+        for how in ("inner", "left"):
+            ends, total = _same_ends(torch, jk, counts, live, how)
+            out_cap = total + extra if total + extra else 1
+            args = (ends, lo, counts, order, total, out_cap, probe, build)
+            before = jk.expand_pairs.launches
+            got = jk.expand_pairs(*args)
+            if jk.expand_pairs.launches != before + 1:
+                raise AssertionError(f"K5 (expand_pairs) did not launch once "
+                                     f"{what}, {how} join")
+            if not _same_expansion(torch, got, jk.expand_pairs_plain(*args)):
+                raise AssertionError(f"K5 (expand_pairs) differs {what}, "
+                                     f"{how} join")
+            cases += 1
+    return cases
 
 
 def main() -> int:
@@ -1004,9 +1094,29 @@ def main() -> int:
               f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} "
               f"ms ({k4_bytes} bytes)")
 
+        # K7: the running sums of the effective counts, and their total
+        ends, q2_pairs = _same_ends(torch, jk, counts, plive, "inner")
         eff = jk.effective_counts(counts, plive, "inner")
-        ends = torch.cumsum(eff, 0)
-        q2_pairs = int(ends[-1])
+        # per probe row: the count 8 B and the live flag 1 B in, the end
+        # 8 B out
+        k7_bytes = 17 * cap_p
+        kernel_rows["expand_ends"] = dict(
+            source="spark_rapids_tpu_torch/csrc/expand_ends.cu",
+            replaces="spark_rapids_tpu/ops/join_kernels.py:138",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: jk.expand_ends(counts, plive, "inner")),
+            plain_ms=cuda_ms(lambda: jk.expand_ends_plain(counts, plive,
+                                                          "inner")),
+            # the nearest single call: the scan alone, over effective
+            # counts already computed
+            library_ms=cuda_ms(lambda: torch.cumsum(eff, 0)),
+            bound_ms=bound(k7_bytes))
+        r = kernel_rows["expand_ends"]
+        print(f"K7 expand_ends: probe rows {n_p} (capacity {cap_p}), total "
+              f"{q2_pairs}, exact, {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, library (torch.cumsum of the "
+              f"effective counts alone) {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({k7_bytes} bytes)")
         out_cap = bucket_for(q2_pairs)
         k5_args = (ends, lo, counts, order, q2_pairs, out_cap,
                    fact_b.columns, dim_b.columns)
@@ -1106,6 +1216,17 @@ def main() -> int:
         traceback.print_exc()
 
     try:
+        tile = kernels.library("join_expand").srt_tile_rows()
+        cases = _expand_cases(torch, dev, jk, t, DeviceColumn, tile)
+        print(f"K7 and K5 tiling cases: {cases} cases equal their plain "
+              f"versions (K7 around its tile of "
+              f"{kernels.library('expand_ends').srt_tile_rows()} rows; K5 "
+              f"around its tile of {tile} merge items, with 40 columns)")
+    except Exception:
+        failures.append("K7 and K5 tiling cases")
+        traceback.print_exc()
+
+    try:
         _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
                        GpuSession(), F, col)
     except Exception:
@@ -1119,6 +1240,7 @@ def main() -> int:
                 "key_hash": jk.combined_key_hash,
                 "hash_table": jk.hash_table,
                 "join_probe": jk.join_probe,
+                "expand_ends": jk.expand_ends,
                 "expand_pairs": jk.expand_pairs}
 
     def count_reset():
@@ -1346,7 +1468,7 @@ def main() -> int:
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "q2": ("key_hash", "sort_order", "hash_table", "join_probe",
-               "expand_pairs", "segment_reduce_sorted")}
+               "expand_ends", "expand_pairs", "segment_reduce_sorted")}
     for run, names in path_kernels.items():
         if run not in launches:
             failures.append(f"launch counts of the {run} run missing")
@@ -1364,8 +1486,9 @@ def main() -> int:
 
     if kernel_rows:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
-        # q2 for K4-K6
-        run_of = {"key_hash": "q2", "join_probe": "q2", "expand_pairs": "q2"}
+        # q2 for K4-K7
+        run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
+                  "expand_pairs": "q2"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],

@@ -5,13 +5,13 @@ NestedLoopJoinExec, split_equi_condition, plan_join).  An equi-join
 hashes the build side's keys into one 64-bit word per row (kernel K6),
 sorts the hashes (K2) and builds K4's hash table over them, once per
 build side; then, per probe batch: hashes each probe row's keys and
-finds its match range in one kernel (K4), reads the total number of
-output rows on the host once, and expands the pairs at a capacity
-bucket of that total, gathering both sides' columns in the same kernel
-(K5).  The build side is always the right child; a right join is
-planned flipped.  Output row order follows the probe side, and a probe
-row's build rows come in sorted-hash order, as in the reference, so the
-two agree row for row.
+finds its match range in one kernel (K4), sums the output rows per
+probe row (K7), reads their total on the host once, and expands the
+pairs at a capacity bucket of that total, gathering both sides' columns
+in the same kernel (K5).  The build side is always the right child; a
+right join is planned flipped.  Output row order follows the probe side,
+and a probe row's build rows come in sorted-hash order, as in the
+reference, so the two agree row for row.
 
 Not ported yet: string keys and payloads (the span sizing of the
 reference's count phase), the broadcast and shuffled joins (more than
@@ -179,10 +179,11 @@ class HashJoinExec(Exec):
     # --- phase 2: expansion ---------------------------------------------------
     def _expand(self, build: DeviceBatch, probe: DeviceBatch, order, lo,
                 counts, plive, how: str):
-        """All pairs of ``how`` with both sides' columns gathered (K5).
+        """All pairs of ``how`` with both sides' columns gathered (K7,
+        K5).
         Returns (batch, probe index per output row)."""
-        ends = torch.cumsum(jk.effective_counts(counts, plive, how), 0)
-        total = int(ends[-1]) if ends.numel() else 0   # the one host read
+        ends, total = jk.expand_ends(counts, plive, how)   # K7
+        total = int(total)                                  # the one host read
         if total >= 1 << 31:
             # the output's row indices are int32
             raise RuntimeError(

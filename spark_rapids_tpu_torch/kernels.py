@@ -28,7 +28,7 @@ CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 HEADERS = ("partition.cuh", "join_hash.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
-           "join_expand")
+           "expand_ends", "join_expand")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,9 +56,12 @@ _SIGNATURES = {
         "srt_join_build_table": [_P, _I, _P, _I, _P],
         "srt_join_probe": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     },
+    "expand_ends": {
+        "srt_expand_ends": [_P, _P, _I, _I, _P, _P, _P, _P],
+    },
     "join_expand": {
-        "srt_join_expand": [_P, _I, _P, _P, _P, _I, _L, _L, _P, _P, _I, _P,
-                            _P, _P, _P, _P, _P, _P],
+        "srt_join_expand": [_P, _I, _P, _P, _P, _I, _L, _L, _P, _P, _P, _P,
+                            _I, _P],
     },
 }
 

@@ -1,15 +1,18 @@
-"""Equi-join kernels: key hashing (kernel K6), the probe (kernel K4) and
-the pair expansion with the row gathers of both sides (kernel K5).
+"""Equi-join kernels: key hashing (kernel K6), the probe (kernel K4), the
+running sums of the output rows per probe row (kernel K7) and the pair
+expansion with the row gathers of both sides (kernel K5).
 
 Counterpart of spark_rapids_tpu/ops/join_kernels.py.  Each side's keys
 collapse to one 64-bit combined hash per row.  The build side's hashes
 are written by K6, sorted once (kernel K2) and put in K4's hash table,
 one entry per run of equal hashes; each probe row's hash is computed
 inside K4 and looked up there (a miss takes its exact position from a
-binary search); every output position finds its probe row by a
-binary search over the running match counts and gathers both sides'
-lanes (K5).  Equal keys always hash equally; unequal keys collide with
-probability ~2^-64, the reference's documented tradeoff.
+binary search); K7 sums the output rows per probe row; K5 cuts probe
+rows and output positions into merge-path tiles of equal work, finds
+each position's probe row inside its tile and gathers both sides'
+lanes, every column in one launch.  Equal keys always hash equally;
+unequal keys collide with probability ~2^-64, the reference's
+documented tradeoff.
 
 Hashes are the reference's uint64 bits carried in int64 tensors (torch
 has no uint64 arithmetic): multiplication and addition wrap the same,
@@ -335,6 +338,55 @@ def effective_counts(counts: torch.Tensor, probe_live: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K7: the effective counts' running sums
+# ---------------------------------------------------------------------------
+
+def expand_ends_plain(counts: torch.Tensor, probe_live: torch.Tensor,
+                      join_type: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: ``effective_counts``, then ``torch.cumsum``.
+    See ``expand_ends``."""
+    ends = torch.cumsum(effective_counts(counts, probe_live, join_type), 0)
+    total = ends[-1:] if ends.numel() else torch.zeros(
+        1, dtype=torch.int64, device=counts.device)
+    return ends, total
+
+
+def expand_ends(counts: torch.Tensor, probe_live: torch.Tensor,
+                join_type: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The running sums of ``effective_counts`` (K7): (ends int64[cap_p],
+    total int64[1] on the device), ``ends[i]`` the output rows of probe
+    rows 0..i and ``total`` the last of them (0 with no probe rows).
+    ``expand_pairs`` takes ``ends``; the caller reads ``total`` once."""
+    if counts.device.type == "cpu":
+        return expand_ends_plain(counts, probe_live, join_type)
+    kernels.require_cuda("expand_ends", counts, probe_live)
+    n = int(counts.shape[0])
+    if counts.dtype != torch.int64 or probe_live.dtype != torch.bool or \
+            counts.shape != (n,) or probe_live.shape != (n,):
+        raise TypeError(f"expand_ends: counts must be int64[{n}] and the "
+                        f"live flags bool[{n}]")
+    dev = counts.device
+    ends = torch.empty(n, dtype=torch.int64, device=dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return ends, total
+    lib = kernels.library("expand_ends")
+    # the tile counter, then one look-back word a tile
+    state = torch.zeros(1 + kernels.num_tiles(lib, n), dtype=torch.int64,
+                        device=dev)
+    kernels.check(lib, lib.srt_expand_ends(
+        counts.data_ptr(), probe_live.data_ptr(), n,
+        int(join_type in ("left", "full")), ends.data_ptr(),
+        total.data_ptr(), state.data_ptr(), kernels.stream(counts)),
+        "expand_ends")
+    expand_ends.launches += 1
+    return ends, total
+
+
+expand_ends.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K5: pair expansion fused with the gathers of both sides
 # ---------------------------------------------------------------------------
 
@@ -375,9 +427,6 @@ def expand_pairs_plain(ends, lo, counts, order, total, out_cap,
         build_out = [gather_column(c, bidx, matched) for c in build_cols]
     return (row.to(torch.int32), bidx.to(torch.int32), probe_out,
             build_out)
-
-
-_MAX_COLS = 32                                 # kMaxCols in csrc
 
 
 def expand_pairs(ends: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor,
@@ -432,24 +481,27 @@ def expand_pairs(ends: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor,
                          torch.empty(out_cap, dtype=c.data.dtype, device=dev),
                          torch.empty(out_cap, dtype=torch.bool, device=dev))
             for c, _ in sides]
-    lib = kernels.library("join_expand")
-    # every launch writes the pair indices; columns go in chunks of 32
-    for s in range(0, max(len(sides), 1), _MAX_COLS):
-        chunk = sides[s:s + _MAX_COLS]
-        out_chunk = outs[s:s + _MAX_COLS]
-        kernels.check(lib, lib.srt_join_expand(
-            ends.data_ptr(), n_p, lo.data_ptr(), counts.data_ptr(),
-            order.data_ptr(), n_b, total, out_cap, pidx.data_ptr(),
-            bidx.data_ptr(), len(chunk),
-            kernels.pointers([c.data for c, _ in chunk]),
-            kernels.pointers([c.validity for c, _ in chunk]),
-            kernels.pointers([o.data for o in out_chunk]),
-            kernels.pointers([o.validity for o in out_chunk]),
-            kernels.ints(c.data.element_size() for c, _ in chunk),
-            kernels.ints(side for _, side in chunk),
-            kernels.stream(ends)), "expand_pairs")
-        expand_pairs.launches += 1
     n_probe = len(probe_cols)
+    if out_cap == 0:
+        return pidx, bidx, outs[:n_probe], outs[n_probe:]
+    lib = kernels.library("join_expand")
+    # the columns as the kernel reads them: source data, source validity,
+    # output data, output validity, element bytes, side
+    desc = kernels.device_int64s(
+        [c.data.data_ptr() for c, _ in sides]
+        + [c.validity.data_ptr() for c, _ in sides]
+        + [o.data.data_ptr() for o in outs]
+        + [o.validity.data_ptr() for o in outs]
+        + [c.data.element_size() for c, _ in sides]
+        + [side for _, side in sides], dev)
+    split = torch.empty(kernels.num_tiles(lib, n_p + out_cap) + 1,
+                        dtype=torch.int32, device=dev)
+    kernels.check(lib, lib.srt_join_expand(
+        ends.data_ptr(), n_p, lo.data_ptr(), counts.data_ptr(),
+        order.data_ptr(), n_b, total, out_cap, split.data_ptr(),
+        pidx.data_ptr(), bidx.data_ptr(), desc.data_ptr(), len(sides),
+        kernels.stream(ends)), "expand_pairs")
+    expand_pairs.launches += 1
     return pidx, bidx, outs[:n_probe], outs[n_probe:]
 
 
