@@ -7,14 +7,22 @@ Builds the port's hand-written kernels from csrc/ with nvcc, holds each
 against its plain PyTorch version at the main paths' shapes and at edge
 cases (the join kernels K6, K4, K7 and K5 on 27 join cases and a hot
 key, K7 and K5 on the shapes K5's merge-path tiles must get right; K3 on
-a group-by of 9 columns with 17 sums), then drives the two main
-paths.  Bench q1, scan -> filter(v > -500000) -> group by k: sum(v),
-avg(f), count(*) -> collect, over 2^25 rows, twice: through the
-DataFrame API as one batch, and at exec level as 8 batches of 4,194,304
+a group-by of 9 columns with 17 sums), then drives the main paths.
+Bench q1, scan -> filter(v > -500000) -> group by k: sum(v), avg(f),
+count(*) -> collect, over 2^25 rows: through the DataFrame API as one
+batch and as 4 partitions, and at exec level as 8 batches of 4,194,304
 rows (update -> concat -> merge -> evaluate).  Bench q2, the 2^25-row
 fact table inner-joined USING k with the 100,000-row dimension -> group
 by k: sum(w) -> collect, through the DataFrame API, and the hash join
-alone at exec level.  Each result is compared with pyarrow on the host.
+alone at exec level.  Bench q6, q2 over a 4-partition fact table and a
+2-partition dimension, through the DataFrame API: the plan rewrite
+strips its exchanges (a broadcast hash join over the gathered probe
+side, one COMPLETE aggregate).  Each result is compared with pyarrow on
+the host.  Then the plan rewrite itself: q1 and q2 plan GPU-only with
+the final download as their one transition; a conditional full join
+falls back to the CPU engine between device operators, with the
+reference's reason; and q1 under spark.rapids.sql.enabled=false (every
+operator on the CPU, no kernel launched) equals the card's result.
 Launch counts are reset just before each main-path run and must be > 0
 after it for every kernel of that path.  Needs one CUDA card; exits
 non-zero and prints no result without one, or when any phase fails.
@@ -53,6 +61,12 @@ def _card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _placements(root):
+    out = []
+    root.foreach(lambda e: out.append((type(e).__name__, e.placement)))
+    return out
 
 
 def _make_tables(n):
@@ -744,6 +758,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.exec import aggregate as agg_mod
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
     from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.exec import basic as basic_mod
     from spark_rapids_tpu_torch.exec.basic import FilterExec, LocalScanExec
     from spark_rapids_tpu_torch.exec.filter_common import keep_flags
     from spark_rapids_tpu_torch.expr.aggregates import (
@@ -863,7 +878,8 @@ def main() -> int:
         # sorts once it has concatenated the batches' partial results
         merge_agg = GpuHashAggregateExec(
             [A("k")], aggs, COMPLETE,
-            FilterExec(filt_expr, LocalScanExec(table, batch_rows=BATCH_ROWS)))
+            FilterExec(filt_expr, LocalScanExec(table,
+                                                batch_rows=BATCH_ROWS)))
         merge_words = []
         canonical = merge_agg._canonical_order
 
@@ -1408,9 +1424,12 @@ def main() -> int:
 
     # ---- where q2's time goes: stage by stage, and a trace -------------
     try:
-        agg_q2 = q2_session.last_plan
-        project = agg_q2.children[0]
-        join = project.children[0]
+        by_name = {}
+        q2_session.last_plan.foreach(
+            lambda e: by_name.setdefault(type(e).__name__, e))
+        agg_q2 = by_name["GpuHashAggregateExec"]
+        project = by_name["ProjectExec"]
+        join = by_name["HashJoinExec"]
         ctx = ExecContext(dev)
         probe = next(iter(join.children[0].execute_partition(0, ctx)))
         build = join._collect_build(ctx)
@@ -1464,11 +1483,293 @@ def main() -> int:
         failures.append("q2 stage split")
         traceback.print_exc()
 
+    # ---- main path: q6 (4-partition fact, 2-partition dimension) -----
+    q6_plan = ["DeviceToHostExec", "CoalesceBatchesExec",
+               "GpuHashAggregateExec", "CoalesceBatchesExec", "ProjectExec",
+               "BroadcastHashJoinExec", "CoalesceBatchesExec",
+               "GatherPartitionsExec", "LocalScanExec",
+               "BroadcastExchangeExec", "LocalScanExec"]
+    try:
+        q6_session = GpuSession()
+        q6df = (q6_session.create_dataframe(table, num_partitions=4)
+                .join(q6_session.create_dataframe(dim, num_partitions=2),
+                      on="k", how="inner")
+                .group_by(col("k"))
+                .agg(F.sum(col("w")).alias("sw")))
+        t1 = time.perf_counter()
+        check_q2(q6df.collect(), "DataFrame q6 (cold)")
+        cold_wall = time.perf_counter() - t1
+        nodes = _placements(q6_session.last_plan)
+        if [n for n, _ in nodes] != q6_plan:
+            raise AssertionError(f"q6 planned {[n for n, _ in nodes]}")
+        if nodes[0][1] != "cpu" or any(p != "gpu" for _, p in nodes[1:]):
+            raise AssertionError(f"q6 placements {nodes}")
+        if "!" in q6_session.last_explain:
+            raise AssertionError("q6 explain has a CPU fallback:\n"
+                                 + q6_session.last_explain)
+        print("q6 converted plan (* = GPU):\n"
+              + q6_session.last_plan.tree_string())
+        count_reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        got = q6df.collect()
+        torch.cuda.synchronize()
+        launches["q6"] = counts()
+        check_q2(got, "DataFrame q6")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            q6df.collect()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        print(f"main path DataFrame q6 ({ROWS} fact rows in 4 partitions "
+              f"joined with {DIM_ROWS} dimension rows in 2, then grouped "
+              f"by k): cold wall {cold_wall * 1e3:.1f} ms (upload "
+              f"included); warm walls {', '.join(f'{w:.1f}' for w in walls)}"
+              f" ms, median {sorted(walls)[1]:.1f}, {got.num_rows} groups, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"probe batches {launches['q6']['join_probe']}, launches "
+              f"{launches['q6']}")
+        # each probe batch's round: K4's count, the host read, K7 and K5
+        by_name = {}
+        q6_session.last_plan.foreach(
+            lambda e: by_name.setdefault(type(e).__name__, e))
+        join = by_name["BroadcastHashJoinExec"]
+        ctx = ExecContext(dev, q6_session.conf)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probes = list(join.children[0].execute_partition(0, ctx))
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t1) * 1e3
+        build = join._collect_build(ctx)
+        side = jk.sort_build(*join._hash_keys(build))
+        rounds = []
+        for _ in range(2):                 # the second pass is reported
+            rounds = []
+            for probe in probes:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                order, lo, cnts, plive = join._count(side, probe)
+                out, _ = join._expand(build, probe, order, lo, cnts, plive,
+                                      "inner")
+                torch.cuda.synchronize()
+                rounds.append((probe.num_rows, out.num_rows,
+                               (time.perf_counter() - t1) * 1e3))
+                del out
+        print(f"q6 probe side: {len(probes)} coalesced batches from 4 "
+              f"partitions in {gather_ms:.2f} ms (gather and coalesce of the "
+              f"device-resident partitions, target "
+              f"{basic_mod.TARGET_ROWS} rows); rounds "
+              f"(count -> host read -> expand): "
+              + ", ".join(f"{p} probe rows -> {o} rows {ms:.2f} ms"
+                          for p, o, ms in rounds))
+        del probes, build, side, join, by_name
+        trace = _profile(torch, q6df.collect)
+        print(f"trace of a warm DataFrame q6: wall {trace['wall_ms']:.2f} ms, "
+              f"device busy {trace['busy_ms']:.2f} ms, idle share "
+              f"{trace['idle_share']:.3f}; top kernels (ms): "
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"]))
+        del q6df, q6_session
+    except Exception:
+        failures.append("main path (q6)")
+        traceback.print_exc()
+
+    # ---- main path: q1 over 4 partitions --------------------------------
+    try:
+        s4 = GpuSession()
+        df4 = (s4.create_dataframe(table, num_partitions=4)
+               .filter(col("v") > THRESHOLD)
+               .group_by(col("k"))
+               .agg(F.sum(col("v")).alias("sv"), F.avg(col("f")).alias("af"),
+                    F.count("*").alias("c")))
+        _check_q1(df4.collect(), want, "DataFrame q1, 4 partitions (cold)")
+        nodes = _placements(s4.last_plan)
+        if nodes[0] != ("DeviceToHostExec", "cpu") or \
+                any(p != "gpu" for _, p in nodes[1:]):
+            raise AssertionError(f"q1 over 4 partitions placed {nodes}")
+        count_reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = df4.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches["q1_4"] = counts()
+        _check_q1(got, want, "DataFrame q1, 4 partitions")
+        print(f"main path DataFrame q1 (4 partitions of {ROWS // 4} rows): "
+              f"warm wall {wall * 1e3:.1f} ms, plan "
+              f"{[n for n, _ in nodes]}, launches {launches['q1_4']}")
+        del df4, s4
+    except Exception:
+        failures.append("main path (q1, 4 partitions)")
+        traceback.print_exc()
+
+    # ---- the plan rewrite: placements and planning time, one partition --
+    try:
+        for name, sess, frame in (("q1", session, df),
+                                  ("q2", q2_session, q2df)):
+            plan = sess.prepare_plan(frame._lp)
+            nodes = _placements(plan)
+            moves = [n for n, _ in nodes
+                     if n in ("HostToDeviceExec", "DeviceToHostExec")]
+            if nodes[0][0] != "DeviceToHostExec" or moves != \
+                    ["DeviceToHostExec"] or \
+                    any(p != "gpu" for _, p in nodes[1:]) or \
+                    "!" in sess.last_explain:
+                raise AssertionError(f"{name} placed {nodes}")
+            ms = []
+            for _ in range(21):
+                t1 = time.perf_counter()
+                sess.prepare_plan(frame._lp)
+                ms.append((time.perf_counter() - t1) * 1e3)
+            print(f"{name} plan: GPU-only, one transition (the final "
+                  f"DeviceToHostExec), {len(nodes)} operators; planning "
+                  f"(plan + tag + convert + transitions) median of 21 "
+                  f"{sorted(ms)[10]:.3f} ms host, min {min(ms):.3f}")
+        # the guards: a GPU aggregate over a CPU-placed filter and scan is
+        # refused before it runs, and raises on its first batch
+        guard = GpuHashAggregateExec(
+            [A("k")], aggs, COMPLETE,
+            FilterExec(filt_expr, LocalScanExec(table.slice(0, 1024))))
+        guard.children[0].foreach(lambda e: setattr(e, "placement", "cpu"))
+        for what, call, err in (
+                ("collect", lambda: guard.execute_collect(ExecContext(dev)),
+                 ValueError),
+                ("first batch", lambda: next(guard.execute_partition(
+                    0, ExecContext(dev))), RuntimeError)):
+            try:
+                call()
+            except err:
+                continue
+            raise AssertionError(f"GPU aggregate over CPU-placed children: "
+                                 f"{what} did not raise")
+        print("placement guards: a GPU aggregate over a CPU-placed filter "
+              "and scan is refused at collect and raises on its first batch")
+    except Exception:
+        failures.append("plan placements (q1, q2)")
+        traceback.print_exc()
+
+    # ---- the plan rewrite: CPU fallback between device operators ------
+    try:
+        fb_rows = 1 << 16
+        fb_fact = table.slice(0, fb_rows)
+        fb_dim = dim.rename_columns(["k2", "w"])
+
+        def fb_query(s, how, cond_extra):
+            return (s.create_dataframe(fb_fact)
+                    .filter(col("v") > THRESHOLD)
+                    .join(s.create_dataframe(fb_dim),
+                          on=(col("k") == col("k2")) & cond_extra(),
+                          how=how)
+                    .group_by(col("k"))
+                    .agg(F.sum(col("v")).alias("sv"),
+                         F.count("*").alias("c")))
+
+        full = fb_query(GpuSession(), "full", lambda: col("w") > 0.5)
+        text = full.session.explain(full._lp)
+        nodes = _placements(full.session.last_plan)
+        reason = ("!Exec <CpuJoinExec> cannot run on GPU because "
+                  "conditional full join is not supported on GPU")
+        want_nodes = [("DeviceToHostExec", "cpu"),
+                      ("CoalesceBatchesExec", "gpu"),
+                      ("GpuHashAggregateExec", "gpu"),
+                      ("HostToDeviceExec", "gpu"), ("CpuJoinExec", "cpu"),
+                      ("DeviceToHostExec", "cpu"), ("FilterExec", "gpu"),
+                      ("LocalScanExec", "gpu"), ("DeviceToHostExec", "cpu"),
+                      ("LocalScanExec", "gpu")]
+        if nodes != want_nodes or reason not in [
+                ln.strip() for ln in text.splitlines()]:
+            raise AssertionError(f"conditional full join placed {nodes}:\n"
+                                 + text)
+        errors = []
+        for conf in ({}, {"spark.rapids.sql.enabled": False}):
+            try:
+                fb_query(GpuSession(conf=conf), "full",
+                         lambda: col("w") > 0.5).collect()
+                errors.append(None)
+            except NotImplementedError as e:
+                errors.append(str(e))
+        if errors != ["conditional full join on CPU engine"] * 2:
+            raise AssertionError(f"conditional full join: {errors}")
+        # a fallback that runs: the CPU join engine disabled for the GPU
+        inner = fb_query(GpuSession(
+            conf={"spark.rapids.sql.exec.CpuJoinExec": False}), "inner",
+            lambda: col("w") > 0.5)
+        count_reset()
+        got = inner.collect().sort_by("k")
+        fb_launches = counts()
+        nodes = _placements(inner.session.last_plan)
+        if ("CpuJoinExec", "cpu") not in nodes or \
+                "CpuJoinExec has been disabled by config" not in \
+                inner.session.last_explain:
+            raise AssertionError(f"disabled CpuJoinExec placed {nodes}")
+        oracle = fb_query(GpuSession(conf={"spark.rapids.sql.enabled":
+                                           False}), "inner",
+                          lambda: col("w") > 0.5).collect().sort_by("k")
+        if not got.equals(oracle):
+            raise AssertionError("the CPU join between device operators "
+                                 "differs from the CPU engine")
+        print(f"fallback: a conditional full join at {fb_rows} fact rows "
+              f"plans on CpuJoinExec between HostToDevice and DeviceToHost "
+              f"transitions (filter and aggregate on the GPU) with the "
+              f"reason '{reason[1:]}', and raises "
+              f"'{errors[0]}' as under spark.rapids.sql.enabled=false (the "
+              f"reference's CPU engine raises the same); an inner "
+              f"conditional join with CpuJoinExec disabled runs on the CPU "
+              f"engine between device operators ({got.num_rows} groups, "
+              f"launches {fb_launches}) and equals the CPU engine's result")
+    except Exception:
+        failures.append("fallback")
+        traceback.print_exc()
+
+    # ---- the CPU oracle: q1 under spark.rapids.sql.enabled=false ------
+    try:
+        small = table.slice(0, 1 << 20)
+
+        def q1_df(s):
+            return (s.create_dataframe(small)
+                    .filter(col("v") > THRESHOLD)
+                    .group_by(col("k"))
+                    .agg(F.sum(col("v")).alias("sv"),
+                         F.avg(col("f")).alias("af"),
+                         F.count("*").alias("c")))
+        cpu_session = GpuSession(conf={"spark.rapids.sql.enabled": False})
+        count_reset()
+        t1 = time.perf_counter()
+        oracle = q1_df(cpu_session).collect()
+        cpu_wall = time.perf_counter() - t1
+        if any(counts().values()):
+            raise AssertionError(f"the CPU engine launched {counts()}")
+        nodes = _placements(cpu_session.last_plan)
+        if any(p != "cpu" for _, p in nodes):
+            raise AssertionError(f"oracle placed {nodes}")
+        on_card = q1_df(GpuSession()).collect()
+        _check_q1(on_card, _oracle(small), "q1 on the card, 2^20 rows")
+        _check_q1(oracle, _oracle(small), "q1 on the CPU engine, 2^20 rows")
+        on_card, oracle = on_card.sort_by("k"), oracle.sort_by("k")
+        for c in ("k", "sv", "c"):
+            if not on_card[c].equals(oracle[c]):
+                raise AssertionError(f"oracle column {c} differs")
+        if not np.allclose(on_card["af"].to_numpy(), oracle["af"].to_numpy(),
+                           rtol=FLOAT_RTOL, atol=0.0):
+            raise AssertionError("oracle avg differs")
+        print(f"oracle: q1 at {small.num_rows} rows under "
+              f"spark.rapids.sql.enabled=false ({[n for n, _ in nodes]}, "
+              f"every operator on the CPU, no kernel launched, "
+              f"{cpu_wall * 1e3:.1f} ms) equals the card's result (keys, "
+              f"sums and counts exactly, avg to {FLOAT_RTOL:g})")
+    except Exception:
+        failures.append("CPU oracle")
+        traceback.print_exc()
+
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "q2": ("key_hash", "sort_order", "hash_table", "join_probe",
-               "expand_ends", "expand_pairs", "segment_reduce_sorted")}
+               "expand_ends", "expand_pairs", "segment_reduce_sorted"),
+        "q6": ("key_hash", "sort_order", "hash_table", "join_probe",
+               "expand_ends", "expand_pairs", "segment_reduce_sorted"),
+        "q1_4": ("compact_rows", "sort_order", "segment_reduce_sorted")}
     for run, names in path_kernels.items():
         if run not in launches:
             failures.append(f"launch counts of the {run} run missing")

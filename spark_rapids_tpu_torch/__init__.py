@@ -1,25 +1,30 @@
-"""PyTorch/CUDA port of the engine's main path, for one NVIDIA H100.
+"""PyTorch/CUDA port of the engine, for one NVIDIA H100.
 
 The JAX package ``spark_rapids_tpu`` is the reference; this package
 imports nothing of it (nor ``jax``) and holds its own copies of what it
 needs.  Module paths mirror the reference's, so each counterpart is
 found under the same name:
 
+  api/session.py        the DataFrame entry point, its conf and explain
+  plan/planner.py       logical plan -> CPU-placed physical plan
+  plan/overrides.py     tag -> cost -> convert -> transitions
   columnar/device.py    DeviceColumn, DeviceBatch, batch_to_device
   ops/carry.py          compact_rows (kernel K1), sort_order / sort_rows (K2)
   ops/segmented.py      order-preserving int64 key words, boundaries
-  exec/aggregate.py     segment_reduce_sorted (kernel K3), the aggregate
-  api/session.py        the DataFrame entry point
+  exec/aggregate.py     segment_reduce_sorted (kernel K3), the aggregates
+  ops/join_kernels.py   the join kernels K4-K7
+  exec/join.py          the hash, nested-loop and CPU joins
 
 Classes named after the reference plugin and their JAX counterparts:
 
   GpuSession            spark_rapids_tpu.api.session.TpuSession
+  GpuOverrides          spark_rapids_tpu.plan.overrides.TpuOverrides
   GpuHashAggregateExec  spark_rapids_tpu.exec.aggregate.TpuHashAggregateExec
 
-The slice covers scan -> filter -> group-by SUM/AVG/COUNT -> collect over
-LONG, INT, DOUBLE and BOOLEAN columns.  Anything outside it raises
-NotImplementedError naming what is missing.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; the hand-written
-kernels (``csrc/``) run for CUDA tensors, their plain PyTorch versions
-for CPU tensors.
+The port carries LONG, INT, DOUBLE and BOOLEAN columns (and the NULL
+type of ``lit(None)``); another column type raises NotImplementedError
+naming what is missing.  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; the hand-written kernels (``csrc/``) run for
+CUDA tensors, their plain PyTorch versions for CPU tensors, so a
+CPU-placed operator runs the plain versions.
 """

@@ -1,7 +1,7 @@
 """DataFrame and GroupedData of the slice.
 
 Counterpart of spark_rapids_tpu/api/dataframe.py: filter / where,
-group_by / groupBy, agg, join and collect.
+group_by / groupBy, agg, join, collect and explain.
 """
 
 from __future__ import annotations
@@ -75,6 +75,11 @@ class DataFrame:
 
     def collect(self) -> pa.Table:
         return self.session.execute(self._lp)
+
+    def explain(self) -> str:
+        s = self.session.explain(self._lp)
+        print(s)
+        return s
 
 
 class GroupedData:

@@ -1,27 +1,44 @@
 """The port's session: the DataFrame entry point.
 
 Counterpart of spark_rapids_tpu/api/session.py (TpuSession).  A session
-runs its queries on one device, ``cuda`` unless the caller passes
-another; asking for CUDA where there is none raises.
+holds its configuration and runs its queries on one device, ``cuda``
+unless the caller passes another; asking for CUDA where there is none
+raises.  A query is planned to a CPU-placed physical plan, rewritten
+onto the GPU by plan/overrides.py, and executed; ``last_plan`` and
+``last_explain`` keep the final plan and the rewrite's explain lines.
+With ``spark.rapids.sql.enabled=false`` every operator stays on the CPU
+engine, the oracle the reference's differential tests toggle.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import pyarrow as pa
 
 from ..columnar.device import resolve_device
+from ..config import RapidsConf
 from ..exec.base import Exec, ExecContext
 from ..plan import logical as L
-from ..plan.planner import plan
+from ..plan.overrides import GpuOverrides
+from ..plan.planner import plan as plan_physical
 from .dataframe import DataFrame
 
 
 class GpuSession:
-    def __init__(self, device=None):
+    def __init__(self, device=None, conf: Optional[Dict] = None):
         self.device = resolve_device(device)
+        self._conf_map = dict(conf or {})
         self.last_plan: Optional[Exec] = None
+        self.last_explain = ""
+
+    @property
+    def conf(self) -> RapidsConf:
+        return RapidsConf(self._conf_map)
+
+    @classmethod
+    def builder(cls) -> "_Builder":
+        return _Builder()
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         if isinstance(data, pa.RecordBatch):
@@ -34,7 +51,34 @@ class GpuSession:
         relation.schema()             # an unported column type raises here
         return DataFrame(relation, self)
 
+    def prepare_plan(self, lp: L.LogicalPlan) -> Exec:
+        """Logical plan -> final physical plan: planning, then the
+        rewrite onto the GPU."""
+        conf = self.conf
+        overrides = GpuOverrides(conf)
+        final_plan = overrides.apply(plan_physical(lp, conf))
+        self.last_plan = final_plan
+        self.last_explain = overrides.last_explain
+        return final_plan
+
     def execute(self, lp: L.LogicalPlan) -> pa.Table:
-        root = plan(lp)
-        self.last_plan = root
-        return root.execute_collect(ExecContext(self.device))
+        root = self.prepare_plan(lp)
+        return root.execute_collect(ExecContext(self.device, self.conf))
+
+    def explain(self, lp: L.LogicalPlan) -> str:
+        """The final plan (``*`` marks a GPU-placed operator) and the
+        rewrite's explain lines, without running the query."""
+        final_plan = self.prepare_plan(lp)
+        return final_plan.tree_string() + "\n--\n" + self.last_explain
+
+
+class _Builder:
+    def __init__(self):
+        self._conf: Dict = {}
+
+    def config(self, key, value) -> "_Builder":
+        self._conf[key] = value
+        return self
+
+    def get_or_create(self, device=None) -> GpuSession:
+        return GpuSession(device=device, conf=self._conf)

@@ -108,6 +108,10 @@ def column_to_device(arr, dtype: t.DataType, cap: int,
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     n = len(arr)
+    if dtype == t.NULL:
+        return DeviceColumn(dtype, torch.zeros(cap, dtype=torch.int8,
+                                               device=device),
+                            torch.zeros(cap, dtype=torch.bool, device=device))
     if arr.null_count:
         validity = _padded(np.asarray(arr.is_valid()), cap, torch.bool,
                            device)
@@ -150,7 +154,21 @@ def batch_from_numpy_lanes(lanes: Sequence[np.ndarray],
     return DeviceBatch(cols, num_rows, names)
 
 
+def move_batch(batch: DeviceBatch, device: torch.device,
+               live_only: bool = False) -> DeviceBatch:
+    """The batch with every lane on ``device``; with ``live_only`` only
+    the live rows (at least one row) cross, so the copy holds no
+    padding beyond that."""
+    keep = max(batch.num_rows, 1) if live_only else None
+    cols = [DeviceColumn(c.dtype, c.data[:keep].to(device),
+                         c.validity[:keep].to(device))
+            for c in batch.columns]
+    return DeviceBatch(cols, batch.num_rows, batch.names)
+
+
 def column_to_arrow(col: DeviceColumn, n: int) -> pa.Array:
+    if col.dtype == t.NULL:
+        return pa.nulls(n)
     data = col.data[:n].cpu().numpy()
     valid = col.validity[:n].cpu().numpy()
     mask = None if valid.all() else ~valid

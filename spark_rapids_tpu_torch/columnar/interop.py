@@ -12,7 +12,7 @@ import pyarrow as pa
 from .. import types as t
 
 _TO_ARROW = {t.BOOLEAN: pa.bool_(), t.INT: pa.int32(), t.LONG: pa.int64(),
-             t.DOUBLE: pa.float64()}
+             t.DOUBLE: pa.float64(), t.NULL: pa.null()}
 
 
 def to_arrow_type(dt: t.DataType) -> pa.DataType:
@@ -28,6 +28,8 @@ def from_arrow_type(at: pa.DataType) -> t.DataType:
         return t.LONG
     if pa.types.is_float64(at):
         return t.DOUBLE
+    if pa.types.is_null(at):
+        return t.NULL
     raise NotImplementedError(
         f"arrow type {at} is not ported yet (the port carries bool, "
         f"int32, int64 and float64 columns)")

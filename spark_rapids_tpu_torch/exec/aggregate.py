@@ -1,7 +1,8 @@
-"""Grouped aggregate: sort by key words, then one fold per group.
+"""Grouped aggregate: sort by key words, then one fold per group; and the
+host engine's aggregate.
 
 Counterpart of spark_rapids_tpu/exec/aggregate.py (TpuHashAggregateExec
-and its _group_reduce).  Per batch: evaluate the grouping keys and the
+and its _group_reduce, CpuHashAggregateExec).  Per batch: evaluate the grouping keys and the
 update inputs, build order-preserving int64 key words, sort the live
 rows stably by them (kernel K2), and reduce each group (kernel K3),
 which reads the lanes through K2's order: no lane is gathered into key
@@ -9,6 +10,9 @@ order first.  Across batches: concatenate the partial buffers, order
 them by key and buffer words (the canonical keyed merge), and reduce
 again through that order with the merge ops.  COMPLETE and FINAL modes
 then evaluate the result expressions over the buffers.
+CpuHashAggregateExec is the complete-mode aggregate the plan rewrite
+starts from and keeps on the CPU where tagging says so: pyarrow's
+group_by over the host-evaluated keys and inputs.
 """
 
 from __future__ import annotations
@@ -17,22 +21,23 @@ import itertools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from .. import kernels
 from .. import types as t
 from ..analysis.determinism import ORDER_DEPENDENT, ORDER_STABLE, Determinism
 from ..columnar.device import (DeviceBatch, DeviceColumn, batch_to_device,
-                               bucket_for)
-from ..columnar.interop import to_arrow_schema
+                               bucket_for, column_to_arrow)
+from ..columnar.interop import to_arrow_schema, to_arrow_type
 from ..expr.aggregates import (COMPLETE, PARTIAL, AggregateExpression,
-                               bind_aggregate)
-from ..expr.core import (ColumnValue, EvalContext, Expression,
+                               Average, Count, Sum, bind_aggregate)
+from ..expr.core import (ColumnValue, EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
 from ..ops import segmented as seg
 from ..ops.carry import sort_order
 from ..ops.gather import gather_column
-from .base import Exec, ExecContext
+from .base import CPU, Exec, ExecContext
 from .concat import concat_batches
 
 _KIND_COUNT, _KIND_SUM_INT, _KIND_SUM_FLOAT = 0, 1, 2
@@ -399,7 +404,7 @@ class GpuHashAggregateExec(Exec):
     # --- execution ----------------------------------------------------------
     def execute_partition(self, pid, ctx: ExecContext
                           ) -> Iterator[DeviceBatch]:
-        it = iter(self.children[0].execute_partition(pid, ctx))
+        it = iter(self.child_batches(0, pid, ctx))
         first = next(it, None)
         second = next(it, None) if first is not None else None
         if first is not None and second is None and \
@@ -421,7 +426,8 @@ class GpuHashAggregateExec(Exec):
             empty = to_arrow_schema(child.output_names, child.output_types)
             rb = pa.RecordBatch.from_arrays(
                 [pa.array([], type=f.type) for f in empty], schema=empty)
-            partials = [self._update_batch(batch_to_device(rb, ctx.device))]
+            partials = [self._update_batch(
+                batch_to_device(rb, self.device(ctx)))]
         names = self._group_names + self._buffer_names
         types = self._key_types() + self._buffer_types
         merged_in = partials[0] if len(partials) == 1 else \
@@ -429,3 +435,117 @@ class GpuHashAggregateExec(Exec):
         out = self._merge_batch(merged_in)
         yield out if self.mode == PARTIAL else self._evaluate_batch(out)
 
+
+
+# ---------------------------------------------------------------------------
+# the host engine's aggregate: pyarrow group_by
+# ---------------------------------------------------------------------------
+
+_PA_AGG = {Sum: "sum", Count: "count", Average: "mean"}
+_PA_SCALAR = {"sum": pc.sum, "count": pc.count, "mean": pc.mean}
+
+
+class CpuHashAggregateExec(Exec):
+    """Complete-mode aggregate on pyarrow (the 'Spark CPU' role): the
+    grouping keys and aggregate inputs are evaluated on CPU tensors, then
+    pyarrow groups them.  Groups come out in arrival order."""
+
+    placement = CPU
+
+    def __init__(self, grouping: Sequence[Expression],
+                 aggregates: Sequence[AggregateExpression], child: Exec):
+        super().__init__([child])
+        self.grouping = list(grouping)
+        cn, ct = child.output_names, child.output_types
+        self.aggregates = [bind_aggregate(a, cn, ct) for a in aggregates]
+        self._bound_grouping = [bind_expression(g, cn, ct) for g in grouping]
+        self._group_names = [output_name(g) for g in grouping]
+
+    @property
+    def output_names(self):
+        return self._group_names + [a.name for a in self.aggregates]
+
+    @property
+    def output_types(self):
+        return [g.data_type() for g in self._bound_grouping] + \
+            [a.data_type() for a in self.aggregates]
+
+    def describe(self):
+        return (f"CpuHashAggregate(keys=[{', '.join(self._group_names)}], "
+                f"fns=[{', '.join(a.name for a in self.aggregates)}])")
+
+    def determinism(self):
+        floaty = any(bt == t.DOUBLE for ae in self.aggregates
+                     for bt in ae.func.buffer_types())
+        if floaty:
+            return Determinism(
+                ORDER_DEPENDENT, "pyarrow group_by folds the table in "
+                "batch-arrival row order (no canonical merge on the "
+                "host fallback)")
+        return Determinism(
+            ORDER_STABLE, "integer/decimal folds are exact; group "
+            "emission order follows arrival")
+
+    def _input_table(self, b: DeviceBatch) -> pa.Table:
+        """The batch's grouping keys and aggregate inputs as Arrow
+        columns ``<key name>`` and ``__in<i>``."""
+        ec = EvalContext(b)
+        n = b.num_rows
+        cols = {}
+        for g, nm in zip(self._bound_grouping, self._group_names):
+            cols[nm] = column_to_arrow(g.eval(ec).col, n)
+        for i, ae in enumerate(self.aggregates):
+            fn = ae.func
+            if fn.children:
+                v = fn.child.eval(ec)
+                if isinstance(v, ScalarValue):
+                    v = make_column(ec, fn.child.data_type(),
+                                    v.value if v.value is not None else 0,
+                                    None if v.value is not None else False)
+                cols[f"__in{i}"] = column_to_arrow(v.col, n)
+            else:
+                cols[f"__in{i}"] = pa.array([1] * n, type=pa.int64())
+        return pa.table(cols)
+
+    def _empty_input(self) -> pa.Table:
+        names = self._group_names + [f"__in{i}" for i in
+                                     range(len(self.aggregates))]
+        dtypes = [g.data_type() for g in self._bound_grouping] + \
+            [a.func.child.data_type() if a.func.children else t.INT
+             for a in self.aggregates]
+        return pa.table({nm: pa.array([], to_arrow_type(dt))
+                         for nm, dt in zip(names, dtypes)})
+
+    def execute_partition(self, pid, ctx) -> Iterator[DeviceBatch]:
+        tables = [self._input_table(b)
+                  for b in self.child_batches(0, pid, ctx)]
+        if not tables:
+            if self.grouping:
+                return
+            tables = [self._empty_input()]
+        table = pa.concat_tables(tables)
+        aggs = [(f"__in{i}", _PA_AGG[type(ae.func)], None)
+                for i, ae in enumerate(self.aggregates)]
+        if self.grouping:
+            res = pa.TableGroupBy(table, self._group_names,
+                                  use_threads=False).aggregate(aggs)
+        elif table.num_rows == 0:
+            # Spark: a global aggregate over empty input yields one row
+            cols = {}
+            for cname, kind, _ in aggs:
+                scalar = _PA_SCALAR[kind](table.column(cname))
+                cols[f"{cname}_{kind}"] = pa.array([scalar.as_py()],
+                                                   type=scalar.type)
+            res = pa.table(cols)
+        else:
+            res = pa.TableGroupBy(
+                table.append_column("__g", pa.array([1] * table.num_rows)),
+                ["__g"], use_threads=False).aggregate(aggs)
+            res = res.drop_columns(["__g"])
+        out_cols = [res.column(nm) for nm in self._group_names]
+        for (cname, kind, _), ae in zip(aggs, self.aggregates):
+            out_cols.append(res.column(f"{cname}_{kind}").cast(
+                to_arrow_type(ae.data_type())))
+        out = pa.table(dict(zip(self.output_names, out_cols)))
+        for rb in out.combine_chunks().to_batches():
+            yield batch_to_device(rb, self.device(ctx))

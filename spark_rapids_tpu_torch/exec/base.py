@@ -1,10 +1,23 @@
-"""Physical operator base and the collect to Arrow.
+"""Physical operator base, the host/device transitions and the collect to
+Arrow.
 
 Counterpart of spark_rapids_tpu/exec/base.py.  An operator yields
-DeviceBatches per partition; ``execute_collect`` runs every partition,
-downloads each batch with ``.cpu()`` and returns one Arrow table.  The
-reference's jit cache, metrics, semaphore, spill and speculation hooks
-have no counterpart yet; the determinism declarations do.
+DeviceBatches per partition; ``execute_collect`` runs every partition
+and returns one Arrow table.  Every operator has a placement, GPU or
+CPU: a GPU-placed operator works on tensors on the context's device, a
+CPU-placed one on CPU tensors, so the kernel wrappers run their plain
+versions for it (the port's form of the reference's
+``xp = np if placement == CPU``).  An operator built by hand is placed
+on the GPU unless its class runs on the host only (the CPU engines, the
+in-memory exchange, the download); the planner's plan is CPU-placed and
+the plan rewrite (plan/overrides.py) places each node.
+HostToDeviceExec and DeviceToHostExec move batches across a placement
+boundary.  Every operator reads its children through ``child_batches``,
+which raises on a batch that does not lie where the operator's input
+placement says, and ``execute_collect`` refuses a plan whose placement
+changes without a transition.  The reference's jit cache, metrics,
+semaphore, spill and speculation hooks have no counterpart yet; the
+determinism declarations do.
 """
 
 from __future__ import annotations
@@ -12,22 +25,73 @@ from __future__ import annotations
 from typing import Iterator, List, Optional, Sequence
 
 import pyarrow as pa
+import torch
 
 from .. import types as t
-from ..columnar.device import DeviceBatch, batch_to_arrow, resolve_device
+from ..columnar.device import (DeviceBatch, batch_to_arrow, move_batch,
+                               resolve_device)
 from ..columnar.interop import to_arrow_schema
+from ..config import RapidsConf
+
+CPU = "cpu"
+GPU = "gpu"
 
 
 class ExecContext:
-    """Per-query context: the device the query runs on."""
+    """Per-query context: the session's device, where GPU-placed operators
+    run, and its configuration."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, conf=None):
         self.device = resolve_device(device)
+        self.cpu = torch.device("cpu")
+        self.conf = conf if conf is not None else RapidsConf()
+
+
+def placed_device(ctx: ExecContext, placement: str) -> torch.device:
+    """The context's device for GPU placement, the CPU for CPU."""
+    return ctx.device if placement == GPU else ctx.cpu
 
 
 class Exec:
+    placement = GPU
+
     def __init__(self, children: Sequence["Exec"]):
         self.children: List[Exec] = list(children)
+
+    def device(self, ctx: ExecContext) -> torch.device:
+        """The device this operator's tensors live on."""
+        return placed_device(ctx, self.placement)
+
+    def input_placement(self) -> str:
+        """Where this operator's children must be placed: its own
+        placement, except across a transition."""
+        return self.placement
+
+    def child_batches(self, i: int, pid: int, ctx: ExecContext
+                      ) -> Iterator[DeviceBatch]:
+        """Child ``i``'s batches of partition ``pid``; a batch that does
+        not lie where this operator's input placement says raises."""
+        want = placed_device(ctx, self.input_placement())
+        for b in self.children[i].execute_partition(pid, ctx):
+            if b.columns and b.device.type != want.type:
+                raise RuntimeError(
+                    f"{self.name} ({self.placement}-placed) got a batch on "
+                    f"{b.device} from {self.children[i].name}; expected "
+                    f"{want.type} tensors")
+            yield b
+
+    def check_placements(self):
+        """Raise unless every child is placed where its parent reads: a
+        placement change needs a HostToDeviceExec or DeviceToHostExec
+        (plan/overrides.py:insert_transitions puts them in)."""
+        for c in self.children:
+            if c.placement != self.input_placement():
+                raise ValueError(
+                    f"{self.name} ({self.placement}-placed) reads "
+                    f"{c.name} ({c.placement}-placed) with no transition "
+                    f"between; plan the query through GpuSession or pass "
+                    f"the plan through plan.overrides.insert_transitions")
+            c.check_placements()
 
     @property
     def output_names(self) -> List[str]:
@@ -61,6 +125,7 @@ class Exec:
         raise NotImplementedError
 
     def execute_collect(self, ctx: ExecContext) -> pa.Table:
+        self.check_placements()
         schema = to_arrow_schema(self.output_names, self.output_types)
         out = []
         for pid in range(self.num_partitions):
@@ -81,11 +146,69 @@ class Exec:
         return self.name
 
     def tree_string(self, level: int = 0) -> str:
-        lines = ["  " * level + self.describe()]
+        mark = "*" if self.placement == GPU else " "
+        lines = ["  " * level + mark + self.describe()]
         lines += [c.tree_string(level + 1) for c in self.children]
         return "\n".join(lines)
+
+    def with_new_children(self, children: Sequence["Exec"]) -> "Exec":
+        import copy
+        c = copy.copy(self)
+        c.children = list(children)
+        return c
+
+    def transform_up(self, fn):
+        node = self
+        new_children = [c.transform_up(fn) for c in self.children]
+        if any(a is not b for a, b in zip(new_children, node.children)):
+            node = node.with_new_children(new_children)
+        return fn(node)
 
     def foreach(self, fn):
         fn(self)
         for c in self.children:
             c.foreach(fn)
+
+
+class _Transition(Exec):
+    input_side: str      # the child's placement
+
+    def input_placement(self) -> str:
+        return self.input_side
+
+    @property
+    def output_names(self):
+        return self.children[0].output_names
+
+    @property
+    def output_types(self):
+        return self.children[0].output_types
+
+
+class HostToDeviceExec(_Transition):
+    """Move a CPU-placed child's batches onto the context's device."""
+
+    placement = GPU
+    input_side = CPU
+
+    def __init__(self, child: Exec):
+        super().__init__([child])
+
+    def execute_partition(self, pid, ctx):
+        for b in self.child_batches(0, pid, ctx):
+            yield move_batch(b, ctx.device)
+
+
+class DeviceToHostExec(_Transition):
+    """Bring a GPU-placed child's batches to CPU tensors (the live rows
+    only)."""
+
+    placement = CPU
+    input_side = GPU
+
+    def __init__(self, child: Exec):
+        super().__init__([child])
+
+    def execute_partition(self, pid, ctx):
+        for b in self.child_batches(0, pid, ctx):
+            yield move_batch(b, ctx.cpu, live_only=True)

@@ -1,21 +1,24 @@
-"""Scan, project and filter operators.
+"""Scan, project, filter and batch-coalesce operators.
 
 Counterpart of spark_rapids_tpu/exec/basic.py (LocalScanExec,
-ProjectExec, FilterExec).  Operators evaluate their expressions eagerly
-on the batch's device; the filter's compaction is kernel K1.
+ProjectExec, FilterExec, CoalesceBatchesExec).  Operators evaluate their
+expressions eagerly on the batch's device; the filter's compaction is
+kernel K1.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import pyarrow as pa
 
+from ..analysis.determinism import ORDER_STABLE, Determinism
 from ..columnar.device import DeviceBatch, batch_to_device
 from ..columnar.interop import from_arrow_type
 from ..expr.core import (EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
 from .base import Exec, ExecContext
+from .concat import concat_batches
 from .filter_common import apply_filter
 
 
@@ -58,7 +61,7 @@ class LocalScanExec(Exec):
         if self.pin_cache is None:
             yield from self._produce_partition(pid, ctx)
             return
-        key = (pid, self._num_partitions, self.batch_rows, ctx.device)
+        key = (pid, self._num_partitions, self.batch_rows, self.device(ctx))
         if key not in self.pin_cache:
             self.pin_cache[key] = list(self._produce_partition(pid, ctx))
         yield from self.pin_cache[key]
@@ -77,7 +80,7 @@ class LocalScanExec(Exec):
             rb = pa.RecordBatch.from_arrays(
                 [c.combine_chunks() for c in piece.columns],
                 names=self._names)
-            yield batch_to_device(rb, ctx.device)
+            yield batch_to_device(rb, self.device(ctx))
             offset += rows
             if offset >= length:
                 break
@@ -114,7 +117,7 @@ class ProjectExec(Exec):
         return DeviceBatch(cols, batch.num_rows, self.output_names)
 
     def execute_partition(self, pid, ctx):
-        for b in self.children[0].execute_partition(pid, ctx):
+        for b in self.child_batches(0, pid, ctx):
             yield self._compute(b)
 
 
@@ -143,5 +146,51 @@ class FilterExec(Exec):
         return apply_filter(batch, pred, self.output_names)
 
     def execute_partition(self, pid, ctx):
-        for b in self.children[0].execute_partition(pid, ctx):
+        for b in self.child_batches(0, pid, ctx):
             yield self._compute(b)
+
+
+# the reference's coalesce target, in live rows
+TARGET_ROWS = 1 << 22
+
+
+class CoalesceBatchesExec(Exec):
+    """Concatenate a partition's batches, in arrival order, until they
+    reach TARGET_ROWS live rows; empty batches are dropped.  A batch that
+    reaches the target alone passes through uncopied."""
+
+    def __init__(self, child: Exec):
+        super().__init__([child])
+
+    def determinism(self):
+        return Determinism(
+            ORDER_STABLE, "re-batches in arrival order: batch "
+            "boundaries follow arrival, row multiset is invariant")
+
+    @property
+    def output_names(self):
+        return self.children[0].output_names
+
+    @property
+    def output_types(self):
+        return self.children[0].output_types
+
+    def _concat(self, pending: List[DeviceBatch]) -> DeviceBatch:
+        if len(pending) == 1:
+            return pending[0]
+        return concat_batches(pending, self.output_names, self.output_types)
+
+    def execute_partition(self, pid, ctx) -> Iterator[DeviceBatch]:
+        target = TARGET_ROWS
+        pending: List[DeviceBatch] = []
+        pending_rows = 0
+        for b in self.child_batches(0, pid, ctx):
+            if b.num_rows == 0:
+                continue
+            pending.append(b)
+            pending_rows += b.num_rows
+            if pending_rows >= target:
+                yield self._concat(pending)
+                pending, pending_rows = [], 0
+        if pending:
+            yield self._concat(pending)

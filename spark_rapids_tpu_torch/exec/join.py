@@ -1,44 +1,50 @@
-"""Join operators and their planning, for one partition.
+"""Join operators and their planning.
 
 Counterpart of spark_rapids_tpu/exec/join.py (HashJoinExec,
-NestedLoopJoinExec, split_equi_condition, plan_join).  An equi-join
-hashes the build side's keys into one 64-bit word per row (kernel K6),
-sorts the hashes (K2) and builds K4's hash table over them, once per
-build side; then, per probe batch: hashes each probe row's keys and
-finds its match range in one kernel (K4), sums the output rows per
-probe row (K7), reads their total on the host once, and expands the
-pairs at a capacity bucket of that total, gathering both sides' columns
-in the same kernel (K5).  The build side is always the right child; a
-right join is planned flipped.  Output row order follows the probe side,
-and a probe row's build rows come in sorted-hash order, as in the
-reference, so the two agree row for row.
+NestedLoopJoinExec, CpuJoinExec, split_equi_condition, plan_join).  An
+equi-join hashes the build side's keys into one 64-bit word per row
+(kernel K6), sorts the hashes (K2) and builds K4's hash table over
+them, once per build side; then, per probe batch: hashes each probe row's keys and finds its match range in
+one kernel (K4), sums the output rows per probe row (K7), reads their
+total on the host once, and expands the pairs at a capacity bucket of
+that total, gathering both sides' columns in the same kernel (K5).  The
+build side is always the right child; a right join is planned flipped.
+Output row order follows the probe side, and a probe row's build rows
+come in sorted-hash order, as in the reference, so the two agree row for
+row.
+
+``plan_join`` plans a CpuJoinExec, the host engine's join (pyarrow),
+with a broadcast or shuffle exchange under it where a side has more
+than one partition; the plan rewrite (plan/overrides.py) turns it into
+a device join where tagging allows.
 
 Not ported yet: string keys and payloads (the span sizing of the
-reference's count phase), the broadcast and shuffled joins (more than
-one partition), the CPU join that the reference falls back to, and the
-speculative sizing that fuses count and expand on the TPU (the same
-output, one host sync fewer).
+reference's count phase), and the speculative sizing that fuses count
+and expand on the TPU (the same output, one host sync fewer).
 """
 
 from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from ..analysis.determinism import ORDER_STABLE, Determinism
-from ..columnar.device import DeviceBatch, batch_to_device, bucket_for
+from ..columnar.device import (DeviceBatch, batch_to_arrow, batch_to_device,
+                               bucket_for, column_to_arrow)
 from ..columnar.interop import to_arrow_schema
 from ..expr.conditional import Coalesce
 from ..expr.core import (Alias, AttributeReference, BoundReference,
-                         EvalContext, Expression, ScalarValue,
+                         ColumnValue, EvalContext, Expression, ScalarValue,
                          all_null_column, bind_expression, make_column)
 from ..expr.predicates import And, EqualTo
 from ..ops import join_kernels as jk
 from ..ops.carry import mask_validity
 from ..ops.gather import gather_column
-from .base import Exec, ExecContext
+from .base import CPU, Exec, ExecContext
 from .basic import ProjectExec
 from .concat import concat_batches
 from .filter_common import apply_filter, compact
@@ -103,11 +109,13 @@ def _column(ctx: EvalContext, e: Expression, v):
     return v.col
 
 
-def _collect_side(child: Exec, ctx: ExecContext) -> Optional[DeviceBatch]:
-    """Every partition of ``child`` as one batch; None if it yields no
-    batch."""
+def _collect_side(node: Exec, i: int, ctx: ExecContext
+                  ) -> Optional[DeviceBatch]:
+    """Every partition of ``node``'s child ``i`` as one batch; None if it
+    yields no batch."""
+    child = node.children[i]
     batches = [b for p in range(child.num_partitions)
-               for b in child.execute_partition(p, ctx)]
+               for b in node.child_batches(i, p, ctx)]
     if not batches:
         return None
     if len(batches) == 1:
@@ -116,7 +124,7 @@ def _collect_side(child: Exec, ctx: ExecContext) -> Optional[DeviceBatch]:
 
 
 class HashJoinExec(Exec):
-    """Equi-join; the build side is always the right child."""
+    """Equi-join; the build side is always the right child, all of it."""
 
     def __init__(self, left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], how: str,
@@ -240,13 +248,14 @@ class HashJoinExec(Exec):
                            compacted.num_rows, self.output_names)
 
     def _collect_build(self, ctx: ExecContext) -> DeviceBatch:
+        """The whole build side as one batch."""
         right = self.children[1]
-        build = _collect_side(right, ctx)
+        build = _collect_side(self, 1, ctx)
         if build is None:
             schema = to_arrow_schema(right.output_names, right.output_types)
             build = batch_to_device(pa.RecordBatch.from_arrays(
                 [pa.array([], type=f.type) for f in schema], schema=schema),
-                ctx.device)
+                self.device(ctx))
         return build
 
     def execute_partition(self, pid, ctx: ExecContext
@@ -255,14 +264,16 @@ class HashJoinExec(Exec):
         # hashed, sorted and tabled once for every probe batch
         side = jk.sort_build(*self._hash_keys(build))
         names = self.output_names
-        matched_acc = None
-        for probe in self.children[0].execute_partition(pid, ctx):
+        # right and full joins emit the build rows no probe row matched,
+        # every build row when no probe batch arrives
+        matched_acc = torch.zeros(build.capacity, dtype=torch.bool,
+                                  device=build.device) \
+            if self.how in ("right", "full") else None
+        for probe in self.child_batches(0, pid, ctx):
             order, lo, counts, plive = self._count(side, probe)
-            if self.how in ("right", "full"):
-                matched = jk.build_matched_flags(order, lo, counts, plive,
-                                                 build.capacity)
-                matched_acc = matched if matched_acc is None else \
-                    matched_acc | matched
+            if matched_acc is not None:
+                matched_acc |= jk.build_matched_flags(
+                    order, lo, counts, plive, build.capacity)
             if self.how == "left_semi":
                 yield compact(probe, (counts > 0) & plive, names)
                 continue
@@ -318,11 +329,11 @@ class NestedLoopJoinExec(Exec):
 
     def execute_partition(self, pid, ctx: ExecContext
                           ) -> Iterator[DeviceBatch]:
-        build = _collect_side(self.children[1], ctx)
+        build = _collect_side(self, 1, ctx)
         if build is None:
             return
         nb = build.num_rows
-        for probe in self.children[0].execute_partition(pid, ctx):
+        for probe in self.child_batches(0, pid, ctx):
             total = probe.num_rows * nb
             p = torch.arange(bucket_for(max(total, 1)), device=probe.device)
             valid = p < total
@@ -340,15 +351,216 @@ class NestedLoopJoinExec(Exec):
 
 
 # ---------------------------------------------------------------------------
+# the host engine's join: pyarrow Table.join
+# ---------------------------------------------------------------------------
+
+_PA_JOIN = {"inner": "inner", "left": "left outer", "right": "right outer",
+            "full": "full outer", "left_semi": "left semi",
+            "left_anti": "left anti"}
+
+
+class CpuJoinExec(Exec):
+    """Equi-join on pyarrow: the join the planner emits, kept on the CPU
+    where tagging says so.  Null keys never match (Spark), so they are
+    split off before pyarrow joins and put back as the join type needs.
+    With ``colocated`` (both sides hash-exchanged on the keys) partition
+    i joins the right side's partition i, else the whole right side."""
+
+    placement = CPU
+
+    def __init__(self, left_keys, right_keys, how, condition,
+                 left: Exec, right: Exec, colocated: bool = False):
+        super().__init__([left, right])
+        self.how = how
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.condition = condition
+        self.colocated = colocated
+
+    @property
+    def output_names(self):
+        l, r = self.children
+        if self.how in ("left_semi", "left_anti"):
+            return l.output_names
+        return l.output_names + r.output_names
+
+    @property
+    def output_types(self):
+        l, r = self.children
+        if self.how in ("left_semi", "left_anti"):
+            return list(l.output_types)
+        return list(l.output_types) + list(r.output_types)
+
+    def describe(self):
+        return f"CpuJoin {self.how}"
+
+    def _collect_side(self, side: int, ctx, pid=None) -> pa.Table:
+        child = self.children[side]
+        rbs = []
+        pids = range(child.num_partitions) if pid is None else [pid]
+        for p in pids:
+            for b in self.child_batches(side, p, ctx):
+                rb = batch_to_arrow(DeviceBatch(b.columns, b.num_rows,
+                                                child.output_names))
+                if rb.num_rows:
+                    rbs.append(rb)
+        schema = to_arrow_schema(child.output_names, child.output_types)
+        if not rbs:
+            return schema.empty_table()
+        return pa.Table.from_batches([r.cast(schema) for r in rbs])
+
+    def execute_partition(self, pid, ctx) -> Iterator[DeviceBatch]:
+        left = self._collect_side(0, ctx, pid)
+        right = self._collect_side(1, ctx, pid if self.colocated else None)
+        # materialize key columns (they may be expressions)
+        lkn, rkn = [], []
+        lt, rt = left, right
+        for i, (lk, rk) in enumerate(zip(self.left_keys, self.right_keys)):
+            ln_, rn_ = f"__lk{i}", f"__rk{i}"
+            lt = lt.append_column(ln_, _eval_arrow(lk, left,
+                                                   self.children[0]))
+            rt = rt.append_column(rn_, _eval_arrow(rk, right,
+                                                   self.children[1]))
+            lkn.append(ln_)
+            rkn.append(rn_)
+        # avoid output name collisions: temporarily rename
+        lnames = [f"l_{i}" for i in range(len(left.schema.names))]
+        rnames = [f"r_{i}" for i in range(len(right.schema.names))]
+        lt = lt.rename_columns(lnames + lkn)
+        rt = rt.rename_columns(rnames + rkn)
+
+        def null_key_mask(tbl, keys):
+            m = None
+            for k in keys:
+                kn = pc.is_null(tbl.column(k))
+                m = kn if m is None else pc.or_(m, kn)
+            return m
+        l_null = null_key_mask(lt, lkn)
+        r_null = null_key_mask(rt, rkn)
+        lt_nn = lt.filter(pc.invert(l_null)) if l_null is not None else lt
+        rt_nn = rt.filter(pc.invert(r_null)) if r_null is not None else rt
+        joined = lt_nn.join(rt_nn, keys=lkn, right_keys=rkn,
+                            join_type=_PA_JOIN[self.how],
+                            coalesce_keys=False, use_threads=False)
+        lout = self.children[0].output_names
+        rout = self.children[1].output_names
+        if self.how in ("left_semi", "left_anti"):
+            out = joined.select(lnames).rename_columns(lout)
+            if self.how == "left_anti" and l_null is not None:
+                extra = lt.filter(l_null).select(lnames).rename_columns(lout)
+                out = pa.concat_tables([out, extra]) if extra.num_rows \
+                    else out
+        else:
+            out = joined.select(lnames + rnames).rename_columns(
+                self.output_names)
+            if self.how in ("left", "full") and l_null is not None:
+                nulls_l = lt.filter(l_null).select(lnames)
+                if nulls_l.num_rows:
+                    extra = nulls_l.rename_columns(lout)
+                    for rn_, on in zip(rnames, rout):
+                        extra = extra.append_column(on, pa.nulls(
+                            nulls_l.num_rows, rt.schema.field(rn_).type))
+                    out = pa.concat_tables(
+                        [out, extra.rename_columns(self.output_names)])
+            if self.how in ("right", "full") and r_null is not None:
+                nulls_r = rt.filter(r_null).select(rnames)
+                if nulls_r.num_rows:
+                    extra = pa.table(
+                        {n: pa.nulls(nulls_r.num_rows,
+                                     lt.schema.field(ln).type)
+                         for n, ln in zip(lout, lnames)})
+                    for arr, on in zip(nulls_r.columns, rout):
+                        extra = extra.append_column(on, arr)
+                    out = pa.concat_tables(
+                        [out, extra.rename_columns(self.output_names)])
+        if self.condition is not None:
+            if self.how == "inner":
+                out = out.filter(_eval_arrow(self.condition, out, self))
+            elif self.how == "left":
+                out = _left_conditional_impl(self, lt, rt, lkn, rkn, lnames,
+                                             rnames, l_null, r_null)
+            else:
+                raise NotImplementedError(
+                    f"conditional {self.how} join on CPU engine")
+        schema = to_arrow_schema(self.output_names, self.output_types)
+        out = out.cast(schema)
+        for rb in out.combine_chunks().to_batches():
+            yield batch_to_device(rb, self.device(ctx))
+
+
+def _left_conditional_impl(join_exec: CpuJoinExec, lt, rt, lkn, rkn,
+                           lnames, rnames, l_null, r_null) -> pa.Table:
+    """Conditional LEFT join on the CPU engine: re-join with a probe row
+    id and a build marker, filter pairs by the condition, and
+    null-extend every probe row without a passing pair."""
+    lt2 = lt.append_column(
+        "__pid__", pa.array(np.arange(lt.num_rows, dtype=np.int64)))
+    rt2 = rt.append_column(
+        "__bmark__", pa.array(np.ones(rt.num_rows, dtype=np.int8)))
+    l_nn = lt2.filter(pc.invert(l_null)) if l_null is not None else lt2
+    r_nn = rt2.filter(pc.invert(r_null)) if r_null is not None else rt2
+    joined = l_nn.join(r_nn, keys=lkn, right_keys=rkn,
+                       join_type="left outer", coalesce_keys=False,
+                       use_threads=False)
+    mask = _eval_arrow(
+        join_exec.condition,
+        joined.select(lnames + rnames).rename_columns(
+            join_exec.output_names),
+        join_exec)
+    if isinstance(mask, pa.ChunkedArray):
+        mask = mask.combine_chunks()
+    mask = pc.fill_null(mask, False)
+    real = pc.is_valid(joined.column("__bmark__"))
+    pass_rows = joined.filter(pc.and_(mask, real))
+    passed = np.unique(pass_rows.column("__pid__").combine_chunks()
+                       .to_numpy(zero_copy_only=False))
+    all_pids = lt2.column("__pid__").combine_chunks() \
+        .to_numpy(zero_copy_only=False)
+    missing = lt2.take(np.flatnonzero(~np.isin(all_pids, passed)))
+    out = pass_rows.select(lnames + rnames)
+    if missing.num_rows:
+        pad = missing.select(lnames)
+        for rn_ in rnames:
+            pad = pad.append_column(
+                rn_, pa.nulls(missing.num_rows, rt.schema.field(rn_).type))
+        out = pa.concat_tables([out, pad])
+    return out.rename_columns(join_exec.output_names)
+
+
+def _eval_arrow(expr: Expression, table: pa.Table, child_like) -> pa.Array:
+    """Evaluate an expression over an Arrow table on CPU tensors."""
+    names = child_like.output_names
+    dtypes = child_like.output_types
+    tbl = table.rename_columns(names) \
+        if list(table.schema.names) != names else table
+    tbl = tbl.combine_chunks()
+    rbs = tbl.to_batches() or [pa.RecordBatch.from_pydict(
+        {n: pa.array([], type=f.type)
+         for n, f in zip(tbl.schema.names, tbl.schema)})]
+    outs = []
+    bound = bind_expression(expr, names, dtypes)
+    for rb in rbs:
+        ec = EvalContext(batch_to_device(rb, "cpu"))
+        v = bound.eval(ec)
+        if not isinstance(v, ColumnValue):
+            v = make_column(ec, bound.data_type(),
+                            v.value if v.value is not None else 0,
+                            None if v.value is not None else False)
+        outs.append(column_to_arrow(v.col, rb.num_rows))
+    return pa.chunked_array(outs) if len(outs) > 1 else outs[0]
+
+
+# ---------------------------------------------------------------------------
 # planning
 # ---------------------------------------------------------------------------
 
-def plan_join(lp, left: Exec, right: Exec) -> Exec:
-    """Logical Join -> physical, one partition a side.  The reference
-    plans a CpuJoinExec that its tagging turns into a HashJoinExec; the
-    port has no tagging or CPU engine yet, so it plans HashJoinExec
-    directly and raises NotImplementedError where the tagging would keep
-    the join on the CPU."""
+def plan_join(lp, left: Exec, right: Exec, conf) -> Exec:
+    """Logical Join -> CPU-placed physical join (Spark's
+    ExtractEquiJoinKeys and join selection): a CpuJoinExec for an
+    equi-join, with the right side broadcast when it is small enough and
+    a side has more than one partition, else both sides hash-exchanged on
+    the keys; a nested-loop join when there is no equi key."""
+    from ..config import AUTO_BROADCAST_JOIN_THRESHOLD
     how = lp.how
     cond = lp.condition
     using = lp.using
@@ -359,6 +571,7 @@ def plan_join(lp, left: Exec, right: Exec) -> Exec:
     else:
         lkeys, rkeys, residual = split_equi_condition(
             cond, left.output_names, right.output_names)
+    threshold = conf.get(AUTO_BROADCAST_JOIN_THRESHOLD)
     lsz = left.estimated_size_bytes()
     rsz = right.estimated_size_bytes()
 
@@ -370,33 +583,44 @@ def plan_join(lp, left: Exec, right: Exec) -> Exec:
             and rsz is not None and lsz < rsz):
         left, right = right, left
         lkeys, rkeys = rkeys, lkeys
+        lsz, rsz = rsz, lsz
         flipped = True
         if how == "right":
             how = "left"
 
-    if left.num_partitions > 1 or right.num_partitions > 1:
-        raise NotImplementedError(
-            "a join over more than one partition needs the broadcast or "
-            "shuffle exchange (BroadcastExchangeExec, ShuffleExchangeExec), "
-            "which are not ported yet")
+    multi = left.num_partitions > 1 or right.num_partitions > 1
 
+    # non-equi: a nested-loop join; broadcast the build side so it is
+    # collected once, not once per probe partition
     if not lkeys:
+        from .broadcast import (BroadcastExchangeExec,
+                                BroadcastNestedLoopJoinExec)
+        r = BroadcastExchangeExec(right) if multi else right
+        cls = BroadcastNestedLoopJoinExec if multi else NestedLoopJoinExec
         if how == "cross" or (how == "inner" and cond is not None):
-            return NestedLoopJoinExec("cross" if how == "cross" else how,
-                                      cond, left, right)
+            return cls("cross" if how == "cross" else how, cond, left, r)
         if how == "inner":
-            return NestedLoopJoinExec("cross", None, left, right)
+            return cls("cross", None, left, r)
         raise NotImplementedError(
             f"non-equi {how} join is not supported yet")
-    if residual is not None and how not in ("inner", "left"):
-        # the reference's tagging: inner post-filters, left repairs
-        # unmatched probe rows; anything else stays on its CPU engine
-        raise NotImplementedError(
-            f"conditional {how} join is not supported on the device (the "
-            "reference runs it on its CPU engine, which is not ported yet)")
 
-    join = HashJoinExec(lkeys, rkeys, how, residual, left, right)
-    out_exec: Exec = join
+    colocated = False
+    if multi and threshold >= 0 and rsz is not None and rsz <= threshold \
+            and how in ("inner", "left", "left_semi", "left_anti", "cross"):
+        from .broadcast import BroadcastExchangeExec
+        right = BroadcastExchangeExec(right)
+    elif multi:
+        # shuffled hash join: co-partition both sides on the join keys
+        from ..shuffle.exchange import ShuffleExchangeExec
+        from ..shuffle.partitioning import HashPartitioning
+        n = max(left.num_partitions, right.num_partitions)
+        left = ShuffleExchangeExec(HashPartitioning(lkeys, n), left)
+        right = ShuffleExchangeExec(HashPartitioning(rkeys, n), right)
+        colocated = True
+
+    join: Exec = CpuJoinExec(lkeys, rkeys, how, residual, left, right,
+                             colocated=colocated)
+    out_exec = join
     if flipped or using:
         names = join.output_names
         types = join.output_types

@@ -20,8 +20,10 @@ _INT_RANGE = {t.INT: (-(2**31), 2**31 - 1), t.LONG: (-(2**63), 2**63 - 1)}
 
 
 def promote(a: t.DataType, b: t.DataType) -> t.DataType:
-    if a == b:
+    if a == b or b == t.NULL:
         return a
+    if a == t.NULL:
+        return b
     if a == t.DOUBLE or b == t.DOUBLE:
         if a == t.BOOLEAN or b == t.BOOLEAN:
             raise TypeError(f"cannot promote {a} and {b}")

@@ -94,6 +94,8 @@ def evaluator(cls: Type[Expression]):
 
 
 def infer_literal_type(value: Any) -> t.DataType:
+    if value is None:
+        return t.NULL
     if isinstance(value, bool):
         return t.BOOLEAN
     if isinstance(value, int):
@@ -115,7 +117,7 @@ class Literal(Expression):
         return self.dtype
 
     def sql(self):
-        return str(self.value)
+        return "NULL" if self.value is None else str(self.value)
 
 
 @evaluator(Literal)

@@ -1,0 +1,433 @@
+"""Plan rewrite: tag -> cost -> convert -> transitions.
+
+Counterpart of spark_rapids_tpu/plan/overrides.py (TpuOverrides.apply,
+the Meta hierarchy, the expression and exec rules, the join and
+aggregate conversions, the single-device exchange fusion and the
+transition insertion).  Flow:
+
+  1. wrap the CPU-placed physical plan in a Meta tree;
+  2. tag every node: the per-op enable keys, TypeSig checks of its output
+     columns, every expression's rule, and the exec's own tag rule; a
+     node that cannot run on the GPU keeps its reasons;
+  3. with spark.rapids.sql.optimizer.enabled, let the cost model move
+     more subtrees to the CPU;
+  4. record (and, per spark.rapids.sql.explain, print) the explain lines;
+  5. convert every node that can run on the GPU: a CpuJoinExec becomes a
+     hash join, a CpuHashAggregateExec a GpuHashAggregateExec, anything
+     else is the same operator placed on the GPU;
+  6. insert HostToDevice / DeviceToHost transitions at placement
+     boundaries, and gather and coalesce at the collect boundary.
+
+A CPU placement comes from tagging and nowhere else: nothing catches a
+GPU operator's error and re-plans on the CPU.  The port's session drives
+one device, so a shuffle exchange under a GPU consumer is always
+stripped (spark.rapids.tpu.singleChipFuse ``auto`` = ``on``); the
+exchange itself runs on the host only, so one that survives, under a
+CPU consumer, is tagged off the GPU.  With the key ``off`` the consumers
+of exchanges stay on the CPU: the reference's device exchange between a
+PARTIAL and a FINAL aggregate, and its co-partitioned shuffled hash
+join, are not ported.  Not ported either: the reference's ICI stages,
+plan lint, AQE readers and extension rules.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Type
+
+from .. import config as cfg
+from .. import types as t
+from ..exec import base as eb
+from ..exec.aggregate import CpuHashAggregateExec, GpuHashAggregateExec
+from ..exec.basic import (CoalesceBatchesExec, FilterExec, LocalScanExec,
+                          ProjectExec)
+from ..exec.broadcast import (BroadcastExchangeExec, BroadcastHashJoinExec,
+                              BroadcastNestedLoopJoinExec)
+from ..exec.gatherpart import GatherPartitionsExec
+from ..exec.join import CpuJoinExec, HashJoinExec, NestedLoopJoinExec
+from ..expr import aggregates as agg
+from ..expr import predicates as pred
+from ..expr.arithmetic import Cast
+from ..expr.conditional import Coalesce
+from ..expr.core import (Alias, AttributeReference, BoundReference,
+                         Expression, Literal, bind_expression)
+from ..expr.hashfns import Murmur3Hash
+from ..shuffle.exchange import ShuffleExchangeExec
+from ..types import T, TypeSig
+
+
+# ---------------------------------------------------------------------------
+# Expression rules
+# ---------------------------------------------------------------------------
+
+class ExprRule:
+    def __init__(self, sig: TypeSig):
+        self.sig = sig
+
+
+EXPR_RULES: Dict[Type[Expression], ExprRule] = {}
+
+
+def expr_rule(cls, sig: TypeSig):
+    EXPR_RULES[cls] = ExprRule(sig)
+
+
+_common = T.common_scalar
+_cmp = T.numeric64 + T.BOOLEAN + T.NULL
+
+expr_rule(Literal, T.all_types)
+expr_rule(Alias, T.all_types.nested())
+expr_rule(AttributeReference, _common.nested())
+expr_rule(BoundReference, _common.nested())
+for c in (pred.EqualTo, pred.LessThan, pred.LessThanOrEqual,
+          pred.GreaterThan, pred.GreaterThanOrEqual):
+    expr_rule(c, _cmp)
+for c in (pred.And, pred.Or, pred.Not):
+    expr_rule(c, T.BOOLEAN)
+expr_rule(Coalesce, _cmp)
+expr_rule(Cast, T.all_types)
+expr_rule(Murmur3Hash, T.INT)
+expr_rule(agg.Sum, T.numeric)
+expr_rule(agg.Average, T.integral + T.DOUBLE)
+expr_rule(agg.Count, T.all_types)
+expr_rule(agg.AggregateExpression, T.all_types.nested())
+
+
+# ---------------------------------------------------------------------------
+# Meta hierarchy
+# ---------------------------------------------------------------------------
+
+class BaseMeta:
+    def __init__(self, conf: cfg.RapidsConf):
+        self.conf = conf
+        self.reasons: List[str] = []
+
+    def will_not_work(self, reason: str):
+        if reason not in self.reasons:
+            self.reasons.append(reason)
+
+    @property
+    def can_replace(self) -> bool:
+        return not self.reasons
+
+
+class ExprMeta(BaseMeta):
+    """Wraps one expression node."""
+
+    def __init__(self, expr: Expression, conf, input_names, input_types):
+        super().__init__(conf)
+        self.expr = expr
+        self.input_names = input_names
+        self.input_types = input_types
+        self.children = [ExprMeta(c, conf, input_names, input_types)
+                         for c in expr.children]
+
+    def tag(self):
+        name = type(self.expr).__name__
+        rule = EXPR_RULES.get(type(self.expr))
+        if rule is None:
+            self.will_not_work(f"expression {name} is not supported on GPU")
+        else:
+            if not self.conf.is_op_enabled("expression", name):
+                self.will_not_work(f"expression {name} has been disabled")
+            try:
+                dt = bind_expression(self.expr, self.input_names,
+                                     self.input_types).data_type()
+                if dt != t.NULL and not rule.sig.is_supported(dt):
+                    for r in rule.sig.reasons_not_supported(dt):
+                        self.will_not_work(
+                            f"{name} produces unsupported type: {r}")
+            except Exception as ex:     # unresolvable -> cannot place
+                self.will_not_work(f"{name}: {ex}")
+        for c in self.children:
+            c.tag()
+
+    @property
+    def can_replace_tree(self) -> bool:
+        return self.can_replace and all(c.can_replace_tree
+                                        for c in self.children)
+
+    def all_reasons(self) -> List[str]:
+        out = list(self.reasons)
+        for c in self.children:
+            out += c.all_reasons()
+        return out
+
+
+class ExecMeta(BaseMeta):
+    """Wraps one physical operator."""
+
+    def __init__(self, exec_node: eb.Exec, conf):
+        super().__init__(conf)
+        self.exec = exec_node
+        self.children = [ExecMeta(c, conf) for c in exec_node.children]
+
+    def _input_schema(self):
+        if self.exec.children:
+            c = self.exec.children[0]
+            return c.output_names, c.output_types
+        return [], []
+
+    def expressions(self) -> List[Expression]:
+        e = self.exec
+        if isinstance(e, ProjectExec):
+            return list(e.exprs)
+        if isinstance(e, FilterExec):
+            return [e.condition]
+        if isinstance(e, CpuHashAggregateExec):
+            return list(e.grouping) + list(e.aggregates)
+        return []
+
+    def tag(self):
+        e = self.exec
+        name = type(e).__name__
+        if not self.conf.is_op_enabled("exec", name):
+            self.will_not_work(f"{name} has been disabled by config")
+        rule_sig = EXEC_SIGS.get(type(e))
+        if rule_sig is None:
+            self.will_not_work(f"{name} has no GPU implementation")
+        else:
+            for n, dt in zip(e.output_names, e.output_types):
+                if dt == t.NULL:
+                    continue
+                if not rule_sig.is_supported(dt):
+                    for r in rule_sig.reasons_not_supported(dt):
+                        self.will_not_work(f"output column {n}: {r}")
+        names, dtypes = self._input_schema()
+        self.expr_metas = [ExprMeta(x, self.conf, names, dtypes)
+                           for x in self.expressions()]
+        for em in self.expr_metas:
+            em.tag()
+            if not em.can_replace_tree:
+                for r in em.all_reasons():
+                    self.will_not_work(r)
+        custom = EXEC_TAGS.get(type(e))
+        if custom:
+            custom(self)
+        for c in self.children:
+            c.tag()
+
+    def convert(self) -> eb.Exec:
+        new_children = [c.convert() for c in self.children]
+        e = self.exec.with_new_children(new_children)
+        if not self.can_replace:
+            return e
+        conv = EXEC_CONVERTS.get(type(e))
+        if conv is not None:
+            return conv(e, self.conf)
+        e.placement = eb.GPU
+        return e
+
+    def explain_lines(self, level=0) -> List[str]:
+        pad = "  " * level
+        name = type(self.exec).__name__
+        if self.can_replace:
+            lines = [f"{pad}*Exec <{name}> will run on GPU"]
+        else:
+            lines = [f"{pad}!Exec <{name}> cannot run on GPU because "
+                     + "; ".join(self.reasons[:4])]
+        for c in self.children:
+            lines += c.explain_lines(level + 1)
+        return lines
+
+
+# exec output-type signatures
+_exec_common = T.common_scalar.nested()
+EXEC_SIGS: Dict[Type[eb.Exec], TypeSig] = {
+    cls: _exec_common for cls in (
+        LocalScanExec, ProjectExec, FilterExec, CoalesceBatchesExec,
+        GatherPartitionsExec, CpuHashAggregateExec, CpuJoinExec,
+        NestedLoopJoinExec, HashJoinExec, BroadcastExchangeExec,
+        BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
+        ShuffleExchangeExec)}
+
+EXEC_TAGS: Dict[Type[eb.Exec], Callable] = {}
+EXEC_CONVERTS: Dict[Type[eb.Exec], Callable] = {}
+
+
+def _fuse_single_chip(conf: cfg.RapidsConf) -> bool:
+    """Collapse exchanges when the session drives one device: an
+    N-partition exchange there runs N per-partition stages one after
+    another, parallelism that does not exist.  The port's session always
+    drives one device, so ``auto`` is on."""
+    return conf.get(cfg.SINGLE_CHIP_FUSE) != "off"
+
+
+_NO_FUSE = ("spark.rapids.tpu.singleChipFuse=off keeps the shuffle "
+            "exchange below, which runs on the host only")
+
+
+def _strip_exchange(exchange: eb.Exec, coalesce: bool = False) -> eb.Exec:
+    """Replace an exchange with a partition gather (and, with
+    ``coalesce``, a device-side batch coalesce, so a streaming consumer
+    sees one batch where it would see one per source partition)."""
+    src = exchange.children[0]
+    node = src
+    if src.num_partitions > 1:
+        node = GatherPartitionsExec(src)
+        node.placement = src.placement
+    if coalesce:
+        node = CoalesceBatchesExec(node)
+        node.placement = src.placement
+    return node
+
+
+def _convert_join(e: CpuJoinExec, conf) -> eb.Exec:
+    left, right = e.children
+    if e.colocated:
+        # the exchanges only co-locate keys, which one device already
+        # does: drop both, and run one count / read / expand round
+        left = _strip_exchange(left, coalesce=True)   # probe streams
+        right = _strip_exchange(right)                # build concats
+    elif left.num_partitions > 1 and _fuse_single_chip(conf):
+        # each probe batch pays its own count -> read -> expand round:
+        # funnel the probe side into as few device batches as the
+        # coalesce target allows
+        g = GatherPartitionsExec(left)
+        g.placement = left.placement
+        left = CoalesceBatchesExec(g)
+        left.placement = g.placement
+    cls = BroadcastHashJoinExec if isinstance(right, BroadcastExchangeExec) \
+        else HashJoinExec
+    return cls(e.left_keys, e.right_keys, e.how, e.condition, left, right)
+
+
+def _tag_join(meta: ExecMeta):
+    e: CpuJoinExec = meta.exec
+    if e.condition is not None and e.how not in ("inner", "left"):
+        # inner post-filters; left repairs unmatched probe rows (right
+        # arrives flipped to left)
+        meta.will_not_work(
+            f"conditional {e.how} join is not supported on GPU")
+    if e.colocated and not _fuse_single_chip(meta.conf):
+        meta.will_not_work(_NO_FUSE)
+    l, r = e.children
+    for k in e.left_keys + e.right_keys:
+        try:
+            b = bind_expression(k, l.output_names, l.output_types)
+        except Exception:
+            try:
+                b = bind_expression(k, r.output_names, r.output_types)
+            except Exception as ex:
+                meta.will_not_work(str(ex))
+                continue
+        dt = b.data_type()
+        if not T.comparable.is_supported(dt):
+            meta.will_not_work(f"join key type {dt.name} not supported")
+
+
+def _convert_aggregate(e: CpuHashAggregateExec, conf) -> eb.Exec:
+    """The complete-mode CPU aggregate becomes one COMPLETE GPU
+    aggregate: over an exchange, over the gathered, coalesced input
+    (one device)."""
+    child = e.children[0]
+    if isinstance(child, ShuffleExchangeExec):
+        child = _strip_exchange(child, coalesce=True)
+    return GpuHashAggregateExec(e.grouping, e.aggregates, agg.COMPLETE,
+                                child)
+
+
+def _tag_aggregate(meta: ExecMeta):
+    e: CpuHashAggregateExec = meta.exec
+    if isinstance(e.children[0], ShuffleExchangeExec) and \
+            not _fuse_single_chip(meta.conf):
+        meta.will_not_work(_NO_FUSE)
+    cn, ct = e.children[0].output_names, e.children[0].output_types
+    for ae in e.aggregates:
+        fn = ae.func
+        rule = EXPR_RULES.get(type(fn))
+        if rule is None:
+            meta.will_not_work(
+                f"aggregate {type(fn).__name__} is not supported on GPU")
+            continue
+        if fn.children:
+            try:
+                dt = bind_expression(fn.child, cn, ct).data_type()
+                for r in rule.sig.reasons_not_supported(dt):
+                    meta.will_not_work(
+                        f"{type(fn).__name__} over unsupported input: {r}")
+            except Exception as ex:
+                meta.will_not_work(str(ex))
+
+
+EXEC_CONVERTS[CpuHashAggregateExec] = _convert_aggregate
+EXEC_CONVERTS[CpuJoinExec] = _convert_join
+EXEC_TAGS[CpuJoinExec] = _tag_join
+EXEC_TAGS[CpuHashAggregateExec] = _tag_aggregate
+
+
+def _tag_host_exchanges(meta: ExecMeta):
+    """An exchange under a consumer that stays on the CPU is not
+    stripped, and runs on the host."""
+    for c in meta.children:
+        if isinstance(c.exec, ShuffleExchangeExec) and not meta.can_replace:
+            c.will_not_work(
+                f"the shuffle exchange runs on the host only (its consumer "
+                f"{type(meta.exec).__name__} stays on the CPU)")
+        _tag_host_exchanges(c)
+
+
+# ---------------------------------------------------------------------------
+# Transitions
+# ---------------------------------------------------------------------------
+
+def insert_transitions(root: eb.Exec) -> eb.Exec:
+    def fix(node: eb.Exec) -> eb.Exec:
+        new_children = []
+        for c in node.children:
+            c = fix(c)
+            if c.placement != node.input_placement():
+                c = eb.HostToDeviceExec(c) if c.placement == eb.CPU \
+                    else eb.DeviceToHostExec(c)
+            new_children.append(c)
+        if node.children:
+            node = node.with_new_children(new_children)
+        return node
+
+    root = fix(root)
+    if root.placement == eb.GPU:
+        # collect boundary: every partition's device batches funnel into
+        # as few device batches as the coalesce target allows before
+        # crossing to the host
+        if root.num_partitions > 1:
+            root = GatherPartitionsExec(root)
+        root = eb.DeviceToHostExec(CoalesceBatchesExec(root))
+
+    def fuse(node: eb.Exec) -> eb.Exec:
+        # DeviceToHost(HostToDevice(x)) -> x, and the other way round
+        if isinstance(node, eb.HostToDeviceExec) and \
+                isinstance(node.children[0], eb.DeviceToHostExec):
+            return node.children[0].children[0]
+        if isinstance(node, eb.DeviceToHostExec) and \
+                isinstance(node.children[0], eb.HostToDeviceExec):
+            return node.children[0].children[0]
+        return node
+    return root.transform_up(fuse)
+
+
+class GpuOverrides:
+    """The plan rewrite's entry point."""
+
+    def __init__(self, conf: cfg.RapidsConf):
+        self.conf = conf
+        self.last_explain = ""
+
+    def apply(self, plan: eb.Exec) -> eb.Exec:
+        if not self.conf.sql_enabled:
+            self.last_explain = "(GPU acceleration disabled)"
+            return plan
+        meta = ExecMeta(plan, self.conf)
+        meta.tag()
+        if self.conf.get(cfg.OPTIMIZER_ENABLED):
+            from .cost import CostBasedOptimizer
+            CostBasedOptimizer(self.conf).optimize(meta)
+        _tag_host_exchanges(meta)
+        lines = meta.explain_lines()
+        self.last_explain = "\n".join(lines)
+        mode = self.conf.explain
+        if mode == "ALL":
+            print(self.last_explain)
+        elif mode == "NOT_ON_GPU":
+            bad = [ln for ln in lines if ln.lstrip().startswith("!")]
+            if bad:
+                print("\n".join(bad))
+        return insert_transitions(meta.convert())

@@ -1,39 +1,52 @@
-"""Logical plan -> device execs.
+"""Logical plan -> CPU-placed physical plan.
 
-Counterpart of spark_rapids_tpu/plan/planner.py together with the
-aggregate and join conversions of plan/overrides.py (_convert_aggregate,
-_convert_join): with one partition, an aggregate plans as a single
-COMPLETE-mode GpuHashAggregateExec, and a join through
-exec/join.py:plan_join.  The reference's tagging, cost model and CPU
-fallback are not ported yet, so a node or a multi-partition aggregate
-outside the slice raises NotImplementedError.
+Counterpart of spark_rapids_tpu/plan/planner.py: the planner produces
+the plan Spark's query planner would hand the plugin, every operator
+placed on the CPU, and plan/overrides.py then rewrites it onto the GPU (tagging
+the pieces that stay on the CPU).  An aggregate over more than one
+partition gets a hash exchange on its grouping keys (a partition
+gather for a global aggregate); a join is planned by
+exec/join.py:plan_join.  A logical node the port's API cannot build yet
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 from . import logical as L
-from ..exec.aggregate import GpuHashAggregateExec
-from ..exec.base import Exec
+from ..exec.aggregate import CpuHashAggregateExec
+from ..exec.base import CPU, Exec
 from ..exec.basic import FilterExec, LocalScanExec
 from ..exec.join import plan_join
-from ..expr.aggregates import COMPLETE
 
 
-def plan(lp: L.LogicalPlan) -> Exec:
+def plan(lp: L.LogicalPlan, conf) -> Exec:
+    root = _plan(lp, conf)
+    root.foreach(lambda e: setattr(e, "placement", CPU))
+    return root
+
+
+def _plan(lp: L.LogicalPlan, conf) -> Exec:
     if isinstance(lp, L.LocalRelation):
         return LocalScanExec(lp.table, lp.num_partitions,
                              pin_cache=lp.device_cache)
     if isinstance(lp, L.Filter):
-        return FilterExec(lp.condition, plan(lp.children[0]))
+        return FilterExec(lp.condition, _plan(lp.children[0], conf))
     if isinstance(lp, L.Aggregate):
-        child = plan(lp.children[0])
+        child = _plan(lp.children[0], conf)
         if child.num_partitions > 1:
-            raise NotImplementedError(
-                "an aggregate over more than one partition needs the "
-                "shuffle exchange, which is not ported yet")
-        return GpuHashAggregateExec(lp.grouping, lp.aggregates, COMPLETE,
-                                    child)
+            # co-locate groups: a hash exchange on the grouping keys
+            if lp.grouping:
+                from ..shuffle.exchange import ShuffleExchangeExec
+                from ..shuffle.partitioning import HashPartitioning
+                child = ShuffleExchangeExec(
+                    HashPartitioning(lp.grouping, child.num_partitions),
+                    child)
+            else:
+                from ..exec.gatherpart import GatherPartitionsExec
+                child = GatherPartitionsExec(child)
+        return CpuHashAggregateExec(lp.grouping, lp.aggregates, child)
     if isinstance(lp, L.Join):
-        return plan_join(lp, plan(lp.children[0]), plan(lp.children[1]))
+        return plan_join(lp, _plan(lp.children[0], conf),
+                         _plan(lp.children[1], conf), conf)
     raise NotImplementedError(
         f"logical plan node {type(lp).__name__} is not ported yet")

@@ -13,23 +13,37 @@ import pyarrow as pa
 import pytest
 
 from spark_rapids_tpu.exec import aggregate as ragg
+from spark_rapids_tpu.exec import base as rbase
 from spark_rapids_tpu.exec import basic as rbasic
+from spark_rapids_tpu.exec import broadcast as rbroadcast
+from spark_rapids_tpu.exec import gatherpart as rgather
 from spark_rapids_tpu.exec import join as rjoin
 from spark_rapids_tpu.expr import aggregates as raggs
 from spark_rapids_tpu.expr import core as rcore
 from spark_rapids_tpu.expr import predicates as rpred
+from spark_rapids_tpu.shuffle import exchange as rexchange
+from spark_rapids_tpu.shuffle import partitioning as rpartitioning
 from spark_rapids_tpu_torch.analysis import determinism as pdet
 from spark_rapids_tpu_torch.exec import aggregate as pagg
+from spark_rapids_tpu_torch.exec import base as pbase
 from spark_rapids_tpu_torch.exec import basic as pbasic
+from spark_rapids_tpu_torch.exec import broadcast as pbroadcast
+from spark_rapids_tpu_torch.exec import gatherpart as pgather
 from spark_rapids_tpu_torch.exec import join as pjoin
 from spark_rapids_tpu_torch.expr import aggregates as paggs
 from spark_rapids_tpu_torch.expr import core as pcore
 from spark_rapids_tpu_torch.expr import predicates as ppred
+from spark_rapids_tpu_torch.shuffle import exchange as pexchange
+from spark_rapids_tpu_torch.shuffle import partitioning as ppartitioning
 
 REF = dict(basic=rbasic, agg=ragg, join=rjoin, aggs=raggs,
-           core=rcore, pred=rpred, Agg=ragg.TpuHashAggregateExec)
+           core=rcore, pred=rpred, Agg=ragg.TpuHashAggregateExec,
+           base=rbase, broadcast=rbroadcast, gather=rgather,
+           exchange=rexchange, partitioning=rpartitioning)
 PORT = dict(basic=pbasic, agg=pagg, join=pjoin, aggs=paggs,
-            core=pcore, pred=ppred, Agg=pagg.GpuHashAggregateExec)
+            core=pcore, pred=ppred, Agg=pagg.GpuHashAggregateExec,
+            base=pbase, broadcast=pbroadcast, gather=pgather,
+            exchange=pexchange, partitioning=ppartitioning)
 FLAGS = ("cls", "order_sensitive_selection", "establishes_order",
          "partition_scoped", "canonicalizable")
 
@@ -97,6 +111,32 @@ PLANS = {
        for how in pjoin.JOIN_TYPES},
     "nested_loop_join_cross": lambda lib: nested_loop_join(lib, "cross"),
     "nested_loop_join_inner": lambda lib: nested_loop_join(lib, "inner"),
+    # the plan rewrite's operators: the host engines, the exchanges, the
+    # gather, the coalesce and the transitions
+    **{f"cpu_aggregate_{buffers}": (
+        lambda lib, b=buffers: lib["agg"].CpuHashAggregateExec(
+            [attr(lib, "k")], AGG_FUNCS[b](lib), filt(lib)))
+       for buffers in AGG_FUNCS},
+    "cpu_join_inner": lambda lib: lib["join"].CpuJoinExec(
+        [attr(lib, "k")], [attr(lib, "k")], "inner", None, scan(lib),
+        scan(lib)),
+    "broadcast_hash_join_left": lambda lib: (
+        lib["broadcast"].BroadcastHashJoinExec(
+            [attr(lib, "k")], [attr(lib, "k")], "left", None, scan(lib),
+            lib["broadcast"].BroadcastExchangeExec(scan(lib)))),
+    "broadcast_nested_loop_join": lambda lib: (
+        lib["broadcast"].BroadcastNestedLoopJoinExec(
+            "cross", None, scan(lib),
+            lib["broadcast"].BroadcastExchangeExec(scan(lib)))),
+    "shuffle_exchange": lambda lib: lib["exchange"].ShuffleExchangeExec(
+        lib["partitioning"].HashPartitioning([attr(lib, "k")], 3),
+        filt(lib)),
+    "gather_partitions": lambda lib: lib["gather"].GatherPartitionsExec(
+        scan(lib)),
+    "coalesce_batches": lambda lib: lib["basic"].CoalesceBatchesExec(
+        filt(lib)),
+    "transitions": lambda lib: lib["base"].DeviceToHostExec(
+        lib["base"].HostToDeviceExec(scan(lib))),
 }
 
 

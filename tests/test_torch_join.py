@@ -419,14 +419,16 @@ def test_join_matches_reference(sessions, case):
 
 
 def test_q2_plan_and_exec_level_join(sessions):
-    """q2 plans aggregate <- project (USING) <- hash join <- two scans,
-    and HashJoinExec alone gives pyarrow's inner join."""
+    """q2 plans aggregate <- project (USING) <- hash join <- two scans
+    under the collect boundary's coalesce and download, and HashJoinExec
+    alone gives pyarrow's inner join."""
     port_session, F, col = sessions[1]
     fact, dim = case_tables(7, n_fact=2000, n_dim=150, dim_unique=True)
     q2(port_session, F, col, fact, dim).collect()
     names = []
     port_session.last_plan.foreach(lambda e: names.append(type(e).__name__))
-    assert names == ["GpuHashAggregateExec", "ProjectExec", "HashJoinExec",
+    assert names == ["DeviceToHostExec", "CoalesceBatchesExec",
+                     "GpuHashAggregateExec", "ProjectExec", "HashJoinExec",
                      "LocalScanExec", "LocalScanExec"]
     join = HashJoinExec([AttributeReference("k")], [AttributeReference("k")],
                         "inner", None, LocalScanExec(fact),
@@ -479,20 +481,47 @@ UNSUPPORTED = {
         lambda s, col: s.create_dataframe(pa.table({"s": ["a", "b"]})).join(
             s.create_dataframe(pa.table({"s": ["b", "c"]})), on="s"),
         "string"),
-    "two_partitions": (
-        lambda s, col: s.create_dataframe(fact_table(
-            np.random.default_rng(10), 50), num_partitions=2).join(
-            s.create_dataframe(dim_table(np.random.default_rng(11), 20)),
-            on="k"),
-        "partition"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_join_raises(case):
+    """A string key is not ported yet.  A conditional full join plans on
+    the CPU engine, which raises on it as the reference's does."""
     build_df, match = UNSUPPORTED[case]
     with pytest.raises(NotImplementedError, match=match):
         build_df(GpuSession(device="cpu"), pcol).collect()
+
+
+def two_partitions(how):
+    return lambda s, F, col, fact, dim: s.create_dataframe(
+        fact, num_partitions=2).join(s.create_dataframe(dim), on="k",
+                                     how=how)
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full",
+                                 "left_semi", "left_anti"])
+def test_two_partition_join_matches_reference(how):
+    """A join with a side of two partitions: a broadcast or a shuffled
+    hash join, whose exchange the single-device fusion strips.  The
+    reference fuses the same way with spark.rapids.tpu.singleChipFuse=on;
+    result, every operator's placement and the explain agree."""
+    fact, dim = case_tables(10, n_fact=400, n_dim=60)
+    ref = TpuSession.builder().config("spark.rapids.tpu.singleChipFuse",
+                                      "on").get_or_create()
+    port = GpuSession(device="cpu")
+    want = two_partitions(how)(ref, RF, rcol, fact, dim).collect()
+    got = two_partitions(how)(port, PF, pcol, fact, dim).collect()
+    assert got.schema == want.schema
+    assert_tables_equal(want, got, approximate_float=FLOAT_RTOL)
+    shapes = []
+    for s in (ref, port):
+        nodes = []
+        s.last_plan.foreach(lambda e: nodes.append(
+            (type(e).__name__, e.placement.replace("tpu", "gpu"))))
+        shapes.append(nodes)
+    assert shapes[0] == shapes[1]
+    assert port.last_explain == ref.last_explain.replace("TPU", "GPU")
 
 
 @pytest.mark.parametrize("alias,how", [

@@ -104,13 +104,19 @@ def test_q1_matches_reference(sessions, case):
 
 
 def test_q1_plan_is_one_complete_aggregate(sessions):
+    """One COMPLETE aggregate on the GPU, and the collect boundary's
+    coalesce and download as the only other operators."""
     port_session = sessions[1]
     q1(port_session, PF, pcol, make_table(27), -500000)
     names = []
     port_session.last_plan.foreach(
-        lambda e: names.append((type(e).__name__, getattr(e, "mode", None))))
-    assert names == [("GpuHashAggregateExec", "Complete"),
-                     ("FilterExec", None), ("LocalScanExec", None)]
+        lambda e: names.append((type(e).__name__, getattr(e, "mode", None),
+                                e.placement)))
+    assert names == [("DeviceToHostExec", None, "cpu"),
+                     ("CoalesceBatchesExec", None, "gpu"),
+                     ("GpuHashAggregateExec", "Complete", "gpu"),
+                     ("FilterExec", None, "gpu"),
+                     ("LocalScanExec", None, "gpu")]
 
 
 def test_dataframe_keeps_its_upload_on_the_device(sessions):
@@ -145,15 +151,40 @@ def test_q1_many_batches_matches_reference(sessions):
     assert_tables_equal(want, got, approximate_float=FLOAT_RTOL)
 
 
-def test_outside_the_slice_raises(sessions):
-    port_session = sessions[1]
+ONCE_OUTSIDE = {
+    # an aggregate over more than one partition (a hash exchange that the
+    # single-device fusion strips)
+    "two_partition_aggregate": lambda s, F, col, t: (
+        s.create_dataframe(t, num_partitions=2).group_by(col("k"))
+        .agg(F.count("*").alias("c"))),
+    # a comparison with lit(None): null for every row, so nothing passes
+    "null_literal_filter": lambda s, F, col, t: (
+        s.create_dataframe(t).filter(col("v") > None)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONCE_OUTSIDE))
+def test_once_outside_the_slice_matches_reference(case):
+    """What raised NotImplementedError before the plan rewrite now runs
+    as the reference runs it: the same result, the same operators in
+    the same placements ("tpu" read as "gpu"), the same explain."""
     table = make_table(29)
-    with pytest.raises(NotImplementedError, match="partition"):
-        (port_session.create_dataframe(table, num_partitions=2)
-         .group_by(pcol("k")).agg(PF.count("*")).collect())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        (port_session.create_dataframe(table)
-         .filter(pcol("v") > None).collect())
+    ref = TpuSession.builder().config("spark.rapids.tpu.singleChipFuse",
+                                      "on").get_or_create()
+    port = GpuSession(device="cpu")
+    want = ONCE_OUTSIDE[case](ref, RF, rcol, table).collect()
+    got = ONCE_OUTSIDE[case](port, PF, pcol, table).collect()
+    assert got.schema == want.schema
+    assert_tables_equal(want, got)
+    shapes = []
+    for s in (ref, port):
+        nodes = []
+        s.last_plan.foreach(lambda e: nodes.append(
+            (type(e).__name__.replace("Tpu", "Gpu"),
+             e.placement.replace("tpu", "gpu"))))
+        shapes.append(nodes)
+    assert shapes[0] == shapes[1]
+    assert port.last_explain == ref.last_explain.replace("TPU", "GPU")
 
 
 def test_wide_group_by_matches_reference():
