@@ -23,8 +23,15 @@ the final download as their one transition; a conditional full join
 falls back to the CPU engine between device operators, with the
 reference's reason; and q1 under spark.rapids.sql.enabled=false (every
 operator on the CPU, no kernel launched) equals the card's result.
-Launch counts are reset just before each main-path run and must be > 0
-after it for every kernel of that path.  Needs one CUDA card; exits
+Bench q3, the fact table sorted by (k, v) and collected whole, through
+the DataFrame API over 1 and 4 partitions, equal to pyarrow's stable
+sort row for row; a TopN, sort(v desc, k).limit(1000), against pyarrow;
+three sort orders with nulls, NaN, -0.0 and +-inf against the CPU
+engine; K8 (row gather), K9 (lane stats) and K10 (lane pack) against
+their plain versions at q3's shapes, at K8's edges and on a fetch fuzz;
+every download split step by step against the per-lane copies it
+replaced.  Launch counts are reset just before each main-path run and
+must be > 0 after it for every kernel of that path.  Needs one CUDA card; exits
 non-zero and prints no result without one, or when any phase fails.
 The last line is a JSON object.
 """
@@ -730,6 +737,240 @@ def _expand_cases(torch, dev, jk, t, DeviceColumn, tile):
     return cases
 
 
+def _same_lanes(torch, a, b):
+    """Two lists of lanes hold the same bits."""
+    def bits(x):
+        return x.view(torch.int64) if x.dtype == torch.float64 else x
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+        for x, y in zip(a, b))
+
+
+def _k8_edge_cases(torch, dev, gather):
+    """K8 against its plain version, bit for bit: no rows (no launch), one
+    row, 17 and 40 lanes (chunks of 16), 1-, 4- and 8-byte lanes, the
+    identity and the reverse order and a random one."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def lanes(m, count):
+        kinds = (torch.bool, torch.int8, torch.int32, torch.int64,
+                 torch.float64)
+        out = []
+        for j in range(count):
+            dt = kinds[j % len(kinds)]
+            x = torch.randint(-2**31, 2**31, (m,), generator=gen, device=dev)
+            out.append(x.to(dt) if dt != torch.float64 else
+                       torch.rand(m, generator=gen, device=dev,
+                                  dtype=torch.float64))
+        return out
+
+    cases = 0
+    for n, count, kind in ((0, 3, "random"), (1, 5, "random"),
+                           (1000, 17, "random"), (5000, 40, "random"),
+                           (100_003, 6, "identity"), (100_003, 6, "reverse"),
+                           (100_003, 6, "random"), (257, 16, "reverse")):
+        ls = lanes(max(n, 1) * 2, count)
+        m = ls[0].shape[0]
+        if kind == "identity":
+            order = torch.arange(n, dtype=torch.int32, device=dev)
+        elif kind == "reverse":
+            order = torch.arange(n - 1, -1, -1, dtype=torch.int32,
+                                 device=dev)
+        else:
+            order = torch.randint(0, m, (n,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        before = gather.gather_rows.launches
+        got = gather.gather_rows(order, ls)
+        launched = gather.gather_rows.launches - before
+        want_launches = 0 if n == 0 else -(-count // 16)
+        if launched != want_launches:
+            raise AssertionError(f"K8 with {n} rows and {count} lanes "
+                                 f"launched {launched} times, not "
+                                 f"{want_launches}")
+        if not _same_lanes(torch, got, gather.gather_rows_plain(order, ls)):
+            raise AssertionError(f"K8 differs from its plain version with "
+                                 f"{n} rows, {count} lanes, {kind} order")
+        cases += 1
+    return cases
+
+
+FUZZ_SPANS = (0, 2**8 - 1, 2**8, 2**16 - 1, 2**16, 2**32 - 1, 2**32)
+
+
+def _fuzz_array(rng, n, kind):
+    """One column of the fetch fuzz: nulls (none, some or all), BOOLEAN
+    data lanes, INT and LONG at their extremes and at the narrowing
+    boundaries of their span, DOUBLE with NaN, -0.0 and +-inf."""
+    null_frac = float(rng.choice([0.0, 0.0, 0.1, 1.0]))
+    mask = (rng.random(n) < null_frac) if null_frac else None
+    if kind == "boolean":
+        vals = rng.random(n) < float(rng.choice([0.5, 1.0]))
+    elif kind == "int":
+        vals = (rng.integers(-2**31, 2**31, n) if rng.random() < 0.3
+                else rng.integers(-300, 300, n)).astype(np.int32)
+    elif kind == "long_extremes":
+        vals = rng.choice(np.array([-2**63, 2**63 - 1, 0, -1],
+                                   dtype=np.int64), n)
+    elif kind == "long_span":
+        base = int(rng.integers(-2**40, 2**40))
+        span = int(rng.choice(FUZZ_SPANS))
+        vals = base + rng.integers(0, span + 1, n, dtype=np.int64)
+        if n >= 2:
+            vals[:2] = [base, base + span]
+    elif kind == "long_wide":
+        vals = rng.integers(-2**62, 2**62, n)
+    else:
+        vals = rng.normal(size=n)
+        pick = rng.random(n)
+        vals[pick < 0.05] = np.nan
+        vals[(pick >= 0.05) & (pick < 0.1)] = -0.0
+        vals[(pick >= 0.1) & (pick < 0.15)] = np.inf
+        vals[(pick >= 0.15) & (pick < 0.2)] = -np.inf
+    return pa.array(vals, mask=mask)
+
+
+def _fetch_fuzz(torch, dev, fetch, batch_to_device, batch_to_arrow,
+                move_batch, cases=48):
+    """K9 and K10 against their plain versions, bit for bit, and
+    fetch_batch against batch_to_arrow(move_batch(...)), on seeded
+    batches of BOOLEAN, INT, LONG and DOUBLE columns: empty batches, row
+    counts that are not a multiple of 8, all-null columns, values at
+    +-2^63 and spans of exactly 2^8 - 1, 2^8, 2^16 - 1, 2^16, 2^32 - 1
+    and 2^32.  Returns (cases, the row counts seen)."""
+    kinds = ("boolean", "int", "long_extremes", "long_span", "long_wide",
+             "double")
+    sizes = []
+    for seed in range(cases):
+        rng = np.random.default_rng(SEED + 100 + seed)
+        n = int(rng.choice([0, 1, 7, 9, 31, 33, 1023,
+                            int(rng.integers(2, 200_000))]))
+        picked = [kinds[seed % len(kinds)]] + [
+            str(rng.choice(kinds)) for _ in range(int(rng.integers(0, 5)))]
+        rb = pa.RecordBatch.from_pydict(
+            {f"c{i}_{k}": _fuzz_array(rng, n, k)
+             for i, k in enumerate(picked)})
+        batch = batch_to_device(rb, dev)
+        lanes = fetch.batch_lanes(batch)
+        stats = fetch.lane_stats(lanes, n)
+        if not torch.equal(stats, fetch.lane_stats_plain(lanes, n)):
+            raise AssertionError(f"K9 differs from its plain version: "
+                                 f"{picked}, {n} rows")
+        plan, mins = fetch.build_plan(lanes, stats.tolist())
+        packed = fetch.pack_lanes(lanes, plan, mins, n)
+        if not torch.equal(packed, fetch.pack_lanes_plain(lanes, plan, mins,
+                                                          n)):
+            raise AssertionError(f"K10 differs from its plain version: "
+                                 f"{picked}, {n} rows, plan {plan}")
+        got = batch_to_arrow(fetch.fetch_batch(batch))
+        want = batch_to_arrow(move_batch(batch, torch.device("cpu"),
+                                         live_only=True))
+        if not (got.schema == want.schema and all(
+                _same_arrow(a, b) for a, b in zip(got.columns,
+                                                  want.columns))):
+            raise AssertionError(f"fetch_batch differs from move_batch: "
+                                 f"{picked}, {n} rows, plan {plan}")
+        sizes.append(n)
+    return cases, sizes
+
+
+def _same_arrow(a, b):
+    """Two Arrow arrays hold the same values and nulls (NaN equal to
+    NaN, -0.0 told from 0.0)."""
+    if len(a) != len(b) or a.type != b.type:
+        return False
+    va = np.asarray(a.is_valid())
+    if not np.array_equal(va, np.asarray(b.is_valid())):
+        return False
+    x = a.fill_null(False if pa.types.is_boolean(a.type) else 0)
+    y = b.fill_null(False if pa.types.is_boolean(b.type) else 0)
+    x, y = x.to_numpy(zero_copy_only=False), y.to_numpy(zero_copy_only=False)
+    if x.dtype == np.float64:
+        x, y = x.view(np.int64), y.view(np.int64)
+    return np.array_equal(x, y)
+
+
+def _same_table(got, want):
+    """Same column names and, column by column, the same values and nulls
+    in the same order."""
+    return got.column_names == want.column_names and \
+        got.num_rows == want.num_rows and all(
+            _same_arrow(got[c].combine_chunks(), want[c].combine_chunks())
+            for c in want.column_names)
+
+
+def _orders_table(n):
+    """The orders-and-nulls check's table: nulls in an INT column; NaN,
+    -0.0, +-inf and nulls in a DOUBLE column; the row number."""
+    rng = np.random.default_rng(SEED + 9)
+    d = rng.normal(size=n)
+    pick = rng.random(n)
+    d[pick < 0.02] = np.nan
+    d[(pick >= 0.02) & (pick < 0.04)] = -0.0
+    d[(pick >= 0.04) & (pick < 0.06)] = 0.0
+    d[(pick >= 0.06) & (pick < 0.08)] = np.inf
+    d[(pick >= 0.08) & (pick < 0.1)] = -np.inf
+    return pa.table({
+        "i": pa.array(rng.integers(-1000, 1000, n).astype(np.int32),
+                      mask=rng.random(n) < 0.1),
+        "d": pa.array(d, mask=rng.random(n) < 0.05),
+        "row": pa.array(np.arange(n, dtype=np.int64)),
+    })
+
+
+def _download_split(torch, fetch, batch_to_arrow, move_batch, batch):
+    """The download of one device batch, step by step (ms, the second of
+    two passes): the former path (``moved``: one copy a lane, then
+    Arrow), then the packed fetch's steps: K9 and the stats read, the
+    plan and K10, the copy into the pinned staging buffer, the host
+    rebuild and Arrow.  Returns (ms by step, packed bytes, plan)."""
+    host = torch.device("cpu")
+    n = batch.num_rows
+    for _ in range(2):
+        ms, st = {}, {}
+
+        def pack():
+            st["plan"], st["mins"] = fetch.build_plan(st["lanes"],
+                                                      st["stats"])
+            st["slices"], st["total"] = fetch.layout(st["lanes"],
+                                                     st["plan"], n)
+            st["packed"] = fetch.pack_lanes(st["lanes"], st["plan"],
+                                            st["mins"], n)
+
+        def copy():
+            buf = fetch.staging_buffer(batch.device, st["total"])
+            buf[:st["total"]].copy_(st["packed"], non_blocking=True)
+            torch.cuda.synchronize()
+            st["host"] = buf
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for name, step in (
+                ("moved", lambda: batch_to_arrow(move_batch(
+                    batch, host, live_only=True))),
+                ("stats_read", lambda: st.update(
+                    lanes=fetch.batch_lanes(batch),
+                    stats=fetch.lane_stats(fetch.batch_lanes(batch),
+                                           n).tolist())),
+                ("K10", pack),
+                ("copy", copy),
+                ("rebuild", lambda: st.update(out=fetch.rebuild_batch(
+                    batch, st["lanes"], st["plan"], st["mins"], st["stats"],
+                    st["slices"], st["host"], n))),
+                ("arrow", lambda: batch_to_arrow(st["out"]))):
+            step()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            ms[name] = (now - t1) * 1e3
+            t1 = now
+    return ms, st["total"], st["plan"]
+
+
+def _split_line(ms):
+    fetched = sum(v for k, v in ms.items() if k != "moved")
+    return (" ".join(f"{k}={v:.2f}" for k, v in ms.items())
+            + f" (packed fetch {fetched:.2f} against {ms['moved']:.2f})")
+
+
 def main() -> int:
     try:
         import torch
@@ -751,10 +992,13 @@ def main() -> int:
     from spark_rapids_tpu_torch.api import functions as F
     from spark_rapids_tpu_torch.api.column import col
     from spark_rapids_tpu_torch.api.session import GpuSession
-    from spark_rapids_tpu_torch.columnar.device import (DeviceColumn,
+    from spark_rapids_tpu_torch.columnar import fetch
+    from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                        DeviceColumn,
                                                         batch_to_arrow,
                                                         batch_to_device,
-                                                        bucket_for)
+                                                        bucket_for,
+                                                        move_batch)
     from spark_rapids_tpu_torch.exec import aggregate as agg_mod
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
     from spark_rapids_tpu_torch.exec.base import ExecContext
@@ -766,16 +1010,20 @@ def main() -> int:
     from spark_rapids_tpu_torch.expr.core import AttributeReference as A
     from spark_rapids_tpu_torch.expr.core import EvalContext
     from spark_rapids_tpu_torch.exec.join import HashJoinExec
+    from spark_rapids_tpu_torch.exec.sort import SortExec
     from spark_rapids_tpu_torch.ops import carry
+    from spark_rapids_tpu_torch.ops import gather as gather_mod
     from spark_rapids_tpu_torch.ops import join_kernels as jk
     from spark_rapids_tpu_torch.ops import segmented as seg
 
     dev = torch.device("cuda")
+    host = torch.device("cpu")
     failures = []
     card = _card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}, "
+          f"{torch.get_num_threads()} host threads")
 
     t0 = time.perf_counter()
     secs = kernels.build()
@@ -1249,6 +1497,132 @@ def main() -> int:
         failures.append("K3 wide group-by")
         traceback.print_exc()
 
+    # ---- kernel phase, q3: K2 on the sort words, K8, K9 and K10 --------
+    q3_orders = [(A("k"), True, True), (A("v"), True, True)]
+    try:
+        q3_in = batch_to_device(pa.RecordBatch.from_arrays(
+            [c.combine_chunks() for c in table.columns],
+            names=table.column_names), dev)
+        n3 = q3_in.num_rows
+        words3 = SortExec(q3_orders, LocalScanExec(table)).sort_words(q3_in)
+        order3 = carry.sort_order(words3)
+        if not torch.equal(order3, carry.sort_order_plain(words3)):
+            raise AssertionError("K2 differs from its plain version on q3's "
+                                 "sort words")
+        q3_passes = _k2_passes(carry, words3)
+        print(f"K2 on q3's sort words: rows {n3}, words {len(words3)} "
+              f"(padding, k's null word, k, v's null word, v), passes "
+              f"{q3_passes}, exact, "
+              f"{cuda_ms(lambda: carry.sort_order(words3)):.3f} ms")
+        lanes3 = fetch.batch_lanes(q3_in)
+        sorted3 = gather_mod.gather_rows(order3, lanes3)
+        if not _same_lanes(torch, sorted3,
+                           gather_mod.gather_rows_plain(order3, lanes3)):
+            raise AssertionError("K8 differs from its plain version at q3's "
+                                 "shapes")
+        k8_bytes = 4 * n3 + 2 * n3 * sum(x.element_size() for x in lanes3)
+        idx3 = order3.to(torch.int64)
+        kernel_rows["gather_rows"] = dict(
+            source="spark_rapids_tpu_torch/csrc/gather_rows.cu",
+            replaces="spark_rapids_tpu/ops/carry.py:80",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: gather_mod.gather_rows(order3, lanes3)),
+            plain_ms=cuda_ms(lambda: gather_mod.gather_rows_plain(order3,
+                                                                  lanes3)),
+            library_ms=cuda_ms(lambda: [x.index_select(0, idx3)
+                                        for x in lanes3]),
+            bound_ms=bound(k8_bytes))
+        r = kernel_rows["gather_rows"]
+        print(f"K8 gather_rows: rows {n3}, {len(lanes3)} lanes, exact, "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+              f"(index_select of each lane) {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({k8_bytes} bytes)")
+
+        # K9 and K10 on the sorted batch, the one q3's download fetches
+        stats3 = fetch.lane_stats(sorted3, n3)
+        if not torch.equal(stats3, fetch.lane_stats_plain(sorted3, n3)):
+            raise AssertionError("K9 differs from its plain version at q3's "
+                                 "shapes")
+        reduced = [x for x in sorted3
+                   if fetch.lane_kind(x) != fetch.KIND_OTHER]
+        k9_bytes = n3 * sum(x.element_size() for x in reduced) \
+            + 16 * len(sorted3)
+
+        def k9_library():
+            return [torch.all(x) if x.dtype == torch.bool else
+                    torch.aminmax(x) for x in reduced]
+        kernel_rows["lane_stats"] = dict(
+            source="spark_rapids_tpu_torch/csrc/fetch_pack.cu",
+            replaces="spark_rapids_tpu/columnar/fetch.py:158",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: fetch.lane_stats(sorted3, n3)),
+            plain_ms=cuda_ms(lambda: fetch.lane_stats_plain(sorted3, n3)),
+            library_ms=cuda_ms(k9_library),
+            bound_ms=bound(k9_bytes))
+        r = kernel_rows["lane_stats"]
+        print(f"K9 lane_stats: rows {n3}, {len(sorted3)} lanes "
+              f"({len(reduced)} reduced), stats {stats3.tolist()}, exact, "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+              f"(aminmax and all of each lane) {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({k9_bytes} bytes)")
+        plan3, mins3 = fetch.build_plan(sorted3, stats3.tolist())
+        packed3 = fetch.pack_lanes(sorted3, plan3, mins3, n3)
+        if not torch.equal(packed3, fetch.pack_lanes_plain(sorted3, plan3,
+                                                           mins3, n3)):
+            raise AssertionError("K10 differs from its plain version at "
+                                 "q3's shapes")
+        kept = [x for x, st in zip(sorted3, plan3) if st[0] != "skip"]
+        k10_bytes = n3 * sum(x.element_size() for x in kept) + \
+            packed3.numel()
+        kernel_rows["pack_lanes"] = dict(
+            source="spark_rapids_tpu_torch/csrc/fetch_pack.cu",
+            replaces="spark_rapids_tpu/columnar/fetch.py:346",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: fetch.pack_lanes(sorted3, plan3, mins3, n3)),
+            plain_ms=cuda_ms(lambda: fetch.pack_lanes_plain(
+                sorted3, plan3, mins3, n3)),
+            # no single PyTorch call packs the lanes
+            library_ms=None,
+            bound_ms=bound(k10_bytes))
+        r = kernel_rows["pack_lanes"]
+        full = sum(x.element_size() for x in sorted3) * n3
+        print(f"K10 pack_lanes: rows {n3}, plan {plan3}, {packed3.numel()} "
+              f"bytes packed of {full} in the lanes, exact, {r['ms']:.3f} "
+              f"ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({k10_bytes} bytes)")
+        sorted_batch = DeviceBatch(
+            [DeviceColumn(c.dtype, sorted3[2 * i], sorted3[2 * i + 1])
+             for i, c in enumerate(q3_in.columns)], n3, q3_in.names)
+        got = batch_to_arrow(fetch.fetch_batch(sorted_batch))
+        want3 = batch_to_arrow(move_batch(sorted_batch, host,
+                                          live_only=True))
+        if not all(_same_arrow(a, b) for a, b in zip(got.columns,
+                                                     want3.columns)):
+            raise AssertionError("fetch_batch differs from move_batch at "
+                                 "q3's shapes")
+        print("fetch_batch at q3's shapes equals batch_to_arrow(move_batch"
+              "(...)) column for column")
+        del q3_in, words3, order3, lanes3, sorted3, packed3, sorted_batch
+        del got, want3, idx3, reduced, kept
+    except Exception:
+        failures.append("kernel phase (q3)")
+        traceback.print_exc()
+
+    try:
+        cases = _k8_edge_cases(torch, dev, gather_mod)
+        print(f"K8 edge cases: {cases} cases equal the plain version bit for "
+              f"bit (no rows and no launch, one row, 17 and 40 lanes, 1-, 4- "
+              f"and 8-byte lanes, identity, reverse and random orders)")
+        cases, sizes = _fetch_fuzz(torch, dev, fetch, batch_to_device,
+                                   batch_to_arrow, move_batch)
+        print(f"fetch fuzz: K9 and K10 equal their plain versions bit for "
+              f"bit and fetch_batch equals batch_to_arrow(move_batch(...)) "
+              f"in {cases} seeded batches of {min(sizes)} to {max(sizes)} "
+              f"rows ({sum(1 for x in sizes if x % 8)} not a multiple of 8)")
+    except Exception:
+        failures.append("K8, K9 and K10 edge cases")
+        traceback.print_exc()
+
     # ---- main path: DataFrame API, one batch -------------------------
     wrappers = {"compact_rows": carry.compact_lanes,
                 "sort_order": carry.sort_order,
@@ -1257,7 +1631,13 @@ def main() -> int:
                 "hash_table": jk.hash_table,
                 "join_probe": jk.join_probe,
                 "expand_ends": jk.expand_ends,
-                "expand_pairs": jk.expand_pairs}
+                "expand_pairs": jk.expand_pairs,
+                "gather_rows": gather_mod.gather_rows,
+                "lane_stats": fetch.lane_stats,
+                "pack_lanes": fetch.pack_lanes}
+
+    def download_fetched(b):
+        return batch_to_arrow(fetch.fetch_batch(b))
 
     def count_reset():
         for fn in wrappers.values():
@@ -1313,7 +1693,7 @@ def main() -> int:
                     ("filter", filt._compute),
                     ("update", agg._update_batch),
                     ("evaluate", agg._evaluate_batch),
-                    ("download", batch_to_arrow)):
+                    ("download", download_fetched)):
                 val = step(val)
                 torch.cuda.synchronize()
                 now = time.perf_counter()
@@ -1321,7 +1701,13 @@ def main() -> int:
                 t1 = now
         print("stages (ms): " + " ".join(f"{k}={v:.2f}"
                                          for k, v in stages.items()))
-        del val
+        evaluated = agg._evaluate_batch(agg._update_batch(filt._compute(
+            batch_to_device(rb, dev))))
+        split, nbytes, plan = _download_split(torch, fetch, batch_to_arrow,
+                                              move_batch, evaluated)
+        print(f"q1 download (ms): {_split_line(split)}; {nbytes} bytes "
+              f"packed, plan {plan}")
+        del val, evaluated
         trace = _profile(torch, df.collect)
         print(f"trace of a warm DataFrame q1: wall {trace['wall_ms']:.2f} ms, "
               f"device busy {trace['busy_ms']:.2f} ms, idle share "
@@ -1460,7 +1846,7 @@ def main() -> int:
                     ("evaluate", lambda: st.update(
                         out=agg_q2._evaluate_batch(st["out"]))),
                     ("download", lambda: st.update(
-                        out=batch_to_arrow(st["out"])))):
+                        ev=st["out"], out=download_fetched(st["out"])))):
                 step()
                 torch.cuda.synchronize()
                 now = time.perf_counter()
@@ -1468,6 +1854,10 @@ def main() -> int:
                 t1 = now
         print("q2 stages (ms): " + " ".join(f"{k}={v:.2f}"
                                             for k, v in stages.items()))
+        split, nbytes, plan = _download_split(torch, fetch, batch_to_arrow,
+                                              move_batch, st["ev"])
+        print(f"q2 download (ms): {_split_line(split)}; {nbytes} bytes "
+              f"packed, plan {plan}")
         del st, probe, build
         trace = _profile(torch, q2df.collect)
         print(f"trace of a warm DataFrame q2: wall {trace['wall_ms']:.2f} ms, "
@@ -1602,6 +1992,245 @@ def main() -> int:
         del df4, s4
     except Exception:
         failures.append("main path (q1, 4 partitions)")
+        traceback.print_exc()
+
+    # ---- main path: q3, the global sort, through the DataFrame API -----
+    def timed_walls(fn, reps=3):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return walls
+
+    q3_want = None
+    try:
+        t1 = time.perf_counter()
+        q3_want = table.sort_by([("k", "ascending"), ("v", "ascending")])
+        ks, vs = q3_want["k"].to_numpy(), q3_want["v"].to_numpy()
+        ties = int(np.sum((ks[1:] == ks[:-1]) & (vs[1:] == vs[:-1])))
+        print(f"pyarrow q3 oracle: {q3_want.num_rows} rows sorted by (k, v) "
+              f"in {time.perf_counter() - t1:.1f} s; {ties} rows tie with "
+              f"the row before on (k, v), so f's order checks stability")
+        del ks, vs
+        q3_session = GpuSession()
+        q3df = q3_session.create_dataframe(table).sort(col("k"), col("v"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = q3df.collect()
+        cold_wall = time.perf_counter() - t1
+        if not _same_table(got, q3_want):
+            raise AssertionError("DataFrame q3 (cold) differs from pyarrow's "
+                                 "sort")
+        nodes = _placements(q3_session.last_plan)
+        if nodes != [("DeviceToHostExec", "cpu"),
+                     ("CoalesceBatchesExec", "gpu"), ("SortExec", "gpu"),
+                     ("LocalScanExec", "gpu")] or \
+                "!" in q3_session.last_explain:
+            raise AssertionError(f"q3 planned {nodes}:\n"
+                                 + q3_session.last_explain)
+        count_reset()
+        carry.sort_order.passes = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        got = q3df.collect()
+        torch.cuda.synchronize()
+        launches["q3"] = counts()
+        q3_run_passes = carry.sort_order.passes
+        peak = torch.cuda.max_memory_allocated()
+        if not _same_table(got, q3_want):
+            raise AssertionError("DataFrame q3 differs from pyarrow's sort")
+        for name, want_n in (("lane_stats", 1), ("pack_lanes", 1)):
+            if launches["q3"][name] != want_n:
+                raise AssertionError(f"{name} launched "
+                                     f"{launches['q3'][name]} times on q3, "
+                                     f"not {want_n}")
+        del got
+        walls = timed_walls(q3df.collect)
+        wall = sorted(walls)[1]
+        print(f"main path DataFrame q3 ({ROWS} rows, sort by k, v -> "
+              f"collect): plan {[n for n, _ in nodes]}, GPU-only, one "
+              f"DeviceToHostExec; equals pyarrow's sort exactly (k, v, f); "
+              f"cold wall {cold_wall * 1e3:.1f} ms (upload included); warm "
+              f"walls {', '.join(f'{w:.1f}' for w in walls)} ms, median "
+              f"{wall:.1f}, {ROWS / wall / 1e3:.1f} M rows/s; peak "
+              f"{peak / 2**30:.2f} GiB; K2 passes {q3_run_passes}; launches "
+              f"{launches['q3']}")
+
+        # where q3's time goes: stage by stage, then a trace
+        scan3 = LocalScanExec(table)
+        sorter = SortExec(q3_orders, scan3)
+        batch3 = next(scan3.execute_partition(0, ExecContext(dev)))
+        for _ in range(2):                 # the second pass is reported
+            stages, st = {}, {}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for name, step in (
+                    ("words", lambda: st.update(
+                        words=sorter.sort_words(batch3))),
+                    ("K2", lambda: st.update(
+                        order=carry.sort_order(st["words"]))),
+                    ("K8", lambda: st.update(lanes=gather_mod.gather_rows(
+                        st["order"], fetch.batch_lanes(batch3))))):
+                step()
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                stages[name] = (now - t1) * 1e3
+                t1 = now
+        sorted3 = DeviceBatch(
+            [DeviceColumn(c.dtype, st["lanes"][2 * i], st["lanes"][2 * i + 1])
+             for i, c in enumerate(batch3.columns)], batch3.num_rows,
+            batch3.names)
+        split, nbytes, plan = _download_split(torch, fetch, batch_to_arrow,
+                                              move_batch, sorted3)
+        # the host rebuild's floor: fresh host pages for the three lanes
+        t1 = time.perf_counter()
+        touched = [torch.empty(batch3.num_rows, dtype=c.data.dtype).fill_(0)
+                   for c in batch3.columns]
+        touch_ms = (time.perf_counter() - t1) * 1e3
+        full = sum(x.element_size() for x in fetch.batch_lanes(batch3)) \
+            * batch3.num_rows
+        print("q3 stages (ms): " + " ".join(f"{k}={v:.2f}"
+                                            for k, v in stages.items())
+              + f"; download {_split_line(split)}; packed {nbytes} of "
+              f"{full} lane bytes, copy {nbytes / split['copy'] / 1e6:.1f} "
+              f"GB/s; plan {plan}; first touch of {len(touched)} fresh "
+              f"host lanes of {batch3.num_rows} rows {touch_ms:.2f} ms")
+        del st, batch3, scan3, sorter, touched, sorted3
+        trace = _profile(torch, q3df.collect)
+        print(f"trace of a warm DataFrame q3: wall {trace['wall_ms']:.2f} ms, "
+              f"device busy {trace['busy_ms']:.2f} ms, idle share "
+              f"{trace['idle_share']:.3f}; top kernels (ms): "
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"]))
+        del q3df, q3_session
+    except Exception:
+        failures.append("main path (q3)")
+        traceback.print_exc()
+
+    # ---- main path: q3 over 4 partitions -------------------------------
+    try:
+        if q3_want is None:
+            raise AssertionError("no q3 oracle")
+        s4 = GpuSession()
+        df4 = s4.create_dataframe(table, num_partitions=4).sort(col("k"),
+                                                                col("v"))
+        if not _same_table(df4.collect(), q3_want):
+            raise AssertionError("DataFrame q3, 4 partitions (cold) differs "
+                                 "from pyarrow's sort")
+        nodes = _placements(s4.last_plan)
+        if nodes != [("DeviceToHostExec", "cpu"),
+                     ("CoalesceBatchesExec", "gpu"), ("SortExec", "gpu"),
+                     ("GatherPartitionsExec", "gpu"),
+                     ("LocalScanExec", "gpu")] or "!" in s4.last_explain:
+            raise AssertionError(f"q3 over 4 partitions planned {nodes}")
+        count_reset()
+        torch.cuda.synchronize()
+        got = df4.collect()
+        torch.cuda.synchronize()
+        launches["q3_4"] = counts()
+        if not _same_table(got, q3_want):
+            raise AssertionError("DataFrame q3, 4 partitions, differs from "
+                                 "pyarrow's sort")
+        del got
+        walls = timed_walls(df4.collect)
+        print(f"main path DataFrame q3 (4 partitions of {ROWS // 4} rows): "
+              f"range exchange stripped, plan {[n for n, _ in nodes]}; "
+              f"equals pyarrow's sort; warm walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
+              f"{sorted(walls)[1]:.1f}; launches {launches['q3_4']}")
+        del df4, s4
+    except Exception:
+        failures.append("main path (q3, 4 partitions)")
+        traceback.print_exc()
+    q3_want = None
+
+    # ---- TopN: sort(v desc, k).limit(1000) -------------------------------
+    try:
+        t1 = time.perf_counter()
+        topn_want = table.sort_by([("v", "descending"),
+                                   ("k", "ascending")]).slice(0, 1000)
+        oracle_s = time.perf_counter() - t1
+        st_ = GpuSession()
+        tdf = st_.create_dataframe(table).sort(col("v").desc(),
+                                               col("k")).limit(1000)
+        if not _same_table(tdf.collect(), topn_want):
+            raise AssertionError("TopN (cold) differs from pyarrow")
+        nodes = _placements(st_.last_plan)
+        if [n for n, _ in nodes] != [
+                "DeviceToHostExec", "CoalesceBatchesExec", "GlobalLimitExec",
+                "SortExec", "LocalLimitExec", "SortExec", "LocalScanExec"] \
+                or any(p != "gpu" for _, p in nodes[1:]):
+            raise AssertionError(f"TopN planned {nodes}")
+        count_reset()
+        torch.cuda.synchronize()
+        got = tdf.collect()
+        torch.cuda.synchronize()
+        launches["topn"] = counts()
+        if not _same_table(got, topn_want):
+            raise AssertionError("TopN differs from pyarrow")
+        walls = timed_walls(tdf.collect)
+        print(f"TopN sort(v desc, k).limit(1000) over {ROWS} rows: plan "
+              f"{[n for n, _ in nodes]}; equals pyarrow's first 1000 rows "
+              f"(oracle {oracle_s:.1f} s); warm walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms; launches "
+              f"{launches['topn']}")
+        del tdf, st_, got, topn_want
+    except Exception:
+        failures.append("TopN")
+        traceback.print_exc()
+
+    # ---- orders and nulls: the card against the CPU engine ---------------
+    try:
+        ot = _orders_table(1 << 20)
+        orders = {
+            "desc": lambda c: [c("i").desc(), c("d").desc()],
+            "asc_nulls_last": lambda c: [c("d").asc_nulls_last(), c("i")],
+            "desc_nulls_first": lambda c: [c("d").desc_nulls_first(),
+                                           c("i").desc_nulls_first()]}
+        cpu_engine = GpuSession(conf={"spark.rapids.sql.enabled": False})
+        for name, fn in orders.items():
+            count_reset()
+            oracle = cpu_engine.create_dataframe(
+                ot, num_partitions=4).order_by(*fn(col)).collect()
+            if any(counts().values()):
+                raise AssertionError(f"the CPU engine launched {counts()}")
+            nodes = _placements(cpu_engine.last_plan)
+            if any(p != "cpu" for _, p in nodes) or \
+                    ("ShuffleExchangeExec", "cpu") not in nodes:
+                raise AssertionError(f"CPU engine planned {nodes}")
+            for parts in (1, 4):
+                count_reset()
+                got = GpuSession().create_dataframe(
+                    ot, num_partitions=parts).order_by(*fn(col)).collect()
+                if counts()["gather_rows"] < 1:
+                    raise AssertionError("the card's sort launched no K8")
+                if not _same_table(got, oracle):
+                    raise AssertionError(f"order {name} over {parts} "
+                                         f"partitions differs from the CPU "
+                                         f"engine")
+        # pyarrow where its rules agree with Spark's: an INT key with
+        # nulls, the row number breaking ties
+        for fn, keys, place in (
+                (lambda c: [c("i").asc_nulls_last(), c("row")],
+                 [("i", "ascending"), ("row", "ascending")], "at_end"),
+                (lambda c: [c("i").desc_nulls_first(), c("row")],
+                 [("i", "descending"), ("row", "ascending")], "at_start")):
+            got = GpuSession().create_dataframe(ot).order_by(
+                *fn(col)).collect()
+            if not _same_table(got, ot.sort_by(keys, null_placement=place)):
+                raise AssertionError(f"{keys} nulls {place} differs from "
+                                     f"pyarrow")
+        print(f"orders and nulls over {ot.num_rows} rows (nulls in an INT "
+              f"column; NaN, -0.0, +-inf and nulls in a DOUBLE column): "
+              f"{', '.join(orders)} on the card over 1 and 4 partitions "
+              f"equal the CPU engine (every operator on the CPU, the range "
+              f"exchange on the host, no kernel launched); INT ascending "
+              f"nulls last and descending nulls first equal pyarrow")
+        del ot, oracle, got
+    except Exception:
+        failures.append("orders and nulls")
         traceback.print_exc()
 
     # ---- the plan rewrite: placements and planning time, one partition --
@@ -1769,7 +2398,13 @@ def main() -> int:
                "expand_ends", "expand_pairs", "segment_reduce_sorted"),
         "q6": ("key_hash", "sort_order", "hash_table", "join_probe",
                "expand_ends", "expand_pairs", "segment_reduce_sorted"),
-        "q1_4": ("compact_rows", "sort_order", "segment_reduce_sorted")}
+        "q1_4": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "q3": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
+        "q3_4": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
+        "topn": ("sort_order", "gather_rows", "lane_stats", "pack_lanes")}
+    # every download through DeviceToHostExec is the packed fetch now
+    for run in ("dataframe", "q2", "q6", "q1_4"):
+        path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
             failures.append(f"launch counts of the {run} run missing")
@@ -1787,9 +2422,10 @@ def main() -> int:
 
     if kernel_rows:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
-        # q2 for K4-K7
+        # q2 for K4-K7, q3 for K8-K10
         run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
-                  "expand_pairs": "q2"}
+                  "expand_pairs": "q2", "gather_rows": "q3",
+                  "lane_stats": "q3", "pack_lanes": "q3"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],

@@ -9,11 +9,14 @@ found under the same name:
   plan/planner.py       logical plan -> CPU-placed physical plan
   plan/overrides.py     tag -> cost -> convert -> transitions
   columnar/device.py    DeviceColumn, DeviceBatch, batch_to_device
+  columnar/fetch.py     the packed download: lane_stats (K9), pack_lanes (K10)
   ops/carry.py          compact_rows (kernel K1), sort_order / sort_rows (K2)
+  ops/gather.py         gather_rows (kernel K8), the row gathers
   ops/segmented.py      order-preserving int64 key words, boundaries
   exec/aggregate.py     segment_reduce_sorted (kernel K3), the aggregates
   ops/join_kernels.py   the join kernels K4-K7
   exec/join.py          the hash, nested-loop and CPU joins
+  exec/sort.py          the sort; exec/basic.py the limits
 
 Classes named after the reference plugin and their JAX counterparts:
 

@@ -1,12 +1,12 @@
 """Column wrapper over the expression IR (mirrors pyspark.sql.Column).
 
 Counterpart of spark_rapids_tpu/api/column.py, narrowed to comparisons,
-boolean logic and aliases.
+boolean logic, aliases and sort orders.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 from ..expr import predicates as pred
 from ..expr.core import Alias, AttributeReference, Expression, Literal
@@ -21,9 +21,12 @@ def _expr(v) -> Expression:
 
 
 class Column:
-    def __init__(self, expr: Expression, alias: Optional[str] = None):
+    def __init__(self, expr: Expression, alias: Optional[str] = None,
+                 sort_order: Optional[Tuple[bool, bool]] = None):
         self.expr = expr
         self._alias = alias
+        # (ascending, nulls_first) when the column names a sort order
+        self._sort_order = sort_order
 
     def __eq__(self, o):  # type: ignore[override]
         return Column(pred.EqualTo(self.expr, _expr(o)))
@@ -56,6 +59,18 @@ class Column:
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name), alias=name)
+
+    def asc(self):
+        return Column(self.expr, self._alias, sort_order=(True, True))
+
+    def desc(self):
+        return Column(self.expr, self._alias, sort_order=(False, False))
+
+    def asc_nulls_last(self):
+        return Column(self.expr, self._alias, sort_order=(True, False))
+
+    def desc_nulls_first(self):
+        return Column(self.expr, self._alias, sort_order=(False, True))
 
     def __repr__(self):
         return f"Column<{self.expr.sql()}>"

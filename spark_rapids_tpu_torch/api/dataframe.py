@@ -1,7 +1,8 @@
 """DataFrame and GroupedData of the slice.
 
-Counterpart of spark_rapids_tpu/api/dataframe.py: filter / where,
-group_by / groupBy, agg, join, collect and explain.
+Counterpart of spark_rapids_tpu/api/dataframe.py: select,
+with_column, filter / where, group_by / groupBy, agg, join, order_by /
+orderBy / sort, sort_within_partitions, limit, collect and explain.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from ..exec.join import JOIN_TYPES
 from ..expr.aggregates import AggregateExpression
 from ..expr.core import Alias, AttributeReference, Expression, Literal
 from ..plan import logical as L
-from .column import Column
+from .column import Column, col
 
 
 def _to_expr(c) -> Expression:
@@ -31,6 +32,28 @@ class DataFrame:
     def __init__(self, lp: L.LogicalPlan, session):
         self._lp = lp
         self.session = session
+
+    @property
+    def columns(self) -> List[str]:
+        return self._lp.schema()[0]
+
+    def select(self, *cols) -> "DataFrame":
+        exprs = []
+        for c in cols:
+            if isinstance(c, str) and c == "*":
+                exprs += [AttributeReference(n) for n in self.columns]
+            else:
+                exprs.append(_to_expr(c))
+        return DataFrame(L.Project(exprs, self._lp), self.session)
+
+    def with_column(self, name: str, c) -> "DataFrame":
+        """Every other column, then ``c`` as ``name`` (last, as in the
+        reference)."""
+        cols = [col(n) for n in self.columns if n != name]
+        cc = c if isinstance(c, Column) else Column(_to_expr(c))
+        return self.select(*cols, cc.alias(name))
+
+    withColumn = with_column
 
     def filter(self, condition) -> "DataFrame":
         return DataFrame(L.Filter(_to_expr(condition), self._lp),
@@ -72,6 +95,32 @@ class DataFrame:
                 cond = _to_expr(on)
         return DataFrame(L.Join(self._lp, other._lp, how, cond, using),
                          self.session)
+
+    def order_by(self, *cols, ascending=True) -> "DataFrame":
+        """A global sort.  A column's own order (``asc``, ``desc``,
+        ``asc_nulls_last``, ``desc_nulls_first``) wins; otherwise
+        ``ascending`` (one bool, or a list of one bool a column) applies, with nulls
+        first exactly when the order is ascending."""
+        orders = []
+        for i, c in enumerate(cols):
+            if isinstance(c, Column) and c._sort_order is not None:
+                asc, nf = c._sort_order
+                orders.append((c.expr, asc, nf))
+            else:
+                asc = ascending if isinstance(ascending, bool) \
+                    else ascending[i]
+                orders.append((_to_expr(c), asc, asc))
+        return DataFrame(L.Sort(orders, True, self._lp), self.session)
+
+    orderBy = order_by
+    sort = order_by
+
+    def sort_within_partitions(self, *cols, ascending=True) -> "DataFrame":
+        orders = [(_to_expr(c), ascending, ascending) for c in cols]
+        return DataFrame(L.Sort(orders, False, self._lp), self.session)
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self._lp), self.session)
 
     def collect(self) -> pa.Table:
         return self.session.execute(self._lp)

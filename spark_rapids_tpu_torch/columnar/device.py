@@ -65,6 +65,40 @@ class DeviceColumn:
         return f"DeviceColumn({self.dtype.name}, cap={self.capacity})"
 
 
+def unpack_bits(bitmap: torch.Tensor, n: int) -> torch.Tensor:
+    """bool[n] from a bitmap of 8 rows a byte, least significant bit
+    first (Arrow's validity bitmap order)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bitmap.device)
+    bits = (bitmap.unsqueeze(1) >> shifts) & 1
+    return bits.reshape(-1)[:n].to(torch.bool)
+
+
+class HostColumn(DeviceColumn):
+    """A column fetched to the host by columnar/fetch.py: ``data`` holds
+    the live rows on the CPU and ``bitmap`` their validity as an Arrow
+    bitmap (uint8, least significant bit first), or None when every row
+    is valid.  ``validity`` unpacks the bitmap on first read, so a
+    collect hands the bitmap to Arrow as it came from the card."""
+
+    __slots__ = ("bitmap", "_validity")
+
+    def __init__(self, dtype: t.DataType, data: torch.Tensor,
+                 bitmap: Optional[torch.Tensor]):
+        self.dtype = dtype
+        self.data = data
+        self.bitmap = bitmap
+        self._validity = None
+
+    @property
+    def validity(self) -> torch.Tensor:
+        if self._validity is None:
+            n = int(self.data.shape[0])
+            self._validity = (torch.ones(n, dtype=torch.bool)
+                              if self.bitmap is None
+                              else unpack_bits(self.bitmap, n))
+        return self._validity
+
+
 class DeviceBatch:
     """Columns of one capacity plus the live row count."""
 
@@ -169,6 +203,13 @@ def move_batch(batch: DeviceBatch, device: torch.device,
 def column_to_arrow(col: DeviceColumn, n: int) -> pa.Array:
     if col.dtype == t.NULL:
         return pa.nulls(n)
+    if isinstance(col, HostColumn) and col.dtype != t.BOOLEAN and \
+            col.data.shape[0] == n:
+        # the fetched lanes as Arrow's buffers, without a copy
+        bitmap = None if col.bitmap is None else pa.py_buffer(
+            col.bitmap.numpy())
+        return pa.Array.from_buffers(to_arrow_type(col.dtype), n, [
+            bitmap, pa.py_buffer(col.data.numpy())])
     data = col.data[:n].cpu().numpy()
     valid = col.validity[:n].cpu().numpy()
     mask = None if valid.all() else ~valid

@@ -30,6 +30,7 @@ import torch
 from .. import types as t
 from ..columnar.device import (DeviceBatch, batch_to_arrow, move_batch,
                                resolve_device)
+from ..columnar.fetch import fetch_batch
 from ..columnar.interop import to_arrow_schema
 from ..config import RapidsConf
 
@@ -201,7 +202,9 @@ class HostToDeviceExec(_Transition):
 
 class DeviceToHostExec(_Transition):
     """Bring a GPU-placed child's batches to CPU tensors (the live rows
-    only)."""
+    only): a batch on the card through the packed fetch
+    (columnar/fetch.py:fetch_batch), as the reference's does; a batch
+    already on the CPU (a session on ``device="cpu"``) as it is."""
 
     placement = CPU
     input_side = GPU
@@ -211,4 +214,7 @@ class DeviceToHostExec(_Transition):
 
     def execute_partition(self, pid, ctx):
         for b in self.child_batches(0, pid, ctx):
-            yield move_batch(b, ctx.cpu, live_only=True)
+            if b.columns and b.device.type == "cuda":
+                yield fetch_batch(b)
+            else:
+                yield move_batch(b, ctx.cpu, live_only=True)

@@ -1,9 +1,9 @@
-"""Scan, project, filter and batch-coalesce operators.
+"""Scan, project, filter, limit and batch-coalesce operators.
 
 Counterpart of spark_rapids_tpu/exec/basic.py (LocalScanExec,
-ProjectExec, FilterExec, CoalesceBatchesExec).  Operators evaluate their
-expressions eagerly on the batch's device; the filter's compaction is
-kernel K1.
+ProjectExec, FilterExec, LocalLimitExec, GlobalLimitExec,
+CoalesceBatchesExec).  Operators evaluate their expressions eagerly on
+the batch's device; the filter's compaction is kernel K1.
 """
 
 from __future__ import annotations
@@ -11,9 +11,10 @@ from __future__ import annotations
 from typing import Iterator, List, Optional, Sequence
 
 import pyarrow as pa
+import torch
 
-from ..analysis.determinism import ORDER_STABLE, Determinism
-from ..columnar.device import DeviceBatch, batch_to_device
+from ..analysis.determinism import BIT_EXACT, ORDER_STABLE, Determinism
+from ..columnar.device import DeviceBatch, DeviceColumn, batch_to_device
 from ..columnar.interop import from_arrow_type
 from ..expr.core import (EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
@@ -148,6 +149,50 @@ class FilterExec(Exec):
     def execute_partition(self, pid, ctx):
         for b in self.child_batches(0, pid, ctx):
             yield self._compute(b)
+
+
+class LocalLimitExec(Exec):
+    """The first ``limit`` live rows of each partition, in arrival order:
+    a batch past the limit keeps its first rows, the rest become padding
+    (invalid, data zero)."""
+
+    def __init__(self, limit: int, child: Exec):
+        super().__init__([child])
+        self.limit = limit
+
+    @property
+    def output_names(self):
+        return self.children[0].output_names
+
+    @property
+    def output_types(self):
+        return self.children[0].output_types
+
+    def determinism(self):
+        return Determinism(
+            BIT_EXACT, "limit selects the first rows by input "
+            "position", order_sensitive_selection=True)
+
+    def execute_partition(self, pid, ctx) -> Iterator[DeviceBatch]:
+        remaining = self.limit
+        for b in self.child_batches(0, pid, ctx):
+            n = b.num_rows
+            take = min(n, remaining)
+            if take < n:
+                keep = torch.arange(b.capacity, device=b.device) < take
+                cols = [DeviceColumn(
+                    c.dtype, torch.where(keep, c.data,
+                                         torch.zeros_like(c.data)),
+                    c.validity & keep) for c in b.columns]
+                b = DeviceBatch(cols, take, b.names)
+            remaining -= take
+            yield b
+            if remaining <= 0:
+                return
+
+
+class GlobalLimitExec(LocalLimitExec):
+    """The whole result's limit; the planner puts one partition below."""
 
 
 # the reference's coalesce target, in live rows

@@ -28,7 +28,7 @@ CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 HEADERS = ("partition.cuh", "join_hash.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
-           "expand_ends", "join_expand")
+           "expand_ends", "join_expand", "gather_rows", "fetch_pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +62,13 @@ _SIGNATURES = {
     "join_expand": {
         "srt_join_expand": [_P, _I, _P, _P, _P, _I, _L, _L, _P, _P, _P, _P,
                             _I, _P],
+    },
+    "gather_rows": {
+        "srt_gather_rows": [_P, _I, _I, _P, _P, _P, _P],
+    },
+    "fetch_pack": {
+        "srt_lane_stats": [_P, _I, _I, _P, _P],
+        "srt_pack_lanes": [_P, _I, _I, _P, _P],
     },
 }
 

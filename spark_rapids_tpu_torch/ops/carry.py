@@ -20,7 +20,7 @@ import torch
 
 from .. import kernels
 from ..columnar.device import DeviceColumn
-from .gather import gather_column
+from .gather import gather_rows
 
 
 # ---------------------------------------------------------------------------
@@ -225,9 +225,12 @@ sort_order.passes = 0      # radix passes run, over all calls
 def sort_rows(key_words: Sequence[torch.Tensor],
               cols: Sequence[DeviceColumn],
               extras: Sequence[torch.Tensor] = ()):
-    """Stable sort of rows by ``key_words``; the rows of ``cols`` and the
-    lanes in ``extras`` follow the order.  Returns (order, cols, extras)."""
+    """Stable sort of rows by ``key_words`` (K2); the rows of ``cols`` and
+    the lanes in ``extras`` follow the order through one gather (K8).
+    Returns (order, cols, extras)."""
     order = sort_order(key_words)
-    out_cols = [gather_column(c, order) for c in cols]
-    out_extras = [e.index_select(0, order) for e in extras]
-    return order, out_cols, out_extras
+    lanes = [x for c in cols for x in (c.data, c.validity)] + list(extras)
+    outs = gather_rows(order, lanes)
+    out_cols = [DeviceColumn(c.dtype, outs[2 * i], outs[2 * i + 1])
+                for i, c in enumerate(cols)]
+    return order, out_cols, outs[2 * len(cols):]

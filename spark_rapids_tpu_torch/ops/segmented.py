@@ -6,8 +6,13 @@ and ``searchsorted`` raise for it), and a plain cast to int64 would
 misorder words at or above 2^63 without an error.  So every word is
 carried as int64 holding (reference word XOR 2^63): signed int64 order
 then equals the reference's unsigned order.  Narrow words (the uint8
-null word, the uint32 word of an INT) are carried as their int64 value,
-which keeps their order too.
+null word, the uint32 word of an INT, the uint8 word of a BOOLEAN) are
+carried as the int64 value they encode (the null word as 1 for a valid
+row under nulls first), which keeps their order too.  A descending
+value word is the bitwise NOT of the ascending one, in the port's
+convention as in the reference's: ~(w XOR 2^63) == (~w) XOR 2^63 for
+a 64-bit word, and NOT reverses the order of any narrow word carried as
+its sign-extended value.
 """
 
 from __future__ import annotations
@@ -39,10 +44,14 @@ def encode_float_ordered(data: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ _LOW63, bits)
 
 
-def key_words_for_column(col: DeviceColumn) -> List[torch.Tensor]:
-    """Grouping key words for one column, most significant first: the
-    null word (nulls first), then the value word."""
-    words = [col.validity.to(torch.int64)]
+def sort_key_words(col: DeviceColumn, ascending: bool = True,
+                   nulls_first: bool = True) -> List[torch.Tensor]:
+    """Sort key words for one column, most significant first: the null
+    word, which places nulls first or last whatever the direction, then
+    the value word, inverted for a descending order (the reference's
+    ``key_words_for_column`` with ``for_grouping=False``)."""
+    valid = col.validity if nulls_first else ~col.validity
+    words = [valid.to(torch.int64)]
     dtype = col.dtype
     if dtype == t.DOUBLE:
         words.append(encode_float_ordered(col.data))
@@ -50,7 +59,15 @@ def key_words_for_column(col: DeviceColumn) -> List[torch.Tensor]:
         words.append(encode_int_ordered(col.data))
     else:
         raise NotImplementedError(f"key words for {dtype} are not ported")
+    if not ascending:
+        words[1] = ~words[1]
     return words
+
+
+def key_words_for_column(col: DeviceColumn) -> List[torch.Tensor]:
+    """Grouping key words for one column, most significant first: the
+    null word (nulls first), then the value word."""
+    return sort_key_words(col)
 
 
 def lexsort(key_words: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -48,9 +48,12 @@ def estimate_rows(node: eb.Exec, child_rows: List[float]) -> float:
 
 
 def _static_rows(node: eb.Exec, child_rows: List[float]) -> float:
-    from ..exec.basic import LocalScanExec
+    from ..exec.basic import GlobalLimitExec, LocalLimitExec, LocalScanExec
     if isinstance(node, LocalScanExec):
         return float(node.table.num_rows)
+    if isinstance(node, (LocalLimitExec, GlobalLimitExec)):
+        n = float(node.limit)
+        return min(n, child_rows[0]) if child_rows else n
     if not child_rows:
         return float(DEFAULT_ROW_COUNT)
     name = type(node).__name__

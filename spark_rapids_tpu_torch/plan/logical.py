@@ -1,4 +1,5 @@
-"""Logical plan nodes of the slice: LocalRelation, Filter, Aggregate, Join.
+"""Logical plan nodes of the slice: LocalRelation, Project, Filter,
+Aggregate, Join, Sort and Limit.
 
 Counterpart of spark_rapids_tpu/plan/logical.py; each node resolves its
 output schema.
@@ -34,6 +35,17 @@ class LocalRelation(LogicalPlan):
     def schema(self):
         return (list(self.table.schema.names),
                 [from_arrow_type(f.type) for f in self.table.schema])
+
+
+class Project(LogicalPlan):
+    def __init__(self, exprs: Sequence[Expression], child: LogicalPlan):
+        self.exprs = list(exprs)
+        self.children = (child,)
+
+    def schema(self):
+        cn, ct = self.children[0].schema()
+        return ([output_name(e) for e in self.exprs],
+                [bind_expression(e, cn, ct).data_type() for e in self.exprs])
 
 
 class Filter(LogicalPlan):
@@ -96,3 +108,23 @@ class Join(LogicalPlan):
                     types.append(t_)
             return names, types
         return ln + rn, lt + rt
+
+
+class Sort(LogicalPlan):
+    def __init__(self, orders, is_global: bool, child: LogicalPlan):
+        # orders: [(expr, ascending, nulls_first)]
+        self.orders = list(orders)
+        self.is_global = is_global
+        self.children = (child,)
+
+    def schema(self):
+        return self.children[0].schema()
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
+        self.children = (child,)
+
+    def schema(self):
+        return self.children[0].schema()

@@ -1,8 +1,8 @@
 """Plan rewrite: tag -> cost -> convert -> transitions.
 
 Counterpart of spark_rapids_tpu/plan/overrides.py (TpuOverrides.apply,
-the Meta hierarchy, the expression and exec rules, the join and
-aggregate conversions, the single-device exchange fusion and the
+the Meta hierarchy, the expression and exec rules, the join, aggregate
+and sort conversions, the single-device exchange fusion and the
 transition insertion).  Flow:
 
   1. wrap the CPU-placed physical plan in a Meta tree;
@@ -13,8 +13,9 @@ transition insertion).  Flow:
      more subtrees to the CPU;
   4. record (and, per spark.rapids.sql.explain, print) the explain lines;
   5. convert every node that can run on the GPU: a CpuJoinExec becomes a
-     hash join, a CpuHashAggregateExec a GpuHashAggregateExec, anything
-     else is the same operator placed on the GPU;
+     hash join, a CpuHashAggregateExec a GpuHashAggregateExec, a global
+     SortExec over a range exchange sorts the gathered partitions,
+     anything else is the same operator placed on the GPU;
   6. insert HostToDevice / DeviceToHost transitions at placement
      boundaries, and gather and coalesce at the collect boundary.
 
@@ -38,12 +39,13 @@ from .. import config as cfg
 from .. import types as t
 from ..exec import base as eb
 from ..exec.aggregate import CpuHashAggregateExec, GpuHashAggregateExec
-from ..exec.basic import (CoalesceBatchesExec, FilterExec, LocalScanExec,
-                          ProjectExec)
+from ..exec.basic import (CoalesceBatchesExec, FilterExec, GlobalLimitExec,
+                          LocalLimitExec, LocalScanExec, ProjectExec)
 from ..exec.broadcast import (BroadcastExchangeExec, BroadcastHashJoinExec,
                               BroadcastNestedLoopJoinExec)
 from ..exec.gatherpart import GatherPartitionsExec
 from ..exec.join import CpuJoinExec, HashJoinExec, NestedLoopJoinExec
+from ..exec.sort import SortExec
 from ..expr import aggregates as agg
 from ..expr import predicates as pred
 from ..expr.arithmetic import Cast
@@ -175,6 +177,8 @@ class ExecMeta(BaseMeta):
             return [e.condition]
         if isinstance(e, CpuHashAggregateExec):
             return list(e.grouping) + list(e.aggregates)
+        if isinstance(e, SortExec):
+            return [o[0] for o in e.orders]
         return []
 
     def tag(self):
@@ -238,7 +242,8 @@ EXEC_SIGS: Dict[Type[eb.Exec], TypeSig] = {
         GatherPartitionsExec, CpuHashAggregateExec, CpuJoinExec,
         NestedLoopJoinExec, HashJoinExec, BroadcastExchangeExec,
         BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
-        ShuffleExchangeExec)}
+        ShuffleExchangeExec, LocalLimitExec, GlobalLimitExec)}
+EXEC_SIGS[SortExec] = T.common_scalar.nested()
 
 EXEC_TAGS: Dict[Type[eb.Exec], Callable] = {}
 EXEC_CONVERTS: Dict[Type[eb.Exec], Callable] = {}
@@ -349,10 +354,29 @@ def _tag_aggregate(meta: ExecMeta):
                 meta.will_not_work(str(ex))
 
 
+def _convert_sort(e: SortExec, conf) -> eb.Exec:
+    """A global sort over a range exchange sorts the gathered whole on
+    one device: the exchange only orders ranges across partitions."""
+    child = e.children[0]
+    if e.is_global and isinstance(child, ShuffleExchangeExec):
+        e = SortExec(e.orders, _strip_exchange(child), is_global=True)
+    e.placement = eb.GPU
+    return e
+
+
+def _tag_sort(meta: ExecMeta):
+    e: SortExec = meta.exec
+    if isinstance(e.children[0], ShuffleExchangeExec) and \
+            not _fuse_single_chip(meta.conf):
+        meta.will_not_work(_NO_FUSE)
+
+
 EXEC_CONVERTS[CpuHashAggregateExec] = _convert_aggregate
 EXEC_CONVERTS[CpuJoinExec] = _convert_join
+EXEC_CONVERTS[SortExec] = _convert_sort
 EXEC_TAGS[CpuJoinExec] = _tag_join
 EXEC_TAGS[CpuHashAggregateExec] = _tag_aggregate
+EXEC_TAGS[SortExec] = _tag_sort
 
 
 def _tag_host_exchanges(meta: ExecMeta):

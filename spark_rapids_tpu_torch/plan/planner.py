@@ -15,8 +15,11 @@ from __future__ import annotations
 from . import logical as L
 from ..exec.aggregate import CpuHashAggregateExec
 from ..exec.base import CPU, Exec
-from ..exec.basic import FilterExec, LocalScanExec
+from ..exec.basic import (FilterExec, GlobalLimitExec, LocalLimitExec,
+                          LocalScanExec, ProjectExec)
+from ..exec.gatherpart import GatherPartitionsExec
 from ..exec.join import plan_join
+from ..exec.sort import SortExec
 
 
 def plan(lp: L.LogicalPlan, conf) -> Exec:
@@ -29,6 +32,8 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
     if isinstance(lp, L.LocalRelation):
         return LocalScanExec(lp.table, lp.num_partitions,
                              pin_cache=lp.device_cache)
+    if isinstance(lp, L.Project):
+        return ProjectExec(lp.exprs, _plan(lp.children[0], conf))
     if isinstance(lp, L.Filter):
         return FilterExec(lp.condition, _plan(lp.children[0], conf))
     if isinstance(lp, L.Aggregate):
@@ -42,11 +47,35 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
                     HashPartitioning(lp.grouping, child.num_partitions),
                     child)
             else:
-                from ..exec.gatherpart import GatherPartitionsExec
                 child = GatherPartitionsExec(child)
         return CpuHashAggregateExec(lp.grouping, lp.aggregates, child)
     if isinstance(lp, L.Join):
         return plan_join(lp, _plan(lp.children[0], conf),
                          _plan(lp.children[1], conf), conf)
+    if isinstance(lp, L.Sort):
+        child = _plan(lp.children[0], conf)
+        if lp.is_global and child.num_partitions > 1:
+            # a total order: range-partition, then sort within partitions
+            from ..shuffle.exchange import ShuffleExchangeExec
+            from ..shuffle.partitioning import RangePartitioning
+            child = ShuffleExchangeExec(
+                RangePartitioning(lp.orders, child.num_partitions), child)
+        return SortExec(lp.orders, child, is_global=lp.is_global)
+    if isinstance(lp, L.Limit):
+        child_lp = lp.children[0]
+        if isinstance(child_lp, L.Sort) and child_lp.is_global:
+            # TopN: a sort and a limit per partition, then one sort and
+            # the limit, with no range exchange
+            inner = _plan(child_lp.children[0], conf)
+            local = LocalLimitExec(
+                lp.n, SortExec(child_lp.orders, inner, is_global=False))
+            merged = GatherPartitionsExec(local) \
+                if inner.num_partitions > 1 else local
+            return GlobalLimitExec(
+                lp.n, SortExec(child_lp.orders, merged, is_global=False))
+        child = _plan(child_lp, conf)
+        if child.num_partitions > 1:
+            child = GatherPartitionsExec(LocalLimitExec(lp.n, child))
+        return GlobalLimitExec(lp.n, child)
     raise NotImplementedError(
         f"logical plan node {type(lp).__name__} is not ported yet")
