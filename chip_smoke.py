@@ -30,9 +30,17 @@ three sort orders with nulls, NaN, -0.0 and +-inf against the CPU
 engine; K8 (row gather), K9 (lane stats) and K10 (lane pack) against
 their plain versions at q3's shapes, at K8's edges and on a fetch fuzz;
 every download split step by step against the per-lane copies it
-replaced.  Launch counts are reset just before each main-path run and
-must be > 0 after it for every kernel of that path.  Needs one CUDA card; exits
-non-zero and prints no result without one, or when any phase fails.
+replaced.  Bench q4, row_number and the running RANGE sum of v over
+(partition by k order by v) on the fact table, through the DataFrame
+API over 1 and 4 partitions, equal to a numpy oracle row for row, with
+its stages (words, K2, K8, boundaries, K11, K12, the results, K13, the
+mask, the download) and a trace; K11 (segmented scan), K12 (peer-run
+ends) and K13 (row scatter) against their plain versions at q4's shapes
+and on edge cases; every window function over 5 specs at 2^20 rows
+against the CPU engine.  Launch counts are reset just before each
+main-path run and must be > 0 after it for every kernel of that path.
+Needs one CUDA card; exits non-zero and prints no result without one,
+or when any phase fails.
 The last line is a JSON object.
 """
 
@@ -971,6 +979,244 @@ def _split_line(ms):
             + f" (packed fetch {fetched:.2f} against {ms['moved']:.2f})")
 
 
+def _close(torch, a, b, rtol):
+    """Float lanes equal to a relative ``rtol`` (of at least 1)."""
+    scale = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                          torch.ones_like(a))
+    return bool(((a - b).abs() <= rtol * scale).all())
+
+
+def _same_scan(torch, got, want, what):
+    """K11's result against its plain version's: positions, counts and
+    int64 sums exactly, float64 sums to FLOAT_RTOL."""
+    for name in ("seg_start", "run_start", "runs_cum"):
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None) or (a is not None and
+                                          not torch.equal(a, b)):
+            raise AssertionError(f"K11 {name} differs {what}")
+    for i, (a, b) in enumerate(zip(got.counts, want.counts)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K11 count {i} differs {what}")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got.sums, want.sums)):
+        if (a is None) != (b is None):
+            raise AssertionError(f"K11 sum {i} given and missing {what}")
+        if a is None:
+            continue
+        if a.dtype == torch.float64:
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+            if not _close(torch, a, b, FLOAT_RTOL):
+                raise AssertionError(f"K11 float sum {i} differs {what}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"K11 int sum {i} differs {what}")
+    return err
+
+
+def _window_flags(torch, dev, kind, n, seed):
+    """Sorted-row flags for K11 and K12: (new_seg, new_run, n_live)."""
+    gen = torch.Generator().manual_seed(seed)
+    n_live = n
+    rand = torch.rand(n, generator=gen)
+    if kind == "one partition":            # spans every tile
+        seg = torch.zeros(n, dtype=torch.bool)
+        run = rand < 0.3
+    elif kind == "all tied":               # one partition, one run
+        seg = torch.zeros(n, dtype=torch.bool)
+        run = seg.clone()
+    elif kind == "own partitions":         # every row its own
+        seg = torch.ones(n, dtype=torch.bool)
+        run = seg.clone()
+    else:
+        seg = rand < 0.001
+        run = seg | (torch.rand(n, generator=gen) < 0.3)
+        if kind == "padded":               # padding rows at the tail
+            n_live = n - n // 3 - 1
+            seg[n_live:] = False
+            run[n_live:] = False
+    seg[0] = run[0] = n_live > 0
+    return seg.to(dev), run.to(dev), n_live
+
+
+def _window_kernel_cases(torch, dev, scan, gather):
+    """K11, K12 and K13 against their plain versions on the edge cases:
+    n = 1, n not a multiple of the 2,048-row tile, one partition over
+    every tile (2^22 rows), every row tied in one run, every row its own
+    partition, padding rows at the tail, more pairs than a K11 launch
+    takes.  Returns the cases run."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cases = 0
+    for kind, n in (("random", 1), ("random", 3 * 2048 + 5),
+                    ("one partition", 1 << 22), ("all tied", 100_003),
+                    ("own partitions", 100_003), ("padded", 100_003),
+                    ("padded", 2048), ("random", 1 << 20)):
+        seg, run, n_live = _window_flags(torch, dev, kind, n, n + cases)
+        live = torch.arange(n, device=dev) < n_live
+        valid = (torch.rand(n, generator=gen, device=dev) < 0.9) & live
+        ints = torch.randint(-2**62, 2**62, (n,), generator=gen, device=dev)
+        floats = torch.rand(n, generator=gen, device=dev,
+                            dtype=torch.float64) * 1e3
+        what = f"({kind}, n={n})"
+        for pairs, kw in (
+                ([(ints, valid), (floats, valid), (None, valid)],
+                 dict(run_start=True, runs_cum=True)),
+                ([(ints, valid)], {}),
+                ([(ints, valid)] * 3 + [(floats, valid), (None, valid)],
+                 dict(runs_cum=True))):
+            before = scan.segment_scan.launches
+            got = scan.segment_scan(seg, run, pairs, **kw)
+            if scan.segment_scan.launches - before != -(-len(pairs) // 4):
+                raise AssertionError(f"K11 launches {what}")
+            _same_scan(torch, got, scan.segment_scan_plain(seg, run, pairs,
+                                                           **kw), what)
+        for flags in ((seg, run), (None, run), (seg, None)):
+            got = scan.run_ends(*flags, n_live)
+            want = scan.run_ends_plain(*flags, n_live)
+            for a, b in zip(got, want):
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    raise AssertionError(f"K12 differs {what}")
+        order = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        lanes = [ints, floats, valid, ints.to(torch.int32)]
+        got = gather.scatter_rows(order, lanes)
+        if not _same_lanes(torch, got,
+                           gather.scatter_rows_plain(order, lanes)) or \
+                not _same_lanes(torch, gather.gather_rows(order, got), lanes):
+            raise AssertionError(f"K13 differs {what}")
+        cases += 1
+    return cases
+
+
+def _q4_layout(torch, window_mod, EvalContext, wexec, batch):
+    """The q4 WindowExec's sorted layout of ``batch``, with K11's and
+    K12's results as the main path computes them, and the result lanes
+    that K13 moves (rn, rs and rs's validity: rn's is the live mask).
+    Returns (layout, K11 pairs, result lanes)."""
+    ctx = EvalContext(batch)
+    g_inputs, members = [], []
+    for w in wexec.window_exprs:
+        cols = [window_mod._eval_col(ctx, e) for e in wexec._input_exprs(w)]
+        members.append((w, len(g_inputs), len(cols)))
+        g_inputs += cols
+    lay = wexec._build_layout(batch, ctx, wexec.window_exprs[0].spec,
+                              g_inputs, carry_okeys=False)
+    pair_of = wexec._scan(lay, members)
+    lanes = []
+    for w, s, c in members:
+        d, v = wexec._compute_one(batch, w, lay, lay.input_sorted[s:s + c],
+                                  pair_of)
+        lanes += [d] if v is lay.live_s else [d, v]
+    pairs = [(lay.input_sorted[0].data,
+              lay.input_sorted[0].validity & lay.live_s)]
+    return lay, pairs, lanes
+
+
+def _q4_oracle(table):
+    """q4's rn and rs in input order: a stable lexsort by (k, v);
+    row_number the position within k plus one; the running sum within k
+    read at the end of each (k, v) run.  Returns (rn, rs, tied rows,
+    partitions)."""
+    k, v = table["k"].to_numpy(), table["v"].to_numpy()
+    n = len(k)
+    # one stable argsort of (k, v) packed into one word: k below 2^20 and
+    # v within +-2^20 (bench's ranges), checked
+    if k.min() < 0 or k.max() >= 1 << 20 or np.abs(v).max() >= 1 << 20:
+        raise AssertionError("q4 oracle: k or v outside its packing range")
+    o = np.argsort((k << 21) | (v + (1 << 20)), kind="stable")
+    ks, vs = k[o], v[o]
+    pos = np.arange(n)
+    new_k = np.r_[True, ks[1:] != ks[:-1]]
+    start = np.maximum.accumulate(np.where(new_k, pos, 0))
+    cs = np.cumsum(vs)
+    run = cs - np.where(start > 0, cs[np.maximum(start - 1, 0)], 0)
+    new_run = new_k | np.r_[True, vs[1:] != vs[:-1]]
+    ends = np.where(np.r_[new_run[1:], True], pos, n)
+    end = np.minimum.accumulate(ends[::-1])[::-1]
+    rn, rs = np.empty(n, np.int32), np.empty(n, np.int64)
+    rn[o] = pos - start + 1
+    rs[o] = run[end]
+    # rows tied with the row before on (k, v), and the partitions
+    return rn, rs, int(np.sum(~new_run)), int(new_k.sum())
+
+
+def _check_q4(got, table, rn, rs, what):
+    if got.column_names != ["k", "v", "rn", "rs"]:
+        raise AssertionError(f"{what}: columns {got.column_names}")
+    if got.num_rows != table.num_rows or got.column("rn").null_count or \
+            got.column("rs").null_count:
+        raise AssertionError(f"{what}: {got.num_rows} rows or nulls")
+    for name, want in (("k", table["k"].to_numpy()),
+                       ("v", table["v"].to_numpy()), ("rn", rn),
+                       ("rs", rs)):
+        if not np.array_equal(got.column(name).to_numpy(), want):
+            raise AssertionError(f"{what}: column {name} differs from the "
+                                 f"numpy oracle")
+
+
+def _window_oracle_table(n):
+    """The CPU-engine window check's table: nulls in the partition key,
+    the order key and the values, a float column."""
+    rng = np.random.default_rng(SEED + 10)
+    return pa.table({
+        "k": pa.array(rng.integers(0, 2000, n).astype(np.int64),
+                      mask=rng.random(n) < 0.02),
+        "o": pa.array(rng.integers(-500, 500, n).astype(np.int64),
+                      mask=rng.random(n) < 0.05),
+        "v": pa.array(rng.integers(-(10**6), 10**6, n).astype(np.int64),
+                      mask=rng.random(n) < 0.1),
+        "f": pa.array(rng.random(n)),
+    })
+
+
+def _window_oracle_query(df, F, col, W):
+    """Every window function of the slice over three specs: ranks, lead
+    and lag, whole-partition sum and avg, bounded ROWS and RANGE sums,
+    counts, min and max, a descending order."""
+    w = W.WindowBuilder().partition_by(col("k")).order_by(col("o"))
+    wd = W.WindowBuilder().partition_by(col("k")).order_by(
+        col("o").desc(), col("f"))
+    whole = W.WindowBuilder().partition_by(col("k"))
+    rows = (W.WindowBuilder().partition_by(col("k")).order_by(col("o"))
+            .rows_between(-3, 2))
+    rng = (W.WindowBuilder().partition_by(col("k")).order_by(col("o"))
+           .range_between(-20, 10))
+    return df.select(
+        col("k"), col("o"), col("v"), col("f"),
+        F.rank().over(w).alias("rk"), F.dense_rank().over(w).alias("drk"),
+        F.percent_rank().over(w).alias("pr"),
+        F.cume_dist().over(w).alias("cd"), F.ntile(4).over(w).alias("nt"),
+        F.lead(col("v")).over(wd).alias("ld"),
+        F.lag(col("f"), 2).over(wd).alias("lg"),
+        F.row_number().over(wd).alias("rnd"),
+        F.sum(col("v")).over(whole).alias("ts"),
+        F.avg(col("f")).over(whole).alias("ta"),
+        F.sum(col("v")).over(rows).alias("rws"),
+        F.count(col("v")).over(rows).alias("rwc"),
+        F.max(col("f")).over(rows).alias("rwx"),
+        F.sum(col("v")).over(rng).alias("rgs"),
+        F.count(col("v")).over(rng).alias("rgc"),
+        F.min(col("v")).over(rng).alias("rgn"),
+        F.max(col("v")).over(rng).alias("rgx"))
+
+
+def _same_window_tables(got, want):
+    """Column by column: everything but doubles exactly, doubles to
+    FLOAT_RTOL; the same nulls."""
+    if got.column_names != want.column_names or got.num_rows != want.num_rows:
+        return False
+    for c in want.column_names:
+        a, b = got[c].combine_chunks(), want[c].combine_chunks()
+        if not a.is_valid().equals(b.is_valid()):
+            return False
+        if pa.types.is_floating(a.type):
+            x = a.fill_null(0).to_numpy()
+            y = b.fill_null(0).to_numpy()
+            if not np.allclose(x, y, rtol=FLOAT_RTOL, atol=FLOAT_RTOL):
+                return False
+        elif not a.equals(b):
+            return False
+    return True
+
+
 def main() -> int:
     try:
         import torch
@@ -1011,9 +1257,12 @@ def main() -> int:
     from spark_rapids_tpu_torch.expr.core import EvalContext
     from spark_rapids_tpu_torch.exec.join import HashJoinExec
     from spark_rapids_tpu_torch.exec.sort import SortExec
+    from spark_rapids_tpu_torch.exec import window as window_mod
+    from spark_rapids_tpu_torch.expr import window as W
     from spark_rapids_tpu_torch.ops import carry
     from spark_rapids_tpu_torch.ops import gather as gather_mod
     from spark_rapids_tpu_torch.ops import join_kernels as jk
+    from spark_rapids_tpu_torch.ops import scan as scan_mod
     from spark_rapids_tpu_torch.ops import segmented as seg
 
     dev = torch.device("cuda")
@@ -1623,6 +1872,128 @@ def main() -> int:
         failures.append("K8, K9 and K10 edge cases")
         traceback.print_exc()
 
+    # ---- kernel phase, q4: K11, K12 and K13 at q4's shapes ------------
+    def q4_exec(child):
+        spec = W.WindowBuilder().partition_by(col("k")).order_by(
+            col("v")).spec
+        return window_mod.WindowExec(
+            [W.WindowExpression(W.RowNumber(), spec, "rn"),
+             W.WindowExpression(Sum(A("v")), spec, "rs")], child)
+
+    try:
+        q4_in = batch_to_device(pa.RecordBatch.from_arrays(
+            [c.combine_chunks() for c in table.columns],
+            names=table.column_names), dev)
+        n4 = q4_in.num_rows
+        lay, pairs4, lanes4 = _q4_layout(torch, window_mod, EvalContext,
+                                         q4_exec(LocalScanExec(table)), q4_in)
+        # K11 as q4 launches it: seg_start, v's running sum and count
+        _same_scan(torch, scan_mod.segment_scan(lay.new_seg, None, pairs4),
+                   scan_mod.segment_scan_plain(lay.new_seg, None, pairs4),
+                   "at q4's shapes")
+        # every output, and a float lane (f in the layout's order)
+        f4 = gather_mod.gather_rows(lay.order, [q4_in.columns[2].data])[0]
+        full = [pairs4[0], (f4, pairs4[0][1]), (None, pairs4[0][1])]
+        k11_err = _same_scan(
+            torch, scan_mod.segment_scan(lay.new_seg, lay.new_run, full,
+                                         run_start=True, runs_cum=True),
+            scan_mod.segment_scan_plain(lay.new_seg, lay.new_run, full,
+                                        run_start=True, runs_cum=True),
+            "at q4's shapes, every output")
+        # flags 1 B, value 8 B, valid 1 B read; seg_start 4 B, sum 8 B,
+        # count 4 B written, a row
+        k11_bytes = n4 * (1 + 8 + 1 + 4 + 8 + 4)
+        sum_lane = pairs4[0][0]
+        kernel_rows["segment_scan"] = dict(
+            source="spark_rapids_tpu_torch/csrc/window_scan.cu",
+            replaces="spark_rapids_tpu/exec/window.py:46",
+            max_abs_err=k11_err,
+            ms=cuda_ms(lambda: scan_mod.segment_scan(lay.new_seg, None,
+                                                     pairs4)),
+            plain_ms=cuda_ms(lambda: scan_mod.segment_scan_plain(
+                lay.new_seg, None, pairs4)),
+            library_ms=cuda_ms(lambda: torch.cumsum(sum_lane, 0)),
+            bound_ms=bound(k11_bytes))
+        r = kernel_rows["segment_scan"]
+        print(f"K11 segment_scan: rows {n4}, {int(lay.new_seg.sum())} "
+              f"partitions, {int(lay.new_run.sum())} runs; q4's launch "
+              f"(seg_start, one int64 pair) exact; every output with a "
+              f"float lane: ints exact, float max abs err {k11_err:.3g}; "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+              f"(torch.cumsum of the sum lane) {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({k11_bytes} bytes)")
+        # K12 as q4 launches it: the end of each row's peer run
+        for flags in ((None, lay.new_run), (lay.new_seg, lay.new_run)):
+            ends = scan_mod.run_ends(*flags, lay.n_live)
+            ends_plain = scan_mod.run_ends_plain(*flags, lay.n_live)
+            if not all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(ends, ends_plain)):
+                raise AssertionError("K12 differs from its plain version at "
+                                     "q4's shapes")
+        pos4 = torch.arange(n4, dtype=torch.int32, device=dev)
+        ends_in = torch.where(
+            torch.cat([lay.new_run[1:], torch.ones(1, dtype=torch.bool,
+                                                   device=dev)]),
+            pos4, torch.full_like(pos4, 2**31 - 1))
+        k12_bytes = n4 * (1 + 4)
+        kernel_rows["run_ends"] = dict(
+            source="spark_rapids_tpu_torch/csrc/window_scan.cu",
+            replaces="spark_rapids_tpu/exec/window.py:54",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: scan_mod.run_ends(None, lay.new_run,
+                                                 lay.n_live)),
+            plain_ms=cuda_ms(lambda: scan_mod.run_ends_plain(
+                None, lay.new_run, lay.n_live)),
+            library_ms=cuda_ms(lambda: torch.flip(torch.cummin(
+                torch.flip(ends_in, [0]), 0).values, [0])),
+            bound_ms=bound(k12_bytes))
+        r = kernel_rows["run_ends"]
+        print(f"K12 run_ends: rows {n4}, run_end (and seg_end) exact; "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+              f"(flip, cummin, flip) {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({k12_bytes} bytes)")
+        # K13: rn and rs with their validity back to input order
+        back = gather_mod.scatter_rows(lay.order, lanes4)
+        if not _same_lanes(torch, back, gather_mod.scatter_rows_plain(
+                lay.order, lanes4)):
+            raise AssertionError("K13 differs from its plain version at "
+                                 "q4's shapes")
+        idx4 = lay.order.to(torch.int64)
+        outs4 = [torch.empty_like(x) for x in lanes4]
+        k13_bytes = 4 * n4 + 2 * n4 * sum(x.element_size() for x in lanes4)
+        kernel_rows["scatter_rows"] = dict(
+            source="spark_rapids_tpu_torch/csrc/scatter_rows.cu",
+            replaces="spark_rapids_tpu/exec/window.py:517",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: gather_mod.scatter_rows(lay.order, lanes4)),
+            plain_ms=cuda_ms(lambda: gather_mod.scatter_rows_plain(
+                lay.order, lanes4)),
+            library_ms=cuda_ms(lambda: [o.index_copy_(0, idx4, x)
+                                        for o, x in zip(outs4, lanes4)]),
+            bound_ms=bound(k13_bytes))
+        r = kernel_rows["scatter_rows"]
+        print(f"K13 scatter_rows: rows {n4}, {len(lanes4)} lanes "
+              f"({', '.join(str(x.dtype) for x in lanes4)}), exact; "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+              f"(index_copy_ of each lane) {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({k13_bytes} bytes)")
+        del q4_in, lay, pairs4, lanes4, f4, full, sum_lane, back, idx4
+        del outs4, pos4, ends_in, ends, ends_plain
+    except Exception:
+        failures.append("kernel phase (q4)")
+        traceback.print_exc()
+
+    try:
+        cases = _window_kernel_cases(torch, dev, scan_mod, gather_mod)
+        print(f"K11, K12 and K13 edge cases: {cases} cases equal the plain "
+              f"versions (ints exactly, floats to {FLOAT_RTOL:g}): n = 1, "
+              f"n off the 2,048-row tile, one partition over 2^22 rows, "
+              f"all rows tied, every row its own partition, padding at the "
+              f"tail, more pairs than a K11 launch takes")
+    except Exception:
+        failures.append("K11, K12 and K13 edge cases")
+        traceback.print_exc()
+
     # ---- main path: DataFrame API, one batch -------------------------
     wrappers = {"compact_rows": carry.compact_lanes,
                 "sort_order": carry.sort_order,
@@ -1634,7 +2005,10 @@ def main() -> int:
                 "expand_pairs": jk.expand_pairs,
                 "gather_rows": gather_mod.gather_rows,
                 "lane_stats": fetch.lane_stats,
-                "pack_lanes": fetch.pack_lanes}
+                "pack_lanes": fetch.pack_lanes,
+                "segment_scan": scan_mod.segment_scan,
+                "run_ends": scan_mod.run_ends,
+                "scatter_rows": gather_mod.scatter_rows}
 
     def download_fetched(b):
         return batch_to_arrow(fetch.fetch_batch(b))
@@ -2146,6 +2520,135 @@ def main() -> int:
         traceback.print_exc()
     q3_want = None
 
+    # ---- main path: q4, the window, through the DataFrame API --------
+    q4_want = None
+
+    def q4_df(session, parts):
+        w = W.WindowBuilder().partition_by(col("k")).order_by(col("v"))
+        return session.create_dataframe(table, num_partitions=parts).select(
+            col("k"), col("v"), F.row_number().over(w).alias("rn"),
+            F.sum(col("v")).over(w).alias("rs"))
+
+    try:
+        t1 = time.perf_counter()
+        q4_rn, q4_rs, q4_ties, q4_parts = _q4_oracle(table)
+        q4_want = (q4_rn, q4_rs)
+        print(f"numpy q4 oracle: {table.num_rows} rows, {q4_parts} "
+              f"partitions (about {table.num_rows // q4_parts} rows each), "
+              f"{q4_ties} rows tie with the row before on (k, v) and share "
+              f"its running sum, {time.perf_counter() - t1:.1f} s")
+        q4_session = GpuSession()
+        q4df = q4_df(q4_session, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = q4df.collect()
+        cold_wall = time.perf_counter() - t1
+        _check_q4(got, table, q4_rn, q4_rs, "DataFrame q4 (cold)")
+        nodes = _placements(q4_session.last_plan)
+        if nodes != [("DeviceToHostExec", "cpu"),
+                     ("CoalesceBatchesExec", "gpu"), ("ProjectExec", "gpu"),
+                     ("WindowExec", "gpu"), ("LocalScanExec", "gpu")] or \
+                "!" in q4_session.last_explain:
+            raise AssertionError(f"q4 planned {nodes}:\n"
+                                 + q4_session.last_explain)
+        count_reset()
+        carry.sort_order.passes = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        got = q4df.collect()
+        torch.cuda.synchronize()
+        launches["q4"] = counts()
+        q4_run_passes = carry.sort_order.passes
+        peak = torch.cuda.max_memory_allocated()
+        _check_q4(got, table, q4_rn, q4_rs, "DataFrame q4")
+        for name in ("sort_order", "gather_rows", "segment_scan", "run_ends",
+                     "scatter_rows", "lane_stats", "pack_lanes"):
+            if launches["q4"][name] != 1:
+                raise AssertionError(f"{name} launched "
+                                     f"{launches['q4'][name]} times on q4, "
+                                     f"not once")
+        del got
+        walls = timed_walls(q4df.collect)
+        wall = sorted(walls)[1]
+        print(f"main path DataFrame q4 ({ROWS} rows, row_number and the "
+              f"running RANGE sum of v over (partition by k order by v) -> "
+              f"collect): plan {[n for n, _ in nodes]}, GPU-only, one "
+              f"DeviceToHostExec; rn and rs equal the numpy oracle row for "
+              f"row; cold wall {cold_wall * 1e3:.1f} ms (upload included); "
+              f"warm walls {', '.join(f'{w:.1f}' for w in walls)} ms, "
+              f"median {wall:.1f}, {ROWS / wall / 1e3:.1f} M rows/s; peak "
+              f"{peak / 2**30:.2f} GiB; K2 passes {q4_run_passes}; launches "
+              f"{launches['q4']}")
+
+        # where q4's time goes: the window stage by stage, then the
+        # download of the projected result, then a trace
+        scan4 = LocalScanExec(table)
+        wexec4 = q4_exec(scan4)
+        batch4 = next(scan4.execute_partition(0, ExecContext(dev)))
+        for _ in range(2):                 # the second pass is reported
+            stages = {}
+            torch.cuda.synchronize()
+            clock = [time.perf_counter()]
+
+            def mark(stage):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                stages[stage] = stages.get(stage, 0.0) + \
+                    (now - clock[0]) * 1e3
+                clock[0] = now
+            out4 = wexec4._compute(batch4, mark)
+        proj4 = DeviceBatch([out4.columns[i] for i in (0, 1, 3, 4)],
+                            out4.num_rows, ["k", "v", "rn", "rs"])
+        split, nbytes, plan = _download_split(torch, fetch, batch_to_arrow,
+                                              move_batch, proj4)
+        print("q4 stages (ms): " + " ".join(f"{k}={v:.2f}"
+                                            for k, v in stages.items())
+              + f"; download {_split_line(split)}; packed {nbytes} bytes, "
+              f"copy {nbytes / split['copy'] / 1e6:.1f} GB/s; plan {plan}")
+        del out4, proj4, batch4, scan4, wexec4
+        trace = _profile(torch, q4df.collect)
+        print(f"trace of a warm DataFrame q4: wall {trace['wall_ms']:.2f} ms, "
+              f"device busy {trace['busy_ms']:.2f} ms, idle share "
+              f"{trace['idle_share']:.3f}; top kernels (ms): "
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"]))
+        del q4df, q4_session
+    except Exception:
+        failures.append("main path (q4)")
+        traceback.print_exc()
+
+    # ---- main path: q4 over 4 partitions -------------------------------
+    try:
+        if q4_want is None:
+            raise AssertionError("no q4 oracle")
+        s4 = GpuSession()
+        df4 = q4_df(s4, 4)
+        _check_q4(df4.collect(), table, *q4_want,
+                  "DataFrame q4, 4 partitions (cold)")
+        nodes = _placements(s4.last_plan)
+        if nodes != [("DeviceToHostExec", "cpu"),
+                     ("CoalesceBatchesExec", "gpu"), ("ProjectExec", "gpu"),
+                     ("WindowExec", "gpu"), ("GatherPartitionsExec", "gpu"),
+                     ("LocalScanExec", "gpu")] or "!" in s4.last_explain:
+            raise AssertionError(f"q4 over 4 partitions planned {nodes}")
+        count_reset()
+        torch.cuda.synchronize()
+        got = df4.collect()
+        torch.cuda.synchronize()
+        launches["q4_4"] = counts()
+        _check_q4(got, table, *q4_want, "DataFrame q4, 4 partitions")
+        del got
+        walls = timed_walls(df4.collect)
+        print(f"main path DataFrame q4 (4 partitions of {ROWS // 4} rows): "
+              f"hash exchange stripped, plan {[n for n, _ in nodes]}; rn and "
+              f"rs equal the numpy oracle; warm walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
+              f"{sorted(walls)[1]:.1f}; launches {launches['q4_4']}")
+        del df4, s4
+    except Exception:
+        failures.append("main path (q4, 4 partitions)")
+        traceback.print_exc()
+    q4_want = None
+
     # ---- TopN: sort(v desc, k).limit(1000) -------------------------------
     try:
         t1 = time.perf_counter()
@@ -2391,6 +2894,51 @@ def main() -> int:
         failures.append("CPU oracle")
         traceback.print_exc()
 
+    # ---- the CPU oracle: every window function at 2^20 rows ----------
+    try:
+        wt = _window_oracle_table(1 << 20)
+        cpu_session = GpuSession(conf={"spark.rapids.sql.enabled": False})
+        count_reset()
+        t1 = time.perf_counter()
+        oracle = _window_oracle_query(cpu_session.create_dataframe(wt), F,
+                                      col, W).collect()
+        cpu_wall = time.perf_counter() - t1
+        if any(counts().values()):
+            raise AssertionError(f"the CPU engine launched {counts()}")
+        nodes = _placements(cpu_session.last_plan)
+        if any(p != "cpu" for _, p in nodes):
+            raise AssertionError(f"window oracle placed {nodes}")
+        card_session = GpuSession()
+        count_reset()
+        on_card = _window_oracle_query(card_session.create_dataframe(wt), F,
+                                       col, W).collect()
+        card_nodes = _placements(card_session.last_plan)
+        if [p for _, p in card_nodes][1:] != ["gpu"] * (len(card_nodes) - 1) \
+                or "!" in card_session.last_explain:
+            raise AssertionError(f"window functions planned {card_nodes}")
+        for name in ("segment_scan", "run_ends", "scatter_rows"):
+            if counts()[name] <= 0:
+                raise AssertionError(f"{name} not launched by the window "
+                                     f"functions")
+        if not _same_window_tables(on_card, oracle):
+            bad = [c for c in oracle.column_names if not _same_window_tables(
+                on_card.select([c]), oracle.select([c]))]
+            raise AssertionError(f"the card's window functions differ from "
+                                 f"the CPU engine in {bad}")
+        print(f"window oracle: {wt.num_rows} rows, nulls in k, o and v; "
+              f"rank, dense_rank, percent_rank, cume_dist, ntile, lead, "
+              f"lag, row_number over a descending order, whole-partition "
+              f"sum and avg, bounded ROWS sum, count and max, bounded RANGE "
+              f"sum, count, min and max ({len(oracle.column_names) - 4} "
+              f"columns over 5 specs): the card equals the CPU engine "
+              f"(spark.rapids.sql.enabled=false, every operator on the CPU, "
+              f"no kernel launched, {cpu_wall:.1f} s), ints exactly, floats "
+              f"to {FLOAT_RTOL:g}")
+        del wt, oracle, on_card
+    except Exception:
+        failures.append("window oracle")
+        traceback.print_exc()
+
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
@@ -2401,7 +2949,11 @@ def main() -> int:
         "q1_4": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "q3": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
         "q3_4": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
-        "topn": ("sort_order", "gather_rows", "lane_stats", "pack_lanes")}
+        "topn": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
+        "q4": ("sort_order", "gather_rows", "segment_scan", "run_ends",
+               "scatter_rows", "lane_stats", "pack_lanes"),
+        "q4_4": ("sort_order", "gather_rows", "segment_scan", "run_ends",
+                 "scatter_rows", "lane_stats", "pack_lanes")}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
@@ -2422,10 +2974,12 @@ def main() -> int:
 
     if kernel_rows:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
-        # q2 for K4-K7, q3 for K8-K10
+        # q2 for K4-K7, q3 for K8-K10, q4 for K11-K13
         run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
                   "expand_pairs": "q2", "gather_rows": "q3",
-                  "lane_stats": "q3", "pack_lanes": "q3"}
+                  "lane_stats": "q3", "pack_lanes": "q3",
+                  "segment_scan": "q4", "run_ends": "q4",
+                  "scatter_rows": "q4"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],

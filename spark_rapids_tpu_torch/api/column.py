@@ -1,7 +1,7 @@
 """Column wrapper over the expression IR (mirrors pyspark.sql.Column).
 
 Counterpart of spark_rapids_tpu/api/column.py, narrowed to comparisons,
-boolean logic, aliases and sort orders.
+boolean logic, aliases, sort orders and ``over`` (a window).
 """
 
 from __future__ import annotations
@@ -71,6 +71,22 @@ class Column:
 
     def desc_nulls_first(self):
         return Column(self.expr, self._alias, sort_order=(False, True))
+
+    def over(self, window) -> "Column":
+        """This function over a window: ``window`` is a WindowBuilder
+        (``Window.partition_by(...).order_by(...)``) or a WindowSpec."""
+        from ..expr.aggregates import AggregateExpression
+        from ..expr.window import WindowBuilder, WindowExpression
+        spec = window.spec if isinstance(window, WindowBuilder) else window
+        e = self.expr
+        if isinstance(e, Alias):
+            name = e.name
+            e = e.child
+        else:
+            name = self._alias
+        if isinstance(e, AggregateExpression):
+            e = e.func
+        return Column(WindowExpression(e, spec, name))
 
     def __repr__(self):
         return f"Column<{self.expr.sql()}>"

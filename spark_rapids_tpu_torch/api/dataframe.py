@@ -1,8 +1,9 @@
 """DataFrame and GroupedData of the slice.
 
-Counterpart of spark_rapids_tpu/api/dataframe.py: select,
-with_column, filter / where, group_by / groupBy, agg, join, order_by /
-orderBy / sort, sort_within_partitions, limit, collect and explain.
+Counterpart of spark_rapids_tpu/api/dataframe.py: select (window
+expressions go through a Window node), select_expr_window, with_column,
+filter / where, group_by / groupBy, agg, join, order_by / orderBy /
+sort, sort_within_partitions, limit, collect and explain.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import pyarrow as pa
 from ..exec.join import JOIN_TYPES
 from ..expr.aggregates import AggregateExpression
 from ..expr.core import Alias, AttributeReference, Expression, Literal
+from ..expr.window import WindowExpression
 from ..plan import logical as L
 from .column import Column, col
 
@@ -43,8 +45,29 @@ class DataFrame:
             if isinstance(c, str) and c == "*":
                 exprs += [AttributeReference(n) for n in self.columns]
             else:
-                exprs.append(_to_expr(c))
+                e = _to_expr(c)
+                if isinstance(e, Alias) and isinstance(e.child,
+                                                       WindowExpression):
+                    e.child.name = e.name
+                    e = e.child
+                if isinstance(c, Column) and c._alias and \
+                        isinstance(e, WindowExpression):
+                    e.name = c._alias
+                exprs.append(e)
+        # window expressions go through a Window node, then a projection
+        windows = [e for e in exprs if isinstance(e, WindowExpression)]
+        if windows:
+            base = L.Window(windows, self._lp)
+            proj = [AttributeReference(e.name)
+                    if isinstance(e, WindowExpression) else e
+                    for e in exprs]
+            return DataFrame(L.Project(proj, base), self.session)
         return DataFrame(L.Project(exprs, self._lp), self.session)
+
+    def select_expr_window(self, *window_exprs) -> "DataFrame":
+        """Every column, then each window expression as its own column."""
+        return DataFrame(L.Window(list(window_exprs), self._lp),
+                         self.session)
 
     def with_column(self, name: str, c) -> "DataFrame":
         """Every other column, then ``c`` as ``name`` (last, as in the

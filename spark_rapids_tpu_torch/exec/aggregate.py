@@ -249,7 +249,9 @@ def _group_reduce(key_cols: List[DeviceColumn],
     same order, and K3 reads the lanes through the order."""
     for op in ops:
         if op not in ("sum", "countvalid"):
-            raise NotImplementedError(f"aggregate op {op!r} is not ported")
+            raise NotImplementedError(
+                f"aggregate op {op!r} is not ported (the grouped min, max, "
+                f"first and last wait for P8)")
     n = num_rows
     keys = [_prefix(c, n) for c in key_cols]
     vals = [_prefix(c, n) for c in value_cols]
@@ -524,6 +526,11 @@ class CpuHashAggregateExec(Exec):
                 return
             tables = [self._empty_input()]
         table = pa.concat_tables(tables)
+        for ae in self.aggregates:
+            if type(ae.func) not in _PA_AGG:
+                raise NotImplementedError(
+                    f"aggregate {type(ae.func).__name__} is not ported (the "
+                    f"grouped min, max, first and last wait for P8)")
         aggs = [(f"__in{i}", _PA_AGG[type(ae.func)], None)
                 for i, ae in enumerate(self.aggregates)]
         if self.grouping:

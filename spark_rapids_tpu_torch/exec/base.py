@@ -53,6 +53,34 @@ def placed_device(ctx: ExecContext, placement: str) -> torch.device:
     return ctx.device if placement == GPU else ctx.cpu
 
 
+_SIG_ATOMS = (str, bytes, int, float, bool, type(None), complex)
+
+
+def semantic_sig(v) -> object:
+    """Canonical, hashable signature of an expression tree or a window
+    spec: a node walks (class, fields, children), a type is its repr, a
+    container recurses.  Two window expressions whose specs have equal
+    signatures share one sorted layout (exec/window.py).  The part of
+    the reference's ``semantic_sig`` that expressions and specs need; an
+    object with no fields keys by its id, which can only split layouts,
+    never merge two that differ."""
+    if isinstance(v, _SIG_ATOMS):
+        return v
+    if isinstance(v, t.DataType):
+        return repr(v)
+    if isinstance(v, (list, tuple)):
+        return (type(v).__name__,) + tuple(semantic_sig(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, semantic_sig(x)) for k, x in v.items()))
+    try:
+        fields = vars(v)
+    except TypeError:
+        return (type(v).__name__, id(v))
+    return (type(v).__name__,) + tuple(
+        (k, semantic_sig(x)) for k, x in sorted(fields.items())
+        if not k.startswith("__"))
+
+
 class Exec:
     placement = GPU
 

@@ -1,11 +1,13 @@
-"""Declarative aggregate functions: Sum, Count, Average.
+"""Declarative aggregate functions: Sum, Count, Average, Min, Max.
 
 Counterpart of spark_rapids_tpu/expr/aggregates.py.  Each function
 declares its update stage (input expression and segmented op per
 buffer), its buffer types, its merge ops over partial buffers, and the
 expression that evaluates the final value from merged buffers.  Ops are
-``sum`` and ``countvalid`` (the count of non-null rows); a buffer's
-group is null when no row contributed to it.
+``sum``, ``countvalid`` (the count of non-null rows), ``min`` and
+``max``; a buffer's group is null when no row contributed to it.  Min
+and Max run over windows (exec/window.py); the grouped min and max
+(exec/aggregate.py) are not ported yet.
 """
 
 from __future__ import annotations
@@ -105,6 +107,29 @@ class Average(AggregateFunction):
         nonzero = cnt > 0
         safe = torch.where(nonzero, cnt, torch.ones_like(cnt))
         return make_column(ctx, t.DOUBLE, s.col.data / safe, nonzero)
+
+
+class Min(AggregateFunction):
+    op = "min"
+
+    def data_type(self):
+        return self.child.data_type()
+
+    def update(self):
+        return [(self.child, self.op)]
+
+    def buffer_types(self):
+        return [self.data_type()]
+
+    def merge_ops(self):
+        return [self.op]
+
+    def evaluate(self, ctx, buffers):
+        return buffers[0]
+
+
+class Max(Min):
+    op = "max"
 
 
 class AggregateExpression(Expression):

@@ -28,7 +28,8 @@ CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 HEADERS = ("partition.cuh", "join_hash.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
-           "expand_ends", "join_expand", "gather_rows", "fetch_pack")
+           "expand_ends", "join_expand", "gather_rows", "fetch_pack",
+           "window_scan", "scatter_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,6 +70,15 @@ _SIGNATURES = {
     "fetch_pack": {
         "srt_lane_stats": [_P, _I, _I, _P, _P],
         "srt_pack_lanes": [_P, _I, _I, _P, _P],
+    },
+    "window_scan": {
+        "srt_segment_scan_scratch_bytes": [_I],
+        "srt_segment_scan": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _P, _P],
+        "srt_run_ends": [_P, _P, _I, _I, _P, _P, _P, _P],
+    },
+    "scatter_rows": {
+        "srt_scatter_rows": [_P, _I, _I, _P, _P, _P, _P],
     },
 }
 

@@ -1,5 +1,5 @@
 """Logical plan nodes of the slice: LocalRelation, Project, Filter,
-Aggregate, Join, Sort and Limit.
+Aggregate, Join, Sort, Limit and Window.
 
 Counterpart of spark_rapids_tpu/plan/logical.py; each node resolves its
 output schema.
@@ -128,3 +128,20 @@ class Limit(LogicalPlan):
 
     def schema(self):
         return self.children[0].schema()
+
+
+class Window(LogicalPlan):
+    """Window function application; window_exprs are WindowExpressions,
+    each a new column after the child's."""
+
+    def __init__(self, window_exprs, child: LogicalPlan):
+        self.window_exprs = list(window_exprs)
+        self.children = (child,)
+
+    def schema(self):
+        cn, ct = self.children[0].schema()
+        names, dtypes = list(cn), list(ct)
+        for we in self.window_exprs:
+            names.append(we.name)
+            dtypes.append(we.resolved_type(cn, ct))
+        return names, dtypes

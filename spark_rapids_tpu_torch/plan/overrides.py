@@ -14,7 +14,8 @@ transition insertion).  Flow:
   4. record (and, per spark.rapids.sql.explain, print) the explain lines;
   5. convert every node that can run on the GPU: a CpuJoinExec becomes a
      hash join, a CpuHashAggregateExec a GpuHashAggregateExec, a global
-     SortExec over a range exchange sorts the gathered partitions,
+     SortExec over a range exchange sorts the gathered partitions, a
+     WindowExec over a hash exchange reads the gathered partitions,
      anything else is the same operator placed on the GPU;
   6. insert HostToDevice / DeviceToHost transitions at placement
      boundaries, and gather and coalesce at the collect boundary.
@@ -46,8 +47,10 @@ from ..exec.broadcast import (BroadcastExchangeExec, BroadcastHashJoinExec,
 from ..exec.gatherpart import GatherPartitionsExec
 from ..exec.join import CpuJoinExec, HashJoinExec, NestedLoopJoinExec
 from ..exec.sort import SortExec
+from ..exec.window import WindowExec
 from ..expr import aggregates as agg
 from ..expr import predicates as pred
+from ..expr import window as win
 from ..expr.arithmetic import Cast
 from ..expr.conditional import Coalesce
 from ..expr.core import (Alias, AttributeReference, BoundReference,
@@ -92,6 +95,12 @@ expr_rule(agg.Sum, T.numeric)
 expr_rule(agg.Average, T.integral + T.DOUBLE)
 expr_rule(agg.Count, T.all_types)
 expr_rule(agg.AggregateExpression, T.all_types.nested())
+# window machinery registered as expressions, as in the reference;
+# evaluation lives in WindowExec
+for c in (win.WindowExpression, win.RowNumber, win.Rank, win.DenseRank,
+          win.PercentRank, win.CumeDist, win.NTile, win.Lead, win.Lag,
+          win.WindowSpec):
+    expr_rule(c, T.common_scalar.nested())
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +253,7 @@ EXEC_SIGS: Dict[Type[eb.Exec], TypeSig] = {
         BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
         ShuffleExchangeExec, LocalLimitExec, GlobalLimitExec)}
 EXEC_SIGS[SortExec] = T.common_scalar.nested()
+EXEC_SIGS[WindowExec] = T.common_scalar.nested()
 
 EXEC_TAGS: Dict[Type[eb.Exec], Callable] = {}
 EXEC_CONVERTS: Dict[Type[eb.Exec], Callable] = {}
@@ -371,12 +381,63 @@ def _tag_sort(meta: ExecMeta):
         meta.will_not_work(_NO_FUSE)
 
 
+def _convert_window(e: WindowExec, conf) -> eb.Exec:
+    """Window partitions need co-location only, which one device has:
+    over a hash exchange, the WindowExec reads the gathered partitions
+    and concatenates them."""
+    child = e.children[0]
+    if isinstance(child, ShuffleExchangeExec):
+        e = WindowExec(e.window_exprs, _strip_exchange(child))
+    e.placement = eb.GPU
+    return e
+
+
+def _tag_window(meta: ExecMeta):
+    e: WindowExec = meta.exec
+    if isinstance(e.children[0], ShuffleExchangeExec) and \
+            not _fuse_single_chip(meta.conf):
+        meta.will_not_work(_NO_FUSE)
+    cn, ct = e.children[0].output_names, e.children[0].output_types
+    for w in e.window_exprs:
+        f = w.func
+        if isinstance(f, agg.AggregateFunction):
+            if not isinstance(f, (agg.Sum, agg.Count, agg.Average, agg.Min,
+                                  agg.Max)):
+                meta.will_not_work(
+                    f"window aggregate {type(f).__name__} not supported")
+            kind, lo, hi = w.spec.effective_frame(False)
+            bounded = not (lo == win.UNBOUNDED_PRECEDING and
+                           hi in (win.CURRENT_ROW, win.UNBOUNDED_FOLLOWING))
+            if kind == "range" and bounded:
+                # bounded range frames search one ascending numeric order
+                # key per row
+                orders = w.spec.order_by
+                ok = len(orders) == 1 and orders[0][1]
+                if ok:
+                    try:
+                        dt = bind_expression(orders[0][0], cn,
+                                             ct).data_type()
+                        ok = T.numeric.is_supported(dt)
+                    except Exception:
+                        ok = False
+                if not ok:
+                    meta.will_not_work(
+                        "bounded range frames need a single ascending "
+                        "numeric/date/timestamp order key")
+        elif not isinstance(f, (win.RowNumber, win.Rank, win.DenseRank,
+                                win.Lead, win.Lag, win.NTile)):
+            meta.will_not_work(
+                f"window function {type(f).__name__} not supported")
+
+
 EXEC_CONVERTS[CpuHashAggregateExec] = _convert_aggregate
 EXEC_CONVERTS[CpuJoinExec] = _convert_join
 EXEC_CONVERTS[SortExec] = _convert_sort
+EXEC_CONVERTS[WindowExec] = _convert_window
 EXEC_TAGS[CpuJoinExec] = _tag_join
 EXEC_TAGS[CpuHashAggregateExec] = _tag_aggregate
 EXEC_TAGS[SortExec] = _tag_sort
+EXEC_TAGS[WindowExec] = _tag_window
 
 
 def _tag_host_exchanges(meta: ExecMeta):

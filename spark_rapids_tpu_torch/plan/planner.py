@@ -20,6 +20,7 @@ from ..exec.basic import (FilterExec, GlobalLimitExec, LocalLimitExec,
 from ..exec.gatherpart import GatherPartitionsExec
 from ..exec.join import plan_join
 from ..exec.sort import SortExec
+from ..exec.window import WindowExec
 
 
 def plan(lp: L.LogicalPlan, conf) -> Exec:
@@ -77,5 +78,21 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
         if child.num_partitions > 1:
             child = GatherPartitionsExec(LocalLimitExec(lp.n, child))
         return GlobalLimitExec(lp.n, child)
+    if isinstance(lp, L.Window):
+        child = _plan(lp.children[0], conf)
+        if child.num_partitions > 1:
+            specs = [w.spec for w in lp.window_exprs]
+            pkeys = specs[0].partition_by if specs else []
+            same_keys = all([k.sql() for k in s.partition_by] ==
+                            [k.sql() for k in pkeys] for s in specs)
+            if pkeys and same_keys:
+                from ..shuffle.exchange import ShuffleExchangeExec
+                from ..shuffle.partitioning import HashPartitioning
+                child = ShuffleExchangeExec(
+                    HashPartitioning(list(pkeys), child.num_partitions),
+                    child)
+            else:
+                child = GatherPartitionsExec(child)
+        return WindowExec(lp.window_exprs, child)
     raise NotImplementedError(
         f"logical plan node {type(lp).__name__} is not ported yet")
