@@ -37,7 +37,15 @@ its stages (words, K2, K8, boundaries, K11, K12, the results, K13, the
 mask, the download) and a trace; K11 (segmented scan), K12 (peer-run
 ends) and K13 (row scatter) against their plain versions at q4's shapes
 and on edge cases; every window function over 5 specs at 2^20 rows
-against the CPU engine.  Launch counts are reset just before each
+against the CPU engine.  q1x, the TPC-H Q1 shape on the fact table
+(filter, k % 3, CASE WHEN, Q1's price arithmetic, group by two keys
+with sums, averages, count, min and max, sort), over 1 and 4 partitions,
+equal to a numpy oracle, with K3's min and max folds against their plain
+version at q1x's shapes and on edge cases (NaN, -0.0, the int64 edges,
+BOOLEAN, an all-null group, one group over 2^22 rows, tile edges, 27
+ops); every expression of the flat surface at 2^20 rows on the card
+against the CPU placement; the right, full, left_semi and left_anti
+joins at 2^20 rows against pyarrow.  Launch counts are reset just before each
 main-path run and must be > 0 after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
 or when any phase fails.
@@ -287,6 +295,136 @@ def _edge_cases(torch, dev, carry, agg_mod):
     return cases
 
 
+def _k3_minmax_diff(torch, a, b, ops, what):
+    """Raises unless K3's result ``a`` equals its plain version's ``b``
+    with min and max ops among ``ops``: groups, first rows and counts
+    exactly, every min and max bit for bit (float64 viewed as int64, so
+    -0.0 differs from 0.0 and NaN payloads count), sums as
+    ``_k3_diff``."""
+    if a[3] != b[3] or not torch.equal(a[0], b[0]):
+        raise AssertionError(f"K3 groups or first rows differ {what}")
+    for k, op in enumerate(ops):
+        if not torch.equal(a[2][k], b[2][k]):
+            raise AssertionError(f"K3 counts of op {k} ({op}) differ {what}")
+        if op not in ("min", "max"):
+            continue
+        x, y = a[1][k], b[1][k]
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        if not torch.equal(x, y):
+            bad = int((x != y).nonzero()[0])
+            raise AssertionError(f"K3 {op} of op {k} differs {what}: group "
+                                 f"{bad} {a[1][k][bad].item()!r} vs "
+                                 f"{b[1][k][bad].item()!r}")
+    _k3_diff(torch, (a[0], [s for s, op in zip(a[1], ops)
+                             if op not in ("min", "max")],
+                     [c for c, op in zip(a[2], ops)
+                      if op not in ("min", "max")], a[3]),
+             (b[0], [s for s, op in zip(b[1], ops)
+                     if op not in ("min", "max")],
+              [c for c, op in zip(b[2], ops)
+               if op not in ("min", "max")], b[3]), what)
+
+
+def _k3_minmax_cases(torch, dev, carry, agg_mod):
+    """K3's min and max folds against their plain version on the card:
+    NaN (two payloads), +-inf and -0.0 beside 0.0 compared by bits,
+    INT64_MIN and INT64_MAX, BOOLEAN lanes, an all-null group, a global
+    min over no rows, one group over every tile (2^22 rows), group
+    boundaries on and around tile boundaries, more than 16 ops (a second
+    op set), with sums and counts in the same sets.  Returns the number
+    of cases."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    nan2 = torch.tensor([0x7FF8000000000001], dtype=torch.int64).view(
+        torch.float64).item()
+    specials = torch.tensor([float("nan"), nan2, float("inf"),
+                             float("-inf"), -0.0, 0.0, 1.0, -1.0, 5e-324],
+                            dtype=torch.float64, device=dev)
+    extremes = torch.tensor([-2**63, 2**63 - 1, -1, 0, 1], device=dev)
+
+    def lanes(n):
+        """(values, ops): float, int and bool min/max lanes drawn from the
+        specials, a float and an int sum, and a count."""
+        pick = torch.randint(0, len(specials), (n,), generator=gen,
+                             device=dev)
+        f = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                        specials[pick],
+                        torch.randint(-3, 3, (n,), generator=gen,
+                                      device=dev).to(torch.float64))
+        i = extremes[torch.randint(0, len(extremes), (n,), generator=gen,
+                                   device=dev)]
+        b = torch.randint(0, 2, (n,), generator=gen, device=dev)
+        vals = [f, f, i, i, b, b, f, i, None]
+        ops = ["min", "max", "min", "max", "min", "max", "sum", "sum", None]
+        return vals, ops
+
+    def check(words, n, vals, ops, global_agg, order, what, p=0.8):
+        contribs = [torch.rand(n, generator=gen, device=dev) < p
+                    for _ in vals]
+        args = (words, None, vals, contribs, global_agg, order, ops)
+        _k3_minmax_diff(torch, agg_mod.segment_reduce_sorted(*args),
+                        agg_mod.segment_reduce_sorted_plain(*args), ops,
+                        what)
+
+    cases = 0
+    for n in (0, 1, 31, 4095, 4096, 4097, 8193, 100_003):
+        vals, ops = lanes(n)
+        key = torch.randint(0, 5, (n,), generator=gen, device=dev)
+        words = [torch.ones(n, dtype=torch.int64, device=dev), key]
+        order = carry.sort_order_plain(words)
+        for global_agg in (False, True):
+            check(words, n, vals, ops, global_agg, order,
+                  f"at n={n}, global={global_agg}")
+            cases += 1
+    # a group whose rows never contribute is null; so is a global min
+    # over no rows (one group, count 0)
+    n = 10_000
+    vals, ops = lanes(n)
+    key = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    words = [key]
+    contribs = [(key != 1) for _ in vals]
+    args = (words, None, vals, contribs, False, carry.sort_order_plain(words),
+            ops)
+    got = agg_mod.segment_reduce_sorted(*args)
+    _k3_minmax_diff(torch, got, agg_mod.segment_reduce_sorted_plain(*args),
+                    ops, "with an all-null group")
+    if any(int(c[1]) != 0 for c in got[2]):
+        raise AssertionError("K3 counted rows of the all-null group")
+    empty = [torch.empty(0, dtype=torch.float64, device=dev)]
+    got = agg_mod.segment_reduce_sorted(
+        [], None, empty, [torch.empty(0, dtype=torch.bool, device=dev)],
+        True, None, ["min"])
+    if got[3] != 1 or int(got[2][0][0]) != 0:
+        raise AssertionError("K3's global min over no rows is not one "
+                             "null group")
+    cases += 2
+    # one group over every tile of 2^22 rows; groups that end on, before
+    # and after a 4,096-row tile edge
+    for sizes in ([1 << 22], [4096, 4096, 1], [4095, 4097, 8192],
+                  [4096 * 3, 5]):
+        n = sum(sizes)
+        perm = torch.randperm(n, generator=gen, device=dev)
+        key = torch.repeat_interleave(
+            torch.arange(len(sizes), device=dev),
+            torch.tensor(sizes, device=dev))[perm]
+        vals, ops = lanes(n)
+        check([key], n, vals, ops, False, carry.sort_order_plain([key]),
+              f"for groups of {sizes} rows")
+        cases += 1
+    # more than 16 ops: 27, so the min and max folds run in two sets
+    n = 50_000
+    vals, ops = [], []
+    for _ in range(3):
+        v, o = lanes(n)
+        vals += v
+        ops += o
+    key = torch.randint(0, 40, (n,), generator=gen, device=dev)
+    check([key], n, vals, ops, False, carry.sort_order_plain([key]),
+          f"with {len(ops)} ops")
+    cases += 1
+    return cases
+
+
 def _wide_table(n):
     """WIDE_KEYS grouping columns of every key type (a few values each,
     some nulls) and WIDE_SUMS int and float columns to sum."""
@@ -324,7 +462,7 @@ def _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
     words = [w for c in batch.columns[:WIDE_KEYS]
              for w in seg.key_words_for_column(agg_mod._prefix(c, n))]
     vals = [agg_mod._prefix(c, n) for c in batch.columns[WIDE_KEYS:]]
-    sums, contribs, _ = agg_mod.k3_ops(vals, ["sum"] * WIDE_SUMS)
+    sums, contribs, _, _ = agg_mod.k3_ops(vals, ["sum"] * WIDE_SUMS)
     args = (words, None, sums, contribs, False, carry.sort_order(words))
     k3 = agg_mod.segment_reduce_sorted
     before = k3.launches
@@ -1217,6 +1355,190 @@ def _same_window_tables(got, want):
     return True
 
 
+def _q1x_df(session, table, parts, F, col, lit):
+    """The TPC-H Q1 shape on the fact table: a filter on f and v, a
+    projection with a remainder, CASE WHEN and Q1's price arithmetic,
+    then by (rf, ls): three sums, two averages, count(*), and the min and
+    max of disc and v, sorted."""
+    fact = session.create_dataframe(table, num_partitions=parts)
+    return (fact.filter((col("f") <= 0.98) & col("v").is_not_null())
+            .select((col("k") % 3).alias("rf"),
+                    F.when(col("v") > 0, lit(1)).otherwise(lit(0))
+                    .alias("ls"),
+                    col("v"), col("f"),
+                    (col("v") * (lit(1.0) - col("f"))).alias("disc"),
+                    (col("v") * (lit(1.0) - col("f"))
+                     * (lit(1.0) + col("f") / lit(10))).alias("charge"))
+            .group_by("rf", "ls")
+            .agg(F.sum("v"), F.sum("disc"), F.sum("charge"), F.avg("v"),
+                 F.avg("f"), F.count("*"), F.min("disc"), F.max("disc"),
+                 F.min("v"), F.max("v"))
+            .sort("rf", "ls"))
+
+
+def _q1x_oracle(table):
+    """q1x in numpy: per (rf, ls) in order, the ten aggregates."""
+    k = table["k"].to_numpy()
+    v = table["v"].to_numpy()
+    f = table["f"].to_numpy()
+    keep = f <= 0.98
+    k, v, f = k[keep], v[keep], f[keep]
+    disc = v.astype(np.float64) * (1.0 - f)
+    charge = disc * (1.0 + f / 10.0)
+    gid = (k % 3) * 2 + (v > 0)
+    rows = []
+    for g in range(6):
+        m = gid == g
+        vv, dd = v[m], disc[m]
+        rows.append(dict(rf=g // 2, ls=g % 2, sv=int(vv.sum()),
+                         sd=float(dd.sum()), sc=float(charge[m].sum()),
+                         av=float(vv.sum()) / len(vv), af=float(f[m].mean()),
+                         c=int(m.sum()), mind=float(dd.min()),
+                         maxd=float(dd.max()), minv=int(vv.min()),
+                         maxv=int(vv.max())))
+    return rows
+
+
+def _check_q1x(got, want, what):
+    """Keys, integer sums, counts and every min and max exactly (doubles
+    by bits); float sums and averages to FLOAT_RTOL."""
+    if got.num_rows != len(want):
+        raise AssertionError(f"{what}: {got.num_rows} groups, oracle "
+                             f"{len(want)}")
+    cols = got.columns
+    names = ["rf", "ls", "sv", "sd", "sc", "av", "af", "c", "mind", "maxd",
+             "minv", "maxv"]
+    exact = {"rf", "ls", "sv", "c", "minv", "maxv", "mind", "maxd"}
+    for i, name in enumerate(names):
+        mine = cols[i].to_pylist()
+        theirs = [r[name] for r in want]
+        if name in exact:
+            if mine != theirs or (name in ("mind", "maxd") and [
+                    np.float64(x).view(np.int64) for x in mine] != [
+                    np.float64(x).view(np.int64) for x in theirs]):
+                raise AssertionError(f"{what}: column {name} "
+                                     f"({got.column_names[i]}) {mine} vs "
+                                     f"{theirs}")
+        elif not np.allclose(mine, theirs, rtol=FLOAT_RTOL, atol=0.0):
+            raise AssertionError(f"{what}: column {name} differs by up to "
+                                 f"{np.max(np.abs(np.subtract(mine, theirs)))}")
+
+
+CATALOGUE_ROWS = 1 << 20
+
+
+def _catalogue_table(n):
+    """Columns for every new expression: a, b LONG with INT64_MIN, -1 and
+    0 divisors; i INT with INT32_MIN; d, e DOUBLE with NaN, +-inf, -0.0,
+    1e19 and 9.3e18; x BOOLEAN; nulls in each."""
+    rng = np.random.default_rng(SEED + 21)
+
+    def mask(p=0.05):
+        return rng.random(n) < p
+    a = rng.integers(-(10**12), 10**12, n)
+    a[rng.random(n) < 0.05] = -2**63
+    b = rng.integers(-4, 5, n)
+    b[rng.random(n) < 0.05] = -2**63
+    i = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    i[rng.random(n) < 0.03] = -2**31
+    specials = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e19, -1e19,
+                         9.3e18, 0.5, -0.5, 2.5, -2.5])
+    d = rng.normal(0.0, 1e3, n)
+    pick = rng.random(n) < 0.3
+    d[pick] = specials[rng.integers(0, len(specials), int(pick.sum()))]
+    e = rng.normal(0.0, 10.0, n)
+    e[rng.random(n) < 0.05] = 0.0
+    return pa.table({
+        "a": pa.array(a, mask=mask()), "b": pa.array(b, mask=mask()),
+        "i": pa.array(i, mask=mask()), "d": pa.array(d, mask=mask()),
+        "e": pa.array(e, mask=mask()),
+        "x": pa.array(rng.random(n) < 0.5, mask=mask())})
+
+
+def _catalogue_columns(F, col, lit, ar, mx, cond, Column):
+    """Every expression this port brings, over _catalogue_table."""
+    def node(cls, *args):
+        return Column(cls(*[a.expr for a in args]))
+    a, b, i, d, e, x = (col(c) for c in "abidex")
+    cols = {
+        "add": a + b, "sub": i - b, "mul": a * b, "mul_d": d * e,
+        "div": a / b, "div_d": d / e, "idiv": node(ar.IntegralDivide, a, b),
+        "mod": a % b, "mod_i": i % b, "mod_d": d % e,
+        "pmod": node(ar.Pmod, a, b), "pmod_d": node(ar.Pmod, d, e),
+        "neg": -a, "pos": node(ar.UnaryPositive, i), "abs": F.abs(a),
+        "abs_d": F.abs(d), "greatest": F.greatest(d, e, lit(0.0)),
+        "least": F.least(a, b), "eqns": d.eq_null_safe(e),
+        "isnull": d.is_null(), "isnotnull": a.is_not_null(),
+        "isnan": F.isnan(d), "in": b.isin(1, -1, None),
+        "in_d": d.isin(float("nan"), 0.0),
+        "if": node(cond.If, x, a, b),
+        "case": F.when(d > 0, d).when(x, lit(None)).otherwise(e),
+        "coalesce": F.coalesce(d, e, lit(1.5)), "nvl": node(cond.Nvl, a, b),
+        "nullif": node(cond.NullIf, b, lit(0)),
+        "log": F.log(d), "log2": F.log2(e), "log10": F.log10(d),
+        "log1p": F.log1p(e), "logb": F.log(e, d), "pow": F.pow(e, lit(3)),
+        "atan2": F.atan2(d, e), "floor": F.floor(d), "ceil": F.ceil(d),
+        "signum": F.signum(d), "round": F.round(d, 1),
+        "round_i": F.round(i, -2), "bround": F.bround(d, 1),
+        "d2l": d.cast("long"), "d2i": d.cast("int"), "l2i": a.cast("int"),
+        "i2d": i.cast("double"), "b2l": x.cast("long"),
+        "d2b": d.cast("boolean"), "n2i": lit(None).cast("int"),
+    }
+    for name in ("sqrt", "exp", "expm1", "sin", "cos", "tan", "cot", "asin",
+                 "acos", "atan", "sinh", "cosh", "tanh", "asinh", "acosh",
+                 "atanh", "cbrt", "rint", "degrees", "radians"):
+        cols[name] = getattr(F, name)(e)
+    return [c.alias(name) for name, c in cols.items()]
+
+
+def _same_catalogue(got, want, rtol):
+    """The card's catalogue against the CPU's: integers and booleans
+    exactly, doubles by bits or, for a finite pair, to ``rtol`` (libm's
+    last bit may differ between the host and the card).  Returns (the
+    columns that differ, the largest relative double difference)."""
+    bad, worst = [], 0.0
+    for name in want.column_names:
+        g, w = got[name], want[name]
+        if g.type != w.type or g.null_count != w.null_count or not \
+                g.is_null().equals(w.is_null()):
+            bad.append(name)
+            continue
+        gn = g.fill_null(False if pa.types.is_boolean(g.type) else 0) \
+            .to_numpy()
+        wn = w.fill_null(False if pa.types.is_boolean(w.type) else 0) \
+            .to_numpy()
+        if not pa.types.is_floating(g.type):
+            if not np.array_equal(gn, wn):
+                bad.append(name)
+            continue
+        same = gn.view(np.int64) == wn.view(np.int64)
+        both_nan = np.isnan(gn) & np.isnan(wn)
+        finite = np.isfinite(gn) & np.isfinite(wn)
+        with np.errstate(invalid="ignore", over="ignore"):
+            rel = np.abs(gn - wn) / np.maximum(np.abs(wn), 1e-300)
+        close = finite & (rel <= rtol)
+        if not np.all(same | both_nan | close):
+            bad.append(name)
+        if finite.any():
+            worst = max(worst, float(np.max(np.where(finite, rel, 0.0))))
+    return bad, worst
+
+
+def _join_table_pairs(table, dim):
+    """A 2^20-row fact slice and a dimension that misses a third of its
+    keys and holds keys the fact does not."""
+    fact = table.slice(0, 1 << 20).select(["k", "v"])
+    keys = np.arange(33_000, 133_000, dtype=np.int64)
+    rng = np.random.default_rng(SEED + 31)
+    right = pa.table({"k": pa.array(keys),
+                      "w": pa.array(rng.random(len(keys)))})
+    return fact, right
+
+
+def _sorted_rows(t):
+    return t.sort_by([(c, "ascending") for c in t.column_names])
+
+
 def main() -> int:
     try:
         import torch
@@ -1236,7 +1558,7 @@ def main() -> int:
     from spark_rapids_tpu_torch import kernels
     from spark_rapids_tpu_torch import types as t
     from spark_rapids_tpu_torch.api import functions as F
-    from spark_rapids_tpu_torch.api.column import col
+    from spark_rapids_tpu_torch.api.column import Column, col, lit
     from spark_rapids_tpu_torch.api.session import GpuSession
     from spark_rapids_tpu_torch.columnar import fetch
     from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
@@ -1258,6 +1580,9 @@ def main() -> int:
     from spark_rapids_tpu_torch.exec.join import HashJoinExec
     from spark_rapids_tpu_torch.exec.sort import SortExec
     from spark_rapids_tpu_torch.exec import window as window_mod
+    from spark_rapids_tpu_torch.expr import arithmetic as ar_mod
+    from spark_rapids_tpu_torch.expr import conditional as cond_mod
+    from spark_rapids_tpu_torch.expr import mathexpr as mx_mod
     from spark_rapids_tpu_torch.expr import window as W
     from spark_rapids_tpu_torch.ops import carry
     from spark_rapids_tpu_torch.ops import gather as gather_mod
@@ -1403,7 +1728,7 @@ def main() -> int:
 
         # K3 reads every lane in input order, through K2's order
         vals = [agg_mod._prefix(v, n) for v in val_cols]
-        sum_lanes, contribs, _ = agg_mod.k3_ops(vals, agg._update_ops)
+        sum_lanes, contribs, _, _ = agg_mod.k3_ops(vals, agg._update_ops)
         k3_args = (words, None, sum_lanes, contribs, False, order)
         res = agg_mod.segment_reduce_sorted(*k3_args)
         k3_err = _k3_diff(torch, res, agg_mod.segment_reduce_sorted_plain(
@@ -1484,6 +1809,13 @@ def main() -> int:
         cases = _edge_cases(torch, dev, carry, agg_mod)
         print(f"edge cases: K1, K2, K3 equal their plain versions at "
               f"{cases} sizes from 0 to 100,003 rows")
+        cases = _k3_minmax_cases(torch, dev, carry, agg_mod)
+        print(f"K3 min/max edge cases: {cases} cases equal the plain "
+              f"version, every min and max bit for bit (NaN with two "
+              f"payloads, +-inf, -0.0 beside 0.0, INT64_MIN and INT64_MAX, "
+              f"BOOLEAN lanes, an all-null group, a global min over no "
+              f"rows, one group over 2^22 rows, group ends on tile edges, "
+              f"27 ops in two launch sets)")
         tile = kernels.library("onesweep").srt_tile_rows()
         cases = _k2_edge_cases(torch, dev, carry, tile)
         print(f"K2 edge cases: {cases} cases equal the plain version around "
@@ -2368,7 +2700,6 @@ def main() -> int:
         failures.append("main path (q1, 4 partitions)")
         traceback.print_exc()
 
-    # ---- main path: q3, the global sort, through the DataFrame API -----
     def timed_walls(fn, reps=3):
         walls = []
         for _ in range(reps):
@@ -2378,6 +2709,131 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t1) * 1e3)
         return walls
+
+    # ---- main path: q1x, the TPC-H Q1 shape, one partition and four ---
+    q1x_want = None
+    try:
+        t1 = time.perf_counter()
+        q1x_want = _q1x_oracle(table)
+        print(f"numpy q1x oracle: {sum(r['c'] for r in q1x_want)} rows "
+              f"kept in 6 groups of {min(r['c'] for r in q1x_want)} to "
+              f"{max(r['c'] for r in q1x_want)} rows, "
+              f"{time.perf_counter() - t1:.1f} s")
+        for parts in (1, 4):
+            sx = GpuSession()
+            dfx = _q1x_df(sx, table, parts, F, col, lit)
+            t1 = time.perf_counter()
+            _check_q1x(dfx.collect(), q1x_want,
+                       f"q1x over {parts} partitions (cold)")
+            cold_wall = time.perf_counter() - t1
+            nodes = _placements(sx.last_plan)
+            if nodes[0] != ("DeviceToHostExec", "cpu") or \
+                    any(p != "gpu" for _, p in nodes[1:]) or \
+                    "!" in sx.last_explain:
+                raise AssertionError(f"q1x over {parts} partitions placed "
+                                     f"{nodes}:\n{sx.last_explain}")
+            run = "q1x" if parts == 1 else "q1x_4"
+            count_reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            got = dfx.collect()
+            torch.cuda.synchronize()
+            launches[run] = counts()
+            _check_q1x(got, q1x_want, f"q1x over {parts} partitions")
+            walls = timed_walls(dfx.collect)
+            trace = _profile(torch, dfx.collect)
+            print(f"main path DataFrame q1x ({ROWS} rows in {parts} "
+                  f"partition(s): filter f <= 0.98 and v is not null, "
+                  f"project k % 3, CASE WHEN, Q1's price arithmetic, group "
+                  f"by (rf, ls): 3 sums, 2 averages, count, min and max of "
+                  f"disc and v, sort): plan {[n for n, _ in nodes]}, "
+                  f"GPU-only; equals the numpy oracle (ints, counts, min "
+                  f"and max exactly, float sums and averages to "
+                  f"{FLOAT_RTOL:g}); cold wall {cold_wall * 1e3:.1f} ms; "
+                  f"warm walls {', '.join(f'{w:.1f}' for w in walls)} ms, "
+                  f"median {sorted(walls)[1]:.1f}; peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"launches {launches[run]}; {card}")
+            print(f"trace of a warm q1x over {parts} partition(s): wall "
+                  f"{trace['wall_ms']:.2f} ms, device busy "
+                  f"{trace['busy_ms']:.2f} ms, idle share "
+                  f"{trace['idle_share']:.3f}; top kernels (ms): "
+                  + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"])
+                  + f"; {card}")
+            if parts == 1:
+                # K3 with the min and max ops at q1x's shapes: the
+                # aggregate's update over the projected batch
+                by_name = {}
+                sx.last_plan.foreach(
+                    lambda e: by_name.setdefault(type(e).__name__, e))
+                aggx = by_name["GpuHashAggregateExec"]
+                ctx = ExecContext(dev, sx.conf)
+                inx = next(iter(aggx.children[0].execute_partition(0, ctx)))
+                nx = inx.num_rows
+                kx, vx = aggx._update_columns(inx)
+                wx = [w for c in kx for w in seg.key_words_for_column(
+                    agg_mod._prefix(c, nx))]
+                ox = carry.sort_order(wx)
+                lx, cx, opsx, _ = agg_mod.k3_ops(
+                    [agg_mod._prefix(c, nx) for c in vx], aggx._update_ops)
+                x_args = (wx, None, lx, cx, False, ox, opsx)
+                res = agg_mod.segment_reduce_sorted(*x_args)
+                plain = agg_mod.segment_reduce_sorted_plain(*x_args)
+                x_err = 0.0
+                _k3_minmax_diff(torch, res, plain, opsx, "at q1x's shapes")
+                for sv_, sp_, op in zip(res[1], plain[1], opsx):
+                    if op == "sum" and sv_ is not None and \
+                            sv_.dtype == torch.float64:
+                        x_err = max(x_err, float((sv_ - sp_).abs().max()))
+                mm = [k for k, op in enumerate(opsx) if op in ("min", "max")]
+                ids_sorted = torch.cumsum(seg.segment_boundaries(
+                    [w.index_select(0, ox) for w in wx],
+                    torch.ones(nx, dtype=torch.bool, device=dev)), 0) - 1
+                idsx = torch.empty_like(ids_sorted).index_put_(
+                    (ox.long(),), ids_sorted)
+                gx = res[3]
+
+                def mm_library():
+                    return [torch.full((gx,), 0, dtype=lx[k].dtype,
+                                       device=dev).scatter_reduce_(
+                        0, idsx, lx[k], "amin" if opsx[k] == "min"
+                        else "amax", include_self=False) for k in mm]
+                distinct = {x.data_ptr(): x for x in lx + cx
+                            if x is not None}
+                in_bytes = (4 + 8 * len(wx)) * nx + sum(
+                    x.element_size() * nx for x in distinct.values())
+                out_bytes = gx * (4 + 8 * len(lx)
+                                  + 8 * sum(x is not None for x in lx))
+                kernel_rows["segment_reduce_sorted_minmax"] = dict(
+                    source="spark_rapids_tpu_torch/csrc/segment_reduce.cu",
+                    replaces="spark_rapids_tpu/ops/segmented.py:251",
+                    max_abs_err=x_err,
+                    ms=cuda_ms(lambda: agg_mod.segment_reduce_sorted(
+                        *x_args)),
+                    plain_ms=cuda_ms(
+                        lambda: agg_mod.segment_reduce_sorted_plain(
+                            *x_args)),
+                    library_ms=cuda_ms(mm_library),
+                    bound_ms=bound(in_bytes + out_bytes))
+                r = kernel_rows["segment_reduce_sorted_minmax"]
+                print(f"K3 with min/max at q1x's shapes: rows {nx}, groups "
+                      f"{gx}, {len(opsx)} ops ({', '.join(opsx)}), key "
+                      f"words {len(wx)}; min and max bit for bit, float "
+                      f"sums max abs err {x_err:.3g}; {r['ms']:.3f} ms, "
+                      f"plain {r['plain_ms']:.3f} ms, library "
+                      f"(scatter_reduce amin/amax of the {len(mm)} min/max "
+                      f"lanes) {r['library_ms']:.3f} ms, bound "
+                      f"{r['bound_ms']:.3f} ms ({in_bytes + out_bytes} "
+                      f"bytes); {card}")
+                del by_name, aggx, inx, kx, vx, wx, ox, lx, cx, res, plain
+                del ids_sorted, idsx, distinct
+            del dfx, sx, got
+    except Exception:
+        failures.append("main path (q1x)")
+        traceback.print_exc()
+    q1x_want = None
+
+    # ---- main path: q3, the global sort, through the DataFrame API -----
 
     q3_want = None
     try:
@@ -2939,6 +3395,90 @@ def main() -> int:
         failures.append("window oracle")
         traceback.print_exc()
 
+
+    # ---- the expression catalogue: the card against the CPU ----------
+    try:
+        ct = _catalogue_table(CATALOGUE_ROWS)
+        cols = _catalogue_columns(F, col, lit, ar_mod, mx_mod, cond_mod,
+                                  Column)
+        cpu_session = GpuSession(conf={"spark.rapids.sql.enabled": False})
+        count_reset()
+        oracle = cpu_session.create_dataframe(ct).select(*cols).collect()
+        if any(counts().values()) or any(
+                p != "cpu" for _, p in _placements(cpu_session.last_plan)):
+            raise AssertionError("the CPU placement launched a kernel or "
+                                 "placed an operator on the GPU")
+        card_session = GpuSession()
+        on_card = card_session.create_dataframe(ct).select(*cols).collect()
+        nodes = _placements(card_session.last_plan)
+        if any(p != "gpu" for _, p in nodes[1:]) or \
+                "!" in card_session.last_explain:
+            raise AssertionError(f"the catalogue placed {nodes}:\n"
+                                 + card_session.last_explain)
+        bad, worst = _same_catalogue(on_card, oracle, 1e-12)
+        if bad:
+            raise AssertionError(f"the card's expressions differ from the "
+                                 f"CPU placement in {bad}")
+        sat = on_card.filter(pc.is_in(ct["d"], pa.array([1e19, 9.3e18])))
+        if set(sat["d2l"].to_pylist()) != {2**63 - 1}:
+            raise AssertionError(f"1e19 and 9.3e18 cast to LONG give "
+                                 f"{set(sat['d2l'].to_pylist())}")
+        edge = on_card.filter(pc.and_(pc.equal(ct["a"], -2**63),
+                                      pc.equal(ct["b"], -1)))
+        if edge.num_rows == 0 or set(edge["idiv"].to_pylist()) != \
+                {-2**63} or set(edge["mod"].to_pylist()) != {0}:
+            raise AssertionError("INT64_MIN div and % -1 on the card")
+        print(f"expression catalogue: {len(cols)} columns over "
+              f"{ct.num_rows} rows (INT64_MIN and INT32_MIN operands, "
+              f"{edge.num_rows} rows of INT64_MIN over -1, zero divisors, "
+              f"NaN, +-inf, -0.0, 1e19 and 9.3e18, nulls): the card "
+              f"(GPU-placed, {len(nodes)} operators) equals the CPU "
+              f"placement (spark.rapids.sql.enabled=false, no kernel "
+              f"launched): integers and booleans exactly, doubles by bits "
+              f"or within 1e-12 (largest relative difference {worst:.3g}); "
+              f"1e19 and 9.3e18 cast to LONG give INT64_MAX on the card")
+        del ct, oracle, on_card
+    except Exception:
+        failures.append("expression catalogue")
+        traceback.print_exc()
+
+    # ---- join types not run on the card before, against pyarrow ------
+    try:
+        jf, jd = _join_table_pairs(table, dim)
+        pa_how = {"right": "right outer", "full": "full outer",
+                  "left_semi": "left semi", "left_anti": "left anti"}
+        done = []
+        for how, pa_name in pa_how.items():
+            sj = GpuSession()
+            count_reset()
+            got = sj.create_dataframe(jf).join(
+                sj.create_dataframe(jd), on="k", how=how).collect()
+            nodes = _placements(sj.last_plan)
+            if any(p != "gpu" for _, p in nodes[1:]) or \
+                    "!" in sj.last_explain:
+                raise AssertionError(f"{how} join placed {nodes}")
+            # semi and anti joins compact the probe side (K1); the others
+            # expand pairs (K7, K5)
+            after = "compact_rows" if how.startswith("left_") else \
+                "expand_pairs"
+            if counts()["join_probe"] < 1 or counts()[after] < 1:
+                raise AssertionError(f"{how} join launched {counts()}")
+            want = jf.join(jd, "k", join_type=pa_name)
+            want = want.select(got.column_names)
+            if not _sorted_rows(got).equals(_sorted_rows(want)):
+                raise AssertionError(f"{how} join differs from pyarrow: "
+                                     f"{got.num_rows} rows vs "
+                                     f"{want.num_rows}")
+            done.append(f"{how} {got.num_rows} rows")
+        print(f"joins through GpuSession at {jf.num_rows} fact rows with a "
+              f"{jd.num_rows}-row dimension (a third of the fact's keys "
+              f"missing, keys the fact lacks): {', '.join(done)}; each "
+              f"GPU-placed, K4 launched and K5 (right, full) or K1 (semi, "
+              f"anti), equal to pyarrow's join")
+    except Exception:
+        failures.append("join types")
+        traceback.print_exc()
+
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
@@ -2947,6 +3487,8 @@ def main() -> int:
         "q6": ("key_hash", "sort_order", "hash_table", "join_probe",
                "expand_ends", "expand_pairs", "segment_reduce_sorted"),
         "q1_4": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "q1x": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "q1x_4": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "q3": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
         "q3_4": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
         "topn": ("sort_order", "gather_rows", "lane_stats", "pack_lanes"),
@@ -2955,7 +3497,7 @@ def main() -> int:
         "q4_4": ("sort_order", "gather_rows", "segment_scan", "run_ends",
                  "scatter_rows", "lane_stats", "pack_lanes")}
     # every download through DeviceToHostExec is the packed fetch now
-    for run in ("dataframe", "q2", "q6", "q1_4"):
+    for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -2977,6 +3519,7 @@ def main() -> int:
         # q2 for K4-K7, q3 for K8-K10, q4 for K11-K13
         run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
                   "expand_pairs": "q2", "gather_rows": "q3",
+                  "segment_reduce_sorted_minmax": "q1x",
                   "lane_stats": "q3", "pack_lanes": "q3",
                   "segment_scan": "q4", "run_ends": "q4",
                   "scatter_rows": "q4"}
@@ -2984,7 +3527,8 @@ def main() -> int:
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],
                  launches=launches.get(run_of.get(name, "dataframe"),
-                                       {}).get(name, 0),
+                                       {}).get(name.replace("_minmax", ""),
+                                               0),
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by="bytes", library_ms=r["library_ms"])

@@ -1,14 +1,20 @@
 """Column wrapper over the expression IR (mirrors pyspark.sql.Column).
 
-Counterpart of spark_rapids_tpu/api/column.py, narrowed to comparisons,
-boolean logic, aliases, sort orders and ``over`` (a window).
+Counterpart of spark_rapids_tpu/api/column.py over the port's flat types:
+arithmetic (``+ - * / %`` with their reflected forms, unary ``-``),
+comparisons, boolean logic, ``is_null``, ``is_not_null``, ``isin``,
+``eq_null_safe``, ``cast``, aliases, sort orders and ``over`` (a
+window).  The string methods wait for Queue 1 item 3.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from .. import types as t
+from ..expr import arithmetic as ar
 from ..expr import predicates as pred
+from ..expr.cast import Cast
 from ..expr.core import Alias, AttributeReference, Expression, Literal
 
 
@@ -28,6 +34,38 @@ class Column:
         # (ascending, nulls_first) when the column names a sort order
         self._sort_order = sort_order
 
+    # arithmetic
+    def __add__(self, o):
+        return Column(ar.Add(self.expr, _expr(o)))
+
+    def __radd__(self, o):
+        return Column(ar.Add(_expr(o), self.expr))
+
+    def __sub__(self, o):
+        return Column(ar.Subtract(self.expr, _expr(o)))
+
+    def __rsub__(self, o):
+        return Column(ar.Subtract(_expr(o), self.expr))
+
+    def __mul__(self, o):
+        return Column(ar.Multiply(self.expr, _expr(o)))
+
+    def __rmul__(self, o):
+        return Column(ar.Multiply(_expr(o), self.expr))
+
+    def __truediv__(self, o):
+        return Column(ar.Divide(self.expr, _expr(o)))
+
+    def __rtruediv__(self, o):
+        return Column(ar.Divide(_expr(o), self.expr))
+
+    def __mod__(self, o):
+        return Column(ar.Remainder(self.expr, _expr(o)))
+
+    def __neg__(self):
+        return Column(ar.UnaryMinus(self.expr))
+
+    # comparisons
     def __eq__(self, o):  # type: ignore[override]
         return Column(pred.EqualTo(self.expr, _expr(o)))
 
@@ -56,6 +94,33 @@ class Column:
         return Column(pred.Not(self.expr))
 
     __hash__ = None  # type: ignore[assignment]
+
+    # null / membership
+    def is_null(self):
+        return Column(pred.IsNull(self.expr))
+
+    isNull = is_null
+
+    def is_not_null(self):
+        return Column(pred.IsNotNull(self.expr))
+
+    isNotNull = is_not_null
+
+    def isin(self, *vals):
+        if len(vals) == 1 and isinstance(vals[0], (list, tuple)):
+            vals = tuple(vals[0])
+        return Column(pred.In(self.expr, [Literal(v) for v in vals]))
+
+    def eq_null_safe(self, o):
+        return Column(pred.EqualNullSafe(self.expr, _expr(o)))
+
+    eqNullSafe = eq_null_safe
+
+    def cast(self, to):
+        """A cast to a DataType or a type name ("int", "bigint", ...)."""
+        if isinstance(to, str):
+            to = parse_type(to)
+        return Column(Cast(self.expr, to))
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name), alias=name)
@@ -90,6 +155,21 @@ class Column:
 
     def __repr__(self):
         return f"Column<{self.expr.sql()}>"
+
+
+_TYPE_NAMES = {"boolean": t.BOOLEAN, "bool": t.BOOLEAN, "int": t.INT,
+               "integer": t.INT, "long": t.LONG, "bigint": t.LONG,
+               "double": t.DOUBLE}
+
+
+def parse_type(s: str) -> t.DataType:
+    """The type a name stands for, in the reference's spellings."""
+    name = s.strip().lower()
+    if name in _TYPE_NAMES:
+        return _TYPE_NAMES[name]
+    raise NotImplementedError(
+        f"type {s!r} is not ported yet (the port carries boolean, int, "
+        f"bigint and double; the other types are Queue 1 item 3)")
 
 
 def col(name: str) -> Column:

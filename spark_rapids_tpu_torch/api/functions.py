@@ -1,39 +1,168 @@
-"""pyspark.sql.functions-style surface of the slice.
+"""pyspark.sql.functions-style surface of the port.
 
-Counterpart of spark_rapids_tpu/api/functions.py: col, lit, sum, avg
-(mean), count, min, max, and the window functions row_number, rank,
-dense_rank, lead, lag, ntile, percent_rank and cume_dist.
+Counterpart of spark_rapids_tpu/api/functions.py over the port's flat
+types: col, lit; the aggregates sum, avg (mean), count, min, max; the
+scalar functions abs, sqrt, exp, expm1, log (ln, or log(base, x)),
+log2, log10, log1p, pow, atan2, the trigonometric and hyperbolic
+functions, cbrt, rint, degrees, radians, floor, ceil, round, bround,
+signum, greatest, least, when(...).when(...).otherwise(...), coalesce,
+isnull, isnan and expr_if; and the window functions
+row_number, rank, dense_rank, lead, lag, ntile, percent_rank and
+cume_dist.  As in pyspark, a string argument names a column (the
+reference reads it as a string literal, which no flat function takes).
 """
 
 from __future__ import annotations
 
 from ..expr import aggregates as agg
+from ..expr import arithmetic as ar
+from ..expr import conditional as cond
+from ..expr import mathexpr as mx
+from ..expr import predicates as pred
 from ..expr import window as win
+from ..expr.core import AttributeReference, Expression
 from .column import Column, _expr, col, lit  # noqa: F401  (re-export)
 
 
+def _arg(c) -> Expression:
+    """A function's argument: a column name, a Column, an Expression or
+    a literal value."""
+    return AttributeReference(c) if isinstance(c, str) else _expr(c)
+
+
+def _c(e: Expression) -> Column:
+    return Column(e)
+
+
+# -- aggregates --------------------------------------------------------------
+
 def sum(c) -> Column:  # noqa: A001
-    return Column(agg.AggregateExpression(agg.Sum(_expr(c))))
+    return _c(agg.AggregateExpression(agg.Sum(_arg(c))))
 
 
 def count(c="*") -> Column:
-    child = None if (isinstance(c, str) and c == "*") else _expr(c)
-    return Column(agg.AggregateExpression(agg.Count(child)))
+    child = None if (isinstance(c, str) and c == "*") else _arg(c)
+    return _c(agg.AggregateExpression(agg.Count(child)))
 
 
 def avg(c) -> Column:
-    return Column(agg.AggregateExpression(agg.Average(_expr(c))))
+    return _c(agg.AggregateExpression(agg.Average(_arg(c))))
 
 
 mean = avg
 
 
 def min(c) -> Column:  # noqa: A001
-    return Column(agg.AggregateExpression(agg.Min(_expr(c))))
+    return _c(agg.AggregateExpression(agg.Min(_arg(c))))
 
 
 def max(c) -> Column:  # noqa: A001
-    return Column(agg.AggregateExpression(agg.Max(_expr(c))))
+    return _c(agg.AggregateExpression(agg.Max(_arg(c))))
+
+
+# -- scalar ------------------------------------------------------------------
+
+def abs(c) -> Column:  # noqa: A001
+    return _c(ar.Abs(_arg(c)))
+
+
+def _unary(cls):
+    def fn(c) -> Column:
+        return _c(cls(_arg(c)))
+    fn.__name__ = cls.__name__.lower()
+    return fn
+
+
+sqrt = _unary(mx.Sqrt)
+exp = _unary(mx.Exp)
+expm1 = _unary(mx.Expm1)
+sin = _unary(mx.Sin)
+cos = _unary(mx.Cos)
+tan = _unary(mx.Tan)
+cot = _unary(mx.Cot)
+asin = _unary(mx.Asin)
+acos = _unary(mx.Acos)
+atan = _unary(mx.Atan)
+sinh = _unary(mx.Sinh)
+cosh = _unary(mx.Cosh)
+tanh = _unary(mx.Tanh)
+asinh = _unary(mx.Asinh)
+acosh = _unary(mx.Acosh)
+atanh = _unary(mx.Atanh)
+cbrt = _unary(mx.Cbrt)
+rint = _unary(mx.Rint)
+degrees = _unary(mx.ToDegrees)
+radians = _unary(mx.ToRadians)
+log2 = _unary(mx.Log2)
+log10 = _unary(mx.Log10)
+log1p = _unary(mx.Log1p)
+floor = _unary(mx.Floor)
+ceil = _unary(mx.Ceil)
+signum = _unary(mx.Signum)
+
+
+def log(a, b=None) -> Column:
+    """ln(a), or the logarithm of b to base a (pyspark's order)."""
+    if b is None:
+        return _c(mx.Log(_arg(a)))
+    return _c(mx.Logarithm(_arg(a), _arg(b)))
+
+
+def pow(l, r) -> Column:  # noqa: A001
+    return _c(mx.Pow(_arg(l), _arg(r)))
+
+
+def atan2(l, r) -> Column:
+    return _c(mx.Atan2(_arg(l), _arg(r)))
+
+
+def round(c, scale: int = 0) -> Column:  # noqa: A001
+    return _c(mx.Round(_arg(c), scale))
+
+
+def bround(c, scale: int = 0) -> Column:
+    return _c(mx.BRound(_arg(c), scale))
+
+
+def greatest(*cols) -> Column:
+    return _c(ar.Greatest(*[_arg(c) for c in cols]))
+
+
+def least(*cols) -> Column:
+    return _c(ar.Least(*[_arg(c) for c in cols]))
+
+
+def when(condition, value) -> "CaseBuilder":
+    return CaseBuilder([(_expr(condition), _expr(value))])
+
+
+class CaseBuilder(Column):
+    def __init__(self, branches):
+        self._branches = branches
+        super().__init__(cond.CaseWhen(branches))
+
+    def when(self, condition, value) -> "CaseBuilder":
+        return CaseBuilder(self._branches + [(_expr(condition),
+                                              _expr(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(cond.CaseWhen(self._branches, _expr(value)))
+
+
+def coalesce(*cols) -> Column:
+    return _c(cond.Coalesce(*[_arg(c) for c in cols]))
+
+
+def isnull(c) -> Column:
+    return _c(pred.IsNull(_arg(c)))
+
+
+def isnan(c) -> Column:
+    return _c(pred.IsNaN(_arg(c)))
+
+
+def expr_if(c, a, b) -> Column:
+    return _c(cond.If(_expr(c), _expr(a), _expr(b)))
 
 
 # -- window ------------------------------------------------------------------

@@ -34,6 +34,19 @@
 // Steps 4-5 run once for each set of up to 16 ops (the ops of a set are
 // passed by value); the key words of any count are read through a
 // device array of pointers.
+//
+// Min and max (kinds 3-6) replace the reference's ops/segmented.py
+// segment_reduce(xp, "min"|"max") on its jax branch (_argext_rows over
+// _ordered_words32): per group, the row of the extreme ordered word
+// among the contributing rows, the earliest in sorted order on a tie,
+// and that row's value bit for bit (so -0.0 stays -0.0).  An int64 lane
+// is its own word; a float64 lane's word is Spark's total order of
+// encode_float_ordered (-0.0 equals 0.0, NaN canonical and greatest).
+// The fold state is (the kept value's bits, its sorted position); two
+// states combine by word, then by position, which is associative and
+// commutative, so the fold, the head/tail partials and the fixup tree
+// carry it as they carry the sums, and the result is the same bits on
+// every run.  Max compares the other way; there is no inverted lane.
 // So every thread folds 16 rows whatever the key skew: a hot key that
 // holds 10M rows spans ~2,460 tiles and costs a ~2,460-partial tree in
 // step 5, not a 10M-row loop on one thread.  No float atomics: every
@@ -60,6 +73,10 @@ constexpr int kOpsPerLaunch = 16;
 constexpr int kCount = 0;
 constexpr int kSumInt = 1;
 constexpr int kSumFloat = 2;
+constexpr int kMinInt = 3;
+constexpr int kMaxInt = 4;
+constexpr int kMinFloat = 5;
+constexpr int kMaxFloat = 6;
 constexpr int kRows = srt::kRounds;  // consecutive sorted rows a thread
 constexpr unsigned kPosInf = 1, kNegInf = 2, kNaN = 4;
 
@@ -79,9 +96,14 @@ struct Ops {
   int count;
 };
 
-// A fold of some rows of one op: wrapping int sum, finite float sum,
-// contributor count, and which of +inf / -inf / NaN contributed.  Also
-// the layout of a per-tile partial.
+__host__ __device__ constexpr bool is_extreme(int kind) {
+  return kind >= kMinInt;
+}
+
+// A fold of some rows of one op: wrapping int sum (min/max: the kept
+// value's bits), finite float sum, contributor count, and which of
+// +inf / -inf / NaN contributed (min/max: the kept row's sorted
+// position).  Also the layout of a per-tile partial.
 struct Acc {
   unsigned long long i;
   double f;
@@ -91,14 +113,61 @@ struct Acc {
 
 __device__ __forceinline__ Acc zero_acc() { return Acc{0ull, 0.0, 0ll, 0u}; }
 
+// The ordered word of a min/max value's bits: signed order of the words
+// is the value order.
+template <int KIND>
+__device__ __forceinline__ long long ordered_word(long long bits) {
+  if (KIND == kMinFloat || KIND == kMaxFloat) {
+    if (((bits >> 52) & 0x7ff) == 0x7ff && (bits & 0xfffffffffffffll))
+      bits = 0x7ff8000000000000ll;                    // canonical NaN
+    if (bits == static_cast<long long>(0x8000000000000000ull))
+      bits = 0;                                       // -0.0 as 0.0
+    return bits < 0 ? bits ^ 0x7fffffffffffffffll : bits;
+  }
+  return bits;
+}
+
+// Whether the state (b, pb) is kept over (a, pa): the extreme word, then
+// the earlier sorted position.
+template <int KIND>
+__device__ __forceinline__ bool keeps(long long b, unsigned pb, long long a,
+                                      unsigned pa) {
+  const long long wb = ordered_word<KIND>(b), wa = ordered_word<KIND>(a);
+  if (wb != wa)
+    return (KIND == kMinInt || KIND == kMinFloat) ? wb < wa : wb > wa;
+  return pb < pa;
+}
+
 // a then b: a holds the earlier rows
+template <int KIND>
 __device__ __forceinline__ Acc combine(const Acc& a, const Acc& b) {
+  if (is_extreme(KIND)) {
+    const bool take_b =
+        b.n > 0 && (a.n == 0 || keeps<KIND>(static_cast<long long>(b.i),
+                                            b.flags,
+                                            static_cast<long long>(a.i),
+                                            a.flags));
+    return Acc{take_b ? b.i : a.i, 0.0, a.n + b.n,
+               take_b ? b.flags : a.flags};
+  }
   return Acc{a.i + b.i, a.f + b.f, a.n + b.n, a.flags | b.flags};
 }
 
-// One row: c says whether it contributes, bits are its value's 64 bits.
+// One row at sorted position pos: c says whether it contributes, bits
+// are its value's 64 bits.
 template <int KIND>
-__device__ __forceinline__ void add_row(Acc& a, bool c, long long bits) {
+__device__ __forceinline__ void add_row(Acc& a, bool c, long long bits,
+                                        unsigned pos) {
+  if (is_extreme(KIND)) {
+    if (c && (a.n == 0 || keeps<KIND>(bits, pos,
+                                      static_cast<long long>(a.i),
+                                      a.flags))) {
+      a.i = static_cast<unsigned long long>(bits);
+      a.flags = pos;
+    }
+    a.n += c ? 1 : 0;
+    return;
+  }
   a.n += c ? 1 : 0;
   if (KIND == kSumInt) {
     a.i += c ? static_cast<unsigned long long>(bits) : 0ull;
@@ -117,7 +186,11 @@ __device__ __forceinline__ void add_row(Acc& a, bool c, long long bits) {
 __device__ __forceinline__ void write_group(const Ops& ops, int kind, int k,
                                             int g, const Acc& a) {
   ops.counts[k][g] = a.n;
-  if (kind == kSumInt) {
+  if (is_extreme(kind)) {
+    // no contributor: null, canonical zero under it
+    static_cast<long long*>(ops.sums[k])[g] =
+        a.n > 0 ? static_cast<long long>(a.i) : 0ll;
+  } else if (kind == kSumInt) {
     static_cast<long long*>(ops.sums[k])[g] = static_cast<long long>(a.i);
   } else if (kind == kSumFloat) {
     double s = a.f;
@@ -156,13 +229,15 @@ struct Seg {
 };
 
 // x then y
+template <int KIND>
 __device__ __forceinline__ Seg seg_op(const Seg& x, const Seg& y) {
-  return Seg{y.start ? y.a : combine(x.a, y.a), x.start | y.start};
+  return Seg{y.start ? y.a : combine<KIND>(x.a, y.a), x.start | y.start};
 }
 
 // Block-wide segmented scan in thread order: *excl gets threads
 // [0, tid), *incl threads [0, tid].  s_warp: kWarps shared entries.
 // Ends with a barrier, so s_warp can be used again.
+template <int KIND>
 __device__ void block_seg_scan(Seg x, Seg* s_warp, Seg* excl, Seg* incl) {
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -171,15 +246,15 @@ __device__ void block_seg_scan(Seg x, Seg* s_warp, Seg* excl, Seg* incl) {
   for (int off = 1; off < 32; off <<= 1) {
     const Seg y{shfl_up(in.a, off),
                 __shfl_up_sync(0xffffffffu, in.start, off)};
-    if (lane >= off) in = seg_op(y, in);
+    if (lane >= off) in = seg_op<KIND>(y, in);
   }
   Seg before{shfl_up(in.a, 1), __shfl_up_sync(0xffffffffu, in.start, 1)};
   if (lane == 31) s_warp[w] = in;
   __syncthreads();
   Seg pre{zero_acc(), 0};
-  for (int q = 0; q < w; ++q) pre = seg_op(pre, s_warp[q]);
-  *excl = lane == 0 ? pre : (w == 0 ? before : seg_op(pre, before));
-  *incl = w == 0 ? in : seg_op(pre, in);
+  for (int q = 0; q < w; ++q) pre = seg_op<KIND>(pre, s_warp[q]);
+  *excl = lane == 0 ? pre : (w == 0 ? before : seg_op<KIND>(pre, before));
+  *incl = w == 0 ? in : seg_op<KIND>(pre, in);
   __syncthreads();
 }
 
@@ -312,6 +387,8 @@ __device__ void fold_op(const Ops& ops, int k, const int* s_rows,
   c &= valid;
   Acc first_run = zero_acc(), run = zero_acc();
   int seen = 0;
+  const unsigned pos0 = static_cast<unsigned>(
+      (long long)blockIdx.x * srt::kTile + threadIdx.x * kRows);
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     if ((mask >> j) & 1u) {
@@ -322,14 +399,14 @@ __device__ void fold_op(const Ops& ops, int k, const int* s_rows,
       ++seen;
       run = zero_acc();
     }
-    add_row<KIND>(run, (c >> j) & 1u, bits[j]);
+    add_row<KIND>(run, (c >> j) & 1u, bits[j], pos0 + j);
   }
   Seg excl, incl;
-  block_seg_scan(Seg{run, seen > 0}, s_seg, &excl, &incl);
+  block_seg_scan<KIND>(Seg{run, seen > 0}, s_seg, &excl, &incl);
   const long long part = (long long)blockIdx.x * ops.count + k;
   if (seen > 0) {
     // the group open at this thread's first start closes there
-    const Acc a = combine(excl.a, first_run);
+    const Acc a = combine<KIND>(excl.a, first_run);
     if (before > 0)
       write_group(ops, KIND, k, slot0 - 1, a);
     else
@@ -370,6 +447,33 @@ fold_kernel(Ops ops, int k, const int* order, int n,
                   s_seg);
 }
 
+// Op k of the group begun at tile t's last start: the tail partial,
+// then the head partials of tiles [lo, hi) of each thread.
+template <int KIND>
+__device__ void fixup_op(const Ops& ops, int k, int t, int slot, int lo,
+                         int hi, const Acc* head, const Acc* tail,
+                         Acc* s_warp) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  Acc a = zero_acc();
+  for (int u = lo; u < hi; ++u)
+    a = combine<KIND>(a, head[(long long)u * ops.count + k]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Acc b = shfl_down(a, off);
+    if (lane + off < 32) a = combine<KIND>(a, b);
+  }
+  if (lane == 0) s_warp[w] = a;
+  __syncthreads();
+  if (tid == 0) {
+    Acc r = tail[(long long)t * ops.count + k];
+    for (int q = 0; q < srt::kWarps; ++q) r = combine<KIND>(r, s_warp[q]);
+    write_group(ops, ops.kind[k], k, slot, r);
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(srt::kThreads)
 fixup_kernel(Ops ops, const int* tile_counts, const int* tile_offsets,
              int tiles, const Acc* head, const Acc* tail) {
@@ -378,8 +482,6 @@ fixup_kernel(Ops ops, const int* tile_counts, const int* tile_offsets,
   const int t = blockIdx.x;
   if (tile_counts[t] == 0) return;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int w = tid >> 5;
   // the group runs on through every tile up to and including the next
   // one that holds a start (or the last tile)
   int end = tiles;
@@ -403,22 +505,22 @@ fixup_kernel(Ops ops, const int* tile_counts, const int* tile_offsets,
   const int slot = tile_offsets[t] + tile_counts[t] - 1;
 #pragma unroll 1
   for (int k = 0; k < ops.count; ++k) {
-    Acc a = zero_acc();
-    for (int u = lo; u < hi; ++u)
-      a = combine(a, head[(long long)u * ops.count + k]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const Acc b = shfl_down(a, off);
-      if (lane + off < 32) a = combine(a, b);
+    switch (ops.kind[k]) {
+      case kMinInt:
+        fixup_op<kMinInt>(ops, k, t, slot, lo, hi, head, tail, s_warp);
+        break;
+      case kMaxInt:
+        fixup_op<kMaxInt>(ops, k, t, slot, lo, hi, head, tail, s_warp);
+        break;
+      case kMinFloat:
+        fixup_op<kMinFloat>(ops, k, t, slot, lo, hi, head, tail, s_warp);
+        break;
+      case kMaxFloat:
+        fixup_op<kMaxFloat>(ops, k, t, slot, lo, hi, head, tail, s_warp);
+        break;
+      default:  // counts and sums combine alike; write_group tells them
+        fixup_op<kCount>(ops, k, t, slot, lo, hi, head, tail, s_warp);
     }
-    if (lane == 0) s_warp[w] = a;
-    __syncthreads();
-    if (tid == 0) {
-      Acc r = tail[(long long)t * ops.count + k];
-      for (int q = 0; q < srt::kWarps; ++q) r = combine(r, s_warp[q]);
-      write_group(ops, ops.kind[k], k, slot, r);
-    }
-    __syncthreads();
   }
 }
 
@@ -480,8 +582,10 @@ extern "C" long long srt_segment_reduce_scratch_bytes(int n, int nwords,
 // rows are already in key order); all lanes in input order, sorted row
 // i being input row order[i].  Per op k: vals[k] (int64 or float64[n],
 // null for a count), contrib[k] (bool[n]), kind[k] (0 count, 1 int64
-// sum, 2 float64 sum), sums[k] (int64 or float64[max(n, 1)], null for a
-// count), counts[k] (int64[max(n, 1)]); host arrays of nops entries.
+// sum, 2 float64 sum, 3 / 4 int64 min / max, 5 / 6 float64 min / max),
+// sums[k] (the lane's type, [max(n, 1)], null for a count; min and max
+// write the kept value's bits, 0 where no row contributed), counts[k]
+// (int64[max(n, 1)]); host arrays of nops entries.
 // Groups fill slots [0, *groups) in key order; first_row[g] is the input
 // row of group g's first sorted row.  Rows before the first group start
 // belong to no group.  The starts are found once; the ops are folded
@@ -501,7 +605,7 @@ extern "C" int srt_segment_reduce(const long long* const* words, int nwords,
   if (nwords < 0 || nops < 0 || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < nops; ++k)
-    if (kind[k] < kCount || kind[k] > kSumFloat)
+    if (kind[k] < kCount || kind[k] > kMaxFloat)
       return static_cast<int>(cudaErrorInvalidValue);
   // the ops of set s: [s * kOpsPerLaunch, +ops.count)
   auto op_set = [&](int s) {
@@ -558,15 +662,19 @@ extern "C" int srt_segment_reduce(const long long* const* words, int nwords,
     for (int k = 0; k < (ops.count > 0 ? ops.count : 1); ++k) {
       int* fr = s == 0 && k == 0 ? first_row : nullptr;
       const int kk = k < ops.count ? ops.kind[k] : kCount;
-      if (kk == kSumInt)
-        fold_kernel<kSumInt><<<tiles, srt::kThreads, 0, stream>>>(
-            ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
-      else if (kk == kSumFloat)
-        fold_kernel<kSumFloat><<<tiles, srt::kThreads, 0, stream>>>(
-            ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
-      else
-        fold_kernel<kCount><<<tiles, srt::kThreads, 0, stream>>>(
-            ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail);
+#define SRT_FOLD(KIND)                                                    \
+  fold_kernel<KIND><<<tiles, srt::kThreads, 0, stream>>>(                 \
+      ops, k, order, n, l.masks, l.tile_offsets, fr, l.head, l.tail)
+      switch (kk) {
+        case kSumInt: SRT_FOLD(kSumInt); break;
+        case kSumFloat: SRT_FOLD(kSumFloat); break;
+        case kMinInt: SRT_FOLD(kMinInt); break;
+        case kMaxInt: SRT_FOLD(kMaxInt); break;
+        case kMinFloat: SRT_FOLD(kMinFloat); break;
+        case kMaxFloat: SRT_FOLD(kMaxFloat); break;
+        default: SRT_FOLD(kCount);
+      }
+#undef SRT_FOLD
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }

@@ -4,7 +4,8 @@ host engine's aggregate.
 Counterpart of spark_rapids_tpu/exec/aggregate.py (TpuHashAggregateExec
 and its _group_reduce, CpuHashAggregateExec).  Per batch: evaluate the grouping keys and the
 update inputs, build order-preserving int64 key words, sort the live
-rows stably by them (kernel K2), and reduce each group (kernel K3),
+rows stably by them (kernel K2), and reduce each group (kernel K3: sums,
+counts, min and max),
 which reads the lanes through K2's order: no lane is gathered into key
 order first.  Across batches: concatenate the partial buffers, order
 them by key and buffer words (the canonical keyed merge), and reduce
@@ -31,7 +32,7 @@ from ..columnar.device import (DeviceBatch, DeviceColumn, batch_to_device,
                                bucket_for, column_to_arrow)
 from ..columnar.interop import to_arrow_schema, to_arrow_type
 from ..expr.aggregates import (COMPLETE, PARTIAL, AggregateExpression,
-                               Average, Count, Sum, bind_aggregate)
+                               Average, Count, Max, Min, Sum, bind_aggregate)
 from ..expr.core import (ColumnValue, EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
 from ..ops import segmented as seg
@@ -41,21 +42,45 @@ from .base import CPU, Exec, ExecContext
 from .concat import concat_batches
 
 _KIND_COUNT, _KIND_SUM_INT, _KIND_SUM_FLOAT = 0, 1, 2
+# min / max of an int64 lane, then of a float64 lane
+_KIND_EXTREME = {("min", False): 3, ("max", False): 4, ("min", True): 5,
+                 ("max", True): 6}
 
 
 # ---------------------------------------------------------------------------
 # K3: grouped reduce over rows read in key order
 # ---------------------------------------------------------------------------
 
+def _op_names(values, ops) -> List[str]:
+    """Each op's name: ``count`` for a None value, else ``ops[k]`` (sum,
+    min or max; every value sums when ``ops`` is None)."""
+    if ops is None:
+        ops = ["sum"] * len(values)
+    if len(ops) != len(values):
+        raise ValueError("segment_reduce_sorted: one op per value lane")
+    names = []
+    for v, op in zip(values, ops):
+        if v is None:
+            names.append("count")
+        elif op in ("sum", "min", "max"):
+            names.append(op)
+        else:
+            raise ValueError(f"segment_reduce_sorted: op {op!r}")
+    return names
+
+
 def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
                                 live: Optional[torch.Tensor],
                                 values: Sequence[Optional[torch.Tensor]],
                                 contribs: Sequence[torch.Tensor],
                                 global_agg: bool,
-                                order: Optional[torch.Tensor] = None):
+                                order: Optional[torch.Tensor] = None,
+                                ops: Optional[Sequence[str]] = None):
     """Plain version of K3: the lanes put in key order by index_select,
-    then boundaries, segment ids and index_add_.  See
-    ``segment_reduce_sorted`` for the arguments and the result."""
+    then boundaries, segment ids, index_add_ and, for min and max,
+    ``ops/segmented.py:segment_reduce``.  See ``segment_reduce_sorted``
+    for the arguments and the result."""
+    names = _op_names(values, ops)
     if order is not None:
         idx = order.to(torch.int64)
         words = [w.index_select(0, idx) for w in words]
@@ -78,7 +103,12 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
         ids = seg.segment_ids(new_group).to(torch.int64)
     grouped = ids >= 0            # rows before the first start: no group
     sums, counts = [], []
-    for v, c in zip(values, contribs):
+    for v, c, op in zip(values, contribs, names):
+        if op in ("min", "max"):
+            out, cnt = seg.segment_reduce(op, v, ids, groups, c & grouped)
+            sums.append(out)
+            counts.append(cnt)
+            continue
         c = c & grouped
         idx = ids[c]
 
@@ -126,7 +156,8 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                           values: Sequence[Optional[torch.Tensor]],
                           contribs: Sequence[torch.Tensor],
                           global_agg: bool,
-                          order: Optional[torch.Tensor] = None):
+                          order: Optional[torch.Tensor] = None,
+                          ops: Optional[Sequence[str]] = None):
     """Reduce rows per group, reading them in key order (K3).
 
     Every lane is in input order; ``order`` (int32, K2's permutation)
@@ -136,18 +167,23 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     from the previous one in a key word; rows before the first start
     belong to no group; with ``global_agg`` all rows form one group.  Per
     op k, ``contribs[k]`` marks the rows that contribute and
-    ``values[k]`` is the int64 or float64 lane to sum (None for a count).
-    Returns (first_row int32[G], sums, counts int64[G], G), groups in key
-    order, ``first_row[g]`` the input row of group g's first sorted row:
-    int64 sums wrap mod 2^64; float64 sums add the finite values and are
-    NaN if any NaN or both infinities contribute, else +-inf if one
-    does; a sum with no contributor is 0."""
+    ``values[k]`` is the int64 or float64 lane to reduce (None for a
+    count) by ``ops[k]``: ``sum`` (every op when ``ops`` is None),
+    ``min`` or ``max``.  Returns (first_row int32[G], sums, counts
+    int64[G], G), groups in key order, ``first_row[g]`` the input row of
+    group g's first sorted row: int64 sums wrap mod 2^64; float64 sums
+    add the finite values and are NaN if any NaN or both infinities
+    contribute, else +-inf if one does; a min or max is the value, bit
+    for bit, of the group's earliest sorted row whose ordered word
+    (``ops/segmented.py:ordered_word``) is the extreme; a result with no
+    contributor is 0."""
+    names = _op_names(values, ops)
     lanes = _lanes(words, live, values, contribs)
     if order is not None:
         lanes.append(order)
     if lanes[0].device.type == "cpu":
         return segment_reduce_sorted_plain(words, live, values, contribs,
-                                           global_agg, order)
+                                           global_agg, order, ops)
     kernels.require_cuda("segment_reduce_sorted", *lanes)
     n = int(lanes[0].shape[0])
     if any(c.dtype != torch.bool or c.shape != (n,)
@@ -167,9 +203,11 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     dev = lanes[0].device
     m = max(n, 1)
     lib = kernels.library("segment_reduce")
-    kinds = [_KIND_COUNT if v is None else
+    kinds = [_KIND_COUNT if op == "count" else
+             _KIND_EXTREME[op, v.dtype == torch.float64]
+             if op in ("min", "max") else
              _KIND_SUM_FLOAT if v.dtype == torch.float64 else _KIND_SUM_INT
-             for v in values]
+             for v, op in zip(values, names)]
     sums = [None if v is None else torch.empty(m, dtype=v.dtype, device=dev)
             for v in values]
     counts = [torch.empty(m, dtype=torch.int64, device=dev) for _ in values]
@@ -212,13 +250,21 @@ def _padded(x: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
+def _extreme_lane(col: DeviceColumn) -> torch.Tensor:
+    """A min/max input as K3 reads it: float64 as it is, any other flat
+    type widened to int64."""
+    if col.data.dtype == torch.float64:
+        return col.data
+    return col.data.to(torch.int64)
+
+
 def k3_ops(vals: List[DeviceColumn], ops: List[str]):
-    """K3's value lanes and contributor masks for ``vals`` reduced by
-    ``ops``, and for each op the index of the K3 op whose result it
-    takes.  A count of a lane's valid rows is also the contributor count
-    of an earlier op over the same validity lane (avg's sum and count),
-    so K3 folds that lane once."""
-    k3_vals, k3_contribs, take, by_lane = [], [], [], {}
+    """K3's value lanes, contributor masks and op names for ``vals``
+    reduced by ``ops`` (sum, countvalid, min, max), and for each op the
+    index of the K3 op whose result it takes.  A count of a lane's valid
+    rows is also the contributor count of an earlier op over the same
+    validity lane (avg's sum and count), so K3 folds that lane once."""
+    k3_vals, k3_contribs, k3_names, take, by_lane = [], [], [], [], {}
     for v, op in zip(vals, ops):
         lane = v.validity.data_ptr()
         if op == "countvalid" and lane in by_lane:
@@ -226,9 +272,15 @@ def k3_ops(vals: List[DeviceColumn], ops: List[str]):
             continue
         by_lane.setdefault(lane, len(k3_vals))
         take.append(len(k3_vals))
-        k3_vals.append(v.data if op == "sum" else None)
+        if op == "countvalid":
+            k3_vals.append(None)
+        elif op == "sum":
+            k3_vals.append(v.data)
+        else:
+            k3_vals.append(_extreme_lane(v))
+        k3_names.append("sum" if op == "countvalid" else op)
         k3_contribs.append(v.validity)
-    return k3_vals, k3_contribs, take
+    return k3_vals, k3_contribs, k3_names, take
 
 
 def _group_reduce(key_cols: List[DeviceColumn],
@@ -237,7 +289,8 @@ def _group_reduce(key_cols: List[DeviceColumn],
                   order: Optional[torch.Tensor] = None
                   ) -> Tuple[List[DeviceColumn], List[DeviceColumn], int]:
     """Group the first ``num_rows`` rows by ``key_cols`` and reduce each
-    value column with its op (``sum`` or ``countvalid``).  ``order``, when
+    value column with its op (``sum``, ``countvalid``, ``min`` or
+    ``max``; a min or max keeps the column's type).  ``order``, when
     given, is a permutation that already sorts the rows by key; else the
     rows are sorted here (K2).  Returns (key columns, value columns, group
     count); the outputs hold one row per group, padded to a capacity
@@ -248,19 +301,19 @@ def _group_reduce(key_cols: List[DeviceColumn],
     always a prefix here, so only the prefix is sorted, which gives the
     same order, and K3 reads the lanes through the order."""
     for op in ops:
-        if op not in ("sum", "countvalid"):
+        if op not in ("sum", "countvalid", "min", "max"):
             raise NotImplementedError(
-                f"aggregate op {op!r} is not ported (the grouped min, max, "
-                f"first and last wait for P8)")
+                f"aggregate op {op!r} is not ported (the grouped first and "
+                f"last wait for P8)")
     n = num_rows
     keys = [_prefix(c, n) for c in key_cols]
     vals = [_prefix(c, n) for c in value_cols]
     words = [w for kc in keys for w in seg.key_words_for_column(kc)]
     if order is None and words:
         order = sort_order(words)
-    k3_vals, k3_contribs, take = k3_ops(vals, ops)
+    k3_vals, k3_contribs, k3_names, take = k3_ops(vals, ops)
     first_row, sums, counts, groups = segment_reduce_sorted(
-        words, None, k3_vals, k3_contribs, global_agg, order)
+        words, None, k3_vals, k3_contribs, global_agg, order, k3_names)
     cap = bucket_for(groups)
     out_keys = []
     for kc in keys:
@@ -275,6 +328,10 @@ def _group_reduce(key_cols: List[DeviceColumn],
             out_vals.append(DeviceColumn(
                 t.LONG, _padded(cnt, cap),
                 _padded(torch.ones_like(cnt, dtype=torch.bool), cap)))
+        elif op in ("min", "max"):
+            out_vals.append(DeviceColumn(
+                vc.dtype, _padded(s.to(vc.dtype.torch_dtype), cap),
+                _padded(cnt > 0, cap)))
         else:
             out_vals.append(DeviceColumn(vc.dtype, _padded(s, cap),
                                          _padded(cnt > 0, cap)))
@@ -443,8 +500,10 @@ class GpuHashAggregateExec(Exec):
 # the host engine's aggregate: pyarrow group_by
 # ---------------------------------------------------------------------------
 
-_PA_AGG = {Sum: "sum", Count: "count", Average: "mean"}
-_PA_SCALAR = {"sum": pc.sum, "count": pc.count, "mean": pc.mean}
+_PA_AGG = {Sum: "sum", Count: "count", Average: "mean", Min: "min",
+           Max: "max"}
+_PA_SCALAR = {"sum": pc.sum, "count": pc.count, "mean": pc.mean,
+              "min": pc.min, "max": pc.max}
 
 
 class CpuHashAggregateExec(Exec):
@@ -530,7 +589,7 @@ class CpuHashAggregateExec(Exec):
             if type(ae.func) not in _PA_AGG:
                 raise NotImplementedError(
                     f"aggregate {type(ae.func).__name__} is not ported (the "
-                    f"grouped min, max, first and last wait for P8)")
+                    f"grouped first and last wait for P8)")
         aggs = [(f"__in{i}", _PA_AGG[type(ae.func)], None)
                 for i, ae in enumerate(self.aggregates)]
         if self.grouping:

@@ -6,8 +6,8 @@ buffer), its buffer types, its merge ops over partial buffers, and the
 expression that evaluates the final value from merged buffers.  Ops are
 ``sum``, ``countvalid`` (the count of non-null rows), ``min`` and
 ``max``; a buffer's group is null when no row contributed to it.  Min
-and Max run over windows (exec/window.py); the grouped min and max
-(exec/aggregate.py) are not ported yet.
+and Max run grouped and global (exec/aggregate.py, K3's min and max
+folds) and over windows (exec/window.py).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from .. import types as t
-from .arithmetic import Cast
+from .cast import Cast
 from .core import (ColumnValue, EvalContext, Expression, Literal,
                    bind_expression, make_column)
 

@@ -1,9 +1,14 @@
-"""Comparisons and three-valued boolean logic.
+"""Comparisons, three-valued boolean logic, null tests and IN.
 
 Counterpart of spark_rapids_tpu/expr/predicates.py for numeric and
 boolean operands: FALSE AND NULL is FALSE, TRUE OR NULL is TRUE, and
 doubles follow Spark's total order (NaN equals NaN and is greater than
-every other value).
+every other value).  ``<=>`` is true for two nulls; IS NULL, IS NOT
+NULL and isnan are never null; IN is null when the value is null, or
+when nothing matches and the list holds a null.  IN compares doubles as
+``=`` does (NaN IN (NaN) is true, Spark's answer); the reference's IN
+compares them by IEEE ``==`` (ROADMAP.md Queue 3).  String operands
+wait for Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -41,6 +46,10 @@ class EqualTo(BinaryComparison):
     symbol = "="
 
 
+class EqualNullSafe(BinaryComparison):
+    symbol = "<=>"
+
+
 class LessThan(BinaryComparison):
     symbol = "<"
 
@@ -57,8 +66,7 @@ class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
 
 
-def _cmp_inputs(e: BinaryComparison, ctx: EvalContext):
-    lv, rv = e.left.eval(ctx), e.right.eval(ctx)
+def _cmp_values(e: BinaryComparison, ctx: EvalContext, lv, rv):
     lt, rt = e.left.data_type(), e.right.data_type()
     common = promote(lt, rt)
     sides = []
@@ -70,17 +78,45 @@ def _cmp_inputs(e: BinaryComparison, ctx: EvalContext):
     ld, rd = sides
     if ld.dim() == 0 and rd.dim() == 0:
         ld = ld.expand(ctx.capacity)
+    return ld, rd, common
+
+
+def _cmp_inputs(e: BinaryComparison, ctx: EvalContext):
+    lv, rv = e.left.eval(ctx), e.right.eval(ctx)
+    ld, rd, common = _cmp_values(e, ctx, lv, rv)
     return ld, rd, common, and_validity(ctx, validity_of(lv),
                                         validity_of(rv))
+
+
+def _equal(ld, rd, common: t.DataType):
+    data = ld == rd
+    if common == t.DOUBLE:
+        data = data | (torch.isnan(ld) & torch.isnan(rd))
+    return data
 
 
 @evaluator(EqualTo)
 def _eval_eq(e: EqualTo, ctx: EvalContext):
     ld, rd, common, v = _cmp_inputs(e, ctx)
-    data = ld == rd
-    if common == t.DOUBLE:
-        data = data | (torch.isnan(ld) & torch.isnan(rd))
-    return make_column(ctx, t.BOOLEAN, data, v)
+    return make_column(ctx, t.BOOLEAN, _equal(ld, rd, common), v)
+
+
+def _full_validity(ctx: EvalContext, v):
+    val = validity_of(v)
+    if val is None:
+        return torch.ones(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    if val is False:
+        return torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    return val
+
+
+@evaluator(EqualNullSafe)
+def _eval_eq_ns(e: EqualNullSafe, ctx: EvalContext):
+    lv, rv = e.left.eval(ctx), e.right.eval(ctx)
+    ld, rd, common = _cmp_values(e, ctx, lv, rv)
+    va, vb = _full_validity(ctx, lv), _full_validity(ctx, rv)
+    data = (va & vb & _equal(ld, rd, common)) | (~va & ~vb)
+    return make_column(ctx, t.BOOLEAN, data, None)
 
 
 def _eval_ordering(e: BinaryComparison, ctx: EvalContext, flip: bool,
@@ -185,3 +221,96 @@ def _eval_not(e: Not, ctx: EvalContext):
     d, v = _bool_parts(ctx, e.children[0].eval(ctx))
     return make_column(ctx, t.BOOLEAN, ~d & v, v)
 
+
+
+# ---------------------------------------------------------------------------
+# null tests
+# ---------------------------------------------------------------------------
+
+class IsNull(Expression):
+    def __init__(self, child):
+        self.children = (child,)
+
+    def data_type(self):
+        return t.BOOLEAN
+
+    def sql(self):
+        return f"({self.children[0].sql()} IS NULL)"
+
+
+class IsNotNull(IsNull):
+    def sql(self):
+        return f"({self.children[0].sql()} IS NOT NULL)"
+
+
+class IsNaN(Expression):
+    def __init__(self, child):
+        self.children = (child,)
+
+    def data_type(self):
+        return t.BOOLEAN
+
+
+def _eval_isnull(e: IsNull, ctx: EvalContext):
+    val = _full_validity(ctx, e.children[0].eval(ctx))
+    return make_column(ctx, t.BOOLEAN,
+                       val if type(e) is IsNotNull else ~val, None)
+
+
+evaluator(IsNull)(_eval_isnull)
+evaluator(IsNotNull)(_eval_isnull)
+
+
+@evaluator(IsNaN)
+def _eval_isnan(e: IsNaN, ctx: EvalContext):
+    """isnan(null) is false."""
+    v = e.children[0].eval(ctx)
+    val = _full_validity(ctx, v)
+    d = data_of(v)
+    if e.children[0].data_type() != t.DOUBLE:
+        return make_column(ctx, t.BOOLEAN, torch.zeros_like(val), None)
+    nan = torch.isnan(d) if isinstance(d, torch.Tensor) else \
+        torch.full_like(val, d != d)
+    return make_column(ctx, t.BOOLEAN, nan & val, None)
+
+
+# ---------------------------------------------------------------------------
+# IN
+# ---------------------------------------------------------------------------
+
+class In(Expression):
+    """value IN (literals...)."""
+
+    def __init__(self, value: Expression, items):
+        self.children = (value,)
+        self.items = tuple(items)            # Literal expressions
+
+    def data_type(self):
+        return t.BOOLEAN
+
+    def sql(self):
+        return (f"({self.children[0].sql()} IN "
+                f"({', '.join(i.sql() for i in self.items)}))")
+
+
+@evaluator(In)
+def _eval_in(e: In, ctx: EvalContext):
+    v = e.children[0].eval(ctx)
+    val = _full_validity(ctx, v)
+    dt = e.children[0].data_type()
+    d = data_of(v)
+    matched = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    has_null = False
+    for item in e.items:
+        if item.value is None:
+            has_null = True
+            continue
+        common = promote(dt, item.dtype)
+        ld = cast_data(d, dt, common)
+        if not isinstance(ld, torch.Tensor):
+            ld = torch.full((ctx.capacity,), ld, dtype=common.torch_dtype,
+                            device=ctx.device)
+        rd = cast_data(item.value, item.dtype, common)
+        matched = matched | (torch.isnan(ld) if rd != rd else ld == rd)
+    validity = val & matched if has_null else val
+    return make_column(ctx, t.BOOLEAN, matched & val, validity)

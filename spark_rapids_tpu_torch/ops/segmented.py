@@ -44,6 +44,53 @@ def encode_float_ordered(data: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ _LOW63, bits)
 
 
+def ordered_word(values: torch.Tensor) -> torch.Tensor:
+    """The int64 word of a min/max value lane, whose signed order is the
+    value order: an int64 lane (LONG, and INT and BOOLEAN widened) is its
+    own word; a float64 lane takes Spark's total order of
+    ``encode_float_ordered`` (-0.0 equals 0.0, NaN is canonical and
+    greatest), carried as the reference's uint64 word XOR 2^63.  The
+    flat-type counterpart of the reference's ``_ordered_words32``, which
+    splits the same order into int32 words for the TPU's scatters."""
+    if values.dtype == torch.float64:
+        return encode_float_ordered(values)
+    return values.to(torch.int64)
+
+
+def segment_reduce(op: str, values: torch.Tensor, seg_ids: torch.Tensor,
+                   num_segments: int, valid: torch.Tensor):
+    """Plain per-segment min or max: (out[num_segments],
+    count_valid[num_segments]).  Rows with ``valid`` false or a negative
+    segment id do not contribute.  A segment's result is the value, bit
+    for bit, of its first row (lowest index) whose ordered word is the
+    least (min) or greatest (max): the reference's ``segment_reduce``
+    on its jax branch (``_argext_rows``).  A segment no row reached is
+    0."""
+    if op not in ("min", "max"):
+        raise ValueError(f"segment_reduce: op {op!r} (min or max)")
+    n, dev = int(values.shape[0]), values.device
+    take = valid & (seg_ids >= 0)
+    ids = seg_ids[take].to(torch.int64)
+    cnt = torch.zeros(num_segments, dtype=torch.int64, device=dev)
+    cnt.index_add_(0, ids, torch.ones_like(ids))
+    out = torch.zeros(num_segments, dtype=values.dtype, device=dev)
+    if ids.numel() == 0:
+        return out, cnt
+    w = ordered_word(values)[take]
+    if op == "max":
+        w = ~w                      # NOT reverses the signed order
+    best = torch.full((num_segments,), _LOW63, dtype=torch.int64,
+                      device=dev).scatter_reduce_(0, ids, w, "amin")
+    hit = w == best[ids]
+    pos = torch.arange(n, device=dev)[take]
+    row = torch.full((num_segments,), n, dtype=torch.int64,
+                     device=dev).scatter_reduce_(0, ids[hit], pos[hit],
+                                                 "amin")
+    got = cnt > 0
+    out[got] = values[row[got]]
+    return out, cnt
+
+
 def sort_key_words(col: DeviceColumn, ascending: bool = True,
                    nulls_first: bool = True) -> List[torch.Tensor]:
     """Sort key words for one column, most significant first: the null

@@ -49,10 +49,12 @@ from ..exec.join import CpuJoinExec, HashJoinExec, NestedLoopJoinExec
 from ..exec.sort import SortExec
 from ..exec.window import WindowExec
 from ..expr import aggregates as agg
+from ..expr import arithmetic as ar
+from ..expr import conditional as cond
+from ..expr import mathexpr as mx
 from ..expr import predicates as pred
 from ..expr import window as win
-from ..expr.arithmetic import Cast
-from ..expr.conditional import Coalesce
+from ..expr.cast import Cast, cast_supported_on_gpu
 from ..expr.core import (Alias, AttributeReference, BoundReference,
                          Expression, Literal, bind_expression)
 from ..expr.hashfns import Murmur3Hash
@@ -65,17 +67,19 @@ from ..types import T, TypeSig
 # ---------------------------------------------------------------------------
 
 class ExprRule:
-    def __init__(self, sig: TypeSig):
+    def __init__(self, sig: TypeSig, tag_fn=None):
         self.sig = sig
+        self.tag_fn = tag_fn
 
 
 EXPR_RULES: Dict[Type[Expression], ExprRule] = {}
 
 
-def expr_rule(cls, sig: TypeSig):
-    EXPR_RULES[cls] = ExprRule(sig)
+def expr_rule(cls, sig: TypeSig, tag_fn=None):
+    EXPR_RULES[cls] = ExprRule(sig, tag_fn)
 
 
+_num = T.numeric64
 _common = T.common_scalar
 _cmp = T.numeric64 + T.BOOLEAN + T.NULL
 
@@ -83,17 +87,43 @@ expr_rule(Literal, T.all_types)
 expr_rule(Alias, T.all_types.nested())
 expr_rule(AttributeReference, _common.nested())
 expr_rule(BoundReference, _common.nested())
-for c in (pred.EqualTo, pred.LessThan, pred.LessThanOrEqual,
-          pred.GreaterThan, pred.GreaterThanOrEqual):
+for c in (ar.Add, ar.Subtract, ar.Multiply, ar.Divide, ar.IntegralDivide,
+          ar.Remainder, ar.Pmod, ar.UnaryMinus, ar.UnaryPositive, ar.Abs,
+          ar.Greatest, ar.Least):
+    expr_rule(c, _num)
+for c in (pred.EqualTo, pred.EqualNullSafe, pred.LessThan,
+          pred.LessThanOrEqual, pred.GreaterThan, pred.GreaterThanOrEqual,
+          pred.In):
     expr_rule(c, _cmp)
 for c in (pred.And, pred.Or, pred.Not):
     expr_rule(c, T.BOOLEAN)
-expr_rule(Coalesce, _cmp)
-expr_rule(Cast, T.all_types)
+for c in (pred.IsNull, pred.IsNotNull, pred.IsNaN):
+    expr_rule(c, _common)
+for c in (cond.If, cond.CaseWhen, cond.Coalesce, cond.NullIf, cond.Nvl):
+    expr_rule(c, _cmp)
+for c in (mx.Sqrt, mx.Exp, mx.Expm1, mx.Sin, mx.Cos, mx.Tan, mx.Asin,
+          mx.Acos, mx.Atan, mx.Sinh, mx.Cosh, mx.Tanh, mx.Cbrt, mx.Rint,
+          mx.ToDegrees, mx.ToRadians, mx.Log, mx.Log2, mx.Log10, mx.Log1p,
+          mx.Pow, mx.Atan2, mx.Signum, mx.Round, mx.BRound, mx.Floor,
+          mx.Ceil, mx.Asinh, mx.Acosh, mx.Atanh, mx.Cot, mx.Logarithm):
+    expr_rule(c, _num)
+
+
+def _tag_cast(meta: "ExprMeta"):
+    e = meta.expr
+    src = e.child.data_type()
+    if not cast_supported_on_gpu(src, e.to):
+        meta.will_not_work(
+            f"cast from {src.name} to {e.to.name} is not supported on GPU")
+
+
+expr_rule(Cast, T.all_types, _tag_cast)
 expr_rule(Murmur3Hash, T.INT)
 expr_rule(agg.Sum, T.numeric)
 expr_rule(agg.Average, T.integral + T.DOUBLE)
 expr_rule(agg.Count, T.all_types)
+expr_rule(agg.Min, T.numeric + T.BOOLEAN)
+expr_rule(agg.Max, T.numeric + T.BOOLEAN)
 expr_rule(agg.AggregateExpression, T.all_types.nested())
 # window machinery registered as expressions, as in the reference;
 # evaluation lives in WindowExec
@@ -149,6 +179,12 @@ class ExprMeta(BaseMeta):
                             f"{name} produces unsupported type: {r}")
             except Exception as ex:     # unresolvable -> cannot place
                 self.will_not_work(f"{name}: {ex}")
+            if rule.tag_fn is not None and not self.reasons:
+                bound = ExprMeta.__new__(ExprMeta)
+                bound.__dict__.update(self.__dict__)
+                bound.expr = bind_expression(self.expr, self.input_names,
+                                             self.input_types)
+                rule.tag_fn(bound)
         for c in self.children:
             c.tag()
 

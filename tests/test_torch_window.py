@@ -719,17 +719,49 @@ def test_fuse_off_keeps_the_window_on_the_cpu():
 
 
 def test_grouped_min_stays_unported():
-    """Min and Max are window aggregates here; the grouped min stays on
-    the CPU engine with its reason, and both engines say it waits for
-    P8."""
-    port = GpuSession(device="cpu")
-    df = port.create_dataframe(q4_table(100, 4)).group_by(pcol("k")).agg(
-        PF.min(pcol("v")).alias("m"))
+    """Min and Max were window aggregates only until the grouped min and
+    max came to K3: a grouped min now runs on the GPU and equals the
+    reference; the grouped first and last stay unported and name P8."""
+    ref, port = sessions()
+    t = q4_table(100, 4)
+    want = ref.create_dataframe(t).group_by(rcol("k")).agg(
+        RF.min(rcol("v")).alias("m")).collect()
+    got = port.create_dataframe(t).group_by(pcol("k")).agg(
+        PF.min(pcol("v")).alias("m")).collect()
+    assert_tables_equal(want, got)
+    assert "!" not in port.last_explain
     with pytest.raises(NotImplementedError, match="P8"):
-        df.collect()
-    assert "aggregate Min is not supported on GPU" in port.last_explain
-    with pytest.raises(NotImplementedError, match="P8"):
-        pagg._group_reduce([], [], ["min"], 0, True)
+        pagg._group_reduce([], [], ["first"], 0, True)
+
+
+def test_bounded_range_over_nan_sorting_last():
+    """A bounded RANGE frame over a DOUBLE key whose last partition holds
+    +inf and NaN: Spark's frame of the +inf row, [inf - 1, inf + 1],
+    holds the +inf row alone (NaN sorts above +inf), so its sum is 6.
+    The reference's search reaches into its padding, parked at +inf, and
+    also sums the NaN row: 13 (recorded, ROADMAP.md Queue 3).  With the
+    partition first in sort order both give 6."""
+    table = pa.table({
+        "k": pa.array([1, 1, 2, 2, 2], type=pa.int64()),
+        "d": pa.array([0.5, 1.0, float("inf"), float("nan"), -1.0]),
+        "v": pa.array([1, 2, 6, 7, 8], type=pa.int64())})
+
+    def query(df, F, col, W):
+        w = W.WindowBuilder().partition_by(col("k")).order_by(
+            col("d")).range_between(-1, 1)
+        return df.select(col("k"), col("d"), col("v"),
+                         F.sum(col("v")).over(w).alias("s"))
+    ref, port = sessions()
+    got = query(port.create_dataframe(table), *PORT).collect()
+    want = query(ref.create_dataframe(table), *REF).collect()
+    inf_row = [i for i, d in enumerate(got["d"].to_pylist())
+               if d == float("inf")]
+    assert got["s"].to_pylist()[inf_row[0]] == 6
+    assert want["s"].to_pylist()[inf_row[0]] == 13
+    assert "!" not in port.last_explain
+    # k=2 first in sort order: both give 6
+    first = table.set_column(0, "k", pa.array([3, 3, 2, 2, 2]))
+    both(first, query)
 
 
 @pytest.mark.parametrize("inflated", [False, True])
