@@ -45,8 +45,20 @@ version at q1x's shapes and on edge cases (NaN, -0.0, the int64 edges,
 BOOLEAN, an all-null group, one group over 2^22 rows, tile edges, 27
 ops); every expression of the flat surface at 2^20 rows on the card
 against the CPU placement; the right, full, left_semi and left_anti
-joins at 2^20 rows against pyarrow.  Launch counts are reset just before each
-main-path run and must be > 0 after it for every kernel of that path.
+joins at 2^20 rows against pyarrow.  q3 both ways: the host-assisted
+collect (the default: a row-id query, then a host take) and the direct
+collect over 1 and 4 partitions, each equal to pyarrow's sort.  Bench q5,
+bench's 4 parquet files (written to a temporary directory) -> filter
+f < 0.5 -> group by k: sum(v), count, through the DataFrame API: cold
+(the file-scan pin cleared) split into host decode, upload and the
+rest, warm with the pin (no file may be read) and without it, and over
+4 partitions (PERFILE, a GPU-only plan), each equal to pyarrow.  Bench
+q7, filter(v > 0) -> parquet write, host-assisted (the keep mask only)
+and direct: the footers must count the rows with v > 0 and the file
+read back must equal fact.filter(v > 0).  q5 at 2^20 rows with the
+parquet scan switched off: the scan on the CPU under GPU operators.
+Launch counts are reset just before each main-path run and must be > 0
+after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
 or when any phase fails.
 The last line is a JSON object.
@@ -55,14 +67,17 @@ The last line is a JSON object.
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
+import pyarrow.parquet as pq
 
 ROWS = 1 << 25            # about TPC-H SF5 lineitem's row count
 BATCH_ROWS = 4194304      # the largest DEFAULT_ROW_BUCKETS capacity
@@ -76,6 +91,10 @@ HOT_PROBE_ROWS = 1 << 20   # probe rows of that check, 1 % on the hot key
 WIDE_ROWS = 1 << 20        # rows of the wide group-by check
 WIDE_KEYS = 9              # its grouping columns: 18 key words
 WIDE_SUMS = 17             # its sums: 17 K3 ops, two sets of launches
+PIN_KEY = "spark.rapids.sql.fileScan.pinDeviceBatches"
+COLLECT_KEY = "spark.rapids.sql.collect.hostAssisted"
+WRITE_KEY = "spark.rapids.sql.write.hostAssisted"
+READER_KEY = "spark.rapids.sql.format.parquet.reader.type"
 
 
 def _card_line():
@@ -84,6 +103,12 @@ def _card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _nodes(root):
+    out = []
+    root.foreach(out.append)
+    return out
 
 
 def _placements(root):
@@ -892,6 +917,67 @@ def _same_lanes(torch, a, b):
         for x, y in zip(a, b))
 
 
+class _Capture:
+    """While open, keeps the arguments of every call of the wrappers
+    ``names`` of ``module``; each call still launches its kernel.  A
+    wrapper counts its launches through its module's name, so the spy
+    carries a count that goes back to the wrapper on exit."""
+
+    def __init__(self, module, *names):
+        self.module, self.names, self.calls = module, names, []
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.orig.items():
+            def spy(*args, _fn=fn, _n=n):
+                self.calls.append((_n, args))
+                return _fn(*args)
+            spy.launches = 0
+            setattr(self.module, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            fn.launches += getattr(self.module, n).launches
+            setattr(self.module, n, fn)
+
+
+def _check_captured(torch, cap, carry, gather_mod, fetch, what):
+    """Every call a path made of K1, K8, K9 or K10, run again through the
+    kernel and its plain version on the same inputs, bit for bit.
+    Returns a description of each call."""
+    seen = []
+    for name, args in cap.calls:
+        got = cap.orig[name](*args)
+        if name == "compact_lanes":
+            want = carry.compact_lanes_plain(*args)
+            same = got[1] == want[1] and _same_lanes(torch, got[0], want[0])
+            shape = (f"{int(args[0].shape[0])} rows, {got[1]} kept, "
+                     f"{len(args[1])} lanes")
+        elif name == "gather_rows":
+            want = gather_mod.gather_rows_plain(*args)
+            same = _same_lanes(torch, got, want)
+            shape = (f"{int(args[0].shape[0])} rows, lanes "
+                     f"{[str(x.dtype)[6:] for x in args[1]]}")
+        elif name == "lane_stats":
+            want = fetch.lane_stats_plain(*args)
+            same = torch.equal(got, want)
+            shape = (f"{args[1]} rows, lanes "
+                     f"{[str(x.dtype)[6:] for x in args[0]]}")
+        else:
+            want = fetch.pack_lanes_plain(*args)
+            same = torch.equal(got, want)
+            shape = f"{args[3]} rows, plan {args[1]}"
+        if not same:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"at {what} ({shape})")
+        seen.append(f"{name} ({shape})")
+        del got, want
+    if not seen:
+        raise AssertionError(f"{what} made no call to capture")
+    return seen
+
+
 def _k8_edge_cases(torch, dev, gather):
     """K8 against its plain version, bit for bit: no rows (no launch), one
     row, 17 and 40 lanes (chunks of 16), 1-, 4- and 8-byte lanes, the
@@ -1033,6 +1119,128 @@ def _same_arrow(a, b):
     if x.dtype == np.float64:
         x, y = x.view(np.int64), y.view(np.int64)
     return np.array_equal(x, y)
+
+
+def _write_parquet_input(fact, root, n_files=4):
+    """bench.py write_parquet_input's layout: fact.slice(i * per, per) as
+    part-NN.parquet under root/fact_pq, default row groups."""
+    path = os.path.join(root, "fact_pq")
+    os.makedirs(path, exist_ok=True)
+    per = -(-fact.num_rows // n_files)
+    for i in range(n_files):
+        pq.write_table(fact.slice(i * per, per),
+                       os.path.join(path, f"part-{i:02d}.parquet"))
+    return path
+
+
+def _q5_df(session, path, F, col):
+    """bench.py q5: read the files, f < 0.5, group by k: sum(v), count."""
+    return (session.read.parquet(path)
+            .filter(col("f") < 0.5)
+            .group_by(col("k"))
+            .agg(F.sum(col("v")).alias("sv"), F.count("*").alias("c")))
+
+
+def _q5_oracle(path):
+    files = sorted(os.path.join(path, f) for f in os.listdir(path))
+    t = pa.concat_tables([pq.read_table(f) for f in files])
+    ft = t.filter(pc.less(t["f"], 0.5))
+    return ft.group_by("k").aggregate(
+        [("v", "sum"), ("k", "count")]).sort_by("k")
+
+
+def _check_q5(got, want, what):
+    got = got.sort_by("k")
+    if got.column_names != ["k", "sv", "c"]:
+        raise AssertionError(f"{what}: columns {got.column_names}")
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.num_rows} groups, oracle "
+                             f"{want.num_rows}")
+    for mine, theirs in (("k", "k"), ("sv", "v_sum"), ("c", "k_count")):
+        if not np.array_equal(got[mine].to_numpy(), want[theirs].to_numpy()):
+            raise AssertionError(f"{what}: column {mine} differs")
+
+
+def _footer_rows(out):
+    """(rows the footers count, the parquet files) of a write's output."""
+    files = sorted(os.path.join(out, f) for f in os.listdir(out)
+                   if f.endswith(".parquet"))
+    return sum(pq.ParquetFile(f).metadata.num_rows for f in files), files
+
+
+class _FetchTap:
+    """While open, records every packed fetch's transfer plan and the
+    bytes of its packed buffer (wraps fetch.build_plan and fetch.layout,
+    which count no launches)."""
+
+    def __init__(self, fetch):
+        self.fetch = fetch
+        self.plans = []              # kept alive, so their ids stay unique
+        self._sizes = {}
+
+    @property
+    def bytes(self):
+        return sum(self._sizes.values())
+
+    def __enter__(self):
+        build, layout = self._orig = (self.fetch.build_plan,
+                                      self.fetch.layout)
+
+        def build_plan(lanes, stats):
+            out = build(lanes, stats)
+            self.plans.append(out[0])
+            return out
+
+        def layout_(lanes, plan, n):
+            out = layout(lanes, plan, n)    # called again inside K10's
+            self._sizes[id(plan)] = out[1]  # wrapper: count a plan once
+            return out
+        self.fetch.build_plan, self.fetch.layout = build_plan, layout_
+        return self
+
+    def __exit__(self, *exc):
+        self.fetch.build_plan, self.fetch.layout = self._orig
+
+
+class _ScanTap:
+    """While open, times every file scan's host decode
+    (FileScanExec._read_file) and upload (io/scan.py's batch_to_device,
+    between synchronisations), and lists the files read."""
+
+    def __init__(self, torch, scan_mod):
+        self.torch = torch
+        self.scan_mod = scan_mod
+        self.files = []
+        self.decode_ms = self.upload_ms = 0.0
+        self.upload_bytes = 0
+
+    def __enter__(self):
+        cls = self.scan_mod.FileScanExec
+        read, up = self._orig = (cls._read_file,
+                                 self.scan_mod.batch_to_device)
+
+        def _read_file(exec_, path):
+            t0 = time.perf_counter()
+            out = read(exec_, path)
+            self.decode_ms += (time.perf_counter() - t0) * 1e3
+            self.files.append(path)
+            return out
+
+        def batch_to_device(rb, device=None, capacity=None):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = up(rb, device, capacity)
+            self.torch.cuda.synchronize()
+            self.upload_ms += (time.perf_counter() - t0) * 1e3
+            self.upload_bytes += rb.nbytes
+            return out
+        cls._read_file = _read_file
+        self.scan_mod.batch_to_device = batch_to_device
+        return self
+
+    def __exit__(self, *exc):
+        (self.scan_mod.FileScanExec._read_file,
+         self.scan_mod.batch_to_device) = self._orig
 
 
 def _same_table(got, want):
@@ -1584,11 +1792,13 @@ def main() -> int:
     from spark_rapids_tpu_torch.expr import conditional as cond_mod
     from spark_rapids_tpu_torch.expr import mathexpr as mx_mod
     from spark_rapids_tpu_torch.expr import window as W
+    from spark_rapids_tpu_torch.io import scan as io_scan
     from spark_rapids_tpu_torch.ops import carry
     from spark_rapids_tpu_torch.ops import gather as gather_mod
     from spark_rapids_tpu_torch.ops import join_kernels as jk
     from spark_rapids_tpu_torch.ops import scan as scan_mod
     from spark_rapids_tpu_torch.ops import segmented as seg
+    from spark_rapids_tpu_torch.plan import host_assist
 
     dev = torch.device("cuda")
     host = torch.device("cpu")
@@ -2845,7 +3055,9 @@ def main() -> int:
               f"in {time.perf_counter() - t1:.1f} s; {ties} rows tie with "
               f"the row before on (k, v), so f's order checks stability")
         del ks, vs
-        q3_session = GpuSession()
+        # the direct collect (every lane fetched); the host-assisted
+        # collect, the default, is the "q3 both ways" phase below
+        q3_session = GpuSession(conf={COLLECT_KEY: False})
         q3df = q3_session.create_dataframe(table).sort(col("k"), col("v"))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -2880,8 +3092,8 @@ def main() -> int:
         del got
         walls = timed_walls(q3df.collect)
         wall = sorted(walls)[1]
-        print(f"main path DataFrame q3 ({ROWS} rows, sort by k, v -> "
-              f"collect): plan {[n for n, _ in nodes]}, GPU-only, one "
+        print(f"main path DataFrame q3, direct collect ({ROWS} rows, sort "
+              f"by k, v -> collect): plan {[n for n, _ in nodes]}, GPU-only, one "
               f"DeviceToHostExec; equals pyarrow's sort exactly (k, v, f); "
               f"cold wall {cold_wall * 1e3:.1f} ms (upload included); warm "
               f"walls {', '.join(f'{w:.1f}' for w in walls)} ms, median "
@@ -2930,7 +3142,7 @@ def main() -> int:
               f"host lanes of {batch3.num_rows} rows {touch_ms:.2f} ms")
         del st, batch3, scan3, sorter, touched, sorted3
         trace = _profile(torch, q3df.collect)
-        print(f"trace of a warm DataFrame q3: wall {trace['wall_ms']:.2f} ms, "
+        print(f"trace of a warm DataFrame q3 (direct collect): wall {trace['wall_ms']:.2f} ms, "
               f"device busy {trace['busy_ms']:.2f} ms, idle share "
               f"{trace['idle_share']:.3f}; top kernels (ms): "
               + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"]))
@@ -2943,7 +3155,7 @@ def main() -> int:
     try:
         if q3_want is None:
             raise AssertionError("no q3 oracle")
-        s4 = GpuSession()
+        s4 = GpuSession(conf={COLLECT_KEY: False})
         df4 = s4.create_dataframe(table, num_partitions=4).sort(col("k"),
                                                                 col("v"))
         if not _same_table(df4.collect(), q3_want):
@@ -2965,7 +3177,8 @@ def main() -> int:
                                  "pyarrow's sort")
         del got
         walls = timed_walls(df4.collect)
-        print(f"main path DataFrame q3 (4 partitions of {ROWS // 4} rows): "
+        print(f"main path DataFrame q3, direct collect (4 partitions of "
+              f"{ROWS // 4} rows): "
               f"range exchange stripped, plan {[n for n, _ in nodes]}; "
               f"equals pyarrow's sort; warm walls "
               f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
@@ -2974,7 +3187,336 @@ def main() -> int:
     except Exception:
         failures.append("main path (q3, 4 partitions)")
         traceback.print_exc()
+
+    # ---- q3 both ways: the host-assisted collect and the direct --------
+    try:
+        if q3_want is None:
+            raise AssertionError("no q3 oracle")
+        for parts in (1, 4):
+            tag = "" if parts == 1 else f"_{parts}"
+            sd = GpuSession(conf={COLLECT_KEY: False})
+            sa = GpuSession(conf={COLLECT_KEY: True})
+            dfd = sd.create_dataframe(table, num_partitions=parts).sort(
+                col("k"), col("v"))
+            dfa = sa.create_dataframe(table, num_partitions=parts).sort(
+                col("k"), col("v"))
+            for way, df_ in (("direct", dfd), ("host-assisted", dfa)):
+                with _Capture(carry, "gather_rows") as cap8, \
+                        _Capture(fetch, "lane_stats", "pack_lanes") as cap9:
+                    if not _same_table(df_.collect(), q3_want):   # cold
+                        raise AssertionError(f"q3 over {parts} partitions, "
+                                             f"{way} (cold), differs from "
+                                             f"pyarrow's sort")
+            # the assisted run's K8 (k, v, rid), K9 and K10 (the rid
+            # lane) against their plain versions on the same inputs
+            seen = []
+            for cap in (cap8, cap9):
+                seen += _check_captured(torch, cap, carry, gather_mod, fetch,
+                                        f"q3 host-assisted x{parts}")
+            del cap8, cap9
+            print(f"q3 host-assisted over {parts} partition(s), kernels on "
+                  f"the path's own inputs, each exact against its plain "
+                  f"version: {'; '.join(seen)}")
+            count_reset()
+            torch.cuda.synchronize()
+            with _FetchTap(fetch) as tap:
+                got = dfa.collect()
+            torch.cuda.synchronize()
+            launches["q3_assisted" + tag] = counts()
+            if not _same_table(got, q3_want):
+                raise AssertionError(f"q3 over {parts} partitions, "
+                                     f"host-assisted, differs from "
+                                     f"pyarrow's sort")
+            del got
+            nodes = [n for n, _ in _placements(sa.last_plan)]
+            want_nodes = ["DeviceToHostExec", "CoalesceBatchesExec",
+                          "ProjectExec", "SortExec"] + (
+                ["GatherPartitionsExec"] if parts > 1 else []) + [
+                "ProjectExec", "LocalScanExec"]
+            if nodes != want_nodes or "!" in sa.last_explain or \
+                    "__rid__" not in sa.last_plan.tree_string():
+                raise AssertionError(f"the row-id query over {parts} "
+                                     f"partitions planned {nodes}")
+            (plan,) = tap.plans
+            rid_bytes = {"narrow": plan[0][-1], "none": 8}[plan[0][0]]
+            if rid_bytes != (4 if parts == 1 else 8):
+                raise AssertionError(f"the rid lane travels as {plan[0]}")
+            # in turns: direct, assisted, assisted, direct
+            walls_d = timed_walls(dfd.collect, 2)
+            walls_a = timed_walls(dfa.collect, 3)
+            walls_d += timed_walls(dfd.collect, 1)
+            # the assisted collect split: the row-id query (device and
+            # the rid lane's fetch), then the host take
+            split = []
+            inner = sa.execute
+
+            def timed_execute(lp):
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                out = inner(lp)
+                split.append((time.perf_counter() - t2) * 1e3)
+                return out
+            sa.execute = timed_execute
+            takes = []
+            for _ in range(2):
+                split.clear()
+                t1 = time.perf_counter()
+                got = host_assist.try_host_assisted_collect(sa, dfa._lp)
+                takes.append((split[0], (time.perf_counter() - t1) * 1e3
+                              - split[0]))
+                if not _same_table(got, q3_want):
+                    raise AssertionError("the split run differs")
+                del got
+            del sa.execute
+            trace = _profile(torch, dfa.collect)
+            print(f"q3 both ways over {parts} partition(s) ({ROWS} rows): "
+                  f"both equal pyarrow's sort exactly; direct warm walls "
+                  f"{', '.join(f'{w:.1f}' for w in walls_d)} ms, median "
+                  f"{sorted(walls_d)[1]:.1f}; host-assisted "
+                  f"{', '.join(f'{w:.1f}' for w in walls_a)} ms, median "
+                  f"{sorted(walls_a)[1]:.1f} (two split runs: row-id "
+                  f"query + host take "
+                  + ", ".join(f"{q:.1f} + {tk:.1f}" for q, tk in takes)
+                  + " ms); "
+                  f"rid lane {rid_bytes} bytes a row ({plan[0]}), "
+                  f"{tap.bytes} bytes fetched; plan {nodes}; trace: busy "
+                  f"{trace['busy_ms']:.2f} ms, idle share "
+                  f"{trace['idle_share']:.3f}; launches "
+                  f"{launches['q3_assisted' + tag]}")
+            del dfd, dfa, sd, sa
+    except Exception:
+        failures.append("q3 both ways")
+        traceback.print_exc()
     q3_want = None
+
+    # ---- main path: q5, four parquet files -> filter -> group by k ----
+    q5_root = tempfile.mkdtemp(prefix="chip_smoke_q5_")
+    try:
+        t1 = time.perf_counter()
+        q5_path = _write_parquet_input(table, q5_root)
+        write_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        q5_want = _q5_oracle(q5_path)
+        on_disk = sum(os.path.getsize(os.path.join(q5_path, f))
+                      for f in os.listdir(q5_path))
+        print(f"q5 input: 4 parquet files of {ROWS // 4} rows written in "
+              f"{write_s:.1f} s ({on_disk} bytes); "
+              f"pyarrow oracle {q5_want.num_rows} groups in "
+              f"{time.perf_counter() - t1:.1f} s")
+        s5 = GpuSession()
+        q5df = _q5_df(s5, q5_path, F, col)
+        q5df.explain()
+        nodes = _placements(s5.last_plan)
+        if nodes != [("DeviceToHostExec", "cpu"),
+                     ("CoalesceBatchesExec", "gpu"),
+                     ("GpuHashAggregateExec", "gpu"), ("FilterExec", "gpu"),
+                     ("FileScanExec", "gpu")] or "!" in s5.last_explain:
+            raise AssertionError(f"q5 planned {nodes}")
+        scan5 = [e for e in _nodes(s5.last_plan)
+                 if type(e).__name__ == "FileScanExec"][0]
+        if scan5.reader_type != "COALESCING" or scan5.num_partitions != 1:
+            raise AssertionError(f"q5's scan is {scan5.describe()}")
+        # cold: the pin cleared, split into decode, upload and the rest
+        io_scan.clear_filescan_pin()
+        torch.cuda.synchronize()
+        with _ScanTap(torch, io_scan) as cold_tap:
+            t1 = time.perf_counter()
+            got = q5df.collect()
+            torch.cuda.synchronize()
+            cold = (time.perf_counter() - t1) * 1e3
+        _check_q5(got, q5_want, "q5 (cold)")
+        if len(cold_tap.files) != 4:
+            raise AssertionError(f"the cold q5 read {cold_tap.files}")
+        io_scan.clear_filescan_pin()
+        cold_trace = _profile(torch, q5df.collect)
+        # warm, pinned: reads no file
+        count_reset()
+        torch.cuda.synchronize()
+        with _ScanTap(torch, io_scan) as warm_tap:
+            got = q5df.collect()
+            torch.cuda.synchronize()
+            launches["q5"] = counts()
+            _check_q5(got, q5_want, "q5 (warm, pinned)")
+            walls = timed_walls(q5df.collect)
+        if warm_tap.files:
+            raise AssertionError(f"the warm pinned q5 read "
+                                 f"{warm_tap.files}")
+        trace = _profile(torch, q5df.collect)
+        # the pin off: every run decodes and uploads
+        soff = GpuSession(conf={PIN_KEY: False})
+        q5off = _q5_df(soff, q5_path, F, col)
+        with _Capture(carry, "compact_lanes") as cap1:
+            _check_q5(q5off.collect(), q5_want, "q5 (pin off)")
+        # K1 on the batch the host pushdown left, against its plain version
+        seen = _check_captured(torch, cap1, carry, gather_mod, fetch, "q5")
+        del cap1
+        print(f"q5 K1 on the path's own input, exact against its plain "
+              f"version: {'; '.join(seen)}")
+        with _ScanTap(torch, io_scan) as off_tap:
+            walls_off = timed_walls(q5off.collect)
+        if len(off_tap.files) != 12:
+            raise AssertionError(f"q5 with the pin off read "
+                                 f"{len(off_tap.files)} files in 3 runs")
+        print(f"main path q5 ({ROWS} rows in 4 parquet files, COALESCING, "
+              f"one partition): equals pyarrow exactly; cold wall "
+              f"{cold:.1f} ms = host decode {cold_tap.decode_ms:.1f} "
+              f"(the pushed f < 0.5 filters rows on the host) + upload "
+              f"{cold_tap.upload_ms:.1f} ({cold_tap.upload_bytes} bytes "
+              f"of Arrow) + the rest "
+              f"{cold - cold_tap.decode_ms - cold_tap.upload_ms:.1f}; cold "
+              f"trace wall {cold_trace['wall_ms']:.1f} ms, device busy "
+              f"{cold_trace['busy_ms']:.2f}, idle share "
+              f"{cold_trace['idle_share']:.3f}; warm pinned walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
+              f"{sorted(walls)[1]:.1f}, no file read; busy "
+              f"{trace['busy_ms']:.2f} ms, idle share "
+              f"{trace['idle_share']:.3f}; top kernels (ms): "
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"][:6])
+              + f"; pin off walls {', '.join(f'{w:.1f}' for w in walls_off)}"
+              f" ms, median {sorted(walls_off)[1]:.1f} (decode "
+              f"{off_tap.decode_ms / 3:.1f}, upload "
+              f"{off_tap.upload_ms / 3:.1f} a run); launches "
+              f"{launches['q5']}")
+        del q5df, q5off, s5, soff, got
+        io_scan.clear_filescan_pin()
+        # PERFILE: 4 partitions; the hash exchange stripped
+        sp = GpuSession(conf={READER_KEY: "PERFILE"})
+        q5p = _q5_df(sp, q5_path, F, col)
+        _check_q5(q5p.collect(), q5_want, "q5 PERFILE (cold)")
+        nodes = _placements(sp.last_plan)
+        if nodes != [("DeviceToHostExec", "cpu"),
+                     ("CoalesceBatchesExec", "gpu"),
+                     ("GpuHashAggregateExec", "gpu"),
+                     ("CoalesceBatchesExec", "gpu"),
+                     ("GatherPartitionsExec", "gpu"), ("FilterExec", "gpu"),
+                     ("FileScanExec", "gpu")] or "!" in sp.last_explain:
+            raise AssertionError(f"q5 PERFILE planned {nodes}")
+        count_reset()
+        got = q5p.collect()
+        launches["q5_4"] = counts()
+        _check_q5(got, q5_want, "q5 PERFILE")
+        walls = timed_walls(q5p.collect)
+        print(f"main path q5 PERFILE (4 partitions): GPU-only plan "
+              f"{[n for n, _ in nodes]}, the hash exchange stripped; equals "
+              f"pyarrow; warm pinned walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
+              f"{sorted(walls)[1]:.1f}; launches {launches['q5_4']}")
+        del q5p, sp, got
+    except Exception:
+        failures.append("main path (q5)")
+        traceback.print_exc()
+    finally:
+        io_scan.clear_filescan_pin()
+        shutil.rmtree(q5_root, ignore_errors=True)
+
+    # ---- main path: q7, filter(v > 0) -> parquet write ------------------
+    q7_root = tempfile.mkdtemp(prefix="chip_smoke_q7_")
+    try:
+        want7 = table.filter(pc.greater(table["v"], 0))
+        out7 = os.path.join(q7_root, "out")
+        ways = {}
+        for assisted in (True, False):
+            s7 = GpuSession(conf={WRITE_KEY: assisted})
+            fdf = s7.create_dataframe(table)
+
+            def write():
+                fdf.filter(col("v") > 0).write.mode("overwrite").parquet(
+                    out7)
+            way = "host-assisted" if assisted else "direct"
+            with _Capture(fetch, "lane_stats", "pack_lanes") as cap9:
+                write()                             # cold: the upload
+            # K9 and K10 on the path's own lanes (the assisted way's
+            # bit-packed keep mask) against their plain versions
+            seen = _check_captured(torch, cap9, carry, gather_mod, fetch,
+                                   f"q7 {way}")
+            del cap9
+            print(f"q7 {way}, kernels on the path's own inputs, each exact "
+                  f"against its plain version: {'; '.join(seen)}")
+            count_reset()
+            torch.cuda.synchronize()
+            with _FetchTap(fetch) as tap:
+                write()
+            torch.cuda.synchronize()
+            run = "q7" if assisted else "q7_direct"
+            launches[run] = counts()
+            for check in ("checked", "last timed"):
+                rows, files = _footer_rows(out7)
+                if rows != want7.num_rows or len(files) != 1:
+                    raise AssertionError(
+                        f"q7 {way} ({check} run): footers count {rows} rows "
+                        f"in {len(files)} files, not {want7.num_rows} in 1")
+                if not _same_table(pq.read_table(files[0]), want7):
+                    raise AssertionError(f"q7 {way} ({check} run) reads "
+                                         f"back unlike fact.filter(v > 0)")
+                if check == "checked":
+                    walls = timed_walls(write)
+            if assisted and "__keep__" not in s7.last_plan.tree_string():
+                raise AssertionError("the assisted write ran no mask plan")
+            # split: the rows to write (mask and host filter, or the
+            # device filter and the payload's fetch), then the encode
+            writer = fdf.filter(col("v") > 0).write.mode("overwrite")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows7 = writer._collect()
+            t2 = time.perf_counter()
+            writer._write_one(rows7, q7_root, "parquet")
+            split = ((t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3)
+            del rows7
+            ways[way] = (walls, tap.bytes, tap.plans, split)
+            del fdf, s7
+        print(f"main path q7 ({ROWS} rows, filter(v > 0) -> parquet, "
+              f"{want7.num_rows} rows written): footers and read-back equal "
+              f"fact.filter(v > 0) both ways; "
+              + "; ".join(f"{way}: warm walls "
+                          f"{', '.join(f'{w:.1f}' for w in walls)} ms, "
+                          f"median {sorted(walls)[1]:.1f} (split: the rows "
+                          f"{rows_ms:.1f} + the parquet encode "
+                          f"{encode_ms:.1f}), {nbytes} bytes fetched "
+                          f"(plan {plans})"
+                          for way, (walls, nbytes, plans,
+                                    (rows_ms, encode_ms)) in ways.items())
+              + f"; launches {launches['q7']} (host-assisted), "
+              f"{launches['q7_direct']} (direct)")
+    except Exception:
+        failures.append("main path (q7)")
+        traceback.print_exc()
+    finally:
+        shutil.rmtree(q7_root, ignore_errors=True)
+
+    # ---- a scan left on the CPU: format.parquet.enabled=false ----------
+    cpu_root = tempfile.mkdtemp(prefix="chip_smoke_cpu_scan_")
+    try:
+        small_path = _write_parquet_input(table.slice(0, 1 << 20), cpu_root)
+        sc = GpuSession(conf={"spark.rapids.sql.format.parquet.enabled":
+                              False})
+        count_reset()
+        got = _q5_df(sc, small_path, F, col).collect()
+        c = counts()
+        _check_q5(got, _q5_oracle(small_path), "q5 with the scan on the CPU")
+        nodes = _placements(sc.last_plan)
+        if nodes != [("DeviceToHostExec", "cpu"),
+                     ("CoalesceBatchesExec", "gpu"),
+                     ("GpuHashAggregateExec", "gpu"), ("FilterExec", "gpu"),
+                     ("HostToDeviceExec", "gpu"), ("FileScanExec", "cpu")] \
+                or "parquet scan disabled by config" not in sc.last_explain:
+            raise AssertionError(f"q5 with the scan off planned {nodes}:\n"
+                                 + sc.last_explain)
+        for name in ("compact_rows", "sort_order", "segment_reduce_sorted"):
+            if c[name] < 1:
+                raise AssertionError(f"{name} not launched above the CPU "
+                                     f"scan")
+        if io_scan._FILESCAN_PIN:
+            raise AssertionError("a CPU-placed scan pinned its batches")
+        print(f"q5 at {1 << 20} rows with format.parquet.enabled=false: the "
+              f"scan CPU-placed ('parquet scan disabled by config'), a "
+              f"HostToDeviceExec above it, the rest on the GPU; equals "
+              f"pyarrow; launches {c}")
+        del sc, got
+    except Exception:
+        failures.append("CPU-placed scan")
+        traceback.print_exc()
+    finally:
+        shutil.rmtree(cpu_root, ignore_errors=True)
 
     # ---- main path: q4, the window, through the DataFrame API --------
     q4_want = None
@@ -3159,16 +3701,18 @@ def main() -> int:
             if any(p != "cpu" for _, p in nodes) or \
                     ("ShuffleExchangeExec", "cpu") not in nodes:
                 raise AssertionError(f"CPU engine planned {nodes}")
-            for parts in (1, 4):
+            for parts, assisted in itertools.product((1, 4), (False, True)):
                 count_reset()
-                got = GpuSession().create_dataframe(
-                    ot, num_partitions=parts).order_by(*fn(col)).collect()
+                got = GpuSession(conf={COLLECT_KEY: assisted}) \
+                    .create_dataframe(ot, num_partitions=parts) \
+                    .order_by(*fn(col)).collect()
                 if counts()["gather_rows"] < 1:
                     raise AssertionError("the card's sort launched no K8")
                 if not _same_table(got, oracle):
                     raise AssertionError(f"order {name} over {parts} "
-                                         f"partitions differs from the CPU "
-                                         f"engine")
+                                         f"partitions (host-assisted "
+                                         f"collect {assisted}) differs "
+                                         f"from the CPU engine")
         # pyarrow where its rules agree with Spark's: an INT key with
         # nulls, the row number breaking ties
         for fn, keys, place in (
@@ -3176,15 +3720,18 @@ def main() -> int:
                  [("i", "ascending"), ("row", "ascending")], "at_end"),
                 (lambda c: [c("i").desc_nulls_first(), c("row")],
                  [("i", "descending"), ("row", "ascending")], "at_start")):
-            got = GpuSession().create_dataframe(ot).order_by(
-                *fn(col)).collect()
-            if not _same_table(got, ot.sort_by(keys, null_placement=place)):
-                raise AssertionError(f"{keys} nulls {place} differs from "
-                                     f"pyarrow")
+            for assisted in (False, True):
+                got = GpuSession(conf={COLLECT_KEY: assisted}) \
+                    .create_dataframe(ot).order_by(*fn(col)).collect()
+                if not _same_table(got, ot.sort_by(keys,
+                                                   null_placement=place)):
+                    raise AssertionError(f"{keys} nulls {place} (host-"
+                                         f"assisted collect {assisted}) "
+                                         f"differs from pyarrow")
         print(f"orders and nulls over {ot.num_rows} rows (nulls in an INT "
               f"column; NaN, -0.0, +-inf and nulls in a DOUBLE column): "
-              f"{', '.join(orders)} on the card over 1 and 4 partitions "
-              f"equal the CPU engine (every operator on the CPU, the range "
+              f"{', '.join(orders)} on the card over 1 and 4 partitions, "
+              f"direct and host-assisted collects, equal the CPU engine (every operator on the CPU, the range "
               f"exchange on the host, no kernel launched); INT ascending "
               f"nulls last and descending nulls first equal pyarrow")
         del ot, oracle, got
@@ -3495,9 +4042,18 @@ def main() -> int:
         "q4": ("sort_order", "gather_rows", "segment_scan", "run_ends",
                "scatter_rows", "lane_stats", "pack_lanes"),
         "q4_4": ("sort_order", "gather_rows", "segment_scan", "run_ends",
-                 "scatter_rows", "lane_stats", "pack_lanes")}
+                 "scatter_rows", "lane_stats", "pack_lanes"),
+        "q3_assisted": ("sort_order", "gather_rows", "lane_stats",
+                        "pack_lanes"),
+        "q3_assisted_4": ("sort_order", "gather_rows", "lane_stats",
+                          "pack_lanes"),
+        "q5": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "q5_4": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "q7": ("lane_stats", "pack_lanes"),
+        "q7_direct": ("compact_rows", "lane_stats", "pack_lanes")}
     # every download through DeviceToHostExec is the packed fetch now
-    for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4"):
+    for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
+                "q5_4"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:

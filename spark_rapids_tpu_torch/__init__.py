@@ -17,6 +17,10 @@ found under the same name:
   ops/join_kernels.py   the join kernels K4-K7
   exec/join.py          the hash, nested-loop and CPU joins
   exec/sort.py          the sort; exec/basic.py the limits
+  io/reader.py, io/scan.py, io/writer.py
+                        session.read, the file scan and its device pin,
+                        DataFrame.write
+  plan/host_assist.py   the host-assisted collect of a sorted table
 
 Classes named after the reference plugin and their JAX counterparts:
 

@@ -3,7 +3,7 @@
 Counterpart of spark_rapids_tpu/api/dataframe.py: select (window
 expressions go through a Window node), select_expr_window, with_column,
 filter / where, group_by / groupBy, agg, join, order_by / orderBy /
-sort, sort_within_partitions, limit, collect and explain.
+sort, sort_within_partitions, limit, collect, explain and write.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from ..exec.join import JOIN_TYPES
 from ..expr.aggregates import AggregateExpression
 from ..expr.core import Alias, AttributeReference, Expression, Literal
 from ..expr.window import WindowExpression
+from ..io.writer import DataFrameWriter
 from ..plan import logical as L
 from .column import Column, col
 
@@ -152,6 +153,10 @@ class DataFrame:
         s = self.session.explain(self._lp)
         print(s)
         return s
+
+    @property
+    def write(self) -> DataFrameWriter:
+        return DataFrameWriter(self)
 
 
 class GroupedData:

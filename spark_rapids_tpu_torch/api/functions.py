@@ -6,9 +6,9 @@ scalar functions abs, sqrt, exp, expm1, log (ln, or log(base, x)),
 log2, log10, log1p, pow, atan2, the trigonometric and hyperbolic
 functions, cbrt, rint, degrees, radians, floor, ceil, round, bround,
 signum, greatest, least, when(...).when(...).otherwise(...), coalesce,
-isnull, isnan and expr_if; and the window functions
-row_number, rank, dense_rank, lead, lag, ntile, percent_rank and
-cume_dist.  As in pyspark, a string argument names a column (the
+isnull, isnan, expr_if and monotonically_increasing_id; and the window
+functions row_number, rank, dense_rank, lead, lag, ntile, percent_rank
+and cume_dist.  As in pyspark, a string argument names a column (the
 reference reads it as a string literal, which no flat function takes).
 """
 
@@ -21,6 +21,7 @@ from ..expr import mathexpr as mx
 from ..expr import predicates as pred
 from ..expr import window as win
 from ..expr.core import AttributeReference, Expression
+from ..expr.hashfns import MonotonicallyIncreasingID
 from .column import Column, _expr, col, lit  # noqa: F401  (re-export)
 
 
@@ -163,6 +164,10 @@ def isnan(c) -> Column:
 
 def expr_if(c, a, b) -> Column:
     return _c(cond.If(_expr(c), _expr(a), _expr(b)))
+
+
+def monotonically_increasing_id() -> Column:
+    return _c(MonotonicallyIncreasingID())
 
 
 # -- window ------------------------------------------------------------------

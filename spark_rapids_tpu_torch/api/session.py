@@ -6,6 +6,10 @@ unless the caller passes another; asking for CUDA where there is none
 raises.  A query is planned to a CPU-placed physical plan, rewritten
 onto the GPU by plan/overrides.py, and executed; ``last_plan`` and
 ``last_explain`` keep the final plan and the rewrite's explain lines.
+A global sort of an in-memory table is first offered to the
+host-assisted collect (plan/host_assist.py), which runs its own row-id
+query; ``last_plan`` is then that query's plan.  ``read`` returns a
+DataFrameReader (io/reader.py).
 With ``spark.rapids.sql.enabled=false`` every operator stays on the CPU
 engine, the oracle the reference's differential tests toggle.
 """
@@ -19,7 +23,9 @@ import pyarrow as pa
 from ..columnar.device import resolve_device
 from ..config import RapidsConf
 from ..exec.base import Exec, ExecContext
+from ..io.reader import DataFrameReader
 from ..plan import logical as L
+from ..plan.host_assist import try_host_assisted_collect
 from ..plan.overrides import GpuOverrides
 from ..plan.planner import plan as plan_physical
 from .dataframe import DataFrame
@@ -39,6 +45,10 @@ class GpuSession:
     @classmethod
     def builder(cls) -> "_Builder":
         return _Builder()
+
+    @property
+    def read(self) -> DataFrameReader:
+        return DataFrameReader(self)
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         if isinstance(data, pa.RecordBatch):
@@ -62,6 +72,9 @@ class GpuSession:
         return final_plan
 
     def execute(self, lp: L.LogicalPlan) -> pa.Table:
+        assisted = try_host_assisted_collect(self, lp)
+        if assisted is not None:
+            return assisted
         root = self.prepare_plan(lp)
         return root.execute_collect(ExecContext(self.device, self.conf))
 

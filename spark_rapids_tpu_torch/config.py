@@ -83,6 +83,41 @@ OPTIMIZER_EXPLAIN = ConfEntry("spark.rapids.sql.optimizer.explain", str,
                               "NONE", ["NONE", "ALL"])
 
 
+# --- io: the file formats, their readers and the device pin -------------
+PARQUET_ENABLED = ConfEntry("spark.rapids.sql.format.parquet.enabled",
+                            _to_bool, True)
+ORC_ENABLED = ConfEntry("spark.rapids.sql.format.orc.enabled", _to_bool,
+                        True)
+CSV_ENABLED = ConfEntry("spark.rapids.sql.format.csv.enabled", _to_bool,
+                        True)
+
+# AUTO: PERFILE for one file, COALESCING for 2-4, MULTITHREADED above
+PARQUET_READER_TYPE = ConfEntry(
+    "spark.rapids.sql.format.parquet.reader.type", str, "AUTO",
+    ["PERFILE", "COALESCING", "MULTITHREADED", "AUTO"])
+PARQUET_MULTITHREAD_READ_NUM_THREADS = ConfEntry(
+    "spark.rapids.sql.format.parquet.multiThreadedRead.numThreads", int, 20)
+
+# soft cap on the rows of one batch a file reader produces
+MAX_READER_BATCH_SIZE_ROWS = ConfEntry(
+    "spark.rapids.sql.reader.batchSizeRows", int, 2147483647)
+
+# keep decoded and uploaded file-scan batches on the device, keyed by the
+# files' (path, size, mtime) and everything that shapes the batches
+FILESCAN_PIN_DEVICE = ConfEntry("spark.rapids.sql.fileScan.pinDeviceBatches",
+                                _to_bool, True)
+
+# transfer elisions: a global sort of an in-memory table fetches only a
+# row-id lane and takes on the host; a filtering write fetches only the
+# keep mask and filters the host copy.  Off by default, unlike the
+# reference: over the H100's host link the direct fetch is faster (the
+# host take of bench q3 is about 7x slower than the direct collect).
+HOST_ASSISTED_COLLECT = ConfEntry("spark.rapids.sql.collect.hostAssisted",
+                                  _to_bool, False)
+HOST_ASSISTED_WRITE = ConfEntry("spark.rapids.sql.write.hostAssisted",
+                                _to_bool, False)
+
+
 class RapidsConf:
     """Snapshot of a config map with typed accessors."""
 

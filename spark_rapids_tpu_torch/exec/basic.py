@@ -18,6 +18,7 @@ from ..columnar.device import DeviceBatch, DeviceColumn, batch_to_device
 from ..columnar.interop import from_arrow_type
 from ..expr.core import (EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
+from ..expr.hashfns import MonotonicallyIncreasingID
 from .base import Exec, ExecContext
 from .concat import concat_batches
 from .filter_common import apply_filter
@@ -88,12 +89,18 @@ class LocalScanExec(Exec):
 
 
 class ProjectExec(Exec):
+    """Evaluate the expressions over each batch.  When one reads the row
+    position (monotonically_increasing_id), each batch gets the base
+    (partition id << 33) + the partition's running row offset, counted
+    from the batches' host row counts."""
+
     def __init__(self, exprs: Sequence[Expression], child: Exec):
         super().__init__([child])
         self.exprs = list(exprs)
         self._bound = [bind_expression(e, child.output_names,
                                        child.output_types)
                        for e in self.exprs]
+        self._needs_rowpos = _exprs_need_rowpos(self._bound)
 
     @property
     def output_names(self):
@@ -106,8 +113,8 @@ class ProjectExec(Exec):
     def describe(self):
         return f"Project [{', '.join(e.sql() for e in self.exprs)}]"
 
-    def _compute(self, batch: DeviceBatch) -> DeviceBatch:
-        ctx = EvalContext(batch)
+    def _compute(self, batch: DeviceBatch, row_base: int = 0) -> DeviceBatch:
+        ctx = EvalContext(batch, row_base)
         cols = []
         for b in self._bound:
             v = b.eval(ctx)
@@ -118,18 +125,32 @@ class ProjectExec(Exec):
         return DeviceBatch(cols, batch.num_rows, self.output_names)
 
     def execute_partition(self, pid, ctx):
+        offset = 0
         for b in self.child_batches(0, pid, ctx):
-            yield self._compute(b)
+            yield self._compute(b, (pid << 33) + offset)
+            if self._needs_rowpos:
+                offset += b.num_rows
+
+
+def _exprs_need_rowpos(bound_exprs) -> bool:
+    """True when an expression reads the (partition, row position)
+    context: monotonically_increasing_id."""
+    return any(b.collect(lambda e: isinstance(e, MonotonicallyIncreasingID))
+               for b in bound_exprs)
 
 
 class FilterExec(Exec):
-    """Filter with device-side stable compaction (kernel K1)."""
+    """Filter with device-side stable compaction (kernel K1).  A
+    condition that reads the row position gets the projection's base:
+    (partition id << 33) + the partition's running offset over the
+    input rows."""
 
     def __init__(self, condition: Expression, child: Exec):
         super().__init__([child])
         self.condition = condition
         self._bound = bind_expression(condition, child.output_names,
                                       child.output_types)
+        self._needs_rowpos = _exprs_need_rowpos([self._bound])
 
     @property
     def output_names(self):
@@ -142,13 +163,16 @@ class FilterExec(Exec):
     def describe(self):
         return f"Filter [{self.condition.sql()}]"
 
-    def _compute(self, batch: DeviceBatch) -> DeviceBatch:
-        pred = self._bound.eval(EvalContext(batch))
+    def _compute(self, batch: DeviceBatch, row_base: int = 0) -> DeviceBatch:
+        pred = self._bound.eval(EvalContext(batch, row_base))
         return apply_filter(batch, pred, self.output_names)
 
     def execute_partition(self, pid, ctx):
+        offset = 0
         for b in self.child_batches(0, pid, ctx):
-            yield self._compute(b)
+            yield self._compute(b, (pid << 33) + offset)
+            if self._needs_rowpos:
+                offset += b.num_rows
 
 
 class LocalLimitExec(Exec):

@@ -11,7 +11,8 @@ share compiled programs and has no counterpart here.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Type
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Type)
 
 import torch
 
@@ -39,14 +40,18 @@ class ScalarValue:
 
 
 class EvalContext:
-    """The batch an expression tree evaluates over."""
+    """The batch an expression tree evaluates over.  ``row_base`` is
+    (partition id << 33) + the partition's running row offset at this
+    batch, the positional seed of monotonically_increasing_id (the
+    reference's partition-packed layout, GpuMonotonicallyIncreasingID)."""
 
-    __slots__ = ("batch", "capacity", "device")
+    __slots__ = ("batch", "capacity", "device", "row_base")
 
-    def __init__(self, batch: DeviceBatch):
+    def __init__(self, batch: DeviceBatch, row_base: int = 0):
         self.batch = batch
         self.capacity = batch.capacity
         self.device = batch.device
+        self.row_base = row_base
 
 
 class Expression:
@@ -67,6 +72,15 @@ class Expression:
         node = self if all(a is b for a, b in zip(new, self.children)) \
             else self.with_children(new)
         return fn(node)
+
+    def collect(self, pred: Callable[["Expression"], bool]
+                ) -> List["Expression"]:
+        """Every node of the tree, this one first, for which ``pred``
+        holds."""
+        out = [self] if pred(self) else []
+        for c in self.children:
+            out += c.collect(pred)
+        return out
 
     def sql(self) -> str:
         args = ", ".join(c.sql() for c in self.children)

@@ -1,4 +1,5 @@
-"""Spark's hash(): Murmur3_x86_32 with seed 42, for hash partitioning.
+"""Spark's hash(): Murmur3_x86_32 with seed 42, for hash partitioning;
+and monotonically_increasing_id().
 
 Counterpart of the flat-type branches of spark_rapids_tpu/expr/hashfns.py
 (hash_int32, hash_int64, hash_column, Murmur3Hash), bit for bit with the
@@ -110,3 +111,24 @@ def _eval_murmur3(e: Murmur3Hash, ctx: EvalContext):
         h = hash_column(v.col, h)
     signed = torch.where(h >= 1 << 31, h - (1 << 32), h)
     return make_column(ctx, t.INT, signed.to(torch.int32), None)
+
+
+class MonotonicallyIncreasingID(Expression):
+    """(partition id << 33) + row position within the partition, never
+    null (ref GpuMonotonicallyIncreasingID.scala).  The base comes from
+    the projection's running row offset (``EvalContext.row_base``)."""
+
+    children = ()
+
+    def data_type(self):
+        return t.LONG
+
+    def sql(self):
+        return "monotonically_increasing_id()"
+
+
+@evaluator(MonotonicallyIncreasingID)
+def _eval_monotonic_id(e: MonotonicallyIncreasingID, ctx: EvalContext):
+    pos = torch.arange(ctx.capacity, dtype=torch.int64, device=ctx.device)
+    return make_column(ctx, t.LONG, pos + ctx.row_base,
+                       pos < ctx.batch.num_rows)

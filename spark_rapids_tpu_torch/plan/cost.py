@@ -17,6 +17,7 @@ operator costs are overridden by
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Tuple
 
 from .. import config as cfg
@@ -49,8 +50,15 @@ def estimate_rows(node: eb.Exec, child_rows: List[float]) -> float:
 
 def _static_rows(node: eb.Exec, child_rows: List[float]) -> float:
     from ..exec.basic import GlobalLimitExec, LocalLimitExec, LocalScanExec
+    from ..io.scan import FileScanExec
     if isinstance(node, LocalScanExec):
         return float(node.table.num_rows)
+    if isinstance(node, FileScanExec):
+        try:
+            size = sum(os.path.getsize(p) for p in node.paths)
+        except OSError:
+            return float(DEFAULT_ROW_COUNT)
+        return max(size / 100.0, 1.0)      # ~100 compressed bytes a row
     if isinstance(node, (LocalLimitExec, GlobalLimitExec)):
         n = float(node.limit)
         return min(n, child_rows[0]) if child_rows else n

@@ -1,5 +1,5 @@
-"""Logical plan nodes of the slice: LocalRelation, Project, Filter,
-Aggregate, Join, Sort, Limit and Window.
+"""Logical plan nodes of the slice: LocalRelation, FileRelation, Project,
+Filter, Aggregate, Join, Sort, Limit and Window.
 
 Counterpart of spark_rapids_tpu/plan/logical.py; each node resolves its
 output schema.
@@ -35,6 +35,24 @@ class LocalRelation(LogicalPlan):
     def schema(self):
         return (list(self.table.schema.names),
                 [from_arrow_type(f.type) for f in self.table.schema])
+
+
+class FileRelation(LogicalPlan):
+    """Scan of parquet, orc or csv files (resolved by the io layer).  A
+    filter pushed into the scan lives in that query's scan exec
+    (plan/planner.py), never on this node, which every query over the
+    DataFrame shares."""
+
+    def __init__(self, fmt: str, paths: List[str], schema_names,
+                 schema_types, options=None):
+        self.fmt = fmt
+        self.paths = list(paths)
+        self._names = list(schema_names)
+        self._types = list(schema_types)
+        self.options = dict(options or {})
+
+    def schema(self):
+        return list(self._names), list(self._types)
 
 
 class Project(LogicalPlan):

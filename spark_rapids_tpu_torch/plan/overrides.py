@@ -57,7 +57,8 @@ from ..expr import window as win
 from ..expr.cast import Cast, cast_supported_on_gpu
 from ..expr.core import (Alias, AttributeReference, BoundReference,
                          Expression, Literal, bind_expression)
-from ..expr.hashfns import Murmur3Hash
+from ..expr.hashfns import MonotonicallyIncreasingID, Murmur3Hash
+from ..io.scan import FileScanExec
 from ..shuffle.exchange import ShuffleExchangeExec
 from ..types import T, TypeSig
 
@@ -119,6 +120,8 @@ def _tag_cast(meta: "ExprMeta"):
 
 expr_rule(Cast, T.all_types, _tag_cast)
 expr_rule(Murmur3Hash, T.INT)
+# (partition << 33) + row position, ref GpuMonotonicallyIncreasingID
+expr_rule(MonotonicallyIncreasingID, T.LONG)
 expr_rule(agg.Sum, T.numeric)
 expr_rule(agg.Average, T.integral + T.DOUBLE)
 expr_rule(agg.Count, T.all_types)
@@ -287,7 +290,8 @@ EXEC_SIGS: Dict[Type[eb.Exec], TypeSig] = {
         GatherPartitionsExec, CpuHashAggregateExec, CpuJoinExec,
         NestedLoopJoinExec, HashJoinExec, BroadcastExchangeExec,
         BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
-        ShuffleExchangeExec, LocalLimitExec, GlobalLimitExec)}
+        ShuffleExchangeExec, LocalLimitExec, GlobalLimitExec,
+        FileScanExec)}
 EXEC_SIGS[SortExec] = T.common_scalar.nested()
 EXEC_SIGS[WindowExec] = T.common_scalar.nested()
 
@@ -466,6 +470,16 @@ def _tag_window(meta: ExecMeta):
                 f"window function {type(f).__name__} not supported")
 
 
+def _tag_file_scan(meta: ExecMeta):
+    """A format switched off leaves its scan on the CPU; the transition
+    above carries its batches up."""
+    e: FileScanExec = meta.exec
+    key = {"parquet": cfg.PARQUET_ENABLED, "orc": cfg.ORC_ENABLED,
+           "csv": cfg.CSV_ENABLED}.get(e.fmt)
+    if key is not None and not meta.conf.get(key):
+        meta.will_not_work(f"{e.fmt} scan disabled by config")
+
+
 EXEC_CONVERTS[CpuHashAggregateExec] = _convert_aggregate
 EXEC_CONVERTS[CpuJoinExec] = _convert_join
 EXEC_CONVERTS[SortExec] = _convert_sort
@@ -474,6 +488,7 @@ EXEC_TAGS[CpuJoinExec] = _tag_join
 EXEC_TAGS[CpuHashAggregateExec] = _tag_aggregate
 EXEC_TAGS[SortExec] = _tag_sort
 EXEC_TAGS[WindowExec] = _tag_window
+EXEC_TAGS[FileScanExec] = _tag_file_scan
 
 
 def _tag_host_exchanges(meta: ExecMeta):

@@ -3,11 +3,17 @@
 Counterpart of spark_rapids_tpu/plan/planner.py: the planner produces
 the plan Spark's query planner would hand the plugin, every operator
 placed on the CPU, and plan/overrides.py then rewrites it onto the GPU (tagging
-the pieces that stay on the CPU).  An aggregate over more than one
+the pieces that stay on the CPU).  A file relation becomes a
+FileScanExec: an attribute-only projection directly over it prunes the
+scan's columns, and a filter directly over it pushes its condition into
+that query's scan (the exact filter stays above; the shared relation is
+never changed).  An aggregate over more than one
 partition gets a hash exchange on its grouping keys (a partition
 gather for a global aggregate); a join is planned by
 exec/join.py:plan_join.  A logical node the port's API cannot build yet
-raises NotImplementedError.
+raises NotImplementedError, and so does monotonically_increasing_id()
+anywhere but a projection or a filter, the two operators that carry its
+running row base.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from ..exec.gatherpart import GatherPartitionsExec
 from ..exec.join import plan_join
 from ..exec.sort import SortExec
 from ..exec.window import WindowExec
+from ..expr.core import AttributeReference
+from ..expr.hashfns import MonotonicallyIncreasingID
+from ..io.scan import make_scan_exec
 
 
 def plan(lp: L.LogicalPlan, conf) -> Exec:
@@ -29,14 +38,46 @@ def plan(lp: L.LogicalPlan, conf) -> Exec:
     return root
 
 
+def _row_id_exprs(lp: L.LogicalPlan):
+    """The expressions of an operator that carries no row base."""
+    if isinstance(lp, L.Aggregate):
+        return lp.grouping + lp.aggregates
+    if isinstance(lp, L.Join):
+        return [lp.condition] if lp.condition is not None else []
+    if isinstance(lp, L.Sort):
+        return [e for e, _, _ in lp.orders]
+    if isinstance(lp, L.Window):
+        return [x for w in lp.window_exprs
+                for x in [w, *w.spec.partition_by,
+                          *(e for e, _, _ in w.spec.order_by)]]
+    return []
+
+
 def _plan(lp: L.LogicalPlan, conf) -> Exec:
+    if any(e.collect(lambda x: isinstance(x, MonotonicallyIncreasingID))
+           for e in _row_id_exprs(lp)):
+        raise NotImplementedError(
+            f"monotonically_increasing_id() in a {type(lp).__name__} is "
+            "not supported: project it into a column first")
     if isinstance(lp, L.LocalRelation):
         return LocalScanExec(lp.table, lp.num_partitions,
                              pin_cache=lp.device_cache)
+    if isinstance(lp, L.FileRelation):
+        return make_scan_exec(lp, conf)
     if isinstance(lp, L.Project):
-        return ProjectExec(lp.exprs, _plan(lp.children[0], conf))
+        child_lp = lp.children[0]
+        if isinstance(child_lp, L.FileRelation) and all(
+                isinstance(e, AttributeReference) for e in lp.exprs):
+            scan = make_scan_exec(child_lp, conf)
+            scan.required_columns = [e.name for e in lp.exprs]
+            return scan
+        return ProjectExec(lp.exprs, _plan(child_lp, conf))
     if isinstance(lp, L.Filter):
-        return FilterExec(lp.condition, _plan(lp.children[0], conf))
+        child_lp = lp.children[0]
+        if isinstance(child_lp, L.FileRelation):
+            return FilterExec(lp.condition, make_scan_exec(
+                child_lp, conf, extra_filters=[lp.condition]))
+        return FilterExec(lp.condition, _plan(child_lp, conf))
     if isinstance(lp, L.Aggregate):
         child = _plan(lp.children[0], conf)
         if child.num_partitions > 1:

@@ -1,7 +1,7 @@
 """The port's operators declare the reference's replay classes.
 
 The same plan is built in both packages on the CPU (scan, filter,
-project, the grouped aggregate in each mode with integer and float
+project, the file scan, the grouped aggregate in each mode with integer and float
 buffers and with the canonical keyed merge on and off, the hash join of
 every type and the nested-loop join), and ``determinism()`` of each
 operator must agree: None where the reference returns None, else the
@@ -12,6 +12,7 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
+from spark_rapids_tpu import config as rconfig
 from spark_rapids_tpu.exec import aggregate as ragg
 from spark_rapids_tpu.exec import base as rbase
 from spark_rapids_tpu.exec import basic as rbasic
@@ -21,8 +22,10 @@ from spark_rapids_tpu.exec import join as rjoin
 from spark_rapids_tpu.expr import aggregates as raggs
 from spark_rapids_tpu.expr import core as rcore
 from spark_rapids_tpu.expr import predicates as rpred
+from spark_rapids_tpu.io import scan as rscan
 from spark_rapids_tpu.shuffle import exchange as rexchange
 from spark_rapids_tpu.shuffle import partitioning as rpartitioning
+from spark_rapids_tpu_torch import config as pconfig
 from spark_rapids_tpu_torch.analysis import determinism as pdet
 from spark_rapids_tpu_torch.exec import aggregate as pagg
 from spark_rapids_tpu_torch.exec import base as pbase
@@ -33,17 +36,20 @@ from spark_rapids_tpu_torch.exec import join as pjoin
 from spark_rapids_tpu_torch.expr import aggregates as paggs
 from spark_rapids_tpu_torch.expr import core as pcore
 from spark_rapids_tpu_torch.expr import predicates as ppred
+from spark_rapids_tpu_torch.io import scan as pscan
 from spark_rapids_tpu_torch.shuffle import exchange as pexchange
 from spark_rapids_tpu_torch.shuffle import partitioning as ppartitioning
 
 REF = dict(basic=rbasic, agg=ragg, join=rjoin, aggs=raggs,
            core=rcore, pred=rpred, Agg=ragg.TpuHashAggregateExec,
            base=rbase, broadcast=rbroadcast, gather=rgather,
-           exchange=rexchange, partitioning=rpartitioning)
+           exchange=rexchange, partitioning=rpartitioning, scan=rscan,
+           conf=rconfig)
 PORT = dict(basic=pbasic, agg=pagg, join=pjoin, aggs=paggs,
             core=pcore, pred=ppred, Agg=pagg.GpuHashAggregateExec,
             base=pbase, broadcast=pbroadcast, gather=pgather,
-            exchange=pexchange, partitioning=ppartitioning)
+            exchange=pexchange, partitioning=ppartitioning, scan=pscan,
+            conf=pconfig)
 FLAGS = ("cls", "order_sensitive_selection", "establishes_order",
          "partition_scoped", "canonicalizable")
 
@@ -66,6 +72,17 @@ def attr(lib, name):
 def filt(lib):
     return lib["basic"].FilterExec(lib["pred"].GreaterThan(
         attr(lib, "v"), lib["core"].Literal(3)), scan(lib))
+
+
+def file_scan(lib):
+    """A parquet scan of three files with a pushed filter; nothing is
+    read to build it or to ask its declaration."""
+    types = lib["basic"].LocalScanExec(table())._types
+    return lib["scan"].FileScanExec(
+        "parquet", [f"part-{i}.parquet" for i in range(3)], ["k", "v", "f"],
+        types, {}, lib["conf"].RapidsConf(),
+        pushed_filters=[lib["pred"].GreaterThan(attr(lib, "v"),
+                                                lib["core"].Literal(3))])
 
 
 def project(lib):
@@ -103,6 +120,7 @@ PLANS = {
     "scan": scan,
     "filter": filt,
     "project": project,
+    "file_scan": file_scan,
     **{f"aggregate_{mode}_{buffers}_stable_{stable}":
        (lambda lib, m=mode, b=buffers, s=stable: aggregate(lib, m, b, s))
        for mode in ("Partial", "Complete") for buffers in AGG_FUNCS
