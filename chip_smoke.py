@@ -57,6 +57,23 @@ q7, filter(v > 0) -> parquet write, host-assisted (the keep mask only)
 and direct: the footers must count the rows with v > 0 and the file
 read back must equal fact.filter(v > 0).  q5 at 2^20 rows with the
 parquet scan switched off: the scan on the CPU under GPU operators.
+Strings: the fact table gains bench-scale string columns built from
+numpy buffers (s, TPC-H's c_name of k, 18 bytes, 100,000 distinct; rf
+and ls, Q1's one-byte flags; c, a 10-43 byte comment, 5 % null, some
+multi-byte UTF-8) and the dimension its names.  K14 (string hashes),
+K15 (murmur3 over bytes), K16 (span gather) and K17 (prefix words)
+against their plain versions on edge cases (0 rows, all empty, all
+null, a 1 MB string among short ones, 40 bytes of shared prefix,
+multi-byte UTF-8, counts around the block and tile sizes, invalid
+gather slots), then qs1 (Q1 grouped by the string flags, 1 and 4
+partitions, q1x's numpy oracle under the mapping), qs2 (q1 grouped by
+s, pyarrow's group_by), qs3 (the fact joined to the dimension on s,
+c riding on the probe side, pyarrow's join row for row) and qs4 (sort
+by (s, v) carrying c, and its TopN, pyarrow's sort_by row for row),
+each kernel call of those runs against its plain version, and at 2^20
+rows the comparisons and IN on s and rf, c IS NULL, F.hash(s, k), a
+window by s, MIN/MAX of c by rf and a parquet write of (s, c, v)
+against the CPU engine or pyarrow.
 Launch counts are reset just before each main-path run and must be > 0
 after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
@@ -938,7 +955,8 @@ class _Capture:
 
     def __exit__(self, *exc):
         for n, fn in self.orig.items():
-            fn.launches += getattr(self.module, n).launches
+            if hasattr(fn, "launches"):
+                fn.launches += getattr(self.module, n).launches
             setattr(self.module, n, fn)
 
 
@@ -1186,8 +1204,8 @@ class _FetchTap:
         build, layout = self._orig = (self.fetch.build_plan,
                                       self.fetch.layout)
 
-        def build_plan(lanes, stats):
-            out = build(lanes, stats)
+        def build_plan(lanes, stats, *offsets_lanes):
+            out = build(lanes, stats, *offsets_lanes)
             self.plans.append(out[0])
             return out
 
@@ -1747,6 +1765,264 @@ def _sorted_rows(t):
     return t.sort_by([(c, "ascending") for c in t.column_names])
 
 
+# ---------------------------------------------------------------------------
+# the string phase: columns, queries, oracles and kernel cases
+# ---------------------------------------------------------------------------
+
+STRING_SMALL = 1 << 20     # rows of the string checks after qs1-qs4
+MB_STRING = 1 << 20        # the long string among short ones
+
+
+def _strings_from(lengths, chars, valid=None):
+    """A large_string array from numpy lengths and bytes, through Arrow's
+    buffers (no Python str objects); ``valid`` marks the non-null rows."""
+    offs = np.zeros(len(lengths) + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offs[1:])
+    bitmap = None if valid is None else pa.py_buffer(
+        np.packbits(valid, bitorder="little"))
+    return pa.LargeStringArray.from_buffers(
+        len(lengths), pa.py_buffer(offs), pa.py_buffer(chars), bitmap,
+        0 if valid is None else int((~valid).sum()))
+
+
+def _customer_names(keys):
+    """TPC-H c_name, "Customer#%09d" % key: 18 bytes a row."""
+    n = len(keys)
+    out = np.empty((n, 18), dtype=np.uint8)
+    out[:, :9] = np.frombuffer(b"Customer#", dtype=np.uint8)
+    k = keys.astype(np.int64)
+    for d in range(9):
+        out[:, 17 - d] = ord("0") + (k // 10**d) % 10
+    return _strings_from(np.full(n, 18, np.int64), out.reshape(-1))
+
+
+def _one_byte(codes, letters):
+    """One letter a row: ``letters[codes[i]]``."""
+    chars = np.frombuffer(letters, dtype=np.uint8)[codes]
+    return _strings_from(np.ones(len(codes), np.int64), chars)
+
+
+def _comments(rng, n):
+    """TPC-H l_comment-sized text: 10-43 random lowercase bytes a row, 5 %
+    of the rows null (empty), 1 % with a two-byte UTF-8 letter (é) at the
+    start of the row."""
+    lengths = rng.integers(10, 44, n)
+    valid = rng.random(n) >= 0.05
+    lengths = np.where(valid, lengths, 0)
+    chars = rng.integers(ord("a"), ord("z") + 1, int(lengths.sum()),
+                         dtype=np.uint8)
+    starts = np.cumsum(lengths) - lengths
+    accent = valid & (rng.random(n) < 0.01)
+    chars[starts[accent]] = 0xC3
+    chars[starts[accent] + 1] = 0xA9
+    return _strings_from(lengths, chars, valid)
+
+
+def _string_tables(table, dim):
+    """bench's fact and dimension with the string columns: s (c_name of
+    the key: 100,000 distinct, FK into the dimension's PK), rf and ls
+    (TPC-H Q1's flags, "ARN"[k % 3] and "FO"[v > 0]) and c (a comment);
+    the fact also gets its row id."""
+    k = table["k"].to_numpy()
+    v = table["v"].to_numpy()
+    rng = np.random.default_rng(SEED)
+    fact = pa.table({
+        "id": pa.array(np.arange(len(k), dtype=np.int64)),
+        "k": table["k"], "v": table["v"], "f": table["f"],
+        "s": _customer_names(k),
+        "rf": _one_byte(k % 3, b"ARN"),
+        "ls": _one_byte((v > 0).astype(np.int64), b"FO"),
+        "c": _comments(rng, len(k))})
+    dk = dim["k"].to_numpy()
+    sdim = pa.table({"s": _customer_names(dk), "w": dim["w"]})
+    return fact, sdim
+
+
+def _qs1_df(session, fact, parts, F, col, lit):
+    """q1x grouped by the string flags rf and ls, then sorted."""
+    df = session.create_dataframe(fact.select(["rf", "ls", "v", "f"]),
+                                  num_partitions=parts)
+    return (df.filter((col("f") <= 0.98) & col("v").is_not_null())
+            .select(col("rf"), col("ls"), col("v"), col("f"),
+                    (col("v") * (lit(1.0) - col("f"))).alias("disc"),
+                    (col("v") * (lit(1.0) - col("f"))
+                     * (lit(1.0) + col("f") / lit(10))).alias("charge"))
+            .group_by("rf", "ls")
+            .agg(F.sum("v"), F.sum("disc"), F.sum("charge"), F.avg("v"),
+                 F.avg("f"), F.count("*"), F.min("disc"), F.max("disc"),
+                 F.min("v"), F.max("v"))
+            .sort("rf", "ls"))
+
+
+def _qs1_oracle(q1x_rows):
+    """q1x's numpy oracle under the flags' mapping, in the flags' order."""
+    rows = [dict(r, rf="ARN"[r["rf"]], ls="FO"[r["ls"]]) for r in q1x_rows]
+    return sorted(rows, key=lambda r: (r["rf"], r["ls"]))
+
+
+def _qs2_df(session, fact, F, col):
+    """q1 keyed by the customer name s."""
+    return (session.create_dataframe(fact.select(["s", "v", "f"]))
+            .filter(col("v") > THRESHOLD)
+            .group_by(col("s"))
+            .agg(F.sum(col("v")).alias("sv"), F.avg(col("f")).alias("af"),
+                 F.count("*").alias("c")))
+
+
+def _qs2_oracle(fact):
+    ft = fact.filter(pc.greater(fact["v"], THRESHOLD))
+    return ft.group_by("s").aggregate(
+        [("v", "sum"), ("f", "mean"), ("s", "count")]).sort_by("s")
+
+
+def _check_qs2(got, want, what):
+    got = got.sort_by("s")
+    if got.column_names != ["s", "sv", "af", "c"] or \
+            got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.column_names}, {got.num_rows} "
+                             f"groups, oracle {want.num_rows}")
+    for mine, theirs in (("s", "s"), ("sv", "v_sum"), ("c", "s_count")):
+        if not got[mine].combine_chunks().equals(
+                want[theirs].combine_chunks()):
+            raise AssertionError(f"{what}: column {mine} differs")
+    af, wf = got["af"].to_numpy(), want["f_mean"].to_numpy()
+    if not np.allclose(af, wf, rtol=FLOAT_RTOL, atol=0.0):
+        raise AssertionError(f"{what}: avg differs")
+
+
+def _qs3_df(session, fact, sdim):
+    """The fact joined to the dimension on the customer name (FK -> PK),
+    the comment c riding along on the probe side."""
+    return session.create_dataframe(fact.select(["id", "s", "c"])).join(
+        session.create_dataframe(sdim), on="s", how="inner")
+
+
+def _by_id(t):
+    ids = t["id"].to_numpy()
+    return t.take(pa.array(np.argsort(ids, kind="stable")))
+
+
+def _qs4_df(session, fact, col):
+    """q3 keyed by (s, v), carrying the comment."""
+    return session.create_dataframe(fact.select(["s", "v", "c"])).sort(
+        col("s"), col("v"))
+
+
+def _same_strings_table(got, want):
+    """Equal column by column, strings byte for byte."""
+    if got.column_names != want.column_names or \
+            got.num_rows != want.num_rows:
+        return False
+    return all(got[c].combine_chunks().equals(want[c].combine_chunks())
+               for c in want.column_names)
+
+
+def _string_edge_arrays(rng):
+    """Edge cases for K14-K17, each an Arrow string array."""
+    def rand(n, lo=0, hi=20, p_null=0.1):
+        lengths = rng.integers(lo, hi + 1, n)
+        valid = rng.random(n) >= p_null
+        lengths = np.where(valid, lengths, 0)
+        chars = rng.integers(ord("a"), ord("z") + 1, int(lengths.sum()),
+                             dtype=np.uint8)
+        return _strings_from(lengths, chars, valid)
+    shared = np.frombuffer(b"q" * 40, dtype=np.uint8)
+    sp_len = np.array([41, 41, 40, 33, 32, 45])
+    sp_chars = np.concatenate([np.concatenate([shared, np.frombuffer(
+        bytes([97 + i]) * (L - 40), dtype=np.uint8)]) if L > 40 else
+        shared[:L] for i, L in enumerate(sp_len)])
+    utf = "é中\U0001F600".encode("utf-8")
+    mb_len = np.full(300, len(utf), np.int64)
+    long_len = rng.integers(0, 30, 2000)
+    long_len[777] = MB_STRING
+    long_chars = rng.integers(0, 256, int(long_len.sum()), dtype=np.uint8)
+    return {
+        "0 rows": _strings_from(np.zeros(0, np.int64),
+                                np.zeros(0, np.uint8)),
+        "all empty": _strings_from(np.zeros(5000, np.int64),
+                                   np.zeros(0, np.uint8)),
+        "all null": _strings_from(np.zeros(3000, np.int64),
+                                  np.zeros(0, np.uint8),
+                                  np.zeros(3000, dtype=bool)),
+        "1 MB among short": _strings_from(long_len, long_chars),
+        "32+ bytes shared": _strings_from(sp_len, sp_chars),
+        "multi-byte": _strings_from(mb_len, np.tile(np.frombuffer(
+            utf, dtype=np.uint8), 300)),
+        "255 rows": rand(255), "256 rows": rand(256), "257 rows": rand(257),
+        "4095 rows": rand(4095, 0, 90), "4096 rows": rand(4096, 0, 90),
+        "4097 rows": rand(4097, 0, 90), "9000 rows, 70 B": rand(9000, 60, 80),
+    }
+
+
+def _string_kernel_check(torch, sops, hashfns, offsets, chars, rng, what,
+                         n_out=None):
+    """K14, K15, K16 and K17 on one span column, each against its plain
+    version bit for bit; K16 over a random selection with invalid slots.
+    Returns the number of checks."""
+    cap = int(offsets.shape[0]) - 1
+    got = sops.string_hashes(offsets, chars, join_word=True)
+    want = sops.string_hashes_plain(offsets, chars, join_word=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K14 differs from its plain version ({what})")
+    got, want = sops.order_keys(offsets, chars), \
+        sops.order_keys_plain(offsets, chars)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K17 differs from its plain version ({what})")
+    seed = torch.from_numpy(rng.integers(0, 2**32, cap, dtype=np.int64)
+                            ).to(offsets.device)
+    valid = torch.from_numpy(rng.random(cap) < 0.9).to(offsets.device)
+    got = hashfns.hash_bytes(offsets, chars, seed, valid)
+    want = hashfns.hash_bytes_plain(offsets, chars, seed, valid)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K15 differs from its plain version ({what})")
+    m = n_out if n_out is not None else max(cap, 1) + 37
+    idx = torch.from_numpy(rng.integers(-3, max(cap, 1) + 3, m
+                                        ).astype(np.int32)).to(offsets.device)
+    ok = torch.from_numpy(rng.random(m) < 0.8).to(offsets.device)
+    ok &= (idx >= 0) & (idx < cap)       # an invalid slot: out of range too
+    got = sops.gather_strings(offsets, chars, idx, ok)
+    o, total = sops.gather_offsets_plain(offsets, idx, ok)
+    want = (o, sops.gather_chars_plain(offsets, chars, idx, o,
+                                       int(got[1].shape[0])))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K16 differs from its plain version ({what})")
+    return 4
+
+
+def _check_string_captured(torch, cap, sops, hashfns, what):
+    """Every call a string path made of K14, K15, K16 or K17, run again
+    through the kernel and its plain version, bit for bit."""
+    seen = []
+    for name, args in cap.calls:
+        got = cap.orig[name](*args)
+        if name == "string_hashes":
+            want = sops.string_hashes_plain(*args)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+        elif name == "order_keys":
+            want = sops.order_keys_plain(*args)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+        elif name == "gather_offsets":
+            want = sops.gather_offsets_plain(*args)
+            same = torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1])
+        elif name == "gather_chars":
+            want = sops.gather_chars_plain(*args[:4], args[5])
+            same = torch.equal(got, want)
+        else:
+            want = hashfns.hash_bytes_plain(*args)
+            same = torch.equal(got, want)
+        rows = int(args[0].shape[0]) - 1 if name != "gather_chars" else \
+            int(args[2].shape[0])
+        if not same:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"at {what} ({rows} rows)")
+        seen.append(f"{name} ({rows} rows)")
+        del got, want
+    if not seen:
+        raise AssertionError(f"{what} made no call to capture")
+    return seen
+
+
 def main() -> int:
     try:
         import torch
@@ -1798,6 +2074,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import join_kernels as jk
     from spark_rapids_tpu_torch.ops import scan as scan_mod
     from spark_rapids_tpu_torch.ops import segmented as seg
+    from spark_rapids_tpu_torch.ops import strings as sops
+    from spark_rapids_tpu_torch.expr import hashfns as hashfns_mod
     from spark_rapids_tpu_torch.plan import host_assist
 
     dev = torch.device("cuda")
@@ -2550,7 +2828,11 @@ def main() -> int:
                 "pack_lanes": fetch.pack_lanes,
                 "segment_scan": scan_mod.segment_scan,
                 "run_ends": scan_mod.run_ends,
-                "scatter_rows": gather_mod.scatter_rows}
+                "scatter_rows": gather_mod.scatter_rows,
+                "string_hashes": sops.string_hashes,
+                "hash_bytes": hashfns_mod.hash_bytes,
+                "gather_strings": sops.gather_strings,
+                "order_keys": sops.order_keys}
 
     def download_fetched(b):
         return batch_to_arrow(fetch.fetch_batch(b))
@@ -4026,6 +4308,399 @@ def main() -> int:
         failures.append("join types")
         traceback.print_exc()
 
+    # ---- strings: K14-K17, qs1-qs4 at 2^25 rows, checks at 2^20 ------
+    st_fact = st_dim = None
+    try:
+        t1 = time.perf_counter()
+        st_fact, st_dim = _string_tables(table, dim)
+        sbytes = {c: int(pc.sum(pc.binary_length(st_fact[c])).as_py() or 0)
+                  for c in ("s", "rf", "ls", "c")}
+        print(f"string tables: fact {st_fact.num_rows} rows with s "
+              f"(\"Customer#%09d\" of k, {sbytes['s']} bytes), rf, ls "
+              f"(1 byte), c (10-43 bytes, {st_fact['c'].null_count} null, "
+              f"{sbytes['c']} bytes); dimension {st_dim.num_rows} names; "
+              f"built from numpy buffers in "
+              f"{time.perf_counter() - t1:.1f} s")
+        rng = np.random.default_rng(SEED + 77)
+        checks = 0
+        for what, arr in _string_edge_arrays(rng).items():
+            n = len(arr)
+            colm = batch_to_device(pa.RecordBatch.from_arrays(
+                [arr], names=["x"]), dev).columns[0]
+            checks += _string_kernel_check(torch, sops, hashfns_mod,
+                                           colm.offsets, colm.data, rng,
+                                           what)
+        torch.cuda.synchronize()
+        print(f"K14-K17 edge cases: {checks} checks (0 rows, all empty, "
+              f"all null, a 1 MB string among 2,000 short, 40 bytes of "
+              f"shared prefix, multi-byte UTF-8, 255-257 and 4,095-4,097 "
+              f"rows, invalid and out-of-range gather slots): each kernel "
+              f"equals its plain version bit for bit")
+    except Exception:
+        failures.append("string kernels (edge cases)")
+        traceback.print_exc()
+
+    def string_run(run, df, check, what, session):
+        """Cold, then the counted warm run, then 3 warm walls and a
+        trace; the plan must be GPU-only."""
+        t1 = time.perf_counter()
+        check(df.collect(), f"{what} (cold)")
+        cold_wall = (time.perf_counter() - t1) * 1e3
+        nodes = _placements(session.last_plan)
+        if nodes[0] != ("DeviceToHostExec", "cpu") or \
+                any(p != "gpu" for _, p in nodes[1:]) or \
+                "!" in session.last_explain:
+            raise AssertionError(f"{what} placed {nodes}:\n"
+                                 f"{session.last_explain}")
+        count_reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        got = df.collect()
+        torch.cuda.synchronize()
+        launches[run] = counts()
+        check(got, what)
+        walls = timed_walls(df.collect)
+        trace = _profile(torch, df.collect)
+        print(f"main path {what}: plan {[n for n, _ in nodes]}, GPU-only; "
+              f"cold wall {cold_wall:.1f} ms; warm walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
+              f"{sorted(walls)[1]:.1f}; busy {trace['busy_ms']:.2f} ms, "
+              f"idle share {trace['idle_share']:.3f} (traced wall "
+              f"{trace['wall_ms']:.1f} ms); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {launches[run]}; top kernels (ms): "
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"][:6])
+              + f"; {card}")
+        return got
+
+    string_caps = {}
+
+    def capture_strings(key, fn):
+        """One run of ``fn`` outside the counted ones, keeping the
+        arguments of every K14-K17 call."""
+        with _Capture(sops, "string_hashes", "order_keys", "gather_offsets",
+                      "gather_chars") as cap, \
+                _Capture(hashfns_mod, "hash_bytes") as cap15:
+            fn()
+        cap.calls += cap15.calls
+        cap.orig.update(cap15.orig)
+        string_caps[key] = cap
+
+    # qs1: TPC-H Q1 with the real flags, one partition and four
+    if st_fact is not None:
+        try:
+            want1 = _qs1_oracle(_q1x_oracle(table))
+
+            def check1(got, what):
+                _check_q1x(got, want1, what)
+            for parts in (1, 4):
+                s1 = GpuSession()
+                df1 = _qs1_df(s1, st_fact, parts, F, col, lit)
+                string_run("qs1" if parts == 1 else "qs1_4", df1, check1,
+                           f"qs1 (TPC-H Q1 grouped by the string flags rf "
+                           f"and ls, {ROWS} rows in {parts} partition(s))",
+                           s1)
+                if parts == 1:
+                    capture_strings("qs1", df1.collect)
+                del df1, s1
+        except Exception:
+            failures.append("main path (qs1)")
+            traceback.print_exc()
+
+    # qs2: q1 keyed by the customer name
+    if st_fact is not None:
+        try:
+            t1 = time.perf_counter()
+            want2 = _qs2_oracle(st_fact)
+            print(f"pyarrow qs2 oracle: {want2.num_rows} groups, "
+                  f"{time.perf_counter() - t1:.1f} s")
+            s2 = GpuSession()
+            df2 = _qs2_df(s2, st_fact, F, col)
+            string_run("qs2", df2, lambda g, w: _check_qs2(g, want2, w),
+                       f"qs2 (q1 grouped by the 18-byte name s, {ROWS} "
+                       f"rows)", s2)
+            capture_strings("qs2", df2.collect)
+            # K14 at qs2's shape: the names' hashes, as the group-by asks
+            names = batch_to_device(pa.RecordBatch.from_arrays(
+                [st_fact["s"].combine_chunks()], names=["s"]),
+                dev).columns[0]
+            n = names.capacity
+            got = sops.string_hashes(names.offsets, names.data)
+            want = sops.string_hashes_plain(names.offsets, names.data)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("K14 differs at qs2's shape")
+            kernel_rows["string_hashes"] = dict(
+                source="spark_rapids_tpu_torch/csrc/string_hashes.cu",
+                replaces="spark_rapids_tpu/ops/strings.py:41",
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: sops.string_hashes(names.offsets,
+                                                      names.data)),
+                plain_ms=cuda_ms(lambda: sops.string_hashes_plain(
+                    names.offsets, names.data), reps=2),
+                library_ms=None,
+                bound_ms=bound(4 * (n + 1) + sbytes["s"] + 16 * n))
+            # K17 at qs4's key, the same names
+            got = sops.order_keys(names.offsets, names.data)
+            want = sops.order_keys_plain(names.offsets, names.data)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("K17 differs at qs4's shape")
+            lens = np.minimum(pc.binary_length(st_fact["s"]).to_numpy(), 32)
+            kernel_rows["order_keys"] = dict(
+                source="spark_rapids_tpu_torch/csrc/prefix_words.cu",
+                replaces="spark_rapids_tpu/ops/strings.py:76",
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: sops.order_keys(names.offsets,
+                                                   names.data)),
+                plain_ms=cuda_ms(lambda: sops.order_keys_plain(
+                    names.offsets, names.data), reps=2),
+                library_ms=None,
+                bound_ms=bound(4 * (n + 1) + int(lens.sum()) + 40 * n))
+            print(f"K14 string_hashes and K17 order_keys at {n} names: "
+                  f"exact; K14 {kernel_rows['string_hashes']['ms']:.3f} ms "
+                  f"(plain {kernel_rows['string_hashes']['plain_ms']:.3f}, "
+                  f"bound {kernel_rows['string_hashes']['bound_ms']:.3f}), "
+                  f"K17 {kernel_rows['order_keys']['ms']:.3f} ms (plain "
+                  f"{kernel_rows['order_keys']['plain_ms']:.3f}, bound "
+                  f"{kernel_rows['order_keys']['bound_ms']:.3f}); {card}")
+            del names, got, want, df2, s2
+        except Exception:
+            failures.append("main path (qs2)")
+            traceback.print_exc()
+
+    # qs3: the fact joined to the dimension on the name, c as payload
+    if st_fact is not None:
+        try:
+            t1 = time.perf_counter()
+            want3 = _by_id(st_fact.select(["id", "s", "c"]).join(
+                st_dim, "s", join_type="inner"))
+            want3 = want3.select(["s", "id", "c", "w"])
+            print(f"pyarrow qs3 oracle: {want3.num_rows} joined rows, "
+                  f"{time.perf_counter() - t1:.1f} s")
+
+            def check3(got, what):
+                got = _by_id(got).select(want3.column_names)
+                if not _same_strings_table(got, want3):
+                    raise AssertionError(f"{what}: differs from pyarrow's "
+                                         f"join ({got.num_rows} rows)")
+            s3 = GpuSession()
+            df3 = _qs3_df(s3, st_fact, st_dim)
+            string_run("qs3", df3, check3,
+                       f"qs3 (the fact joined to the dimension on the name "
+                       f"s, FK -> PK, the comment c riding on the probe "
+                       f"side, {ROWS} rows)", s3)
+            capture_strings("qs3", df3.collect)
+            del df3, s3
+        except Exception:
+            failures.append("main path (qs3)")
+            traceback.print_exc()
+
+    # qs4: sort by (s, v) carrying c, and its TopN
+    if st_fact is not None:
+        try:
+            t1 = time.perf_counter()
+            sub4 = st_fact.select(["s", "v", "c"])
+            want4 = sub4.sort_by([("s", "ascending"), ("v", "ascending")])
+            print(f"pyarrow qs4 oracle: {want4.num_rows} rows sorted, "
+                  f"{time.perf_counter() - t1:.1f} s")
+
+            def check4(got, what):
+                if not _same_strings_table(got, want4):
+                    raise AssertionError(f"{what}: differs from pyarrow's "
+                                         f"sort")
+            s4 = GpuSession()
+            df4 = _qs4_df(s4, st_fact, col)
+            string_run("qs4", df4, check4,
+                       f"qs4 (sort by (s, v) carrying c, {ROWS} rows)", s4)
+            capture_strings("qs4", df4.collect)
+            top4 = want4.slice(0, 1000)
+
+            def check_top(got, what):
+                if not _same_strings_table(got, top4):
+                    raise AssertionError(f"{what}: differs from pyarrow")
+            s5 = GpuSession()
+            dft = s5.create_dataframe(sub4).sort(col("s"), col("v")).limit(
+                1000)
+            string_run("qs4_topn", dft, check_top,
+                       "qs4's TopN (sort(s, v).limit(1000))", s5)
+            # K16 at qs4's shape: c through the sort's order
+            sc = batch_to_device(pa.RecordBatch.from_arrays(
+                [sub4[c].combine_chunks() for c in ("s", "v", "c")],
+                names=["s", "v", "c"]), dev)
+            words = [w for ccol in sc.columns[:2]
+                     for w in seg.sort_key_words(ccol)]
+            order = carry.sort_order(words)
+            cc = sc.columns[2]
+            ok = cc.validity.index_select(0, order.long())
+            o16, total16 = sops.gather_offsets(cc.offsets, order, ok)
+            total16 = int(total16)
+            cap16 = bucket_for(max(total16, 1),
+                               (16384, 131072, 1048576, 8388608, 67108864,
+                                268435456))
+            got = sops.gather_chars(cc.offsets, cc.data, order, o16,
+                                    total16, cap16)
+            o_p, _ = sops.gather_offsets_plain(cc.offsets, order, ok)
+            want = sops.gather_chars_plain(cc.offsets, cc.data, order, o_p,
+                                           cap16)
+            if not (torch.equal(o16, o_p) and torch.equal(got, want)):
+                raise AssertionError("K16 differs at qs4's shape")
+            n = sc.capacity
+
+            def k16():
+                o, _ = sops.gather_offsets(cc.offsets, order, ok)
+                return sops.gather_chars(cc.offsets, cc.data, order, o,
+                                         total16, cap16)
+
+            def k16_plain():
+                o, _ = sops.gather_offsets_plain(cc.offsets, order, ok)
+                return sops.gather_chars_plain(cc.offsets, cc.data, order,
+                                               o, cap16)
+            kernel_rows["gather_strings"] = dict(
+                source="spark_rapids_tpu_torch/csrc/gather_strings.cu",
+                replaces="spark_rapids_tpu/ops/strings.py:101",
+                max_abs_err=0.0, ms=cuda_ms(k16),
+                plain_ms=cuda_ms(k16_plain, reps=1), library_ms=None,
+                bound_ms=bound(13 * n + 2 * total16 + 4 * n))
+            print(f"K16 gather_strings at qs4's shape ({n} rows, "
+                  f"{total16} bytes of c through the sort order): exact; "
+                  f"{kernel_rows['gather_strings']['ms']:.3f} ms (plain "
+                  f"{kernel_rows['gather_strings']['plain_ms']:.3f}, bound "
+                  f"{kernel_rows['gather_strings']['bound_ms']:.3f}); "
+                  f"{card}")
+            del sc, cc, got, want, words, order, ok, o16, o_p, df4, s4, \
+                dft, s5, want4, sub4
+        except Exception:
+            failures.append("main path (qs4)")
+            traceback.print_exc()
+
+    # the captured K14-K17 calls of qs1-qs4, against their plain versions
+    for key, cap in string_caps.items():
+        try:
+            seen = _check_string_captured(torch, cap, sops, hashfns_mod, key)
+            print(f"captured at {key}: {len(seen)} calls equal their plain "
+                  f"versions bit for bit: {', '.join(seen[:8])}"
+                  + (" ..." if len(seen) > 8 else ""))
+        except Exception:
+            failures.append(f"captured string kernels ({key})")
+            traceback.print_exc()
+    string_caps.clear()
+
+    # ---- strings at 2^20 rows against the CPU engine and pyarrow ----
+    if st_fact is not None:
+        try:
+            small = st_fact.slice(0, STRING_SMALL).combine_chunks()
+            cpu = GpuSession(conf={"spark.rapids.sql.enabled": False})
+            card_s = GpuSession()
+
+            def both(query, what, run=None):
+                count_reset()
+                want = query(cpu.create_dataframe(small)).collect()
+                if any(counts().values()) or any(
+                        p != "cpu" for _, p in _placements(cpu.last_plan)):
+                    raise AssertionError(f"{what}: the CPU engine launched "
+                                         f"a kernel or placed on the GPU")
+                count_reset()
+                got = query(card_s.create_dataframe(small)).collect()
+                if run is not None:
+                    launches[run] = counts()
+                nodes = _placements(card_s.last_plan)
+                if any(p != "gpu" for _, p in nodes[1:]) or \
+                        "!" in card_s.last_explain:
+                    raise AssertionError(f"{what} placed {nodes}")
+                if not _same_window_tables(got, want):
+                    raise AssertionError(f"{what}: the card differs from "
+                                         f"the CPU engine")
+                return got
+            done = []
+            preds = {
+                "s = 'Customer#000000042'":
+                    col("s") == lit("Customer#000000042"),
+                "s <> 'Customer#000000042'":
+                    col("s") != lit("Customer#000000042"),
+                "s < 'Customer#000050000'":
+                    col("s") < lit("Customer#000050000"),
+                "s >= 'Customer#000099990'":
+                    col("s") >= lit("Customer#000099990"),
+                "rf IN ('A', 'N')": col("rf").isin("A", "N"),
+                "s IN (3 names)": col("s").isin(
+                    "Customer#000000001", "Customer#000012345",
+                    "Customer#000099999"),
+                "rf > ls": col("rf") > col("ls"),
+                "c IS NULL": col("c").is_null()}
+            for what, pred in preds.items():
+                got = both(lambda d, p=pred: d.filter(p).select(
+                    "id", "s", "rf"), what)
+                done.append(f"{what}: {got.num_rows}")
+            got = both(lambda d: d.select(
+                col("id"), F.hash(col("s"), col("k")).alias("h"),
+                F.hash(col("c")).alias("hc")), "F.hash(s, k)", "hash_s")
+            capture_strings("hash", lambda: card_s.create_dataframe(
+                small).select(F.hash(col("s"), col("k"))).collect())
+            done.append(f"F.hash(s, k) and F.hash(c): {got.num_rows}")
+            wspec = W.WindowBuilder().partition_by(col("s")).order_by(
+                col("v"), col("id"))
+            got = both(lambda d: d.select(
+                col("id"), col("s"), col("v"),
+                F.row_number().over(wspec).alias("rn"),
+                F.sum(col("v")).over(wspec).alias("rs"),
+                F.lag(col("c"), 1).over(wspec).alias("lc")),
+                "window by s")
+            done.append(f"window by s ordered by v: {got.num_rows}")
+            got = both(lambda d: d.group_by(col("rf")).agg(
+                F.min(col("c")).alias("mn"), F.max(col("c")).alias("mx"),
+                F.count(col("c")).alias("n")).sort(col("rf")),
+                "min/max of c by rf")
+            done.append(f"min and max of c by rf: {got.num_rows} groups")
+            with tempfile.TemporaryDirectory() as td:
+                out = os.path.join(td, "scv")
+                card_s.create_dataframe(small.select(["s", "c", "v"])) \
+                    .write.mode("overwrite").parquet(out)
+                back = pq.read_table(out).select(["s", "c", "v"])
+                want_w = small.select(["s", "c", "v"])
+                if not _same_strings_table(
+                        back.cast(want_w.schema).combine_chunks(),
+                        want_w.combine_chunks()):
+                    raise AssertionError("the parquet write of (s, c, v) "
+                                         "reads back different")
+                got = card_s.read.parquet(out).collect()
+                if not _same_strings_table(got.cast(want_w.schema),
+                                           want_w):
+                    raise AssertionError("the parquet scan of (s, c, v) "
+                                         "differs")
+            done.append("parquet write of (s, c, v) reads back equal "
+                        "(pyarrow and the port's scan)")
+            print(f"strings at {STRING_SMALL} rows, the card (GPU-placed) "
+                  f"against the CPU engine (no kernel launched), exactly: "
+                  + "; ".join(done))
+            hash_cap = string_caps.pop("hash")
+            seen = _check_string_captured(torch, hash_cap, sops,
+                                          hashfns_mod, "F.hash")
+            for name, args in hash_cap.calls:
+                if name != "hash_bytes":
+                    continue
+                offs, chars = args[0], args[1]
+                n = int(offs.shape[0]) - 1
+                nb = int(offs[-1])
+                kernel_rows["hash_bytes"] = dict(
+                    source="spark_rapids_tpu_torch/csrc/hash_bytes.cu",
+                    replaces="spark_rapids_tpu/expr/hashfns.py:72",
+                    max_abs_err=0.0,
+                    ms=cuda_ms(lambda: hashfns_mod.hash_bytes(*args)),
+                    plain_ms=cuda_ms(lambda: hashfns_mod.hash_bytes_plain(
+                        *args), reps=1),
+                    library_ms=None,
+                    bound_ms=bound(4 * (n + 1) + nb + 4 * n + 4 * n))
+                r15 = kernel_rows["hash_bytes"]
+                print(f"K15 hash_bytes at F.hash's shape ({n} rows, {nb} "
+                      f"bytes): exact; {r15['ms']:.3f} ms (plain "
+                      f"{r15['plain_ms']:.3f}, bound {r15['bound_ms']:.3f}"
+                      f"); {card}")
+                break
+            del small, cpu, card_s
+        except Exception:
+            failures.append("strings at 2^20 rows")
+            traceback.print_exc()
+    del st_fact, st_dim
+
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
@@ -4050,10 +4725,25 @@ def main() -> int:
         "q5": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "q5_4": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "q7": ("lane_stats", "pack_lanes"),
-        "q7_direct": ("compact_rows", "lane_stats", "pack_lanes")}
+        "q7_direct": ("compact_rows", "lane_stats", "pack_lanes"),
+        "qs1": ("compact_rows", "sort_order", "segment_reduce_sorted",
+                "string_hashes", "gather_strings"),
+        "qs1_4": ("compact_rows", "sort_order", "segment_reduce_sorted",
+                  "string_hashes", "gather_strings"),
+        "qs2": ("compact_rows", "sort_order", "segment_reduce_sorted",
+                "string_hashes", "gather_strings"),
+        "qs3": ("string_hashes", "key_hash", "sort_order", "hash_table",
+                "join_probe", "expand_ends", "expand_pairs",
+                "gather_strings"),
+        "qs4": ("order_keys", "sort_order", "gather_rows",
+                "gather_strings"),
+        "qs4_topn": ("order_keys", "sort_order", "gather_rows",
+                     "gather_strings"),
+        "hash_s": ("hash_bytes",)}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
-                "q5_4"):
+                "q5_4", "qs1", "qs1_4", "qs2", "qs3", "qs4", "qs4_topn",
+                "hash_s"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -4072,13 +4762,16 @@ def main() -> int:
 
     if kernel_rows:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
-        # q2 for K4-K7, q3 for K8-K10, q4 for K11-K13
+        # q2 for K4-K7, q3 for K8-K10, q4 for K11-K13, qs2 for K14, the
+        # 2^20-row F.hash for K15, qs4 for K16 and K17
         run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
                   "expand_pairs": "q2", "gather_rows": "q3",
                   "segment_reduce_sorted_minmax": "q1x",
                   "lane_stats": "q3", "pack_lanes": "q3",
                   "segment_scan": "q4", "run_ends": "q4",
-                  "scatter_rows": "q4"}
+                  "scatter_rows": "q4", "string_hashes": "qs2",
+                  "hash_bytes": "hash_s", "gather_strings": "qs4",
+                  "order_keys": "qs4"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],

@@ -159,7 +159,7 @@ class Column:
 
 _TYPE_NAMES = {"boolean": t.BOOLEAN, "bool": t.BOOLEAN, "int": t.INT,
                "integer": t.INT, "long": t.LONG, "bigint": t.LONG,
-               "double": t.DOUBLE}
+               "double": t.DOUBLE, "string": t.STRING}
 
 
 def parse_type(s: str) -> t.DataType:
@@ -169,7 +169,7 @@ def parse_type(s: str) -> t.DataType:
         return _TYPE_NAMES[name]
     raise NotImplementedError(
         f"type {s!r} is not ported yet (the port carries boolean, int, "
-        f"bigint and double; the other types are Queue 1 item 3)")
+        f"bigint, double and string; the other types are Queue 1 item 3)")
 
 
 def col(name: str) -> Column:

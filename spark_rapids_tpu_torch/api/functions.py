@@ -166,6 +166,12 @@ def expr_if(c, a, b) -> Column:
     return _c(cond.If(_expr(c), _expr(a), _expr(b)))
 
 
+def hash(*cols) -> Column:  # noqa: A001
+    """Spark's hash(): Murmur3 with seed 42 over the columns, an INT."""
+    from ..expr.hashfns import Murmur3Hash
+    return _c(Murmur3Hash([_arg(c) for c in cols]))
+
+
 def monotonically_increasing_id() -> Column:
     return _c(MonotonicallyIncreasingID())
 

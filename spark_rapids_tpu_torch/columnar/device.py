@@ -4,7 +4,11 @@ Counterpart of spark_rapids_tpu/columnar/device.py.  A column is a
 ``data`` tensor and a bool ``validity`` tensor, both padded to a
 capacity bucket; the batch's row count is a host int.  Rows at index
 >= num_rows are padding and are always invalid, and the data under a
-null is zero.
+null is zero.  A STRING column is the reference's span layout:
+``offsets`` int32[capacity + 1], rebased to 0 and repeating the last
+offset past the live rows, over ``data``, the UTF-8 bytes, uint8
+zero-padded to a ``DEFAULT_CHAR_BUCKETS`` bucket; a null string is
+empty.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from .. import types as t
 from .interop import from_arrow_type, to_arrow_type
 
 DEFAULT_ROW_BUCKETS = (1024, 8192, 65536, 262144, 1048576, 4194304)
+DEFAULT_CHAR_BUCKETS = (16384, 131072, 1048576, 8388608, 67108864, 268435456)
+_INT32_MAX = 2**31 - 1
 
 
 def bucket_for(n: int, buckets: Sequence[int] = DEFAULT_ROW_BUCKETS) -> int:
@@ -47,18 +53,24 @@ def resolve_device(device=None) -> torch.device:
 
 
 class DeviceColumn:
-    """One column: ``data`` and bool ``validity``, both [capacity]."""
+    """One column: ``data`` and bool ``validity``, both [capacity]; for a
+    span column (STRING) ``offsets`` int32[capacity + 1] over the chars
+    in ``data``, else None."""
 
-    __slots__ = ("dtype", "data", "validity")
+    __slots__ = ("dtype", "data", "validity", "offsets")
 
     def __init__(self, dtype: t.DataType, data: torch.Tensor,
-                 validity: torch.Tensor):
+                 validity: torch.Tensor,
+                 offsets: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
+        self.offsets = offsets
 
     @property
     def capacity(self) -> int:
+        if self.offsets is not None:
+            return int(self.offsets.shape[0]) - 1
         return int(self.data.shape[0])
 
     def __repr__(self):
@@ -73,26 +85,36 @@ def unpack_bits(bitmap: torch.Tensor, n: int) -> torch.Tensor:
     return bits.reshape(-1)[:n].to(torch.bool)
 
 
+def _pack_bits(x: torch.Tensor) -> torch.Tensor:
+    """An Arrow validity bitmap (uint8, least significant bit first) of a
+    bool[n] on the CPU."""
+    return torch.from_numpy(np.packbits(x.numpy(), bitorder="little"))
+
+
 class HostColumn(DeviceColumn):
     """A column fetched to the host by columnar/fetch.py: ``data`` holds
     the live rows on the CPU and ``bitmap`` their validity as an Arrow
     bitmap (uint8, least significant bit first), or None when every row
     is valid.  ``validity`` unpacks the bitmap on first read, so a
-    collect hands the bitmap to Arrow as it came from the card."""
+    collect hands the bitmap to Arrow as it came from the card.  A
+    STRING column's ``offsets`` are int64[rows + 1] and ``data`` its
+    ``offsets[rows]`` bytes."""
 
     __slots__ = ("bitmap", "_validity")
 
     def __init__(self, dtype: t.DataType, data: torch.Tensor,
-                 bitmap: Optional[torch.Tensor]):
+                 bitmap: Optional[torch.Tensor],
+                 offsets: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
+        self.offsets = offsets
         self.bitmap = bitmap
         self._validity = None
 
     @property
     def validity(self) -> torch.Tensor:
         if self._validity is None:
-            n = int(self.data.shape[0])
+            n = self.capacity
             self._validity = (torch.ones(n, dtype=torch.bool)
                               if self.bitmap is None
                               else unpack_bits(self.bitmap, n))
@@ -137,11 +159,67 @@ def _padded(values: np.ndarray, cap: int, dtype: torch.dtype,
     return out
 
 
+def string_buffers(arr: pa.Array):
+    """(offsets int32[n + 1] rebased to 0, chars uint8[offsets[n]]) of an
+    Arrow string or large_string array, as numpy views where Arrow's
+    buffers allow: a sliced array is rebased, and a null becomes empty
+    (the reference's span branch)."""
+    n = len(arr)
+    wide = pa.types.is_large_string(arr.type)
+
+    def offsets_of(a):
+        return np.frombuffer(a.buffers()[1],
+                             dtype=np.int64 if wide else np.int32,
+                             count=n + 1 + a.offset)[a.offset:]
+    offs = offsets_of(arr)
+    if arr.null_count and np.diff(offs)[
+            ~np.asarray(arr.is_valid())].any():
+        arr = arr.fill_null("")             # a null with bytes: drop them
+        offs = offsets_of(arr)
+    bufs = arr.buffers()
+    base = int(offs[0])
+    nbytes = int(offs[-1]) - base
+    if nbytes > _INT32_MAX:
+        raise ValueError(f"a string column of {nbytes} bytes exceeds the "
+                         f"2^31-1 bytes of int32 offsets; split the batch")
+    if base or wide:
+        offs = (offs - base).astype(np.int32)
+    chars = np.zeros(0, dtype=np.uint8) if bufs[2] is None else \
+        np.frombuffer(bufs[2], dtype=np.uint8, count=base + nbytes)[base:]
+    return offs, chars
+
+
+def string_to_device(offs: np.ndarray, chars: np.ndarray, validity,
+                     cap: int, device: torch.device) -> DeviceColumn:
+    """A STRING column from rebased numpy offsets (int32[n + 1]) and chars:
+    offsets padded to cap + 1 by the last offset and chars zero-padded to
+    their bucket, both lanes in one host-to-device copy."""
+    n = offs.shape[0] - 1
+    nbytes = int(offs[-1])
+    char_cap = bucket_for(max(nbytes, 1), DEFAULT_CHAR_BUCKETS)
+    head = 4 * (cap + 1)
+    host = np.empty(head + nbytes, dtype=np.uint8)
+    o = host[:head].view(np.int32)
+    o[:n + 1] = offs
+    o[n + 1:] = nbytes
+    host[head:] = chars
+    buf = torch.empty(head + char_cap, dtype=torch.uint8, device=device)
+    buf[:head + nbytes].copy_(torch.from_numpy(host))
+    buf[head + nbytes:].zero_()
+    return DeviceColumn(t.STRING, buf[head:], validity,
+                        buf[:head].view(torch.int32))
+
+
 def column_to_device(arr, dtype: t.DataType, cap: int,
                      device: torch.device) -> DeviceColumn:
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     n = len(arr)
+    if dtype == t.STRING:
+        validity = _padded(np.asarray(arr.is_valid()), cap, torch.bool,
+                           device) if arr.null_count else \
+            torch.arange(cap, device=device) < n
+        return string_to_device(*string_buffers(arr), validity, cap, device)
     if dtype == t.NULL:
         return DeviceColumn(dtype, torch.zeros(cap, dtype=torch.int8,
                                                device=device),
@@ -181,6 +259,10 @@ def batch_from_numpy_lanes(lanes: Sequence[np.ndarray],
     cols = []
     for data, valid, tn in zip(lanes, validity, type_names):
         dtype = t.from_name(tn)
+        if dtype == t.STRING:
+            raise NotImplementedError(
+                "batch_from_numpy_lanes takes flat lanes; a string column "
+                "goes through batch_to_device")
         cols.append(DeviceColumn(
             dtype,
             torch.from_numpy(np.array(data)).to(dtype.torch_dtype).to(dev),
@@ -194,15 +276,43 @@ def move_batch(batch: DeviceBatch, device: torch.device,
     the live rows (at least one row) cross, so the copy holds no
     padding beyond that."""
     keep = max(batch.num_rows, 1) if live_only else None
-    cols = [DeviceColumn(c.dtype, c.data[:keep].to(device),
-                         c.validity[:keep].to(device))
-            for c in batch.columns]
+    cols = []
+    for c in batch.columns:
+        if c.offsets is None:
+            cols.append(DeviceColumn(c.dtype, c.data[:keep].to(device),
+                                     c.validity[:keep].to(device)))
+            continue
+        offs = c.offsets if keep is None else c.offsets[:keep + 1]
+        nbytes = None if keep is None else max(int(offs[-1]), 1)
+        cols.append(DeviceColumn(c.dtype, c.data[:nbytes].to(device),
+                                 c.validity[:keep].to(device),
+                                 offs.to(device)))
     return DeviceBatch(cols, batch.num_rows, batch.names)
+
+
+def string_to_arrow(offsets: torch.Tensor, chars: torch.Tensor,
+                    bitmap, n: int) -> pa.Array:
+    """A large_string array of n rows from a column's offsets (rows
+    [0, n]), its chars and an Arrow validity bitmap (or None), with no
+    per-row Python."""
+    offs = offsets[:n + 1].cpu().to(torch.int64)
+    nbytes = int(offs[-1]) if n else 0
+    data = chars[:nbytes].cpu().contiguous()
+    bitmap = None if bitmap is None else pa.py_buffer(bitmap.numpy())
+    return pa.Array.from_buffers(pa.large_string(), n, [
+        bitmap, pa.py_buffer(offs.numpy()), pa.py_buffer(data.numpy())])
 
 
 def column_to_arrow(col: DeviceColumn, n: int) -> pa.Array:
     if col.dtype == t.NULL:
         return pa.nulls(n)
+    if col.offsets is not None:
+        if isinstance(col, HostColumn):
+            bitmap = col.bitmap
+        else:
+            valid = col.validity[:n].cpu()
+            bitmap = None if bool(valid.all()) else _pack_bits(valid)
+        return string_to_arrow(col.offsets, col.data, bitmap, n)
     if isinstance(col, HostColumn) and col.dtype != t.BOOLEAN and \
             col.data.shape[0] == n:
         # the fetched lanes as Arrow's buffers, without a copy

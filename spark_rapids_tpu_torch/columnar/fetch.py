@@ -2,9 +2,9 @@
 
 Counterpart of spark_rapids_tpu/columnar/fetch.py (``_lane_stats``,
 ``_build_plan``, ``_make_shrink_pack_fn``, ``_unpack_column`` and
-``fetch_batch``) for flat columns.  A batch comes to the host in one
-small read and one packed copy, of the live rows only and of only the
-bytes that carry information:
+``fetch_batch``) for flat and string columns.  A batch comes to the
+host in one small read and one packed copy, of the live rows only and
+of only the bytes that carry information:
 
   1. K9 ``lane_stats`` (``csrc/fetch_pack.cu``) reduces every lane of the
      batch in one launch into one int64 tensor, two numbers a lane: a
@@ -23,6 +23,16 @@ bytes that carry information:
      every lane out of it (the next fetch reuses it): narrowed lanes are
      widened and the min added back with multithreaded torch CPU ops, a
      bit-packed validity lane stays an Arrow bitmap.
+
+A string column has two lanes that behave differently.  Its offsets are
+row-aligned: the lane is ``offsets[1:n + 1]`` (``offsets[0]`` is always
+0), which K9 reduces and K10 narrows like an int lane, over the full
+lane's minimum, 0 (the reference's ``_shrink_column``); the lane's max
+is the byte count, so the sizes still come in the one small read (the
+reference's ``_var_sizes``).  Its chars are ``offsets[n]`` bytes, not n
+rows: they are copied raw into their slice of the packed buffer, after
+every row lane, and the host builds the Arrow array from the two
+buffers.
 
 The reference's ride-along ``extra_scalars`` (deferred guards of the
 speculative join sizing) waits for that sizing (ROADMAP Queue 2), and
@@ -60,9 +70,18 @@ def lane_kind(lane: torch.Tensor) -> int:
 
 
 def batch_lanes(batch: DeviceBatch) -> List[torch.Tensor]:
-    """Every lane of a batch in the reference's walk order: each column's
-    data, then its validity."""
-    return [x for c in batch.columns for x in (c.data, c.validity)]
+    """Every row lane of a batch in the reference's walk order: each
+    column's data, then its validity; a string column's offsets lane
+    (``offsets[1:]``) takes the data's place (its chars are not a row
+    lane, ``fetch_batch``)."""
+    return [x for c in batch.columns for x in (
+        c.data if c.offsets is None else c.offsets[1:], c.validity)]
+
+
+def _offsets_lanes(batch: DeviceBatch) -> List[int]:
+    """The lane index of each string column's offsets lane."""
+    return [2 * i for i, c in enumerate(batch.columns)
+            if c.offsets is not None]
 
 
 def _seed(kinds: Sequence[int]) -> List[int]:
@@ -134,18 +153,22 @@ lane_stats.launches = 0
 # the transfer plan
 # ---------------------------------------------------------------------------
 
-def build_plan(lanes: Sequence[torch.Tensor], stats: Sequence[int]
+def build_plan(lanes: Sequence[torch.Tensor], stats: Sequence[int],
+               offsets_lanes: Sequence[int] = ()
                ) -> Tuple[Tuple[tuple, ...], List[int]]:
     """Per-lane transfer steps and minima by the reference's rules
     (``_build_plan``): ("skip",) | ("bit",) | ("narrow", bytes) |
     ("none",).  The span is taken in Python ints: max - min overflows
     int64 at the extremes.  A bool lane bit-packs when its capacity is a
     multiple of 8, as in the reference (the port packs the live rows and
-    could pack any lane; the plan is kept the reference's)."""
+    could pack any lane; the plan is kept the reference's).  An offsets
+    lane (``offsets_lanes``) narrows over its full lane's minimum, 0."""
     plan: List[tuple] = []
     mins: List[int] = []
     for i, lane in enumerate(lanes):
         s1, s2 = int(stats[2 * i]), int(stats[2 * i + 1])
+        if i in offsets_lanes:
+            s1 = 0
         kind = lane_kind(lane)
         if kind == KIND_BOOL:
             if s1:
@@ -217,9 +240,13 @@ def pack_bits_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_lanes_plain(lanes: Sequence[torch.Tensor], plan: Sequence[tuple],
-                     mins: Sequence[int], n: int) -> torch.Tensor:
-    """Plain version of K10: torch ops per lane, then one ``torch.cat``."""
+                     mins: Sequence[int], n: int, extra: int = 0
+                     ) -> torch.Tensor:
+    """Plain version of K10: torch ops per lane, then one ``torch.cat``
+    (and ``extra`` zero bytes)."""
+    kernels.require_row_lanes("pack_lanes", lanes)
     slices, total = layout(lanes, plan, n)
+    total += extra
     dev = lanes[0].device if lanes else torch.device("cpu")
     pieces, at = [], 0
     for lane, step, minv, (off, size) in zip(lanes, plan, mins, slices):
@@ -246,17 +273,19 @@ def pack_lanes_plain(lanes: Sequence[torch.Tensor], plan: Sequence[tuple],
 
 
 def pack_lanes(lanes: Sequence[torch.Tensor], plan: Sequence[tuple],
-               mins: Sequence[int], n: int) -> torch.Tensor:
+               mins: Sequence[int], n: int, extra: int = 0) -> torch.Tensor:
     """The kept lanes' live rows packed into one uint8 buffer by the plan,
-    laid out as ``layout`` says (K10)."""
+    laid out as ``layout`` says (K10), and ``extra`` bytes after them
+    for the caller to fill."""
     if len(plan) != len(lanes) or len(mins) != len(lanes):
         raise ValueError("pack_lanes: one plan step and one min a lane")
     if not lanes or lanes[0].device.type == "cpu":
-        return pack_lanes_plain(lanes, plan, mins, n)
+        return pack_lanes_plain(lanes, plan, mins, n, extra)
     kernels.require_cuda("pack_lanes", *lanes)
+    kernels.require_row_lanes("pack_lanes", lanes)
     slices, total = layout(lanes, plan, n)
     dev = lanes[0].device
-    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    out = torch.empty(total + extra, dtype=torch.uint8, device=dev)
     desc = []
     for lane, step, minv, (off, size) in zip(lanes, plan, mins, slices):
         if step[0] == "skip":
@@ -273,6 +302,8 @@ def pack_lanes(lanes: Sequence[torch.Tensor], plan: Sequence[tuple],
                  minv if step[0] == "narrow" else 0]
     if n == 0 or not desc:
         return out.zero_()
+    if extra:
+        out[total:].zero_()
     lib = kernels.library("fetch_pack")
     d = kernels.device_int64s(desc, dev)
     kernels.check(lib, lib.srt_pack_lanes(
@@ -322,10 +353,12 @@ def _widen(raw: torch.Tensor, width: int, dtype: torch.dtype, minv: int,
 
 
 def rebuild_batch(batch: DeviceBatch, lanes, plan, mins, stats, slices,
-                  host: torch.Tensor, n: int) -> DeviceBatch:
+                  host: torch.Tensor, n: int, char_slices=()) -> DeviceBatch:
     """``HostColumn``s of ``batch``'s n live rows from the packed bytes
     in ``host`` (the staging buffer, or the packed buffer itself on the
-    CPU), every lane copied out of it."""
+    CPU), every lane copied out of it; ``char_slices`` are the (offset,
+    bytes) of each string column's chars, in column order."""
+    chars_at = iter(char_slices)
     cols = []
     for i, c in enumerate(batch.columns):
         parts = []
@@ -349,6 +382,13 @@ def rebuild_batch(batch: DeviceBatch, lanes, plan, mins, stats, slices,
             data = unpack_bits(data, n)
         if valid_step[0] == "none":             # bytes: make the bitmap
             valid = pack_bits_plain(valid)
+        if c.offsets is not None:
+            offs = torch.zeros(n + 1, dtype=torch.int64)
+            offs[1:] = data
+            off, size = next(chars_at)
+            cols.append(HostColumn(c.dtype, host[off:off + size].clone(),
+                                   valid, offs))
+            continue
         cols.append(HostColumn(c.dtype, data, valid))
     return DeviceBatch(cols, n, batch.names)
 
@@ -364,13 +404,23 @@ def fetch_batch(batch: DeviceBatch) -> DeviceBatch:
     if not batch.columns or n == 0:
         return move_batch(batch, torch.device("cpu"), live_only=True)
     lanes = batch_lanes(batch)
+    spans = _offsets_lanes(batch)
     stats = lane_stats(lanes, n).tolist()             # the one small read
-    plan, mins = build_plan(lanes, stats)
+    plan, mins = build_plan(lanes, stats, spans)
     slices, total = layout(lanes, plan, n)
-    packed = pack_lanes(lanes, plan, mins, n)
+    # each string column's chars after the row lanes, 8-byte aligned;
+    # the offsets lane's max is the byte count
+    char_slices, rows_end = [], total
+    for j in spans:
+        nbytes = int(stats[2 * j + 1])
+        char_slices.append((total, nbytes))
+        total += (nbytes + 7) // 8 * 8
+    packed = pack_lanes(lanes, plan, mins, n, total - rows_end)
+    for j, (off, size) in zip(spans, char_slices):
+        packed[off:off + size].copy_(batch.columns[j // 2].data[:size])
     if packed.device.type == "cpu":
         return rebuild_batch(batch, lanes, plan, mins, stats, slices,
-                             packed, n)
+                             packed, n, char_slices)
     with _staging_lock:
         host = staging_buffer(batch.device, total)
         host[:total].copy_(packed, non_blocking=True)
@@ -378,4 +428,4 @@ def fetch_batch(batch: DeviceBatch) -> DeviceBatch:
         done.record(torch.cuda.current_stream(batch.device))
         done.synchronize()
         return rebuild_batch(batch, lanes, plan, mins, stats, slices, host,
-                             n)
+                             n, char_slices)

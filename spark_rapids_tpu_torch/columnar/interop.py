@@ -11,8 +11,11 @@ import pyarrow as pa
 
 from .. import types as t
 
+# a STRING column comes back as large_string, as the reference's
+# column_to_arrow gives it
 _TO_ARROW = {t.BOOLEAN: pa.bool_(), t.INT: pa.int32(), t.LONG: pa.int64(),
-             t.DOUBLE: pa.float64(), t.NULL: pa.null()}
+             t.DOUBLE: pa.float64(), t.STRING: pa.large_string(),
+             t.NULL: pa.null()}
 
 
 def to_arrow_type(dt: t.DataType) -> pa.DataType:
@@ -28,11 +31,13 @@ def from_arrow_type(at: pa.DataType) -> t.DataType:
         return t.LONG
     if pa.types.is_float64(at):
         return t.DOUBLE
+    if pa.types.is_string(at) or pa.types.is_large_string(at):
+        return t.STRING
     if pa.types.is_null(at):
         return t.NULL
     raise NotImplementedError(
         f"arrow type {at} is not ported yet (the port carries bool, "
-        f"int32, int64 and float64 columns)")
+        f"int32, int64, float64 and string columns)")
 
 
 def to_arrow_schema(names: List[str], dtypes: List[t.DataType]) -> pa.Schema:

@@ -7,7 +7,10 @@
 // per key column a 64-bit value word (an integer sign-extended to 64 bits
 // with its sign bit flipped; a double with -0.0 taken as 0.0, every NaN
 // as the canonical one, then the order-preserving transform of
-// ops/segmented.py encode_float_ordered), mixed by splitmix64's
+// ops/segmented.py encode_float_ordered; a string the word
+// h1 ^ (h2 * MIX) of its two rolling hashes, which K14
+// (csrc/string_hashes.cu) writes and the key reads as it is), mixed by
+// splitmix64's
 // finaliser and folded into the row's hash; a row with a null key gets
 // the side's sentinel plus row * 2654435761 (wrapping) unless nulls
 // match.  The reference's words are uint64, so unsigned arithmetic here
@@ -22,6 +25,7 @@ constexpr int kKeyBool = 0;    // 1 B, 0 or 1
 constexpr int kKeyInt = 1;     // 4 B signed
 constexpr int kKeyLong = 2;    // 8 B signed
 constexpr int kKeyDouble = 3;  // 8 B IEEE double
+constexpr int kKeyString = 4;  // 8 B: the string's join word from K14
 
 constexpr unsigned long long kHashSeed = 0x12345678DEADBEEFull;
 constexpr unsigned long long kGolden = 0x9E3779B97F4A7C15ull;
@@ -58,6 +62,8 @@ __device__ __forceinline__ unsigned long long key_word(const void* data,
     const unsigned long long u = static_cast<unsigned long long>(bits);
     return bits < 0 ? ~u : (u | kSignBit);
   }
+  if (kind == kKeyString)
+    return static_cast<const unsigned long long*>(data)[i];
   long long v;
   if (kind == kKeyBool) {
     v = static_cast<const unsigned char*>(data)[i] != 0;

@@ -37,7 +37,7 @@ from ..expr.core import (ColumnValue, EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
 from ..ops import segmented as seg
 from ..ops.carry import sort_order
-from ..ops.gather import gather_column
+from ..ops.gather import gather_columns
 from .base import CPU, Exec, ExecContext
 from .concat import concat_batches
 
@@ -241,6 +241,9 @@ segment_reduce_sorted.launches = 0
 # ---------------------------------------------------------------------------
 
 def _prefix(col: DeviceColumn, n: int) -> DeviceColumn:
+    if col.offsets is not None:
+        return DeviceColumn(col.dtype, col.data, col.validity[:n],
+                            col.offsets[:n + 1])
     return DeviceColumn(col.dtype, col.data[:n], col.validity[:n])
 
 
@@ -248,6 +251,44 @@ def _padded(x: torch.Tensor, cap: int) -> torch.Tensor:
     out = torch.zeros(cap, dtype=x.dtype, device=x.device)
     out[:x.shape[0]] = x
     return out
+
+
+def _padded_column(col: DeviceColumn, cap: int) -> DeviceColumn:
+    """A column of G rows padded to ``cap`` rows; a string's offsets
+    repeat its last offset."""
+    if col.offsets is None:
+        return DeviceColumn(col.dtype, _padded(col.data, cap),
+                            _padded(col.validity, cap))
+    g = col.offsets.shape[0] - 1
+    offs = torch.empty(cap + 1, dtype=col.offsets.dtype,
+                       device=col.offsets.device)
+    offs[:g + 1] = col.offsets
+    offs[g + 1:] = col.offsets[g]
+    return DeviceColumn(col.dtype, col.data, _padded(col.validity, cap),
+                        offs)
+
+
+def _ordered_pick(words: List[torch.Tensor], col: DeviceColumn, op: str,
+                  global_agg: bool, order: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+    """The reference's ordered reduce for a string min or max
+    (``exec/aggregate.py`` _group_reduce): the rows sorted by (key words,
+    not contributing, value words, descending for max) through K2, and
+    each group's first row in that order is its extreme; K3 reads the
+    first rows.  With ``order`` (the canonical merge order) the second
+    sort breaks its ties in that order.  Returns int32[G], the input row
+    of each group's pick."""
+    vwords = seg.sort_key_words(col, ascending=op == "min")[1:]
+    words2 = list(words) + [(~col.validity).to(torch.int64)] + vwords
+    if order is None:
+        order2 = sort_order(words2)
+    else:
+        idx = order.to(torch.int64)
+        order2 = order.index_select(0, sort_order(
+            [w.index_select(0, idx) for w in words2]).to(torch.int64))
+    first_row, _, _, _ = segment_reduce_sorted(
+        words, None, [None], [col.validity], global_agg, order2)
+    return first_row
 
 
 def _extreme_lane(col: DeviceColumn) -> torch.Tensor:
@@ -272,8 +313,13 @@ def k3_ops(vals: List[DeviceColumn], ops: List[str]):
             continue
         by_lane.setdefault(lane, len(k3_vals))
         take.append(len(k3_vals))
-        if op == "countvalid":
+        if op == "countvalid" or v.offsets is not None:
+            # a string min or max: K3 counts its contributors, and the
+            # value comes from the ordered pick (_ordered_pick)
             k3_vals.append(None)
+            k3_names.append("sum")
+            k3_contribs.append(v.validity)
+            continue
         elif op == "sum":
             k3_vals.append(v.data)
         else:
@@ -315,16 +361,17 @@ def _group_reduce(key_cols: List[DeviceColumn],
     first_row, sums, counts, groups = segment_reduce_sorted(
         words, None, k3_vals, k3_contribs, global_agg, order, k3_names)
     cap = bucket_for(groups)
-    out_keys = []
-    for kc in keys:
-        # each group's key is read at its first row, in input order
-        g = gather_column(kc, first_row)
-        out_keys.append(DeviceColumn(kc.dtype, _padded(g.data, cap),
-                                     _padded(g.validity, cap)))
+    # each group's key is read at its first row, in input order
+    out_keys = [_padded_column(g, cap)
+                for g in gather_columns(keys, first_row)]
     out_vals = []
     for vc, op, i in zip(vals, ops, take):
         s, cnt = sums[i], counts[i]
-        if op == "countvalid":
+        if vc.offsets is not None and op in ("min", "max"):
+            pick = _ordered_pick(words, vc, op, global_agg, order)
+            out_vals.append(_padded_column(
+                gather_columns([vc], pick, cnt > 0)[0], cap))
+        elif op == "countvalid":
             out_vals.append(DeviceColumn(
                 t.LONG, _padded(cnt, cap),
                 _padded(torch.ones_like(cnt, dtype=torch.bool), cap)))

@@ -19,6 +19,7 @@ from ..columnar.interop import from_arrow_type
 from ..expr.core import (EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
 from ..expr.hashfns import MonotonicallyIncreasingID
+from ..ops.carry import mask_validity
 from .base import Exec, ExecContext
 from .concat import concat_batches
 from .filter_common import apply_filter
@@ -204,10 +205,11 @@ class LocalLimitExec(Exec):
             take = min(n, remaining)
             if take < n:
                 keep = torch.arange(b.capacity, device=b.device) < take
-                cols = [DeviceColumn(
-                    c.dtype, torch.where(keep, c.data,
-                                         torch.zeros_like(c.data)),
-                    c.validity & keep) for c in b.columns]
+                cols = [mask_validity(c, keep) if c.offsets is not None
+                        else DeviceColumn(
+                            c.dtype, torch.where(keep, c.data,
+                                                 torch.zeros_like(c.data)),
+                            c.validity & keep) for c in b.columns]
                 b = DeviceBatch(cols, take, b.names)
             remaining -= take
             yield b

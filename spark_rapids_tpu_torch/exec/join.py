@@ -18,9 +18,13 @@ with a broadcast or shuffle exchange under it where a side has more
 than one partition; the plan rewrite (plan/overrides.py) turns it into
 a device join where tagging allows.
 
-Not ported yet: string keys and payloads (the span sizing of the
-reference's count phase), and the speculative sizing that fuses count
-and expand on the TPU (the same output, one host sync fewer).
+A string key hashes to one word (K14's ``h1 ^ (h2 * MIX)``), which K6
+and K4 mix and fold like any key.  String payloads do not go through
+K5: they follow its pair indices through K16, their byte totals sized
+as the reference's count phase sizes them and read in the same host
+read as the pair total (``_expand``).  Not ported yet: the speculative
+sizing that fuses count and expand on the TPU (the same output, one
+host sync fewer).
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from ..expr.core import (Alias, AttributeReference, BoundReference,
 from ..expr.predicates import And, EqualTo
 from ..ops import join_kernels as jk
 from ..ops.carry import mask_validity
-from ..ops.gather import gather_column
+from ..ops.gather import gather_columns
+from ..ops.strings import lengths
 from .base import CPU, Exec, ExecContext
 from .basic import ProjectExec
 from .concat import concat_batches
@@ -185,23 +190,73 @@ class HashJoinExec(Exec):
         return side.order, lo, counts, _live(probe)
 
     # --- phase 2: expansion ---------------------------------------------------
+    @staticmethod
+    def _span_bytes(build: DeviceBatch, probe: DeviceBatch, order, lo,
+                    counts, plive, how: str) -> List[torch.Tensor]:
+        """Device totals of the output bytes of every string column, probe
+        side first (the reference's count-phase span sizing): a probe
+        column's bytes once per output row of its row, a build column's
+        bytes of every matched build row."""
+        pspans = [c for c in probe.columns if c.offsets is not None]
+        bspans = [c for c in build.columns if c.offsets is not None]
+        out = []
+        if pspans:
+            eff = jk.effective_counts(counts, plive, how)
+            out = [(eff * lengths(c.offsets)).sum().reshape(1)
+                   for c in pspans]
+        if bspans:
+            live = plive & (counts > 0)
+        for c in bspans:
+            sl = lengths(c.offsets).to(torch.int64)[order.long()]
+            pre = torch.zeros(sl.shape[0] + 1, dtype=torch.int64,
+                              device=sl.device)
+            torch.cumsum(sl, 0, out=pre[1:])
+            lo64 = lo.to(torch.int64).clamp(0, sl.shape[0])
+            hi64 = (lo64 + counts).clamp(0, sl.shape[0])
+            out.append(torch.where(live, pre[hi64] - pre[lo64],
+                                   torch.zeros_like(lo64)).sum().reshape(1))
+        return out
+
     def _expand(self, build: DeviceBatch, probe: DeviceBatch, order, lo,
                 counts, plive, how: str):
         """All pairs of ``how`` with both sides' columns gathered (K7,
-        K5).
+        K5, and K16 for string columns).
         Returns (batch, probe index per output row)."""
         ends, total = jk.expand_ends(counts, plive, how)   # K7
-        total = int(total)                                  # the one host read
+        # the one host read: the pair total and every string column's bytes
+        span_bytes = self._span_bytes(build, probe, order, lo, counts, plive,
+                                      how)
+        sizes = (torch.cat([total] + span_bytes) if span_bytes
+                 else total).tolist()
+        total = sizes[0]
         if total >= 1 << 31:
             # the output's row indices are int32
             raise RuntimeError(
                 f"join expansion of {total} rows exceeds the 2^31-1 "
                 f"per-batch capacity; split the inputs")
+        if any(x > (1 << 31) - 1 for x in sizes[1:]):
+            raise RuntimeError(
+                f"join expansion of {max(sizes[1:])} string bytes exceeds "
+                f"the 2^31-1 bytes of int32 offsets; split the inputs")
         out_cap = bucket_for(max(total, 1))
-        pidx, _, lcols, rcols = jk.expand_pairs(
-            ends, lo, counts, order, total, out_cap, probe.columns,
-            build.columns)
-        return DeviceBatch(lcols + rcols, total, self.output_names), pidx
+        pflat = [c for c in probe.columns if c.offsets is None]
+        bflat = [c for c in build.columns if c.offsets is None]
+        pidx, bidx, lflat, rflat = jk.expand_pairs(
+            ends, lo, counts, order, total, out_cap, pflat, bflat)
+        nbytes = iter(sizes[1:])
+        cols = []
+        for side, idx, flat in ((probe, pidx, iter(lflat)),
+                                (build, bidx, iter(rflat))):
+            spans = [c for c in side.columns if c.offsets is not None]
+            if spans:
+                pair = torch.arange(out_cap, device=idx.device) < total
+                if side is build:
+                    pair &= counts[pidx.long()] > 0
+                moved = iter(gather_columns(
+                    spans, idx, pair, [next(nbytes) for _ in spans]))
+            cols += [next(moved) if c.offsets is not None else next(flat)
+                     for c in side.columns]
+        return DeviceBatch(cols, total, self.output_names), pidx
 
     def _expand_left_cond(self, build: DeviceBatch, probe: DeviceBatch,
                           order, lo, counts, plive) -> DeviceBatch:
@@ -340,8 +395,8 @@ class NestedLoopJoinExec(Exec):
             pidx = (p // max(nb, 1)).clamp(max=probe.capacity - 1)
             bidx = (p % max(nb, 1)).clamp(max=build.capacity - 1)
             out = DeviceBatch(
-                [gather_column(c, pidx, valid) for c in probe.columns]
-                + [gather_column(c, bidx, valid) for c in build.columns],
+                gather_columns(probe.columns, pidx, valid)
+                + gather_columns(build.columns, bidx, valid),
                 total, self.output_names)
             if self._bound_condition is not None:
                 out = apply_filter(

@@ -29,11 +29,14 @@ The results of one spec go back to input order through K13
 the reference sorts them back by the layout's order.  K8 moves each
 distinct lane once, and a key as its validity and a value lane rather
 than its sort words; K13 does not move a validity that is the live
-mask.  The reference's
-span results (strings and nested types) do not arise: the port carries
-flat types only.  A CPU-placed WindowExec runs the same code on CPU
-tensors, i.e. every kernel's plain version, as the reference's numpy
-branch does.
+mask.  A string key's words are its equality lanes (a partition key's
+two hashes, K14; an order key's prefix words and length, K17, so peers
+are the reference's peers); a string input follows the order through
+K16, and a string result (lead, lag) goes back to input order through
+K16 over the inverse permutation, which K13 writes (the reference
+gathers its span results through ``inv``).  A CPU-placed WindowExec
+runs the same code on CPU tensors, i.e. every kernel's plain version,
+as the reference's numpy branch does.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ from ..expr.window import (CURRENT_ROW, UNBOUNDED_FOLLOWING,
                            WindowExpression)
 from ..ops import carry
 from ..ops import segmented as seg
-from ..ops.gather import gather_column, gather_rows, scatter_rows
+from ..ops.gather import (gather_column, gather_columns, gather_rows,
+                          scatter_rows)
 from ..ops.scan import (cumsum, run_ends, segment_scan,
                         segmented_doubling_scan)
 from .base import Exec, semantic_sig
@@ -67,11 +71,14 @@ def _no_mark(stage: str) -> None:
     pass
 
 
-def _equality_lanes(col: DeviceColumn) -> List[torch.Tensor]:
+def _equality_lanes(col: DeviceColumn, words) -> List[torch.Tensor]:
     """Lanes that are equal on two rows exactly when the rows' keys are
     equal (as their grouping words are): the validity, and the data, or
     for a double its order-preserving word (NaN canonical, -0.0 ==
-    0.0).  The data under a null is zero."""
+    0.0), or for a string its key ``words`` themselves.  The data under
+    a null is zero."""
+    if col.offsets is not None:
+        return list(words)
     if col.dtype == t.DOUBLE:
         return [col.validity, seg.encode_float_ordered(col.data)]
     return [col.validity, col.data]
@@ -222,9 +229,10 @@ class WindowExec(Exec):
                  for p in spec.partition_by]
         okeys = [(_eval_col(ctx, bind_expression(o, cn, ct)), asc, nf)
                  for o, asc, nf in spec.order_by]
-        pwords = [w for pk in pkeys for w in seg.key_words_for_column(pk)]
-        owords = [w for ok, asc, nf in okeys
-                  for w in seg.sort_key_words(ok, asc, nf)]
+        pkw = [seg.key_words_for_column(pk) for pk in pkeys]
+        okw = [seg.sort_key_words(ok, asc, nf) for ok, asc, nf in okeys]
+        pwords = [w for ws in pkw for w in ws]
+        owords = [w for ws in okw for w in ws]
         cols = list(input_cols) + (
             [ok for ok, _, _ in okeys] if carry_okeys else [])
         padding = (pos >= n_live).to(torch.int64)
@@ -236,16 +244,22 @@ class WindowExec(Exec):
         # reference carries the key words; the validity and the value
         # lane give the same boundaries, and an int64 key's value lane is
         # its data, often an input lane already)
-        lanes = [x for c in cols for x in (c.data, c.validity)]
-        pkey_lanes = [x for pk in pkeys for x in _equality_lanes(pk)]
-        okey_lanes = [x for ok, _, _ in okeys for x in _equality_lanes(ok)]
+        lanes = [x for c in cols if c.offsets is None
+                 for x in (c.data, c.validity)]
+        pkey_lanes = [x for pk, ws in zip(pkeys, pkw)
+                      for x in _equality_lanes(pk, ws)]
+        okey_lanes = [x for (ok, _, _), ws in zip(okeys, okw)
+                      for x in _equality_lanes(ok, ws)]
         distinct = {}
         for x in lanes + pkey_lanes + okey_lanes:
             distinct.setdefault(id(x), x)
         moved = dict(zip(distinct, gather_rows(order,
                                                list(distinct.values()))))
+        spans = iter(gather_columns([c for c in cols if c.offsets is not None],
+                                    order))
         mark("K8")
-        sorted_cols = [DeviceColumn(c.dtype, moved[id(c.data)],
+        sorted_cols = [next(spans) if c.offsets is not None else
+                       DeviceColumn(c.dtype, moved[id(c.data)],
                                     moved[id(c.validity)]) for c in cols]
         psorted = [moved[id(x)] for x in pkey_lanes]
         osorted = [moved[id(x)] for x in okey_lanes]
@@ -345,6 +359,8 @@ class WindowExec(Exec):
                 (src >= 0) & (src < cap)
             src = torch.clamp(src, 0, cap - 1)
             shifted = gather_column(col_s, src, same_seg & live_s[src])
+            if shifted.offsets is not None:     # a string: the column
+                return shifted, shifted.validity
             return shifted.data, shifted.validity
         if isinstance(func, AggregateFunction):
             return self._aggregate(batch, w, lay, sorted_inputs, pair_of)
@@ -360,6 +376,9 @@ class WindowExec(Exec):
         results = []
         for j, (scol, (_, op)) in enumerate(zip(sorted_inputs, upd)):
             val = scol.validity & live_s
+            if scol.offsets is not None and op != "countvalid":
+                raise NotImplementedError(
+                    f"window {op} over a string column is not ported")
             if op in ("min", "max"):
                 vv = torch.where(val, scol.data, torch.full_like(
                     scol.data, _extreme(scol.data.dtype, op == "min")))
@@ -488,6 +507,16 @@ class WindowExec(Exec):
                 batch, w, lay, lay.input_sorted[start:start + ncols],
                 pair_of) for w, start, ncols in g["members"]]
             mark("results")
+            # a string result goes back through K16 over the inverse
+            # permutation, which K13 writes
+            spans = [(w, d) for w, d, _ in per
+                     if isinstance(d, DeviceColumn)]
+            per = [x for x in per if not isinstance(x[1], DeviceColumn)]
+            if spans:
+                inv, = scatter_rows(lay.order, [lay.pos])
+                for (w, d), col in zip(spans, gather_columns(
+                        [d for _, d in spans], inv, live)):
+                    out_by_expr[id(w)] = col
             # one scatter back to input order for the whole group; a
             # validity that is the sorted live mask (the ranking
             # functions') comes back as the live mask itself

@@ -74,8 +74,9 @@ def _eval_cast(e: Cast, ctx: EvalContext):
     if not cast_supported_on_gpu(src, dst):
         raise NotImplementedError(
             f"cast from {src.name} to {dst.name} is not ported yet (casts "
-            f"of strings, dates, timestamps and decimals come with those "
-            f"types, Queue 1 item 3)")
+            f"of dates, timestamps and decimals come with those types, "
+            f"Queue 1 item 3; casts to and from string with the string "
+            f"functions, Queue 1 item 4)")
     if isinstance(v, ScalarValue):
         v = make_column(ctx, src, data_of(v), validity_of(v))
     d, val = v.col.data, v.col.validity

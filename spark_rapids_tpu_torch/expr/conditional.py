@@ -13,10 +13,46 @@ from __future__ import annotations
 import torch
 
 from .. import types as t
+from ..columnar.device import DEFAULT_CHAR_BUCKETS, DeviceColumn, bucket_for
+from ..ops.carry import mask_validity
+from ..ops.gather import gather_column
+from ..ops.strings import concat_char_buffers
 from .arithmetic import cast_data, promote
-from .core import (EvalContext, Expression, Literal, data_of, evaluator,
-                   make_column, validity_of)
+from .core import (ColumnValue, EvalContext, Expression, Literal, data_of,
+                   evaluator, make_column, validity_of)
 from .predicates import EqualTo, _bool_parts
+
+
+def _string_column(ctx: EvalContext, e: Expression) -> DeviceColumn:
+    """``e``'s value as a STRING column (a literal or NULL broadcast)."""
+    v = e.eval(ctx)
+    if isinstance(v, ColumnValue):
+        return v.col
+    return make_column(ctx, t.STRING, v.value,
+                       None if v.value is not None else False).col
+
+
+def _string_branches(ctx: EvalContext, exprs, fires):
+    """The string value of the first firing branch of each row, else the
+    last expression's (``fires`` has one flag lane per expression but
+    the last): the branches' columns laid end to end, then one gather of
+    row ``branch * cap + row``."""
+    cap = ctx.capacity
+    cols = [_string_column(ctx, x) for x in exprs]
+    choice = torch.full((cap,), len(cols) - 1, dtype=torch.int64,
+                        device=ctx.device)
+    for i in reversed(range(len(fires))):
+        choice = torch.where(fires[i], torch.full_like(choice, i), choice)
+    rows = torch.arange(cap, dtype=torch.int64, device=ctx.device)
+    validity = torch.stack([c.validity for c in cols])[choice, rows]
+    nbytes = torch.stack([c.offsets[cap] for c in cols]).tolist()
+    offs, chars = concat_char_buffers(
+        [c.offsets for c in cols], [c.data for c in cols],
+        [cap] * len(cols), nbytes, cap * len(cols),
+        bucket_for(max(sum(nbytes), 1), DEFAULT_CHAR_BUCKETS))
+    whole = DeviceColumn(t.STRING, chars,
+                         torch.cat([c.validity for c in cols]), offs)
+    return ColumnValue(gather_column(whole, choice * cap + rows, validity))
 
 
 def _common_type(exprs) -> t.DataType:
@@ -64,6 +100,8 @@ def _eval_if(e: If, ctx: EvalContext):
     out = e.data_type()
     pd, pv = _bool_parts(ctx, e.children[0].eval(ctx))
     cond = pd & pv
+    if out == t.STRING:
+        return _string_branches(ctx, e.children[1:], [cond])
     ad, av = _value_parts(ctx, e.children[1], out)
     bd, bv = _value_parts(ctx, e.children[2], out)
     return make_column(ctx, out, torch.where(cond, ad, bd),
@@ -98,7 +136,6 @@ class CaseWhen(Expression):
 @evaluator(CaseWhen)
 def _eval_case(e: CaseWhen, ctx: EvalContext):
     out = e.data_type()
-    data, validity = _value_parts(ctx, e.else_value(), out)
     taken = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
     fires = []
     for c, _ in e.branches():
@@ -106,6 +143,10 @@ def _eval_case(e: CaseWhen, ctx: EvalContext):
         fire = pd & pv & ~taken
         fires.append(fire)
         taken = taken | fire
+    if out == t.STRING:
+        return _string_branches(
+            ctx, [v for _, v in e.branches()] + [e.else_value()], fires)
+    data, validity = _value_parts(ctx, e.else_value(), out)
     for fire, (_, v) in zip(fires, e.branches()):
         vd, vv = _value_parts(ctx, v, out)
         data = torch.where(fire, vd, data)
@@ -125,6 +166,10 @@ class Coalesce(Expression):
 def _eval_coalesce(e: Coalesce, ctx: EvalContext):
     """Per row, the first child that is not null (null if none is)."""
     out = e.data_type()
+    if out == t.STRING:
+        cols = [_string_column(ctx, c) for c in e.children]
+        return _string_branches(ctx, e.children,
+                                [c.validity for c in cols[:-1]])
     data = torch.zeros(ctx.capacity, dtype=out.torch_dtype,
                        device=ctx.device)
     validity = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
@@ -147,6 +192,9 @@ class NullIf(Expression):
 def _eval_nullif(e: NullIf, ctx: EvalContext):
     """null where left = right, else left."""
     pd, pv = _bool_parts(ctx, EqualTo(*e.children).eval(ctx))
+    if e.data_type() == t.STRING:
+        return ColumnValue(mask_validity(_string_column(ctx, e.children[0]),
+                                         ~(pd & pv)))
     d, val = _value_parts(ctx, e.children[0], e.data_type())
     return make_column(ctx, e.data_type(), d, val & ~(pd & pv))
 

@@ -17,7 +17,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import torch
 
 from .. import types as t
-from ..columnar.device import DeviceBatch, DeviceColumn
+from ..columnar.device import DEFAULT_CHAR_BUCKETS, DeviceBatch, DeviceColumn
 
 
 class ColumnValue:
@@ -116,6 +116,8 @@ def infer_literal_type(value: Any) -> t.DataType:
         return t.INT if -(2**31) <= value < 2**31 else t.LONG
     if isinstance(value, float):
         return t.DOUBLE
+    if isinstance(value, (str, bytes)):
+        return t.STRING
     raise NotImplementedError(
         f"literal {value!r} of type {type(value).__name__} is not ported yet")
 
@@ -124,14 +126,20 @@ class Literal(Expression):
     def __init__(self, value: Any, dtype: Optional[t.DataType] = None):
         if hasattr(value, "item"):              # numpy scalar
             value = value.item()
-        self.value = value
         self.dtype = dtype if dtype is not None else infer_literal_type(value)
+        if isinstance(value, str):              # a string as its UTF-8
+            value = value.encode("utf-8")
+        self.value = value
 
     def data_type(self):
         return self.dtype
 
     def sql(self):
-        return "NULL" if self.value is None else str(self.value)
+        if self.value is None:
+            return "NULL"
+        if self.dtype == t.STRING:
+            return repr(self.value.decode("utf-8", "replace"))
+        return str(self.value)
 
 
 @evaluator(Literal)
@@ -261,6 +269,8 @@ def make_column(ctx: EvalContext, dtype: t.DataType, data,
         validity = torch.ones(ctx.capacity, dtype=torch.bool, device=dev)
     elif validity is False:
         validity = torch.zeros(ctx.capacity, dtype=torch.bool, device=dev)
+    if dtype == t.STRING:
+        return ColumnValue(string_literal_column(ctx, data or b"", validity))
     if isinstance(data, torch.Tensor) and data.dim() == 1:
         data = data.to(dtype.torch_dtype)
     else:
@@ -270,8 +280,30 @@ def make_column(ctx: EvalContext, dtype: t.DataType, data,
     return ColumnValue(DeviceColumn(dtype, data, validity))
 
 
+def string_literal_column(ctx: EvalContext, value: bytes,
+                          validity: torch.Tensor) -> DeviceColumn:
+    """A STRING column holding ``value`` where ``validity`` is set and the
+    empty string elsewhere: a one-row column gathered to every row
+    (K16)."""
+    from ..ops.gather import gather_column
+    one = DeviceColumn(
+        t.STRING, torch.tensor(list(value) or [0], dtype=torch.uint8,
+                               device=ctx.device),
+        torch.ones(1, dtype=torch.bool, device=ctx.device),
+        torch.tensor([0, len(value)], dtype=torch.int32, device=ctx.device))
+    return gather_column(one, torch.zeros(ctx.capacity, dtype=torch.int32,
+                                          device=ctx.device), validity)
+
+
 def all_null_column(ctx: EvalContext, dtype: t.DataType) -> ColumnValue:
     """A column of ``dtype`` that is null in every row."""
+    if dtype == t.STRING:
+        return ColumnValue(DeviceColumn(
+            t.STRING, torch.zeros(DEFAULT_CHAR_BUCKETS[0], dtype=torch.uint8,
+                                  device=ctx.device),
+            torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device),
+            torch.zeros(ctx.capacity + 1, dtype=torch.int32,
+                        device=ctx.device)))
     return ColumnValue(DeviceColumn(
         dtype,
         torch.zeros(ctx.capacity, dtype=dtype.torch_dtype, device=ctx.device),

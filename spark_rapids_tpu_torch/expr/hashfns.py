@@ -1,22 +1,25 @@
 """Spark's hash(): Murmur3_x86_32 with seed 42, for hash partitioning;
 and monotonically_increasing_id().
 
-Counterpart of the flat-type branches of spark_rapids_tpu/expr/hashfns.py
-(hash_int32, hash_int64, hash_column, Murmur3Hash), bit for bit with the
-reference's numpy branch and so with Spark: ints and booleans hash as one
-4-byte block, longs as their low then high word, doubles as the bits of
-the value with -0.0 read as 0.0; a null leaves the running seed as it
-was.  torch has no uint32 arithmetic, so every 32-bit word is carried in
+Counterpart of spark_rapids_tpu/expr/hashfns.py (hash_int32, hash_int64,
+hash_bytes, hash_column, Murmur3Hash), bit for bit with the reference's
+numpy branch and so with Spark: ints and booleans hash as one 4-byte
+block, longs as their low then high word, doubles as the bits of the
+value with -0.0 read as 0.0, strings over their UTF-8 bytes (Spark's
+hashUnsafeBytes: 4-byte little-endian blocks, then each tail byte as a
+signed int, kernel K15, ``csrc/hash_bytes.cu``); a null leaves the
+running seed as it was.  torch has no uint32 arithmetic, so every 32-bit word is carried in
 an int64 lane in [0, 2^32) (the port's rule for unsigned words), and
 products are formed from 16-bit halves so no int64 product overflows.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
+from .. import kernels
 from .. import types as t
 from .core import (ColumnValue, EvalContext, Expression, evaluator,
                    make_column)
@@ -72,10 +75,115 @@ def hash_int64(values: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return _fmix(h1, 8)
 
 
+# ---------------------------------------------------------------------------
+# K15: Murmur3 over byte spans
+# ---------------------------------------------------------------------------
+
+_PLAIN_BLOCKS = 1024     # rows with more blocks take the per-row loop
+
+
+def _py_mix_k1(k: int) -> int:
+    k = (k * _C1) & M32
+    k = ((k << 15) & M32) | (k >> 17)
+    return (k * _C2) & M32
+
+
+def _py_mix_h1(h: int, k: int) -> int:
+    h ^= k
+    h = ((h << 13) & M32) | (h >> 19)
+    return (h * 5 + 0xE6546B64) & M32
+
+
+def _py_hash_bytes(data: bytes, seed: int) -> int:
+    """hashUnsafeBytes of one row on the host, in Python ints."""
+    h, nb = seed, len(data) // 4
+    for b in range(nb):
+        h = _py_mix_h1(h, _py_mix_k1(int.from_bytes(data[4 * b:4 * b + 4],
+                                                    "little")))
+    for c in data[4 * nb:]:
+        h = _py_mix_h1(h, _py_mix_k1((c - 256 if c >= 128 else c) & M32))
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & M32
+    return h ^ (h >> 16)
+
+
+def hash_bytes_plain(offsets: torch.Tensor, chars: torch.Tensor,
+                     seed: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K15: the reference's numpy branch, all rows
+    stepping through the blocks together (a step takes only the rows that
+    still have a block); a row of more than ``_PLAIN_BLOCKS`` blocks is
+    hashed alone on the host.  ``seed`` and the result are uint32 words
+    in int64 lanes."""
+    start = offsets[:-1].to(torch.int64)
+    lens = offsets[1:].to(torch.int64) - start
+    nblocks = lens // 4
+    long_rows = nblocks > _PLAIN_BLOCKS
+    h = seed.to(torch.int64).clone()
+    short = torch.where(long_rows, torch.zeros_like(nblocks), nblocks)
+    steps = int(short.max()) if short.numel() else 0
+    c = chars.to(torch.int64)
+    for b in range(steps):
+        rows = torch.nonzero(short > b).flatten()
+        at = start[rows] + 4 * b
+        k = c[at] | (c[at + 1] << 8) | (c[at + 2] << 16) | (c[at + 3] << 24)
+        h[rows] = _mix_h1(h[rows], _mix_k1(k))
+    tail = lens % 4
+    for j in range(3):
+        rows = torch.nonzero((tail > j) & ~long_rows).flatten()
+        byte = c[(start + 4 * nblocks + j)[rows]]
+        h[rows] = _mix_h1(h[rows], _mix_k1(torch.where(
+            byte >= 128, byte - 256, byte) & M32))
+    h = _fmix(h, lens & M32)
+    for i in torch.nonzero(long_rows).flatten().tolist():
+        s, n = int(start[i]), int(lens[i])
+        h[i] = _py_hash_bytes(bytes(chars[s:s + n].cpu().tolist()),
+                              int(seed[i]))
+    if valid is not None:
+        h = torch.where(valid, h, seed.to(torch.int64))
+    return h
+
+
+def hash_bytes(offsets: torch.Tensor, chars: torch.Tensor,
+               seed: torch.Tensor,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Murmur3 (Spark's hashUnsafeBytes) of each row's bytes from its
+    seed; a row where ``valid`` is False keeps its seed (K15).  ``seed``
+    and the result are uint32 words in int64 lanes."""
+    if offsets.device.type == "cpu":
+        return hash_bytes_plain(offsets, chars, seed, valid)
+    cap = int(offsets.shape[0]) - 1
+    seed32 = seed.to(torch.int32)             # the low 32 bits
+    lanes = [offsets, chars, seed32] + ([] if valid is None else [valid])
+    kernels.require_cuda("hash_bytes", *lanes)
+    if offsets.dtype != torch.int32 or chars.dtype != torch.uint8 or \
+            seed32.shape != (cap,) or \
+            (valid is not None and valid.shape != (cap,)):
+        raise TypeError(f"hash_bytes: offsets int32[{cap + 1}], chars "
+                        f"uint8, seed and valid [{cap}]")
+    out = torch.empty(cap, dtype=torch.int32, device=offsets.device)
+    if cap:
+        lib = kernels.library("hash_bytes")
+        kernels.check(lib, lib.srt_hash_bytes(
+            offsets.data_ptr(), chars.data_ptr(),
+            None if valid is None else valid.data_ptr(), seed32.data_ptr(),
+            cap, out.data_ptr(), kernels.stream(offsets)), "hash_bytes")
+        hash_bytes.launches += 1
+    return out.to(torch.int64) & M32
+
+
+hash_bytes.launches = 0
+
+
 def hash_column(col, seed: torch.Tensor) -> torch.Tensor:
-    """Spark-compatible hash of one flat column, folded into the per-row
+    """Spark-compatible hash of one column, folded into the per-row
     seeds; null rows keep their seed."""
     dtype = col.dtype
+    if dtype == t.STRING:
+        return hash_bytes(col.offsets, col.data, seed, col.validity)
     if dtype == t.LONG:
         h = hash_int64(col.data, seed)
     elif dtype == t.DOUBLE:

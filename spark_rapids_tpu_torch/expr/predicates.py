@@ -7,8 +7,14 @@ every other value).  ``<=>`` is true for two nulls; IS NULL, IS NOT
 NULL and isnan are never null; IN is null when the value is null, or
 when nothing matches and the list holds a null.  IN compares doubles as
 ``=`` does (NaN IN (NaN) is true, Spark's answer); the reference's IN
-compares them by IEEE ``==`` (ROADMAP.md Queue 3).  String operands
-wait for Queue 1 item 3.
+compares them by IEEE ``==`` (ROADMAP.md Queue 3).
+
+String operands (a column or a literal on either side) compare as the
+reference compares them (ops/strings.py): ``=``, ``<=>`` and IN by the
+length and the two rolling hashes (K14), ``<``, ``<=``, ``>`` and
+``>=`` by the 4 prefix words and the length (K17), so strings sharing
+more than 32 bytes of prefix order by length only.  A literal is hashed
+once on the host (``scalar_string_keys``).
 """
 
 from __future__ import annotations
@@ -16,9 +22,10 @@ from __future__ import annotations
 import torch
 
 from .. import types as t
+from ..ops import strings as sops
 from .arithmetic import cast_data, promote
-from .core import (EvalContext, Expression, and_validity, data_of, evaluator,
-                   make_column, validity_of)
+from .core import (ColumnValue, EvalContext, Expression, and_validity,
+                   data_of, evaluator, make_column, validity_of)
 
 
 class BinaryComparison(Expression):
@@ -66,6 +73,48 @@ class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
 
 
+def _is_string(e: Expression) -> bool:
+    return e.data_type() == t.STRING
+
+
+def _literal_bytes(v) -> bytes:
+    return v.value if isinstance(v.value, bytes) else b""
+
+
+def _string_eq_data(ctx: EvalContext, lv, rv, col_hashes=None):
+    """bool[cap]: the two string values are equal (their lengths and both
+    hashes); ``col_hashes`` are a column side's hashes when known."""
+    if isinstance(lv, ColumnValue) and isinstance(rv, ColumnValue):
+        a, b = lv.col, rv.col
+        return sops.string_eq(a.offsets, a.data, b.offsets, b.data)
+    if not isinstance(lv, ColumnValue) and not isinstance(rv, ColumnValue):
+        return torch.full((ctx.capacity,),
+                          _literal_bytes(lv) == _literal_bytes(rv),
+                          device=ctx.device)
+    c, lit = (lv, rv) if isinstance(lv, ColumnValue) else (rv, lv)
+    c1, c2 = col_hashes or sops.string_hashes(c.col.offsets, c.col.data)
+    _, h1, h2, ln = sops.scalar_string_keys(_literal_bytes(lit))
+    return (sops.lengths(c.col.offsets) == ln) & (c1 == h1) & (c2 == h2)
+
+
+def _string_order_lt(ctx: EvalContext, lv, rv, or_equal: bool):
+    """bool[cap]: a < b (or <=) by the lexicographic order of the prefix
+    words and the length."""
+    def keys(v):
+        if isinstance(v, ColumnValue):
+            return sops.order_keys(v.col.offsets, v.col.data)
+        words, _, _, ln = sops.scalar_string_keys(_literal_bytes(v))
+        return [torch.full((ctx.capacity,), w, dtype=torch.int64,
+                           device=ctx.device)
+                for w in words + [ln ^ -2**63]]
+    lt = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    eq = torch.ones(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    for a, b in zip(keys(lv), keys(rv)):
+        lt = lt | (eq & (a < b))
+        eq = eq & (a == b)
+    return (lt | eq) if or_equal else lt
+
+
 def _cmp_values(e: BinaryComparison, ctx: EvalContext, lv, rv):
     lt, rt = e.left.data_type(), e.right.data_type()
     common = promote(lt, rt)
@@ -97,6 +146,11 @@ def _equal(ld, rd, common: t.DataType):
 
 @evaluator(EqualTo)
 def _eval_eq(e: EqualTo, ctx: EvalContext):
+    if _is_string(e.left) or _is_string(e.right):
+        lv, rv = e.left.eval(ctx), e.right.eval(ctx)
+        return make_column(ctx, t.BOOLEAN, _string_eq_data(ctx, lv, rv),
+                           and_validity(ctx, validity_of(lv),
+                                        validity_of(rv)))
     ld, rd, common, v = _cmp_inputs(e, ctx)
     return make_column(ctx, t.BOOLEAN, _equal(ld, rd, common), v)
 
@@ -113,14 +167,25 @@ def _full_validity(ctx: EvalContext, v):
 @evaluator(EqualNullSafe)
 def _eval_eq_ns(e: EqualNullSafe, ctx: EvalContext):
     lv, rv = e.left.eval(ctx), e.right.eval(ctx)
-    ld, rd, common = _cmp_values(e, ctx, lv, rv)
+    if _is_string(e.left) or _is_string(e.right):
+        eq = _string_eq_data(ctx, lv, rv)
+    else:
+        ld, rd, common = _cmp_values(e, ctx, lv, rv)
+        eq = _equal(ld, rd, common)
     va, vb = _full_validity(ctx, lv), _full_validity(ctx, rv)
-    data = (va & vb & _equal(ld, rd, common)) | (~va & ~vb)
+    data = (va & vb & eq) | (~va & ~vb)
     return make_column(ctx, t.BOOLEAN, data, None)
 
 
 def _eval_ordering(e: BinaryComparison, ctx: EvalContext, flip: bool,
                    or_equal: bool):
+    if _is_string(e.left) or _is_string(e.right):
+        lv, rv = e.left.eval(ctx), e.right.eval(ctx)
+        a, b = (rv, lv) if flip else (lv, rv)
+        return make_column(ctx, t.BOOLEAN,
+                           _string_order_lt(ctx, a, b, or_equal),
+                           and_validity(ctx, validity_of(lv),
+                                        validity_of(rv)))
     ld, rd, common, v = _cmp_inputs(e, ctx)
     if flip:
         ld, rd = rd, ld
@@ -301,9 +366,16 @@ def _eval_in(e: In, ctx: EvalContext):
     d = data_of(v)
     matched = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
     has_null = False
+    hashes = None
+    if dt == t.STRING and isinstance(v, ColumnValue):
+        hashes = sops.string_hashes(v.col.offsets, v.col.data)   # once
     for item in e.items:
         if item.value is None:
             has_null = True
+            continue
+        if dt == t.STRING:
+            matched = matched | _string_eq_data(ctx, v, item.eval(ctx),
+                                                hashes)
             continue
         common = promote(dt, item.dtype)
         ld = cast_data(d, dt, common)

@@ -64,7 +64,14 @@ def _pushdown_to_arrow(filters: List[Expression], names) -> Optional[object]:
         if type(e) in ops:
             l, r = e.children
             if isinstance(l, AttributeReference) and isinstance(r, Literal):
-                return getattr(pc.field(l.name), ops[type(e)])(r.value)
+                v = r.value
+                if isinstance(v, bytes):
+                    # only string equality: pyarrow orders strings by all
+                    # their bytes, the engine by 32 bytes and the length
+                    if type(e) is not P.EqualTo:
+                        return None
+                    v = v.decode("utf-8")
+                return getattr(pc.field(l.name), ops[type(e)])(v)
         if isinstance(e, P.IsNotNull) and isinstance(
                 e.children[0], AttributeReference):
             return pc.field(e.children[0].name).is_valid()
@@ -107,7 +114,9 @@ def clear_filescan_pin() -> None:
 
 
 def _batch_bytes(b: DeviceBatch) -> int:
-    return sum(c.data.nbytes + c.validity.nbytes for c in b.columns)
+    return sum(c.data.nbytes + c.validity.nbytes +
+               (0 if c.offsets is None else c.offsets.nbytes)
+               for c in b.columns)
 
 
 def _pin(key, produced) -> None:

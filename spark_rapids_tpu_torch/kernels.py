@@ -29,7 +29,8 @@ BUILD = PACKAGE / "build"
 HEADERS = ("partition.cuh", "join_hash.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "expand_ends", "join_expand", "gather_rows", "fetch_pack",
-           "window_scan", "scatter_rows")
+           "window_scan", "scatter_rows", "string_hashes", "hash_bytes",
+           "gather_strings", "prefix_words")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,6 +80,19 @@ _SIGNATURES = {
     },
     "scatter_rows": {
         "srt_scatter_rows": [_P, _I, _I, _P, _P, _P, _P],
+    },
+    "string_hashes": {
+        "srt_string_hashes": [_P, _P, _I, _P, _P, _P, _P],
+    },
+    "hash_bytes": {
+        "srt_hash_bytes": [_P, _P, _P, _P, _I, _P, _P],
+    },
+    "gather_strings": {
+        "srt_gather_offsets": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
+        "srt_gather_chars": [_P, _P, _I, _P, _P, _I, _P, _L, _P],
+    },
+    "prefix_words": {
+        "srt_prefix_words": [_P, _P, _I, _P, _P],
     },
 }
 
@@ -195,6 +209,17 @@ def device_int64s(values, device) -> torch.Tensor:
 def ints(values) -> ctypes.Array:
     values = list(values)
     return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def require_row_lanes(what: str, lanes) -> None:
+    """A kernel that moves row lanes never takes a string's chars: uint8
+    is the chars lane's dtype and no row lane's (a span column moves
+    through K16, ops/strings.py)."""
+    for x in lanes:
+        if x is not None and x.dtype == torch.uint8:
+            raise TypeError(f"{what}: a uint8 lane is a string's chars, "
+                            f"not a row lane; gather span columns with "
+                            f"ops/strings.py:gather_strings")
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:

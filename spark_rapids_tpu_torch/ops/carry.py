@@ -20,7 +20,7 @@ import torch
 
 from .. import kernels
 from ..columnar.device import DeviceColumn
-from .gather import gather_rows
+from .gather import gather_columns, gather_rows
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +50,7 @@ def compact_lanes(keep: torch.Tensor, lanes: Sequence[torch.Tensor],
                   ) -> Tuple[List[torch.Tensor], int]:
     """Stable partition of row lanes by ``keep`` (K1); see
     ``compact_lanes_plain`` for the result."""
+    kernels.require_row_lanes("compact_rows", lanes)
     if keep.device.type == "cpu":
         return compact_lanes_plain(keep, lanes, clear_back)
     kernels.require_cuda("compact_rows", keep, *lanes)
@@ -87,20 +88,37 @@ def compact_rows(keep: torch.Tensor, cols: Sequence[DeviceColumn]
     """Kept rows move to the front in their input order and the rest
     become padding: validity is cleared from the kept count on (the
     reference's compact_rows followed by mask_validity).  Returns
-    (columns, kept count)."""
+    (columns, kept count).  The flat lanes move through K1; a string
+    column follows the kept rows' input positions, which K1 carries as
+    one more lane, through K16 (the reference's carry falls back to
+    gather_column for span columns)."""
+    flat = [c for c in cols if c.offsets is None]
     lanes, clear = [], []
-    for c in cols:
+    for c in flat:
         lanes += [c.data, c.validity]
         clear += [False, True]
+    spans = [c for c in cols if c.offsets is not None]
+    if spans:
+        lanes.append(torch.arange(keep.shape[0], dtype=torch.int32,
+                                  device=keep.device))
+        clear.append(False)
     outs, n_kept = compact_lanes(keep, lanes, clear)
-    out_cols = [DeviceColumn(c.dtype, outs[2 * i], outs[2 * i + 1])
-                for i, c in enumerate(cols)]
-    return out_cols, n_kept
+    moved = iter(DeviceColumn(c.dtype, outs[2 * i], outs[2 * i + 1])
+                 for i, c in enumerate(flat))
+    if spans:
+        live = torch.arange(keep.shape[0], device=keep.device) < n_kept
+        gathered = iter(gather_columns(spans, outs[-1], live))
+    return [next(gathered) if c.offsets is not None else next(moved)
+            for c in cols], n_kept
 
 
 def mask_validity(col: DeviceColumn, mask: torch.Tensor) -> DeviceColumn:
     """AND ``mask`` into a column's validity; the data under the new
-    nulls becomes zero, as everywhere in the port."""
+    nulls becomes zero, as everywhere in the port (a new null string
+    becomes empty, through K16)."""
+    if col.offsets is not None:
+        return gather_columns([col], torch.arange(
+            col.capacity, dtype=torch.int32, device=mask.device), mask)[0]
     validity = col.validity & mask
     return DeviceColumn(col.dtype, torch.where(
         validity, col.data, torch.zeros_like(col.data)), validity)
@@ -225,12 +243,18 @@ sort_order.passes = 0      # radix passes run, over all calls
 def sort_rows(key_words: Sequence[torch.Tensor],
               cols: Sequence[DeviceColumn],
               extras: Sequence[torch.Tensor] = ()):
-    """Stable sort of rows by ``key_words`` (K2); the rows of ``cols`` and
-    the lanes in ``extras`` follow the order through one gather (K8).
-    Returns (order, cols, extras)."""
+    """Stable sort of rows by ``key_words`` (K2); the flat rows of
+    ``cols`` and the lanes in ``extras`` follow the order through one
+    gather (K8), string columns through K16.  Returns (order, cols,
+    extras)."""
     order = sort_order(key_words)
-    lanes = [x for c in cols for x in (c.data, c.validity)] + list(extras)
+    flat = [c for c in cols if c.offsets is None]
+    lanes = [x for c in flat for x in (c.data, c.validity)] + list(extras)
     outs = gather_rows(order, lanes)
-    out_cols = [DeviceColumn(c.dtype, outs[2 * i], outs[2 * i + 1])
-                for i, c in enumerate(cols)]
-    return order, out_cols, outs[2 * len(cols):]
+    moved = iter(DeviceColumn(c.dtype, outs[2 * i], outs[2 * i + 1])
+                 for i, c in enumerate(flat))
+    gathered = iter(gather_columns([c for c in cols if c.offsets is not None],
+                                   order))
+    out_cols = [next(gathered) if c.offsets is not None else next(moved)
+                for c in cols]
+    return order, out_cols, outs[2 * len(flat):]

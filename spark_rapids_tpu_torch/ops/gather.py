@@ -1,8 +1,11 @@
-"""Row gather over flat device columns.
+"""Row gather over device columns.
 
-Counterpart of spark_rapids_tpu/ops/gather.py for flat columns: row i
-of the output is row ``indices[i]`` of the input, and null where
-``valid[i]`` is False.  ``gather_rows`` moves row lanes through a sort's
+Counterpart of spark_rapids_tpu/ops/gather.py: row i of the output is
+row ``indices[i]`` of the input, and null where ``valid[i]`` is False.
+A string column takes the span branch (the reference's
+``gather_spans``): K16 (ops/strings.py:gather_strings) writes its new
+offsets and copies its bytes, and the byte totals of every string
+column of one gather are read to the host together, once.  ``gather_rows`` moves row lanes through a sort's
 order with kernel K8 (``csrc/gather_rows.cu``), and ``scatter_rows``,
 its dual, moves them back to input order with kernel K13
 (``csrc/scatter_rows.cu``).  Each wrapper takes its plain version for
@@ -17,7 +20,9 @@ from typing import List, Optional, Sequence
 import torch
 
 from .. import kernels
-from ..columnar.device import DeviceBatch, DeviceColumn
+from ..columnar.device import (DEFAULT_CHAR_BUCKETS, DeviceBatch,
+                               DeviceColumn, bucket_for)
+from . import strings as sops
 
 _MAX_LANES = 16          # lanes a launch (kMaxLanes in csrc)
 
@@ -36,6 +41,7 @@ def gather_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor]
     if order.dtype != torch.int32 or order.dim() != 1:
         raise TypeError(f"gather_rows: order must be int32[n], got "
                         f"{order.dtype}{tuple(order.shape)}")
+    kernels.require_row_lanes("gather_rows", lanes)
     if order.device.type == "cpu":
         return gather_rows_plain(order, lanes)
     kernels.require_cuda("gather_rows", order, *lanes)
@@ -93,6 +99,7 @@ def scatter_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor]
     ``order`` is a permutation, int32[n]; each lane is [n] with 1, 4 or
     8-byte elements."""
     _check_lanes("scatter_rows", order, lanes)
+    kernels.require_row_lanes("scatter_rows", lanes)
     if order.device.type == "cpu":
         return scatter_rows_plain(order, lanes)
     kernels.require_cuda("scatter_rows", order, *lanes)
@@ -115,18 +122,49 @@ def scatter_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor]
 scatter_rows.launches = 0
 
 
+def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None,
+                   span_bytes: Optional[Sequence[Optional[int]]] = None
+                   ) -> List[DeviceColumn]:
+    """Every column's rows ``indices``, null where ``valid`` is False (or
+    the source row is null).  A string column goes through K16: all
+    their offsets first, then one host read of their byte totals (none
+    when the caller knows them: ``span_bytes[k]`` for string column k),
+    then the copies."""
+    if not cols:
+        return []
+    idx = indices.to(torch.int64)
+    out: List[Optional[DeviceColumn]] = [None] * len(cols)
+    spans = []
+    for k, c in enumerate(cols):
+        validity = c.validity[idx]
+        if valid is not None:
+            validity = validity & valid
+        if c.offsets is None:
+            data = c.data[idx]
+            if valid is not None:
+                data = torch.where(validity, data, torch.zeros_like(data))
+            out[k] = DeviceColumn(c.dtype, data, validity)
+            continue
+        new_offs, total = sops.gather_offsets(
+            c.offsets, indices.to(torch.int32), validity)
+        spans.append((k, c, validity, new_offs, total))
+    totals = sops.read_totals([x[4] for x in spans]) \
+        if span_bytes is None else [span_bytes[k] for k, *_ in spans]
+    for (k, c, validity, new_offs, _), n in zip(spans, totals):
+        chars = sops.gather_chars(
+            c.offsets, c.data, indices.to(torch.int32), new_offs, n,
+            bucket_for(max(n, 1), DEFAULT_CHAR_BUCKETS))
+        out[k] = DeviceColumn(c.dtype, chars, validity, new_offs)
+    return out
+
+
 def gather_column(col: DeviceColumn, indices: torch.Tensor,
                   valid: Optional[torch.Tensor] = None) -> DeviceColumn:
-    idx = indices.to(torch.int64)
-    data = col.data[idx]
-    validity = col.validity[idx]
-    if valid is not None:
-        validity = validity & valid
-        data = torch.where(validity, data, torch.zeros_like(data))
-    return DeviceColumn(col.dtype, data, validity)
+    return gather_columns([col], indices, valid)[0]
 
 
 def gather_batch(batch: DeviceBatch, indices: torch.Tensor,
                  valid: Optional[torch.Tensor], num_rows: int) -> DeviceBatch:
-    return DeviceBatch([gather_column(c, indices, valid)
-                        for c in batch.columns], num_rows, batch.names)
+    return DeviceBatch(gather_columns(batch.columns, indices, valid),
+                       num_rows, batch.names)

@@ -34,6 +34,7 @@ import torch
 from .. import kernels
 from .. import types as t
 from ..columnar.device import DeviceColumn
+from . import strings as sops
 from .carry import sort_order
 from .gather import gather_column
 from .segmented import encode_float_ordered, encode_int_ordered
@@ -66,15 +67,21 @@ def _mix64(h: torch.Tensor) -> torch.Tensor:
     return h ^ _shr(h, 31)
 
 
-# Key column kinds of csrc/join_hash.cuh, and the lane type each reads.
+# Key column kinds of csrc/join_hash.cuh, and the lane type each reads; a
+# string key's lane is its join word from K14 (ops/strings.py), not its
+# chars.
 _KEY_KINDS = {t.BOOLEAN: (0, torch.bool), t.INT: (1, torch.int32),
-              t.LONG: (2, torch.int64), t.DOUBLE: (3, torch.float64)}
+              t.LONG: (2, torch.int64), t.DOUBLE: (3, torch.float64),
+              t.STRING: (4, torch.uint8)}
 
 
 def _key_word(col: DeviceColumn) -> torch.Tensor:
     """The reference's uint64 value word of a key column, as int64 bits:
     the port's order-preserving word (ops/segmented.py) with its sign bit
-    flipped back."""
+    flipped back; a string's word is h1 ^ (h2 * MIX) of its two rolling
+    hashes (the reference's ``combined_key_hash``)."""
+    if col.offsets is not None:
+        return sops.string_hashes(col.offsets, col.data, True)[2]
     if col.data.is_floating_point():
         return encode_float_ordered(col.data) ^ _SIGN
     return encode_int_ordered(col.data) ^ _SIGN
@@ -87,7 +94,7 @@ def _check_keys(key_cols: Sequence[DeviceColumn], cap: int) -> None:
         if col.dtype not in _KEY_KINDS:
             raise NotImplementedError(
                 f"join keys of type {col.dtype} are not ported yet")
-        if col.data.shape != (cap,) or col.validity.shape != (cap,):
+        if col.capacity != cap or col.validity.shape != (cap,):
             raise ValueError(f"join key column {col} does not have {cap} "
                              "rows")
 
@@ -113,22 +120,26 @@ def combined_key_hash_plain(key_cols: Sequence[DeviceColumn], cap: int,
 
 
 def _key_desc(what: str, key_cols: Sequence[DeviceColumn], cap: int
-              ) -> torch.Tensor:
+              ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The key columns as csrc/join_hash.cuh's KeyCols reads them: a
-    device array of their data pointers, validity pointers and kinds."""
+    device array of their data pointers, validity pointers and kinds;
+    and the lanes it points at (a string key's join word, from K14,
+    lives as long as the caller holds them)."""
     _check_keys(key_cols, cap)
     kernels.require_cuda(what, *[x for c in key_cols
                                  for x in (c.data, c.validity)])
+    lanes = []
     for col in key_cols:
         dtype = _KEY_KINDS[col.dtype][1]
         if col.data.dtype != dtype or col.validity.dtype != torch.bool:
             raise TypeError(f"{what}: key column {col} must hold {dtype} "
                             "with a bool validity lane")
+        lanes.append(col.data if col.offsets is None else _key_word(col))
     return kernels.device_int64s(
-        [c.data.data_ptr() for c in key_cols]
+        [x.data_ptr() for x in lanes]
         + [c.validity.data_ptr() for c in key_cols]
         + [_KEY_KINDS[c.dtype][0] for c in key_cols],
-        key_cols[0].data.device)
+        key_cols[0].data.device), lanes
 
 
 def combined_key_hash(key_cols: Sequence[DeviceColumn], cap: int,
@@ -142,7 +153,7 @@ def combined_key_hash(key_cols: Sequence[DeviceColumn], cap: int,
         raise ValueError(f"side must be 'build' or 'probe', not {side!r}")
     if key_cols and key_cols[0].data.device.type == "cpu":
         return combined_key_hash_plain(key_cols, cap, null_matches, side)
-    desc = _key_desc("combined_key_hash", key_cols, cap)
+    desc, _lanes = _key_desc("combined_key_hash", key_cols, cap)
     dev = key_cols[0].data.device
     out = torch.empty(cap, dtype=torch.int64, device=dev)
     if cap == 0:
@@ -253,7 +264,7 @@ def join_probe_keys_plain(sorted_hash: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K4: the probe side's hashes by K6's plain version,
     then ``join_probe_plain``.  See ``join_probe``."""
-    cap = int(key_cols[0].data.shape[0]) if key_cols else 0
+    cap = key_cols[0].capacity if key_cols else 0
     ph = combined_key_hash_plain(key_cols, cap, null_matches, side="probe")
     return join_probe_plain(sorted_hash, ph,
                             _live_rows(cap, num_rows, ph.device))
@@ -268,11 +279,11 @@ def join_probe(build: BuildSide, key_cols: Sequence[DeviceColumn],
     ``num_rows`` rows are live.  Returns (lo int32, counts int64) as
     ``join_probe_plain`` on those hashes: build rows
     ``build.order[lo[i]:lo[i] + counts[i]]`` match probe row i."""
-    cap = int(key_cols[0].data.shape[0]) if key_cols else 0
+    cap = key_cols[0].capacity if key_cols else 0
     if build.sorted_hash.device.type == "cpu":
         return join_probe_keys_plain(build.sorted_hash, key_cols, num_rows,
                                      null_matches)
-    desc = _key_desc("join_probe", key_cols, cap)
+    desc, _lanes = _key_desc("join_probe", key_cols, cap)
     kernels.require_cuda("join_probe", build.sorted_hash, build.table,
                          key_cols[0].data)
     if build.sorted_hash.dtype != torch.int64 or \
@@ -303,7 +314,7 @@ def count_matches_plain(build_cols: Sequence[DeviceColumn], n_b: int,
                         null_matches: bool = False):
     """Plain version of ``count_matches``: K6's, K2's and K4's plain
     versions."""
-    cap_b = int(build_cols[0].data.shape[0])
+    cap_b = build_cols[0].capacity
     bh = combined_key_hash_plain(build_cols, cap_b, null_matches, "build")
     build = sort_build_plain(bh, _live_rows(cap_b, n_b, bh.device))
     lo, counts = join_probe_keys_plain(build.sorted_hash, probe_cols, n_p,
@@ -322,7 +333,7 @@ def count_matches(build_cols: Sequence[DeviceColumn], n_b: int,
 
     Returns (order int32[cap_b], lo int32[cap_p], counts int64[cap_p]):
     build rows ``order[lo[i]:lo[i] + counts[i]]`` match probe row i."""
-    cap_b = int(build_cols[0].data.shape[0])
+    cap_b = build_cols[0].capacity
     bh = combined_key_hash(build_cols, cap_b, null_matches, "build")
     build = sort_build(bh, _live_rows(cap_b, n_b, bh.device))
     lo, counts = join_probe(build, probe_cols, n_p, null_matches)
@@ -466,6 +477,10 @@ def expand_pairs(ends: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor,
     for side, cols, n in (("probe", probe_cols, n_p),
                           ("build", build_cols, n_b)):
         for c in cols:
+            if c.offsets is not None:
+                raise TypeError(f"expand_pairs: {side} column {c} is a span "
+                                f"column; its rows follow the pair indices "
+                                f"through K16 (ops/strings.py)")
             if c.data.shape != (n,) or c.validity.shape != (n,) or \
                     c.validity.dtype != torch.bool or \
                     c.data.element_size() not in (1, 4, 8):

@@ -13,6 +13,12 @@ value word is the bitwise NOT of the ascending one, in the port's
 convention as in the reference's: ~(w XOR 2^63) == (~w) XOR 2^63 for
 a 64-bit word, and NOT reverses the order of any narrow word carried as
 its sign-extended value.
+
+A STRING column's words follow the reference: for grouping (equality)
+the null word and the two rolling hashes (K14), each XOR 2^63; for
+ordering the null word, the 4 prefix words and the length (K17).
+Prefix words alone would merge two strings that share 32 bytes and a
+length, so grouping never uses them.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ import torch
 
 from .. import types as t
 from ..columnar.device import DeviceColumn
+from . import strings as sops
 from .scan import cumsum
 
 _LOW63 = 0x7FFFFFFFFFFFFFFF
+_SIGN = -2**63
 
 
 def encode_int_ordered(data: torch.Tensor) -> torch.Tensor:
@@ -100,20 +108,27 @@ def sort_key_words(col: DeviceColumn, ascending: bool = True,
     valid = col.validity if nulls_first else ~col.validity
     words = [valid.to(torch.int64)]
     dtype = col.dtype
-    if dtype == t.DOUBLE:
+    if dtype == t.STRING:
+        words += sops.order_keys(col.offsets, col.data)
+    elif dtype == t.DOUBLE:
         words.append(encode_float_ordered(col.data))
     elif dtype in (t.LONG, t.INT, t.BOOLEAN):
         words.append(encode_int_ordered(col.data))
     else:
         raise NotImplementedError(f"key words for {dtype} are not ported")
     if not ascending:
-        words[1] = ~words[1]
+        words[1:] = [~w for w in words[1:]]
     return words
 
 
 def key_words_for_column(col: DeviceColumn) -> List[torch.Tensor]:
     """Grouping key words for one column, most significant first: the
-    null word (nulls first), then the value word."""
+    null word (nulls first), then the value word; for a string the two
+    rolling hashes, so equal strings and only they group together (up
+    to a ~2^-120 collision, the reference's tradeoff)."""
+    if col.dtype == t.STRING:
+        h1, h2 = sops.string_hashes(col.offsets, col.data)
+        return [col.validity.to(torch.int64), h1 ^ _SIGN, h2 ^ _SIGN]
     return sort_key_words(col)
 
 

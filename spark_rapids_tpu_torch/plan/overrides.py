@@ -82,7 +82,11 @@ def expr_rule(cls, sig: TypeSig, tag_fn=None):
 
 _num = T.numeric64
 _common = T.common_scalar
-_cmp = T.numeric64 + T.BOOLEAN + T.NULL
+_cmp = T.numeric64 + T.BOOLEAN + T.STRING + T.NULL
+# the reference's branch selects take strings too; the port's string
+# branches (expr/conditional.py) stay on the CPU engine until the string
+# functions' slice (ROADMAP Queue 1), as do casts to and from STRING
+_cond = T.numeric64 + T.BOOLEAN + T.NULL
 
 expr_rule(Literal, T.all_types)
 expr_rule(Alias, T.all_types.nested())
@@ -101,7 +105,7 @@ for c in (pred.And, pred.Or, pred.Not):
 for c in (pred.IsNull, pred.IsNotNull, pred.IsNaN):
     expr_rule(c, _common)
 for c in (cond.If, cond.CaseWhen, cond.Coalesce, cond.NullIf, cond.Nvl):
-    expr_rule(c, _cmp)
+    expr_rule(c, _cond)
 for c in (mx.Sqrt, mx.Exp, mx.Expm1, mx.Sin, mx.Cos, mx.Tan, mx.Asin,
           mx.Acos, mx.Atan, mx.Sinh, mx.Cosh, mx.Tanh, mx.Cbrt, mx.Rint,
           mx.ToDegrees, mx.ToRadians, mx.Log, mx.Log2, mx.Log10, mx.Log1p,
@@ -125,8 +129,8 @@ expr_rule(MonotonicallyIncreasingID, T.LONG)
 expr_rule(agg.Sum, T.numeric)
 expr_rule(agg.Average, T.integral + T.DOUBLE)
 expr_rule(agg.Count, T.all_types)
-expr_rule(agg.Min, T.numeric + T.BOOLEAN)
-expr_rule(agg.Max, T.numeric + T.BOOLEAN)
+expr_rule(agg.Min, T.numeric + T.BOOLEAN + T.STRING)
+expr_rule(agg.Max, T.numeric + T.BOOLEAN + T.STRING)
 expr_rule(agg.AggregateExpression, T.all_types.nested())
 # window machinery registered as expressions, as in the reference;
 # evaluation lives in WindowExec

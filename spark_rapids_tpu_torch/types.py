@@ -1,11 +1,14 @@
-"""SQL types of the port's slice: BOOLEAN, INT, LONG and DOUBLE, plus the
-NULL type of an untyped null literal.
+"""SQL types of the port's slice: BOOLEAN, INT, LONG, DOUBLE and STRING,
+plus the NULL type of an untyped null literal.
 
 Counterpart of spark_rapids_tpu/types.py, narrowed to the types the
 port carries, with the TypeSig algebra the plan rewrite checks operator
 and expression types against (``GpuTypeSigs``, the reference's
 ``TpuTypeSigs``).  Null semantics follow Spark: each column has a bool
-validity lane, and the data under a null is canonical zero.
+validity lane, and the data under a null is canonical zero.  A STRING
+column is a span column: ``offsets`` (int32[capacity + 1]) over a uint8
+``data`` lane of UTF-8 bytes (columnar/device.py), and a null string is
+empty.
 """
 
 from __future__ import annotations
@@ -52,6 +55,12 @@ class DoubleType(DataType):
     torch_dtype = torch.float64
 
 
+class StringType(DataType):
+    """UTF-8 text: ``torch_dtype`` is the dtype of its chars lane."""
+    name = "string"
+    torch_dtype = torch.uint8
+
+
 class NullType(DataType):
     """The type of ``lit(None)``: every row null (data lane int8 zeros)."""
     name = "null"
@@ -62,9 +71,10 @@ BOOLEAN = BooleanType()
 INT = IntegerType()
 LONG = LongType()
 DOUBLE = DoubleType()
+STRING = StringType()
 NULL = NullType()
 
-BY_NAME = {dt.name: dt for dt in (BOOLEAN, INT, LONG, DOUBLE)}
+BY_NAME = {dt.name: dt for dt in (BOOLEAN, INT, LONG, DOUBLE, STRING)}
 
 
 def is_integral(dt: DataType) -> bool:
@@ -91,12 +101,14 @@ class TypeEnum(enum.Flag):
     INT = enum.auto()
     LONG = enum.auto()
     DOUBLE = enum.auto()
+    STRING = enum.auto()
     NULL = enum.auto()
 
 
 _TYPE_BIT = {BooleanType: TypeEnum.BOOLEAN.value,
              IntegerType: TypeEnum.INT.value, LongType: TypeEnum.LONG.value,
-             DoubleType: TypeEnum.DOUBLE.value, NullType: TypeEnum.NULL.value}
+             DoubleType: TypeEnum.DOUBLE.value,
+             StringType: TypeEnum.STRING.value, NullType: TypeEnum.NULL.value}
 
 
 class TypeSig:
@@ -135,12 +147,13 @@ class GpuTypeSigs:
     INT = TypeSig(TypeEnum.INT)
     LONG = TypeSig(TypeEnum.LONG)
     DOUBLE = TypeSig(TypeEnum.DOUBLE)
+    STRING = TypeSig(TypeEnum.STRING)
     NULL = TypeSig(TypeEnum.NULL)
 
     integral = INT + LONG
     numeric = integral + DOUBLE
     numeric64 = numeric
-    comparable = numeric + BOOLEAN + NULL
+    comparable = numeric + BOOLEAN + STRING + NULL
     common_scalar = comparable
     all_types = common_scalar
 
