@@ -36,10 +36,12 @@ API over 1 and 4 partitions, equal to a numpy oracle row for row, with
 its stages (words, K2, K8, boundaries, K11, K12, the results, K13, the
 mask, the download) and a trace; K11 (segmented scan), K12 (peer-run
 ends) and K13 (row scatter) against their plain versions at q4's shapes
-and on edge cases; every window function over 5 specs at 2^20 rows
-against the CPU engine.  q1x, the TPC-H Q1 shape on the fact table
-(filter, k % 3, CASE WHEN, Q1's price arithmetic, group by two keys
-with sums, averages, count, min and max, sort), over 1 and 4 partitions,
+and on edge cases, K13 on both of its paths (single pass and binned by
+destination) around its buckets, tiles and single-pass window; every
+window function over 5 specs at 2^20 rows against the CPU engine.
+q1x, the TPC-H Q1 shape on the fact table (filter, k % 3, CASE WHEN,
+Q1's price arithmetic, group by two keys with sums, averages, count,
+min and max, sort), over 1 and 4 partitions,
 equal to a numpy oracle, with K3's min and max folds against their plain
 version at q1x's shapes and on edge cases (NaN, -0.0, the int64 edges,
 BOOLEAN, an all-null group, one group over 2^22 rows, tile edges, 27
@@ -65,8 +67,11 @@ K15 (murmur3 over bytes), K16 (span gather) and K17 (prefix words)
 against their plain versions on edge cases (0 rows, all empty, all
 null, a 1 MB string among short ones, 40 bytes of shared prefix,
 multi-byte UTF-8, counts around the block and tile sizes, invalid
-gather slots), then qs1 (Q1 grouped by the string flags, 1 and 4
-partitions, q1x's numpy oracle under the mapping), qs2 (q1 grouped by
+gather slots; K16 at every source alignment 0-15, on 16-byte rows, on
+stretches that end mid-row and a 1 MB row over many stretches), then
+qs1 (Q1 grouped by the string flags, 1 and 4 partitions, q1x's numpy
+oracle under the mapping; K16 timed on the two flag columns through the
+filter's kept rows), qs2 (q1 grouped by
 s, pyarrow's group_by), qs3 (the fact joined to the dimension on s,
 c riding on the probe side, pyarrow's join row for row) and qs4 (sort
 by (s, v) carrying c, and its TopN, pyarrow's sort_by row for row),
@@ -1450,6 +1455,128 @@ def _window_kernel_cases(torch, dev, scan, gather):
     return cases
 
 
+K13_BINNED_FROM = (48 << 20) // 13 + 1  # q4's 13 B of lanes: binned from here
+
+
+def _k13_cases(torch, dev, gather):
+    """K13 on both of its paths (and the one its plan picks) against its
+    plain version: n = 1, 255-257, either side of a bucket (512 / 513:
+    the shift grows; 2^20 / 2^20 + 1) and of a 3,072-row tile, either
+    side of the single-pass window at q4's lanes; random, identity and
+    reversed orders; q4's lanes (int32, int64, bool), one int32 lane and
+    16 mixed 1-, 4- and 8-byte lanes.  Returns the cases run."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def lanes_of(n, widths):
+        out = []
+        for b in widths:
+            if b == 8:
+                out.append(torch.randint(-2**62, 2**62, (n,), generator=gen,
+                                         device=dev))
+            elif b == 4:
+                out.append(torch.randint(-2**31, 2**31 - 1, (n,),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32))
+            else:
+                out.append(torch.rand(n, generator=gen, device=dev) < 0.5)
+        return out
+    cases = 0
+    for n in (1, 255, 256, 257, 512, 513, 3071, 3072, 3073, 1 << 20,
+              (1 << 20) + 1, K13_BINNED_FROM - 1, K13_BINNED_FROM):
+        for kind in ("random", "identity", "reversed"):
+            if kind == "random":
+                order = torch.randperm(n, generator=gen, device=dev)
+            elif kind == "identity":
+                order = torch.arange(n, device=dev)
+            else:
+                order = torch.arange(n - 1, -1, -1, device=dev)
+            order = order.to(torch.int32)
+            for widths in ((4, 8, 1), (4,), (1, 4, 8, 8, 4, 1) * 2 +
+                           (8, 1, 4, 8)):
+                lanes = lanes_of(n, widths)
+                want = gather.scatter_rows_plain(order, lanes)
+                for binned in (None, False, True):
+                    before = gather.scatter_rows.launches
+                    got = gather.scatter_rows(order, lanes, binned=binned)
+                    if gather.scatter_rows.launches - before != 1:
+                        raise AssertionError("K13 launches")
+                    if not _same_lanes(torch, got, want):
+                        raise AssertionError(
+                            f"K13 differs (n={n}, {kind}, {len(widths)} "
+                            f"lanes, binned={binned})")
+                cases += 1
+    return cases
+
+
+def _k16_cases(torch, dev, sops):
+    """K16's two launches against the plain versions bit for bit, at
+    three caps (the total, 5 past it, three stretches and 7 bytes past
+    it: the zero tail and a partial last chunk): every source alignment
+    0-15 for rows of 1-40 bytes, rows of exactly 16 bytes, 100-byte rows
+    (stretches end mid-row), a 1 MB row straddling 256 stretches, a run
+    of 29,900 invalid slots (staged over several rounds), one-byte flags
+    through a kept index, and n = 1.  Returns the cases run."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def column(lens):
+        offs = torch.zeros(lens.shape[0] + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(lens, 0, out=offs[1:])
+        chars = torch.randint(0, 256, (max(int(offs[-1]), 1),),
+                              generator=gen, device=dev, dtype=torch.uint8)
+        return offs.to(torch.int32), chars
+
+    def check(lens, idx, ok, what):
+        offs, chars = column(lens)
+        o, t, st = sops.gather_offsets(offs, idx, ok)
+        o_p, t_p = sops.gather_offsets_plain(offs, idx, ok)
+        if not (torch.equal(o, o_p) and torch.equal(t, t_p) and torch.equal(
+                st, sops.span_starts_plain(offs, idx, ok))):
+            raise AssertionError(f"K16's offsets differ ({what})")
+        total = int(t)
+        for cap in sorted({max(total, 1), total + 5, total + 3 * 4096 + 7}):
+            got = sops.gather_chars(chars, st, o, total, cap)
+            if not torch.equal(got, sops.gather_chars_plain(
+                    offs, chars, idx, o_p, cap)):
+                raise AssertionError(f"K16's copy differs ({what}, cap "
+                                     f"{cap}, {total} bytes)")
+
+    def rand_idx(rows, n):
+        return torch.randint(0, rows, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    cases = 0
+    for width in (1, 3, 7, 8, 15, 16, 17, 31, 40):
+        for align in range(16):
+            lens = torch.full((300,), width, dtype=torch.int64, device=dev)
+            lens[0] = align      # every later row's source moves by align
+            check(lens, rand_idx(300, 500),
+                  torch.rand(500, generator=gen, device=dev) < 0.9,
+                  f"{width}-byte rows, sources at {align} mod 16")
+            cases += 1
+    check(torch.full((10000,), 16, dtype=torch.int64, device=dev),
+          torch.arange(10000, dtype=torch.int32, device=dev), ones(10000),
+          "16-byte rows")
+    check(torch.full((5000,), 100, dtype=torch.int64, device=dev),
+          rand_idx(5000, 7000), ones(7000), "100-byte rows")
+    lens = torch.randint(0, 30, (3000,), generator=gen, device=dev)
+    lens[1234] = MB_STRING
+    idx = rand_idx(3000, 4000)
+    idx[::500] = 1234
+    check(lens, idx, ones(4000), "a 1 MB row, 8 times")
+    ok = ones(50000)
+    ok[100:30000] = False
+    check(torch.randint(1, 5, (50000,), generator=gen, device=dev),
+          rand_idx(50000, 50000), ok, "a run of invalid slots")
+    kept = (torch.rand(100000, generator=gen, device=dev) < 0.98).nonzero(
+    ).flatten().to(torch.int32)
+    flags = torch.ones(100000, dtype=torch.int64, device=dev)
+    check(flags, kept, ones(kept.shape[0]), "one-byte flags")
+    check(flags, kept[:1], ones(1), "n = 1")
+    return cases + 6
+
+
 def _q4_layout(torch, window_mod, EvalContext, wexec, batch):
     """The q4 WindowExec's sorted layout of ``batch``, with K11's and
     K12's results as the main path computes them, and the result lanes
@@ -2002,17 +2129,17 @@ def _check_string_captured(torch, cap, sops, hashfns, what):
             want = sops.order_keys_plain(*args)
             same = all(torch.equal(a, b) for a, b in zip(got, want))
         elif name == "gather_offsets":
-            want = sops.gather_offsets_plain(*args)
-            same = torch.equal(got[0], want[0]) and \
-                torch.equal(got[1], want[1])
+            want = sops.gather_offsets_plain(*args) + (
+                sops.span_starts_plain(*args),)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
         elif name == "gather_chars":
-            want = sops.gather_chars_plain(*args[:4], args[5])
+            want = sops.copy_spans_plain(*args[:3], args[4])
             same = torch.equal(got, want)
         else:
             want = hashfns.hash_bytes_plain(*args)
             same = torch.equal(got, want)
         rows = int(args[0].shape[0]) - 1 if name != "gather_chars" else \
-            int(args[2].shape[0])
+            int(args[1].shape[0])
         if not same:
             raise AssertionError(f"{name} differs from its plain version "
                                  f"at {what} ({rows} rows)")
@@ -2045,7 +2172,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.api.column import Column, col, lit
     from spark_rapids_tpu_torch.api.session import GpuSession
     from spark_rapids_tpu_torch.columnar import fetch
-    from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+    from spark_rapids_tpu_torch.columnar.device import (DEFAULT_CHAR_BUCKETS,
+                                                        DeviceBatch,
                                                         DeviceColumn,
                                                         batch_to_arrow,
                                                         batch_to_device,
@@ -2781,6 +2909,11 @@ def main() -> int:
         idx4 = lay.order.to(torch.int64)
         outs4 = [torch.empty_like(x) for x in lanes4]
         k13_bytes = 4 * n4 + 2 * n4 * sum(x.element_size() for x in lanes4)
+        plan4 = gather_mod.scatter_plan(
+            n4, [x.element_size() for x in lanes4])
+        if not _same_lanes(torch, gather_mod.scatter_rows(
+                lay.order, lanes4, binned=not plan4.binned), back):
+            raise AssertionError("K13's other path differs at q4's shapes")
         kernel_rows["scatter_rows"] = dict(
             source="spark_rapids_tpu_torch/csrc/scatter_rows.cu",
             replaces="spark_rapids_tpu/exec/window.py:517",
@@ -2790,17 +2923,63 @@ def main() -> int:
                 lay.order, lanes4)),
             library_ms=cuda_ms(lambda: [o.index_copy_(0, idx4, x)
                                         for o, x in zip(outs4, lanes4)]),
-            bound_ms=bound(k13_bytes))
+            bound_ms=bound(k13_bytes),
+            extra=dict(binned=plan4.binned, shift=plan4.shift,
+                       scratch_bytes=plan4.scratch_bytes,
+                       other_path_ms=cuda_ms(lambda: gather_mod.scatter_rows(
+                           lay.order, lanes4, binned=not plan4.binned))))
         r = kernel_rows["scatter_rows"]
         print(f"K13 scatter_rows: rows {n4}, {len(lanes4)} lanes "
-              f"({', '.join(str(x.dtype) for x in lanes4)}), exact; "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
-              f"(index_copy_ of each lane) {r['library_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.3f} ms ({k13_bytes} bytes)")
+              f"({', '.join(str(x.dtype) for x in lanes4)}), exact on both "
+              f"paths; {'binned' if plan4.binned else 'single pass'} "
+              f"(256 buckets of 2^{plan4.shift} destinations, "
+              f"{plan4.scratch_bytes} bytes of scratch) {r['ms']:.3f} ms, "
+              f"the {'single pass' if plan4.binned else 'binned path'} "
+              f"{r['extra']['other_path_ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, library (index_copy_ of each lane) "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({k13_bytes} bytes); {card}")
         del q4_in, lay, pairs4, lanes4, f4, full, sum_lane, back, idx4
         del outs4, pos4, ends_in, ends, ends_plain
     except Exception:
         failures.append("kernel phase (q4)")
+        traceback.print_exc()
+
+    try:
+        # where the single pass stops winning: q4's lanes at sizes around
+        # the 48 MiB window (2^22 rows write 52 MiB)
+        gen13 = torch.Generator(device=dev).manual_seed(SEED + 14)
+        sweep = []
+        for n in (1 << 20, 1 << 21, 1 << 22, 1 << 23, 1 << 24):
+            order = torch.randperm(n, generator=gen13, device=dev).to(
+                torch.int32)
+            lanes = [torch.randint(-2**31, 2**31 - 1, (n,), generator=gen13,
+                                   device=dev, dtype=torch.int32),
+                     torch.randint(-2**62, 2**62, (n,), generator=gen13,
+                                   device=dev),
+                     torch.rand(n, generator=gen13, device=dev) < 0.5]
+            sweep.append((n, *(cuda_ms(lambda: gather_mod.scatter_rows(
+                order, lanes, binned=b)) for b in (False, True, False,
+                                                   True))))
+            del order, lanes
+        print("K13 single pass / binned at q4's lanes (ms, in turns): " +
+              "; ".join(f"{n} rows {a:.3f} / {b:.3f}, {c:.3f} / {d:.3f}"
+                        for n, a, b, c, d in sweep) + f"; {card}")
+    except Exception:
+        failures.append("K13 window sweep")
+        traceback.print_exc()
+
+    try:
+        cases = _k13_cases(torch, dev, gather_mod)
+        print(f"K13 edge cases: {cases} cases equal the plain version on "
+              f"the single pass, the binned path and the planned one (n = "
+              f"1, 255-257, 512 and 513, 3,071-3,073, 2^20 and 2^20 + 1, "
+              f"{K13_BINNED_FROM - 1} and {K13_BINNED_FROM} (the single "
+              f"pass's last n at q4's lanes and the binned path's first); "
+              f"random, identity and reversed orders; q4's lanes, one "
+              f"int32 lane, 16 mixed lanes)")
+    except Exception:
+        failures.append("K13 edge cases")
         traceback.print_exc()
 
     try:
@@ -4330,7 +4509,14 @@ def main() -> int:
             checks += _string_kernel_check(torch, sops, hashfns_mod,
                                            colm.offsets, colm.data, rng,
                                            what)
+        k16_cases = _k16_cases(torch, dev, sops)
         torch.cuda.synchronize()
+        print(f"K16 edge cases: {k16_cases} cases equal the plain versions "
+              f"bit for bit (every source alignment 0-15 for rows of 1-40 "
+              f"bytes, 16-byte rows, stretches ending mid-row, a 1 MB row "
+              f"over 256 stretches, a run of invalid slots, one-byte "
+              f"flags, n = 1; caps at the total, past it and past a "
+              f"partial chunk)")
         print(f"K14-K17 edge cases: {checks} checks (0 rows, all empty, "
               f"all null, a 1 MB string among 2,000 short, 40 bytes of "
               f"shared prefix, multi-byte UTF-8, 255-257 and 4,095-4,097 "
@@ -4339,6 +4525,77 @@ def main() -> int:
     except Exception:
         failures.append("string kernels (edge cases)")
         traceback.print_exc()
+
+    def k16_row(columns, idx, what):
+        """K16 over span columns through the rows ``idx`` (valid where
+        the row is), each against the plain versions bit for bit, then
+        timed: both launches, each launch alone, the plain versions, and
+        one random 4-byte read a row of the source offsets through
+        ``idx`` (``index_select``) as the card's random-read yardstick.
+        Returns the kernel row."""
+        n = int(idx.shape[0])
+        runs = []
+        for c in columns:
+            ok = c.validity.index_select(0, idx.long())
+            o, t, st = sops.gather_offsets(c.offsets, idx, ok)
+            total = int(t)
+            cap = bucket_for(max(total, 1), DEFAULT_CHAR_BUCKETS)
+            got = sops.gather_chars(c.data, st, o, total, cap)
+            o_p, t_p = sops.gather_offsets_plain(c.offsets, idx, ok)
+            if not (torch.equal(o, o_p) and torch.equal(t, t_p) and
+                    torch.equal(st, sops.span_starts_plain(c.offsets, idx,
+                                                           ok)) and
+                    torch.equal(got, sops.gather_chars_plain(
+                        c.offsets, c.data, idx, o_p, cap))):
+                raise AssertionError(f"K16 differs at {what}")
+            runs.append((c, ok, o, st, total, cap))
+            del got, o_p, t_p
+
+        def both():
+            for c, ok, _, _, total, cap in runs:
+                o, _, st = sops.gather_offsets(c.offsets, idx, ok)
+                sops.gather_chars(c.data, st, o, total, cap)
+
+        def plain():
+            for c, ok, _, _, total, cap in runs:
+                o, _ = sops.gather_offsets_plain(c.offsets, idx, ok)
+                sops.gather_chars_plain(c.offsets, c.data, idx, o, cap)
+        idx_l = idx.long()
+        # offsets: index, valid flag and two source offsets read, the new
+        # offset written, a row; copy: the new offset and source start a
+        # row, the selected bytes read, the whole buffer written.  The
+        # function: the offsets launch's bytes and the copy's chars (the
+        # source starts are this design's own go-between)
+        off_bytes = 17 * n * len(runs)
+        chars_bytes = sum(total + cap for *_, total, cap in runs)
+        copy_bytes = 8 * n * len(runs) + chars_bytes
+        row = dict(
+            source="spark_rapids_tpu_torch/csrc/gather_strings.cu",
+            replaces="spark_rapids_tpu/ops/strings.py:101",
+            max_abs_err=0.0, ms=cuda_ms(both),
+            plain_ms=cuda_ms(plain, reps=1), library_ms=None,
+            bound_ms=bound(off_bytes + chars_bytes),
+            extra=dict(
+                offsets_ms=cuda_ms(lambda: [sops.gather_offsets(
+                    c.offsets, idx, ok) for c, ok, *_ in runs]),
+                offsets_bound_ms=bound(off_bytes),
+                copy_ms=cuda_ms(lambda: [sops.gather_chars(
+                    c.data, st, o, total, cap)
+                    for c, _, o, st, total, cap in runs]),
+                copy_bound_ms=bound(copy_bytes),
+                random_read_ms=cuda_ms(lambda: [c.offsets.index_select(
+                    0, idx_l) for c in columns]),
+                bytes=[total for *_, total, _ in runs]))
+        x = row["extra"]
+        print(f"K16 gather_strings at {what}: {len(runs)} column(s) of "
+              f"{n} rows, {x['bytes']} bytes: exact; both launches "
+              f"{row['ms']:.3f} ms (bound {row['bound_ms']:.3f}), offsets "
+              f"{x['offsets_ms']:.3f} (bound {x['offsets_bound_ms']:.3f}), "
+              f"copy {x['copy_ms']:.3f} (bound {x['copy_bound_ms']:.3f}); "
+              f"plain {row['plain_ms']:.3f}; one random 4-byte read a row "
+              f"(index_select of the source offsets) "
+              f"{x['random_read_ms']:.3f} ms; {card}")
+        return row
 
     def string_run(run, df, check, what, session):
         """Cold, then the counted warm run, then 3 warm walls and a
@@ -4403,6 +4660,18 @@ def main() -> int:
                 if parts == 1:
                     capture_strings("qs1", df1.collect)
                 del df1, s1
+            # K16 at qs1's shape: the two flag columns through the
+            # filter's kept rows
+            fl = batch_to_device(pa.RecordBatch.from_arrays(
+                [st_fact[c].combine_chunks() for c in ("rf", "ls", "v", "f")],
+                names=["rf", "ls", "v", "f"]), dev)
+            kept = ((fl.columns[3].data <= 0.98) & fl.columns[3].validity &
+                    fl.columns[2].validity).nonzero().flatten().to(
+                        torch.int32)
+            kernel_rows["gather_strings_flags"] = k16_row(
+                fl.columns[:2], kept, "qs1's shape (rf and ls through the "
+                "filter's kept rows)")
+            del fl, kept
         except Exception:
             failures.append("main path (qs1)")
             traceback.print_exc()
@@ -4529,45 +4798,10 @@ def main() -> int:
             words = [w for ccol in sc.columns[:2]
                      for w in seg.sort_key_words(ccol)]
             order = carry.sort_order(words)
-            cc = sc.columns[2]
-            ok = cc.validity.index_select(0, order.long())
-            o16, total16 = sops.gather_offsets(cc.offsets, order, ok)
-            total16 = int(total16)
-            cap16 = bucket_for(max(total16, 1),
-                               (16384, 131072, 1048576, 8388608, 67108864,
-                                268435456))
-            got = sops.gather_chars(cc.offsets, cc.data, order, o16,
-                                    total16, cap16)
-            o_p, _ = sops.gather_offsets_plain(cc.offsets, order, ok)
-            want = sops.gather_chars_plain(cc.offsets, cc.data, order, o_p,
-                                           cap16)
-            if not (torch.equal(o16, o_p) and torch.equal(got, want)):
-                raise AssertionError("K16 differs at qs4's shape")
-            n = sc.capacity
-
-            def k16():
-                o, _ = sops.gather_offsets(cc.offsets, order, ok)
-                return sops.gather_chars(cc.offsets, cc.data, order, o,
-                                         total16, cap16)
-
-            def k16_plain():
-                o, _ = sops.gather_offsets_plain(cc.offsets, order, ok)
-                return sops.gather_chars_plain(cc.offsets, cc.data, order,
-                                               o, cap16)
-            kernel_rows["gather_strings"] = dict(
-                source="spark_rapids_tpu_torch/csrc/gather_strings.cu",
-                replaces="spark_rapids_tpu/ops/strings.py:101",
-                max_abs_err=0.0, ms=cuda_ms(k16),
-                plain_ms=cuda_ms(k16_plain, reps=1), library_ms=None,
-                bound_ms=bound(13 * n + 2 * total16 + 4 * n))
-            print(f"K16 gather_strings at qs4's shape ({n} rows, "
-                  f"{total16} bytes of c through the sort order): exact; "
-                  f"{kernel_rows['gather_strings']['ms']:.3f} ms (plain "
-                  f"{kernel_rows['gather_strings']['plain_ms']:.3f}, bound "
-                  f"{kernel_rows['gather_strings']['bound_ms']:.3f}); "
-                  f"{card}")
-            del sc, cc, got, want, words, order, ok, o16, o_p, df4, s4, \
-                dft, s5, want4, sub4
+            kernel_rows["gather_strings"] = k16_row(
+                [sc.columns[2]], order, "qs4's shape (c through the sort "
+                "order)")
+            del sc, words, order, df4, s4, dft, s5, want4, sub4
         except Exception:
             failures.append("main path (qs4)")
             traceback.print_exc()
@@ -4771,16 +5005,19 @@ def main() -> int:
                   "segment_scan": "q4", "run_ends": "q4",
                   "scatter_rows": "q4", "string_hashes": "qs2",
                   "hash_bytes": "hash_s", "gather_strings": "qs4",
-                  "order_keys": "qs4"}
+                  "gather_strings_flags": "qs1", "order_keys": "qs4"}
+        counted_as = {"segment_reduce_sorted_minmax": "segment_reduce_sorted",
+                      "gather_strings_flags": "gather_strings"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],
                  launches=launches.get(run_of.get(name, "dataframe"),
-                                       {}).get(name.replace("_minmax", ""),
+                                       {}).get(counted_as.get(name, name),
                                                0),
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                 bound_by="bytes", library_ms=r["library_ms"])
+                 bound_by="bytes", library_ms=r["library_ms"],
+                 **r.get("extra", {}))
             for name, r in kernel_rows.items()]}))
     print(card)
     if failures:

@@ -79,7 +79,7 @@ _SIGNATURES = {
         "srt_run_ends": [_P, _P, _I, _I, _P, _P, _P, _P],
     },
     "scatter_rows": {
-        "srt_scatter_rows": [_P, _I, _I, _P, _P, _P, _P],
+        "srt_scatter_rows": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     },
     "string_hashes": {
         "srt_string_hashes": [_P, _P, _I, _P, _P, _P, _P],
@@ -88,8 +88,8 @@ _SIGNATURES = {
         "srt_hash_bytes": [_P, _P, _P, _P, _I, _P, _P],
     },
     "gather_strings": {
-        "srt_gather_offsets": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
-        "srt_gather_chars": [_P, _P, _I, _P, _P, _I, _P, _L, _P],
+        "srt_gather_offsets": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+        "srt_gather_chars": [_P, _L, _P, _P, _I, _L, _I, _P, _P, _L, _P],
     },
     "prefix_words": {
         "srt_prefix_words": [_P, _P, _I, _P, _P],

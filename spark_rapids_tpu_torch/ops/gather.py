@@ -15,7 +15,7 @@ counts its launches in its ``launches`` attribute.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -92,12 +92,38 @@ def scatter_rows_plain(order: torch.Tensor, lanes: Sequence[torch.Tensor]
     return outs
 
 
-def scatter_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor]
-                 ) -> List[torch.Tensor]:
+_BUCKET_BITS = 8                   # 256 buckets (kBuckets in csrc)
+_SINGLE_PASS_BYTES = 48 << 20      # outputs this small stay in L2
+
+
+class ScatterPlan(NamedTuple):
+    """How K13 moves ``n`` rows of lanes of ``lane_bytes`` bytes: binned
+    (two passes through a binned copy) or single, the bucket shift (the
+    destination's bits below the 8 that name its bucket) and the scratch
+    bytes the binned copy takes (4 B of destination and the lanes a
+    row)."""
+    binned: bool
+    shift: int
+    scratch_bytes: int
+
+
+def scatter_plan(n: int, lane_bytes: Sequence[int]) -> ScatterPlan:
+    """K13's plan: the single pass while the output fits in
+    ``_SINGLE_PASS_BYTES`` (its random partial writes then merge in L2),
+    else the binned path over at most 256 buckets of destinations."""
+    shift = max(0, (n - 1).bit_length() - _BUCKET_BITS) if n > 0 else 0
+    binned = n * sum(lane_bytes) > _SINGLE_PASS_BYTES
+    return ScatterPlan(binned, shift,
+                       n * (4 + sum(lane_bytes)) if binned else 0)
+
+
+def scatter_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor],
+                 binned: Optional[bool] = None) -> List[torch.Tensor]:
     """``out[l][order[i]] = lanes[l][i]`` (K13), the inverse of
     ``gather_rows``: rows sorted by K2's ``order`` go back to input order.
     ``order`` is a permutation, int32[n]; each lane is [n] with 1, 4 or
-    8-byte elements."""
+    8-byte elements.  ``binned`` forces K13's path (default:
+    ``scatter_plan``)."""
     _check_lanes("scatter_rows", order, lanes)
     kernels.require_row_lanes("scatter_rows", lanes)
     if order.device.type == "cpu":
@@ -110,11 +136,22 @@ def scatter_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor]
     lib = kernels.library("scatter_rows")
     for s in range(0, len(lanes), _MAX_LANES):
         chunk, out_chunk = lanes[s:s + _MAX_LANES], outs[s:s + _MAX_LANES]
+        widths = [x.element_size() for x in chunk]
+        plan = scatter_plan(n, widths)
+        use_bins = plan.binned if binned is None else binned
+        cursor = bins = dest = None
+        if use_bins:
+            cursor = torch.zeros(1 << _BUCKET_BITS, dtype=torch.int32,
+                                 device=order.device)
+            dest = torch.empty(n, dtype=torch.int32, device=order.device)
+            bins = [torch.empty_like(x) for x in chunk]
         kernels.check(lib, lib.srt_scatter_rows(
             order.data_ptr(), n, len(chunk), kernels.pointers(chunk),
-            kernels.pointers(out_chunk),
-            kernels.ints(x.element_size() for x in chunk),
-            kernels.stream(order)), "scatter_rows")
+            kernels.pointers(out_chunk), kernels.ints(widths), plan.shift,
+            0 if cursor is None else cursor.data_ptr(),
+            0 if dest is None else dest.data_ptr(),
+            kernels.pointers(bins or []), kernels.stream(order)),
+            "scatter_rows")
         scatter_rows.launches += 1
     return outs
 
@@ -146,14 +183,14 @@ def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
                 data = torch.where(validity, data, torch.zeros_like(data))
             out[k] = DeviceColumn(c.dtype, data, validity)
             continue
-        new_offs, total = sops.gather_offsets(
+        new_offs, total, starts = sops.gather_offsets(
             c.offsets, indices.to(torch.int32), validity)
-        spans.append((k, c, validity, new_offs, total))
+        spans.append((k, c, validity, new_offs, total, starts))
     totals = sops.read_totals([x[4] for x in spans]) \
         if span_bytes is None else [span_bytes[k] for k, *_ in spans]
-    for (k, c, validity, new_offs, _), n in zip(spans, totals):
+    for (k, c, validity, new_offs, _, starts), n in zip(spans, totals):
         chars = sops.gather_chars(
-            c.offsets, c.data, indices.to(torch.int32), new_offs, n,
+            c.data, starts, new_offs, n,
             bucket_for(max(n, 1), DEFAULT_CHAR_BUCKETS))
         out[k] = DeviceColumn(c.dtype, chars, validity, new_offs)
     return out

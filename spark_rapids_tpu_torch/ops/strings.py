@@ -243,14 +243,28 @@ def gather_offsets_plain(offsets, indices, valid
     return out.to(torch.int32), out[-1:].clone()
 
 
-def gather_chars_plain(offsets, chars, indices, new_offsets,
-                       out_char_cap: int) -> torch.Tensor:
-    """Plain version of K16's second launch: each output byte's row by
-    ``repeat_interleave``, then one index_select, a step of rows at a
-    time."""
-    dev = offsets.device
+def span_starts_plain(offsets, indices, valid) -> torch.Tensor:
+    """int32[n]: each selected row's source start (the index clamped into
+    the source rows), 0 for an invalid slot: what K16's first launch
+    writes beside the new offsets for its copy."""
+    if offsets.shape[0] <= 1:
+        return torch.zeros(indices.shape[0], dtype=torch.int32,
+                           device=offsets.device)
+    idx = indices.to(torch.int64).clamp(0, offsets.shape[0] - 2)
+    return torch.where(valid, offsets[idx],
+                       torch.zeros((), dtype=offsets.dtype,
+                                   device=offsets.device))
+
+
+def copy_spans_plain(chars, starts, new_offsets,
+                     out_char_cap: int) -> torch.Tensor:
+    """Plain version of K16's copy: row i's bytes from ``starts[i]`` to
+    ``new_offsets[i]``, each output byte's row by ``repeat_interleave``,
+    then one index_select, a step of rows at a time; zero past the
+    total."""
+    dev = chars.device
     out = torch.zeros(out_char_cap, dtype=torch.uint8, device=dev)
-    n = indices.shape[0]
+    n = starts.shape[0]
     for s in range(0, n, _PLAIN_ROWS):
         e = min(s + _PLAIN_ROWS, n)
         first, last = int(new_offsets[s]), int(new_offsets[e])
@@ -260,62 +274,89 @@ def gather_chars_plain(offsets, chars, indices, new_offsets,
         row = torch.repeat_interleave(
             torch.arange(s, e, device=dev), lens)
         p = torch.arange(first, last, dtype=torch.int64, device=dev)
-        idx = indices.to(torch.int64)[row].clamp(0, offsets.shape[0] - 2)
-        src = offsets[idx].to(torch.int64) + p - \
+        src = starts[row].to(torch.int64) + p - \
             new_offsets[row].to(torch.int64)
         out[first:last] = chars[src]
     return out
 
 
+def gather_chars_plain(offsets, chars, indices, new_offsets,
+                       out_char_cap: int) -> torch.Tensor:
+    """Plain version of K16's two launches' bytes from the selection
+    itself: each row's source start read at its index, then
+    ``copy_spans_plain``."""
+    every = torch.ones(indices.shape[0], dtype=torch.bool,
+                       device=indices.device)
+    return copy_spans_plain(chars, span_starts_plain(offsets, indices, every),
+                            new_offsets, out_char_cap)
+
+
+_STRETCH_BYTES = 4096    # output bytes a copy block (kStretch in csrc)
+
+
+def gather_stretches(total: int) -> int:
+    """The byte stretches of K16's copy that hold selected bytes, one
+    block and one (first row, end row) pair each: ceil(total / 4,096).
+    Blocks past them write the zero tail."""
+    return -(-total // _STRETCH_BYTES)
+
+
 def gather_offsets(offsets: torch.Tensor, indices: torch.Tensor,
-                   valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   valid: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K16's first launch: (int32[n + 1] offsets of the rows ``indices``,
     a row's length where ``valid`` and else 0, as an exclusive scan; the
-    byte total as int64[1]), both on the device."""
+    byte total as int64[1]; int32[n] each row's source start, 0 for an
+    invalid slot), all on the device."""
     _check_gather("gather_strings", offsets, indices, valid)
     if offsets.device.type == "cpu":
-        return gather_offsets_plain(offsets, indices, valid)
+        return gather_offsets_plain(offsets, indices, valid) + \
+            (span_starts_plain(offsets, indices, valid),)
     kernels.require_cuda("gather_strings", offsets, indices, valid)
     n = int(indices.shape[0])
     dev = offsets.device
     new_offs = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    starts = torch.empty(n, dtype=torch.int32, device=dev)
     total = torch.zeros(1, dtype=torch.int64, device=dev)
     if n == 0:
-        return new_offs.zero_(), total
+        return new_offs.zero_(), total, starts
     lib = kernels.library("gather_strings")
     state = torch.zeros(1 + kernels.num_tiles(lib, n), dtype=torch.int64,
                         device=dev)
     kernels.check(lib, lib.srt_gather_offsets(
         offsets.data_ptr(), int(offsets.shape[0]) - 1, indices.data_ptr(),
-        valid.data_ptr(), n, new_offs.data_ptr(), total.data_ptr(),
-        state.data_ptr(), kernels.stream(offsets)), "gather_strings")
-    return new_offs, total
+        valid.data_ptr(), n, new_offs.data_ptr(), starts.data_ptr(),
+        total.data_ptr(), state.data_ptr(), kernels.stream(offsets)),
+        "gather_strings")
+    return new_offs, total, starts
 
 
-def gather_chars(offsets: torch.Tensor, chars: torch.Tensor,
-                 indices: torch.Tensor, new_offsets: torch.Tensor,
-                 total: int, out_char_cap: int) -> torch.Tensor:
-    """K16's second launch: the selected spans copied to their new
-    offsets, zero-padded to ``out_char_cap``; ``total`` is the byte
-    total (``new_offsets[-1]``), read by the caller."""
+def gather_chars(chars: torch.Tensor, starts: torch.Tensor,
+                 new_offsets: torch.Tensor, total: int,
+                 out_char_cap: int) -> torch.Tensor:
+    """K16's copy: the spans that ``gather_offsets`` located (``starts``,
+    ``new_offsets``) copied to their new offsets, zero-padded to
+    ``out_char_cap``; ``total`` is the byte total (``new_offsets[-1]``),
+    read by the caller."""
     if not 0 <= total <= min(out_char_cap, _INT32_MAX):
         raise ValueError(f"gather_strings: {total} bytes into a buffer of "
                          f"{out_char_cap}; at most 2^31-1")
-    if offsets.device.type == "cpu":
-        return gather_chars_plain(offsets, chars, indices, new_offsets,
-                                  out_char_cap)
-    kernels.require_cuda("gather_strings", offsets, chars, indices,
-                         new_offsets)
-    out = torch.empty(out_char_cap, dtype=torch.uint8, device=chars.device)
-    out[total:].zero_()
-    n = int(indices.shape[0])
+    if chars.device.type == "cpu":
+        return copy_spans_plain(chars, starts, new_offsets, out_char_cap)
+    kernels.require_cuda("gather_strings", chars, starts, new_offsets)
+    n = int(starts.shape[0])
     if n == 0 or total == 0:
-        return out
+        return torch.zeros(out_char_cap, dtype=torch.uint8,
+                           device=chars.device)
+    out = torch.empty(out_char_cap, dtype=torch.uint8, device=chars.device)
+    stretches = gather_stretches(total)
+    rows = torch.empty(2 * stretches, dtype=torch.int32, device=chars.device)
     lib = kernels.library("gather_strings")
     kernels.check(lib, lib.srt_gather_chars(
-        offsets.data_ptr(), chars.data_ptr(), int(offsets.shape[0]) - 1,
-        indices.data_ptr(), new_offsets.data_ptr(), n, out.data_ptr(),
-        out_char_cap, kernels.stream(chars)), "gather_strings")
+        chars.data_ptr(), int(chars.shape[0]), starts.data_ptr(),
+        new_offsets.data_ptr(), n, total, stretches, rows.data_ptr(),
+        out.data_ptr(), out_char_cap, kernels.stream(chars)),
+        "gather_strings")
     gather_strings.launches += 1
     return out
 
@@ -342,11 +383,11 @@ def gather_strings(offsets: torch.Tensor, chars: torch.Tensor,
     becomes an empty string.  Without ``out_char_cap`` the byte total is
     read to size the chars at its bucket."""
     from ..columnar.device import DEFAULT_CHAR_BUCKETS, bucket_for
-    new_offs, total = gather_offsets(offsets, indices, valid)
+    new_offs, total, starts = gather_offsets(offsets, indices, valid)
     total, = read_totals([total])
     if out_char_cap is None:
         out_char_cap = bucket_for(max(total, 1), DEFAULT_CHAR_BUCKETS)
-    return new_offs, gather_chars(offsets, chars, indices, new_offs, total,
+    return new_offs, gather_chars(chars, starts, new_offs, total,
                                   out_char_cap)
 
 

@@ -176,11 +176,10 @@ def test_gather_strings_matches_reference(case, xp):
     r_offs, r_chars = rops.gather_strings(
         xp, xp.asarray(ref.offsets), xp.asarray(ref.data), xp.asarray(idx),
         xp.asarray(valid), out_char_cap)
-    offs, total = pops.gather_offsets(port.offsets, torch.from_numpy(idx),
-                                      torch.from_numpy(valid))
+    offs, total, starts = pops.gather_offsets(
+        port.offsets, torch.from_numpy(idx), torch.from_numpy(valid))
     total, = pops.read_totals([total])
-    chars = pops.gather_chars(port.offsets, port.data, torch.from_numpy(idx),
-                              offs, total, out_char_cap)
+    chars = pops.gather_chars(port.data, starts, offs, total, out_char_cap)
     assert np.array_equal(np.asarray(r_offs), offs.numpy())
     assert np.array_equal(np.asarray(r_chars), chars.numpy())
     # the one-call form sizes the chars at the bucket of the total
@@ -193,12 +192,45 @@ def test_gather_strings_matches_reference(case, xp):
     assert np.array_equal(c2.numpy()[:total], chars.numpy()[:total])
 
 
+@pytest.mark.parametrize("total,stretches", [
+    (0, 0), (1, 1), (4095, 1), (4096, 1), (4097, 2), (1 << 20, 256),
+    ((1 << 20) + 1, 257), (2**31 - 1, 524288)])
+def test_k16_stretch_count(total, stretches):
+    """K16's copy takes one block a 4,096-byte stretch of selected bytes
+    (blocks past them write the zero tail)."""
+    assert pops.gather_stretches(total) == stretches
+
+
+@pytest.mark.parametrize("case", ["random", "all_null", "long_among_short",
+                                  "multibyte"])
+def test_k16_copy_through_starts_matches_gather(case):
+    """K16's copy reads each row's source start from its first launch;
+    the plain copy through those starts equals the plain gather from the
+    selection, zero tail included, and the starts are the clamped
+    source offsets (0 for an invalid slot)."""
+    arr = arrow(case)
+    _, port, _ = both_columns(arr)
+    idx, valid = selection(5, len(arr), 300)
+    idx[:3] = [-2, len(arr) + 7, 0]          # clamped into the rows
+    t_idx, t_valid = torch.from_numpy(idx), torch.from_numpy(valid)
+    offs, total, starts = pops.gather_offsets(port.offsets, t_idx, t_valid)
+    src = port.offsets.numpy()
+    want = np.where(valid, src[np.clip(idx, 0, max(len(src) - 2, 0))], 0)
+    assert np.array_equal(starts.numpy(), want.astype(np.int32))
+    cap = int(total) + 4099
+    got = pops.copy_spans_plain(port.data, starts, offs, cap)
+    assert torch.equal(got, pops.gather_chars_plain(
+        port.offsets, port.data, t_idx, offs, cap))
+    assert torch.equal(got, pops.gather_chars(port.data, starts, offs,
+                                              int(total), cap))
+    assert not got[int(total):].any()
+
+
 def test_gather_total_past_int32_raises():
     with pytest.raises(ValueError, match="2\\^31-1"):
         pops.read_totals([torch.tensor([2**31], dtype=torch.int64)])
     with pytest.raises(ValueError, match="2\\^31-1"):
-        pops.gather_chars(torch.zeros(2, dtype=torch.int32),
-                          torch.zeros(1, dtype=torch.uint8),
+        pops.gather_chars(torch.zeros(1, dtype=torch.uint8),
                           torch.zeros(1, dtype=torch.int32),
                           torch.zeros(2, dtype=torch.int32), 2**31, 2**31)
 
@@ -331,9 +363,8 @@ def test_kernels_match_reference_hypothesis(vals, seed):
     idx, valid = selection(seed % 1000, len(vals), 25)
     r_offs, r_chars = rops.gather_strings(
         np, np.asarray(ref.offsets), np.asarray(ref.data), idx, valid, 4096)
-    offs, total = pops.gather_offsets(port.offsets, torch.from_numpy(idx),
-                                      torch.from_numpy(valid))
-    chars = pops.gather_chars(port.offsets, port.data, torch.from_numpy(idx),
-                              offs, int(total), 4096)
+    offs, total, starts = pops.gather_offsets(
+        port.offsets, torch.from_numpy(idx), torch.from_numpy(valid))
+    chars = pops.gather_chars(port.data, starts, offs, int(total), 4096)
     assert np.array_equal(r_offs, offs.numpy())
     assert np.array_equal(r_chars, chars.numpy())

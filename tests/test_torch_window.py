@@ -619,6 +619,49 @@ def test_k13_matches_reference_sort_lanes(seed, xp_name):
                for b, x in zip(back, lanes))
 
 
+@pytest.mark.parametrize("n,shift", [
+    (0, 0), (1, 0), (2, 0), (256, 0), (257, 1), (512, 1), (513, 2),
+    (1 << 20, 12), ((1 << 20) + 1, 13), (1 << 25, 17), ((1 << 25) + 1, 18)])
+def test_k13_bucket_shift(n, shift):
+    """K13 bins destinations into at most 256 buckets of 2^shift."""
+    plan = pgather.scatter_plan(n, [4, 8, 1])
+    assert plan.shift == shift
+    assert n == 0 or (n - 1) >> plan.shift < 256
+    assert n <= 256 or (n - 1) >> plan.shift >= 128
+
+
+@pytest.mark.parametrize("n,widths,binned,scratch", [
+    (0, [4, 8, 1], False, 0),
+    (1, [4, 8, 1], False, 0),
+    # q4's lanes: the single pass while 13 B a row fits in 48 MiB
+    ((48 << 20) // 13, [4, 8, 1], False, 0),
+    ((48 << 20) // 13 + 1, [4, 8, 1], True, ((48 << 20) // 13 + 1) * 17),
+    (12 << 20, [4], False, 0),
+    ((12 << 20) + 1, [4], True, ((12 << 20) + 1) * 8),
+    (1 << 25, [4, 8, 1], True, (1 << 25) * 17),
+    (1 << 21, [8] * 8 + [1] * 8, True, (1 << 21) * 76)])
+def test_k13_single_pass_threshold_and_scratch(n, widths, binned, scratch):
+    """The single pass serves outputs up to 48 MiB (they merge in L2);
+    the binned path takes 4 B of destination and the lanes a row of
+    scratch."""
+    plan = pgather.scatter_plan(n, widths)
+    assert (plan.binned, plan.scratch_bytes) == (binned, scratch)
+
+
+@pytest.mark.parametrize("binned", [None, False, True])
+def test_k13_path_choice_is_the_plain_version_on_cpu(binned):
+    rng = np.random.default_rng(3)
+    n = 513
+    order = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    lanes = [torch.from_numpy(rng.integers(-9, 9, n)),
+             torch.from_numpy(rng.random(n) < 0.5)]
+    before = pgather.scatter_rows.launches
+    got = pgather.scatter_rows(order, lanes, binned=binned)
+    assert pgather.scatter_rows.launches == before
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, pgather.scatter_rows_plain(order, lanes)))
+
+
 def test_wrappers_check_their_arguments():
     b = torch.zeros(4, dtype=torch.bool)
     with pytest.raises(TypeError):
