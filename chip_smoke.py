@@ -28,7 +28,10 @@ the DataFrame API over 1 and 4 partitions, equal to pyarrow's stable
 sort row for row; a TopN, sort(v desc, k).limit(1000), against pyarrow;
 three sort orders with nulls, NaN, -0.0 and +-inf against the CPU
 engine; K8 (row gather), K9 (lane stats) and K10 (lane pack) against
-their plain versions at q3's shapes, at K8's edges and on a fetch fuzz;
+their plain versions at q3's shapes, at K8's edges (both of its paths,
+the single pass and the row records, around its blocks and the plan's
+crossover) and on a fetch fuzz, and K8's two paths timed in turns over
+a sweep of sizes;
 every download split step by step against the per-lane copies it
 replaced.  Bench q4, row_number and the running RANGE sum of v over
 (partition by k order by v) on the fact table, through the DataFrame
@@ -36,8 +39,10 @@ API over 1 and 4 partitions, equal to a numpy oracle row for row, with
 its stages (words, K2, K8, boundaries, K11, K12, the results, K13, the
 mask, the download) and a trace; K11 (segmented scan), K12 (peer-run
 ends) and K13 (row scatter) against their plain versions at q4's shapes
-and on edge cases, K13 on both of its paths (single pass and binned by
-destination) around its buckets, tiles and single-pass window; every
+and on edge cases (K11 either side of its 2,048-, 4,096- and 8,192-row
+tiles), K8 at q4's four lanes on both paths, K13 on both of its paths
+(single pass and binned by destination) around its buckets, tiles and
+single-pass window; every
 window function over 5 specs at 2^20 rows against the CPU engine.
 q1x, the TPC-H Q1 shape on the fact table (filter, k % 3, CASE WHEN,
 Q1's price arithmetic, group by two keys with sums, averages, count,
@@ -1001,52 +1006,121 @@ def _check_captured(torch, cap, carry, gather_mod, fetch, what):
     return seen
 
 
-def _k8_edge_cases(torch, dev, gather):
-    """K8 against its plain version, bit for bit: no rows (no launch), one
-    row, 17 and 40 lanes (chunks of 16), 1-, 4- and 8-byte lanes, the
-    identity and the reverse order and a random one."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-
-    def lanes(m, count):
-        kinds = (torch.bool, torch.int8, torch.int32, torch.int64,
-                 torch.float64)
-        out = []
-        for j in range(count):
-            dt = kinds[j % len(kinds)]
-            x = torch.randint(-2**31, 2**31, (m,), generator=gen, device=dev)
-            out.append(x.to(dt) if dt != torch.float64 else
-                       torch.rand(m, generator=gen, device=dev,
-                                  dtype=torch.float64))
-        return out
-
-    cases = 0
-    for n, count, kind in ((0, 3, "random"), (1, 5, "random"),
-                           (1000, 17, "random"), (5000, 40, "random"),
-                           (100_003, 6, "identity"), (100_003, 6, "reverse"),
-                           (100_003, 6, "random"), (257, 16, "reverse")):
-        ls = lanes(max(n, 1) * 2, count)
-        m = ls[0].shape[0]
-        if kind == "identity":
-            order = torch.arange(n, dtype=torch.int32, device=dev)
-        elif kind == "reverse":
-            order = torch.arange(n - 1, -1, -1, dtype=torch.int32,
-                                 device=dev)
+def _row_lanes(torch, gen, dev, m, widths):
+    """Lanes of ``m`` rows, one a width: int64, int32 or bool."""
+    out = []
+    for w in widths:
+        if w == 8:
+            out.append(torch.randint(-2**62, 2**62, (m,), generator=gen,
+                                     device=dev))
+        elif w == 4:
+            out.append(torch.randint(-2**31, 2**31 - 1, (m,), generator=gen,
+                                     device=dev, dtype=torch.int32))
         else:
-            order = torch.randint(0, m, (n,), generator=gen, device=dev,
-                                  dtype=torch.int32)
-        before = gather.gather_rows.launches
-        got = gather.gather_rows(order, ls)
-        launched = gather.gather_rows.launches - before
-        want_launches = 0 if n == 0 else -(-count // 16)
-        if launched != want_launches:
-            raise AssertionError(f"K8 with {n} rows and {count} lanes "
-                                 f"launched {launched} times, not "
-                                 f"{want_launches}")
-        if not _same_lanes(torch, got, gather.gather_rows_plain(order, ls)):
-            raise AssertionError(f"K8 differs from its plain version with "
-                                 f"{n} rows, {count} lanes, {kind} order")
-        cases += 1
-    return cases
+            out.append(torch.rand(m, generator=gen, device=dev) < 0.5)
+    return out
+
+
+def _k8_crossover(gather, m, widths):
+    """The fewest rows out of ``m`` that gather_plan sends through the
+    records (``m`` rows of the lanes must outgrow L2)."""
+    lo, hi = 1, 4 * m
+    if not gather.gather_plan(hi, m, widths).packed:
+        raise ValueError(f"K8's plan never packs {m} rows of {widths}")
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if gather.gather_plan(mid, m, widths).packed:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def _k8_edge_cases(torch, dev, gather):
+    """K8 on the single pass, the record path and the planned one against
+    its plain version, bit for bit: no rows (no launch), one row, 255-257
+    and 2^k +- 1 rows (its 256-row blocks), a random permutation, the
+    identity, the reverse, every row reading one source row, orders with
+    repeats over lanes 3x and 7x longer and over 7 rows, n either side of
+    the plan's crossover (the record path packs the whole source), every
+    lane-width mix (one lane of each width, 8+1, 4+8+1, 16 one-byte, 7 and
+    8 eight-byte lanes: a full 64-byte record), q3's and q4's lanes, and
+    17 and 40 lanes (chunks).  Returns the cases run."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    q3, q4 = [8, 1] * 3, [8, 1, 8, 1]
+    mixes = ([8], [4], [1], [8, 1], [4, 8, 1], [1] * 16, [8] * 7, [8] * 8,
+             q3, q4, [1, 4, 8] * 5 + [8, 4], [8, 4, 1] * 13 + [8])
+    cases = []
+    for n, m, kind in ((1, 1, "perm"), (255, 255, "perm"), (256, 256, "perm"),
+                       (257, 257, "perm"), (4095, 4095, "perm"),
+                       ((1 << 16) + 1, (1 << 16) + 1, "perm"),
+                       ((1 << 20) - 1, (1 << 20) - 1, "perm"),
+                       (100_003, 100_003, "identity"),
+                       (100_003, 100_003, "reverse"),
+                       (100_003, 100_003, "one row"),
+                       (100_003, 300_009, "repeats"),
+                       (100_003, 700_021, "repeats"),
+                       (100_003, 7, "repeats")):
+        for widths in mixes:
+            cases.append((n, m, kind, widths))
+    for widths in (q3, q4, [8, 1]):
+        m = 1 << 24
+        c = _k8_crossover(gather, m, widths)
+        cases += [(c - 1, m, "repeats", widths), (c, m, "repeats", widths)]
+    cases.append((0, 3, "perm", q3))
+    for n, m, kind, widths in cases:
+        if kind == "perm":
+            order = torch.randperm(m, generator=gen, device=dev)[:n]
+        elif kind == "identity":
+            order = torch.arange(n, device=dev)
+        elif kind == "reverse":
+            order = torch.arange(n - 1, -1, -1, device=dev)
+        elif kind == "one row":
+            order = torch.full((n,), n // 2, device=dev)
+        else:
+            order = torch.randint(0, m, (n,), generator=gen, device=dev)
+        order = order.to(torch.int32)
+        ls = _row_lanes(torch, gen, dev, m, widths)
+        want = gather.gather_rows_plain(order, ls)
+        plan = gather.gather_plan(n, m, widths)
+        for packed in (None, False, True):
+            use = plan.packed if packed is None else packed
+            before = gather.gather_rows.launches
+            got = gather.gather_rows(order, ls, packed=packed)
+            launched = gather.gather_rows.launches - before
+            want_launches = len(gather.gather_chunks(widths, use)) if n \
+                else 0
+            if launched != want_launches:
+                raise AssertionError(
+                    f"K8 with {n} rows and {len(widths)} lanes "
+                    f"(packed={packed}) launched {launched} times, not "
+                    f"{want_launches}")
+            if not _same_lanes(torch, got, want):
+                raise AssertionError(
+                    f"K8 differs from its plain version with {n} rows of "
+                    f"{m}, lanes {widths}, {kind} order, packed={packed}")
+    return len(cases)
+
+
+def _k8_sweep(torch, dev, gather, cuda_ms):
+    """The single pass and the record path timed in turns on q3's lanes:
+    a permutation of n = m rows, 2^16 to 2^24 (the plan keeps the single
+    pass up to 96 MiB of lanes, 3,728,270 rows), then n rows of m = 2^24
+    around the plan's crossover (the record path packs all m)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    q3 = [8, 1] * 3
+    out = []
+    for n, m in [(1 << k, 1 << k) for k in (16, 18, 20, 21, 22, 24)] + [
+            (1 << 21, 1 << 24), (1 << 22, 1 << 24), (3 << 21, 1 << 24),
+            (1 << 23, 1 << 24)]:
+        order = torch.randperm(m, generator=gen, device=dev)[:n].to(
+            torch.int32)
+        ls = _row_lanes(torch, gen, dev, m, q3)
+        times = [cuda_ms(lambda p=p: gather.gather_rows(order, ls, packed=p))
+                 for p in (False, True, False, True)]
+        out.append((n, m, gather.gather_plan(n, m, q3).packed, times))
+        del order, ls
+    return out
 
 
 FUZZ_SPANS = (0, 2**8 - 1, 2**8, 2**16 - 1, 2**16, 2**32 - 1, 2**32)
@@ -1408,16 +1482,21 @@ def _window_flags(torch, dev, kind, n, seed):
 
 def _window_kernel_cases(torch, dev, scan, gather):
     """K11, K12 and K13 against their plain versions on the edge cases:
-    n = 1, n not a multiple of the 2,048-row tile, one partition over
-    every tile (2^22 rows), every row tied in one run, every row its own
-    partition, padding rows at the tail, more pairs than a K11 launch
-    takes.  Returns the cases run."""
+    n = 1, n on either side of K11's tiles (2,048 rows with three or four
+    pairs, 4,096 with two, 8,192 with one) and of K12's (2,048), one
+    partition over every tile (2^22 rows, and at the tile edges), every
+    row tied in one run, every row its own partition (also at the tile
+    edges), padding rows at the tail, one to five pairs (more than a K11
+    launch takes).  Returns the cases run."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     cases = 0
-    for kind, n in (("random", 1), ("random", 3 * 2048 + 5),
+    edges = [n for t in (2048, 4096, 8192) for n in (t - 1, t + 1)]
+    for kind, n in [("random", 1), ("random", 3 * 2048 + 5),
                     ("one partition", 1 << 22), ("all tied", 100_003),
                     ("own partitions", 100_003), ("padded", 100_003),
-                    ("padded", 2048), ("random", 1 << 20)):
+                    ("padded", 2048), ("random", 1 << 20)] + [
+                        (k, n) for n in edges + [16_385]
+                        for k in ("one partition", "own partitions")]:
         seg, run, n_live = _window_flags(torch, dev, kind, n, n + cases)
         live = torch.arange(n, device=dev) < n_live
         valid = (torch.rand(n, generator=gen, device=dev) < 0.9) & live
@@ -1429,6 +1508,8 @@ def _window_kernel_cases(torch, dev, scan, gather):
                 ([(ints, valid), (floats, valid), (None, valid)],
                  dict(run_start=True, runs_cum=True)),
                 ([(ints, valid)], {}),
+                ([(floats, valid), (ints, valid)],
+                 dict(run_start=True)),
                 ([(ints, valid)] * 3 + [(floats, valid), (None, valid)],
                  dict(runs_cum=True))):
             before = scan.segment_scan.launches
@@ -1466,20 +1547,6 @@ def _k13_cases(torch, dev, gather):
     reversed orders; q4's lanes (int32, int64, bool), one int32 lane and
     16 mixed 1-, 4- and 8-byte lanes.  Returns the cases run."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-
-    def lanes_of(n, widths):
-        out = []
-        for b in widths:
-            if b == 8:
-                out.append(torch.randint(-2**62, 2**62, (n,), generator=gen,
-                                         device=dev))
-            elif b == 4:
-                out.append(torch.randint(-2**31, 2**31 - 1, (n,),
-                                         generator=gen, device=dev,
-                                         dtype=torch.int32))
-            else:
-                out.append(torch.rand(n, generator=gen, device=dev) < 0.5)
-        return out
     cases = 0
     for n in (1, 255, 256, 257, 512, 513, 3071, 3072, 3073, 1 << 20,
               (1 << 20) + 1, K13_BINNED_FROM - 1, K13_BINNED_FROM):
@@ -1493,7 +1560,7 @@ def _k13_cases(torch, dev, gather):
             order = order.to(torch.int32)
             for widths in ((4, 8, 1), (4,), (1, 4, 8, 8, 4, 1) * 2 +
                            (8, 1, 4, 8)):
-                lanes = lanes_of(n, widths)
+                lanes = _row_lanes(torch, gen, dev, n, widths)
                 want = gather.scatter_rows_plain(order, lanes)
                 for binned in (None, False, True):
                     before = gather.scatter_rows.launches
@@ -2717,8 +2784,19 @@ def main() -> int:
                            gather_mod.gather_rows_plain(order3, lanes3)):
             raise AssertionError("K8 differs from its plain version at q3's "
                                  "shapes")
-        k8_bytes = 4 * n3 + 2 * n3 * sum(x.element_size() for x in lanes3)
+        widths3 = [x.element_size() for x in lanes3]
+        plan8 = gather_mod.gather_plan(n3, n3, widths3)
+        for packed in (False, True):
+            if not _same_lanes(torch, gather_mod.gather_rows(
+                    order3, lanes3, packed=packed), sorted3):
+                raise AssertionError(f"K8 (packed={packed}) differs from "
+                                     f"its plain version at q3's shapes")
+        k8_bytes = 4 * n3 + 2 * n3 * sum(widths3)
         idx3 = order3.to(torch.int64)
+        # the planned path and the other one, in turns
+        turns8 = [cuda_ms(lambda p=p: gather_mod.gather_rows(
+            order3, lanes3, packed=p))
+            for p in (plan8.packed, not plan8.packed) * 2]
         kernel_rows["gather_rows"] = dict(
             source="spark_rapids_tpu_torch/csrc/gather_rows.cu",
             replaces="spark_rapids_tpu/ops/carry.py:80",
@@ -2728,12 +2806,25 @@ def main() -> int:
                                                                   lanes3)),
             library_ms=cuda_ms(lambda: [x.index_select(0, idx3)
                                         for x in lanes3]),
-            bound_ms=bound(k8_bytes))
+            bound_ms=bound(k8_bytes),
+            extra=dict(packed=plan8.packed,
+                       scratch_bytes=plan8.scratch_bytes,
+                       single_pass_bytes=plan8.single_bytes,
+                       record_path_bytes=plan8.packed_bytes,
+                       planned_other_in_turns_ms=turns8))
         r = kernel_rows["gather_rows"]
-        print(f"K8 gather_rows: rows {n3}, {len(lanes3)} lanes, exact, "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
-              f"(index_select of each lane) {r['library_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.3f} ms ({k8_bytes} bytes)")
+        print(f"K8 gather_rows: rows {n3}, {len(lanes3)} lanes, exact on "
+              f"both paths; {'record path' if plan8.packed else 'single pass'}"
+              f" {r['ms']:.3f} ms; planned / other in turns "
+              f"{', '.join(f'{x:.3f}' for x in turns8)} ms; device-memory "
+              f"bytes with a random read as its 32-byte sector: single pass "
+              f"{plan8.single_bytes} ({plan8.single_bytes / n3:.0f} B a row, "
+              f"{bound(plan8.single_bytes):.3f} ms), record path "
+              f"{plan8.packed_bytes} ({plan8.packed_bytes / n3:.0f} B a row, "
+              f"{bound(plan8.packed_bytes):.3f} ms); scratch "
+              f"{plan8.scratch_bytes} bytes; plain {r['plain_ms']:.3f} ms, "
+              f"library (index_select of each lane) {r['library_ms']:.3f} "
+              f"ms, bound {r['bound_ms']:.3f} ms ({k8_bytes} bytes); {card}")
 
         # K9 and K10 on the sorted batch, the one q3's download fetches
         stats3 = fetch.lane_stats(sorted3, n3)
@@ -2808,8 +2899,11 @@ def main() -> int:
     try:
         cases = _k8_edge_cases(torch, dev, gather_mod)
         print(f"K8 edge cases: {cases} cases equal the plain version bit for "
-              f"bit (no rows and no launch, one row, 17 and 40 lanes, 1-, 4- "
-              f"and 8-byte lanes, identity, reverse and random orders)")
+              f"bit on the single pass, the record path and the planned one "
+              f"(no rows and no launch, one row, 255-257 and 2^k +- 1 rows, "
+              f"permutation, identity, reverse, one source row, repeats "
+              f"over longer and shorter lanes, either side of the plan's "
+              f"crossover; 12 lane-width mixes from one lane to 40)")
         cases, sizes = _fetch_fuzz(torch, dev, fetch, batch_to_device,
                                    batch_to_arrow, move_batch)
         print(f"fetch fuzz: K9 and K10 equal their plain versions bit for "
@@ -2818,6 +2912,17 @@ def main() -> int:
               f"rows ({sum(1 for x in sizes if x % 8)} not a multiple of 8)")
     except Exception:
         failures.append("K8, K9 and K10 edge cases")
+        traceback.print_exc()
+
+    try:
+        sweep8 = _k8_sweep(torch, dev, gather_mod, cuda_ms)
+        print("K8 single pass / record path on q3's lanes (ms, in "
+              "turns): " + "; ".join(
+                  f"{n} of {m} rows (plan: {'record' if p else 'single'}) "
+                  f"{a:.4f} / {b:.4f}, {c:.4f} / {d:.4f}"
+                  for n, m, p, (a, b, c, d) in sweep8) + f"; {card}")
+    except Exception:
+        failures.append("K8 sweep")
         traceback.print_exc()
 
     # ---- kernel phase, q4: K11, K12 and K13 at q4's shapes ------------
@@ -2865,11 +2970,55 @@ def main() -> int:
         r = kernel_rows["segment_scan"]
         print(f"K11 segment_scan: rows {n4}, {int(lay.new_seg.sum())} "
               f"partitions, {int(lay.new_run.sum())} runs; q4's launch "
-              f"(seg_start, one int64 pair) exact; every output with a "
+              f"(seg_start, one int64 pair: tiles of 8,192 rows, "
+              f"{-(-n4 // 8192)} tiles) exact; every output with a "
               f"float lane: ints exact, float max abs err {k11_err:.3g}; "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
               f"(torch.cumsum of the sum lane) {r['library_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({k11_bytes} bytes)")
+              f"bound {r['bound_ms']:.3f} ms ({k11_bytes} bytes); {card}")
+        # K11 with one to four pairs at q4's shape (tiles of 8,192,
+        # 4,096, 2,048 and 2,048 rows)
+        run4 = lay.new_run
+        sets11 = [(None, pairs4, {}),
+                  (run4, [pairs4[0], full[1]], dict(run_start=True)),
+                  (run4, full, dict(run_start=True, runs_cum=True)),
+                  (run4, full + [pairs4[0]], dict(runs_cum=True))]
+        for a in sets11[1:]:
+            _same_scan(torch, scan_mod.segment_scan(lay.new_seg, a[0], a[1],
+                                                    **a[2]),
+                       scan_mod.segment_scan_plain(lay.new_seg, a[0], a[1],
+                                                   **a[2]),
+                       f"at q4's shapes, {len(a[1])} pairs")
+        pairs_ms = [cuda_ms(lambda a=a: scan_mod.segment_scan(
+            lay.new_seg, a[0], a[1], **a[2])) for a in sets11]
+        kernel_rows["segment_scan"]["extra"] = dict(
+            one_to_four_pairs_ms=pairs_ms)
+        print(f"K11 at q4's shape with 1, 2, 3 and 4 pairs (and run "
+              f"outputs from 2): {', '.join(f'{x:.3f}' for x in pairs_ms)}"
+              f" ms, each equal to the plain version; {card}")
+        # K8 as q4's window moves its inputs: k and v with their validity
+        lanes8 = [x for c in q4_in.columns[:2] for x in (c.data, c.validity)]
+        want8 = gather_mod.gather_rows_plain(lay.order, lanes8)
+        plan84 = gather_mod.gather_plan(n4, n4, [x.element_size()
+                                                  for x in lanes8])
+        for packed in (None, False, True):
+            if not _same_lanes(torch, gather_mod.gather_rows(
+                    lay.order, lanes8, packed=packed), want8):
+                raise AssertionError(f"K8 (packed={packed}) differs from "
+                                     f"its plain version at q4's shapes")
+        turns84 = [cuda_ms(lambda p=p: gather_mod.gather_rows(
+            lay.order, lanes8, packed=p))
+            for p in (plan84.packed, not plan84.packed) * 2]
+        if "gather_rows" in kernel_rows:
+            kernel_rows["gather_rows"]["extra"].update(
+                q4_planned_other_in_turns_ms=turns84,
+                q4_scratch_bytes=plan84.scratch_bytes)
+        print(f"K8 at q4's four lanes (k, v and their validity through the "
+              f"window's order): exact on both paths; "
+              f"{'record path' if plan84.packed else 'single pass'} / the "
+              f"other in turns {', '.join(f'{x:.3f}' for x in turns84)} ms;"
+              f" scratch {plan84.scratch_bytes} bytes; {card}")
+        del lanes8, want8
         # K12 as q4 launches it: the end of each row's peer run
         for flags in ((None, lay.new_run), (lay.new_seg, lay.new_run)):
             ends = scan_mod.run_ends(*flags, lay.n_live)
@@ -2940,6 +3089,7 @@ def main() -> int:
               f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({k13_bytes} bytes); {card}")
         del q4_in, lay, pairs4, lanes4, f4, full, sum_lane, back, idx4
+        del run4, sets11, a
         del outs4, pos4, ends_in, ends, ends_plain
     except Exception:
         failures.append("kernel phase (q4)")
@@ -2986,11 +3136,35 @@ def main() -> int:
         cases = _window_kernel_cases(torch, dev, scan_mod, gather_mod)
         print(f"K11, K12 and K13 edge cases: {cases} cases equal the plain "
               f"versions (ints exactly, floats to {FLOAT_RTOL:g}): n = 1, "
-              f"n off the 2,048-row tile, one partition over 2^22 rows, "
-              f"all rows tied, every row its own partition, padding at the "
-              f"tail, more pairs than a K11 launch takes")
+              f"n either side of the 2,048-, 4,096- and 8,192-row tiles, "
+              f"one partition over 2^22 rows and over the tile edges, all "
+              f"rows tied, every row its own partition, padding at the "
+              f"tail, one, two, three and five pairs")
     except Exception:
         failures.append("K11, K12 and K13 edge cases")
+        traceback.print_exc()
+
+    try:
+        # each wrapper's time for one row: its launch floor, beside which
+        # the rows of K6, K12 and K15 are read
+        one = torch.ones(1, dtype=torch.bool, device=dev)
+        key1 = DeviceColumn(t.LONG, torch.zeros(1, dtype=torch.int64,
+                                                device=dev), one)
+        offs1 = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+        chars1 = torch.tensor([97, 98, 99], dtype=torch.uint8, device=dev)
+        seed1 = torch.full((1,), 42, dtype=torch.int64, device=dev)
+        floors = {
+            "K6 key_hash": cuda_ms(lambda: jk.combined_key_hash([key1], 1)),
+            "K12 run_ends": cuda_ms(lambda: scan_mod.run_ends(one, None,
+                                                              1)),
+            "K15 hash_bytes": cuda_ms(lambda: hashfns_mod.hash_bytes(
+                offs1, chars1, seed1))}
+        print("launch floor, one row through each wrapper (ms): " +
+              ", ".join(f"{k} {v:.4f}" for k, v in floors.items()) +
+              f"; {card}")
+        del one, key1, offs1, chars1, seed1
+    except Exception:
+        failures.append("launch floor")
         traceback.print_exc()
 
     # ---- main path: DataFrame API, one batch -------------------------

@@ -16,13 +16,26 @@
 // each thread folds kItems consecutive rows, a warp scans the thread
 // states with shuffles, the block combines its warps, and each tile finds
 // the state of every earlier tile by decoupled look-back, as K7
-// (csrc/expand_ends.cu) and K2's one-sweep pass do.  A tile's state is 64
-// bytes, too wide for one atomic word: a tile writes it with L2 stores,
-// fences, then raises its status word; a reader polls the status, fences,
-// then reads the state from L2.  Integer sums equal the reference's
-// prefix differences bit for bit; a float sum adds only the rows of its
-// own partition, so it is more accurate than a difference of two global
-// prefix sums.
+// (csrc/expand_ends.cu) and K2's one-sweep pass do.  A tile's state is
+// 16 + 12 P bytes for P pairs, too wide for one atomic word: a tile
+// writes it with L2 stores, fences, then raises its status word; a
+// reader polls the status, fences, then reads the state from L2.
+// Integer sums equal the reference's prefix differences bit for bit; a
+// float sum adds only the rows of its own partition, so it is more
+// accurate than a difference of two global prefix sums.
+//
+// What costs time beside the bytes, and what the design does about it:
+//   - every tile takes a look-back step: a thread folds 32 rows with one
+//     pair (tiles of 8,192), 16 with two, 8 with three or four, so 2^25
+//     rows take 4,096 steps with one pair; the pairs' values stay in
+//     shared memory, not in registers, so three blocks share an SM;
+//   - a step reads up to 32 earlier states: the warp folds them with a
+//     shuffle tree, five combines deep, not one lane after another;
+//   - a thread's rows are consecutive, so its own loads and stores would
+//     span a warp instruction over 32 runs: the 8-byte values come in,
+//     and every output goes out, through a shared-memory stage in which
+//     a warp moves 512 consecutive bytes an instruction.  The flag lanes
+//     come in as 16-byte loads of a thread's own bytes.
 //
 // K12 replaces _run_end_positions (:54, a reversed cummax of negated
 // positions): per row, the last row of its partition and of its peer run.
@@ -41,8 +54,8 @@
 // Bound: device-memory bytes.  K11 reads 2 flag bytes a row and 9 bytes a
 // pair (value and valid), and writes 4 bytes a position output and 12
 // bytes a pair (sum and count); K12 reads 2 flag bytes and writes 8
-// bytes a row; over 3.35 TB/s.  The look-back state is 132 bytes (K11)
-// and 8 bytes (K12) a tile of 2,048 rows.
+// bytes a row; over 3.35 TB/s.  K12's look-back state is 8 bytes a tile
+// of 2,048 rows.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +65,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;
+constexpr int kItems = 8;              // K12 rows a thread
 constexpr int kTile = kThreads * kItems;
 constexpr int kMaxPairs = 4;
 constexpr unsigned kFull = 0xffffffffu;
@@ -148,6 +161,21 @@ __device__ __forceinline__ Agg<P> shfl_up(const Agg<P>& a, int off) {
   return r;
 }
 
+template <int P>
+__device__ __forceinline__ Agg<P> shfl_down(const Agg<P>& a, int off) {
+  Agg<P> r;
+  r.seg_start = __shfl_down_sync(kFull, a.seg_start, off);
+  r.run_start = __shfl_down_sync(kFull, a.run_start, off);
+  r.runs = __shfl_down_sync(kFull, a.runs, off);
+  r.flag = __shfl_down_sync(kFull, a.flag, off);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    r.sum[p] = __shfl_down_sync(kFull, a.sum[p], off);
+    r.count[p] = __shfl_down_sync(kFull, a.count[p], off);
+  }
+  return r;
+}
+
 // Look-back state goes through L2 (st.cg / ld.cg): L1 is not coherent
 // across SMs.
 template <int P>
@@ -180,25 +208,38 @@ __device__ __forceinline__ Agg<P> load_l2(const Agg<P>* src) {
   return a;
 }
 
-// kItems bytes of a flag lane as bits (row k in bit k); a full run of
-// rows in one 8-byte load.
+// I bytes of a flag lane as bits (row k in bit k); a full run of rows in
+// 8- or 16-byte loads.
+template <int I>
 __device__ __forceinline__ unsigned load_bits(const unsigned char* lane,
                                               long long first, int rows) {
+  static_assert(I == 8 || I == 16 || I == 32, "a run is whole vectors");
   unsigned bits = 0;
-  if (rows == kItems) {
-    const uint2 w = *reinterpret_cast<const uint2*>(lane + first);
+  if (rows == I) {
+    unsigned w[I / 4];
+    if constexpr (I == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(lane + first);
+      w[0] = v.x, w[1] = v.y;
+    } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      bits |= ((w.x >> (8 * k)) & 1u) << k;
-      bits |= ((w.y >> (8 * k)) & 1u) << (k + 4);
+      for (int h = 0; h < I / 16; ++h) {
+        const uint4 v = reinterpret_cast<const uint4*>(lane + first)[h];
+        w[4 * h] = v.x, w[4 * h + 1] = v.y, w[4 * h + 2] = v.z,
+        w[4 * h + 3] = v.w;
+      }
     }
+#pragma unroll
+    for (int q = 0; q < I / 4; ++q)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        bits |= ((w[q] >> (8 * k)) & 1u) << (4 * q + k);
   } else {
     for (int k = 0; k < rows; ++k) bits |= (lane[first + k] ? 1u : 0u) << k;
   }
   return bits;
 }
 
-// int32 lane: kItems values from first, two 16-byte stores when full.
+// int32 lane: kItems values from first, two 16-byte stores when full (K12).
 __device__ __forceinline__ void store_ints(int* lane, long long first,
                                            int rows, const int* v) {
   if (rows == kItems) {
@@ -214,18 +255,131 @@ __device__ __forceinline__ void store_ints(int* lane, long long first,
 
 constexpr int kNone = 0, kAggregate = 1, kPrefix = 2;
 
+// K11's rows a thread: 32 with one pair (tiles of 8,192 rows), 16 with
+// two, 8 with three or four, so that every pair's values fit in shared
+// memory at about 70 KB a block.
+template <int P>
+struct ScanShape {
+  static constexpr int kItems = P <= 1 ? 32 : P == 2 ? 16 : 8;
+  static constexpr int kTile = kThreads * kItems;
+  // a stage: one 8-byte word a row, and one of padding after each
+  // thread's run, so a thread's run and a warp's stripe both fall on
+  // distinct banks; one stage a pair's values (one at least)
+  static constexpr int kStage = kTile + kThreads;
+  static constexpr int kSmem = (P > 0 ? P : 1) * kStage * 8;
+  static __device__ __forceinline__ int at(int e) {
+    return e + e / kItems;
+  }
+};
+constexpr int kScanMinTile = kThreads * 8;
+
+// The tile's rows of an 8-byte lane into the stage: a thread reads two
+// words with one 16-byte load, a warp 512 consecutive bytes.
+template <class S>
+__device__ __forceinline__ void stage_in(const unsigned long long* src,
+                                         long long tile_first,
+                                         int tile_rows,
+                                         unsigned long long* stage) {
+#pragma unroll
+  for (int k = 0; k < S::kItems / 2; ++k) {
+    const int e = 2 * (k * kThreads + threadIdx.x);
+    if (e + 1 < tile_rows) {
+      const ulonglong2 w =
+          __ldg(reinterpret_cast<const ulonglong2*>(src + tile_first + e));
+      stage[S::at(e)] = w.x;
+      stage[S::at(e + 1)] = w.y;
+    } else if (e < tile_rows) {
+      stage[S::at(e)] = __ldg(src + tile_first + e);
+    }
+  }
+}
+
+// The staged tile out to a lane with 16-byte stores (two 8-byte or four
+// 4-byte elements a thread), a warp writing 512 consecutive bytes.  A
+// thread's elements never straddle a pad (kItems is a multiple of 4).
+template <class S>
+__device__ __forceinline__ void stage_out(unsigned long long* dst,
+                                          long long tile_first,
+                                          int tile_rows,
+                                          const unsigned long long* stage) {
+#pragma unroll
+  for (int k = 0; k < S::kItems / 2; ++k) {
+    const int e = 2 * (k * kThreads + threadIdx.x);
+    if (e + 1 < tile_rows)
+      *reinterpret_cast<ulonglong2*>(dst + tile_first + e) =
+          make_ulonglong2(stage[S::at(e)], stage[S::at(e) + 1]);
+    else if (e < tile_rows)
+      dst[tile_first + e] = stage[S::at(e)];
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void stage_out(int* dst, long long tile_first,
+                                          int tile_rows, const int* stage) {
+#pragma unroll
+  for (int k = 0; k < S::kItems / 4; ++k) {
+    const int e = 4 * (k * kThreads + threadIdx.x);
+    const int* v = stage + S::at(e);
+    if (e + 3 < tile_rows) {
+      *reinterpret_cast<int4*>(dst + tile_first + e) =
+          make_int4(v[0], v[1], v[2], v[3]);
+    } else {
+      for (int j = 0; j < 4 && e + j < tile_rows; ++j)
+        dst[tile_first + e + j] = v[j];
+    }
+  }
+}
+
+// The combined state of the earlier tiles, read by warp 0: 32 earlier
+// tiles at a time, nearest first, until one that has published its
+// inclusive prefix (tile 0 always does).  The window's states fold by a
+// shuffle tree (lane j + off holds earlier tiles than lane j), so a step
+// costs five combines, not 32.  Lane 0's result is the one to use.
+template <int P>
+__device__ __forceinline__ Agg<P> look_back(int tile, volatile int* status,
+                                            const Agg<P>* aggs,
+                                            const Agg<P>* prefs,
+                                            const int* kind) {
+  const int lane = threadIdx.x & 31;
+  Agg<P> before = identity<P>();
+  for (int base = tile - 1;; base -= 32) {
+    const int t = base - lane;
+    int st = kPrefix;
+    do {
+      if (t >= 0) st = status[t];
+    } while (__any_sync(kFull, st == kNone));
+    __threadfence();
+    const unsigned done = __ballot_sync(kFull, st == kPrefix);
+    const int stop = done ? __ffs(done) - 1 : 31;
+    Agg<P> x = identity<P>();
+    if (lane <= stop && t >= 0)
+      x = load_l2(st == kPrefix ? &prefs[t] : &aggs[t]);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const Agg<P> y = shfl_down(x, off);
+      if (lane + off < 32) x = combine(y, x, kind);
+    }
+    before = combine(x, before, kind);
+    if (done) break;
+  }
+  return before;
+}
+
 // counter: tile counter; status: one word a tile (kNone on entry);
 // aggs / prefs: each tile's own state and its inclusive prefix.  Each
-// thread holds its kItems rows (flags as bits, values in registers)
-// across the look-back, so every lane is read once.
+// thread holds its kItems rows' flags as bits, and each pair's values
+// stay in its stage, across the look-back, so every lane is read once.
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, P <= 2 ? 3 : 2)
 segment_scan_kernel(ScanArgs args, unsigned int* counter, int* status,
                     Agg<P>* aggs, Agg<P>* prefs) {
+  using S = ScanShape<P>;
+  constexpr int I = S::kItems;
+  extern __shared__ unsigned long long s_stage[];  // S::kSmem bytes
   __shared__ Agg<P> s_warp[kWarps];
-  __shared__ Agg<P> s_look[32];
   __shared__ Agg<P> s_before;
   __shared__ int s_tile;
+  int* s_stage32 = reinterpret_cast<int*>(s_stage);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -236,40 +390,37 @@ segment_scan_kernel(ScanArgs args, unsigned int* counter, int* status,
   int kind[P > 0 ? P : 1];
 #pragma unroll
   for (int p = 0; p < P; ++p) kind[p] = args.pairs[p].kind;
-  const long long first = (long long)tile * kTile + (long long)tid * kItems;
-  const int rows = static_cast<int>(
-      n - first >= kItems ? kItems : (n > first ? n - first : 0));
+  const long long tile_first = (long long)tile * S::kTile;
+  const int tile_rows = static_cast<int>(
+      n - tile_first < S::kTile ? n - tile_first : (long long)S::kTile);
+  const long long first = tile_first + (long long)tid * I;
+  const int mine = tile_rows - tid * I;
+  const int rows = mine >= I ? I : (mine > 0 ? mine : 0);
 
   // this thread's rows: flags and valid bits, values, the folded state
-  const unsigned seg_bits = rows ? load_bits(args.new_seg, first, rows) : 0;
+  const unsigned seg_bits =
+      rows ? load_bits<I>(args.new_seg, first, rows) : 0;
   const unsigned run_bits =
-      rows && args.new_run ? load_bits(args.new_run, first, rows) : 0;
+      rows && args.new_run ? load_bits<I>(args.new_run, first, rows) : 0;
   unsigned valid_bits[P > 0 ? P : 1];
-  unsigned long long vals[P > 0 ? P : 1][kItems];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    valid_bits[p] = rows ? load_bits(args.pairs[p].valid, first, rows) : 0;
-    const unsigned long long* src = args.pairs[p].value;
-    if (kind[p] == kCountOnly) {
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) vals[p][k] = 0;
-    } else if (rows == kItems) {
-      const longlong2* v2 = reinterpret_cast<const longlong2*>(src + first);
-#pragma unroll
-      for (int h = 0; h < kItems / 2; ++h) {
-        const longlong2 w = __ldg(v2 + h);
-        vals[p][2 * h] = static_cast<unsigned long long>(w.x);
-        vals[p][2 * h + 1] = static_cast<unsigned long long>(w.y);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kItems; ++k)
-        vals[p][k] = k < rows ? __ldg(src + first + k) : 0;
-    }
+    valid_bits[p] =
+        rows ? load_bits<I>(args.pairs[p].valid, first, rows) : 0;
+    if (kind[p] != kCountOnly)
+      stage_in<S>(args.pairs[p].value, tile_first, tile_rows,
+                  s_stage + p * S::kStage);
   }
+  __syncthreads();
+  // row k's value of pair p (0 for a count-only pair)
+  auto value = [&](int p, int k) -> unsigned long long {
+    return kind[p] == kCountOnly
+               ? 0ull
+               : s_stage[p * S::kStage + S::at(tid * I + k)];
+  };
   Agg<P> a = identity<P>();
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
+  for (int k = 0; k < I; ++k) {
     if (k >= rows) break;
     const bool s = (seg_bits >> k) & 1u;
     if (s) {
@@ -288,7 +439,7 @@ segment_scan_kernel(ScanArgs args, unsigned int* counter, int* status,
       }
       if ((valid_bits[p] >> k) & 1u) {
         a.count[p] += 1;
-        a.sum[p] = add(kind[p], a.sum[p], vals[p][k]);
+        a.sum[p] = add(kind[p], a.sum[p], value(p, k));
       }
     }
   }
@@ -326,26 +477,7 @@ segment_scan_kernel(ScanArgs args, unsigned int* counter, int* status,
         __threadfence();
         vstatus[tile] = kAggregate;
       }
-      // 32 earlier tiles at a time, nearest first, until one that has
-      // published its inclusive prefix (tile 0 always does)
-      for (int base = tile - 1;; base -= 32) {
-        const int t = base - lane;
-        int st = kPrefix;
-        do {
-          if (t >= 0) st = vstatus[t];
-        } while (__any_sync(kFull, st == kNone));
-        __threadfence();
-        const unsigned done = __ballot_sync(kFull, st == kPrefix);
-        const int stop = done ? __ffs(done) - 1 : 31;
-        if (lane <= stop && t >= 0)
-          s_look[lane] = load_l2(st == kPrefix ? &prefs[t] : &aggs[t]);
-        __syncwarp();
-        if (lane == 0)
-          for (int j = 0; j <= stop; ++j)
-            before = combine(s_look[j], before, kind);
-        __syncwarp();
-        if (done) break;
-      }
+      before = look_back(tile, vstatus, aggs, prefs, kind);
       if (lane == 0) {
         store_l2(&prefs[tile], combine(before, tile_agg, kind));
         __threadfence();
@@ -355,58 +487,65 @@ segment_scan_kernel(ScanArgs args, unsigned int* counter, int* status,
     if (lane == 0) s_before = before;
   }
   __syncthreads();
-  if (!rows) return;
 
-  Agg<P> cur = combine(s_before, combine(warp_before, before_me, kind),
-                       kind);
-  int seg_out[kItems], run_out[kItems], runs_out[kItems];
-  int count_out[P > 0 ? P : 1][kItems];
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const bool s = k < rows && ((seg_bits >> k) & 1u);
-    if (s) cur.seg_start = static_cast<int>(first + k);
-    if (k < rows && ((run_bits >> k) & 1u)) {
-      cur.run_start = static_cast<int>(first + k);
-      cur.runs += 1;
-    }
-    seg_out[k] = cur.seg_start;
-    run_out[k] = cur.run_start;
-    runs_out[k] = cur.runs;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if (s) {
-        cur.sum[p] = 0;
-        cur.count[p] = 0;
-      }
-      if ((valid_bits[p] >> k) & 1u) {
-        cur.count[p] += 1;
-        cur.sum[p] = add(kind[p], cur.sum[p], vals[p][k]);
-      }
-      vals[p][k] = cur.sum[p];              // the value is read: reuse
-      count_out[p][k] = cur.count[p];
-    }
-  }
-  if (args.seg_start) store_ints(args.seg_start, first, rows, seg_out);
-  if (args.run_start) store_ints(args.run_start, first, rows, run_out);
-  if (args.runs_cum) store_ints(args.runs_cum, first, rows, runs_out);
+  // each output in turn: this thread's rows from its starting state into
+  // a stage, then the stage out (every branch is the same for the whole
+  // block).  The sums go first, each over its pair's values in place
+  // (each thread in its own slots); then stage 0 takes the rest.
+  const Agg<P> start =
+      combine(s_before, combine(warp_before, before_me, kind), kind);
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    if (args.pairs[p].count)
-      store_ints(args.pairs[p].count, first, rows, count_out[p]);
-    unsigned long long* dst = args.pairs[p].sum;
-    if (!dst) continue;
-    if (rows == kItems) {
-      longlong2* d2 = reinterpret_cast<longlong2*>(dst + first);
+    if (!args.pairs[p].sum) continue;
+    unsigned long long c = start.sum[p];
+    unsigned long long* stage = s_stage + p * S::kStage;
 #pragma unroll
-      for (int h = 0; h < kItems / 2; ++h)
-        d2[h] = make_longlong2(static_cast<long long>(vals[p][2 * h]),
-                               static_cast<long long>(vals[p][2 * h + 1]));
-    } else {
-#pragma unroll
-      for (int k = 0; k < kItems; ++k)
-        if (k < rows) dst[first + k] = vals[p][k];
+    for (int k = 0; k < I; ++k) {
+      if (k < rows) {
+        if ((seg_bits >> k) & 1u) c = 0;
+        if ((valid_bits[p] >> k) & 1u) c = add(kind[p], c, value(p, k));
+        stage[S::at(tid * I + k)] = c;
+      }
     }
+    __syncthreads();
+    stage_out<S>(args.pairs[p].sum, tile_first, tile_rows, stage);
+    __syncthreads();
   }
+  auto put = [&](int* dst) {
+    __syncthreads();
+    stage_out<S>(dst, tile_first, tile_rows, s_stage32);
+    __syncthreads();
+  };
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (!args.pairs[p].count) continue;
+    int c = start.count[p];
+#pragma unroll
+    for (int k = 0; k < I; ++k) {
+      if (k < rows) {
+        if ((seg_bits >> k) & 1u) c = 0;
+        if ((valid_bits[p] >> k) & 1u) c += 1;
+        s_stage32[S::at(tid * I + k)] = c;
+      }
+    }
+    put(args.pairs[p].count);
+  }
+  auto positions = [&](int* dst, unsigned bits, int init, bool count) {
+    int c = init;
+#pragma unroll
+    for (int k = 0; k < I; ++k) {
+      if (k < rows) {
+        if ((bits >> k) & 1u) c = count ? c + 1 : static_cast<int>(first + k);
+        s_stage32[S::at(tid * I + k)] = c;
+      }
+    }
+    put(dst);
+  };
+  if (args.seg_start)
+    positions(args.seg_start, seg_bits, start.seg_start, false);
+  if (args.run_start)
+    positions(args.run_start, run_bits, start.run_start, false);
+  if (args.runs_cum) positions(args.runs_cum, run_bits, start.runs, true);
 }
 
 // ---------------------------------------------------------------------------
@@ -455,7 +594,7 @@ run_ends_kernel(const unsigned char* __restrict__ new_seg,
   }
   auto ends = [&](const unsigned char* flags) -> unsigned {
     if (!flags || !rows) return 0u;
-    unsigned next = load_bits(flags, first, rows) >> 1;
+    unsigned next = load_bits<kItems>(flags, first, rows) >> 1;
     if (rows == kItems && first + kItems < n && flags[first + kItems])
       next |= 1u << (kItems - 1);
     return (next | last_bit) & live_bits;
@@ -564,14 +703,20 @@ size_t aggs_offset(int tiles) {
 
 template <int P>
 int launch_scan(const ScanArgs& args, void* scratch, cudaStream_t stream) {
-  const int tiles = tiles_of(args.n);
+  using S = ScanShape<P>;
+  const int tiles =
+      static_cast<int>(((long long)args.n + S::kTile - 1) / S::kTile);
+  const cudaError_t err = cudaFuncSetAttribute(
+      segment_scan_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   char* base = static_cast<char*>(scratch);
   unsigned int* counter = reinterpret_cast<unsigned int*>(base);
   int* status = reinterpret_cast<int*>(base + status_offset());
   Agg<P>* aggs = reinterpret_cast<Agg<P>*>(base + aggs_offset(tiles));
   Agg<P>* prefs = aggs + tiles;
-  segment_scan_kernel<P><<<tiles, kThreads, 0, stream>>>(args, counter,
-                                                         status, aggs, prefs);
+  segment_scan_kernel<P><<<tiles, kThreads, S::kSmem, stream>>>(
+      args, counter, status, aggs, prefs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -581,8 +726,11 @@ bool aligned(const void* p, size_t bytes) {
 
 }  // namespace
 
+// Enough for any pair count: the most tiles (the narrowest) of the widest
+// state.
 extern "C" int srt_segment_scan_scratch_bytes(int n) {
-  const int tiles = tiles_of(n < 1 ? 1 : n);
+  const int tiles = static_cast<int>(
+      ((long long)(n < 1 ? 1 : n) + kScanMinTile - 1) / kScanMinTile);
   return static_cast<int>(aggs_offset(tiles) +
                           2 * sizeof(Agg<kMaxPairs>) * tiles);
 }
@@ -592,8 +740,8 @@ extern "C" int srt_segment_scan_scratch_bytes(int n) {
 // per pair p < npairs: values[p] int64 / float64 [n] or null (kinds[p] 1,
 // 2, or 0 for a count only), valids[p] bool[n], sums[p] [n] out or null,
 // counts[p] int32[n] out or null; scratch: the bytes
-// srt_segment_scan_scratch_bytes(n) gives, zeroed; n >= 1.  Flag and
-// valid lanes are 8-byte aligned, the others 16-byte aligned.
+// srt_segment_scan_scratch_bytes(n) gives, zeroed; n >= 1.  Every lane
+// is 16-byte aligned.
 extern "C" int srt_segment_scan(const unsigned char* new_seg,
                                 const unsigned char* new_run, int n,
                                 int* seg_start, int* run_start,
@@ -605,7 +753,7 @@ extern "C" int srt_segment_scan(const unsigned char* new_seg,
   if (n < 1 || npairs < 0 || npairs > kMaxPairs ||
       ((run_start || runs_cum) && new_run == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  bool ok = aligned(new_seg, 8) && aligned(new_run, 8) &&
+  bool ok = aligned(new_seg, 16) && aligned(new_run, 16) &&
             aligned(seg_start, 16) && aligned(run_start, 16) &&
             aligned(runs_cum, 16);
   ScanArgs args;
@@ -635,7 +783,7 @@ extern "C" int srt_segment_scan(const unsigned char* new_seg,
                 : static_cast<unsigned long long*>(sums[p]);
     q.count = static_cast<int*>(counts[p]);
     q.kind = kinds[p];
-    ok = ok && aligned(q.value, 16) && aligned(q.valid, 8) &&
+    ok = ok && aligned(q.value, 16) && aligned(q.valid, 16) &&
          aligned(q.sum, 16) && aligned(q.count, 16);
   }
   if (!ok) return static_cast<int>(cudaErrorMisalignedAddress);

@@ -67,6 +67,7 @@ _SIGNATURES = {
     },
     "gather_rows": {
         "srt_gather_rows": [_P, _I, _I, _P, _P, _P, _P],
+        "srt_gather_packed": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     },
     "fetch_pack": {
         "srt_lane_stats": [_P, _I, _I, _P, _P],

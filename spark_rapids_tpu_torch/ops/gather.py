@@ -5,8 +5,11 @@ row ``indices[i]`` of the input, and null where ``valid[i]`` is False.
 A string column takes the span branch (the reference's
 ``gather_spans``): K16 (ops/strings.py:gather_strings) writes its new
 offsets and copies its bytes, and the byte totals of every string
-column of one gather are read to the host together, once.  ``gather_rows`` moves row lanes through a sort's
-order with kernel K8 (``csrc/gather_rows.cu``), and ``scatter_rows``,
+column of one gather are read to the host together, once.
+``gather_rows`` moves row lanes through a sort's order with kernel K8
+(``csrc/gather_rows.cu``: one pass a lane, or the source rows packed
+into records and one record read a row, as ``gather_plan`` chooses by
+the bytes each moves), and ``scatter_rows``,
 its dual, moves them back to input order with kernel K13
 (``csrc/scatter_rows.cu``).  Each wrapper takes its plain version for
 CPU tensors only, launches its kernel for CUDA tensors or raises, and
@@ -15,7 +18,7 @@ counts its launches in its ``launches`` attribute.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,10 +37,85 @@ def gather_rows_plain(order: torch.Tensor, lanes: Sequence[torch.Tensor]
     return [x.index_select(0, idx) for x in lanes]
 
 
-def gather_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor]
-                ) -> List[torch.Tensor]:
+_RECORD_SIZES = (16, 32, 64)       # K8's record widths
+# K8 keeps the single pass while the source lanes are at most this many
+# bytes: its random reads then mostly hit the 50 MB L2.  The H100 sweep
+# in chip_smoke.py (_k8_sweep) found the single pass faster at 57 MB of
+# q3's lanes and the record path faster at 113 MB.
+_GATHER_SINGLE_BYTES = 96 << 20
+
+
+def record_layout(widths: Sequence[int]) -> Tuple[int, List[int]]:
+    """K8's row record for lanes of ``widths`` bytes: (record bytes, each
+    lane's byte offset).  Each lane sits at the first free offset that is
+    a multiple of its width, the widest lanes first, so the holes fill.
+    The record is 16, 32 or 64 bytes, or 0 when the lanes need more."""
+    used: List[bool] = []
+    offsets = [0] * len(widths)
+    for j in sorted(range(len(widths)), key=lambda j: -widths[j]):
+        w = widths[j]
+        off = 0
+        while any(used[off:off + w]):
+            off += w
+        used.extend([False] * (off + w - len(used)))
+        used[off:off + w] = [True] * w
+        offsets[j] = off
+    size = next((r for r in _RECORD_SIZES if r >= len(used)), 0)
+    return size, offsets
+
+
+def gather_chunks(widths: Sequence[int], packed: bool) -> List[List[int]]:
+    """The lanes (indices into ``widths``) of each K8 launch: 16 a launch
+    on the single pass; on the record path as many as one record of at
+    most 64 bytes holds, at most 16."""
+    chunks: List[List[int]] = []
+    for j in range(len(widths)):
+        if chunks and len(chunks[-1]) < _MAX_LANES and (
+                not packed or record_layout(
+                    [widths[i] for i in chunks[-1] + [j]])[0]):
+            chunks[-1].append(j)
+        else:
+            chunks.append([j])
+    return chunks
+
+
+class GatherPlan(NamedTuple):
+    """How K8 moves ``n`` rows out of lanes of ``m`` rows: through row
+    records (packed) or on the single pass, with the device-memory bytes
+    each path moves (a random read counted as the 32-byte sector it
+    pulls) and the scratch bytes the record path takes (the widest
+    chunk's record for each of the ``m`` source rows)."""
+    packed: bool
+    single_bytes: int
+    packed_bytes: int
+    scratch_bytes: int
+
+
+def gather_plan(n: int, m: int, lane_bytes: Sequence[int]) -> GatherPlan:
+    """K8's plan: the record path where it moves fewer bytes and the
+    source lanes outgrow ``_GATHER_SINGLE_BYTES`` (below that the single
+    pass's random reads mostly hit L2).  The single pass reads the order and one
+    sector a lane for each row and writes the lanes: n (36 L + S) for L
+    lanes of S bytes.  The record path packs the m source rows into
+    records of R bytes and reads one record a row: m (S + R) + n (4 + R +
+    S), a chunk at a time."""
+    sizes = [(sum(lane_bytes[i] for i in c),
+              record_layout([lane_bytes[i] for i in c])[0])
+             for c in gather_chunks(lane_bytes, True)]
+    single = n * (36 * len(lane_bytes) + sum(lane_bytes))
+    packed = sum(m * (s + r) + n * (4 + r + s) for s, r in sizes)
+    use = packed < single and m * sum(lane_bytes) > _GATHER_SINGLE_BYTES
+    return GatherPlan(use, single, packed,
+                      m * max((r for _, r in sizes), default=0) if use
+                      else 0)
+
+
+def gather_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor],
+                packed: Optional[bool] = None) -> List[torch.Tensor]:
     """``out[l][i] = lanes[l][order[i]]`` (K8): ``order`` is int32[n], as
-    K2 returns it; each lane is 1-D with 1, 4 or 8-byte elements."""
+    K2 returns it, and may repeat rows; each lane is 1-D with 1, 4 or
+    8-byte elements and holds every row the order names.  ``packed``
+    forces K8's path (default: ``gather_plan``)."""
     if order.dtype != torch.int32 or order.dim() != 1:
         raise TypeError(f"gather_rows: order must be int32[n], got "
                         f"{order.dtype}{tuple(order.shape)}")
@@ -54,13 +132,27 @@ def gather_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor]
     if n == 0 or not lanes:
         return outs
     lib = kernels.library("gather_rows")
-    for s in range(0, len(lanes), _MAX_LANES):
-        chunk, out_chunk = lanes[s:s + _MAX_LANES], outs[s:s + _MAX_LANES]
-        kernels.check(lib, lib.srt_gather_rows(
-            order.data_ptr(), n, len(chunk), kernels.pointers(chunk),
-            kernels.pointers(out_chunk),
-            kernels.ints(x.element_size() for x in chunk),
-            kernels.stream(order)), "gather_rows")
+    st = kernels.stream(order)
+    widths = [x.element_size() for x in lanes]
+    m = min(int(x.shape[0]) for x in lanes)   # rows every lane holds
+    plan = gather_plan(n, m, widths)
+    use = plan.packed if packed is None else packed
+    chunks = gather_chunks(widths, use)
+    layouts = [record_layout([widths[i] for i in c]) for c in chunks]
+    # the record path: one buffer of records, for every chunk in turn
+    records = torch.empty(m * max(r for r, _ in layouts) if use else 0,
+                          dtype=torch.uint8, device=order.device)
+    for c, (size, offsets) in zip(chunks, layouts):
+        args = (len(c), kernels.pointers([lanes[i] for i in c]),
+                kernels.pointers([outs[i] for i in c]),
+                kernels.ints(widths[i] for i in c))
+        if use:
+            err = lib.srt_gather_packed(
+                order.data_ptr(), n, m, *args, kernels.ints(offsets), size,
+                records.data_ptr(), st)
+        else:
+            err = lib.srt_gather_rows(order.data_ptr(), n, *args, st)
+        kernels.check(lib, err, "gather_rows")
         gather_rows.launches += 1
     return outs
 

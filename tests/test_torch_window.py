@@ -560,6 +560,46 @@ def test_k11_float_sum_does_not_cancel():
     assert ref[1:].tolist() == [0.0] * len(small)
 
 
+@pytest.mark.parametrize("kind", ["one_partition", "one_row_partitions",
+                                  "random"])
+@pytest.mark.parametrize("n", [2047, 2048, 2049, 4095, 4096, 4097, 8191,
+                               8192, 8193, 16385])
+def test_k11_around_its_tiles_matches_reference(n, kind):
+    """K11's positions, run count, int64 running sum and counts at n on
+    either side of its tiles (2,048 rows with three or four pairs, 4,096
+    with two, 8,192 with one; the old design's were 2,048), with one
+    partition spanning every tile and with every row its own partition,
+    against the reference."""
+    rng = np.random.default_rng(n)
+    if kind == "one_partition":
+        seg = np.zeros(n, bool)
+        run = rng.random(n) < 0.3
+    elif kind == "one_row_partitions":
+        seg = np.ones(n, bool)
+        run = seg.copy()
+    else:
+        seg = rng.random(n) < 0.01
+        run = seg | (rng.random(n) < 0.3)
+    seg[0] = run[0] = True
+    v, valid = value_inputs(n, np.dtype(np.int64), seed=n)
+    pairs = [(torch.from_numpy(v), torch.from_numpy(valid))]
+    for npairs in (1, 2, 3):
+        got = pscan.segment_scan(torch.from_numpy(seg), torch.from_numpy(run),
+                                 pairs * npairs, seg_start=True,
+                                 run_start=True, runs_cum=True)
+        ss = rwin._seg_start_positions(np, seg)
+        assert np.array_equal(got.seg_start.numpy(), ss)
+        assert np.array_equal(got.run_start.numpy(),
+                              rwin._seg_start_positions(np, run))
+        assert np.array_equal(got.runs_cum.numpy(),
+                              cumsum_fast(np, run.astype(np.int32)))
+        want_s, want_c = rwin.WindowExec._running(
+            None, np, "sum", np.where(valid, v, 0), valid, seg, ss)
+        for s, c in zip(got.sums, got.counts):
+            assert np.array_equal(s.numpy(), want_s)
+            assert np.array_equal(c.numpy(), want_c)
+
+
 @pytest.mark.parametrize("xp_name", sorted(XPS))
 @pytest.mark.parametrize("kind", FLAG_KINDS)
 def test_k12_ends_match_reference(kind, xp_name):
