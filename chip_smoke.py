@@ -7,7 +7,10 @@ Builds the port's hand-written kernels from csrc/ with nvcc, holds each
 against its plain PyTorch version at the main paths' shapes and at edge
 cases (the join kernels K6, K4, K7 and K5 on 27 join cases and a hot
 key, K7 and K5 on the shapes K5's merge-path tiles must get right; K3 on
-a group-by of 9 columns with 17 sums), then drives the main paths.
+both of its paths, the records and the direct reads, and the planned
+one, also on a group-by of 9 columns with 17 sums, its two paths timed
+in turns at q1's and q1x's shapes and around the plan's crossover), then
+drives the main paths.
 Bench q1, scan -> filter(v > -500000) -> group by k: sum(v), avg(f),
 count(*) -> collect, over 2^25 rows: through the DataFrame API as one
 batch and as 4 partitions, and at exec level as 8 batches of 4,194,304
@@ -39,8 +42,9 @@ API over 1 and 4 partitions, equal to a numpy oracle row for row, with
 its stages (words, K2, K8, boundaries, K11, K12, the results, K13, the
 mask, the download) and a trace; K11 (segmented scan), K12 (peer-run
 ends) and K13 (row scatter) against their plain versions at q4's shapes
-and on edge cases (K11 either side of its 2,048-, 4,096- and 8,192-row
-tiles), K8 at q4's four lanes on both paths, K13 on both of its paths
+and on edge cases (K11 and K12 either side of their 2,048-, 4,096- and
+8,192-row tiles, K12 also with its live rows ending there), K8 at q4's
+four lanes on both paths, K13 on both of its paths
 (single pass and binned by destination) around its buckets, tiles and
 single-pass window; every
 window function over 5 specs at 2^20 rows against the CPU engine.
@@ -118,6 +122,7 @@ HOT_PROBE_ROWS = 1 << 20   # probe rows of that check, 1 % on the hot key
 WIDE_ROWS = 1 << 20        # rows of the wide group-by check
 WIDE_KEYS = 9              # its grouping columns: 18 key words
 WIDE_SUMS = 17             # its sums: 17 K3 ops, two sets of launches
+K3_PATHS = (None, False, True)  # K3's planned path, the direct, the records
 PIN_KEY = "spark.rapids.sql.fileScan.pinDeviceBatches"
 COLLECT_KEY = "spark.rapids.sql.collect.hostAssisted"
 WRITE_KEY = "spark.rapids.sql.write.hostAssisted"
@@ -258,6 +263,43 @@ def _k3_same_bits(torch, a, b):
         for x, y in zip(a[1], b[1]))
 
 
+def _k3_turns(torch, agg_mod, cuda_ms, args, card, what):
+    """K3's planned path and the other one timed in turns (planned,
+    other, other, planned) on ``args``; each must equal the plain version.
+    Returns the kernel line's ``extra``: the paths' times, the plan's
+    device-memory traffic of each path (a read through the order counted
+    as the 32-byte sector it pulls) and its scratch."""
+    k3 = agg_mod.segment_reduce_sorted
+    want = agg_mod.segment_reduce_sorted_plain(*args)
+    k3(*args)
+    plan = k3.last_plan
+    ops = args[6] if len(args) > 6 else [
+        "sum" if v is not None else None for v in args[2]]
+    for packed in (plan.packed, not plan.packed):
+        _k3_minmax_diff(torch, k3(*args, packed=packed), want,
+                        [op or "count" for op in ops],
+                        f"{what}, packed={packed}")
+    turns = [cuda_ms(lambda p=p: k3(*args, packed=p))
+             for p in (plan.packed, not plan.packed) * 2]
+    n = int(args[3][0].shape[0])
+    record = max(s.record_bytes for s in plan.sets)
+    print(f"K3 {what}: planned path {'records' if plan.packed else 'direct'}"
+          f" ({record}-byte records, {plan.rows_per_thread} rows a thread, "
+          f"{len(plan.sets)} set(s)); planned / other in turns "
+          f"{', '.join(f'{x:.3f}' for x in turns)} ms; traffic: records "
+          f"{plan.packed_bytes / max(n, 1):.1f} B a row "
+          f"({plan.packed_bytes / 3.35e9:.3f} ms at 3.35 TB/s), direct "
+          f"{plan.direct_bytes / max(n, 1):.1f} B a row "
+          f"({plan.direct_bytes / 3.35e9:.3f} ms); scratch "
+          f"{plan.scratch_bytes} bytes; {card}")
+    return dict(path="record" if plan.packed else "direct",
+                record_bytes=record, rows_per_thread=plan.rows_per_thread,
+                planned_other_in_turns_ms=turns,
+                record_traffic_bytes=plan.packed_bytes,
+                direct_traffic_bytes=plan.direct_bytes,
+                scratch_bytes=plan.scratch_bytes)
+
+
 def _edge_cases(torch, dev, carry, agg_mod):
     """Each kernel against its plain version on the card at shapes the
     full-size run does not reach: partial and single tiles, no rows,
@@ -317,15 +359,18 @@ def _edge_cases(torch, dev, carry, agg_mod):
                          ([w[idx] for w in words[:2]], live[idx],
                           [None if v is None else v[idx] for v in vals],
                           [c[idx] for c in contribs], global_agg, None)):
-                _k3_diff(torch, agg_mod.segment_reduce_sorted(*args),
-                         agg_mod.segment_reduce_sorted_plain(*args),
-                         f"at n={n}, global={global_agg}")
+                want = agg_mod.segment_reduce_sorted_plain(*args)
+                for packed in K3_PATHS:
+                    _k3_diff(torch, agg_mod.segment_reduce_sorted(
+                        *args, packed=packed), want,
+                        f"at n={n}, global={global_agg}, packed={packed}")
         cases += 1
-    # K3 at tile edges (4096 rows): groups of these sizes in key order,
-    # rows shuffled; one group over rows 4000-8190; one group over 100,003
-    # rows that is not the ungrouped aggregate
+    # K3 at its tile edges (4,096 rows on the direct path; 2,048 on the
+    # record path with these ops' 32-byte records): groups of these sizes
+    # in key order, rows shuffled; one group over rows 4000-8190; one
+    # group over 100,003 rows that is not the ungrouped aggregate
     for sizes in ([4095], [4096], [4097], [8193], [4095, 4096, 4097, 8193, 7],
-                  [4000, 4191, 100], [100_003]):
+                  [4000, 4191, 100], [100_003], [2047, 2049, 2048]):
         n = sum(sizes)
         perm = torch.randperm(n, generator=gen, device=dev)
         key = torch.repeat_interleave(
@@ -338,11 +383,13 @@ def _edge_cases(torch, dev, carry, agg_mod):
                            dtype=torch.float64), None]
         contribs = [rand_bool(n, 0.9) for _ in vals]
         args = (words, None, vals, contribs, False, order)
-        a = agg_mod.segment_reduce_sorted(*args)
-        _k3_diff(torch, a, agg_mod.segment_reduce_sorted_plain(*args),
-                 f"for groups of {sizes} rows")
-        if a[3] != len(sizes):
-            raise AssertionError(f"K3 found {a[3]} groups in {sizes}")
+        want = agg_mod.segment_reduce_sorted_plain(*args)
+        for packed in K3_PATHS:
+            a = agg_mod.segment_reduce_sorted(*args, packed=packed)
+            _k3_diff(torch, a, want,
+                     f"for groups of {sizes} rows, packed={packed}")
+            if a[3] != len(sizes):
+                raise AssertionError(f"K3 found {a[3]} groups in {sizes}")
         cases += 1
     return cases
 
@@ -414,9 +461,10 @@ def _k3_minmax_cases(torch, dev, carry, agg_mod):
         contribs = [torch.rand(n, generator=gen, device=dev) < p
                     for _ in vals]
         args = (words, None, vals, contribs, global_agg, order, ops)
-        _k3_minmax_diff(torch, agg_mod.segment_reduce_sorted(*args),
-                        agg_mod.segment_reduce_sorted_plain(*args), ops,
-                        what)
+        want = agg_mod.segment_reduce_sorted_plain(*args)
+        for packed in K3_PATHS:
+            _k3_minmax_diff(torch, agg_mod.segment_reduce_sorted(
+                *args, packed=packed), want, ops, f"{what}, packed={packed}")
 
     cases = 0
     for n in (0, 1, 31, 4095, 4096, 4097, 8193, 100_003):
@@ -437,23 +485,26 @@ def _k3_minmax_cases(torch, dev, carry, agg_mod):
     contribs = [(key != 1) for _ in vals]
     args = (words, None, vals, contribs, False, carry.sort_order_plain(words),
             ops)
-    got = agg_mod.segment_reduce_sorted(*args)
-    _k3_minmax_diff(torch, got, agg_mod.segment_reduce_sorted_plain(*args),
-                    ops, "with an all-null group")
-    if any(int(c[1]) != 0 for c in got[2]):
-        raise AssertionError("K3 counted rows of the all-null group")
+    for packed in K3_PATHS:
+        got = agg_mod.segment_reduce_sorted(*args, packed=packed)
+        _k3_minmax_diff(torch, got, agg_mod.segment_reduce_sorted_plain(
+            *args), ops, f"with an all-null group, packed={packed}")
+        if any(int(c[1]) != 0 for c in got[2]):
+            raise AssertionError("K3 counted rows of the all-null group")
     empty = [torch.empty(0, dtype=torch.float64, device=dev)]
-    got = agg_mod.segment_reduce_sorted(
-        [], None, empty, [torch.empty(0, dtype=torch.bool, device=dev)],
-        True, None, ["min"])
-    if got[3] != 1 or int(got[2][0][0]) != 0:
-        raise AssertionError("K3's global min over no rows is not one "
-                             "null group")
+    for packed in K3_PATHS:
+        got = agg_mod.segment_reduce_sorted(
+            [], None, empty, [torch.empty(0, dtype=torch.bool, device=dev)],
+            True, None, ["min"], packed=packed)
+        if got[3] != 1 or int(got[2][0][0]) != 0:
+            raise AssertionError("K3's global min over no rows is not one "
+                                 "null group")
     cases += 2
     # one group over every tile of 2^22 rows; groups that end on, before
-    # and after a 4,096-row tile edge
+    # and after a tile edge (4,096 rows on the direct path; 1,024 with
+    # these ops' 64-byte records)
     for sizes in ([1 << 22], [4096, 4096, 1], [4095, 4097, 8192],
-                  [4096 * 3, 5]):
+                  [4096 * 3, 5], [1024, 1023, 1025, 2048]):
         n = sum(sizes)
         perm = torch.randperm(n, generator=gen, device=dev)
         key = torch.repeat_interleave(
@@ -517,12 +568,14 @@ def _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
     sums, contribs, _, _ = agg_mod.k3_ops(vals, ["sum"] * WIDE_SUMS)
     args = (words, None, sums, contribs, False, carry.sort_order(words))
     k3 = agg_mod.segment_reduce_sorted
-    before = k3.launches
-    res = k3(*args)
-    if dev.type == "cuda" and k3.launches <= before:
-        raise AssertionError("K3 did not launch on the wide group-by")
-    _k3_diff(torch, res, agg_mod.segment_reduce_sorted_plain(*args),
-             f"with {WIDE_KEYS} grouping columns and {WIDE_SUMS} sums")
+    want = agg_mod.segment_reduce_sorted_plain(*args)
+    for packed in K3_PATHS:
+        before = k3.launches
+        res = k3(*args, packed=packed)
+        if dev.type == "cuda" and k3.launches <= before:
+            raise AssertionError("K3 did not launch on the wide group-by")
+        _k3_diff(torch, res, want, f"with {WIDE_KEYS} grouping columns and "
+                 f"{WIDE_SUMS} sums, packed={packed}")
     before = k3.launches
     got = (session.create_dataframe(table)
            .group_by(*[col(k) for k in keys])
@@ -554,7 +607,8 @@ def _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
             raise AssertionError(f"wide group-by: s{j} differs")
     print(f"K3 wide group-by: {rows} rows, {WIDE_KEYS} grouping columns "
           f"({len(words)} key words), {WIDE_SUMS} sums, {res[3]} groups: "
-          f"K3 equals its plain version and the session's result equals "
+          f"K3 equals its plain version on both paths (the record path in "
+          f"{len(k3.last_plan.sets)} sets) and the session's result equals "
           f"pyarrow's")
 
 
@@ -1123,6 +1177,41 @@ def _k8_sweep(torch, dev, gather, cuda_ms):
     return out
 
 
+def _k3_sweep(torch, dev, carry, agg_mod, cuda_ms):
+    """K3's direct path and its record path timed in turns (direct,
+    records, direct, records) around the plan's crossover (96 MiB of
+    distinct inputs): a sum of one float lane (q2's and q6's shape) and
+    q1's two lanes and count, grouped by 100,000 keys through K2's order,
+    2^22 to 2^24 rows; each result equals the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    out = []
+    for n in (1 << 22, 6_000_000, 1 << 23, 12_000_000, 1 << 24):
+        key = torch.randint(0, 100_000, (n,), generator=gen, device=dev)
+        words = [torch.zeros(n, dtype=torch.int64, device=dev), key]
+        order = carry.sort_order(words)
+        f = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        v = torch.randint(-10**6, 10**6, (n,), generator=gen, device=dev)
+        masks = [torch.rand(n, generator=gen, device=dev) < 0.95
+                 for _ in range(3)]
+        for what, args in (
+                ("one lane", (words, None, [f], masks[:1], False, order)),
+                ("q1's lanes", (words, None, [v, f, None], masks, False,
+                                order))):
+            want = agg_mod.segment_reduce_sorted_plain(*args)
+            for packed in (False, True):
+                _k3_diff(torch, agg_mod.segment_reduce_sorted(
+                    *args, packed=packed), want, f"sweep {what} n={n}")
+            agg_mod.segment_reduce_sorted(*args)
+            plan = agg_mod.segment_reduce_sorted.last_plan
+            times = [cuda_ms(lambda p=p: agg_mod.segment_reduce_sorted(
+                *args, packed=p)) for p in (False, True, False, True)]
+            inputs = n * (8 * len(plan.sets[0].lanes)
+                          + len(plan.sets[0].masks))
+            out.append((what, n, inputs, plan.packed, times))
+        del key, words, order, f, v, masks, args, want
+    return out
+
+
 FUZZ_SPANS = (0, 2**8 - 1, 2**8, 2**16 - 1, 2**16, 2**32 - 1, 2**32)
 
 
@@ -1483,11 +1572,12 @@ def _window_flags(torch, dev, kind, n, seed):
 def _window_kernel_cases(torch, dev, scan, gather):
     """K11, K12 and K13 against their plain versions on the edge cases:
     n = 1, n on either side of K11's tiles (2,048 rows with three or four
-    pairs, 4,096 with two, 8,192 with one) and of K12's (2,048), one
+    pairs, 4,096 with two, 8,192 with one) and of K12's (8,192), one
     partition over every tile (2^22 rows, and at the tile edges), every
     row tied in one run, every row its own partition (also at the tile
     edges), padding rows at the tail, one to five pairs (more than a K11
-    launch takes).  Returns the cases run."""
+    launch takes); K12 with its rows and its live rows on either side of
+    a tile edge.  Returns the cases run."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     cases = 0
     edges = [n for t in (2048, 4096, 8192) for n in (t - 1, t + 1)]
@@ -1533,6 +1623,23 @@ def _window_kernel_cases(torch, dev, scan, gather):
                 not _same_lanes(torch, gather.gather_rows(order, got), lanes):
             raise AssertionError(f"K13 differs {what}")
         cases += 1
+    # K12 at its 8,192-row tiles (taken from the array's end): the rows
+    # and the live rows on either side of a tile edge
+    for n in (8191, 8192, 8193, 16_384, 16_385, 3 * 8192 + 7):
+        for n_live in sorted({n, n - 1, 8191, 8192, 8193, 16_384} &
+                             set(range(1, n + 1))):
+            seg, run, _ = _window_flags(torch, dev, "random", n, n + n_live)
+            seg[n_live:] = False
+            run[n_live:] = False
+            for flags in ((seg, run), (None, run), (seg, None)):
+                got = scan.run_ends(*flags, n_live)
+                want = scan.run_ends_plain(*flags, n_live)
+                for a, b in zip(got, want):
+                    if (a is None) != (b is None) or (
+                            a is not None and not torch.equal(a, b)):
+                        raise AssertionError(
+                            f"K12 differs at n={n}, n_live={n_live}")
+            cases += 1
     return cases
 
 
@@ -2433,6 +2540,8 @@ def main() -> int:
         out_bytes = groups * (4 + 8 * len(sum_lanes)
                               + 8 * sum(x is not None for x in sum_lanes))
         k3_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted(*k3_args))
+        k3_extra = _k3_turns(torch, agg_mod, cuda_ms, k3_args, card,
+                             "at q1's shapes")
         kernel_rows["segment_reduce_sorted"] = dict(
             source="spark_rapids_tpu_torch/csrc/segment_reduce.cu",
             replaces="spark_rapids_tpu/exec/aggregate.py:50",
@@ -2443,7 +2552,7 @@ def main() -> int:
             library_ms=cuda_ms(lambda: [torch.zeros(
                 groups, dtype=torch.float64, device=dev).index_add_(
                 0, ids, x) for x in float_lanes]),
-            bound_ms=bound(in_bytes + out_bytes))
+            bound_ms=bound(in_bytes + out_bytes), extra=k3_extra)
         print(f"K3 segment_reduce_sorted: rows {n}, groups {groups}, ints "
               f"exact, float max abs err {k3_err:.3g}, {k3_ms:.3f} ms, "
               f"bound {kernel_rows['segment_reduce_sorted']['bound_ms']:.3f}"
@@ -2458,9 +2567,11 @@ def main() -> int:
         hot_words = [words[0], hot_keys]
         hot_args = (hot_words, None, sum_lanes, contribs, False,
                     carry.sort_order(hot_words))
+        hot_plain = agg_mod.segment_reduce_sorted_plain(*hot_args)
+        for packed in K3_PATHS:
+            hot = agg_mod.segment_reduce_sorted(*hot_args, packed=packed)
+            _k3_diff(torch, hot, hot_plain, f"on a hot key, packed={packed}")
         hot = agg_mod.segment_reduce_sorted(*hot_args)
-        _k3_diff(torch, hot, agg_mod.segment_reduce_sorted_plain(*hot_args),
-                 "on a hot key")
         hot_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted(*hot_args))
         hot_plain_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted_plain(
             *hot_args))
@@ -2472,16 +2583,18 @@ def main() -> int:
         if ratio > 2.0:
             raise AssertionError(f"K3 on a hot key takes {ratio:.2f}x its "
                                  "time on uniform keys (at most 2x)")
-        # the same input gives the same bits on every run
-        for what, args, first in (("q1", k3_args, res), ("hot key", hot_args,
-                                                          hot)):
-            for _ in range(2):
-                if not _k3_same_bits(torch, agg_mod.segment_reduce_sorted(
-                        *args), first):
-                    raise AssertionError(f"K3 is not deterministic on "
-                                         f"{what}")
-        print("K3 deterministic: two more runs on q1 and on the hot key "
-              "give the same bits")
+        # the same input gives the same bits on every run, on either path
+        for what, args in (("q1", k3_args), ("hot key", hot_args)):
+            for packed in (False, True):
+                first = agg_mod.segment_reduce_sorted(*args, packed=packed)
+                for _ in range(2):
+                    if not _k3_same_bits(torch, agg_mod.segment_reduce_sorted(
+                            *args, packed=packed), first):
+                        raise AssertionError(f"K3 is not deterministic on "
+                                             f"{what}, packed={packed}")
+        print("K3 deterministic: on q1 and on the hot key, each path gives "
+              "the same bits three runs in a row")
+        del first
         del batch, filtered, outs, outs_p, lanes, keep, vals, ids
         del key_cols, val_cols, hot_args, k3_args, sorted_ids
     except Exception:
@@ -2912,6 +3025,17 @@ def main() -> int:
               f"rows ({sum(1 for x in sizes if x % 8)} not a multiple of 8)")
     except Exception:
         failures.append("K8, K9 and K10 edge cases")
+        traceback.print_exc()
+
+    try:
+        sweep3 = _k3_sweep(torch, dev, carry, agg_mod, cuda_ms)
+        print("K3 direct path / record path (ms, in turns): " + "; ".join(
+            f"{what}, {n} rows, {inputs / 2**20:.0f} MiB of inputs (plan: "
+            f"{'records' if p else 'direct'}) {a:.4f} / {b:.4f}, "
+            f"{c:.4f} / {d:.4f}"
+            for what, n, inputs, p, (a, b, c, d) in sweep3) + f"; {card}")
+    except Exception:
+        failures.append("K3 sweep")
         traceback.print_exc()
 
     try:
@@ -3659,7 +3783,9 @@ def main() -> int:
                         lambda: agg_mod.segment_reduce_sorted_plain(
                             *x_args)),
                     library_ms=cuda_ms(mm_library),
-                    bound_ms=bound(in_bytes + out_bytes))
+                    bound_ms=bound(in_bytes + out_bytes),
+                    extra=_k3_turns(torch, agg_mod, cuda_ms, x_args, card,
+                                    "with min/max at q1x's shapes"))
                 r = kernel_rows["segment_reduce_sorted_minmax"]
                 print(f"K3 with min/max at q1x's shapes: rows {nx}, groups "
                       f"{gx}, {len(opsx)} ops ({', '.join(opsx)}), key "

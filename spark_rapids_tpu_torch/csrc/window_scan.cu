@@ -41,11 +41,16 @@
 // positions): per row, the last row of its partition and of its peer run.
 // Row i ends a run when it is live and the next row starts a run or is
 // the first padding row (rows from n_live on); the answer is the nearest
-// end at or after the row, a min-scan from the right.  Tiles run from the
-// array's end (tile b holds the rows below n - b * kTile), each thread
-// folds kItems rows, and the look-back carries one 64-bit word a tile:
-// the status in the top two bits, the two minima in 31 bits each.  A
-// padding row reads n_live - 1, so no run reaches into the padding.
+// end at or after the row, a min-scan from the right.  Tiles of 8,192
+// rows run from the array's end (tile b holds the rows below n - b *
+// 8,192), each thread folds 32 rows read as two 16-byte loads a flag
+// lane, and the look-back carries one 64-bit word a tile: the status in
+// the top two bits, the two minima in 31 bits each (2^25 rows take 4,096
+// look-back steps).  The int32 outputs go out through a shared-memory
+// stage, a warp writing 512 consecutive bytes an instruction, as K11's
+// do.  The look-back state needs no zeroing launch: the last tile to
+// finish clears it for the next call on the stream.  A padding row reads
+// n_live - 1, so no run reaches into the padding.
 //
 // No thread walks a partition or a run: the work per thread is kItems
 // rows whatever the skew, and a partition spanning many tiles costs one
@@ -55,7 +60,7 @@
 // pair (value and valid), and writes 4 bytes a position output and 12
 // bytes a pair (sum and count); K12 reads 2 flag bytes and writes 8
 // bytes a row; over 3.35 TB/s.  K12's look-back state is 8 bytes a tile
-// of 2,048 rows.
+// of 8,192 rows.
 
 #include <cuda_runtime.h>
 
@@ -65,8 +70,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;              // K12 rows a thread
-constexpr int kTile = kThreads * kItems;
+constexpr int kEndsItems = 32;         // K12 rows a thread
+constexpr int kEndsTile = kThreads * kEndsItems;
 constexpr int kMaxPairs = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -237,20 +242,6 @@ __device__ __forceinline__ unsigned load_bits(const unsigned char* lane,
     for (int k = 0; k < rows; ++k) bits |= (lane[first + k] ? 1u : 0u) << k;
   }
   return bits;
-}
-
-// int32 lane: kItems values from first, two 16-byte stores when full (K12).
-__device__ __forceinline__ void store_ints(int* lane, long long first,
-                                           int rows, const int* v) {
-  if (rows == kItems) {
-    int4* dst = reinterpret_cast<int4*>(lane + first);
-    dst[0] = make_int4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_int4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kItems; ++k)   // constant indices keep v in registers
-      if (k < rows) lane[first + k] = v[k];
-  }
 }
 
 constexpr int kNone = 0, kAggregate = 1, kPrefix = 2;
@@ -561,42 +552,55 @@ __device__ __forceinline__ unsigned long long pack(unsigned long long status,
          (static_cast<unsigned long long>(run) & kMask31);
 }
 
-// state: a tile counter (word 0), then one word a tile, all zero on entry.
+// K12's output stage: 32 ints a thread and one of padding after each
+// thread's run, as K11's one-pair stage.
+struct EndsShape {
+  static constexpr int kItems = kEndsItems;
+  static __device__ __forceinline__ int at(int e) { return e + e / kItems; }
+};
+
+// state: the tile counter (word 0), the count of finished tiles (word 1),
+// then one status word a tile; all zero on entry, and zero again when the
+// last tile has finished (it clears them), so the next call on the stream
+// needs no zeroing.
 __global__ void __launch_bounds__(kThreads)
 run_ends_kernel(const unsigned char* __restrict__ new_seg,
                 const unsigned char* __restrict__ new_run, int n,
                 int n_live, int* __restrict__ seg_end,
                 int* __restrict__ run_end, unsigned long long* state) {
+  __shared__ int s_stage[kEndsTile + kThreads];
   __shared__ int s_seg[kWarps], s_run[kWarps];
   __shared__ int s_after_seg, s_after_run;
-  __shared__ int s_tile;
+  __shared__ int s_tile, s_last;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   if (tid == 0) s_tile = static_cast<int>(atomicAdd(state, 1ull));
   __syncthreads();
   const int tile = s_tile;
-  volatile unsigned long long* status = state + 1;
-  // tile 0 is the array's last tile of kTile rows, so a thread's rows
-  // start 8-aligned
-  const long long first = (long long)(gridDim.x - 1 - tile) * kTile +
-                          (long long)tid * kItems;
+  volatile unsigned long long* status = state + 2;
+  // tile 0 is the array's last tile of kEndsTile rows, so a thread's rows
+  // start 32-aligned
+  const long long tile_first = (long long)(gridDim.x - 1 - tile) * kEndsTile;
+  const int tile_rows = static_cast<int>(
+      n - tile_first < kEndsTile ? n - tile_first : (long long)kEndsTile);
+  const long long first = tile_first + (long long)tid * kEndsItems;
   const int rows = static_cast<int>(
-      n - first >= kItems ? kItems : (n > first ? n - first : 0));
+      n - first >= kEndsItems ? kEndsItems : (n > first ? n - first : 0));
 
   // the ends among this thread's rows (bit k: row first + k ends its
   // partition or run), and the nearest one
   unsigned live_bits = 0, last_bit = 0;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
+  for (int k = 0; k < kEndsItems; ++k) {
     if (first + k < n_live) live_bits |= 1u << k;
     if (first + k + 1 == n_live) last_bit = 1u << k;
   }
   auto ends = [&](const unsigned char* flags) -> unsigned {
     if (!flags || !rows) return 0u;
-    unsigned next = load_bits<kItems>(flags, first, rows) >> 1;
-    if (rows == kItems && first + kItems < n && flags[first + kItems])
-      next |= 1u << (kItems - 1);
+    unsigned next = load_bits<kEndsItems>(flags, first, rows) >> 1;
+    if (rows == kEndsItems && first + kEndsItems < n && flags[first + kEndsItems])
+      next |= 1u << (kEndsItems - 1);
     return (next | last_bit) & live_bits;
   };
   const unsigned seg_bits = ends(new_seg);
@@ -670,28 +674,39 @@ run_ends_kernel(const unsigned char* __restrict__ new_seg,
     if (lane == 0) {
       s_after_seg = bseg;
       s_after_run = brun;
+      // this tile reads no status word any more
+      s_last = atomicAdd(state + 1, 1ull) == gridDim.x - 1;
     }
   }
   __syncthreads();
 
-  if (!rows) return;
-  int cseg = min(s_after_seg, after_seg);
-  int crun = min(s_after_run, after_run);
+  // each output: the thread's rows into the stage from the right, then
+  // the stage out, a warp writing 512 consecutive bytes an instruction
   const int cap = n_live - 1;
-  int seg_out[kItems], run_out[kItems];
+  auto put = [&](int* dst, unsigned bits, int c) {
 #pragma unroll
-  for (int k = kItems - 1; k >= 0; --k) {
-    if ((seg_bits >> k) & 1u) cseg = static_cast<int>(first) + k;
-    if ((run_bits >> k) & 1u) crun = static_cast<int>(first) + k;
-    seg_out[k] = max(min(cseg, cap), 0);
-    run_out[k] = max(min(crun, cap), 0);
+    for (int k = kEndsItems - 1; k >= 0; --k) {
+      if ((bits >> k) & 1u) c = static_cast<int>(first) + k;
+      s_stage[EndsShape::at(tid * kEndsItems + k)] = max(min(c, cap), 0);
+    }
+    __syncthreads();
+    stage_out<EndsShape>(dst, tile_first, tile_rows, s_stage);
+    __syncthreads();
+  };
+  if (seg_end) put(seg_end, seg_bits, min(s_after_seg, after_seg));
+  if (run_end) put(run_end, run_bits, min(s_after_run, after_run));
+  if (s_last) {
+    // every tile has finished its look-back: clear the state
+    for (int t = tid; t < gridDim.x; t += kThreads) status[t] = 0ull;
+    if (tid == 0) {
+      state[0] = 0ull;
+      state[1] = 0ull;
+    }
   }
-  if (seg_end) store_ints(seg_end, first, rows, seg_out);
-  if (run_end) store_ints(run_end, first, rows, run_out);
 }
 
 int tiles_of(int n) {
-  return static_cast<int>(((long long)n + kTile - 1) / kTile);
+  return static_cast<int>(((long long)n + kEndsTile - 1) / kEndsTile);
 }
 
 // scratch layout: the tile counter (16 B), a status word a tile, then
@@ -797,8 +812,9 @@ extern "C" int srt_segment_scan(const unsigned char* new_seg,
 }
 
 // new_seg, new_run: bool[n] or null; seg_end, run_end: int32[n] out, null
-// where its flags are; state: 1 + tiles zeroed words; 0 <= n_live <= n,
-// n >= 1.
+// where its flags are; state: 2 + tiles words, zero on entry (as a call
+// on the same stream leaves them); 0 <= n_live <= n, n >= 1.  Every lane
+// is 16-byte aligned.
 extern "C" int srt_run_ends(const unsigned char* new_seg,
                             const unsigned char* new_run, int n, int n_live,
                             int* seg_end, int* run_end,
@@ -808,7 +824,8 @@ extern "C" int srt_run_ends(const unsigned char* new_seg,
       (seg_end != nullptr && new_seg == nullptr) ||
       (run_end != nullptr && new_run == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned(new_seg, 8) || !aligned(new_run, 8) || !aligned(seg_end, 16) ||
+  if (!aligned(new_seg, 16) || !aligned(new_run, 16) ||
+      !aligned(seg_end, 16) ||
       !aligned(run_end, 16))
     return static_cast<int>(cudaErrorMisalignedAddress);
   run_ends_kernel<<<tiles_of(n), kThreads, 0, stream>>>(
@@ -820,4 +837,4 @@ extern "C" const char* srt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" int srt_tile_rows() { return kTile; }
+extern "C" int srt_tile_rows() { return kEndsTile; }

@@ -18,8 +18,9 @@ group_by over the host-evaluated keys and inputs.
 
 from __future__ import annotations
 
+import functools
 import itertools
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import pyarrow as pa
 import pyarrow.compute as pc
@@ -151,13 +152,218 @@ def _lanes(words, live, values, contribs) -> List[torch.Tensor]:
     return lanes
 
 
+_K3_OPS_PER_SET = 16           # kOpsPerLaunch in csrc/segment_reduce.cu
+_K3_RECORD_SIZES = (16, 32, 64, 128)
+_K3_STAGE_BYTES = 65536        # a record tile: 256 threads x K rows x R
+_K3_DIRECT_ROWS = 8            # rows a thread on the direct path
+_K3_THREADS = 256
+_K3_ACC_BYTES = 32             # one per-tile partial
+_K3_SECTOR = 32                # what a read through the order moves
+_K3_RECORD_KEYS = 7            # more varying words are read through the order
+# An order of at most this many increasing runs of input rows (K2's
+# stable order over at most this many groups) keeps the direct path:
+# its reads then stream, and the records would add the pack and lose
+# (chip_smoke.py's q1x row times both paths).
+_K3_FEW_RUNS = 64
+# K3 keeps the direct path while its distinct inputs are at most this
+# many bytes: their reads through the order then mostly hit the 50 MB L2
+# cache.  chip_smoke.py's _k3_sweep times both paths on either side.
+_K3_DIRECT_BYTES = 96 << 20
+
+
+class K3Set(NamedTuple):
+    """One launch set of K3: its ops (indices into the call's ops), its
+    distinct value lanes and contributor masks (each named by the first
+    op that reads it), each op's lane (-1 for a count) and mask index
+    (also its bit in a record's mask word), and on the record path the
+    record's bytes and the byte offsets of the lanes, of the varying key
+    words (first set only) and of the mask word."""
+    ops: List[int]
+    lanes: List[int]
+    masks: List[int]
+    op_lane: List[int]
+    op_mask: List[int]
+    record_bytes: int
+    lane_offsets: List[int]
+    key_offsets: List[int]
+    mask_offset: int
+
+
+class K3Plan(NamedTuple):
+    """How K3 folds a call: on the record path (``packed``) or the direct
+    one, with K rows a thread, in these sets; the device-memory bytes each
+    path moves (a read through the order counted as the 32-byte sector
+    it pulls) and the scratch bytes of the chosen one."""
+    packed: bool
+    rows_per_thread: int
+    sets: List[K3Set]
+    direct_bytes: int
+    packed_bytes: int
+    scratch_bytes: int
+
+
+def _k3_set(ops, values, masks, nkeys, packed) -> Optional[K3Set]:
+    """The set of ``ops``; None on the record path when its record would
+    exceed 128 bytes.  A record holds the distinct value lanes (8 bytes
+    each), then the ``nkeys`` key words it carries (8 each), then the
+    mask word."""
+    lane_keys, lanes, mask_keys, mks, op_lane, op_mask = [], [], [], [], [], []
+    for k in ops:
+        if values[k] is None:
+            op_lane.append(-1)
+        else:
+            if values[k] not in lane_keys:
+                lane_keys.append(values[k])
+                lanes.append(k)
+            op_lane.append(lane_keys.index(values[k]))
+        if masks[k] not in mask_keys:
+            mask_keys.append(masks[k])
+            mks.append(k)
+        op_mask.append(mask_keys.index(masks[k]))
+    if not packed:
+        return K3Set(list(ops), lanes, mks, op_lane, op_mask, 0, [], [], 0)
+    need = 8 * (len(lanes) + nkeys) + 4
+    size = next((r for r in _K3_RECORD_SIZES if r >= need), 0)
+    if not size:
+        return None
+    return K3Set(list(ops), lanes, mks, op_lane, op_mask, size,
+                 [8 * i for i in range(len(lanes))],
+                 [8 * (len(lanes) + i) for i in range(nkeys)],
+                 8 * (len(lanes) + nkeys))
+
+
+def _k3_sets(values, masks, nkeys, packed) -> List[K3Set]:
+    """The ops in order, cut into sets of at most 16; on the record path
+    also where the next op's lane would not fit the set's record.  The
+    first set's record carries the varying key words where there are at
+    most ``_K3_RECORD_KEYS`` (else the fold reads them through the
+    order), so one lane always fits."""
+    sets, cur = [], []
+    rec_keys = nkeys if packed and nkeys <= _K3_RECORD_KEYS else 0
+    for k in range(len(values)):
+        keys = 0 if sets else rec_keys
+        if cur and (len(cur) == _K3_OPS_PER_SET or _k3_set(
+                cur + [k], values, masks, keys, packed) is None):
+            sets.append(_k3_set(cur, values, masks, keys, packed))
+            cur = []
+        cur.append(k)
+    return sets + [_k3_set(cur, values, masks, 0 if sets else rec_keys,
+                           packed)]
+
+
+def _k3_bytes(n, sets, nkeys, live, ordered) -> int:
+    """Device-memory bytes of K3's sets over n rows (the varying pass,
+    the same on both paths, left out).  Record path: the pack reads the
+    inputs and writes the records, the fold reads the order and one
+    record a row, and the key words no record carries one sector a row
+    each.  Direct path: the order and one sector a row for each input,
+    or the inputs alone for rows already in key order."""
+    total = 0
+    for i, s in enumerate(sets):
+        keys, lv = (nkeys, int(live)) if i == 0 else (0, 0)
+        inputs = 8 * (len(s.lanes) + keys) + len(s.masks) + lv
+        if s.record_bytes:
+            far = keys - len(s.key_offsets)
+            total += n * (inputs - 8 * far + s.record_bytes + 4
+                          + max(s.record_bytes, _K3_SECTOR)
+                          + _K3_SECTOR * far)
+        elif ordered:
+            total += n * (4 + _K3_SECTOR * (len(s.lanes) + len(s.masks)
+                                            + keys + lv))
+        else:
+            total += n * inputs
+    return total
+
+
+def _up16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def k3_scratch_bytes(n: int, rows_per_thread: int, ops_per_set: int,
+                     record_max: int) -> int:
+    """K3's scratch (``layout`` in ``csrc/segment_reduce.cu``, which
+    refuses less): the look-back state, the start bits, the tiles' start
+    counts and slots, the head and tail partials of the widest set, and
+    the records, each region rounded up to 16 bytes."""
+    tiles = -(-n // (_K3_THREADS * rows_per_thread))
+    ops = max(ops_per_set, 1)
+    return sum(_up16(b) for b in (
+        (1 + tiles) * 8, tiles * _K3_THREADS * 2, tiles * 4, tiles * 4,
+        tiles * ops * _K3_ACC_BYTES, tiles * ops * _K3_ACC_BYTES,
+        n * record_max))
+
+
+def k3_may_pack(n: int, values: Sequence, masks: Sequence,
+                ordered: bool) -> bool:
+    """Whether K3's record path can pay before the key words are known:
+    the rows come through an order, some op reads a value lane, and the
+    distinct inputs outgrow ``_K3_DIRECT_BYTES``."""
+    lanes = {v for v in values if v is not None}
+    return (ordered and bool(lanes)
+            and n * (8 * len(lanes) + len(set(masks))) > _K3_DIRECT_BYTES)
+
+
+def k3_plan(n: int, values: Sequence, masks: Sequence, nkeys: int,
+            ordered: bool, live: bool = False,
+            packed: Optional[bool] = None,
+            runs: Optional[int] = None) -> K3Plan:
+    """See ``_k3_plan``: the inputs reduced to which op first reads each,
+    so that calls of one shape share a plan."""
+    def first(keys):
+        seen = {}
+        return tuple(-1 if x is None else seen.setdefault(x, k)
+                     for k, x in enumerate(keys))
+    return _k3_plan(n, first(values), first(masks), nkeys, ordered, live,
+                    packed, runs is not None and runs <= _K3_FEW_RUNS)
+
+
+@functools.lru_cache(maxsize=256)
+def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
+             nkeys: int, ordered: bool, live: bool,
+             packed: Optional[bool], few_runs: bool) -> K3Plan:
+    """K3's plan for n rows and one op per entry of ``values`` (each op's
+    value lane by its storage, any hashable, or None for a count) and
+    ``masks`` (its contributor mask's storage), ``nkeys`` key words that
+    vary, rows read through an order (``ordered``) of at most
+    ``_K3_FEW_RUNS`` increasing runs (``few_runs``) and live flags
+    (``live``).  The record path where ``k3_may_pack`` holds, the order
+    has more runs, and it moves fewer bytes than the direct path;
+    ``packed`` forces a path.  A record tile is 64 KB: K = 65,536 / (256
+    R) rows a thread for the widest record R of the call; the direct
+    path takes 8."""
+    values = [None if v < 0 else v for v in values]
+    direct = _k3_sets(values, masks, nkeys, False)
+    recs = _k3_sets(values, masks, nkeys, True)
+    direct_bytes = _k3_bytes(n, direct, nkeys, live, ordered)
+    packed_bytes = _k3_bytes(n, recs, nkeys, live, ordered)
+    if packed is None:
+        use = (k3_may_pack(n, values, masks, ordered) and not few_runs
+               and packed_bytes < direct_bytes)
+    else:
+        use = packed
+    sets = recs if use else direct
+    rmax = max(s.record_bytes for s in sets)
+    rows = (min(_K3_STAGE_BYTES // (_K3_THREADS * rmax), 16) if use
+            else _K3_DIRECT_ROWS)
+    return K3Plan(use, rows, sets, direct_bytes, packed_bytes,
+                  k3_scratch_bytes(n, rows, max(len(s.ops) for s in sets),
+                                   rmax))
+
+
+def _storage(x: torch.Tensor):
+    """An input's identity for K3: ops over the same storage and type
+    read it once."""
+    return (x.data_ptr(), x.dtype)
+
+
 def segment_reduce_sorted(words: Sequence[torch.Tensor],
                           live: Optional[torch.Tensor],
                           values: Sequence[Optional[torch.Tensor]],
                           contribs: Sequence[torch.Tensor],
                           global_agg: bool,
                           order: Optional[torch.Tensor] = None,
-                          ops: Optional[Sequence[str]] = None):
+                          ops: Optional[Sequence[str]] = None,
+                          packed: Optional[bool] = None):
     """Reduce rows per group, reading them in key order (K3).
 
     Every lane is in input order; ``order`` (int32, K2's permutation)
@@ -176,7 +382,9 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     contribute, else +-inf if one does; a min or max is the value, bit
     for bit, of the group's earliest sorted row whose ordered word
     (``ops/segmented.py:ordered_word``) is the extreme; a result with no
-    contributor is 0."""
+    contributor is 0.  ``packed`` forces K3's path (default:
+    ``k3_plan``); the plain version runs for CPU tensors whatever it
+    says."""
     names = _op_names(values, ops)
     lanes = _lanes(words, live, values, contribs)
     if order is not None:
@@ -201,6 +409,7 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                               or order.shape != (n,)):
         raise TypeError(f"segment_reduce_sorted: order must be int32[{n}]")
     dev = lanes[0].device
+    st = kernels.stream(lanes[0])
     m = max(n, 1)
     lib = kernels.library("segment_reduce")
     kinds = [_KIND_COUNT if op == "count" else
@@ -208,32 +417,65 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
              if op in ("min", "max") else
              _KIND_SUM_FLOAT if v.dtype == torch.float64 else _KIND_SUM_INT
              for v, op in zip(values, names)]
+    value_keys = [None if v is None else _storage(v) for v in values]
+    mask_keys = [_storage(c) for c in contribs]
+    word_ptrs = kernels.device_int64s([w.data_ptr() for w in words], dev)
+    # the varying key words, then the order's descents (up to 64)
+    varying = torch.empty(len(words) + 1, dtype=torch.int32, device=dev)
+    if not global_agg:
+        kernels.check(lib, lib.srt_segment_reduce_varying(
+            word_ptrs.data_ptr(), len(words),
+            None if order is None else order.data_ptr(), n,
+            varying.data_ptr(), st), "segment_reduce_sorted")
     sums = [None if v is None else torch.empty(m, dtype=v.dtype, device=dev)
             for v in values]
     counts = [torch.empty(m, dtype=torch.int64, device=dev) for _ in values]
     first_row = torch.empty(m, dtype=torch.int32, device=dev)
     groups = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(
-        max(lib.srt_segment_reduce_scratch_bytes(n, len(words),
-                                                 len(values)) // 8, 1),
-        dtype=torch.int64, device=dev)
-    word_ptrs = kernels.device_int64s([w.data_ptr() for w in words], dev)
-    kernels.check(lib, lib.srt_segment_reduce(
-        word_ptrs.data_ptr(), len(words),
-        None if live is None else live.data_ptr(),
-        None if order is None else order.data_ptr(), n, int(global_agg),
-        len(values), kernels.pointers(values), kernels.pointers(contribs),
-        kernels.ints(kinds), kernels.pointers(sums),
-        kernels.pointers(counts), first_row.data_ptr(), groups.data_ptr(),
-        scratch.data_ptr(), kernels.stream(lanes[0])),
-        "segment_reduce_sorted")
+    keys = []       # the varying words, which a record may carry
+    runs = None     # the order's increasing runs, where few
+    look = packed if packed is not None else k3_may_pack(
+        n, value_keys, mask_keys, order is not None)
+    if look and not global_agg and n:
+        flags = varying.tolist()
+        keys = [w for w, f in zip(words, flags) if f]
+        if order is not None:
+            runs = flags[-1] + 1
+    plan = k3_plan(n, value_keys, mask_keys, len(keys), order is not None,
+                   live is not None, packed, runs)
+    scratch = torch.empty(max(plan.scratch_bytes // 8, 2),
+                          dtype=torch.int64, device=dev)
+    ops_per_set = max(len(s.ops) for s in plan.sets)
+    record_max = max(s.record_bytes for s in plan.sets)
+    for i, s in enumerate(plan.sets):
+        rec_keys = keys if i == 0 and s.key_offsets else []
+        kernels.check(lib, lib.srt_segment_reduce_set(
+            word_ptrs.data_ptr(), len(words), varying.data_ptr(),
+            len(rec_keys), kernels.pointers(rec_keys),
+            kernels.ints(s.key_offsets),
+            None if live is None else live.data_ptr(),
+            None if order is None else order.data_ptr(), n,
+            int(global_agg), int(i == 0), len(s.ops),
+            kernels.ints(kinds[k] for k in s.ops), kernels.ints(s.op_lane),
+            kernels.ints(s.op_mask),
+            kernels.pointers([sums[k] for k in s.ops]),
+            kernels.pointers([counts[k] for k in s.ops]),
+            len(s.lanes), kernels.pointers([values[k] for k in s.lanes]),
+            kernels.ints(s.lane_offsets), len(s.masks),
+            kernels.pointers([contribs[k] for k in s.masks]),
+            s.mask_offset, s.record_bytes, plan.rows_per_thread,
+            ops_per_set, record_max, first_row.data_ptr(),
+            groups.data_ptr(), scratch.data_ptr(), plan.scratch_bytes, st),
+            "segment_reduce_sorted")
     segment_reduce_sorted.launches += 1
+    segment_reduce_sorted.last_plan = plan
     g = int(groups.item())
     return (first_row[:g], [None if s is None else s[:g] for s in sums],
             [c[:g] for c in counts], g)
 
 
 segment_reduce_sorted.launches = 0
+segment_reduce_sorted.last_plan = None     # the plan of the last launch
 
 
 # ---------------------------------------------------------------------------

@@ -46,9 +46,11 @@ _SIGNATURES = {
         "srt_sort_pass": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],
     },
     "segment_reduce": {
-        "srt_segment_reduce": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P],
-        "srt_segment_reduce_scratch_bytes": [_I, _I, _I],
+        "srt_segment_reduce_varying": [_P, _I, _P, _I, _P, _P],
+        "srt_segment_reduce_set": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                                   _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                                   _L, _P],
     },
     "key_hash": {
         "srt_key_hash": [_P, _I, _I, _I, _I, _P, _P],

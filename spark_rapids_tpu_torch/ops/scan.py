@@ -30,7 +30,7 @@ in its ``launches`` attribute.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -236,6 +236,25 @@ def run_ends_plain(new_seg: Optional[torch.Tensor],
             None if new_run is None else _ends_plain(new_run, n_live))
 
 
+# K12's look-back state per (device, stream): zero between calls, since
+# the last tile of each call clears what the call wrote.
+_ENDS_STATE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ends_state(dev: torch.device, stream: int, words: int) -> torch.Tensor:
+    """K12's look-back state of at least ``words`` int64 words, zero on
+    entry: zeroed once when it is made or grown, then kept clear by the
+    kernel itself."""
+    key = (dev, stream)
+    state = _ENDS_STATE.get(key)
+    if state is None or state.shape[0] < words:
+        state = torch.zeros(max(words, 2 * (0 if state is None
+                                            else state.shape[0])),
+                            dtype=torch.int64, device=dev)
+        _ENDS_STATE[key] = state
+    return state
+
+
 def run_ends(new_seg: Optional[torch.Tensor],
              new_run: Optional[torch.Tensor], n_live: int
              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -267,8 +286,8 @@ def run_ends(new_seg: Optional[torch.Tensor],
     if n == 0:
         return seg_end, run_end
     lib = kernels.library("window_scan")
-    state = torch.zeros(1 + kernels.num_tiles(lib, n), dtype=torch.int64,
-                        device=dev)
+    state = _ends_state(dev, kernels.stream(given[0]),
+                        2 + kernels.num_tiles(lib, n))
     kernels.check(lib, lib.srt_run_ends(
         None if new_seg is None else new_seg.data_ptr(),
         None if new_run is None else new_run.data_ptr(), n, n_live,

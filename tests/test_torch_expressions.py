@@ -603,3 +603,21 @@ def test_string_names_are_columns_in_functions():
         PF.sum("v").alias("s"), PF.min("v").alias("m")).sort("k").collect()
     assert got["s"].to_pylist() == [3, 3]
     assert got["m"].to_pylist() == [1, 3]
+
+
+def test_round_int_at_negative_scale_on_int32_min(sessions):
+    """F.round of an INT column at scale -2 on -2^31: the port returns
+    Spark's HALF_UP answer, -2147483600, as an INT.  The reference's
+    integral branch gives -2147483700, which does not fit an INT, so its
+    collect raises ArrowInvalid (recorded in ROADMAP.md Queue 3)."""
+    table = pa.table({"i": pa.array([INT32_MIN, 149, -150, 2**31 - 1],
+                                    type=pa.int32())})
+    ref, port = sessions
+    got = port.create_dataframe(table).select(
+        PF.round(pcol("i"), -2).alias("r")).collect()
+    assert got.schema.field("r").type == pa.int32()
+    assert got["r"].to_pylist() == [-2147483600, 100, -200, 2147483600]
+    assert on_gpu(port)
+    with pytest.raises(pa.ArrowInvalid):
+        ref.create_dataframe(table).select(
+            RF.round(rcol("i"), -2).alias("r")).collect()

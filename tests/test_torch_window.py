@@ -624,6 +624,27 @@ def test_k12_ends_match_reference(kind, xp_name):
             assert (got[n_live:] == n_live - 1).all()
 
 
+@pytest.mark.parametrize("n,n_live", [
+    (8191, 8191), (8192, 8192), (8193, 8193),
+    (8193, 8192), (8193, 8191), (8200, 8193),
+    (16385, 8192), (16385, 8193), (16385, 16384)])
+def test_k12_ends_at_its_tile_edges(n, n_live):
+    """K12 (tiles of 8,192 rows, taken from the array's end)
+    around its tile edges and with the live rows ending on either side
+    of them, against _run_end_positions over the live rows; padding rows
+    read the last live row."""
+    rng = np.random.default_rng(n + n_live)
+    seg = rng.random(n) < 0.001
+    run = seg | (rng.random(n) < 0.2)
+    seg_end, run_end = pscan.run_ends(torch.from_numpy(seg),
+                                      torch.from_numpy(run), n_live)
+    for got, flags in ((seg_end, seg), (run_end, run)):
+        want = np.asarray(rwin._run_end_positions(np, flags[:n_live]))
+        got = got.numpy()
+        assert np.array_equal(got[:n_live], want)
+        assert (got[n_live:] == n_live - 1).all()
+
+
 def test_k12_edges():
     one = torch.tensor([True])
     assert pscan.run_ends(one, one, 1)[0].tolist() == [0]
@@ -867,3 +888,31 @@ def test_cost_optimizer_places_the_window_like_reference(inflated):
     assert shape(port) == shape(ref)
     assert _explain_lines(port) == _explain_lines(ref)
     assert (("WindowExec", CPU) in shape(port)) == inflated
+
+
+def test_nan_order_value_gets_an_empty_bounded_range_frame():
+    """A row whose DOUBLE order key is NaN, under a bounded RANGE frame:
+    both packages give it a null sum and a count of 0, since the bounds
+    NaN - 1 and NaN + 1 compare false with every key.  Under Spark's
+    ordering, where NaN equals NaN, its frame would hold its NaN peers
+    (recorded in ROADMAP.md Queue 3)."""
+    table = pa.table({
+        "k": pa.array([1, 1, 1, 1, 2], type=pa.int64()),
+        "d": pa.array([0.5, 1.0, float("nan"), float("nan"), 3.0]),
+        "v": pa.array([1, 2, 4, 8, 16], type=pa.int64())})
+
+    def query(df, F, col, W):
+        w = W.WindowBuilder().partition_by(col("k")).order_by(
+            col("d")).range_between(-1, 1)
+        return df.select(col("k"), col("d"), col("v"),
+                         F.sum(col("v")).over(w).alias("s"),
+                         F.count(col("v")).over(w).alias("c"))
+    ref, port = sessions()
+    got = query(port.create_dataframe(table), *PORT).collect()
+    want = query(ref.create_dataframe(table), *REF).collect()
+    assert "!" not in port.last_explain
+    for t in (got, want):
+        rows = sorted(zip(t["v"].to_pylist(), t["s"].to_pylist(),
+                          t["c"].to_pylist()))
+        assert rows == [(1, 3, 2), (2, 3, 2), (4, None, 0), (8, None, 0),
+                        (16, 16, 1)]
