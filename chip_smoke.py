@@ -88,6 +88,22 @@ each kernel call of those runs against its plain version, and at 2^20
 rows the comparisons and IN on s and rf, c IS NULL, F.hash(s, k), a
 window by s, MIN/MAX of c by rf and a parquet write of (s, c, v)
 against the CPU engine or pyarrow.
+The DataFrame surface (PR 17), each run cold and warm (median of 3),
+equal to numpy or pyarrow: range(0, 2^25) grouped by id % 100000 over
+1 and 4 partitions (a closed-form oracle) and a negative-step range
+ending mid-batch; fact.filter(v > 0).union(fact.filter(v <= 0))
+grouped by k (q1 without its filter) and its limit(150); distinct of
+k over 1 and 4 partitions, of (k, v % 7) and of the string table's
+(rf, ls, s), with every K3 call of an empty op set held against its
+plain version; sample(0.1, seed=7) over 1 and 4 partitions (a numpy
+copy of the mixer, bit for bit), sample(1.0) and sample(0.0);
+repartition(8, k) then q1, and repartition(8).count(); the cache of
+fact.filter(v > -500000) under q1 three times (materialize, split into
+the K9/K10 fetch and the parquet encode; the cached scan, split into
+decode and upload; after unpersist), a limit(5) run that must not
+materialize it, and the whole string table's (s, c, v), 2^25 rows, through
+the cache; count(), dtypes, to_pandas() and GroupedData's sum, count,
+min, max and avg on q1's shape.
 Launch counts are reset just before each main-path run and must be > 0
 after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
@@ -2324,6 +2340,82 @@ def _check_string_captured(torch, cap, sops, hashfns, what):
     return seen
 
 
+SAMPLE_FRACTION = 0.1      # the surface phase's sample(0.1, seed=7)
+SAMPLE_SEED = 7
+RANGE_MOD = 100_000        # range's k = id % 100000, bench's key count
+
+
+def _range_oracle(n, mod):
+    """k, sum(v) and count of range(0, n) grouped by k = id % mod with
+    v = 3 id - 2^24, in closed form: group k holds ids k + j mod."""
+    k = np.arange(mod, dtype=np.int64)
+    c = (n - k + mod - 1) // mod
+    ids = c * k + mod * c * (c - 1) // 2
+    return k, 3 * ids - (1 << 24) * c, c
+
+
+def _check_grouped(got, want, what):
+    """``got`` sorted by its first column equals the numpy columns
+    ``want`` (in key order) exactly."""
+    got = got.sort_by(got.column_names[0])
+    if got.num_rows != len(want[0]):
+        raise AssertionError(f"{what}: {got.num_rows} groups, oracle "
+                             f"{len(want[0])}")
+    for name, w in zip(got.column_names, want):
+        if not np.array_equal(got[name].to_numpy(), w):
+            raise AssertionError(f"{what}: column {name} differs")
+
+
+def _keep_mask_np(n, row_offset, pid, seed, fraction):
+    """The sample's keep decisions in numpy uint32: the reference's
+    SampleExec._keep_mask, copied."""
+    idx = np.arange(n, dtype=np.uint32) + np.uint32(row_offset)
+    h = idx ^ np.uint32((seed * 0x9E3779B9 + pid * 0x85EBCA6B) & 0xFFFFFFFF)
+    h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+    h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+    h = h ^ (h >> np.uint32(16))
+    return (h & np.uint32(0xFFFFFF)).astype(np.float64) / float(1 << 24) \
+        < fraction
+
+
+def _sample_oracle(table, parts):
+    """k, sum(v), count of the sampled rows: a LocalScanExec partition
+    p holds rows [p per, (p + 1) per), one batch, row offset 0."""
+    n = table.num_rows
+    per = -(-n // parts)
+    keep = np.concatenate([
+        _keep_mask_np(min(per, n - p * per), 0, p, SAMPLE_SEED,
+                      SAMPLE_FRACTION) for p in range(parts)])
+    kept = table.filter(pa.array(keep))
+    g = kept.group_by("k").aggregate([("v", "sum"), ("k", "count")]) \
+        .sort_by("k")
+    return (g["k"].to_numpy(), g["v_sum"].to_numpy(),
+            g["k_count"].to_numpy()), int(keep.sum())
+
+
+def _bincount_keys(codes, size):
+    """The distinct values of ``codes`` in [0, size), ascending."""
+    return np.flatnonzero(np.bincount(codes, minlength=size))
+
+
+def _k3_no_op_check(torch, cap, agg_mod, what):
+    """Every captured K3 call with an empty op set, again through the
+    kernel and its plain version: the same group count and first rows."""
+    calls = 0
+    for _, args in cap.calls:
+        if args[2]:
+            continue
+        got = cap.orig["segment_reduce_sorted"](*args)
+        want = agg_mod.segment_reduce_sorted_plain(*args)
+        if got[3] != want[3] or not torch.equal(got[0], want[0]):
+            raise AssertionError(f"K3 with no op differs from its plain "
+                                 f"version at {what}")
+        calls += 1
+    if not calls:
+        raise AssertionError(f"{what} made no K3 call with no op")
+    return calls
+
+
 def main() -> int:
     try:
         import torch
@@ -2417,6 +2509,7 @@ def main() -> int:
 
     table, dim = _make_tables(ROWS)
     want = _oracle(table)
+    q1_want = want      # later phases reuse the name want
     t1 = time.perf_counter()
     joined = table.join(dim, "k", join_type="inner")
     q2_want = joined.group_by("k").aggregate([("w", "sum")]).sort_by("k")
@@ -5233,6 +5326,390 @@ def main() -> int:
         except Exception:
             failures.append("strings at 2^20 rows")
             traceback.print_exc()
+    # ---- the DataFrame surface: range, union, distinct, sample,
+    # repartition, cache and the actions, at 2^25 rows -------------------
+    def surface_run(run, fn, check, what, session):
+        """Cold, the counted warm run, then 3 warm walls; every operator
+        but the final download on the GPU."""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        check(fn(), f"{what} (cold)")
+        torch.cuda.synchronize()
+        cold_wall = (time.perf_counter() - t1) * 1e3
+        nodes = _placements(session.last_plan)
+        if nodes[0] != ("DeviceToHostExec", "cpu") or \
+                any(p != "gpu" for _, p in nodes[1:]) or \
+                "!" in session.last_explain:
+            raise AssertionError(f"{what} placed {nodes}:\n"
+                                 f"{session.last_explain}")
+        count_reset()
+        torch.cuda.synchronize()
+        got = fn()
+        torch.cuda.synchronize()
+        launches[run] = counts()
+        check(got, what)
+        walls = timed_walls(fn)
+        print(f"surface {what}: plan {[n for n, _ in nodes]}, GPU-only; "
+              f"cold wall {cold_wall:.1f} ms; warm walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms, median "
+              f"{sorted(walls)[1]:.1f}; launches "
+              f"{ {k: v for k, v in launches[run].items() if v} }; {card}")
+        return got
+
+    def plan_has(session, name):
+        return any(n == name for n, _ in _placements(session.last_plan))
+
+    def check_n(n):
+        def check(got, what):
+            if got != n:
+                raise AssertionError(f"{what}: count {got}, not {n}")
+        return check
+
+    from spark_rapids_tpu_torch.io import cached_batch as cb_mod
+    t_surface = time.perf_counter()
+    k_np, v_np = table["k"].to_numpy(), table["v"].to_numpy()
+    all_g = table.group_by("k").aggregate([("v", "sum"), ("k", "count")]) \
+        .sort_by("k")
+    all_want = (all_g["k"].to_numpy(), all_g["v_sum"].to_numpy(),
+                all_g["k_count"].to_numpy())
+    sv = GpuSession()
+    fact_df = sv.create_dataframe(table)
+
+    def q1_agg(df):
+        return df.group_by(col("k")).agg(
+            F.sum(col("v")).alias("sv"), F.avg(col("f")).alias("af"),
+            F.count("*").alias("c"))
+
+    def sum_count(df):
+        return df.group_by(col("k")).agg(F.sum(col("v")).alias("sv"),
+                                         F.count("*").alias("c"))
+
+    try:
+        rk, rs, rc = _range_oracle(ROWS, RANGE_MOD)
+        for parts in (1, 4):
+            sr = GpuSession()
+            df = sum_count(sr.range(0, ROWS, num_partitions=parts).select(
+                (col("id") % RANGE_MOD).alias("k"),
+                (col("id") * 3 - (1 << 24)).alias("v")))
+            surface_run("range" if parts == 1 else "range_4", df.collect,
+                        lambda g, w: _check_grouped(g, (rk, rs, rc), w),
+                        f"range(0, 2^25) over {parts} partition(s), k = "
+                        f"id % 100000, v = 3 id - 2^24, grouped by k: "
+                        f"sum(v), count", sr)
+        start, end, step = 3 * (1 << 20) + 11, -7, -3
+        neg_want = np.arange(start, end, step, dtype=np.int64)
+
+        def check_neg(got, what):
+            if not np.array_equal(got["id"].to_numpy(), neg_want):
+                raise AssertionError(f"{what}: differs from np.arange")
+        surface_run("range_neg", sv.range(start, end, step).collect,
+                    check_neg, f"range({start}, {end}, {step}): "
+                    f"{len(neg_want)} rows, the second batch ending at "
+                    f"row {len(neg_want) - (1 << 20)}", sv)
+    except Exception:
+        failures.append("surface (range)")
+        traceback.print_exc()
+
+    try:
+        un = fact_df.filter(col("v") > 0).union(
+            fact_df.filter(col("v") <= 0))
+        surface_run("union", sum_count(un).collect,
+                    lambda g, w: _check_grouped(g, all_want, w),
+                    "fact.filter(v > 0).union(fact.filter(v <= 0)) grouped "
+                    "by k: sum(v), count (q1 without its filter)", sv)
+
+        def check_150(got, what):
+            if got.num_rows != 150:
+                raise AssertionError(f"{what}: {got.num_rows} rows")
+        surface_run("union_limit", un.limit(150).collect, check_150,
+                    "the union's limit(150)", sv)
+    except Exception:
+        failures.append("surface (union)")
+        traceback.print_exc()
+
+    try:
+        uk = _bincount_keys(k_np, RANGE_MOD)
+        m_np = np.fmod(v_np, 7)
+        ukm = _bincount_keys(k_np * 13 + (m_np + 6), RANGE_MOD * 13)
+        kd_want = (uk,)
+        km_want = (ukm // 13, ukm % 13 - 6)
+        distinct_caps = {}
+        for parts in (1, 4):
+            sd = GpuSession()
+            df = sd.create_dataframe(table, num_partitions=parts).select(
+                col("k")).distinct()
+            run = "distinct_k" if parts == 1 else "distinct_k_4"
+            surface_run(run, df.collect,
+                        lambda g, w: _check_grouped(g, kd_want, w),
+                        f"select(k).distinct() over {parts} partition(s) "
+                        f"({len(uk)} rows)", sd)
+            with _Capture(agg_mod, "segment_reduce_sorted") as cap:
+                df.collect()
+            distinct_caps[run] = cap
+        dkm = fact_df.select(col("k"), (col("v") % 7).alias("m")).distinct()
+
+        def check_km(got, what):
+            got = got.sort_by([("k", "ascending"), ("m", "ascending")])
+            if got.num_rows != len(ukm) or not (
+                    np.array_equal(got["k"].to_numpy(), km_want[0]) and
+                    np.array_equal(got["m"].to_numpy(), km_want[1])):
+                raise AssertionError(f"{what}: differs from numpy "
+                                     f"({got.num_rows} rows, {len(ukm)})")
+        surface_run("distinct_km", dkm.collect, check_km,
+                    f"select(k, v % 7).distinct() ({len(ukm)} rows)", sv)
+        with _Capture(agg_mod, "segment_reduce_sorted") as cap:
+            dkm.collect()
+        distinct_caps["distinct_km"] = cap
+        if st_fact is not None:
+            uks = _bincount_keys(k_np * 2 + (v_np > 0), RANGE_MOD * 2)
+            ks, pos = uks // 2, uks % 2
+            s_want = pa.table({"rf": _one_byte(ks % 3, b"ARN"),
+                               "ls": _one_byte(pos, b"FO"),
+                               "s": _customer_names(ks)})
+            order = [("s", "ascending"), ("ls", "ascending")]
+            s_want = s_want.sort_by(order)
+            sst = GpuSession()
+            dss = sst.create_dataframe(st_fact).select(
+                col("rf"), col("ls"), col("s")).distinct()
+
+            def check_ss(got, what):
+                if not _same_strings_table(got.sort_by(order), s_want):
+                    raise AssertionError(f"{what}: differs from numpy")
+            surface_run("distinct_s", dss.collect, check_ss,
+                        f"select(rf, ls, s).distinct() on the string table "
+                        f"({s_want.num_rows} rows)", sst)
+            with _Capture(agg_mod, "segment_reduce_sorted") as cap:
+                dss.collect()
+            distinct_caps["distinct_s"] = cap
+            del sst, dss
+        for run, cap in distinct_caps.items():
+            calls = _k3_no_op_check(torch, cap, agg_mod, run)
+            print(f"K3 with an empty op set at {run}'s shapes: {calls} "
+                  f"call(s) equal the plain version (group count and each "
+                  f"group's first row)")
+        args = next(a for _, a in distinct_caps["distinct_k"].calls
+                    if not a[2])
+        orig = distinct_caps["distinct_k"].orig["segment_reduce_sorted"]
+        n_d = int(args[0][0].shape[0])
+        g_d = orig(*args)[3]
+        kernel_rows["segment_reduce_sorted_distinct"] = dict(
+            source="spark_rapids_tpu_torch/csrc/segment_reduce.cu",
+            replaces="spark_rapids_tpu/exec/aggregate.py:50",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: orig(*args)),
+            plain_ms=cuda_ms(lambda: agg_mod.segment_reduce_sorted_plain(
+                *args)),
+            library_ms=None,
+            bound_ms=bound((8 * len(args[0]) + 4) * n_d + 4 * g_d))
+        r = kernel_rows["segment_reduce_sorted_distinct"]
+        print(f"K3 with no op at distinct(k)'s shape ({n_d} rows, "
+              f"{len(args[0])} words, {g_d} groups): {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}; "
+              f"{card}")
+        del distinct_caps, args, orig
+    except Exception:
+        failures.append("surface (distinct)")
+        traceback.print_exc()
+
+    try:
+        for parts in (1, 4):
+            ss = GpuSession()
+            s_want, kept = _sample_oracle(table, parts)
+            df = sum_count(ss.create_dataframe(
+                table, num_partitions=parts).sample(SAMPLE_FRACTION,
+                                                    seed=SAMPLE_SEED))
+            surface_run("sample" if parts == 1 else "sample_4", df.collect,
+                        lambda g, w, sw=s_want: _check_grouped(g, sw, w),
+                        f"sample(0.1, seed=7) over {parts} partition(s) "
+                        f"({kept} rows kept, the numpy mixer's rows bit for "
+                        f"bit), grouped by k: sum(v), count", ss)
+
+        surface_run("sample_all", fact_df.sample(1.0).count,
+                    check_n(ROWS), "sample(1.0).count()", sv)
+        surface_run("sample_none", fact_df.sample(0.0).count, check_n(0),
+                    "sample(0.0).count()", sv)
+    except Exception:
+        failures.append("surface (sample)")
+        traceback.print_exc()
+
+    try:
+        rdf = fact_df.repartition(8, col("k")).filter(col("v") > THRESHOLD)
+        surface_run("repart_q1", q1_agg(rdf).collect,
+                    lambda g, w: _check_q1(g, q1_want, w),
+                    "repartition(8, k), then q1", sv)
+        surface_run("repart_count", fact_df.repartition(8).count,
+                    check_n(ROWS), "repartition(8).count()", sv)
+    except Exception:
+        failures.append("surface (repartition)")
+        traceback.print_exc()
+
+    try:
+        sc = GpuSession()
+        cdf = sc.create_dataframe(table).filter(
+            col("v") > THRESHOLD).cache()
+        entry = cb_mod.CacheManager.lookup(cdf._lp)
+        if cdf.limit(5).collect().num_rows != 5 or entry.materialized:
+            raise AssertionError("a run under limit(5) materialized the "
+                                 "cache")
+        q = q1_agg(cdf)
+        split = {}
+
+        def tap(name):
+            fn = getattr(cb_mod, name)
+
+            def timed(*a):
+                k9, k10 = fetch.lane_stats.launches, fetch.pack_lanes.launches
+                t = time.perf_counter()
+                out = fn(*a)
+                split[name] = split.get(name, 0.0) + \
+                    (time.perf_counter() - t) * 1e3
+                if name == "to_host_batch":
+                    split["k9"] = split.get("k9", 0) + \
+                        fetch.lane_stats.launches - k9
+                    split["k10"] = split.get("k10", 0) + \
+                        fetch.pack_lanes.launches - k10
+                return out
+            setattr(cb_mod, name, timed)
+            return fn
+
+        def cache_run(run, what):
+            split.clear()
+            orig = {n: tap(n) for n in ("to_host_batch", "encode_batch",
+                                        "decode_blob", "batch_to_device")}
+            try:
+                count_reset()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = q.collect()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+                launches[run] = counts()
+            finally:
+                for n, fn in orig.items():
+                    setattr(cb_mod, n, fn)
+            _check_q1(got, q1_want, what)
+            nodes = _placements(sc.last_plan)
+            if any(p != "gpu" for _, p in nodes[1:]):
+                raise AssertionError(f"{what} placed {nodes}")
+            return wall, dict(split), nodes
+
+        w1, s1, n1 = cache_run("cache_write", "the cache's first run")
+        if not (entry.materialized and cdf.is_cached and
+                plan_has(sc, "CacheWriteExec")):
+            raise AssertionError(f"the first run did not materialize the "
+                                 f"cache: {n1}")
+        if not (s1.get("k9", 0) > 0 and s1.get("k10", 0) > 0):
+            raise AssertionError(f"the cache write fetched without K9 and "
+                                 f"K10: {s1}")
+        w2, s2, n2 = cache_run("cache_scan", "the cache's second run")
+        if not plan_has(sc, "CachedScanExec") or \
+                plan_has(sc, "LocalScanExec"):
+            raise AssertionError(f"the second run read {n2}")
+        warm2 = timed_walls(q.collect)
+        cdf.unpersist()
+        if cdf.is_cached:
+            raise AssertionError("is_cached after unpersist()")
+        w3, _, n3 = cache_run("cache_recompute", "the run after unpersist")
+        if plan_has(sc, "CachedScanExec") or plan_has(sc, "CacheWriteExec"):
+            raise AssertionError(f"the run after unpersist read {n3}")
+        warm3 = timed_walls(q.collect)
+        print(f"surface cache of fact.filter(v > {THRESHOLD}) "
+              f"({entry.size_bytes} parquet bytes in "
+              f"{sum(len(p.blobs) for p in entry.partitions)} blob(s)), "
+              f"q1 over it three times: first (materialize, "
+              f"{[n for n, _ in n1]}) {w1:.1f} ms, of which the fetch "
+              f"({s1['k9']} K9, {s1['k10']} K10 launches) "
+              f"{s1.get('to_host_batch', 0):.1f} and the parquet "
+              f"encode {s1.get('encode_batch', 0):.1f}; second (cached "
+              f"scan, {[n for n, _ in n2]}) {w2:.1f} ms, of which decode "
+              f"{s2.get('decode_blob', 0):.1f} and upload "
+              f"{s2.get('batch_to_device', 0):.1f}, warm walls "
+              f"{', '.join(f'{w:.1f}' for w in warm2)}; third (after "
+              f"unpersist, recomputed) {w3:.1f} ms, warm walls "
+              f"{', '.join(f'{w:.1f}' for w in warm3)}; a limit(5) run "
+              f"left it unmaterialized; launches first "
+              f"{ {k: v for k, v in launches['cache_write'].items() if v} }"
+              f"; {card}")
+        del cdf, q, entry
+        if st_fact is not None:
+            # the whole string table: K16 fetches the chars, and the
+            # parquet blobs carry them both ways at the main path's size
+            cs = sc.create_dataframe(st_fact).select(
+                col("s"), col("c"), col("v")).cache()
+            want_s = st_fact.select(["s", "c", "v"])
+            walls = []
+            for i in range(2):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got_s = cs.collect()
+                walls.append((time.perf_counter() - t1) * 1e3)
+                if not _same_strings_table(got_s, want_s):
+                    raise AssertionError(f"the cached (s, c, v) differs, "
+                                         f"run {i + 1}")
+                del got_s
+            if not plan_has(sc, "CachedScanExec"):
+                raise AssertionError("the string cache was not scanned")
+            sentry = cb_mod.CacheManager.lookup(cs._lp)
+            print(f"surface cache of the string table's (s, c, v) at "
+                  f"{want_s.num_rows} rows ({want_s['c'].null_count} null "
+                  f"comments, {sentry.size_bytes} parquet bytes): "
+                  f"written in {walls[0]:.1f} ms, then scanned in "
+                  f"{walls[1]:.1f} ms, equal both times; {card}")
+            cs.unpersist()
+            del cs, want_s, sentry
+        del sc
+    except Exception:
+        failures.append("surface (cache)")
+        traceback.print_exc()
+    finally:
+        cb_mod.CacheManager.clear()
+
+    try:
+        surface_run("act_count", fact_df.count, check_n(ROWS),
+                    "count()", sv)
+        if fact_df.dtypes != [("k", "bigint"), ("v", "bigint"),
+                              ("f", "double")]:
+            raise AssertionError(f"dtypes {fact_df.dtypes}")
+        fq = fact_df.filter(col("v") > THRESHOLD)
+        surface_run("act_pandas", q1_agg(fq).to_pandas,
+                    lambda g, w: _check_q1(pa.Table.from_pandas(
+                        g, preserve_index=False), q1_want, w),
+                    "q1 through to_pandas()", sv)
+        ft = table.filter(pc.greater(table["v"], THRESHOLD))
+        mm = ft.group_by("k").aggregate([("v", "min"), ("v", "max")]) \
+            .sort_by("k")
+        shorthands = {
+            "sum": (lambda: fq.group_by(col("k")).sum("v").collect(),
+                    (q1_want["k"].to_numpy(), q1_want["v_sum"].to_numpy())),
+            "count": (lambda: fq.group_by(col("k")).count().collect(),
+                      (q1_want["k"].to_numpy(),
+                       q1_want["k_count"].to_numpy())),
+            "min": (lambda: fq.group_by(col("k")).min("v").collect(),
+                    (mm["k"].to_numpy(), mm["v_min"].to_numpy())),
+            "max": (lambda: fq.group_by(col("k")).max("v").collect(),
+                    (mm["k"].to_numpy(), mm["v_max"].to_numpy()))}
+        for name, (fn, w_) in shorthands.items():
+            surface_run(f"act_g{name}", fn,
+                        lambda g, w, w_=w_: _check_grouped(g, w_, w),
+                        f"q1's group_by(k).{name}()", sv)
+
+        def check_avg(got, what):
+            got = got.sort_by("k")
+            a, b = got["avg(f)"].to_numpy(), q1_want["f_mean"].to_numpy()
+            if not np.array_equal(got["k"].to_numpy(),
+                                  q1_want["k"].to_numpy()) or \
+                    not np.allclose(a, b, rtol=FLOAT_RTOL, atol=0.0):
+                raise AssertionError(f"{what}: differs from pyarrow")
+        surface_run("act_gavg", lambda: fq.group_by(col("k")).avg(
+            "f").collect(), check_avg, "q1's group_by(k).avg(f)", sv)
+        del ft, mm, fq
+    except Exception:
+        failures.append("surface (actions)")
+        traceback.print_exc()
+    del fact_df, sv, all_g, k_np, v_np
+    print(f"surface phases: {time.perf_counter() - t_surface:.1f} s, the "
+          f"oracles and the cache's blobs included")
+
     del st_fact, st_dim
 
     path_kernels = {
@@ -5273,11 +5750,41 @@ def main() -> int:
                 "gather_strings"),
         "qs4_topn": ("order_keys", "sort_order", "gather_rows",
                      "gather_strings"),
-        "hash_s": ("hash_bytes",)}
+        "hash_s": ("hash_bytes",),
+        "range": ("sort_order", "segment_reduce_sorted"),
+        "range_4": ("sort_order", "segment_reduce_sorted"),
+        "range_neg": (),
+        "union": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "union_limit": ("compact_rows",),
+        "distinct_k": ("sort_order", "segment_reduce_sorted"),
+        "distinct_k_4": ("sort_order", "segment_reduce_sorted"),
+        "distinct_km": ("sort_order", "segment_reduce_sorted"),
+        "distinct_s": ("string_hashes", "sort_order",
+                       "segment_reduce_sorted", "gather_strings"),
+        "sample": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "sample_4": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "sample_all": ("compact_rows", "segment_reduce_sorted"),
+        "sample_none": ("compact_rows", "segment_reduce_sorted"),
+        "repart_q1": ("compact_rows", "sort_order", "segment_reduce_sorted"),
+        "repart_count": ("segment_reduce_sorted",),
+        "cache_write": ("compact_rows", "sort_order",
+                        "segment_reduce_sorted"),
+        "cache_scan": ("sort_order", "segment_reduce_sorted"),
+        "cache_recompute": ("compact_rows", "sort_order",
+                            "segment_reduce_sorted"),
+        "act_count": ("segment_reduce_sorted",),
+        **{f"act_{a}": ("compact_rows", "sort_order", "segment_reduce_sorted")
+           for a in ("pandas", "gsum", "gcount", "gmin", "gmax", "gavg")}}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
                 "q5_4", "qs1", "qs1_4", "qs2", "qs3", "qs4", "qs4_topn",
-                "hash_s"):
+                "hash_s", "range", "range_4", "range_neg", "union",
+                "union_limit", "distinct_k", "distinct_k_4", "distinct_km",
+                "distinct_s", "sample", "sample_4", "sample_all",
+                "sample_none", "repart_q1", "repart_count", "cache_write",
+                "cache_scan", "cache_recompute", "act_count", "act_pandas",
+                "act_gsum", "act_gcount", "act_gmin", "act_gmax",
+                "act_gavg"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -5305,9 +5812,12 @@ def main() -> int:
                   "segment_scan": "q4", "run_ends": "q4",
                   "scatter_rows": "q4", "string_hashes": "qs2",
                   "hash_bytes": "hash_s", "gather_strings": "qs4",
-                  "gather_strings_flags": "qs1", "order_keys": "qs4"}
+                  "gather_strings_flags": "qs1", "order_keys": "qs4",
+                  "segment_reduce_sorted_distinct": "distinct_k"}
         counted_as = {"segment_reduce_sorted_minmax": "segment_reduce_sorted",
-                      "gather_strings_flags": "gather_strings"}
+                      "gather_strings_flags": "gather_strings",
+                      "segment_reduce_sorted_distinct":
+                          "segment_reduce_sorted"}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],

@@ -1,14 +1,21 @@
 """DataFrame and GroupedData of the slice.
 
-Counterpart of spark_rapids_tpu/api/dataframe.py: select (window
-expressions go through a Window node), select_expr_window, with_column,
-filter / where, group_by / groupBy, agg, join, order_by / orderBy /
-sort, sort_within_partitions, limit, collect, explain and write.
+Counterpart of spark_rapids_tpu/api/dataframe.py: columns, dtypes,
+select (window expressions go through a Window node),
+select_expr_window, with_column, filter / where, group_by / groupBy,
+agg, join, union / unionAll, distinct, drop, with_column_renamed,
+repartition, sample, order_by / orderBy / sort, sort_within_partitions,
+limit, cache / persist, unpersist, is_cached, collect, to_pandas, count,
+show, explain and write; GroupedData's agg, count, sum, avg, min and
+max.  ``cache()`` registers the DataFrame's plan with the process-wide
+CacheManager (io/cached_batch.py) until ``unpersist()``: the next query
+over it materializes parquet blobs, later ones scan them; under a Spark
+3.0.x dialect (``spark.rapids.tpu.sparkVersion``) it does nothing.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import pyarrow as pa
 
@@ -16,9 +23,11 @@ from ..exec.join import JOIN_TYPES
 from ..expr.aggregates import AggregateExpression
 from ..expr.core import Alias, AttributeReference, Expression, Literal
 from ..expr.window import WindowExpression
+from ..io.cached_batch import CacheManager, cached_batch_supported
 from ..io.writer import DataFrameWriter
 from ..plan import logical as L
-from .column import Column, col
+from . import functions as F
+from .column import Column, col, lit
 
 
 def _to_expr(c) -> Expression:
@@ -39,6 +48,12 @@ class DataFrame:
     @property
     def columns(self) -> List[str]:
         return self._lp.schema()[0]
+
+    @property
+    def dtypes(self):
+        """[(column name, SQL type name)]."""
+        names, types = self._lp.schema()
+        return list(zip(names, [dt.name for dt in types]))
 
     def select(self, *cols) -> "DataFrame":
         exprs = []
@@ -120,6 +135,41 @@ class DataFrame:
         return DataFrame(L.Join(self._lp, other._lp, how, cond, using),
                          self.session)
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """The rows of both, by position (Spark's UNION ALL)."""
+        return DataFrame(L.Union([self._lp, other._lp]), self.session)
+
+    unionAll = union
+
+    def distinct(self) -> "DataFrame":
+        return DataFrame(L.Distinct(self._lp), self.session)
+
+    def drop(self, *names) -> "DataFrame":
+        keep = [AttributeReference(n) for n in self.columns
+                if n not in names]
+        return DataFrame(L.Project(keep, self._lp), self.session)
+
+    def with_column_renamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [Alias(AttributeReference(n), new) if n == old
+                 else AttributeReference(n) for n in self.columns]
+        return DataFrame(L.Project(exprs, self._lp), self.session)
+
+    withColumnRenamed = with_column_renamed
+
+    def repartition(self, num_partitions: int, *cols) -> "DataFrame":
+        """``num_partitions`` partitions, by the hash of ``cols`` or round
+        robin without them."""
+        keys = [_to_expr(c) for c in cols] or None
+        return DataFrame(L.Repartition(num_partitions, keys, self._lp),
+                         self.session)
+
+    def sample(self, fraction: float, seed: Optional[int] = None
+               ) -> "DataFrame":
+        """Each row with probability ``fraction``, decided by a hash of
+        (seed, partition, the row's index in its partition)."""
+        return DataFrame(L.Sample(fraction, 42 if seed is None else seed,
+                                  self._lp), self.session)
+
     def order_by(self, *cols, ascending=True) -> "DataFrame":
         """A global sort.  A column's own order (``asc``, ``desc``,
         ``asc_nulls_last``, ``desc_nulls_first``) wins; otherwise
@@ -146,8 +196,37 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self._lp), self.session)
 
+    def cache(self) -> "DataFrame":
+        """Keep this DataFrame's rows as parquet blobs from its next
+        query on; a no-op under a Spark 3.0.x dialect."""
+        if cached_batch_supported(self.session.conf):
+            CacheManager.cache(self._lp)
+        return self
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        CacheManager.uncache(self._lp)
+        return self
+
+    @property
+    def is_cached(self) -> bool:
+        return CacheManager.lookup(self._lp) is not None
+
     def collect(self) -> pa.Table:
         return self.session.execute(self._lp)
+
+    def to_pandas(self):
+        return self.collect().to_pandas()
+
+    toPandas = to_pandas
+
+    def count(self) -> int:
+        res = self.agg(F.count(lit(1)).alias("count")).collect()
+        return res.column("count").to_pylist()[0]
+
+    def show(self, n: int = 20):
+        print(self.limit(n).collect().to_pandas().to_string())
 
     def explain(self) -> str:
         s = self.session.explain(self._lp)
@@ -177,3 +256,28 @@ class GroupedData:
             out.append(AggregateExpression(e.func, name or e.name))
         return DataFrame(L.Aggregate(self.grouping, out, self.df._lp),
                          self.df.session)
+
+    def count(self) -> DataFrame:
+        return self.agg(F.count(lit(1)).alias("count"))
+
+    def _simple(self, fn: str, cols) -> DataFrame:
+        """``fn`` of each named column, or of every numeric column (the
+        reference's type names) when none is named."""
+        names = cols or [n for n, tn in self.df.dtypes
+                         if tn in ("tinyint", "smallint", "int", "bigint",
+                                   "float", "double") or
+                         tn.startswith("decimal")]
+        return self.agg(*[getattr(F, fn)(col(n)).alias(f"{fn}({n})")
+                          for n in names])
+
+    def sum(self, *cols) -> DataFrame:
+        return self._simple("sum", list(cols))
+
+    def avg(self, *cols) -> DataFrame:
+        return self._simple("avg", list(cols))
+
+    def min(self, *cols) -> DataFrame:
+        return self._simple("min", list(cols))
+
+    def max(self, *cols) -> DataFrame:
+        return self._simple("max", list(cols))

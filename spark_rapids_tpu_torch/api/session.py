@@ -9,7 +9,8 @@ onto the GPU by plan/overrides.py, and executed; ``last_plan`` and
 A global sort of an in-memory table is first offered to the
 host-assisted collect (plan/host_assist.py), which runs its own row-id
 query; ``last_plan`` is then that query's plan.  ``read`` returns a
-DataFrameReader (io/reader.py).
+DataFrameReader (io/reader.py); ``range`` a DataFrame of one LONG
+column ``id``.
 With ``spark.rapids.sql.enabled=false`` every operator stays on the CPU
 engine, the oracle the reference's differential tests toggle.
 """
@@ -60,6 +61,14 @@ class GpuSession:
         relation = L.LocalRelation(data, num_partitions)
         relation.schema()             # an unported column type raises here
         return DataFrame(relation, self)
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: int = 1) -> DataFrame:
+        """One LONG column ``id``: start, start + step, ... below ``end``
+        (above it for a negative step); ``range(n)`` is 0 .. n - 1."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(L.Range(start, end, step, num_partitions), self)
 
     def prepare_plan(self, lp: L.LogicalPlan) -> Exec:
         """Logical plan -> final physical plan: planning, then the

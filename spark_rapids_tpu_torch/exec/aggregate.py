@@ -39,7 +39,7 @@ from ..expr.core import (ColumnValue, EvalContext, Expression, ScalarValue,
 from ..ops import segmented as seg
 from ..ops.carry import sort_order
 from ..ops.gather import gather_columns
-from .base import CPU, Exec, ExecContext
+from .base import CPU, MERGES, Exec, ExecContext
 from .concat import concat_batches
 
 _KIND_COUNT, _KIND_SUM_INT, _KIND_SUM_FLOAT = 0, 1, 2
@@ -823,6 +823,9 @@ class CpuHashAggregateExec(Exec):
     def describe(self):
         return (f"CpuHashAggregate(keys=[{', '.join(self._group_names)}], "
                 f"fns=[{', '.join(a.name for a in self.aggregates)}])")
+
+    def partition_use(self):
+        return MERGES       # rows regroup by the grouping keys
 
     def determinism(self):
         floaty = any(bt == t.DOUBLE for ae in self.aggregates

@@ -37,6 +37,12 @@ from ..config import RapidsConf
 CPU = "cpu"
 GPU = "gpu"
 
+# how an operator's output depends on the way its input is split into
+# partitions (Exec.partition_use)
+PASSES = "passes"   # it carries the layout on to its parent
+READS = "reads"     # what it emits depends on the layout
+MERGES = "merges"   # it regroups the rows: nothing above sees the layout
+
 
 class ExecContext:
     """Per-query context: the session's device, where GPU-placed operators
@@ -142,6 +148,13 @@ class Exec:
             return None
         return sum(sizes)
 
+    def partition_use(self) -> str:
+        """PASSES, READS or MERGES: whether this operator's output
+        depends on how its input is split into partitions.  The plan
+        rewrite strips an exchange on one device only where no READS
+        operator sits above it before a MERGES one."""
+        return PASSES
+
     def determinism(self):
         """Declared replay class (analysis/determinism.py): None for an
         operator whose output is a row-wise function of its input
@@ -199,6 +212,15 @@ class Exec:
             c.foreach(fn)
 
 
+def download(batch: DeviceBatch) -> DeviceBatch:
+    """How a batch leaves the card: its live rows through the packed
+    fetch (``fetch_batch``) when it lies on the card, as ``move_batch``
+    moves them when it already lies on the CPU."""
+    if batch.columns and batch.device.type == "cuda":
+        return fetch_batch(batch)
+    return move_batch(batch, torch.device("cpu"), live_only=True)
+
+
 class _Transition(Exec):
     input_side: str      # the child's placement
 
@@ -242,7 +264,4 @@ class DeviceToHostExec(_Transition):
 
     def execute_partition(self, pid, ctx):
         for b in self.child_batches(0, pid, ctx):
-            if b.columns and b.device.type == "cuda":
-                yield fetch_batch(b)
-            else:
-                yield move_batch(b, ctx.cpu, live_only=True)
+            yield download(b)

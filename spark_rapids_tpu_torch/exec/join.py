@@ -49,7 +49,7 @@ from ..ops import join_kernels as jk
 from ..ops.carry import mask_validity
 from ..ops.gather import gather_columns
 from ..ops.strings import lengths
-from .base import CPU, Exec, ExecContext
+from .base import CPU, MERGES, Exec, ExecContext
 from .basic import ProjectExec
 from .concat import concat_batches
 from .filter_common import apply_filter, compact
@@ -448,6 +448,9 @@ class CpuJoinExec(Exec):
 
     def describe(self):
         return f"CpuJoin {self.how}"
+
+    def partition_use(self):
+        return MERGES       # on one device it joins the gathered sides
 
     def _collect_side(self, side: int, ctx, pid=None) -> pa.Table:
         child = self.children[side]

@@ -25,7 +25,7 @@ from ..expr.core import (EvalContext, ScalarValue, bind_expression,
                          make_column)
 from ..ops import carry
 from ..ops import segmented as seg
-from .base import Exec
+from .base import MERGES, READS, Exec
 from .concat import concat_batches
 
 
@@ -66,6 +66,10 @@ class SortExec(Exec):
         os = ", ".join(f"{e.sql()} {'ASC' if a else 'DESC'}"
                        for e, a, _ in self._bound)
         return f"Sort [{os}] global={self.is_global}"
+
+    def partition_use(self):
+        # a global sort orders the whole; sortWithinPartitions each part
+        return MERGES if self.is_global else READS
 
     def determinism(self):
         return Determinism(

@@ -63,7 +63,7 @@ from ..ops.gather import (gather_column, gather_columns, gather_rows,
                           scatter_rows)
 from ..ops.scan import (cumsum, run_ends, segment_scan,
                         segmented_doubling_scan)
-from .base import Exec, semantic_sig
+from .base import MERGES, Exec, semantic_sig
 from .concat import concat_batches
 
 
@@ -180,6 +180,9 @@ class WindowExec(Exec):
 
     def describe(self):
         return f"Window [{', '.join(w.name for w in self.window_exprs)}]"
+
+    def partition_use(self):
+        return MERGES       # rows regroup by the window's partition keys
 
     def determinism(self):
         return Determinism(

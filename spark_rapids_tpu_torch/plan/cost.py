@@ -37,6 +37,7 @@ _CARDINALITY = {
     "FilterExec": 0.5,
     "CpuHashAggregateExec": 0.2,
     "GpuHashAggregateExec": 0.2,
+    "SampleExec": 0.1,
 }
 
 _JOINS = ("HashJoinExec", "CpuJoinExec", "BroadcastHashJoinExec",
@@ -49,10 +50,13 @@ def estimate_rows(node: eb.Exec, child_rows: List[float]) -> float:
 
 
 def _static_rows(node: eb.Exec, child_rows: List[float]) -> float:
-    from ..exec.basic import GlobalLimitExec, LocalLimitExec, LocalScanExec
+    from ..exec.basic import (GlobalLimitExec, LocalLimitExec, LocalScanExec,
+                              RangeExec, UnionExec)
     from ..io.scan import FileScanExec
     if isinstance(node, LocalScanExec):
         return float(node.table.num_rows)
+    if isinstance(node, RangeExec):
+        return max(1.0, abs(node.end - node.start) / abs(node.step))
     if isinstance(node, FileScanExec):
         try:
             size = sum(os.path.getsize(p) for p in node.paths)
@@ -64,6 +68,8 @@ def _static_rows(node: eb.Exec, child_rows: List[float]) -> float:
         return min(n, child_rows[0]) if child_rows else n
     if not child_rows:
         return float(DEFAULT_ROW_COUNT)
+    if isinstance(node, UnionExec):
+        return sum(child_rows)
     name = type(node).__name__
     if name in _JOINS:
         return max(child_rows)

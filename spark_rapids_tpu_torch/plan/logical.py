@@ -1,5 +1,6 @@
-"""Logical plan nodes of the slice: LocalRelation, FileRelation, Project,
-Filter, Aggregate, Join, Sort, Limit and Window.
+"""Logical plan nodes of the slice: LocalRelation, Range, FileRelation,
+Project, Filter, Aggregate, Join, Sort, Limit, Union, Window, Distinct,
+Sample and Repartition.
 
 Counterpart of spark_rapids_tpu/plan/logical.py; each node resolves its
 output schema.
@@ -35,6 +36,18 @@ class LocalRelation(LogicalPlan):
     def schema(self):
         return (list(self.table.schema.names),
                 [from_arrow_type(f.type) for f in self.table.schema])
+
+
+class Range(LogicalPlan):
+    """``range(start, end, step)`` as one LONG column ``id``."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_partitions: int = 1):
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = num_partitions
+
+    def schema(self):
+        return ["id"], [t.LONG]
 
 
 class FileRelation(LogicalPlan):
@@ -148,6 +161,17 @@ class Limit(LogicalPlan):
         return self.children[0].schema()
 
 
+class Union(LogicalPlan):
+    """The children's rows, end to end; the first child names the
+    columns."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        self.children = tuple(children)
+
+    def schema(self):
+        return self.children[0].schema()
+
+
 class Window(LogicalPlan):
     """Window function application; window_exprs are WindowExpressions,
     each a new column after the child's."""
@@ -163,3 +187,35 @@ class Window(LogicalPlan):
             names.append(we.name)
             dtypes.append(we.resolved_type(cn, ct))
         return names, dtypes
+
+
+class Distinct(LogicalPlan):
+    def __init__(self, child: LogicalPlan):
+        self.children = (child,)
+
+    def schema(self):
+        return self.children[0].schema()
+
+
+class Sample(LogicalPlan):
+    def __init__(self, fraction: float, seed: int, child: LogicalPlan):
+        self.fraction = fraction
+        self.seed = seed
+        self.children = (child,)
+
+    def schema(self):
+        return self.children[0].schema()
+
+
+class Repartition(LogicalPlan):
+    """``num_partitions`` partitions: by the hash of ``keys``, or round
+    robin when there are none."""
+
+    def __init__(self, num_partitions: int,
+                 keys: Optional[List[Expression]], child: LogicalPlan):
+        self.num_partitions = num_partitions
+        self.keys = keys
+        self.children = (child,)
+
+    def schema(self):
+        return self.children[0].schema()

@@ -13,35 +13,41 @@ transition insertion).  Flow:
      more subtrees to the CPU;
   4. record (and, per spark.rapids.sql.explain, print) the explain lines;
   5. convert every node that can run on the GPU: a CpuJoinExec becomes a
-     hash join, a CpuHashAggregateExec a GpuHashAggregateExec, a global
-     SortExec over a range exchange sorts the gathered partitions, a
-     WindowExec over a hash exchange reads the gathered partitions,
-     anything else is the same operator placed on the GPU;
+     hash join, a CpuHashAggregateExec a GpuHashAggregateExec,
+     anything else is the same operator placed on the GPU, and an
+     exchange left GPU-placed becomes a partition gather;
   6. insert HostToDevice / DeviceToHost transitions at placement
      boundaries, and gather and coalesce at the collect boundary.
 
 A CPU placement comes from tagging and nowhere else: nothing catches a
 GPU operator's error and re-plans on the CPU.  The port's session drives
-one device, so a shuffle exchange under a GPU consumer is always
-stripped (spark.rapids.tpu.singleChipFuse ``auto`` = ``on``); the
-exchange itself runs on the host only, so one that survives, under a
-CPU consumer, is tagged off the GPU.  With the key ``off`` the consumers
-of exchanges stay on the CPU: the reference's device exchange between a
-PARTIAL and a FINAL aggregate, and its co-partitioned shuffled hash
-join, are not ported.  Not ported either: the reference's ICI stages,
-plan lint, AQE readers and extension rules.
+one device, so a shuffle exchange is stripped into a gather of its
+input's partitions (spark.rapids.tpu.singleChipFuse ``auto`` = ``on``;
+the aggregate and join conversions also coalesce the gathered batches)
+unless an operator above it reads its partitions (a sample, a limit, a
+row position, a sort within partitions, a cache write) before a GPU
+aggregate, join, window or global sort merges them
+(``Exec.partition_use``).  The exchange itself runs on the host only,
+so one that is kept, or whose consumer stays on the CPU, is tagged off
+the GPU.  A cache write is placed where its child is.  With the key
+``off`` the consumers of exchanges stay on the CPU: the reference's
+device exchange between a PARTIAL and a FINAL aggregate, and its
+co-partitioned shuffled hash join, are not ported.  Not ported
+either: the reference's ICI stages, plan lint, AQE readers and extension
+rules.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Type
+from typing import Callable, Dict, List, Optional, Type
 
 from .. import config as cfg
 from .. import types as t
 from ..exec import base as eb
 from ..exec.aggregate import CpuHashAggregateExec, GpuHashAggregateExec
 from ..exec.basic import (CoalesceBatchesExec, FilterExec, GlobalLimitExec,
-                          LocalLimitExec, LocalScanExec, ProjectExec)
+                          LocalLimitExec, LocalScanExec, ProjectExec,
+                          RangeExec, SampleExec, UnionExec)
 from ..exec.broadcast import (BroadcastExchangeExec, BroadcastHashJoinExec,
                               BroadcastNestedLoopJoinExec)
 from ..exec.gatherpart import GatherPartitionsExec
@@ -58,6 +64,7 @@ from ..expr.cast import Cast, cast_supported_on_gpu
 from ..expr.core import (Alias, AttributeReference, BoundReference,
                          Expression, Literal, bind_expression)
 from ..expr.hashfns import MonotonicallyIncreasingID, Murmur3Hash
+from ..io.cached_batch import CachedScanExec, CacheWriteExec
 from ..io.scan import FileScanExec
 from ..shuffle.exchange import ShuffleExchangeExec
 from ..types import T, TypeSig
@@ -256,6 +263,9 @@ class ExecMeta(BaseMeta):
             if not em.can_replace_tree:
                 for r in em.all_reasons():
                     self.will_not_work(r)
+        if any(isinstance(c, ShuffleExchangeExec) for c in e.children) \
+                and not _fuse_single_chip(self.conf):
+            self.will_not_work(_NO_FUSE)
         custom = EXEC_TAGS.get(type(e))
         if custom:
             custom(self)
@@ -295,7 +305,9 @@ EXEC_SIGS: Dict[Type[eb.Exec], TypeSig] = {
         NestedLoopJoinExec, HashJoinExec, BroadcastExchangeExec,
         BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
         ShuffleExchangeExec, LocalLimitExec, GlobalLimitExec,
-        FileScanExec)}
+        FileScanExec, UnionExec, SampleExec, CachedScanExec,
+        CacheWriteExec)}
+EXEC_SIGS[RangeExec] = T.LONG
 EXEC_SIGS[SortExec] = T.common_scalar.nested()
 EXEC_SIGS[WindowExec] = T.common_scalar.nested()
 
@@ -357,8 +369,6 @@ def _tag_join(meta: ExecMeta):
         # arrives flipped to left)
         meta.will_not_work(
             f"conditional {e.how} join is not supported on GPU")
-    if e.colocated and not _fuse_single_chip(meta.conf):
-        meta.will_not_work(_NO_FUSE)
     l, r = e.children
     for k in e.left_keys + e.right_keys:
         try:
@@ -387,9 +397,6 @@ def _convert_aggregate(e: CpuHashAggregateExec, conf) -> eb.Exec:
 
 def _tag_aggregate(meta: ExecMeta):
     e: CpuHashAggregateExec = meta.exec
-    if isinstance(e.children[0], ShuffleExchangeExec) and \
-            not _fuse_single_chip(meta.conf):
-        meta.will_not_work(_NO_FUSE)
     cn, ct = e.children[0].output_names, e.children[0].output_types
     for ae in e.aggregates:
         fn = ae.func
@@ -408,39 +415,8 @@ def _tag_aggregate(meta: ExecMeta):
                 meta.will_not_work(str(ex))
 
 
-def _convert_sort(e: SortExec, conf) -> eb.Exec:
-    """A global sort over a range exchange sorts the gathered whole on
-    one device: the exchange only orders ranges across partitions."""
-    child = e.children[0]
-    if e.is_global and isinstance(child, ShuffleExchangeExec):
-        e = SortExec(e.orders, _strip_exchange(child), is_global=True)
-    e.placement = eb.GPU
-    return e
-
-
-def _tag_sort(meta: ExecMeta):
-    e: SortExec = meta.exec
-    if isinstance(e.children[0], ShuffleExchangeExec) and \
-            not _fuse_single_chip(meta.conf):
-        meta.will_not_work(_NO_FUSE)
-
-
-def _convert_window(e: WindowExec, conf) -> eb.Exec:
-    """Window partitions need co-location only, which one device has:
-    over a hash exchange, the WindowExec reads the gathered partitions
-    and concatenates them."""
-    child = e.children[0]
-    if isinstance(child, ShuffleExchangeExec):
-        e = WindowExec(e.window_exprs, _strip_exchange(child))
-    e.placement = eb.GPU
-    return e
-
-
 def _tag_window(meta: ExecMeta):
     e: WindowExec = meta.exec
-    if isinstance(e.children[0], ShuffleExchangeExec) and \
-            not _fuse_single_chip(meta.conf):
-        meta.will_not_work(_NO_FUSE)
     cn, ct = e.children[0].output_names, e.children[0].output_types
     for w in e.window_exprs:
         f = w.func
@@ -486,13 +462,50 @@ def _tag_file_scan(meta: ExecMeta):
 
 EXEC_CONVERTS[CpuHashAggregateExec] = _convert_aggregate
 EXEC_CONVERTS[CpuJoinExec] = _convert_join
-EXEC_CONVERTS[SortExec] = _convert_sort
-EXEC_CONVERTS[WindowExec] = _convert_window
 EXEC_TAGS[CpuJoinExec] = _tag_join
 EXEC_TAGS[CpuHashAggregateExec] = _tag_aggregate
-EXEC_TAGS[SortExec] = _tag_sort
 EXEC_TAGS[WindowExec] = _tag_window
 EXEC_TAGS[FileScanExec] = _tag_file_scan
+
+
+def _tag_cache_writes(meta: ExecMeta):
+    """A cache write runs where its child does."""
+    for c in meta.children:
+        _tag_cache_writes(c)
+    if isinstance(meta.exec, CacheWriteExec) and \
+            not meta.children[0].can_replace:
+        meta.will_not_work("the cache write runs where its child does, and "
+                           "its child stays on the CPU")
+
+
+def _tag_partition_readers(meta: ExecMeta, reader: Optional[str] = None):
+    """Keep on the host every exchange whose partitions an operator above
+    reads before a GPU-placed operator merges them: stripping it would
+    hand that reader other partitions than the reference's.  ``reader``
+    is the nearest such operator above ``meta``.  A merger kept on the
+    CPU runs partition by partition, so the layout passes through it."""
+    e = meta.exec
+    use = e.partition_use()
+    if use == eb.MERGES and meta.can_replace:
+        reader = None
+    elif use == eb.READS:
+        reader = type(e).__name__
+    if isinstance(e, ShuffleExchangeExec) and reader is not None:
+        meta.will_not_work(
+            f"{reader} above reads its partitions, which stripping it on "
+            f"one device would merge; it runs on the host")
+    for c in meta.children:
+        _tag_partition_readers(c, reader)
+
+
+def _strip_device_exchanges(root: eb.Exec) -> eb.Exec:
+    """An exchange still GPU-placed after the conversions (one that
+    ``_tag_partition_readers`` let through, under a consumer that does
+    not strip it itself, or at the root) becomes a gather of its input's
+    partitions: one device already co-locates every key."""
+    return root.transform_up(
+        lambda n: _strip_exchange(n) if isinstance(n, ShuffleExchangeExec)
+        and n.placement == eb.GPU else n)
 
 
 def _tag_host_exchanges(meta: ExecMeta):
@@ -560,6 +573,8 @@ class GpuOverrides:
         if self.conf.get(cfg.OPTIMIZER_ENABLED):
             from .cost import CostBasedOptimizer
             CostBasedOptimizer(self.conf).optimize(meta)
+        _tag_partition_readers(meta)
+        _tag_cache_writes(meta)
         _tag_host_exchanges(meta)
         lines = meta.explain_lines()
         self.last_explain = "\n".join(lines)
@@ -570,4 +585,4 @@ class GpuOverrides:
             bad = [ln for ln in lines if ln.lstrip().startswith("!")]
             if bad:
                 print("\n".join(bad))
-        return insert_transitions(meta.convert())
+        return insert_transitions(_strip_device_exchanges(meta.convert()))

@@ -10,7 +10,13 @@ that query's scan (the exact filter stays above; the shared relation is
 never changed).  An aggregate over more than one
 partition gets a hash exchange on its grouping keys (a partition
 gather for a global aggregate); a join is planned by
-exec/join.py:plan_join.  A logical node the port's API cannot build yet
+exec/join.py:plan_join.  Distinct is the aggregate that groups by every
+column with no aggregates, so over more than one partition it gets the
+same hash exchange and duplicates across partitions meet; repartition is
+a shuffle exchange, hash partitioned by its keys or round robin.  A node
+whose DataFrame was cached (io/cached_batch.py) is planned as a
+CachedScanExec once its entry is materialized, and under a
+CacheWriteExec until then.  A logical node the port's API cannot build yet
 raises NotImplementedError, and so does monotonically_increasing_id()
 anywhere but a projection or a filter, the two operators that carry its
 running row base.
@@ -22,14 +28,19 @@ from . import logical as L
 from ..exec.aggregate import CpuHashAggregateExec
 from ..exec.base import CPU, Exec
 from ..exec.basic import (FilterExec, GlobalLimitExec, LocalLimitExec,
-                          LocalScanExec, ProjectExec)
+                          LocalScanExec, ProjectExec, RangeExec, SampleExec,
+                          UnionExec)
 from ..exec.gatherpart import GatherPartitionsExec
 from ..exec.join import plan_join
 from ..exec.sort import SortExec
 from ..exec.window import WindowExec
 from ..expr.core import AttributeReference
 from ..expr.hashfns import MonotonicallyIncreasingID
+from ..io.cached_batch import CacheManager, CachedScanExec, CacheWriteExec
 from ..io.scan import make_scan_exec
+from ..shuffle.exchange import ShuffleExchangeExec
+from ..shuffle.partitioning import (HashPartitioning, RangePartitioning,
+                                    RoundRobinPartitioning)
 
 
 def plan(lp: L.LogicalPlan, conf) -> Exec:
@@ -46,6 +57,8 @@ def _row_id_exprs(lp: L.LogicalPlan):
         return [lp.condition] if lp.condition is not None else []
     if isinstance(lp, L.Sort):
         return [e for e, _, _ in lp.orders]
+    if isinstance(lp, L.Repartition):
+        return list(lp.keys or [])
     if isinstance(lp, L.Window):
         return [x for w in lp.window_exprs
                 for x in [w, *w.spec.partition_by,
@@ -54,6 +67,16 @@ def _row_id_exprs(lp: L.LogicalPlan):
 
 
 def _plan(lp: L.LogicalPlan, conf) -> Exec:
+    entry = CacheManager.lookup(lp)
+    if entry is None:
+        return _plan_uncached(lp, conf)
+    if entry.materialized:
+        names, dtypes = lp.schema()
+        return CachedScanExec(entry, names, dtypes)
+    return CacheWriteExec(entry, _plan_uncached(lp, conf))
+
+
+def _plan_uncached(lp: L.LogicalPlan, conf) -> Exec:
     if any(e.collect(lambda x: isinstance(x, MonotonicallyIncreasingID))
            for e in _row_id_exprs(lp)):
         raise NotImplementedError(
@@ -62,6 +85,8 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
     if isinstance(lp, L.LocalRelation):
         return LocalScanExec(lp.table, lp.num_partitions,
                              pin_cache=lp.device_cache)
+    if isinstance(lp, L.Range):
+        return RangeExec(lp.start, lp.end, lp.step, lp.num_partitions)
     if isinstance(lp, L.FileRelation):
         return make_scan_exec(lp, conf)
     if isinstance(lp, L.Project):
@@ -83,8 +108,6 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
         if child.num_partitions > 1:
             # co-locate groups: a hash exchange on the grouping keys
             if lp.grouping:
-                from ..shuffle.exchange import ShuffleExchangeExec
-                from ..shuffle.partitioning import HashPartitioning
                 child = ShuffleExchangeExec(
                     HashPartitioning(lp.grouping, child.num_partitions),
                     child)
@@ -98,8 +121,6 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
         child = _plan(lp.children[0], conf)
         if lp.is_global and child.num_partitions > 1:
             # a total order: range-partition, then sort within partitions
-            from ..shuffle.exchange import ShuffleExchangeExec
-            from ..shuffle.partitioning import RangePartitioning
             child = ShuffleExchangeExec(
                 RangePartitioning(lp.orders, child.num_partitions), child)
         return SortExec(lp.orders, child, is_global=lp.is_global)
@@ -127,13 +148,23 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
             same_keys = all([k.sql() for k in s.partition_by] ==
                             [k.sql() for k in pkeys] for s in specs)
             if pkeys and same_keys:
-                from ..shuffle.exchange import ShuffleExchangeExec
-                from ..shuffle.partitioning import HashPartitioning
                 child = ShuffleExchangeExec(
                     HashPartitioning(list(pkeys), child.num_partitions),
                     child)
             else:
                 child = GatherPartitionsExec(child)
         return WindowExec(lp.window_exprs, child)
+    if isinstance(lp, L.Union):
+        return UnionExec([_plan(c, conf) for c in lp.children])
+    if isinstance(lp, L.Distinct):
+        grouping = [AttributeReference(n) for n in lp.schema()[0]]
+        return _plan_uncached(L.Aggregate(grouping, [], lp.children[0]),
+                              conf)
+    if isinstance(lp, L.Sample):
+        return SampleExec(lp.fraction, lp.seed, _plan(lp.children[0], conf))
+    if isinstance(lp, L.Repartition):
+        part = HashPartitioning(lp.keys, lp.num_partitions) if lp.keys \
+            else RoundRobinPartitioning(lp.num_partitions)
+        return ShuffleExchangeExec(part, _plan(lp.children[0], conf))
     raise NotImplementedError(
         f"logical plan node {type(lp).__name__} is not ported yet")

@@ -74,8 +74,11 @@ class ShuffleExchangeExec(Exec):
         blocks: Dict[int, List[DeviceBatch]] = {p: [] for p in range(n)}
         for map_id in range(child.num_partitions):
             pieces: Dict[int, List[DeviceBatch]] = {}
+            row_offset = 0
             for b in self.child_batches(0, map_id, ctx):
-                pids = self.partitioning.partition_ids(EvalContext(b), b)
+                pids = self.partitioning.partition_ids(EvalContext(b), b,
+                                                       row_offset)
+                row_offset += b.num_rows
                 sorted_b, counts = slice_batch_by_partition(b, pids, n)
                 start = 0
                 for p, cnt in enumerate(counts):

@@ -1,11 +1,12 @@
-"""Hash and range partitioning.
+"""Hash, round-robin and range partitioning.
 
 Counterpart of spark_rapids_tpu/shuffle/partitioning.py (Partitioning,
-HashPartitioning, RangePartitioning and slice_batch_by_partition), so
-the port routes every row to the partition the reference routes it to:
-Spark's pmod(murmur3(keys), n) for hash partitioning; for range
-partitioning the number of sampled bounds at or below the row's sort
-key words.
+HashPartitioning, RoundRobinPartitioning, RangePartitioning and
+slice_batch_by_partition), so the port routes every row to the
+partition the reference routes it to: Spark's pmod(murmur3(keys), n)
+for hash partitioning; for round robin the row's index in its map
+partition mod n; for range partitioning the number of sampled bounds at
+or below the row's sort key words.
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ class Partitioning:
     def bind(self, names, dtypes) -> "Partitioning":
         return self
 
-    def partition_ids(self, ctx: EvalContext, batch: DeviceBatch
-                      ) -> torch.Tensor:
-        """int32[cap]: the partition of every row."""
+    def partition_ids(self, ctx: EvalContext, batch: DeviceBatch,
+                      row_offset: int = 0) -> torch.Tensor:
+        """int32[cap]: the partition of every row; ``row_offset`` is the
+        number of rows of the map partition before this batch."""
         raise NotImplementedError
 
     def describe(self) -> str:
@@ -49,10 +51,25 @@ class HashPartitioning(Partitioning):
             [bind_expression(k, names, dtypes) for k in self.keys])
         return out
 
-    def partition_ids(self, ctx, batch):
+    def partition_ids(self, ctx, batch, row_offset=0):
         h = self._bound.eval(ctx).col.data.to(torch.int64)
         # Spark's pmod: torch's remainder takes the divisor's sign
         return torch.remainder(h, self.num_partitions).to(torch.int32)
+
+
+class RoundRobinPartitioning(Partitioning):
+    """Row i of a map partition goes to partition i mod n, i counted in
+    int32 as the reference counts it (past 2^31 it wraps, and the mod
+    takes the divisor's sign)."""
+
+    def __init__(self, num_partitions: int):
+        self.num_partitions = num_partitions
+
+    def partition_ids(self, ctx, batch, row_offset=0):
+        idx = torch.arange(batch.capacity, dtype=torch.int64,
+                           device=batch.device) + row_offset
+        idx = ((idx + 2**31) & 0xFFFFFFFF) - 2**31     # int32 wrap
+        return torch.remainder(idx, self.num_partitions).to(torch.int32)
 
 
 class RangePartitioning(Partitioning):
@@ -92,7 +109,7 @@ class RangePartitioning(Partitioning):
         picks = picks.clamp(0, batch.capacity - 1)
         self.bounds_words = [w[order][picks] for w in words]
 
-    def partition_ids(self, ctx, batch):
+    def partition_ids(self, ctx, batch, row_offset=0):
         if self.bounds_words is None:
             self.compute_bounds(ctx, batch)
         words = self._row_words(ctx)

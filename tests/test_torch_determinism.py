@@ -1,9 +1,11 @@
 """The port's operators declare the reference's replay classes.
 
 The same plan is built in both packages on the CPU (scan, filter,
-project, the file scan, the grouped aggregate in each mode with integer and float
-buffers and with the canonical keyed merge on and off, the hash join of
-every type and the nested-loop join), and ``determinism()`` of each
+project, the file scan, range, union, sample, the round-robin exchange,
+the cache write and the cached scan, the grouped aggregate in each mode
+with integer and float buffers and with the canonical keyed merge on and
+off, the hash join of every type and the nested-loop join), and
+``determinism()`` of each
 operator must agree: None where the reference returns None, else the
 same class and the same flags.
 """
@@ -22,6 +24,7 @@ from spark_rapids_tpu.exec import join as rjoin
 from spark_rapids_tpu.expr import aggregates as raggs
 from spark_rapids_tpu.expr import core as rcore
 from spark_rapids_tpu.expr import predicates as rpred
+from spark_rapids_tpu.io import cached_batch as rcached
 from spark_rapids_tpu.io import scan as rscan
 from spark_rapids_tpu.shuffle import exchange as rexchange
 from spark_rapids_tpu.shuffle import partitioning as rpartitioning
@@ -36,6 +39,7 @@ from spark_rapids_tpu_torch.exec import join as pjoin
 from spark_rapids_tpu_torch.expr import aggregates as paggs
 from spark_rapids_tpu_torch.expr import core as pcore
 from spark_rapids_tpu_torch.expr import predicates as ppred
+from spark_rapids_tpu_torch.io import cached_batch as pcached
 from spark_rapids_tpu_torch.io import scan as pscan
 from spark_rapids_tpu_torch.shuffle import exchange as pexchange
 from spark_rapids_tpu_torch.shuffle import partitioning as ppartitioning
@@ -44,12 +48,12 @@ REF = dict(basic=rbasic, agg=ragg, join=rjoin, aggs=raggs,
            core=rcore, pred=rpred, Agg=ragg.TpuHashAggregateExec,
            base=rbase, broadcast=rbroadcast, gather=rgather,
            exchange=rexchange, partitioning=rpartitioning, scan=rscan,
-           conf=rconfig)
+           conf=rconfig, cached=rcached)
 PORT = dict(basic=pbasic, agg=pagg, join=pjoin, aggs=paggs,
             core=pcore, pred=ppred, Agg=pagg.GpuHashAggregateExec,
             base=pbase, broadcast=pbroadcast, gather=pgather,
             exchange=pexchange, partitioning=ppartitioning, scan=pscan,
-            conf=pconfig)
+            conf=pconfig, cached=pcached)
 FLAGS = ("cls", "order_sensitive_selection", "establishes_order",
          "partition_scoped", "canonicalizable")
 
@@ -155,6 +159,18 @@ PLANS = {
         filt(lib)),
     "transitions": lambda lib: lib["base"].DeviceToHostExec(
         lib["base"].HostToDeviceExec(scan(lib))),
+    # the DataFrame surface: range, union, sample, round robin and the
+    # parquet cached batch
+    "range": lambda lib: lib["basic"].RangeExec(0, 100, 3, 2),
+    "union": lambda lib: lib["basic"].UnionExec([scan(lib), filt(lib)]),
+    "sample": lambda lib: lib["basic"].SampleExec(0.3, 7, filt(lib)),
+    "round_robin_exchange": lambda lib: lib["exchange"].ShuffleExchangeExec(
+        lib["partitioning"].RoundRobinPartitioning(4), scan(lib)),
+    "cache_write": lambda lib: lib["cached"].CacheWriteExec(
+        lib["cached"].CacheEntry(None), filt(lib)),
+    "cached_scan": lambda lib: lib["cached"].CachedScanExec(
+        lib["cached"].CacheEntry(None), ["k", "v", "f"],
+        lib["basic"].LocalScanExec(table())._types),
 }
 
 

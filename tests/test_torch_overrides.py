@@ -183,6 +183,22 @@ PARITY = {
     "null_literal_and": (
         lambda s, F, col, lit, fact, dim: s.create_dataframe(fact).filter(
             (col("v") > 0) & (col("k") == lit(None))), {}),
+    "range_aggregate_2_partitions": (
+        lambda s, F, col, lit, fact, dim: s.range(
+            -300, 900, 7, num_partitions=2).group_by(
+            (col("id") % 10).alias("m")).agg(F.sum(col("id")).alias("s"),
+                                             F.count("*").alias("c")), {}),
+    "union_1_and_4_partitions": (
+        lambda s, F, col, lit, fact, dim: s.create_dataframe(fact).union(
+            s.create_dataframe(fact, num_partitions=4).filter(
+                col("v") > 0)), {}),
+    "distinct_4_partitions": (
+        lambda s, F, col, lit, fact, dim: s.create_dataframe(
+            fact, num_partitions=4).select(col("k"), col("v") % 7).distinct(),
+        {}),
+    "sample_filter": (
+        lambda s, F, col, lit, fact, dim: s.create_dataframe(fact).sample(
+            0.3, seed=7).filter(col("v") > -20), {}),
 }
 
 
