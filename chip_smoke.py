@@ -104,6 +104,25 @@ decode and upload; after unpersist), a limit(5) run that must not
 materialize it, and the whole string table's (s, c, v), 2^25 rows, through
 the cache; count(), dtypes, to_pandas() and GroupedData's sum, count,
 min, max and avg on q1's shape.
+The flat types: K3's 128-bit sum and DECIMAL128 min and max
+against the plain version on its planned path, the direct one and the
+records (2^25 rows with TPC-H Q1's 6 groups and with 100,000,
+DECIMAL(15,2) and DECIMAL(30,2) values whose adds carry out of the low
+word, and edge shapes: no rows, one row, tile edges, an all-null group,
+sums that wrap past 2^127), and through 8 exec batches and the merge of
+their 128-bit buffers against pyarrow; K1, K8, K13, K10 and K5 on int16 lanes
+against their plain versions at 1-65,537 rows and at 2^25 (K5 at q2's
+shapes), each timed beside its 4-byte lane; q1d, TPC-H Q1 over a 2^25
+row lineitem with DATE and DECIMAL(15,2) columns as the reference keeps
+it on its device (the sums on 128-bit buffers, min and max of a
+decimal and a date, count; 1 and 4 partitions, every operator on the
+GPU), and the Q1 text over its first 2^24 rows with its products and
+averages on the CPU engine and the reference's placements, each equal
+to an exact numpy and Python-int oracle; qn, a 2^25-row table of BYTE, SHORT, FLOAT, DATE,
+TIMESTAMP and DECIMAL(9,2) columns (10 % null): a filter on the SHORT
+and FLOAT columns, a group-by on (BYTE, DATE) with the sums, mins and
+maxes of the others, a sort on (TIMESTAMP desc, FLOAT) and its TopN,
+and a parquet write read back, each equal to pyarrow or numpy.
 Launch counts are reset just before each main-path run and must be > 0
 after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
@@ -581,7 +600,7 @@ def _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
     words = [w for c in batch.columns[:WIDE_KEYS]
              for w in seg.key_words_for_column(agg_mod._prefix(c, n))]
     vals = [agg_mod._prefix(c, n) for c in batch.columns[WIDE_KEYS:]]
-    sums, contribs, _, _ = agg_mod.k3_ops(vals, ["sum"] * WIDE_SUMS)
+    sums, contribs, _, _, _ = agg_mod.k3_ops(vals, ["sum"] * WIDE_SUMS)
     args = (words, None, sums, contribs, False, carry.sort_order(words))
     k3 = agg_mod.segment_reduce_sorted
     want = agg_mod.segment_reduce_sorted_plain(*args)
@@ -1016,19 +1035,22 @@ def _same_lanes(torch, a, b):
 
 class _Capture:
     """While open, keeps the arguments of every call of the wrappers
-    ``names`` of ``module``; each call still launches its kernel.  A
-    wrapper counts its launches through its module's name, so the spy
-    carries a count that goes back to the wrapper on exit."""
+    ``names`` of ``module`` (``calls``: name and positional arguments;
+    ``kwargs``: each call's keywords); each call still launches its
+    kernel.  A wrapper counts its launches through its module's name, so
+    the spy carries a count that goes back to the wrapper on exit."""
 
     def __init__(self, module, *names):
-        self.module, self.names, self.calls = module, names, []
+        self.module, self.names, self.calls, self.kwargs = \
+            module, names, [], []
 
     def __enter__(self):
         self.orig = {n: getattr(self.module, n) for n in self.names}
         for n, fn in self.orig.items():
-            def spy(*args, _fn=fn, _n=n):
+            def spy(*args, _fn=fn, _n=n, **kwargs):
                 self.calls.append((_n, args))
-                return _fn(*args)
+                self.kwargs.append(kwargs)
+                return _fn(*args, **kwargs)
             spy.launches = 0
             setattr(self.module, n, spy)
         return self
@@ -2416,6 +2438,559 @@ def _k3_no_op_check(torch, cap, agg_mod, what):
     return calls
 
 
+# ---------------------------------------------------------------------------
+# the flat types: q1d, q1 and qn, K3's 128-bit folds, 2-byte lanes
+# ---------------------------------------------------------------------------
+
+Q1_CUTOFF = 10471          # date '1998-09-02' in days since 1970-01-01
+Q1_DAY0, Q1_DAY1 = 8036, 10561   # 1992-01-02 and 1998-12-01
+# the reference's placements of the TPC-H Q1 text (the CPU probe that
+# tests/test_torch_decimal.py pins), "Tpu" read as "Gpu"
+Q1_PLACEMENTS = [
+    ("DeviceToHostExec", "cpu"), ("CoalesceBatchesExec", "gpu"),
+    ("SortExec", "gpu"), ("HostToDeviceExec", "gpu"),
+    ("CpuHashAggregateExec", "cpu"), ("ProjectExec", "cpu"),
+    ("DeviceToHostExec", "cpu"), ("FilterExec", "gpu"),
+    ("LocalScanExec", "gpu")]
+SHORT_ROWS = (1, 2, 3, 255, 257, 6143, 6145, 65535, 65537)
+# the Q1 text's rows: its CPU engine stages (the int128 products and
+# pyarrow's decimal group-by) took 26-35 s over 2^25 rows on the H100's
+# host, so it runs over the largest power of two that keeps them under
+# about 30 s
+Q1_TEXT_ROWS = ROWS // 2
+
+
+def _decimal_array(lo, hi, precision, scale, valid=None):
+    """A decimal128 array from numpy int64 low and high words."""
+    n = len(lo)
+    bitmap = None if valid is None else pa.py_buffer(
+        np.packbits(valid, bitorder="little"))
+    return pa.Array.from_buffers(
+        pa.decimal128(precision, scale), n,
+        [bitmap, pa.py_buffer(np.stack([lo, hi], 1).astype(np.int64)
+                              .tobytes())],
+        0 if valid is None else int((~valid).sum()))
+
+
+def _lineitem(n, seed=SEED):
+    """A TPC-H lineitem of n rows in TPC-H's value ranges: DECIMAL(15,2)
+    quantity (1-50), extended price (up to 104,949.50), discount
+    (0.00-0.10) and tax (0.00-0.08), the two one-letter flags and the
+    ship date (1992-01-02 to 1998-12-01).  Returns (table, the unscaled
+    numpy columns and the flags' codes)."""
+    rng = np.random.default_rng(seed)
+    raw = dict(qty=rng.integers(1, 51, n) * 100,
+               price=rng.integers(90000, 10494951, n),
+               disc=rng.integers(0, 11, n), tax=rng.integers(0, 9, n),
+               ship=rng.integers(Q1_DAY0, Q1_DAY1 + 1, n).astype(np.int32),
+               rf=rng.integers(0, 3, n), ls=rng.integers(0, 2, n))
+    zero = np.zeros(n, np.int64)
+    table = pa.table({
+        "l_quantity": _decimal_array(raw["qty"], zero, 15, 2),
+        "l_extendedprice": _decimal_array(raw["price"], zero, 15, 2),
+        "l_discount": _decimal_array(raw["disc"], zero, 15, 2),
+        "l_tax": _decimal_array(raw["tax"], zero, 15, 2),
+        "l_returnflag": _one_byte(raw["rf"], b"ANR"),
+        "l_linestatus": _one_byte(raw["ls"], b"FO"),
+        "l_shipdate": pa.Array.from_buffers(
+            pa.date32(), n, [None, pa.py_buffer(raw["ship"])])})
+    return table, raw
+
+
+def _q1d_df(session, table, parts, F, col, lit):
+    import datetime
+    return (session.create_dataframe(table, num_partitions=parts)
+            .filter(col("l_shipdate") <= lit(datetime.date(1998, 9, 2)))
+            .group_by(col("l_returnflag"), col("l_linestatus"))
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.sum(col("l_extendedprice")).alias("sum_base_price"),
+                 F.sum(col("l_discount")).alias("sum_disc"),
+                 F.min(col("l_extendedprice")).alias("min_price"),
+                 F.max(col("l_extendedprice")).alias("max_price"),
+                 F.min(col("l_shipdate")).alias("min_ship"),
+                 F.max(col("l_shipdate")).alias("max_ship"),
+                 F.count("*").alias("count_order"))
+            .sort(col("l_returnflag"), col("l_linestatus")))
+
+
+def _q1_df(session, table, F, col, lit):
+    """The TPC-H Q1 text: the two products projected, then the
+    aggregate with its averages (the CPU engine's, as the reference
+    places it)."""
+    import datetime
+    price, disc = col("l_extendedprice"), col("l_discount")
+    disc_price = price * (lit(1) - disc)
+    return (session.create_dataframe(table)
+            .filter(col("l_shipdate") <= lit(datetime.date(1998, 9, 2)))
+            .select(col("l_returnflag"), col("l_linestatus"),
+                    col("l_quantity"), price, disc,
+                    disc_price.alias("disc_price"),
+                    (disc_price * (lit(1) + col("l_tax"))).alias("charge"))
+            .group_by(col("l_returnflag"), col("l_linestatus"))
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.sum(price).alias("sum_base_price"),
+                 F.sum(col("disc_price")).alias("sum_disc_price"),
+                 F.sum(col("charge")).alias("sum_charge"),
+                 F.avg(col("l_quantity")).alias("avg_qty"),
+                 F.avg(price).alias("avg_price"),
+                 F.avg(disc).alias("avg_disc"),
+                 F.count("*").alias("count_order"))
+            .sort(col("l_returnflag"), col("l_linestatus")))
+
+
+def _half_up(num, den):
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return q if num >= 0 else -q
+
+
+def _q1_oracles(raw):
+    """q1d's and q1's rows from numpy on the unscaled int64 columns (every
+    per-group sum fits int64 at 2^25 rows) and Python ints: the sums
+    exact, each average HALF_UP at its input's scale (the reference's CPU
+    engine, pyarrow's decimal mean), as decimals."""
+    import decimal
+    D = decimal.Decimal
+    keep = raw["ship"] <= Q1_CUTOFF
+    group = raw["rf"] * 2 + raw["ls"]       # A < N < R, F < O
+    disc_price = raw["price"] * (100 - raw["disc"])
+    charge = disc_price * (100 + raw["tax"])
+    q1d, q1 = [], []
+    for g in range(6):
+        m = keep & (group == g)
+        cnt = int(m.sum())
+        if not cnt:
+            continue
+        s = {k: int(raw[k][m].sum()) for k in ("qty", "price", "disc")}
+        q1d.append(dict(
+            sum_qty=D(s["qty"]).scaleb(-2),
+            sum_base_price=D(s["price"]).scaleb(-2),
+            sum_disc=D(s["disc"]).scaleb(-2),
+            min_price=D(int(raw["price"][m].min())).scaleb(-2),
+            max_price=D(int(raw["price"][m].max())).scaleb(-2),
+            min_ship=int(raw["ship"][m].min()),
+            max_ship=int(raw["ship"][m].max()), count_order=cnt))
+        q1.append(dict(
+            sum_qty=D(s["qty"]).scaleb(-2),
+            sum_base_price=D(s["price"]).scaleb(-2),
+            sum_disc_price=D(int(disc_price[m].sum())).scaleb(-4),
+            sum_charge=D(int(charge[m].sum())).scaleb(-6),
+            avg_qty=D(_half_up(s["qty"], cnt)).scaleb(-2),
+            avg_price=D(_half_up(s["price"], cnt)).scaleb(-2),
+            avg_disc=D(_half_up(s["disc"], cnt)).scaleb(-2),
+            count_order=cnt))
+    return q1d, q1
+
+
+def _check_rows(got, want, what):
+    """``got`` (an Arrow table) holds ``want``'s rows, exactly."""
+    import datetime
+    epoch = datetime.date(1970, 1, 1)
+    if got.num_rows != len(want):
+        raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
+                             f"{len(want)}")
+    for name in want[0]:
+        mine = got.column(name).to_pylist()
+        if mine and isinstance(mine[0], datetime.date):
+            mine = [(d - epoch).days for d in mine]
+        theirs = [r[name] for r in want]
+        if mine != theirs:
+            raise AssertionError(f"{what}: column {name} {mine} != "
+                                 f"{theirs}")
+
+
+def _decimal_table(n, seed=SEED):
+    """n rows of a key k (1,000 groups), a DECIMAL(15,2) d15 and a
+    DECIMAL(30,2) d30 whose high words are non-zero and whose low words
+    carry when added, each 10 % null."""
+    rng = np.random.default_rng(seed + 2)
+    lo15 = rng.integers(-10**13, 10**13, n)
+    lo30 = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    hi30 = rng.integers(-2**34, 2**34, n)
+    v15, v30 = rng.random(n) >= 0.1, rng.random(n) >= 0.1
+    return pa.table({
+        "k": pa.array(rng.integers(0, 1000, n).astype(np.int64)),
+        "d15": _decimal_array(lo15, lo15 >> 63, 15, 2, v15),
+        "d30": _decimal_array(lo30, hi30, 30, 2, v30)})
+
+
+def _check_decimal_groups(got, want, what):
+    """The exec's rows equal pyarrow's group-by (sums, min, max as
+    decimals, counts) group for group."""
+    rows = {r["k"]: r for r in got.to_pylist()}
+    for w in want.to_pylist():
+        r = rows.pop(w["k"], None)
+        if r is None or (r["s15"], r["s30"], r["mn"], r["mx"], r["c"]) != (
+                w["d15_sum"], w["d30_sum"], w["d30_min"], w["d30_max"],
+                w["k_count"]):
+            raise AssertionError(f"{what}: group {w['k']} {r} != {w}")
+    if rows:
+        raise AssertionError(f"{what}: {len(rows)} groups pyarrow lacks")
+
+
+def _narrow_table(n, seed=SEED):
+    """qn's table: BYTE, SHORT, FLOAT, DATE (30 days), TIMESTAMP (us,
+    UTC) and DECIMAL(9,2) columns, each 10 % null, with a row id."""
+    rng = np.random.default_rng(seed + 1)
+
+    def valid():
+        return rng.random(n) >= 0.1
+
+    vals = dict(b=rng.integers(-128, 128, n).astype(np.int8),
+                s=rng.integers(-32768, 32768, n).astype(np.int16),
+                f=(rng.standard_normal(n) * 100).astype(np.float32),
+                dt=rng.integers(10000, 10030, n).astype(np.int32),
+                ts=rng.integers(-2**50, 2**50, n),
+                dec=rng.integers(-(10**9) + 1, 10**9, n))
+    masks = {k: valid() for k in vals}
+    cols = {"rid": pa.array(np.arange(n, dtype=np.int64))}
+    for k, v in vals.items():
+        if k == "dec":
+            cols[k] = _decimal_array(v, v >> 63, 9, 2, masks[k])
+            continue
+        typ = {"dt": pa.date32(), "ts": pa.timestamp("us", tz="UTC")}.get(
+            k, pa.from_numpy_dtype(v.dtype))
+        cols[k] = pa.Array.from_buffers(
+            typ, n, [pa.py_buffer(np.packbits(masks[k], bitorder="little")),
+                     pa.py_buffer(v)], int((~masks[k]).sum()))
+    return pa.table(cols), vals, masks
+
+
+def _qn_sort_oracle(vals, masks):
+    """The row order of sort(ts desc, f): ts descending with nulls last,
+    then f ascending with nulls first, then input order (pyarrow's
+    stable sort over four derived keys)."""
+    keys = pa.table({
+        "ts_null": ~masks["ts"], "ts": np.where(masks["ts"], -vals["ts"], 0),
+        "f_valid": masks["f"],
+        "f": np.where(masks["f"], vals["f"].astype(np.float64), 0.0)})
+    return pc.sort_indices(keys, sort_keys=[
+        (k, "ascending") for k in keys.column_names]).to_numpy()
+
+
+def _qn_group_oracle(table):
+    """pyarrow's group_by over (b, dt): the sums of s, f (as float64) and
+    dec, the min and max of s, f, ts and dec, and the count; rows as
+    dicts keyed by (b, dt)."""
+    t2 = table.append_column("f64", table["f"].cast(pa.float64()))
+    res = pa.TableGroupBy(t2, ["b", "dt"], use_threads=False).aggregate(
+        [("s", "sum"), ("s", "min"), ("s", "max"), ("f64", "sum"),
+         ("f", "min"), ("f", "max"), ("ts", "min"), ("ts", "max"),
+         ("dec", "sum"), ("dec", "min"), ("dec", "max"), ("rid", "count")])
+    return {(r["b"], r["dt"]): r for r in res.to_pylist()}
+
+
+def _check_qn_groups(got, want, what):
+    rows = {(r["b"], r["dt"]): r for r in got.to_pylist()}
+    if rows.keys() != want.keys():
+        raise AssertionError(f"{what}: {len(rows)} groups, oracle "
+                             f"{len(want)}")
+    exact = [("ss", "s_sum"), ("mns", "s_min"), ("mxs", "s_max"),
+             ("mnf", "f_min"), ("mxf", "f_max"), ("mnt", "ts_min"),
+             ("mxt", "ts_max"), ("sd", "dec_sum"), ("mnd", "dec_min"),
+             ("mxd", "dec_max"), ("c", "rid_count")]
+    for key, r in rows.items():
+        w = want[key]
+        for mine, theirs in exact:
+            if r[mine] != w[theirs]:
+                raise AssertionError(f"{what}: group {key} {mine} "
+                                     f"{r[mine]} != {w[theirs]}")
+        a, b = r["sf"], w["f64_sum"]
+        if (a is None) != (b is None) or (
+                a is not None and abs(a - b) > 1e-9 * max(abs(b), 1.0)):
+            raise AssertionError(f"{what}: group {key} sum(f) {a} != {b}")
+
+
+def _short_lane_cases(torch, dev, carry, gather, fetch, jk, t,
+                      DeviceColumn, bucket_for, cuda_ms, rows):
+    """K1, K8, K10, K13 and K5 on int16 lanes against their plain versions,
+    exactly: at SHORT_ROWS and at ``rows`` (K5 at q2's shapes), every path
+    of K8 and K13; returns (cases, the 2-byte and 4-byte times of each
+    kernel at ``rows``, and each 2-byte row's plain time, bound and
+    library call)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases, times = 0, {}
+
+    def short(n):
+        return torch.randint(-2**15, 2**15, (n,), generator=gen,
+                             device=dev, dtype=torch.int16)
+
+    def same(a, b, what):
+        nonlocal cases
+        cases += 1
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what} differs from its plain version")
+
+    for n in SHORT_ROWS + (rows,):
+        lane = short(n)
+        keep = torch.rand(n, generator=gen, device=dev) < 0.6
+        valid = torch.rand(n, generator=gen, device=dev) < 0.9
+        lanes, clear = [lane, valid], [False, True]
+        got, k = carry.compact_lanes(keep, lanes, clear)
+        want, k_p = carry.compact_lanes_plain(keep, lanes, clear)
+        if k != k_p:
+            raise AssertionError(f"K1 kept {k} vs {k_p} of {n} int16 rows")
+        same(got, want, f"K1 on {n} int16 rows")
+        order = torch.randint(0, n, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        for packed in (False, True):
+            same(gather.gather_rows(order, [lane, valid], packed=packed),
+                 gather.gather_rows_plain(order, [lane, valid]),
+                 f"K8 (packed={packed}) on {n} int16 rows")
+        for binned in (False, True):
+            same(gather.scatter_rows(perm, [lane, valid], binned=binned),
+                 gather.scatter_rows_plain(perm, [lane, valid]),
+                 f"K13 (binned={binned}) on {n} int16 rows")
+        stats = fetch.lane_stats([lane, valid], n).tolist()
+        plan, mins = fetch.build_plan([lane, valid], stats)
+        if plan[0] != ("none",):
+            raise AssertionError(f"the fetch plans {plan[0]} for an int16 "
+                                 f"lane; it moves as it is")
+        same([fetch.pack_lanes([lane, valid], plan, mins, n)],
+             [fetch.pack_lanes_plain([lane, valid], plan, mins, n)],
+             f"K10 on {n} int16 rows")
+    # the 2-byte variants beside the 4-byte ones at the full rows; each
+    # 2-byte row's plain version, bound (each byte once) and library call
+    n = rows
+    lane16 = short(n)
+    lane32 = lane16.to(torch.int32)
+    keep = torch.rand(n, generator=gen, device=dev) < 0.6
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    for w, lane in ((2, lane16), (4, lane32)):
+        times[f"K1_{w}B"] = cuda_ms(lambda: carry.compact_lanes(
+            keep, [lane], [False]))
+        times[f"K8_{w}B"] = cuda_ms(lambda: gather.gather_rows(perm, [lane]))
+        times[f"K13_{w}B"] = cuda_ms(lambda: gather.scatter_rows(perm,
+                                                                 [lane]))
+        times[f"K10_{w}B"] = cuda_ms(lambda: fetch.pack_lanes(
+            [lane], [("none",)], [0], n))
+    idx = perm.to(torch.int64)
+    info = {
+        "K1": dict(plain_ms=cuda_ms(lambda: carry.compact_lanes_plain(
+            keep, [lane16], [False]), reps=1),
+            bound_ms=5 * n / HBM_BYTES_PER_S * 1e3,
+            library_ms=cuda_ms(lambda: lane16[keep])),
+        "K8": dict(plain_ms=cuda_ms(lambda: gather.gather_rows_plain(
+            perm, [lane16]), reps=1),
+            bound_ms=8 * n / HBM_BYTES_PER_S * 1e3,
+            library_ms=cuda_ms(lambda: lane16.index_select(0, idx))),
+        "K13": dict(plain_ms=cuda_ms(lambda: gather.scatter_rows_plain(
+            perm, [lane16]), reps=1),
+            bound_ms=8 * n / HBM_BYTES_PER_S * 1e3,
+            library_ms=cuda_ms(lambda: torch.empty_like(lane16).index_copy_(
+                0, idx, lane16))),
+        "K10": dict(plain_ms=cuda_ms(lambda: fetch.pack_lanes_plain(
+            [lane16], [("none",)], [0], n), reps=1),
+            bound_ms=4 * n / HBM_BYTES_PER_S * 1e3, library_ms=None)}
+    # K5 on q2's shapes: 100,000 unique build keys, the fact's probe keys
+    n_b = DIM_ROWS
+    bk = torch.randperm(n_b, generator=gen, device=dev)
+    pk = torch.randint(0, 2 * n_b, (n,), generator=gen, device=dev)
+    for w in (2, 4):
+        dt = torch.int16 if w == 2 else torch.int32
+
+        def cols(keys, m):
+            cap = bucket_for(m)
+            data = torch.zeros(cap, dtype=torch.int64, device=dev)
+            data[:m] = keys
+            live = torch.arange(cap, device=dev) < m
+            pay = torch.zeros(cap, dtype=dt, device=dev)
+            pay[:m] = short(m).to(dt)
+            return [DeviceColumn(t.LONG, data, live),
+                    DeviceColumn(t.SHORT if w == 2 else t.INT, pay, live)]
+        bcols, pcols = cols(bk, n_b), cols(pk, n)
+        if w == 2:
+            _join_case(torch, jk, bucket_for, bcols, n_b, pcols, n,
+                       f"with int16 payloads at {n} probe rows")
+            cases += 1
+            for m_b, m_p in ((1, 1), (2, 3), (3, 2)):
+                _join_case(torch, jk, bucket_for, cols(bk[:m_b], m_b),
+                           m_b, cols(pk[:m_p] % max(m_b, 1), m_p), m_p,
+                           f"with int16 payloads, {m_b} x {m_p} rows")
+                cases += 1
+        order, lo, counts = jk.count_matches(bcols[:1], n_b, pcols[:1], n)
+        plive = torch.arange(pcols[0].capacity, device=dev) < n
+        ends, total = jk.expand_ends(counts, plive, "inner")
+        total = int(total)
+        args = (ends, lo, counts, order, total, bucket_for(total), pcols,
+                bcols)
+        times[f"K5_{w}B"] = cuda_ms(lambda: jk.expand_pairs(*args))
+        if w == 2:
+            out = jk.expand_pairs(*args)
+            moved = sum(x.nbytes for x in (ends, lo, counts, order)) + sum(
+                c.data.nbytes + c.validity.nbytes for c in pcols + bcols) + \
+                out[0].nbytes + out[1].nbytes + sum(
+                    c.data.nbytes + c.validity.nbytes
+                    for c in list(out[2]) + list(out[3]))
+            info["K5"] = dict(plain_ms=cuda_ms(
+                lambda: jk.expand_pairs_plain(*args), reps=1),
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, library_ms=None)
+    for v in info.values():
+        v["rows"] = n
+    return cases, times, info
+
+
+def _k3_128_cases(torch, dev, agg_mod, carry, cuda_ms, rows):
+    """K3's 128-bit sum and DECIMAL128 min/max against the plain version,
+    exactly, on the planned path, the direct one and the records: at
+    ``rows`` rows with q1d's 6 groups and with 100,000, DECIMAL(15,2)
+    values (sign-extended high words) and DECIMAL(30,2) ones (high words
+    non-zero, low words near 2^64 so the adds carry), 10 % null; and at
+    edge shapes (no rows, one row, an all-null group, tile edges, wrap
+    past 2^127).  Returns (cases, the times at ``rows`` rows and 6
+    groups: planned, direct, records, plain, and the bound of that
+    synthetic call), which the kernel line keeps beside q1d's own call
+    (``_k3_call_row``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    k3 = agg_mod.segment_reduce_sorted
+    cases = 0
+
+    def values(n):
+        lo15 = torch.randint(-10**13, 10**13, (n,), generator=gen,
+                             device=dev)
+        hi30 = torch.randint(-2**34, 2**34, (n,), generator=gen, device=dev)
+        lo30 = torch.randint(-2**63, 2**63 - 1, (n,), generator=gen,
+                             device=dev)
+        near = torch.rand(n, generator=gen, device=dev) < 0.3
+        lo30 = torch.where(near, -torch.randint(1, 1000, (n,),
+                                                generator=gen, device=dev),
+                           lo30)       # 2^64 - x: every add carries
+        valid = torch.rand(n, generator=gen, device=dev) < 0.9
+        z = torch.zeros_like(lo15)
+        return (torch.where(valid, lo15, z), torch.where(valid, lo15 >> 63,
+                                                         z),
+                torch.where(valid, lo30, z), torch.where(valid, hi30, z),
+                valid)
+
+    def check(a, b, what):
+        nonlocal cases
+        cases += 1
+        if a[3] != b[3] or not torch.equal(a[0], b[0]):
+            raise AssertionError(f"K3 128-bit groups differ {what}")
+        for x, y, c, d in zip(a[1], b[1], a[2], b[2]):
+            if not torch.equal(c, d):
+                raise AssertionError(f"K3 128-bit counts differ {what}")
+            if x is None:
+                continue
+            if not (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])):
+                raise AssertionError(f"K3 128-bit results differ {what}")
+
+    ops = ["sum", "sum", "min", "max", "sum"]
+
+    def args(n, ngroups, global_agg=False):
+        lo15, hi15, lo30, hi30, valid = values(n)
+        keys = torch.randint(0, ngroups, (n,), generator=gen, device=dev)
+        words = [] if global_agg else [keys // 2, keys % 2]
+        order = carry.sort_order(words) if words else None
+        return (words, None, [lo15, lo30, lo30, lo30, None],
+                [valid] * 5, global_agg, order, ops), \
+            [hi15, hi30, hi30, hi30, None]
+
+    row = None
+    for n, ngroups in ((rows, 6), (rows, 100_000)):
+        a, his = args(n, ngroups)
+        want = agg_mod.segment_reduce_sorted_plain(*a, values_hi=his)
+        for packed in K3_PATHS:
+            check(k3(*a, packed=packed, values_hi=his), want,
+                  f"at {n} rows, {ngroups} groups, packed={packed}")
+        if ngroups == 6:
+            k3(*a, values_hi=his)
+            planned = k3.last_plan      # None for the plain version
+            row = dict(
+                ms=cuda_ms(lambda: k3(*a, values_hi=his)),
+                plain_ms=cuda_ms(lambda: agg_mod.segment_reduce_sorted_plain(
+                    *a, values_hi=his), reps=1),
+                # each input once: order, 2 key words, 4 lanes, 1 mask
+                bound_ms=n * (4 + 16 + 32 + 1) / HBM_BYTES_PER_S * 1e3,
+                path="plain" if planned is None else
+                "record" if planned.packed else "direct",
+                direct_ms=cuda_ms(lambda: k3(*a, packed=False,
+                                             values_hi=his)),
+                record_ms=cuda_ms(lambda: k3(*a, packed=True,
+                                             values_hi=his)))
+    # edge shapes
+    for n, ngroups, glob in ((0, 1, False), (0, 1, True), (1, 1, False),
+                             (1, 1, True), (2047, 3, False),
+                             (2048, 1, False), (2049, 7, False),
+                             (8191, 2, True), (8193, 40, False),
+                             (65537, 1000, False)):
+        a, his = args(n, ngroups, glob)
+        want = agg_mod.segment_reduce_sorted_plain(*a, values_hi=his)
+        for packed in K3_PATHS:
+            check(k3(*a, packed=packed, values_hi=his), want,
+                  f"at {n} rows, {ngroups} groups, global={glob}, "
+                  f"packed={packed}")
+    # an all-null group and sums that wrap past 2^127
+    n = 5000
+    big = torch.full((n,), -1, dtype=torch.int64, device=dev)   # 2^64 - 1
+    hi = torch.full((n,), 2**62, dtype=torch.int64, device=dev)
+    keys = torch.arange(n, device=dev) % 3
+    valid = keys != 1
+    for packed in K3_PATHS:
+        a = ([keys], None, [big, big, big], [valid] * 3, False,
+             carry.sort_order([keys]), ["sum", "min", "max"])
+        check(k3(*a, packed=packed, values_hi=[hi, hi, hi]),
+              agg_mod.segment_reduce_sorted_plain(
+                  *a, values_hi=[hi, hi, hi]),
+              f"wrapping sums and an all-null group, packed={packed}")
+    return cases, row
+
+
+def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
+    """Every K3 call a path made (captured by ``cap``), run again through
+    the kernel and its plain version on the same inputs and compared
+    exactly: groups, first rows, counts, and every result word (a 128-bit
+    op's low and high words, a float viewed as int64).  Returns the
+    kernel line's row for the first call: its time, the plain version's,
+    and its bound, the bytes the call must move once: the order, every
+    key word, the live flags, each distinct value lane and contributor
+    mask, and each group's first row, results and counts."""
+    orig = cap.orig["segment_reduce_sorted"]
+    plain = agg_mod.segment_reduce_sorted_plain
+    row = None
+    for (_, args), kw in zip(cap.calls, cap.kwargs):
+        got, want = orig(*args, **kw), plain(*args, **kw)
+        if got[3] != want[3] or not torch.equal(got[0], want[0]):
+            raise AssertionError(f"K3 groups or first rows differ at {what}")
+        for s, sp, c, cp in zip(got[1], want[1], got[2], want[2]):
+            if not torch.equal(c, cp):
+                raise AssertionError(f"K3 counts differ at {what}")
+            for x, y in ([] if s is None else zip(s, sp)
+                         if isinstance(s, tuple) else [(s, sp)]):
+                if x.dtype == torch.float64:
+                    x, y = x.view(torch.int64), y.view(torch.int64)
+                if not torch.equal(x, y):
+                    raise AssertionError(f"K3 results differ at {what}")
+        if row is not None:
+            continue
+        words, live, values, contribs, _, order, ops = args[:7]
+        his = kw.get("values_hi") or [None] * len(values)
+        lanes = {agg_mod._storage(x): x.nbytes
+                 for x in [*values, *his] if x is not None}
+        masks = {agg_mod._storage(c): c.nbytes for c in contribs}
+        per_group = 4 + sum(8 + 8 * (v is not None) + 8 * (h is not None)
+                            for v, h in zip(values, his))
+        moved = (0 if order is None else order.nbytes) + \
+            sum(w.nbytes for w in words) + \
+            (0 if live is None else live.nbytes) + \
+            sum(lanes.values()) + sum(masks.values()) + got[3] * per_group
+        n = int(contribs[0].shape[0])
+        plan = orig.last_plan
+        row = dict(ms=cuda_ms(lambda: orig(*args, **kw)),
+                   plain_ms=cuda_ms(lambda: plain(*args, **kw), reps=1),
+                   bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                   extra=dict(rows=n, groups=got[3], key_words=len(words),
+                              ops=list(ops), lanes=len(lanes),
+                              ops_128=sum(h is not None for h in his),
+                              bytes_a_row=round(moved / max(n, 1), 2),
+                              path="record" if plan.packed else "direct"))
+        del got, want
+    if row is None:
+        raise AssertionError(f"{what} made no K3 call to capture")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -2611,7 +3186,7 @@ def main() -> int:
 
         # K3 reads every lane in input order, through K2's order
         vals = [agg_mod._prefix(v, n) for v in val_cols]
-        sum_lanes, contribs, _, _ = agg_mod.k3_ops(vals, agg._update_ops)
+        sum_lanes, contribs, _, _, _ = agg_mod.k3_ops(vals, agg._update_ops)
         k3_args = (words, None, sum_lanes, contribs, False, order)
         res = agg_mod.segment_reduce_sorted(*k3_args)
         k3_err = _k3_diff(torch, res, agg_mod.segment_reduce_sorted_plain(
@@ -3836,7 +4411,7 @@ def main() -> int:
                 wx = [w for c in kx for w in seg.key_words_for_column(
                     agg_mod._prefix(c, nx))]
                 ox = carry.sort_order(wx)
-                lx, cx, opsx, _ = agg_mod.k3_ops(
+                lx, cx, opsx, _, _ = agg_mod.k3_ops(
                     [agg_mod._prefix(c, nx) for c in vx], aggx._update_ops)
                 x_args = (wx, None, lx, cx, False, ox, opsx)
                 res = agg_mod.segment_reduce_sorted(*x_args)
@@ -5712,6 +6287,256 @@ def main() -> int:
 
     del st_fact, st_dim
 
+    # ---- the flat types: K3's 128-bit folds, 2-byte lanes, q1d, q1, qn --
+    t_types = time.perf_counter()
+    k3_synth = None
+    try:
+        t1 = time.perf_counter()
+        n_cases, k3_synth = _k3_128_cases(torch, dev, agg_mod, carry,
+                                          cuda_ms, ROWS)
+        print(f"K3 128-bit sum and DECIMAL128 min/max: {n_cases} cases on "
+              f"the planned path, the direct one and the records, exact "
+              f"(DECIMAL(15,2) and DECIMAL(30,2), carries across the low "
+              f"word, wrap past 2^127, tile edges); the synthetic call "
+              f"({ROWS} rows, 6 groups, 2 key words, a DECIMAL(15,2) sum, "
+              f"sum, min and max of DECIMAL(30,2), a count) "
+              f"{k3_synth['ms']:.3f} ms planned ({k3_synth['path']}), "
+              f"direct {k3_synth['direct_ms']:.3f}, records "
+              f"{k3_synth['record_ms']:.3f}, plain "
+              f"{k3_synth['plain_ms']:.3f}, bound "
+              f"{k3_synth['bound_ms']:.3f}; "
+              f"{time.perf_counter() - t1:.1f} s; {card}")
+    except Exception:
+        failures.append("K3 128-bit")
+        traceback.print_exc()
+    try:
+        # K3's 128-bit buffers through PARTIAL (8 batches) and the merge
+        from spark_rapids_tpu_torch.expr.aggregates import Max, Min
+        t1 = time.perf_counter()
+        dec_table = _decimal_table(ROWS)
+        dec_want = pa.TableGroupBy(dec_table, ["k"], use_threads=False
+                                   ).aggregate([
+            ("d15", "sum"), ("d30", "sum"), ("d30", "min"), ("d30", "max"),
+            ("k", "count")])
+        print(f"decimal table of {ROWS} rows and its pyarrow oracle: "
+              f"{time.perf_counter() - t1:.1f} s")
+        dec_agg = GpuHashAggregateExec([A("k")], [
+            AggregateExpression(Sum(A("d15")), "s15"),
+            AggregateExpression(Sum(A("d30")), "s30"),
+            AggregateExpression(Min(A("d30")), "mn"),
+            AggregateExpression(Max(A("d30")), "mx"),
+            AggregateExpression(Count(None), "c")], COMPLETE,
+            LocalScanExec(dec_table, batch_rows=BATCH_ROWS))
+        _check_decimal_groups(dec_agg.execute_collect(ExecContext(dev)),
+                              dec_want, "decimal exec (cold)")
+        count_reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = dec_agg.execute_collect(ExecContext(dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches["dec_batches"] = counts()
+        _check_decimal_groups(got, dec_want, "decimal exec (8 batches)")
+        print(f"decimal exec ({ROWS // BATCH_ROWS} batches of {BATCH_ROWS} "
+              f"rows, group by k over 1,000 groups: sum of DECIMAL(15,2), "
+              f"sum, min and max of DECIMAL(30,2), count; each batch's "
+              f"update, then the merge of the 128-bit buffers): equals "
+              f"pyarrow; warm wall {wall * 1e3:.1f} ms; launches "
+              f"{launches['dec_batches']}; {card}")
+        del dec_table, dec_want, dec_agg, got
+    except Exception:
+        failures.append("decimal exec (8 batches)")
+        traceback.print_exc()
+    try:
+        t1 = time.perf_counter()
+        n_cases, times, info = _short_lane_cases(
+            torch, dev, carry, gather_mod, fetch, jk, t, DeviceColumn,
+            bucket_for, cuda_ms, ROWS)
+        print(f"2-byte lanes: {n_cases} cases of K1, K8 (both paths), K13 "
+              f"(both paths), K10 and K5 on int16 lanes at n = "
+              f"{', '.join(str(x) for x in SHORT_ROWS)} and {ROWS}, "
+              f"exact; at {ROWS} rows (ms) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+              + f"; {time.perf_counter() - t1:.1f} s; {card}")
+        for name, src, rep, k in (
+                ("compact_rows", "compact.cu", "ops/carry.py:151", "K1"),
+                ("gather_rows", "gather_rows.cu", "ops/carry.py:162", "K8"),
+                ("scatter_rows", "scatter_rows.cu", "exec/window.py:517",
+                 "K13"),
+                ("pack_lanes", "fetch_pack.cu", "columnar/fetch.py:330",
+                 "K10"),
+                ("expand_pairs", "join_expand.cu",
+                 "ops/join_kernels.py:111", "K5")):
+            r = info[k]
+            kernel_rows[f"{name}_int16"] = dict(
+                source=f"spark_rapids_tpu_torch/csrc/{src}",
+                replaces=f"spark_rapids_tpu/{rep}", max_abs_err=0.0,
+                ms=times[f"{k}_2B"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], library_ms=r["library_ms"],
+                extra=dict(ms_4_byte_lane=times[f"{k}_4B"],
+                           rows=r["rows"]))
+    except Exception:
+        failures.append("2-byte lanes")
+        traceback.print_exc()
+
+    def path_run(run, fn, check, what, reps=3):
+        """A main-path run of the types slice: cold, then ``reps`` warm
+        runs (the first with its launches counted), then a trace; each
+        result checked."""
+        t1 = time.perf_counter()
+        check(fn(), f"{what} (cold)")
+        cold = time.perf_counter() - t1
+        count_reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        walls = [(time.perf_counter() - t1) * 1e3]
+        launches[run] = counts()
+        check(got, what)
+        walls += timed_walls(fn, reps - 1)
+        trace = _profile(torch, fn)
+        k3_ms = sum(ms for n, ms in trace["top"] if "fold_kernel" in n)
+        print(f"{what}: equals its oracle; cold wall {cold * 1e3:.1f} ms, "
+              f"warm walls {', '.join(f'{w:.1f}' for w in walls)} ms, "
+              f"median {sorted(walls)[len(walls) // 2]:.1f}; busy "
+              f"{trace['busy_ms']:.2f} "
+              f"ms, idle share {trace['idle_share']:.3f}; K3's fold "
+              f"{k3_ms:.3f} ms; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; top "
+              f"kernels (ms): "
+              + ", ".join(f"{n}={ms:.3f}" for n, ms in trace["top"][:6])
+              + f"; launches {launches[run]}; {card}")
+        return got
+
+    li_table = li_raw = None
+    try:
+        t1 = time.perf_counter()
+        li_table, li_raw = _lineitem(ROWS)
+        q1d_want, _ = _q1_oracles(li_raw)
+        print(f"lineitem of {ROWS} rows and the q1d / q1 numpy oracles: "
+              f"{time.perf_counter() - t1:.1f} s")
+        for parts in (1, 4):
+            sd = GpuSession()
+            dfd = _q1d_df(sd, li_table, parts, F, col, lit)
+            what = f"q1d over {parts} partition(s)"
+            path_run("q1d" if parts == 1 else "q1d_4", dfd.collect,
+                     lambda got, w: _check_rows(got, q1d_want, w), what)
+            # q1d's own K3 calls against the plain version; the first
+            # one-partition call is the kernel line's 128-bit row
+            with _Capture(agg_mod, "segment_reduce_sorted") as cap:
+                dfd.collect()
+            row = _k3_call_row(torch, agg_mod, cap, cuda_ms, what)
+            print(f"K3 at {what}: {len(cap.calls)} call(s) equal the plain "
+                  f"version exactly; the first {row['ms']:.3f} ms "
+                  f"({row['extra']['path']}), plain {row['plain_ms']:.3f}, "
+                  f"bound {row['bound_ms']:.3f} ({row['extra']}); {card}")
+            if parts == 1:
+                if k3_synth is not None:
+                    row["extra"].update({f"synthetic_{k}": v for k, v in
+                                         k3_synth.items()})
+                kernel_rows["segment_reduce_sorted_128"] = dict(
+                    source="spark_rapids_tpu_torch/csrc/segment_reduce.cu",
+                    replaces="spark_rapids_tpu/ops/segmented.py:401",
+                    max_abs_err=0.0, library_ms=None, **row)
+            nodes = _placements(sd.last_plan)
+            if nodes[0] != ("DeviceToHostExec", "cpu") or \
+                    any(p != "gpu" for _, p in nodes[1:]) or \
+                    "!" in sd.last_explain:
+                raise AssertionError(f"{what} placed {nodes}:\n"
+                                     f"{sd.last_explain}")
+            print(f"{what} placements: {nodes}")
+    except Exception:
+        failures.append("q1d")
+        traceback.print_exc()
+    try:
+        _, q1t_want = _q1_oracles({k: v[:Q1_TEXT_ROWS]
+                                   for k, v in li_raw.items()})
+        sq = GpuSession()
+        dfq = _q1_df(sq, li_table.slice(0, Q1_TEXT_ROWS), F, col, lit)
+        path_run("q1", dfq.collect,
+                 lambda got, w: _check_rows(got, q1t_want, w),
+                 f"q1, the TPC-H Q1 text over {Q1_TEXT_ROWS} rows", reps=1)
+        nodes = _placements(sq.last_plan)
+        print(f"q1 placements: {nodes}")
+        if nodes != Q1_PLACEMENTS:
+            raise AssertionError(f"q1 placed {nodes}, the reference "
+                                 f"{Q1_PLACEMENTS}")
+    except Exception:
+        failures.append("q1 (the TPC-H Q1 text)")
+        traceback.print_exc()
+    del li_table, li_raw
+
+    try:
+        t1 = time.perf_counter()
+        qn_table, qn_vals, qn_masks = _narrow_table(ROWS)
+        keep = qn_masks["s"] & qn_masks["f"] & (qn_vals["s"] > 0) & \
+            (qn_vals["f"] < 0.5)
+        qn_filtered = qn_table.filter(pa.array(keep))
+        qn_groups = _qn_group_oracle(qn_table)
+        qn_order = _qn_sort_oracle(qn_vals, qn_masks)
+        print(f"qn table of {ROWS} rows and its oracles: "
+              f"{time.perf_counter() - t1:.1f} s")
+        sn = GpuSession()
+        dfn = sn.create_dataframe(qn_table)
+
+        def check_equal(want):
+            def check(got, w):
+                if not got.equals(want):
+                    raise AssertionError(f"{w} differs from pyarrow")
+            return check
+
+        path_run("qn_filter", lambda: dfn.filter(
+            (col("s") > lit(0)) & (col("f") < lit(0.5))).collect(),
+            check_equal(qn_filtered), "qn filter s > 0 and f < 0.5")
+        path_run("qn_group", lambda: dfn.group_by(col("b"), col("dt")).agg(
+            F.sum(col("s")).alias("ss"), F.min(col("s")).alias("mns"),
+            F.max(col("s")).alias("mxs"), F.sum(col("f")).alias("sf"),
+            F.min(col("f")).alias("mnf"), F.max(col("f")).alias("mxf"),
+            F.min(col("ts")).alias("mnt"), F.max(col("ts")).alias("mxt"),
+            F.sum(col("dec")).alias("sd"), F.min(col("dec")).alias("mnd"),
+            F.max(col("dec")).alias("mxd"),
+            F.count("*").alias("c")).collect(),
+            lambda got, w: _check_qn_groups(got, qn_groups, w),
+            "qn group by (b, dt)")
+        for run, limit in (("qn_sort", None), ("qn_topn", 1000)):
+            want_rid = qn_order if limit is None else qn_order[:limit]
+
+            def q(limit=limit):
+                d = dfn.sort(col("ts").desc(), col("f"))
+                return (d if limit is None else d.limit(limit)).collect()
+
+            def check(got, w, want_rid=want_rid):
+                if not np.array_equal(got["rid"].to_numpy(), want_rid):
+                    raise AssertionError(f"{w}: rows out of order")
+                if not got.equals(qn_table.take(pa.array(want_rid))):
+                    raise AssertionError(f"{w}: columns differ")
+            path_run(run, q, check, f"qn sort(ts desc, f)"
+                     + ("" if limit is None else f".limit({limit})"))
+        out_dir = tempfile.mkdtemp(prefix="qn_parquet_")
+        try:
+            def write_back():
+                dfn.write.mode("overwrite").parquet(out_dir)
+                return pq.read_table(out_dir).sort_by("rid")
+
+            path_run("qn_write", write_back, check_equal(qn_table),
+                     "qn parquet write, read back by pyarrow", reps=1)
+            t1 = time.perf_counter()
+            back = sn.read.parquet(out_dir).collect().sort_by("rid")
+            if not back.equals(qn_table):
+                raise AssertionError("qn's parquet read through the port "
+                                     "differs")
+            print(f"qn parquet read back through the port: equal, "
+                  f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        del qn_table, qn_filtered, qn_groups, qn_order, dfn
+    except Exception:
+        failures.append("qn (the narrow types)")
+        traceback.print_exc()
+    print(f"types phases: {time.perf_counter() - t_types:.1f} s")
+
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
@@ -5774,7 +6599,22 @@ def main() -> int:
                             "segment_reduce_sorted"),
         "act_count": ("segment_reduce_sorted",),
         **{f"act_{a}": ("compact_rows", "sort_order", "segment_reduce_sorted")
-           for a in ("pandas", "gsum", "gcount", "gmin", "gmax", "gavg")}}
+           for a in ("pandas", "gsum", "gcount", "gmin", "gmax", "gavg")},
+        # the flat types
+        "dec_batches": ("sort_order", "segment_reduce_sorted"),
+        "q1d": ("compact_rows", "sort_order", "segment_reduce_sorted",
+                "string_hashes", "gather_strings", "gather_rows",
+                "order_keys"),
+        "q1d_4": ("compact_rows", "sort_order", "segment_reduce_sorted",
+                  "string_hashes", "gather_strings", "gather_rows",
+                  "order_keys"),
+        "q1": ("compact_rows", "sort_order", "gather_rows",
+               "gather_strings", "order_keys"),
+        "qn_filter": ("compact_rows",),
+        "qn_group": ("sort_order", "segment_reduce_sorted"),
+        "qn_sort": ("sort_order", "gather_rows"),
+        "qn_topn": ("sort_order", "gather_rows"),
+        "qn_write": ()}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
                 "q5_4", "qs1", "qs1_4", "qs2", "qs3", "qs4", "qs4_topn",
@@ -5784,7 +6624,8 @@ def main() -> int:
                 "sample_none", "repart_q1", "repart_count", "cache_write",
                 "cache_scan", "cache_recompute", "act_count", "act_pandas",
                 "act_gsum", "act_gcount", "act_gmin", "act_gmax",
-                "act_gavg"):
+                "act_gavg", "q1d", "q1d_4", "q1", "qn_filter", "qn_group",
+                "qn_sort", "qn_topn", "qn_write"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -5813,11 +6654,21 @@ def main() -> int:
                   "scatter_rows": "q4", "string_hashes": "qs2",
                   "hash_bytes": "hash_s", "gather_strings": "qs4",
                   "gather_strings_flags": "qs1", "order_keys": "qs4",
-                  "segment_reduce_sorted_distinct": "distinct_k"}
+                  "segment_reduce_sorted_distinct": "distinct_k",
+                  "segment_reduce_sorted_128": "q1d",
+                  "compact_rows_int16": "qn_filter",
+                  "gather_rows_int16": "qn_sort",
+                  "scatter_rows_int16": "q4",
+                  "pack_lanes_int16": "qn_filter",
+                  "expand_pairs_int16": "q2"}
         counted_as = {"segment_reduce_sorted_minmax": "segment_reduce_sorted",
                       "gather_strings_flags": "gather_strings",
                       "segment_reduce_sorted_distinct":
-                          "segment_reduce_sorted"}
+                          "segment_reduce_sorted",
+                      "segment_reduce_sorted_128": "segment_reduce_sorted",
+                      **{f"{k}_int16": k for k in (
+                          "compact_rows", "gather_rows", "scatter_rows",
+                          "pack_lanes", "expand_pairs")}}
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", source=r["source"],
                  replaces=r["replaces"],

@@ -13,6 +13,7 @@ found under the same name:
   ops/carry.py          compact_rows (kernel K1), sort_order / sort_rows (K2)
   ops/gather.py         gather_rows (kernel K8), the row gathers
   ops/segmented.py      order-preserving int64 key words, boundaries
+  ops/int128.py         128-bit decimal arithmetic over int64 pairs
   exec/aggregate.py     segment_reduce_sorted (kernel K3), the aggregates
   ops/join_kernels.py   the join kernels K4-K7
   exec/join.py          the hash, nested-loop and CPU joins
@@ -28,9 +29,10 @@ Classes named after the reference plugin and their JAX counterparts:
   GpuOverrides          spark_rapids_tpu.plan.overrides.TpuOverrides
   GpuHashAggregateExec  spark_rapids_tpu.exec.aggregate.TpuHashAggregateExec
 
-The port carries LONG, INT, DOUBLE and BOOLEAN columns (and the NULL
-type of ``lit(None)``); another column type raises NotImplementedError
-naming what is missing.  Entry points run on ``cuda`` unless the caller
+The port carries BOOLEAN, BYTE, SHORT, INT, LONG, FLOAT, DOUBLE, DATE,
+TIMESTAMP, DECIMAL and STRING columns (and the NULL type of
+``lit(None)``); another column type (binary, lists, maps, structs)
+raises NotImplementedError naming what is missing.  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; the hand-written kernels (``csrc/``) run for
 CUDA tensors, their plain PyTorch versions for CPU tensors, so a
 CPU-placed operator runs the plain versions.

@@ -117,9 +117,13 @@ class Column:
     eqNullSafe = eq_null_safe
 
     def cast(self, to):
-        """A cast to a DataType or a type name ("int", "bigint", ...)."""
+        """A cast to a DataType, a type name ("int", "decimal(12,2)", ...)
+        or a pyarrow type."""
         if isinstance(to, str):
             to = parse_type(to)
+        elif not isinstance(to, t.DataType):
+            from ..columnar.interop import from_arrow_type
+            to = from_arrow_type(to)
         return Column(Cast(self.expr, to))
 
     def alias(self, name: str) -> "Column":
@@ -157,19 +161,10 @@ class Column:
         return f"Column<{self.expr.sql()}>"
 
 
-_TYPE_NAMES = {"boolean": t.BOOLEAN, "bool": t.BOOLEAN, "int": t.INT,
-               "integer": t.INT, "long": t.LONG, "bigint": t.LONG,
-               "double": t.DOUBLE, "string": t.STRING}
-
-
 def parse_type(s: str) -> t.DataType:
-    """The type a name stands for, in the reference's spellings."""
-    name = s.strip().lower()
-    if name in _TYPE_NAMES:
-        return _TYPE_NAMES[name]
-    raise NotImplementedError(
-        f"type {s!r} is not ported yet (the port carries boolean, int, "
-        f"bigint, double and string; the other types are Queue 1 item 3)")
+    """The type a name stands for, in the reference's spellings
+    (``decimal(p,s)`` included; ``types.from_name``)."""
+    return t.from_name(s)
 
 
 def col(name: str) -> Column:

@@ -8,7 +8,10 @@ null is zero.  A STRING column is the reference's span layout:
 ``offsets`` int32[capacity + 1], rebased to 0 and repeating the last
 offset past the live rows, over ``data``, the UTF-8 bytes, uint8
 zero-padded to a ``DEFAULT_CHAR_BUCKETS`` bucket; a null string is
-empty.
+empty.  A DECIMAL wider than 18 digits has a second lane, ``data_hi``:
+``data`` holds the unscaled value's low 64 bits (int64 bits of the
+unsigned word) and ``data_hi`` its signed high 64 bits; every helper
+that copies a column's rows carries both.
 """
 
 from __future__ import annotations
@@ -55,17 +58,20 @@ def resolve_device(device=None) -> torch.device:
 class DeviceColumn:
     """One column: ``data`` and bool ``validity``, both [capacity]; for a
     span column (STRING) ``offsets`` int32[capacity + 1] over the chars
-    in ``data``, else None."""
+    in ``data``, else None; for a DECIMAL of more than 18 digits
+    ``data_hi``, the high words (int64[capacity]), else None."""
 
-    __slots__ = ("dtype", "data", "validity", "offsets")
+    __slots__ = ("dtype", "data", "validity", "offsets", "data_hi")
 
     def __init__(self, dtype: t.DataType, data: torch.Tensor,
                  validity: torch.Tensor,
-                 offsets: Optional[torch.Tensor] = None):
+                 offsets: Optional[torch.Tensor] = None,
+                 data_hi: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.offsets = offsets
+        self.data_hi = data_hi
 
     @property
     def capacity(self) -> int:
@@ -75,6 +81,28 @@ class DeviceColumn:
 
     def __repr__(self):
         return f"DeviceColumn({self.dtype.name}, cap={self.capacity})"
+
+
+def flat_lanes(cols: Sequence[DeviceColumn]):
+    """The row lanes of flat columns, column by column: data, validity,
+    then data_hi where there is one (``columns_from_lanes`` undoes it)."""
+    lanes = []
+    for c in cols:
+        lanes += [c.data, c.validity] + ([] if c.data_hi is None
+                                         else [c.data_hi])
+    return lanes
+
+
+def columns_from_lanes(cols: Sequence[DeviceColumn], lanes):
+    """Columns of ``cols``' types over moved lanes laid out as
+    ``flat_lanes`` lays them."""
+    it = iter(lanes)
+    out = []
+    for c in cols:
+        data, valid = next(it), next(it)
+        out.append(DeviceColumn(c.dtype, data, valid, None,
+                                None if c.data_hi is None else next(it)))
+    return out
 
 
 def unpack_bits(bitmap: torch.Tensor, n: int) -> torch.Tensor:
@@ -104,10 +132,12 @@ class HostColumn(DeviceColumn):
 
     def __init__(self, dtype: t.DataType, data: torch.Tensor,
                  bitmap: Optional[torch.Tensor],
-                 offsets: Optional[torch.Tensor] = None):
+                 offsets: Optional[torch.Tensor] = None,
+                 data_hi: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
         self.offsets = offsets
+        self.data_hi = data_hi
         self.bitmap = bitmap
         self._validity = None
 
@@ -210,11 +240,47 @@ def string_to_device(offs: np.ndarray, chars: np.ndarray, validity,
                         buf[:head].view(torch.int32))
 
 
+def decimal_words(arr: pa.Array):
+    """(lo, hi) int64 numpy views of a decimal128 array's 16-byte values,
+    read straight from its buffer (the reference's ``_decimal_unscaled``);
+    the words under a null are whatever the buffer holds."""
+    raw = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                        count=2 * (len(arr) + arr.offset))
+    raw = raw.reshape(-1, 2)[arr.offset:arr.offset + len(arr)]
+    return raw[:, 0], raw[:, 1]
+
+
+def _flat_numpy(arr: pa.Array, dtype: t.DataType) -> np.ndarray:
+    """A flat column's values as the lane's numpy dtype (nulls already
+    filled): a DATE as int32 days, a TIMESTAMP as int64 microseconds in
+    UTC (pyarrow's safe cast from another unit, as the reference's
+    upload casts it), an unsigned integer widened."""
+    if dtype == t.DATE:
+        return np.asarray(arr.cast(pa.int32()))
+    if dtype == t.TIMESTAMP:
+        return np.asarray(arr.cast(pa.timestamp("us", tz="UTC"))
+                          .cast(pa.int64()))
+    data = arr.to_numpy(zero_copy_only=False)
+    want = torch.empty(0, dtype=dtype.torch_dtype).numpy().dtype
+    return data if data.dtype == want else data.astype(want)
+
+
 def column_to_device(arr, dtype: t.DataType, cap: int,
                      device: torch.device) -> DeviceColumn:
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     n = len(arr)
+    if isinstance(dtype, t.DecimalType):
+        validity = _padded(np.asarray(arr.is_valid()), cap, torch.bool,
+                           device) if arr.null_count else \
+            torch.arange(cap, device=device) < n
+        lo, hi = decimal_words(arr)
+        if arr.null_count:
+            valid = np.asarray(arr.is_valid())
+            lo, hi = np.where(valid, lo, 0), np.where(valid, hi, 0)
+        return DeviceColumn(
+            dtype, _padded(lo, cap, torch.int64, device), validity, None,
+            None if dtype.is64 else _padded(hi, cap, torch.int64, device))
     if dtype == t.STRING:
         validity = _padded(np.asarray(arr.is_valid()), cap, torch.bool,
                            device) if arr.null_count else \
@@ -231,7 +297,7 @@ def column_to_device(arr, dtype: t.DataType, cap: int,
     else:
         # no nulls: build the validity on the device, not over the bus
         validity = torch.arange(cap, device=device) < n
-    data = arr.to_numpy(zero_copy_only=False)
+    data = _flat_numpy(arr, dtype)
     return DeviceColumn(dtype, _padded(data, cap, dtype.torch_dtype, device),
                         validity)
 
@@ -259,10 +325,11 @@ def batch_from_numpy_lanes(lanes: Sequence[np.ndarray],
     cols = []
     for data, valid, tn in zip(lanes, validity, type_names):
         dtype = t.from_name(tn)
-        if dtype == t.STRING:
+        if dtype == t.STRING or t.is_dec128(dtype):
             raise NotImplementedError(
-                "batch_from_numpy_lanes takes flat lanes; a string column "
-                "goes through batch_to_device")
+                "batch_from_numpy_lanes takes one flat lane a column; a "
+                "string or a decimal of more than 18 digits goes through "
+                "batch_to_device")
         cols.append(DeviceColumn(
             dtype,
             torch.from_numpy(np.array(data)).to(dtype.torch_dtype).to(dev),
@@ -279,8 +346,10 @@ def move_batch(batch: DeviceBatch, device: torch.device,
     cols = []
     for c in batch.columns:
         if c.offsets is None:
-            cols.append(DeviceColumn(c.dtype, c.data[:keep].to(device),
-                                     c.validity[:keep].to(device)))
+            cols.append(DeviceColumn(
+                c.dtype, c.data[:keep].to(device),
+                c.validity[:keep].to(device), None,
+                None if c.data_hi is None else c.data_hi[:keep].to(device)))
             continue
         offs = c.offsets if keep is None else c.offsets[:keep + 1]
         nbytes = None if keep is None else max(int(offs[-1]), 1)
@@ -303,6 +372,29 @@ def string_to_arrow(offsets: torch.Tensor, chars: torch.Tensor,
         bitmap, pa.py_buffer(offs.numpy()), pa.py_buffer(data.numpy())])
 
 
+def decimal_buffer(lo: torch.Tensor, hi: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """The 16-byte little-endian values of Arrow's decimal128 from the
+    low words and the high words (None: the low word's sign), as a CPU
+    int64[n, 2] tensor."""
+    lo = lo.cpu()
+    out = torch.empty(lo.shape[0], 2, dtype=torch.int64)
+    out[:, 0] = lo
+    out[:, 1] = (lo >> 63) if hi is None else hi.cpu()
+    return out
+
+
+def _bitmap_of(col: DeviceColumn, n: int):
+    """An Arrow validity buffer of the column's first n rows, or None
+    when every row is valid."""
+    if isinstance(col, HostColumn):
+        bitmap = col.bitmap
+    else:
+        valid = col.validity[:n].cpu()
+        bitmap = None if bool(valid.all()) else _pack_bits(valid)
+    return None if bitmap is None else pa.py_buffer(bitmap.numpy())
+
+
 def column_to_arrow(col: DeviceColumn, n: int) -> pa.Array:
     if col.dtype == t.NULL:
         return pa.nulls(n)
@@ -313,13 +405,19 @@ def column_to_arrow(col: DeviceColumn, n: int) -> pa.Array:
             valid = col.validity[:n].cpu()
             bitmap = None if bool(valid.all()) else _pack_bits(valid)
         return string_to_arrow(col.offsets, col.data, bitmap, n)
-    if isinstance(col, HostColumn) and col.dtype != t.BOOLEAN and \
-            col.data.shape[0] == n:
-        # the fetched lanes as Arrow's buffers, without a copy
-        bitmap = None if col.bitmap is None else pa.py_buffer(
-            col.bitmap.numpy())
+    if isinstance(col.dtype, t.DecimalType):
+        # both words into Arrow's 16-byte values, no per-row Python
+        words = decimal_buffer(col.data[:n], None if col.data_hi is None
+                               else col.data_hi[:n])
         return pa.Array.from_buffers(to_arrow_type(col.dtype), n, [
-            bitmap, pa.py_buffer(col.data.numpy())])
+            _bitmap_of(col, n), pa.py_buffer(words.numpy())])
+    if col.dtype != t.BOOLEAN:
+        # the lane as Arrow's buffer: without a copy for a fetched lane
+        data = col.data[:n].cpu().contiguous()
+        if not isinstance(col, HostColumn) and col.data.device.type == "cpu":
+            data = data.clone()             # the batch's lane stays its own
+        return pa.Array.from_buffers(to_arrow_type(col.dtype), n, [
+            _bitmap_of(col, n), pa.py_buffer(data.numpy())])
     data = col.data[:n].cpu().numpy()
     valid = col.validity[:n].cpu().numpy()
     mask = None if valid.all() else ~valid

@@ -12,8 +12,11 @@ of only the bytes that carry information:
      live rows; the host reads it in one copy;
   2. the host builds the transfer plan by the reference's rules
      (``build_plan``): a bool lane that is all true is skipped, another
-     is bit-packed, an integer lane whose live span fits 1, 2 or 4 bytes
-     travels as (value - min) in that width, anything else as it is;
+     is bit-packed, an int32 or int64 lane whose live span fits 1, 2 or
+     4 bytes travels as (value - min) in that width, anything else as
+     it is (a BYTE, SHORT or FLOAT lane among them: K9 takes no stats
+     of it, and K10 copies its 1, 2 or 4 bytes a row; a DECIMAL128's
+     high words are one more int64 lane, after its validity);
   3. K10 ``pack_lanes`` writes every kept lane into its slice of one
      device byte buffer, each slice 8-byte aligned (``layout``);
   4. one ``cudaMemcpyAsync`` copies the buffer into a pinned host staging
@@ -71,16 +74,26 @@ def lane_kind(lane: torch.Tensor) -> int:
 
 def batch_lanes(batch: DeviceBatch) -> List[torch.Tensor]:
     """Every row lane of a batch in the reference's walk order: each
-    column's data, then its validity; a string column's offsets lane
-    (``offsets[1:]``) takes the data's place (its chars are not a row
-    lane, ``fetch_batch``)."""
+    column's data, then its validity, then a DECIMAL128 column's high
+    words; a string column's offsets lane (``offsets[1:]``) takes the
+    data's place (its chars are not a row lane, ``fetch_batch``)."""
     return [x for c in batch.columns for x in (
-        c.data if c.offsets is None else c.offsets[1:], c.validity)]
+        c.data if c.offsets is None else c.offsets[1:], c.validity,
+        c.data_hi) if x is not None]
+
+
+def _lane_starts(batch: DeviceBatch) -> List[int]:
+    """The index of each column's first lane in ``batch_lanes``."""
+    starts, at = [], 0
+    for c in batch.columns:
+        starts.append(at)
+        at += 2 if c.data_hi is None else 3
+    return starts
 
 
 def _offsets_lanes(batch: DeviceBatch) -> List[int]:
     """The lane index of each string column's offsets lane."""
-    return [2 * i for i, c in enumerate(batch.columns)
+    return [j for j, c in zip(_lane_starts(batch), batch.columns)
             if c.offsets is not None]
 
 
@@ -291,7 +304,7 @@ def pack_lanes(lanes: Sequence[torch.Tensor], plan: Sequence[tuple],
         if step[0] == "skip":
             continue
         if lane.dim() != 1 or lane.shape[0] < n or \
-                lane.element_size() not in (1, 4, 8):
+                lane.element_size() not in (1, 2, 4, 8):
             raise ValueError(f"pack_lanes: lane {lane.dtype}"
                              f"{tuple(lane.shape)} cannot be packed")
         if step[0] == "narrow" and lane_kind(lane) not in _INT_RANGE:
@@ -360,9 +373,9 @@ def rebuild_batch(batch: DeviceBatch, lanes, plan, mins, stats, slices,
     bytes) of each string column's chars, in column order."""
     chars_at = iter(char_slices)
     cols = []
-    for i, c in enumerate(batch.columns):
+    for c, j0 in zip(batch.columns, _lane_starts(batch)):
         parts = []
-        for j in (2 * i, 2 * i + 1):
+        for j in range(j0, j0 + (2 if c.data_hi is None else 3)):
             lane, step, (off, size) = lanes[j], plan[j], slices[j]
             raw = host[off:off + size]
             if step[0] == "skip":
@@ -374,8 +387,8 @@ def rebuild_batch(batch: DeviceBatch, lanes, plan, mins, stats, slices,
                                     int(stats[2 * j + 1]) - mins[j], n))
             else:
                 parts.append(raw.view(lane.dtype)[:n].clone())
-        data_step, data, valid_step, valid = plan[2 * i], parts[0], \
-            plan[2 * i + 1], parts[1]
+        data_step, data, valid_step, valid = plan[j0], parts[0], \
+            plan[j0 + 1], parts[1]
         if data_step[0] == "skip":              # a BOOLEAN lane, all true
             data = torch.ones(n, dtype=torch.bool)
         elif data_step[0] == "bit":
@@ -389,7 +402,8 @@ def rebuild_batch(batch: DeviceBatch, lanes, plan, mins, stats, slices,
             cols.append(HostColumn(c.dtype, host[off:off + size].clone(),
                                    valid, offs))
             continue
-        cols.append(HostColumn(c.dtype, data, valid))
+        cols.append(HostColumn(c.dtype, data, valid, None,
+                               parts[2] if len(parts) > 2 else None))
     return DeviceBatch(cols, n, batch.names)
 
 
@@ -416,8 +430,9 @@ def fetch_batch(batch: DeviceBatch) -> DeviceBatch:
         char_slices.append((total, nbytes))
         total += (nbytes + 7) // 8 * 8
     packed = pack_lanes(lanes, plan, mins, n, total - rows_end)
-    for j, (off, size) in zip(spans, char_slices):
-        packed[off:off + size].copy_(batch.columns[j // 2].data[:size])
+    span_cols = [c for c in batch.columns if c.offsets is not None]
+    for c, (off, size) in zip(span_cols, char_slices):
+        packed[off:off + size].copy_(c.data[:size])
     if packed.device.type == "cpu":
         return rebuild_batch(batch, lanes, plan, mins, stats, slices,
                              packed, n, char_slices)

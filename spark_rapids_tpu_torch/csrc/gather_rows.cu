@@ -56,6 +56,7 @@ __device__ __forceinline__ unsigned long long load_lane(const void* p, int b,
   switch (b) {
     case 8: return __ldg(static_cast<const unsigned long long*>(p) + i);
     case 4: return __ldg(static_cast<const unsigned int*>(p) + i);
+    case 2: return __ldg(static_cast<const unsigned short*>(p) + i);
     default: return __ldg(static_cast<const unsigned char*>(p) + i);
   }
 }
@@ -65,6 +66,9 @@ __device__ __forceinline__ void store_lane(void* p, int b, long long i,
   switch (b) {
     case 8: static_cast<unsigned long long*>(p)[i] = v; break;
     case 4: static_cast<unsigned int*>(p)[i] = static_cast<unsigned>(v);
+      break;
+    case 2: static_cast<unsigned short*>(p)[i] =
+        static_cast<unsigned short>(v);
       break;
     default: static_cast<unsigned char*>(p)[i] =
         static_cast<unsigned char>(v);
@@ -136,6 +140,7 @@ unpack_kernel(const int* __restrict__ order, int n,
     switch (lanes.bytes[l]) {
       case 8: v = *reinterpret_cast<const unsigned long long*>(at); break;
       case 4: v = *reinterpret_cast<const unsigned*>(at); break;
+      case 2: v = *reinterpret_cast<const unsigned short*>(at); break;
       default: v = *at;
     }
     store_lane(lanes.out[l], lanes.bytes[l], first + tid, v);
@@ -158,7 +163,8 @@ int copy_lanes(Lanes* lanes, int nlanes, const void* const* in,
                void* const* out, const int* bytes) {
   if (nlanes < 1 || nlanes > kMaxLanes) return 1;
   for (int k = 0; k < nlanes; ++k) {
-    if (bytes[k] != 1 && bytes[k] != 4 && bytes[k] != 8) return 1;
+    if (bytes[k] != 1 && bytes[k] != 2 && bytes[k] != 4 && bytes[k] != 8)
+      return 1;
     lanes->in[k] = in[k];
     lanes->out[k] = out[k];
     lanes->bytes[k] = bytes[k];
@@ -205,7 +211,7 @@ extern "C" int srt_gather_packed(const int* order, int n, int m, int nlanes,
     if (off < 0 || off % b != 0 || off + b > record_bytes)
       return static_cast<int>(cudaErrorInvalidValue);
     const unsigned long long mine =
-        (b == 8 ? ~0ull >> 56 : b == 4 ? 0xfull : 1ull) << off;
+        (b == 8 ? ~0ull >> 56 : b == 4 ? 0xfull : b == 2 ? 3ull : 1ull) << off;
     if (used & mine) return static_cast<int>(cudaErrorInvalidValue);
     used |= mine;
     lanes.offset[k] = off;

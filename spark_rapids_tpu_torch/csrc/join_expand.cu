@@ -139,6 +139,8 @@ __device__ __forceinline__ void load_run(const Column& col,
     load_typed<long long>(col, row, b, r);
   } else if (col.bytes == 4) {
     load_typed<int>(col, row, b, r);
+  } else if (col.bytes == 2) {
+    load_typed<short>(col, row, b, r);
   } else {
     load_typed<unsigned char>(col, row, b, r);
   }
@@ -159,6 +161,12 @@ template <>
 __device__ __forceinline__ void write_vector<int>(int* out, long long a,
                                                   const int (&v)[kRun]) {
   *reinterpret_cast<int4*>(out + a) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+template <>
+__device__ __forceinline__ void write_vector<short>(short* out, long long a,
+                                                    const short (&v)[kRun]) {
+  *reinterpret_cast<short4*>(out + a) = make_short4(v[0], v[1], v[2], v[3]);
 }
 
 template <>
@@ -204,13 +212,15 @@ __device__ __forceinline__ void store_run(const Column& col, const Run& r,
     store_typed<long long>(col, r, own, full, a);
   } else if (col.bytes == 4) {
     store_typed<int>(col, r, own, full, a);
+  } else if (col.bytes == 2) {
+    store_typed<short>(col, r, own, full, a);
   } else {
     store_typed<unsigned char>(col, r, own, full, a);
   }
 }
 
 // desc: long long[6 * ncols]: source data, source validity, output data,
-// output validity (pointers), element bytes (1, 4 or 8), side (0 probe, 1
+// output validity (pointers), element bytes (1, 2, 4 or 8), side (0 probe, 1
 // build), each ncols long.
 __global__ void __launch_bounds__(kThreads)
 expand_kernel(const long long* __restrict__ ends, int np,

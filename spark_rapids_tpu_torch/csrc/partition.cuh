@@ -201,6 +201,11 @@ struct LaneWriter {
           static_cast<int*>(lanes.out[k])[dest] = zero ? 0 : v;
           break;
         }
+        case 2: {
+          const short v = static_cast<const short*>(lanes.in[k])[i];
+          static_cast<short*>(lanes.out[k])[dest] = zero ? (short)0 : v;
+          break;
+        }
         default: {
           const unsigned char v =
               static_cast<const unsigned char*>(lanes.in[k])[i];
@@ -214,13 +219,14 @@ struct LaneWriter {
 };
 
 // Fills a Lanes struct from host arrays; returns false past kMaxLanes or
-// for a lane width other than 1, 4 or 8 bytes.
+// for a lane width other than 1, 2, 4 or 8 bytes.
 inline bool make_lanes(int count, const void* const* in, void* const* out,
                        const int* bytes, const int* clear_back, Lanes* l) {
   if (count < 0 || count > kMaxLanes) return false;
   l->count = count;
   for (int k = 0; k < count; ++k) {
-    if (bytes[k] != 1 && bytes[k] != 4 && bytes[k] != 8) return false;
+    if (bytes[k] != 1 && bytes[k] != 2 && bytes[k] != 4 && bytes[k] != 8)
+      return false;
     l->in[k] = in[k];
     l->out[k] = out[k];
     l->bytes[k] = bytes[k];

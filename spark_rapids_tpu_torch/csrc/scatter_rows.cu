@@ -4,7 +4,7 @@
 // the window results ride a second carry-sort (ops/carry.py sort_lanes)
 // keyed by the layout sort's order to get back to input order.  The
 // inverse permutation is the same function: out[l][order[i]] = in[l][i]
-// for up to kMaxLanes lanes of 1, 4 or 8 bytes a launch.
+// for up to kMaxLanes lanes of 1, 2, 4 or 8 bytes a launch.
 //
 // Bound: device-memory bytes.  Least traffic is the order (4 B a row)
 // read once, and every lane read once and written once, over 3.35 TB/s.
@@ -68,6 +68,7 @@ __device__ __forceinline__ unsigned long long load_lane(const void* p, int b,
   switch (b) {
     case 8: return __ldg(static_cast<const unsigned long long*>(p) + i);
     case 4: return __ldg(static_cast<const unsigned int*>(p) + i);
+    case 2: return __ldg(static_cast<const unsigned short*>(p) + i);
     default: return __ldg(static_cast<const unsigned char*>(p) + i);
   }
 }
@@ -77,6 +78,9 @@ __device__ __forceinline__ void store_lane(void* p, int b, long long i,
   switch (b) {
     case 8: static_cast<unsigned long long*>(p)[i] = v; break;
     case 4: static_cast<unsigned int*>(p)[i] = static_cast<unsigned>(v);
+      break;
+    case 2: static_cast<unsigned short*>(p)[i] =
+        static_cast<unsigned short>(v);
       break;
     default: static_cast<unsigned char*>(p)[i] =
         static_cast<unsigned char>(v);
@@ -235,7 +239,7 @@ extern "C" int srt_scatter_rows(const int* order, int n, int nlanes,
     return static_cast<int>(cudaErrorInvalidValue);
   Lanes lanes;
   for (int k = 0; k < nlanes; ++k) {
-    if (bytes[k] != 1 && bytes[k] != 4 && bytes[k] != 8)
+    if (bytes[k] != 1 && bytes[k] != 2 && bytes[k] != 4 && bytes[k] != 8)
       return static_cast<int>(cudaErrorInvalidValue);
     lanes.in[k] = in[k];
     lanes.out[k] = out[k];

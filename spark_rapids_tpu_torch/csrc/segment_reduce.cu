@@ -81,6 +81,25 @@
 // tile shape, so a result is the same bits from run to run, which the
 // aggregate's stable_merge determinism relies on.
 //
+// The 128-bit kinds (7-9) carry a DECIMAL of more than 18 digits, two
+// lanes an op: the low words (unsigned) and the signed high words.  Sum
+// (kind 7) replaces the reference's ops/segmented.py segment_sum128 (three
+// 32-bit-limb sums and a carry join): the fold keeps the low word in Acc.i
+// and the high word's bits in Acc.f, and every add -- a row, two partials
+// in the shuffle scan, the head/tail partials, the fixup tree -- carries
+// out of the low word into the high one, so the sum is exact modulo 2^128
+// in any order and the same bits on every run.  Min and max (kinds 8 and
+// 9) replace the reference's ordered gather for DECIMAL128 (a second
+// lexsort per op and first_index_per_segment, exec/aggregate.py): the
+// state is (low word, high word, sorted position), compared by (high
+// signed, low unsigned), then the earlier position.  A DECIMAL of at most
+// 18 digits is one int64 lane and takes kinds 1, 3 and 4; the aggregate
+// widens a DECIMAL64 sum input to its (lo, sign-extended hi) pair before
+// K3, as the reference's Sum casts its input to the 128-bit buffer type.
+// A set that holds a 128-bit op runs its own instantiation of the fold
+// and the fixup (W128); a set of 64-bit ops alone compiles without them,
+// so the 128-bit kinds' registers cost it nothing.
+//
 // Bound: device-memory bytes.  Least traffic is order (4 B/row), each
 // key word (8 B/row), the live flags where given (1 B/row), each
 // distinct value lane and contributor mask once, and the per-group
@@ -108,6 +127,9 @@ constexpr int kMinInt = 3;
 constexpr int kMaxInt = 4;
 constexpr int kMinFloat = 5;
 constexpr int kMaxFloat = 6;
+constexpr int kSum128 = 7;
+constexpr int kMin128 = 8;
+constexpr int kMax128 = 9;
 constexpr unsigned kPosInf = 1, kNegInf = 2, kNaN = 4;
 constexpr unsigned kLiveBit = 1u << 31;      // in a record's mask word
 constexpr unsigned long long kReady = 1ull << 62, kDone = 2ull << 62;
@@ -126,7 +148,9 @@ struct Set {
   int kind[kOpsPerLaunch];
   int lane[kOpsPerLaunch];                 // index into lanes, -1: count
   int mask[kOpsPerLaunch];                 // index into masks
+  int lane_hi[kOpsPerLaunch];              // 128-bit kinds: the high words
   void* sums[kOpsPerLaunch];
+  long long* sums_hi[kOpsPerLaunch];       // 128-bit kinds
   long long* counts[kOpsPerLaunch];
   int nlanes;
   const long long* lanes[kOpsPerLaunch];   // int64 or float64 bits
@@ -147,8 +171,11 @@ struct Keys {
 };
 
 __host__ __device__ constexpr bool is_extreme(int kind) {
-  return kind >= kMinInt;
+  return (kind >= kMinInt && kind <= kMaxFloat) || kind == kMin128 ||
+         kind == kMax128;
 }
+
+__host__ __device__ constexpr bool is128(int kind) { return kind >= kSum128; }
 
 // A fold of some rows of one op: wrapping int sum, finite float sum,
 // contributor count, and which of +inf / -inf / NaN contributed.  For
@@ -181,6 +208,11 @@ __device__ __forceinline__ long long word_of(const Acc& a) {
   return __double_as_longlong(a.f);
 }
 
+// a 128-bit kind's high word, kept as Acc.f's bits
+__device__ __forceinline__ double as_hi(long long hi) {
+  return __longlong_as_double(hi);
+}
+
 // Whether word wb at position pb is kept over wa at pa: the extreme
 // word, then the earlier sorted position.
 template <int KIND>
@@ -191,24 +223,66 @@ __device__ __forceinline__ bool keeps(long long wb, unsigned pb, long long wa,
   return pb < pa;
 }
 
+// Whether state b is kept over state a (both with contributors): for the
+// 128-bit kinds by (high signed, low unsigned), else by ordered word; then
+// the earlier sorted position.
+template <int KIND>
+__device__ __forceinline__ bool better(const Acc& b, const Acc& a) {
+  if (is128(KIND)) {
+    const long long hb = word_of(b), ha = word_of(a);
+    if (hb != ha || b.i != a.i) {
+      const bool less = hb != ha ? hb < ha : b.i < a.i;
+      return KIND == kMin128 ? less : !less;
+    }
+    return b.flags < a.flags;
+  }
+  return keeps<KIND>(word_of(b), b.flags, word_of(a), a.flags);
+}
+
 // a then b: a holds the earlier rows
 template <int KIND>
 __device__ __forceinline__ Acc combine(const Acc& a, const Acc& b) {
   if (is_extreme(KIND)) {
-    const bool take_b =
-        b.n > 0 && (a.n == 0 ||
-                    keeps<KIND>(word_of(b), b.flags, word_of(a), a.flags));
+    const bool take_b = b.n > 0 && (a.n == 0 || better<KIND>(b, a));
     return take_b ? Acc{b.i, b.f, a.n + b.n, b.flags}
                   : Acc{a.i, a.f, a.n + b.n, a.flags};
+  }
+  if (KIND == kSum128) {
+    const unsigned long long lo = a.i + b.i;
+    return Acc{lo, as_hi(word_of(a) + word_of(b) + (lo < a.i ? 1 : 0)),
+               a.n + b.n, 0u};
   }
   return Acc{a.i + b.i, a.f + b.f, a.n + b.n, a.flags | b.flags};
 }
 
 // One row at sorted position pos, after every row already in a: c says
-// whether it contributes, bits are its value's 64 bits.
+// whether it contributes, bits are its value's 64 bits (a 128-bit kind's
+// low word; hib its high word).
 template <int KIND>
 __device__ __forceinline__ void add_row(Acc& a, bool c, long long bits,
-                                        unsigned pos) {
+                                        long long hib, unsigned pos) {
+  if (KIND == kSum128) {
+    if (c) {
+      const unsigned long long lo =
+          a.i + static_cast<unsigned long long>(bits);
+      a.f = as_hi(word_of(a) + hib + (lo < a.i ? 1 : 0));
+      a.i = lo;
+    }
+    a.n += c ? 1 : 0;
+    return;
+  }
+  if (KIND == kMin128 || KIND == kMax128) {
+    if (c) {
+      const Acc r{static_cast<unsigned long long>(bits), as_hi(hib), 1, pos};
+      if (a.n == 0 || better<KIND>(r, a)) {
+        a.i = r.i;
+        a.f = r.f;
+        a.flags = pos;
+      }
+    }
+    a.n += c ? 1 : 0;
+    return;
+  }
   if (is_extreme(KIND)) {
     if (c) {
       const long long w = ordered_word<KIND>(bits);
@@ -236,10 +310,17 @@ __device__ __forceinline__ void add_row(Acc& a, bool c, long long bits,
   }
 }
 
+// W128: the kind may be a 128-bit one (else the 64-bit kinds alone).
+template <bool W128>
 __device__ __forceinline__ void write_group(const Set& s, int kind, int k,
                                             int g, const Acc& a) {
   s.counts[k][g] = a.n;
-  if (is_extreme(kind)) {
+  if (W128 && is128(kind)) {
+    // no contributor: null, canonical zero under it
+    static_cast<long long*>(s.sums[k])[g] =
+        a.n > 0 ? static_cast<long long>(a.i) : 0ll;
+    s.sums_hi[k][g] = a.n > 0 ? word_of(a) : 0ll;
+  } else if (W128 ? is_extreme(kind) : kind >= kMinInt) {
     // no contributor: null, canonical zero under it
     static_cast<long long*>(s.sums[k])[g] =
         a.n > 0 ? static_cast<long long>(a.i) : 0ll;
@@ -265,8 +346,9 @@ __device__ __forceinline__ void write_group(const Set& s, int kind, int k,
 template <int KIND>
 __device__ __forceinline__ Acc shfl_up(const Acc& a, int off) {
   Acc r = zero_acc();
-  if (KIND == kSumInt || is_extreme(KIND))
+  if (KIND == kSumInt || KIND == kSum128 || is_extreme(KIND))
     r.i = __shfl_up_sync(0xffffffffu, a.i, off);
+  if (KIND == kSum128) r.f = __shfl_up_sync(0xffffffffu, a.f, off);
   if (KIND == kSumFloat || is_extreme(KIND)) {
     r.f = __shfl_up_sync(0xffffffffu, a.f, off);
     r.flags = __shfl_up_sync(0xffffffffu, a.flags, off);
@@ -500,9 +582,10 @@ struct RecValues {
 // them are written; a warp-wide segmented scan (shuffles, no barrier)
 // closes the group open at each thread's first start where an earlier
 // thread of the warp holds a start, and leaves the rest to finish_op.
+// hvals: a 128-bit kind's high words (unread by the other kinds).
 template <int KIND, int K, class Values>
-__device__ void fold_op(const Set& s, int k, Values vals, unsigned c,
-                        const View& v, Defer* d) {
+__device__ void fold_op(const Set& s, int k, Values vals, Values hvals,
+                        unsigned c, const View& v, Defer* d) {
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   c &= v.valid;
@@ -515,12 +598,12 @@ __device__ void fold_op(const Set& s, int k, Values vals, unsigned c,
       if (seen == 0)
         first_run = run;
       else
-        write_group(s, KIND, k, v.slot0 + seen - 1, run);
+        write_group<is128(KIND)>(s, KIND, k, v.slot0 + seen - 1, run);
       ++seen;
       run = zero_acc();
     }
     add_row<KIND>(run, (c >> j) & 1u, KIND == kCount ? 0ll : vals(j),
-                  pos0 + j);
+                  is128(KIND) ? hvals(j) : 0ll, pos0 + j);
   }
   Seg in{run, seen > 0};
 #pragma unroll
@@ -538,7 +621,7 @@ __device__ void fold_op(const Set& s, int k, Values vals, unsigned c,
   if (seen > 0) {
     const Acc a = combine<KIND>(before.a, first_run);
     if (!first_in_warp) {
-      write_group(s, KIND, k, v.slot0 - 1, a);
+      write_group<is128(KIND)>(s, KIND, k, v.slot0 - 1, a);
     } else {
       d->open[w] = a;
       d->slot[w] = v.before > 0 ? v.slot0 - 1 : -1;
@@ -561,7 +644,7 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
       pre = seg_op<KIND>(d->tot[q], pre);
     const Acc a = combine<KIND>(pre.a, d->open[item]);
     if (slot >= 0)
-      write_group(s, KIND, k, slot, a);
+      write_group<is128(KIND)>(s, KIND, k, slot, a);
     else
       head[part + k] = a;
     return;
@@ -574,7 +657,7 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
     head[part + k] = pre.a;
 }
 
-#define SRT_KINDS(kind, CALL)         \
+#define SRT_KINDS64(kind, CALL)       \
   switch (kind) {                     \
     case kSumInt: CALL(kSumInt); break;     \
     case kSumFloat: CALL(kSumFloat); break; \
@@ -583,6 +666,14 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
     case kMinFloat: CALL(kMinFloat); break; \
     case kMaxFloat: CALL(kMaxFloat); break; \
     default: CALL(kCount);                  \
+  }
+
+#define SRT_KINDS(kind, CALL)               \
+  switch (kind) {                           \
+    case kSum128: CALL(kSum128); break;     \
+    case kMin128: CALL(kMin128); break;     \
+    case kMax128: CALL(kMax128); break;     \
+    default: SRT_KINDS64(kind, CALL)        \
   }
 
 struct Scratch {
@@ -640,7 +731,9 @@ __host__ __device__ constexpr int stage_bytes(int K, int R) {
 // themselves (the direct path, K = 8).  The first set also finds the
 // starts, the tile's group slots (look-back), first_row and the group
 // count.  One barrier joins every op's warps at the end of the tile.
-template <int K, bool REC>
+// W128: the set holds a 128-bit op; a set of 64-bit ops alone compiles
+// without the 128-bit kinds' code and registers.
+template <int K, bool REC, bool W128>
 __global__ void __launch_bounds__(kThreads, 3)
 fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
             int global_agg, int first_set, int R, Scratch sc, int tiles,
@@ -839,8 +932,14 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
       for (int j = 0; j < K; ++j) c |= ((mw[REC ? j : 0] >> bit) & 1u) << j;
       const RecValues vals{my_rec + (s.lane[k] >= 0 ? s.lane_off[s.lane[k]]
                                                     : 0), R};
-#define SRT_FOLD(KIND) fold_op<KIND, K>(s, k, vals, c, v, defer + k)
-      SRT_KINDS(s.kind[k], SRT_FOLD)
+      const RecValues hvals{
+          my_rec + (s.lane_hi[k] >= 0 ? s.lane_off[s.lane_hi[k]] : 0), R};
+#define SRT_FOLD(KIND) fold_op<KIND, K>(s, k, vals, hvals, c, v, defer + k)
+      if constexpr (W128) {
+        SRT_KINDS(s.kind[k], SRT_FOLD)
+      } else {
+        SRT_KINDS64(s.kind[k], SRT_FOLD)
+      }
 #undef SRT_FOLD
     }
   } else {
@@ -855,6 +954,13 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
       s_bits[q * kThreads + tid] = static_cast<unsigned short>(c);
     }
     for (int l = -1; l < s.nlanes; ++l) {
+      if constexpr (W128) {
+        // the 64-bit ops over lane l; the 128-bit ops' lanes come below
+        bool used = false;
+        for (int k = 0; k < s.count; ++k)
+          used |= s.lane[k] == l && !is128(s.kind[k]);
+        if (!used) continue;
+      }
       long long x[K];
       const long long* lane = l >= 0 ? s.lanes[l] : nullptr;
 #pragma unroll
@@ -862,11 +968,43 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         x[j] = lane ? lane[in_row[REC ? 0 : j]] : 0ll;
       const RegValues vals{x};
       for (int k = 0; k < s.count; ++k) {
-        if (s.lane[k] != l) continue;
+        if (s.lane[k] != l || (W128 && is128(s.kind[k]))) continue;
         const unsigned c = s_bits[s.mask[k] * kThreads + tid];
-#define SRT_FOLD(KIND) fold_op<KIND, K>(s, k, vals, c, v, defer + k)
-        SRT_KINDS(s.kind[k], SRT_FOLD)
+#define SRT_FOLD(KIND) fold_op<KIND, K>(s, k, vals, vals, c, v, defer + k)
+        SRT_KINDS64(s.kind[k], SRT_FOLD)
 #undef SRT_FOLD
+      }
+    }
+    // the 128-bit ops: both words of the op's pair in registers, read
+    // again only where the pair changes
+    if constexpr (W128) {
+      int at_lo = -1, at_hi = -1;
+      long long x[K], xh[K];
+      for (int k = 0; k < s.count; ++k) {
+        if (!is128(s.kind[k])) continue;
+        if (s.lane[k] != at_lo || s.lane_hi[k] != at_hi) {
+          at_lo = s.lane[k];
+          at_hi = s.lane_hi[k];
+          const long long* lo = s.lanes[at_lo];
+          const long long* hi = s.lanes[at_hi];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            x[j] = lo[in_row[REC ? 0 : j]];
+            xh[j] = hi[in_row[REC ? 0 : j]];
+          }
+        }
+        const RegValues vals{x}, hvals{xh};
+        const unsigned c = s_bits[s.mask[k] * kThreads + tid];
+        switch (s.kind[k]) {
+          case kSum128:
+            fold_op<kSum128, K>(s, k, vals, hvals, c, v, defer + k);
+            break;
+          case kMin128:
+            fold_op<kMin128, K>(s, k, vals, hvals, c, v, defer + k);
+            break;
+          default:
+            fold_op<kMax128, K>(s, k, vals, hvals, c, v, defer + k);
+        }
       }
     }
   }
@@ -876,7 +1014,11 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
 #define SRT_FINISH(KIND) \
   finish_op<KIND>(s, k, item - k * (kWarps + 1), defer + k, v.part, \
                   sc.head, sc.tail)
-    SRT_KINDS(s.kind[k], SRT_FINISH)
+    if constexpr (W128) {
+      SRT_KINDS(s.kind[k], SRT_FINISH)
+    } else {
+      SRT_KINDS64(s.kind[k], SRT_FINISH)
+    }
 #undef SRT_FINISH
   }
 }
@@ -901,8 +1043,9 @@ __device__ void fixup_op(const Set& s, int k, int t, int slot, int lo,
   }
   if (!WIDE) {
     if (lane == 0)
-      write_group(s, s.kind[k], k, slot,
-                  combine<KIND>(tail[(long long)t * s.count + k], a));
+      write_group<is128(KIND)>(
+          s, s.kind[k], k, slot,
+          combine<KIND>(tail[(long long)t * s.count + k], a));
     return;
   }
   if (lane == 0) s_warp[w] = a;
@@ -910,12 +1053,12 @@ __device__ void fixup_op(const Set& s, int k, int t, int slot, int lo,
   if (tid == 0) {
     Acc r = tail[(long long)t * s.count + k];
     for (int q = 0; q < kWarps; ++q) r = combine<KIND>(r, s_warp[q]);
-    write_group(s, s.kind[k], k, slot, r);
+    write_group<is128(KIND)>(s, s.kind[k], k, slot, r);
   }
   __syncthreads();
 }
 
-template <bool WIDE>
+template <bool WIDE, bool W128>
 __device__ void fixup_ops(const Set& s, int t, int slot, int lo, int hi,
                           const Acc* head, const Acc* tail, Acc* s_warp) {
 #pragma unroll 1
@@ -927,12 +1070,16 @@ __device__ void fixup_ops(const Set& s, int t, int slot, int lo, int hi,
       case kMaxInt: SRT_FIX(kMaxInt); break;
       case kMinFloat: SRT_FIX(kMinFloat); break;
       case kMaxFloat: SRT_FIX(kMaxFloat); break;
-      default: SRT_FIX(kCount);  // counts and sums combine alike
+      case kSum128: if constexpr (W128) SRT_FIX(kSum128); break;
+      case kMin128: if constexpr (W128) SRT_FIX(kMin128); break;
+      case kMax128: if constexpr (W128) SRT_FIX(kMax128); break;
+      default: SRT_FIX(kCount);  // counts and 64-bit sums combine alike
     }
 #undef SRT_FIX
   }
 }
 
+template <bool W128>
 __global__ void __launch_bounds__(kThreads)
 fixup_kernel(Set s, const int* tile_counts, const int* tile_offsets,
              int tiles, const Acc* head, const Acc* tail) {
@@ -962,13 +1109,14 @@ fixup_kernel(Set s, const int* tile_counts, const int* tile_offsets,
   if (end - lo_all <= 32) {
     // a short run of tiles: one warp, one partial a lane
     if (tid >= 32) return;
-    fixup_ops<false>(s, t, slot, lo_all + tid, min(lo_all + tid + 1, end),
-                     head, tail, s_warp);
+    fixup_ops<false, W128>(s, t, slot, lo_all + tid,
+                           min(lo_all + tid + 1, end), head, tail, s_warp);
     return;
   }
   const int per = (end - lo_all + kThreads - 1) / kThreads;
   const int lo = lo_all + tid * per;
-  fixup_ops<true>(s, t, slot, lo, min(lo + per, end), head, tail, s_warp);
+  fixup_ops<true, W128>(s, t, slot, lo, min(lo + per, end), head, tail,
+                        s_warp);
 }
 
 // An ungrouped aggregate over no rows: one group, every count 0.
@@ -976,7 +1124,7 @@ __global__ void empty_global_kernel(Set s, int* first_row, int* groups) {
   *groups = 1;
   *first_row = 0;
   for (int k = 0; k < s.count; ++k)
-    write_group(s, s.kind[k], k, 0, zero_acc());
+    write_group<true>(s, s.kind[k], k, 0, zero_acc());
 }
 
 long long up16(long long x) { return (x + 15) / 16 * 16; }
@@ -1014,7 +1162,7 @@ long long layout(char* base, int n, int rows_per_thread, int ops_per_set,
   return off;
 }
 
-template <int K, bool REC>
+template <int K, bool REC, bool W128>
 int launch_fold(const Set& s, const Keys& keys, const int* order, int n,
                 int global_agg, int first_set, int R, const Scratch& sc,
                 int tiles, int* first_row, int* groups,
@@ -1022,10 +1170,10 @@ int launch_fold(const Set& s, const Keys& keys, const int* order, int n,
   const int smem = stage_bytes(K, REC ? R : 0) +
                    (s.count > 0 ? s.count : 1) * static_cast<int>(sizeof(Defer));
   const cudaError_t err = cudaFuncSetAttribute(
-      fold_kernel<K, REC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fold_kernel<K, REC, W128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fold_kernel<K, REC><<<tiles, kThreads, smem, stream>>>(
+  fold_kernel<K, REC, W128><<<tiles, kThreads, smem, stream>>>(
       s, keys, order, n, global_agg, first_set, R, sc, tiles, first_row,
       groups);
   return static_cast<int>(cudaGetLastError());
@@ -1069,11 +1217,15 @@ extern "C" int srt_segment_reduce_varying(const long long* const* words,
 // order: int32[n] or null (the rows are already in key order); all
 // inputs in input order, sorted row i being input row order[i].  Per op
 // k < nops (<= 16): kind[k] (0 count, 1 int64 sum, 2 float64 sum, 3 / 4
-// int64 min / max, 5 / 6 float64 min / max), op_lane[k] (index into
-// lanes, -1 for a count), op_mask[k] (index into masks: its contributor
-// mask, also its bit in a record's mask word), sums[k] (the lane's type,
-// [max(n, 1)], null for a count; min and max write the kept value's bits,
-// 0 where no row contributed), counts[k] (int64[max(n, 1)]).  lanes:
+// int64 min / max, 5 / 6 float64 min / max, 7 128-bit sum, 8 / 9 128-bit
+// min / max), op_lane[k] (index into lanes, -1 for a count; a 128-bit
+// kind's low words), op_lane_hi[k] (a 128-bit kind's high words, else
+// -1), op_mask[k] (index into masks: its contributor mask, also its bit in
+// a record's mask word), sums[k] (the lane's type, [max(n, 1)], null for
+// a count; min and max write the kept value's bits, 0 where no row
+// contributed; a 128-bit kind the low words), sums_hi[k] (a 128-bit
+// kind's high words, int64[max(n, 1)]), counts[k] (int64[max(n, 1)]).
+// lanes:
 // nlanes (<= 16) int64 / float64 [n] device pointers, distinct, at
 // lane_off in a record; masks: nmasks (<= 16) bool[n], distinct; the
 // mask word at mask_off.  record_bytes: 16, 32, 64 or 128 (the record
@@ -1091,7 +1243,8 @@ extern "C" int srt_segment_reduce_set(
     int nkeys, const void* const* key_w, const int* key_off,
     const unsigned char* live, const int* order, int n, int global_agg,
     int first_set, int nops, const int* kind, const int* op_lane,
-    const int* op_mask, void* const* sums, long long* const* counts,
+    const int* op_lane_hi, const int* op_mask, void* const* sums,
+    void* const* sums_hi, long long* const* counts,
     int nlanes, const void* const* lanes, const int* lane_off, int nmasks,
     const void* const* masks, int mask_off, int record_bytes,
     int rows_per_thread, int ops_per_set, int record_max, int* first_row,
@@ -1115,14 +1268,19 @@ extern "C" int srt_segment_reduce_set(
   Set s;
   s.count = nops;
   for (int k = 0; k < nops; ++k) {
-    if (kind[k] < kCount || kind[k] > kMaxFloat || op_lane[k] < -1 ||
+    if (kind[k] < kCount || kind[k] > kMax128 || op_lane[k] < -1 ||
         op_lane[k] >= nlanes || (kind[k] != kCount) != (op_lane[k] >= 0) ||
-        op_mask[k] < 0 || op_mask[k] >= nmasks)
+        op_mask[k] < 0 || op_mask[k] >= nmasks ||
+        (is128(kind[k]) ? (op_lane_hi[k] < 0 || op_lane_hi[k] >= nlanes ||
+                           op_lane_hi[k] == op_lane[k] || !sums_hi[k])
+                        : op_lane_hi[k] != -1))
       return static_cast<int>(cudaErrorInvalidValue);
     s.kind[k] = kind[k];
     s.lane[k] = op_lane[k];
+    s.lane_hi[k] = op_lane_hi[k];
     s.mask[k] = op_mask[k];
     s.sums[k] = sums[k];
+    s.sums_hi[k] = static_cast<long long*>(sums_hi[k]);
     s.counts[k] = counts[k];
   }
   // a record holds the lanes from offset 0, the varying key words after
@@ -1187,9 +1345,15 @@ extern "C" int srt_segment_reduce_set(
     if (rc) return rc;
   }
   const int R = rec ? record_bytes : 0;
+  bool w128 = false;
+  for (int k = 0; k < nops; ++k) w128 |= is128(kind[k]);
 #define SRT_LAUNCH(K, REC)                                                  \
-  launch_fold<K, REC>(s, keys, order, n, global_agg, first_set, R, sc,      \
-                      tiles, first_row, groups, stream)
+  (w128 ? launch_fold<K, REC, true>(s, keys, order, n, global_agg,          \
+                                    first_set, R, sc, tiles, first_row,     \
+                                    groups, stream)                         \
+        : launch_fold<K, REC, false>(s, keys, order, n, global_agg,         \
+                                     first_set, R, sc, tiles, first_row,    \
+                                     groups, stream))
   if (!rec) {
     rc = SRT_LAUNCH(kDirectRows, false);
   } else {
@@ -1202,7 +1366,11 @@ extern "C" int srt_segment_reduce_set(
   }
 #undef SRT_LAUNCH
   if (rc) return rc;
-  fixup_kernel<<<tiles, kThreads, 0, stream>>>(
-      s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail);
+  if (w128)
+    fixup_kernel<true><<<tiles, kThreads, 0, stream>>>(
+        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail);
+  else
+    fixup_kernel<false><<<tiles, kThreads, 0, stream>>>(
+        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,6 +46,8 @@ _KIND_COUNT, _KIND_SUM_INT, _KIND_SUM_FLOAT = 0, 1, 2
 # min / max of an int64 lane, then of a float64 lane
 _KIND_EXTREME = {("min", False): 3, ("max", False): 4, ("min", True): 5,
                  ("max", True): 6}
+# over a (lo, hi) pair of lanes: a DECIMAL of more than 18 digits
+_KIND_128 = {"sum": 7, "min": 8, "max": 9}
 
 
 # ---------------------------------------------------------------------------
@@ -76,18 +78,22 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
                                 contribs: Sequence[torch.Tensor],
                                 global_agg: bool,
                                 order: Optional[torch.Tensor] = None,
-                                ops: Optional[Sequence[str]] = None):
+                                ops: Optional[Sequence[str]] = None,
+                                values_hi: Optional[Sequence] = None):
     """Plain version of K3: the lanes put in key order by index_select,
     then boundaries, segment ids, index_add_ and, for min and max,
-    ``ops/segmented.py:segment_reduce``.  See ``segment_reduce_sorted``
-    for the arguments and the result."""
+    ``ops/segmented.py:segment_reduce``; over a (lo, hi) pair
+    ``segment_sum128`` and ``segment_extreme128``.  See
+    ``segment_reduce_sorted`` for the arguments and the result."""
     names = _op_names(values, ops)
+    his = list(values_hi) if values_hi is not None else [None] * len(values)
     if order is not None:
         idx = order.to(torch.int64)
         words = [w.index_select(0, idx) for w in words]
         live = None if live is None else live.index_select(0, idx)
         values = [None if v is None else v.index_select(0, idx)
                   for v in values]
+        his = [None if h is None else h.index_select(0, idx) for h in his]
         contribs = [c.index_select(0, idx) for c in contribs]
     lanes = _lanes(words, live, values, contribs)
     n, dev = int(lanes[0].shape[0]), lanes[0].device
@@ -104,7 +110,14 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
         ids = seg.segment_ids(new_group).to(torch.int64)
     grouped = ids >= 0            # rows before the first start: no group
     sums, counts = [], []
-    for v, c, op in zip(values, contribs, names):
+    for v, h, c, op in zip(values, his, contribs, names):
+        if h is not None:
+            fn = (seg.segment_sum128 if op == "sum" else
+                  functools.partial(seg.segment_extreme128, op))
+            lo, hi, cnt = fn(v, h, ids, groups, c & grouped)
+            sums.append((lo, hi))
+            counts.append(cnt)
+            continue
         if op in ("min", "max"):
             out, cnt = seg.segment_reduce(op, v, ids, groups, c & grouped)
             sums.append(out)
@@ -173,15 +186,18 @@ _K3_DIRECT_BYTES = 96 << 20
 
 class K3Set(NamedTuple):
     """One launch set of K3: its ops (indices into the call's ops), its
-    distinct value lanes and contributor masks (each named by the first
-    op that reads it), each op's lane (-1 for a count) and mask index
-    (also its bit in a record's mask word), and on the record path the
-    record's bytes and the byte offsets of the lanes, of the varying key
-    words (first set only) and of the mask word."""
+    distinct value lanes and contributor masks (a lane named by its
+    index into the call's values then values_hi, a mask by the first op
+    that reads it), each op's lane (-1 for a count), high lane (a
+    128-bit op's, else -1) and mask index (also its bit in a record's
+    mask word), and on the record path the record's bytes and the byte
+    offsets of the lanes, of the varying key words (first set only) and
+    of the mask word."""
     ops: List[int]
     lanes: List[int]
     masks: List[int]
     op_lane: List[int]
+    op_lane_hi: List[int]
     op_mask: List[int]
     record_bytes: int
     lane_offsets: List[int]
@@ -202,37 +218,41 @@ class K3Plan(NamedTuple):
     scratch_bytes: int
 
 
-def _k3_set(ops, values, masks, nkeys, packed) -> Optional[K3Set]:
+def _k3_set(ops, values, masks, nkeys, packed, his) -> Optional[K3Set]:
     """The set of ``ops``; None on the record path when its record would
-    exceed 128 bytes.  A record holds the distinct value lanes (8 bytes
-    each), then the ``nkeys`` key words it carries (8 each), then the
-    mask word."""
-    lane_keys, lanes, mask_keys, mks, op_lane, op_mask = [], [], [], [], [], []
+    exceed 128 bytes.  ``values[k]`` and ``his[k]`` name op k's lane and
+    high lane (None: none) by their index into the call's values then
+    values_hi.  A record holds the distinct lanes (8 bytes each), then
+    the ``nkeys`` key words it carries (8 each), then the mask word."""
+    lanes, mask_keys, mks, op_lane, op_hi, op_mask = [], [], [], [], [], []
+
+    def lane(x):
+        if x is None:
+            return -1
+        if x not in lanes:
+            lanes.append(x)
+        return lanes.index(x)
     for k in ops:
-        if values[k] is None:
-            op_lane.append(-1)
-        else:
-            if values[k] not in lane_keys:
-                lane_keys.append(values[k])
-                lanes.append(k)
-            op_lane.append(lane_keys.index(values[k]))
+        op_lane.append(lane(values[k]))
+        op_hi.append(lane(his[k]))
         if masks[k] not in mask_keys:
             mask_keys.append(masks[k])
             mks.append(k)
         op_mask.append(mask_keys.index(masks[k]))
     if not packed:
-        return K3Set(list(ops), lanes, mks, op_lane, op_mask, 0, [], [], 0)
+        return K3Set(list(ops), lanes, mks, op_lane, op_hi, op_mask, 0, [],
+                     [], 0)
     need = 8 * (len(lanes) + nkeys) + 4
     size = next((r for r in _K3_RECORD_SIZES if r >= need), 0)
     if not size:
         return None
-    return K3Set(list(ops), lanes, mks, op_lane, op_mask, size,
+    return K3Set(list(ops), lanes, mks, op_lane, op_hi, op_mask, size,
                  [8 * i for i in range(len(lanes))],
                  [8 * (len(lanes) + i) for i in range(nkeys)],
                  8 * (len(lanes) + nkeys))
 
 
-def _k3_sets(values, masks, nkeys, packed) -> List[K3Set]:
+def _k3_sets(values, masks, nkeys, packed, his) -> List[K3Set]:
     """The ops in order, cut into sets of at most 16; on the record path
     also where the next op's lane would not fit the set's record.  The
     first set's record carries the varying key words where there are at
@@ -243,12 +263,12 @@ def _k3_sets(values, masks, nkeys, packed) -> List[K3Set]:
     for k in range(len(values)):
         keys = 0 if sets else rec_keys
         if cur and (len(cur) == _K3_OPS_PER_SET or _k3_set(
-                cur + [k], values, masks, keys, packed) is None):
-            sets.append(_k3_set(cur, values, masks, keys, packed))
+                cur + [k], values, masks, keys, packed, his) is None):
+            sets.append(_k3_set(cur, values, masks, keys, packed, his))
             cur = []
         cur.append(k)
     return sets + [_k3_set(cur, values, masks, 0 if sets else rec_keys,
-                           packed)]
+                           packed, his)]
 
 
 def _k3_bytes(n, sets, nkeys, live, ordered) -> int:
@@ -294,11 +314,12 @@ def k3_scratch_bytes(n: int, rows_per_thread: int, ops_per_set: int,
 
 
 def k3_may_pack(n: int, values: Sequence, masks: Sequence,
-                ordered: bool) -> bool:
+                ordered: bool, his: Sequence = ()) -> bool:
     """Whether K3's record path can pay before the key words are known:
     the rows come through an order, some op reads a value lane, and the
-    distinct inputs outgrow ``_K3_DIRECT_BYTES``."""
-    lanes = {v for v in values if v is not None}
+    distinct inputs (``his``: the 128-bit ops' high lanes) outgrow
+    ``_K3_DIRECT_BYTES``."""
+    lanes = {v for v in [*values, *his] if v is not None}
     return (ordered and bool(lanes)
             and n * (8 * len(lanes) + len(set(masks))) > _K3_DIRECT_BYTES)
 
@@ -306,21 +327,28 @@ def k3_may_pack(n: int, values: Sequence, masks: Sequence,
 def k3_plan(n: int, values: Sequence, masks: Sequence, nkeys: int,
             ordered: bool, live: bool = False,
             packed: Optional[bool] = None,
-            runs: Optional[int] = None) -> K3Plan:
-    """See ``_k3_plan``: the inputs reduced to which op first reads each,
-    so that calls of one shape share a plan."""
+            runs: Optional[int] = None,
+            his: Optional[Sequence] = None) -> K3Plan:
+    """See ``_k3_plan``: the inputs reduced to where each is first read
+    (each op's lane, then each op's high lane, ``his``: a 128-bit op's,
+    else None), so that calls of one shape share a plan."""
+    his = [None] * len(values) if his is None else list(his)
+
     def first(keys):
         seen = {}
         return tuple(-1 if x is None else seen.setdefault(x, k)
                      for k, x in enumerate(keys))
-    return _k3_plan(n, first(values), first(masks), nkeys, ordered, live,
-                    packed, runs is not None and runs <= _K3_FEW_RUNS)
+    lanes = first(list(values) + his)
+    return _k3_plan(n, lanes[:len(values)], first(masks), nkeys, ordered,
+                    live, packed, runs is not None and runs <= _K3_FEW_RUNS,
+                    lanes[len(values):])
 
 
 @functools.lru_cache(maxsize=256)
 def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
              nkeys: int, ordered: bool, live: bool,
-             packed: Optional[bool], few_runs: bool) -> K3Plan:
+             packed: Optional[bool], few_runs: bool,
+             his: Tuple[int, ...] = ()) -> K3Plan:
     """K3's plan for n rows and one op per entry of ``values`` (each op's
     value lane by its storage, any hashable, or None for a count) and
     ``masks`` (its contributor mask's storage), ``nkeys`` key words that
@@ -332,12 +360,13 @@ def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
     R) rows a thread for the widest record R of the call; the direct
     path takes 8."""
     values = [None if v < 0 else v for v in values]
-    direct = _k3_sets(values, masks, nkeys, False)
-    recs = _k3_sets(values, masks, nkeys, True)
+    his = [None if v < 0 else v for v in his] or [None] * len(values)
+    direct = _k3_sets(values, masks, nkeys, False, his)
+    recs = _k3_sets(values, masks, nkeys, True, his)
     direct_bytes = _k3_bytes(n, direct, nkeys, live, ordered)
     packed_bytes = _k3_bytes(n, recs, nkeys, live, ordered)
     if packed is None:
-        use = (k3_may_pack(n, values, masks, ordered) and not few_runs
+        use = (k3_may_pack(n, values, masks, ordered, his) and not few_runs
                and packed_bytes < direct_bytes)
     else:
         use = packed
@@ -352,8 +381,9 @@ def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
 
 def _storage(x: torch.Tensor):
     """An input's identity for K3: ops over the same storage and type
-    read it once."""
-    return (x.data_ptr(), x.dtype)
+    read it once (empty lanes, which may share a null pointer, are told
+    apart by the tensor)."""
+    return (x.data_ptr(), x.dtype) if x.numel() else ("empty", id(x))
 
 
 def segment_reduce_sorted(words: Sequence[torch.Tensor],
@@ -363,7 +393,8 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                           global_agg: bool,
                           order: Optional[torch.Tensor] = None,
                           ops: Optional[Sequence[str]] = None,
-                          packed: Optional[bool] = None):
+                          packed: Optional[bool] = None,
+                          values_hi: Optional[Sequence] = None):
     """Reduce rows per group, reading them in key order (K3).
 
     Every lane is in input order; ``order`` (int32, K2's permutation)
@@ -382,16 +413,28 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     contribute, else +-inf if one does; a min or max is the value, bit
     for bit, of the group's earliest sorted row whose ordered word
     (``ops/segmented.py:ordered_word``) is the extreme; a result with no
-    contributor is 0.  ``packed`` forces K3's path (default:
+    contributor is 0.  ``values_hi[k]``, where given, makes op k a
+    128-bit one over the pair (``values[k]`` the low words, int64 bits of
+    the unsigned word, ``values_hi[k]`` the signed high words: a DECIMAL
+    of more than 18 digits): its sum is exact modulo 2^128, its min or
+    max ordered by (high signed, low unsigned), and its result the pair
+    (low words, high words).  ``packed`` forces K3's path (default:
     ``k3_plan``); the plain version runs for CPU tensors whatever it
     says."""
     names = _op_names(values, ops)
+    his = [None] * len(values) if values_hi is None else list(values_hi)
+    if len(his) != len(values) or any(
+            h is not None and (values[k] is None or names[k] == "count")
+            for k, h in enumerate(his)):
+        raise ValueError("segment_reduce_sorted: a high lane needs its "
+                         "op's low lane")
     lanes = _lanes(words, live, values, contribs)
+    lanes += [h for h in his if h is not None]
     if order is not None:
         lanes.append(order)
     if lanes[0].device.type == "cpu":
         return segment_reduce_sorted_plain(words, live, values, contribs,
-                                           global_agg, order, ops)
+                                           global_agg, order, ops, his)
     kernels.require_cuda("segment_reduce_sorted", *lanes)
     n = int(lanes[0].shape[0])
     if any(c.dtype != torch.bool or c.shape != (n,)
@@ -405,6 +448,11 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
            for v in present):
         raise TypeError("segment_reduce_sorted: values must be int64 or "
                         f"float64[{n}]")
+    if any(h is not None and (h.dtype != torch.int64 or h.shape != (n,)
+                              or values[k].dtype != torch.int64)
+           for k, h in enumerate(his)):
+        raise TypeError(f"segment_reduce_sorted: a 128-bit op's lanes must "
+                        f"be int64[{n}]")
     if order is not None and (order.dtype != torch.int32
                               or order.shape != (n,)):
         raise TypeError(f"segment_reduce_sorted: order must be int32[{n}]")
@@ -413,11 +461,14 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     m = max(n, 1)
     lib = kernels.library("segment_reduce")
     kinds = [_KIND_COUNT if op == "count" else
+             _KIND_128[op] if h is not None else
              _KIND_EXTREME[op, v.dtype == torch.float64]
              if op in ("min", "max") else
              _KIND_SUM_FLOAT if v.dtype == torch.float64 else _KIND_SUM_INT
-             for v, op in zip(values, names)]
+             for v, h, op in zip(values, his, names)]
     value_keys = [None if v is None else _storage(v) for v in values]
+    hi_keys = [None if h is None else _storage(h) for h in his]
+    by_key = values + his                   # a plan's lane index -> lane
     mask_keys = [_storage(c) for c in contribs]
     word_ptrs = kernels.device_int64s([w.data_ptr() for w in words], dev)
     # the varying key words, then the order's descents (up to 64)
@@ -429,20 +480,22 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
             varying.data_ptr(), st), "segment_reduce_sorted")
     sums = [None if v is None else torch.empty(m, dtype=v.dtype, device=dev)
             for v in values]
+    sums_hi = [None if h is None else torch.empty(m, dtype=torch.int64,
+                                                  device=dev) for h in his]
     counts = [torch.empty(m, dtype=torch.int64, device=dev) for _ in values]
     first_row = torch.empty(m, dtype=torch.int32, device=dev)
     groups = torch.empty(1, dtype=torch.int32, device=dev)
     keys = []       # the varying words, which a record may carry
     runs = None     # the order's increasing runs, where few
     look = packed if packed is not None else k3_may_pack(
-        n, value_keys, mask_keys, order is not None)
+        n, value_keys, mask_keys, order is not None, hi_keys)
     if look and not global_agg and n:
         flags = varying.tolist()
         keys = [w for w, f in zip(words, flags) if f]
         if order is not None:
             runs = flags[-1] + 1
     plan = k3_plan(n, value_keys, mask_keys, len(keys), order is not None,
-                   live is not None, packed, runs)
+                   live is not None, packed, runs, hi_keys)
     scratch = torch.empty(max(plan.scratch_bytes // 8, 2),
                           dtype=torch.int64, device=dev)
     ops_per_set = max(len(s.ops) for s in plan.sets)
@@ -457,10 +510,11 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
             None if order is None else order.data_ptr(), n,
             int(global_agg), int(i == 0), len(s.ops),
             kernels.ints(kinds[k] for k in s.ops), kernels.ints(s.op_lane),
-            kernels.ints(s.op_mask),
+            kernels.ints(s.op_lane_hi), kernels.ints(s.op_mask),
             kernels.pointers([sums[k] for k in s.ops]),
+            kernels.pointers([sums_hi[k] for k in s.ops]),
             kernels.pointers([counts[k] for k in s.ops]),
-            len(s.lanes), kernels.pointers([values[k] for k in s.lanes]),
+            len(s.lanes), kernels.pointers([by_key[x] for x in s.lanes]),
             kernels.ints(s.lane_offsets), len(s.masks),
             kernels.pointers([contribs[k] for k in s.masks]),
             s.mask_offset, s.record_bytes, plan.rows_per_thread,
@@ -470,7 +524,9 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     segment_reduce_sorted.launches += 1
     segment_reduce_sorted.last_plan = plan
     g = int(groups.item())
-    return (first_row[:g], [None if s is None else s[:g] for s in sums],
+    return (first_row[:g], [None if s is None else s[:g] if h is None
+                            else (s[:g], h[:g])
+                            for s, h in zip(sums, sums_hi)],
             [c[:g] for c in counts], g)
 
 
@@ -486,7 +542,8 @@ def _prefix(col: DeviceColumn, n: int) -> DeviceColumn:
     if col.offsets is not None:
         return DeviceColumn(col.dtype, col.data, col.validity[:n],
                             col.offsets[:n + 1])
-    return DeviceColumn(col.dtype, col.data[:n], col.validity[:n])
+    return DeviceColumn(col.dtype, col.data[:n], col.validity[:n], None,
+                        None if col.data_hi is None else col.data_hi[:n])
 
 
 def _padded(x: torch.Tensor, cap: int) -> torch.Tensor:
@@ -500,7 +557,9 @@ def _padded_column(col: DeviceColumn, cap: int) -> DeviceColumn:
     repeat its last offset."""
     if col.offsets is None:
         return DeviceColumn(col.dtype, _padded(col.data, cap),
-                            _padded(col.validity, cap))
+                            _padded(col.validity, cap), None,
+                            None if col.data_hi is None
+                            else _padded(col.data_hi, cap))
     g = col.offsets.shape[0] - 1
     offs = torch.empty(cap + 1, dtype=col.offsets.dtype,
                        device=col.offsets.device)
@@ -534,20 +593,25 @@ def _ordered_pick(words: List[torch.Tensor], col: DeviceColumn, op: str,
 
 
 def _extreme_lane(col: DeviceColumn) -> torch.Tensor:
-    """A min/max input as K3 reads it: float64 as it is, any other flat
-    type widened to int64."""
+    """A min/max input as K3 reads it: float64 as it is, float32 widened
+    to float64 (exactly; Spark's total order is the same), any other flat
+    type widened to int64; the result narrows back bit for bit."""
     if col.data.dtype == torch.float64:
         return col.data
+    if col.data.dtype == torch.float32:
+        return col.data.to(torch.float64)
     return col.data.to(torch.int64)
 
 
 def k3_ops(vals: List[DeviceColumn], ops: List[str]):
     """K3's value lanes, contributor masks and op names for ``vals``
-    reduced by ``ops`` (sum, countvalid, min, max), and for each op the
-    index of the K3 op whose result it takes.  A count of a lane's valid
-    rows is also the contributor count of an earlier op over the same
-    validity lane (avg's sum and count), so K3 folds that lane once."""
+    reduced by ``ops`` (sum, countvalid, min, max), for each op the index
+    of the K3 op whose result it takes, and K3's high lanes (a DECIMAL128
+    column's ``data_hi``, else None).  A count of a lane's valid rows is
+    also the contributor count of an earlier op over the same validity
+    lane (avg's sum and count), so K3 folds that lane once."""
     k3_vals, k3_contribs, k3_names, take, by_lane = [], [], [], [], {}
+    k3_his = []
     for v, op in zip(vals, ops):
         lane = v.validity.data_ptr()
         if op == "countvalid" and lane in by_lane:
@@ -561,14 +625,16 @@ def k3_ops(vals: List[DeviceColumn], ops: List[str]):
             k3_vals.append(None)
             k3_names.append("sum")
             k3_contribs.append(v.validity)
+            k3_his.append(None)
             continue
-        elif op == "sum":
+        elif op == "sum" or v.data_hi is not None:
             k3_vals.append(v.data)
         else:
             k3_vals.append(_extreme_lane(v))
+        k3_his.append(v.data_hi)
         k3_names.append("sum" if op == "countvalid" else op)
         k3_contribs.append(v.validity)
-    return k3_vals, k3_contribs, k3_names, take
+    return k3_vals, k3_contribs, k3_names, take, k3_his
 
 
 def _group_reduce(key_cols: List[DeviceColumn],
@@ -599,9 +665,10 @@ def _group_reduce(key_cols: List[DeviceColumn],
     words = [w for kc in keys for w in seg.key_words_for_column(kc)]
     if order is None and words:
         order = sort_order(words)
-    k3_vals, k3_contribs, k3_names, take = k3_ops(vals, ops)
+    k3_vals, k3_contribs, k3_names, take, k3_his = k3_ops(vals, ops)
     first_row, sums, counts, groups = segment_reduce_sorted(
-        words, None, k3_vals, k3_contribs, global_agg, order, k3_names)
+        words, None, k3_vals, k3_contribs, global_agg, order, k3_names,
+        values_hi=k3_his)
     cap = bucket_for(groups)
     # each group's key is read at its first row, in input order
     out_keys = [_padded_column(g, cap)
@@ -617,6 +684,10 @@ def _group_reduce(key_cols: List[DeviceColumn],
             out_vals.append(DeviceColumn(
                 t.LONG, _padded(cnt, cap),
                 _padded(torch.ones_like(cnt, dtype=torch.bool), cap)))
+        elif isinstance(s, tuple):          # a DECIMAL128 (lo, hi) pair
+            out_vals.append(DeviceColumn(
+                vc.dtype, _padded(s[0], cap), _padded(cnt > 0, cap), None,
+                _padded(s[1], cap)))
         elif op in ("min", "max"):
             out_vals.append(DeviceColumn(
                 vc.dtype, _padded(s.to(vc.dtype.torch_dtype), cap),
@@ -682,7 +753,7 @@ class GpuHashAggregateExec(Exec):
     def determinism(self):
         scoped = self.mode == PARTIAL   # partial buffers regroup with the
         #                                 input split
-        if any(bt == t.DOUBLE for bt in self._buffer_types) and \
+        if any(t.is_fractional(bt) for bt in self._buffer_types) and \
                 not self.stable_merge:
             return Determinism(
                 ORDER_DEPENDENT, "float partial buffers fold in batch "
@@ -828,7 +899,7 @@ class CpuHashAggregateExec(Exec):
         return MERGES       # rows regroup by the grouping keys
 
     def determinism(self):
-        floaty = any(bt == t.DOUBLE for ae in self.aggregates
+        floaty = any(t.is_fractional(bt) for ae in self.aggregates
                      for bt in ae.func.buffer_types())
         if floaty:
             return Determinism(

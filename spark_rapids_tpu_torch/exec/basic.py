@@ -305,11 +305,7 @@ class LocalLimitExec(Exec):
             take = min(n, remaining)
             if take < n:
                 keep = torch.arange(b.capacity, device=b.device) < take
-                cols = [mask_validity(c, keep) if c.offsets is not None
-                        else DeviceColumn(
-                            c.dtype, torch.where(keep, c.data,
-                                                 torch.zeros_like(c.data)),
-                            c.validity & keep) for c in b.columns]
+                cols = [mask_validity(c, keep) for c in b.columns]
                 b = DeviceBatch(cols, take, b.names)
             remaining -= take
             yield b

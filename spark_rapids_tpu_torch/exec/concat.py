@@ -57,7 +57,9 @@ def concat_batches(batches: List[DeviceBatch], names: Sequence[str],
                 cap, bucket_for(max(sum(b), 1), DEFAULT_CHAR_BUCKETS))
             cols.append(DeviceColumn(dt, chars, validity, offs))
             continue
+        hi = None if src[0].data_hi is None else _concat_lane(
+            [c.data_hi[:n] for c, n in zip(src, counts)], cap)
         cols.append(DeviceColumn(
             dt, _concat_lane([c.data[:n] for c, n in zip(src, counts)], cap),
-            validity))
+            validity, None, hi))
     return DeviceBatch(cols, total, names)

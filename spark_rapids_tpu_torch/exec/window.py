@@ -73,14 +73,19 @@ def _no_mark(stage: str) -> None:
 
 def _equality_lanes(col: DeviceColumn, words) -> List[torch.Tensor]:
     """Lanes that are equal on two rows exactly when the rows' keys are
-    equal (as their grouping words are): the validity, and the data, or
-    for a double its order-preserving word (NaN canonical, -0.0 ==
-    0.0), or for a string its key ``words`` themselves.  The data under
+    equal (as their grouping words are): the validity, and the data (a
+    DECIMAL128's two words), or for a double or a float its
+    order-preserving word (NaN canonical, -0.0 == 0.0), or for a string
+    its key ``words`` themselves.  The data under
     a null is zero."""
     if col.offsets is not None:
         return list(words)
     if col.dtype == t.DOUBLE:
         return [col.validity, seg.encode_float_ordered(col.data)]
+    if col.dtype == t.FLOAT:
+        return [col.validity, seg.encode_float_ordered32(col.data)]
+    if col.data_hi is not None:         # a DECIMAL128: both words
+        return [col.validity, col.data, col.data_hi]
     return [col.validity, col.data]
 
 
@@ -248,7 +253,7 @@ class WindowExec(Exec):
         # lane give the same boundaries, and an int64 key's value lane is
         # its data, often an input lane already)
         lanes = [x for c in cols if c.offsets is None
-                 for x in (c.data, c.validity)]
+                 for x in (c.data, c.validity, c.data_hi) if x is not None]
         pkey_lanes = [x for pk, ws in zip(pkeys, pkw)
                       for x in _equality_lanes(pk, ws)]
         okey_lanes = [x for (ok, _, _), ws in zip(okeys, okw)
@@ -263,7 +268,10 @@ class WindowExec(Exec):
         mark("K8")
         sorted_cols = [next(spans) if c.offsets is not None else
                        DeviceColumn(c.dtype, moved[id(c.data)],
-                                    moved[id(c.validity)]) for c in cols]
+                                    moved[id(c.validity)], None,
+                                    None if c.data_hi is None
+                                    else moved[id(c.data_hi)])
+                       for c in cols]
         psorted = [moved[id(x)] for x in pkey_lanes]
         osorted = [moved[id(x)] for x in okey_lanes]
         lay = _Layout()
@@ -321,6 +329,12 @@ class WindowExec(Exec):
         seg_start = lay.seg_start
         idx_in_seg = pos - seg_start
         func = w.func
+        cn, ct = self.children[0].output_names, self.children[0].output_types
+        if any(t.is_dec128(bind_expression(c, cn, ct).data_type())
+               for c in func.children):
+            raise NotImplementedError(
+                f"window {type(func).__name__} over a decimal of more than "
+                f"18 digits is not ported yet (ROADMAP Queue 1 item 3)")
         if type(func) is RowNumber:
             return (idx_in_seg + 1).to(torch.int32), live_s
         if type(func) is Rank:

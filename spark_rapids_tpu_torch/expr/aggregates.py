@@ -7,7 +7,12 @@ expression that evaluates the final value from merged buffers.  Ops are
 ``sum``, ``countvalid`` (the count of non-null rows), ``min`` and
 ``max``; a buffer's group is null when no row contributed to it.  Min
 and Max run grouped and global (exec/aggregate.py, K3's min and max
-folds) and over windows (exec/window.py).
+folds) and over windows (exec/window.py).  Result and buffer types
+follow the reference: Sum of a DECIMAL(p, s) is DECIMAL(min(p + 10, 38),
+s), on a 128-bit buffer past 18 digits (K3's 128-bit sum); Average of
+one is DECIMAL(p + 4, s + 4) over a DECIMAL(p + 10, s) sum, rounded
+HALF_UP; Sum and Average of FLOAT add as DOUBLE; Min and Max keep their
+type.
 """
 
 from __future__ import annotations
@@ -49,9 +54,17 @@ class AggregateFunction(Expression):
         raise NotImplementedError
 
 
+def _sum_decimal(ct: t.DecimalType) -> t.DecimalType:
+    return t.DecimalType(min(ct.precision + 10, t.MAX_DECIMAL128_PRECISION),
+                         ct.scale)
+
+
 class Sum(AggregateFunction):
     def data_type(self):
-        return t.LONG if t.is_integral(self.child.data_type()) else t.DOUBLE
+        ct = self.child.data_type()
+        if isinstance(ct, t.DecimalType):
+            return _sum_decimal(ct)
+        return t.LONG if t.is_integral(ct) else t.DOUBLE
 
     def update(self):
         return [(Cast(self.child, self.data_type()), "sum")]
@@ -89,14 +102,23 @@ class Count(AggregateFunction):
 
 class Average(AggregateFunction):
     def data_type(self):
+        ct = self.child.data_type()
+        if isinstance(ct, t.DecimalType):
+            return t.DecimalType(min(ct.precision + 4, 38),
+                                 min(ct.scale + 4, 38))
         return t.DOUBLE
 
+    def _sum_type(self):
+        ct = self.child.data_type()
+        return _sum_decimal(ct) if isinstance(ct, t.DecimalType) \
+            else t.DOUBLE
+
     def update(self):
-        return [(Cast(self.child, t.DOUBLE), "sum"),
+        return [(Cast(self.child, self._sum_type()), "sum"),
                 (self.child, "countvalid")]
 
     def buffer_types(self):
-        return [t.DOUBLE, t.LONG]
+        return [self._sum_type(), t.LONG]
 
     def merge_ops(self):
         return ["sum", "sum"]
@@ -106,6 +128,16 @@ class Average(AggregateFunction):
         cnt = c.col.data
         nonzero = cnt > 0
         safe = torch.where(nonzero, cnt, torch.ones_like(cnt))
+        out = self.data_type()
+        if isinstance(out, t.DecimalType):
+            # sum * 10^(out scale - sum scale) / count, HALF_UP, exactly
+            from ..ops import int128 as i128
+            from .core import decimal_pair, make_decimal_column
+            # (a sum past 38 digits wraps, so the bound is the word's)
+            q = i128.div_half_up(decimal_pair(s.col),
+                                 10 ** (out.scale - self._sum_type().scale),
+                                 i128.from_int64(safe), 2 ** 127, 2 ** 63)
+            return make_decimal_column(ctx, out, q, nonzero & s.col.validity)
         return make_column(ctx, t.DOUBLE, s.col.data / safe, nonzero)
 
 

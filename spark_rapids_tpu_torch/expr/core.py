@@ -11,6 +11,8 @@ share compiled programs and has no counterpart here.
 
 from __future__ import annotations
 
+import datetime
+import decimal
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Type)
 
@@ -107,6 +109,10 @@ def evaluator(cls: Type[Expression]):
     return deco
 
 
+_EPOCH_DAY = datetime.date(1970, 1, 1)
+_EPOCH = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+
+
 def infer_literal_type(value: Any) -> t.DataType:
     if value is None:
         return t.NULL
@@ -118,8 +124,38 @@ def infer_literal_type(value: Any) -> t.DataType:
         return t.DOUBLE
     if isinstance(value, (str, bytes)):
         return t.STRING
+    if isinstance(value, decimal.Decimal):
+        # the reference's rule: scale from the exponent, precision from
+        # the digits
+        _, digits, exp = value.as_tuple()
+        scale = max(-exp, 0)
+        return t.DecimalType(max(len(digits), scale), scale)
+    if isinstance(value, datetime.datetime):
+        return t.TIMESTAMP
+    if isinstance(value, datetime.date):
+        return t.DATE
     raise NotImplementedError(
         f"literal {value!r} of type {type(value).__name__} is not ported yet")
+
+
+def literal_storage(value: Any, dtype: t.DataType) -> Any:
+    """A literal's value as its column stores it: a DATE as days since
+    the epoch, a TIMESTAMP as microseconds since the epoch in UTC (a
+    naive datetime read as UTC), a DECIMAL as its unscaled Python int, a
+    string as its UTF-8."""
+    if isinstance(value, str):
+        return value.encode("utf-8")
+    if isinstance(value, datetime.datetime):
+        if value.tzinfo is None:
+            value = value.replace(tzinfo=datetime.timezone.utc)
+        d = value - _EPOCH
+        return (d.days * 86400 + d.seconds) * 1_000_000 + d.microseconds
+    if isinstance(value, datetime.date):
+        return (value - _EPOCH_DAY).days
+    if isinstance(value, decimal.Decimal) and \
+            isinstance(dtype, t.DecimalType):
+        return int(value.scaleb(dtype.scale))
+    return value
 
 
 class Literal(Expression):
@@ -127,9 +163,7 @@ class Literal(Expression):
         if hasattr(value, "item"):              # numpy scalar
             value = value.item()
         self.dtype = dtype if dtype is not None else infer_literal_type(value)
-        if isinstance(value, str):              # a string as its UTF-8
-            value = value.encode("utf-8")
-        self.value = value
+        self.value = literal_storage(value, self.dtype)
 
     def data_type(self):
         return self.dtype
@@ -259,16 +293,47 @@ def and_validity(ctx: EvalContext, *vals):
     return out
 
 
+def decimal_pair(col: DeviceColumn):
+    """A decimal column's unscaled values as an int128 (lo, hi) pair
+    (``ops/int128.py``); a DECIMAL64 lane is sign-extended."""
+    data = col.data.to(torch.int64)
+    return data, (data >> 63) if col.data_hi is None else col.data_hi
+
+
+def make_decimal_column(ctx: EvalContext, dtype: t.DecimalType, pair,
+                        validity) -> ColumnValue:
+    """A DECIMAL column from an int128 (lo, hi) pair of tensors or a
+    Python int (broadcast): one lane at most 18 digits (the low word),
+    else both.  The words under a null are zero."""
+    if not isinstance(pair, tuple):
+        from ..ops import int128 as i128
+        pair = i128.full(int(pair or 0), torch.empty(ctx.capacity,
+                                                dtype=torch.int64,
+                                                device=ctx.device))
+    if dtype.is64:
+        return make_column(ctx, dtype, pair[0], validity)
+    col = make_column(ctx, t.LONG, pair[0], validity).col
+    hi = torch.where(col.validity, pair[1], torch.zeros_like(pair[1]))
+    return ColumnValue(DeviceColumn(dtype, col.data, col.validity, None, hi))
+
+
 def make_column(ctx: EvalContext, dtype: t.DataType, data,
                 validity) -> ColumnValue:
     """A column of ``dtype`` from a tensor or a Python scalar (broadcast);
     ``validity`` is a bool tensor, None (all valid) or False (all null).
-    The data under a null is set to zero."""
+    The data under a null is set to zero.  A DECIMAL128 column from one
+    int64 lane takes its sign as the high word, as the reference's
+    ``make_column`` does."""
     dev = ctx.device
     if validity is None:
         validity = torch.ones(ctx.capacity, dtype=torch.bool, device=dev)
     elif validity is False:
         validity = torch.zeros(ctx.capacity, dtype=torch.bool, device=dev)
+    if t.is_dec128(dtype):
+        if isinstance(data, torch.Tensor):
+            data = data.to(torch.int64)
+            data = (data, data >> 63)
+        return make_decimal_column(ctx, dtype, data, validity)
     if dtype == t.STRING:
         return ColumnValue(string_literal_column(ctx, data or b"", validity))
     if isinstance(data, torch.Tensor) and data.dim() == 1:
@@ -304,7 +369,9 @@ def all_null_column(ctx: EvalContext, dtype: t.DataType) -> ColumnValue:
             torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device),
             torch.zeros(ctx.capacity + 1, dtype=torch.int32,
                         device=ctx.device)))
+    zeros = torch.zeros(ctx.capacity, dtype=dtype.torch_dtype,
+                        device=ctx.device)
     return ColumnValue(DeviceColumn(
-        dtype,
-        torch.zeros(ctx.capacity, dtype=dtype.torch_dtype, device=ctx.device),
-        torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)))
+        dtype, zeros,
+        torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device),
+        None, torch.zeros_like(zeros) if t.is_dec128(dtype) else None))

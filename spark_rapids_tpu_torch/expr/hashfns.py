@@ -184,14 +184,20 @@ def hash_column(col, seed: torch.Tensor) -> torch.Tensor:
     dtype = col.dtype
     if dtype == t.STRING:
         return hash_bytes(col.offsets, col.data, seed, col.validity)
-    if dtype == t.LONG:
+    if dtype in (t.LONG, t.TIMESTAMP) or isinstance(dtype, t.DecimalType):
+        # a decimal hashes its low word, as the reference's does (Spark's
+        # unscaled long up to 18 digits)
         h = hash_int64(col.data, seed)
     elif dtype == t.DOUBLE:
         d = col.data
         d = torch.where(d == 0.0, torch.zeros_like(d), d)   # -0.0 -> 0.0
         h = hash_int64(d.view(torch.int64), seed)
-    else:                       # INT, BOOLEAN and the all-null NULL lane
-        h = hash_int32(col.data, seed)
+    elif dtype == t.FLOAT:
+        d = col.data
+        d = torch.where(d == 0.0, torch.zeros_like(d), d)   # -0.0 -> 0.0
+        h = hash_int32(d.view(torch.int32), seed)
+    else:   # BYTE, SHORT, INT, DATE, BOOLEAN and the all-null NULL lane
+        h = hash_int32(col.data.to(torch.int32), seed)
     return torch.where(col.validity, h, seed)
 
 

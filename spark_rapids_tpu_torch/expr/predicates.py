@@ -1,9 +1,11 @@
 """Comparisons, three-valued boolean logic, null tests and IN.
 
-Counterpart of spark_rapids_tpu/expr/predicates.py for numeric and
-boolean operands: FALSE AND NULL is FALSE, TRUE OR NULL is TRUE, and
-doubles follow Spark's total order (NaN equals NaN and is greater than
-every other value).  ``<=>`` is true for two nulls; IS NULL, IS NOT
+Counterpart of spark_rapids_tpu/expr/predicates.py for numeric, date,
+timestamp and boolean operands: FALSE AND NULL is FALSE, TRUE OR NULL is
+TRUE, and doubles and floats follow Spark's total order (NaN equals NaN
+and is greater than every other value).  Decimals compare at their
+common type's scale, over int128 pairs, so mixed scales and precisions
+compare exactly.  ``<=>`` is true for two nulls; IS NULL, IS NOT
 NULL and isnan are never null; IN is null when the value is null, or
 when nothing matches and the list holds a null.  IN compares doubles as
 ``=`` does (NaN IN (NaN) is true, Spark's answer); the reference's IN
@@ -22,8 +24,9 @@ from __future__ import annotations
 import torch
 
 from .. import types as t
+from ..ops import int128 as i128
 from ..ops import strings as sops
-from .arithmetic import cast_data, promote
+from .arithmetic import cast_data, decimal_operand, promote
 from .core import (ColumnValue, EvalContext, Expression, and_validity,
                    data_of, evaluator, make_column, validity_of)
 
@@ -116,8 +119,13 @@ def _string_order_lt(ctx: EvalContext, lv, rv, or_equal: bool):
 
 
 def _cmp_values(e: BinaryComparison, ctx: EvalContext, lv, rv):
+    """Both sides at their common type: tensors, or int128 pairs for a
+    decimal common type."""
     lt, rt = e.left.data_type(), e.right.data_type()
     common = promote(lt, rt)
+    if isinstance(common, t.DecimalType):
+        return (decimal_operand(ctx, lv, lt, common.scale),
+                decimal_operand(ctx, rv, rt, common.scale), common)
     sides = []
     for d, dt in ((data_of(lv), lt), (data_of(rv), rt)):
         d = cast_data(d, dt, common)
@@ -138,8 +146,10 @@ def _cmp_inputs(e: BinaryComparison, ctx: EvalContext):
 
 
 def _equal(ld, rd, common: t.DataType):
+    if isinstance(ld, tuple):
+        return i128.eq(ld, rd)
     data = ld == rd
-    if common == t.DOUBLE:
+    if common in (t.DOUBLE, t.FLOAT):
         data = data | (torch.isnan(ld) & torch.isnan(rd))
     return data
 
@@ -189,7 +199,10 @@ def _eval_ordering(e: BinaryComparison, ctx: EvalContext, flip: bool,
     ld, rd, common, v = _cmp_inputs(e, ctx)
     if flip:
         ld, rd = rd, ld
-    if common == t.DOUBLE:
+    if isinstance(ld, tuple):
+        lt = i128.lt(ld, rd)
+        data = (lt | i128.eq(ld, rd)) if or_equal else lt
+    elif common in (t.DOUBLE, t.FLOAT):
         a_nan, b_nan = torch.isnan(ld), torch.isnan(rd)
         lt = ~a_nan & (b_nan | (ld < rd))
         data = (lt | (ld == rd) | (a_nan & b_nan)) if or_equal else lt
@@ -332,7 +345,7 @@ def _eval_isnan(e: IsNaN, ctx: EvalContext):
     v = e.children[0].eval(ctx)
     val = _full_validity(ctx, v)
     d = data_of(v)
-    if e.children[0].data_type() != t.DOUBLE:
+    if e.children[0].data_type() not in (t.DOUBLE, t.FLOAT):
         return make_column(ctx, t.BOOLEAN, torch.zeros_like(val), None)
     nan = torch.isnan(d) if isinstance(d, torch.Tensor) else \
         torch.full_like(val, d != d)
@@ -378,6 +391,12 @@ def _eval_in(e: In, ctx: EvalContext):
                                                 hashes)
             continue
         common = promote(dt, item.dtype)
+        if isinstance(common, t.DecimalType):
+            matched = matched | i128.eq(
+                decimal_operand(ctx, v, dt, common.scale),
+                decimal_operand(ctx, item.eval(ctx), item.dtype,
+                                common.scale))
+            continue
         ld = cast_data(d, dt, common)
         if not isinstance(ld, torch.Tensor):
             ld = torch.full((ctx.capacity,), ld, dtype=common.torch_dtype,

@@ -37,10 +37,33 @@ import pyarrow.orc as paorc
 import pyarrow.parquet as papq
 
 from .. import config as cfg
+from .. import types as t
 from ..columnar.device import DeviceBatch, batch_to_device
 from ..columnar.interop import to_arrow_schema
 from ..exec.base import GPU, Exec, ExecContext
 from ..expr.core import Expression
+
+
+def _arrow_literal(lit, equality: bool):
+    """A literal as pyarrow compares it with a file column, or None where
+    pyarrow's order differs from the engine's: a string only in an
+    equality (pyarrow orders strings by all their bytes, the engine by 32
+    bytes and the length); a DATE as a date32 and a DECIMAL as a decimal128
+    of the literal's type (pyarrow compares decimals of any scales
+    exactly); a TIMESTAMP not at all (a file's unit and zone may differ
+    from the literal's)."""
+    import decimal
+    v, dt = lit.value, lit.dtype
+    if v is None or dt == t.TIMESTAMP:
+        return None
+    if isinstance(v, bytes):
+        return v.decode("utf-8") if equality else None
+    if dt == t.DATE:
+        return pa.scalar(v, pa.date32())
+    if isinstance(dt, t.DecimalType):
+        return pa.scalar(decimal.Decimal(v).scaleb(-dt.scale),
+                         pa.decimal128(dt.precision, dt.scale))
+    return v
 
 
 def _pushdown_to_arrow(filters: List[Expression], names) -> Optional[object]:
@@ -64,13 +87,9 @@ def _pushdown_to_arrow(filters: List[Expression], names) -> Optional[object]:
         if type(e) in ops:
             l, r = e.children
             if isinstance(l, AttributeReference) and isinstance(r, Literal):
-                v = r.value
-                if isinstance(v, bytes):
-                    # only string equality: pyarrow orders strings by all
-                    # their bytes, the engine by 32 bytes and the length
-                    if type(e) is not P.EqualTo:
-                        return None
-                    v = v.decode("utf-8")
+                v = _arrow_literal(r, type(e) is P.EqualTo)
+                if v is None:
+                    return None
                 return getattr(pc.field(l.name), ops[type(e)])(v)
         if isinstance(e, P.IsNotNull) and isinstance(
                 e.children[0], AttributeReference):
@@ -115,7 +134,8 @@ def clear_filescan_pin() -> None:
 
 def _batch_bytes(b: DeviceBatch) -> int:
     return sum(c.data.nbytes + c.validity.nbytes +
-               (0 if c.offsets is None else c.offsets.nbytes)
+               (0 if c.offsets is None else c.offsets.nbytes) +
+               (0 if c.data_hi is None else c.data_hi.nbytes)
                for c in b.columns)
 
 

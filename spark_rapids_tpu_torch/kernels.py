@@ -48,9 +48,9 @@ _SIGNATURES = {
     "segment_reduce": {
         "srt_segment_reduce_varying": [_P, _I, _P, _I, _P, _P],
         "srt_segment_reduce_set": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
-                                   _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                                   _L, _P],
+                                   _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                                   _P, _P, _L, _P],
     },
     "key_hash": {
         "srt_key_hash": [_P, _I, _I, _I, _I, _P, _P],

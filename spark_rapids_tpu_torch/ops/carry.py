@@ -19,7 +19,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import kernels
-from ..columnar.device import DeviceColumn
+from ..columnar.device import DeviceColumn, columns_from_lanes, flat_lanes
 from .gather import gather_columns, gather_rows
 
 
@@ -58,7 +58,7 @@ def compact_lanes(keep: torch.Tensor, lanes: Sequence[torch.Tensor],
     if keep.dtype != torch.bool:
         raise TypeError("compact_rows: keep must be bool")
     for lane in lanes:
-        if lane.shape != (n,) or lane.element_size() not in (1, 4, 8):
+        if lane.shape != (n,) or lane.element_size() not in (1, 2, 4, 8):
             raise TypeError(f"compact_rows: lane {lane.dtype}{tuple(lane.shape)}"
                             f" does not match keep[{n}]")
     lib = kernels.library("compact")
@@ -93,18 +93,17 @@ def compact_rows(keep: torch.Tensor, cols: Sequence[DeviceColumn]
     one more lane, through K16 (the reference's carry falls back to
     gather_column for span columns)."""
     flat = [c for c in cols if c.offsets is None]
-    lanes, clear = [], []
-    for c in flat:
-        lanes += [c.data, c.validity]
-        clear += [False, True]
+    lanes = flat_lanes(flat)
+    clear = [x is c.validity for c in flat for x in
+             [c.data, c.validity] + ([] if c.data_hi is None
+                                     else [c.data_hi])]
     spans = [c for c in cols if c.offsets is not None]
     if spans:
         lanes.append(torch.arange(keep.shape[0], dtype=torch.int32,
                                   device=keep.device))
         clear.append(False)
     outs, n_kept = compact_lanes(keep, lanes, clear)
-    moved = iter(DeviceColumn(c.dtype, outs[2 * i], outs[2 * i + 1])
-                 for i, c in enumerate(flat))
+    moved = iter(columns_from_lanes(flat, outs))
     if spans:
         live = torch.arange(keep.shape[0], device=keep.device) < n_kept
         gathered = iter(gather_columns(spans, outs[-1], live))
@@ -121,7 +120,9 @@ def mask_validity(col: DeviceColumn, mask: torch.Tensor) -> DeviceColumn:
             col.capacity, dtype=torch.int32, device=mask.device), mask)[0]
     validity = col.validity & mask
     return DeviceColumn(col.dtype, torch.where(
-        validity, col.data, torch.zeros_like(col.data)), validity)
+        validity, col.data, torch.zeros_like(col.data)), validity, None,
+        None if col.data_hi is None else torch.where(
+            validity, col.data_hi, torch.zeros_like(col.data_hi)))
 
 
 # ---------------------------------------------------------------------------
@@ -249,12 +250,12 @@ def sort_rows(key_words: Sequence[torch.Tensor],
     extras)."""
     order = sort_order(key_words)
     flat = [c for c in cols if c.offsets is None]
-    lanes = [x for c in flat for x in (c.data, c.validity)] + list(extras)
-    outs = gather_rows(order, lanes)
-    moved = iter(DeviceColumn(c.dtype, outs[2 * i], outs[2 * i + 1])
-                 for i, c in enumerate(flat))
+    lanes = flat_lanes(flat)
+    nflat = len(lanes)
+    outs = gather_rows(order, lanes + list(extras))
+    moved = iter(columns_from_lanes(flat, outs[:nflat]))
     gathered = iter(gather_columns([c for c in cols if c.offsets is not None],
                                    order))
     out_cols = [next(gathered) if c.offsets is not None else next(moved)
                 for c in cols]
-    return order, out_cols, outs[2 * len(flat):]
+    return order, out_cols, outs[nflat:]

@@ -124,9 +124,9 @@ def gather_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor],
         return gather_rows_plain(order, lanes)
     kernels.require_cuda("gather_rows", order, *lanes)
     for x in lanes:
-        if x.dim() != 1 or x.element_size() not in (1, 4, 8):
+        if x.dim() != 1 or x.element_size() not in (1, 2, 4, 8):
             raise TypeError(f"gather_rows: lane {x.dtype}{tuple(x.shape)} "
-                            f"is not 1-D with 1, 4 or 8-byte elements")
+                            f"is not 1-D with 1, 2, 4 or 8-byte elements")
     n = int(order.shape[0])
     outs = [torch.empty(n, dtype=x.dtype, device=x.device) for x in lanes]
     if n == 0 or not lanes:
@@ -167,7 +167,7 @@ def _check_lanes(what: str, order: torch.Tensor,
                         f"{order.dtype}{tuple(order.shape)}")
     n = order.shape[0]
     for x in lanes:
-        if x.shape != (n,) or x.element_size() not in (1, 4, 8):
+        if x.shape != (n,) or x.element_size() not in (1, 2, 4, 8):
             raise TypeError(f"{what}: lane {x.dtype}{tuple(x.shape)} is not "
                             f"[{n}] with 1, 4 or 8-byte elements")
 
@@ -271,9 +271,12 @@ def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
             validity = validity & valid
         if c.offsets is None:
             data = c.data[idx]
+            hi = None if c.data_hi is None else c.data_hi[idx]
             if valid is not None:
                 data = torch.where(validity, data, torch.zeros_like(data))
-            out[k] = DeviceColumn(c.dtype, data, validity)
+                if hi is not None:
+                    hi = torch.where(validity, hi, torch.zeros_like(hi))
+            out[k] = DeviceColumn(c.dtype, data, validity, None, hi)
             continue
         new_offs, total, starts = sops.gather_offsets(
             c.offsets, indices.to(torch.int32), validity)

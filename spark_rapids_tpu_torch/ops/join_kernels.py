@@ -73,6 +73,29 @@ def _mix64(h: torch.Tensor) -> torch.Tensor:
 _KEY_KINDS = {t.BOOLEAN: (0, torch.bool), t.INT: (1, torch.int32),
               t.LONG: (2, torch.int64), t.DOUBLE: (3, torch.float64),
               t.STRING: (4, torch.uint8)}
+# the other flat types widen into one of those lanes, which gives the
+# reference's word: a narrow integer or a DATE as an INT, a TIMESTAMP or
+# a decimal as a LONG, a FLOAT as the DOUBLE it widens to exactly
+_WIDENS_TO = {t.BYTE: t.INT, t.SHORT: t.INT, t.DATE: t.INT,
+              t.TIMESTAMP: t.LONG, t.FLOAT: t.DOUBLE}
+
+
+def _kind_type(dtype: t.DataType) -> t.DataType:
+    if isinstance(dtype, t.DecimalType):
+        return t.LONG
+    return _WIDENS_TO.get(dtype, dtype)
+
+
+def _key_lane(col: DeviceColumn) -> torch.Tensor:
+    """The lane K6 and K4 read for a flat key column.  A DECIMAL128 key's
+    lane is its low word with the high word folded in where it is not
+    the low word's sign: the reference's word reads the low word alone
+    (two keys that differ only in their high words would match there);
+    the port keeps Spark's answer, and every value that fits 64 bits
+    keeps the reference's word bit for bit (ROADMAP Queue 3)."""
+    if col.data_hi is not None:
+        return col.data ^ ((col.data_hi - (col.data >> 63)) * _MIX)
+    return col.data.to(_KEY_KINDS[_kind_type(col.dtype)][1])
 
 
 def _key_word(col: DeviceColumn) -> torch.Tensor:
@@ -82,16 +105,17 @@ def _key_word(col: DeviceColumn) -> torch.Tensor:
     hashes (the reference's ``combined_key_hash``)."""
     if col.offsets is not None:
         return sops.string_hashes(col.offsets, col.data, True)[2]
-    if col.data.is_floating_point():
-        return encode_float_ordered(col.data) ^ _SIGN
-    return encode_int_ordered(col.data) ^ _SIGN
+    lane = _key_lane(col)
+    if lane.is_floating_point():
+        return encode_float_ordered(lane) ^ _SIGN
+    return encode_int_ordered(lane) ^ _SIGN
 
 
 def _check_keys(key_cols: Sequence[DeviceColumn], cap: int) -> None:
     if not key_cols:
         raise ValueError("a join key hash needs at least one key column")
     for col in key_cols:
-        if col.dtype not in _KEY_KINDS:
+        if _kind_type(col.dtype) not in _KEY_KINDS:
             raise NotImplementedError(
                 f"join keys of type {col.dtype} are not ported yet")
         if col.capacity != cap or col.validity.shape != (cap,):
@@ -130,15 +154,15 @@ def _key_desc(what: str, key_cols: Sequence[DeviceColumn], cap: int
                                  for x in (c.data, c.validity)])
     lanes = []
     for col in key_cols:
-        dtype = _KEY_KINDS[col.dtype][1]
-        if col.data.dtype != dtype or col.validity.dtype != torch.bool:
-            raise TypeError(f"{what}: key column {col} must hold {dtype} "
-                            "with a bool validity lane")
-        lanes.append(col.data if col.offsets is None else _key_word(col))
+        if col.validity.dtype != torch.bool:
+            raise TypeError(f"{what}: key column {col} must have a bool "
+                            "validity lane")
+        lanes.append(_key_lane(col) if col.offsets is None
+                     else _key_word(col))
     return kernels.device_int64s(
         [x.data_ptr() for x in lanes]
         + [c.validity.data_ptr() for c in key_cols]
-        + [_KEY_KINDS[c.dtype][0] for c in key_cols],
+        + [_KEY_KINDS[_kind_type(c.dtype)][0] for c in key_cols],
         key_cols[0].data.device), lanes
 
 
@@ -440,10 +464,43 @@ def expand_pairs_plain(ends, lo, counts, order, total, out_cap,
             build_out)
 
 
+def _lane_columns(cols: Sequence[DeviceColumn]) -> List[DeviceColumn]:
+    """The columns with one lane each: every column's data, then each
+    DECIMAL128 column's high words as a column of their own under the
+    same validity (``_rejoin`` puts them back)."""
+    return ([DeviceColumn(c.dtype, c.data, c.validity) for c in cols]
+            + [DeviceColumn(c.dtype, c.data_hi, c.validity) for c in cols
+               if c.data_hi is not None])
+
+
+def _rejoin(cols: Sequence[DeviceColumn], outs: Sequence[DeviceColumn]
+            ) -> List[DeviceColumn]:
+    his = iter(outs[len(cols):])
+    return [o if c.data_hi is None else
+            DeviceColumn(o.dtype, o.data, o.validity, None, next(his).data)
+            for c, o in zip(cols, outs[:len(cols)])]
+
+
 def expand_pairs(ends: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor,
                  order: torch.Tensor, total: int, out_cap: int,
                  probe_cols: Sequence[DeviceColumn],
                  build_cols: Sequence[DeviceColumn]):
+    """``_expand_pairs`` with each DECIMAL128 column's high words moved
+    as one more lane beside its data."""
+    if not any(c.data_hi is not None for c in [*probe_cols, *build_cols]):
+        return _expand_pairs(ends, lo, counts, order, total, out_cap,
+                             probe_cols, build_cols)
+    pidx, bidx, pout, bout = _expand_pairs(
+        ends, lo, counts, order, total, out_cap, _lane_columns(probe_cols),
+        _lane_columns(build_cols))
+    return (pidx, bidx, _rejoin(probe_cols, pout),
+            _rejoin(build_cols, bout))
+
+
+def _expand_pairs(ends: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor,
+                  order: torch.Tensor, total: int, out_cap: int,
+                  probe_cols: Sequence[DeviceColumn],
+                  build_cols: Sequence[DeviceColumn]):
     """Materialise the join's pairs at capacity ``out_cap`` and gather
     both sides' columns into them (K5).
 
@@ -483,9 +540,9 @@ def expand_pairs(ends: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor,
                                 f"through K16 (ops/strings.py)")
             if c.data.shape != (n,) or c.validity.shape != (n,) or \
                     c.validity.dtype != torch.bool or \
-                    c.data.element_size() not in (1, 4, 8):
+                    c.data.element_size() not in (1, 2, 4, 8):
                 raise TypeError(f"expand_pairs: {side} column {c} does not "
-                                f"have {n} rows of 1, 4 or 8 bytes")
+                                f"have {n} rows of 1, 2, 4 or 8 bytes")
     if n_p == 0 and total != 0:
         raise ValueError(f"expand_pairs: no probe rows, but total {total}")
     dev = ends.device

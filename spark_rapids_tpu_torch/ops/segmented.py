@@ -14,6 +14,15 @@ convention as in the reference's: ~(w XOR 2^63) == (~w) XOR 2^63 for
 a 64-bit word, and NOT reverses the order of any narrow word carried as
 its sign-extended value.
 
+Each flat type's value word is an int64 whose signed order is the
+value order: BYTE, SHORT, INT and DATE their value (the reference's
+uint32 ``encode_int_ordered32`` word is that value XOR 2^31 read
+unsigned), FLOAT its 32-bit total-order word (``encode_float_ordered32``
+carried the same way), LONG, TIMESTAMP and a DECIMAL of at most 18
+digits their value, DOUBLE ``encode_float_ordered``'s word, and a wider
+DECIMAL two words, the signed high word then the low word XOR 2^63 (the
+reference's (hi signed, lo unsigned) pair).
+
 A STRING column's words follow the reference: for grouping (equality)
 the null word and the two rolling hashes (K14), each XOR 2^63; for
 ordering the null word, the 4 prefix words and the length (K17).
@@ -52,10 +61,33 @@ def encode_float_ordered(data: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ _LOW63, bits)
 
 
+def encode_int_ordered32(data: torch.Tensor) -> torch.Tensor:
+    """A narrow integer's key word: the reference's uint32 word (the value
+    XOR 2^31) minus 2^31, which is the value itself, as int64."""
+    return data.to(torch.int64)
+
+
+def encode_float_ordered32(data: torch.Tensor) -> torch.Tensor:
+    """float32 key word in Spark's total order (-0.0 equals 0.0, NaN
+    canonical and last): the reference's uint32 word minus 2^31, as
+    int64."""
+    d = data.to(torch.float32)
+    d = torch.where(d == 0.0, torch.zeros_like(d), d)
+    d = torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
+    bits = d.view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+
+
+def decimal128_words(col: DeviceColumn) -> List[torch.Tensor]:
+    """A DECIMAL128 column's two value words: the signed high word, then
+    the unsigned low word carried XOR 2^63."""
+    return [col.data_hi.to(torch.int64), col.data ^ _SIGN]
+
+
 def ordered_word(values: torch.Tensor) -> torch.Tensor:
     """The int64 word of a min/max value lane, whose signed order is the
-    value order: an int64 lane (LONG, and INT and BOOLEAN widened) is its
-    own word; a float64 lane takes Spark's total order of
+    value order: an int64 lane (LONG, and the narrow integers widened) is
+    its own word; a float64 lane (DOUBLE, and FLOAT widened) takes Spark's total order of
     ``encode_float_ordered`` (-0.0 equals 0.0, NaN is canonical and
     greatest), carried as the reference's uint64 word XOR 2^63.  The
     flat-type counterpart of the reference's ``_ordered_words32``, which
@@ -99,6 +131,67 @@ def segment_reduce(op: str, values: torch.Tensor, seg_ids: torch.Tensor,
     return out, cnt
 
 
+def segment_sum128(lo: torch.Tensor, hi: torch.Tensor,
+                   seg_ids: torch.Tensor, num_segments: int,
+                   valid: torch.Tensor):
+    """Plain 128-bit per-segment sum of (lo, hi) words: (lo_out, hi_out,
+    count_valid), exact modulo 2^128 (the reference's
+    ``segment_sum128`` on its numpy branch: the low word's two 32-bit
+    halves and the high word summed apart, then the carries joined;
+    exact for up to 2^31 rows a segment).  Rows with ``valid`` false or
+    a negative segment id do not contribute."""
+    take = valid & (seg_ids >= 0)
+    ids = seg_ids[take].to(torch.int64)
+    dev = lo.device
+
+    def per_seg(x):
+        return torch.zeros(num_segments, dtype=torch.int64,
+                           device=dev).index_add_(0, ids, x[take])
+    s0 = per_seg(lo & 0xFFFFFFFF)
+    s1 = per_seg((lo >> 32) & 0xFFFFFFFF)
+    sh = per_seg(hi)
+    cnt = per_seg(torch.ones_like(lo))
+    tmid = s1 + (s0 >> 32)
+    lo_out = (s0 & 0xFFFFFFFF) | ((tmid & 0xFFFFFFFF) << 32)
+    return lo_out, sh + (tmid >> 32), cnt
+
+
+def segment_extreme128(op: str, lo: torch.Tensor, hi: torch.Tensor,
+                       seg_ids: torch.Tensor, num_segments: int,
+                       valid: torch.Tensor):
+    """Plain per-segment min or max of DECIMAL128 (lo, hi) words:
+    (lo_out, hi_out, count_valid), ordered by (hi signed, lo unsigned);
+    0 where no row contributed."""
+    if op not in ("min", "max"):
+        raise ValueError(f"segment_extreme128: op {op!r} (min or max)")
+    take = valid & (seg_ids >= 0)
+    ids = seg_ids[take].to(torch.int64)
+    dev = lo.device
+    cnt = torch.zeros(num_segments, dtype=torch.int64,
+                      device=dev).index_add_(0, ids, torch.ones_like(ids))
+    out_lo = torch.zeros(num_segments, dtype=torch.int64, device=dev)
+    out_hi = torch.zeros(num_segments, dtype=torch.int64, device=dev)
+    if ids.numel() == 0:
+        return out_lo, out_hi, cnt
+    w_hi, w_lo = hi[take], lo[take] ^ _SIGN
+    if op == "max":
+        w_hi, w_lo = ~w_hi, ~w_lo           # NOT reverses the signed order
+    best_hi = torch.full((num_segments,), _LOW63, dtype=torch.int64,
+                         device=dev).scatter_reduce_(0, ids, w_hi, "amin")
+    on_hi = w_hi == best_hi[ids]
+    best_lo = torch.full((num_segments,), _LOW63, dtype=torch.int64,
+                         device=dev).scatter_reduce_(0, ids[on_hi],
+                                                     w_lo[on_hi], "amin")
+    hit = on_hi & (w_lo == best_lo[ids])
+    row = torch.full((num_segments,), lo.shape[0], dtype=torch.int64,
+                     device=dev).scatter_reduce_(
+        0, ids[hit], torch.nonzero(take).flatten()[hit], "amin")
+    got = cnt > 0
+    out_lo[got] = lo[row[got]]
+    out_hi[got] = hi[row[got]]
+    return out_lo, out_hi, cnt
+
+
 def sort_key_words(col: DeviceColumn, ascending: bool = True,
                    nulls_first: bool = True) -> List[torch.Tensor]:
     """Sort key words for one column, most significant first: the null
@@ -112,7 +205,14 @@ def sort_key_words(col: DeviceColumn, ascending: bool = True,
         words += sops.order_keys(col.offsets, col.data)
     elif dtype == t.DOUBLE:
         words.append(encode_float_ordered(col.data))
-    elif dtype in (t.LONG, t.INT, t.BOOLEAN):
+    elif dtype == t.FLOAT:
+        words.append(encode_float_ordered32(col.data))
+    elif t.is_dec128(dtype):
+        words += decimal128_words(col)
+    elif dtype in (t.BYTE, t.SHORT, t.INT, t.DATE):
+        words.append(encode_int_ordered32(col.data))
+    elif dtype in (t.LONG, t.TIMESTAMP, t.BOOLEAN) or \
+            isinstance(dtype, t.DecimalType):
         words.append(encode_int_ordered(col.data))
     else:
         raise NotImplementedError(f"key words for {dtype} are not ported")

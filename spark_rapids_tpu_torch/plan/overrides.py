@@ -89,13 +89,22 @@ def expr_rule(cls, sig: TypeSig, tag_fn=None):
 
 _num = T.numeric64
 _common = T.common_scalar
-_cmp = T.numeric64 + T.BOOLEAN + T.STRING + T.NULL
+_cmp = T.numeric64 + T.BOOLEAN + T.DATE + T.TIMESTAMP + T.STRING + T.NULL
 # the reference's branch selects take strings too; the port's string
 # branches (expr/conditional.py) stay on the CPU engine until the string
 # functions' slice (ROADMAP Queue 1), as do casts to and from STRING
-_cond = T.numeric64 + T.BOOLEAN + T.NULL
+_cond = T.numeric64 + T.BOOLEAN + T.DATE + T.TIMESTAMP + T.NULL
 
-expr_rule(Literal, T.all_types)
+
+def _tag_literal(meta: "ExprMeta"):
+    e = meta.expr
+    if isinstance(e.data_type(), t.DecimalType) and e.value is not None \
+            and not (-(2**63) <= int(e.value) < 2**63):
+        meta.will_not_work(
+            "decimal literal beyond 64-bit unscaled range stays on CPU")
+
+
+expr_rule(Literal, T.all_types, _tag_literal)
 expr_rule(Alias, T.all_types.nested())
 expr_rule(AttributeReference, _common.nested())
 expr_rule(BoundReference, _common.nested())
@@ -130,14 +139,21 @@ def _tag_cast(meta: "ExprMeta"):
 
 
 expr_rule(Cast, T.all_types, _tag_cast)
+# the decimal markers of Spark's analyzer (ref plan/overrides.py:195-203)
+expr_rule(ar.PromotePrecision, T.DECIMAL_64 + T.DECIMAL_128)
+expr_rule(ar.MakeDecimal, T.DECIMAL_64 + T.DECIMAL_128)
+expr_rule(ar.CheckOverflow, T.DECIMAL_64 + T.DECIMAL_128)
 expr_rule(Murmur3Hash, T.INT)
 # (partition << 33) + row position, ref GpuMonotonicallyIncreasingID
 expr_rule(MonotonicallyIncreasingID, T.LONG)
+# Sum takes decimal64 inputs into exact 128-bit buffers (K3's 128-bit
+# sum); Average's final divide is 64-bit in the reference, so decimal
+# averages stay on the CPU; Min and Max carry both decimal words
 expr_rule(agg.Sum, T.numeric)
-expr_rule(agg.Average, T.integral + T.DOUBLE)
+expr_rule(agg.Average, T.integral + T.FLOAT + T.DOUBLE)
 expr_rule(agg.Count, T.all_types)
-expr_rule(agg.Min, T.numeric + T.BOOLEAN + T.STRING)
-expr_rule(agg.Max, T.numeric + T.BOOLEAN + T.STRING)
+expr_rule(agg.Min, T.numeric + T.DATE + T.TIMESTAMP + T.BOOLEAN + T.STRING)
+expr_rule(agg.Max, T.numeric + T.DATE + T.TIMESTAMP + T.BOOLEAN + T.STRING)
 expr_rule(agg.AggregateExpression, T.all_types.nested())
 # window machinery registered as expressions, as in the reference;
 # evaluation lives in WindowExec
@@ -411,6 +427,10 @@ def _tag_aggregate(meta: ExecMeta):
                 for r in rule.sig.reasons_not_supported(dt):
                     meta.will_not_work(
                         f"{type(fn).__name__} over unsupported input: {r}")
+                if isinstance(fn, agg.Sum) and t.is_dec128(dt):
+                    # as the reference: its update cast reads the low word
+                    meta.will_not_work(
+                        "sum over decimal(>18) inputs runs on CPU")
             except Exception as ex:
                 meta.will_not_work(str(ex))
 
@@ -437,7 +457,9 @@ def _tag_window(meta: ExecMeta):
                     try:
                         dt = bind_expression(orders[0][0], cn,
                                              ct).data_type()
-                        ok = T.numeric.is_supported(dt)
+                        ok = (T.numeric.is_supported(dt) and not
+                              isinstance(dt, t.DecimalType)) or \
+                            dt in (t.DATE, t.TIMESTAMP)
                     except Exception:
                         ok = False
                 if not ok:

@@ -101,6 +101,12 @@ AGG_FUNCS = {
         lib["aggs"].AggregateExpression(lib["aggs"].Count(None), "c")],
     "float": lambda lib: [lib["aggs"].AggregateExpression(
         lib["aggs"].Average(attr(lib, "f")), "a")],
+    # a DECIMAL(20,2) sum buffer and a FLOAT max
+    "decimal": lambda lib: [lib["aggs"].AggregateExpression(
+        lib["aggs"].Sum(lib["aggs"].Cast(
+            attr(lib, "v"), lib["aggs"].t.DecimalType(10, 2))), "s"),
+        lib["aggs"].AggregateExpression(lib["aggs"].Max(lib["aggs"].Cast(
+            attr(lib, "f"), lib["aggs"].t.FLOAT)), "m")],
 }
 
 

@@ -357,15 +357,16 @@ def test_csv_read_with_schema(tmp_path):
 
 def test_unported_column_type_raises_at_read(tmp_path):
     p = str(tmp_path / "s.parquet")
-    # a date column: the port carries strings since they were ported,
-    # and dates still wait for their slice
+    # a binary column: the port carries the flat types, decimals and
+    # strings, and binary still waits for its slice (a time of day has
+    # no SQL type here at all)
     papq.write_table(pa.table({"k": pa.array([1, 2]),
-                               "name": pa.array([0, 1], pa.date32())}), p)
+                               "name": pa.array([b"a", b"b"])}), p)
     with pytest.raises(NotImplementedError, match="'name'"):
         GpuSession(device="cpu").read.parquet(p)
     q = str(tmp_path / "s.csv")
     with open(q, "w") as f:
-        f.write("k,name\n1,2020-01-01\n")
+        f.write("k,name\n1,12:34:56\n")
     with pytest.raises(NotImplementedError, match="'name'"):
         GpuSession(device="cpu").read.csv(q)
 

@@ -238,7 +238,7 @@ def test_k3_matches_reference_group_reduce(shape, global_agg, packed):
     key = pagg._prefix(mine.columns[0], n)
     words = [] if global_agg else pseg.key_words_for_column(key)
     order = pcarry.sort_order(words) if words else None
-    k3_vals, k3_contribs, k3_names, take = pagg.k3_ops(p_vals, ops)
+    k3_vals, k3_contribs, k3_names, take, _ = pagg.k3_ops(p_vals, ops)
     first_row, sums, counts, groups = pagg.segment_reduce_sorted(
         words, None, k3_vals, k3_contribs, global_agg, order, k3_names,
         packed=packed)

@@ -199,6 +199,23 @@ PARITY = {
     "sample_filter": (
         lambda s, F, col, lit, fact, dim: s.create_dataframe(fact).sample(
             0.3, seed=7).filter(col("v") > -20), {}),
+    # the flat types: a decimal sum on a 128-bit buffer, a date filter and
+    # a sort on narrow types
+    "decimal_sum_2_partitions": (
+        lambda s, F, col, lit, fact, dim: s.create_dataframe(
+            fact, num_partitions=2).group_by(col("k")).agg(
+            F.sum(col("v").cast("decimal(12,2)")).alias("s"),
+            F.max(col("v").cast("decimal(12,2)")).alias("m")), {}),
+    "date_filter": (
+        lambda s, F, col, lit, fact, dim: s.create_dataframe(fact).filter(
+            col("v").cast("timestamp").cast("date")
+            <= lit(__import__("datetime").date(1970, 1, 1))), {}),
+    "narrow_type_sort_2_partitions": (
+        lambda s, F, col, lit, fact, dim: s.create_dataframe(
+            fact, num_partitions=2).select(
+            col("k"), col("v").cast("smallint").alias("s"),
+            col("f").cast("float").alias("ff")).sort(
+            col("s").desc(), col("ff"), col("k")), {}),
 }
 
 
