@@ -123,6 +123,21 @@ TIMESTAMP and DECIMAL(9,2) columns (10 % null): a filter on the SHORT
 and FLOAT columns, a group-by on (BYTE, DATE) with the sums, mins and
 maxes of the others, a sort on (TIMESTAMP desc, FLOAT) and its TopN,
 and a parquet write read back, each equal to pyarrow or numpy.
+The nested types: K18 (the child rows of gathered spans) against its
+plain version on edge cases (0 rows, every slot invalid, every array
+empty, a row of 2^24 elements beside 10^6 rows of one, child totals
+around its 1,024-slot stretch); then TPC-H SF5's 7,500,000 orders with
+their 1-7 lineitems nested inside (an array of structs), the
+customer's nation and segment as a struct, the order's attributes as a
+map and a 16-byte binary digest: qa1 a filter carrying every column
+(1 and 4 partitions), qa2 element_at, [0], getField, struct() and
+array(), qa3 a group-by on the struct (1 and 4 partitions), qa4 the
+join to 750,000 customers carrying the array and the binary, qa5
+qa1's two halves unioned under limit(1,000,000), a parquet round trip
+through a pushed filter and the cache under qa1, each equal to its
+pyarrow oracle by ``equals``; every K18 call of qa1 and qa4 against its
+plain version; a sort carrying the array, a group-by on the binary and
+a join carrying the map on the CPU with the reference's reasons.
 Launch counts are reset just before each main-path run and must be > 0
 after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
@@ -1506,41 +1521,39 @@ def _download_split(torch, fetch, batch_to_arrow, move_batch, batch):
     for _ in range(2):
         ms, st = {}, {}
 
-        def pack():
-            st["plan"], st["mins"] = fetch.build_plan(st["lanes"],
-                                                      st["stats"])
-            st["slices"], st["total"] = fetch.layout(st["lanes"],
-                                                     st["plan"], n)
-            st["packed"] = fetch.pack_lanes(st["lanes"], st["plan"],
-                                            st["mins"], n)
-
         def copy():
-            buf = fetch.staging_buffer(batch.device, st["total"])
-            buf[:st["total"]].copy_(st["packed"], non_blocking=True)
+            g = st["group"]
+            buf = fetch.staging_buffer(batch.device, g.total)
+            buf[:g.total].copy_(st["packed"], non_blocking=True)
             torch.cuda.synchronize()
             st["host"] = buf
+
+        def stats_read():
+            st["group"] = fetch._Group(batch.columns, n)
+            st["stats"] = fetch.lane_stats(st["group"].lanes, n).tolist()
+
+        def pack():
+            st["group"].plan(st["stats"])
+            st["packed"] = st["group"].pack()
 
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for name, step in (
                 ("moved", lambda: batch_to_arrow(move_batch(
                     batch, host, live_only=True))),
-                ("stats_read", lambda: st.update(
-                    lanes=fetch.batch_lanes(batch),
-                    stats=fetch.lane_stats(fetch.batch_lanes(batch),
-                                           n).tolist())),
+                ("stats_read", stats_read),
                 ("K10", pack),
                 ("copy", copy),
-                ("rebuild", lambda: st.update(out=fetch.rebuild_batch(
-                    batch, st["lanes"], st["plan"], st["mins"], st["stats"],
-                    st["slices"], st["host"], n))),
+                ("rebuild", lambda: st.update(out=type(batch)(
+                    fetch._rebuild_columns(st["group"], st["host"], {}), n,
+                    batch.names))),
                 ("arrow", lambda: batch_to_arrow(st["out"]))):
             step()
             torch.cuda.synchronize()
             now = time.perf_counter()
             ms[name] = (now - t1) * 1e3
             t1 = now
-    return ms, st["total"], st["plan"]
+    return ms, st["group"].total, st["group"].plan_
 
 
 def _split_line(ms):
@@ -2991,6 +3004,496 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the nested types: TPC-H's orders with their lineitems nested inside
+# ---------------------------------------------------------------------------
+
+NESTED_ORDERS = 7_500_000     # TPC-H SF5 orders (1.5M a scale factor)
+NESTED_CUSTOMERS = 750_000    # TPC-H SF5 customers
+QA_CUTOFF_DAYS = 9204         # 1995-03-15, days since the epoch
+QA_LIMIT = 1_000_000
+SEGMENTS = (b"AUTOMOBILE", b"BUILDING", b"FURNITURE", b"HOUSEHOLD",
+            b"MACHINERY")     # TPC-H c_mktsegment
+TAG_KEYS = (b"o_orderpriority", b"o_shippriority", b"o_clerk")
+
+
+def _spans_of(lengths):
+    offs = np.zeros(len(lengths) + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offs[1:])
+    return offs
+
+
+def _pick_bytes(codes, words, large=True, binary=False, valid=None):
+    """A (large) string or binary array whose row i is ``words[codes[i]]``
+    (a null where ``valid`` is False, with no bytes), built from numpy
+    buffers."""
+    lens = np.array([len(w) for w in words], dtype=np.int64)[codes]
+    if valid is not None:
+        lens = np.where(valid, lens, 0)
+    offs = _spans_of(lens)
+    width = max(len(w) for w in words)
+    table = np.zeros((len(words), width), dtype=np.uint8)
+    for i, w in enumerate(words):
+        table[i, :len(w)] = np.frombuffer(w, dtype=np.uint8)
+    mask = np.arange(width) < lens[:, None]
+    chars = table[codes][mask]
+    typ = (pa.large_binary() if binary else pa.large_string()) if large \
+        else (pa.binary() if binary else pa.string())
+    bitmap = None if valid is None else pa.py_buffer(
+        np.packbits(valid, bitorder="little"))
+    return pa.Array.from_buffers(typ, len(codes), [
+        bitmap, pa.py_buffer(offs if large else offs.astype(np.int32)),
+        pa.py_buffer(chars)],
+        null_count=0 if valid is None else int((~valid).sum()))
+
+
+def _nested_orders(n=NESTED_ORDERS, customers=NESTED_CUSTOMERS, seed=SEED):
+    """TPC-H's orders with each order's lineitems nested inside it, from
+    ``seed`` with numpy, built through Arrow's buffers: 1-7 lines an
+    order drawn uniformly (TPC-H 4.2.3), the lines an array of structs
+    (l_partkey, l_quantity 1-50, l_extendedprice, l_discount 0.00-0.10
+    with 5 % null, l_shipdate), the whole array null in 1 % of rows (a
+    null array spans no lines); the customer's nation and segment as a
+    struct, null in 1 % of rows with its children holding values there;
+    the order's attributes as a map of 1-3 entries (o_orderpriority
+    1-5, o_shippriority 0, o_clerk 1-5,000); a 16-byte binary digest,
+    null in 2 % of rows.  Returns (orders, customer), the customer
+    table (c_custkey, c_acctbal) keyed 1..``customers``."""
+    rng = np.random.default_rng(seed + 19)
+    lines_null = rng.random(n) < 0.01
+    nl = np.where(lines_null, 0, rng.integers(1, 8, n))
+    loff = _spans_of(nl)
+    m = int(loff[-1])
+    disc_valid = rng.random(m) >= 0.05
+    line = pa.StructArray.from_arrays([
+        pa.array(rng.integers(1, 1_000_001, m)),
+        pa.array(rng.integers(1, 51, m)),
+        pa.array(np.round(rng.random(m) * 1e5, 2)),
+        pa.array(np.where(disc_valid, rng.integers(0, 11, m) / 100.0, 0.0),
+                 mask=~disc_valid),
+        pa.array(rng.integers(8036, 10563, m).astype(np.int32)).cast(
+            pa.date32())],
+        names=["l_partkey", "l_quantity", "l_extendedprice", "l_discount",
+               "l_shipdate"])
+    lines = pa.LargeListArray.from_arrays(pa.array(loff), line,
+                                          mask=pa.array(lines_null))
+    cust_null = rng.random(n) < 0.01
+    cust = pa.StructArray.from_arrays(
+        [pa.array(rng.integers(0, 25, n).astype(np.int32)),
+         _pick_bytes(rng.integers(0, len(SEGMENTS), n), SEGMENTS)],
+        names=["c_nationkey", "c_mktsegment"], mask=pa.array(cust_null))
+    nt = rng.integers(1, 4, n)
+    toff = _spans_of(nt).astype(np.int32)
+    which = np.arange(int(toff[-1])) - np.repeat(toff[:-1], nt)
+    vals = np.where(which == 0, rng.integers(1, 6, len(which)),
+                    np.where(which == 1, 0,
+                             rng.integers(1, 5001, len(which))))
+    tags = pa.MapArray.from_arrays(
+        pa.array(toff), _pick_bytes(which, TAG_KEYS), pa.array(vals))
+    dig_valid = rng.random(n) >= 0.02
+    dig = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    dlen = np.where(dig_valid, 16, 0)
+    digest = pa.Array.from_buffers(pa.large_binary(), n, [
+        pa.py_buffer(np.packbits(dig_valid, bitorder="little")),
+        pa.py_buffer(_spans_of(dlen)),
+        pa.py_buffer(dig[dig_valid].reshape(-1))],
+        null_count=int((~dig_valid).sum()))
+    keys = np.arange(n, dtype=np.int64)
+    orders = pa.table({
+        "o_orderkey": pa.array((keys // 8) * 32 + keys % 8 + 1),
+        "o_custkey": pa.array(rng.integers(1, customers + 1, n)),
+        "o_orderdate": pa.array(rng.integers(8035, 10441, n).astype(
+            np.int32)).cast(pa.date32()),
+        "o_totalprice": pa.array(np.round(rng.random(n) * 5e5, 2)),
+        "o_cust": cust, "o_lines": lines, "o_tags": tags,
+        "o_digest": digest})
+    customer = pa.table({
+        "c_custkey": pa.array(np.arange(1, customers + 1, dtype=np.int64)),
+        "c_acctbal": pa.array(np.round(rng.random(customers) * 11000 - 1000,
+                                       2))})
+    return orders, customer
+
+
+def _qa2_oracle(orders):
+    """qa2 by pyarrow: element_at(o_lines, 1).l_quantity, o_lines[0],
+    o_cust.c_mktsegment, struct(o_orderkey, o_totalprice) and
+    array(o_orderkey, o_custkey)."""
+    lines = orders["o_lines"].combine_chunks()
+    first = pc.list_element(lines, 0)
+    n = orders.num_rows
+    both = np.empty(2 * n, dtype=np.int64)
+    both[0::2] = orders["o_orderkey"].to_numpy()
+    both[1::2] = orders["o_custkey"].to_numpy()
+    return pa.table({
+        "o_orderkey": orders["o_orderkey"],
+        "q1": pc.struct_field(first, "l_quantity"),
+        "l0": first,
+        "seg": pc.struct_field(orders["o_cust"].combine_chunks(),
+                               "c_mktsegment"),
+        "st": pa.StructArray.from_arrays(
+            [orders["o_orderkey"].combine_chunks(),
+             orders["o_totalprice"].combine_chunks()],
+            names=["o_orderkey", "o_totalprice"]),
+        "ar": pa.LargeListArray.from_arrays(
+            pa.array(np.arange(n + 1, dtype=np.int64) * 2),
+            pa.array(both))})
+
+
+def _qa3_oracle(orders):
+    """qa3 by pyarrow: the struct key flattened to its fields and a null
+    flag, so the null structs group together whatever their children
+    hold; {key: (count, sum)}, the null key as None."""
+    cust = orders["o_cust"].combine_chunks()
+    flat = pa.table({"n": pc.struct_field(cust, 0),
+                     "s": pc.struct_field(cust, 1),
+                     "null": pc.is_null(cust),
+                     "p": orders["o_totalprice"]})
+    res = flat.group_by(["n", "s", "null"]).aggregate([("p", "count"),
+                                                       ("p", "sum")])
+    return {None if r["null"] else (r["n"], r["s"]):
+            (r["p_count"], r["p_sum"]) for r in res.to_pylist()}
+
+
+def _check_qa3(got, want, what):
+    rows = {}
+    for r in got.to_pylist():
+        k = None if r["o_cust"] is None else (r["o_cust"]["c_nationkey"],
+                                              r["o_cust"]["c_mktsegment"])
+        rows[k] = (r["c"], r["s"])
+    if rows.keys() != want.keys():
+        raise AssertionError(f"{what}: {len(rows)} groups, want "
+                             f"{len(want)}")
+    for k, (c, s) in rows.items():
+        wc, ws = want[k]
+        if c != wc or abs(s - ws) > FLOAT_RTOL * abs(ws):
+            raise AssertionError(f"{what}: group {k} is ({c}, {s}), want "
+                                 f"({wc}, {ws})")
+
+
+def _by_orderkey(t):
+    """The table's rows in o_orderkey order (unique keys)."""
+    return t.take(pc.sort_indices(t["o_orderkey"]))
+
+
+def _k18_case_inputs(torch, dev, sops):
+    """K18's edge cases as (what, starts, new_offsets, total, child_cap):
+    0 rows, every slot invalid, every array empty, one row of 2^24
+    elements beside 10^6 rows of one, 10^6 empty rows inside one
+    stretch, child totals of 0, 1 and around the 1,024-slot stretch,
+    random spans, a sparse column of 4M rows (1 % hold elements, half
+    the slots invalid)."""
+    out = []
+
+    def add(what, lengths, valid=None, cap=None):
+        lengths = np.asarray(lengths, dtype=np.int64)
+        offs = torch.from_numpy(_spans_of(lengths).astype(np.int32)).to(dev)
+        n = len(lengths)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        vld = torch.ones(n, dtype=torch.bool, device=dev) if valid is None \
+            else torch.from_numpy(np.asarray(valid)).to(dev)
+        new_offs, total, starts = sops.gather_offsets(offs, idx, vld)
+        total = int(total)
+        out.append((what, starts, new_offs, total,
+                    cap if cap is not None else max(total, 1) + 5))
+    add("0 rows", np.zeros(0))
+    add("all slots invalid", np.full(5000, 3), np.zeros(5000, bool))
+    add("all arrays empty", np.zeros(70_000))
+    add("2^24 elements beside 10^6 rows of one",
+        np.concatenate([[1 << 24], np.ones(1_000_000)]))
+    add("10^6 empty rows between two rows of one",
+        np.concatenate([[1], np.zeros(1_000_000), [1]]))
+    for total in (0, 1, 1023, 1024, 1025, 2047, 2048, 2049):
+        add(f"child total {total}", [total], cap=total + 3)
+    rng = np.random.default_rng(SEED)
+    add("random spans, 30 % empty",
+        rng.integers(0, 9, 300_000) * (rng.random(300_000) < 0.7))
+    add("4M rows, 99 % empty or null",
+        rng.integers(1, 9, 4_000_000) * (rng.random(4_000_000) < 0.01),
+        rng.random(4_000_000) < 0.5)
+    return out
+
+
+def _nested_phases(torch, dev, card, launches, kernel_rows, failures,
+                   cuda_ms, bound, path_run):
+    """The nested types on the card: K18 against its plain version on
+    edge cases; qa1-qa5 over TPC-H's orders with their lineitems nested
+    inside (``_nested_orders``), each through GpuSession against its
+    oracle with ``equals`` on Arrow data; every K18 call of qa1 and qa4
+    against its plain version; the fallbacks with the reference's
+    reasons; K18's kernel row, at qa1's call on ``o_lines``."""
+    import datetime
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.column import col, lit
+    from spark_rapids_tpu_torch.api.session import GpuSession
+    from spark_rapids_tpu_torch.io.cached_batch import CacheManager
+    from spark_rapids_tpu_torch.ops import gather as gather_mod
+    from spark_rapids_tpu_torch.ops import strings as sops
+
+    t_nested = time.perf_counter()
+    try:
+        cases = _k18_case_inputs(torch, dev, sops)
+        for what, starts, offs, total, cap in cases:
+            got = gather_mod.span_rows(starts, offs, total, cap)
+            want = gather_mod.span_rows_plain(starts, offs, total, cap)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K18 differs from its plain version: "
+                                     f"{what}")
+            if what.startswith(("10^6 empty", "4M rows")):
+                # the skewed stretches: each thread's work must stay flat
+                args = (starts, offs, total, cap)
+                print(f"K18 on {what} ({int(starts.shape[0])} rows, "
+                      f"{total} child rows): "
+                      f"{cuda_ms(lambda: gather_mod.span_rows(*args)):.3f}"
+                      f" ms, plain "
+                      f"{cuda_ms(lambda: gather_mod.span_rows_plain(*args), reps=1):.3f}"
+                      f" ms; {card}")
+        print(f"K18 span_rows: {len(cases)} edge cases equal their plain "
+              f"version exactly ({', '.join(c[0] for c in cases)})")
+        del cases
+    except Exception:
+        failures.append("K18 edge cases")
+        traceback.print_exc()
+
+    cutoff = datetime.date(1970, 1, 1) + datetime.timedelta(
+        days=QA_CUTOFF_DAYS)
+    try:
+        t1 = time.perf_counter()
+        orders, customer = _nested_orders()
+        lines = orders["o_lines"].combine_chunks()
+        print(f"nested orders: {orders.num_rows} orders, "
+              f"{len(lines.values)} lines, "
+              f"{len(orders['o_tags'].combine_chunks().keys)} tag entries, "
+              f"{orders.nbytes / 2**30:.2f} GiB in Arrow; "
+              f"{time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        qa1_want = orders.filter(pc.less(orders["o_orderdate"],
+                                         pa.scalar(cutoff, pa.date32())))
+        qa2_want = _qa2_oracle(orders)
+        qa3_want = _qa3_oracle(orders)
+        keys = customer["c_custkey"].to_numpy()
+        pos = np.searchsorted(keys, orders["o_custkey"].to_numpy())
+        qa4_want = orders.select(["o_orderkey", "o_custkey", "o_lines",
+                                  "o_digest"]).append_column(
+            "c_acctbal", customer["c_acctbal"].take(pa.array(pos)))
+        print(f"qa oracles: qa1 {qa1_want.num_rows} rows, qa3 "
+              f"{len(qa3_want)} groups, qa4 {qa4_want.num_rows} rows; "
+              f"{time.perf_counter() - t1:.1f} s")
+    except Exception:
+        failures.append("nested orders")
+        traceback.print_exc()
+        return
+
+    def equal_to(want, order_by_key=False):
+        def check(got, what):
+            g = _by_orderkey(got) if order_by_key else got
+            if not g.equals(want):
+                bad = [c for c in want.column_names
+                       if c not in g.column_names or not g[c].equals(want[c])]
+                raise AssertionError(f"{what} differs from its oracle "
+                                     f"({got.num_rows} rows, want "
+                                     f"{want.num_rows}; columns {bad})")
+        return check
+
+    k18_caps = {}
+    session = GpuSession()
+    before = torch.cuda.memory_allocated()
+    df1 = session.create_dataframe(orders)
+    df4 = session.create_dataframe(orders, num_partitions=4)
+    dcust = session.create_dataframe(customer)
+
+    def qa1(df):
+        return df.filter(col("o_orderdate") < lit(cutoff))
+    try:
+        for parts, df in ((1, df1), (4, df4)):
+            run = "qa1" if parts == 1 else "qa1_4"
+            path_run(run, qa1(df).collect, equal_to(qa1_want),
+                     f"qa1 filter o_orderdate < {cutoff} carrying every "
+                     f"column over {parts} partition(s)")
+            if parts == 1:
+                print(f"nested orders on the card: "
+                      f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f}"
+                      f" GiB uploaded")
+                with _Capture(gather_mod, "span_rows") as cap:
+                    qa1(df).collect()
+                k18_caps["qa1"] = cap
+    except Exception:
+        failures.append("qa1 (nested filter)")
+        traceback.print_exc()
+    try:
+        path_run("qa2", df1.select(
+            col("o_orderkey"),
+            F.element_at(col("o_lines"), 1).getField("l_quantity").alias(
+                "q1"),
+            col("o_lines")[0].alias("l0"),
+            col("o_cust").getField("c_mktsegment").alias("seg"),
+            F.struct(col("o_orderkey"), col("o_totalprice")).alias("st"),
+            F.array(col("o_orderkey"), col("o_custkey")).alias("ar")).collect,
+            equal_to(qa2_want), "qa2 the accessors (element_at, [0], "
+            "getField, struct(), array())")
+    except Exception:
+        failures.append("qa2 (accessors)")
+        traceback.print_exc()
+    try:
+        for parts, df in ((1, df1), (4, df4)):
+            run = "qa3" if parts == 1 else "qa3_4"
+            path_run(run, df.group_by(col("o_cust")).agg(
+                F.count("*").alias("c"),
+                F.sum(col("o_totalprice")).alias("s")).collect,
+                lambda got, w: _check_qa3(got, qa3_want, w),
+                f"qa3 group by o_cust: count, sum over {parts} "
+                f"partition(s) ({len(qa3_want)} groups)")
+    except Exception:
+        failures.append("qa3 (struct group keys)")
+        traceback.print_exc()
+    try:
+        qa4 = df1.select("o_orderkey", "o_custkey", "o_lines",
+                         "o_digest").join(
+            dcust, on=(col("o_custkey") == col("c_custkey"))).select(
+            "o_orderkey", "o_custkey", "o_lines", "o_digest", "c_acctbal")
+        path_run("qa4", qa4.collect, equal_to(qa4_want, True),
+                 "qa4 orders joined to customer on custkey carrying o_lines "
+                 "and o_digest")
+        with _Capture(gather_mod, "span_rows") as cap:
+            qa4.collect()
+        k18_caps["qa4"] = cap
+    except Exception:
+        failures.append("qa4 (nested join payload)")
+        traceback.print_exc()
+    try:
+        un = qa1(df1).union(df1.filter(col("o_orderdate") >= lit(cutoff)))
+        union_want = pa.concat_tables([qa1_want, orders.filter(
+            pc.greater_equal(orders["o_orderdate"],
+                             pa.scalar(cutoff, pa.date32())))]).slice(
+            0, QA_LIMIT)
+        path_run("qa5_union", un.limit(QA_LIMIT).collect,
+                 equal_to(union_want),
+                 f"qa5 qa1's two halves unioned, limit({QA_LIMIT})")
+        out_dir = tempfile.mkdtemp(prefix="qa5_parquet_")
+        try:
+            t1 = time.perf_counter()
+            qa1(df1).write.mode("overwrite").parquet(out_dir)
+            write_ms = (time.perf_counter() - t1) * 1e3
+            path_run("qa5_parquet", lambda: qa1(session.read.parquet(
+                out_dir)).collect(), equal_to(_by_orderkey(qa1_want), True),
+                f"qa5 parquet read of qa1's result with the filter pushed "
+                f"(written in {write_ms:.1f} ms)", reps=1)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        cached = qa1(df1).cache()
+        try:
+            path_run("qa5_cache", cached.collect, equal_to(qa1_want),
+                     "qa5 the cache under qa1 (cold: its write; warm: its "
+                     "scan)")
+        finally:
+            cached.unpersist()
+            CacheManager.clear()
+    except Exception:
+        failures.append("qa5 (union, limit, parquet, cache)")
+        traceback.print_exc()
+
+    # the fallbacks, with the reference's reasons, on the first 100,000
+    try:
+        small = orders.slice(0, 100_000)
+        sf = GpuSession()
+        dfs = sf.create_dataframe(small)
+        checks = (
+            ("a sort on o_orderdate carrying o_lines",
+             lambda: dfs.select("o_orderkey", "o_orderdate", "o_lines").sort(
+                 col("o_orderdate"), col("o_orderkey")),
+             "!Exec <SortExec> cannot run on GPU because output column "
+             "o_lines: array<struct<l_partkey:bigint,l_quantity:bigint,"
+             "l_extendedprice:double,l_discount:double,l_shipdate:date>> is "
+             "not supported",
+             lambda got: got.equals(small.select(
+                 ["o_orderkey", "o_orderdate", "o_lines"]).sort_by(
+                 [("o_orderdate", "ascending"),
+                  ("o_orderkey", "ascending")]))),
+            ("a group-by on o_digest",
+             lambda: dfs.group_by(col("o_digest")).agg(
+                 F.count("*").alias("c")),
+             "!Exec <CpuHashAggregateExec> cannot run on GPU because output "
+             "column o_digest: binary is not supported",
+             lambda got: got.num_rows == pc.count_distinct(
+                 small["o_digest"], mode="all").as_py()),
+            ("a join carrying o_tags",
+             lambda: dfs.select("o_orderkey", "o_custkey", "o_tags").join(
+                 sf.create_dataframe(customer),
+                 on=(col("o_custkey") == col("c_custkey"))),
+             "!Exec <CpuJoinExec> cannot run on GPU because join payload "
+             "type map<string,bigint> (varlen nested in varlen) not sized "
+             "for duplicating gathers",
+             lambda got: _by_orderkey(got)["o_tags"].equals(
+                 small["o_tags"])))
+        for what, q, reason, ok in checks:
+            got = q().collect()
+            lines_ = [ln.strip() for ln in sf.last_explain.splitlines()]
+            if reason not in lines_:
+                raise AssertionError(f"{what}: the explain lacks the "
+                                     f"reference's reason:\n"
+                                     f"{sf.last_explain}")
+            if not ok(got):
+                raise AssertionError(f"{what}: result differs")
+            print(f"fallback, {what}: {reason.split(' because ')[0][1:]}, "
+                  f"the reference's reason; result equal")
+        del small, dfs, sf
+    except Exception:
+        failures.append("nested fallbacks")
+        traceback.print_exc()
+
+    # every K18 call of qa1 and qa4 against its plain version; the kernel
+    # row at qa1's call on o_lines (its largest)
+    try:
+        for key, cap in k18_caps.items():
+            for _, args in cap.calls:
+                got = cap.orig["span_rows"](*args)
+                if not torch.equal(got, gather_mod.span_rows_plain(*args)):
+                    raise AssertionError(f"K18 differs at {key}'s call of "
+                                         f"{int(args[0].shape[0])} rows")
+            print(f"K18 at {key}: {len(cap.calls)} calls equal their plain "
+                  f"version exactly (child totals "
+                  f"{[a[2] for _, a in cap.calls]})")
+        for key in ("qa1", "qa4"):
+            if key not in k18_caps or not k18_caps[key].calls:
+                raise AssertionError(f"no K18 call captured at {key}")
+            _, args = max(k18_caps[key].calls, key=lambda c: c[1][2])
+            starts, offs, total, cap_ = args
+            n = int(starts.shape[0])
+            ms = cuda_ms(lambda: gather_mod.span_rows(*args))
+            plain_ms = cuda_ms(lambda: gather_mod.span_rows_plain(*args),
+                               reps=1)
+            # 4 B written a child slot, the start and the new offset read
+            # once for each row that holds a slot (padding, null and empty
+            # rows hold none), and the last offset
+            held = int((offs[1:] > offs[:-1]).sum())
+            bound_ms = bound(4 * cap_ + 8 * held + 4)
+            print(f"K18 span_rows at {key}'s call ({n} rows, {held} holding "
+                  f"{total} child rows, {cap_} slots): {ms:.3f} ms, bound {bound_ms:.3f} "
+                  f"ms, plain {plain_ms:.3f} ms; launches a run: "
+                  + ", ".join(f"{r} {launches[r]['span_rows']}"
+                              for r in launches if r.startswith("qa"))
+                  + f"; {card}")
+            if key == "qa1":
+                kernel_rows["span_rows"] = dict(
+                    source="spark_rapids_tpu_torch/csrc/span_rows.cu",
+                    replaces="spark_rapids_tpu/ops/gather.py:20",
+                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, library_ms=None,
+                    extra=dict(rows=n, rows_holding_slots=held,
+                               child_rows=total,
+                               launches_by_run={
+                                   r: launches[r]["span_rows"]
+                                   for r in launches if r.startswith("qa")}))
+            else:
+                kernel_rows["span_rows"]["extra"].update(
+                    qa4_ms=ms, qa4_bound_ms=bound_ms, qa4_plain_ms=plain_ms)
+    except Exception:
+        failures.append("K18 at qa1 and qa4")
+        traceback.print_exc()
+    del df1, df4, dcust, session
+    print(f"nested phases: {time.perf_counter() - t_nested:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3977,7 +4480,8 @@ def main() -> int:
                 "string_hashes": sops.string_hashes,
                 "hash_bytes": hashfns_mod.hash_bytes,
                 "gather_strings": sops.gather_strings,
-                "order_keys": sops.order_keys}
+                "order_keys": sops.order_keys,
+                "span_rows": gather_mod.span_rows}
 
     def download_fetched(b):
         return batch_to_arrow(fetch.fetch_batch(b))
@@ -6537,6 +7041,9 @@ def main() -> int:
         traceback.print_exc()
     print(f"types phases: {time.perf_counter() - t_types:.1f} s")
 
+    _nested_phases(torch, dev, card, launches, kernel_rows, failures,
+                   cuda_ms, bound, path_run)
+
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
         "batches": ("compact_rows", "sort_order", "segment_reduce_sorted"),
@@ -6614,7 +7121,25 @@ def main() -> int:
         "qn_group": ("sort_order", "segment_reduce_sorted"),
         "qn_sort": ("sort_order", "gather_rows"),
         "qn_topn": ("sort_order", "gather_rows"),
-        "qn_write": ()}
+        "qn_write": (),
+        # the nested types
+        "qa1": ("compact_rows", "gather_strings", "span_rows",
+                "gather_rows"),
+        "qa1_4": ("compact_rows", "gather_strings", "span_rows",
+                  "gather_rows"),
+        "qa2": ("gather_rows", "gather_strings"),
+        "qa3": ("string_hashes", "sort_order", "segment_reduce_sorted",
+                "gather_rows", "gather_strings"),
+        "qa3_4": ("string_hashes", "sort_order", "segment_reduce_sorted",
+                  "gather_rows", "gather_strings"),
+        "qa4": ("key_hash", "sort_order", "hash_table", "join_probe",
+                "expand_ends", "expand_pairs", "gather_strings",
+                "span_rows", "gather_rows"),
+        "qa5_union": ("compact_rows", "gather_strings", "span_rows",
+                      "gather_rows"),
+        "qa5_parquet": ("compact_rows", "gather_strings", "span_rows",
+                        "gather_rows"),
+        "qa5_cache": ()}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
                 "q5_4", "qs1", "qs1_4", "qs2", "qs3", "qs4", "qs4_topn",
@@ -6625,7 +7150,9 @@ def main() -> int:
                 "cache_scan", "cache_recompute", "act_count", "act_pandas",
                 "act_gsum", "act_gcount", "act_gmin", "act_gmax",
                 "act_gavg", "q1d", "q1d_4", "q1", "qn_filter", "qn_group",
-                "qn_sort", "qn_topn", "qn_write"):
+                "qn_sort", "qn_topn", "qn_write", "qa1", "qa1_4", "qa2",
+                "qa3", "qa3_4", "qa4", "qa5_union", "qa5_parquet",
+                "qa5_cache"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -6660,7 +7187,8 @@ def main() -> int:
                   "gather_rows_int16": "qn_sort",
                   "scatter_rows_int16": "q4",
                   "pack_lanes_int16": "qn_filter",
-                  "expand_pairs_int16": "q2"}
+                  "expand_pairs_int16": "q2",
+                  "span_rows": "qa1"}
         counted_as = {"segment_reduce_sorted_minmax": "segment_reduce_sorted",
                       "gather_strings_flags": "gather_strings",
                       "segment_reduce_sorted_distinct":

@@ -3,8 +3,9 @@
 Counterpart of spark_rapids_tpu/api/column.py over the port's flat types:
 arithmetic (``+ - * / %`` with their reflected forms, unary ``-``),
 comparisons, boolean logic, ``is_null``, ``is_not_null``, ``isin``,
-``eq_null_safe``, ``cast``, aliases, sort orders and ``over`` (a
-window).  The string methods wait for Queue 1 item 3.
+``eq_null_safe``, ``cast``, aliases, sort orders, ``over`` (a
+window), and ``getField``, ``getItem`` and ``[]`` (a struct field or an
+array element).  The string methods wait for Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -156,6 +157,25 @@ class Column:
         if isinstance(e, AggregateExpression):
             e = e.func
         return Column(WindowExpression(e, spec, name))
+
+    # complex types (expr/complextype.py)
+    def getItem(self, key) -> "Column":
+        """``c[name]`` a struct field, ``c[i]`` an array element (0-based;
+        null out of range)."""
+        from ..expr.complextype import GetArrayItem, GetStructField
+        if isinstance(key, str):
+            return Column(GetStructField(self.expr, key))
+        return Column(GetArrayItem(self.expr, _expr(key)))
+
+    def getField(self, name: str) -> "Column":
+        from ..expr.complextype import GetStructField
+        return Column(GetStructField(self.expr, name))
+
+    def __getitem__(self, key) -> "Column":
+        return self.getItem(key)
+
+    def __iter__(self):
+        raise TypeError("Column is not iterable")
 
     def __repr__(self):
         return f"Column<{self.expr.sql()}>"

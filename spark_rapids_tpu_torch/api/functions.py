@@ -172,6 +172,26 @@ def hash(*cols) -> Column:  # noqa: A001
     return _c(Murmur3Hash([_arg(c) for c in cols]))
 
 
+def element_at(c, index) -> Column:
+    """element_at(array, i): 1-based, negative from the end; null out of
+    range."""
+    from ..expr.complextype import ElementAt
+    return _c(ElementAt(_arg(c), _expr(index)))
+
+
+def array(*cols) -> Column:
+    from ..expr.complextype import CreateArray
+    return _c(CreateArray([_arg(c) for c in cols]))
+
+
+def struct(*cols) -> Column:
+    """A struct of the columns, each field named as the column is."""
+    from ..expr.complextype import CreateNamedStruct
+    from ..expr.core import output_name
+    exprs = [_arg(c) for c in cols]
+    return _c(CreateNamedStruct([output_name(e) for e in exprs], exprs))
+
+
 def monotonically_increasing_id() -> Column:
     return _c(MonotonicallyIncreasingID())
 

@@ -8,10 +8,23 @@ null is zero.  A STRING column is the reference's span layout:
 ``offsets`` int32[capacity + 1], rebased to 0 and repeating the last
 offset past the live rows, over ``data``, the UTF-8 bytes, uint8
 zero-padded to a ``DEFAULT_CHAR_BUCKETS`` bucket; a null string is
-empty.  A DECIMAL wider than 18 digits has a second lane, ``data_hi``:
-``data`` holds the unscaled value's low 64 bits (int64 bits of the
-unsigned word) and ``data_hi`` its signed high 64 bits; every helper
-that copies a column's rows carries both.
+empty; a BINARY column is the same layout over its bytes.  A DECIMAL
+wider than 18 digits has a second lane, ``data_hi``: ``data`` holds the
+unscaled value's low 64 bits (int64 bits of the unsigned word) and
+``data_hi`` its signed high 64 bits; every helper that copies a
+column's rows carries both.
+
+Nested columns follow the reference's layout and have no ``data``.  An
+ARRAY keeps int32 ``offsets[capacity + 1]``, rebased to 0 and padded
+with the last offset, over one child column at its own capacity bucket
+(``DEFAULT_ROW_BUCKETS`` of the child total); a MAP the same over a key
+child and a value child; a null array or map spans no child rows.  A
+STRUCT keeps one child a field at the struct's own capacity, aligned
+with its rows: the children are read as Arrow holds them, so a child
+may hold a value under a null struct row, and every download masks it
+with the struct's validity (the reference's ``arr.field(i)`` upload).
+A column is flat when it has neither offsets nor children
+(``DeviceColumn.is_flat``); only flat columns are row lanes.
 """
 
 from __future__ import annotations
@@ -57,27 +70,39 @@ def resolve_device(device=None) -> torch.device:
 
 class DeviceColumn:
     """One column: ``data`` and bool ``validity``, both [capacity]; for a
-    span column (STRING) ``offsets`` int32[capacity + 1] over the chars
-    in ``data``, else None; for a DECIMAL of more than 18 digits
-    ``data_hi``, the high words (int64[capacity]), else None."""
+    span column (STRING, BINARY) ``offsets`` int32[capacity + 1] over the
+    bytes in ``data``, else None; for a DECIMAL of more than 18 digits
+    ``data_hi``, the high words (int64[capacity]), else None.  An ARRAY
+    or MAP has ``offsets`` over its ``children`` and no ``data``; a
+    STRUCT has row-aligned ``children`` and no ``data``."""
 
-    __slots__ = ("dtype", "data", "validity", "offsets", "data_hi")
+    __slots__ = ("dtype", "data", "validity", "offsets", "data_hi",
+                 "children")
 
-    def __init__(self, dtype: t.DataType, data: torch.Tensor,
+    def __init__(self, dtype: t.DataType, data: Optional[torch.Tensor],
                  validity: torch.Tensor,
                  offsets: Optional[torch.Tensor] = None,
-                 data_hi: Optional[torch.Tensor] = None):
+                 data_hi: Optional[torch.Tensor] = None,
+                 children: Sequence["DeviceColumn"] = ()):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.offsets = offsets
         self.data_hi = data_hi
+        self.children = tuple(children)
 
     @property
     def capacity(self) -> int:
         if self.offsets is not None:
             return int(self.offsets.shape[0]) - 1
-        return int(self.data.shape[0])
+        if self.data is not None:
+            return int(self.data.shape[0])
+        return int(self.validity.shape[0])
+
+    @property
+    def is_flat(self) -> bool:
+        """A row lane column: neither offsets nor children."""
+        return self.offsets is None and not self.children
 
     def __repr__(self):
         return f"DeviceColumn({self.dtype.name}, cap={self.capacity})"
@@ -85,12 +110,48 @@ class DeviceColumn:
 
 def flat_lanes(cols: Sequence[DeviceColumn]):
     """The row lanes of flat columns, column by column: data, validity,
-    then data_hi where there is one (``columns_from_lanes`` undoes it)."""
+    then data_hi where there is one (``columns_from_lanes`` undoes it).
+    A span or nested column has no row lanes: its rows move by a gather
+    (``ops/gather.py:gather_columns``), so it raises here."""
     lanes = []
     for c in cols:
+        if not c.is_flat:
+            raise TypeError(f"flat_lanes: a {c.dtype.name} column moves "
+                            f"through gather_columns, not as row lanes")
         lanes += [c.data, c.validity] + ([] if c.data_hi is None
                                          else [c.data_hi])
     return lanes
+
+
+def null_column(dtype: t.DataType, cap: int,
+                device: torch.device) -> DeviceColumn:
+    """A column of ``dtype`` that is null in every one of its ``cap``
+    rows: zero data, empty spans (an ARRAY's or MAP's children one null
+    row each), a STRUCT's children null too."""
+    valid = torch.zeros(cap, dtype=torch.bool, device=device)
+    if isinstance(dtype, t.StructType):
+        return DeviceColumn(dtype, None, valid, None, None,
+                            [null_column(f.data_type, cap, device)
+                             for f in dtype.fields])
+    if isinstance(dtype, (t.ArrayType, t.MapType)):
+        return DeviceColumn(dtype, None, valid, torch.zeros(
+            cap + 1, dtype=torch.int32, device=device), None,
+            [null_column(k, 1, device) for k in t.child_types(dtype)])
+    if t.is_span(dtype):
+        return DeviceColumn(dtype, torch.zeros(
+            DEFAULT_CHAR_BUCKETS[0], dtype=torch.uint8, device=device),
+            valid, torch.zeros(cap + 1, dtype=torch.int32, device=device))
+    zeros = torch.zeros(cap, dtype=dtype.torch_dtype, device=device)
+    return DeviceColumn(dtype, zeros, valid, None,
+                        torch.zeros_like(zeros) if t.is_dec128(dtype)
+                        else None)
+
+
+def column_bytes(col: DeviceColumn) -> int:
+    """The device bytes of a column's tensors, children included."""
+    return sum(x.nbytes for x in (col.data, col.validity, col.offsets,
+                                  col.data_hi) if x is not None) + \
+        sum(column_bytes(c) for c in col.children)
 
 
 def columns_from_lanes(cols: Sequence[DeviceColumn], lanes):
@@ -125,21 +186,36 @@ class HostColumn(DeviceColumn):
     bitmap (uint8, least significant bit first), or None when every row
     is valid.  ``validity`` unpacks the bitmap on first read, so a
     collect hands the bitmap to Arrow as it came from the card.  A
-    STRING column's ``offsets`` are int64[rows + 1] and ``data`` its
-    ``offsets[rows]`` bytes."""
+    STRING or BINARY column's ``offsets`` are int32[rows + 1], as on the
+    device, so an operator of the CPU engine gathers it as it gathers a
+    device column, and ``data`` its ``offsets[rows]`` bytes; an ARRAY's
+    or MAP's ``offsets`` are int32[rows + 1] over ``children`` of
+    ``offsets[rows]``
+    rows; a STRUCT's ``children`` have ``rows`` rows and ``data`` is
+    None, so ``rows`` is given."""
 
-    __slots__ = ("bitmap", "_validity")
+    __slots__ = ("bitmap", "_validity", "_rows")
 
-    def __init__(self, dtype: t.DataType, data: torch.Tensor,
+    def __init__(self, dtype: t.DataType, data: Optional[torch.Tensor],
                  bitmap: Optional[torch.Tensor],
                  offsets: Optional[torch.Tensor] = None,
-                 data_hi: Optional[torch.Tensor] = None):
+                 data_hi: Optional[torch.Tensor] = None,
+                 children: Sequence[DeviceColumn] = (),
+                 rows: Optional[int] = None):
         self.dtype = dtype
         self.data = data
         self.offsets = offsets
         self.data_hi = data_hi
+        self.children = tuple(children)
         self.bitmap = bitmap
         self._validity = None
+        self._rows = rows
+
+    @property
+    def capacity(self) -> int:
+        if self._rows is not None:
+            return self._rows
+        return DeviceColumn.capacity.fget(self)
 
     @property
     def validity(self) -> torch.Tensor:
@@ -169,7 +245,7 @@ class DeviceBatch:
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].data.device
+        return self.columns[0].validity.device
 
     def __repr__(self):
         return (f"DeviceBatch(cap={self.capacity}, rows={self.num_rows}, "
@@ -191,11 +267,14 @@ def _padded(values: np.ndarray, cap: int, dtype: torch.dtype,
 
 def string_buffers(arr: pa.Array):
     """(offsets int32[n + 1] rebased to 0, chars uint8[offsets[n]]) of an
-    Arrow string or large_string array, as numpy views where Arrow's
-    buffers allow: a sliced array is rebased, and a null becomes empty
-    (the reference's span branch)."""
+    Arrow string, large_string, binary or large_binary array, as numpy
+    views where Arrow's buffers allow: a sliced array is rebased, and a
+    null becomes empty (the reference's span branch)."""
     n = len(arr)
-    wide = pa.types.is_large_string(arr.type)
+    wide = pa.types.is_large_string(arr.type) or \
+        pa.types.is_large_binary(arr.type)
+    empty = b"" if pa.types.is_binary(arr.type) or \
+        pa.types.is_large_binary(arr.type) else ""
 
     def offsets_of(a):
         return np.frombuffer(a.buffers()[1],
@@ -204,7 +283,7 @@ def string_buffers(arr: pa.Array):
     offs = offsets_of(arr)
     if arr.null_count and np.diff(offs)[
             ~np.asarray(arr.is_valid())].any():
-        arr = arr.fill_null("")             # a null with bytes: drop them
+        arr = arr.fill_null(empty)          # a null with bytes: drop them
         offs = offsets_of(arr)
     bufs = arr.buffers()
     base = int(offs[0])
@@ -220,10 +299,12 @@ def string_buffers(arr: pa.Array):
 
 
 def string_to_device(offs: np.ndarray, chars: np.ndarray, validity,
-                     cap: int, device: torch.device) -> DeviceColumn:
-    """A STRING column from rebased numpy offsets (int32[n + 1]) and chars:
-    offsets padded to cap + 1 by the last offset and chars zero-padded to
-    their bucket, both lanes in one host-to-device copy."""
+                     cap: int, device: torch.device,
+                     dtype: t.DataType = t.STRING) -> DeviceColumn:
+    """A STRING (or BINARY) column from rebased numpy offsets
+    (int32[n + 1]) and bytes: offsets padded to cap + 1 by the last
+    offset and bytes zero-padded to their bucket, both lanes in one
+    host-to-device copy."""
     n = offs.shape[0] - 1
     nbytes = int(offs[-1])
     char_cap = bucket_for(max(nbytes, 1), DEFAULT_CHAR_BUCKETS)
@@ -236,7 +317,7 @@ def string_to_device(offs: np.ndarray, chars: np.ndarray, validity,
     buf = torch.empty(head + char_cap, dtype=torch.uint8, device=device)
     buf[:head + nbytes].copy_(torch.from_numpy(host))
     buf[head + nbytes:].zero_()
-    return DeviceColumn(t.STRING, buf[head:], validity,
+    return DeviceColumn(dtype, buf[head:], validity,
                         buf[:head].view(torch.int32))
 
 
@@ -265,11 +346,64 @@ def _flat_numpy(arr: pa.Array, dtype: t.DataType) -> np.ndarray:
     return data if data.dtype == want else data.astype(want)
 
 
+def list_parts(arr: pa.Array):
+    """(offsets int32[n + 1] rebased to 0, child arrays of offsets[n]
+    rows) of an Arrow list, large_list or map array: the values (a map's
+    keys and items) of the slice.  Entries that a null row still spans
+    are dropped, so a null row spans none (the reference's map repair,
+    and its ``fill_null([])`` of a list)."""
+    n = len(arr)
+    offs = np.asarray(arr.offsets).astype(np.int64)
+    kids = [arr.keys, arr.items] if pa.types.is_map(arr.type) \
+        else [arr.values]
+    base = int(offs[0]) if n else 0
+    spans = np.diff(offs) if n else np.zeros(0, np.int64)
+    if arr.null_count:
+        valid = np.asarray(arr.is_valid())
+        spans0 = np.where(valid, spans, 0)
+        if not np.array_equal(spans0, spans):
+            keep = np.flatnonzero(np.repeat(valid, spans)) + base
+            kids = [k.take(pa.array(keep)) for k in kids]
+            spans, base = spans0, 0
+    total = int(spans.sum())
+    if total > _INT32_MAX:
+        raise ValueError(f"a nested column of {total} child rows exceeds "
+                         f"the 2^31-1 rows of int32 offsets; split the "
+                         f"batch")
+    out = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(spans, out=out[1:])
+    return out, [k.slice(base, total) for k in kids]
+
+
+def _validity_lane(arr: pa.Array, cap: int,
+                   device: torch.device) -> torch.Tensor:
+    if arr.null_count:
+        return _padded(np.asarray(arr.is_valid()), cap, torch.bool, device)
+    # no nulls: build the validity on the device, not over the bus
+    return torch.arange(cap, device=device) < len(arr)
+
+
 def column_to_device(arr, dtype: t.DataType, cap: int,
                      device: torch.device) -> DeviceColumn:
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     n = len(arr)
+    if isinstance(dtype, (t.ArrayType, t.MapType)):
+        offs, kids = list_parts(arr)
+        child_cap = bucket_for(max(int(offs[-1]), 1))
+        children = [column_to_device(k, kt, child_cap, device)
+                    for k, kt in zip(kids, t.child_types(dtype))]
+        full = np.full(cap + 1, offs[-1], dtype=np.int32)
+        full[:n + 1] = offs
+        return DeviceColumn(dtype, None, _validity_lane(arr, cap, device),
+                            torch.from_numpy(full).to(device), None,
+                            children)
+    if isinstance(dtype, t.StructType):
+        return DeviceColumn(dtype, None, _validity_lane(arr, cap, device),
+                            None, None,
+                            [column_to_device(arr.field(i), f.data_type,
+                                              cap, device)
+                             for i, f in enumerate(dtype.fields)])
     if isinstance(dtype, t.DecimalType):
         validity = _padded(np.asarray(arr.is_valid()), cap, torch.bool,
                            device) if arr.null_count else \
@@ -281,11 +415,10 @@ def column_to_device(arr, dtype: t.DataType, cap: int,
         return DeviceColumn(
             dtype, _padded(lo, cap, torch.int64, device), validity, None,
             None if dtype.is64 else _padded(hi, cap, torch.int64, device))
-    if dtype == t.STRING:
-        validity = _padded(np.asarray(arr.is_valid()), cap, torch.bool,
-                           device) if arr.null_count else \
-            torch.arange(cap, device=device) < n
-        return string_to_device(*string_buffers(arr), validity, cap, device)
+    if t.is_span(dtype):
+        return string_to_device(*string_buffers(arr),
+                                _validity_lane(arr, cap, device), cap,
+                                device, dtype)
     if dtype == t.NULL:
         return DeviceColumn(dtype, torch.zeros(cap, dtype=torch.int8,
                                                device=device),
@@ -325,16 +458,35 @@ def batch_from_numpy_lanes(lanes: Sequence[np.ndarray],
     cols = []
     for data, valid, tn in zip(lanes, validity, type_names):
         dtype = t.from_name(tn)
-        if dtype == t.STRING or t.is_dec128(dtype):
+        if t.is_span(dtype) or t.is_nested(dtype) or t.is_dec128(dtype):
             raise NotImplementedError(
                 "batch_from_numpy_lanes takes one flat lane a column; a "
-                "string or a decimal of more than 18 digits goes through "
-                "batch_to_device")
+                "string, binary or nested column or a decimal of more "
+                "than 18 digits goes through batch_to_device")
         cols.append(DeviceColumn(
             dtype,
             torch.from_numpy(np.array(data)).to(dtype.torch_dtype).to(dev),
             torch.from_numpy(np.array(valid, dtype=np.bool_)).to(dev)))
     return DeviceBatch(cols, num_rows, names)
+
+
+def move_column(c: DeviceColumn, device: torch.device,
+                keep: Optional[int] = None) -> DeviceColumn:
+    """The column on ``device``; with ``keep`` only its first ``keep``
+    rows (and the bytes or child rows they span, at least one)."""
+    valid = c.validity[:keep].to(device)
+    if c.offsets is None:
+        return DeviceColumn(
+            c.dtype, None if c.data is None else c.data[:keep].to(device),
+            valid, None,
+            None if c.data_hi is None else c.data_hi[:keep].to(device),
+            [move_column(k, device, keep) for k in c.children])
+    offs = c.offsets if keep is None else c.offsets[:keep + 1]
+    inner = None if keep is None else max(int(offs[-1]), 1)
+    return DeviceColumn(
+        c.dtype, None if c.data is None else c.data[:inner].to(device),
+        valid, offs.to(device), None,
+        [move_column(k, device, inner) for k in c.children])
 
 
 def move_batch(batch: DeviceBatch, device: torch.device,
@@ -343,32 +495,21 @@ def move_batch(batch: DeviceBatch, device: torch.device,
     the live rows (at least one row) cross, so the copy holds no
     padding beyond that."""
     keep = max(batch.num_rows, 1) if live_only else None
-    cols = []
-    for c in batch.columns:
-        if c.offsets is None:
-            cols.append(DeviceColumn(
-                c.dtype, c.data[:keep].to(device),
-                c.validity[:keep].to(device), None,
-                None if c.data_hi is None else c.data_hi[:keep].to(device)))
-            continue
-        offs = c.offsets if keep is None else c.offsets[:keep + 1]
-        nbytes = None if keep is None else max(int(offs[-1]), 1)
-        cols.append(DeviceColumn(c.dtype, c.data[:nbytes].to(device),
-                                 c.validity[:keep].to(device),
-                                 offs.to(device)))
-    return DeviceBatch(cols, batch.num_rows, batch.names)
+    return DeviceBatch([move_column(c, device, keep) for c in batch.columns],
+                       batch.num_rows, batch.names)
 
 
 def string_to_arrow(offsets: torch.Tensor, chars: torch.Tensor,
-                    bitmap, n: int) -> pa.Array:
-    """A large_string array of n rows from a column's offsets (rows
-    [0, n]), its chars and an Arrow validity bitmap (or None), with no
-    per-row Python."""
+                    bitmap, n: int,
+                    arrow_type: pa.DataType = pa.large_string()) -> pa.Array:
+    """A large_string (or large_binary) array of n rows from a column's
+    offsets (rows [0, n]), its chars and an Arrow validity bitmap (or
+    None), with no per-row Python."""
     offs = offsets[:n + 1].cpu().to(torch.int64)
     nbytes = int(offs[-1]) if n else 0
     data = chars[:nbytes].cpu().contiguous()
     bitmap = None if bitmap is None else pa.py_buffer(bitmap.numpy())
-    return pa.Array.from_buffers(pa.large_string(), n, [
+    return pa.Array.from_buffers(arrow_type, n, [
         bitmap, pa.py_buffer(offs.numpy()), pa.py_buffer(data.numpy())])
 
 
@@ -395,16 +536,42 @@ def _bitmap_of(col: DeviceColumn, n: int):
     return None if bitmap is None else pa.py_buffer(bitmap.numpy())
 
 
+def _nested_to_arrow(col: DeviceColumn, n: int) -> pa.Array:
+    """An ARRAY, MAP or STRUCT column's first n rows as Arrow, built from
+    its buffers (offsets, the validity bitmap, the children), with no
+    per-row Python.  A STRUCT's bitmap masks children that hold a value
+    under a null row."""
+    at = to_arrow_type(col.dtype)
+    bitmap = _bitmap_of(col, n)
+    if isinstance(col.dtype, t.StructType):
+        kids = [column_to_arrow(k, n) for k in col.children]
+        return pa.Array.from_buffers(at, n, [bitmap], children=kids)
+    offs = col.offsets[:n + 1].cpu().to(torch.int64)
+    inner = int(offs[-1]) if n else 0
+    kids = [column_to_arrow(k, inner) for k in col.children]
+    if isinstance(col.dtype, t.MapType):
+        entries = pa.StructArray.from_arrays(
+            kids, fields=[at.key_field, at.item_field])
+        return pa.Array.from_buffers(at, n, [
+            bitmap, pa.py_buffer(offs.to(torch.int32).numpy())],
+            children=[entries])
+    return pa.Array.from_buffers(at, n, [bitmap, pa.py_buffer(offs.numpy())],
+                                 children=kids)
+
+
 def column_to_arrow(col: DeviceColumn, n: int) -> pa.Array:
     if col.dtype == t.NULL:
         return pa.nulls(n)
+    if t.is_nested(col.dtype):
+        return _nested_to_arrow(col, n)
     if col.offsets is not None:
         if isinstance(col, HostColumn):
             bitmap = col.bitmap
         else:
             valid = col.validity[:n].cpu()
             bitmap = None if bool(valid.all()) else _pack_bits(valid)
-        return string_to_arrow(col.offsets, col.data, bitmap, n)
+        return string_to_arrow(col.offsets, col.data, bitmap, n,
+                               to_arrow_type(col.dtype))
     if isinstance(col.dtype, t.DecimalType):
         # both words into Arrow's 16-byte values, no per-row Python
         words = decimal_buffer(col.data[:n], None if col.data_hi is None

@@ -2,9 +2,9 @@
 
 Counterpart of spark_rapids_tpu/columnar/fetch.py (``_lane_stats``,
 ``_build_plan``, ``_make_shrink_pack_fn``, ``_unpack_column`` and
-``fetch_batch``) for flat and string columns.  A batch comes to the
-host in one small read and one packed copy, of the live rows only and
-of only the bytes that carry information:
+``fetch_batch``) for flat, string, binary and nested columns.  A batch
+comes to the host in one small read and one packed copy, of the live
+rows only and of only the bytes that carry information:
 
   1. K9 ``lane_stats`` (``csrc/fetch_pack.cu``) reduces every lane of the
      batch in one launch into one int64 tensor, two numbers a lane: a
@@ -35,7 +35,17 @@ is the byte count, so the sizes still come in the one small read (the
 reference's ``_var_sizes``).  Its chars are ``offsets[n]`` bytes, not n
 rows: they are copied raw into their slice of the packed buffer, after
 every row lane, and the host builds the Arrow array from the two
-buffers.
+buffers.  A binary column is fetched the same way.
+
+A STRUCT's validity and its children's lanes are row lanes of the batch
+(its children are row-aligned).  An ARRAY's or MAP's offsets lane is
+row-aligned like a string's, and its max is the child total: its
+children are fetched as a group of their own at that row count, one K9
+launch and one K10 buffer a group, each nesting level's stats read in
+one host read (the reference's nested ``_var_sizes`` and
+``_unpack_column``), every group's buffer copied into the staging
+buffer before the one wait; the host builds the Arrow arrays from the
+offsets, bitmaps and children, never through Python lists.
 
 The reference's ride-along ``extra_scalars`` (deferred guards of the
 speculative join sizing) waits for that sizing (ROADMAP Queue 2), and
@@ -54,7 +64,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from .. import kernels
-from .device import DeviceBatch, HostColumn, move_batch, unpack_bits
+from .. import types as t
+from .device import (DeviceBatch, DeviceColumn, HostColumn, move_batch,
+                     unpack_bits)
 
 KIND_BOOL, KIND_INT32, KIND_INT64, KIND_OTHER = 0, 1, 2, 3
 _INT_RANGE = {KIND_INT32: (2**31 - 1, -2**31),
@@ -72,29 +84,46 @@ def lane_kind(lane: torch.Tensor) -> int:
     return KIND_OTHER
 
 
+def _column_lanes(c: DeviceColumn) -> List[torch.Tensor]:
+    """One column's row lanes in the reference's walk order
+    (``_walk_lanes``): its data, or a span column's offsets lane
+    (``offsets[1:]``), then its validity, then a DECIMAL128's high
+    words; a STRUCT's validity, then each child's lanes (its children
+    are row-aligned with it).  An ARRAY's or MAP's children are not row
+    lanes: they are the next level of the fetch."""
+    if isinstance(c.dtype, t.StructType):
+        return [c.validity] + [x for k in c.children
+                               for x in _column_lanes(k)]
+    return [x for x in (c.data if c.offsets is None else c.offsets[1:],
+                        c.validity, c.data_hi) if x is not None]
+
+
 def batch_lanes(batch: DeviceBatch) -> List[torch.Tensor]:
-    """Every row lane of a batch in the reference's walk order: each
-    column's data, then its validity, then a DECIMAL128 column's high
-    words; a string column's offsets lane (``offsets[1:]``) takes the
-    data's place (its chars are not a row lane, ``fetch_batch``)."""
-    return [x for c in batch.columns for x in (
-        c.data if c.offsets is None else c.offsets[1:], c.validity,
-        c.data_hi) if x is not None]
+    """Every row lane of a batch in the reference's walk order
+    (``_column_lanes``); a string column's offsets lane takes the data's
+    place (its chars are not a row lane, ``fetch_batch``)."""
+    return [x for c in batch.columns for x in _column_lanes(c)]
 
 
-def _lane_starts(batch: DeviceBatch) -> List[int]:
-    """The index of each column's first lane in ``batch_lanes``."""
-    starts, at = [], 0
-    for c in batch.columns:
-        starts.append(at)
-        at += 2 if c.data_hi is None else 3
-    return starts
+def _span_lanes(cols: Sequence[DeviceColumn]) -> Tuple[List[int], list]:
+    """The lane index of each span column's offsets lane (strings,
+    binary, arrays and maps, in walk order), and those columns."""
+    idx, found, at = [], [], 0
 
-
-def _offsets_lanes(batch: DeviceBatch) -> List[int]:
-    """The lane index of each string column's offsets lane."""
-    return [j for j, c in zip(_lane_starts(batch), batch.columns)
-            if c.offsets is not None]
+    def walk(c):
+        nonlocal at
+        if isinstance(c.dtype, t.StructType):
+            at += 1
+            for k in c.children:
+                walk(k)
+            return
+        if c.offsets is not None:
+            idx.append(at)
+            found.append(c)
+        at += len(_column_lanes(c))
+    for c in cols:
+        walk(c)
+    return idx, found
 
 
 def _seed(kinds: Sequence[int]) -> List[int]:
@@ -365,82 +394,171 @@ def _widen(raw: torch.Tensor, width: int, dtype: torch.dtype, minv: int,
     return out
 
 
-def rebuild_batch(batch: DeviceBatch, lanes, plan, mins, stats, slices,
-                  host: torch.Tensor, n: int, char_slices=()) -> DeviceBatch:
-    """``HostColumn``s of ``batch``'s n live rows from the packed bytes
-    in ``host`` (the staging buffer, or the packed buffer itself on the
-    CPU), every lane copied out of it; ``char_slices`` are the (offset,
-    bytes) of each string column's chars, in column order."""
-    chars_at = iter(char_slices)
-    cols = []
-    for c, j0 in zip(batch.columns, _lane_starts(batch)):
-        parts = []
-        for j in range(j0, j0 + (2 if c.data_hi is None else 3)):
-            lane, step, (off, size) = lanes[j], plan[j], slices[j]
-            raw = host[off:off + size]
-            if step[0] == "skip":
-                parts.append(None)
-            elif step[0] == "bit":
-                parts.append(raw.clone())
-            elif step[0] == "narrow":
-                parts.append(_widen(raw, step[1], lane.dtype, mins[j],
-                                    int(stats[2 * j + 1]) - mins[j], n))
+class _Group:
+    """Columns fetched with one row count: the batch's columns, or an
+    ARRAY's or MAP's children (their count the parent's child total).
+    Each group has its own K9 stats, plan and K10 buffer."""
+
+    def __init__(self, cols: Sequence[DeviceColumn], n: int):
+        self.cols, self.n = list(cols), n
+        self.lanes = [x for c in self.cols for x in _column_lanes(c)]
+        self.spans, self.span_cols = _span_lanes(self.cols)
+        self.kids: Dict[int, "_Group"] = {}     # id(column) -> children
+
+    def plan(self, stats: List[int]) -> None:
+        """The transfer plan from the stats; each string or binary
+        column's bytes after the row lanes, 8-byte aligned (the offsets
+        lane's max is the byte count), and each ARRAY's or MAP's children
+        as a group of their own (the max is the child total)."""
+        self.stats = stats
+        self.plan_, self.mins = build_plan(self.lanes, stats, self.spans)
+        self.slices, self.rows_end = layout(self.lanes, self.plan_, self.n)
+        self.char_slices, total = [], self.rows_end
+        for j, c in zip(self.spans, self.span_cols):
+            inner = int(stats[2 * j + 1])
+            if t.is_span(c.dtype):
+                self.char_slices.append((total, inner))
+                total += (inner + 7) // 8 * 8
+            elif inner > _INT32_MAX:
+                raise ValueError(f"a nested column of {inner} child rows "
+                                 f"exceeds the 2^31-1 rows of int32 offsets")
             else:
-                parts.append(raw.view(lane.dtype)[:n].clone())
-        data_step, data, valid_step, valid = plan[j0], parts[0], \
-            plan[j0 + 1], parts[1]
-        if data_step[0] == "skip":              # a BOOLEAN lane, all true
-            data = torch.ones(n, dtype=torch.bool)
-        elif data_step[0] == "bit":
-            data = unpack_bits(data, n)
-        if valid_step[0] == "none":             # bytes: make the bitmap
+                self.kids[id(c)] = _Group(c.children, inner)
+        self.total = total
+
+    def pack(self) -> torch.Tensor:
+        packed = pack_lanes(self.lanes, self.plan_, self.mins, self.n,
+                            self.total - self.rows_end)
+        chars = [c for c in self.span_cols if t.is_span(c.dtype)]
+        for c, (off, size) in zip(chars, self.char_slices):
+            packed[off:off + size].copy_(c.data[:size])
+        return packed
+
+
+_INT32_MAX = 2**31 - 1
+
+
+def _levels(root: _Group) -> List[List[_Group]]:
+    """The groups of a fetch, level by level: each level's K9 stats are
+    read in one host read, which gives the next level's row counts."""
+    levels, level = [], [root]
+    while level:
+        stats = [lane_stats(g.lanes, g.n) for g in level]
+        flat = torch.cat(stats).tolist()           # the level's one read
+        at = 0
+        for g in level:
+            g.plan(flat[at:at + 2 * len(g.lanes)])
+            at += 2 * len(g.lanes)
+        levels.append(level)
+        level = [k for g in level for k in g.kids.values() if k.n > 0]
+    return levels
+
+
+def _rebuild_columns(g: _Group, host: torch.Tensor,
+                     hosts: Dict[int, torch.Tensor]) -> List[DeviceColumn]:
+    """``HostColumn``s of a group's live rows from its packed bytes in
+    ``host``, every lane copied out of it; an ARRAY's or MAP's children
+    from their own group's bytes (``hosts``, by group id)."""
+    n, lanes, plan, mins, stats = g.n, g.lanes, g.plan_, g.mins, g.stats
+    at = 0
+    chars_at = iter(g.char_slices)
+
+    def lane(j):
+        step, (off, size) = plan[j], g.slices[j]
+        raw = host[off:off + size]
+        if step[0] == "skip":
+            return None
+        if step[0] == "bit":
+            return raw.clone()
+        if step[0] == "narrow":
+            return _widen(raw, step[1], lanes[j].dtype, mins[j],
+                          int(stats[2 * j + 1]) - mins[j], n)
+        return raw.view(lanes[j].dtype)[:n].clone()
+
+    def bitmap(j):
+        valid = lane(j)
+        if plan[j][0] == "none":             # bytes: make the bitmap
             valid = pack_bits_plain(valid)
+        return valid
+
+    def build(c):
+        nonlocal at
+        j0 = at
+        if isinstance(c.dtype, t.StructType):
+            at += 1
+            kids = [build(k) for k in c.children]
+            return HostColumn(c.dtype, None, bitmap(j0), None, None, kids,
+                              rows=n)
+        at += len(_column_lanes(c))
+        data, valid = lane(j0), bitmap(j0 + 1)
         if c.offsets is not None:
-            offs = torch.zeros(n + 1, dtype=torch.int64)
+            offs = torch.zeros(n + 1, dtype=torch.int32)
             offs[1:] = data
-            off, size = next(chars_at)
-            cols.append(HostColumn(c.dtype, host[off:off + size].clone(),
-                                   valid, offs))
-            continue
-        cols.append(HostColumn(c.dtype, data, valid, None,
-                               parts[2] if len(parts) > 2 else None))
-    return DeviceBatch(cols, n, batch.names)
+            if t.is_span(c.dtype):
+                off, size = next(chars_at)
+                return HostColumn(c.dtype, host[off:off + size].clone(),
+                                  valid, offs)
+            kid = g.kids[id(c)]
+            kids = _rebuild_columns(kid, hosts[id(kid)], hosts) if kid.n \
+                else [_empty_host(k.dtype) for k in c.children]
+            return HostColumn(c.dtype, None, valid, offs, None, kids)
+        if plan[j0][0] == "skip":                # a BOOLEAN lane, all true
+            data = torch.ones(n, dtype=torch.bool)
+        elif plan[j0][0] == "bit":
+            data = unpack_bits(data, n)
+        return HostColumn(c.dtype, data, valid, None,
+                          lane(j0 + 2) if c.data_hi is not None else None)
+    return [build(c) for c in g.cols]
+
+
+def _empty_host(dtype: t.DataType) -> HostColumn:
+    """A column of no rows."""
+    if isinstance(dtype, t.StructType):
+        return HostColumn(dtype, None, None, None, None,
+                          [_empty_host(f.data_type) for f in dtype.fields],
+                          rows=0)
+    if isinstance(dtype, (t.ArrayType, t.MapType)):
+        return HostColumn(dtype, None, None, torch.zeros(1, dtype=torch.int32),
+                          None, [_empty_host(k) for k in t.child_types(dtype)])
+    if t.is_span(dtype):
+        return HostColumn(dtype, torch.zeros(0, dtype=torch.uint8), None,
+                          torch.zeros(1, dtype=torch.int32))
+    return HostColumn(dtype, torch.zeros(0, dtype=dtype.torch_dtype), None,
+                      None, torch.zeros(0, dtype=torch.int64)
+                      if t.is_dec128(dtype) else None)
 
 
 def fetch_batch(batch: DeviceBatch) -> DeviceBatch:
     """A batch's live rows on the host, as ``HostColumn``s: one read of
     the lane stats (K9), one packed buffer (K10) and, for a batch on the
     card, one ``cudaMemcpyAsync`` of it into the pinned staging buffer,
-    then the host rebuild.  A batch on the CPU takes the same steps
-    through the plain versions; one with no live rows moves as
-    ``move_batch`` moves it (one row a lane)."""
+    then the host rebuild.  An ARRAY's or MAP's children come as a group
+    of their own, at their own row count, which the parent's offsets
+    lane's stats give: one K9 launch a group and one host read of the
+    stats a nesting level, one K10 launch a group, every group's buffer
+    copied into the one staging buffer before the one wait.  A batch on
+    the CPU takes the same steps through the plain versions; one with no
+    live rows moves as ``move_batch`` moves it (one row a lane)."""
     n = batch.num_rows
     if not batch.columns or n == 0:
         return move_batch(batch, torch.device("cpu"), live_only=True)
-    lanes = batch_lanes(batch)
-    spans = _offsets_lanes(batch)
-    stats = lane_stats(lanes, n).tolist()             # the one small read
-    plan, mins = build_plan(lanes, stats, spans)
-    slices, total = layout(lanes, plan, n)
-    # each string column's chars after the row lanes, 8-byte aligned;
-    # the offsets lane's max is the byte count
-    char_slices, rows_end = [], total
-    for j in spans:
-        nbytes = int(stats[2 * j + 1])
-        char_slices.append((total, nbytes))
-        total += (nbytes + 7) // 8 * 8
-    packed = pack_lanes(lanes, plan, mins, n, total - rows_end)
-    span_cols = [c for c in batch.columns if c.offsets is not None]
-    for c, (off, size) in zip(span_cols, char_slices):
-        packed[off:off + size].copy_(c.data[:size])
-    if packed.device.type == "cpu":
-        return rebuild_batch(batch, lanes, plan, mins, stats, slices,
-                             packed, n, char_slices)
+    root = _Group(batch.columns, n)
+    groups = [g for level in _levels(root) for g in level]
+    packed = [g.pack() for g in groups]
+    if packed[0].device.type == "cpu":
+        hosts = {id(g): p for g, p in zip(groups, packed)}
+        return DeviceBatch(_rebuild_columns(root, packed[0], hosts), n,
+                           batch.names)
+    total = sum(g.total for g in groups)
     with _staging_lock:
         host = staging_buffer(batch.device, total)
-        host[:total].copy_(packed, non_blocking=True)
+        hosts, at = {}, 0
+        for g, p in zip(groups, packed):
+            hosts[id(g)] = host[at:at + g.total]
+            hosts[id(g)].copy_(p, non_blocking=True)
+            at += g.total
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(batch.device))
         done.synchronize()
-        return rebuild_batch(batch, lanes, plan, mins, stats, slices, host,
-                             n, char_slices)
+        return DeviceBatch(_rebuild_columns(root, hosts[id(root)], hosts), n,
+                           batch.names)

@@ -539,9 +539,14 @@ segment_reduce_sorted.last_plan = None     # the plan of the last launch
 # ---------------------------------------------------------------------------
 
 def _prefix(col: DeviceColumn, n: int) -> DeviceColumn:
+    """A column's first n rows (a span column's bytes or children
+    unchanged)."""
     if col.offsets is not None:
         return DeviceColumn(col.dtype, col.data, col.validity[:n],
-                            col.offsets[:n + 1])
+                            col.offsets[:n + 1], None, col.children)
+    if col.children:                                  # a STRUCT
+        return DeviceColumn(col.dtype, None, col.validity[:n], None, None,
+                            [_prefix(k, n) for k in col.children])
     return DeviceColumn(col.dtype, col.data[:n], col.validity[:n], None,
                         None if col.data_hi is None else col.data_hi[:n])
 
@@ -553,8 +558,12 @@ def _padded(x: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def _padded_column(col: DeviceColumn, cap: int) -> DeviceColumn:
-    """A column of G rows padded to ``cap`` rows; a string's offsets
-    repeat its last offset."""
+    """A column of G rows padded to ``cap`` rows; a span column's offsets
+    repeat its last offset, a STRUCT pads each child."""
+    if col.offsets is None and col.children:
+        return DeviceColumn(col.dtype, None, _padded(col.validity, cap),
+                            None, None,
+                            [_padded_column(k, cap) for k in col.children])
     if col.offsets is None:
         return DeviceColumn(col.dtype, _padded(col.data, cap),
                             _padded(col.validity, cap), None,
@@ -566,7 +575,7 @@ def _padded_column(col: DeviceColumn, cap: int) -> DeviceColumn:
     offs[:g + 1] = col.offsets
     offs[g + 1:] = col.offsets[g]
     return DeviceColumn(col.dtype, col.data, _padded(col.validity, cap),
-                        offs)
+                        offs, None, col.children)
 
 
 def _ordered_pick(words: List[torch.Tensor], col: DeviceColumn, op: str,
@@ -917,7 +926,16 @@ class CpuHashAggregateExec(Exec):
         n = b.num_rows
         cols = {}
         for g, nm in zip(self._bound_grouping, self._group_names):
-            cols[nm] = column_to_arrow(g.eval(ec).col, n)
+            arr = column_to_arrow(g.eval(ec).col, n)
+            if pa.types.is_struct(arr.type):
+                # pyarrow cannot group struct keys: each field (null under
+                # a null struct) and a null flag, rebuilt after the
+                # aggregate (the reference's CPU engine)
+                for j in range(arr.type.num_fields):
+                    cols[f"__{nm}__f{j}"] = pc.struct_field(arr, j)
+                cols[f"__{nm}__null"] = pc.is_null(arr)
+            else:
+                cols[nm] = arr
         for i, ae in enumerate(self.aggregates):
             fn = ae.func
             if fn.children:
@@ -955,8 +973,19 @@ class CpuHashAggregateExec(Exec):
                     f"grouped first and last wait for P8)")
         aggs = [(f"__in{i}", _PA_AGG[type(ae.func)], None)
                 for i, ae in enumerate(self.aggregates)]
+        structs = {nm: to_arrow_type(g.data_type())
+                   for g, nm in zip(self._bound_grouping, self._group_names)
+                   if isinstance(g.data_type(), t.StructType)}
+        group_cols = []
+        for nm in self._group_names:
+            if nm in structs:
+                group_cols += [f"__{nm}__f{j}"
+                               for j in range(structs[nm].num_fields)]
+                group_cols.append(f"__{nm}__null")
+            else:
+                group_cols.append(nm)
         if self.grouping:
-            res = pa.TableGroupBy(table, self._group_names,
+            res = pa.TableGroupBy(table, group_cols,
                                   use_threads=False).aggregate(aggs)
         elif table.num_rows == 0:
             # Spark: a global aggregate over empty input yields one row
@@ -971,7 +1000,16 @@ class CpuHashAggregateExec(Exec):
                 table.append_column("__g", pa.array([1] * table.num_rows)),
                 ["__g"], use_threads=False).aggregate(aggs)
             res = res.drop_columns(["__g"])
-        out_cols = [res.column(nm) for nm in self._group_names]
+        out_cols = []
+        for nm in self._group_names:
+            if nm in structs:
+                st = structs[nm]
+                out_cols.append(pa.StructArray.from_arrays(
+                    [res.column(f"__{nm}__f{j}").combine_chunks()
+                     for j in range(st.num_fields)], fields=list(st),
+                    mask=res.column(f"__{nm}__null").combine_chunks()))
+            else:
+                out_cols.append(res.column(nm))
         for (cname, kind, _), ae in zip(aggs, self.aggregates):
             out_cols.append(res.column(f"{cname}_{kind}").cast(
                 to_arrow_type(ae.data_type())))

@@ -193,10 +193,12 @@ class HashJoinExec(Exec):
     @staticmethod
     def _span_bytes(build: DeviceBatch, probe: DeviceBatch, order, lo,
                     counts, plive, how: str) -> List[torch.Tensor]:
-        """Device totals of the output bytes of every string column, probe
-        side first (the reference's count-phase span sizing): a probe
-        column's bytes once per output row of its row, a build column's
-        bytes of every matched build row."""
+        """Device totals of the output bytes (or child rows) of every span
+        column, probe side first (the reference's count-phase span
+        sizing): a probe column's bytes once per output row of its row, a
+        build column's bytes of every matched build row.  A STRUCT has no
+        total of its own (the join rule keeps varlen types nested in
+        varlen ones on the CPU)."""
         pspans = [c for c in probe.columns if c.offsets is not None]
         bspans = [c for c in build.columns if c.offsets is not None]
         out = []
@@ -239,22 +241,23 @@ class HashJoinExec(Exec):
                 f"join expansion of {max(sizes[1:])} string bytes exceeds "
                 f"the 2^31-1 bytes of int32 offsets; split the inputs")
         out_cap = bucket_for(max(total, 1))
-        pflat = [c for c in probe.columns if c.offsets is None]
-        bflat = [c for c in build.columns if c.offsets is None]
+        pflat = [c for c in probe.columns if c.is_flat]
+        bflat = [c for c in build.columns if c.is_flat]
         pidx, bidx, lflat, rflat = jk.expand_pairs(
             ends, lo, counts, order, total, out_cap, pflat, bflat)
         nbytes = iter(sizes[1:])
         cols = []
         for side, idx, flat in ((probe, pidx, iter(lflat)),
                                 (build, bidx, iter(rflat))):
-            spans = [c for c in side.columns if c.offsets is not None]
+            spans = [c for c in side.columns if not c.is_flat]
             if spans:
                 pair = torch.arange(out_cap, device=idx.device) < total
                 if side is build:
                     pair &= counts[pidx.long()] > 0
                 moved = iter(gather_columns(
-                    spans, idx, pair, [next(nbytes) for _ in spans]))
-            cols += [next(moved) if c.offsets is not None else next(flat)
+                    spans, idx, pair, [None if c.offsets is None
+                                       else next(nbytes) for c in spans]))
+            cols += [next(flat) if c.is_flat else next(moved)
                      for c in side.columns]
         return DeviceBatch(cols, total, self.output_names), pidx
 
@@ -414,6 +417,37 @@ _PA_JOIN = {"inner": "inner", "left": "left outer", "right": "right outer",
             "left_anti": "left anti"}
 
 
+def _pa_join(lt: pa.Table, rt: pa.Table, lkn, rkn, join_type: str
+             ) -> pa.Table:
+    """pyarrow's join of two tables.  pyarrow carries no nested column
+    that is not a key, so each side's nested columns stay behind and a
+    row id goes through in their place; the joined rows then take them
+    by that id (a null id, an unmatched side, gives a null), which gives
+    Spark's answer where the reference's CPU join raises."""
+    rid = "__rid"
+    sides, nested = [], []
+    for tbl in (lt, rt):
+        names = [f.name for f in tbl.schema if pa.types.is_nested(f.type)]
+        nested.append(names)
+        if names:
+            tbl = tbl.drop_columns(names).append_column(
+                rid + str(len(sides)), pa.array(
+                    np.arange(tbl.num_rows, dtype=np.int64)))
+        sides.append(tbl)
+    joined = sides[0].join(sides[1], keys=lkn, right_keys=rkn,
+                           join_type=join_type, coalesce_keys=False,
+                           use_threads=False)
+    if not any(nested):
+        return joined
+    for i, (tbl, names) in enumerate(zip((lt, rt), nested)):
+        if names and rid + str(i) in joined.column_names:
+            ids = joined.column(rid + str(i))
+            for nm in names:
+                joined = joined.append_column(nm, tbl.column(nm).take(ids))
+            joined = joined.drop_columns([rid + str(i)])
+    return joined
+
+
 class CpuJoinExec(Exec):
     """Equi-join on pyarrow: the join the planner emits, kept on the CPU
     where tagging says so.  Null keys never match (Spark), so they are
@@ -497,9 +531,14 @@ class CpuJoinExec(Exec):
         r_null = null_key_mask(rt, rkn)
         lt_nn = lt.filter(pc.invert(l_null)) if l_null is not None else lt
         rt_nn = rt.filter(pc.invert(r_null)) if r_null is not None else rt
-        joined = lt_nn.join(rt_nn, keys=lkn, right_keys=rkn,
-                            join_type=_PA_JOIN[self.how],
-                            coalesce_keys=False, use_threads=False)
+        for k in lkn + rkn:
+            tbl = lt if k in lkn else rt
+            if pa.types.is_nested(tbl.schema.field(k).type):
+                raise NotImplementedError(
+                    f"a join on a {tbl.schema.field(k).type} key is not "
+                    f"ported to the CPU engine (pyarrow cannot match on it; "
+                    f"ROADMAP Queue 1 item 4)")
+        joined = _pa_join(lt_nn, rt_nn, lkn, rkn, _PA_JOIN[self.how])
         lout = self.children[0].output_names
         rout = self.children[1].output_names
         if self.how in ("left_semi", "left_anti"):
@@ -557,9 +596,7 @@ def _left_conditional_impl(join_exec: CpuJoinExec, lt, rt, lkn, rkn,
         "__bmark__", pa.array(np.ones(rt.num_rows, dtype=np.int8)))
     l_nn = lt2.filter(pc.invert(l_null)) if l_null is not None else lt2
     r_nn = rt2.filter(pc.invert(r_null)) if r_null is not None else rt2
-    joined = l_nn.join(r_nn, keys=lkn, right_keys=rkn,
-                       join_type="left outer", coalesce_keys=False,
-                       use_threads=False)
+    joined = _pa_join(l_nn, r_nn, lkn, rkn, "left outer")
     mask = _eval_arrow(
         join_exec.condition,
         joined.select(lnames + rnames).rename_columns(

@@ -252,7 +252,7 @@ class WindowExec(Exec):
         # reference carries the key words; the validity and the value
         # lane give the same boundaries, and an int64 key's value lane is
         # its data, often an input lane already)
-        lanes = [x for c in cols if c.offsets is None
+        lanes = [x for c in cols if c.is_flat
                  for x in (c.data, c.validity, c.data_hi) if x is not None]
         pkey_lanes = [x for pk, ws in zip(pkeys, pkw)
                       for x in _equality_lanes(pk, ws)]
@@ -263,10 +263,10 @@ class WindowExec(Exec):
             distinct.setdefault(id(x), x)
         moved = dict(zip(distinct, gather_rows(order,
                                                list(distinct.values()))))
-        spans = iter(gather_columns([c for c in cols if c.offsets is not None],
+        spans = iter(gather_columns([c for c in cols if not c.is_flat],
                                     order))
         mark("K8")
-        sorted_cols = [next(spans) if c.offsets is not None else
+        sorted_cols = [next(spans) if not c.is_flat else
                        DeviceColumn(c.dtype, moved[id(c.data)],
                                     moved[id(c.validity)], None,
                                     None if c.data_hi is None
@@ -376,7 +376,7 @@ class WindowExec(Exec):
                 (src >= 0) & (src < cap)
             src = torch.clamp(src, 0, cap - 1)
             shifted = gather_column(col_s, src, same_seg & live_s[src])
-            if shifted.offsets is not None:     # a string: the column
+            if not shifted.is_flat:     # a string or nested: the column
                 return shifted, shifted.validity
             return shifted.data, shifted.validity
         if isinstance(func, AggregateFunction):

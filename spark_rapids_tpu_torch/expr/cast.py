@@ -173,8 +173,8 @@ def _eval_cast(e: Cast, ctx: EvalContext):
     if not _castable(src, dst):
         raise NotImplementedError(
             f"cast from {src.name} to {dst.name} is not ported yet (casts "
-            f"to and from string come with the string functions, Queue 1 "
-            f"item 4; binary and nested types with Queue 1 item 3)")
+            f"to and from string, binary and nested types come with the "
+            f"string and collection functions, Queue 1 item 4)")
     if isinstance(v, ScalarValue):
         v = make_column(ctx, src, data_of(v), validity_of(v))
     col, val = v.col, v.col.validity

@@ -19,7 +19,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import torch
 
 from .. import types as t
-from ..columnar.device import DEFAULT_CHAR_BUCKETS, DeviceBatch, DeviceColumn
+from ..columnar.device import DeviceBatch, DeviceColumn, null_column
 
 
 class ColumnValue:
@@ -362,16 +362,4 @@ def string_literal_column(ctx: EvalContext, value: bytes,
 
 def all_null_column(ctx: EvalContext, dtype: t.DataType) -> ColumnValue:
     """A column of ``dtype`` that is null in every row."""
-    if dtype == t.STRING:
-        return ColumnValue(DeviceColumn(
-            t.STRING, torch.zeros(DEFAULT_CHAR_BUCKETS[0], dtype=torch.uint8,
-                                  device=ctx.device),
-            torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device),
-            torch.zeros(ctx.capacity + 1, dtype=torch.int32,
-                        device=ctx.device)))
-    zeros = torch.zeros(ctx.capacity, dtype=dtype.torch_dtype,
-                        device=ctx.device)
-    return ColumnValue(DeviceColumn(
-        dtype, zeros,
-        torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device),
-        None, torch.zeros_like(zeros) if t.is_dec128(dtype) else None))
+    return ColumnValue(null_column(dtype, ctx.capacity, ctx.device))

@@ -5,10 +5,11 @@ Counterpart of spark_rapids_tpu/expr/hashfns.py (hash_int32, hash_int64,
 hash_bytes, hash_column, Murmur3Hash), bit for bit with the reference's
 numpy branch and so with Spark: ints and booleans hash as one 4-byte
 block, longs as their low then high word, doubles as the bits of the
-value with -0.0 read as 0.0, strings over their UTF-8 bytes (Spark's
-hashUnsafeBytes: 4-byte little-endian blocks, then each tail byte as a
-signed int, kernel K15, ``csrc/hash_bytes.cu``); a null leaves the
-running seed as it was.  torch has no uint32 arithmetic, so every 32-bit word is carried in
+value with -0.0 read as 0.0, strings and binary over their bytes
+(Spark's hashUnsafeBytes: 4-byte little-endian blocks, then each tail
+byte as a signed int, kernel K15, ``csrc/hash_bytes.cu``), a struct by
+folding its children in turn; a null leaves the running seed as it
+was.  torch has no uint32 arithmetic, so every 32-bit word is carried in
 an int64 lane in [0, 2^32) (the port's rule for unsigned words), and
 products are formed from 16-bit halves so no int64 product overflows.
 """
@@ -182,8 +183,19 @@ def hash_column(col, seed: torch.Tensor) -> torch.Tensor:
     """Spark-compatible hash of one column, folded into the per-row
     seeds; null rows keep their seed."""
     dtype = col.dtype
-    if dtype == t.STRING:
+    if t.is_span(dtype):
         return hash_bytes(col.offsets, col.data, seed, col.validity)
+    if isinstance(dtype, t.StructType):
+        # the children fold into the seeds in turn; a null struct keeps
+        # its seed (the reference's struct branch)
+        h = seed
+        for k in col.children:
+            h = hash_column(k, h)
+        return torch.where(col.validity, h, seed)
+    if t.is_nested(dtype):
+        raise NotImplementedError(
+            f"hash() of {dtype.name} is not ported (the reference's hash "
+            f"has no array or map branch)")
     if dtype in (t.LONG, t.TIMESTAMP) or isinstance(dtype, t.DecimalType):
         # a decimal hashes its low word, as the reference's does (Spark's
         # unscaled long up to 18 digits)

@@ -38,7 +38,7 @@ import pyarrow.parquet as papq
 
 from .. import config as cfg
 from .. import types as t
-from ..columnar.device import DeviceBatch, batch_to_device
+from ..columnar.device import DeviceBatch, batch_to_device, column_bytes
 from ..columnar.interop import to_arrow_schema
 from ..exec.base import GPU, Exec, ExecContext
 from ..expr.core import Expression
@@ -66,13 +66,21 @@ def _arrow_literal(lit, equality: bool):
     return v
 
 
-def _pushdown_to_arrow(filters: List[Expression], names) -> Optional[object]:
+def _pushdown_to_arrow(filters: List[Expression], names,
+                       types=None) -> Optional[object]:
     """Simple predicates as a pyarrow dataset expression (comparisons of
     a column with a literal, IS NOT NULL, AND and OR of those); the
-    rest stay with the exact filter above the scan."""
+    rest stay with the exact filter above the scan.  A predicate on a
+    binary or nested column (``types``, by name) is never pushed."""
     import pyarrow.compute as pc
     from ..expr import predicates as P
     from ..expr.core import AttributeReference, Literal
+
+    kept = dict(zip(names, types)) if types is not None else {}
+
+    def pushable(name):
+        dt = kept.get(name)
+        return dt is None or not (dt == t.BINARY or t.is_nested(dt))
 
     ops = {P.EqualTo: "__eq__", P.LessThan: "__lt__",
            P.LessThanOrEqual: "__le__", P.GreaterThan: "__gt__",
@@ -86,13 +94,15 @@ def _pushdown_to_arrow(filters: List[Expression], names) -> Optional[object]:
             return a & b if isinstance(e, P.And) else a | b
         if type(e) in ops:
             l, r = e.children
-            if isinstance(l, AttributeReference) and isinstance(r, Literal):
+            if isinstance(l, AttributeReference) and \
+                    isinstance(r, Literal) and pushable(l.name):
                 v = _arrow_literal(r, type(e) is P.EqualTo)
                 if v is None:
                     return None
                 return getattr(pc.field(l.name), ops[type(e)])(v)
         if isinstance(e, P.IsNotNull) and isinstance(
-                e.children[0], AttributeReference):
+                e.children[0], AttributeReference) and \
+                pushable(e.children[0].name):
             return pc.field(e.children[0].name).is_valid()
         return None
     out = None
@@ -133,10 +143,7 @@ def clear_filescan_pin() -> None:
 
 
 def _batch_bytes(b: DeviceBatch) -> int:
-    return sum(c.data.nbytes + c.validity.nbytes +
-               (0 if c.offsets is None else c.offsets.nbytes) +
-               (0 if c.data_hi is None else c.data_hi.nbytes)
-               for c in b.columns)
+    return sum(column_bytes(c) for c in b.columns)
 
 
 def _pin(key, produced) -> None:
@@ -216,7 +223,8 @@ class FileScanExec(Exec):
     # -- host decode ---------------------------------------------------------
     def _read_file(self, path: str) -> pa.Table:
         cols = self.output_names
-        filt = _pushdown_to_arrow(self.pushed_filters, cols) \
+        filt = _pushdown_to_arrow(self.pushed_filters, cols,
+                                  self.output_types) \
             if self.fmt in ("parquet", "orc") else None
         if self.fmt == "parquet":
             if filt is not None:

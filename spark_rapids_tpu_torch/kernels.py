@@ -30,7 +30,7 @@ HEADERS = ("partition.cuh", "join_hash.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "expand_ends", "join_expand", "gather_rows", "fetch_pack",
            "window_scan", "scatter_rows", "string_hashes", "hash_bytes",
-           "gather_strings", "prefix_words")
+           "gather_strings", "prefix_words", "span_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,6 +96,9 @@ _SIGNATURES = {
     },
     "prefix_words": {
         "srt_prefix_words": [_P, _P, _I, _P, _P],
+    },
+    "span_rows": {
+        "srt_span_rows": [_P, _P, _I, _I, _P, _L, _P],
     },
 }
 

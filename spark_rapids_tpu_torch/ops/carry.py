@@ -19,6 +19,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import kernels
+from .. import types as t
 from ..columnar.device import DeviceColumn, columns_from_lanes, flat_lanes
 from .gather import gather_columns, gather_rows
 
@@ -88,16 +89,17 @@ def compact_rows(keep: torch.Tensor, cols: Sequence[DeviceColumn]
     """Kept rows move to the front in their input order and the rest
     become padding: validity is cleared from the kept count on (the
     reference's compact_rows followed by mask_validity).  Returns
-    (columns, kept count).  The flat lanes move through K1; a string
-    column follows the kept rows' input positions, which K1 carries as
-    one more lane, through K16 (the reference's carry falls back to
-    gather_column for span columns)."""
-    flat = [c for c in cols if c.offsets is None]
+    (columns, kept count).  The flat lanes move through K1; a string,
+    binary or nested column follows the kept rows' input positions,
+    which K1 carries as one more lane, through ``gather_columns`` (K16,
+    K18 and K8; the reference's carry falls back to gather_column for
+    columns it cannot carry)."""
+    flat = [c for c in cols if c.is_flat]
     lanes = flat_lanes(flat)
     clear = [x is c.validity for c in flat for x in
              [c.data, c.validity] + ([] if c.data_hi is None
                                      else [c.data_hi])]
-    spans = [c for c in cols if c.offsets is not None]
+    spans = [c for c in cols if not c.is_flat]
     if spans:
         lanes.append(torch.arange(keep.shape[0], dtype=torch.int32,
                                   device=keep.device))
@@ -107,15 +109,20 @@ def compact_rows(keep: torch.Tensor, cols: Sequence[DeviceColumn]
     if spans:
         live = torch.arange(keep.shape[0], device=keep.device) < n_kept
         gathered = iter(gather_columns(spans, outs[-1], live))
-    return [next(gathered) if c.offsets is not None else next(moved)
+    return [next(moved) if c.is_flat else next(gathered)
             for c in cols], n_kept
 
 
 def mask_validity(col: DeviceColumn, mask: torch.Tensor) -> DeviceColumn:
     """AND ``mask`` into a column's validity; the data under the new
-    nulls becomes zero, as everywhere in the port (a new null string
-    becomes empty, through K16)."""
-    if col.offsets is not None:
+    nulls becomes zero, as everywhere in the port (a new null string,
+    binary, array or map becomes empty, through K16 and K18).  A
+    STRUCT takes the mask into its own validity and, as the reference's
+    ``mask_validity`` does, into every row-aligned child."""
+    if isinstance(col.dtype, t.StructType):
+        return DeviceColumn(col.dtype, None, col.validity & mask, None, None,
+                            [mask_validity(k, mask) for k in col.children])
+    if not col.is_flat:
         return gather_columns([col], torch.arange(
             col.capacity, dtype=torch.int32, device=mask.device), mask)[0]
     validity = col.validity & mask
@@ -249,13 +256,13 @@ def sort_rows(key_words: Sequence[torch.Tensor],
     gather (K8), string columns through K16.  Returns (order, cols,
     extras)."""
     order = sort_order(key_words)
-    flat = [c for c in cols if c.offsets is None]
+    flat = [c for c in cols if c.is_flat]
     lanes = flat_lanes(flat)
     nflat = len(lanes)
     outs = gather_rows(order, lanes + list(extras))
     moved = iter(columns_from_lanes(flat, outs[:nflat]))
-    gathered = iter(gather_columns([c for c in cols if c.offsets is not None],
+    gathered = iter(gather_columns([c for c in cols if not c.is_flat],
                                    order))
-    out_cols = [next(gathered) if c.offsets is not None else next(moved)
+    out_cols = [next(moved) if c.is_flat else next(gathered)
                 for c in cols]
     return order, out_cols, outs[nflat:]

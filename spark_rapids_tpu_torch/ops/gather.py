@@ -2,16 +2,20 @@
 
 Counterpart of spark_rapids_tpu/ops/gather.py: row i of the output is
 row ``indices[i]`` of the input, and null where ``valid[i]`` is False.
-A string column takes the span branch (the reference's
+A string or binary column takes the span branch (the reference's
 ``gather_spans``): K16 (ops/strings.py:gather_strings) writes its new
-offsets and copies its bytes, and the byte totals of every string
-column of one gather are read to the host together, once.
+offsets and copies its bytes, and the totals of every span column of
+one gather are read to the host together, once.  An ARRAY or MAP takes
+the same first launch over its offsets, then K18 ``span_rows``
+(``csrc/span_rows.cu``, the child branch of ``gather_spans``) turns the
+gathered spans into child rows, and its children are gathered through
+them, a nesting level at a time; a STRUCT's children take its rows.
 ``gather_rows`` moves row lanes through a sort's order with kernel K8
 (``csrc/gather_rows.cu``: one pass a lane, or the source rows packed
 into records and one record read a row, as ``gather_plan`` chooses by
-the bytes each moves), and ``scatter_rows``,
-its dual, moves them back to input order with kernel K13
-(``csrc/scatter_rows.cu``).  Each wrapper takes its plain version for
+the bytes each moves); a nested column's lanes move through it too.
+``scatter_rows``, its dual, moves them back to input order with kernel
+K13 (``csrc/scatter_rows.cu``).  Each wrapper takes its plain version for
 CPU tensors only, launches its kernel for CUDA tensors or raises, and
 counts its launches in its ``launches`` attribute.
 """
@@ -23,6 +27,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from .. import kernels
+from .. import types as t
 from ..columnar.device import (DEFAULT_CHAR_BUCKETS, DeviceBatch,
                                DeviceColumn, bucket_for)
 from . import strings as sops
@@ -251,43 +256,227 @@ def scatter_rows(order: torch.Tensor, lanes: Sequence[torch.Tensor],
 scatter_rows.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K18: the child rows of gathered spans
+# ---------------------------------------------------------------------------
+
+def span_rows_plain(starts: torch.Tensor, new_offsets: torch.Tensor,
+                    total: int, child_cap: int) -> torch.Tensor:
+    """Plain version of K18: each output child slot's row by
+    ``repeat_interleave`` of the new spans' lengths, a step of rows at a
+    time (as ``ops/strings.py:copy_spans_plain``), then its source child
+    row ``starts[row] + p - new_offsets[row]``; 0 from ``total`` on."""
+    dev = starts.device
+    out = torch.zeros(child_cap, dtype=torch.int32, device=dev)
+    n = int(starts.shape[0])
+    for s in range(0, n, sops._PLAIN_ROWS):
+        e = min(s + sops._PLAIN_ROWS, n)
+        first, last = int(new_offsets[s]), int(new_offsets[e])
+        if last == first:
+            continue
+        lens = (new_offsets[s + 1:e + 1] - new_offsets[s:e]).to(torch.int64)
+        row = torch.repeat_interleave(torch.arange(s, e, device=dev), lens)
+        p = torch.arange(first, last, dtype=torch.int64, device=dev)
+        out[first:last] = (starts[row].to(torch.int64) + p -
+                           new_offsets[row].to(torch.int64)).to(torch.int32)
+    return out
+
+
+def span_rows(starts: torch.Tensor, new_offsets: torch.Tensor, total: int,
+              child_cap: int) -> torch.Tensor:
+    """int32[child_cap]: for each output child slot p < ``total`` the
+    source child row ``starts[r] + p - new_offsets[r]``, r the row whose
+    new span holds p; 0 from ``total`` on (K18, ``csrc/span_rows.cu``).
+    ``starts`` and ``new_offsets`` come from K16's first launch
+    (``ops/strings.py:gather_offsets``), ``total`` is
+    ``new_offsets[-1]``, read by the caller."""
+    if starts.dtype != torch.int32 or new_offsets.dtype != torch.int32 or \
+            new_offsets.shape != (starts.shape[0] + 1,):
+        raise TypeError(f"span_rows: starts int32[n] and new_offsets "
+                        f"int32[n + 1], got {starts.dtype}"
+                        f"{tuple(starts.shape)} and {new_offsets.dtype}"
+                        f"{tuple(new_offsets.shape)}")
+    if not 0 <= total <= min(child_cap, sops._INT32_MAX):
+        raise ValueError(f"span_rows: {total} child rows into {child_cap}; "
+                         f"at most 2^31-1")
+    if starts.device.type == "cpu":
+        return span_rows_plain(starts, new_offsets, total, child_cap)
+    kernels.require_cuda("span_rows", starts, new_offsets)
+    n = int(starts.shape[0])
+    if n == 0 or total == 0:
+        return torch.zeros(child_cap, dtype=torch.int32, device=starts.device)
+    out = torch.empty(child_cap, dtype=torch.int32, device=starts.device)
+    lib = kernels.library("span_rows")
+    kernels.check(lib, lib.srt_span_rows(
+        starts.data_ptr(), new_offsets.data_ptr(), n, total, out.data_ptr(),
+        child_cap, kernels.stream(starts)), "span_rows")
+    span_rows.launches += 1
+    return out
+
+
+span_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the column gather
+# ---------------------------------------------------------------------------
+
+class _Node:
+    """One non-flat column (or a flat child of a nested one) in a gather:
+    the order and validity it is gathered by, its new validity, and for
+    a span column K16's new offsets, total and source starts."""
+    __slots__ = ("col", "parent", "order", "valid", "offs", "total",
+                 "starts", "kids", "out")
+
+    def __init__(self, col: DeviceColumn, parent: Optional["_Node"] = None):
+        self.col = col
+        self.parent = parent
+        self.order = self.valid = None
+        self.offs = self.total = self.starts = None
+        self.kids: List[_Node] = []
+        self.out: Optional[DeviceColumn] = None
+
+
+def _tree(col: DeviceColumn, parent=None) -> List["_Node"]:
+    """A column's node and its STRUCT descendants' (row-aligned with it),
+    parents first."""
+    node = _Node(col, parent)
+    nodes = [node]
+    if isinstance(col.dtype, t.StructType):
+        for k in col.children:
+            sub = _tree(k, node)
+            node.kids.append(sub[0])
+            nodes += sub
+    return nodes
+
+
+def _zeroed(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid, x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+
+
+def _gather_lanes(nodes: List["_Node"], order: torch.Tensor,
+                  valid: Optional[torch.Tensor]) -> None:
+    """One level's row lanes through K8 (one call, every validity lane
+    and every flat column's data): each node's new validity is its own
+    ANDed with its parent's new validity (a STRUCT's) or with ``valid``,
+    and the data under a new null is zeroed."""
+    lanes = []
+    for n in nodes:
+        n.order = order
+        lanes.append(n.col.validity)
+        if n.col.is_flat:
+            lanes += [n.col.data] + ([] if n.col.data_hi is None
+                                     else [n.col.data_hi])
+    moved = iter(gather_rows(order, lanes))
+    for n in nodes:                       # parents first
+        v = next(moved)
+        base = valid if n.parent is None else n.parent.valid
+        n.valid = v if base is None else v & base
+        c = n.col
+        if c.is_flat:
+            data = _zeroed(next(moved), n.valid)
+            hi = None if c.data_hi is None else _zeroed(next(moved), n.valid)
+            n.out = DeviceColumn(c.dtype, data, n.valid, None, hi)
+
+
+def _child_level(n: "_Node"):
+    """An ARRAY's or MAP's children as the next level: K18 turns the
+    gathered spans into child rows; slots past the total are out of
+    range."""
+    cap = bucket_for(max(n.total, 1))
+    src = span_rows(n.starts, n.offs, n.total, cap)
+    in_range = torch.arange(cap, device=src.device) < n.total
+    nodes = []
+    for k in n.col.children:
+        tree = _tree(k)
+        n.kids.append(tree[0])
+        nodes += tree
+    return nodes, src, in_range
+
+
+def _build(node: "_Node") -> DeviceColumn:
+    if node.out is not None:
+        return node.out
+    return DeviceColumn(node.col.dtype, None, node.valid, node.offs, None,
+                        [_build(k) for k in node.kids])
+
+
 def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
                    valid: Optional[torch.Tensor] = None,
                    span_bytes: Optional[Sequence[Optional[int]]] = None
                    ) -> List[DeviceColumn]:
     """Every column's rows ``indices``, null where ``valid`` is False (or
-    the source row is null).  A string column goes through K16: all
-    their offsets first, then one host read of their byte totals (none
-    when the caller knows them: ``span_bytes[k]`` for string column k),
-    then the copies."""
+    the source row is null).  A string or binary column goes through
+    K16: all span offsets first, then one host read of their totals
+    (none for a top-level column whose total the caller knows:
+    ``span_bytes[k]`` for column k, None where it does not), then the
+    copies.  A nested column (the reference's ``gather_column`` ARRAY,
+    MAP and STRUCT branches) moves level by level: its row lanes and its
+    STRUCT descendants' through K8, the offsets of its span columns
+    through K16's first launch, then, after one host read of every total
+    of the level, the bytes through K16's copy and an ARRAY's or MAP's
+    child rows through K18, its children making the next level; a
+    STRUCT's children take its rows with its new validity ANDed in."""
     if not cols:
         return []
     idx = indices.to(torch.int64)
+    order = indices.to(torch.int32)
     out: List[Optional[DeviceColumn]] = [None] * len(cols)
-    spans = []
+    known = {}                   # node -> a total the caller gave
+    first: List[_Node] = []      # top-level string and binary columns
+    roots: List[Tuple[int, _Node]] = []
+    level = []
     for k, c in enumerate(cols):
-        validity = c.validity[idx]
-        if valid is not None:
-            validity = validity & valid
-        if c.offsets is None:
+        if c.is_flat or t.is_span(c.dtype):
+            validity = c.validity[idx]
+            if valid is not None:
+                validity = validity & valid
+        if c.is_flat:
             data = c.data[idx]
             hi = None if c.data_hi is None else c.data_hi[idx]
             if valid is not None:
-                data = torch.where(validity, data, torch.zeros_like(data))
+                data = _zeroed(data, validity)
                 if hi is not None:
-                    hi = torch.where(validity, hi, torch.zeros_like(hi))
+                    hi = _zeroed(hi, validity)
             out[k] = DeviceColumn(c.dtype, data, validity, None, hi)
             continue
-        new_offs, total, starts = sops.gather_offsets(
-            c.offsets, indices.to(torch.int32), validity)
-        spans.append((k, c, validity, new_offs, total, starts))
-    totals = sops.read_totals([x[4] for x in spans]) \
-        if span_bytes is None else [span_bytes[k] for k, *_ in spans]
-    for (k, c, validity, new_offs, _, starts), n in zip(spans, totals):
-        chars = sops.gather_chars(
-            c.data, starts, new_offs, n,
-            bucket_for(max(n, 1), DEFAULT_CHAR_BUCKETS))
-        out[k] = DeviceColumn(c.dtype, chars, validity, new_offs)
+        if t.is_span(c.dtype):
+            node = _Node(c)
+            node.order, node.valid = order, validity
+            first.append(node)
+        else:
+            tree = _tree(c)
+            level += tree
+            node = tree[0]
+        roots.append((k, node))
+        if span_bytes is not None and span_bytes[k] is not None:
+            known[node] = span_bytes[k]
+    levels = [(level, order, valid)] if level else []
+    while first or levels:
+        spans = list(first)
+        for nodes, ordr, vld in levels:
+            _gather_lanes(nodes, ordr, vld)
+            spans += [n for n in nodes if n.col.offsets is not None]
+        for n in spans:
+            n.offs, n.total, n.starts = sops.gather_offsets(
+                n.col.offsets, n.order, n.valid)
+        unknown = [n for n in spans if n not in known]
+        for n, v in zip(unknown, sops.read_totals([n.total
+                                                   for n in unknown])):
+            n.total = v
+        for n in spans:
+            n.total = known.get(n, n.total)
+            if t.is_span(n.col.dtype):
+                n.out = DeviceColumn(n.col.dtype, sops.gather_chars(
+                    n.col.data, n.starts, n.offs, n.total,
+                    bucket_for(max(n.total, 1), DEFAULT_CHAR_BUCKETS)),
+                    n.valid, n.offs)
+        levels = [_child_level(n) for n in spans
+                  if not t.is_span(n.col.dtype)]
+        first = []
+    for k, node in roots:
+        out[k] = _build(node)
     return out
 
 

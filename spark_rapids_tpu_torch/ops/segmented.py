@@ -214,6 +214,12 @@ def sort_key_words(col: DeviceColumn, ascending: bool = True,
     elif dtype in (t.LONG, t.TIMESTAMP, t.BOOLEAN) or \
             isinstance(dtype, t.DecimalType):
         words.append(encode_int_ordered(col.data))
+    elif isinstance(dtype, t.StructType):
+        # each child's words in turn (the reference's recursion), zero
+        # under a null struct row so the null rows tie
+        for k in col.children:
+            words += [torch.where(col.validity, w, torch.zeros_like(w))
+                      for w in sort_key_words(k, True, nulls_first)]
     else:
         raise NotImplementedError(f"key words for {dtype} are not ported")
     if not ascending:
@@ -223,12 +229,22 @@ def sort_key_words(col: DeviceColumn, ascending: bool = True,
 
 def key_words_for_column(col: DeviceColumn) -> List[torch.Tensor]:
     """Grouping key words for one column, most significant first: the
-    null word (nulls first), then the value word; for a string the two
-    rolling hashes, so equal strings and only they group together (up
-    to a ~2^-120 collision, the reference's tradeoff)."""
-    if col.dtype == t.STRING:
+    null word (nulls first), then the value word; for a string or a
+    binary the two rolling hashes (K14), so equal values and only they
+    group together (up to a ~2^-120 collision, the reference's
+    tradeoff); for a STRUCT the null word, then each child's words in
+    turn (the reference's recursion).  A child's words are zero under a
+    null struct row, so every null struct groups as one whatever its
+    children hold."""
+    if t.is_span(col.dtype):
         h1, h2 = sops.string_hashes(col.offsets, col.data)
         return [col.validity.to(torch.int64), h1 ^ _SIGN, h2 ^ _SIGN]
+    if isinstance(col.dtype, t.StructType):
+        words = [col.validity.to(torch.int64)]
+        for k in col.children:
+            words += [torch.where(col.validity, w, torch.zeros_like(w))
+                      for w in key_words_for_column(k)]
+        return words
     return sort_key_words(col)
 
 

@@ -56,6 +56,7 @@ from ..exec.sort import SortExec
 from ..exec.window import WindowExec
 from ..expr import aggregates as agg
 from ..expr import arithmetic as ar
+from ..expr import complextype as cx
 from ..expr import conditional as cond
 from ..expr import mathexpr as mx
 from ..expr import predicates as pred
@@ -106,8 +107,10 @@ def _tag_literal(meta: "ExprMeta"):
 
 expr_rule(Literal, T.all_types, _tag_literal)
 expr_rule(Alias, T.all_types.nested())
-expr_rule(AttributeReference, _common.nested())
-expr_rule(BoundReference, _common.nested())
+expr_rule(AttributeReference,
+          (_common + T.ARRAY + T.STRUCT + T.MAP + T.BINARY).nested())
+expr_rule(BoundReference,
+          (_common + T.ARRAY + T.STRUCT + T.MAP + T.BINARY).nested())
 for c in (ar.Add, ar.Subtract, ar.Multiply, ar.Divide, ar.IntegralDivide,
           ar.Remainder, ar.Pmod, ar.UnaryMinus, ar.UnaryPositive, ar.Abs,
           ar.Greatest, ar.Least):
@@ -146,6 +149,23 @@ expr_rule(ar.CheckOverflow, T.DECIMAL_64 + T.DECIMAL_128)
 expr_rule(Murmur3Hash, T.INT)
 # (partition << 33) + row position, ref GpuMonotonicallyIncreasingID
 expr_rule(MonotonicallyIncreasingID, T.LONG)
+_nested_common = (T.common_scalar + T.ARRAY + T.STRUCT + T.MAP +
+                  T.BINARY).nested()
+expr_rule(cx.GetStructField, _nested_common)
+expr_rule(cx.GetArrayItem, _nested_common)
+expr_rule(cx.ElementAt, _nested_common)
+expr_rule(cx.CreateNamedStruct, T.STRUCT.nested(T.common_scalar))
+
+
+def _tag_create_array(meta: "ExprMeta"):
+    et = meta.expr.children[0].data_type() if meta.expr.children else None
+    if isinstance(et, (t.StringType, t.BinaryType, t.ArrayType,
+                       t.StructType, t.MapType)):
+        meta.will_not_work(
+            "array() over string/nested elements is not supported on GPU")
+
+
+expr_rule(cx.CreateArray, T.ARRAY.nested(T.common_scalar), _tag_create_array)
 # Sum takes decimal64 inputs into exact 128-bit buffers (K3's 128-bit
 # sum); Average's final divide is 64-bit in the reference, so decimal
 # averages stay on the CPU; Min and Max carry both decimal words
@@ -312,17 +332,21 @@ class ExecMeta(BaseMeta):
         return lines
 
 
-# exec output-type signatures
-_exec_common = T.common_scalar.nested()
+# exec output-type signatures (the reference's)
+_exec_common = (T.common_scalar + T.ARRAY + T.STRUCT + T.MAP +
+                T.BINARY).nested()
 EXEC_SIGS: Dict[Type[eb.Exec], TypeSig] = {
     cls: _exec_common for cls in (
         LocalScanExec, ProjectExec, FilterExec, CoalesceBatchesExec,
-        GatherPartitionsExec, CpuHashAggregateExec, CpuJoinExec,
+        GatherPartitionsExec, CpuJoinExec,
         NestedLoopJoinExec, HashJoinExec, BroadcastExchangeExec,
         BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
         ShuffleExchangeExec, LocalLimitExec, GlobalLimitExec,
         FileScanExec, UnionExec, SampleExec, CachedScanExec,
         CacheWriteExec)}
+# struct keys group: their words are the children's, in turn
+EXEC_SIGS[CpuHashAggregateExec] = (T.common_scalar + T.ARRAY +
+                                   T.STRUCT).nested(T.common_scalar)
 EXEC_SIGS[RangeExec] = T.LONG
 EXEC_SIGS[SortExec] = T.common_scalar.nested()
 EXEC_SIGS[WindowExec] = T.common_scalar.nested()
@@ -396,8 +420,26 @@ def _tag_join(meta: ExecMeta):
                 meta.will_not_work(str(ex))
                 continue
         dt = b.data_type()
-        if not T.comparable.is_supported(dt):
+        if not (T.comparable + T.STRUCT).is_supported(dt):
             meta.will_not_work(f"join key type {dt.name} not supported")
+    # the count phase sizes the top-level spans only: a varlen type
+    # nested inside another type (array<string>, map<_, string>,
+    # struct<string>) stays on the CPU, as in the reference
+    for side in e.children:
+        for dt in side.output_types:
+            if _nested_varlen(dt):
+                meta.will_not_work(
+                    f"join payload type {dt.name} (varlen nested in "
+                    f"varlen) not sized for duplicating gathers")
+
+
+def _has_varlen(dt: t.DataType) -> bool:
+    return t.is_varlen(dt) or isinstance(dt, t.StructType) and any(
+        _has_varlen(k) for k in t.child_types(dt))
+
+
+def _nested_varlen(dt: t.DataType) -> bool:
+    return any(_has_varlen(k) for k in t.child_types(dt))
 
 
 def _convert_aggregate(e: CpuHashAggregateExec, conf) -> eb.Exec:

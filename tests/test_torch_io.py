@@ -357,11 +357,10 @@ def test_csv_read_with_schema(tmp_path):
 
 def test_unported_column_type_raises_at_read(tmp_path):
     p = str(tmp_path / "s.parquet")
-    # a binary column: the port carries the flat types, decimals and
-    # strings, and binary still waits for its slice (a time of day has
-    # no SQL type here at all)
+    # a time of day: no SQL type in the port (nor in the reference)
     papq.write_table(pa.table({"k": pa.array([1, 2]),
-                               "name": pa.array([b"a", b"b"])}), p)
+                               "name": pa.array([1, 2], pa.time32("s"))}),
+                     p)
     with pytest.raises(NotImplementedError, match="'name'"):
         GpuSession(device="cpu").read.parquet(p)
     q = str(tmp_path / "s.csv")
