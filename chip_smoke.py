@@ -110,7 +110,12 @@ records (2^25 rows with TPC-H Q1's 6 groups and with 100,000,
 DECIMAL(15,2) and DECIMAL(30,2) values whose adds carry out of the low
 word, and edge shapes: no rows, one row, tile edges, an all-null group,
 sums that wrap past 2^127), and through 8 exec batches and the merge of
-their 128-bit buffers against pyarrow; K1, K8, K13, K10 and K5 on int16 lanes
+their 128-bit buffers against pyarrow; K3 over orders of 1-65 runs on
+the run path (tiles of input rows), forced there, in tiles of sorted
+rows and on the records, exactly (a DECIMAL64 sum through its signs
+beside DECIMAL128 ops, runs ending inside tiles, carries and min/max
+ties across tiles, one 2^25-row group, 100,000 groups, no
+contributor, 0 and 1 row); K1, K8, K13, K10 and K5 on int16 lanes
 against their plain versions at 1-65,537 rows and at 2^25 (K5 at q2's
 shapes), each timed beside its 4-byte lane; q1d, TPC-H Q1 over a 2^25
 row lineitem with DATE and DECIMAL(15,2) columns as the reference keeps
@@ -125,8 +130,10 @@ maxes of the others, a sort on (TIMESTAMP desc, FLOAT) and its TopN,
 and a parquet write read back, each equal to pyarrow or numpy.
 The nested types: K18 (the child rows of gathered spans) against its
 plain version on edge cases (0 rows, every slot invalid, every array
-empty, a row of 2^24 elements beside 10^6 rows of one, child totals
-around its 1,024-slot stretch); then TPC-H SF5's 7,500,000 orders with
+empty, a row of 2^24 elements beside 10^6 rows of one, one row of 2^22
+alone, 10^6 empty rows, child totals around 1,024, 2,048 and 4,096, a
+total filling whole merge tiles, a zero tail of 2^20 slots); then
+TPC-H SF5's 7,500,000 orders with
 their 1-7 lineitems nested inside (an array of structs), the
 customer's nation and segment as a struct, the order's attributes as a
 map and a 16-byte binary digest: qa1 a filter carrying every column
@@ -172,7 +179,7 @@ HOT_PROBE_ROWS = 1 << 20   # probe rows of that check, 1 % on the hot key
 WIDE_ROWS = 1 << 20        # rows of the wide group-by check
 WIDE_KEYS = 9              # its grouping columns: 18 key words
 WIDE_SUMS = 17             # its sums: 17 K3 ops, two sets of launches
-K3_PATHS = (None, False, True)  # K3's planned path, the direct, the records
+K3_PATHS = (None, "record", "direct", "run")  # K3's planned path, then each
 PIN_KEY = "spark.rapids.sql.fileScan.pinDeviceBatches"
 COLLECT_KEY = "spark.rapids.sql.collect.hostAssisted"
 WRITE_KEY = "spark.rapids.sql.write.hostAssisted"
@@ -325,12 +332,13 @@ def _k3_turns(torch, agg_mod, cuda_ms, args, card, what):
     plan = k3.last_plan
     ops = args[6] if len(args) > 6 else [
         "sum" if v is not None else None for v in args[2]]
-    for packed in (plan.packed, not plan.packed):
-        _k3_minmax_diff(torch, k3(*args, packed=packed), want,
+    other = "direct" if plan.packed else "record"
+    for path in (None, other):
+        _k3_minmax_diff(torch, k3(*args, path=path), want,
                         [op or "count" for op in ops],
-                        f"{what}, packed={packed}")
-    turns = [cuda_ms(lambda p=p: k3(*args, packed=p))
-             for p in (plan.packed, not plan.packed) * 2]
+                        f"{what}, path={path}")
+    turns = [cuda_ms(lambda p=p: k3(*args, path=p))
+             for p in (None, other) * 2]
     n = int(args[3][0].shape[0])
     record = max(s.record_bytes for s in plan.sets)
     print(f"K3 {what}: planned path {'records' if plan.packed else 'direct'}"
@@ -410,10 +418,10 @@ def _edge_cases(torch, dev, carry, agg_mod):
                           [None if v is None else v[idx] for v in vals],
                           [c[idx] for c in contribs], global_agg, None)):
                 want = agg_mod.segment_reduce_sorted_plain(*args)
-                for packed in K3_PATHS:
+                for path in K3_PATHS:
                     _k3_diff(torch, agg_mod.segment_reduce_sorted(
-                        *args, packed=packed), want,
-                        f"at n={n}, global={global_agg}, packed={packed}")
+                        *args, path=path), want,
+                        f"at n={n}, global={global_agg}, path={path}")
         cases += 1
     # K3 at its tile edges (4,096 rows on the direct path; 2,048 on the
     # record path with these ops' 32-byte records): groups of these sizes
@@ -434,10 +442,10 @@ def _edge_cases(torch, dev, carry, agg_mod):
         contribs = [rand_bool(n, 0.9) for _ in vals]
         args = (words, None, vals, contribs, False, order)
         want = agg_mod.segment_reduce_sorted_plain(*args)
-        for packed in K3_PATHS:
-            a = agg_mod.segment_reduce_sorted(*args, packed=packed)
+        for path in K3_PATHS:
+            a = agg_mod.segment_reduce_sorted(*args, path=path)
             _k3_diff(torch, a, want,
-                     f"for groups of {sizes} rows, packed={packed}")
+                     f"for groups of {sizes} rows, path={path}")
             if a[3] != len(sizes):
                 raise AssertionError(f"K3 found {a[3]} groups in {sizes}")
         cases += 1
@@ -512,9 +520,9 @@ def _k3_minmax_cases(torch, dev, carry, agg_mod):
                     for _ in vals]
         args = (words, None, vals, contribs, global_agg, order, ops)
         want = agg_mod.segment_reduce_sorted_plain(*args)
-        for packed in K3_PATHS:
+        for path in K3_PATHS:
             _k3_minmax_diff(torch, agg_mod.segment_reduce_sorted(
-                *args, packed=packed), want, ops, f"{what}, packed={packed}")
+                *args, path=path), want, ops, f"{what}, path={path}")
 
     cases = 0
     for n in (0, 1, 31, 4095, 4096, 4097, 8193, 100_003):
@@ -535,17 +543,17 @@ def _k3_minmax_cases(torch, dev, carry, agg_mod):
     contribs = [(key != 1) for _ in vals]
     args = (words, None, vals, contribs, False, carry.sort_order_plain(words),
             ops)
-    for packed in K3_PATHS:
-        got = agg_mod.segment_reduce_sorted(*args, packed=packed)
+    for path in K3_PATHS:
+        got = agg_mod.segment_reduce_sorted(*args, path=path)
         _k3_minmax_diff(torch, got, agg_mod.segment_reduce_sorted_plain(
-            *args), ops, f"with an all-null group, packed={packed}")
+            *args), ops, f"with an all-null group, path={path}")
         if any(int(c[1]) != 0 for c in got[2]):
             raise AssertionError("K3 counted rows of the all-null group")
     empty = [torch.empty(0, dtype=torch.float64, device=dev)]
-    for packed in K3_PATHS:
+    for path in K3_PATHS:
         got = agg_mod.segment_reduce_sorted(
             [], None, empty, [torch.empty(0, dtype=torch.bool, device=dev)],
-            True, None, ["min"], packed=packed)
+            True, None, ["min"], path=path)
         if got[3] != 1 or int(got[2][0][0]) != 0:
             raise AssertionError("K3's global min over no rows is not one "
                                  "null group")
@@ -619,13 +627,13 @@ def _wide_group_by(torch, dev, carry, agg_mod, seg, batch_to_device,
     args = (words, None, sums, contribs, False, carry.sort_order(words))
     k3 = agg_mod.segment_reduce_sorted
     want = agg_mod.segment_reduce_sorted_plain(*args)
-    for packed in K3_PATHS:
+    for path in K3_PATHS:
         before = k3.launches
-        res = k3(*args, packed=packed)
+        res = k3(*args, path=path)
         if dev.type == "cuda" and k3.launches <= before:
             raise AssertionError("K3 did not launch on the wide group-by")
         _k3_diff(torch, res, want, f"with {WIDE_KEYS} grouping columns and "
-                 f"{WIDE_SUMS} sums, packed={packed}")
+                 f"{WIDE_SUMS} sums, path={path}")
     before = k3.launches
     got = (session.create_dataframe(table)
            .group_by(*[col(k) for k in keys])
@@ -1251,13 +1259,13 @@ def _k3_sweep(torch, dev, carry, agg_mod, cuda_ms):
                 ("q1's lanes", (words, None, [v, f, None], masks, False,
                                 order))):
             want = agg_mod.segment_reduce_sorted_plain(*args)
-            for packed in (False, True):
+            for path in ("direct", "record"):
                 _k3_diff(torch, agg_mod.segment_reduce_sorted(
-                    *args, packed=packed), want, f"sweep {what} n={n}")
+                    *args, path=path), want, f"sweep {what} n={n}")
             agg_mod.segment_reduce_sorted(*args)
             plan = agg_mod.segment_reduce_sorted.last_plan
             times = [cuda_ms(lambda p=p: agg_mod.segment_reduce_sorted(
-                *args, packed=p)) for p in (False, True, False, True)]
+                *args, path=p)) for p in ("direct", "record") * 2]
             inputs = n * (8 * len(plan.sets[0].lanes)
                           + len(plan.sets[0].masks))
             out.append((what, n, inputs, plan.packed, times))
@@ -2844,20 +2852,16 @@ def _short_lane_cases(torch, dev, carry, gather, fetch, jk, t,
     return cases, times, info
 
 
-def _k3_128_cases(torch, dev, agg_mod, carry, cuda_ms, rows):
-    """K3's 128-bit sum and DECIMAL128 min/max against the plain version,
-    exactly, on the planned path, the direct one and the records: at
-    ``rows`` rows with q1d's 6 groups and with 100,000, DECIMAL(15,2)
-    values (sign-extended high words) and DECIMAL(30,2) ones (high words
-    non-zero, low words near 2^64 so the adds carry), 10 % null; and at
-    edge shapes (no rows, one row, an all-null group, tile edges, wrap
-    past 2^127).  Returns (cases, the times at ``rows`` rows and 6
-    groups: planned, direct, records, plain, and the bound of that
-    synthetic call), which the kernel line keeps beside q1d's own call
-    (``_k3_call_row``)."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    k3 = agg_mod.segment_reduce_sorted
-    cases = 0
+K3_128_OPS = ["sum", "sum", "min", "max", "sum"]
+
+
+def _k3_128_args(torch, dev, carry, gen, n, ngroups, global_agg=False):
+    """The synthetic 128-bit K3 call's arguments over n rows in ngroups
+    groups (two key words), drawn from ``gen``: a sum of DECIMAL(15,2)
+    values over their materialised (lo, sign) pair, and the sum, min and
+    max of DECIMAL(30,2) ones (high words non-zero, low words near 2^64
+    so the adds carry), 10 % null, and a count.  Returns (positional
+    arguments, values_hi)."""
 
     def values(n):
         lo15 = torch.randint(-10**13, 10**13, (n,), generator=gen,
@@ -2876,6 +2880,33 @@ def _k3_128_cases(torch, dev, agg_mod, carry, cuda_ms, rows):
                 torch.where(valid, lo30, z), torch.where(valid, hi30, z),
                 valid)
 
+    def args(n, ngroups, global_agg=False):
+        lo15, hi15, lo30, hi30, valid = values(n)
+        keys = torch.randint(0, ngroups, (n,), generator=gen, device=dev)
+        words = [] if global_agg else [keys // 2, keys % 2]
+        order = carry.sort_order(words) if words else None
+        return (words, None, [lo15, lo30, lo30, lo30, None],
+                [valid] * 5, global_agg, order, K3_128_OPS), \
+            [hi15, hi30, hi30, hi30, None]
+
+    return args(n, ngroups, global_agg)
+
+
+def _k3_128_cases(torch, dev, agg_mod, carry, cuda_ms, rows):
+    """K3's 128-bit sum and DECIMAL128 min/max against the plain version,
+    exactly, on the planned path, the direct one and the records: at
+    ``rows`` rows with q1d's 6 groups and with 100,000, DECIMAL(15,2)
+    values (sign-extended high words) and DECIMAL(30,2) ones (high words
+    non-zero, low words near 2^64 so the adds carry), 10 % null; and at
+    edge shapes (no rows, one row, an all-null group, tile edges, wrap
+    past 2^127).  Returns (cases, the times at ``rows`` rows and 6
+    groups: planned, direct, records, plain, and the bound of that
+    synthetic call), which the kernel line keeps beside q1d's own call
+    (``_k3_call_row``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    k3 = agg_mod.segment_reduce_sorted
+    cases = 0
+
     def check(a, b, what):
         nonlocal cases
         cases += 1
@@ -2889,24 +2920,16 @@ def _k3_128_cases(torch, dev, agg_mod, carry, cuda_ms, rows):
             if not (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])):
                 raise AssertionError(f"K3 128-bit results differ {what}")
 
-    ops = ["sum", "sum", "min", "max", "sum"]
-
     def args(n, ngroups, global_agg=False):
-        lo15, hi15, lo30, hi30, valid = values(n)
-        keys = torch.randint(0, ngroups, (n,), generator=gen, device=dev)
-        words = [] if global_agg else [keys // 2, keys % 2]
-        order = carry.sort_order(words) if words else None
-        return (words, None, [lo15, lo30, lo30, lo30, None],
-                [valid] * 5, global_agg, order, ops), \
-            [hi15, hi30, hi30, hi30, None]
+        return _k3_128_args(torch, dev, carry, gen, n, ngroups, global_agg)
 
     row = None
     for n, ngroups in ((rows, 6), (rows, 100_000)):
         a, his = args(n, ngroups)
         want = agg_mod.segment_reduce_sorted_plain(*a, values_hi=his)
-        for packed in K3_PATHS:
-            check(k3(*a, packed=packed, values_hi=his), want,
-                  f"at {n} rows, {ngroups} groups, packed={packed}")
+        for path in K3_PATHS:
+            check(k3(*a, path=path, values_hi=his), want,
+                  f"at {n} rows, {ngroups} groups, path={path}")
         if ngroups == 6:
             k3(*a, values_hi=his)
             planned = k3.last_plan      # None for the plain version
@@ -2917,10 +2940,11 @@ def _k3_128_cases(torch, dev, agg_mod, carry, cuda_ms, rows):
                 # each input once: order, 2 key words, 4 lanes, 1 mask
                 bound_ms=n * (4 + 16 + 32 + 1) / HBM_BYTES_PER_S * 1e3,
                 path="plain" if planned is None else
-                "record" if planned.packed else "direct",
-                direct_ms=cuda_ms(lambda: k3(*a, packed=False,
+                "record" if planned.packed else
+                "run" if planned.run_path else "direct",
+                direct_ms=cuda_ms(lambda: k3(*a, path="direct",
                                              values_hi=his)),
-                record_ms=cuda_ms(lambda: k3(*a, packed=True,
+                record_ms=cuda_ms(lambda: k3(*a, path="record",
                                              values_hi=his)))
     # edge shapes
     for n, ngroups, glob in ((0, 1, False), (0, 1, True), (1, 1, False),
@@ -2930,24 +2954,101 @@ def _k3_128_cases(torch, dev, agg_mod, carry, cuda_ms, rows):
                              (65537, 1000, False)):
         a, his = args(n, ngroups, glob)
         want = agg_mod.segment_reduce_sorted_plain(*a, values_hi=his)
-        for packed in K3_PATHS:
-            check(k3(*a, packed=packed, values_hi=his), want,
+        for path in K3_PATHS:
+            check(k3(*a, path=path, values_hi=his), want,
                   f"at {n} rows, {ngroups} groups, global={glob}, "
-                  f"packed={packed}")
+                  f"path={path}")
     # an all-null group and sums that wrap past 2^127
     n = 5000
     big = torch.full((n,), -1, dtype=torch.int64, device=dev)   # 2^64 - 1
     hi = torch.full((n,), 2**62, dtype=torch.int64, device=dev)
     keys = torch.arange(n, device=dev) % 3
     valid = keys != 1
-    for packed in K3_PATHS:
+    for path in K3_PATHS:
         a = ([keys], None, [big, big, big], [valid] * 3, False,
              carry.sort_order([keys]), ["sum", "min", "max"])
-        check(k3(*a, packed=packed, values_hi=[hi, hi, hi]),
+        check(k3(*a, path=path, values_hi=[hi, hi, hi]),
               agg_mod.segment_reduce_sorted_plain(
                   *a, values_hi=[hi, hi, hi]),
-              f"wrapping sums and an all-null group, packed={packed}")
+              f"wrapping sums and an all-null group, path={path}")
     return cases, row
+
+
+def _k3_run_cases(torch, dev, agg_mod, carry):
+    """K3 over orders of few runs, where the direct path takes the run
+    path (tiles of input rows split by the runs), against the plain
+    version exactly on each of ``K3_PATHS``: the planned path, the
+    records, tiles of sorted rows, and the run path forced (whatever the
+    inputs' size).  One op set
+    holds a DECIMAL64 sum read through its signs (SIGN), a DECIMAL128 sum,
+    min and max, an int64 sum, a float min and max (-0.0 beside 0.0, so
+    the earliest row of a tie shows in the bits), an int64 min and a
+    count.  Shapes: 1, 2, 6, 64 and 65 runs (65 is past the run path),
+    runs that end inside tiles, carries out of the low word within and
+    across tiles, ties across tiles, one group of 2^25 rows, 100,000
+    groups, rows with no contributor, 0 rows and 1 row.  Returns the
+    number of cases."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    k3 = agg_mod.segment_reduce_sorted
+    ops = ["sum", "sum", "min", "max", "sum", "min", "max", "min", "sum"]
+    cases = 0
+
+    def rand(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev)
+
+    def args(n, ngroups, ties=False, valid_frac=0.9):
+        d64 = rand(n, -3, 3) if ties else rand(n, -10**13, 10**13)
+        hi = rand(n, -1, 1) if ties else rand(n, -2**34, 2**34)
+        lo = torch.where(rand(n, 0, 10) < 3, -rand(n, 1, 1000),
+                         rand(n, -2**63, 2**63 - 1))   # 2^64 - x: carries
+        if ties:
+            lo = rand(n, -2, 2)
+        f = torch.tensor([-0.0, 0.0, 1.0, -1.0], dtype=torch.float64,
+                         device=dev)[rand(n, 0, 2 if ties else 4)]
+        valid = torch.rand(n, generator=gen, device=dev) < valid_frac
+        keys = rand(n, 0, ngroups)
+        order = carry.sort_order([keys])
+        return ([keys], None, [d64, lo, lo, lo, d64, f, f, d64, None],
+                [valid] * 9, False, order, ops), \
+            [agg_mod.SIGN, hi, hi, hi, None, None, None, None, None]
+
+    def check(a, b, what):
+        nonlocal cases
+        cases += 1
+        if a[3] != b[3] or not torch.equal(a[0], b[0]):
+            raise AssertionError(f"K3 groups or first rows differ {what}")
+        for k, (x, y) in enumerate(zip(a[1], b[1])):
+            if not torch.equal(a[2][k], b[2][k]):
+                raise AssertionError(f"K3 counts of op {k} differ {what}")
+            for u, w in ([] if x is None else zip(x, y)
+                         if isinstance(x, tuple) else [(x, y)]):
+                if u.dtype == torch.float64:
+                    u, w = u.view(torch.int64), w.view(torch.int64)
+                if not torch.equal(u, w):
+                    raise AssertionError(f"K3 op {k} ({ops[k]}) differs "
+                                         f"{what}")
+
+    shapes = [(300_000, g, False, 0.9) for g in (1, 2, 6, 64, 65)] + [
+        (10_007, 3, False, 0.9),        # runs that end inside tiles
+        (1 << 20, 1, False, 1.0),       # carries within and across tiles
+        (1 << 20, 3, True, 0.9),        # ties across tiles
+        (1 << 25, 1, False, 0.9),       # one group of 2^25 rows
+        (1 << 22, 100_000, False, 0.9),
+        (100_000, 4, False, 0.0),       # no contributor
+        (0, 1, False, 0.9), (1, 1, False, 0.9)]
+    for n, ngroups, ties, frac in shapes:
+        a, his = args(n, ngroups, ties, frac)
+        want = agg_mod.segment_reduce_sorted_plain(*a, values_hi=his)
+        for path in K3_PATHS:
+            got = k3(*a, path=path, values_hi=his)
+            check(got, want, f"at {n} rows, {ngroups} groups, ties={ties}, "
+                             f"path={path}")
+            if path == "run" and n > 1 and ngroups <= 64 \
+                    and not k3.last_plan.run_path:
+                raise AssertionError(f"K3 did not take the run path over "
+                                     f"{n} rows in {ngroups} runs")
+        del a, his, want
+    return cases
 
 
 def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
@@ -2956,9 +3057,11 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
     exactly: groups, first rows, counts, and every result word (a 128-bit
     op's low and high words, a float viewed as int64).  Returns the
     kernel line's row for the first call: its time, the plain version's,
-    and its bound, the bytes the call must move once: the order, every
-    key word, the live flags, each distinct value lane and contributor
-    mask, and each group's first row, results and counts."""
+    and its bound, the bytes the call must move once: the order, each key
+    word that varies (all of them where the call passes no ``varying``
+    hint: K2's histogram tells K3 which words it may skip), the live
+    flags, each distinct value lane and contributor mask, and each
+    group's first row, results and counts."""
     orig = cap.orig["segment_reduce_sorted"]
     plain = agg_mod.segment_reduce_sorted_plain
     row = None
@@ -2978,14 +3081,18 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
         if row is not None:
             continue
         words, live, values, contribs, _, order, ops = args[:7]
+        varying = kw.get("varying")
+        if varying is None or len(varying) != len(words):
+            varying = [True] * len(words)
         his = kw.get("values_hi") or [None] * len(values)
         lanes = {agg_mod._storage(x): x.nbytes
-                 for x in [*values, *his] if x is not None}
+                 for x in [*values, *his]
+                 if x is not None and x is not agg_mod.SIGN}
         masks = {agg_mod._storage(c): c.nbytes for c in contribs}
         per_group = 4 + sum(8 + 8 * (v is not None) + 8 * (h is not None)
                             for v, h in zip(values, his))
         moved = (0 if order is None else order.nbytes) + \
-            sum(w.nbytes for w in words) + \
+            sum(w.nbytes for w, f in zip(words, varying) if f) + \
             (0 if live is None else live.nbytes) + \
             sum(lanes.values()) + sum(masks.values()) + got[3] * per_group
         n = int(contribs[0].shape[0])
@@ -2994,10 +3101,15 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
                    plain_ms=cuda_ms(lambda: plain(*args, **kw), reps=1),
                    bound_ms=moved / HBM_BYTES_PER_S * 1e3,
                    extra=dict(rows=n, groups=got[3], key_words=len(words),
+                              varying_words=sum(map(bool, varying)),
                               ops=list(ops), lanes=len(lanes),
                               ops_128=sum(h is not None for h in his),
                               bytes_a_row=round(moved / max(n, 1), 2),
-                              path="record" if plan.packed else "direct"))
+                              path="record" if plan.packed else
+                              "run" if plan.run_path else "direct",
+                              traffic_bytes_a_row=round(
+                                  (plan.packed_bytes if plan.packed
+                                   else plan.direct_bytes) / max(n, 1), 2)))
         del got, want
     if row is None:
         raise AssertionError(f"{what} made no K3 call to capture")
@@ -3178,10 +3290,12 @@ def _by_orderkey(t):
 def _k18_case_inputs(torch, dev, sops):
     """K18's edge cases as (what, starts, new_offsets, total, child_cap):
     0 rows, every slot invalid, every array empty, one row of 2^24
-    elements beside 10^6 rows of one, 10^6 empty rows inside one
-    stretch, child totals of 0, 1 and around the 1,024-slot stretch,
-    random spans, a sparse column of 4M rows (1 % hold elements, half
-    the slots invalid)."""
+    elements beside 10^6 rows of one, 10^6 empty rows between two rows
+    of one and after a row of 3,000, child totals of 0, 1, around 1,024
+    and 2,048 and 4,096, one row of 2^22 elements alone (over 2,048
+    merge tiles), 2,048 rows of 2 (three whole merge tiles), a zero tail
+    of 2^20 slots past the total, random spans, a sparse column of 4M
+    rows (1 % hold elements, half the slots invalid)."""
     out = []
 
     def add(what, lengths, valid=None, cap=None):
@@ -3202,8 +3316,16 @@ def _k18_case_inputs(torch, dev, sops):
         np.concatenate([[1 << 24], np.ones(1_000_000)]))
     add("10^6 empty rows between two rows of one",
         np.concatenate([[1], np.zeros(1_000_000), [1]]))
-    for total in (0, 1, 1023, 1024, 1025, 2047, 2048, 2049):
+    for total in (0, 1, 1023, 1024, 1025, 2047, 2048, 2049, 4096):
         add(f"child total {total}", [total], cap=total + 3)
+    add("one row of 2^22 elements", [1 << 22])
+    add("10^6 empty rows after a row of 3,000",
+        np.concatenate([[3000], np.zeros(1_000_000)]))
+    # 2,048 rows of 2: 6,144 merge items, three whole tiles
+    add("a total that is a multiple of the tile", np.full(2048, 2),
+        cap=4096)
+    add("a zero tail of 2^20 slots past the total", np.full(1000, 3),
+        cap=(1 << 20) + 3000)
     rng = np.random.default_rng(SEED)
     add("random spans, 30 % empty",
         rng.integers(0, 9, 300_000) * (rng.random(300_000) < 0.7))
@@ -3739,9 +3861,9 @@ def main() -> int:
         hot_args = (hot_words, None, sum_lanes, contribs, False,
                     carry.sort_order(hot_words))
         hot_plain = agg_mod.segment_reduce_sorted_plain(*hot_args)
-        for packed in K3_PATHS:
-            hot = agg_mod.segment_reduce_sorted(*hot_args, packed=packed)
-            _k3_diff(torch, hot, hot_plain, f"on a hot key, packed={packed}")
+        for path in K3_PATHS:
+            hot = agg_mod.segment_reduce_sorted(*hot_args, path=path)
+            _k3_diff(torch, hot, hot_plain, f"on a hot key, path={path}")
         hot = agg_mod.segment_reduce_sorted(*hot_args)
         hot_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted(*hot_args))
         hot_plain_ms = cuda_ms(lambda: agg_mod.segment_reduce_sorted_plain(
@@ -3756,13 +3878,13 @@ def main() -> int:
                                  "time on uniform keys (at most 2x)")
         # the same input gives the same bits on every run, on either path
         for what, args in (("q1", k3_args), ("hot key", hot_args)):
-            for packed in (False, True):
-                first = agg_mod.segment_reduce_sorted(*args, packed=packed)
+            for path in K3_PATHS[1:]:
+                first = agg_mod.segment_reduce_sorted(*args, path=path)
                 for _ in range(2):
                     if not _k3_same_bits(torch, agg_mod.segment_reduce_sorted(
-                            *args, packed=packed), first):
+                            *args, path=path), first):
                         raise AssertionError(f"K3 is not deterministic on "
-                                             f"{what}, packed={packed}")
+                                             f"{what}, path={path}")
         print("K3 deterministic: on q1 and on the hot key, each path gives "
               "the same bits three runs in a row")
         del first
@@ -6812,6 +6934,21 @@ def main() -> int:
               f"{time.perf_counter() - t1:.1f} s; {card}")
     except Exception:
         failures.append("K3 128-bit")
+        traceback.print_exc()
+    try:
+        t1 = time.perf_counter()
+        n_cases = _k3_run_cases(torch, dev, agg_mod, carry)
+        print(f"K3 over orders of few runs (the run path): "
+              f"{n_cases} cases exact on the planned path, the records, "
+              f"the direct path planned, on the run path and in tiles of "
+              f"sorted rows "
+              f"(1-65 runs, runs ending inside tiles, carries and ties "
+              f"across tiles, one 2^25-row group, 100,000 groups, no "
+              f"contributor, 0 and 1 row; a DECIMAL64 sum through its "
+              f"signs beside DECIMAL128 ops); "
+              f"{time.perf_counter() - t1:.1f} s")
+    except Exception:
+        failures.append("K3 run path")
         traceback.print_exc()
     try:
         # K3's 128-bit buffers through PARTIAL (8 batches) and the merge

@@ -20,11 +20,11 @@
 // pair indices (probe row, build row) are written too.
 //
 // Design: merge-path tiles (the load-balanced search of Baxter's
-// moderngpu).  The np row ends and the out_cap positions form one merged
-// sequence, a row's end before position p when ends[row] <= p; it is cut
-// into tiles of kTile items, so every tile has the same work whatever the
-// keys: a hot key's run of positions and a run of rows without matches
-// cost the same per item.
+// moderngpu, csrc/merge_path.cuh).  The np row ends and the out_cap
+// positions form one merged sequence, a row's end before position p when
+// ends[row] <= p; it is cut into tiles of kTile items, so every tile has
+// the same work whatever the keys: a hot key's run of positions and a run
+// of rows without matches cost the same per item.
 //   1. partition_kernel: one thread a tile boundary finds, by one binary
 //      search along its diagonal, how many rows come before it.
 //   2. expand_kernel, one block a tile: the tile's rows' ends, starts,
@@ -51,14 +51,16 @@
 
 #include <cuda_runtime.h>
 
+#include "merge_path.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRun = 4;      // consecutive positions a thread writes
 constexpr int kTile = 2048;  // merge items (row ends + positions) a tile
 
-// Row count before diagonal d: the first i in [max(0, d - out_cap),
-// min(d, np)) with ends[i] > d - 1 - i, else the upper end.
+// Row count before each tile's first diagonal (csrc/merge_path.cuh), one
+// thread a tile boundary.
 __global__ void __launch_bounds__(kThreads)
 partition_kernel(const long long* __restrict__ ends, int np,
                  long long out_cap, int tiles, int* __restrict__ split) {
@@ -67,17 +69,8 @@ partition_kernel(const long long* __restrict__ ends, int np,
   const long long items = np + out_cap;
   long long d = (long long)t * kTile;
   if (d > items) d = items;
-  long long lo = d - out_cap > 0 ? d - out_cap : 0;
-  long long hi = d < np ? d : np;
-  while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    if (ends[mid] > d - 1 - mid) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  split[t] = static_cast<int>(lo);
+  split[t] = static_cast<int>(srt::merge_path_rows(
+      [ends](long long i) { return ends[i]; }, np, out_cap, d));
 }
 
 // One column of the descriptor (see expand_kernel).

@@ -29,16 +29,30 @@
 //   - the direct path: each distinct input read at the sorted rows'
 //     input rows, 8 rows a thread: for rows already in key order, a
 //     count-only fold, and inputs that fit in the L2 cache, where the
-//     records would move more bytes.
+//     records would move more bytes;
+//   - the run path, for an order of at most kFewRuns increasing runs
+//     (K2's stable order over a few groups: TPC-H Q1's six), whatever
+//     the inputs' size: each block takes a tile of 2,048 input rows and
+//     the sorted rows of each run that lie there (see "The run path"
+//     below), so every input is read in input order, coalesced, each
+//     byte once.  Through the order, a sorted row of a group with share
+//     d lies 1 / d input rows from the next, so each 8-byte value pulled
+//     its own 32-byte sector: on the H100 the tiles of sorted rows were
+//     held by the count of sector requests the L2 cache serves, not by
+//     device memory (PERF.md, K3's 128-bit row).
 // Launches, for each set of ops:
 //   1. varying_kernel (once, before the first set): which key words are
 //      not the same in every row, read in input order; a constant word
 //      (the null word of a key with no nulls) can start no group and is
 //      neither packed nor compared.  It also counts the order's descents
-//      up to 64.  The host reads these once where the record path may
-//      pay, to lay out the record; an order of a few increasing runs (a
-//      few groups: K2's order is stable) keeps the direct path, whose
-//      reads then stream.
+//      up to kFewRuns and keeps where they are.  The host reads these
+//      once where the record path or the run path may pay, to lay out
+//      the record or the runs; an order of a few increasing runs (a few
+//      groups: K2's order is stable) takes the run path.
+//   1r. the run path, first set: pieces_kernel, run_starts_kernel and
+//      one block's scan of the pieces' start counts into their first
+//      slots (partition.cuh's scan_kernel); then run_fold_kernel for
+//      every set, and the fixup over the pieces.
 //   2. pack_kernel (record path).
 //   3. fold_kernel: in the first set a row starts a group if it is live
 //      and is the first row or differs from the previous sorted row in a
@@ -48,17 +62,19 @@
 //      running ones) to the tile's first group slot, and the start bits
 //      are kept for the later sets.  Then every op of the set: each
 //      thread folds its K rows serially, a warp-wide segmented scan
-//      (shuffles) closes the groups whose start lies in the same warp,
-//      and what each warp leaves open waits in shared memory; after one
-//      barrier for all the ops, the warps' folds join in a fixed order.
+//      (shuffles) closes the groups whose start lies in the same warp (a
+//      warp that holds no start folds its rows by a plain shuffle
+//      reduction), and what each warp leaves open waits in shared
+//      memory; after one barrier for all the ops, the warps' folds join
+//      in a fixed order.
 //      A group that opens and closes inside the tile is written to its
 //      slot; the tile's open head segment (a group begun in an earlier
 //      tile) and open tail segment go to per-tile partials.
-//   4. fixup_kernel: one block per tile that holds a start finishes the
-//      group begun at that tile's last start: its tail partial, then the
-//      head partials of the following tiles up to and including the next
-//      tile with a start, folded by a fixed tree (one warp when they are
-//      at most 32).
+//   4. fixup_kernel: for each tile that holds a start, the group begun
+//      at that tile's last start: its tail partial, then the head partials
+//      of the following tiles up to and including the next tile with a
+//      start, folded by a fixed tree that keeps their order (a warp when
+//      they are at most 32, a block past that; 64 tiles a block).
 // The op's kind is a warp-uniform switch inside the one fold launch.
 //
 // Min and max (kinds 3-6) replace the reference's ops/segmented.py
@@ -68,12 +84,16 @@
 // and that row's value bit for bit (so -0.0 stays -0.0).  An int64 lane
 // is its own word; a float64 lane's word is Spark's total order of
 // encode_float_ordered (-0.0 equals 0.0, NaN canonical and greatest).
-// The fold state is (the kept value's bits, its ordered word, its sorted
-// position): a row's word is computed once, when the row is folded, and
-// two states combine by word, then by position, which is associative and
-// commutative, so the fold, the head/tail partials and the fixup tree
-// carry it as they carry the sums, and the result is the same bits on
-// every run.  Max compares the other way; there is no inverted lane.
+// The fold state is (the kept value's bits, its ordered word -- an int64
+// lane's is the value itself): a row's word is computed once, when the
+// row is folded, and two states combine by word, strictly, a tie keeping
+// the earlier rows' state.  Every combination (a thread's rows, the
+// shuffle scans and trees, the warps' join, the fixup's tree) takes its
+// operands in sorted order, so that is the earliest sorted row, with no
+// position in the state; the combination is associative, so the fold, the
+// head/tail partials and the fixup carry it as they carry the sums, and
+// the result is the same bits on every run.  Max compares the other way;
+// there is no inverted lane.
 // So every thread folds K rows whatever the key skew: a hot key that
 // holds 10M rows spans thousands of tiles and costs a tree over their
 // partials in step 4, not a 10M-row loop on one thread.  No float
@@ -91,14 +111,18 @@
 // in any order and the same bits on every run.  Min and max (kinds 8 and
 // 9) replace the reference's ordered gather for DECIMAL128 (a second
 // lexsort per op and first_index_per_segment, exec/aggregate.py): the
-// state is (low word, high word, sorted position), compared by (high
-// signed, low unsigned), then the earlier position.  A DECIMAL of at most
-// 18 digits is one int64 lane and takes kinds 1, 3 and 4; the aggregate
-// widens a DECIMAL64 sum input to its (lo, sign-extended hi) pair before
-// K3, as the reference's Sum casts its input to the 128-bit buffer type.
-// A set that holds a 128-bit op runs its own instantiation of the fold
-// and the fixup (W128); a set of 64-bit ops alone compiles without them,
-// so the 128-bit kinds' registers cost it nothing.
+// state is (low word, high word), compared by (high signed, low
+// unsigned), a tie keeping the earlier rows.  A DECIMAL of at most
+// 18 digits is one int64 lane and takes kinds 1, 3 and 4.  The
+// reference's Sum casts a DECIMAL64 input to its 128-bit buffer type; here
+// such a sum is kind 7 over the DECIMAL64 lane alone, its high lane -2:
+// each row's high word is its low word's sign, taken in registers, so no
+// pair is built and no lane of signs is read (exec/aggregate.py hands K3
+// the cast's input).  A set that holds a 128-bit op runs its own
+// instantiation of the fold and the fixup (W128); a set of 64-bit ops
+// alone compiles without them, so the 128-bit kinds' registers cost it
+// nothing, and a W128 fold may take 128 registers (two blocks an SM) so
+// that it does not spill.
 //
 // Bound: device-memory bytes.  Least traffic is order (4 B/row), each
 // key word (8 B/row), the live flags where given (1 B/row), each
@@ -108,7 +132,9 @@
 // the record path one (two at 64 bytes) a row for the record, plus the
 // pack's coalesced read of the inputs and write of the records.  Such
 // reads are bound by their count of sectors, so a 64-byte record (two
-// sectors) costs about twice a 32-byte one.
+// sectors) costs about twice a 32-byte one.  The run path moves about the
+// least traffic: the order twice (the starts, then the fold), each key
+// word, input lane and mask once, and the pieces' partials.
 
 #include "partition.cuh"
 
@@ -119,6 +145,7 @@ constexpr int kWarps = srt::kWarps;
 constexpr int kOpsPerLaunch = 16;            // ops, lanes and masks a set
 constexpr int kMaxKeys = 15;                 // varying words in a record
 constexpr int kDirectRows = 8;               // rows a thread, direct path
+constexpr int kFewRuns = 64;                 // runs of the run path
 constexpr int kStage = 65536;                // a record tile's records
 constexpr int kCount = 0;
 constexpr int kSumInt = 1;
@@ -149,6 +176,7 @@ struct Set {
   int lane[kOpsPerLaunch];                 // index into lanes, -1: count
   int mask[kOpsPerLaunch];                 // index into masks
   int lane_hi[kOpsPerLaunch];              // 128-bit kinds: the high words
+                                           // (-2: the low words' signs)
   void* sums[kOpsPerLaunch];
   long long* sums_hi[kOpsPerLaunch];       // 128-bit kinds
   long long* counts[kOpsPerLaunch];
@@ -179,8 +207,8 @@ __host__ __device__ constexpr bool is128(int kind) { return kind >= kSum128; }
 
 // A fold of some rows of one op: wrapping int sum, finite float sum,
 // contributor count, and which of +inf / -inf / NaN contributed.  For
-// min/max: the kept value's bits (i), its ordered word (f's bits) and
-// its sorted position (flags).  Also the layout of a per-tile partial.
+// min/max: the kept value's bits (i) and, for a float64 lane, its ordered
+// word (f's bits).  Also the layout of a per-tile partial.
 struct Acc {
   unsigned long long i;
   double f;
@@ -204,8 +232,12 @@ __device__ __forceinline__ long long ordered_word(long long bits) {
   return bits;
 }
 
+// A min/max state's ordered word: an int64 lane's value itself (Acc.i),
+// a float64 lane's word (Acc.f's bits); a 128-bit kind's high word.
+template <int KIND = kMinFloat>
 __device__ __forceinline__ long long word_of(const Acc& a) {
-  return __double_as_longlong(a.f);
+  return KIND == kMinInt || KIND == kMaxInt ? static_cast<long long>(a.i)
+                                            : __double_as_longlong(a.f);
 }
 
 // a 128-bit kind's high word, kept as Acc.f's bits
@@ -213,30 +245,27 @@ __device__ __forceinline__ double as_hi(long long hi) {
   return __longlong_as_double(hi);
 }
 
-// Whether word wb at position pb is kept over wa at pa: the extreme
-// word, then the earlier sorted position.
+// Whether word wb is strictly more extreme than wa.
 template <int KIND>
-__device__ __forceinline__ bool keeps(long long wb, unsigned pb, long long wa,
-                                      unsigned pa) {
-  if (wb != wa)
-    return (KIND == kMinInt || KIND == kMinFloat) ? wb < wa : wb > wa;
-  return pb < pa;
+__device__ __forceinline__ bool keeps(long long wb, long long wa) {
+  return (KIND == kMinInt || KIND == kMinFloat) ? wb < wa : wb > wa;
 }
 
-// Whether state b is kept over state a (both with contributors): for the
-// 128-bit kinds by (high signed, low unsigned), else by ordered word; then
-// the earlier sorted position.
+// Whether state b (the later rows) replaces a (both with contributors):
+// the 128-bit kinds by (high signed, low unsigned), the others by ordered
+// word, strictly.  A tie keeps a, the earlier rows: every combination
+// takes its operands in sorted order, so the earliest sorted row of the
+// extreme word is kept, as the reference keeps it, and no position rides
+// in the state.
 template <int KIND>
 __device__ __forceinline__ bool better(const Acc& b, const Acc& a) {
   if (is128(KIND)) {
     const long long hb = word_of(b), ha = word_of(a);
-    if (hb != ha || b.i != a.i) {
-      const bool less = hb != ha ? hb < ha : b.i < a.i;
-      return KIND == kMin128 ? less : !less;
-    }
-    return b.flags < a.flags;
+    const bool less = hb != ha ? hb < ha : b.i < a.i;
+    const bool more = hb != ha ? hb > ha : b.i > a.i;
+    return KIND == kMin128 ? less : more;
   }
-  return keeps<KIND>(word_of(b), b.flags, word_of(a), a.flags);
+  return keeps<KIND>(word_of<KIND>(b), word_of<KIND>(a));
 }
 
 // a then b: a holds the earlier rows
@@ -244,8 +273,8 @@ template <int KIND>
 __device__ __forceinline__ Acc combine(const Acc& a, const Acc& b) {
   if (is_extreme(KIND)) {
     const bool take_b = b.n > 0 && (a.n == 0 || better<KIND>(b, a));
-    return take_b ? Acc{b.i, b.f, a.n + b.n, b.flags}
-                  : Acc{a.i, a.f, a.n + b.n, a.flags};
+    return take_b ? Acc{b.i, b.f, a.n + b.n, 0u}
+                  : Acc{a.i, a.f, a.n + b.n, 0u};
   }
   if (KIND == kSum128) {
     const unsigned long long lo = a.i + b.i;
@@ -255,12 +284,12 @@ __device__ __forceinline__ Acc combine(const Acc& a, const Acc& b) {
   return Acc{a.i + b.i, a.f + b.f, a.n + b.n, a.flags | b.flags};
 }
 
-// One row at sorted position pos, after every row already in a: c says
-// whether it contributes, bits are its value's 64 bits (a 128-bit kind's
-// low word; hib its high word).
+// One row after every row already in a: c says whether it contributes,
+// bits are its value's 64 bits (a 128-bit kind's low word; hib its high
+// word).
 template <int KIND>
 __device__ __forceinline__ void add_row(Acc& a, bool c, long long bits,
-                                        long long hib, unsigned pos) {
+                                        long long hib) {
   if (KIND == kSum128) {
     if (c) {
       const unsigned long long lo =
@@ -273,24 +302,26 @@ __device__ __forceinline__ void add_row(Acc& a, bool c, long long bits,
   }
   if (KIND == kMin128 || KIND == kMax128) {
     if (c) {
-      const Acc r{static_cast<unsigned long long>(bits), as_hi(hib), 1, pos};
+      const Acc r{static_cast<unsigned long long>(bits), as_hi(hib), 1, 0u};
       if (a.n == 0 || better<KIND>(r, a)) {
         a.i = r.i;
         a.f = r.f;
-        a.flags = pos;
       }
     }
     a.n += c ? 1 : 0;
     return;
   }
+  if (KIND == kMinInt || KIND == kMaxInt) {
+    if (c && (a.n == 0 || keeps<KIND>(bits, static_cast<long long>(a.i))))
+      a.i = static_cast<unsigned long long>(bits);
+    a.n += c ? 1 : 0;
+    return;
+  }
   if (is_extreme(KIND)) {
-    if (c) {
-      const long long w = ordered_word<KIND>(bits);
-      if (a.n == 0 || keeps<KIND>(w, pos, word_of(a), a.flags)) {
-        a.i = static_cast<unsigned long long>(bits);
-        a.f = __longlong_as_double(w);
-        a.flags = pos;
-      }
+    const long long w = ordered_word<KIND>(bits);
+    if (c && (a.n == 0 || keeps<KIND>(w, word_of(a)))) {
+      a.i = static_cast<unsigned long long>(bits);
+      a.f = __longlong_as_double(w);
     }
     a.n += c ? 1 : 0;
     return;
@@ -348,12 +379,26 @@ __device__ __forceinline__ Acc shfl_up(const Acc& a, int off) {
   Acc r = zero_acc();
   if (KIND == kSumInt || KIND == kSum128 || is_extreme(KIND))
     r.i = __shfl_up_sync(0xffffffffu, a.i, off);
-  if (KIND == kSum128) r.f = __shfl_up_sync(0xffffffffu, a.f, off);
-  if (KIND == kSumFloat || is_extreme(KIND)) {
+  if (KIND == kSum128 || KIND == kSumFloat ||
+      (is_extreme(KIND) && KIND != kMinInt && KIND != kMaxInt))
     r.f = __shfl_up_sync(0xffffffffu, a.f, off);
+  if (KIND == kSumFloat)
     r.flags = __shfl_up_sync(0xffffffffu, a.flags, off);
-  }
   r.n = __shfl_up_sync(0xffffffffu, static_cast<int>(a.n), off);
+  return r;
+}
+
+template <int KIND>
+__device__ __forceinline__ Acc shfl_down_k(const Acc& a, int off) {
+  Acc r = zero_acc();
+  if (KIND == kSumInt || KIND == kSum128 || is_extreme(KIND))
+    r.i = __shfl_down_sync(0xffffffffu, a.i, off);
+  if (KIND == kSum128 || KIND == kSumFloat ||
+      (is_extreme(KIND) && KIND != kMinInt && KIND != kMaxInt))
+    r.f = __shfl_down_sync(0xffffffffu, a.f, off);
+  if (KIND == kSumFloat)
+    r.flags = __shfl_down_sync(0xffffffffu, a.flags, off);
+  r.n = __shfl_down_sync(0xffffffffu, static_cast<int>(a.n), off);
   return r;
 }
 
@@ -412,9 +457,10 @@ __device__ int block_exclusive_sum(int v, int* s_warp, int* total) {
 // difference, or once another has found one, so a word that varies
 // costs a few reads and a constant one a full pass.  With an order,
 // varying[words.count] counts its descents (order[i + 1] < order[i]),
-// up to past kFewRuns: K2's order is stable, so a call with few groups
-// reads its rows in a few increasing runs.
-constexpr int kFewRuns = 64;
+// up to past kFewRuns, and varying[words.count + 1 + q] for q <
+// kFewRuns holds the positions i of the first ones found, in no order:
+// K2's order is stable, so a call with few groups reads its rows in a few
+// increasing runs, and the host reads where they begin.
 
 __global__ void __launch_bounds__(kThreads)
 varying_kernel(Words words, const int* order, int n, int* varying) {
@@ -451,22 +497,24 @@ varying_kernel(Words words, const int* order, int n, int* varying) {
   if (!order) return;
   int* runs = varying + words.count;
   volatile int* vruns = runs;
-  // one atomic a warp's count, so the counter takes few of them
-  auto add = [&](int mine) {
-    const unsigned act = __activemask();
-    const int sum = __reduce_add_sync(act, mine);
-    if (sum && (threadIdx.x & 31) == __ffs(act) - 1) atomicAdd(runs, sum);
-  };
-  int mine = 0, it = 0;
+  const int lane = threadIdx.x & 31;
+  int it = 0;
   for (long long i = first; i + 1 < n; i += stride) {
-    mine += __ldg(order + i + 1) < __ldg(order + i) ? 1 : 0;
-    if ((++it & 3) == 0) {
-      add(mine);
-      mine = 0;
-      if (*vruns > kFewRuns) return;
+    // one atomic a warp's descents, so the counter takes few of them
+    const unsigned act = __activemask();
+    const bool down = __ldg(order + i + 1) < __ldg(order + i);
+    const unsigned m = __ballot_sync(act, down);
+    if (m) {
+      const int leader = __ffs(m) - 1;
+      int at = 0;
+      if (lane == leader) at = atomicAdd(runs, __popc(m));
+      at = __shfl_sync(act, at, leader);
+      if (at > kFewRuns) return;
+      at += __popc(m & ((1u << lane) - 1u));
+      if (down && at < kFewRuns) runs[1 + at] = static_cast<int>(i);
     }
+    if ((++it & 3) == 0 && *vruns > kFewRuns) return;
   }
-  add(mine);
 }
 
 // Records of R bytes, two input rows a thread (rows tid and tid + 256 of
@@ -551,18 +599,78 @@ constexpr int kPaddedTile = kDirectTile + kDirectTile / 32;
 
 __device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
 
-// Per thread: its rows in the tile and the group slots they write.
+// A staged 8-byte word's place on the run path (see kSlotWords): 2 words
+// of padding after each 32.
+__device__ __forceinline__ int sw(int x) { return x + 2 * (x >> 5); }
+
+// Per thread: its rows in the tile.
 struct View {
   long long first;      // sorted position of the thread's first row
-  unsigned valid;       // bit j: row first + j < n
-  unsigned mask;        // bit j: row first + j starts a group
-  int before;           // starts in the tile before this thread's
-  int slot0;            // slot of this thread's first start
-  long long part;       // this tile's partials: part + op
+  unsigned valid;       // bit j: row j is below n
+  unsigned mask;        // bit j: row j begins a segment (a boundary)
+  int before;           // boundaries in the block before this thread's
+};
+
+// Where a block's closed segments go.  A segment is the rows from one
+// boundary to the next; segment i begins at the block's boundary i (i =
+// -1: the rows before its first).
+//
+// Tiles (the record path, and the direct one in sorted order): every
+// boundary starts a group, segment i < count - 1 closes in group slot
+// slot0 + i, the last one is the tile's tail partial and segment -1 its
+// head.
+struct TileDest {
+  int count;                   // boundaries in the tile
+  int slot0;                   // the tile's first group slot
+  long long part;              // the tile's partials: part + op
+  Acc* head;
+  Acc* tail;
+
+  template <int KIND>
+  __device__ __forceinline__ void close(const Set& s, int k, int i,
+                                        const Acc& a) const {
+    if (i < 0)
+      head[part + k] = a;
+    else if (i < count - 1)
+      write_group<is128(KIND)>(s, KIND, k, slot0 + i, a);
+    else
+      tail[part + k] = a;
+  }
+};
+
+// Input tiles (the run path): the boundaries are the starts and each
+// piece's first row, and piece[i] and slot[i] (-1 for a piece's first row
+// that starts no group) say where segment i goes: from a piece's first
+// row to the piece's head partial, a group that closes inside its piece
+// to its slot, one still open at the end of its piece to the piece's tail
+// partial.
+struct RunDest {
+  int count;                   // boundaries in the block
+  long long part;              // piece r's partials: part + r * stride
+  long long stride;            //   + op
+  const unsigned char* piece;
+  const int* slot;
+  Acc* head;
+  Acc* tail;
+
+  template <int KIND>
+  __device__ __forceinline__ void close(const Set& s, int k, int i,
+                                        const Acc& a) const {
+    if (i < 0) return;         // a block of input rows begins a segment
+    const int r = piece[i];
+    const long long at = part + r * stride + k;
+    if (slot[i] < 0)
+      head[at] = a;
+    else if (i + 1 < count && piece[i + 1] == r)
+      write_group<is128(KIND)>(s, KIND, k, slot[i], a);
+    else
+      tail[at] = a;
+  }
 };
 
 // The values of one lane for a thread's rows: on the direct path held in
-// registers, on the record path read from the staged records.
+// registers, on the record path read from the staged records, on the run
+// path from the block's input rows staged in shared memory.
 struct RegValues {
   const long long* v;
   __device__ __forceinline__ long long operator()(int j) const {
@@ -578,32 +686,56 @@ struct RecValues {
   }
 };
 
-// Op k over the thread's rows: the groups that open and close among
-// them are written; a warp-wide segmented scan (shuffles, no barrier)
-// closes the group open at each thread's first start where an earlier
-// thread of the warp holds a start, and leaves the rest to finish_op.
-// hvals: a 128-bit kind's high words (unread by the other kinds).
-template <int KIND, int K, class Values>
+struct RunValues {
+  const long long* lane;     // the block's input rows of the lane (sw)
+  const int* rows;           // the thread's rows' offsets in s_rows
+  __device__ __forceinline__ long long operator()(int j) const {
+    return lane[sw(rows[j])];
+  }
+};
+
+// Op k over the thread's rows: the segments that open and close among
+// them are closed; a warp-wide segmented scan (shuffles, no barrier)
+// closes the segment open at each thread's first boundary where an
+// earlier thread of the warp holds one, and leaves the rest to
+// finish_op.  A warp with no boundary only reduces its rows for the
+// block's end.  hvals: a 128-bit kind's high words (unread by the other
+// kinds), or with sign the signs of vals.
+template <int KIND, int K, class Values, class Dest>
 __device__ void fold_op(const Set& s, int k, Values vals, Values hvals,
-                        unsigned c, const View& v, Defer* d) {
+                        bool sign, unsigned c, const View& v,
+                        const Dest& dst, Defer* d) {
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   c &= v.valid;
   Acc first_run = zero_acc(), run = zero_acc();
   int seen = 0;
-  const unsigned pos0 = static_cast<unsigned>(v.first);
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     if ((v.mask >> j) & 1u) {
       if (seen == 0)
         first_run = run;
       else
-        write_group<is128(KIND)>(s, KIND, k, v.slot0 + seen - 1, run);
+        dst.template close<KIND>(s, k, v.before + seen - 1, run);
       ++seen;
       run = zero_acc();
     }
-    add_row<KIND>(run, (c >> j) & 1u, KIND == kCount ? 0ll : vals(j),
-                  is128(KIND) ? hvals(j) : 0ll, pos0 + j);
+    const long long x = KIND == kCount ? 0ll : vals(j);
+    add_row<KIND>(run, (c >> j) & 1u, x,
+                  is128(KIND) ? (sign ? x >> 63 : hvals(j)) : 0ll);
+  }
+  if (!__any_sync(0xffffffffu, seen > 0)) {
+    // no boundary in the warp: its rows in order, lanes paired by a tree
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const Acc b = shfl_down_k<KIND>(run, off);
+      if ((lane & (2 * off - 1)) == 0) run = combine<KIND>(run, b);
+    }
+    if (lane == 0) {
+      d->tot[w] = Seg{run, 0};
+      d->slot[w] = -2;
+    }
+    return;
   }
   Seg in{run, seen > 0};
 #pragma unroll
@@ -616,45 +748,38 @@ __device__ void fold_op(const Set& s, int k, Values vals, Values hvals,
              __shfl_up_sync(0xffffffffu, in.start, 1)};
   if (lane == 0) before = Seg{zero_acc(), 0};
   if (lane == 31) d->tot[w] = in;
-  // the group open at this thread's first start closes there
+  // the segment open at this thread's first boundary closes there
   const bool first_in_warp = seen > 0 && !before.start;
   if (seen > 0) {
     const Acc a = combine<KIND>(before.a, first_run);
     if (!first_in_warp) {
-      write_group<is128(KIND)>(s, KIND, k, v.slot0 - 1, a);
+      dst.template close<KIND>(s, k, v.before - 1, a);
     } else {
       d->open[w] = a;
-      d->slot[w] = v.before > 0 ? v.slot0 - 1 : -1;
+      d->slot[w] = v.before - 1;
     }
   }
   const unsigned opens = __ballot_sync(0xffffffffu, first_in_warp);
   if (lane == 0 && !opens) d->slot[w] = -2;
 }
 
-// After every op's fold and one barrier: the groups each warp left open
-// (item w < kWarps), and the tile's head or tail partial (item kWarps).
-template <int KIND>
+// After every op's fold and one barrier: the segments each warp left open
+// (item w < kWarps), and the block's last segment (item kWarps).
+template <int KIND, class Dest>
 __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
-                          long long part, Acc* head, Acc* tail) {
+                          const Dest& dst) {
   Seg pre{zero_acc(), 0};
   if (item < kWarps) {
-    const int slot = d->slot[item];
-    if (slot == -2) return;
+    const int i = d->slot[item];
+    if (i == -2) return;
     for (int q = item - 1; q >= 0 && !pre.start; --q)
       pre = seg_op<KIND>(d->tot[q], pre);
-    const Acc a = combine<KIND>(pre.a, d->open[item]);
-    if (slot >= 0)
-      write_group<is128(KIND)>(s, KIND, k, slot, a);
-    else
-      head[part + k] = a;
+    dst.template close<KIND>(s, k, i, combine<KIND>(pre.a, d->open[item]));
     return;
   }
   for (int q = kWarps - 1; q >= 0 && !pre.start; --q)
     pre = seg_op<KIND>(d->tot[q], pre);
-  if (pre.start)
-    tail[part + k] = pre.a;
-  else
-    head[part + k] = pre.a;
+  dst.template close<KIND>(s, k, dst.count - 1, pre.a);
 }
 
 #define SRT_KINDS64(kind, CALL)       \
@@ -679,11 +804,13 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
 struct Scratch {
   unsigned long long* state;   // [0] the tile counter, [1 + t] tile t
   unsigned short* masks;       // start bits, [tiles][kThreads]
-  int* tile_counts;
+  int* tile_counts;            // [tiles], the run path [pieces]
   int* tile_offsets;
-  Acc* head;                   // [tiles][ops of the set]
+  Acc* head;                   // [tiles or pieces][ops of the set]
   Acc* tail;
   const uint4* records;        // record path
+  int* pieces;                 // the run path: [runs][blocks + 1]
+  Acc* block_heads;            // [ceil(tiles or pieces / kFixTiles)][ops]
 };
 
 // The tile's start count through the earlier tiles' status words (warp
@@ -732,9 +859,11 @@ __host__ __device__ constexpr int stage_bytes(int K, int R) {
 // starts, the tile's group slots (look-back), first_row and the group
 // count.  One barrier joins every op's warps at the end of the tile.
 // W128: the set holds a 128-bit op; a set of 64-bit ops alone compiles
-// without the 128-bit kinds' code and registers.
+// without the 128-bit kinds' code and registers, in three blocks an SM
+// (80 registers); a W128 one may take 128 registers (two blocks), so it
+// does not spill.
 template <int K, bool REC, bool W128>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, W128 ? 2 : 3)
 fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
             int global_agg, int first_set, int R, Scratch sc, int tiles,
             int* first_row, int* groups) {
@@ -896,6 +1025,7 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
   }
   int count;
   v.before = block_exclusive_sum(__popc(v.mask), s_warp, &count);
+  TileDest dst{count, 0, (long long)tile * s.count, sc.head, sc.tail};
   if (first_set) {
     if (tid < 32) {
       const int slot = look_back(tile, count, sc.state + 1);
@@ -907,7 +1037,7 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
       }
     }
     __syncthreads();
-    v.slot0 = s_slot + v.before;
+    dst.slot0 = s_slot;
     int q = 0;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
@@ -915,13 +1045,12 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         const int row = REC ? (order ? __ldg(order + v.first + j)
                                      : static_cast<int>(v.first + j))
                             : in_row[REC ? 0 : j];
-        first_row[v.slot0 + q++] = row;
+        first_row[s_slot + v.before + q++] = row;
       }
     }
   } else {
-    v.slot0 = sc.tile_offsets[tile] + v.before;
+    dst.slot0 = sc.tile_offsets[tile];
   }
-  v.part = (long long)tile * s.count;
 
   // every op of the set, each input read once a row
   if (REC) {
@@ -934,7 +1063,9 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
                                                     : 0), R};
       const RecValues hvals{
           my_rec + (s.lane_hi[k] >= 0 ? s.lane_off[s.lane_hi[k]] : 0), R};
-#define SRT_FOLD(KIND) fold_op<KIND, K>(s, k, vals, hvals, c, v, defer + k)
+      const bool sign = s.lane_hi[k] == -2;
+#define SRT_FOLD(KIND) \
+  fold_op<KIND, K>(s, k, vals, hvals, sign, c, v, dst, defer + k)
       if constexpr (W128) {
         SRT_KINDS(s.kind[k], SRT_FOLD)
       } else {
@@ -955,10 +1086,11 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
     }
     for (int l = -1; l < s.nlanes; ++l) {
       if constexpr (W128) {
-        // the 64-bit ops over lane l; the 128-bit ops' lanes come below
+        // the 64-bit ops and the sums through signs over lane l; the
+        // other 128-bit ops' lanes come below
         bool used = false;
         for (int k = 0; k < s.count; ++k)
-          used |= s.lane[k] == l && !is128(s.kind[k]);
+          used |= s.lane[k] == l && s.lane_hi[k] < 0;
         if (!used) continue;
       }
       long long x[K];
@@ -968,20 +1100,26 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         x[j] = lane ? lane[in_row[REC ? 0 : j]] : 0ll;
       const RegValues vals{x};
       for (int k = 0; k < s.count; ++k) {
-        if (s.lane[k] != l || (W128 && is128(s.kind[k]))) continue;
+        if (s.lane[k] != l || s.lane_hi[k] >= 0) continue;
         const unsigned c = s_bits[s.mask[k] * kThreads + tid];
-#define SRT_FOLD(KIND) fold_op<KIND, K>(s, k, vals, vals, c, v, defer + k)
-        SRT_KINDS64(s.kind[k], SRT_FOLD)
+        const bool sign = s.lane_hi[k] == -2;
+#define SRT_FOLD(KIND) \
+  fold_op<KIND, K>(s, k, vals, vals, sign, c, v, dst, defer + k)
+        if constexpr (W128) {
+          SRT_KINDS(s.kind[k], SRT_FOLD)
+        } else {
+          SRT_KINDS64(s.kind[k], SRT_FOLD)
+        }
 #undef SRT_FOLD
       }
     }
-    // the 128-bit ops: both words of the op's pair in registers, read
+    // the 128-bit ops over a pair of lanes: both words in registers, read
     // again only where the pair changes
     if constexpr (W128) {
       int at_lo = -1, at_hi = -1;
       long long x[K], xh[K];
       for (int k = 0; k < s.count; ++k) {
-        if (!is128(s.kind[k])) continue;
+        if (s.lane_hi[k] < 0) continue;
         if (s.lane[k] != at_lo || s.lane_hi[k] != at_hi) {
           at_lo = s.lane[k];
           at_hi = s.lane_hi[k];
@@ -997,13 +1135,16 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         const unsigned c = s_bits[s.mask[k] * kThreads + tid];
         switch (s.kind[k]) {
           case kSum128:
-            fold_op<kSum128, K>(s, k, vals, hvals, c, v, defer + k);
+            fold_op<kSum128, K>(s, k, vals, hvals, false, c, v, dst,
+                                defer + k);
             break;
           case kMin128:
-            fold_op<kMin128, K>(s, k, vals, hvals, c, v, defer + k);
+            fold_op<kMin128, K>(s, k, vals, hvals, false, c, v, dst,
+                                defer + k);
             break;
           default:
-            fold_op<kMax128, K>(s, k, vals, hvals, c, v, defer + k);
+            fold_op<kMax128, K>(s, k, vals, hvals, false, c, v, dst,
+                                defer + k);
         }
       }
     }
@@ -1012,8 +1153,504 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
   for (int item = tid; item < s.count * (kWarps + 1); item += kThreads) {
     const int k = item / (kWarps + 1);
 #define SRT_FINISH(KIND) \
-  finish_op<KIND>(s, k, item - k * (kWarps + 1), defer + k, v.part, \
-                  sc.head, sc.tail)
+  finish_op<KIND>(s, k, item - k * (kWarps + 1), defer + k, dst)
+    if constexpr (W128) {
+      SRT_KINDS(s.kind[k], SRT_FINISH)
+    } else {
+      SRT_KINDS64(s.kind[k], SRT_FINISH)
+    }
+#undef SRT_FINISH
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The run path: input tiles split by the order's runs.
+//
+// Over an order of R <= kFewRuns increasing runs (K2's stable order over a
+// few groups), block b takes the input rows [b * 2048, (b + 1) * 2048)
+// and, for each run r, the sorted rows of run r whose input rows lie
+// there: a contiguous stretch of sorted rows, piece (r, b), found by a
+// binary search over the run (pieces_kernel).  The block's virtual rows
+// are its pieces one after another; thread t folds virtual rows 8t to 8t
+// + 7.  Every input the block reads lies in its input rows, so it copies
+// them (the lanes, the masks, the key words, the live flags) into shared
+// memory with coalesced 16-byte copies, each byte once, and the fold
+// gathers from there: reading through the order pulled a 32-byte sector
+// for each 8-byte value.  The pieces are the partials' tiles, numbered r
+// * blocks + b, which is sorted order: a group open at the end of piece
+// (r, b) goes on in piece (r, b + 1), and the fixup joins them as it
+// joins tiles.  run_starts_kernel finds the starts and each piece's count
+// first; one block scans the counts into the pieces' first slots.
+// ---------------------------------------------------------------------------
+
+constexpr int kInputTile = kDirectTile;   // input rows a block
+constexpr int kRunSlots = 2;              // lanes staged a batch
+constexpr int kKeySlots = 2;              // key words staged a batch
+
+// The run path's staging of a set's values: each distinct (lane, high
+// lane) pair the ops read is copied once, a batch of at most kRunSlots
+// lanes at a time (a pair takes two slots); an op reads its pair's slots
+// in its batch.
+struct StepPlan {
+  int batches;
+  unsigned opens;                          // ops whose pair is staged
+  signed char batch[kOpsPerLaunch];        // -1: a count
+  signed char lo[kOpsPerLaunch];           // slot of the low (only) lane
+  signed char hi[kOpsPerLaunch];           // slot of the high lane, or -1
+};
+
+__device__ void plan_steps(const Set& s, StepPlan* p) {
+  int batch = 0, used = 0;
+  p->opens = 0;
+  p->batches = 0;
+  for (int k = 0; k < s.count; ++k) {
+    p->batch[k] = p->lo[k] = p->hi[k] = -1;
+    if (s.lane[k] < 0) continue;
+    const int hk = s.lane_hi[k] >= 0 ? s.lane_hi[k] : -1;
+    int same = -1;
+    for (int q = 0; q < k && same < 0; ++q)
+      if (s.lane[q] == s.lane[k] &&
+          (s.lane_hi[q] >= 0 ? s.lane_hi[q] : -1) == hk)
+        same = q;
+    if (same >= 0) {
+      p->batch[k] = p->batch[same];
+      p->lo[k] = p->lo[same];
+      p->hi[k] = p->hi[same];
+      continue;
+    }
+    const int need = hk >= 0 ? 2 : 1;
+    if (used + need > kRunSlots) {
+      ++batch;
+      used = 0;
+    }
+    p->batch[k] = static_cast<signed char>(batch);
+    p->lo[k] = static_cast<signed char>(used);
+    p->hi[k] = static_cast<signed char>(hk >= 0 ? used + 1 : -1);
+    used += need;
+    p->opens |= 1u << k;
+    p->batches = batch + 1;
+  }
+}
+
+
+struct Runs {
+  int count;                     // at most kFewRuns
+  int begin[kFewRuns + 1];       // begin[count] = n
+};
+
+// pieces[r * (blocks + 1) + b]: the first sorted row of run r whose input
+// row is b * kInputTile or more (b = blocks: the run's end).
+__global__ void __launch_bounds__(kThreads)
+pieces_kernel(const int* __restrict__ order, Runs runs, int blocks,
+              int* pieces) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)runs.count * (blocks + 1)) return;
+  const int r = static_cast<int>(idx / (blocks + 1));
+  const long long x = (idx % (blocks + 1)) * (long long)kInputTile;
+  int lo = runs.begin[r], hi = runs.begin[r + 1];
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(order + mid) < x) lo = mid + 1; else hi = mid;
+  }
+  pieces[idx] = lo;
+}
+
+// A block's pieces: piece r holds its virtual rows [at[r], at[r + 1]),
+// the sorted rows from lo[r]; prev[r] is the input row of the sorted row
+// before lo[r] (-1: none).
+struct PieceTable {
+  int count;
+  int lo[kFewRuns];
+  int at[kFewRuns + 1];
+  int prev[kFewRuns];
+};
+
+__device__ void load_pieces(const Scratch& sc, const int* __restrict__ order,
+                            int nruns, int blocks, PieceTable* t) {
+  const int tid = threadIdx.x;
+  if (tid < nruns) {
+    const int* p = sc.pieces + (long long)tid * (blocks + 1) + blockIdx.x;
+    const int lo = p[0];
+    t->lo[tid] = lo;
+    t->at[tid + 1] = p[1] - lo;
+    t->prev[tid] = order && lo > 0 ? __ldg(order + lo - 1) : -1;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    t->count = nruns;
+    t->at[0] = 0;
+    for (int r = 0; r < nruns; ++r) t->at[r + 1] += t->at[r];
+  }
+  __syncthreads();
+}
+
+// The piece that holds virtual row v: the first r with at[r + 1] > v.
+__device__ __forceinline__ int piece_of(const PieceTable* t, int v) {
+  int lo = 0, hi = t->count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (t->at[mid + 1] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The block's virtual rows' input rows, less the block's first, into
+// s_rows: read through the order, coalesced (a piece is a stretch of
+// sorted rows), a thread's loads in flight together; 0 past its rows.
+__device__ void load_run_rows(const PieceTable* t,
+                              const int* __restrict__ order, int base,
+                              int* s_rows) {
+  constexpr int kPer = kInputTile / kThreads;
+  const int rows = t->at[t->count];
+  int rel[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = u * kThreads + threadIdx.x;
+    rel[u] = base;               // past the block's rows: row 0
+    if (i < rows) {
+      const int r = piece_of(t, i);
+      rel[u] = __ldg(order + t->lo[r] + (i - t->at[r]));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    s_rows[padded(u * kThreads + threadIdx.x)] = rel[u] - base;
+}
+
+// A staged 8-byte word's place: 2 words of padding after each 32, so the
+// threads of a warp, whose rows lie 8 / d input rows apart (d: their
+// group's share), hit distinct banks; 16-byte copies stay aligned.
+constexpr int kSlotWords = kInputTile + kInputTile / 16;
+
+// rows bytes (width 1) or 8-byte words (width 8, placed by sw) of src
+// from row base into shared memory: 16-byte copies in flight together
+// where aligned (the caller waits), else plain.
+__device__ void stage_range(void* smem, const void* src, long long base,
+                            int rows, int width) {
+  const unsigned char* g =
+      static_cast<const unsigned char*>(src) + base * width;
+  const int whole = reinterpret_cast<size_t>(g) % 16 == 0
+                        ? rows * width / 16 : 0;
+  if (width == 8) {
+    long long* d = static_cast<long long*>(smem);
+    const long long* g8 = reinterpret_cast<const long long*>(g);
+    for (int c = threadIdx.x; c < whole; c += kThreads)
+      copy16(d + sw(2 * c), g8 + 2 * c);
+    for (int i = whole * 2 + threadIdx.x; i < rows; i += kThreads)
+      d[sw(i)] = __ldg(g8 + i);
+    return;
+  }
+  unsigned char* d = static_cast<unsigned char*>(smem);
+  for (int c = threadIdx.x; c < whole; c += kThreads)
+    copy16(d + 16 * c, g + 16 * c);
+  for (int i = whole * 16 + threadIdx.x; i < rows; i += kThreads)
+    d[i] = __ldg(g + i);
+}
+
+// Each thread's virtual rows: rel[j] (the input row less the block's
+// first), and the bits of the rows below the block's count and of the
+// rows that begin a piece.
+template <int K>
+__device__ __forceinline__ void run_view(const PieceTable* t,
+                                         const int* s_rows, int (&rel)[K],
+                                         unsigned* valid, unsigned* brk) {
+  const int rows = t->at[t->count];
+  const int v0 = threadIdx.x * K;
+  int r = v0 < rows ? piece_of(t, v0) : 0;
+  *valid = 0;
+  *brk = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int v = v0 + j;
+    rel[j] = 0;
+    if (v < rows) {
+      while (t->at[r + 1] <= v) ++r;
+      rel[j] = s_rows[padded(v)];
+      *valid |= 1u << j;
+      *brk |= v == t->at[r] ? (1u << j) : 0u;
+    }
+  }
+}
+
+// The starts of the run path: block b's rows' start bits
+// (sc.masks[b][thread]) and each piece's start count.  *flag is set and
+// nothing written when a block holds more than kInputTile rows (an order
+// that is not a permutation).  Four blocks an SM (two key words staged a
+// batch): 10 % faster than three at q1d's call.
+template <int K>
+__global__ void __launch_bounds__(kThreads, 4)
+run_starts_kernel(Keys keys, const int* __restrict__ order, int n,
+                  int nruns, int blocks, Scratch sc, int* flag) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ PieceTable s_t;
+  __shared__ int s_rows[kPaddedTile];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_cnt[kFewRuns];
+  __shared__ long long s_pk[kKeySlots * kFewRuns];   // the row before a piece
+  const int tid = threadIdx.x;
+  const long long base = (long long)blockIdx.x * kInputTile;
+  const int in_rows = n - base < kInputTile ? static_cast<int>(n - base)
+                                            : kInputTile;
+  long long* s_key = reinterpret_cast<long long*>(s_dyn);
+  unsigned char* s_live = s_dyn + kKeySlots * kSlotWords * 8;
+  // the varying key words, kKeySlots at a time: the first batch and the
+  // live flags in flight while the pieces and the rows load
+  int k = 0;
+  int words[kKeySlots];
+  auto next_batch = [&]() {
+    int nw = 0;
+    for (; k < keys.words.count && nw < kKeySlots; ++k)
+      if (keys.varying[k]) words[nw++] = k;
+    for (int q = 0; q < nw; ++q)
+      stage_range(s_key + q * kSlotWords, keys.words.w[words[q]], base,
+                  in_rows, 8);
+    return nw;
+  };
+  int nw = next_batch();
+  if (keys.live) stage_range(s_live, keys.live, base, in_rows, 1);
+  load_pieces(sc, order, nruns, blocks, &s_t);
+  if (s_t.at[nruns] > kInputTile) {
+    if (tid == 0) atomicOr(flag, 1);
+    return;
+  }
+  load_run_rows(&s_t, order, static_cast<int>(base), s_rows);
+  if (tid < kFewRuns) s_cnt[tid] = 0;
+  __syncthreads();
+  int rel[K];
+  unsigned valid, brk;
+  run_view<K>(&s_t, s_rows, rel, &valid, &brk);
+  const int v0 = tid * K;
+  const int r0 = v0 < s_t.at[nruns] ? piece_of(&s_t, v0) : 0;
+  // a row with no sorted row before it starts a group
+  unsigned diff = 0;
+  {
+    int r = r0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (!((brk >> j) & 1u)) continue;
+      while (s_t.at[r + 1] <= v0 + j) ++r;
+      if (s_t.prev[r] < 0) diff |= 1u << j;
+    }
+  }
+  // each varying word compared with the sorted row before: in the
+  // thread, in the block, or the row before the piece
+  while (nw > 0) {
+    if (tid < nruns)
+      for (int q = 0; q < nw; ++q)
+        s_pk[q * kFewRuns + tid] =
+            s_t.prev[tid] >= 0 ? keys.words.w[words[q]][s_t.prev[tid]] : 0;
+    copy_wait();
+    __syncthreads();
+    if (valid) {
+      for (int q = 0; q < nw; ++q) {
+        const long long* sk = s_key + q * kSlotWords;
+        int r = r0;
+        long long p = 0;
+        if (!(brk & 1u)) p = sk[sw(s_rows[padded(v0 - 1)])];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if (!((valid >> j) & 1u)) break;
+          if ((brk >> j) & 1u) {
+            while (s_t.at[r + 1] <= v0 + j) ++r;
+            p = s_pk[q * kFewRuns + r];
+          }
+          const long long c = sk[sw(rel[j])];
+          diff |= c != p ? (1u << j) : 0u;
+          p = c;
+        }
+      }
+    }
+    __syncthreads();                      // the batch is read
+    nw = next_batch();
+  }
+  unsigned lv = 0xffffffffu;
+  if (keys.live) {
+    copy_wait();
+    __syncthreads();
+    lv = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) lv |= s_live[rel[j]] ? (1u << j) : 0u;
+  }
+  const unsigned m = diff & lv & valid;
+  sc.masks[(long long)blockIdx.x * kThreads + tid] =
+      static_cast<unsigned short>(m);
+  if (m) {
+    int r = r0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (!((valid >> j) & 1u)) break;
+      while (s_t.at[r + 1] <= v0 + j) ++r;
+      if ((m >> j) & 1u) atomicAdd(&s_cnt[r], 1);
+    }
+  }
+  __syncthreads();
+  if (tid < nruns)
+    sc.tile_counts[(long long)tid * blocks + blockIdx.x] = s_cnt[tid];
+}
+
+// Dynamic shared memory of a run fold block: kRunSlots lanes of the
+// block's input rows, its masks (kInputTile bytes each) and their bits a
+// thread, then a Defer an op.
+constexpr int kRunStage = kRunSlots * kSlotWords * 8;
+
+__host__ __device__ constexpr int run_stage_bytes(int nmasks) {
+  return kRunStage + nmasks * (kInputTile + kThreads * 2);
+}
+
+// The fold of one set over block b's input rows (the run path): its
+// pieces' virtual rows, their boundaries (the starts run_starts_kernel
+// found, and each piece's first row), the lanes staged from the block's
+// input rows a batch at a time.  The first set writes first_row.  Three
+// blocks an SM (85 registers, two lanes staged a batch): the op folds
+// are chains of dependent shuffles and adds, and the third block's warps
+// fill their stalls (two blocks of four staged lanes took 28 % longer at
+// q1d's call).
+template <bool W128>
+__global__ void __launch_bounds__(kThreads, 3)
+run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
+                int nruns, int blocks, Scratch sc, int* first_row,
+                int* flag) {
+  constexpr int K = kDirectRows;
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ PieceTable s_t;
+  __shared__ int s_rows[kPaddedTile];
+  __shared__ int s_slot[kInputTile];
+  __shared__ unsigned char s_piece[kInputTile];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_first[kFewRuns];
+  __shared__ StepPlan s_plan;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const long long base = (long long)b * kInputTile;
+  const int in_rows = n - base < kInputTile ? static_cast<int>(n - base)
+                                            : kInputTile;
+  long long* s_val = reinterpret_cast<long long*>(s_dyn);
+  unsigned char* s_mask = s_dyn + kRunStage;
+  unsigned short* s_bits = reinterpret_cast<unsigned short*>(
+      s_mask + s.nmasks * kInputTile);
+  Defer* defer = reinterpret_cast<Defer*>(s_dyn + run_stage_bytes(s.nmasks));
+  if (tid == 0) plan_steps(s, &s_plan);
+  __syncthreads();
+  auto stage = [&](int bt) {
+    for (int k = 0; k < s.count; ++k) {
+      if (!((s_plan.opens >> k) & 1u) || s_plan.batch[k] != bt) continue;
+      stage_range(s_val + s_plan.lo[k] * kSlotWords, s.lanes[s.lane[k]],
+                  base, in_rows, 8);
+      if (s_plan.hi[k] >= 0)
+        stage_range(s_val + s_plan.hi[k] * kSlotWords,
+                    s.lanes[s.lane_hi[k]], base, in_rows, 8);
+    }
+  };
+  // the block's input rows of the masks and the first lanes: in flight
+  // while the pieces and the rows load
+  for (int q = 0; q < s.nmasks; ++q)
+    stage_range(s_mask + q * kInputTile, s.masks[q], base, in_rows, 1);
+  if (s_plan.batches > 0) stage(0);
+  load_pieces(sc, nullptr, nruns, blocks, &s_t);
+  if (s_t.at[nruns] > kInputTile) {
+    if (tid == 0) atomicOr(flag, 1);
+    return;
+  }
+  load_run_rows(&s_t, order, static_cast<int>(base), s_rows);
+  copy_wait();
+  __syncthreads();
+  int rel[K];
+  unsigned valid, brk;
+  run_view<K>(&s_t, s_rows, rel, &valid, &brk);
+  for (int q = 0; q < s.nmasks; ++q) {
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      c |= s_mask[q * kInputTile + rel[j]] ? (1u << j) : 0u;
+    s_bits[q * kThreads + tid] = static_cast<unsigned short>(c & valid);
+  }
+  // the boundaries: the starts and each piece's first row
+  const unsigned mk =
+      sc.masks[(long long)b * kThreads + tid] & valid;
+  const unsigned bnd = mk | brk;
+  View v;
+  v.first = 0;
+  v.valid = valid;
+  v.mask = bnd;
+  int nb, ns;
+  v.before = block_exclusive_sum(__popc(bnd), s_warp, &nb);
+  const int sbefore = block_exclusive_sum(__popc(mk), s_warp, &ns);
+  const int v0 = tid * K;
+  const int r0 = v0 < s_t.at[nruns] ? piece_of(&s_t, v0) : 0;
+  {
+    int r = r0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (!((brk >> j) & 1u)) continue;
+      while (s_t.at[r + 1] <= v0 + j) ++r;
+      s_first[r] = sbefore + __popc(mk & ((1u << j) - 1u));
+    }
+  }
+  __syncthreads();
+  {
+    int r = r0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (!((bnd >> j) & 1u)) continue;
+      while (s_t.at[r + 1] <= v0 + j) ++r;
+      const int i = v.before + __popc(bnd & ((1u << j) - 1u));
+      s_piece[i] = static_cast<unsigned char>(r);
+      int slot = -1;
+      const long long piece = (long long)r * blocks + b;
+      if ((mk >> j) & 1u) {
+        slot = sc.tile_offsets[piece] + sbefore +
+               __popc(mk & ((1u << j) - 1u)) - s_first[r];
+        if (first_set) first_row[slot] = static_cast<int>(base) + rel[j];
+        if ((brk >> j) & 1u)             // the piece's head is empty
+          for (int k = 0; k < s.count; ++k)
+            sc.head[piece * s.count + k] = zero_acc();
+      }
+      s_slot[i] = slot;
+    }
+  }
+  if (tid < nruns && s_t.at[tid] == s_t.at[tid + 1])
+    for (int k = 0; k < s.count; ++k)     // an empty piece
+      sc.head[((long long)tid * blocks + b) * s.count + k] = zero_acc();
+  __syncthreads();
+  const RunDest dst{nb, (long long)b * s.count,
+                    (long long)blocks * s.count, s_piece, s_slot, sc.head,
+                    sc.tail};
+  const int* my_rows = s_rows + padded(v0);   // a thread's 8 rows are
+                                              // contiguous in s_rows
+  for (int bt = -1; bt < s_plan.batches; ++bt) {
+    // bt = -1: the counts, which read no value
+    if (bt > 0) {
+      __syncthreads();                          // the last batch is read
+      stage(bt);
+    }
+    if (bt > 0) {
+      copy_wait();
+      __syncthreads();
+    }
+    for (int k = 0; k < s.count; ++k) {
+      if (s_plan.batch[k] != bt) continue;
+      const RunValues vals{s_val + (bt >= 0 ? s_plan.lo[k] : 0) * kSlotWords,
+                           my_rows};
+      const RunValues hvals{
+          s_val + (s_plan.hi[k] >= 0 ? s_plan.hi[k] : 0) * kSlotWords,
+          my_rows};
+      const bool sign = s.lane_hi[k] == -2;
+      const unsigned c = s_bits[s.mask[k] * kThreads + tid];
+#define SRT_FOLD(KIND) \
+  fold_op<KIND, K>(s, k, vals, hvals, sign, c, v, dst, defer + k)
+      if constexpr (W128) {
+        SRT_KINDS(s.kind[k], SRT_FOLD)
+      } else {
+        SRT_KINDS64(s.kind[k], SRT_FOLD)
+      }
+#undef SRT_FOLD
+    }
+  }
+  __syncthreads();
+  for (int item = tid; item < s.count * (kWarps + 1); item += kThreads) {
+    const int k = item / (kWarps + 1);
+#define SRT_FINISH(KIND) \
+  finish_op<KIND>(s, k, item - k * (kWarps + 1), defer + k, dst)
     if constexpr (W128) {
       SRT_KINDS(s.kind[k], SRT_FINISH)
     } else {
@@ -1026,20 +1663,46 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
 // Op k of the group begun at tile t's last start: the tail partial,
 // then the head partials of tiles [lo, hi) of each thread, joined by a
 // warp tree (WIDE: then across the block's warps).
+// The partials a fixup joins after tile t's tail: item i < direct is
+// tile t + 1 + i's head, item i past it the head of block bt + 1 + i -
+// direct of kFixTiles tiles (fixup_heads_kernel).
+struct Partials {
+  const Acc* head;
+  const Acc* block_heads;
+  int first;                   // t + 1
+  int direct;
+  int first_block;             // bt + 1
+  __device__ __forceinline__ Acc operator()(const Set& s, int k,
+                                            int i) const {
+    return i < direct
+               ? head[(long long)(first + i) * s.count + k]
+               : block_heads[(long long)(first_block + i - direct) *
+                                 s.count + k];
+  }
+};
+
 template <int KIND, bool WIDE>
 __device__ void fixup_op(const Set& s, int k, int t, int slot, int lo,
-                         int hi, const Acc* head, const Acc* tail,
+                         int hi, const Partials& parts, const Acc* tail,
                          Acc* s_warp) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int w = tid >> 5;
   Acc a = zero_acc();
-  for (int u = lo; u < hi; ++u)
-    a = combine<KIND>(a, head[(long long)u * s.count + k]);
+  // a thread's partials 8 loads at a time, all in flight together
+  for (int u = lo; u < hi; u += 8) {
+    Acc x[8];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+    for (int q = 0; q < 8; ++q)
+      x[q] = u + q < hi ? parts(s, k, u + q) : zero_acc();
+#pragma unroll
+    for (int q = 0; q < 8; ++q) a = combine<KIND>(a, x[q]);
+  }
+  // lanes paired in order, so a tie keeps the earlier partial
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
     const Acc b = shfl_down(a, off);
-    if (lane + off < 32) a = combine<KIND>(a, b);
+    if ((lane & (2 * off - 1)) == 0) a = combine<KIND>(a, b);
   }
   if (!WIDE) {
     if (lane == 0)
@@ -1060,11 +1723,12 @@ __device__ void fixup_op(const Set& s, int k, int t, int slot, int lo,
 
 template <bool WIDE, bool W128>
 __device__ void fixup_ops(const Set& s, int t, int slot, int lo, int hi,
-                          const Acc* head, const Acc* tail, Acc* s_warp) {
+                          const Partials& parts, const Acc* tail,
+                          Acc* s_warp) {
 #pragma unroll 1
   for (int k = 0; k < s.count; ++k) {
 #define SRT_FIX(KIND) \
-  fixup_op<KIND, WIDE>(s, k, t, slot, lo, hi, head, tail, s_warp)
+  fixup_op<KIND, WIDE>(s, k, t, slot, lo, hi, parts, tail, s_warp)
     switch (s.kind[k]) {
       case kMinInt: SRT_FIX(kMinInt); break;
       case kMaxInt: SRT_FIX(kMaxInt); break;
@@ -1079,44 +1743,143 @@ __device__ void fixup_ops(const Set& s, int t, int slot, int lo, int hi,
   }
 }
 
+// The fixup over kFixTiles tiles a block: one load a tile finds those that
+// hold a start; a warp finishes each whose group closes within the next
+// 32 tiles (one partial a lane), and the block together each of the
+// others (a group over many tiles: a hot key, or few groups), whose end a
+// binary search over the tiles' first slots finds, joining the heads of
+// its own block's later tiles and then whole blocks' heads
+// (fixup_heads_kernel): a group over 15,800 pieces (a group of TPC-H Q1's
+// six on the run path) joins about 310 partials, not 15,800.  Blocks for
+// tiles without a start cost one read, so pieces without a start (the
+// run path's) cost little.
+constexpr int kFixTiles = 64;
+
+// block_heads[b][op]: block b's tiles' heads joined in order, from its
+// first tile through its first tile that holds a start (all of them if
+// none does): what a group begun before block b takes from it when it
+// closes inside block b or runs through it.  A warp an op.
+template <bool W128>
+__global__ void __launch_bounds__(kThreads)
+fixup_heads_kernel(Set s, const int* tile_counts, int tiles,
+                   const Acc* head, Acc* block_heads) {
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int t0 = blockIdx.x * kFixTiles;
+  if (tid < 32) {
+    int last = kFixTiles - 1;
+    for (int c = kFixTiles - 32; c >= 0; c -= 32) {
+      const int t = t0 + c + lane;
+      const unsigned m =
+          __ballot_sync(0xffffffffu, t < tiles && tile_counts[t] > 0);
+      if (m) last = c + __ffs(m) - 1;
+    }
+    if (lane == 0) s_last = min(last, tiles - 1 - t0);
+  }
+  __syncthreads();
+  const int n = s_last + 1;                    // tiles joined
+  for (int k = tid >> 5; k < s.count; k += kWarps) {
+    const Partials parts{head, nullptr, t0, kFixTiles, 0};
+#define SRT_HEADS(KIND)                                                     \
+  {                                                                         \
+    Acc a = zero_acc();                                                     \
+    for (int i = 2 * lane; i < 2 * lane + 2; ++i)                           \
+      a = combine<KIND>(a, i < n ? parts(s, k, i) : zero_acc());            \
+    for (int off = 1; off < 32; off <<= 1) {                                \
+      const Acc b = shfl_down(a, off);                                      \
+      if ((lane & (2 * off - 1)) == 0) a = combine<KIND>(a, b);             \
+    }                                                                       \
+    if (lane == 0) block_heads[(long long)blockIdx.x * s.count + k] = a;    \
+  }
+    switch (s.kind[k]) {
+      case kMinInt: SRT_HEADS(kMinInt); break;
+      case kMaxInt: SRT_HEADS(kMaxInt); break;
+      case kMinFloat: SRT_HEADS(kMinFloat); break;
+      case kMaxFloat: SRT_HEADS(kMaxFloat); break;
+      case kSum128: if constexpr (W128) SRT_HEADS(kSum128); break;
+      case kMin128: if constexpr (W128) SRT_HEADS(kMin128); break;
+      case kMax128: if constexpr (W128) SRT_HEADS(kMax128); break;
+      default: SRT_HEADS(kCount);
+    }
+#undef SRT_HEADS
+  }
+}
+
+// The first u in (t, tiles) whose first slot passes v, else tiles: past
+// the next tile holding a start after one whose last slot is v - 1.
+__device__ int next_start(const int* offsets, int t, int tiles, int v) {
+  int lo = t + 1, hi = tiles;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (offsets[mid] > v) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
 template <bool W128>
 __global__ void __launch_bounds__(kThreads)
 fixup_kernel(Set s, const int* tile_counts, const int* tile_offsets,
-             int tiles, const Acc* head, const Acc* tail) {
-  __shared__ int s_first;
+             int tiles, const Acc* head, const Acc* tail,
+             const Acc* block_heads) {
+  __shared__ int s_list[kFixTiles], s_wide[kFixTiles];
+  __shared__ int s_n, s_nwide, s_end;
   __shared__ Acc s_warp[kWarps];
-  const int t = blockIdx.x;
-  if (tile_counts[t] == 0) return;
   const int tid = threadIdx.x;
-  // the group runs on through every tile up to and including the next
-  // one that holds a start (or the last tile)
-  int end = tiles;
-  for (int c = t + 1; c < tiles; c += kThreads) {
-    if (tid == 0) s_first = tiles;
-    __syncthreads();
-    const int u = c + tid;
-    if (u < tiles && tile_counts[u] > 0) atomicMin(&s_first, u);
-    __syncthreads();
-    const int found = s_first;
-    __syncthreads();
-    if (found < tiles) {
-      end = found + 1;
-      break;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int t0 = blockIdx.x * kFixTiles;
+  if (tid < 32) {
+    // the block's tiles that hold a start, in order
+    int n = 0;
+    for (int c = 0; c < kFixTiles; c += 32) {
+      const int t = t0 + c + lane;
+      const bool has = t < tiles && tile_counts[t] > 0;
+      const unsigned m = __ballot_sync(0xffffffffu, has);
+      if (has) s_list[n + __popc(m & ((1u << lane) - 1u))] = t;
+      n += __popc(m);
+    }
+    if (lane == 0) {
+      s_n = n;
+      s_nwide = 0;
     }
   }
-  const int slot = tile_offsets[t] + tile_counts[t] - 1;
-  const int lo_all = t + 1;
-  if (end - lo_all <= 32) {
-    // a short run of tiles: one warp, one partial a lane
-    if (tid >= 32) return;
-    fixup_ops<false, W128>(s, t, slot, lo_all + tid,
-                           min(lo_all + tid + 1, end), head, tail, s_warp);
-    return;
+  __syncthreads();
+  // a warp a tile where the group closes within the next 32 tiles
+  for (int q = w; q < s_n; q += kWarps) {
+    const int t = s_list[q];
+    const int u = t + 1 + lane;
+    const unsigned m =
+        __ballot_sync(0xffffffffu, u < tiles && tile_counts[u] > 0);
+    const int end = m ? t + 1 + __ffs(m) : (t + 33 >= tiles ? tiles : -1);
+    if (end < 0) {
+      if (lane == 0) s_wide[atomicAdd(&s_nwide, 1)] = t;
+      continue;
+    }
+    const int slot = tile_offsets[t] + tile_counts[t] - 1;
+    const Partials parts{head, nullptr, t + 1, 32, 0};
+    fixup_ops<false, W128>(s, t, slot, lane, min(lane + 1, end - t - 1),
+                           parts, tail, s_warp);
   }
-  const int per = (end - lo_all + kThreads - 1) / kThreads;
-  const int lo = lo_all + tid * per;
-  fixup_ops<true, W128>(s, t, slot, lo, min(lo + per, end), head, tail,
-                        s_warp);
+  __syncthreads();
+  // the block a tile whose group runs on further
+  for (int q = 0; q < s_nwide; ++q) {
+    const int t = s_wide[q];
+    const int slot = tile_offsets[t] + tile_counts[t] - 1;
+    if (tid == 0) s_end = next_start(tile_offsets, t, tiles, slot + 1);
+    __syncthreads();
+    const int end = s_end;
+    // this block's later tiles, then whole blocks through the one that
+    // holds the group's last tile
+    const int bt = t / kFixTiles, be = (end - 1) / kFixTiles;
+    const int direct = be > bt ? (bt + 1) * kFixTiles - t - 1 : end - t - 1;
+    const int count = direct + (be > bt ? be - bt : 0);
+    const Partials parts{head, block_heads, t + 1, direct, bt + 1};
+    const int per = (count + kThreads - 1) / kThreads;
+    const int lo = tid * per;
+    fixup_ops<true, W128>(s, t, slot, lo, min(lo + per, count), parts, tail,
+                          s_warp);
+  }
 }
 
 // An ungrouped aggregate over no rows: one group, every count 0.
@@ -1136,12 +1899,16 @@ long long tiles_of(int n, int rows_per_thread) {
 
 // The scratch regions, each 16-byte aligned: the look-back state (a tile
 // counter and a status word a tile), the start bits, the tiles' start
-// counts and first slots, the head and tail partials [tiles][ops], and
-// the records (n of record_max bytes).  ops_per_set and record_max are
-// the most any set of the call has.  Returns the bytes.
+// counts and first slots, the head and tail partials [tiles][ops], the
+// records (n of record_max bytes), on the run path (runs > 0) the
+// pieces' sorted rows [runs][tiles + 1], the counts, slots and partials
+// being the pieces' (runs x tiles), and the fixup's block heads.
+// ops_per_set and record_max are the most any set of the call has.
+// Returns the bytes.
 long long layout(char* base, int n, int rows_per_thread, int ops_per_set,
-                 int record_max, Scratch* sc) {
+                 int record_max, int runs, Scratch* sc) {
   const long long tiles = tiles_of(n, rows_per_thread);
+  const long long parts = runs > 0 ? runs * tiles : tiles;
   const long long ops = ops_per_set > 0 ? ops_per_set : 1;
   long long off = 0;
   auto take = [&](long long bytes) {
@@ -1152,12 +1919,15 @@ long long layout(char* base, int n, int rows_per_thread, int ops_per_set,
   Scratch s;
   s.state = reinterpret_cast<unsigned long long*>(take((1 + tiles) * 8));
   s.masks = reinterpret_cast<unsigned short*>(take(tiles * kThreads * 2));
-  s.tile_counts = reinterpret_cast<int*>(take(tiles * 4));
-  s.tile_offsets = reinterpret_cast<int*>(take(tiles * 4));
-  s.head = reinterpret_cast<Acc*>(take(tiles * ops * sizeof(Acc)));
-  s.tail = reinterpret_cast<Acc*>(take(tiles * ops * sizeof(Acc)));
+  s.tile_counts = reinterpret_cast<int*>(take(parts * 4));
+  s.tile_offsets = reinterpret_cast<int*>(take(parts * 4));
+  s.head = reinterpret_cast<Acc*>(take(parts * ops * sizeof(Acc)));
+  s.tail = reinterpret_cast<Acc*>(take(parts * ops * sizeof(Acc)));
   s.records = reinterpret_cast<const uint4*>(
       take((long long)n * record_max));
+  s.pieces = reinterpret_cast<int*>(take(runs * (tiles + 1) * 4));
+  s.block_heads = reinterpret_cast<Acc*>(
+      take((parts + kFixTiles - 1) / kFixTiles * ops * sizeof(Acc)));
   if (sc) *sc = s;
   return off;
 }
@@ -1179,6 +1949,60 @@ int launch_fold(const Set& s, const Keys& keys, const int* order, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A run-path kernel's dynamic shared memory, with all of the SM's shared
+// memory for its blocks.
+template <class Kernel>
+cudaError_t run_smem(Kernel kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// The run path's launches for one set: on the first set the pieces, the
+// starts and the pieces' first slots (flag: groups + 1), then the fold
+// and the fixup over the pieces.
+template <bool W128>
+int launch_runs(const Set& s, const Keys& keys, const int* order, int n,
+                int first_set, const Runs& runs, const Scratch& sc,
+                int blocks, int* first_row, int* groups,
+                cudaStream_t stream) {
+  const int pieces = runs.count * blocks;
+  cudaError_t err = cudaSuccess;
+  if (first_set) {
+    err = cudaMemsetAsync(groups + 1, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long bounds = (long long)runs.count * (blocks + 1);
+    pieces_kernel<<<static_cast<unsigned>((bounds + kThreads - 1) / kThreads),
+                    kThreads, 0, stream>>>(order, runs, blocks, sc.pieces);
+    const int key_smem = kKeySlots * kSlotWords * 8 + kInputTile;
+    err = run_smem(run_starts_kernel<kDirectRows>, key_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    run_starts_kernel<kDirectRows><<<blocks, kThreads, key_smem, stream>>>(
+        keys, order, n, runs.count, blocks, sc, groups + 1);
+    srt::scan_kernel<<<1, srt::kScanThreads, 0, stream>>>(
+        sc.tile_counts, pieces, sc.tile_offsets, groups);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int smem = run_stage_bytes(s.nmasks) +
+                   (s.count > 0 ? s.count : 1) * static_cast<int>(sizeof(Defer));
+  err = run_smem(run_fold_kernel<W128>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  run_fold_kernel<W128><<<blocks, kThreads, smem, stream>>>(
+      s, order, n, first_set, runs.count, blocks, sc, first_row, groups + 1);
+  const int fix_blocks = (pieces + kFixTiles - 1) / kFixTiles;
+  fixup_heads_kernel<W128><<<fix_blocks, kThreads, 0, stream>>>(
+      s, sc.tile_counts, pieces, sc.head, sc.block_heads);
+  fixup_kernel<W128><<<fix_blocks, kThreads, 0, stream>>>(
+      s, sc.tile_counts, sc.tile_offsets, pieces, sc.head, sc.tail,
+      sc.block_heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int R>
 int launch_pack(int n, const Set& s, const Keys& keys, int with_keys,
                 const uint4* records, cudaStream_t stream) {
@@ -1194,14 +2018,17 @@ int launch_pack(int n, const Set& s, const Keys& keys, int with_keys,
 // The start of a call: varying[k] = 1 where key word k (a device array of
 // nwords device pointers to int64[n]) is not the same in every row, and
 // with an order (int32[n], or null) varying[nwords] = its descents, exact
-// up to 64.  varying: int32[nwords + 1].
+// up to 64, and varying[nwords + 1 + q], q < min(descents, 64), the
+// positions i of those descents (order[i + 1] < order[i]) in no order.
+// varying: int32[nwords + 65].
 extern "C" int srt_segment_reduce_varying(const long long* const* words,
                                           int nwords, const int* order,
                                           int n, int* varying,
                                           cudaStream_t stream) {
   if (nwords < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
-      cudaMemsetAsync(varying, 0, (nwords + 1) * sizeof(int), stream);
+      cudaMemsetAsync(varying, 0, (nwords + 1 + kFewRuns) * sizeof(int),
+                      stream);
   if (err != cudaSuccess || (nwords == 0 && !order) || n == 0)
     return static_cast<int>(err);
   const long long tiles = (n + kThreads - 1) / kThreads;
@@ -1219,8 +2046,9 @@ extern "C" int srt_segment_reduce_varying(const long long* const* words,
 // k < nops (<= 16): kind[k] (0 count, 1 int64 sum, 2 float64 sum, 3 / 4
 // int64 min / max, 5 / 6 float64 min / max, 7 128-bit sum, 8 / 9 128-bit
 // min / max), op_lane[k] (index into lanes, -1 for a count; a 128-bit
-// kind's low words), op_lane_hi[k] (a 128-bit kind's high words, else
-// -1), op_mask[k] (index into masks: its contributor mask, also its bit in
+// kind's low words), op_lane_hi[k] (a 128-bit kind's high words; -2
+// for a 128-bit sum whose high words are the low words' signs, a DECIMAL64
+// input; else -1), op_mask[k] (index into masks: its contributor mask, also its bit in
 // a record's mask word), sums[k] (the lane's type, [max(n, 1)], null for
 // a count; min and max write the kept value's bits, 0 where no row
 // contributed; a 128-bit kind the low words), sums_hi[k] (a 128-bit
@@ -1237,7 +2065,14 @@ extern "C" int srt_segment_reduce_varying(const long long* const* words,
 // Later sets read its start bits and slots, so each call of a set passes
 // the same n, rows_per_thread, ops_per_set, record_max and scratch
 // (scratch_bytes, 16-byte aligned, at least what layout() takes for
-// them: exec/aggregate.py k3_scratch_bytes).
+// them: exec/aggregate.py k3_scratch_bytes).  run_begin (host, nruns + 1
+// ints, 0 = run_begin[0] < ... < run_begin[nruns] = n) with nruns in
+// [1, 64]: the increasing runs of the order (a permutation), which send
+// the direct path through input tiles (the run path; every set of the
+// call passes them, and the scratch is laid out for them); nruns 0: tiles
+// of sorted rows.  groups: int32[2]; on the run path groups[1] is set
+// when a block found more rows than it takes (the order is no
+// permutation), and the call's results are then void.
 extern "C" int srt_segment_reduce_set(
     const long long* const* words, int nwords, const int* varying,
     int nkeys, const void* const* key_w, const int* key_off,
@@ -1249,8 +2084,9 @@ extern "C" int srt_segment_reduce_set(
     const void* const* masks, int mask_off, int record_bytes,
     int rows_per_thread, int ops_per_set, int record_max, int* first_row,
     int* groups, void* scratch, long long scratch_bytes,
-    cudaStream_t stream) {
+    const int* run_begin, int nruns, cudaStream_t stream) {
   const bool rec = record_bytes > 0;
+  const bool sched = nruns > 0 && n > 0;
   if (n < 0 || nwords < 0 || nops < 0 || nops > kOpsPerLaunch ||
       nops > (ops_per_set > 0 ? ops_per_set : 1) || nlanes < 0 ||
       nlanes > kOpsPerLaunch || nmasks < 0 || nmasks > kOpsPerLaunch ||
@@ -1271,9 +2107,13 @@ extern "C" int srt_segment_reduce_set(
     if (kind[k] < kCount || kind[k] > kMax128 || op_lane[k] < -1 ||
         op_lane[k] >= nlanes || (kind[k] != kCount) != (op_lane[k] >= 0) ||
         op_mask[k] < 0 || op_mask[k] >= nmasks ||
-        (is128(kind[k]) ? (op_lane_hi[k] < 0 || op_lane_hi[k] >= nlanes ||
-                           op_lane_hi[k] == op_lane[k] || !sums_hi[k])
-                        : op_lane_hi[k] != -1))
+        (is128(kind[k])
+             ? (!sums_hi[k] ||
+                (op_lane_hi[k] == -2
+                     ? kind[k] != kSum128
+                     : (op_lane_hi[k] < 0 || op_lane_hi[k] >= nlanes ||
+                        op_lane_hi[k] == op_lane[k])))
+             : op_lane_hi[k] != -1))
       return static_cast<int>(cudaErrorInvalidValue);
     s.kind[k] = kind[k];
     s.lane[k] = op_lane[k];
@@ -1313,7 +2153,7 @@ extern "C" int srt_segment_reduce_set(
   keys.live = live;
   Scratch sc;
   if (layout(static_cast<char*>(scratch), n, rows_per_thread, ops_per_set,
-             rec ? record_max : 0, &sc) > scratch_bytes)
+             rec ? record_max : 0, sched ? nruns : 0, &sc) > scratch_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (n == 0) {
@@ -1326,6 +2166,24 @@ extern "C" int srt_segment_reduce_set(
                      : 0;
   }
   const int tiles = static_cast<int>(tiles_of(n, rows_per_thread));
+  bool w128 = false;
+  for (int k = 0; k < nops; ++k) w128 |= is128(kind[k]);
+  if (sched) {
+    if (rec || global_agg || !order || nruns > kFewRuns || run_begin[0] != 0
+        || run_begin[nruns] != n)
+      return static_cast<int>(cudaErrorInvalidValue);
+    Runs runs;
+    runs.count = nruns;
+    for (int r = 0; r <= nruns; ++r) {
+      if (r > 0 && run_begin[r] <= run_begin[r - 1])
+        return static_cast<int>(cudaErrorInvalidValue);
+      runs.begin[r] = run_begin[r];
+    }
+    return w128 ? launch_runs<true>(s, keys, order, n, first_set, runs, sc,
+                                    tiles, first_row, groups, stream)
+                : launch_runs<false>(s, keys, order, n, first_set, runs, sc,
+                                     tiles, first_row, groups, stream);
+  }
   if (first_set) {
     err = cudaMemsetAsync(sc.state, 0, (1 + (size_t)tiles) * 8, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1345,8 +2203,6 @@ extern "C" int srt_segment_reduce_set(
     if (rc) return rc;
   }
   const int R = rec ? record_bytes : 0;
-  bool w128 = false;
-  for (int k = 0; k < nops; ++k) w128 |= is128(kind[k]);
 #define SRT_LAUNCH(K, REC)                                                  \
   (w128 ? launch_fold<K, REC, true>(s, keys, order, n, global_agg,          \
                                     first_set, R, sc, tiles, first_row,     \
@@ -1366,11 +2222,19 @@ extern "C" int srt_segment_reduce_set(
   }
 #undef SRT_LAUNCH
   if (rc) return rc;
-  if (w128)
-    fixup_kernel<true><<<tiles, kThreads, 0, stream>>>(
-        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail);
-  else
-    fixup_kernel<false><<<tiles, kThreads, 0, stream>>>(
-        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail);
+  const int fix_blocks = (tiles + kFixTiles - 1) / kFixTiles;
+  if (w128) {
+    fixup_heads_kernel<true><<<fix_blocks, kThreads, 0, stream>>>(
+        s, sc.tile_counts, tiles, sc.head, sc.block_heads);
+    fixup_kernel<true><<<fix_blocks, kThreads, 0, stream>>>(
+        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail,
+        sc.block_heads);
+  } else {
+    fixup_heads_kernel<false><<<fix_blocks, kThreads, 0, stream>>>(
+        s, sc.tile_counts, tiles, sc.head, sc.block_heads);
+    fixup_kernel<false><<<fix_blocks, kThreads, 0, stream>>>(
+        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail,
+        sc.block_heads);
+  }
   return static_cast<int>(cudaGetLastError());
 }

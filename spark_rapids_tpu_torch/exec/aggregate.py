@@ -34,10 +34,11 @@ from ..columnar.device import (DeviceBatch, DeviceColumn, batch_to_device,
 from ..columnar.interop import to_arrow_schema, to_arrow_type
 from ..expr.aggregates import (COMPLETE, PARTIAL, AggregateExpression,
                                Average, Count, Max, Min, Sum, bind_aggregate)
+from ..expr.cast import Cast
 from ..expr.core import (ColumnValue, EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
 from ..ops import segmented as seg
-from ..ops.carry import sort_order
+from ..ops.carry import sort_order, sort_order_and_varying
 from ..ops.gather import gather_columns
 from .base import CPU, MERGES, Exec, ExecContext
 from .concat import concat_batches
@@ -48,6 +49,19 @@ _KIND_EXTREME = {("min", False): 3, ("max", False): 4, ("min", True): 5,
                  ("max", True): 6}
 # over a (lo, hi) pair of lanes: a DECIMAL of more than 18 digits
 _KIND_128 = {"sum": 7, "min": 8, "max": 9}
+
+
+class _Sign:
+    """``values_hi[k] = SIGN``: op k is a 128-bit sum of the int64 lane
+    ``values[k]`` read as its own sign-extended pair (a DECIMAL64 input
+    summed into its DECIMAL128 buffer): K3 takes each high word from the
+    low word's sign, so no pair is built and no lane of signs is read."""
+
+    def __repr__(self):
+        return "SIGN"
+
+
+SIGN = _Sign()
 
 
 # ---------------------------------------------------------------------------
@@ -79,14 +93,17 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
                                 global_agg: bool,
                                 order: Optional[torch.Tensor] = None,
                                 ops: Optional[Sequence[str]] = None,
-                                values_hi: Optional[Sequence] = None):
+                                values_hi: Optional[Sequence] = None,
+                                varying: Optional[Sequence[bool]] = None):
     """Plain version of K3: the lanes put in key order by index_select,
     then boundaries, segment ids, index_add_ and, for min and max,
     ``ops/segmented.py:segment_reduce``; over a (lo, hi) pair
     ``segment_sum128`` and ``segment_extreme128``.  See
-    ``segment_reduce_sorted`` for the arguments and the result."""
+    ``segment_reduce_sorted`` for the arguments and the result
+    (``varying`` is a hint the plain version does not need)."""
     names = _op_names(values, ops)
     his = list(values_hi) if values_hi is not None else [None] * len(values)
+    his = [v >> 63 if h is SIGN else h for v, h in zip(values, his)]
     if order is not None:
         idx = order.to(torch.int64)
         words = [w.index_select(0, idx) for w in words]
@@ -172,11 +189,15 @@ _K3_DIRECT_ROWS = 8            # rows a thread on the direct path
 _K3_THREADS = 256
 _K3_ACC_BYTES = 32             # one per-tile partial
 _K3_SECTOR = 32                # what a read through the order moves
+_K3_FIX_TILES = 64             # kFixTiles: the fixup's tiles a block
 _K3_RECORD_KEYS = 7            # more varying words are read through the order
 # An order of at most this many increasing runs of input rows (K2's
 # stable order over at most this many groups) keeps the direct path:
 # its reads then stream, and the records would add the pack and lose
 # (chip_smoke.py's q1x row times both paths).
+# Over such an order the direct path takes the run path: its pieces,
+# partials and fixup grow with runs x tiles, yet it beats tiles of
+# sorted rows through 64 runs (k3_ab.py times both over 6-64 runs).
 _K3_FEW_RUNS = 64
 # K3 keeps the direct path while its distinct inputs are at most this
 # many bytes: their reads through the order then mostly hit the 50 MB L2
@@ -189,7 +210,8 @@ class K3Set(NamedTuple):
     distinct value lanes and contributor masks (a lane named by its
     index into the call's values then values_hi, a mask by the first op
     that reads it), each op's lane (-1 for a count), high lane (a
-    128-bit op's, else -1) and mask index (also its bit in a record's
+    128-bit op's, -2 for the signs of its low lane, else -1) and mask
+    index (also its bit in a record's
     mask word), and on the record path the record's bytes and the byte
     offsets of the lanes, of the varying key words (first set only) and
     of the mask word."""
@@ -209,20 +231,24 @@ class K3Plan(NamedTuple):
     """How K3 folds a call: on the record path (``packed``) or the direct
     one, with K rows a thread, in these sets; the device-memory bytes each
     path moves (a read through the order counted as the 32-byte sector
-    it pulls) and the scratch bytes of the chosen one."""
+    it pulls, the run path's reads once) and the scratch bytes of the
+    chosen one; ``run_path``: the direct path folds tiles of input rows
+    split by the order's few runs (``csrc/segment_reduce.cu``, "The run
+    path")."""
     packed: bool
     rows_per_thread: int
     sets: List[K3Set]
     direct_bytes: int
     packed_bytes: int
     scratch_bytes: int
+    run_path: bool = False
 
 
 def _k3_set(ops, values, masks, nkeys, packed, his) -> Optional[K3Set]:
     """The set of ``ops``; None on the record path when its record would
     exceed 128 bytes.  ``values[k]`` and ``his[k]`` name op k's lane and
-    high lane (None: none) by their index into the call's values then
-    values_hi.  A record holds the distinct lanes (8 bytes each), then
+    high lane (None: none; SIGN: its lane's signs, no lane) by their
+    index into the call's values then values_hi.  A record holds the distinct lanes (8 bytes each), then
     the ``nkeys`` key words it carries (8 each), then the mask word."""
     lanes, mask_keys, mks, op_lane, op_hi, op_mask = [], [], [], [], [], []
 
@@ -234,7 +260,7 @@ def _k3_set(ops, values, masks, nkeys, packed, his) -> Optional[K3Set]:
         return lanes.index(x)
     for k in ops:
         op_lane.append(lane(values[k]))
-        op_hi.append(lane(his[k]))
+        op_hi.append(-2 if his[k] is SIGN else lane(his[k]))
         if masks[k] not in mask_keys:
             mask_keys.append(masks[k])
             mks.append(k)
@@ -271,14 +297,16 @@ def _k3_sets(values, masks, nkeys, packed, his) -> List[K3Set]:
                            packed, his)]
 
 
-def _k3_bytes(n, sets, nkeys, live, ordered) -> int:
+def _k3_bytes(n, sets, nkeys, live, ordered, run_path=False) -> int:
     """Device-memory bytes of K3's sets over n rows (the varying pass,
     the same on both paths, left out).  Record path: the pack reads the
     inputs and writes the records, the fold reads the order and one
     record a row, and the key words no record carries one sector a row
     each.  Direct path: the order and one sector a row for each input,
-    or the inputs alone for rows already in key order."""
-    total = 0
+    or the inputs alone for rows already in key order; the run path:
+    each input once and the order once a set, and once more for the
+    starts."""
+    total = 4 * n if run_path and ordered else 0
     for i, s in enumerate(sets):
         keys, lv = (nkeys, int(live)) if i == 0 else (0, 0)
         inputs = 8 * (len(s.lanes) + keys) + len(s.masks) + lv
@@ -287,9 +315,11 @@ def _k3_bytes(n, sets, nkeys, live, ordered) -> int:
             total += n * (inputs - 8 * far + s.record_bytes + 4
                           + max(s.record_bytes, _K3_SECTOR)
                           + _K3_SECTOR * far)
-        elif ordered:
+        elif ordered and not run_path:
             total += n * (4 + _K3_SECTOR * (len(s.lanes) + len(s.masks)
                                             + keys + lv))
+        elif ordered:
+            total += n * (4 + inputs)
         else:
             total += n * inputs
     return total
@@ -300,17 +330,22 @@ def _up16(x: int) -> int:
 
 
 def k3_scratch_bytes(n: int, rows_per_thread: int, ops_per_set: int,
-                     record_max: int) -> int:
+                     record_max: int, runs: int = 0) -> int:
     """K3's scratch (``layout`` in ``csrc/segment_reduce.cu``, which
     refuses less): the look-back state, the start bits, the tiles' start
-    counts and slots, the head and tail partials of the widest set, and
-    the records, each region rounded up to 16 bytes."""
+    counts and slots, the head and tail partials of the widest set, the
+    records, on the run path (``runs`` > 0) the pieces' sorted rows, and
+    the fixup's block heads (a head a set's op for each 64 tiles), the
+    counts, slots, partials and block heads on the run path being the
+    pieces' (runs x tiles); each region rounded up to 16 bytes."""
     tiles = -(-n // (_K3_THREADS * rows_per_thread))
+    parts = runs * tiles if runs else tiles
     ops = max(ops_per_set, 1)
     return sum(_up16(b) for b in (
-        (1 + tiles) * 8, tiles * _K3_THREADS * 2, tiles * 4, tiles * 4,
-        tiles * ops * _K3_ACC_BYTES, tiles * ops * _K3_ACC_BYTES,
-        n * record_max))
+        (1 + tiles) * 8, tiles * _K3_THREADS * 2, parts * 4, parts * 4,
+        parts * ops * _K3_ACC_BYTES, parts * ops * _K3_ACC_BYTES,
+        n * record_max, runs * (tiles + 1) * 4,
+        -(-parts // _K3_FIX_TILES) * ops * _K3_ACC_BYTES))
 
 
 def k3_may_pack(n: int, values: Sequence, masks: Sequence,
@@ -319,51 +354,64 @@ def k3_may_pack(n: int, values: Sequence, masks: Sequence,
     the rows come through an order, some op reads a value lane, and the
     distinct inputs (``his``: the 128-bit ops' high lanes) outgrow
     ``_K3_DIRECT_BYTES``."""
-    lanes = {v for v in [*values, *his] if v is not None}
+    lanes = {v for v in [*values, *his] if v is not None and v is not SIGN}
     return (ordered and bool(lanes)
             and n * (8 * len(lanes) + len(set(masks))) > _K3_DIRECT_BYTES)
 
 
+K3_PATHS = (None, "record", "direct", "run")
+
+
 def k3_plan(n: int, values: Sequence, masks: Sequence, nkeys: int,
             ordered: bool, live: bool = False,
-            packed: Optional[bool] = None,
+            path: Optional[str] = None,
             runs: Optional[int] = None,
             his: Optional[Sequence] = None) -> K3Plan:
     """See ``_k3_plan``: the inputs reduced to where each is first read
     (each op's lane, then each op's high lane, ``his``: a 128-bit op's,
-    else None), so that calls of one shape share a plan."""
+    SIGN for the signs of its own lane, else None), so that calls of one
+    shape share a plan.  ``path`` forces K3's path (one of ``K3_PATHS``;
+    None plans it): ``record``, ``direct`` (tiles of sorted rows) or
+    ``run`` (the direct path over an order of few runs takes the run
+    path, whatever the inputs' size)."""
+    if path not in K3_PATHS:
+        raise ValueError(f"K3's path is one of {K3_PATHS}, not {path!r}")
     his = [None] * len(values) if his is None else list(his)
 
     def first(keys):
         seen = {}
-        return tuple(-1 if x is None else seen.setdefault(x, k)
-                     for k, x in enumerate(keys))
+        return tuple(-1 if x is None else -2 if x is SIGN else
+                     seen.setdefault(x, k) for k, x in enumerate(keys))
     lanes = first(list(values) + his)
+    few = runs if runs is not None and runs <= _K3_FEW_RUNS else 0
+    packed = None if path is None else path == "record"
     return _k3_plan(n, lanes[:len(values)], first(masks), nkeys, ordered,
-                    live, packed, runs is not None and runs <= _K3_FEW_RUNS,
-                    lanes[len(values):])
+                    live, packed, few, lanes[len(values):], path != "direct")
 
 
 @functools.lru_cache(maxsize=256)
 def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
              nkeys: int, ordered: bool, live: bool,
-             packed: Optional[bool], few_runs: bool,
-             his: Tuple[int, ...] = ()) -> K3Plan:
+             packed: Optional[bool], few_runs: int,
+             his: Tuple[int, ...] = (), run_path: bool = True) -> K3Plan:
     """K3's plan for n rows and one op per entry of ``values`` (each op's
     value lane by its storage, any hashable, or None for a count) and
     ``masks`` (its contributor mask's storage), ``nkeys`` key words that
-    vary, rows read through an order (``ordered``) of at most
-    ``_K3_FEW_RUNS`` increasing runs (``few_runs``) and live flags
-    (``live``).  The record path where ``k3_may_pack`` holds, the order
-    has more runs, and it moves fewer bytes than the direct path;
-    ``packed`` forces a path.  A record tile is 64 KB: K = 65,536 / (256
-    R) rows a thread for the widest record R of the call; the direct
-    path takes 8."""
+    vary, rows read through an order (``ordered``) of ``few_runs``
+    increasing runs (0: more than ``_K3_FEW_RUNS``, or not counted) and
+    live flags (``live``).  The record path where ``k3_may_pack`` holds,
+    the order has more runs, and it moves fewer bytes than the direct
+    path; ``packed`` forces a path.  A record tile is 64 KB: K = 65,536 /
+    (256 R) rows a thread for the widest record R of the call; the direct
+    path takes 8, and over an order of few runs takes the run path
+    (unless ``run_path`` is False)."""
     values = [None if v < 0 else v for v in values]
-    his = [None if v < 0 else v for v in his] or [None] * len(values)
+    his = [None if v == -1 else SIGN if v == -2 else v
+           for v in his] or [None] * len(values)
     direct = _k3_sets(values, masks, nkeys, False, his)
     recs = _k3_sets(values, masks, nkeys, True, his)
-    direct_bytes = _k3_bytes(n, direct, nkeys, live, ordered)
+    runs = few_runs if run_path and ordered else 0
+    direct_bytes = _k3_bytes(n, direct, nkeys, live, ordered, runs > 0)
     packed_bytes = _k3_bytes(n, recs, nkeys, live, ordered)
     if packed is None:
         use = (k3_may_pack(n, values, masks, ordered, his) and not few_runs
@@ -374,9 +422,10 @@ def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
     rmax = max(s.record_bytes for s in sets)
     rows = (min(_K3_STAGE_BYTES // (_K3_THREADS * rmax), 16) if use
             else _K3_DIRECT_ROWS)
+    runs = 0 if use else runs
     return K3Plan(use, rows, sets, direct_bytes, packed_bytes,
                   k3_scratch_bytes(n, rows, max(len(s.ops) for s in sets),
-                                   rmax))
+                                   rmax, runs), runs > 0)
 
 
 def _storage(x: torch.Tensor):
@@ -393,8 +442,9 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                           global_agg: bool,
                           order: Optional[torch.Tensor] = None,
                           ops: Optional[Sequence[str]] = None,
-                          packed: Optional[bool] = None,
-                          values_hi: Optional[Sequence] = None):
+                          path: Optional[str] = None,
+                          values_hi: Optional[Sequence] = None,
+                          varying: Optional[Sequence[bool]] = None):
     """Reduce rows per group, reading them in key order (K3).
 
     Every lane is in input order; ``order`` (int32, K2's permutation)
@@ -418,18 +468,26 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     the unsigned word, ``values_hi[k]`` the signed high words: a DECIMAL
     of more than 18 digits): its sum is exact modulo 2^128, its min or
     max ordered by (high signed, low unsigned), and its result the pair
-    (low words, high words).  ``packed`` forces K3's path (default:
-    ``k3_plan``); the plain version runs for CPU tensors whatever it
-    says."""
+    (low words, high words).  ``values_hi[k] = SIGN`` makes a sum a
+    128-bit one over ``values[k]`` sign-extended (a DECIMAL64 input summed
+    into a DECIMAL128 buffer) without a lane of signs.  ``path`` forces
+    K3's path (``k3_plan``; None plans it, and reads the order's runs
+    only where the inputs outgrow the L2 cache).  ``varying``, where known
+    (K2's histogram, ``sort_order_and_varying``), says which key
+    words hold more than one value; K3 then reads only the order's
+    descents and not the words.  The plain version runs for CPU tensors
+    whatever they say."""
     names = _op_names(values, ops)
+    varying_words = varying
     his = [None] * len(values) if values_hi is None else list(values_hi)
     if len(his) != len(values) or any(
-            h is not None and (values[k] is None or names[k] == "count")
+            h is not None and (values[k] is None or names[k] == "count"
+                               or (h is SIGN and names[k] != "sum"))
             for k, h in enumerate(his)):
         raise ValueError("segment_reduce_sorted: a high lane needs its "
-                         "op's low lane")
+                         "op's low lane (and SIGN a sum)")
     lanes = _lanes(words, live, values, contribs)
-    lanes += [h for h in his if h is not None]
+    lanes += [h for h in his if h is not None and h is not SIGN]
     if order is not None:
         lanes.append(order)
     if lanes[0].device.type == "cpu":
@@ -448,8 +506,8 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
            for v in present):
         raise TypeError("segment_reduce_sorted: values must be int64 or "
                         f"float64[{n}]")
-    if any(h is not None and (h.dtype != torch.int64 or h.shape != (n,)
-                              or values[k].dtype != torch.int64)
+    if any(h is not None and (values[k].dtype != torch.int64 or (
+            h is not SIGN and (h.dtype != torch.int64 or h.shape != (n,))))
            for k, h in enumerate(his)):
         raise TypeError(f"segment_reduce_sorted: a 128-bit op's lanes must "
                         f"be int64[{n}]")
@@ -467,35 +525,50 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
              _KIND_SUM_FLOAT if v.dtype == torch.float64 else _KIND_SUM_INT
              for v, h, op in zip(values, his, names)]
     value_keys = [None if v is None else _storage(v) for v in values]
-    hi_keys = [None if h is None else _storage(h) for h in his]
+    hi_keys = [h if h is None or h is SIGN else _storage(h) for h in his]
     by_key = values + his                   # a plan's lane index -> lane
     mask_keys = [_storage(c) for c in contribs]
     word_ptrs = kernels.device_int64s([w.data_ptr() for w in words], dev)
-    # the varying key words, then the order's descents (up to 64)
-    varying = torch.empty(len(words) + 1, dtype=torch.int32, device=dev)
+    # the varying key words, then the order's descents (up to 64) and
+    # where they are
+    varying = torch.empty(len(words) + 1 + _K3_FEW_RUNS, dtype=torch.int32,
+                          device=dev)
     if not global_agg:
-        kernels.check(lib, lib.srt_segment_reduce_varying(
-            word_ptrs.data_ptr(), len(words),
-            None if order is None else order.data_ptr(), n,
-            varying.data_ptr(), st), "segment_reduce_sorted")
+        known = varying_words is not None and len(varying_words) == len(words)
+        if known:
+            varying[:len(words)].copy_(torch.tensor(
+                [int(bool(f)) for f in varying_words], dtype=torch.int32,
+                pin_memory=True), non_blocking=True)
+        if order is not None or not known:
+            # the words not known (or none), then the order's descents
+            skip = len(words) if known else 0
+            kernels.check(lib, lib.srt_segment_reduce_varying(
+                word_ptrs.data_ptr(), len(words) - skip,
+                None if order is None else order.data_ptr(), n,
+                varying.data_ptr() + 4 * skip, st), "segment_reduce_sorted")
     sums = [None if v is None else torch.empty(m, dtype=v.dtype, device=dev)
             for v in values]
     sums_hi = [None if h is None else torch.empty(m, dtype=torch.int64,
                                                   device=dev) for h in his]
     counts = [torch.empty(m, dtype=torch.int64, device=dev) for _ in values]
     first_row = torch.empty(m, dtype=torch.int32, device=dev)
-    groups = torch.empty(1, dtype=torch.int32, device=dev)
+    groups = torch.empty(2, dtype=torch.int32, device=dev)  # and a flag
     keys = []       # the varying words, which a record may carry
     runs = None     # the order's increasing runs, where few
-    look = packed if packed is not None else k3_may_pack(
-        n, value_keys, mask_keys, order is not None, hi_keys)
+    begins = []     # where they begin, and n
+    look = path in ("record", "run") or (path is None and k3_may_pack(
+        n, value_keys, mask_keys, order is not None, hi_keys))
     if look and not global_agg and n:
         flags = varying.tolist()
-        keys = [w for w, f in zip(words, flags) if f]
+        nw = len(words)
+        keys = [w for w, f in zip(words, flags[:nw]) if f]
         if order is not None:
-            runs = flags[-1] + 1
+            runs = flags[nw] + 1
+            if runs <= _K3_FEW_RUNS:
+                begins = [0] + sorted(i + 1 for i in
+                                      flags[nw + 1:nw + runs]) + [n]
     plan = k3_plan(n, value_keys, mask_keys, len(keys), order is not None,
-                   live is not None, packed, runs, hi_keys)
+                   live is not None, path, runs if begins else None, hi_keys)
     scratch = torch.empty(max(plan.scratch_bytes // 8, 2),
                           dtype=torch.int64, device=dev)
     ops_per_set = max(len(s.ops) for s in plan.sets)
@@ -519,11 +592,16 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
             kernels.pointers([contribs[k] for k in s.masks]),
             s.mask_offset, s.record_bytes, plan.rows_per_thread,
             ops_per_set, record_max, first_row.data_ptr(),
-            groups.data_ptr(), scratch.data_ptr(), plan.scratch_bytes, st),
+            groups.data_ptr(), scratch.data_ptr(), plan.scratch_bytes,
+            kernels.ints(begins if plan.run_path else []),
+            len(begins) - 1 if plan.run_path else 0, st),
             "segment_reduce_sorted")
     segment_reduce_sorted.launches += 1
     segment_reduce_sorted.last_plan = plan
-    g = int(groups.item())
+    g, bad = groups.tolist()
+    if plan.run_path and bad:
+        raise RuntimeError("segment_reduce_sorted: the run path takes a "
+                           "permutation for the order")
     return (first_row[:g], [None if s is None else s[:g] if h is None
                             else (s[:g], h[:g])
                             for s, h in zip(sums, sums_hi)],
@@ -612,16 +690,20 @@ def _extreme_lane(col: DeviceColumn) -> torch.Tensor:
     return col.data.to(torch.int64)
 
 
-def k3_ops(vals: List[DeviceColumn], ops: List[str]):
+def k3_ops(vals: List[DeviceColumn], ops: List[str],
+           wide: Optional[Sequence] = None):
     """K3's value lanes, contributor masks and op names for ``vals``
     reduced by ``ops`` (sum, countvalid, min, max), for each op the index
     of the K3 op whose result it takes, and K3's high lanes (a DECIMAL128
-    column's ``data_hi``, else None).  A count of a lane's valid rows is
-    also the contributor count of an earlier op over the same validity
-    lane (avg's sum and count), so K3 folds that lane once."""
+    column's ``data_hi``, SIGN for a DECIMAL64 sum into a DECIMAL128
+    buffer, ``wide[i]`` set, else None).  A count of a lane's valid rows
+    is also the contributor count of an earlier op over the same validity
+    lane (avg's sum and count), so K3 folds that lane once; a min and a
+    max of one column read one widened lane."""
     k3_vals, k3_contribs, k3_names, take, by_lane = [], [], [], [], {}
-    k3_his = []
-    for v, op in zip(vals, ops):
+    k3_his, extreme = [], {}
+    wide = wide or [None] * len(vals)
+    for v, op, w in zip(vals, ops, wide):
         lane = v.validity.data_ptr()
         if op == "countvalid" and lane in by_lane:
             take.append(by_lane[lane])
@@ -639,8 +721,11 @@ def k3_ops(vals: List[DeviceColumn], ops: List[str]):
         elif op == "sum" or v.data_hi is not None:
             k3_vals.append(v.data)
         else:
-            k3_vals.append(_extreme_lane(v))
-        k3_his.append(v.data_hi)
+            key = (v.data.data_ptr(), v.data.dtype, v.data.shape)
+            if key not in extreme or not v.data.numel():
+                extreme[key] = _extreme_lane(v)
+            k3_vals.append(extreme[key])
+        k3_his.append(SIGN if w is not None and op == "sum" else v.data_hi)
         k3_names.append("sum" if op == "countvalid" else op)
         k3_contribs.append(v.validity)
     return k3_vals, k3_contribs, k3_names, take, k3_his
@@ -649,15 +734,17 @@ def k3_ops(vals: List[DeviceColumn], ops: List[str]):
 def _group_reduce(key_cols: List[DeviceColumn],
                   value_cols: List[DeviceColumn], ops: List[str],
                   num_rows: int, global_agg: bool,
-                  order: Optional[torch.Tensor] = None
+                  order: Optional[torch.Tensor] = None,
+                  wide: Optional[Sequence] = None
                   ) -> Tuple[List[DeviceColumn], List[DeviceColumn], int]:
     """Group the first ``num_rows`` rows by ``key_cols`` and reduce each
     value column with its op (``sum``, ``countvalid``, ``min`` or
-    ``max``; a min or max keeps the column's type).  ``order``, when
-    given, is a permutation that already sorts the rows by key; else the
-    rows are sorted here (K2).  Returns (key columns, value columns, group
-    count); the outputs hold one row per group, padded to a capacity
-    bucket.
+    ``max``; a min or max keeps the column's type; ``wide[i]``, where
+    set, is the DECIMAL128 type that the DECIMAL64 column i sums into).
+    ``order``, when given, is a permutation that already sorts the rows
+    by key; else the rows are sorted here (K2).  Returns (key columns,
+    value columns, group count); the outputs hold one row per group,
+    padded to a capacity bucket.
 
     The reference sorts every row with a leading live word so padding
     sorts last, and carries every lane through the sort; live rows are
@@ -672,18 +759,20 @@ def _group_reduce(key_cols: List[DeviceColumn],
     keys = [_prefix(c, n) for c in key_cols]
     vals = [_prefix(c, n) for c in value_cols]
     words = [w for kc in keys for w in seg.key_words_for_column(kc)]
+    varying = None
     if order is None and words:
-        order = sort_order(words)
-    k3_vals, k3_contribs, k3_names, take, k3_his = k3_ops(vals, ops)
+        order, varying = sort_order_and_varying(words)
+    wide = wide or [None] * len(vals)
+    k3_vals, k3_contribs, k3_names, take, k3_his = k3_ops(vals, ops, wide)
     first_row, sums, counts, groups = segment_reduce_sorted(
         words, None, k3_vals, k3_contribs, global_agg, order, k3_names,
-        values_hi=k3_his)
+        values_hi=k3_his, varying=varying)
     cap = bucket_for(groups)
     # each group's key is read at its first row, in input order
     out_keys = [_padded_column(g, cap)
                 for g in gather_columns(keys, first_row)]
     out_vals = []
-    for vc, op, i in zip(vals, ops, take):
+    for vc, op, i, w in zip(vals, ops, take, wide):
         s, cnt = sums[i], counts[i]
         if vc.offsets is not None and op in ("min", "max"):
             pick = _ordered_pick(words, vc, op, global_agg, order)
@@ -695,8 +784,8 @@ def _group_reduce(key_cols: List[DeviceColumn],
                 _padded(torch.ones_like(cnt, dtype=torch.bool), cap)))
         elif isinstance(s, tuple):          # a DECIMAL128 (lo, hi) pair
             out_vals.append(DeviceColumn(
-                vc.dtype, _padded(s[0], cap), _padded(cnt > 0, cap), None,
-                _padded(s[1], cap)))
+                w or vc.dtype, _padded(s[0], cap), _padded(cnt > 0, cap),
+                None, _padded(s[1], cap)))
         elif op in ("min", "max"):
             out_vals.append(DeviceColumn(
                 vc.dtype, _padded(s.to(vc.dtype.torch_dtype), cap),
@@ -705,6 +794,24 @@ def _group_reduce(key_cols: List[DeviceColumn],
             out_vals.append(DeviceColumn(vc.dtype, _padded(s, cap),
                                          _padded(cnt > 0, cap)))
     return out_keys, out_vals, groups
+
+
+def _widening_sum(bound: Expression, op: str) -> Optional[Expression]:
+    """The input of a sum's same-scale cast from DECIMAL64 to a DECIMAL128
+    with as many integer digits or more (``Sum.update``'s cast to its
+    buffer type, which can never overflow: ``expr/cast.py:_to_decimal``),
+    else None.  The aggregate hands K3 that input with SIGN as its high
+    lane, so the cast's (lo, sign) pair is never built."""
+    if op != "sum" or not isinstance(bound, Cast):
+        return None
+    src, dst = bound.child.data_type(), bound.data_type()
+    if not (isinstance(src, t.DecimalType) and src.is64
+            and isinstance(dst, t.DecimalType) and not dst.is64):
+        return None
+    if dst.scale != src.scale or \
+            dst.precision - dst.scale < src.precision - src.scale:
+        return None
+    return bound.child
 
 
 class GpuHashAggregateExec(Exec):
@@ -731,9 +838,14 @@ class GpuHashAggregateExec(Exec):
             self._bound_grouping = [bind_expression(g, cn, ct)
                                     for g in self.grouping]
             self._update_inputs, self._update_ops = [], []
+            self._update_wide = []
             for ae in self.aggregates:
                 for expr, op in ae.func.update():
-                    self._update_inputs.append(bind_expression(expr, cn, ct))
+                    bound = bind_expression(expr, cn, ct)
+                    widened = _widening_sum(bound, op)
+                    self._update_inputs.append(widened or bound)
+                    self._update_wide.append(
+                        None if widened is None else bound.data_type())
                     self._update_ops.append(op)
         self._buffer_names, self._buffer_types, self._merge_ops = [], [], []
         for i, ae in enumerate(self.aggregates):
@@ -796,7 +908,8 @@ class GpuHashAggregateExec(Exec):
     def _update_batch(self, batch: DeviceBatch) -> DeviceBatch:
         key_cols, val_cols = self._update_columns(batch)
         ok, ov, n = _group_reduce(key_cols, val_cols, self._update_ops,
-                                  batch.num_rows, not self.grouping)
+                                  batch.num_rows, not self.grouping,
+                                  wide=self._update_wide)
         return DeviceBatch(ok + ov, n, self._group_names + self._buffer_names)
 
     def _merge_batch(self, batch: DeviceBatch) -> DeviceBatch:

@@ -26,7 +26,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-HEADERS = ("partition.cuh", "join_hash.cuh")
+HEADERS = ("partition.cuh", "join_hash.cuh", "merge_path.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "expand_ends", "join_expand", "gather_rows", "fetch_pack",
            "window_scan", "scatter_rows", "string_hashes", "hash_bytes",
@@ -50,7 +50,7 @@ _SIGNATURES = {
         "srt_segment_reduce_set": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
-                                   _P, _P, _L, _P],
+                                   _P, _P, _L, _P, _I, _P],
     },
     "key_hash": {
         "srt_key_hash": [_P, _I, _I, _I, _I, _P, _P],

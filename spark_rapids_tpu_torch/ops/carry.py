@@ -181,6 +181,14 @@ def plan_passes(varying: Sequence[Sequence[bool]]) -> List[Tuple[int, int]]:
 def sort_order(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stable ascending lexicographic order of rows by int64 key words,
     most significant first (K2).  Returns int32[n]."""
+    return sort_order_and_varying(key_words)[0]
+
+
+def sort_order_and_varying(key_words: Sequence[torch.Tensor]):
+    """``sort_order``'s order and which words vary: K2's histogram already
+    says which words hold more than one value (None where it did not
+    run: on the CPU or over no rows), so K3 can skip its own pass over
+    the words."""
     if not key_words:
         raise ValueError("sort_order needs at least one key word")
     words = list(key_words)
@@ -190,11 +198,11 @@ def sort_order(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
             raise TypeError(f"sort_order: key words must be int64[{n}], got "
                             f"{w.dtype}{tuple(w.shape)}")
     if words[0].device.type == "cpu":
-        return sort_order_plain(words)
+        return sort_order_plain(words), None
     kernels.require_cuda("sort_order", *words)
     dev = words[0].device
     if n == 0:
-        return torch.empty(0, dtype=torch.int32, device=dev)
+        return torch.empty(0, dtype=torch.int32, device=dev), None
     lib = kernels.library("onesweep")
     st = kernels.stream(words[0])
     nw = len(words)
@@ -212,10 +220,12 @@ def sort_order(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
             hist.data_ptr() + 4 * _DIGITS * 256 * c, done.data_ptr() + 4 * c,
             flags.data_ptr() + 4 * _DIGITS * c, st), "sort_order")
     sort_order.launches += 1
-    passes = plan_passes(flags.view(nw, _DIGITS).cpu().tolist())
+    digits = flags.view(nw, _DIGITS).cpu().tolist()
+    varies = [any(d) for d in digits]
+    passes = plan_passes(digits)
     sort_order.passes += len(passes)
     if not passes:
-        return torch.arange(n, dtype=torch.int32, device=dev)
+        return torch.arange(n, dtype=torch.int32, device=dev), varies
     # look-back state: 256 words per tile, one tile counter per pass
     tiles = kernels.num_tiles(lib, n)
     status = torch.zeros(tiles * 256 + len(passes), dtype=torch.int64,
@@ -241,7 +251,7 @@ def sort_order(key_words: Sequence[torch.Tensor]) -> torch.Tensor:
             hist.data_ptr() + 4 * (j * _DIGITS * 256 + (shift // 8) * 256),
             status.data_ptr(), counters + 8 * p, p + 1, st), "sort_order")
         order, key = ords[p % 2], key_out
-    return order
+    return order, varies
 
 
 sort_order.launches = 0

@@ -499,6 +499,81 @@ def test_k3_plain_128bit_ops(ordered):
         assert counts[3][g] == len(mine)
 
 
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3_plain_sum_of_decimal64_through_its_signs(ordered, seed):
+    """A 128-bit sum of a DECIMAL64 lane read without a lane of signs
+    (``values_hi = SIGN``), beside a DECIMAL128 sum in the same call,
+    through K3's plain version: each group's (lo, hi) pair equals the
+    reference's ``segment_sum128`` (numpy branch) over the lane and its
+    materialised signs, and Python's exact sums."""
+    rng = np.random.default_rng(40 + seed)
+    n, g = 2500, 11
+    small = rng.integers(-10**15, 10**15, n)       # DECIMAL(17, s) range
+    small[::9] = rng.choice([-(2**63), 2**63 - 1, -1], len(small[::9]))
+    big = [v // 64 for v in _edge_values(rng, n)]
+    blo, bhi = (torch.from_numpy(x) for x in _words(big))
+    key = rng.integers(0, g, n)
+    valid = rng.random(n) > 0.15
+    lo = torch.from_numpy(small.astype(np.int64))
+    keyt, validt = torch.from_numpy(key), torch.from_numpy(valid)
+    order = pseg.lexsort([keyt]) if ordered else None
+    words = [keyt]
+    if not ordered:
+        srt = torch.argsort(keyt, stable=True)
+        keyt, lo, blo, bhi, validt = (x[srt] for x in
+                                      (keyt, lo, blo, bhi, validt))
+        words = [keyt]
+    first, sums, counts, groups = pagg.segment_reduce_sorted(
+        words, None, [lo, blo], [validt, validt], False, order,
+        ["sum", "sum"], values_hi=[pagg.SIGN, bhi])
+    assert groups == g
+    seg_ids = np.searchsorted(np.unique(key), key).astype(np.int32)
+    rlo, rhi, rcnt = rseg.segment_sum128(
+        np, small.astype(np.int64), small.astype(np.int64) >> 63, seg_ids,
+        g, valid)
+    assert sums[0][0].tolist() == rlo.tolist()
+    assert sums[0][1].tolist() == rhi.tolist()
+    assert counts[0].tolist() == rcnt.tolist()
+    exact = [sum(int(v) for v, s, ok in zip(small, seg_ids, valid)
+                 if ok and s == k) for k in range(g)]
+    assert i128.to_ints(sums[0]) == exact
+    exact_big = [sum(v for v, s, ok in zip(big, seg_ids, valid)
+                     if ok and s == k) for k in range(g)]
+    assert i128.to_ints(sums[1]) == exact_big
+
+
+def test_q1d_sums_read_the_decimal64_lanes():
+    """q1d's three DECIMAL(15,2) sums reach K3 as the columns' own int64
+    lanes with SIGN as their high lane (no cast pair and no lane of
+    signs is built), a min and a max of one column read one lane, and
+    the result equals the reference's."""
+    tb = lineitem()
+    _, port = _sessions()
+    seen = []
+    orig = pagg.segment_reduce_sorted
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return orig(*args, **kwargs)
+    pagg.segment_reduce_sorted = spy
+    try:
+        got = q1d(port.create_dataframe(tb), *PORT).collect()
+    finally:
+        pagg.segment_reduce_sorted = orig
+    (args, kwargs), = seen
+    values, ops, his = args[2], args[6], kwargs["values_hi"]
+    assert [h is pagg.SIGN for h in his] == [op == "sum" and v is not None
+                                             for v, op in zip(values, ops)]
+    lanes = {(v.data_ptr(), v.dtype) for v in values if v is not None}
+    assert len(lanes) == 4            # qty, price, discount, ship date
+    assert all(v.dtype == torch.int64 for v in values if v is not None)
+    want = q1_oracle(tb, text=False)
+    assert got.schema.field("sum_base_price").type == pa.decimal128(25, 2)
+    for name in want[0]:
+        assert got.column(name).to_pylist() == [r[name] for r in want]
+
+
 def test_int128_helpers_match_python_ints():
     random.seed(11)
     a_vals = [random.randint(-10**38, 10**38) for _ in range(500)] + \

@@ -47,7 +47,8 @@ def _scratch(n, rows_per_thread, ops, record):
     def up(x):
         return (x + 15) // 16 * 16
     return (up((1 + tiles) * 8) + up(tiles * 512) + 2 * up(tiles * 4)
-            + 2 * up(tiles * ops * 32) + up(n * record))
+            + 2 * up(tiles * ops * 32) + up(n * record)
+            + up(-(-tiles // 64) * ops * 32))
 
 
 @pytest.mark.parametrize("shape,n,nkeys,record,rows,lanes,keys,mask_at", [
@@ -88,7 +89,7 @@ def test_k3_plan_few_runs_stay_direct(runs, packed):
                         runs=runs)
     assert plan.packed == packed
     forced = pagg.k3_plan(Q1X_ROWS, Q1X_VALUES, Q1X_MASKS, 2, True,
-                          packed=True, runs=runs)
+                          path="record", runs=runs)
     assert forced.packed and forced.sets[0].record_bytes == 64
 
 
@@ -148,7 +149,8 @@ def test_k3_plan_two_sets(packed, sizes, records):
     record path a set ends where its record would pass 128 bytes."""
     values = [f"v{j}" for j in range(17)]
     masks = [f"m{j}" for j in range(17)]
-    plan = pagg.k3_plan(1 << 22, values, masks, 0, True, packed=packed)
+    plan = pagg.k3_plan(1 << 22, values, masks, 0, True,
+                        path="record" if packed else "direct")
     assert plan.packed == packed
     assert [len(s.ops) for s in plan.sets] == sizes
     assert [s.record_bytes for s in plan.sets] == records
@@ -162,7 +164,7 @@ def test_k3_plan_keys_in_the_first_set_only():
     """The first set's record carries the varying key words; the later
     sets fold with the start bits the first one kept."""
     values = [f"v{j}" for j in range(20)]
-    plan = pagg.k3_plan(1 << 22, values, values, 6, True, packed=True)
+    plan = pagg.k3_plan(1 << 22, values, values, 6, True, path="record")
     assert [len(s.key_offsets) for s in plan.sets] == [6, 0]
     assert [len(s.ops) for s in plan.sets] == [9, 11]
     assert plan.sets[0].record_bytes == 128
@@ -175,12 +177,114 @@ def test_k3_plan_many_key_words(nkeys, record, carried):
     (the wide group-by's 18) stay out of it and the fold reads each
     through the order, one sector a row, so the record path takes any
     key."""
-    plan = pagg.k3_plan(1 << 22, ["v"], ["m"], nkeys, True, packed=True)
+    plan = pagg.k3_plan(1 << 22, ["v"], ["m"], nkeys, True, path="record")
     s = plan.sets[0]
     assert (s.record_bytes, len(s.key_offsets)) == (record, carried)
     far = nkeys - carried
     assert plan.packed_bytes == (1 << 22) * (
         8 + 8 * carried + 1 + record + 4 + max(record, 32) + 32 * far)
+
+
+# q1d: sum(qty), sum(price), sum(disc) (DECIMAL64 columns read through
+# their signs), min/max(price), min/max(ship date), count(*)
+Q1D_ROWS = 32_357_834          # q1d's rows after its filter
+Q1D_VALUES = ["qty", "price", "disc", "price", "price", "ship", "ship", None]
+Q1D_HIS = [pagg.SIGN] * 3 + [None] * 5
+Q1D_MASKS = ["qty.valid", "price.valid", "disc.valid", "price.valid",
+             "price.valid", "ship.valid", "ship.valid", "one.valid"]
+
+
+@pytest.mark.parametrize("runs,packed,run_path", [
+    (1, False, True), (6, False, True), (64, False, True),
+    (65, True, False), (None, True, False), (100_000, True, False)])
+def test_k3_plan_few_runs_128bit_take_the_run_path(runs, packed, run_path):
+    """q1d's 128-bit set over an order of at most 64 runs keeps the
+    direct path and takes the run path (tiles of input rows split by the
+    runs); more runs (or runs not counted) take the byte rule; forcing
+    the records or turning the run path off keeps tiles of sorted rows.
+    The three sums read their DECIMAL64 lanes with SIGN (-2) as the high
+    lane, so the set reads 4 distinct lanes; the run path's traffic counts
+    each input once and the order twice, and its scratch holds the
+    pieces (runs x tiles) and the fixup's block heads."""
+    plan = pagg.k3_plan(Q1D_ROWS, Q1D_VALUES, Q1D_MASKS, 4, True, runs=runs,
+                        his=Q1D_HIS)
+    assert (plan.packed, plan.run_path) == (packed, run_path)
+    s = plan.sets[0]
+    assert [Q1D_VALUES[k] for k in s.lanes] == ["qty", "price", "disc",
+                                                "ship"]
+    assert s.op_lane == [0, 1, 2, 1, 1, 3, 3, -1]
+    assert s.op_lane_hi == [-2, -2, -2, -1, -1, -1, -1, -1]
+    if run_path:
+        # order twice, 4 key words, 4 lanes, 5 masks of a byte
+        assert plan.direct_bytes == Q1D_ROWS * (8 + 32 + 32 + 5)
+        assert plan.direct_bytes < plan.packed_bytes
+        tiles = -(-Q1D_ROWS // 2048)
+        parts = runs * tiles
+
+        def up(x):
+            return (x + 15) // 16 * 16
+        assert plan.scratch_bytes == (
+            up((1 + tiles) * 8) + up(tiles * 512) + 2 * up(parts * 4)
+            + 2 * up(parts * 8 * 32) + up(runs * (tiles + 1) * 4)
+            + up(-(-parts // 64) * 8 * 32))
+    for path in ("direct", "record"):
+        assert not pagg.k3_plan(Q1D_ROWS, Q1D_VALUES, Q1D_MASKS, 4, True,
+                                path=path, runs=runs, his=Q1D_HIS).run_path
+
+
+def test_k3_plan_sign_lane_in_a_record():
+    """On the record path a sum through SIGN packs only its low lane: the
+    record holds the 4 distinct lanes, the key words and the mask word,
+    and the plan's scratch is the layout's."""
+    plan = pagg.k3_plan(Q1D_ROWS, Q1D_VALUES, Q1D_MASKS, 4, True,
+                        path="record", his=Q1D_HIS)
+    s = plan.sets[0]
+    assert (s.record_bytes, s.lane_offsets, s.key_offsets,
+            s.mask_offset) == (128, [0, 8, 16, 24], [32, 40, 48, 56], 64)
+    assert s.op_lane_hi == [-2, -2, -2, -1, -1, -1, -1, -1]
+    assert plan.scratch_bytes == _scratch(Q1D_ROWS, 2, 8, 128)
+
+
+@pytest.mark.parametrize("path", pagg.K3_PATHS)
+@pytest.mark.parametrize("g", [1, 6, 65])
+def test_k3_sign_sums_match_reference_segment_sum128(path, g):
+    """q1d-shaped ops through ``segment_reduce_sorted`` (on the CPU its
+    plain version, whatever path is asked for) over g groups, so g runs
+    of K2's order, against the reference: the SIGN sums as the reference's
+    ``segment_sum128`` (numpy branch) over the lane and its materialised
+    signs, min and max as its ``segment_reduce``, the count exactly."""
+    from spark_rapids_tpu.ops import segmented as rseg
+    rng = np.random.default_rng(17)
+    n = 6000
+    key = rng.integers(0, g, n)
+    qty = rng.integers(1, 51, n) * 100
+    price = rng.integers(-10**13, 10**13, n)
+    ship = rng.integers(8036, 10562, n)
+    valid = rng.random(n) > 0.1
+    t = [torch.from_numpy(x) for x in (key, qty, price, ship, valid)]
+    order = pcarry.sort_order([t[0]])
+    lanes = {"qty": t[1], "price": t[2], "disc": t[1], "ship": t[3]}
+    values = [None if v is None else lanes[v] for v in Q1D_VALUES]
+    ops = ["sum", "sum", "sum", "min", "max", "min", "max", "sum"]
+    first, sums, counts, groups = pagg.segment_reduce_sorted(
+        [t[0]], None, values, [t[4]] * 8, False, order, ops, path=path,
+        values_hi=Q1D_HIS)
+    assert groups == g
+    assert key[first.numpy()].tolist() == list(range(g))
+    seg_ids = key.astype(np.int32)
+    for k in range(3):
+        x = values[k].numpy()
+        rlo, rhi, rcnt = rseg.segment_sum128(np, x, x >> 63, seg_ids, g,
+                                             valid)
+        assert sums[k][0].tolist() == rlo.tolist()
+        assert sums[k][1].tolist() == rhi.tolist()
+        assert counts[k].tolist() == rcnt.tolist()
+    for k in range(3, 7):
+        want, _ = rseg.segment_reduce(np, ops[k], values[k].numpy(),
+                                      seg_ids, g, valid)
+        assert sums[k].tolist() == np.asarray(want).tolist()
+    assert counts[7].tolist() == np.bincount(key[valid], minlength=g
+                                             ).tolist()
 
 
 def _table(rng, n, groups):
@@ -241,7 +345,7 @@ def test_k3_matches_reference_group_reduce(shape, global_agg, packed):
     k3_vals, k3_contribs, k3_names, take, _ = pagg.k3_ops(p_vals, ops)
     first_row, sums, counts, groups = pagg.segment_reduce_sorted(
         words, None, k3_vals, k3_contribs, global_agg, order, k3_names,
-        packed=packed)
+        path=None if packed is None else "record" if packed else "direct")
     assert groups == int(rn) == (1 if global_agg else 13)
     if not global_agg:
         rkey = np.asarray(rk[0].data)[:groups]

@@ -767,6 +767,48 @@ def test_span_rows_plain_matches_gather_spans(seed):
     assert got[:total].tolist() == np.asarray(want_src)[:total].tolist()
 
 
+SKEWED_SPANS = {
+    # one row over several of K18's merge tiles (2,048 items), beside
+    # rows of one
+    "one row over many tiles": (np.r_[[9000], np.ones(3000, np.int64)],
+                                None, 0),
+    "10^6 empty rows": (np.r_[[1], np.zeros(1_000_000, np.int64), [1]],
+                        None, 0),
+    "all rows empty": (np.zeros(5000, np.int64), None, 0),
+    "total 0": (np.full(300, 4), np.zeros(300, bool), 0),
+    # 2,048 rows of 2: 6,144 merge items, three whole tiles
+    "total a multiple of the tile": (np.full(2048, 2), None, 0),
+    "a zero tail past the total": (np.full(1000, 3), None, 1 << 14),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SKEWED_SPANS))
+def test_span_rows_plain_skewed_shapes_match_gather_spans(shape):
+    """K18's plain version on the shapes that load-balance its merge-path
+    tiles (a span over many tiles, runs of empty rows, no slot at all, a
+    total filling whole tiles, a zero tail) against the reference's
+    ``gather_spans`` (numpy branch): each in-range child slot's source
+    row, and 0 on every slot past the total."""
+    lens, valid, tail = SKEWED_SPANS[shape]
+    lens = np.asarray(lens, np.int64)
+    rows = len(lens)
+    offs = np.zeros(rows + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    idx = np.arange(rows, dtype=np.int32)
+    valid = np.ones(rows, bool) if valid is None else valid
+    new_offs, total, starts = psops.gather_offsets(
+        torch.from_numpy(offs), torch.from_numpy(idx),
+        torch.from_numpy(valid))
+    total = int(total)
+    cap = max(total, 1) + tail
+    got = span_rows_plain(starts, new_offs, total, cap)
+    assert got.shape == (cap,) and got[total:].eq(0).all()
+    want_offs, want_src, in_range = gather_spans(np, offs, idx, valid, cap)
+    assert new_offs.tolist() == np.asarray(want_offs).tolist()
+    assert int(np.asarray(in_range).sum()) == total
+    assert got[:total].tolist() == np.asarray(want_src)[:total].tolist()
+
+
 def _type_grid(lib):
     return [
         lib.BINARY, lib.ArrayType(lib.INT), lib.ArrayType(lib.STRING),
