@@ -121,13 +121,14 @@ shapes), each timed beside its 4-byte lane; q1d, TPC-H Q1 over a 2^25
 row lineitem with DATE and DECIMAL(15,2) columns as the reference keeps
 it on its device (the sums on 128-bit buffers, min and max of a
 decimal and a date, count; 1 and 4 partitions, every operator on the
-GPU), and the Q1 text over its first 2^24 rows with its products and
+GPU), and the Q1 text over its first 2^23 rows with its products and
 averages on the CPU engine and the reference's placements, each equal
 to an exact numpy and Python-int oracle; qn, a 2^25-row table of BYTE, SHORT, FLOAT, DATE,
 TIMESTAMP and DECIMAL(9,2) columns (10 % null): a filter on the SHORT
 and FLOAT columns, a group-by on (BYTE, DATE) with the sums, mins and
 maxes of the others, a sort on (TIMESTAMP desc, FLOAT) and its TopN,
-and a parquet write read back, each equal to pyarrow or numpy.
+and a parquet write of its first 2^24 rows read back, each equal to
+pyarrow or numpy.
 The nested types: K18 (the child rows of gathered spans) against its
 plain version on edge cases (0 rows, every slot invalid, every array
 empty, a row of 2^24 elements beside 10^6 rows of one, one row of 2^22
@@ -145,6 +146,19 @@ through a pushed filter and the cache under qa1, each equal to its
 pyarrow oracle by ``equals``; every K18 call of qa1 and qa4 against its
 plain version; a sort carrying the array, a group-by on the binary and
 a join carrying the map on the CPU with the reference's reasons.
+The string functions: K19 (literal and LIKE search), K20 (UTF-8 cuts)
+and K21 (byte maps) against their plain versions on a 2^20-row edge
+column (empty rows, overlapping runs, a needle at a row's end, one row
+of 2^20 bytes; LIKE patterns with '_' and '%' at either end, the k-th
+match from either end, every cut and map mode); TPC-H's text predicates
+over columns shaped like TPC-H's, made from the seed: qt1, Q13's
+o_comment NOT LIKE '%special%requests%' then a count by customer; qt2,
+Q14's and Q16's sum(CASE WHEN p_type LIKE 'PROMO%' THEN e ELSE 0 END)
+where p_type NOT LIKE 'MEDIUM POLISHED%' and p_name contains 'green';
+qt3, Q22's substring(c_phone, 1, 2) IN 7 codes grouped with a count and
+a sum, all at 2^25 rows; qt4, a projection of 18 string functions and
+casts to and from strings at 2^22 rows; each against pyarrow or numpy,
+every K19-K21 call of them against its plain version exactly.
 Launch counts are reset just before each main-path run and must be > 0
 after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
@@ -184,6 +198,537 @@ PIN_KEY = "spark.rapids.sql.fileScan.pinDeviceBatches"
 COLLECT_KEY = "spark.rapids.sql.collect.hostAssisted"
 WRITE_KEY = "spark.rapids.sql.write.hostAssisted"
 READER_KEY = "spark.rapids.sql.format.parquet.reader.type"
+
+
+# ---- the string functions: TPC-H's text predicates -------------------------
+
+TEXT_ROWS = 1 << 25            # qt1-qt3: TPC-H SF5 lineitem's rows
+TEXT_PROJ_ROWS = 1 << 22       # qt4's projection
+TEXT_EDGE_ROWS = 1 << 20       # K19-K21's edge cases
+TEXT_CUSTOMERS = 750_000       # TPC-H SF5 customers (qt1's keys)
+TEXT_SPECIAL = 0.03            # comments written "special ... requests"
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")   # Q22's country codes
+P_TYPE_WORDS = ((b"STANDARD", b"SMALL", b"MEDIUM", b"LARGE", b"ECONOMY",
+                 b"PROMO"),
+                (b"ANODIZED", b"BURNISHED", b"PLATED", b"POLISHED",
+                 b"BRUSHED"),
+                (b"TIN", b"NICKEL", b"BRASS", b"STEEL", b"COPPER"))
+COLOURS = (
+    "almond antique aquamarine azure beige bisque black blanched blue blush "
+    "brown burlywood burnished chartreuse chiffon chocolate coral cornflower "
+    "cornsilk cream cyan dark deep dim dodger drab firebrick floral forest "
+    "frosted gainsboro ghost goldenrod green grey honeydew hot indian ivory "
+    "khaki lace lavender lawn lemon light lime linen magenta maroon medium "
+    "metallic midnight mint misty moccasin navajo navy olive orange orchid "
+    "pale papaya peach peru pink plum powder puff purple red rose rosy royal "
+    "saddle salmon sandy seashell sienna sky slate smoke snow spring steel "
+    "tan thistle tomato turquoise violet wheat white yellow").split()
+COMMENT_WORDS = (
+    "furiously quickly carefully blithely slyly fluffily deposits packages "
+    "accounts requests ideas pinto beans foxes theodolites instructions "
+    "dependencies excuses platelets asymptotes courts dolphins multipliers "
+    "warthogs frets dinos attainments somas patterns forges braids players "
+    "final regular express ironic pending bold even silent unusual special "
+    "sleep wake are cajole haggle nag use boost affix detect integrate "
+    "about above after along among around at before beneath beside between "
+    "the of and to").split()
+
+
+def _word_stream(rng, nbytes):
+    """uint8[nbytes]: words of COMMENT_WORDS separated by spaces."""
+    vocab = [w.encode() + b" " for w in COMMENT_WORDS]
+    lens = np.array([len(w) for w in vocab])
+    ids = rng.integers(0, len(vocab), nbytes // 4)
+    ends = np.cumsum(lens[ids])
+    ids = ids[:int(np.searchsorted(ends, nbytes)) + 1]
+    flat = np.frombuffer(b"".join(vocab), np.uint8)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    idx = np.repeat(starts[ids], lens[ids]) + (
+        np.arange(int(lens[ids].sum())) -
+        np.repeat(np.cumsum(lens[ids]) - lens[ids], lens[ids]))
+    return flat[idx][:nbytes]
+
+
+def _text_tables(n=None, seed=SEED):
+    """TPC-H-shaped text columns at ``n`` rows, from the seed with numpy:
+    orders (o_custkey, o_comment: 19-78 bytes of words, TEXT_SPECIAL of
+    the rows holding "special ... requests", 1 % null), part (p_type: a
+    three-word type; p_name: five colour words; e: an integer price in
+    cents) and customer (c_phone "CC-NNN-NNN-NNNN", country codes 10-34;
+    c_acctbal in cents)."""
+    n = n or TEXT_ROWS
+    rng = np.random.default_rng(seed + 31)
+    lens = rng.integers(19, 79, n)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    base = _word_stream(rng, min(1 << 26, int(offs[-1])))
+    reps = -(-int(offs[-1]) // base.shape[0])
+    chars = np.tile(base, reps)[:int(offs[-1])].copy()
+    special = np.flatnonzero(rng.random(n) < TEXT_SPECIAL)
+    for j, b in enumerate(b"special "):
+        chars[offs[special] + j] = b
+    for j, b in enumerate(b" requests"):
+        chars[offs[special + 1] - 9 + j] = b
+    valid = rng.random(n) >= 0.01
+    comment = pa.StringArray.from_buffers(
+        n, pa.py_buffer(offs.astype(np.int32)), pa.py_buffer(chars),
+        pa.array(valid).buffers()[1])
+    orders = pa.table({"o_custkey": pa.array(
+        rng.integers(0, TEXT_CUSTOMERS, n)), "o_comment": comment})
+    types = pa.array([b" ".join((a, b, c)).decode()
+                      for a in P_TYPE_WORDS[0] for b in P_TYPE_WORDS[1]
+                      for c in P_TYPE_WORDS[2]])
+    colours = pa.array(COLOURS)
+    p_type = types.take(pa.array(rng.integers(0, len(types), n)))
+    p_name = pc.binary_join_element_wise(
+        *[colours.take(pa.array(rng.integers(0, len(COLOURS), n)))
+          for _ in range(5)], " ")
+    part = pa.table({"p_type": p_type, "p_name": p_name,
+                     "e": pa.array(rng.integers(90_000, 10_500_000, n))})
+    cc = rng.integers(10, 35, n)
+    digits = rng.integers(0, 10, (n, 10)).astype(np.uint8) + 48
+    mat = np.full((n, 15), ord("-"), np.uint8)
+    mat[:, 0] = cc // 10 + 48
+    mat[:, 1] = cc % 10 + 48
+    mat[:, 3:6], mat[:, 7:10], mat[:, 11:15] = digits[:, :3], \
+        digits[:, 3:6], digits[:, 6:]
+    phone = pa.StringArray.from_buffers(
+        n, pa.py_buffer(np.arange(0, 15 * n + 1, 15, dtype=np.int32)),
+        pa.py_buffer(mat.reshape(-1)))
+    customer = pa.table({"c_phone": phone, "c_acctbal": pa.array(
+        rng.integers(-99_999, 999_999, n))})
+    return orders, part, customer, cc
+
+
+def _text_edge_column(torch, dev, rng):
+    """(offsets, chars) of TEXT_EDGE_ROWS rows on the card: random rows of
+    0-40 bytes over "ab_% é", empty rows, overlapping "aaaa" runs, a
+    needle at a row's end, and one row of 2^20 bytes among them."""
+    alphabet = np.frombuffer("ab_% é".encode(), np.uint8)
+    n = TEXT_EDGE_ROWS
+    lens = rng.integers(0, 41, n)
+    lens[rng.random(n) < 0.05] = 0
+    lens[n // 2] = MB_STRING
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    chars = alphabet[rng.integers(0, alphabet.shape[0], int(offs[-1]))]
+    for r in range(7, n, 997):                          # overlapping runs
+        chars[offs[r]:offs[r + 1]] = ord("a")
+    for r in range(11, n, 1009):                        # a needle at the end
+        if lens[r] >= 6:
+            chars[offs[r + 1] - 6:offs[r + 1]] = np.frombuffer(b"needle",
+                                                               np.uint8)
+    chars[offs[n // 2 + 1] - 6:offs[n // 2 + 1]] = np.frombuffer(b"needle",
+                                                                 np.uint8)
+    return (torch.from_numpy(offs.astype(np.int32)).to(dev),
+            torch.from_numpy(np.concatenate([chars, np.zeros(64, np.uint8)])
+                             ).to(dev))
+
+
+TEXT_PATTERNS = (("%special%requests%", None), ("a%", None), ("%a", None),
+                 ("needle", None), ("%needle", None), ("a_b%", None),
+                 ("%_a_%", None), ("aa", 0), ("needle", 0), ("é", 0),
+                 ("a", 1), ("a", 2), ("aa", 1), ("a", 3))
+
+
+def _text_kernel_cases(torch, dev, sops, like_pattern):
+    """K19, K20 and K21 on the edge column against their plain versions,
+    exactly: LIKE patterns (``_`` and ``%`` at either end), contains /
+    startswith / endswith, the k-th match from either end, windows that
+    start inside the rows, the match mask; every cut mode with random
+    positions; every map.  Returns the number of checks."""
+    rng = np.random.default_rng(SEED + 41)
+    offs, chars = _text_edge_column(torch, dev, rng)
+    cap = int(offs.shape[0]) - 1
+    o0 = offs[:-1]
+    checks = 0
+
+    def same(got, want, what):
+        nonlocal checks
+        if isinstance(got, tuple):
+            ok = all((a is None and b is None) or torch.equal(a, b)
+                     for a, b in zip(got, want))
+        else:
+            ok = torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f"{what} differs from its plain version on "
+                                 f"the edge column")
+        checks += 1
+
+    pats = []
+    for text, mode in TEXT_PATTERNS:
+        if mode is None:
+            pat = like_pattern(text.encode())[0]
+        elif text == "a" and mode in (1, 2, 3):
+            pat = sops.FindPattern([b"a"], repeat=mode, reverse=mode == 2)
+        else:
+            pat = sops.FindPattern([text.encode()], modes=[mode])
+        if pat is not None:
+            pats.append((text, pat))
+    for anchor in (sops.FIND_AT_START, sops.FIND_AT_END):
+        pats.append((f"anchor {anchor}",
+                     sops.FindPattern([b"ab"], modes=[anchor])))
+    late = (o0.long() + torch.from_numpy(rng.integers(0, 20, cap)).to(dev)
+            ).clamp(max=2**31 - 1).to(torch.int32).contiguous()
+    for text, pat in pats:
+        for starts in (None, late):
+            same(sops.string_find(offs, chars, pat, starts),
+                 sops.string_find_plain(offs, chars, pat, starts),
+                 f"K19 {text!r}")
+    for needle in (b"a", b"ab", b"needle", b"% "):
+        same(sops.string_match_mask(offs, chars, needle),
+             sops.string_match_mask_plain(offs, chars, needle),
+             f"K19's mask {needle!r}")
+    pos = torch.from_numpy(rng.integers(-50, 60, cap)).to(dev)
+    ln = torch.from_numpy(rng.integers(-3, 70, cap)).to(dev)
+    for mode in (sops.CUT_LENGTH, sops.CUT_TRIM, sops.CUT_TRIM_LEFT,
+                 sops.CUT_TRIM_RIGHT):
+        same(sops.utf8_cut(offs, chars, mode),
+             sops.utf8_cut_plain(offs, chars, mode), f"K20 mode {mode}")
+    for p, length in ((pos, ln), (pos, None), (1, 2), (3, None), (-4, ln),
+                      (0, 5), (2, -1)):
+        same(sops.utf8_cut(offs, chars, sops.CUT_SUBSTRING, p, length),
+             sops.utf8_cut_plain(offs, chars, sops.CUT_SUBSTRING, p,
+                                 length), "K20 substring")
+    for mode in (sops.MAP_UPPER, sops.MAP_LOWER, sops.MAP_INITCAP,
+                 sops.MAP_REVERSE):
+        same(sops.string_map(offs, chars, mode),
+             sops.string_map_plain(offs, chars, mode), f"K21 mode {mode}")
+    torch.cuda.synchronize()
+    return checks
+
+
+def _check_text_captured(torch, cap, sops, what):
+    """Every call a text query made of K19, K20 or K21, run again through
+    the kernel and its plain version, exactly."""
+    plain = {"string_find": sops.string_find_plain,
+             "string_match_mask": sops.string_match_mask_plain,
+             "utf8_cut": sops.utf8_cut_plain,
+             "string_map": sops.string_map_plain}
+    seen = []
+    for name, args in cap.calls:
+        got = cap.orig[name](*args)
+        want = plain[name](*args)
+        if isinstance(got, tuple):
+            same = all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(got, want))
+        else:
+            same = torch.equal(got, want)
+        rows = int(args[0].shape[0]) - 1
+        if not same:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{what} ({rows} rows)")
+        seen.append(f"{name} ({rows} rows)")
+        del got, want
+    if not seen:
+        raise AssertionError(f"{what} made no K19-K21 call")
+    return seen
+
+
+def _text_call_row(torch, cap, name, cuda_ms, bound, median_ms, sops):
+    """The kernel line's row of K19, K20 or K21 at a query's first call of
+    it: median of 5 launches, the plain version, the bound.  The bound
+    counts what the function needs: each byte of the rows read once (not
+    the bucket's padding), the offsets, a start or a pos or length only
+    where it is a column (a literal is a scalar), and the outputs the
+    callers read (K19 the last token's position, K20 the count or the
+    cut, K21 each row byte written once)."""
+    args = next(a for n, a in cap.calls if n == name)
+    fn, plain = cap.orig[name], getattr(sops, f"{name}_plain")
+    offs = args[0]
+    rows = int(offs.shape[0]) - 1
+    nbytes = int(offs[-1])
+    columns = sum(isinstance(a, torch.Tensor) for a in args[2:])
+    if name == "string_find":
+        moved = nbytes + 4 * (rows + 1) + 4 * columns * rows + 4 * rows
+    elif name == "utf8_cut":
+        out = 4 if args[2] == sops.CUT_LENGTH else 8
+        moved = nbytes + 4 * (rows + 1) + 8 * columns * rows + out * rows
+    else:
+        moved = 2 * nbytes + 4 * (rows + 1)
+    return dict(ms=median_ms(lambda: fn(*args)),
+                plain_ms=cuda_ms(lambda: plain(*args), reps=2),
+                bound_ms=bound(moved),
+                extra=dict(rows=rows, row_bytes=nbytes, bytes_moved=moved))
+
+
+def _text_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
+                 bound, path_run):
+    """TPC-H's text predicates on the card: K19-K21 on edge cases against
+    their plain versions; qt1 (Q13's filter: NOT LIKE
+    '%special%requests%', then a count by customer), qt2 (Q14's and
+    Q16's: sum(CASE WHEN p_type LIKE 'PROMO%' THEN e ELSE 0 END) and
+    sum(e) where p_type NOT LIKE 'MEDIUM POLISHED%' and p_name contains
+    'green'), qt3 (Q22's: substring(c_phone, 1, 2) IN 7 codes, grouped
+    by it with count and sum) over TEXT_ROWS rows and qt4 (a projection
+    of every string function kind and the casts) over TEXT_PROJ_ROWS,
+    each through GpuSession against a pyarrow or numpy oracle; every
+    K19-K21 call of them against its plain version; the kernel rows."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.column import Column, col, lit
+    from spark_rapids_tpu_torch.api.session import GpuSession
+    from spark_rapids_tpu_torch.expr import strings as se
+    from spark_rapids_tpu_torch.expr.core import Literal
+    from spark_rapids_tpu_torch.ops import strings as sops
+
+    def median_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return sorted(out)[reps // 2]
+
+    def ex(cls, *args):
+        return Column(cls(*[a.expr if isinstance(a, Column) else Literal(a)
+                            for a in args]))
+
+    t_text = time.perf_counter()
+    try:
+        t1 = time.perf_counter()
+        n = _text_kernel_cases(torch, dev, sops, se.like_pattern)
+        print(f"K19-K21 edge cases ({TEXT_EDGE_ROWS} rows, empty rows, "
+              f"overlaps, a needle at the end, one row of {MB_STRING} "
+              f"bytes): {n} checks equal their plain versions exactly, "
+              f"{time.perf_counter() - t1:.1f} s")
+    except Exception:
+        failures.append("K19-K21 edge cases")
+        traceback.print_exc()
+
+    orders = part = customer = cc = None
+    try:
+        t1 = time.perf_counter()
+        orders, part, customer, cc = _text_tables()
+        print(f"text tables of {TEXT_ROWS} rows (o_comment "
+              f"{orders['o_comment'].nbytes / 2**30:.2f} GiB): "
+              f"{time.perf_counter() - t1:.1f} s")
+    except Exception:
+        failures.append("text tables")
+        traceback.print_exc()
+        return
+    session = GpuSession()
+    queries = {}
+
+    # qt1: Q13's filter
+    try:
+        t1 = time.perf_counter()
+        keep = pc.invert(pc.match_like(orders["o_comment"],
+                                       "%special%requests%"))
+        keep = pc.fill_null(keep, False).to_numpy(zero_copy_only=False)
+        want1 = np.bincount(orders["o_custkey"].to_numpy()[keep],
+                            minlength=TEXT_CUSTOMERS)
+        print(f"qt1 oracle: {int(keep.sum())} of {TEXT_ROWS} comments kept, "
+              f"{time.perf_counter() - t1:.1f} s")
+        d1 = session.create_dataframe(orders)
+
+        def qt1():
+            return d1.filter(~ex(se.Like, col("o_comment"),
+                                 "%special%requests%")).group_by(
+                col("o_custkey")).agg(F.count("*").alias("c")).collect()
+
+        def check1(got, what):
+            c = np.zeros(TEXT_CUSTOMERS, np.int64)
+            c[got["o_custkey"].to_numpy()] = got["c"].to_numpy()
+            if not np.array_equal(c, want1):
+                raise AssertionError(f"{what} differs from numpy")
+        queries["qt1"] = (qt1, check1, "qt1, Q13's NOT LIKE and a count by "
+                                       "customer")
+    except Exception:
+        failures.append("qt1 oracle")
+        traceback.print_exc()
+
+    # qt2: Q14's and Q16's predicates
+    try:
+        t1 = time.perf_counter()
+        pt = part["p_type"]
+        sel = pc.and_(pc.invert(pc.match_like(pt, "MEDIUM POLISHED%")),
+                      pc.match_substring(part["p_name"], "green"))
+        sel = sel.to_numpy(zero_copy_only=False)
+        promo = pc.match_like(pt, "PROMO%").to_numpy(zero_copy_only=False)
+        e = part["e"].to_numpy()
+        want2 = (int(e[sel & promo].sum()), int(e[sel].sum()))
+        print(f"qt2 oracle: {int(sel.sum())} parts, "
+              f"{time.perf_counter() - t1:.1f} s")
+        d2 = session.create_dataframe(part)
+
+        def qt2():
+            return d2.filter(
+                ~ex(se.Like, col("p_type"), "MEDIUM POLISHED%")
+                & col("p_name").contains("green")).agg(
+                F.sum(F.when(ex(se.Like, col("p_type"), "PROMO%"),
+                             col("e")).otherwise(lit(0))).alias("promo"),
+                F.sum(col("e")).alias("all")).collect()
+
+        def check2(got, what):
+            if (got["promo"][0].as_py(), got["all"][0].as_py()) != want2:
+                raise AssertionError(f"{what}: {got.to_pydict()} != {want2}")
+        queries["qt2"] = (qt2, check2, "qt2, Q14's and Q16's LIKE, NOT LIKE, "
+                                       "contains and CASE WHEN")
+    except Exception:
+        failures.append("qt2 oracle")
+        traceback.print_exc()
+
+    # qt3: Q22's country codes
+    try:
+        t1 = time.perf_counter()
+        codes = np.array([int(x) for x in Q22_CODES])
+        inset = np.isin(cc, codes)
+        bal = customer["c_acctbal"].to_numpy()
+        want3 = {str(c): (int((cc[inset] == c).sum()),
+                          int(bal[inset][cc[inset] == c].sum()))
+                 for c in codes}
+        print(f"qt3 oracle: {int(inset.sum())} customers, "
+              f"{time.perf_counter() - t1:.1f} s")
+        d3 = session.create_dataframe(customer)
+
+        def qt3():
+            code = F.substring(col("c_phone"), 1, 2)
+            return d3.filter(code.isin(*Q22_CODES)).group_by(
+                code.alias("cc")).agg(F.count("*").alias("n"),
+                                      F.sum(col("c_acctbal")).alias("b")
+                                      ).collect()
+
+        def check3(got, what):
+            have = {k: (a, b) for k, a, b in zip(
+                got["cc"].to_pylist(), got["n"].to_pylist(),
+                got["b"].to_pylist())}
+            if have != want3:
+                raise AssertionError(f"{what}: {have} != {want3}")
+        queries["qt3"] = (qt3, check3, "qt3, Q22's substring IN 7 codes, "
+                                       "grouped")
+    except Exception:
+        failures.append("qt3 oracle")
+        traceback.print_exc()
+
+    # qt4: one projection over every string function kind and the casts
+    try:
+        t1 = time.perf_counter()
+        m = TEXT_PROJ_ROWS
+        rng = np.random.default_rng(SEED + 43)
+        ints = rng.integers(-2**31, 2**31, m).astype(np.int32)
+        longs = rng.integers(-2**62, 2**62, m)
+        days = rng.integers(-40_000, 40_000, m).astype(np.int32)
+        cents = rng.integers(-10**11, 10**11, m)
+        floats = np.round(rng.normal(0, 1e4, m), 2)
+        t4 = pa.table({
+            "s": part["p_type"].slice(0, m), "n": part["p_name"].slice(0, m),
+            "c": orders["o_comment"].slice(0, m),
+            "i": pa.array(ints), "l": pa.array(longs),
+            "d": pa.array(days, pa.date32()),
+            "dec": _decimal_array(cents, cents >> 63, 12, 2),
+            "si": pa.array(ints).cast(pa.string()),
+            "sf": pa.array(floats).cast(pa.string()),
+            "sd": pa.array(days, pa.date32()).cast(pa.string())})
+        want4 = {
+            "u": pc.utf8_upper(t4["n"]), "lo": pc.utf8_lower(t4["s"]),
+            "ic": pc.utf8_title(t4["s"]),
+            "tr": pc.utf8_trim(t4["c"], " "),
+            "lp": pc.utf8_slice_codeunits(pc.utf8_lpad(t4["s"], 25, "*"),
+                                          0, 25),
+            "cc": pc.binary_join_element_wise(t4["s"], t4["n"], "|"),
+            "rv": pc.utf8_reverse(t4["n"]),
+            "ln": pc.utf8_length(t4["c"]).cast(pa.int32()),
+            "loc": pc.add(pc.find_substring(t4["n"], "e"), 1).cast(
+                pa.int32()),
+            "rp": pc.replace_substring(t4["n"], "green", "GREEN"),
+            "cw": pc.if_else(pc.greater(t4["i"], 0), t4["s"], t4["n"]),
+            "ci": t4["i"].cast(pa.string()), "cl": t4["l"].cast(pa.string()),
+            "cd": t4["d"].cast(pa.string()),
+            "cdec": t4["dec"].cast(pa.string()),
+            "si2": t4["i"], "sd2": t4["d"]}
+        print(f"qt4 table of {m} rows and its pyarrow oracles: "
+              f"{time.perf_counter() - t1:.1f} s")
+        d4 = session.create_dataframe(t4)
+
+        def qt4():
+            return d4.select(
+                F.upper(col("n")).alias("u"), F.lower(col("s")).alias("lo"),
+                ex(se.InitCap, col("s")).alias("ic"),
+                ex(se.Trim, col("c")).alias("tr"),
+                ex(se.StringLPad, col("s"), 25, "*").alias("lp"),
+                F.concat(col("s"), lit("|"), col("n")).alias("cc"),
+                ex(se.Reverse, col("n")).alias("rv"),
+                F.length(col("c")).alias("ln"),
+                ex(se.StringLocate, "e", col("n")).alias("loc"),
+                ex(se.StringReplace, col("n"), "green", "GREEN").alias("rp"),
+                F.when(col("i") > 0, col("s")).otherwise(col("n"))
+                .alias("cw"),
+                col("i").cast("string").alias("ci"),
+                col("l").cast("string").alias("cl"),
+                col("d").cast("string").alias("cd"),
+                col("dec").cast("string").alias("cdec"),
+                col("si").cast("int").alias("si2"),
+                col("sf").cast("double").alias("sf2"),
+                col("sd").cast("date").alias("sd2")).collect()
+
+        def check4(got, what):
+            for k, w in want4.items():
+                g = got[k]
+                if not g.cast(w.type).equals(w):
+                    raise AssertionError(f"{what}: column {k} differs from "
+                                         f"pyarrow")
+            sf = got["sf2"].to_numpy()
+            if not np.allclose(sf, floats, rtol=1e-15, atol=0):
+                raise AssertionError(f"{what}: column sf2 differs from the "
+                                     f"parsed floats")
+        queries["qt4"] = (qt4, check4, f"qt4, a projection of 18 string "
+                                       f"functions and casts over {m} rows")
+    except Exception:
+        failures.append("qt4 oracle")
+        traceback.print_exc()
+
+    placements = {}
+    for run, (fn, check, what) in queries.items():
+        try:
+            path_run(run, fn, check, what)
+            nodes = _placements(session.last_plan)
+            placements[run] = nodes
+            if nodes[0] != ("DeviceToHostExec", "cpu") or \
+                    any(p != "gpu" for _, p in nodes[1:]):
+                raise AssertionError(f"{what} placed {nodes}:\n"
+                                     f"{session.last_explain}")
+            with _Capture(sops, "string_find", "string_match_mask",
+                          "utf8_cut", "string_map") as cap:
+                fn()
+            seen = _check_text_captured(torch, cap, sops, what)
+            print(f"{run}: GPU-placed {nodes}; {len(seen)} K19-K21 call(s) "
+                  f"equal their plain versions exactly: "
+                  + ", ".join(sorted(set(seen))))
+            for name, key in (("string_find", "qt1"), ("utf8_cut", "qt3"),
+                              ("string_map", "qt4")):
+                if run != key:
+                    continue
+                row = _text_call_row(torch, cap, name, cuda_ms, bound,
+                                     median_ms, sops)
+                src = {"string_find": "string_find.cu",
+                       "utf8_cut": "utf8_cut.cu",
+                       "string_map": "string_map.cu"}[name]
+                rep = {"string_find": "expr/strings.py:376",
+                       "utf8_cut": "expr/strings.py:176",
+                       "string_map": "expr/strings.py:71"}[name]
+                kernel_rows[name] = dict(
+                    source=f"spark_rapids_tpu_torch/csrc/{src}",
+                    replaces=f"spark_rapids_tpu/{rep}", max_abs_err=0.0,
+                    library_ms=None, **row)
+                print(f"{name} at {run}'s call ({row['extra']['rows']} rows, "
+                      f"{row['extra']['row_bytes']} bytes): median "
+                      f"{row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms, "
+                      f"plain {row['plain_ms']:.3f} ms; {card}")
+            del cap
+        except Exception:
+            failures.append(run)
+            traceback.print_exc()
+    for name in ("string_find", "utf8_cut", "string_map"):
+        print(f"{name} launches a run: " + ", ".join(
+            f"{r} {launches[r][name]}" for r in queries if r in launches))
+    del orders, part, customer, session, queries
+    print(f"text phases: {time.perf_counter() - t_text:.1f} s")
 
 
 def _card_line():
@@ -2476,9 +3021,10 @@ Q1_PLACEMENTS = [
 SHORT_ROWS = (1, 2, 3, 255, 257, 6143, 6145, 65535, 65537)
 # the Q1 text's rows: its CPU engine stages (the int128 products and
 # pyarrow's decimal group-by) took 26-35 s over 2^25 rows on the H100's
-# host, so it runs over the largest power of two that keeps them under
-# about 30 s
-Q1_TEXT_ROWS = ROWS // 2
+# host and 18.4 s over 2^24; it runs over 2^23 to leave the script's
+# time limit room for the string functions' phases
+Q1_TEXT_ROWS = ROWS // 4
+QN_WRITE_ROWS = ROWS // 2  # qn's parquet round trip: 20.3 s at 2^25 rows
 
 
 def _decimal_array(lo, hi, precision, scale, valid=None):
@@ -4603,7 +5149,10 @@ def main() -> int:
                 "hash_bytes": hashfns_mod.hash_bytes,
                 "gather_strings": sops.gather_strings,
                 "order_keys": sops.order_keys,
-                "span_rows": gather_mod.span_rows}
+                "span_rows": gather_mod.span_rows,
+                "string_find": sops.string_find,
+                "utf8_cut": sops.utf8_cut,
+                "string_map": sops.string_map}
 
     def download_fetched(b):
         return batch_to_arrow(fetch.fetch_batch(b))
@@ -7022,8 +7571,9 @@ def main() -> int:
 
     def path_run(run, fn, check, what, reps=3):
         """A main-path run of the types slice: cold, then ``reps`` warm
-        runs (the first with its launches counted), then a trace; each
-        result checked."""
+        runs (the first with its launches counted), then a trace (not for
+        a run of one warm repetition: those wait on the host, idle 0.999
+        and more); each result checked."""
         t1 = time.perf_counter()
         check(fn(), f"{what} (cold)")
         cold = time.perf_counter() - t1
@@ -7037,7 +7587,8 @@ def main() -> int:
         launches[run] = counts()
         check(got, what)
         walls += timed_walls(fn, reps - 1)
-        trace = _profile(torch, fn)
+        trace = _profile(torch, fn) if reps > 1 else dict(
+            busy_ms=float("nan"), idle_share=float("nan"), top=[])
         k3_ms = sum(ms for n, ms in trace["top"] if "fold_kernel" in n)
         print(f"{what}: equals its oracle; cold wall {cold * 1e3:.1f} ms, "
               f"warm walls {', '.join(f'{w:.1f}' for w in walls)} ms, "
@@ -7157,22 +7708,26 @@ def main() -> int:
                      + ("" if limit is None else f".limit({limit})"))
         out_dir = tempfile.mkdtemp(prefix="qn_parquet_")
         try:
+            qn_part = qn_table.slice(0, QN_WRITE_ROWS)
+            dfw = sn.create_dataframe(qn_part)
+
             def write_back():
-                dfn.write.mode("overwrite").parquet(out_dir)
+                dfw.write.mode("overwrite").parquet(out_dir)
                 return pq.read_table(out_dir).sort_by("rid")
 
-            path_run("qn_write", write_back, check_equal(qn_table),
-                     "qn parquet write, read back by pyarrow", reps=1)
+            path_run("qn_write", write_back, check_equal(qn_part),
+                     f"qn parquet write of {QN_WRITE_ROWS} rows, read back "
+                     f"by pyarrow", reps=1)
             t1 = time.perf_counter()
             back = sn.read.parquet(out_dir).collect().sort_by("rid")
-            if not back.equals(qn_table):
+            if not back.equals(qn_part):
                 raise AssertionError("qn's parquet read through the port "
                                      "differs")
             print(f"qn parquet read back through the port: equal, "
                   f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
-        del qn_table, qn_filtered, qn_groups, qn_order, dfn
+        del qn_table, qn_filtered, qn_groups, qn_order, dfn, dfw, qn_part
     except Exception:
         failures.append("qn (the narrow types)")
         traceback.print_exc()
@@ -7180,6 +7735,8 @@ def main() -> int:
 
     _nested_phases(torch, dev, card, launches, kernel_rows, failures,
                    cuda_ms, bound, path_run)
+    _text_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
+                 bound, path_run)
 
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
@@ -7276,7 +7833,14 @@ def main() -> int:
                       "gather_rows"),
         "qa5_parquet": ("compact_rows", "gather_strings", "span_rows",
                         "gather_rows"),
-        "qa5_cache": ()}
+        "qa5_cache": (),
+        # the string functions
+        "qt1": ("string_find", "compact_rows", "sort_order",
+                "segment_reduce_sorted"),
+        "qt2": ("string_find", "compact_rows", "segment_reduce_sorted"),
+        "qt3": ("utf8_cut", "gather_strings", "compact_rows", "sort_order",
+                "segment_reduce_sorted"),
+        "qt4": ("string_find", "utf8_cut", "string_map", "gather_strings")}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
                 "q5_4", "qs1", "qs1_4", "qs2", "qs3", "qs4", "qs4_topn",
@@ -7289,7 +7853,7 @@ def main() -> int:
                 "act_gavg", "q1d", "q1d_4", "q1", "qn_filter", "qn_group",
                 "qn_sort", "qn_topn", "qn_write", "qa1", "qa1_4", "qa2",
                 "qa3", "qa3_4", "qa4", "qa5_union", "qa5_parquet",
-                "qa5_cache"):
+                "qa5_cache", "qt1", "qt2", "qt3", "qt4"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -7309,7 +7873,8 @@ def main() -> int:
     if kernel_rows:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
         # q2 for K4-K7, q3 for K8-K10, q4 for K11-K13, qs2 for K14, the
-        # 2^20-row F.hash for K15, qs4 for K16 and K17
+        # 2^20-row F.hash for K15, qs4 for K16 and K17, qa1 for K18, qt1
+        # for K19, qt3 for K20, qt4 for K21
         run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
                   "expand_pairs": "q2", "gather_rows": "q3",
                   "segment_reduce_sorted_minmax": "q1x",
@@ -7325,7 +7890,8 @@ def main() -> int:
                   "scatter_rows_int16": "q4",
                   "pack_lanes_int16": "qn_filter",
                   "expand_pairs_int16": "q2",
-                  "span_rows": "qa1"}
+                  "span_rows": "qa1", "string_find": "qt1",
+                  "utf8_cut": "qt3", "string_map": "qt4"}
         counted_as = {"segment_reduce_sorted_minmax": "segment_reduce_sorted",
                       "gather_strings_flags": "gather_strings",
                       "segment_reduce_sorted_distinct":

@@ -127,6 +127,22 @@ class Column:
             to = from_arrow_type(to)
         return Column(Cast(self.expr, to))
 
+    def substr(self, start, length):
+        from ..expr.strings import Substring
+        return Column(Substring(self.expr, Literal(start), Literal(length)))
+
+    def contains(self, s):
+        from ..expr.strings import Contains
+        return Column(Contains(self.expr, _expr(s)))
+
+    def startswith(self, s):
+        from ..expr.strings import StartsWith
+        return Column(StartsWith(self.expr, _expr(s)))
+
+    def endswith(self, s):
+        from ..expr.strings import EndsWith
+        return Column(EndsWith(self.expr, _expr(s)))
+
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name), alias=name)
 

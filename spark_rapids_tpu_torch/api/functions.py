@@ -228,3 +228,49 @@ def percent_rank() -> Column:
 
 def cume_dist() -> Column:
     return Column(win.CumeDist())
+
+
+# -- strings -----------------------------------------------------------------
+
+def upper(c) -> Column:
+    from ..expr.strings import Upper
+    return _c(Upper(_arg(c)))
+
+
+def lower(c) -> Column:
+    from ..expr.strings import Lower
+    return _c(Lower(_arg(c)))
+
+
+def length(c) -> Column:
+    from ..expr.strings import Length
+    return _c(Length(_arg(c)))
+
+
+def substring(c, pos, length) -> Column:
+    from ..expr.core import Literal
+    from ..expr.strings import Substring
+    return _c(Substring(_arg(c), Literal(pos), Literal(length)))
+
+
+def concat(*cols) -> Column:
+    from ..expr.strings import Concat
+    return _c(Concat(*[_arg(c) for c in cols]))
+
+
+def concat_ws(sep: str, *cols) -> Column:
+    """concat_ws(sep, c1, c2, ...): the inputs that are not null joined
+    by sep."""
+    from ..expr.core import Literal
+    from ..expr.strings import ConcatWs
+    return _c(ConcatWs(Literal(sep), *[_arg(c) for c in cols]))
+
+
+def md5(c) -> Column:
+    from ..expr.hashfns import Md5
+    return _c(Md5(_arg(c)))
+
+
+def ascii(c) -> Column:  # noqa: A001
+    from ..expr.strings import Ascii
+    return _c(Ascii(_arg(c)))

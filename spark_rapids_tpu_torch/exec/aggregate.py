@@ -18,6 +18,7 @@ group_by over the host-evaluated keys and inputs.
 
 from __future__ import annotations
 
+import decimal
 import functools
 import itertools
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
@@ -988,6 +989,33 @@ _PA_SCALAR = {"sum": pc.sum, "count": pc.count, "mean": pc.mean,
               "min": pc.min, "max": pc.max}
 
 
+def _widen_decimal_inputs(table: pa.Table, aggregates) -> pa.Table:
+    """A decimal SUM or AVG input as decimal256, so pyarrow's hash sum
+    cannot wrap modulo 2^128 (``_fit_result`` then nulls what passes the
+    result's precision)."""
+    for i, ae in enumerate(aggregates):
+        name = f"__in{i}"
+        if type(ae.func) in (Sum, Average) and \
+                pa.types.is_decimal(table.schema.field(name).type):
+            scale = table.schema.field(name).type.scale
+            table = table.set_column(
+                table.schema.get_field_index(name), name,
+                table.column(name).cast(pa.decimal256(76, scale)))
+    return table
+
+
+def _fit_result(arr, dtype: t.DataType):
+    """An aggregate's pyarrow result cast to its column type; a decimal
+    that passes its precision is null, as Spark's CheckOverflow gives."""
+    if isinstance(dtype, t.DecimalType) and pa.types.is_decimal256(arr.type):
+        wide = arr.cast(pa.decimal256(76, dtype.scale))
+        lim = pa.scalar(decimal.Decimal(10) ** (dtype.precision - dtype.scale),
+                        pa.decimal256(76, dtype.scale))
+        fits = pc.and_(pc.less(wide, lim), pc.greater(wide, pc.negate(lim)))
+        arr = pc.if_else(fits, wide, pa.scalar(None, wide.type))
+    return arr.cast(to_arrow_type(dtype))
+
+
 class CpuHashAggregateExec(Exec):
     """Complete-mode aggregate on pyarrow (the 'Spark CPU' role): the
     grouping keys and aggregate inputs are evaluated on CPU tensors, then
@@ -1079,6 +1107,7 @@ class CpuHashAggregateExec(Exec):
                 return
             tables = [self._empty_input()]
         table = pa.concat_tables(tables)
+        table = _widen_decimal_inputs(table, self.aggregates)
         for ae in self.aggregates:
             if type(ae.func) not in _PA_AGG:
                 raise NotImplementedError(
@@ -1124,8 +1153,8 @@ class CpuHashAggregateExec(Exec):
             else:
                 out_cols.append(res.column(nm))
         for (cname, kind, _), ae in zip(aggs, self.aggregates):
-            out_cols.append(res.column(f"{cname}_{kind}").cast(
-                to_arrow_type(ae.data_type())))
+            out_cols.append(_fit_result(res.column(f"{cname}_{kind}"),
+                                        ae.data_type()))
         out = pa.table(dict(zip(self.output_names, out_cols)))
         for rb in out.combine_chunks().to_batches():
             yield batch_to_device(rb, self.device(ctx))

@@ -4,8 +4,9 @@ Counterpart of spark_rapids_tpu/expr/conditional.py over the port's flat
 types: every branch evaluates eagerly and the result blends them with
 ``torch.where``.  The branch type is the promotion of the branches that
 are not NULL (``_common_type``); a NULL branch or a literal branch is
-broadcast to a column.  A null predicate takes the false branch.  String
-branches wait for Queue 1 item 3.
+broadcast to a column.  A null predicate takes the false branch.  A
+STRING result gathers each row's chosen branch out of the branches'
+columns laid end to end (``_string_branches``, K16), on either engine.
 """
 
 from __future__ import annotations

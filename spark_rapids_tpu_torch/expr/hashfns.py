@@ -1,5 +1,6 @@
 """Spark's hash(): Murmur3_x86_32 with seed 42, for hash partitioning;
-and monotonically_increasing_id().
+monotonically_increasing_id(); and md5(), a hex digest a row on the host
+engine only (``hashlib``), as in the reference.
 
 Counterpart of spark_rapids_tpu/expr/hashfns.py (hash_int32, hash_int64,
 hash_bytes, hash_column, Murmur3Hash), bit for bit with the reference's
@@ -258,3 +259,30 @@ def _eval_monotonic_id(e: MonotonicallyIncreasingID, ctx: EvalContext):
     pos = torch.arange(ctx.capacity, dtype=torch.int64, device=ctx.device)
     return make_column(ctx, t.LONG, pos + ctx.row_base,
                        pos < ctx.batch.num_rows)
+
+
+class Md5(Expression):
+    """md5(x): the MD5 digest of each row's bytes as 32 hex digits, on the
+    host engine only (tagged off the GPU, as in the reference)."""
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def data_type(self):
+        return t.STRING
+
+
+@evaluator(Md5)
+def _eval_md5(e: Md5, ctx: EvalContext):
+    import hashlib
+
+    from .host_strings import build_string_column, host_only, host_string_rows
+    host_only(ctx, "md5")
+    v = e.children[0].eval(ctx)
+    if not isinstance(v, ColumnValue):
+        v = make_column(ctx, e.children[0].data_type(),
+                        v.value if v.value is not None else 0,
+                        None if v.value is not None else False)
+    return build_string_column(ctx, [
+        None if r is None else hashlib.md5(r).hexdigest()
+        for r in host_string_rows(v.col, ctx.capacity, None)])

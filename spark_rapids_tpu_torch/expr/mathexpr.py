@@ -8,8 +8,11 @@ Spark's corners, as the reference keeps them: the log of a value <= 0
 (log1p: <= -1) is null, not NaN; floor and ceil of a double give LONG,
 NaN -> 0 and out of range saturated; signum(NaN) is NaN; round is
 HALF_UP at a scale (``floor(x * 10^s + 0.5) / 10^s`` for a double,
-exact for an integral), bround HALF_EVEN (``torch.round``).  Decimal
-inputs wait for Queue 1 item 3.
+exact for an integral), bround HALF_EVEN (``torch.round``).  Over a
+decimal, floor and ceil give DECIMAL(p - s + 1, 0) and round and bround
+DECIMAL at the target scale (the reference's types: a negative scale
+rounds at 0), computed on the unscaled int128 pair (``ops/int128.py``),
+never through a double.
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ from __future__ import annotations
 import torch
 
 from .. import types as t
+from ..ops import int128 as i128
 from .arithmetic import cast_data
-from .core import (EvalContext, Expression, and_validity, data_of, evaluator,
-                   make_column, validity_of)
+from .core import (EvalContext, Expression, ScalarValue, and_validity,
+                   data_of, decimal_pair, evaluator, make_column,
+                   make_decimal_column, validity_of)
 
 _INT64_EDGE = 9.223372036854776e18          # 2^63 as a double
 
@@ -183,6 +188,8 @@ class Floor(Expression):
 
     def data_type(self):
         dt = self.children[0].data_type()
+        if isinstance(dt, t.DecimalType):
+            return t.DecimalType(dt.precision - dt.scale + 1, 0)
         return dt if t.is_integral(dt) else t.LONG
 
 
@@ -190,8 +197,37 @@ class Ceil(Floor):
     pass
 
 
+def _decimal_input(ctx: EvalContext, e: Expression):
+    """(int128 pair, validity) of a decimal expression's value."""
+    v = e.eval(ctx)
+    if isinstance(v, ScalarValue):
+        v = make_decimal_column(ctx, v.dtype, int(v.value or 0),
+                                validity_of(v))
+    return decimal_pair(v.col), v.col.validity
+
+
+def _magnitude_divmod(pair, k: int):
+    """(sign, |a| // 10^k, |a| % 10^k) of an int128 pair."""
+    neg = i128.is_neg(pair)
+    m = i128.abs_(pair)
+    q = i128.div_pow10(m, k)
+    return neg, q, i128.sub(m, i128.mul(q, 10 ** k))
+
+
+def _signed(neg, q):
+    return i128.where(neg, i128.neg(q), q)
+
+
 def _eval_floor(e: Floor, ctx: EvalContext):
     src = e.children[0].data_type()
+    if isinstance(src, t.DecimalType):
+        pair, val = _decimal_input(ctx, e.children[0])
+        neg, q, r = _magnitude_divmod(pair, src.scale)
+        # toward -inf (floor) or +inf (ceil): the magnitude grows by one
+        # where a remainder is left on the side that rounds away
+        away = ~i128.eq(r, 0) & (neg if type(e) is Floor else ~neg)
+        q = i128.add(q, (away.to(torch.int64), torch.zeros_like(q[1])))
+        return make_decimal_column(ctx, e.data_type(), _signed(neg, q), val)
     if t.is_integral(src):
         return e.children[0].eval(ctx)
     d, val = _as_double(ctx, e.children[0])
@@ -220,7 +256,12 @@ class Round(Expression):
         self.scale = scale
 
     def data_type(self):
-        return self.children[0].data_type()
+        dt = self.children[0].data_type()
+        if isinstance(dt, t.DecimalType):
+            scale = min(max(self.scale, 0), dt.scale)
+            p = dt.precision - dt.scale + scale + (scale < dt.scale)
+            return t.DecimalType(min(p, 38), scale)
+        return dt
 
 
 class BRound(Round):
@@ -236,7 +277,25 @@ def _div_round_half_up(num: torch.Tensor, den: int) -> torch.Tensor:
     return torch.where(num < 0, -mag, mag)
 
 
+def _round_decimal(e: Round, ctx: EvalContext):
+    src, out = e.children[0].data_type(), e.data_type()
+    pair, val = _decimal_input(ctx, e.children[0])
+    k = src.scale - out.scale
+    if k == 0:
+        return make_decimal_column(ctx, out, pair, val)
+    if not e.half_even:
+        return make_decimal_column(ctx, out,
+                                   i128.round_half_up_pow10(pair, k), val)
+    neg, q, r = _magnitude_divmod(pair, k)
+    half = 10 ** k // 2
+    up = ~i128.lt(r, half + 1) | (i128.eq(r, half) & ((q[0] & 1) == 1))
+    q = i128.add(q, (up.to(torch.int64), torch.zeros_like(q[1])))
+    return make_decimal_column(ctx, out, _signed(neg, q), val)
+
+
 def _eval_round(e: Round, ctx: EvalContext):
+    if isinstance(e.children[0].data_type(), t.DecimalType):
+        return _round_decimal(e, ctx)
     src = e.data_type()
     s = e.scale
     if t.is_integral(src):

@@ -30,7 +30,8 @@ HEADERS = ("partition.cuh", "join_hash.cuh", "merge_path.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "expand_ends", "join_expand", "gather_rows", "fetch_pack",
            "window_scan", "scatter_rows", "string_hashes", "hash_bytes",
-           "gather_strings", "prefix_words", "span_rows")
+           "gather_strings", "prefix_words", "span_rows", "string_find",
+           "utf8_cut", "string_map")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,6 +100,18 @@ _SIGNATURES = {
     },
     "span_rows": {
         "srt_span_rows": [_P, _P, _I, _I, _P, _L, _P],
+    },
+    "string_find": {
+        "srt_string_find": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+                            _P],
+        "srt_string_match_mask": [_P, _P, _I, _P, _I, _P, _P],
+    },
+    "utf8_cut": {
+        "srt_utf8_cut": [_P, _P, _I, _I, _P, _L, _P, _L, _I, _P, _P, _P,
+                         _P],
+    },
+    "string_map": {
+        "srt_string_map": [_P, _P, _I, _L, _I, _P, _P],
     },
 }
 

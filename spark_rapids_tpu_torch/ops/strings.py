@@ -14,14 +14,21 @@ spark_rapids_tpu/expr/predicates.py ``scalar_string_keys``, bit for bit:
   (K17, ``csrc/prefix_words.cu``).  Strings that share more than 32
   bytes of prefix are ordered by length only, as in the reference;
 * gather: new offsets, an exclusive scan of the selected lengths, then a
-  copy of the selected spans (K16, ``csrc/gather_strings.cu``).
+  copy of the selected spans (K16, ``csrc/gather_strings.cu``);
+* the string functions' kernels (expr/strings.py): K19 ``string_find``
+  (``csrc/string_find.cu``), each row's first match of a literal needle,
+  or of a LIKE pattern's tokens one after another, and the match mask of
+  ``replace``; K20 ``utf8_cut`` (``csrc/utf8_cut.cu``), each row's
+  character count and the byte cut of a substring or a trim; K21
+  ``string_map`` (``csrc/string_map.cu``), a byte map into new chars
+  under the same offsets (ASCII upper, lower, initcap; reverse by UTF-8
+  character); and the torch compositions ``pack_rows`` and
+  ``window_bytes`` (the reference's, for casts to and from strings).
 
 The hashes are uint64 in the reference; here they are carried as int64
 bits (multiplication and addition wrap the same mod 2^64).  A word that
 K2 sorts is carried as (word XOR 2^63), so signed order is the
-reference's unsigned order.  The rest of the reference's module
-(``pack_rows``, ``window_bytes``) serves expr/strings.py and is not
-ported.
+reference's unsigned order.
 
 Each kernel's wrapper takes its plain PyTorch version for CPU tensors
 only; for CUDA tensors it launches the kernel or raises, and counts its
@@ -418,3 +425,445 @@ def concat_char_buffers(offs_list: Sequence[torch.Tensor],
         row += n
         byte += b
     return offs, chars
+
+
+# ---------------------------------------------------------------------------
+# pack_rows, window_bytes: the reference's byte-matrix helpers (torch)
+# ---------------------------------------------------------------------------
+
+def pack_rows(mat: torch.Tensor, lens: torch.Tensor, valid: torch.Tensor,
+              out_char_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(offsets, chars) from a left-aligned byte matrix uint8[cap, W]:
+    row i is ``mat[i, :lens[i]]``, an invalid row empty; chars zero-padded
+    to ``out_char_cap`` (the reference's ``ops/strings.py:pack_rows``)."""
+    dev = mat.device
+    lens = torch.where(valid, lens.to(torch.int64),
+                       torch.zeros((), dtype=torch.int64, device=dev))
+    offs = torch.zeros(mat.shape[0] + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=offs[1:])
+    keep = torch.arange(mat.shape[1], device=dev)[None, :] < lens[:, None]
+    body = mat[keep]
+    chars = torch.zeros(max(out_char_cap, body.shape[0]), dtype=torch.uint8,
+                        device=dev)
+    chars[:body.shape[0]] = body
+    return offs.to(torch.int32), chars
+
+
+def window_bytes(offsets: torch.Tensor, chars: torch.Tensor, width: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(uint8[cap, width] each row's first ``width`` bytes, zero past its
+    length; int32[cap] the lengths): the reference's
+    ``ops/strings.py:window_bytes``."""
+    lens = lengths(offsets)
+    k = torch.arange(width, dtype=torch.int64, device=offsets.device)
+    idx = (offsets[:-1].to(torch.int64)[:, None] + k[None, :]).clamp(
+        0, max(chars.shape[0] - 1, 0))
+    if chars.shape[0] == 0:
+        return torch.zeros((lens.shape[0], width), dtype=torch.uint8,
+                           device=offsets.device), lens
+    b = torch.where(k[None, :] < lens[:, None], chars[idx],
+                    torch.zeros((), dtype=torch.uint8, device=chars.device))
+    return b, lens
+
+
+def _char_starts(chars: torch.Tensor) -> torch.Tensor:
+    """bool per byte: a UTF-8 sequence's lead byte (no continuation)."""
+    return (chars & 0xC0) != 0x80
+
+
+# ---------------------------------------------------------------------------
+# K19: literal search
+# ---------------------------------------------------------------------------
+
+FIND_AT_START = 1       # a token must begin where the last one ended
+FIND_AT_END = 2         # a token must end ``reserve`` bytes before the end
+
+
+class FindPattern:
+    """A search compiled on the host: tokens searched one after another in
+    each row, each from where the one before ended; ``modes[k]`` anchors
+    token k (FIND_AT_START, FIND_AT_END, both, or 0 for the first match),
+    ``reserves[k]`` bytes are kept free after it, ``wildcard`` is a byte
+    that matches any byte (LIKE's ``_``), ``repeat`` runs the token
+    sequence that many times (the result is the last run's), and
+    ``reverse`` searches from the end (each token the last match before
+    the one found before it)."""
+
+    __slots__ = ("tokens", "modes", "reserves", "wildcard", "repeat",
+                 "reverse")
+
+    def __init__(self, tokens: Sequence[bytes], modes=None, reserves=None,
+                 wildcard: Optional[int] = None, repeat: int = 1,
+                 reverse: bool = False):
+        self.tokens = [bytes(x) for x in tokens]
+        n = len(self.tokens)
+        self.modes = list(modes) if modes is not None else [0] * n
+        self.reserves = list(reserves) if reserves is not None else [0] * n
+        self.wildcard = wildcard
+        self.repeat = int(repeat)
+        self.reverse = bool(reverse)
+        if not n or any(not x for x in self.tokens):
+            raise ValueError(f"string_find: non-empty tokens, got "
+                             f"{self.tokens!r}")
+        if self.repeat < 1 or (self.reverse and any(self.modes)):
+            raise ValueError("string_find: repeat >= 1; a reverse search "
+                             "takes no anchors")
+
+    def arrays(self):
+        """(bytes, wildcard flags, token offsets, modes, reserves) as the
+        kernel reads them."""
+        body = b"".join(self.tokens)
+        wild = bytes(int(b == self.wildcard) for b in body)
+        offs = [0]
+        for x in self.tokens:
+            offs.append(offs[-1] + len(x))
+        return body, wild, offs, self.modes, self.reserves
+
+
+def _total(offsets: torch.Tensor) -> int:
+    """The bytes the rows hold (``offsets[cap]``): a plain version reads
+    no further, so no scan runs over a bucket's padding."""
+    return int(offsets[-1]) if offsets.shape[0] > 1 else 0
+
+
+def _token_mask(chars: torch.Tensor, tok: bytes,
+                wildcard: Optional[int]) -> torch.Tensor:
+    """bool per byte: ``tok`` matches starting at this byte (the
+    reference's ``_match_positions``)."""
+    n = chars.shape[0]
+    m = torch.zeros(n, dtype=torch.bool, device=chars.device)
+    if n < len(tok):
+        return m
+    ok = torch.ones(n - len(tok) + 1, dtype=torch.bool, device=chars.device)
+    for j, b in enumerate(tok):
+        if b != wildcard:
+            ok &= chars[j:n - len(tok) + 1 + j] == b
+    m[:ok.shape[0]] = ok
+    return m
+
+
+def string_find_plain(offsets: torch.Tensor, chars: torch.Tensor,
+                      pattern: FindPattern,
+                      starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K19: each token's match mask over the rows' bytes,
+    its prefix count and a ``searchsorted`` for the first (last) match in
+    the window, as the reference searches."""
+    dev = chars.device
+    cap = offsets.shape[0] - 1
+    chars = chars[:_total(offsets)]
+    n = chars.shape[0]
+    cur = offsets[:-1].to(torch.int64)
+    if starts is not None:
+        cur = torch.maximum(starts.to(torch.int64), cur)
+    hi = offsets[1:].to(torch.int64)
+    alive = torch.ones(cap, dtype=torch.bool, device=dev)
+    p = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    pres = []
+    for tok in pattern.tokens:
+        m = _token_mask(chars, tok, pattern.wildcard)
+        pre = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(m.to(torch.int64), 0, out=pre[1:])
+        pres.append((m, pre))
+    for _ in range(pattern.repeat):
+        for k, tok in enumerate(pattern.tokens):
+            m, pre = pres[k]
+            L = len(tok)
+            limit = hi - pattern.reserves[k] - L
+            lo_c = cur.clamp(0, n)
+            hi_c = (limit + 1).clamp(0, n)
+            room = limit >= cur
+            mode = pattern.modes[k]
+            if mode & (FIND_AT_START | FIND_AT_END):
+                at = cur if mode & FIND_AT_START else limit
+                hit = room & m[at.clamp(0, max(n - 1, 0))] if n else room & False
+                if mode & FIND_AT_START and mode & FIND_AT_END:
+                    hit &= cur == limit
+                p = at
+            else:
+                hit = room & (pre[hi_c] - pre[lo_c] > 0)
+                if pattern.reverse:
+                    p = torch.searchsorted(pre, pre[hi_c], right=False) - 1
+                else:
+                    p = torch.searchsorted(pre, pre[lo_c] + 1,
+                                           right=False) - 1
+            alive &= hit
+            if pattern.reverse:
+                hi = torch.where(alive, p, hi)
+            else:
+                cur = torch.where(alive, p + L, cur)
+    return torch.where(alive, p, torch.full_like(p, -1)).to(torch.int32)
+
+
+def string_find(offsets: torch.Tensor, chars: torch.Tensor,
+                pattern: FindPattern,
+                starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32[cap]: where the last token of ``pattern`` matches in row i,
+    each token searched from where the one before ended, the first from
+    ``starts[i]`` (an absolute byte position; None: the row start) to the
+    row's end; -1 where a token does not match (K19).  No byte past
+    ``offsets[cap]`` is read."""
+    _check_span("string_find", offsets, chars)
+    if starts is not None and starts.dtype != torch.int32:
+        raise TypeError("string_find: starts must be int32[cap]")
+    if offsets.device.type == "cpu":
+        return string_find_plain(offsets, chars, pattern, starts)
+    extra = [starts] if starts is not None else []
+    kernels.require_cuda("string_find", offsets, chars, *extra)
+    cap = int(offsets.shape[0]) - 1
+    out = torch.empty(cap, dtype=torch.int32, device=offsets.device)
+    if cap == 0:
+        return out
+    body, wild, toff, modes, reserves = pattern.arrays()
+    dev = offsets.device
+    packed = torch.tensor(list(body) + list(wild), dtype=torch.uint8,
+                          pin_memory=True).to(dev, non_blocking=True)
+    ints32 = torch.tensor(toff + modes + reserves, dtype=torch.int32,
+                          pin_memory=True).to(dev, non_blocking=True)
+    lib = kernels.library("string_find")
+    kernels.check(lib, lib.srt_string_find(
+        offsets.data_ptr(), chars.data_ptr(), cap, packed.data_ptr(),
+        len(body), ints32.data_ptr(), len(pattern.tokens),
+        int(pattern.wildcard is not None), pattern.repeat,
+        int(pattern.reverse), None if starts is None else starts.data_ptr(),
+        out.data_ptr(), kernels.stream(offsets)), "string_find")
+    string_find.launches += 1
+    return out
+
+
+string_find.launches = 0
+
+
+def string_match_mask_plain(offsets: torch.Tensor, chars: torch.Tensor,
+                            needle: bytes) -> torch.Tensor:
+    """Plain version of K19's mask mode: the reference's whole-buffer
+    match mask, each match kept only where it ends inside its row."""
+    total = _total(offsets)
+    out = torch.zeros(chars.shape[0], dtype=torch.bool, device=chars.device)
+    m = _token_mask(chars[:total], needle, None)
+    q = torch.arange(total, dtype=torch.int64, device=chars.device)
+    end = offsets[1:].to(torch.int64)[_row_ids(offsets, total)]
+    out[:total] = m & (q + len(needle) <= end)
+    return out
+
+
+def string_match_mask(offsets: torch.Tensor, chars: torch.Tensor,
+                      needle: bytes) -> torch.Tensor:
+    """bool[char_cap]: ``needle`` (non-empty) matches at this byte and
+    ends inside the byte's row (K19's mask mode)."""
+    _check_span("string_match_mask", offsets, chars)
+    if not needle:
+        raise ValueError("string_match_mask: an empty needle")
+    if offsets.device.type == "cpu":
+        return string_match_mask_plain(offsets, chars, needle)
+    kernels.require_cuda("string_match_mask", offsets, chars)
+    cap = int(offsets.shape[0]) - 1
+    out = torch.zeros(chars.shape[0], dtype=torch.bool, device=chars.device)
+    if cap == 0 or chars.shape[0] == 0:
+        return out
+    pat = torch.tensor(list(needle), dtype=torch.uint8,
+                       pin_memory=True).to(chars.device, non_blocking=True)
+    lib = kernels.library("string_find")
+    kernels.check(lib, lib.srt_string_match_mask(
+        offsets.data_ptr(), chars.data_ptr(), cap, pat.data_ptr(),
+        len(needle), out.data_ptr(), kernels.stream(offsets)),
+        "string_match_mask")
+    string_find.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K20: UTF-8 cuts
+# ---------------------------------------------------------------------------
+
+CUT_LENGTH, CUT_SUBSTRING, CUT_TRIM, CUT_TRIM_LEFT, CUT_TRIM_RIGHT = range(5)
+
+
+def _row_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
+    """int64[n]: the row each byte position lies in (the last row for a
+    byte past the total)."""
+    q = torch.arange(n, dtype=torch.int64, device=offsets.device)
+    row = torch.searchsorted(offsets[1:].to(torch.int64), q, right=True)
+    return row.clamp(0, max(offsets.shape[0] - 2, 0))
+
+
+def _per_row(v, like: torch.Tensor) -> torch.Tensor:
+    """int64 per row of a literal int (broadcast) or an int64[cap]."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int64)
+    return torch.full_like(like, int(v))
+
+
+def utf8_cut_plain(offsets: torch.Tensor, chars: torch.Tensor, mode: int,
+                   pos=None, length=None):
+    """Plain version of K20, the reference's way: a flag per byte, its
+    global prefix count, and ``searchsorted`` per row."""
+    dev = chars.device
+    chars = chars[:_total(offsets)]
+    n = chars.shape[0]
+    o0 = offsets[:-1].to(torch.int64)
+    o1 = offsets[1:].to(torch.int64)
+    if mode in (CUT_LENGTH, CUT_SUBSTRING):
+        flag = _char_starts(chars)
+    else:
+        flag = chars != 32
+    pre = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(flag.to(torch.int64), 0, out=pre[1:])
+    base = pre[o0]
+    count = pre[o1] - base
+    if mode == CUT_LENGTH:
+        return count.to(torch.int32), None, None
+    if mode == CUT_SUBSTRING:
+        p = _per_row(pos, o0)
+        start = torch.where(p > 0, p - 1,
+                            torch.where(p < 0, count + p,
+                                        torch.zeros_like(count)))
+        end = count if length is None else \
+            start + _per_row(length, o0).clamp(min=0)
+        start_c = torch.minimum(start.clamp(min=0), count)
+        end_c = torch.minimum(torch.maximum(end, start_c), count)
+
+        def byte_of(c):
+            return torch.searchsorted(pre[1:], base + c + 1, right=False)
+        b0 = torch.minimum(torch.maximum(byte_of(start_c), o0), o1)
+        b1 = torch.minimum(torch.maximum(byte_of(end_c), b0), o1)
+        return None, b0.to(torch.int32), b1.to(torch.int32)
+    empty = count == 0
+    if mode in (CUT_TRIM, CUT_TRIM_LEFT):
+        b0 = torch.minimum(torch.searchsorted(pre, base + 1, right=False) - 1,
+                           o1)
+    else:
+        b0 = o0
+    if mode in (CUT_TRIM, CUT_TRIM_RIGHT):
+        b1 = torch.maximum(torch.searchsorted(pre, pre[o1], right=False), b0)
+    else:
+        b1 = o1
+    b0 = torch.where(empty, o0, b0)
+    b1 = torch.where(empty, o0, b1)
+    return None, b0.to(torch.int32), b1.to(torch.int32)
+
+
+def utf8_cut(offsets: torch.Tensor, chars: torch.Tensor, mode: int,
+             pos=None, length=None):
+    """(int32[cap] characters, int32[cap] b0, int32[cap] b1) of each row
+    (K20), None where the mode gives none.  CUT_LENGTH counts UTF-8 lead
+    bytes (no cut); CUT_SUBSTRING cuts [b0, b1) for Spark's 1-based
+    ``pos`` (0 is 1, negative counts from the end) and ``length``
+    characters (None: to the end), each an int (a literal, the same in
+    every row) or an int64[cap]; the trims cut the spaces (0x20) at both
+    ends, the left or the right, an all-space row to [o0, o0)."""
+    _check_span("utf8_cut", offsets, chars)
+    cols = [x for x in (pos, length) if isinstance(x, torch.Tensor)]
+    if mode == CUT_SUBSTRING and (pos is None or
+                                  any(x.dtype != torch.int64 for x in cols)):
+        raise TypeError("utf8_cut: a substring takes a pos and a length, "
+                        "each an int or an int64[cap]")
+    if offsets.device.type == "cpu":
+        return utf8_cut_plain(offsets, chars, mode, pos, length)
+    kernels.require_cuda("utf8_cut", offsets, chars, *cols)
+    cap = int(offsets.shape[0]) - 1
+    dev = offsets.device
+    count = b0 = b1 = None
+    if mode == CUT_LENGTH:
+        count = torch.empty(cap, dtype=torch.int32, device=dev)
+    else:
+        b0 = torch.empty(cap, dtype=torch.int32, device=dev)
+        b1 = torch.empty(cap, dtype=torch.int32, device=dev)
+
+    def ptr(x):
+        return x.data_ptr() if isinstance(x, torch.Tensor) else None
+
+    def lit(x):
+        return 0 if x is None or isinstance(x, torch.Tensor) else int(x)
+    if cap:
+        lib = kernels.library("utf8_cut")
+        kernels.check(lib, lib.srt_utf8_cut(
+            offsets.data_ptr(), chars.data_ptr(), cap, mode, ptr(pos),
+            lit(pos), ptr(length), lit(length), int(length is not None),
+            ptr(count), ptr(b0), ptr(b1), kernels.stream(offsets)),
+            "utf8_cut")
+        utf8_cut.launches += 1
+    return count, b0, b1
+
+
+utf8_cut.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K21: byte maps under the same offsets
+# ---------------------------------------------------------------------------
+
+MAP_UPPER, MAP_LOWER, MAP_INITCAP, MAP_REVERSE = range(4)
+
+
+def string_map_plain(offsets: torch.Tensor, chars: torch.Tensor,
+                     mode: int) -> torch.Tensor:
+    """Plain version of K21 over the rows' bytes, zero past the total."""
+    dev = chars.device
+    total = _total(offsets)
+    c = chars[:total]
+    n = total
+    is_lo = (c >= 97) & (c <= 122)
+    is_up = (c >= 65) & (c <= 90)
+    if mode == MAP_UPPER:
+        out = torch.where(is_lo, c - 32, c)
+    elif mode == MAP_LOWER:
+        out = torch.where(is_up, c + 32, c)
+    elif mode == MAP_INITCAP:
+        prev = torch.cat([torch.full((1,), 32, dtype=torch.uint8,
+                                     device=dev), c[:-1]])
+        row_start = torch.zeros(n, dtype=torch.bool, device=dev)
+        starts = offsets[:-1].to(torch.int64)
+        row_start[starts[starts < n]] = True
+        word = (prev == 32) | row_start
+        out = torch.where(word, torch.where(is_lo, c - 32, c),
+                          torch.where(is_up, c + 32, c))
+    else:
+        # each byte's character: from the last lead byte at or before it
+        # (or the row start) to the next lead byte after it (or the row
+        # end); the characters go in reverse order, each byte kept in
+        # its character
+        q = torch.arange(n, dtype=torch.int64, device=dev)
+        row = _row_ids(offsets, n)
+        o0 = offsets[:-1].to(torch.int64)[row] if n else q
+        o1 = offsets[1:].to(torch.int64)[row] if n else q
+        lead = _char_starts(c)
+        last_lead = torch.where(lead, q, torch.full_like(q, -1))
+        last_lead = torch.cummax(last_lead, 0).values
+        sg = torch.maximum(last_lead, o0)
+        nxt = torch.where(lead, q, torch.full_like(q, n))
+        nxt = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
+        nxt = torch.cat([nxt[1:], torch.full((1,), n, dtype=torch.int64,
+                                             device=dev)])
+        se = torch.minimum(nxt, o1)
+        out = torch.zeros_like(chars)
+        out[o0 + (o1 - se) + (q - sg)] = c
+        return out
+    full = torch.zeros_like(chars)
+    full[:total] = out
+    return full
+
+
+def string_map(offsets: torch.Tensor, chars: torch.Tensor,
+               mode: int) -> torch.Tensor:
+    """New chars under the same offsets (K21): MAP_UPPER and MAP_LOWER map
+    ASCII letters only, MAP_INITCAP upper-cases a letter at a row start
+    or after a space and lower-cases the rest, MAP_REVERSE reverses each
+    row's UTF-8 characters (the bytes inside a character keep their
+    order); zero past the total."""
+    _check_span("string_map", offsets, chars)
+    if offsets.device.type == "cpu":
+        return string_map_plain(offsets, chars, mode)
+    kernels.require_cuda("string_map", offsets, chars)
+    cap = int(offsets.shape[0]) - 1
+    out = torch.empty_like(chars)
+    if chars.shape[0] == 0:
+        return out
+    lib = kernels.library("string_map")
+    kernels.check(lib, lib.srt_string_map(
+        offsets.data_ptr(), chars.data_ptr(), cap, int(chars.shape[0]),
+        mode, out.data_ptr(), kernels.stream(offsets)), "string_map")
+    string_map.launches += 1
+    return out
+
+
+string_map.launches = 0

@@ -64,7 +64,8 @@ from ..expr import window as win
 from ..expr.cast import Cast, cast_supported_on_gpu
 from ..expr.core import (Alias, AttributeReference, BoundReference,
                          Expression, Literal, bind_expression)
-from ..expr.hashfns import MonotonicallyIncreasingID, Murmur3Hash
+from ..expr import strings as se
+from ..expr.hashfns import Md5, MonotonicallyIncreasingID, Murmur3Hash
 from ..io.cached_batch import CachedScanExec, CacheWriteExec
 from ..io.scan import FileScanExec
 from ..shuffle.exchange import ShuffleExchangeExec
@@ -91,10 +92,6 @@ def expr_rule(cls, sig: TypeSig, tag_fn=None):
 _num = T.numeric64
 _common = T.common_scalar
 _cmp = T.numeric64 + T.BOOLEAN + T.DATE + T.TIMESTAMP + T.STRING + T.NULL
-# the reference's branch selects take strings too; the port's string
-# branches (expr/conditional.py) stay on the CPU engine until the string
-# functions' slice (ROADMAP Queue 1), as do casts to and from STRING
-_cond = T.numeric64 + T.BOOLEAN + T.DATE + T.TIMESTAMP + T.NULL
 
 
 def _tag_literal(meta: "ExprMeta"):
@@ -124,7 +121,7 @@ for c in (pred.And, pred.Or, pred.Not):
 for c in (pred.IsNull, pred.IsNotNull, pred.IsNaN):
     expr_rule(c, _common)
 for c in (cond.If, cond.CaseWhen, cond.Coalesce, cond.NullIf, cond.Nvl):
-    expr_rule(c, _cond)
+    expr_rule(c, _cmp)
 for c in (mx.Sqrt, mx.Exp, mx.Expm1, mx.Sin, mx.Cos, mx.Tan, mx.Asin,
           mx.Acos, mx.Atan, mx.Sinh, mx.Cosh, mx.Tanh, mx.Cbrt, mx.Rint,
           mx.ToDegrees, mx.ToRadians, mx.Log, mx.Log2, mx.Log10, mx.Log1p,
@@ -142,6 +139,49 @@ def _tag_cast(meta: "ExprMeta"):
 
 
 expr_rule(Cast, T.all_types, _tag_cast)
+
+# the string functions (the reference's rules, plan/overrides.py:119-125)
+for c in (se.Upper, se.Lower, se.Substring, se.Concat, se.Trim, se.TrimLeft,
+          se.TrimRight, se.StringReplace, se.StringRepeat, se.Reverse,
+          se.StringLPad, se.StringRPad, se.InitCap):
+    expr_rule(c, T.STRING)
+for c in (se.Length, se.BitLength, se.StringLocate):
+    expr_rule(c, T.INT)
+for c in (se.Contains, se.StartsWith, se.EndsWith, se.Like):
+    expr_rule(c, T.BOOLEAN)
+expr_rule(se.Ascii, T.INT)
+
+
+def _tag_host_only(reason: str):
+    def tag(meta: "ExprMeta"):
+        meta.will_not_work(reason)
+    return tag
+
+
+# host-evaluated string rules, with the reference's reasons
+expr_rule(se.ConcatWs, T.STRING, _tag_host_only(
+    "concat_ws's variadic null/separator semantics evaluate on the host "
+    "engine"))
+expr_rule(Md5, T.STRING, _tag_host_only(
+    "md5 digests run on the host engine (byte-serial digest)"))
+expr_rule(se.SubstringIndex, T.STRING, lambda m: m.will_not_work(
+    "substring_index with a multi-byte or empty delimiter needs "
+    "sequential non-overlapping search; host engine")
+    if len(m.expr.delim_bytes()) != 1 else None)
+
+
+def _tag_string_literal_needle(meta: "ExprMeta"):
+    e = meta.expr
+    needle = e.children[1] if len(e.children) > 1 else None
+    if needle is not None and se._literal_bytes(needle) is None and \
+            not isinstance(needle, Literal):
+        meta.will_not_work(f"{type(e).__name__} requires a literal search "
+                           f"argument on GPU")
+
+
+for c in (se.Contains, se.StartsWith, se.EndsWith, se.Like,
+          se.StringReplace):
+    EXPR_RULES[c].tag_fn = _tag_string_literal_needle
 # the decimal markers of Spark's analyzer (ref plan/overrides.py:195-203)
 expr_rule(ar.PromotePrecision, T.DECIMAL_64 + T.DECIMAL_128)
 expr_rule(ar.MakeDecimal, T.DECIMAL_64 + T.DECIMAL_128)

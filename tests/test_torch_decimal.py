@@ -198,16 +198,15 @@ def test_decimal128_min_max_on_gpu():
 
 
 def test_decimal_cast_to_double_and_string():
-    """The cast to double runs in both; a cast to string waits for the
-    string functions in the port (Queue 1 item 4)."""
+    """The casts to double and to string run in both, on the device."""
     tb = pa.table({"d": pa.array([D("12.34"), None, D("-0.05")],
                                  type=pa.decimal128(10, 2))})
     got, _ = run_both(tb, lambda df, F, col, lit, T: df.select(
         col("d").cast("double").alias("f")), order=True)
     assert got.column("f").to_pylist() == [12.34, None, -0.05]
-    df = GpuSession(device="cpu").create_dataframe(tb)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        df.select(pcol("d").cast("string").alias("s")).collect()
+    got, _ = run_both(tb, lambda df, F, col, lit, T: df.select(
+        col("d").cast("string").alias("s")), order=True)
+    assert got.column("s").to_pylist() == ["12.34", None, "-0.05"]
 
 
 def test_decimal_cast_scale_up_to_128_exact():
@@ -812,3 +811,120 @@ def test_window_over_decimal128():
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         s.create_dataframe(tb).select(PF.sum(pcol("x")).over(
             Window.partition_by(pcol("o")).order_by(pcol("o")))).collect()
+
+
+# ---------------------------------------------------------------------------
+# round, bround, floor and ceil over decimals; sums and averages past 38
+# digits on the CPU engine; the cases where the port gives Spark's answer
+# ---------------------------------------------------------------------------
+
+_ROUND_VALUES = [D("1.25"), D("-3.75"), D("0.05"), D("-0.05"), D("12.50"),
+                 D("-12.55"), D("0.00"), None, D("99999.99"),
+                 D("-99999.95")]
+
+
+@pytest.mark.parametrize("precision", [10, 30])
+@pytest.mark.parametrize("scale", [-1, 0, 1, 3])
+def test_decimal_round_floor_ceil_match_reference(precision, scale):
+    """Values and result types equal the reference's: round and bround
+    give DECIMAL at the target scale (a negative scale rounds at 0),
+    floor and ceil DECIMAL(p - s + 1, 0), computed on the unscaled words
+    (past 18 digits the high word is kept)."""
+    vals = list(_ROUND_VALUES)
+    if precision == 30:
+        vals += [D("1111111111111111111111111.55"),
+                 D("-1111111111111111111111111.45"),
+                 D("999999999999999999999.99"), D(2**64) + D("0.5")]
+    tb = pa.table({"d": pa.array(vals, pa.decimal128(precision, 2))})
+    got, _ = run_both(tb, lambda df, F, col, lit, T: df.select(
+        F.round(col("d"), scale).alias("r"),
+        F.bround(col("d"), scale).alias("b"),
+        F.floor(col("d")).alias("f"), F.ceil(col("d")).alias("c")),
+        order=True)
+    k = 2 - min(max(scale, 0), 2)
+    assert got.schema.field("f").type == pa.decimal128(precision - 1, 0)
+    assert got.schema.field("r").type.scale == 2 - k
+    with decimal.localcontext(decimal.Context(prec=60)):
+        exact = [None if v is None else v.quantize(
+            D(1).scaleb(k - 2), rounding=decimal.ROUND_HALF_UP)
+            for v in vals]
+        floors = [None if v is None else D(int(v.to_integral_value(
+            rounding=decimal.ROUND_FLOOR))) for v in vals]
+    assert got.column("r").to_pylist() == exact
+    assert got.column("f").to_pylist() == floors
+    if precision == 30:
+        assert got.column("f").to_pylist()[10] == \
+            D("1111111111111111111111111")
+
+
+@pytest.mark.parametrize("partitions", [1, 3])
+def test_cpu_engine_decimal_sum_and_avg_past_38_digits_are_null(partitions):
+    """The CPU engine's SUM and AVG of DECIMAL(38,10) past 38 digits give
+    null (Spark's answer), and the table validates; the reference's
+    collect raises ArrowInvalid on the sum and its AVG raises too."""
+    v = D("9999999999999999999999999999.9999999999")
+    tb = pa.table({"g": pa.array([1, 1, 2, 2, 3]),
+                   "x": pa.array([v, v, D(1), D("2.5"), None],
+                                 pa.decimal128(38, 10))})
+    ref, port = _sessions()
+    for q in (lambda df, F, col: df.group_by(col("g")).agg(
+                  F.sum(col("x")).alias("s"), F.avg(col("x")).alias("a")),
+              lambda df, F, col: df.agg(F.sum(col("x")).alias("s"),
+                                        F.avg(col("x")).alias("a"))):
+        got = q(port.create_dataframe(tb, num_partitions=partitions), PF,
+                pcol).collect()
+        got.validate(full=True)
+        rows = sorted(zip(*[got.column(c).to_pylist()
+                            for c in got.column_names]), key=str)
+        assert ("CpuHashAggregateExec", "cpu") in shape(port)
+        if "g" in got.column_names:
+            assert rows == [(1, None, None),
+                            (2, D("3.5000000000"), D("1.75000000000000")),
+                            (3, None, None)]
+        else:
+            assert rows == [(None, None)]
+        with pytest.raises(pa.ArrowInvalid):
+            q(ref.create_dataframe(tb, num_partitions=partitions), RF,
+              rcol).collect()
+
+
+def test_round_narrow_types_at_negative_scale_past_range():
+    """round(127 as BYTE, -1) wraps as Spark does (-126) and SHORT alike;
+    the reference raises ArrowInvalid (ROADMAP Queue 3)."""
+    tb = pa.table({"b": pa.array([127, -128, 14], pa.int8()),
+                   "s": pa.array([32767, -32768, 14], pa.int16())})
+    ref, port = _sessions()
+    got = port.create_dataframe(tb).select(
+        PF.round(pcol("b"), -1).alias("b"),
+        PF.round(pcol("s"), -1).alias("s")).collect()
+    assert got.column("b").to_pylist() == [-126, 126, 10]
+    assert got.column("s").to_pylist() == [-32766, 32766, 10]
+    with pytest.raises(pa.ArrowInvalid):
+        ref.create_dataframe(tb).select(RF.round(rcol("b"), -1)).collect()
+
+
+def test_round_float_max_keeps_its_value():
+    """round(f, 1) of FLOAT 3.4e38 is 3.4e38 in the port (Spark's); the
+    reference's float arithmetic overflows to inf (ROADMAP Queue 3)."""
+    tb = pa.table({"f": pa.array([3.4e38, 1.25], pa.float32())})
+    ref, port = _sessions()
+    got = port.create_dataframe(tb).select(
+        PF.round(pcol("f"), 1).alias("r")).collect()
+    want = ref.create_dataframe(tb).select(
+        RF.round(rcol("f"), 1).alias("r")).collect()
+    assert got.column("r").to_pylist()[0] == pytest.approx(3.4e38, rel=1e-6)
+    assert want.column("r").to_pylist()[0] == float("inf")
+
+
+def test_decimal128_beyond_2_63_cast_to_long_wraps():
+    """A DECIMAL(30,2) beyond 2^63 cast to LONG gives the low 64 bits, as
+    Spark's longValue does; the reference raises OverflowError (ROADMAP
+    Queue 3)."""
+    tb = pa.table({"d": pa.array([D("1111111111111111111111111.55")],
+                                 pa.decimal128(30, 2))})
+    ref, port = _sessions()
+    got = port.create_dataframe(tb).select(
+        pcol("d").cast("long").alias("l")).collect()
+    assert got.column("l").to_pylist() == [8375319363688624583]
+    with pytest.raises(OverflowError):
+        ref.create_dataframe(tb).select(rcol("d").cast("long")).collect()

@@ -234,10 +234,11 @@ def test_select_and_with_column(query):
 
 
 def test_unported_expression_raises():
-    """Arithmetic is ported now; a cast to a string type is not."""
+    """Arithmetic and casts to string are ported now; a cast to binary
+    is not."""
     df = GpuSession(device="cpu").create_dataframe(special_table(1))
     with pytest.raises(NotImplementedError):
-        df.select(pcol("i").cast("string")).collect()
+        df.select(pcol("i").cast("binary")).collect()
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,7 @@ reference's, on the CPU.
 * Paths: parquet, ORC and CSV scans and writes, a window partitioned and
   ordered by strings with lead/lag of a string, F.hash, the CPU engine.
 * Pinned behaviour: the approximate order past 32 bytes of shared
-  prefix, and a CASE WHEN yielding a string that the plan keeps on the
-  CPU engine with the reference's wording of the reason.
+  prefix, and a CASE WHEN and a COALESCE yielding a string, on the GPU.
 """
 
 import numpy as np
@@ -421,15 +420,11 @@ def test_case_when_string_runs_on_cpu_with_reason():
             F.when(col("v") > 0, col("s")).when(col("v") < -5, lit("neg"))
             .otherwise(lit("z")).alias("cw"),
             F.coalesce(col("s"), lit("d")).alias("co"))
+    # string branches run on the GPU since the string functions' slice
+    # (the name is kept from when the plan kept them on the CPU engine)
     port = run_both([t], q, ignore_order=False)
-    nodes = []
-    port.last_plan.foreach(lambda e: nodes.append(
-        (type(e).__name__, e.placement)))
-    assert ("ProjectExec", "cpu") in nodes
-    assert "CaseWhen produces unsupported type: string is not supported" \
-        in port.last_explain
-    assert "Coalesce produces unsupported type: string is not supported" \
-        in port.last_explain
+    gpu_placed(port)
+    assert "produces unsupported type" not in port.last_explain
 
 
 def test_string_literal_operands_and_null_literal():
