@@ -325,6 +325,121 @@ def _text_edge_column(torch, dev, rng):
                              ).to(dev))
 
 
+def _text_tile_column(torch, dev, rng, tile, shift):
+    """(offsets, chars) at K19's and K21's tile size ``tile`` (a tile is
+    at most that many rows and bytes; a row of at most ``tile`` bytes is
+    staged with its tile): random rows of 0-40 bytes over "ab_% é" with
+    overlapping "aaaaa" runs and a needle at a row's end; rows ending
+    exactly at a multiple of ``tile`` bytes and one byte past it; a row
+    of ``tile`` bytes; a row one byte longer (left to its warp); rows of
+    1, 15, 16, 17 and 4,096 bytes; a row of MB_STRING bytes of "a" and
+    one of 0x80 (continuation bytes only); runs of 100,000 and 60,000
+    empty rows, mid-column and at its end, as a filter's padding leaves
+    them.  The chars are a view ``shift`` bytes into their buffer, as a
+    column's chars follow its offsets."""
+    lens = list(rng.integers(0, 41, 3000))
+    lens.append(tile - sum(lens) % tile)           # ends at a stretch's end
+    lens += [0, 0, 5]
+    lens.append(tile - sum(lens) % tile + 1)       # one byte past it
+    lens.append(tile - sum(lens) % tile)           # to the next stretch
+    lens.append(tile)                              # fills a stretch
+    lens.append(tile + 1)                          # one byte longer
+    lens += list(rng.integers(0, 41, 500)) + [MB_STRING]
+    lens += list(rng.integers(0, 20, 500)) + [0] * 100_000 + [MB_STRING]
+    lens += [1, 15, 16, 17, 4096, tile - 1] + list(rng.integers(0, 41, 500))
+    lens += [0] * 60_000
+    lens = np.array(lens, np.int64)
+    offs = np.zeros(lens.shape[0] + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    alphabet = np.frombuffer("ab_% é".encode(), np.uint8)
+    chars = alphabet[rng.integers(0, alphabet.shape[0], int(offs[-1]))]
+    big = np.flatnonzero(lens == MB_STRING)
+    chars[offs[big[0]]:offs[big[0] + 1]] = ord("a")
+    chars[offs[big[1]]:offs[big[1] + 1]] = 0x80
+    for r in range(7, lens.shape[0], 89):          # overlapping runs
+        if lens[r] < tile:
+            chars[offs[r]:offs[r + 1]] = ord("a")
+    for r in range(11, lens.shape[0], 97):         # a needle at the end
+        if 6 <= lens[r] < tile:
+            chars[offs[r + 1] - 6:offs[r + 1]] = np.frombuffer(b"needle",
+                                                               np.uint8)
+    buf = np.zeros(shift + chars.shape[0] + 64, np.uint8)
+    buf[shift:shift + chars.shape[0]] = chars
+    return (torch.from_numpy(offs.astype(np.int32)).to(dev),
+            torch.from_numpy(buf).to(dev)[shift:])
+
+
+def _text_tile_cases(torch, dev, sops, like_pattern):
+    """K19 and K21 on the tile column (chars 4 and 7 bytes off alignment)
+    against their plain versions, exactly: every TEXT_PATTERNS search and
+    a LIKE pattern of more tokens than K19's bitmaps hold, each on every
+    path that can take it (K19's bitmaps and per-row compare; rows longer
+    than the tile go to their warp on both), from the row start and from
+    inside the row; the mask mode; K21's byte pass (upper, lower,
+    initcap) and its staged and long-row reverse.  Returns the checks of
+    each path."""
+    from spark_rapids_tpu_torch import kernels
+    tile = sops.STRING_TILE_BYTES
+    for name in ("string_find", "string_map"):
+        if kernels.library(name).srt_tile_bytes() != tile:
+            raise AssertionError(f"csrc/{name}.cu's tile is not "
+                                 f"STRING_TILE_BYTES")
+    if kernels.library("string_find").srt_max_tokens() != \
+            sops.FIND_BITMAP_TOKENS:
+        raise AssertionError("csrc/string_find.cu's kMaxTokens is not "
+                             "FIND_BITMAP_TOKENS")
+    rng = np.random.default_rng(SEED + 47)
+    many = "%" + "%".join("ab" * (sops.FIND_BITMAP_TOKENS // 2 + 1)) + "%"
+    pats = [(text, like_pattern(text.encode())[0])
+            for text in ("%special%requests%", "a%", "%a", "%needle",
+                         "a_b%", "%_a_%", many, "%é%a%")]
+    pats += [(text, sops.FindPattern([text.encode()], modes=[mode]))
+             for text, mode in (("aa", 0), ("needle", 0), ("é", 0),
+                                ("ab", sops.FIND_AT_START),
+                                ("ab", sops.FIND_AT_END))]
+    pats += [(f"a x{k}{' reversed' * rev}",
+              sops.FindPattern([b"a"], repeat=k, reverse=rev))
+             for k, rev in ((2, False), (2, True), (3, True))]
+    pats.append(("aa x2", sops.FindPattern([b"aa"], repeat=2)))
+    checks = {}
+
+    def same(got, want, what, path):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} differs from its plain version on "
+                                 f"the tile column")
+        checks[path] = checks.get(path, 0) + 1
+
+    for shift in (4, 7):
+        offs, chars = _text_tile_column(torch, dev, rng, tile, shift)
+        cap = int(offs.shape[0]) - 1
+        long_rows = int(((offs[1:] - offs[:-1]) > tile).sum())
+        late = (offs[:-1].long() + torch.from_numpy(
+            rng.integers(0, 20, cap)).to(dev)).to(torch.int32).contiguous()
+        for text, pat in pats:
+            paths = ["rows"] + (["bitmaps"] if sops.find_plan(pat) ==
+                                "bitmaps" else [])
+            for path in paths:
+                for starts in (None, late):
+                    same(sops.string_find(offs, chars, pat, starts, path=path),
+                         sops.string_find_plain(offs, chars, pat, starts),
+                         f"K19 {text!r} ({path})", f"K19 {path}")
+        for needle in (b"a", b"ab", b"needle", b"aa"):
+            same(sops.string_match_mask(offs, chars, needle),
+                 sops.string_match_mask_plain(offs, chars, needle),
+                 f"K19's mask {needle!r}", "K19 mask")
+        for mode, path in ((sops.MAP_UPPER, "K21 byte pass"),
+                           (sops.MAP_LOWER, "K21 byte pass"),
+                           (sops.MAP_INITCAP, "K21 byte pass (initcap)"),
+                           (sops.MAP_REVERSE, "K21 staged reverse")):
+            same(sops.string_map(offs, chars, mode),
+                 sops.string_map_plain(offs, chars, mode), f"K21 mode {mode}",
+                 path)
+        checks["rows past the tile (warp)"] = \
+            checks.get("rows past the tile (warp)", 0) + long_rows
+    torch.cuda.synchronize()
+    return checks
+
+
 TEXT_PATTERNS = (("%special%requests%", None), ("a%", None), ("%a", None),
                  ("needle", None), ("%needle", None), ("a_b%", None),
                  ("%_a_%", None), ("aa", 0), ("needle", 0), ("é", 0),
@@ -439,17 +554,25 @@ def _text_call_row(torch, cap, name, cuda_ms, bound, median_ms, sops):
     rows = int(offs.shape[0]) - 1
     nbytes = int(offs[-1])
     columns = sum(isinstance(a, torch.Tensor) for a in args[2:])
+    path = None
     if name == "string_find":
         moved = nbytes + 4 * (rows + 1) + 4 * columns * rows + 4 * rows
+        path = sops.find_plan(args[2])
     elif name == "utf8_cut":
         out = 4 if args[2] == sops.CUT_LENGTH else 8
         moved = nbytes + 4 * (rows + 1) + 8 * columns * rows + out * rows
     else:
         moved = 2 * nbytes + 4 * (rows + 1)
+        path = {sops.MAP_UPPER: "byte pass (upper)",
+                sops.MAP_LOWER: "byte pass (lower)",
+                sops.MAP_INITCAP: "byte pass (initcap)",
+                sops.MAP_REVERSE: "staged reverse"}[args[2]]
+    extra = dict(rows=rows, row_bytes=nbytes, bytes_moved=moved)
+    if path:
+        extra["path"] = path
     return dict(ms=median_ms(lambda: fn(*args)),
                 plain_ms=cuda_ms(lambda: plain(*args), reps=2),
-                bound_ms=bound(moved),
-                extra=dict(rows=rows, row_bytes=nbytes, bytes_moved=moved))
+                bound_ms=bound(moved), extra=extra)
 
 
 def _text_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
@@ -499,6 +622,16 @@ def _text_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
               f"{time.perf_counter() - t1:.1f} s")
     except Exception:
         failures.append("K19-K21 edge cases")
+        traceback.print_exc()
+    try:
+        t1 = time.perf_counter()
+        checks = _text_tile_cases(torch, dev, sops, se.like_pattern)
+        print(f"K19, K21 tile edges ({sops.STRING_TILE_BYTES}-byte tiles, "
+              f"chars off alignment): checks equal their plain versions "
+              f"exactly by path: {checks}, "
+              f"{time.perf_counter() - t1:.1f} s")
+    except Exception:
+        failures.append("K19, K21 tile edges")
         traceback.print_exc()
 
     orders = part = customer = cc = None
@@ -717,7 +850,8 @@ def _text_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
                     replaces=f"spark_rapids_tpu/{rep}", max_abs_err=0.0,
                     library_ms=None, **row)
                 print(f"{name} at {run}'s call ({row['extra']['rows']} rows, "
-                      f"{row['extra']['row_bytes']} bytes): median "
+                      f"{row['extra']['row_bytes']} bytes, path "
+                      f"{row['extra'].get('path', '-')}): median "
                       f"{row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms, "
                       f"plain {row['plain_ms']:.3f} ms; {card}")
             del cap

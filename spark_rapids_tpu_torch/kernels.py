@@ -26,7 +26,8 @@ import torch
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-HEADERS = ("partition.cuh", "join_hash.cuh", "merge_path.cuh")
+HEADERS = ("partition.cuh", "join_hash.cuh", "merge_path.cuh",
+           "row_tiles.cuh")
 SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "expand_ends", "join_expand", "gather_rows", "fetch_pack",
            "window_scan", "scatter_rows", "string_hashes", "hash_bytes",
@@ -102,16 +103,21 @@ _SIGNATURES = {
         "srt_span_rows": [_P, _P, _I, _I, _P, _L, _P],
     },
     "string_find": {
-        "srt_string_find": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P,
-                            _P],
-        "srt_string_match_mask": [_P, _P, _I, _P, _I, _P, _P],
+        "srt_string_find": [_P, _P, _I, _L, _P, _I, _P, _I, _I, _I, _I, _P,
+                            _I, _P, _P, _P],
+        "srt_string_match_mask": [_P, _P, _I, _L, _P, _I, _P, _P, _P, _P],
+        "srt_tile_count": [_I, _L],
+        "srt_tile_bytes": [],
+        "srt_max_tokens": [],
     },
     "utf8_cut": {
         "srt_utf8_cut": [_P, _P, _I, _I, _P, _L, _P, _L, _I, _P, _P, _P,
                          _P],
     },
     "string_map": {
-        "srt_string_map": [_P, _P, _I, _L, _I, _P, _P],
+        "srt_string_map": [_P, _P, _I, _L, _I, _P, _P, _P],
+        "srt_tile_count": [_I, _L],
+        "srt_tile_bytes": [],
     },
 }
 

@@ -477,6 +477,8 @@ def _char_starts(chars: torch.Tensor) -> torch.Tensor:
 
 FIND_AT_START = 1       # a token must begin where the last one ended
 FIND_AT_END = 2         # a token must end ``reserve`` bytes before the end
+STRING_TILE_BYTES = 16384   # K19's and K21's kTile: rows and bytes a tile
+FIND_BITMAP_TOKENS = 8      # K19's kMaxTokens: tokens phase 1 has bitmaps for
 
 
 class FindPattern:
@@ -594,17 +596,53 @@ def string_find_plain(offsets: torch.Tensor, chars: torch.Tensor,
     return torch.where(alive, p, torch.full_like(p, -1)).to(torch.int32)
 
 
+def find_plan(pattern: FindPattern) -> str:
+    """K19's path for ``pattern``: "bitmaps" (phase 1 marks every token's
+    matches by bytes, then a row reads the bitmaps) while its tokens'
+    bitmaps fit beside the stage, else "rows" (each row compares its
+    staged bytes).  A row longer than STRING_TILE_BYTES is searched by
+    its warp on either path."""
+    return "bitmaps" if len(pattern.tokens) <= FIND_BITMAP_TOKENS else "rows"
+
+
+def _tile_scratch(lib, offsets: torch.Tensor,
+                  chars: torch.Tensor) -> torch.Tensor:
+    """K19's and K21's row tiles (csrc/row_tiles.cuh): 16 bytes a tile of
+    STRING_TILE_BYTES rows and bytes."""
+    ntiles = lib.srt_tile_count(int(offsets.shape[0]) - 1,
+                                int(chars.shape[0]))
+    return torch.empty(4 * ntiles, dtype=torch.int32, device=chars.device)
+
+
+def _pattern_arrays(pattern: FindPattern, dev):
+    """(packed bytes and wildcard flags, int32 token offsets, modes and
+    reserves) on ``dev``, copied from pinned memory on the stream."""
+    body, wild, toff, modes, reserves = pattern.arrays()
+    packed = torch.tensor(list(body) + list(wild), dtype=torch.uint8,
+                          pin_memory=True).to(dev, non_blocking=True)
+    ints32 = torch.tensor(toff + modes + reserves, dtype=torch.int32,
+                          pin_memory=True).to(dev, non_blocking=True)
+    return len(body), packed, ints32
+
+
 def string_find(offsets: torch.Tensor, chars: torch.Tensor,
                 pattern: FindPattern,
-                starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                starts: Optional[torch.Tensor] = None,
+                path: Optional[str] = None) -> torch.Tensor:
     """int32[cap]: where the last token of ``pattern`` matches in row i,
     each token searched from where the one before ended, the first from
     ``starts[i]`` (an absolute byte position; None: the row start) to the
-    row's end; -1 where a token does not match (K19).  No byte past
+    row's end; -1 where a token does not match (K19).  ``path`` forces
+    "bitmaps" or "rows" (None: ``find_plan``).  No byte past
     ``offsets[cap]`` is read."""
     _check_span("string_find", offsets, chars)
     if starts is not None and starts.dtype != torch.int32:
         raise TypeError("string_find: starts must be int32[cap]")
+    path = path or find_plan(pattern)
+    if path not in ("bitmaps", "rows") or (
+            path == "bitmaps" and find_plan(pattern) != "bitmaps"):
+        raise ValueError(f"string_find: path {path!r} for "
+                         f"{len(pattern.tokens)} tokens")
     if offsets.device.type == "cpu":
         return string_find_plain(offsets, chars, pattern, starts)
     extra = [starts] if starts is not None else []
@@ -613,19 +651,16 @@ def string_find(offsets: torch.Tensor, chars: torch.Tensor,
     out = torch.empty(cap, dtype=torch.int32, device=offsets.device)
     if cap == 0:
         return out
-    body, wild, toff, modes, reserves = pattern.arrays()
-    dev = offsets.device
-    packed = torch.tensor(list(body) + list(wild), dtype=torch.uint8,
-                          pin_memory=True).to(dev, non_blocking=True)
-    ints32 = torch.tensor(toff + modes + reserves, dtype=torch.int32,
-                          pin_memory=True).to(dev, non_blocking=True)
+    nbytes, packed, ints32 = _pattern_arrays(pattern, offsets.device)
     lib = kernels.library("string_find")
+    tiles = _tile_scratch(lib, offsets, chars)
     kernels.check(lib, lib.srt_string_find(
-        offsets.data_ptr(), chars.data_ptr(), cap, packed.data_ptr(),
-        len(body), ints32.data_ptr(), len(pattern.tokens),
+        offsets.data_ptr(), chars.data_ptr(), cap, int(chars.shape[0]),
+        packed.data_ptr(), nbytes, ints32.data_ptr(), len(pattern.tokens),
         int(pattern.wildcard is not None), pattern.repeat,
         int(pattern.reverse), None if starts is None else starts.data_ptr(),
-        out.data_ptr(), kernels.stream(offsets)), "string_find")
+        0 if path == "bitmaps" else 1, tiles.data_ptr(), out.data_ptr(),
+        kernels.stream(offsets)), "string_find")
     string_find.launches += 1
     return out
 
@@ -660,12 +695,14 @@ def string_match_mask(offsets: torch.Tensor, chars: torch.Tensor,
     out = torch.zeros(chars.shape[0], dtype=torch.bool, device=chars.device)
     if cap == 0 or chars.shape[0] == 0:
         return out
-    pat = torch.tensor(list(needle), dtype=torch.uint8,
-                       pin_memory=True).to(chars.device, non_blocking=True)
+    nbytes, packed, ints32 = _pattern_arrays(FindPattern([needle]),
+                                             chars.device)
     lib = kernels.library("string_find")
+    tiles = _tile_scratch(lib, offsets, chars)
     kernels.check(lib, lib.srt_string_match_mask(
-        offsets.data_ptr(), chars.data_ptr(), cap, pat.data_ptr(),
-        len(needle), out.data_ptr(), kernels.stream(offsets)),
+        offsets.data_ptr(), chars.data_ptr(), cap, int(chars.shape[0]),
+        packed.data_ptr(), nbytes, ints32.data_ptr(), tiles.data_ptr(),
+        out.data_ptr(), kernels.stream(offsets)),
         "string_match_mask")
     string_find.launches += 1
     return out
@@ -859,9 +896,12 @@ def string_map(offsets: torch.Tensor, chars: torch.Tensor,
     if chars.shape[0] == 0:
         return out
     lib = kernels.library("string_map")
+    tiles = _tile_scratch(lib, offsets, chars) if mode in (MAP_INITCAP,
+                                                  MAP_REVERSE) else None
     kernels.check(lib, lib.srt_string_map(
         offsets.data_ptr(), chars.data_ptr(), cap, int(chars.shape[0]),
-        mode, out.data_ptr(), kernels.stream(offsets)), "string_map")
+        mode, None if tiles is None else tiles.data_ptr(), out.data_ptr(),
+        kernels.stream(offsets)), "string_map")
     string_map.launches += 1
     return out
 

@@ -20,7 +20,12 @@
   Spark's answer; the reference reverses bytes).
 * The plain versions of K19 ``string_find``, K20 ``utf8_cut`` and K21
   ``string_map``, and ``pack_rows``/``window_bytes``, against the
-  reference's functions on seeded numpy inputs.
+  reference's functions on seeded numpy inputs; and on the shapes the
+  kernels' byte tiles make hard: a token across two rows, a match ending
+  at a row's last byte, empty rows and rows of 1, 15, 16, 17 and 4,096
+  bytes, repeated and reversed searches over overlapping runs, wildcard
+  tokens, initcap after a letter and after a space; reverse over invalid
+  UTF-8 against a Python oracle of the plain version's rule.
 """
 
 import types as pytypes
@@ -622,3 +627,187 @@ def test_string_kernels_take_their_plain_versions_on_cpu():
     test_search_edges("a")
     assert (pso.string_find.launches, pso.utf8_cut.launches,
             pso.string_map.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the shapes K19's and K21's byte tiles make hard, through the plain
+# versions (what chip_smoke.py holds the kernels against)
+# ---------------------------------------------------------------------------
+
+def _span_of(rows):
+    """(offsets, chars) of ``rows``, the chars zero-padded as a bucket."""
+    offs = np.zeros(len(rows) + 1, np.int32)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    chars = np.frombuffer(b"".join(rows) + b"\0" * 64, np.uint8).copy()
+    return offs, chars
+
+
+def _tile_rows(shape):
+    rng = np.random.default_rng(len(shape))
+    if shape == "straddle":       # a token across two rows never matches
+        return [b"xxab", b"cdyy", b"ab", b"cd", b"abc", b"d", b"a", b"bcd",
+                b"zzspecial", b"requests", b"", b"abcd"]
+    if shape == "row_end":        # matches ending at a row's last byte
+        return [b"xxabcd", b"abcd", b"zz ab", b"ab", b"b", b"", b"qqq a",
+                b"abcdabcd", b"cd"]
+    if shape == "lengths":        # empty rows and 1, 15, 16, 17, 4096 bytes
+        return [bytes(rng.choice(list(b"ab c"), size=k).tolist())
+                for k in (0, 1, 15, 16, 17, 4096, 0, 0, 16, 1, 17, 15)]
+    if shape == "overlap":        # fewer matches than asked, and runs
+        return [b"aaaaa", b"aa", b"a", b"", b"aaa aaaa", b"baaab", b"aaaa",
+                b"ab" * 9]
+    return [b"axb", b"ab", b"a_b", b"xa", b"ax", b"a", b"", b"ba ab",
+            b"aab"]                   # the wildcard's
+
+
+_TILE_SHAPES = ("straddle", "row_end", "lengths", "overlap", "wildcard")
+
+
+def _oracle_find(pattern, masks, o0, o1, start):
+    """K19's greedy search of one row over the reference's match masks."""
+    cur, hi, p = start, o1, -1
+    for _ in range(pattern.repeat):
+        for k, tok in enumerate(pattern.tokens):
+            limit = hi - pattern.reserves[k] - len(tok)
+            if limit < cur:
+                return -1
+            mode, m = pattern.modes[k], masks[k]
+            if mode & pso.FIND_AT_START:
+                if mode & pso.FIND_AT_END and cur != limit:
+                    return -1
+                p = cur if m[cur] else -1
+            elif mode & pso.FIND_AT_END:
+                p = limit if m[limit] else -1
+            else:
+                hits = [q for q in range(cur, limit + 1) if m[q]]
+                p = -1 if not hits else hits[-1] if pattern.reverse \
+                    else hits[0]
+            if p < 0:
+                return -1
+            if pattern.reverse:
+                hi = p
+            else:
+                cur = p + len(tok)
+    return p
+
+
+def _tile_patterns(shape):
+    wc = ord("_")
+    if shape == "wildcard":
+        return [pso.FindPattern([t], wildcard=wc)
+                for t in (b"a_b", b"_a", b"a_", b"_")] + [
+            pse.like_pattern(b"a_%")[0], pse.like_pattern(b"%_b")[0]]
+    if shape == "overlap":
+        return [pso.FindPattern([t], repeat=k, reverse=rev)
+                for t in (b"a", b"aa") for k in (1, 2, 3, 4)
+                for rev in (False, True)]
+    return [pso.FindPattern([b"abcd"]), pso.FindPattern([b"ab"]),
+            pso.FindPattern([b"d"]), pso.FindPattern([b"ab", b"cd"]),
+            pse.like_pattern(b"%special%requests%")[0],
+            pse.like_pattern(b"%ab%")[0], pse.like_pattern(b"ab%")[0],
+            pse.like_pattern(b"%cd")[0],
+            pso.FindPattern([b"b"], repeat=2, reverse=True)]
+
+
+@pytest.mark.parametrize("late", [False, True])
+@pytest.mark.parametrize("shape", _TILE_SHAPES)
+def test_string_find_plain_on_tile_shapes(shape, late):
+    rows = _tile_rows(shape)
+    offs, chars = _span_of(rows)
+    to, tc = _torch_span(offs, chars)
+    starts = offs[:-1] + (1 if late else 0)
+    for pat in _tile_patterns(shape):
+        masks = [rse._match_positions(np, chars, tok,
+                                      -1 if pat.wildcard is None
+                                      else pat.wildcard)
+                 for tok in pat.tokens]
+        got = pso.string_find_plain(
+            to, tc, pat, torch.from_numpy(starts.astype(np.int32))
+            if late else None)
+        want = [_oracle_find(pat, masks, int(offs[i]), int(offs[i + 1]),
+                             int(starts[i])) for i in range(len(rows))]
+        assert got.tolist() == want, (pat.tokens, pat.repeat, pat.reverse)
+
+
+@pytest.mark.parametrize("shape", _TILE_SHAPES)
+def test_string_match_mask_plain_on_tile_shapes(shape):
+    rows = _tile_rows(shape)
+    offs, chars = _span_of(rows)
+    to, tc = _torch_span(offs, chars)
+    for needle in (b"ab", b"abcd", b"aa", b"a", b"cd"):
+        m = rse._match_positions(np, chars, needle)
+        got = pso.string_match_mask_plain(to, tc, needle).numpy()
+        want = np.zeros(chars.shape[0], bool)
+        for i in range(len(rows)):
+            for p in range(offs[i], offs[i + 1] - len(needle) + 1):
+                want[p] = m[p]
+        assert got.tolist() == want.tolist(), needle
+
+
+def _ref_map(fn, offs, chars, *args):
+    """The reference's evaluator ``fn`` over the span (offs, chars)."""
+    from spark_rapids_tpu import types as rtypes
+    from spark_rapids_tpu.columnar.device import DeviceColumn as RCol
+    from spark_rapids_tpu.expr.core import ColumnValue as RVal
+    from spark_rapids_tpu.expr.core import EvalContext as REval
+
+    class Given:
+        def eval(self, ctx):
+            return RVal(RCol(rtypes.STRING, data=chars, offsets=offs,
+                             validity=np.ones(len(offs) - 1, bool)))
+    ctx = REval(np, None)
+    ctx.capacity = len(offs) - 1
+    e = pytypes.SimpleNamespace(children=[Given()])
+    return np.asarray(fn(e, ctx, *args).col.data)
+
+
+@pytest.mark.parametrize("shape", ["letter_before", "space_before",
+                                   "lengths", "straddle"])
+def test_string_map_plain_on_tile_shapes_vs_reference(shape):
+    if shape == "letter_before":     # the row before ends in a letter
+        rows = [b"abc", b"def ghi", b"x", b"Yz", b"QQ rr", b"", b"a"]
+    elif shape == "space_before":    # ... and in a space
+        rows = [b"abc ", b"def ", b" x", b"y ", b"", b" ", b"zZ"]
+    else:
+        rows = _tile_rows(shape)
+    offs, chars = _span_of(rows)
+    to, tc = _torch_span(offs, chars)
+    total = int(offs[-1])
+    for mode, fn, args in ((pso.MAP_UPPER, rse._case_map, (True,)),
+                           (pso.MAP_LOWER, rse._case_map, (False,)),
+                           (pso.MAP_INITCAP, rse._eval_initcap, ())):
+        got = pso.string_map_plain(to, tc, mode).numpy()
+        want = _ref_map(fn, offs, chars, *args)
+        assert got[:total].tolist() == want[:total].tolist(), mode
+        assert not got[total:].any()
+
+
+def _reverse_oracle(row: bytes) -> bytes:
+    """Characters from each lead byte (or the row start) to the next, any
+    run of continuation bytes kept with the byte before it; reversed."""
+    cuts = [0] + [j for j in range(1, len(row)) if (row[j] & 0xC0) != 0x80]
+    chars = [row[a:b] for a, b in zip(cuts, cuts[1:] + [len(row)])]
+    return b"".join(chars[::-1]) if row else b""
+
+
+@pytest.mark.parametrize("case", ["runs_of_4", "long_runs", "only_cont",
+                                  "lead_then_runs", "valid_mixed"])
+def test_reverse_plain_on_invalid_utf8(case):
+    c = b"\x80"
+    if case == "runs_of_4":
+        rows = [b"a" + c * 4 + b"b", c * 4, b"x" + b"\xbf" * 5, b"ab"]
+    elif case == "long_runs":
+        rows = [b"q" + c * 300 + b"r" + c * 17, c * 33 + b"z", b"", b"s"]
+    elif case == "only_cont":
+        rows = [c * 4096, c, c * 16, c * 17, b""]
+    elif case == "lead_then_runs":
+        rows = [b"\xc3" + c * 6 + b"\xe4" + c * 2, b"\xf0" + c * 9, b"a"]
+    else:
+        rows = ["héllo wörld".encode(), "中文ab".encode(), b"abc",
+                "é".encode() * 9]
+    offs, chars = _span_of(rows)
+    got = pso.string_map_plain(*_torch_span(offs, chars),
+                               pso.MAP_REVERSE).numpy()
+    for i, r in enumerate(rows):
+        assert bytes(got[offs[i]:offs[i + 1]]) == _reverse_oracle(r)
+    assert not got[int(offs[-1]):].any()
