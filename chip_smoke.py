@@ -159,6 +159,25 @@ qt3, Q22's substring(c_phone, 1, 2) IN 7 codes grouped with a count and
 a sum, all at 2^25 rows; qt4, a projection of 18 string functions and
 casts to and from strings at 2^22 rows; each against pyarrow or numpy,
 every K19-K21 call of them against its plain version exactly.
+Dates, bitwise and the small leaves: K22 (the civil calendar's fields)
+against its plain version bit for bit on every field code over the
+int32 extremes, 0001-01-01, 9999-12-31, the 1900/2000/2100 leap rules,
+timestamps of -1 us, months of +-(2^31 - 1), 1-2^20 rows from lanes 0-3
+rows off their alignment, and each date expression over nulls against
+the CPU engine; K22's year at qd1's call (2^25 DATE rows) timed beside
+its bound and plain version; qd1, TPC-H Q9's year grouping over q1d's
+lineitem, sum(l_extendedprice * (1 - l_discount)) and a count by
+year(l_shipdate), over 1 and 4 partitions against numpy exactly; qd2,
+every device rule of the slice (the date fields and arithmetic, the
+bitwise ops and shifts, nanvl, inset, dropna's predicate, the markers,
+rand and spark_partition_id over 4 partitions), a tumbling window
+grouped and a scalar subquery in a filter, at 2^22 rows against the CPU
+placement; every K22 call of qd1 and qd2 against its plain version.
+The expression catalogue holds decimal %, div, pmod, greatest and least
+(DECIMAL(10,2), (18,4), and div of DECIMAL(30,2)), and the DECIMAL(30,2)
+ones the plan keeps on the CPU engine evaluated on the card.
+Each phase's seconds are printed as it ends, and all of them before the
+kernel line.
 Launch counts are reset just before each main-path run and must be > 0
 after it for every kernel of that path.
 Needs one CUDA card; exits non-zero and prints no result without one,
@@ -829,6 +848,9 @@ def _text_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
             with _Capture(sops, "string_find", "string_match_mask",
                           "utf8_cut", "string_map") as cap:
                 fn()
+            # the plain versions over qt1's comments take 12 GiB in one
+            # piece: give them the allocator's cached blocks
+            torch.cuda.empty_cache()
             seen = _check_text_captured(torch, cap, sops, what)
             print(f"{run}: GPU-placed {nodes}; {len(seen)} K19-K21 call(s) "
                   f"equal their plain versions exactly: "
@@ -2695,7 +2717,9 @@ CATALOGUE_ROWS = 1 << 20
 def _catalogue_table(n):
     """Columns for every new expression: a, b LONG with INT64_MIN, -1 and
     0 divisors; i INT with INT32_MIN; d, e DOUBLE with NaN, +-inf, -0.0,
-    1e19 and 9.3e18; x BOOLEAN; nulls in each."""
+    1e19 and 9.3e18; x BOOLEAN; p, q DECIMAL(10,2), r, u DECIMAL(18,4)
+    and g, z DECIMAL(30,2) (g past 2^64 in a quarter of its rows), q, u
+    and z with zero divisors; nulls in each."""
     rng = np.random.default_rng(SEED + 21)
 
     def mask(p=0.05):
@@ -2713,19 +2737,39 @@ def _catalogue_table(n):
     d[pick] = specials[rng.integers(0, len(specials), int(pick.sum()))]
     e = rng.normal(0.0, 10.0, n)
     e[rng.random(n) < 0.05] = 0.0
+
+    def dec(lo_bound, precision, scale, divisor=False, wide=False):
+        lo = rng.integers(-lo_bound, lo_bound, n)
+        if divisor:
+            lo[rng.random(n) < 0.05] = 0
+        hi = lo >> 63
+        if wide:           # values past 2^64 in a quarter of the rows
+            big = rng.random(n) < 0.25
+            hi = np.where(big, rng.integers(-2**30, 2**30, n), hi)
+        return _decimal_array(lo, hi, precision, scale, ~mask())
     return pa.table({
         "a": pa.array(a, mask=mask()), "b": pa.array(b, mask=mask()),
         "i": pa.array(i, mask=mask()), "d": pa.array(d, mask=mask()),
         "e": pa.array(e, mask=mask()),
-        "x": pa.array(rng.random(n) < 0.5, mask=mask())})
+        "x": pa.array(rng.random(n) < 0.5, mask=mask()),
+        "p": dec(10**9, 10, 2), "q": dec(10**4, 10, 2, divisor=True),
+        "r": dec(10**17, 18, 4), "u": dec(10**9, 18, 4, divisor=True),
+        "g": dec(2**62, 30, 2, wide=True),
+        "z": dec(10**6, 30, 2, divisor=True)})
 
 
 def _catalogue_columns(F, col, lit, ar, mx, cond, Column):
     """Every expression this port brings, over _catalogue_table."""
     def node(cls, *args):
         return Column(cls(*[a.expr for a in args]))
-    a, b, i, d, e, x = (col(c) for c in "abidex")
+    a, b, i, d, e, x, p, q, r, u, g, z = (col(c) for c in "abidexpqrugz")
     cols = {
+        "mod_dec": p % q, "pmod_dec": node(ar.Pmod, p, q),
+        "idiv_dec": node(ar.IntegralDivide, p, q), "mod_dec18": r % u,
+        "pmod_dec18": node(ar.Pmod, r, u),
+        "idiv_dec18": node(ar.IntegralDivide, r, u),
+        "idiv_dec30": node(ar.IntegralDivide, g, z),
+        "greatest_dec": F.greatest(p, q), "least_dec18": F.least(r, u),
         "add": a + b, "sub": i - b, "mul": a * b, "mul_d": d * e,
         "div": a / b, "div_d": d / e, "idiv": node(ar.IntegralDivide, a, b),
         "mod": a % b, "mod_i": i % b, "mod_d": d % e,
@@ -2754,6 +2798,34 @@ def _catalogue_columns(F, col, lit, ar, mx, cond, Column):
                  "atanh", "cbrt", "rint", "degrees", "radians"):
         cols[name] = getattr(F, name)(e)
     return [c.alias(name) for name, c in cols.items()]
+
+
+def _decimal128_on_card(torch, dev, ct, batch_to_device, EvalContext, ar,
+                        t):
+    """%, pmod, greatest, least and div of the catalogue's DECIMAL(30,2)
+    columns g and z, evaluated on the card (the plan keeps the first four
+    on the CPU engine, as the reference's rules do) against the same
+    expressions on the CPU: both words and the validity.  Returns the
+    count."""
+    from spark_rapids_tpu_torch.expr.core import BoundReference as B
+    rb = pa.RecordBatch.from_arrays(
+        [ct.column("g").combine_chunks(), ct.column("z").combine_chunks()],
+        names=["g", "z"])
+    card, host = batch_to_device(rb, dev), batch_to_device(rb, "cpu")
+    dt = t.DecimalType(30, 2)
+    g, z = B(0, dt), B(1, dt)
+    exprs = [ar.Remainder(g, z), ar.Pmod(g, z), ar.Greatest(g, z),
+             ar.Least(g, z), ar.IntegralDivide(g, z)]
+    for e in exprs:
+        a, b = e.eval(EvalContext(card)).col, e.eval(EvalContext(host)).col
+        if not (torch.equal(a.data.cpu(), b.data) and
+                torch.equal(a.validity.cpu(), b.validity) and
+                (a.data_hi is None) == (b.data_hi is None) and
+                (a.data_hi is None or
+                 torch.equal(a.data_hi.cpu(), b.data_hi))):
+            raise AssertionError(f"{e.sql()} over DECIMAL(30,2) on the card "
+                                 f"differs from the CPU engine")
+    return len(exprs)
 
 
 def _same_catalogue(got, want, rtol):
@@ -3155,10 +3227,13 @@ Q1_PLACEMENTS = [
 SHORT_ROWS = (1, 2, 3, 255, 257, 6143, 6145, 65535, 65537)
 # the Q1 text's rows: its CPU engine stages (the int128 products and
 # pyarrow's decimal group-by) took 26-35 s over 2^25 rows on the H100's
-# host and 18.4 s over 2^24; it runs over 2^23 to leave the script's
-# time limit room for the string functions' phases
-Q1_TEXT_ROWS = ROWS // 4
-QN_WRITE_ROWS = ROWS // 2  # qn's parquet round trip: 20.3 s at 2^25 rows
+# host, 18.4 s over 2^24 and 25 s (cold and warm) over 2^23; it runs over
+# 2^22 to leave the script's time limit room for the later phases
+Q1_TEXT_ROWS = ROWS // 8
+# qn's rows and its parquet round trip (20.3 s at 2^25 rows): cut from
+# 2^25 and 2^24 to make room for the date phases
+QN_ROWS = ROWS // 2
+QN_WRITE_ROWS = ROWS // 8
 
 
 def _decimal_array(lo, hi, precision, scale, valid=None):
@@ -3797,6 +3872,429 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
 
 
 # ---------------------------------------------------------------------------
+# dates, bitwise and the small leaves: K22, qd1 and qd2
+# ---------------------------------------------------------------------------
+
+QD2_ROWS = 1 << 22            # qd2, every rule of the slice at once
+K22_SIZES = (1, 3, 4, 5, 1023, 1025, 1 << 20)
+K22_DAYS = (-2**31, -2**31 + 1, 2**31 - 1, 2**31 - 2, -2_000_000_001,
+            2_000_000_001, -1, 0, 1, -719_162, 2_932_896, -25_508, -25_509,
+            10_956, 47_540, 47_541, -865_565, -1_011_662, -719_468,
+            -865_564, -719_469)      # 0001-01-01, 9999-12-31, 1900-02-28/
+#                                      03-01, 2000-02-29, 2100-02-28/03-01,
+#                                      the floor of Hinnant's era
+K22_MICROS = (-1, 0, 1, -86_400_000_000, -86_400_000_001,
+              86_400_000_000 - 1, -2**63, 2**63 - 1, -3_600_000_000,
+              3_599_999_999, -60_000_001)
+
+
+def _k22_lanes(torch, dev, n, seed):
+    """(days int32, micros int64, months int32) on the card: uniform over
+    the whole int32 range, over 0001-01-01..9999-12-31, and the trouble
+    spots; months mostly small, with +-(2^31 - 1)."""
+    rng = np.random.default_rng(seed)
+    days = np.where(rng.random(n) < 0.5,
+                    rng.integers(-2**31, 2**31, n, dtype=np.int64),
+                    rng.integers(-719_162, 2_932_897, n)).astype(np.int32)
+    micros = np.where(rng.random(n) < 0.5,
+                      rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+                      rng.integers(-2**55, 2**55, n, dtype=np.int64))
+    months = np.where(rng.random(n) < 0.8, rng.integers(-40, 41, n),
+                      rng.integers(-2**31 + 1, 2**31, n)).astype(np.int32)
+    k = min(n, len(K22_DAYS))
+    days[:k] = K22_DAYS[:k]
+    micros[:min(n, len(K22_MICROS))] = K22_MICROS[:min(n, len(K22_MICROS))]
+    months[:min(n, 2)] = [2**31 - 1, -(2**31 - 1)][:min(n, 2)]
+    return (torch.from_numpy(days).to(dev), torch.from_numpy(micros).to(dev),
+            torch.from_numpy(months).to(dev))
+
+
+def _k22_cases(torch, dev, dates):
+    """Every field code of K22 against ``date_fields_plain``, bit for bit,
+    over days and timestamps with the calendar's trouble spots, at row
+    counts 1, 3, 4, 5, 1023, 1025 and 2^20, from lanes 0-3 rows off their
+    16-byte alignment (the months at another offset than the days), with
+    the months as a column (+-(2^31 - 1) among them) and as a literal.
+    Returns the number of checks."""
+    checks = 0
+    for n in K22_SIZES:
+        days, micros, months = _k22_lanes(torch, dev, n + 4, SEED + n)
+        for shift in ((0, 1, 2, 3) if n < (1 << 20) else (0, 3)):
+            d = days[shift:shift + n]
+            t = micros[shift % 2:shift % 2 + n]
+            k = months[(shift + 1) % 4:(shift + 1) % 4 + n]
+            for field in dates.FIELDS:
+                calls = []
+                if field != "add_months":
+                    calls.append((t, "timestamp", field, None))
+                if field not in ("hour", "minute", "second"):
+                    calls.append((d, "date", field, None))
+                if field == "add_months":
+                    calls = [(d, "date", field, k), (d, "date", field, -13),
+                             (d, "date", field, 2**31 - 1)]
+                for lane, kind, f, arg in calls:
+                    got = dates.date_fields(lane, kind, f, arg)
+                    want = dates.date_fields_plain(lane, kind, f, arg)
+                    if not torch.equal(got, want):
+                        bad = int((got != want).nonzero()[0, 0])
+                        raise AssertionError(
+                            f"K22 {f} of a {kind} lane differs from its "
+                            f"plain version ({n} rows, {shift} off "
+                            f"alignment): row {bad}, lane "
+                            f"{int(lane[bad])}, kernel {int(got[bad])}, "
+                            f"plain {int(want[bad])}")
+                    checks += 1
+    torch.cuda.synchronize()
+    return checks
+
+
+def _k22_null_cases(torch, dev, DeviceBatch, DeviceColumn, EvalContext,
+                    move_batch, t, dte, lit):
+    """Each date expression over columns with nulls (and months of
+    +-(2^31 - 1), null months) on the card against the same expression on
+    the CPU engine: the data and the validity.  Returns the count."""
+    from spark_rapids_tpu_torch.expr.core import BoundReference as B
+    rng = np.random.default_rng(SEED + 23)
+    n = 4099
+    days, micros, months = (x.cpu() for x in _k22_lanes(torch, "cpu", n,
+                                                        SEED + 24))
+    cols = []
+    for data, dt in ((days, t.DATE), (micros, t.TIMESTAMP), (months, t.INT)):
+        valid = torch.from_numpy(rng.random(n) >= 0.1)
+        cols.append(DeviceColumn(dt, torch.where(valid, data,
+                                                 torch.zeros_like(data)),
+                                 valid))
+    host = DeviceBatch(cols, n, ["d", "t", "k"])
+    card = move_batch(host, dev)
+    d, ts, k = B(0, t.DATE), B(1, t.TIMESTAMP), B(2, t.INT)
+    exprs = [cls(c) for cls in (dte.Year, dte.Month, dte.DayOfMonth,
+                                dte.Quarter, dte.DayOfWeek, dte.WeekDay,
+                                dte.DayOfYear, dte.LastDay)
+             for c in (d, ts)]
+    exprs += [cls(c) for cls in (dte.Hour, dte.Minute, dte.Second)
+              for c in (d, ts)]
+    exprs += [dte.AddMonths(d, k), dte.AddMonths(ts, k),
+              dte.AddMonths(d, lit(-1).expr)]
+    exprs += [dte.TruncDate(c, f) for c in (d, ts)
+              for f in ("year", "month", "quarter", "week")]
+    for e in exprs:
+        a = e.eval(EvalContext(card)).col
+        b = e.eval(EvalContext(host)).col
+        if not (torch.equal(a.data.cpu(), b.data) and
+                torch.equal(a.validity.cpu(), b.validity)):
+            raise AssertionError(f"{e.sql()} on the card differs from the "
+                                 f"CPU engine")
+    return len(exprs)
+
+
+def _qd_oracle(raw):
+    """qd1's rows from numpy: per ship year, the exact sum of
+    l_extendedprice * (1 - l_discount) at scale 4 (int64 at 2^25 rows)
+    and the count."""
+    import decimal
+    D = decimal.Decimal
+    years = raw["ship"].astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+    revenue = raw["price"] * (100 - raw["disc"])
+    rows = []
+    for y in np.unique(years):
+        m = years == y
+        rows.append(dict(l_year=int(y),
+                         revenue=D(int(revenue[m].sum())).scaleb(-4),
+                         n=int(m.sum())))
+    return rows
+
+
+def _qd1_df(session, table, parts, F, col, lit):
+    """TPC-H Q9's year grouping over lineitem alone.  The casts hold the
+    values (prices below 10^6, discounts below 1) and keep the product
+    within 18 digits (DECIMAL(17,4)), where both packages' rules place it
+    on the device; Q9's DECIMAL(15,2) product, DECIMAL(32,4), stays on
+    the CPU engine in both."""
+    import decimal
+    price = col("l_extendedprice").cast("decimal(12,2)")
+    disc = col("l_discount").cast("decimal(3,2)")
+    return (session.create_dataframe(table, num_partitions=parts)
+            .group_by(F.year(col("l_shipdate")).alias("l_year"))
+            .agg(F.sum(price * (lit(decimal.Decimal(1)) - disc))
+                 .alias("revenue"), F.count("*").alias("n"))
+            .sort(col("l_year")))
+
+
+def _qd2_table(n, seed=SEED):
+    """qd2's columns: d DATE over 0001-01-01..9999-12-31, t TIMESTAMP of
+    +-2^55 microseconds (years 828-3111, before 1970 too), w TIMESTAMP
+    over 30 days of 2024 (the window's), b, h, i, l BYTE, SHORT, INT,
+    LONG with negatives, s shift distances 0-200, k months (-40..40 and
+    +-(2^31 - 1)), x, y DOUBLE with NaN, -0.0 and +-inf, m DECIMAL(9,2);
+    5 % null each."""
+    rng = np.random.default_rng(seed + 31)
+
+    def mask():
+        return rng.random(n) < 0.05
+    x = rng.normal(0, 100, n)
+    specials = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf])
+    pick = rng.random(n) < 0.2
+    x[pick] = specials[rng.integers(0, 5, int(pick.sum()))]
+    k = rng.integers(-40, 41, n)
+    k[rng.random(n) < 0.01] = 2**31 - 1
+    k[rng.random(n) < 0.01] = -(2**31 - 1)
+    w0 = 19_723 * 86_400_000_000            # 2024-01-01
+    cols = {
+        "d": pa.array(rng.integers(-719_162, 2_932_897, n).astype(np.int32),
+                      pa.date32(), mask=mask()),
+        "t": pa.array(rng.integers(-2**55, 2**55, n, dtype=np.int64),
+                      pa.timestamp("us", tz="UTC"), mask=mask()),
+        "w": pa.array(w0 + rng.integers(0, 30 * 86_400_000_000, n,
+                                        dtype=np.int64),
+                      pa.timestamp("us", tz="UTC")),
+        "b": pa.array(rng.integers(-128, 128, n).astype(np.int8),
+                      mask=mask()),
+        "h": pa.array(rng.integers(-2**15, 2**15, n).astype(np.int16),
+                      mask=mask()),
+        "i": pa.array(rng.integers(-2**31, 2**31, n).astype(np.int32),
+                      mask=mask()),
+        "l": pa.array(rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+                      mask=mask()),
+        "s": pa.array(rng.integers(0, 201, n).astype(np.int32), mask=mask()),
+        "k": pa.array(k.astype(np.int32), mask=mask()),
+        "x": pa.array(x, mask=mask()),
+        "y": pa.array(rng.normal(0, 1, n), mask=mask()),
+        "m": _decimal_array(rng.integers(-10**9 + 1, 10**9, n),
+                            np.zeros(n, np.int64), 9, 2, ~mask())}
+    return pa.table(cols)
+
+
+def _qd2_columns(F, col, lit, Column, t, dte, bw, mt, mx, Param):
+    """Every rule of the slice that runs on the device, over _qd2_table
+    (DateFormatClass, DateAddInterval and InputFileName stay on the CPU
+    engine by their rules)."""
+    import datetime
+
+    def node(cls, *args):
+        return Column(cls(*[a.expr if isinstance(a, Column) else a
+                            for a in args]))
+    d, ts, b, h, i, l, s, k, x, y, m = (col(c) for c in "dtbhilskxym")
+    cols = {f"{c.__name__}_{n}": node(c, v) for c in (
+        dte.Year, dte.Month, dte.DayOfMonth, dte.Quarter, dte.DayOfWeek,
+        dte.WeekDay, dte.DayOfYear, dte.LastDay) for n, v in (("d", d),
+                                                              ("t", ts))}
+    cols.update({f"{c.__name__}": node(c, ts) for c in (
+        dte.Hour, dte.Minute, dte.Second)})
+    cols.update({f"trunc_{f}": node(dte.TruncDate, d, f) for f in (
+        "year", "month", "quarter", "week")})
+    cols.update(
+        add_months=node(dte.AddMonths, d, k),
+        add_months_1=node(dte.AddMonths, d, lit(1)),
+        date_add=node(dte.DateAdd, d, lit(30)),
+        date_sub=node(dte.DateSub, d, i),
+        date_diff=node(dte.DateDiff, d, lit(datetime.date(2000, 1, 1))),
+        to_unix=node(dte.ToUnixTimestamp, ts),
+        unix_d=node(dte.UnixTimestamp, d),
+        from_unix=node(dte.FromUnixTime, i),
+        time_add=node(dte.TimeAdd, ts, 90_061_000_001),
+        precise=node(mt.PreciseTimestampConversion, ts, t.TIMESTAMP, t.LONG),
+        and_bh=F.bitwise_and(b, h), or_il=F.bitwise_or(i, l),
+        xor_hi=F.bitwise_xor(h, i), not_l=F.bitwise_not(l),
+        not_b=F.bitwise_not(b))
+    for name, v in (("b", b), ("h", h), ("i", i), ("l", l)):
+        cols[f"shl_{name}"] = F.shiftleft(v, s)
+        cols[f"shr_{name}"] = F.shiftright(v, s)
+        cols[f"shru_{name}"] = F.shiftrightunsigned(v, s)
+    cols.update(
+        nanvl=node(mt.NaNvl, x, y),
+        inset=node(mt.InSet, b, (1, 2, -3, None)),
+        atleast=node(mt.AtLeastNNonNulls, 2, [x.expr, y.expr, d.expr]),
+        known=node(mt.KnownNotNull, l),
+        normalized=node(mt.KnownFloatingPointNormalized,
+                        node(mx.NormalizeNaNAndZero, x)),
+        normalize=node(mx.NormalizeNaNAndZero, x),
+        unscaled=node(mt.UnscaledValue, m),
+        block_start=Column(mt.InputFileBlockStart()),
+        block_length=Column(mt.InputFileBlockLength()),
+        param=l + Column(Param(0, t.LONG, 7)),
+        rand=F.rand(42), pid=F.spark_partition_id())
+    return [c.alias(n) for n, c in cols.items()]
+
+
+def _date_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
+                 bound, path_run, li_table, li_raw):
+    """K22 on edge cases and at qd1's call; qd1 over 1 and 4 partitions
+    against numpy; qd2, every device rule of the slice at 2^22 rows,
+    against the CPU placement."""
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.column import Column, col, lit
+    from spark_rapids_tpu_torch.api.session import GpuSession
+    from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                        DeviceColumn,
+                                                        move_batch)
+    from spark_rapids_tpu_torch.expr import bitwise as bw
+    from spark_rapids_tpu_torch.expr import datetime_expr as dte
+    from spark_rapids_tpu_torch.expr import mathexpr as mx
+    from spark_rapids_tpu_torch.expr import misc_tail as mt
+    from spark_rapids_tpu_torch.expr.core import EvalContext
+    from spark_rapids_tpu_torch.expr.params import ParamLiteral
+    from spark_rapids_tpu_torch.ops import dates
+    t_dates = time.perf_counter()
+
+    def check_calls(cap, what):
+        """Every K22 call of a run again through the kernel and its plain
+        version, bit for bit."""
+        for _, args in cap.calls:
+            if not torch.equal(cap.orig["date_fields"](*args),
+                               dates.date_fields_plain(*args)):
+                raise AssertionError(f"K22 {args[2]} differs from its "
+                                     f"plain version at {what}")
+        if not cap.calls:
+            raise AssertionError(f"{what} made no K22 call")
+        return len(cap.calls)
+
+    try:
+        t1 = time.perf_counter()
+        n_cases = _k22_cases(torch, dev, dates)
+        n_nulls = _k22_null_cases(torch, dev, DeviceBatch, DeviceColumn,
+                                  EvalContext, move_batch, t, dte, lit)
+        print(f"K22 edge cases: {n_cases} calls equal date_fields_plain bit "
+              f"for bit ({len(dates.FIELDS)} field codes; {K22_SIZES} rows; "
+              f"0-3 rows off alignment; int32 extremes, 0001-01-01, "
+              f"9999-12-31, 1900/2000/2100 leap rules, -1 us; months "
+              f"+-(2^31 - 1) as a column and a literal); {n_nulls} date "
+              f"expressions over nulls equal the CPU engine; "
+              f"{time.perf_counter() - t1:.1f} s")
+    except Exception:
+        failures.append("K22 edge cases")
+        traceback.print_exc()
+
+    try:
+        ship = torch.from_numpy(li_raw["ship"]).to(dev)
+        n = int(ship.shape[0])
+        if not torch.equal(dates.date_fields(ship, "date", "year"),
+                           dates.date_fields_plain(ship, "date", "year")):
+            raise AssertionError("K22 year differs at qd1's call")
+        moved = 8 * n
+        kernel_rows["date_fields"] = dict(
+            source="spark_rapids_tpu_torch/csrc/date_fields.cu",
+            replaces="spark_rapids_tpu/expr/datetime_expr.py:84",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: dates.date_fields(ship, "date", "year")),
+            plain_ms=cuda_ms(lambda: dates.date_fields_plain(
+                ship, "date", "year"), reps=2),
+            bound_ms=bound(moved), library_ms=None,
+            extra=dict(rows=n, field="year", bytes_moved=moved))
+        r = kernel_rows["date_fields"]
+        for field, kind, lane, arg in (
+                ("month", "date", ship, None),
+                ("add_months", "date", ship, -13),
+                ("hour", "timestamp", ship.to(torch.int64) * 86_400_000_007,
+                 None)):
+            r["extra"][f"{field}_ms"] = cuda_ms(
+                lambda: dates.date_fields(lane, kind, field, arg))
+        print(f"K22 at qd1's call (year of {n} DATE rows): "
+              f"{r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({moved} "
+              f"bytes), plain {r['plain_ms']:.3f} ms, library none; month "
+              f"{r['extra']['month_ms']:.3f}, add_months "
+              f"{r['extra']['add_months_ms']:.3f}, hour of a timestamp lane "
+              f"{r['extra']['hour_ms']:.3f} ms; {card}")
+        del ship
+    except Exception:
+        failures.append("K22 at qd1's call")
+        traceback.print_exc()
+
+    try:
+        t1 = time.perf_counter()
+        want = _qd_oracle(li_raw)
+        print(f"qd1 numpy oracle: {len(want)} years, "
+              f"{time.perf_counter() - t1:.1f} s")
+        for parts in (1, 4):
+            sd = GpuSession()
+            dfd = _qd1_df(sd, li_table, parts, F, col, lit)
+            what = f"qd1 over {parts} partition(s)"
+            path_run("qd1" if parts == 1 else "qd1_4", dfd.collect,
+                     lambda got, w: _check_rows(got, want, w), what)
+            with _Capture(dates, "date_fields") as cap:
+                dfd.collect()
+            calls = check_calls(cap, what)
+            nodes = _placements(sd.last_plan)
+            if nodes[0] != ("DeviceToHostExec", "cpu") or \
+                    any(p != "gpu" for _, p in nodes[1:]) or \
+                    "!" in sd.last_explain:
+                raise AssertionError(f"{what} placed {nodes}:\n"
+                                     f"{sd.last_explain}")
+            print(f"{what}: {calls} K22 call(s) equal the plain version; "
+                  f"placements {nodes}")
+    except Exception:
+        failures.append("qd1")
+        traceback.print_exc()
+
+    try:
+        t1 = time.perf_counter()
+        table = _qd2_table(QD2_ROWS)
+        cols = _qd2_columns(F, col, lit, Column, t, dte, bw, mt, mx,
+                            ParamLiteral)
+        cpu = GpuSession(conf={"spark.rapids.sql.enabled": False})
+        gpu = GpuSession()
+        print(f"qd2 table of {QD2_ROWS} rows, {len(cols)} columns: "
+              f"{time.perf_counter() - t1:.1f} s")
+
+        def avg_l(df):
+            return F.scalar_subquery(df.agg(F.avg(col("l")).alias("a")))
+        queries = {
+            "qd2": lambda s: s.create_dataframe(
+                table, num_partitions=4).select(*cols),
+            "qd2_window": lambda s: s.create_dataframe(
+                table, num_partitions=4).group_by(
+                F.window(col("w"), "1 hour").alias("win")).agg(
+                F.count("*").alias("c"), F.sum(col("i")).alias("si")).select(
+                col("win").getField("start").alias("start"),
+                col("win").getField("end").alias("end"), col("c"),
+                col("si")),
+            "qd2_subquery": lambda s: (lambda df: df.filter(
+                col("l") > avg_l(df)).group_by(
+                F.year(col("d")).alias("y")).agg(
+                F.count("*").alias("c"), F.max(col("l")).alias("ml")))(
+                s.create_dataframe(table, num_partitions=4))}
+        for run, q in queries.items():
+            t1 = time.perf_counter()
+            want = q(cpu).collect()
+            cpu_s = time.perf_counter() - t1
+            if any(p != "cpu" for _, p in _placements(cpu.last_plan)):
+                raise AssertionError(f"{run}: the CPU placement put an "
+                                     f"operator on the GPU")
+            if run != "qd2":
+                want = want.sort_by([(want.column_names[0], "ascending")])
+
+            def check(got, w, want=want, run=run):
+                if run != "qd2":
+                    got = got.sort_by([(got.column_names[0], "ascending")])
+                bad, _ = _same_catalogue(got, want, 0.0)
+                if bad:
+                    raise AssertionError(f"{w}: {bad} differ from the CPU "
+                                         f"placement")
+            path_run(run, q(gpu).collect, check,
+                     f"{run} ({QD2_ROWS} rows, 4 partitions) against the "
+                     f"CPU placement ({cpu_s:.1f} s)", reps=1)
+            nodes = _placements(gpu.last_plan)
+            if any(p != "gpu" for _, p in nodes[1:]) or \
+                    "!" in gpu.last_explain:
+                raise AssertionError(f"{run} placed {nodes}:\n"
+                                     f"{gpu.last_explain}")
+            if run == "qd2":
+                with _Capture(dates, "date_fields") as cap:
+                    q(gpu).collect()
+                print(f"qd2: {check_calls(cap, run)} K22 calls equal the "
+                      f"plain version; {len(nodes)} operators on the GPU")
+        del table
+    except Exception:
+        failures.append("qd2")
+        traceback.print_exc()
+    # give the allocator's cached blocks back: the text phases' plain
+    # versions take 12 GiB in one piece over qt1's comments
+    torch.cuda.empty_cache()
+    print(f"date phases: {time.perf_counter() - t_dates:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # the nested types: TPC-H's orders with their lineitems nested inside
 # ---------------------------------------------------------------------------
 
@@ -4350,7 +4848,19 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import segmented as seg
     from spark_rapids_tpu_torch.ops import strings as sops
     from spark_rapids_tpu_torch.expr import hashfns as hashfns_mod
+    from spark_rapids_tpu_torch.ops import dates as dates_mod
     from spark_rapids_tpu_torch.plan import host_assist
+
+    t_start = time.perf_counter()
+    phase_secs = []
+    phase_t = [t_start]
+
+    def phase_done(name):
+        """Print the seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_secs.append((name, now - phase_t[0]))
+        print(f"phase {name}: {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
 
     dev = torch.device("cuda")
     host = torch.device("cpu")
@@ -4593,6 +5103,7 @@ def main() -> int:
         failures.append("edge cases")
         traceback.print_exc()
 
+    phase_done("kernel phase: each kernel against its plain version")
     # ---- kernel phase, q2: K6, K4 and K5 against their plain versions --
     q2_pairs = None
     try:
@@ -4847,6 +5358,7 @@ def main() -> int:
         failures.append("K3 wide group-by")
         traceback.print_exc()
 
+    phase_done("kernel phase, q2: K6, K4 and K5 against their plain versions")
     # ---- kernel phase, q3: K2 on the sort words, K8, K9 and K10 --------
     q3_orders = [(A("k"), True, True), (A("v"), True, True)]
     try:
@@ -5022,6 +5534,7 @@ def main() -> int:
         failures.append("K8 sweep")
         traceback.print_exc()
 
+    phase_done("kernel phase, q3: K2 on the sort words, K8, K9 and K10")
     # ---- kernel phase, q4: K11, K12 and K13 at q4's shapes ------------
     def q4_exec(child):
         spec = W.WindowBuilder().partition_by(col("k")).order_by(
@@ -5264,6 +5777,7 @@ def main() -> int:
         failures.append("launch floor")
         traceback.print_exc()
 
+    phase_done("kernel phase, q4: K11, K12 and K13 at q4's shapes")
     # ---- main path: DataFrame API, one batch -------------------------
     wrappers = {"compact_rows": carry.compact_lanes,
                 "sort_order": carry.sort_order,
@@ -5286,7 +5800,8 @@ def main() -> int:
                 "span_rows": gather_mod.span_rows,
                 "string_find": sops.string_find,
                 "utf8_cut": sops.utf8_cut,
-                "string_map": sops.string_map}
+                "string_map": sops.string_map,
+                "date_fields": dates_mod.date_fields}
 
     def download_fetched(b):
         return batch_to_arrow(fetch.fetch_batch(b))
@@ -5329,6 +5844,7 @@ def main() -> int:
         failures.append("main path (DataFrame)")
         traceback.print_exc()
 
+    phase_done("main path: DataFrame API, one batch")
     # ---- where the time goes: one batch, stage by stage ---------------
     try:
         scan = LocalScanExec(table)
@@ -5370,6 +5886,7 @@ def main() -> int:
         failures.append("stage split")
         traceback.print_exc()
 
+    phase_done("where the time goes: one batch, stage by stage")
     # ---- main path: exec level, 8 batches ------------------------------
     try:
         scan = LocalScanExec(table, batch_rows=BATCH_ROWS)
@@ -5393,6 +5910,7 @@ def main() -> int:
         failures.append("main path (8 batches)")
         traceback.print_exc()
 
+    phase_done("main path: exec level, 8 batches")
     # ---- main path: q2 through the DataFrame API ----------------------
     def check_q2(got, what):
         got = got.sort_by("k")
@@ -5460,6 +5978,7 @@ def main() -> int:
         failures.append("main path (q2)")
         traceback.print_exc()
 
+    phase_done("main path: q2 through the DataFrame API")
     # ---- where q2's time goes: stage by stage, and a trace -------------
     try:
         by_name = {}
@@ -5525,6 +6044,7 @@ def main() -> int:
         failures.append("q2 stage split")
         traceback.print_exc()
 
+    phase_done("where q2's time goes: stage by stage, and a trace")
     # ---- main path: q6 (4-partition fact, 2-partition dimension) -----
     q6_plan = ["DeviceToHostExec", "CoalesceBatchesExec",
                "GpuHashAggregateExec", "CoalesceBatchesExec", "ProjectExec",
@@ -5617,6 +6137,7 @@ def main() -> int:
         failures.append("main path (q6)")
         traceback.print_exc()
 
+    phase_done("main path: q6 (4-partition fact, 2-partition dimension)")
     # ---- main path: q1 over 4 partitions --------------------------------
     try:
         s4 = GpuSession()
@@ -5656,6 +6177,7 @@ def main() -> int:
             walls.append((time.perf_counter() - t1) * 1e3)
         return walls
 
+    phase_done("main path: q1 over 4 partitions")
     # ---- main path: q1x, the TPC-H Q1 shape, one partition and four ---
     q1x_want = None
     try:
@@ -5781,6 +6303,7 @@ def main() -> int:
         traceback.print_exc()
     q1x_want = None
 
+    phase_done("main path: q1x, the TPC-H Q1 shape, one partition and four")
     # ---- main path: q3, the global sort, through the DataFrame API -----
 
     q3_want = None
@@ -5889,6 +6412,7 @@ def main() -> int:
         failures.append("main path (q3)")
         traceback.print_exc()
 
+    phase_done("main path: q3, the global sort, through the DataFrame API")
     # ---- main path: q3 over 4 partitions -------------------------------
     try:
         if q3_want is None:
@@ -5926,6 +6450,7 @@ def main() -> int:
         failures.append("main path (q3, 4 partitions)")
         traceback.print_exc()
 
+    phase_done("main path: q3 over 4 partitions")
     # ---- q3 both ways: the host-assisted collect and the direct --------
     try:
         if q3_want is None:
@@ -6027,6 +6552,7 @@ def main() -> int:
         traceback.print_exc()
     q3_want = None
 
+    phase_done("q3 both ways: the host-assisted collect and the direct")
     # ---- main path: q5, four parquet files -> filter -> group by k ----
     q5_root = tempfile.mkdtemp(prefix="chip_smoke_q5_")
     try:
@@ -6147,6 +6673,7 @@ def main() -> int:
         io_scan.clear_filescan_pin()
         shutil.rmtree(q5_root, ignore_errors=True)
 
+    phase_done("main path: q5, four parquet files -> filter -> group by k")
     # ---- main path: q7, filter(v > 0) -> parquet write ------------------
     q7_root = tempfile.mkdtemp(prefix="chip_smoke_q7_")
     try:
@@ -6221,6 +6748,7 @@ def main() -> int:
     finally:
         shutil.rmtree(q7_root, ignore_errors=True)
 
+    phase_done("main path: q7, filter(v > 0) -> parquet write")
     # ---- a scan left on the CPU: format.parquet.enabled=false ----------
     cpu_root = tempfile.mkdtemp(prefix="chip_smoke_cpu_scan_")
     try:
@@ -6256,6 +6784,7 @@ def main() -> int:
     finally:
         shutil.rmtree(cpu_root, ignore_errors=True)
 
+    phase_done("a scan left on the CPU: format.parquet.enabled=false")
     # ---- main path: q4, the window, through the DataFrame API --------
     q4_want = None
 
@@ -6352,6 +6881,7 @@ def main() -> int:
         failures.append("main path (q4)")
         traceback.print_exc()
 
+    phase_done("main path: q4, the window, through the DataFrame API")
     # ---- main path: q4 over 4 partitions -------------------------------
     try:
         if q4_want is None:
@@ -6385,6 +6915,7 @@ def main() -> int:
         traceback.print_exc()
     q4_want = None
 
+    phase_done("main path: q4 over 4 partitions")
     # ---- TopN: sort(v desc, k).limit(1000) -------------------------------
     try:
         t1 = time.perf_counter()
@@ -6420,6 +6951,7 @@ def main() -> int:
         failures.append("TopN")
         traceback.print_exc()
 
+    phase_done("TopN: sort(v desc, k).limit(1000)")
     # ---- orders and nulls: the card against the CPU engine ---------------
     try:
         ot = _orders_table(1 << 20)
@@ -6477,6 +7009,7 @@ def main() -> int:
         failures.append("orders and nulls")
         traceback.print_exc()
 
+    phase_done("orders and nulls: the card against the CPU engine")
     # ---- the plan rewrite: placements and planning time, one partition --
     try:
         for name, sess, frame in (("q1", session, df),
@@ -6522,6 +7055,7 @@ def main() -> int:
         failures.append("plan placements (q1, q2)")
         traceback.print_exc()
 
+    phase_done("the plan rewrite: placements and planning time, one partition")
     # ---- the plan rewrite: CPU fallback between device operators ------
     try:
         fb_rows = 1 << 16
@@ -6595,6 +7129,7 @@ def main() -> int:
         failures.append("fallback")
         traceback.print_exc()
 
+    phase_done("the plan rewrite: CPU fallback between device operators")
     # ---- the CPU oracle: q1 under spark.rapids.sql.enabled=false ------
     try:
         small = table.slice(0, 1 << 20)
@@ -6635,6 +7170,7 @@ def main() -> int:
         failures.append("CPU oracle")
         traceback.print_exc()
 
+    phase_done("the CPU oracle: q1 under spark.rapids.sql.enabled=false")
     # ---- the CPU oracle: every window function at 2^20 rows ----------
     try:
         wt = _window_oracle_table(1 << 20)
@@ -6681,6 +7217,7 @@ def main() -> int:
         traceback.print_exc()
 
 
+    phase_done("the CPU oracle: every window function at 2^20 rows")
     # ---- the expression catalogue: the card against the CPU ----------
     try:
         ct = _catalogue_table(CATALOGUE_ROWS)
@@ -6713,6 +7250,8 @@ def main() -> int:
         if edge.num_rows == 0 or set(edge["idiv"].to_pylist()) != \
                 {-2**63} or set(edge["mod"].to_pylist()) != {0}:
             raise AssertionError("INT64_MIN div and % -1 on the card")
+        n128 = _decimal128_on_card(torch, dev, ct, batch_to_device,
+                                   EvalContext, ar_mod, t)
         print(f"expression catalogue: {len(cols)} columns over "
               f"{ct.num_rows} rows (INT64_MIN and INT32_MIN operands, "
               f"{edge.num_rows} rows of INT64_MIN over -1, zero divisors, "
@@ -6721,12 +7260,16 @@ def main() -> int:
               f"placement (spark.rapids.sql.enabled=false, no kernel "
               f"launched): integers and booleans exactly, doubles by bits "
               f"or within 1e-12 (largest relative difference {worst:.3g}); "
-              f"1e19 and 9.3e18 cast to LONG give INT64_MAX on the card")
+              f"1e19 and 9.3e18 cast to LONG give INT64_MAX on the card; "
+              f"{n128} DECIMAL(30,2) expressions that the plan keeps on "
+              f"the CPU engine (%, pmod, greatest, least) evaluated on "
+              f"the card equal the CPU engine's words")
         del ct, oracle, on_card
     except Exception:
         failures.append("expression catalogue")
         traceback.print_exc()
 
+    phase_done("the expression catalogue: the card against the CPU")
     # ---- join types not run on the card before, against pyarrow ------
     try:
         jf, jd = _join_table_pairs(table, dim)
@@ -6764,6 +7307,7 @@ def main() -> int:
         failures.append("join types")
         traceback.print_exc()
 
+    phase_done("join types not run on the card before, against pyarrow")
     # ---- strings: K14-K17, qs1-qs4 at 2^25 rows, checks at 2^20 ------
     st_fact = st_dim = None
     try:
@@ -7045,8 +7589,13 @@ def main() -> int:
         try:
             t1 = time.perf_counter()
             sub4 = st_fact.select(["s", "v", "c"])
-            want4 = sub4.sort_by([("s", "ascending"), ("v", "ascending")])
-            print(f"pyarrow qs4 oracle: {want4.num_rows} rows sorted, "
+            # s is "Customer#%09d" of k (k < 10^9), so (s, v) sorts as
+            # (k, v): numpy's stable lexsort of the integers gives the
+            # order pyarrow's stable sort of the strings gives, in a tenth
+            # of its time (67 s over 2^25 rows on the H100's host)
+            want4 = sub4.take(pa.array(np.lexsort(
+                (st_fact["v"].to_numpy(), st_fact["k"].to_numpy()))))
+            print(f"numpy qs4 oracle: {want4.num_rows} rows sorted, "
                   f"{time.perf_counter() - t1:.1f} s")
 
             def check4(got, what):
@@ -7095,6 +7644,7 @@ def main() -> int:
             traceback.print_exc()
     string_caps.clear()
 
+    phase_done("strings: K14-K17, qs1-qs4 at 2^25 rows, checks at 2^20")
     # ---- strings at 2^20 rows against the CPU engine and pyarrow ----
     if st_fact is not None:
         try:
@@ -7210,6 +7760,7 @@ def main() -> int:
         except Exception:
             failures.append("strings at 2^20 rows")
             traceback.print_exc()
+    phase_done("strings at 2^20 rows against the CPU engine and pyarrow")
     # ---- the DataFrame surface: range, union, distinct, sample,
     # repartition, cache and the actions, at 2^25 rows -------------------
     def surface_run(run, fn, check, what, session):
@@ -7596,6 +8147,7 @@ def main() -> int:
 
     del st_fact, st_dim
 
+    phase_done("the DataFrame surface: range, union, distinct, sample")
     # ---- the flat types: K3's 128-bit folds, 2-byte lanes, q1d, q1, qn --
     t_types = time.perf_counter()
     k3_synth = None
@@ -7792,17 +8344,19 @@ def main() -> int:
     except Exception:
         failures.append("q1 (the TPC-H Q1 text)")
         traceback.print_exc()
+    _date_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
+                 bound, path_run, li_table, li_raw)
     del li_table, li_raw
 
     try:
         t1 = time.perf_counter()
-        qn_table, qn_vals, qn_masks = _narrow_table(ROWS)
+        qn_table, qn_vals, qn_masks = _narrow_table(QN_ROWS)
         keep = qn_masks["s"] & qn_masks["f"] & (qn_vals["s"] > 0) & \
             (qn_vals["f"] < 0.5)
         qn_filtered = qn_table.filter(pa.array(keep))
         qn_groups = _qn_group_oracle(qn_table)
         qn_order = _qn_sort_oracle(qn_vals, qn_masks)
-        print(f"qn table of {ROWS} rows and its oracles: "
+        print(f"qn table of {QN_ROWS} rows and its oracles: "
               f"{time.perf_counter() - t1:.1f} s")
         sn = GpuSession()
         dfn = sn.create_dataframe(qn_table)
@@ -7867,10 +8421,17 @@ def main() -> int:
         traceback.print_exc()
     print(f"types phases: {time.perf_counter() - t_types:.1f} s")
 
+    phase_done("the flat types: K3's 128-bit folds, 2-byte lanes, q1d, q1, qn")
     _nested_phases(torch, dev, card, launches, kernel_rows, failures,
                    cuda_ms, bound, path_run)
+    phase_done("the nested types")
+    torch.cuda.empty_cache()
     _text_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
                  bound, path_run)
+    phase_done("the string functions")
+    print("phase seconds: " + ", ".join(f"{n} {s:.1f}" for n, s in
+                                         phase_secs)
+          + f"; total {time.perf_counter() - t_start:.1f} s")
 
     path_kernels = {
         "dataframe": ("compact_rows", "sort_order", "segment_reduce_sorted"),
@@ -7974,7 +8535,14 @@ def main() -> int:
         "qt2": ("string_find", "compact_rows", "segment_reduce_sorted"),
         "qt3": ("utf8_cut", "gather_strings", "compact_rows", "sort_order",
                 "segment_reduce_sorted"),
-        "qt4": ("string_find", "utf8_cut", "string_map", "gather_strings")}
+        "qt4": ("string_find", "utf8_cut", "string_map", "gather_strings"),
+        # dates, bitwise and the small leaves
+        "qd1": ("date_fields", "sort_order", "segment_reduce_sorted"),
+        "qd1_4": ("date_fields", "sort_order", "segment_reduce_sorted"),
+        "qd2": ("date_fields",),
+        "qd2_window": ("sort_order", "segment_reduce_sorted"),
+        "qd2_subquery": ("date_fields", "compact_rows", "sort_order",
+                         "segment_reduce_sorted")}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
                 "q5_4", "qs1", "qs1_4", "qs2", "qs3", "qs4", "qs4_topn",
@@ -7987,7 +8555,8 @@ def main() -> int:
                 "act_gavg", "q1d", "q1d_4", "q1", "qn_filter", "qn_group",
                 "qn_sort", "qn_topn", "qn_write", "qa1", "qa1_4", "qa2",
                 "qa3", "qa3_4", "qa4", "qa5_union", "qa5_parquet",
-                "qa5_cache", "qt1", "qt2", "qt3", "qt4"):
+                "qa5_cache", "qt1", "qt2", "qt3", "qt4", "qd1", "qd1_4",
+                "qd2", "qd2_window", "qd2_subquery"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -8008,7 +8577,7 @@ def main() -> int:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
         # q2 for K4-K7, q3 for K8-K10, q4 for K11-K13, qs2 for K14, the
         # 2^20-row F.hash for K15, qs4 for K16 and K17, qa1 for K18, qt1
-        # for K19, qt3 for K20, qt4 for K21
+        # for K19, qt3 for K20, qt4 for K21, qd1 for K22
         run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
                   "expand_pairs": "q2", "gather_rows": "q3",
                   "segment_reduce_sorted_minmax": "q1x",
@@ -8025,7 +8594,8 @@ def main() -> int:
                   "pack_lanes_int16": "qn_filter",
                   "expand_pairs_int16": "q2",
                   "span_rows": "qa1", "string_find": "qt1",
-                  "utf8_cut": "qt3", "string_map": "qt4"}
+                  "utf8_cut": "qt3", "string_map": "qt4",
+                  "date_fields": "qd1"}
         counted_as = {"segment_reduce_sorted_minmax": "segment_reduce_sorted",
                       "gather_strings_flags": "gather_strings",
                       "segment_reduce_sorted_distinct":

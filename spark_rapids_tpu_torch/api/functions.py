@@ -6,22 +6,28 @@ scalar functions abs, sqrt, exp, expm1, log (ln, or log(base, x)),
 log2, log10, log1p, pow, atan2, the trigonometric and hyperbolic
 functions, cbrt, rint, degrees, radians, floor, ceil, round, bround,
 signum, greatest, least, when(...).when(...).otherwise(...), coalesce,
-isnull, isnan, expr_if and monotonically_increasing_id; and the window
-functions row_number, rank, dense_rank, lead, lag, ntile, percent_rank
-and cume_dist.  As in pyspark, a string argument names a column (the
-reference reads it as a string literal, which no flat function takes).
+isnull, isnan, expr_if, monotonically_increasing_id, spark_partition_id,
+input_file_name, rand and scalar_subquery; year, month, dayofmonth and
+window (a tumbling time window); bitwise_and, bitwise_or, bitwise_xor,
+bitwise_not, shiftleft, shiftright and shiftrightunsigned; and the
+window functions row_number, rank, dense_rank, lead, lag, ntile,
+percent_rank and cume_dist.  As in pyspark, a string argument names a
+column (the reference reads it as a string literal, which no flat
+function takes).
 """
 
 from __future__ import annotations
 
 from ..expr import aggregates as agg
 from ..expr import arithmetic as ar
+from ..expr import bitwise as bw
 from ..expr import conditional as cond
+from ..expr import datetime_expr as dte
+from ..expr import hashfns as hf
 from ..expr import mathexpr as mx
 from ..expr import predicates as pred
 from ..expr import window as win
 from ..expr.core import AttributeReference, Expression
-from ..expr.hashfns import MonotonicallyIncreasingID
 from .column import Column, _expr, col, lit  # noqa: F401  (re-export)
 
 
@@ -193,7 +199,86 @@ def struct(*cols) -> Column:
 
 
 def monotonically_increasing_id() -> Column:
-    return _c(MonotonicallyIncreasingID())
+    return _c(hf.MonotonicallyIncreasingID())
+
+
+def spark_partition_id() -> Column:
+    return _c(hf.SparkPartitionID())
+
+
+def input_file_name() -> Column:
+    return _c(hf.InputFileName())
+
+
+def rand(seed: int = 0) -> Column:
+    """Uniform in [0, 1), determined by (seed, partition, row position):
+    the reference's values, not Spark's XORShift stream."""
+    return _c(hf.Rand(seed))
+
+
+def scalar_subquery(df) -> Column:
+    """A one-row, one-column DataFrame as a value: it runs first and its
+    value enters the query as a literal."""
+    from ..expr.subquery import ScalarSubquery
+    return _c(ScalarSubquery(df._lp))
+
+
+# -- dates and times ---------------------------------------------------------
+
+def year(c) -> Column:
+    return _c(dte.Year(_arg(c)))
+
+
+def month(c) -> Column:
+    return _c(dte.Month(_arg(c)))
+
+
+def dayofmonth(c) -> Column:
+    return _c(dte.DayOfMonth(_arg(c)))
+
+
+def window(time_col, window_duration: str, slide_duration: str = None,
+           start_time: str = "0 seconds") -> Column:
+    """window(ts, '10 minutes'): the struct<start, end> of the row's
+    tumbling window, a grouping key.  A slide other than the window
+    duration (a sliding window) is not ported (ROADMAP Queue 1 item
+    4d)."""
+    w = dte.parse_duration_micros(window_duration)
+    s = dte.parse_duration_micros(slide_duration) if slide_duration \
+        else None
+    st = dte.parse_duration_micros(start_time, allow_nonpositive=True) \
+        if start_time else 0
+    return _c(dte.TimeWindow(_arg(time_col), w, s, st))
+
+
+# -- bitwise -----------------------------------------------------------------
+
+def bitwise_and(a, b) -> Column:
+    return _c(bw.BitwiseAnd(_arg(a), _arg(b)))
+
+
+def bitwise_or(a, b) -> Column:
+    return _c(bw.BitwiseOr(_arg(a), _arg(b)))
+
+
+def bitwise_xor(a, b) -> Column:
+    return _c(bw.BitwiseXor(_arg(a), _arg(b)))
+
+
+def bitwise_not(c) -> Column:
+    return _c(bw.BitwiseNot(_arg(c)))
+
+
+def shiftleft(c, n) -> Column:
+    return _c(bw.ShiftLeft(_arg(c), _expr(n)))
+
+
+def shiftright(c, n) -> Column:
+    return _c(bw.ShiftRight(_arg(c), _expr(n)))
+
+
+def shiftrightunsigned(c, n) -> Column:
+    return _c(bw.ShiftRightUnsigned(_arg(c), _expr(n)))
 
 
 # -- window ------------------------------------------------------------------

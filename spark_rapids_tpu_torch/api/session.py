@@ -3,8 +3,9 @@
 Counterpart of spark_rapids_tpu/api/session.py (TpuSession).  A session
 holds its configuration and runs its queries on one device, ``cuda``
 unless the caller passes another; asking for CUDA where there is none
-raises.  A query is planned to a CPU-placed physical plan, rewritten
-onto the GPU by plan/overrides.py, and executed; ``last_plan`` and
+raises.  A query's scalar subqueries run first and become literals
+(expr/subquery.py); it is then planned to a CPU-placed physical plan,
+rewritten onto the GPU by plan/overrides.py, and executed; ``last_plan`` and
 ``last_explain`` keep the final plan and the rewrite's explain lines.
 A global sort of an in-memory table is first offered to the
 host-assisted collect (plan/host_assist.py), which runs its own row-id
@@ -24,6 +25,7 @@ import pyarrow as pa
 from ..columnar.device import resolve_device
 from ..config import RapidsConf
 from ..exec.base import Exec, ExecContext
+from ..expr.subquery import resolve_scalar_subqueries
 from ..io.reader import DataFrameReader
 from ..plan import logical as L
 from ..plan.host_assist import try_host_assisted_collect
@@ -70,9 +72,12 @@ class GpuSession:
             start, end = 0, start
         return DataFrame(L.Range(start, end, step, num_partitions), self)
 
-    def prepare_plan(self, lp: L.LogicalPlan) -> Exec:
-        """Logical plan -> final physical plan: planning, then the
-        rewrite onto the GPU."""
+    def prepare_plan(self, lp: L.LogicalPlan,
+                     run_subqueries: bool = True) -> Exec:
+        """Logical plan -> final physical plan: the scalar subqueries (run
+        first, or with ``run_subqueries=False`` replaced by typed nulls so
+        that nothing runs), planning, then the rewrite onto the GPU."""
+        lp = resolve_scalar_subqueries(lp, self, run_subqueries)
         conf = self.conf
         overrides = GpuOverrides(conf)
         final_plan = overrides.apply(plan_physical(lp, conf))
@@ -90,7 +95,7 @@ class GpuSession:
     def explain(self, lp: L.LogicalPlan) -> str:
         """The final plan (``*`` marks a GPU-placed operator) and the
         rewrite's explain lines, without running the query."""
-        final_plan = self.prepare_plan(lp)
+        final_plan = self.prepare_plan(lp, run_subqueries=False)
         return final_plan.tree_string() + "\n--\n" + self.last_explain
 
 

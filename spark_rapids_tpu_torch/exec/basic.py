@@ -22,7 +22,7 @@ from ..columnar.device import (DeviceBatch, DeviceColumn, batch_to_device,
 from ..columnar.interop import from_arrow_type
 from ..expr.core import (EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
-from ..expr.hashfns import MonotonicallyIncreasingID
+from ..expr.hashfns import POSITIONAL
 from ..ops.carry import mask_validity
 from .base import PASSES, READS, Exec, ExecContext
 from .concat import concat_batches
@@ -147,7 +147,7 @@ class RangeExec(Exec):
 
 class ProjectExec(Exec):
     """Evaluate the expressions over each batch.  When one reads the row
-    position (monotonically_increasing_id), each batch gets the base
+    position (``hashfns.POSITIONAL``), each batch gets the base
     (partition id << 33) + the partition's running row offset, counted
     from the batches' host row counts."""
 
@@ -195,8 +195,8 @@ class ProjectExec(Exec):
 
 def _exprs_need_rowpos(bound_exprs) -> bool:
     """True when an expression reads the (partition, row position)
-    context: monotonically_increasing_id."""
-    return any(b.collect(lambda e: isinstance(e, MonotonicallyIncreasingID))
+    context: monotonically_increasing_id, spark_partition_id, rand."""
+    return any(b.collect(lambda e: isinstance(e, POSITIONAL))
                for b in bound_exprs)
 
 

@@ -6,7 +6,9 @@ Counterpart of spark_rapids_tpu/expr/arithmetic.py: ``promote``,
 Remainder, Pmod, UnaryMinus, UnaryPositive, Abs, Greatest and Least.
 Decimals follow the reference's ``DecimalPrecision`` result types
 (``_decimal_binary_type``): ``+``/``-`` rescale both sides to the larger
-scale, ``*`` adds the scales, ``/`` rounds HALF_UP to its scale, and a
+scale, ``*`` adds the scales, ``/`` rounds HALF_UP to its scale, ``div``,
+``%`` and ``pmod`` divide both sides' words at the common scale with
+truncation (``div`` a LONG, the others the common decimal type), and a
 zero divisor gives null.  Every decimal result is computed exactly over
 int128 (lo, hi) pairs (``ops/int128.py``; the reference's CPU engine uses
 Python-int object arrays for the same integers), so a DECIMAL(26..38)
@@ -27,7 +29,8 @@ non-ANSI mode):
     total order (NaN is the greatest value).
 Where the reference's numpy/jnp arithmetic departs from Spark (INT64_MIN
 over a divisor other than +-1, pmod with a negative divisor, NaN in
-greatest/least), the port follows Spark (ROADMAP.md Queue 3).
+greatest/least, a decimal ``div`` through doubles), the port follows
+Spark (ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -352,13 +355,6 @@ def _eval_div(e: Divide, ctx: EvalContext):
     return make_column(ctx, t.DOUBLE, ld / rd, v)
 
 
-def _no_decimal(e: BinaryArithmetic):
-    if any(isinstance(c.data_type(), t.DecimalType) for c in e.children):
-        raise NotImplementedError(
-            f"decimal {e.symbol} is not ported yet (ROADMAP Queue 1 "
-            f"item 3)")
-
-
 def _truncated(ld, rd):
     """(quotient truncated toward zero, remainder with the dividend's
     sign) of integer ``ld`` by a nonzero ``rd``.  A divisor of -1 never
@@ -386,9 +382,37 @@ def _remainder(ld, rd, out: t.DataType):
     return _truncated(ld, rd)[1]
 
 
+def _decimal_division(e: BinaryArithmetic, ctx: EvalContext):
+    """A decimal div, % or pmod: both operands' unscaled words at their
+    common scale, divided with truncation (one int64 divide where both
+    fit 18 digits, else int128, ``i128.divmod_trunc``); a zero divisor
+    gives null.  div keeps the quotient's low 64 bits (Spark's toLong);
+    % and pmod are decimals at the common type."""
+    lt, rt = _as_decimal(e.left.data_type()), _as_decimal(e.right.data_type())
+    scale = max(lt.scale, rt.scale)
+    a, b, v = _decimal_sides(e, ctx, scale)
+    zero = i128.eq(b, 0)
+    v = and_validity(ctx, v, ~zero)
+    b = i128.where(zero, i128.full(1, b[0]), b)
+    q, r = i128.divmod_trunc(a, b, 10 ** (lt.precision - lt.scale + scale),
+                             10 ** (rt.precision - rt.scale + scale))
+    if isinstance(e, IntegralDivide):
+        return make_column(ctx, t.LONG, q[0], v)
+    if isinstance(e, Pmod):
+        # Spark's (r + n) % n for r < 0: r + n where n > 0, r where n < 0
+        r = i128.where(i128.is_neg(r) & ~i128.is_neg(b), i128.add(r, b), r)
+    return make_decimal_column(ctx, e.data_type(), r, v)
+
+
+def _decimal_operands(e: BinaryArithmetic) -> bool:
+    return isinstance(promote(e.left.data_type(), e.right.data_type()),
+                      t.DecimalType)
+
+
 @evaluator(IntegralDivide)
 def _eval_idiv(e: IntegralDivide, ctx: EvalContext):
-    _no_decimal(e)
+    if _decimal_operands(e):
+        return _decimal_division(e, ctx)
     ld, rd, v = operands(ctx, e.left, e.right, t.LONG)
     rd, v = _nonzero_divisor(ctx, rd, v)
     return make_column(ctx, t.LONG, _truncated(ld, rd)[0], v)
@@ -396,7 +420,8 @@ def _eval_idiv(e: IntegralDivide, ctx: EvalContext):
 
 @evaluator(Remainder)
 def _eval_rem(e: Remainder, ctx: EvalContext):
-    _no_decimal(e)
+    if _decimal_operands(e):
+        return _decimal_division(e, ctx)
     out = e.data_type()
     ld, rd, v = operands(ctx, e.left, e.right, out)
     rd, v = _nonzero_divisor(ctx, rd, v)
@@ -405,7 +430,8 @@ def _eval_rem(e: Remainder, ctx: EvalContext):
 
 @evaluator(Pmod)
 def _eval_pmod(e: Pmod, ctx: EvalContext):
-    _no_decimal(e)
+    if _decimal_operands(e):
+        return _decimal_division(e, ctx)
     out = e.data_type()
     ld, rd, v = operands(ctx, e.left, e.right, out)
     rd, v = _nonzero_divisor(ctx, rd, v)
@@ -500,9 +526,7 @@ def _eval_extreme(e, ctx: EvalContext, is_max: bool):
     from ..ops.segmented import ordered_word
     out = e.data_type()
     if t.is_dec128(out):
-        raise NotImplementedError(
-            "greatest/least over decimals of more than 18 digits are not "
-            "ported yet (ROADMAP Queue 1 item 3)")
+        return _extreme128(e, ctx, is_max)
     best = best_word = best_valid = None
     for c in e.children:
         v = c.eval(ctx)
@@ -510,10 +534,7 @@ def _eval_extreme(e, ctx: EvalContext, is_max: bool):
         if not isinstance(d, torch.Tensor):
             d = torch.full((ctx.capacity,), d, dtype=out.torch_dtype,
                            device=ctx.device)
-        val = and_validity(ctx, validity_of(v))
-        if val is None:
-            val = torch.ones(ctx.capacity, dtype=torch.bool,
-                             device=ctx.device)
+        val = _full_validity(ctx, v)
         word = ordered_word(d.to(torch.float64) if d.dtype == torch.float32
                             else d)
         if best is None:
@@ -525,6 +546,31 @@ def _eval_extreme(e, ctx: EvalContext, is_max: bool):
         best_word = torch.where(take, word, best_word)
         best_valid = best_valid | val
     return make_column(ctx, out, best, best_valid)
+
+
+def _extreme128(e, ctx: EvalContext, is_max: bool):
+    """greatest/least over DECIMAL128: each child's words at the result's
+    scale, ordered by (high word signed, low word unsigned), the order of
+    K3's min and max."""
+    out = e.data_type()
+    best = best_valid = None
+    for c in e.children:
+        v = c.eval(ctx)
+        d = decimal_operand(ctx, v, c.data_type(), out.scale)
+        val = _full_validity(ctx, v)
+        if best is None:
+            best, best_valid = d, val
+            continue
+        better = i128.lt(best, d) if is_max else i128.lt(d, best)
+        best = i128.where(val & (~best_valid | better), d, best)
+        best_valid = best_valid | val
+    return make_decimal_column(ctx, out, best, best_valid)
+
+
+def _full_validity(ctx: EvalContext, v) -> torch.Tensor:
+    val = and_validity(ctx, validity_of(v))
+    return torch.ones(ctx.capacity, dtype=torch.bool, device=ctx.device) \
+        if val is None else val
 
 
 @evaluator(Greatest)

@@ -44,6 +44,7 @@ import torch
 from .. import types as t
 from ..columnar.device import DEFAULT_CHAR_BUCKETS, DeviceColumn, bucket_for
 from ..ops import int128 as i128
+from ..ops.dates import _civil_from_days, _days_from_civil
 from ..ops.strings import pack_rows, window_bytes
 from .core import (ColumnValue, EvalContext, Expression, ScalarValue,
                    all_null_column,
@@ -278,36 +279,6 @@ def _int_digits(d: torch.Tensor):
     out = torch.gather(ms, 1, src) + _ZERO
     out = torch.where((j == 0) & neg[:, None], torch.full_like(out, 45), out)
     return out.to(torch.uint8), lens
-
-
-def _civil_from_days(z: torch.Tensor):
-    """(year, month, day) of days since 1970-01-01 (Hinnant's algorithm,
-    floor divisions)."""
-    def fdiv(a, b):
-        return torch.div(a, b, rounding_mode="floor")
-    z = z.to(torch.int64) + 719468
-    era = fdiv(torch.where(z >= 0, z, z - 146096), 146097)
-    doe = z - era * 146097
-    yoe = fdiv(doe - fdiv(doe, 1460) + fdiv(doe, 36524) - fdiv(doe, 146096),
-               365)
-    y = yoe + era * 400
-    doy = doe - (365 * yoe + fdiv(yoe, 4) - fdiv(yoe, 100))
-    mp = fdiv(5 * doy + 2, 153)
-    d = doy - fdiv(153 * mp + 2, 5) + 1
-    m = mp + torch.where(mp < 10, 3, -9)
-    return y + (m <= 2).to(torch.int64), m, d
-
-
-def _days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor):
-    def fdiv(a, b):
-        return torch.div(a, b, rounding_mode="floor")
-    y = y - (m <= 2).to(torch.int64)
-    era = fdiv(torch.where(y >= 0, y, y - 399), 400)
-    yoe = y - era * 400
-    mp = torch.remainder(m + 9, 12)
-    doy = fdiv(153 * mp + 2, 5) + d - 1
-    doe = yoe * 365 + fdiv(yoe, 4) - fdiv(yoe, 100) + doy
-    return era * 146097 + doe - 719468
 
 
 def _decimal_text(ctx: EvalContext, col: DeviceColumn, src: t.DecimalType,

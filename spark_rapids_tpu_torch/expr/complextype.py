@@ -19,15 +19,8 @@ import torch
 
 from .. import types as t
 from ..columnar.device import DeviceColumn, bucket_for
-from .core import (ColumnValue, EvalContext, Expression, ScalarValue,
-                   data_of, evaluator, make_column, validity_of)
-
-
-def _as_column(ctx: EvalContext, e: Expression) -> DeviceColumn:
-    v = e.eval(ctx)
-    if isinstance(v, ScalarValue):
-        v = make_column(ctx, e.data_type(), data_of(v), validity_of(v))
-    return v.col
+from .core import (ColumnValue, EvalContext, Expression, column_of,
+                   evaluator)
 
 
 class GetStructField(Expression):
@@ -60,7 +53,7 @@ class GetStructField(Expression):
 @evaluator(GetStructField)
 def _eval_get_struct_field(e: GetStructField, ctx: EvalContext):
     from ..ops.carry import mask_validity
-    parent = _as_column(ctx, e.children[0])
+    parent = column_of(ctx, e.children[0])
     i, _ = e._resolve()
     # struct-level nulls mask the extracted child
     return ColumnValue(mask_validity(parent.children[i], parent.validity))
@@ -112,8 +105,8 @@ def _gather_element(arr: DeviceColumn, pos: torch.Tensor,
 
 
 def _array_and_index(e, ctx):
-    arr = _as_column(ctx, e.children[0])
-    ic = _as_column(ctx, e.children[1])
+    arr = column_of(ctx, e.children[0])
+    ic = column_of(ctx, e.children[1])
     i = ic.data.to(torch.int64)
     starts = arr.offsets[:-1].to(torch.int64)
     lens = arr.offsets[1:].to(torch.int64) - starts
@@ -170,7 +163,7 @@ def _eval_create_array(e: CreateArray, ctx: EvalContext):
                              torch.zeros(child_cap, dtype=torch.bool,
                                          device=dev))
     else:
-        cols = [_as_column(ctx, c) for c in e.children]
+        cols = [column_of(ctx, c) for c in e.children]
         if all(c.is_flat for c in cols):
             def lane(xs):
                 out = torch.zeros(child_cap, dtype=xs[0].dtype, device=dev)
@@ -221,4 +214,4 @@ def _eval_create_named_struct(e: CreateNamedStruct, ctx: EvalContext):
         ctx.batch.num_rows
     return ColumnValue(DeviceColumn(
         e.data_type(), None, live, None, None,
-        [_as_column(ctx, c) for c in e.children]))
+        [column_of(ctx, c) for c in e.children]))

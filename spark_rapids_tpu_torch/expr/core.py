@@ -6,7 +6,8 @@ is a ``ColumnValue`` over torch tensors on the batch's device, a
 literal a ``ScalarValue``.  Null semantics follow Spark: each op
 combines its children's validity, and the data under a null is zero.
 The reference's literal parameterisation (expr/params.py) exists to
-share compiled programs and has no counterpart here.
+share compiled programs; the port does not hoist literals, and its
+ParamLiteral evaluates as its value.
 """
 
 from __future__ import annotations
@@ -358,6 +359,14 @@ def string_literal_column(ctx: EvalContext, value: bytes,
         torch.tensor([0, len(value)], dtype=torch.int32, device=ctx.device))
     return gather_column(one, torch.zeros(ctx.capacity, dtype=torch.int32,
                                           device=ctx.device), validity)
+
+
+def column_of(ctx: EvalContext, e: Expression) -> DeviceColumn:
+    """An expression's value as a column (a literal broadcast)."""
+    v = e.eval(ctx)
+    if isinstance(v, ScalarValue):
+        v = make_column(ctx, e.data_type(), data_of(v), validity_of(v))
+    return v.col
 
 
 def all_null_column(ctx: EvalContext, dtype: t.DataType) -> ColumnValue:

@@ -1,6 +1,7 @@
 """Spark's hash(): Murmur3_x86_32 with seed 42, for hash partitioning;
-monotonically_increasing_id(); and md5(), a hex digest a row on the host
-engine only (``hashlib``), as in the reference.
+monotonically_increasing_id(), spark_partition_id() and rand(seed); and
+md5() and input_file_name(), on the host engine only (``hashlib``; the
+scan's current file), as in the reference.
 
 Counterpart of spark_rapids_tpu/expr/hashfns.py (hash_int32, hash_int64,
 hash_bytes, hash_column, Murmur3Hash), bit for bit with the reference's
@@ -13,6 +14,11 @@ folding its children in turn; a null leaves the running seed as it
 was.  torch has no uint32 arithmetic, so every 32-bit word is carried in
 an int64 lane in [0, 2^32) (the port's rule for unsigned words), and
 products are formed from 16-bit halves so no int64 product overflows.
+rand(seed) is the reference's: SplitMix64 of (row position XOR seed),
+its top 53 bits times 2^-53, carried in int64 (the add and the
+multiplies wrap, the right shifts are masked to be logical), so its
+bits equal the reference's for every seed, partition and row position
+(not Spark's XORShift stream, as in the reference).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch
 
 from .. import kernels
 from .. import types as t
+from ..ops.join_kernels import _GOLDEN, _mix64, _shr
+from .arithmetic import wrap_int
 from .core import (ColumnValue, EvalContext, Expression, evaluator,
                    make_column)
 
@@ -259,6 +267,80 @@ def _eval_monotonic_id(e: MonotonicallyIncreasingID, ctx: EvalContext):
     pos = torch.arange(ctx.capacity, dtype=torch.int64, device=ctx.device)
     return make_column(ctx, t.LONG, pos + ctx.row_base,
                        pos < ctx.batch.num_rows)
+
+
+class SparkPartitionID(Expression):
+    """The partition's id, never null: the high bits of the row base."""
+
+    children = ()
+
+    def data_type(self):
+        return t.INT
+
+    def sql(self):
+        return "spark_partition_id()"
+
+
+@evaluator(SparkPartitionID)
+def _eval_spark_partition_id(e: SparkPartitionID, ctx: EvalContext):
+    return make_column(ctx, t.INT, ctx.row_base >> 33, None)
+
+
+class Rand(Expression):
+    """rand([seed]): uniform in [0, 1) a row, determined by (seed,
+    partition, row position), never null."""
+
+    children = ()
+
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+
+    def data_type(self):
+        return t.DOUBLE
+
+    def sql(self):
+        return f"rand({self.seed})"
+
+
+def _splitmix64(z: torch.Tensor) -> torch.Tensor:
+    """SplitMix64 over uint64 bits carried in int64 (its finalizer is the
+    join's ``_mix64``)."""
+    return _mix64(z + _GOLDEN)
+
+
+@evaluator(Rand)
+def _eval_rand(e: Rand, ctx: EvalContext):
+    pos = torch.arange(ctx.capacity, dtype=torch.int64, device=ctx.device) \
+        + ctx.row_base
+    mixed = _splitmix64(pos ^ wrap_int(e.seed & (2**64 - 1), t.LONG))
+    return make_column(ctx, t.DOUBLE,
+                       _shr(mixed, 11).to(torch.float64) * 2.0 ** -53, None)
+
+
+class InputFileName(Expression):
+    """input_file_name(): the path of the file the batch came from, "" past
+    an exchange or over data not read from a file; host engine only (the
+    scan's per-file metadata, not device data)."""
+
+    children = ()
+
+    def data_type(self):
+        return t.STRING
+
+    def sql(self):
+        return "input_file_name()"
+
+
+@evaluator(InputFileName)
+def _eval_input_file_name(e: InputFileName, ctx: EvalContext):
+    from ..io.scan import current_input_file
+    from .host_strings import build_string_column, host_only
+    host_only(ctx, "input_file_name")
+    return build_string_column(ctx, [current_input_file()] * ctx.capacity)
+
+
+# expressions that read the row base (partition id << 33 + row offset)
+POSITIONAL = (MonotonicallyIncreasingID, SparkPartitionID, Rand)
 
 
 class Md5(Expression):

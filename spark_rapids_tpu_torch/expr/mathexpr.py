@@ -12,7 +12,8 @@ exact for an integral), bround HALF_EVEN (``torch.round``).  Over a
 decimal, floor and ceil give DECIMAL(p - s + 1, 0) and round and bround
 DECIMAL at the target scale (the reference's types: a negative scale
 rounds at 0), computed on the unscaled int128 pair (``ops/int128.py``),
-never through a double.
+never through a double.  NormalizeNaNAndZero gives -0.0 as 0.0 and every
+NaN as the canonical NaN, as the reference's does.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from .. import types as t
 from ..ops import int128 as i128
 from .arithmetic import cast_data
 from .core import (EvalContext, Expression, ScalarValue, and_validity,
-                   data_of, decimal_pair, evaluator, make_column,
+                   column_of, data_of, decimal_pair, evaluator, make_column,
                    make_decimal_column, validity_of)
 
 _INT64_EDGE = 9.223372036854776e18          # 2^63 as a double
@@ -321,3 +322,28 @@ def _eval_round(e: Round, ctx: EvalContext):
 
 evaluator(Round)(_eval_round)
 evaluator(BRound)(_eval_round)
+
+
+class NormalizeNaNAndZero(Expression):
+    """Canonical floats for grouping and join keys: every NaN becomes the
+    one NaN and -0.0 becomes 0.0 (Spark's NormalizeFloatingNumbers).  The
+    key words of grouping and sorting already normalise; this is the form
+    a plan carries."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def data_type(self):
+        return self.children[0].data_type()
+
+    def sql(self):
+        return f"normalize_nan_and_zero({self.children[0].sql()})"
+
+
+@evaluator(NormalizeNaNAndZero)
+def _eval_normalize_nan_zero(e: NormalizeNaNAndZero, ctx: EvalContext):
+    c = column_of(ctx, e.children[0])
+    d = torch.where(torch.isnan(c.data), torch.full_like(c.data,
+                                                         float("nan")), c.data)
+    d = torch.where(d == 0, torch.zeros_like(d), d)
+    return make_column(ctx, e.data_type(), d, c.validity)

@@ -32,7 +32,7 @@ SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "expand_ends", "join_expand", "gather_rows", "fetch_pack",
            "window_scan", "scatter_rows", "string_hashes", "hash_bytes",
            "gather_strings", "prefix_words", "span_rows", "string_find",
-           "utf8_cut", "string_map")
+           "utf8_cut", "string_map", "date_fields")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,6 +118,9 @@ _SIGNATURES = {
         "srt_string_map": [_P, _P, _I, _L, _I, _P, _P, _P],
         "srt_tile_count": [_I, _L],
         "srt_tile_bytes": [],
+    },
+    "date_fields": {
+        "srt_date_fields": [_P, _I, _L, _I, _P, _I, _P, _P],
     },
 }
 

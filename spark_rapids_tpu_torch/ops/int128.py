@@ -7,11 +7,11 @@ arithmetic, so these helpers build it from int64 ops: an unsigned
 compare is a signed compare of both words XOR 2^63, a product goes
 through 32-bit limbs (each partial product's bits are its unsigned value
 however int64 wraps), a division by a power of ten through 16-bit limbs,
-and any other division bit by bit (``div_half_up``).  Every op is exact
-modulo 2^128 and vectorised over rows; a Python int stands for a
-constant.  The reference computes these on its CPU engine as Python-int
-object arrays (``expr/arithmetic.py`` ``_widen_for``); the results are
-the same integers.
+and any other division bit by bit (``div_half_up``, ``divmod_trunc``).
+Every op is exact modulo 2^128 and vectorised over rows; a Python int
+stands for a constant.  The reference computes these on its CPU engine
+as Python-int object arrays (``expr/arithmetic.py`` ``_widen_for``); the
+results are the same integers.
 """
 
 from __future__ import annotations
@@ -216,16 +216,38 @@ def div_half_up(a: Pair, mult: int, d: Pair, a_bound: int,
         c = c + carry
         limbs.append(c & _M32)
         carry = c >> 32
-    zero = torch.zeros_like(m[0])
+    q, r = _long_divide(limbs, (a_bound * mult).bit_length(), dm)
+    up = ~_ult128(r, sub(dm, r))                    # 2r >= |d|
+    q = add(q, (up.to(torch.int64), torch.zeros_like(m[0])))
+    return where(s, neg(q), q)
+
+
+def _long_divide(limbs, nbits: int, dm: Pair) -> Tuple[Pair, Pair]:
+    """(quotient, remainder) of the unsigned number in 32-bit ``limbs``
+    (its low ``nbits`` bits) by an unsigned 128-bit ``dm > 0``: binary
+    long division, one quotient bit a step."""
+    zero = torch.zeros_like(dm[0])
     r, q = (zero, zero), (zero, zero)
-    for b in range((a_bound * mult).bit_length() - 1, -1, -1):
+    for b in range(nbits - 1, -1, -1):
         r = _shl1(r, (limbs[b // 32] >> (b % 32)) & 1)
         ge = ~_ult128(r, dm)
         r = where(ge, sub(r, dm), r)
         q = _shl1(q, ge.to(torch.int64))
-    up = ~_ult128(r, sub(dm, r))                    # 2r >= |d|
-    q = add(q, (up.to(torch.int64), zero))
-    return where(s, neg(q), q)
+    return q, r
+
+
+def divmod_trunc(a: Pair, d: Pair, a_bound: int,
+                 d_bound: int) -> Tuple[Pair, Pair]:
+    """(a / d truncated toward zero, the remainder, which takes a's sign)
+    for |a| < a_bound and 0 < |d| < d_bound: one int64 divide where both
+    fit int64, else the long division over |a|'s bits."""
+    if a_bound <= 1 << 63 and d_bound <= 1 << 63:
+        q = torch.div(a[0], d[0], rounding_mode="trunc")
+        return from_int64(q), from_int64(a[0] - q * d[0])
+    q, r = _long_divide(_limbs(abs_(a)), min(a_bound.bit_length(), 128),
+                        abs_(d))
+    return (where(is_neg(a) != is_neg(d), neg(q), q),
+            where(is_neg(a), neg(r), r))
 
 
 def fits_digits(a: Pair, p: int) -> torch.Tensor:

@@ -64,8 +64,13 @@ from ..expr import window as win
 from ..expr.cast import Cast, cast_supported_on_gpu
 from ..expr.core import (Alias, AttributeReference, BoundReference,
                          Expression, Literal, bind_expression)
+from ..expr import bitwise as bw
+from ..expr import datetime_expr as dte
+from ..expr import hashfns as hf
+from ..expr import misc_tail as mt
 from ..expr import strings as se
-from ..expr.hashfns import Md5, MonotonicallyIncreasingID, Murmur3Hash
+from ..expr.params import ParamLiteral
+from ..expr.subquery import ScalarSubquery
 from ..io.cached_batch import CachedScanExec, CacheWriteExec
 from ..io.scan import FileScanExec
 from ..shuffle.exchange import ShuffleExchangeExec
@@ -162,7 +167,7 @@ def _tag_host_only(reason: str):
 expr_rule(se.ConcatWs, T.STRING, _tag_host_only(
     "concat_ws's variadic null/separator semantics evaluate on the host "
     "engine"))
-expr_rule(Md5, T.STRING, _tag_host_only(
+expr_rule(hf.Md5, T.STRING, _tag_host_only(
     "md5 digests run on the host engine (byte-serial digest)"))
 expr_rule(se.SubstringIndex, T.STRING, lambda m: m.will_not_work(
     "substring_index with a multi-byte or empty delimiter needs "
@@ -186,9 +191,60 @@ for c in (se.Contains, se.StartsWith, se.EndsWith, se.Like,
 expr_rule(ar.PromotePrecision, T.DECIMAL_64 + T.DECIMAL_128)
 expr_rule(ar.MakeDecimal, T.DECIMAL_64 + T.DECIMAL_128)
 expr_rule(ar.CheckOverflow, T.DECIMAL_64 + T.DECIMAL_128)
-expr_rule(Murmur3Hash, T.INT)
+expr_rule(hf.Murmur3Hash, T.INT)
 # (partition << 33) + row position, ref GpuMonotonicallyIncreasingID
-expr_rule(MonotonicallyIncreasingID, T.LONG)
+expr_rule(hf.MonotonicallyIncreasingID, T.LONG)
+expr_rule(hf.SparkPartitionID, T.INT)
+# engine-deterministic, not Spark's XORShift sequence (as the reference)
+expr_rule(hf.Rand, T.DOUBLE)
+expr_rule(hf.InputFileName, T.STRING, _tag_host_only(
+    "file-path strings materialize on the host engine (task-context "
+    "metadata, not device data)"))
+
+# dates and times (the reference's rules, plan/overrides.py:158-166,
+# :275-280, :418-421)
+for c in (dte.Year, dte.Month, dte.DayOfMonth, dte.Quarter, dte.DayOfWeek,
+          dte.WeekDay, dte.DayOfYear, dte.Hour, dte.Minute, dte.Second,
+          dte.DateDiff):
+    expr_rule(c, T.INT)
+for c in (dte.LastDay, dte.DateAdd, dte.DateSub, dte.AddMonths,
+          dte.TruncDate):
+    expr_rule(c, T.DATE)
+for c in (dte.ToUnixTimestamp, dte.UnixTimestamp):
+    expr_rule(c, T.LONG)
+for c in (dte.FromUnixTime, dte.TimeAdd):
+    expr_rule(c, T.TIMESTAMP)
+expr_rule(dte.DateFormatClass, T.STRING, _tag_host_only(
+    "strftime-style formatting runs on the host engine (byte-serial "
+    "pattern rendering)"))
+expr_rule(dte.DateAddInterval, T.DATE, _tag_host_only(
+    "the calendar-interval type is not modeled on device; interval "
+    "arithmetic runs on the host engine"))
+expr_rule(dte.TimeWindow, T.STRUCT.nested(T.TIMESTAMP), lambda m:
+          m.will_not_work("sliding time windows lower through ExpandExec, "
+                          "which is not ported yet (ROADMAP Queue 1 item "
+                          "4d)") if not m.expr.is_tumbling else None)
+# bitwise (ref plan/overrides.py:110-111)
+for c in (bw.BitwiseAnd, bw.BitwiseOr, bw.BitwiseXor, bw.BitwiseNot,
+          bw.ShiftLeft, bw.ShiftRight, bw.ShiftRightUnsigned):
+    expr_rule(c, T.integral)
+# the registry's small leaves (ref plan/overrides.py:77, :191-213, :227)
+expr_rule(mt.NaNvl, T.DOUBLE + T.FLOAT)
+expr_rule(mt.InSet, T.BOOLEAN)
+expr_rule(mt.AtLeastNNonNulls, T.BOOLEAN)
+for c in (mt.KnownNotNull, mt.KnownFloatingPointNormalized):
+    expr_rule(c, T.all_types.nested())          # optimizer markers
+expr_rule(mt.UnscaledValue, T.LONG, lambda m: m.will_not_work(
+    "unscaledvalue of decimal128 needs both lanes")
+    if t.is_dec128(m.expr.children[0].data_type()) else None)
+expr_rule(mt.PreciseTimestampConversion, T.TIMESTAMP + T.LONG)
+# 0 and the file's size for the port's whole-file reads
+for c in (mt.InputFileBlockStart, mt.InputFileBlockLength):
+    expr_rule(c, T.LONG)
+expr_rule(mx.NormalizeNaNAndZero, T.FLOAT + T.DOUBLE)
+expr_rule(ParamLiteral, _num + T.DATE + T.TIMESTAMP + T.STRING)
+# resolved to a literal before planning (api/session.py)
+expr_rule(ScalarSubquery, T.common_scalar)
 _nested_common = (T.common_scalar + T.ARRAY + T.STRUCT + T.MAP +
                   T.BINARY).nested()
 expr_rule(cx.GetStructField, _nested_common)

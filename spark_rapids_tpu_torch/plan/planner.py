@@ -17,9 +17,9 @@ a shuffle exchange, hash partitioned by its keys or round robin.  A node
 whose DataFrame was cached (io/cached_batch.py) is planned as a
 CachedScanExec once its entry is materialized, and under a
 CacheWriteExec until then.  A logical node the port's API cannot build yet
-raises NotImplementedError, and so does monotonically_increasing_id()
-anywhere but a projection or a filter, the two operators that carry its
-running row base.
+raises NotImplementedError, and so do monotonically_increasing_id(),
+spark_partition_id() and rand() anywhere but a projection or a filter,
+the two operators that carry their running row base.
 """
 
 from __future__ import annotations
@@ -34,10 +34,10 @@ from ..exec.gatherpart import GatherPartitionsExec
 from ..exec.join import plan_join
 from ..exec.sort import SortExec
 from ..exec.window import WindowExec
-from ..expr.core import AttributeReference
-from ..expr.hashfns import MonotonicallyIncreasingID
+from ..expr.core import AttributeReference, Expression
+from ..expr.hashfns import POSITIONAL, InputFileName
 from ..io.cached_batch import CacheManager, CachedScanExec, CacheWriteExec
-from ..io.scan import make_scan_exec
+from ..io.scan import FileScanExec, make_scan_exec
 from ..shuffle.exchange import ShuffleExchangeExec
 from ..shuffle.partitioning import (HashPartitioning, RangePartitioning,
                                     RoundRobinPartitioning)
@@ -46,7 +46,27 @@ from ..shuffle.partitioning import (HashPartitioning, RangePartitioning,
 def plan(lp: L.LogicalPlan, conf) -> Exec:
     root = _plan(lp, conf)
     root.foreach(lambda e: setattr(e, "placement", CPU))
+    _force_perfile_if_input_file(root)
     return root
+
+
+def _force_perfile_if_input_file(root: Exec) -> None:
+    """A plan that evaluates input_file_name() reads one file a partition
+    (PERFILE), so that every batch comes from one file (the reference's
+    ``force_perfile_if_input_file``)."""
+    found = []
+
+    def check(v):
+        if isinstance(v, Expression):
+            found.extend(v.collect(lambda x: isinstance(x, InputFileName)))
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                check(x)
+
+    root.foreach(lambda node: check(getattr(node, "_bound", None)))
+    if found:
+        root.foreach(lambda n: isinstance(n, FileScanExec) and
+                     setattr(n, "reader_type", "PERFILE"))
 
 
 def _row_id_exprs(lp: L.LogicalPlan):
@@ -77,11 +97,12 @@ def _plan(lp: L.LogicalPlan, conf) -> Exec:
 
 
 def _plan_uncached(lp: L.LogicalPlan, conf) -> Exec:
-    if any(e.collect(lambda x: isinstance(x, MonotonicallyIncreasingID))
-           for e in _row_id_exprs(lp)):
-        raise NotImplementedError(
-            f"monotonically_increasing_id() in a {type(lp).__name__} is "
-            "not supported: project it into a column first")
+    for e in _row_id_exprs(lp):
+        found = e.collect(lambda x: isinstance(x, POSITIONAL))
+        if found:
+            raise NotImplementedError(
+                f"{found[0].sql()} in a {type(lp).__name__} is not "
+                "supported: project it into a column first")
     if isinstance(lp, L.LocalRelation):
         return LocalScanExec(lp.table, lp.num_partitions,
                              pin_cache=lp.device_cache)

@@ -22,6 +22,7 @@ from ..columnar.device import DeviceBatch, bucket_for
 from ..exec.base import CPU, Exec, ExecContext
 from ..exec.concat import concat_batches
 from ..expr.core import EvalContext
+from ..io.scan import set_current_input_file
 from ..ops.gather import gather_batch
 from .partitioning import Partitioning, slice_batch_by_partition
 
@@ -96,4 +97,7 @@ class ShuffleExchangeExec(Exec):
         with self._lock:
             if self._blocks is None:
                 self._blocks = self._write_all(ctx)
+        # past an exchange there is no current input file (Spark's
+        # input_file_name() is "" there)
+        set_current_input_file("")
         yield from self._blocks[pid]

@@ -21,6 +21,7 @@ import random
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import pytest
 import torch
 
@@ -29,6 +30,7 @@ from spark_rapids_tpu.api import functions as RF
 from spark_rapids_tpu.api.column import col as rcol
 from spark_rapids_tpu.api.column import lit as rlit
 from spark_rapids_tpu.api.session import TpuSession
+from spark_rapids_tpu.expr import arithmetic as rar
 from spark_rapids_tpu.ops import segmented as rseg
 from spark_rapids_tpu.testing.asserts import assert_tables_equal
 from spark_rapids_tpu_torch import types as pt
@@ -37,6 +39,7 @@ from spark_rapids_tpu_torch.api.column import col as pcol
 from spark_rapids_tpu_torch.api.column import lit as plit
 from spark_rapids_tpu_torch.api.session import GpuSession
 from spark_rapids_tpu_torch.exec import aggregate as pagg
+from spark_rapids_tpu_torch.expr import arithmetic as par
 from spark_rapids_tpu_torch.ops import int128 as i128
 from spark_rapids_tpu_torch.ops import segmented as pseg
 
@@ -789,6 +792,172 @@ def test_decimal_sum_past_38_digits_wraps_as_the_reference():
     df = port.create_dataframe(tb).group_by(pcol("k")).agg(
         PF.max(pcol("d")).alias("m"))
     assert df.collect().column("m").to_pylist() == [v]
+
+
+# ---------------------------------------------------------------------------
+# div, % and pmod, greatest and least over decimals
+# ---------------------------------------------------------------------------
+
+DIVISION_TYPES = [(10, 2), (18, 4), (30, 2)]
+DIVISION_OPS = ["mod", "pmod", "div", "greatest", "least"]
+
+
+def _division_table(p, s, seed, n=240):
+    """a and b DECIMAL(p, s), multiples of 0.25 below 2^36 (so the
+    reference's div through doubles is exact), with negatives, nulls and
+    zero divisors; returned with the unscaled ints."""
+    rng = random.Random(seed)
+    unit = 25 * 10 ** (s - 2)
+    lim = min(2**38, (10 ** p - 1) // unit)
+
+    def one(zero_p):
+        if rng.random() < 0.06:
+            return None
+        if rng.random() < zero_p:
+            return 0
+        return rng.choice([rng.randint(-lim, lim), rng.randint(-40, 40)]) \
+            * unit
+    a = [one(0.02) for _ in range(n)]
+    b = [one(0.06) for _ in range(n)]
+    cols = {k: pa.array([None if x is None else D(x).scaleb(-s) for x in v],
+                        pa.decimal128(p, s)) for k, v in (("a", a), ("b", b))}
+    return pa.table(cols), a, b
+
+
+def _trunc_div(x: int, y: int) -> int:
+    q = abs(x) // abs(y)
+    return q if (x < 0) == (y < 0) else -q
+
+
+def _spark_division(op, a, b, s):
+    """Spark's div, % and pmod, greatest and least of unscaled ints at one
+    scale: % takes the dividend's sign, pmod is (r + n) % n for r < 0,
+    div truncates and keeps the low 64 bits (Java's toLong), a zero
+    divisor gives null; greatest and least skip nulls."""
+    out = []
+    for x, y in zip(a, b):
+        if op in ("greatest", "least"):
+            vals = [v for v in (x, y) if v is not None]
+            pick = (max if op == "greatest" else min)(vals) if vals else None
+            out.append(None if pick is None else D(pick).scaleb(-s))
+            continue
+        if x is None or y is None or y == 0:
+            out.append(None)
+            continue
+        q = _trunc_div(x, y)
+        if op == "div":
+            out.append((q + 2**63) % 2**64 - 2**63)
+            continue
+        r = x - q * y
+        if op == "pmod" and r < 0:
+            r = (r + y) - _trunc_div(r + y, y) * y
+        out.append(D(r).scaleb(-s))
+    return out
+
+
+def _division_query(op):
+    def q(df, F, col, lit, T):
+        a, b = col("a"), col("b")
+        if op in ("greatest", "least"):
+            return df.select(getattr(F, op)(a, b).alias("r"))
+        if op == "mod":
+            return df.select((a % b).alias("r"))
+        ar = rar if F is RF else par
+        cls = ar.Pmod if op == "pmod" else ar.IntegralDivide
+        return df.select(type(a)(cls(a.expr, b.expr)).alias("r"))
+    return q
+
+
+@pytest.mark.parametrize("op", DIVISION_OPS)
+@pytest.mark.parametrize("precision,scale", DIVISION_TYPES)
+def test_decimal_division_family_matches_reference(precision, scale, op):
+    """div, %, pmod, greatest and least over DECIMAL(10,2), (18,4) and
+    (30,2) with negative operands, nulls and zero divisors: the port
+    equals Spark's answer (exact Python ints) and the reference's, and
+    both plans place the same operators (the DECIMAL(30,2) results of %,
+    pmod, greatest and least on the CPU engine, as the reference places
+    them).  pmod's divisors are positive here; a negative one is
+    test_decimal_pmod_of_a_negative_divisor's."""
+    tb, a, b = _division_table(precision, scale, seed=precision + len(op))
+    if op == "pmod":
+        b = [None if y is None else abs(y) for y in b]
+        tb = tb.set_column(1, "b", pc.abs(tb.column("b")))
+    ref, port = _sessions()
+    q = _division_query(op)
+    want = q(ref.create_dataframe(tb), *REF).collect()
+    got = q(port.create_dataframe(tb), *PORT).collect()
+    assert got.schema == want.schema
+    assert shape(port) == host_exchanges(shape(ref))
+    assert got.column("r").to_pylist() == _spark_division(op, a, b, scale)
+    assert want.column("r").to_pylist() == got.column("r").to_pylist()
+
+
+@pytest.mark.parametrize("precision,scale", DIVISION_TYPES)
+def test_decimal_pmod_of_a_negative_divisor(precision, scale):
+    """pmod(a, n) with n < 0 and a negative remainder r: Spark's (r + n) %
+    n, which is r, in the port; the reference's r + n (ROADMAP Queue
+    3)."""
+    t = pa.decimal128(precision, scale)
+    tb = pa.table({"a": pa.array([D("-7.25"), D("7.25"), D("-7.00")], t),
+                   "b": pa.array([D("-2.00"), D("-2.00"), D("-2.00")], t)})
+    ref, port = _sessions()
+    q = _division_query("pmod")
+    got = q(port.create_dataframe(tb), *PORT).collect()
+    want = q(ref.create_dataframe(tb), *REF).collect()
+    assert [str(x) for x in got.column("r").to_pylist()] == \
+        [str(D(v).quantize(D(1).scaleb(-scale))) for v in
+         ("-1.25", "1.25", "-1")]
+    assert [str(x) for x in want.column("r").to_pylist()] == \
+        [str(D(v).quantize(D(1).scaleb(-scale))) for v in
+         ("-3.25", "1.25", "-3")]
+
+
+def test_decimal_mod_pmod_div_small_table():
+    """DECIMAL(10,2) a = [10.50, -7.25, null, 3.00] over b = [3.00, 2.00,
+    1.00, 0.00] in both packages."""
+    tb = pa.table({
+        "a": pa.array([D("10.50"), D("-7.25"), None, D("3.00")],
+                      pa.decimal128(10, 2)),
+        "b": pa.array([D("3.00"), D("2.00"), D("1.00"), D("0.00")],
+                      pa.decimal128(10, 2))})
+    want = {"mod": [D("1.50"), D("-1.25"), None, None],
+            "pmod": [D("1.50"), D("0.75"), None, None],
+            "div": [3, -3, None, None]}
+    for op, values in want.items():
+        got, port = run_both(tb, _division_query(op), order=True)
+        assert got.column("r").to_pylist() == values
+        nodes = shape(port)
+        assert all(p == "gpu" for _, p in nodes[1:]), nodes
+
+
+def test_decimal_div_past_doubles():
+    """div of quotients a double does not hold exactly: the port
+    truncates the exact quotient (Spark's answer; past 2^63 its low 64
+    bits, Java's toLong); the reference divides doubles, so 0.30 div
+    0.10 is 2 there and 99999999.99 div 0.03 is 3333333332, and over a
+    DECIMAL(30,2) past 2^64 its CPU engine raises (ROADMAP Queue 3)."""
+    big = -123456789012345678901234
+    cases = [((10, 2), ["0.30", "-0.70", "99999999.99"],
+              ["0.10", "0.10", "0.03"], [3, -7, 3333333333],
+              [2, -7, 3333333332]),
+             ((30, 2), [str(D(big).scaleb(-2)), "5", "10.50"],
+              ["7.10", "-0.03", "3"],
+              [(_trunc_div(big, 710) + 2**63) % 2**64 - 2**63, -166, 3],
+              None)]
+    q = _division_query("div")
+    for (p, s), a, b, spark, ref_values in cases:
+        tb = pa.table({k: pa.array([D(x) for x in v], pa.decimal128(p, s))
+                       for k, v in (("a", a), ("b", b))})
+        ref, port = _sessions()
+        got = q(port.create_dataframe(tb), *PORT).collect()
+        assert got.column("r").to_pylist() == spark
+        if ref_values is not None:
+            want = q(ref.create_dataframe(tb), *REF).collect()
+            assert want.column("r").to_pylist() == ref_values
+            continue
+        ref_cpu, _ = _sessions(enabled=False)
+        with pytest.raises(OverflowError):
+            q(ref_cpu.create_dataframe(tb), *REF).collect()
 
 
 def test_window_over_decimal128():
