@@ -187,6 +187,7 @@ The last line is a JSON object.
 
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -3803,6 +3804,32 @@ def _k3_run_cases(torch, dev, agg_mod, carry):
                 raise AssertionError(f"K3 did not take the run path over "
                                      f"{n} rows in {ngroups} runs")
         del a, his, want
+    # the positional kinds (first, last) where each group spans two of the
+    # order's runs: the order sorts by (key, a flag), as the canonical
+    # merge's sorts by buffer words after the key, so along a group the
+    # input rows rise, fall back, and rise again; and beside every kind
+    # of the run path's op set
+    for n, ngroups, frac in ((300_000, 6, 0.5), (1 << 22, 32, 0.05),
+                             (10_007, 3, 0.9), (100_000, 4, 0.0)):
+        keys = rand(n, 0, ngroups)
+        flag = rand(n, 0, 2)
+        order = carry.sort_order([keys, flag])
+        valid = torch.rand(n, generator=gen, device=dev) < frac
+        every = torch.ones(n, dtype=torch.bool, device=dev)
+        d64 = rand(n, -10**13, 10**13)
+        pos_ops = ["first", "last", "first", "last", "sum", "min", "sum"]
+        a = ([keys], None, [None, None, None, None, d64, d64, None],
+             [valid, valid, every, every, valid, valid, valid], False, order,
+             pos_ops)
+        want = agg_mod.segment_reduce_sorted_plain(*a)
+        for path in K3_PATHS:
+            got = k3(*a, path=path)
+            check(got, want, f"(first/last) at {n} rows, {ngroups} groups "
+                             f"over {2 * ngroups} runs, path={path}")
+            if path == "run" and not k3.last_plan.run_path:
+                raise AssertionError(f"K3 did not take the run path over "
+                                     f"{n} rows in {2 * ngroups} runs")
+        del a, want
     return cases
 
 
@@ -3844,8 +3871,11 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
                  for x in [*values, *his]
                  if x is not None and x is not agg_mod.SIGN}
         masks = {agg_mod._storage(c): c.nbytes for c in contribs}
-        per_group = 4 + sum(8 + 8 * (v is not None) + 8 * (h is not None)
-                            for v, h in zip(values, his))
+        # a positional op writes its int32 pick, another its value
+        per_group = 4 + sum(
+            8 + (4 if op in ("first", "last") else 8 * (v is not None))
+            + 8 * (h is not None) for v, h, op in zip(
+                values, his, ops or ["sum"] * len(values)))
         moved = (0 if order is None else order.nbytes) + \
             sum(w.nbytes for w, f in zip(words, varying) if f) + \
             (0 if live is None else live.nbytes) + \
@@ -4292,6 +4322,716 @@ def _date_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
     # versions take 12 GiB in one piece over qt1's comments
     torch.cuda.empty_cache()
     print(f"date phases: {time.perf_counter() - t_dates:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the aggregates: K3's positional kinds, K23 frame_pick, qg1-qg4
+# ---------------------------------------------------------------------------
+
+QG1_ROWS = 1 << 25            # inventory rows
+QG1_WAREHOUSES = 10           # TPC-DS SF10's warehouses
+QG1_ITEMS = 51_000            # half of SF10's 102,000 items stocked
+QG1_NULLS = 0.05              # inv_quantity_on_hand nulls
+QG2_PARTS = 4                 # qg2's partitions: no customer crosses one
+QG2_NULLS = 0.10              # o_totalprice nulled
+PRIORITIES = (b"1-URGENT", b"2-HIGH", b"3-MEDIUM", b"4-NOT SPECIFIED",
+              b"5-LOW")       # TPC-H's o_orderpriority
+QG4_NULLS = 0.10              # rows of q4's f nulled for the picked column
+QG4_RANGE = 10_000            # RANGE BETWEEN 10,000 PRECEDING AND FOLLOWING
+
+
+def _qg1_table(n, seed=SEED):
+    """TPC-DS inventory at SF10's shape joined to its date's month: 10
+    warehouses, 51,000 stocked items, months 1-12, quantity on hand INT
+    0-1000 with 5 % nulls.  Returns (table, raw numpy columns)."""
+    rng = np.random.default_rng(seed + 24)
+    raw = dict(w=rng.integers(1, QG1_WAREHOUSES + 1, n).astype(np.int32),
+               i=rng.integers(1, QG1_ITEMS + 1, n).astype(np.int32),
+               m=rng.integers(1, 13, n).astype(np.int32),
+               q=rng.integers(0, 1001, n).astype(np.int32),
+               valid=rng.random(n) >= QG1_NULLS)
+    table = pa.table({
+        "inv_warehouse_sk": pa.array(raw["w"]),
+        "inv_item_sk": pa.array(raw["i"]),
+        "d_moy": pa.array(raw["m"]),
+        "inv_quantity_on_hand": pa.array(raw["q"], mask=~raw["valid"])})
+    return table, raw
+
+
+def _qg1_df(session, table, parts, F, col, lit):
+    """TPC-DS Q39's inner aggregate: the moments of the quantity on hand
+    by (warehouse, item, month), then HAVING stddev / mean > 1."""
+    return (session.create_dataframe(table, num_partitions=parts)
+            .group_by(col("inv_warehouse_sk"), col("inv_item_sk"),
+                      col("d_moy"))
+            .agg(F.stddev_samp(col("inv_quantity_on_hand")).alias("sd"),
+                 F.avg(col("inv_quantity_on_hand")).alias("mean"),
+                 F.var_samp(col("inv_quantity_on_hand")).alias("vs"),
+                 F.var_pop(col("inv_quantity_on_hand")).alias("vp"),
+                 F.stddev_pop(col("inv_quantity_on_hand")).alias("sp"),
+                 F.count(col("inv_quantity_on_hand")).alias("n"))
+            .filter(col("sd") / col("mean") > lit(1.0)))
+
+
+def _qg1_oracle(raw):
+    """Per group (count, sum, sum of squares) by numpy, exact in float64
+    (integers below 2^53), and the same formulas: M2 = sumsq - sum^2 / n
+    clamped at 0.  Returns (key, n, the five results, cov)."""
+    key = ((raw["w"].astype(np.int64) - 1) * QG1_ITEMS
+           + raw["i"] - 1) * 12 + raw["m"] - 1
+    size = QG1_WAREHOUSES * QG1_ITEMS * 12
+    uniq = np.flatnonzero(np.bincount(key, minlength=size))
+    q = np.where(raw["valid"], raw["q"], 0).astype(np.float64)
+    cnt = np.bincount(key, weights=raw["valid"].astype(np.float64),
+                      minlength=size)[uniq]
+    s = np.bincount(key, weights=q, minlength=size)[uniq]
+    ss = np.bincount(key, weights=q * q, minlength=size)[uniq]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        m2 = np.maximum(ss - np.where(cnt > 0, s * s / np.maximum(cnt, 1), 0),
+                        0.0)
+        vs = np.where(cnt > 1, m2 / np.maximum(cnt - 1, 1), np.nan)
+        vp = np.where(cnt > 0, m2 / np.maximum(cnt, 1), np.nan)
+        mean = np.where(cnt > 0, s / np.maximum(cnt, 1), np.nan)
+        cov = np.sqrt(vs) / mean
+    return dict(key=uniq, n=cnt.astype(np.int64), sd=np.sqrt(vs), mean=mean,
+                vs=vs, vp=vp, sp=np.sqrt(vp), cov=cov, ss=ss)
+
+
+def _check_qg1(got, want, what):
+    """The groups with stddev / mean > 1, their counts exactly and their
+    moments to a relative 1e-9: a moment is a difference of sums, so a
+    group's tolerance also allows 1e-12 of its sum of squares.  A group
+    whose ratio lies within 1e-9 of 1 may fall either side."""
+    key = ((got["inv_warehouse_sk"].to_numpy().astype(np.int64) - 1)
+           * QG1_ITEMS + got["inv_item_sk"].to_numpy() - 1) * 12 + \
+        got["d_moy"].to_numpy() - 1
+    o = np.argsort(key)
+    key = key[o]
+    with np.errstate(invalid="ignore"):
+        keep = want["cov"] > 1.0
+        near = np.abs(want["cov"] - 1.0) <= 1e-9
+    at = np.searchsorted(want["key"], key)
+    if len(key) and (at.max() >= len(want["key"])
+                     or not np.array_equal(want["key"][at], key)):
+        raise AssertionError(f"{what}: a group the data does not hold")
+    if np.any(~keep[at] & ~near[at]) or \
+            np.count_nonzero(keep & ~near) != np.count_nonzero(
+                keep[at] & ~near[at]):
+        raise AssertionError(f"{what}: HAVING kept other groups "
+                             f"({len(key)} against {int(keep.sum())})")
+    if not np.array_equal(got["n"].to_numpy()[o], want["n"][at]):
+        raise AssertionError(f"{what}: counts differ")
+    for name in ("sd", "mean", "vs", "vp", "sp"):
+        g = got[name].to_numpy(zero_copy_only=False)[o].astype(np.float64)
+        w = want[name][at]
+        slack = 1e-9 * np.abs(w) + 1e-12 * want["ss"][at]
+        if np.any(np.isnan(g) != np.isnan(w)) or \
+                np.any(np.abs(np.nan_to_num(g) - np.nan_to_num(w)) > slack):
+            raise AssertionError(f"{what}: {name} differs")
+    return len(key)
+
+
+def _qg2_table(seed=SEED, parts=QG2_PARTS):
+    """qa's TPC-H SF5 orders as a flat table (o_orderkey, o_custkey,
+    o_orderdate and o_totalprice in qa's ranges; o_orderpriority, TPC-H's
+    five strings; 10 % of o_totalprice null), stored by customer, each
+    customer's orders in orderkey order; a customer whose orders cross a
+    boundary of ``parts`` partitions takes a new key for those past it,
+    so no group's partials meet in a merge and each group's first, last
+    and list follow the rows' order.  Returns (table, raw columns in
+    table order)."""
+    n, customers = NESTED_ORDERS, NESTED_CUSTOMERS
+    rng = np.random.default_rng(seed + 25)
+    keys = np.arange(n, dtype=np.int64)
+    cust = rng.integers(1, customers + 1, n)
+    date = rng.integers(8035, 10441, n).astype(np.int32)
+    price = np.round(rng.random(n) * 5e5, 2)
+    pvalid = rng.random(n) >= QG2_NULLS
+    prio = rng.integers(0, len(PRIORITIES), n)
+    o = np.argsort(cust, kind="stable")
+    raw = dict(key=((keys // 8) * 32 + keys % 8 + 1)[o], cust=cust[o].copy(),
+               date=date[o], price=price[o], pvalid=pvalid[o], prio=prio[o])
+    per = -(-n // parts)
+    spans = []
+    for j in range(1, parts):
+        b = j * per
+        if b < n and raw["cust"][b] == raw["cust"][b - 1]:
+            spans.append((b, int(np.searchsorted(raw["cust"], raw["cust"][b],
+                                                 side="right")), j))
+    for b, end, j in spans:
+        raw["cust"][b:end] = customers + j
+    table = pa.table({
+        "o_orderkey": pa.array(raw["key"]),
+        "o_custkey": pa.array(raw["cust"]),
+        "o_orderdate": pa.array(raw["date"]).cast(pa.date32()),
+        "o_totalprice": pa.array(raw["price"], mask=~raw["pvalid"]),
+        "o_orderpriority": _pick_bytes(raw["prio"], PRIORITIES,
+                                       large=False)})
+    return table, raw
+
+
+def _qg2_df(session, table, parts, F, col):
+    """The latest and the history per customer."""
+    return (session.create_dataframe(table, num_partitions=parts)
+            .group_by(col("o_custkey"))
+            .agg(F.first(col("o_orderdate")).alias("first_date"),
+                 F.last(col("o_totalprice"), True).alias("last_price"),
+                 F.collect_list(col("o_orderkey")).alias("orders"),
+                 F.collect_set(col("o_orderpriority")).alias("priorities"),
+                 F.count("*").alias("n")))
+
+
+def _qg2_oracle(raw):
+    """Per customer, in the rows' order: the first date, the last non-null
+    price, the order keys, the set of priorities (a bit a priority) and
+    the count."""
+    o = np.argsort(raw["cust"], kind="stable")
+    cust = raw["cust"][o]
+    n = len(cust)
+    starts = np.flatnonzero(np.r_[True, cust[1:] != cust[:-1]])
+    pos = np.arange(n)
+    last = np.maximum.reduceat(np.where(raw["pvalid"][o], pos, -1), starts)
+    return dict(cust=cust[starts], date=raw["date"][o][starts],
+                price=np.where(last >= 0, raw["price"][o][np.maximum(last, 0)],
+                               np.nan), price_valid=last >= 0,
+                offsets=np.r_[starts, n], keys=raw["key"][o],
+                prio=np.bitwise_or.reduceat(1 << raw["prio"][o], starts),
+                n=np.diff(np.r_[starts, n]))
+
+
+def _check_qg2(got, want, what):
+    got = got.sort_by("o_custkey")
+    if not np.array_equal(got["o_custkey"].to_numpy(), want["cust"]):
+        raise AssertionError(f"{what}: customers differ")
+    dates = got["first_date"].combine_chunks().cast(pa.int32()).to_numpy(
+        zero_copy_only=False)
+    if not np.array_equal(dates, want["date"]) or \
+            not np.array_equal(got["n"].to_numpy(), want["n"]):
+        raise AssertionError(f"{what}: first dates or counts differ")
+    price = got["last_price"].combine_chunks()
+    pv = ~price.is_null().to_numpy(zero_copy_only=False)
+    pz = price.fill_null(0.0).to_numpy()
+    if not np.array_equal(pv, want["price_valid"]) or not np.array_equal(
+            pz[pv], want["price"][pv]):
+        raise AssertionError(f"{what}: last non-null prices differ")
+    orders = got["orders"].combine_chunks()
+    if not np.array_equal(orders.offsets.to_numpy() - orders.offsets[0].as_py(),
+                          want["offsets"]) or \
+            not np.array_equal(orders.flatten().to_numpy(), want["keys"]):
+        raise AssertionError(f"{what}: collect_list differs")
+    prios = got["priorities"].combine_chunks()
+    codes = pc.index_in(prios.flatten(), value_set=pa.array(
+        PRIORITIES, pa.string())).to_numpy(zero_copy_only=False)
+    offs = prios.offsets.to_numpy() - prios.offsets[0].as_py()
+    lens = np.diff(offs)
+    if np.any(lens == 0) or np.any(codes < 0):
+        raise AssertionError(f"{what}: a set is empty or holds no priority")
+    mask = np.bitwise_or.reduceat(1 << codes.astype(np.int64), offs[:-1])
+    pop = np.array([bin(x).count("1") for x in range(32)])[mask]
+    if not np.array_equal(mask, want["prio"]) or not np.array_equal(
+            pop, lens):
+        raise AssertionError(f"{what}: collect_set differs (or repeats)")
+    return got.num_rows
+
+
+def _qg3_years(raw):
+    """The ship dates' years, by a search over the days of each 1 January
+    (TPC-H's dates lie in 1992-1998)."""
+    jan1 = np.array([np.datetime64(f"{y}-01-01", "D").astype(np.int64)
+                     for y in range(1990, 2001)])
+    return 1990 + np.searchsorted(jan1, raw["ship"], side="right") - 1
+
+
+def _qg3_pct_oracle(raw, p=0.5):
+    """approx_percentile(l_extendedprice, p) by (returnflag, linestatus):
+    each group's sorted prices at rank ceil(p n) - 1 (unscaled)."""
+    key = raw["rf"] * 2 + raw["ls"]
+    out = {}
+    for g in np.unique(key):
+        vals = raw["price"][key == g]
+        at = max(math.ceil(p * len(vals)) - 1, 0)
+        out[(int(g) // 2, int(g) % 2)] = int(np.partition(vals, at)[at])
+    return out
+
+
+def _qg3_pivot_df(session, table, parts, F, col):
+    return (session.create_dataframe(table, num_partitions=parts)
+            .group_by(F.year(col("l_shipdate")).alias("y"))
+            .pivot(col("l_returnflag"), ["A", "N", "R"])
+            .agg(F.first(col("l_quantity")).alias("fq"),
+                 F.sum(col("l_extendedprice")).alias("sp")))
+
+
+def _coalesced_slices(n, parts):
+    """The batches an aggregate over ``parts`` partitions of n rows sees:
+    the partitions in order, joined until a batch holds the coalesce's
+    target rows (``exec/basic.py:TARGET_ROWS``)."""
+    from spark_rapids_tpu_torch.exec.basic import TARGET_ROWS
+    per = -(-n // parts)
+    out, start, pending = [], 0, 0
+    for j in range(parts):
+        pending += max(0, min(per, n - j * per))
+        if pending >= TARGET_ROWS or j == parts - 1:
+            out.append(slice(start, start + pending))
+            start, pending = start + pending, 0
+    return out
+
+
+def _qg3_pivot_oracle(raw, parts):
+    """Per year and flag: the first quantity (unscaled) and the sum of
+    prices.  Where the aggregate sees several batches, the canonical
+    merge orders each year's partials by their buffers (A's first, A's
+    sum, N's first, ..., a null first) and each first is the first
+    non-null one in that order."""
+    years = _qg3_years(raw)
+    n = len(years)
+    y0 = int(years.min())
+    nyears = int(years.max()) - y0 + 1
+    cells = (years - y0) * 3 + raw["rf"]          # (year, flag)
+    partials = []
+    for sl in _coalesced_slices(n, parts):
+        c = cells[sl]
+        has = np.bincount(c, minlength=nyears * 3) > 0
+        # each cell's first row: in the first rows for all but rare cells
+        head, at = np.unique(c[:1 << 16], return_index=True)
+        first = np.zeros(nyears * 3, np.int64)
+        first[head] = at
+        for cell in np.flatnonzero(has & ~np.isin(np.arange(nyears * 3),
+                                                  head)):
+            first[cell] = int(np.argmax(c == cell))
+        qty = np.where(has, raw["qty"][sl][first], 0)
+        # prices below 2^24 over at most 2^25 rows: exact in float64
+        total = np.bincount(c, weights=raw["price"][sl],
+                            minlength=nyears * 3).astype(np.int64)
+        partials.append((has, qty, total))
+    out = {}
+    for y in range(nyears):
+        if not any(h[y * 3:y * 3 + 3].any() for h, _, _ in partials):
+            continue
+        rows = sorted(tuple(x for f in range(3) for x in (
+            (1, int(q[y * 3 + f])) if h[y * 3 + f] else (0, 0),
+            (1, int(tot[y * 3 + f])) if h[y * 3 + f] else (0, 0)))
+            for h, q, tot in partials)
+        merged = []
+        for f in range(3):
+            firsts = [r[2 * f][1] for r in rows if r[2 * f][0]]
+            sums = [r[2 * f + 1][1] for r in rows if r[2 * f + 1][0]]
+            merged += [firsts[0] if firsts else None,
+                       sum(sums) if sums else None]
+        out[y0 + y] = merged
+    return out
+
+
+def _check_qg3_pivot(got, want, what):
+    got = got.sort_by("y")
+    names = [f"{v}_{a}" for v in "ANR" for a in ("fq", "sp")]
+    if got.column_names != ["y"] + names:
+        raise AssertionError(f"{what}: columns {got.column_names}")
+    for row in got.to_pylist():
+        vals = [None if row[c] is None else int(row[c].scaleb(2))
+                for c in names]
+        if vals != want.get(row["y"]):
+            raise AssertionError(f"{what}: year {row['y']}: {vals} against "
+                                 f"{want.get(row['y'])}")
+    if got.num_rows != len(want):
+        raise AssertionError(f"{what}: {got.num_rows} years")
+
+
+def _qg4_table(fact, seed=SEED):
+    """Bench's fact table with x: f with 10 % of its rows nulled."""
+    rng = np.random.default_rng(seed + 26)
+    valid = rng.random(fact.num_rows) >= QG4_NULLS
+    return fact.append_column("x", pa.array(fact["f"].to_numpy(),
+                                            mask=~valid)), valid
+
+
+def _qg4_df(session, table, parts, F, col, W):
+    wb = lambda: W.WindowBuilder().partition_by(col("k")).order_by(col("v"))
+    return session.create_dataframe(table, num_partitions=parts).select(
+        col("k"), col("v"),
+        F.last(col("x"), True).over(wb().rows_between(
+            W.Window.unboundedPreceding, 0)).alias("ffill"),
+        F.first(col("x")).over(wb().rows_between(-6, 0)).alias("f6"),
+        F.last(col("x")).over(wb().rows_between(
+            W.Window.unboundedPreceding,
+            W.Window.unboundedFollowing)).alias("lall"),
+        F.first(col("x"), True).over(wb().range_between(
+            -QG4_RANGE, QG4_RANGE)).alias("frng"))
+
+
+def _qg4_oracle(table, valid):
+    """qg4's four columns in input order by numpy: the rows sorted by (k,
+    v, input row), then per sorted row the pick of each frame.  Returns
+    {name: values, -1.0 where null}."""
+    k, v = table["k"].to_numpy(), table["v"].to_numpy()
+    n = len(k)
+    # (k, v) in 38 bits and the row in 25: one sort of distinct words is
+    # the stable order (bench's ranges, checked)
+    if k.min() < 0 or k.max() >= 1 << 17 or np.abs(v).max() >= 1 << 20 \
+            or n > 1 << 25:
+        raise AssertionError("qg4 oracle: k, v or n outside its packing")
+    keyed = np.sort((((k << 21) | (v + (1 << 20))) << 25) | np.arange(n))
+    o = keyed & ((1 << 25) - 1)
+    ws = keyed >> 25
+    del keyed
+    xs, ok = table["f"].to_numpy()[o], valid[o]
+    pos = np.arange(n)
+    new_k = np.r_[True, (ws[1:] >> 21) != (ws[:-1] >> 21)]
+    start = np.maximum.accumulate(np.where(new_k, pos, 0))
+    end = np.minimum.accumulate(np.where(np.r_[new_k[1:], True], pos, n)
+                                [::-1])[::-1]
+    before = np.maximum.accumulate(np.where(ok, pos, -1))
+    after = np.minimum.accumulate(np.where(ok, pos, n)[::-1])[::-1]
+    lo = np.searchsorted(ws, ws - QG4_RANGE, side="left")
+    hi = np.searchsorted(ws, ws + QG4_RANGE, side="right") - 1
+    j = after[np.minimum(lo, n - 1)]
+    picks = {"ffill": (before, before >= start),
+             "f6": (np.maximum(pos - 6, start), None),
+             "lall": (end, None),
+             "frng": (j, j <= hi)}
+    out = {}
+    for name, (idx, inside) in picks.items():
+        idx = np.clip(idx, 0, n - 1)
+        got_valid = ok[idx] if inside is None else inside & ok[idx]
+        vals = np.empty(n)
+        # f lies in [0, 1): -1 stands for a null
+        vals[o] = np.where(got_valid, xs[idx], -1.0)
+        out[name] = vals
+    return out
+
+
+def _check_qg4(got, want, what):
+    for name, vals in want.items():
+        if not np.array_equal(got[name].combine_chunks().fill_null(
+                -1.0).to_numpy(), vals):
+            raise AssertionError(f"{what}: {name} differs from numpy")
+
+
+def _k23_cases(torch, dev, scan):
+    """K23 against its plain version on edge shapes, bit for bit where the
+    flag is set (and the flags everywhere): 1 row to tile edges (8,191,
+    8,192, 8,193 rows) and 2^20 + 5; no valid row, all valid, 10 %
+    valid, valid only at a tile's first and last rows, all-null
+    partitions; frames empty (hi < lo), of one row, whole partitions,
+    bounds beyond the last valid row and outside [0, n); each bound
+    given or the row itself; first and last, nulls ignored and counted.
+    Returns the number of calls."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    calls = 0
+    for n in (1, 2, 31, 33, 8191, 8192, 8193, 3 * 8192 + 1, (1 << 20) + 5):
+        pos = torch.arange(n, device=dev)
+        rnd = torch.rand(n, generator=gen, device=dev)
+        # partitions of about 50 rows: ids[i] is row i's, first_of its
+        # first rows
+        new = torch.rand(n, generator=gen, device=dev) < 0.02
+        new[0] = True
+        ids = torch.cumsum(new.to(torch.int64), 0) - 1
+        first_of = torch.nonzero(new).flatten()
+        part_null = (ids % 3) == 0             # every third partition
+        valids = {"none": torch.zeros(n, dtype=torch.bool, device=dev),
+                  "all": torch.ones(n, dtype=torch.bool, device=dev),
+                  "tenth": rnd < 0.1,
+                  "tile_edges": (pos % 8192 == 0) | (pos % 8192 == 8191),
+                  "null_parts": (rnd < 0.5) & ~part_null}
+        seg = first_of[ids]
+        seg_end = torch.cat([first_of[1:] - 1, torch.full(
+            (1,), n - 1, device=dev)])[ids]
+        lo = torch.randint(-3, n + 3, (n,), generator=gen, device=dev)
+        span = torch.randint(-3, 40, (n,), generator=gen, device=dev)
+        frames = {
+            "random": (lo, lo + span),
+            "one_row": (pos, pos),
+            "empty": (pos + 1, pos),
+            "whole": (seg, seg_end),
+            "running": (seg, None),
+            "following": (None, torch.minimum(pos + 50, seg_end)),
+            "past_end": (torch.full_like(pos, n + 7), torch.full_like(
+                pos, n + 9)),
+            "rows": (None, None)}
+        for vname, valid in valids.items():
+            for fname, (a, b) in frames.items():
+                a = None if a is None else a.to(torch.int32)
+                b = None if b is None else b.to(torch.int32)
+                for last in (False, True):
+                    for ign in (False, True):
+                        got = scan.frame_pick(valid, a, b, last, ign)
+                        want = scan.frame_pick_plain(valid, a, b, last, ign)
+                        calls += 1
+                        if not torch.equal(got[1], want[1]) or \
+                                not torch.equal(got[0][want[1]],
+                                                want[0][want[1]]):
+                            raise AssertionError(
+                                f"K23 differs from its plain version: {n} "
+                                f"rows, valid {vname}, frame {fname}, "
+                                f"last={last}, ignore_nulls={ign}")
+    return calls
+
+
+def _k3_positional_paths(torch, agg_mod, cap, paths, what):
+    """Every K3 call of a run (captured by ``cap``) again on each forced
+    path of ``paths``, against the plain version exactly."""
+    orig = cap.orig["segment_reduce_sorted"]
+    plain = agg_mod.segment_reduce_sorted_plain
+    n = 0
+    for (_, args), kw in zip(cap.calls, cap.kwargs):
+        if not any(op in ("first", "last") for op in (args[6] or [])):
+            continue
+        want = plain(*args, **kw)
+        for path in paths:
+            got = orig(*args, **{**kw, "path": path})
+            _k3_diff_exact(torch, got, want, f"{what}, path={path}")
+            if path == "run" and not orig.last_plan.run_path:
+                raise AssertionError(f"K3 at {what} did not take the run "
+                                     f"path")
+            n += 1
+    if not n:
+        raise AssertionError(f"{what} made no K3 call with first or last")
+    return n
+
+
+def _k3_diff_exact(torch, got, want, what):
+    if got[3] != want[3] or not torch.equal(got[0], want[0]):
+        raise AssertionError(f"K3 groups or first rows differ at {what}")
+    for s, sp, c, cp in zip(got[1], want[1], got[2], want[2]):
+        if not torch.equal(c, cp):
+            raise AssertionError(f"K3 counts differ at {what}")
+        for x, y in ([] if s is None else zip(s, sp)
+                     if isinstance(s, tuple) else [(s, sp)]):
+            if x.dtype == torch.float64:
+                x, y = x.view(torch.int64), y.view(torch.int64)
+            if not torch.equal(x, y):
+                raise AssertionError(f"K3 results differ at {what}")
+
+
+def _agg_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
+                bound, path_run, li_table, li_raw, fact):
+    """ROADMAP item 4c on the card: K3's positional kinds on their edge
+    cases and at qg2's and qg3's calls on every path; K23 on its edge
+    cases and at qg4's calls; qg1 (TPC-DS Q39's moments), qg2 (first,
+    last, collect_list and collect_set per customer), qg3 (a median and
+    a pivot over q1d's lineitem) and qg4 (first and last over four
+    frames at q4's shape), each over 1 and 4 partitions against numpy,
+    with its aggregate or window on the GPU."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.column import col, lit
+    from spark_rapids_tpu_torch.api.session import GpuSession
+    from spark_rapids_tpu_torch.exec import aggregate as agg_mod
+    from spark_rapids_tpu_torch.exec import window as window_mod
+    from spark_rapids_tpu_torch.expr import window as W
+    from spark_rapids_tpu_torch.ops import carry
+    from spark_rapids_tpu_torch.ops import scan
+    from spark_rapids_tpu_torch.ops import segmented as seg
+    t_aggs = time.perf_counter()
+
+    def placed(session, exec_name, what):
+        nodes = _placements(session.last_plan)
+        if (exec_name, "gpu") not in nodes or "!" in session.last_explain:
+            raise AssertionError(f"{what} placed {nodes}:\n"
+                                 f"{session.last_explain}")
+        return nodes
+
+    try:
+        t1 = time.perf_counter()
+        n_k23 = _k23_cases(torch, dev, scan)
+        print(f"K23 edge cases: {n_k23} calls equal the plain version "
+              f"(K3's first and last over groups that span two runs: the "
+              f"run cases of the flat types' phase); "
+              f"{time.perf_counter() - t1:.1f} s")
+    except Exception:
+        failures.append("K23 edge cases")
+        traceback.print_exc()
+
+    # ---- qg1: TPC-DS Q39's moments ---------------------------------------
+    try:
+        t1 = time.perf_counter()
+        inv, inv_raw = _qg1_table(QG1_ROWS)
+        want = _qg1_oracle(inv_raw)
+        print(f"qg1 inventory of {QG1_ROWS} rows, {len(want['key'])} groups, "
+              f"its numpy oracle: {time.perf_counter() - t1:.1f} s")
+        for parts in (1, 4):
+            s = GpuSession()
+            df = _qg1_df(s, inv, parts, F, col, lit)
+            what = f"qg1 over {parts} partition(s)"
+            got = path_run("qg1" if parts == 1 else "qg1_4", df.collect,
+                           lambda got, w: _check_qg1(got, want, w), what)
+            placed(s, "GpuHashAggregateExec", what)
+            print(f"{what}: {got.num_rows} groups with stddev / mean > 1")
+        del inv, inv_raw, want
+    except Exception:
+        failures.append("qg1")
+        traceback.print_exc()
+
+    # ---- qg2: the latest and the history per customer --------------------
+    try:
+        t1 = time.perf_counter()
+        orders, o_raw = _qg2_table()
+        want = _qg2_oracle(o_raw)
+        print(f"qg2 orders: {orders.num_rows} rows, {len(want['cust'])} "
+              f"customers, its numpy oracle: "
+              f"{time.perf_counter() - t1:.1f} s")
+        for parts in (1, QG2_PARTS):
+            s = GpuSession()
+            df = _qg2_df(s, orders, parts, F, col)
+            what = f"qg2 over {parts} partition(s)"
+            path_run("qg2" if parts == 1 else "qg2_4", df.collect,
+                     lambda got, w: _check_qg2(got, want, w), what)
+            placed(s, "GpuHashAggregateExec", what)
+            with _Capture(agg_mod, "segment_reduce_sorted") as cap:
+                df.collect()
+            n_paths = _k3_positional_paths(torch, agg_mod, cap,
+                                           ("record", "direct"), what)
+            if parts == 1:
+                row = _k3_call_row(torch, agg_mod, cap, cuda_ms, what)
+                args, kw = cap.calls[0][1], cap.kwargs[0]
+                words, order = args[0], args[5]
+                n = int(args[3][0].shape[0])
+                idx = order.to(torch.int64)
+                sw = [w.index_select(0, idx) for w in words]
+                live = torch.ones(n, dtype=torch.bool, device=dev)
+                ids = seg.segment_ids(seg.segment_boundaries(sw, live)).to(
+                    torch.int64)
+                g = row["extra"]["groups"]
+                pos = torch.arange(n, device=dev)
+                row["library_ms"] = cuda_ms(lambda: torch.full(
+                    (g,), n, dtype=torch.int64, device=dev).scatter_reduce_(
+                    0, ids, pos, "amin"))
+                row["extra"]["library_call"] = \
+                    "scatter_reduce_(amin) of the positions"
+                kernel_rows["segment_reduce_sorted_first_last"] = dict(
+                    source="spark_rapids_tpu_torch/csrc/segment_reduce.cu",
+                    replaces="spark_rapids_tpu/ops/segmented.py:251",
+                    max_abs_err=0.0, **row)
+                del sw, ids, pos, live
+                print(f"K3 at {what}: {len(cap.calls)} call(s) equal the "
+                      f"plain version, {n_paths} more on the forced record "
+                      f"and direct paths; the first {row['ms']:.3f} ms "
+                      f"({row['extra']['path']}), plain "
+                      f"{row['plain_ms']:.3f}, library "
+                      f"{row['library_ms']:.3f}, bound "
+                      f"{row['bound_ms']:.3f} ({row['extra']}); {card}")
+        del orders, o_raw, want
+    except Exception:
+        failures.append("qg2")
+        traceback.print_exc()
+
+    # ---- qg3: a median and a crosstab over q1d's lineitem ----------------
+    try:
+        t1 = time.perf_counter()
+        pct_want = _qg3_pct_oracle(li_raw)
+        piv_want = {p: _qg3_pivot_oracle(li_raw, p) for p in (1, 4)}
+        print(f"qg3 numpy oracles: {time.perf_counter() - t1:.1f} s")
+        for parts in (1, 4):
+            s = GpuSession()
+            df = (s.create_dataframe(li_table, num_partitions=parts)
+                  .group_by(col("l_returnflag"), col("l_linestatus"))
+                  .agg(F.approx_percentile(col("l_extendedprice"), 0.5)
+                       .alias("median")))
+
+            def check_pct(got, w):
+                rows = {(r["l_returnflag"], r["l_linestatus"]):
+                        int(r["median"].scaleb(2)) for r in got.to_pylist()}
+                flags = {("ANR"[a], "FO"[b]): v
+                         for (a, b), v in pct_want.items()}
+                if rows != flags:
+                    raise AssertionError(f"{w}: {rows} against {flags}")
+            what = f"qg3 median over {parts} partition(s)"
+            path_run("qg3_pct" if parts == 1 else "qg3_pct_4", df.collect,
+                     check_pct, what)
+            placed(s, "GpuHashAggregateExec", what)
+            s = GpuSession()
+            df = _qg3_pivot_df(s, li_table, parts, F, col)
+            what = f"qg3 pivot over {parts} partition(s)"
+            path_run("qg3_pivot" if parts == 1 else "qg3_pivot_4",
+                     df.collect, lambda got, w, p=parts: _check_qg3_pivot(
+                         got, piv_want[p], w), what)
+            placed(s, "GpuHashAggregateExec", what)
+            with _Capture(agg_mod, "segment_reduce_sorted") as cap:
+                df.collect()
+            print(f"K3 at {what}: "
+                  f"{_k3_positional_paths(torch, agg_mod, cap, (None, 'run'), what)}"
+                  f" call(s) with first equal the plain version on the "
+                  f"planned and the run path")
+    except Exception:
+        failures.append("qg3")
+        traceback.print_exc()
+
+    # ---- qg4: first and last over four frames at q4's shape --------------
+    try:
+        t1 = time.perf_counter()
+        tab4, valid4 = _qg4_table(fact)
+        want = _qg4_oracle(tab4, valid4)
+        print(f"qg4 numpy oracle: {tab4.num_rows} rows, "
+              f"{time.perf_counter() - t1:.1f} s")
+        for parts in (1, 4):
+            s = GpuSession()
+            df = _qg4_df(s, tab4, parts, F, col, W)
+            what = f"qg4 over {parts} partition(s)"
+            path_run("qg4" if parts == 1 else "qg4_4", df.collect,
+                     lambda got, w: _check_qg4(got, want, w), what)
+            placed(s, "WindowExec", what)
+            with _Capture(window_mod, "frame_pick") as cap:
+                df.collect()
+            orig = cap.orig["frame_pick"]
+            for _, args in cap.calls:
+                got = orig(*args)
+                ref = scan.frame_pick_plain(*args)
+                if not torch.equal(got[1], ref[1]) or not torch.equal(
+                        got[0][ref[1]], ref[0][ref[1]]):
+                    raise AssertionError(f"K23 differs from its plain "
+                                         f"version at {what}")
+            if len(cap.calls) != 4:
+                raise AssertionError(f"{what} made {len(cap.calls)} K23 "
+                                     f"calls, not 4")
+            if parts > 1:
+                continue
+            rows = []
+            for _, args in cap.calls:
+                valid, lo, hi, last, ign = args
+                n = int(valid.shape[0])
+                moved = n * (1 + 4 * (lo is not None) + 4 * (hi is not None)
+                             + 4 + 1)
+                cpre = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+                cpre[1:] = torch.cumsum(valid.to(torch.int64), 0)
+                at = torch.arange(n, device=dev) if lo is None else \
+                    lo.to(torch.int64).clamp(0, n - 1)
+                target = cpre[at] + 1
+                rows.append(dict(
+                    ms=cuda_ms(lambda: orig(*args)),
+                    plain_ms=cuda_ms(lambda: scan.frame_pick_plain(*args),
+                                     reps=2),
+                    library_ms=cuda_ms(lambda: torch.searchsorted(
+                        cpre, target)),
+                    bound_ms=bound(moved),
+                    extra=dict(rows=n, last=bool(last),
+                               ignore_nulls=bool(ign),
+                               lo=lo is not None, hi=hi is not None,
+                               bytes_moved=moved)))
+            first = rows[0]
+            first["extra"]["calls"] = [
+                {k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in {**r["extra"], "ms": r["ms"],
+                              "bound_ms": r["bound_ms"],
+                              "plain_ms": r["plain_ms"]}.items()}
+                for r in rows]
+            first["extra"]["library_call"] = \
+                "torch.searchsorted over the valid-count prefix (nearest)"
+            kernel_rows["frame_pick"] = dict(
+                source="spark_rapids_tpu_torch/csrc/frame_pick.cu",
+                replaces="spark_rapids_tpu/exec/window.py:338",
+                max_abs_err=0.0, **first)
+            print(f"K23 at {what}: 4 calls equal the plain version; "
+                  + "; ".join(f"{'last' if r['extra']['last'] else 'first'}"
+                              f"{' ignoring nulls' if r['extra']['ignore_nulls'] else ''}"
+                              f" {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}, "
+                              f"plain {r['plain_ms']:.3f}, searchsorted "
+                              f"{r['library_ms']:.3f})" for r in rows)
+                  + f"; {card}")
+        del tab4, valid4, want
+    except Exception:
+        failures.append("qg4")
+        traceback.print_exc()
+    torch.cuda.empty_cache()
+    print(f"aggregate phases: {time.perf_counter() - t_aggs:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5801,7 +6541,8 @@ def main() -> int:
                 "string_find": sops.string_find,
                 "utf8_cut": sops.utf8_cut,
                 "string_map": sops.string_map,
-                "date_fields": dates_mod.date_fields}
+                "date_fields": dates_mod.date_fields,
+                "frame_pick": scan_mod.frame_pick}
 
     def download_fetched(b):
         return batch_to_arrow(fetch.fetch_batch(b))
@@ -8346,6 +9087,11 @@ def main() -> int:
         traceback.print_exc()
     _date_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
                  bound, path_run, li_table, li_raw)
+    phase_done("the flat types: K3's 128-bit folds, 2-byte lanes, q1d, q1, "
+               "dates")
+    _agg_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
+                bound, path_run, li_table, li_raw, table)
+    phase_done("the aggregates: K3's first and last, K23, qg1-qg4")
     del li_table, li_raw
 
     try:
@@ -8421,7 +9167,7 @@ def main() -> int:
         traceback.print_exc()
     print(f"types phases: {time.perf_counter() - t_types:.1f} s")
 
-    phase_done("the flat types: K3's 128-bit folds, 2-byte lanes, q1d, q1, qn")
+    phase_done("the flat types: qn")
     _nested_phases(torch, dev, card, launches, kernel_rows, failures,
                    cuda_ms, bound, path_run)
     phase_done("the nested types")
@@ -8542,7 +9288,25 @@ def main() -> int:
         "qd2": ("date_fields",),
         "qd2_window": ("sort_order", "segment_reduce_sorted"),
         "qd2_subquery": ("date_fields", "compact_rows", "sort_order",
-                         "segment_reduce_sorted")}
+                         "segment_reduce_sorted"),
+        # the aggregates
+        "qg1": ("sort_order", "segment_reduce_sorted", "compact_rows"),
+        "qg1_4": ("sort_order", "segment_reduce_sorted", "compact_rows"),
+        "qg2": ("sort_order", "segment_reduce_sorted", "compact_rows",
+                "string_hashes", "gather_strings"),
+        "qg2_4": ("sort_order", "segment_reduce_sorted", "compact_rows",
+                  "string_hashes", "gather_strings", "span_rows"),
+        "qg3_pct": ("sort_order", "segment_reduce_sorted", "compact_rows",
+                    "string_hashes"),
+        "qg3_pct_4": ("sort_order", "segment_reduce_sorted", "compact_rows",
+                      "string_hashes", "span_rows"),
+        "qg3_pivot": ("date_fields", "sort_order", "segment_reduce_sorted"),
+        "qg3_pivot_4": ("date_fields", "sort_order",
+                        "segment_reduce_sorted"),
+        "qg4": ("sort_order", "gather_rows", "segment_scan", "run_ends",
+                "frame_pick", "scatter_rows"),
+        "qg4_4": ("sort_order", "gather_rows", "segment_scan", "run_ends",
+                  "frame_pick", "scatter_rows")}
     # every download through DeviceToHostExec is the packed fetch now
     for run in ("dataframe", "q2", "q6", "q1_4", "q1x", "q1x_4", "q5",
                 "q5_4", "qs1", "qs1_4", "qs2", "qs3", "qs4", "qs4_topn",
@@ -8556,7 +9320,9 @@ def main() -> int:
                 "qn_sort", "qn_topn", "qn_write", "qa1", "qa1_4", "qa2",
                 "qa3", "qa3_4", "qa4", "qa5_union", "qa5_parquet",
                 "qa5_cache", "qt1", "qt2", "qt3", "qt4", "qd1", "qd1_4",
-                "qd2", "qd2_window", "qd2_subquery"):
+                "qd2", "qd2_window", "qd2_subquery", "qg1", "qg1_4", "qg2",
+                "qg2_4", "qg3_pct", "qg3_pct_4", "qg3_pivot", "qg3_pivot_4",
+                "qg4", "qg4_4"):
         path_kernels[run] += ("lane_stats", "pack_lanes")
     for run, names in path_kernels.items():
         if run not in launches:
@@ -8577,7 +9343,8 @@ def main() -> int:
         # launches on the main path each kernel belongs to: q1 for K1-K3,
         # q2 for K4-K7, q3 for K8-K10, q4 for K11-K13, qs2 for K14, the
         # 2^20-row F.hash for K15, qs4 for K16 and K17, qa1 for K18, qt1
-        # for K19, qt3 for K20, qt4 for K21, qd1 for K22
+        # for K19, qt3 for K20, qt4 for K21, qd1 for K22, qg2 for K3's
+        # first and last, qg4 for K23
         run_of = {"key_hash": "q2", "join_probe": "q2", "expand_ends": "q2",
                   "expand_pairs": "q2", "gather_rows": "q3",
                   "segment_reduce_sorted_minmax": "q1x",
@@ -8595,12 +9362,16 @@ def main() -> int:
                   "expand_pairs_int16": "q2",
                   "span_rows": "qa1", "string_find": "qt1",
                   "utf8_cut": "qt3", "string_map": "qt4",
-                  "date_fields": "qd1"}
+                  "date_fields": "qd1",
+                  "segment_reduce_sorted_first_last": "qg2",
+                  "frame_pick": "qg4"}
         counted_as = {"segment_reduce_sorted_minmax": "segment_reduce_sorted",
                       "gather_strings_flags": "gather_strings",
                       "segment_reduce_sorted_distinct":
                           "segment_reduce_sorted",
                       "segment_reduce_sorted_128": "segment_reduce_sorted",
+                      "segment_reduce_sorted_first_last":
+                          "segment_reduce_sorted",
                       **{f"{k}_int16": k for k in (
                           "compact_rows", "gather_rows", "scatter_rows",
                           "pack_lanes", "expand_pairs")}}

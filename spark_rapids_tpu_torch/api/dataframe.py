@@ -6,8 +6,8 @@ select_expr_window, with_column, filter / where, group_by / groupBy,
 agg, join, union / unionAll, distinct, drop, with_column_renamed,
 repartition, sample, order_by / orderBy / sort, sort_within_partitions,
 limit, cache / persist, unpersist, is_cached, collect, to_pandas, count,
-show, explain and write; GroupedData's agg, count, sum, avg, min and
-max.  ``cache()`` registers the DataFrame's plan with the process-wide
+show, explain and write; GroupedData's agg, pivot, count, sum, avg,
+min and max.  ``cache()`` registers the DataFrame's plan with the process-wide
 CacheManager (io/cached_batch.py) until ``unpersist()``: the next query
 over it materializes parquet blobs, later ones scan them; under a Spark
 3.0.x dialect (``spark.rapids.tpu.sparkVersion``) it does nothing.
@@ -242,6 +242,7 @@ class GroupedData:
     def __init__(self, grouping: List[Expression], df: DataFrame):
         self.grouping = grouping
         self.df = df
+        self._pivot = None
 
     def agg(self, *aggs) -> DataFrame:
         out = []
@@ -254,8 +255,51 @@ class GroupedData:
             if not isinstance(e, AggregateExpression):
                 raise TypeError(f"not an aggregate: {e}")
             out.append(AggregateExpression(e.func, name or e.name))
+        if self._pivot is not None:
+            out = self._expand_pivot_aggs(out)
         return DataFrame(L.Aggregate(self.grouping, out, self.df._lp),
                          self.df.session)
+
+    def pivot(self, pivot_col, values=None) -> "GroupedData":
+        """``group_by(k).pivot(p, [v1, v2]).agg(...)``: one output column
+        per (pivot value, aggregate), each aggregate over IF(p <=> v, x,
+        NULL), so the pivot is one grouped pass; a first becomes
+        PivotFirst.  With ``values`` omitted they are the distinct values
+        of ``p``, collected first and sorted by (is null, str)."""
+        p = pivot_col.expr if isinstance(pivot_col, Column) else \
+            col(pivot_col).expr if isinstance(pivot_col, str) else pivot_col
+        if values is None:
+            vt = self.df.select(Column(p)).distinct().collect()
+            values = sorted(vt.column(0).to_pylist(),
+                            key=lambda v: (v is None, str(v)))
+        g = GroupedData(self.grouping, self.df)
+        g._pivot = (p, list(values))
+        return g
+
+    def _expand_pivot_aggs(self, aggs):
+        from .. import types as t
+        from ..expr.aggregates import First, PivotFirst
+        from ..expr.conditional import If
+        from ..expr.predicates import EqualNullSafe
+        p, values = self._pivot
+        out = []
+        for v in values:
+            for ae in aggs:
+                fn = ae.func
+                if not fn.children:
+                    raise TypeError(
+                        "pivot aggregates need an input column "
+                        "(count(*) unsupported, use count(col))")
+                name = str(v) if len(aggs) == 1 else f"{v}_{ae.name}"
+                if type(fn) is First:
+                    out.append(AggregateExpression(
+                        PivotFirst(p, fn.child, v), name))
+                    continue
+                masked = fn.with_children(
+                    [If(EqualNullSafe(p, Literal(v)), fn.child,
+                        Literal(None, t.NULL))] + list(fn.children[1:]))
+                out.append(AggregateExpression(masked, name))
+        return out
 
     def count(self) -> DataFrame:
         return self.agg(F.count(lit(1)).alias("count"))

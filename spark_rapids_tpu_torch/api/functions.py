@@ -1,7 +1,10 @@
 """pyspark.sql.functions-style surface of the port.
 
 Counterpart of spark_rapids_tpu/api/functions.py over the port's flat
-types: col, lit; the aggregates sum, avg (mean), count, min, max; the
+types: col, lit; the aggregates sum, avg (mean), count, min, max,
+first, last, stddev (stddev_samp), stddev_pop, variance (var_samp),
+var_pop, collect_list, collect_set, approx_percentile
+(percentile_approx) and pivot_first; the
 scalar functions abs, sqrt, exp, expm1, log (ln, or log(base, x)),
 log2, log10, log1p, pow, atan2, the trigonometric and hyperbolic
 functions, cbrt, rint, degrees, radians, floor, ceil, round, bround,
@@ -65,6 +68,62 @@ def min(c) -> Column:  # noqa: A001
 
 def max(c) -> Column:  # noqa: A001
     return _c(agg.AggregateExpression(agg.Max(_arg(c))))
+
+
+def first(c, ignorenulls: bool = False) -> Column:
+    return _c(agg.AggregateExpression(agg.First(_arg(c), ignorenulls)))
+
+
+def last(c, ignorenulls: bool = False) -> Column:
+    return _c(agg.AggregateExpression(agg.Last(_arg(c), ignorenulls)))
+
+
+def stddev(c) -> Column:
+    return _c(agg.AggregateExpression(agg.StddevSamp(_arg(c))))
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c) -> Column:
+    return _c(agg.AggregateExpression(agg.StddevPop(_arg(c))))
+
+
+def variance(c) -> Column:
+    return _c(agg.AggregateExpression(agg.VarianceSamp(_arg(c))))
+
+
+var_samp = variance
+
+
+def var_pop(c) -> Column:
+    return _c(agg.AggregateExpression(agg.VariancePop(_arg(c))))
+
+
+def collect_list(c) -> Column:
+    return _c(agg.AggregateExpression(agg.CollectList(_arg(c))))
+
+
+def collect_set(c) -> Column:
+    return _c(agg.AggregateExpression(agg.CollectSet(_arg(c))))
+
+
+def approx_percentile(c, percentage: float, accuracy: int = 10000
+                      ) -> Column:
+    """The exact inverted-CDF percentile of each group (``accuracy`` is
+    accepted and not needed)."""
+    return _c(agg.AggregateExpression(
+        agg.ApproximatePercentile(_arg(c), percentage, accuracy)))
+
+
+percentile_approx = approx_percentile
+
+
+def pivot_first(pivot_col, value_col, pivot_value) -> Column:
+    """The first non-null value_col of the rows whose pivot_col is
+    pivot_value: the unit a pivot lowers to."""
+    return _c(agg.AggregateExpression(
+        agg.PivotFirst(_arg(pivot_col), _arg(value_col), pivot_value)))
 
 
 # -- scalar ------------------------------------------------------------------

@@ -101,6 +101,24 @@
 // tile shape, so a result is the same bits from run to run, which the
 // aggregate's stable_merge determinism relies on.
 //
+// The positional kinds, first and last (10 and 11), replace the
+// reference's segment_reduce(xp, "first"|"last", pos, ...) (ops/
+// segmented.py:251; the index that exec/aggregate.py then gathers the
+// column at): per group, the least (greatest) sorted position among the
+// contributing rows.  They read no value lane, only the contributor mask
+// (a bit of the record's mask word, or the mask itself), and fold the
+// sorted position -- never the input row: in the merge stage the order
+// is the canonical one, along which input rows do not increase, and on
+// the run path a group's pieces lie in different runs.  A min (max) of
+// positions is associative and commutative, so the records, direct and
+// run paths, the head and tail partials and the fixup give the same
+// position in any order.  The state is (position, count), as an int64
+// min or max's (value, count); the result is int32 a group, 0 where no
+// row contributed (the host maps it through the order to an input row).
+// The run fold has an instantiation without them (POS false) for the
+// sets that hold none: compiled in, their code cost that fold 4-5 % at
+// q1x's and q1d's calls.
+//
 // The 128-bit kinds (7-9) carry a DECIMAL of more than 18 digits, two
 // lanes an op: the low words (unsigned) and the signed high words.  Sum
 // (kind 7) replaces the reference's ops/segmented.py segment_sum128 (three
@@ -157,6 +175,8 @@ constexpr int kMaxFloat = 6;
 constexpr int kSum128 = 7;
 constexpr int kMin128 = 8;
 constexpr int kMax128 = 9;
+constexpr int kFirst = 10;
+constexpr int kLast = 11;
 constexpr unsigned kPosInf = 1, kNegInf = 2, kNaN = 4;
 constexpr unsigned kLiveBit = 1u << 31;      // in a record's mask word
 constexpr unsigned long long kReady = 1ull << 62, kDone = 2ull << 62;
@@ -173,7 +193,8 @@ struct Words {
 struct Set {
   int count;                               // ops
   int kind[kOpsPerLaunch];
-  int lane[kOpsPerLaunch];                 // index into lanes, -1: count
+  int lane[kOpsPerLaunch];                 // index into lanes, -1: a count
+                                           // or a positional kind
   int mask[kOpsPerLaunch];                 // index into masks
   int lane_hi[kOpsPerLaunch];              // 128-bit kinds: the high words
                                            // (-2: the low words' signs)
@@ -198,12 +219,25 @@ struct Keys {
   const unsigned char* live;               // or null
 };
 
-__host__ __device__ constexpr bool is_extreme(int kind) {
-  return (kind >= kMinInt && kind <= kMaxFloat) || kind == kMin128 ||
-         kind == kMax128;
+__host__ __device__ constexpr bool is_pos(int kind) {
+  return kind == kFirst || kind == kLast;
 }
 
-__host__ __device__ constexpr bool is128(int kind) { return kind >= kSum128; }
+// the kinds whose state is a kept value and its count: min, max, and the
+// positional kinds (a min or max of positions)
+__host__ __device__ constexpr bool is_extreme(int kind) {
+  return (kind >= kMinInt && kind <= kMaxFloat) || kind == kMin128 ||
+         kind == kMax128 || is_pos(kind);
+}
+
+// the kinds whose kept value is its own ordered word (Acc.i)
+__host__ __device__ constexpr bool int_word(int kind) {
+  return kind == kMinInt || kind == kMaxInt || is_pos(kind);
+}
+
+__host__ __device__ constexpr bool is128(int kind) {
+  return kind >= kSum128 && kind <= kMax128;
+}
 
 // A fold of some rows of one op: wrapping int sum, finite float sum,
 // contributor count, and which of +inf / -inf / NaN contributed.  For
@@ -236,8 +270,8 @@ __device__ __forceinline__ long long ordered_word(long long bits) {
 // a float64 lane's word (Acc.f's bits); a 128-bit kind's high word.
 template <int KIND = kMinFloat>
 __device__ __forceinline__ long long word_of(const Acc& a) {
-  return KIND == kMinInt || KIND == kMaxInt ? static_cast<long long>(a.i)
-                                            : __double_as_longlong(a.f);
+  return int_word(KIND) ? static_cast<long long>(a.i)
+                        : __double_as_longlong(a.f);
 }
 
 // a 128-bit kind's high word, kept as Acc.f's bits
@@ -248,7 +282,8 @@ __device__ __forceinline__ double as_hi(long long hi) {
 // Whether word wb is strictly more extreme than wa.
 template <int KIND>
 __device__ __forceinline__ bool keeps(long long wb, long long wa) {
-  return (KIND == kMinInt || KIND == kMinFloat) ? wb < wa : wb > wa;
+  return (KIND == kMinInt || KIND == kMinFloat || KIND == kFirst) ? wb < wa
+                                                                 : wb > wa;
 }
 
 // Whether state b (the later rows) replaces a (both with contributors):
@@ -311,7 +346,7 @@ __device__ __forceinline__ void add_row(Acc& a, bool c, long long bits,
     a.n += c ? 1 : 0;
     return;
   }
-  if (KIND == kMinInt || KIND == kMaxInt) {
+  if (int_word(KIND)) {
     if (c && (a.n == 0 || keeps<KIND>(bits, static_cast<long long>(a.i))))
       a.i = static_cast<unsigned long long>(bits);
     a.n += c ? 1 : 0;
@@ -346,7 +381,9 @@ template <bool W128>
 __device__ __forceinline__ void write_group(const Set& s, int kind, int k,
                                             int g, const Acc& a) {
   s.counts[k][g] = a.n;
-  if (W128 && is128(kind)) {
+  if (is_pos(kind)) {
+    static_cast<int*>(s.sums[k])[g] = a.n > 0 ? static_cast<int>(a.i) : 0;
+  } else if (W128 && is128(kind)) {
     // no contributor: null, canonical zero under it
     static_cast<long long*>(s.sums[k])[g] =
         a.n > 0 ? static_cast<long long>(a.i) : 0ll;
@@ -380,7 +417,7 @@ __device__ __forceinline__ Acc shfl_up(const Acc& a, int off) {
   if (KIND == kSumInt || KIND == kSum128 || is_extreme(KIND))
     r.i = __shfl_up_sync(0xffffffffu, a.i, off);
   if (KIND == kSum128 || KIND == kSumFloat ||
-      (is_extreme(KIND) && KIND != kMinInt && KIND != kMaxInt))
+      (is_extreme(KIND) && !int_word(KIND)))
     r.f = __shfl_up_sync(0xffffffffu, a.f, off);
   if (KIND == kSumFloat)
     r.flags = __shfl_up_sync(0xffffffffu, a.flags, off);
@@ -394,7 +431,7 @@ __device__ __forceinline__ Acc shfl_down_k(const Acc& a, int off) {
   if (KIND == kSumInt || KIND == kSum128 || is_extreme(KIND))
     r.i = __shfl_down_sync(0xffffffffu, a.i, off);
   if (KIND == kSum128 || KIND == kSumFloat ||
-      (is_extreme(KIND) && KIND != kMinInt && KIND != kMaxInt))
+      (is_extreme(KIND) && !int_word(KIND)))
     r.f = __shfl_down_sync(0xffffffffu, a.f, off);
   if (KIND == kSumFloat)
     r.flags = __shfl_down_sync(0xffffffffu, a.flags, off);
@@ -694,16 +731,28 @@ struct RunValues {
   }
 };
 
+// The sorted positions of a thread's rows: consecutive in a tile of
+// sorted rows; on the run path each virtual row's, from its piece
+// (RunPos, after the piece table).
+struct TilePos {
+  int first;                 // positions fit 32 bits: n is an int
+  __device__ __forceinline__ long long operator()(int j) const {
+    return first + j;
+  }
+};
+
+
 // Op k over the thread's rows: the segments that open and close among
 // them are closed; a warp-wide segmented scan (shuffles, no barrier)
 // closes the segment open at each thread's first boundary where an
 // earlier thread of the warp holds one, and leaves the rest to
 // finish_op.  A warp with no boundary only reduces its rows for the
 // block's end.  hvals: a 128-bit kind's high words (unread by the other
-// kinds), or with sign the signs of vals.
-template <int KIND, int K, class Values, class Dest>
+// kinds), or with sign the signs of vals; pos: the rows' sorted positions,
+// which a positional kind folds in place of a value.
+template <int KIND, int K, class Values, class Pos, class Dest>
 __device__ void fold_op(const Set& s, int k, Values vals, Values hvals,
-                        bool sign, unsigned c, const View& v,
+                        bool sign, Pos pos, unsigned c, const View& v,
                         const Dest& dst, Defer* d) {
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -720,7 +769,8 @@ __device__ void fold_op(const Set& s, int k, Values vals, Values hvals,
       ++seen;
       run = zero_acc();
     }
-    const long long x = KIND == kCount ? 0ll : vals(j);
+    const long long x = KIND == kCount ? 0ll : is_pos(KIND) ? pos(j)
+                                                            : vals(j);
     add_row<KIND>(run, (c >> j) & 1u, x,
                   is128(KIND) ? (sign ? x >> 63 : hvals(j)) : 0ll);
   }
@@ -782,8 +832,10 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
   dst.template close<KIND>(s, k, dst.count - 1, pre.a);
 }
 
-#define SRT_KINDS64(kind, CALL)       \
-  switch (kind) {                     \
+// The kinds without the positional ones (the run fold's instantiation
+// for sets that hold none, RUN_FOLD_POS below), then with them.
+#define SRT_KINDS64_BASE(kind, CALL)        \
+  switch (kind) {                           \
     case kSumInt: CALL(kSumInt); break;     \
     case kSumFloat: CALL(kSumFloat); break; \
     case kMinInt: CALL(kMinInt); break;     \
@@ -791,6 +843,21 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
     case kMinFloat: CALL(kMinFloat); break; \
     case kMaxFloat: CALL(kMaxFloat); break; \
     default: CALL(kCount);                  \
+  }
+
+#define SRT_KINDS64(kind, CALL)             \
+  switch (kind) {                           \
+    case kFirst: CALL(kFirst); break;       \
+    case kLast: CALL(kLast); break;         \
+    default: SRT_KINDS64_BASE(kind, CALL)   \
+  }
+
+#define SRT_KINDS_BASE(kind, CALL)          \
+  switch (kind) {                           \
+    case kSum128: CALL(kSum128); break;     \
+    case kMin128: CALL(kMin128); break;     \
+    case kMax128: CALL(kMax128); break;     \
+    default: SRT_KINDS64_BASE(kind, CALL)   \
   }
 
 #define SRT_KINDS(kind, CALL)               \
@@ -1053,6 +1120,7 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
   }
 
   // every op of the set, each input read once a row
+  const TilePos tpos{static_cast<int>(v.first)};
   if (REC) {
     for (int k = 0; k < s.count; ++k) {
       unsigned c = 0;
@@ -1065,7 +1133,7 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
           my_rec + (s.lane_hi[k] >= 0 ? s.lane_off[s.lane_hi[k]] : 0), R};
       const bool sign = s.lane_hi[k] == -2;
 #define SRT_FOLD(KIND) \
-  fold_op<KIND, K>(s, k, vals, hvals, sign, c, v, dst, defer + k)
+  fold_op<KIND, K>(s, k, vals, hvals, sign, tpos, c, v, dst, defer + k)
       if constexpr (W128) {
         SRT_KINDS(s.kind[k], SRT_FOLD)
       } else {
@@ -1104,7 +1172,7 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         const unsigned c = s_bits[s.mask[k] * kThreads + tid];
         const bool sign = s.lane_hi[k] == -2;
 #define SRT_FOLD(KIND) \
-  fold_op<KIND, K>(s, k, vals, vals, sign, c, v, dst, defer + k)
+  fold_op<KIND, K>(s, k, vals, vals, sign, tpos, c, v, dst, defer + k)
         if constexpr (W128) {
           SRT_KINDS(s.kind[k], SRT_FOLD)
         } else {
@@ -1135,15 +1203,15 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         const unsigned c = s_bits[s.mask[k] * kThreads + tid];
         switch (s.kind[k]) {
           case kSum128:
-            fold_op<kSum128, K>(s, k, vals, hvals, false, c, v, dst,
+            fold_op<kSum128, K>(s, k, vals, hvals, false, tpos, c, v, dst,
                                 defer + k);
             break;
           case kMin128:
-            fold_op<kMin128, K>(s, k, vals, hvals, false, c, v, dst,
+            fold_op<kMin128, K>(s, k, vals, hvals, false, tpos, c, v, dst,
                                 defer + k);
             break;
           default:
-            fold_op<kMax128, K>(s, k, vals, hvals, false, c, v, dst,
+            fold_op<kMax128, K>(s, k, vals, hvals, false, tpos, c, v, dst,
                                 defer + k);
         }
       }
@@ -1265,6 +1333,7 @@ struct PieceTable {
   int prev[kFewRuns];
 };
 
+
 __device__ void load_pieces(const Scratch& sc, const int* __restrict__ order,
                             int nruns, int blocks, PieceTable* t) {
   const int tid = threadIdx.x;
@@ -1293,6 +1362,19 @@ __device__ __forceinline__ int piece_of(const PieceTable* t, int v) {
   }
   return lo;
 }
+
+// A run-path thread's sorted positions, found only where a positional
+// kind reads them (a search of the piece table a row), so the fold keeps
+// no register for them.
+struct RunPos {
+  const PieceTable* t;
+  __device__ __forceinline__ long long operator()(int j) const {
+    const int v = static_cast<int>(threadIdx.x) * kDirectRows + j;
+    if (v >= t->at[t->count]) return 0;          // past the block's rows
+    const int r = piece_of(t, v);
+    return t->lo[r] + (v - t->at[r]);
+  }
+};
 
 // The block's virtual rows' input rows, less the block's first, into
 // s_rows: read through the order, coalesced (a piece is a stretch of
@@ -1504,8 +1586,10 @@ __host__ __device__ constexpr int run_stage_bytes(int nmasks) {
 // blocks an SM (85 registers, two lanes staged a batch): the op folds
 // are chains of dependent shuffles and adds, and the third block's warps
 // fill their stalls (two blocks of four staged lanes took 28 % longer at
-// q1d's call).
-template <bool W128>
+// q1d's call).  POS: the set holds a positional kind; a set without one
+// runs an instantiation without their code (compiled in, it cost the
+// fold 4-5 % at q1x's and q1d's calls, k3_ab.py).
+template <bool W128, bool POS>
 __global__ void __launch_bounds__(kThreads, 3)
 run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
                 int nruns, int blocks, Scratch sc, int* first_row,
@@ -1615,6 +1699,7 @@ run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
   const RunDest dst{nb, (long long)b * s.count,
                     (long long)blocks * s.count, s_piece, s_slot, sc.head,
                     sc.tail};
+  const RunPos rpos{&s_t};
   const int* my_rows = s_rows + padded(v0);   // a thread's 8 rows are
                                               // contiguous in s_rows
   for (int bt = -1; bt < s_plan.batches; ++bt) {
@@ -1637,11 +1722,15 @@ run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
       const bool sign = s.lane_hi[k] == -2;
       const unsigned c = s_bits[s.mask[k] * kThreads + tid];
 #define SRT_FOLD(KIND) \
-  fold_op<KIND, K>(s, k, vals, hvals, sign, c, v, dst, defer + k)
-      if constexpr (W128) {
+  fold_op<KIND, K>(s, k, vals, hvals, sign, rpos, c, v, dst, defer + k)
+      if constexpr (W128 && POS) {
         SRT_KINDS(s.kind[k], SRT_FOLD)
-      } else {
+      } else if constexpr (W128) {
+        SRT_KINDS_BASE(s.kind[k], SRT_FOLD)
+      } else if constexpr (POS) {
         SRT_KINDS64(s.kind[k], SRT_FOLD)
+      } else {
+        SRT_KINDS64_BASE(s.kind[k], SRT_FOLD)
       }
 #undef SRT_FOLD
     }
@@ -1651,10 +1740,14 @@ run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
     const int k = item / (kWarps + 1);
 #define SRT_FINISH(KIND) \
   finish_op<KIND>(s, k, item - k * (kWarps + 1), defer + k, dst)
-    if constexpr (W128) {
+    if constexpr (W128 && POS) {
       SRT_KINDS(s.kind[k], SRT_FINISH)
-    } else {
+    } else if constexpr (W128) {
+      SRT_KINDS_BASE(s.kind[k], SRT_FINISH)
+    } else if constexpr (POS) {
       SRT_KINDS64(s.kind[k], SRT_FINISH)
+    } else {
+      SRT_KINDS64_BASE(s.kind[k], SRT_FINISH)
     }
 #undef SRT_FINISH
   }
@@ -1730,6 +1823,8 @@ __device__ void fixup_ops(const Set& s, int t, int slot, int lo, int hi,
 #define SRT_FIX(KIND) \
   fixup_op<KIND, WIDE>(s, k, t, slot, lo, hi, parts, tail, s_warp)
     switch (s.kind[k]) {
+      case kFirst: SRT_FIX(kFirst); break;
+      case kLast: SRT_FIX(kLast); break;
       case kMinInt: SRT_FIX(kMinInt); break;
       case kMaxInt: SRT_FIX(kMaxInt); break;
       case kMinFloat: SRT_FIX(kMinFloat); break;
@@ -1793,6 +1888,8 @@ fixup_heads_kernel(Set s, const int* tile_counts, int tiles,
     if (lane == 0) block_heads[(long long)blockIdx.x * s.count + k] = a;    \
   }
     switch (s.kind[k]) {
+      case kFirst: SRT_HEADS(kFirst); break;
+      case kLast: SRT_HEADS(kLast); break;
       case kMinInt: SRT_HEADS(kMinInt); break;
       case kMaxInt: SRT_HEADS(kMaxInt); break;
       case kMinFloat: SRT_HEADS(kMinFloat); break;
@@ -1965,7 +2062,7 @@ cudaError_t run_smem(Kernel kernel, int bytes) {
 // The run path's launches for one set: on the first set the pieces, the
 // starts and the pieces' first slots (flag: groups + 1), then the fold
 // and the fixup over the pieces.
-template <bool W128>
+template <bool W128, bool POS>
 int launch_runs(const Set& s, const Keys& keys, const int* order, int n,
                 int first_set, const Runs& runs, const Scratch& sc,
                 int blocks, int* first_row, int* groups,
@@ -1990,9 +2087,9 @@ int launch_runs(const Set& s, const Keys& keys, const int* order, int n,
   }
   const int smem = run_stage_bytes(s.nmasks) +
                    (s.count > 0 ? s.count : 1) * static_cast<int>(sizeof(Defer));
-  err = run_smem(run_fold_kernel<W128>, smem);
+  err = run_smem(run_fold_kernel<W128, POS>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  run_fold_kernel<W128><<<blocks, kThreads, smem, stream>>>(
+  run_fold_kernel<W128, POS><<<blocks, kThreads, smem, stream>>>(
       s, order, n, first_set, runs.count, blocks, sc, first_row, groups + 1);
   const int fix_blocks = (pieces + kFixTiles - 1) / kFixTiles;
   fixup_heads_kernel<W128><<<fix_blocks, kThreads, 0, stream>>>(
@@ -2045,10 +2142,12 @@ extern "C" int srt_segment_reduce_varying(const long long* const* words,
 // inputs in input order, sorted row i being input row order[i].  Per op
 // k < nops (<= 16): kind[k] (0 count, 1 int64 sum, 2 float64 sum, 3 / 4
 // int64 min / max, 5 / 6 float64 min / max, 7 128-bit sum, 8 / 9 128-bit
-// min / max), op_lane[k] (index into lanes, -1 for a count; a 128-bit
-// kind's low words), op_lane_hi[k] (a 128-bit kind's high words; -2
-// for a 128-bit sum whose high words are the low words' signs, a DECIMAL64
-// input; else -1), op_mask[k] (index into masks: its contributor mask, also its bit in
+// min / max, 10 / 11 first / last: the least / greatest sorted position of
+// a contributing row, int32 into sums[k]), op_lane[k] (index into lanes,
+// -1 for a count or a positional kind; a 128-bit kind's low words),
+// op_lane_hi[k] (a 128-bit kind's high words; -2 for a 128-bit sum whose
+// high words are the low words' signs, a DECIMAL64 input; else -1),
+// op_mask[k] (index into masks: its contributor mask, also its bit in
 // a record's mask word), sums[k] (the lane's type, [max(n, 1)], null for
 // a count; min and max write the kept value's bits, 0 where no row
 // contributed; a 128-bit kind the low words), sums_hi[k] (a 128-bit
@@ -2104,8 +2203,9 @@ extern "C" int srt_segment_reduce_set(
   Set s;
   s.count = nops;
   for (int k = 0; k < nops; ++k) {
-    if (kind[k] < kCount || kind[k] > kMax128 || op_lane[k] < -1 ||
-        op_lane[k] >= nlanes || (kind[k] != kCount) != (op_lane[k] >= 0) ||
+    if (kind[k] < kCount || kind[k] > kLast || op_lane[k] < -1 ||
+        op_lane[k] >= nlanes ||
+        (kind[k] != kCount && !is_pos(kind[k])) != (op_lane[k] >= 0) ||
         op_mask[k] < 0 || op_mask[k] >= nmasks ||
         (is128(kind[k])
              ? (!sums_hi[k] ||
@@ -2179,10 +2279,14 @@ extern "C" int srt_segment_reduce_set(
         return static_cast<int>(cudaErrorInvalidValue);
       runs.begin[r] = run_begin[r];
     }
-    return w128 ? launch_runs<true>(s, keys, order, n, first_set, runs, sc,
-                                    tiles, first_row, groups, stream)
-                : launch_runs<false>(s, keys, order, n, first_set, runs, sc,
-                                     tiles, first_row, groups, stream);
+    bool pos = false;
+    for (int k = 0; k < nops; ++k) pos |= is_pos(kind[k]);
+#define SRT_RUNS(W, P)                                                     \
+  launch_runs<W, P>(s, keys, order, n, first_set, runs, sc, tiles, first_row, \
+                    groups, stream)
+    return w128 ? (pos ? SRT_RUNS(true, true) : SRT_RUNS(true, false))
+                : (pos ? SRT_RUNS(false, true) : SRT_RUNS(false, false));
+#undef SRT_RUNS
   }
   if (first_set) {
     err = cudaMemsetAsync(sc.state, 0, (1 + (size_t)tiles) * 8, stream);

@@ -21,6 +21,7 @@ from __future__ import annotations
 import decimal
 import functools
 import itertools
+import math
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import pyarrow as pa
@@ -34,12 +35,15 @@ from ..columnar.device import (DeviceBatch, DeviceColumn, batch_to_device,
                                bucket_for, column_to_arrow)
 from ..columnar.interop import to_arrow_schema, to_arrow_type
 from ..expr.aggregates import (COMPLETE, PARTIAL, AggregateExpression,
-                               Average, Count, Max, Min, Sum, bind_aggregate)
+                               ApproximatePercentile, Average, CollectList,
+                               CollectSet, Count, First, Last, Max, Min,
+                               PivotFirst, StddevPop, StddevSamp, Sum,
+                               VariancePop, VarianceSamp, bind_aggregate)
 from ..expr.cast import Cast
 from ..expr.core import (ColumnValue, EvalContext, Expression, ScalarValue,
                          bind_expression, make_column, output_name)
 from ..ops import segmented as seg
-from ..ops.carry import sort_order, sort_order_and_varying
+from ..ops.carry import compact_lanes, sort_order, sort_order_and_varying
 from ..ops.gather import gather_columns
 from .base import CPU, MERGES, Exec, ExecContext
 from .concat import concat_batches
@@ -50,6 +54,8 @@ _KIND_EXTREME = {("min", False): 3, ("max", False): 4, ("min", True): 5,
                  ("max", True): 6}
 # over a (lo, hi) pair of lanes: a DECIMAL of more than 18 digits
 _KIND_128 = {"sum": 7, "min": 8, "max": 9}
+# the sorted position of a group's first or last contributing row
+_KIND_POS = {"first": 10, "last": 11}
 
 
 class _Sign:
@@ -70,15 +76,22 @@ SIGN = _Sign()
 # ---------------------------------------------------------------------------
 
 def _op_names(values, ops) -> List[str]:
-    """Each op's name: ``count`` for a None value, else ``ops[k]`` (sum,
-    min or max; every value sums when ``ops`` is None)."""
+    """Each op's name: ``first`` or ``last`` (a positional op, which reads
+    no value), ``count`` for another op with a None value, else
+    ``ops[k]`` (sum, min or max; every value sums when ``ops`` is
+    None)."""
     if ops is None:
         ops = ["sum"] * len(values)
     if len(ops) != len(values):
         raise ValueError("segment_reduce_sorted: one op per value lane")
     names = []
     for v, op in zip(values, ops):
-        if v is None:
+        if op in _KIND_POS:
+            if v is not None:
+                raise ValueError(f"segment_reduce_sorted: {op} reads no "
+                                 f"value lane")
+            names.append(op)
+        elif v is None:
             names.append("count")
         elif op in ("sum", "min", "max"):
             names.append(op)
@@ -99,7 +112,8 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
     """Plain version of K3: the lanes put in key order by index_select,
     then boundaries, segment ids, index_add_ and, for min and max,
     ``ops/segmented.py:segment_reduce``; over a (lo, hi) pair
-    ``segment_sum128`` and ``segment_extreme128``.  See
+    ``segment_sum128`` and ``segment_extreme128``; for first and last
+    ``segment_pick``.  See
     ``segment_reduce_sorted`` for the arguments and the result
     (``varying`` is a hint the plain version does not need)."""
     names = _op_names(values, ops)
@@ -141,6 +155,11 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
             sums.append(out)
             counts.append(cnt)
             continue
+        if op in _KIND_POS:
+            pos, cnt = seg.segment_pick(op, ids, groups, c & grouped)
+            sums.append(_input_rows(pos, cnt, order))
+            counts.append(cnt)
+            continue
         c = c & grouped
         idx = ids[c]
 
@@ -173,6 +192,16 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
     if order is not None and n > 0:
         first_row = order.index_select(0, first_row.to(torch.int64))
     return first_row, sums, counts, groups
+
+
+def _input_rows(pos: torch.Tensor, cnt: torch.Tensor,
+                order: Optional[torch.Tensor]) -> torch.Tensor:
+    """A positional op's result: the input row (int32) of each group's
+    picked sorted position, 0 where no row contributed."""
+    pos = pos.to(torch.int64)
+    rows = pos if order is None else order.index_select(0, pos).to(
+        torch.int64)
+    return torch.where(cnt > 0, rows, torch.zeros_like(rows)).to(torch.int32)
 
 
 def _lanes(words, live, values, contribs) -> List[torch.Tensor]:
@@ -457,7 +486,9 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     op k, ``contribs[k]`` marks the rows that contribute and
     ``values[k]`` is the int64 or float64 lane to reduce (None for a
     count) by ``ops[k]``: ``sum`` (every op when ``ops`` is None),
-    ``min`` or ``max``.  Returns (first_row int32[G], sums, counts
+    ``min`` or ``max``; or ``first`` or ``last`` with a None value: the
+    group's least or greatest sorted position whose contributor flag is
+    set (K3's positional kinds), returned as its input row (int32).  Returns (first_row int32[G], sums, counts
     int64[G], G), groups in key order, ``first_row[g]`` the input row of
     group g's first sorted row: int64 sums wrap mod 2^64; float64 sums
     add the finite values and are NaN if any NaN or both infinities
@@ -519,7 +550,8 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     st = kernels.stream(lanes[0])
     m = max(n, 1)
     lib = kernels.library("segment_reduce")
-    kinds = [_KIND_COUNT if op == "count" else
+    kinds = [_KIND_POS[op] if op in _KIND_POS else
+             _KIND_COUNT if op == "count" else
              _KIND_128[op] if h is not None else
              _KIND_EXTREME[op, v.dtype == torch.float64]
              if op in ("min", "max") else
@@ -547,8 +579,10 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                 word_ptrs.data_ptr(), len(words) - skip,
                 None if order is None else order.data_ptr(), n,
                 varying.data_ptr() + 4 * skip, st), "segment_reduce_sorted")
-    sums = [None if v is None else torch.empty(m, dtype=v.dtype, device=dev)
-            for v in values]
+    sums = [torch.empty(m, dtype=torch.int32, device=dev) if op in _KIND_POS
+            else None if v is None else torch.empty(m, dtype=v.dtype,
+                                                    device=dev)
+            for v, op in zip(values, names)]
     sums_hi = [None if h is None else torch.empty(m, dtype=torch.int64,
                                                   device=dev) for h in his]
     counts = [torch.empty(m, dtype=torch.int64, device=dev) for _ in values]
@@ -603,10 +637,12 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     if plan.run_path and bad:
         raise RuntimeError("segment_reduce_sorted: the run path takes a "
                            "permutation for the order")
-    return (first_row[:g], [None if s is None else s[:g] if h is None
-                            else (s[:g], h[:g])
-                            for s, h in zip(sums, sums_hi)],
-            [c[:g] for c in counts], g)
+    return (first_row[:g], [
+        None if s is None else
+        _input_rows(s[:g], c[:g], order) if op in _KIND_POS else
+        s[:g] if h is None else (s[:g], h[:g])
+        for s, h, c, op in zip(sums, sums_hi, counts, names)],
+        [c[:g] for c in counts], g)
 
 
 segment_reduce_sorted.launches = 0
@@ -691,45 +727,126 @@ def _extreme_lane(col: DeviceColumn) -> torch.Tensor:
     return col.data.to(torch.int64)
 
 
+_POSITIONAL = {"first": "first", "last": "last", "first_any": "first",
+               "last_any": "last"}
+_COLLECT = ("collect_list", "collect_set", "collect_concat",
+            "collect_concat_set")
+
+
 def k3_ops(vals: List[DeviceColumn], ops: List[str],
            wide: Optional[Sequence] = None):
     """K3's value lanes, contributor masks and op names for ``vals``
-    reduced by ``ops`` (sum, countvalid, min, max), for each op the index
-    of the K3 op whose result it takes, and K3's high lanes (a DECIMAL128
-    column's ``data_hi``, SIGN for a DECIMAL64 sum into a DECIMAL128
-    buffer, ``wide[i]`` set, else None).  A count of a lane's valid rows
-    is also the contributor count of an earlier op over the same validity
-    lane (avg's sum and count), so K3 folds that lane once; a min and a
-    max of one column read one widened lane."""
+    reduced by ``ops`` (sum, countvalid, min, max, the positional ops and
+    the collects), for each op the index of the K3 op whose result it
+    takes, and K3's high lanes (a DECIMAL128 column's ``data_hi``, SIGN
+    for a DECIMAL64 sum into a DECIMAL128 buffer, ``wide[i]`` set, else
+    None).  A count of a lane's valid rows is also the contributor count
+    of an earlier op over the same validity lane (avg's sum and count),
+    so K3 folds that lane once; a min and a max of one column read one
+    widened lane.  ``first`` and ``last`` are positional ops over the
+    column's validity, ``first_any`` and ``last_any`` over a mask of
+    every row (one for the call); a collect_list or collect_set counts
+    its valid rows, and a collect's merge sums its arrays' lengths."""
     k3_vals, k3_contribs, k3_names, take, by_lane = [], [], [], [], {}
     k3_his, extreme = [], {}
+    every = None
     wide = wide or [None] * len(vals)
     for v, op, w in zip(vals, ops, wide):
         lane = v.validity.data_ptr()
-        if op == "countvalid" and lane in by_lane:
+        counts_valid = op in ("countvalid", "collect_list", "collect_set")
+        if counts_valid and lane in by_lane:
             take.append(by_lane[lane])
             continue
-        by_lane.setdefault(lane, len(k3_vals))
         take.append(len(k3_vals))
-        if op == "countvalid" or v.offsets is not None:
-            # a string min or max: K3 counts its contributors, and the
-            # value comes from the ordered pick (_ordered_pick)
-            k3_vals.append(None)
-            k3_names.append("sum")
-            k3_contribs.append(v.validity)
-            k3_his.append(None)
-            continue
-        elif op == "sum" or v.data_hi is not None:
-            k3_vals.append(v.data)
+        value, name, mask, hi = None, "sum", v.validity, None
+        if op in _POSITIONAL:
+            name = _POSITIONAL[op]
+            if op.endswith("_any"):
+                if every is None:
+                    every = torch.ones_like(v.validity)
+                mask = every
+        elif op in ("collect_concat", "collect_concat_set"):
+            value = (v.offsets[1:] - v.offsets[:-1]).to(torch.int64)
         else:
-            key = (v.data.data_ptr(), v.data.dtype, v.data.shape)
-            if key not in extreme or not v.data.numel():
-                extreme[key] = _extreme_lane(v)
-            k3_vals.append(extreme[key])
-        k3_his.append(SIGN if w is not None and op == "sum" else v.data_hi)
-        k3_names.append("sum" if op == "countvalid" else op)
-        k3_contribs.append(v.validity)
+            by_lane.setdefault(lane, len(k3_vals))
+            # a count, or a string min or max: K3 counts the contributors,
+            # and the value comes from the ordered pick (_ordered_pick)
+            if not counts_valid and v.offsets is None:
+                name = op
+                hi = SIGN if w is not None and op == "sum" else v.data_hi
+                if op == "sum" or v.data_hi is not None:
+                    value = v.data
+                else:
+                    key = (v.data.data_ptr(), v.data.dtype, v.data.shape)
+                    if key not in extreme or not v.data.numel():
+                        extreme[key] = _extreme_lane(v)
+                    value = extreme[key]
+        k3_vals.append(value)
+        k3_names.append(name)
+        k3_contribs.append(mask)
+        k3_his.append(hi)
     return k3_vals, k3_contribs, k3_names, take, k3_his
+
+
+def _collected(vc: DeviceColumn, op: str, order: Optional[torch.Tensor],
+               cnt: torch.Tensor, cap: int) -> DeviceColumn:
+    """A collect op's ARRAY column of G groups padded to ``cap``: each
+    group's elements one after another, groups in key order, from the
+    per-group element counts ``cnt`` (K3's).  collect_list keeps each
+    group's valid values in sorted order: the order's valid rows moved
+    to the front by K1, then gathered; collect_concat gathers the arrays
+    in sorted order, which lays their elements out group after group
+    (K16's offsets, K18's child rows).  The set ops then drop repeats
+    (``_dedupe``)."""
+    dev = cnt.device
+    rows = order if order is not None else torch.arange(
+        vc.validity.shape[0], dtype=torch.int32, device=dev)
+    if op in ("collect_list", "collect_set"):
+        keep = vc.validity if order is None else \
+            vc.validity.index_select(0, order.to(torch.int64))
+        (moved,), kept = compact_lanes(keep, [rows], [False])
+        child = gather_columns([vc], moved[:kept])[0]
+        elem_type = vc.dtype
+    else:
+        child = gather_columns([vc], rows)[0].children[0]
+        elem_type = vc.dtype.element_type
+    offs = torch.zeros(cnt.shape[0] + 1, dtype=torch.int32, device=dev)
+    offs[1:] = torch.cumsum(cnt, 0).to(torch.int32)
+    if op in ("collect_set", "collect_concat_set"):
+        child, offs = _dedupe(child, offs)
+    g = cnt.shape[0]
+    return _padded_column(DeviceColumn(
+        t.ArrayType(elem_type), None, torch.ones(g, dtype=torch.bool,
+                                                 device=dev),
+        offs, None, [child]), cap)
+
+
+def _dedupe(child: DeviceColumn, offs: torch.Tensor):
+    """A collected child's repeats within each group dropped: the
+    elements sorted (K2) by (group, value words: the grouping words, as
+    the reference's), the first of each run kept and moved to the front
+    (K1), and each group's new count.  Returns (child, offsets)."""
+    total = int(offs[-1])
+    dev = offs.device
+    if total == 0:
+        return child, offs
+    pos = torch.arange(total, dtype=torch.int64, device=dev)
+    grp = torch.searchsorted(offs[1:].to(torch.int64), pos, right=True)
+    vwords = seg.key_words_for_column(_prefix(child, total))
+    order = sort_order([grp] + vwords)
+    idx = order.to(torch.int64)
+    first = seg.segment_boundaries([grp[idx]] + [w[idx] for w in vwords],
+                                   torch.ones(total, dtype=torch.bool,
+                                              device=dev))
+    (moved, grp_kept), kept = compact_lanes(
+        first, [order, grp.to(torch.int32)[idx]], [False, False])
+    groups = offs.shape[0] - 1
+    cnt = torch.zeros(groups, dtype=torch.int64, device=dev).index_add_(
+        0, grp_kept[:kept].to(torch.int64),
+        torch.ones(kept, dtype=torch.int64, device=dev))
+    new_offs = torch.zeros_like(offs)
+    new_offs[1:] = torch.cumsum(cnt, 0).to(offs.dtype)
+    return gather_columns([child], moved[:kept])[0], new_offs
 
 
 def _group_reduce(key_cols: List[DeviceColumn],
@@ -739,8 +856,9 @@ def _group_reduce(key_cols: List[DeviceColumn],
                   wide: Optional[Sequence] = None
                   ) -> Tuple[List[DeviceColumn], List[DeviceColumn], int]:
     """Group the first ``num_rows`` rows by ``key_cols`` and reduce each
-    value column with its op (``sum``, ``countvalid``, ``min`` or
-    ``max``; a min or max keeps the column's type; ``wide[i]``, where
+    value column with its op (``sum``, ``countvalid``, ``min``, ``max``,
+    ``first``, ``last``, ``first_any``, ``last_any``, or a collect; a
+    min, max, first or last keeps the column's type; ``wide[i]``, where
     set, is the DECIMAL128 type that the DECIMAL64 column i sums into).
     ``order``, when given, is a permutation that already sorts the rows
     by key; else the rows are sorted here (K2).  Returns (key columns,
@@ -750,12 +868,13 @@ def _group_reduce(key_cols: List[DeviceColumn],
     The reference sorts every row with a leading live word so padding
     sorts last, and carries every lane through the sort; live rows are
     always a prefix here, so only the prefix is sorted, which gives the
-    same order, and K3 reads the lanes through the order."""
+    same order, and K3 reads the lanes through the order.  A first or
+    last picks a row by K3's positional kind and gathers the column
+    there, whatever its type."""
     for op in ops:
-        if op not in ("sum", "countvalid", "min", "max"):
-            raise NotImplementedError(
-                f"aggregate op {op!r} is not ported (the grouped first and "
-                f"last wait for P8)")
+        if op not in ("sum", "countvalid", "min", "max") + \
+                tuple(_POSITIONAL) + _COLLECT:
+            raise NotImplementedError(f"aggregate op {op!r} is not ported")
     n = num_rows
     keys = [_prefix(c, n) for c in key_cols]
     vals = [_prefix(c, n) for c in value_cols]
@@ -773,9 +892,16 @@ def _group_reduce(key_cols: List[DeviceColumn],
     out_keys = [_padded_column(g, cap)
                 for g in gather_columns(keys, first_row)]
     out_vals = []
-    for vc, op, i, w in zip(vals, ops, take, wide):
+    for vc, full, op, i, w in zip(vals, value_cols, ops, take, wide):
         s, cnt = sums[i], counts[i]
-        if vc.offsets is not None and op in ("min", "max"):
+        if op in _COLLECT:
+            out_vals.append(_collected(vc, op, order, s if op.startswith(
+                "collect_concat") else cnt, cap))
+        elif op in _POSITIONAL:
+            # (the whole column: a global pick over no rows reads row 0)
+            out_vals.append(_padded_column(
+                gather_columns([full], s, cnt > 0)[0], cap))
+        elif vc.offsets is not None and op in ("min", "max"):
             pick = _ordered_pick(words, vc, op, global_agg, order)
             out_vals.append(_padded_column(
                 gather_columns([vc], pick, cnt > 0)[0], cap))
@@ -875,6 +1001,10 @@ class GpuHashAggregateExec(Exec):
     def determinism(self):
         scoped = self.mode == PARTIAL   # partial buffers regroup with the
         #                                 input split
+        if any(isinstance(ae.func, CollectList) for ae in self.aggregates):
+            return Determinism(
+                ORDER_DEPENDENT, "collect_list/collect_set element "
+                "order follows batch arrival", partition_scoped=scoped)
         if any(t.is_fractional(bt) for bt in self._buffer_types) and \
                 not self.stable_merge:
             return Determinism(
@@ -921,15 +1051,23 @@ class GpuHashAggregateExec(Exec):
                                   batch.num_rows, not self.grouping, order)
         return DeviceBatch(ok + ov, n, self._group_names + self._buffer_names)
 
-    def _canonical_order(self, batch: DeviceBatch) -> torch.Tensor:
+    def _canonical_order(self, batch: DeviceBatch
+                         ) -> Optional[torch.Tensor]:
         """The live rows' order by key and buffer value words, so the fold
         order within a group is a function of content (stable_merge).  The
         key words lead, so the order also sorts the rows by key, as the
-        stable key sort of rows put in this order would."""
+        stable key sort of rows put in this order would.  A nested buffer
+        (a collect's array) gives no words, as in the reference: its
+        element order is order-dependent anyway."""
         n = batch.num_rows
-        words = [w for c in batch.columns
+        k = len(self.grouping)
+        words = [w for j, c in enumerate(batch.columns)
+                 if j < k or not isinstance(c.dtype, (t.ArrayType,
+                                                      t.MapType))
                  for w in seg.key_words_for_column(_prefix(c, n))]
-        return seg.lexsort(words)
+        # no words (an ungrouped collect alone): arrival order, as the
+        # reference's sort by its live word alone gives
+        return seg.lexsort(words) if words else None
 
     def _evaluate_batch(self, batch: DeviceBatch) -> DeviceBatch:
         k = len(self.grouping)
@@ -984,9 +1122,37 @@ class GpuHashAggregateExec(Exec):
 # ---------------------------------------------------------------------------
 
 _PA_AGG = {Sum: "sum", Count: "count", Average: "mean", Min: "min",
-           Max: "max"}
+           Max: "max", First: "first", Last: "last", StddevSamp: "stddev",
+           StddevPop: "stddev", VarianceSamp: "variance",
+           VariancePop: "variance", CollectSet: "distinct",
+           CollectList: "list", PivotFirst: "first",
+           ApproximatePercentile: "list"}
 _PA_SCALAR = {"sum": pc.sum, "count": pc.count, "mean": pc.mean,
-              "min": pc.min, "max": pc.max}
+              "min": pc.min, "max": pc.max, "stddev": pc.stddev,
+              "variance": pc.variance, "first": pc.first, "last": pc.last}
+
+
+def _pa_options(fn):
+    """pyarrow's options for an aggregate: the degrees of freedom of a
+    variance, whether first and last skip nulls."""
+    if isinstance(fn, (StddevSamp, StddevPop, VarianceSamp, VariancePop)):
+        return pc.VarianceOptions(
+            ddof=0 if isinstance(fn, (StddevPop, VariancePop)) else 1)
+    if isinstance(fn, (First, PivotFirst)):
+        return pc.ScalarAggregateOptions(
+            skip_nulls=isinstance(fn, PivotFirst) or fn.ignore_nulls)
+    return None
+
+
+def _percentile_host(col, p: float, dtype: t.DataType):
+    """Each collected group's inverted-CDF element of rank ceil(p n) - 1
+    among its n sorted non-null values; null for an empty group."""
+    vals = []
+    for row in col.to_pylist():
+        grp = sorted(v for v in row if v is not None)
+        k = max(math.ceil(p * len(grp)) - 1, 0)
+        vals.append(grp[min(k, len(grp) - 1)] if grp else None)
+    return pa.chunked_array([pa.array(vals, type=to_arrow_type(dtype))])
 
 
 def _widen_decimal_inputs(table: pa.Table, aggregates) -> pa.Table:
@@ -1051,7 +1217,8 @@ class CpuHashAggregateExec(Exec):
     def determinism(self):
         floaty = any(t.is_fractional(bt) for ae in self.aggregates
                      for bt in ae.func.buffer_types())
-        if floaty:
+        if floaty or any(isinstance(ae.func, CollectList)
+                         for ae in self.aggregates):
             return Determinism(
                 ORDER_DEPENDENT, "pyarrow group_by folds the table in "
                 "batch-arrival row order (no canonical merge on the "
@@ -1080,9 +1247,11 @@ class CpuHashAggregateExec(Exec):
         for i, ae in enumerate(self.aggregates):
             fn = ae.func
             if fn.children:
-                v = fn.child.eval(ec)
+                inp = fn._masked() if isinstance(fn, PivotFirst) \
+                    else fn.child
+                v = inp.eval(ec)
                 if isinstance(v, ScalarValue):
-                    v = make_column(ec, fn.child.data_type(),
+                    v = make_column(ec, inp.data_type(),
                                     v.value if v.value is not None else 0,
                                     None if v.value is not None else False)
                 cols[f"__in{i}"] = column_to_arrow(v.col, n)
@@ -1094,7 +1263,8 @@ class CpuHashAggregateExec(Exec):
         names = self._group_names + [f"__in{i}" for i in
                                      range(len(self.aggregates))]
         dtypes = [g.data_type() for g in self._bound_grouping] + \
-            [a.func.child.data_type() if a.func.children else t.INT
+            [a.func._masked().data_type() if isinstance(a.func, PivotFirst)
+             else a.func.child.data_type() if a.func.children else t.INT
              for a in self.aggregates]
         return pa.table({nm: pa.array([], to_arrow_type(dt))
                          for nm, dt in zip(names, dtypes)})
@@ -1111,9 +1281,8 @@ class CpuHashAggregateExec(Exec):
         for ae in self.aggregates:
             if type(ae.func) not in _PA_AGG:
                 raise NotImplementedError(
-                    f"aggregate {type(ae.func).__name__} is not ported (the "
-                    f"grouped first and last wait for P8)")
-        aggs = [(f"__in{i}", _PA_AGG[type(ae.func)], None)
+                    f"aggregate {type(ae.func).__name__} is not ported")
+        aggs = [(f"__in{i}", _PA_AGG[type(ae.func)], _pa_options(ae.func))
                 for i, ae in enumerate(self.aggregates)]
         structs = {nm: to_arrow_type(g.data_type())
                    for g, nm in zip(self._bound_grouping, self._group_names)
@@ -1132,8 +1301,13 @@ class CpuHashAggregateExec(Exec):
         elif table.num_rows == 0:
             # Spark: a global aggregate over empty input yields one row
             cols = {}
-            for cname, kind, _ in aggs:
-                scalar = _PA_SCALAR[kind](table.column(cname))
+            for cname, kind, opts in aggs:
+                if kind in ("list", "distinct"):
+                    # Spark's collect_* over no rows: the empty array
+                    cols[f"{cname}_{kind}"] = pa.array(
+                        [[]], type=pa.list_(table.column(cname).type))
+                    continue
+                scalar = _PA_SCALAR[kind](table.column(cname), options=opts)
                 cols[f"{cname}_{kind}"] = pa.array([scalar.as_py()],
                                                    type=scalar.type)
             res = pa.table(cols)
@@ -1153,8 +1327,17 @@ class CpuHashAggregateExec(Exec):
             else:
                 out_cols.append(res.column(nm))
         for (cname, kind, _), ae in zip(aggs, self.aggregates):
-            out_cols.append(_fit_result(res.column(f"{cname}_{kind}"),
-                                        ae.data_type()))
+            col = res.column(f"{cname}_{kind}")
+            if isinstance(ae.func, ApproximatePercentile):
+                col = _percentile_host(col, ae.func.percentage,
+                                       ae.data_type())
+            elif type(ae.func) is CollectList:
+                # Spark's collect_list drops nulls; pyarrow's keeps them
+                col = pa.chunked_array([pa.array(
+                    [[v for v in row if v is not None]
+                     for row in chunk.to_pylist()], type=chunk.type)
+                    for chunk in col.chunks], type=col.type)
+            out_cols.append(_fit_result(col, ae.data_type()))
         out = pa.table(dict(zip(self.output_names, out_cols)))
         for rb in out.combine_chunks().to_batches():
             yield batch_to_device(rb, self.device(ctx))

@@ -22,7 +22,12 @@ computation over the sorted rows:
   tied rows share one value; running min and max are a segmented
   doubling scan; bounded ROWS and RANGE frames take per-row index bounds
   (a binary search per row for RANGE) over global prefix sums, and a
-  sparse table for min and max.
+  sparse table for min and max;
+- first and last take each row's frame bounds on every frame kind (a
+  whole frame is the partition, a running ROWS frame its start to the
+  row, a running RANGE frame its start to the end of the row's peer run)
+  and K23 (``ops/scan.py:frame_pick``) picks the row; the column, of any
+  type, is gathered there.
 
 The results of one spec go back to input order through K13
 (``ops/gather.py:scatter_rows``), in one launch for all its lanes, where
@@ -50,7 +55,7 @@ from .. import types as t
 from ..analysis.determinism import ORDER_STABLE, Determinism
 from ..columnar.device import DeviceBatch, DeviceColumn
 from ..expr.aggregates import (AggregateExpression, AggregateFunction,
-                               bind_aggregate)
+                               First, Last, bind_aggregate)
 from ..expr.core import (ColumnValue, EvalContext, ScalarValue,
                          bind_expression, make_column)
 from ..expr.window import (CURRENT_ROW, UNBOUNDED_FOLLOWING,
@@ -61,7 +66,7 @@ from ..ops import carry
 from ..ops import segmented as seg
 from ..ops.gather import (gather_column, gather_columns, gather_rows,
                           scatter_rows)
-from ..ops.scan import (cumsum, run_ends, segment_scan,
+from ..ops.scan import (cumsum, frame_pick, run_ends, segment_scan,
                         segmented_doubling_scan)
 from .base import MERGES, Exec, semantic_sig
 from .concat import concat_batches
@@ -296,7 +301,7 @@ class WindowExec(Exec):
         for w, start, ncols in members:
             needs |= self._needs(w)
             if isinstance(w.func, AggregateFunction) and \
-                    any(_frame_of(w)[3:]):
+                    not isinstance(w.func, First) and any(_frame_of(w)[3:]):
                 ops = [op for _, op in self._bound_agg(w.func).update()]
                 for j in range(ncols):
                     scol = lay.input_sorted[start + j]
@@ -330,8 +335,9 @@ class WindowExec(Exec):
         idx_in_seg = pos - seg_start
         func = w.func
         cn, ct = self.children[0].output_names, self.children[0].output_types
-        if any(t.is_dec128(bind_expression(c, cn, ct).data_type())
-               for c in func.children):
+        if not isinstance(func, First) and any(
+                t.is_dec128(bind_expression(c, cn, ct).data_type())
+                for c in func.children):
             raise NotImplementedError(
                 f"window {type(func).__name__} over a decimal of more than "
                 f"18 digits is not ported yet (ROADMAP Queue 1 item 3)")
@@ -387,6 +393,9 @@ class WindowExec(Exec):
         cap, live_s = lay.cap, lay.live_s
         f = self._bound_agg(w.func)
         kind, lo_b, hi_b, whole, running = _frame_of(w)
+        if isinstance(f, First):
+            return self._pick(f, kind, lo_b, hi_b, whole, running, lay,
+                              sorted_inputs[0])
         upd = f.update()
         bounds = None if whole or running else self._frame_bounds(
             kind, lo_b, hi_b, lay)
@@ -452,6 +461,23 @@ class WindowExec(Exec):
                                        batch.num_rows))
         res = f.evaluate(fctx, buf_cols)
         return res.col.data, res.col.validity
+
+    def _pick(self, f, kind, lo_b, hi_b, whole, running, lay, scol):
+        """First or Last over each row's frame: the frame's bounds (None
+        for the row itself), K23's pick and flag, and the column gathered
+        there (a string, DECIMAL128 or nested column as a column)."""
+        if whole:
+            lo, hi = lay.seg_start, lay.seg_end
+        elif running:
+            lo, hi = lay.seg_start, lay.run_end if kind == "range" else None
+        else:
+            lo, hi = self._frame_bounds(kind, lo_b, hi_b, lay)
+        idx, flag = frame_pick(scol.validity & lay.live_s, lo, hi,
+                               isinstance(f, Last), f.ignore_nulls)
+        col = gather_columns([scol], idx, flag)[0]
+        if col.is_flat and col.data_hi is None:
+            return col.data, col.validity
+        return col, col.validity
 
     def _frame_bounds(self, kind, lo_b, hi_b, lay: _Layout):
         """Per-row inclusive [lo_i, hi_i] frame bounds over the sorted

@@ -32,7 +32,7 @@ SOURCES = ("compact", "onesweep", "segment_reduce", "key_hash", "join_probe",
            "expand_ends", "join_expand", "gather_rows", "fetch_pack",
            "window_scan", "scatter_rows", "string_hashes", "hash_bytes",
            "gather_strings", "prefix_words", "span_rows", "string_find",
-           "utf8_cut", "string_map", "date_fields")
+           "utf8_cut", "string_map", "date_fields", "frame_pick")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,6 +121,10 @@ _SIGNATURES = {
     },
     "date_fields": {
         "srt_date_fields": [_P, _I, _L, _I, _P, _I, _P, _P],
+    },
+    "frame_pick": {
+        "srt_frame_pick_state_words": [_I],
+        "srt_frame_pick": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     },
 }
 

@@ -1,4 +1,5 @@
-"""Prefix sums, and the window operator's segmented scans (K11, K12).
+"""Prefix sums, the window operator's segmented scans (K11, K12) and its
+first/last pick over a frame (K23).
 
 Counterpart of spark_rapids_tpu/ops/scan.py.  The reference builds its
 scans from pad-shift doubling steps, a workaround for the TPU's slow
@@ -22,6 +23,11 @@ DenseRank's ``runs_cum`` and ``_run_end_positions``):
 - K12 ``run_ends``: per row, the last row of its partition and of its
   peer run, never beyond the last live row (rows at or after ``n_live``
   are padding).
+
+A third, K23 ``frame_pick`` (``csrc/frame_pick.cu``), gives First and
+Last over each row's frame [lo, hi] the row they pick and whether it is
+a value (the reference's ``searchsorted`` over the valid-count prefix,
+exec/window.py:338-355).
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises, and counts its launches
@@ -299,3 +305,70 @@ def run_ends(new_seg: Optional[torch.Tensor],
 
 
 run_ends.launches = 0
+
+
+def frame_pick_plain(valid: torch.Tensor, lo: Optional[torch.Tensor],
+                     hi: Optional[torch.Tensor], last: bool,
+                     ignore_nulls: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K23, the reference's formula: over the valid-count
+    prefix ``cpre``, first ignoring nulls is ``searchsorted(cpre, cpre[lo]
+    + 1) - 1`` and last ``searchsorted(cpre, cpre[hi + 1]) - 1``; with
+    nulls counted, the bound itself."""
+    n, dev = int(valid.shape[0]), valid.device
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    lo_c = torch.clamp(pos if lo is None else lo.to(torch.int64), 0,
+                       max(n - 1, 0))
+    hi_c = torch.clamp(pos if hi is None else hi.to(torch.int64), -1, n - 1)
+    empty = hi_c < lo_c
+    if ignore_nulls:
+        cpre = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        cpre[1:] = torch.cumsum(valid.to(torch.int64), 0)
+        target = cpre[hi_c + 1] if last else cpre[lo_c] + 1
+        idx = torch.searchsorted(cpre, target) - 1
+    else:
+        idx = hi_c if last else lo_c
+    idx = torch.clamp(idx, 0, max(n - 1, 0))
+    flag = (idx >= lo_c) & (idx <= hi_c) & ~empty & valid[idx]
+    return idx.to(torch.int32), flag
+
+
+def frame_pick(valid: torch.Tensor, lo: Optional[torch.Tensor],
+               hi: Optional[torch.Tensor], last: bool, ignore_nulls: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K23: (idx int32[n], flag bool[n]) of First (``last`` False) or Last
+    over each sorted row's inclusive frame [lo, hi] (int32[n] each, or
+    None for the row itself): the first valid row at or after lo (last:
+    at or before hi) where ``ignore_nulls``, else the bound itself; idx
+    clamped into [0, n), flag set where the frame is not empty, the pick
+    lies in it and ``valid`` (the column's validity and the live rows)
+    holds there."""
+    n = int(valid.shape[0])
+    if valid.dtype != torch.bool:
+        raise TypeError("frame_pick: valid must be bool")
+    for b in (lo, hi):
+        if b is not None and (b.dtype != torch.int32 or b.shape != (n,)):
+            raise TypeError(f"frame_pick: bounds must be int32[{n}]")
+    if valid.device.type == "cpu":
+        return frame_pick_plain(valid, lo, hi, last, ignore_nulls)
+    kernels.require_cuda("frame_pick", valid,
+                         *[b for b in (lo, hi) if b is not None])
+    dev = valid.device
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    flag = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = kernels.library("frame_pick")
+    near = state = None
+    if ignore_nulls:
+        near = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+        state = torch.empty(lib.srt_frame_pick_state_words(n),
+                            dtype=torch.int64, device=dev)
+    kernels.check(lib, lib.srt_frame_pick(
+        valid.data_ptr(), None if lo is None else lo.data_ptr(),
+        None if hi is None else hi.data_ptr(), n, int(last),
+        int(ignore_nulls), None if near is None else near.data_ptr(),
+        None if state is None else state.data_ptr(), idx.data_ptr(),
+        flag.data_ptr(), kernels.stream(valid)), "frame_pick")
+    frame_pick.launches += 1
+    return idx, flag
+
+
+frame_pick.launches = 0

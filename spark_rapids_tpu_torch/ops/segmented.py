@@ -131,6 +131,30 @@ def segment_reduce(op: str, values: torch.Tensor, seg_ids: torch.Tensor,
     return out, cnt
 
 
+def segment_pick(op: str, seg_ids: torch.Tensor, num_segments: int,
+                 valid: torch.Tensor):
+    """Plain per-segment first or last: (position int64[num_segments],
+    count_valid[num_segments]), the least (``first``) or greatest
+    (``last``) row position whose ``valid`` is set, 0 where no row
+    contributed; rows with a negative segment id do not contribute.  The
+    reference's ``segment_reduce(np, "first"|"last", ...)`` (its numpy
+    branch: ``minimum.at`` / ``maximum.at`` of the positions) before its
+    gather, by ``scatter_reduce_``."""
+    if op not in ("first", "last"):
+        raise ValueError(f"segment_pick: op {op!r} (first or last)")
+    dev = seg_ids.device
+    take = valid & (seg_ids >= 0)
+    ids = seg_ids[take].to(torch.int64)
+    cnt = torch.zeros(num_segments, dtype=torch.int64,
+                      device=dev).index_add_(0, ids, torch.ones_like(ids))
+    pos = torch.nonzero(take).flatten()
+    init = int(seg_ids.shape[0]) if op == "first" else -1
+    out = torch.full((num_segments,), init, dtype=torch.int64,
+                     device=dev).scatter_reduce_(
+        0, ids, pos, "amin" if op == "first" else "amax")
+    return torch.where(cnt > 0, out, torch.zeros_like(out)), cnt
+
+
 def segment_sum128(lo: torch.Tensor, hi: torch.Tensor,
                    seg_ids: torch.Tensor, num_segments: int,
                    valid: torch.Tensor):

@@ -270,6 +270,21 @@ expr_rule(agg.Average, T.integral + T.FLOAT + T.DOUBLE)
 expr_rule(agg.Count, T.all_types)
 expr_rule(agg.Min, T.numeric + T.DATE + T.TIMESTAMP + T.BOOLEAN + T.STRING)
 expr_rule(agg.Max, T.numeric + T.DATE + T.TIMESTAMP + T.BOOLEAN + T.STRING)
+expr_rule(agg.First, _common)
+expr_rule(agg.Last, _common)
+# collect over flat types: a list keeps the sorted rows' order, a set the
+# order of its value words
+_collect_elem = T.numeric + T.BOOLEAN + T.DATE + T.TIMESTAMP + T.STRING
+expr_rule(agg.CollectList, (_collect_elem + T.ARRAY).nested(_collect_elem))
+expr_rule(agg.CollectSet, (_collect_elem + T.ARRAY).nested(_collect_elem))
+for c in (agg.StddevPop, agg.StddevSamp, agg.VariancePop, agg.VarianceSamp):
+    expr_rule(c, _num)
+# first over IF(p <=> v, x, NULL): the unit a pivot lowers to, one
+# instance per pivot value
+expr_rule(agg.PivotFirst, _common)
+# the exact inverted-CDF percentile over collected groups (a DECIMAL128
+# would drop its high word in the rank gather)
+expr_rule(agg.ApproximatePercentile, T.numeric64)
 expr_rule(agg.AggregateExpression, T.all_types.nested())
 # window machinery registered as expressions, as in the reference;
 # evaluation lives in WindowExec
@@ -580,7 +595,7 @@ def _tag_window(meta: ExecMeta):
         f = w.func
         if isinstance(f, agg.AggregateFunction):
             if not isinstance(f, (agg.Sum, agg.Count, agg.Average, agg.Min,
-                                  agg.Max)):
+                                  agg.Max, agg.First, agg.Last)):
                 meta.will_not_work(
                     f"window aggregate {type(f).__name__} not supported")
             kind, lo, hi = w.spec.effective_frame(False)

@@ -378,3 +378,69 @@ def test_k3_matches_reference_group_reduce(shape, global_agg, packed):
         v_ops = [t for (c, op), t in zip(spec, take) if c == 0]
         assert all(int(counts[t][null_group]) == 0 for t in v_ops)
     assert pagg.segment_reduce_sorted.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the positional kinds, first and last
+# ---------------------------------------------------------------------------
+
+# qg2's update: first(date) and last(price) over their validity, the
+# collects' counts and count(*): five ops, no value lane
+QG2_ROWS = 7_500_000
+QG2_VALUES = [None, None, None, None, None]
+QG2_MASKS = ["date.valid", "price.valid", "keys.valid", "prio.valid",
+             "one.valid"]
+
+
+def test_k3_plan_positional_reads_masks_alone():
+    """A first or last reads no value lane, only its contributor mask:
+    the direct path moves the order and one sector a row for the key
+    word and each of the 5 masks; no lane asks for records."""
+    plan = pagg.k3_plan(QG2_ROWS, QG2_VALUES, QG2_MASKS, 1, True)
+    assert not plan.packed and plan.sets[0].lanes == []
+    assert plan.sets[0].op_lane == [-1] * 5
+    assert plan.direct_bytes == QG2_ROWS * (4 + 32 * 6)
+    assert not pagg.k3_may_pack(QG2_ROWS, QG2_VALUES, QG2_MASKS, True)
+
+
+@pytest.mark.parametrize("shared,masks", [(True, 1), (False, 2)])
+def test_k3_plan_first_and_last_share_a_mask(shared, masks):
+    """A first and a last of one column read its mask once; on the record
+    path it is one bit of the mask word, beside the key word."""
+    ms = ["x.valid", "x.valid" if shared else "y.valid"]
+    plan = pagg.k3_plan(1 << 22, [None, None], ms, 1, True, path="record")
+    s = plan.sets[0]
+    assert len(s.masks) == masks and s.op_mask == [0, 0 if shared else 1]
+    assert (s.record_bytes, s.key_offsets, s.mask_offset) == (16, [0], 8)
+    # the pack reads the key word and the masks and writes 16-byte records;
+    # the fold reads the order and one record sector a row
+    assert plan.packed_bytes == (1 << 22) * (8 + masks + 16 + 4 + 32)
+
+
+def test_k3_positional_kinds_beside_other_ops():
+    """segment_reduce_sorted with first and last beside a sum and a min
+    over an order: each positional result is the input row of the
+    group's least / greatest sorted contributing position; the plain
+    version launches nothing."""
+    rng = np.random.default_rng(24)
+    n = 5000
+    keys = torch.from_numpy(rng.integers(0, 40, n))
+    flag = torch.from_numpy(rng.integers(0, 2, n))
+    # a group over two runs: the order sorts by (key, flag)
+    order = pcarry.sort_order_plain([keys, flag])
+    v = torch.from_numpy(rng.integers(-50, 50, n))
+    m = torch.from_numpy(rng.random(n) < 0.3)
+    first_row, sums, counts, g = pagg.segment_reduce_sorted(
+        [keys], None, [None, None, v, v], [m, m, m, m], False, order,
+        ["first", "last", "sum", "min"])
+    rows = order.numpy()
+    ks = keys.numpy()[rows]
+    for gi, k in enumerate(np.unique(ks)):
+        sel = np.flatnonzero((ks == k) & m.numpy()[rows])
+        assert int(counts[0][gi]) == len(sel)
+        if len(sel):
+            assert int(sums[0][gi]) == rows[sel[0]]
+            assert int(sums[1][gi]) == rows[sel[-1]]
+        assert int(first_row[gi]) == rows[np.flatnonzero(ks == k)[0]]
+    assert sums[0].dtype == torch.int32
+    assert pagg.segment_reduce_sorted.launches == 0

@@ -316,7 +316,7 @@ def test_segment_reduce_sorted_rejects_unknown_ops():
     c = torch.ones(3, dtype=torch.bool)
     with pytest.raises(ValueError, match="op"):
         pagg.segment_reduce_sorted(words, None, [v], [c], False, None,
-                                   ["first"])
+                                   ["median"])
     with pytest.raises(ValueError, match="one op per value lane"):
         pagg.segment_reduce_sorted(words, None, [v], [c], False, None,
                                    ["min", "max"])

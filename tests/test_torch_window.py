@@ -825,7 +825,8 @@ def test_fuse_off_keeps_the_window_on_the_cpu():
 def test_grouped_min_stays_unported():
     """Min and Max were window aggregates only until the grouped min and
     max came to K3: a grouped min now runs on the GPU and equals the
-    reference; the grouped first and last stay unported and name P8."""
+    reference.  The grouped first and last came later (K3's positional
+    kinds); an op no aggregate has stays unported."""
     ref, port = sessions()
     t = q4_table(100, 4)
     want = ref.create_dataframe(t).group_by(rcol("k")).agg(
@@ -834,8 +835,8 @@ def test_grouped_min_stays_unported():
         PF.min(pcol("v")).alias("m")).collect()
     assert_tables_equal(want, got)
     assert "!" not in port.last_explain
-    with pytest.raises(NotImplementedError, match="P8"):
-        pagg._group_reduce([], [], ["first"], 0, True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        pagg._group_reduce([], [], ["median"], 0, True)
 
 
 def test_bounded_range_over_nan_sorting_last():
