@@ -1041,7 +1041,7 @@ def _k3_turns(torch, agg_mod, cuda_ms, args, card, what):
                         f"{what}, path={path}")
     turns = [cuda_ms(lambda p=p: k3(*args, path=p))
              for p in (None, other) * 2]
-    n = int(args[3][0].shape[0])
+    n = _k3_rows(args)
     record = max(s.record_bytes for s in plan.sets)
     print(f"K3 {what}: planned path {'records' if plan.packed else 'direct'}"
           f" ({record}-byte records, {plan.rows_per_thread} rows a thread, "
@@ -1058,6 +1058,25 @@ def _k3_turns(torch, agg_mod, cuda_ms, args, card, what):
                 record_traffic_bytes=plan.packed_bytes,
                 direct_traffic_bytes=plan.direct_bytes,
                 scratch_bytes=plan.scratch_bytes)
+
+
+def _k3_rows(args):
+    """A K3 call's rows: its order's, else its first lane's (a mask of
+    every row is None)."""
+    words, live, values, contribs = args[:4]
+    order = args[5] if len(args) > 5 else None
+    return next((int(x.shape[0]) for x in (order, *words, live, *values,
+                                           *contribs) if x is not None), 0)
+
+
+def _k3_path_name(plan):
+    return ("plain" if plan is None else "record" if plan.packed else
+            "run" if plan.run_path else "direct")
+
+
+def _k3_traffic(plan):
+    """The planned path's modelled device-memory bytes."""
+    return plan.packed_bytes if plan.packed else plan.direct_bytes
 
 
 def _edge_cases(torch, dev, carry, agg_mod):
@@ -3781,8 +3800,7 @@ def _k3_run_cases(torch, dev, agg_mod, carry):
                 if u.dtype == torch.float64:
                     u, w = u.view(torch.int64), w.view(torch.int64)
                 if not torch.equal(u, w):
-                    raise AssertionError(f"K3 op {k} ({ops[k]}) differs "
-                                         f"{what}")
+                    raise AssertionError(f"K3 op {k} differs {what}")
 
     shapes = [(300_000, g, False, 0.9) for g in (1, 2, 6, 64, 65)] + [
         (10_007, 3, False, 0.9),        # runs that end inside tiles
@@ -3808,28 +3826,57 @@ def _k3_run_cases(torch, dev, agg_mod, carry):
     # order's runs: the order sorts by (key, a flag), as the canonical
     # merge's sorts by buffer words after the key, so along a group the
     # input rows rise, fall back, and rise again; and beside every kind
-    # of the run path's op set
-    for n, ngroups, frac in ((300_000, 6, 0.5), (1 << 22, 32, 0.05),
-                             (10_007, 3, 0.9), (100_000, 4, 0.0)):
+    # of the run path's op set.  Each over its column's validity, over a
+    # mask of every row, over every row with no mask (derived from the
+    # groups' bounds: first_any, last_any, count(*)), and over a mask
+    # that leaves out every row of a third of the groups; groups that
+    # span tiles (6 and 32 groups) and one-row groups; rows before the
+    # first start (live flags off for the first sorted rows); and the
+    # ungrouped aggregate.  Each shape again without the value ops: no set
+    # reads a value lane, so tiles of sorted rows take the light fold.
+    pos_ops = ["first", "last", "first", "last", "sum", "min", "sum",
+               "first", "last", "sum", "first", "last"]
+    for n, ngroups, frac, live_rows, glob in (
+            (300_000, 6, 0.5, 0, False), (1 << 22, 32, 0.05, 0, False),
+            (10_007, 3, 0.9, 0, False), (100_000, 4, 0.0, 0, False),
+            (100_000, 100_000, 0.5, 0, False), (300_000, 6, 0.5, 9, False),
+            (300_000, 1, 0.5, 0, True), (1, 1, 1.0, 0, False),
+            (2049, 2, 0.3, 0, False), (4097, 3, 0.3, 5, False)):
         keys = rand(n, 0, ngroups)
         flag = rand(n, 0, 2)
-        order = carry.sort_order([keys, flag])
+        words = [] if glob else [keys, flag]
+        order = carry.sort_order(words) if words else None
         valid = torch.rand(n, generator=gen, device=dev) < frac
         every = torch.ones(n, dtype=torch.bool, device=dev)
+        holes = valid & (keys % 3 != 0)
+        live = None
+        if live_rows:
+            live = torch.ones(n, dtype=torch.bool, device=dev)
+            live[order[:live_rows].long()] = False
         d64 = rand(n, -10**13, 10**13)
-        pos_ops = ["first", "last", "first", "last", "sum", "min", "sum"]
-        a = ([keys], None, [None, None, None, None, d64, d64, None],
-             [valid, valid, every, every, valid, valid, valid], False, order,
-             pos_ops)
-        want = agg_mod.segment_reduce_sorted_plain(*a)
-        for path in K3_PATHS:
-            got = k3(*a, path=path)
-            check(got, want, f"(first/last) at {n} rows, {ngroups} groups "
-                             f"over {2 * ngroups} runs, path={path}")
-            if path == "run" and not k3.last_plan.run_path:
-                raise AssertionError(f"K3 did not take the run path over "
-                                     f"{n} rows in {2 * ngroups} runs")
-        del a, want
+        a = ([] if glob else [keys], live,
+             [None, None, None, None, d64, d64, None, None, None, None,
+              None, None],
+             [valid, valid, every, every, valid, valid, valid, None, None,
+              None, holes, holes], glob, order, pos_ops)
+        light = [k for k, v in enumerate(a[2]) if v is None]
+        for b in (a, (a[0], a[1], [a[2][k] for k in light],
+                      [a[3][k] for k in light], glob, order,
+                      [pos_ops[k] for k in light])):
+            want = agg_mod.segment_reduce_sorted_plain(*b)
+            for path in K3_PATHS:
+                got = k3(*b, path=path)
+                check(got, want, f"(first/last) at {n} rows, {ngroups} "
+                                 f"groups over {2 * ngroups} runs, live off "
+                                 f"for {live_rows}, global={glob}, "
+                                 f"{len(b[6])} ops, path={path}")
+                if path == "run" and not glob and 1 < n and ngroups <= 32 \
+                        and not k3.last_plan.run_path:
+                    raise AssertionError(f"K3 did not take the run path "
+                                         f"over {n} rows in {2 * ngroups} "
+                                         f"runs")
+            del want
+        del a, b
     return cases
 
 
@@ -3870,7 +3917,8 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
         lanes = {agg_mod._storage(x): x.nbytes
                  for x in [*values, *his]
                  if x is not None and x is not agg_mod.SIGN}
-        masks = {agg_mod._storage(c): c.nbytes for c in contribs}
+        masks = {agg_mod._storage(c): c.nbytes for c in contribs
+                 if c is not None}
         # a positional op writes its int32 pick, another its value
         per_group = 4 + sum(
             8 + (4 if op in ("first", "last") else 8 * (v is not None))
@@ -3880,7 +3928,7 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
             sum(w.nbytes for w, f in zip(words, varying) if f) + \
             (0 if live is None else live.nbytes) + \
             sum(lanes.values()) + sum(masks.values()) + got[3] * per_group
-        n = int(contribs[0].shape[0])
+        n = _k3_rows(args)
         plan = orig.last_plan
         row = dict(ms=cuda_ms(lambda: orig(*args, **kw)),
                    plain_ms=cuda_ms(lambda: plain(*args, **kw), reps=1),
@@ -3890,11 +3938,9 @@ def _k3_call_row(torch, agg_mod, cap, cuda_ms, what):
                               ops=list(ops), lanes=len(lanes),
                               ops_128=sum(h is not None for h in his),
                               bytes_a_row=round(moved / max(n, 1), 2),
-                              path="record" if plan.packed else
-                              "run" if plan.run_path else "direct",
+                              path=_k3_path_name(plan),
                               traffic_bytes_a_row=round(
-                                  (plan.packed_bytes if plan.packed
-                                   else plan.direct_bytes) / max(n, 1), 2)))
+                                  _k3_traffic(plan) / max(n, 1), 2)))
         del got, want
     if row is None:
         raise AssertionError(f"{what} made no K3 call to capture")
@@ -4709,16 +4755,22 @@ def _check_qg4(got, want, what):
 
 def _k23_cases(torch, dev, scan):
     """K23 against its plain version on edge shapes, bit for bit where the
-    flag is set (and the flags everywhere): 1 row to tile edges (8,191,
-    8,192, 8,193 rows) and 2^20 + 5; no valid row, all valid, 10 %
-    valid, valid only at a tile's first and last rows, all-null
-    partitions; frames empty (hi < lo), of one row, whole partitions,
-    bounds beyond the last valid row and outside [0, n); each bound
-    given or the row itself; first and last, nulls ignored and counted.
-    Returns the number of calls."""
+    flag is set (and the flags everywhere): 1 row, around a 32-row word
+    (31, 32, 33 rows) and a tile (8,191, 8,192, 8,193 rows), and 2^20 +
+    5; no valid row, all valid, 10 % valid, valid only at a tile's or a
+    word's first and last rows, all-null partitions, all-null stretches
+    across several tiles; frames empty (hi < lo), of one row, whole
+    partitions, bounds on word and tile edges, beyond the last valid row
+    and outside [0, n); each bound given or the row itself; first and
+    last, nulls ignored and counted; every live row, and the live rows
+    cut at two thirds.  Where nulls are ignored and the frame lets the
+    scan pick at the row itself (last with no hi, first with no lo), the
+    fused plan (one launch) and the bitmap plan both.  Returns the
+    number of calls."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 27)
     calls = 0
-    for n in (1, 2, 31, 33, 8191, 8192, 8193, 3 * 8192 + 1, (1 << 20) + 5):
+    for n in (1, 2, 31, 32, 33, 8191, 8192, 8193, 3 * 8192 + 1,
+              (1 << 20) + 5):
         pos = torch.arange(n, device=dev)
         rnd = torch.rand(n, generator=gen, device=dev)
         # partitions of about 50 rows: ids[i] is row i's, first_of its
@@ -4732,12 +4784,15 @@ def _k23_cases(torch, dev, scan):
                   "all": torch.ones(n, dtype=torch.bool, device=dev),
                   "tenth": rnd < 0.1,
                   "tile_edges": (pos % 8192 == 0) | (pos % 8192 == 8191),
-                  "null_parts": (rnd < 0.5) & ~part_null}
+                  "word_edges": (pos % 32 == 0) | (pos % 32 == 31),
+                  "null_parts": (rnd < 0.5) & ~part_null,
+                  "null_tiles": pos % 30_000 == 17}
         seg = first_of[ids]
         seg_end = torch.cat([first_of[1:] - 1, torch.full(
             (1,), n - 1, device=dev)])[ids]
         lo = torch.randint(-3, n + 3, (n,), generator=gen, device=dev)
         span = torch.randint(-3, 40, (n,), generator=gen, device=dev)
+        word, tile = pos // 32 * 32, pos // 8192 * 8192
         frames = {
             "random": (lo, lo + span),
             "one_row": (pos, pos),
@@ -4745,17 +4800,26 @@ def _k23_cases(torch, dev, scan):
             "whole": (seg, seg_end),
             "running": (seg, None),
             "following": (None, torch.minimum(pos + 50, seg_end)),
+            "word_edges": (word - 1 + (pos % 2), word + 32 - (pos % 2)),
+            "tile_edges": (tile - 1 + (pos % 2), tile + 8192 - (pos % 2)),
+            "far": (pos - 70_000, pos + 70_000),
             "past_end": (torch.full_like(pos, n + 7), torch.full_like(
                 pos, n + 9)),
             "rows": (None, None)}
+        lives = (None,) if n < 31 else (None, n * 2 // 3)
         for vname, valid in valids.items():
             for fname, (a, b) in frames.items():
                 a = None if a is None else a.to(torch.int32)
                 b = None if b is None else b.to(torch.int32)
-                for last in (False, True):
-                    for ign in (False, True):
-                        got = scan.frame_pick(valid, a, b, last, ign)
-                        want = scan.frame_pick_plain(valid, a, b, last, ign)
+                for last, ign, n_live in itertools.product(
+                        (False, True), (False, True), lives):
+                    want = scan.frame_pick_plain(valid, a, b, last, ign,
+                                                 n_live)
+                    # the planned launch, and the bitmap plan of a frame
+                    # that fuses
+                    for plan in scan._frame_pick_plans(a, b, last, ign):
+                        got = scan._frame_pick_launch(valid, a, b, last, ign,
+                                                      n_live, plan)
                         calls += 1
                         if not torch.equal(got[1], want[1]) or \
                                 not torch.equal(got[0][want[1]],
@@ -4763,21 +4827,29 @@ def _k23_cases(torch, dev, scan):
                             raise AssertionError(
                                 f"K23 differs from its plain version: {n} "
                                 f"rows, valid {vname}, frame {fname}, "
-                                f"last={last}, ignore_nulls={ign}")
+                                f"last={last}, ignore_nulls={ign}, "
+                                f"n_live={n_live}, plan {plan}")
     return calls
 
 
 def _k3_positional_paths(torch, agg_mod, cap, paths, what):
     """Every K3 call of a run (captured by ``cap``) again on each forced
-    path of ``paths``, against the plain version exactly."""
+    path of ``paths``, against the plain version exactly; the run path
+    where the call's order has at most 64 increasing runs, and there it
+    must be taken."""
     orig = cap.orig["segment_reduce_sorted"]
     plain = agg_mod.segment_reduce_sorted_plain
     n = 0
     for (_, args), kw in zip(cap.calls, cap.kwargs):
         if not any(op in ("first", "last") for op in (args[6] or [])):
             continue
+        order = args[5]
+        runs = 1 if order is None else 1 + int(
+            (order[1:] < order[:-1]).sum())
         want = plain(*args, **kw)
         for path in paths:
+            if path == "run" and (runs > 64 or args[4]):
+                continue
             got = orig(*args, **{**kw, "path": path})
             _k3_diff_exact(torch, got, want, f"{what}, path={path}")
             if path == "run" and not orig.last_plan.run_path:
@@ -4878,13 +4950,13 @@ def _agg_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
             placed(s, "GpuHashAggregateExec", what)
             with _Capture(agg_mod, "segment_reduce_sorted") as cap:
                 df.collect()
-            n_paths = _k3_positional_paths(torch, agg_mod, cap,
-                                           ("record", "direct"), what)
+            n_paths = _k3_positional_paths(torch, agg_mod, cap, K3_PATHS,
+                                           what)
             if parts == 1:
                 row = _k3_call_row(torch, agg_mod, cap, cuda_ms, what)
                 args, kw = cap.calls[0][1], cap.kwargs[0]
                 words, order = args[0], args[5]
-                n = int(args[3][0].shape[0])
+                n = _k3_rows(args)
                 idx = order.to(torch.int64)
                 sw = [w.index_select(0, idx) for w in words]
                 live = torch.ones(n, dtype=torch.bool, device=dev)
@@ -4903,8 +4975,8 @@ def _agg_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
                     max_abs_err=0.0, **row)
                 del sw, ids, pos, live
                 print(f"K3 at {what}: {len(cap.calls)} call(s) equal the "
-                      f"plain version, {n_paths} more on the forced record "
-                      f"and direct paths; the first {row['ms']:.3f} ms "
+                      f"plain version, {n_paths} more on the planned and "
+                      f"each forced path; the first {row['ms']:.3f} ms "
                       f"({row['extra']['path']}), plain "
                       f"{row['plain_ms']:.3f}, library "
                       f"{row['library_ms']:.3f}, bound "
@@ -4948,9 +5020,9 @@ def _agg_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
             with _Capture(agg_mod, "segment_reduce_sorted") as cap:
                 df.collect()
             print(f"K3 at {what}: "
-                  f"{_k3_positional_paths(torch, agg_mod, cap, (None, 'run'), what)}"
+                  f"{_k3_positional_paths(torch, agg_mod, cap, K3_PATHS, what)}"
                   f" call(s) with first equal the plain version on the "
-                  f"planned and the run path")
+                  f"planned and each forced path")
     except Exception:
         failures.append("qg3")
         traceback.print_exc()
@@ -4986,12 +5058,13 @@ def _agg_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
                 continue
             rows = []
             for _, args in cap.calls:
-                valid, lo, hi, last, ign = args
+                valid, lo, hi, last, ign, n_live = args
                 n = int(valid.shape[0])
                 moved = n * (1 + 4 * (lo is not None) + 4 * (hi is not None)
                              + 4 + 1)
+                live_valid = valid & (torch.arange(n, device=dev) < n_live)
                 cpre = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-                cpre[1:] = torch.cumsum(valid.to(torch.int64), 0)
+                cpre[1:] = torch.cumsum(live_valid.to(torch.int64), 0)
                 at = torch.arange(n, device=dev) if lo is None else \
                     lo.to(torch.int64).clamp(0, n - 1)
                 target = cpre[at] + 1
@@ -5005,6 +5078,7 @@ def _agg_phases(torch, dev, card, launches, kernel_rows, failures, cuda_ms,
                     extra=dict(rows=n, last=bool(last),
                                ignore_nulls=bool(ign),
                                lo=lo is not None, hi=hi is not None,
+                               plan=scan.frame_pick_plan(lo, hi, last, ign),
                                bytes_moved=moved)))
             first = rows[0]
             first["extra"]["calls"] = [
@@ -5687,7 +5761,7 @@ def main() -> int:
 
         filtered = filt._compute(batch)
         n = filtered.num_rows
-        key_cols, val_cols = agg._update_columns(filtered)
+        key_cols, val_cols, every = agg._update_columns(filtered)
         words = seg.key_words_for_column(agg_mod._prefix(key_cols[0], n))
         order = carry.sort_order(words)
         order_p = carry.sort_order_plain(words)
@@ -5741,7 +5815,8 @@ def main() -> int:
 
         # K3 reads every lane in input order, through K2's order
         vals = [agg_mod._prefix(v, n) for v in val_cols]
-        sum_lanes, contribs, _, _, _ = agg_mod.k3_ops(vals, agg._update_ops)
+        sum_lanes, contribs, _, _, _ = agg_mod.k3_ops(
+            vals, agg._update_ops, None, every)
         k3_args = (words, None, sum_lanes, contribs, False, order)
         res = agg_mod.segment_reduce_sorted(*k3_args)
         k3_err = _k3_diff(torch, res, agg_mod.segment_reduce_sorted_plain(
@@ -6979,12 +7054,13 @@ def main() -> int:
                 ctx = ExecContext(dev, sx.conf)
                 inx = next(iter(aggx.children[0].execute_partition(0, ctx)))
                 nx = inx.num_rows
-                kx, vx = aggx._update_columns(inx)
+                kx, vx, ex = aggx._update_columns(inx)
                 wx = [w for c in kx for w in seg.key_words_for_column(
                     agg_mod._prefix(c, nx))]
                 ox = carry.sort_order(wx)
                 lx, cx, opsx, _, _ = agg_mod.k3_ops(
-                    [agg_mod._prefix(c, nx) for c in vx], aggx._update_ops)
+                    [agg_mod._prefix(c, nx) for c in vx], aggx._update_ops,
+                    None, ex)
                 x_args = (wx, None, lx, cx, False, ox, opsx)
                 res = agg_mod.segment_reduce_sorted(*x_args)
                 plain = agg_mod.segment_reduce_sorted_plain(*x_args)

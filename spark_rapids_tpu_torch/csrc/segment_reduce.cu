@@ -29,7 +29,9 @@
 //   - the direct path: each distinct input read at the sorted rows'
 //     input rows, 8 rows a thread: for rows already in key order, a
 //     count-only fold, and inputs that fit in the L2 cache, where the
-//     records would move more bytes;
+//     records would move more bytes.  A set of contributor masks and no
+//     value lane (first, last and counts) runs the LIGHT fold, with the
+//     value kinds' code compiled out;
 //   - the run path, for an order of at most kFewRuns increasing runs
 //     (K2's stable order over a few groups: TPC-H Q1's six), whatever
 //     the inputs' size: each block takes a tile of 2,048 input rows and
@@ -74,7 +76,10 @@
 //      at that tile's last start: its tail partial, then the head partials
 //      of the following tiles up to and including the next tile with a
 //      start, folded by a fixed tree that keeps their order (a warp when
-//      they are at most 32, a block past that; 64 tiles a block).
+//      they are at most 32, a block past that; a warp a tile, 8 tiles a
+//      block, over tiles of sorted rows, which mostly hold a start; 64
+//      tiles a block over the run path's pieces, which mostly hold none).
+//   5. bounds_kernel, where a set holds an op over every row (below).
 // The op's kind is a warp-uniform switch inside the one fold launch.
 //
 // Min and max (kinds 3-6) replace the reference's ops/segmented.py
@@ -113,11 +118,21 @@
 // positions is associative and commutative, so the records, direct and
 // run paths, the head and tail partials and the fixup give the same
 // position in any order.  The state is (position, count), as an int64
-// min or max's (value, count); the result is int32 a group, 0 where no
-// row contributed (the host maps it through the order to an input row).
-// The run fold has an instantiation without them (POS false) for the
-// sets that hold none: compiled in, their code cost that fold 4-5 % at
-// q1x's and q1d's calls.
+// min or max's (value, count); the result is int32 a group: the input
+// row at that position (write_group reads it through the order), 0
+// where no row contributed.  The run fold has an instantiation without
+// them (POS false) for the sets that hold none: compiled in, their code
+// cost that fold 4-5 % at q1x's and q1d's calls.
+//
+// An op over every row -- first and last counting nulls, count(*), a
+// count of a column valid in every row -- has no mask (op_mask -1) and
+// is never folded: its group is the sorted rows [starts[g], starts[g +
+// 1]) between two starts (the last group's end is n), so the count is
+// the group's length, first its first row (first_row[g]) and last its
+// last row through the order.  The first set's fold writes each group's
+// first sorted position beside first_row, on every path (records,
+// direct, run), so a group that spans tiles or runs needs no partial;
+// bounds_kernel then writes those ops, a thread a group.
 //
 // The 128-bit kinds (7-9) carry a DECIMAL of more than 18 digits, two
 // lanes an op: the low words (unsigned) and the signed high words.  Sum
@@ -144,8 +159,8 @@
 //
 // Bound: device-memory bytes.  Least traffic is order (4 B/row), each
 // key word (8 B/row), the live flags where given (1 B/row), each
-// distinct value lane and contributor mask once, and the per-group
-// outputs written once, over 3.35 TB/s.  A read through the order moves
+// distinct value lane and contributor mask once (an op over every row
+// reads none), and the per-group outputs written once, over 3.35 TB/s.  A read through the order moves
 // a whole 32-byte sector: the direct path pays one a row for each input,
 // the record path one (two at 64 bytes) a row for the record, plus the
 // pack's coalesced read of the inputs and write of the records.  Such
@@ -153,6 +168,8 @@
 // sectors) costs about twice a 32-byte one.  The run path moves about the
 // least traffic: the order twice (the starts, then the fold), each key
 // word, input lane and mask once, and the pieces' partials.
+
+#include <cstring>
 
 #include "partition.cuh"
 
@@ -207,7 +224,15 @@ struct Set {
   int nmasks;
   const unsigned char* masks[kOpsPerLaunch];
   int mask_off;                            // the mask word's byte offset
+  const int* order;                        // a pick's sorted position ->
+                                           // its input row (null: itself)
 };
+
+// An op whose mask is -1 (every row contributes: a count, first or last)
+// is derived from its group's bounds (bounds_kernel), never folded.
+__host__ __device__ __forceinline__ bool derived(const Set& s, int k) {
+  return s.mask[k] < 0;
+}
 
 // What starts a group (the first set only).
 struct Keys {
@@ -382,7 +407,9 @@ __device__ __forceinline__ void write_group(const Set& s, int kind, int k,
                                             int g, const Acc& a) {
   s.counts[k][g] = a.n;
   if (is_pos(kind)) {
-    static_cast<int*>(s.sums[k])[g] = a.n > 0 ? static_cast<int>(a.i) : 0;
+    const int pos = static_cast<int>(a.i);
+    static_cast<int*>(s.sums[k])[g] =
+        a.n > 0 ? (s.order ? __ldg(s.order + pos) : pos) : 0;
   } else if (W128 && is128(kind)) {
     // no contributor: null, canonical zero under it
     static_cast<long long*>(s.sums[k])[g] =
@@ -852,6 +879,14 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
     default: SRT_KINDS64_BASE(kind, CALL)   \
   }
 
+// A set of counts and positional kinds alone (no value lane: LIGHT).
+#define SRT_KINDS_LIGHT(kind, CALL)         \
+  switch (kind) {                           \
+    case kFirst: CALL(kFirst); break;       \
+    case kLast: CALL(kLast); break;         \
+    default: CALL(kCount);                  \
+  }
+
 #define SRT_KINDS_BASE(kind, CALL)          \
   switch (kind) {                           \
     case kSum128: CALL(kSum128); break;     \
@@ -870,6 +905,8 @@ __device__ void finish_op(const Set& s, int k, int item, const Defer* d,
 
 struct Scratch {
   unsigned long long* state;   // [0] the tile counter, [1 + t] tile t
+  int* starts;                 // [n]: group g's first sorted position,
+                               // where the call derives ops (else null)
   unsigned short* masks;       // start bits, [tiles][kThreads]
   int* tile_counts;            // [tiles], the run path [pieces]
   int* tile_offsets;
@@ -928,8 +965,13 @@ __host__ __device__ constexpr int stage_bytes(int K, int R) {
 // W128: the set holds a 128-bit op; a set of 64-bit ops alone compiles
 // without the 128-bit kinds' code and registers, in three blocks an SM
 // (80 registers); a W128 one may take 128 registers (two blocks), so it
-// does not spill.
-template <int K, bool REC, bool W128>
+// does not spill.  LIGHT (the direct path): the set reads no value lane,
+// only masks (counts, first and last: qg2's), and compiles without the
+// value kinds' code, in three blocks an SM (on the H100, four blocks an
+// SM of 64 registers were faster at qg2's near-sorted order but slower
+// than the full fold over a random one; 16 rows a thread were slower at
+// qg2).
+template <int K, bool REC, bool W128, bool LIGHT = false>
 __global__ void __launch_bounds__(kThreads, W128 ? 2 : 3)
 fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
             int global_agg, int first_set, int R, Scratch sc, int tiles,
@@ -1112,6 +1154,8 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         const int row = REC ? (order ? __ldg(order + v.first + j)
                                      : static_cast<int>(v.first + j))
                             : in_row[REC ? 0 : j];
+        if (sc.starts)
+          sc.starts[s_slot + v.before + q] = static_cast<int>(v.first + j);
         first_row[s_slot + v.before + q++] = row;
       }
     }
@@ -1123,6 +1167,7 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
   const TilePos tpos{static_cast<int>(v.first)};
   if (REC) {
     for (int k = 0; k < s.count; ++k) {
+      if (derived(s, k)) continue;
       unsigned c = 0;
       const int bit = s.mask[k];
 #pragma unroll
@@ -1152,13 +1197,13 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         c |= mk[in_row[REC ? 0 : j]] ? (1u << j) : 0u;
       s_bits[q * kThreads + tid] = static_cast<unsigned short>(c);
     }
-    for (int l = -1; l < s.nlanes; ++l) {
+    for (int l = -1; l < (LIGHT ? 0 : s.nlanes); ++l) {
       if constexpr (W128) {
         // the 64-bit ops and the sums through signs over lane l; the
         // other 128-bit ops' lanes come below
         bool used = false;
         for (int k = 0; k < s.count; ++k)
-          used |= s.lane[k] == l && s.lane_hi[k] < 0;
+          used |= s.lane[k] == l && s.lane_hi[k] < 0 && !derived(s, k);
         if (!used) continue;
       }
       long long x[K];
@@ -1168,12 +1213,14 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
         x[j] = lane ? lane[in_row[REC ? 0 : j]] : 0ll;
       const RegValues vals{x};
       for (int k = 0; k < s.count; ++k) {
-        if (s.lane[k] != l || s.lane_hi[k] >= 0) continue;
+        if (s.lane[k] != l || s.lane_hi[k] >= 0 || derived(s, k)) continue;
         const unsigned c = s_bits[s.mask[k] * kThreads + tid];
         const bool sign = s.lane_hi[k] == -2;
 #define SRT_FOLD(KIND) \
   fold_op<KIND, K>(s, k, vals, vals, sign, tpos, c, v, dst, defer + k)
-        if constexpr (W128) {
+        if constexpr (LIGHT) {
+          SRT_KINDS_LIGHT(s.kind[k], SRT_FOLD)
+        } else if constexpr (W128) {
           SRT_KINDS(s.kind[k], SRT_FOLD)
         } else {
           SRT_KINDS64(s.kind[k], SRT_FOLD)
@@ -1183,7 +1230,7 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
     }
     // the 128-bit ops over a pair of lanes: both words in registers, read
     // again only where the pair changes
-    if constexpr (W128) {
+    if constexpr (W128 && !LIGHT) {
       int at_lo = -1, at_hi = -1;
       long long x[K], xh[K];
       for (int k = 0; k < s.count; ++k) {
@@ -1220,9 +1267,12 @@ fold_kernel(Set s, Keys keys, const int* __restrict__ order, int n,
   __syncthreads();
   for (int item = tid; item < s.count * (kWarps + 1); item += kThreads) {
     const int k = item / (kWarps + 1);
+    if (derived(s, k)) continue;
 #define SRT_FINISH(KIND) \
   finish_op<KIND>(s, k, item - k * (kWarps + 1), defer + k, dst)
-    if constexpr (W128) {
+    if constexpr (LIGHT) {
+      SRT_KINDS_LIGHT(s.kind[k], SRT_FINISH)
+    } else if constexpr (W128) {
       SRT_KINDS(s.kind[k], SRT_FINISH)
     } else {
       SRT_KINDS64(s.kind[k], SRT_FINISH)
@@ -1684,7 +1734,10 @@ run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
       if ((mk >> j) & 1u) {
         slot = sc.tile_offsets[piece] + sbefore +
                __popc(mk & ((1u << j) - 1u)) - s_first[r];
-        if (first_set) first_row[slot] = static_cast<int>(base) + rel[j];
+        if (first_set) {
+          first_row[slot] = static_cast<int>(base) + rel[j];
+          if (sc.starts) sc.starts[slot] = s_t.lo[r] + (v0 + j - s_t.at[r]);
+        }
         if ((brk >> j) & 1u)             // the piece's head is empty
           for (int k = 0; k < s.count; ++k)
             sc.head[piece * s.count + k] = zero_acc();
@@ -1713,7 +1766,7 @@ run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
       __syncthreads();
     }
     for (int k = 0; k < s.count; ++k) {
-      if (s_plan.batch[k] != bt) continue;
+      if (s_plan.batch[k] != bt || derived(s, k)) continue;
       const RunValues vals{s_val + (bt >= 0 ? s_plan.lo[k] : 0) * kSlotWords,
                            my_rows};
       const RunValues hvals{
@@ -1738,6 +1791,7 @@ run_fold_kernel(Set s, const int* __restrict__ order, int n, int first_set,
   __syncthreads();
   for (int item = tid; item < s.count * (kWarps + 1); item += kThreads) {
     const int k = item / (kWarps + 1);
+    if (derived(s, k)) continue;
 #define SRT_FINISH(KIND) \
   finish_op<KIND>(s, k, item - k * (kWarps + 1), defer + k, dst)
     if constexpr (W128 && POS) {
@@ -1820,6 +1874,7 @@ __device__ void fixup_ops(const Set& s, int t, int slot, int lo, int hi,
                           Acc* s_warp) {
 #pragma unroll 1
   for (int k = 0; k < s.count; ++k) {
+    if (derived(s, k)) continue;
 #define SRT_FIX(KIND) \
   fixup_op<KIND, WIDE>(s, k, t, slot, lo, hi, parts, tail, s_warp)
     switch (s.kind[k]) {
@@ -1838,7 +1893,10 @@ __device__ void fixup_ops(const Set& s, int t, int slot, int lo, int hi,
   }
 }
 
-// The fixup over kFixTiles tiles a block: one load a tile finds those that
+// The fixup over a chunk of tiles a block (kFixTiles on the run path, a
+// tile a warp over tiles of sorted rows: 64 tiles a block left a warp
+// walking 8 tiles' groups in turn, 52 us of qg2's call on the H100, 13
+// with 8): one load a tile finds those that
 // hold a start; a warp finishes each whose group closes within the next
 // 32 tiles (one partial a lane), and the block together each of the
 // others (a group over many tiles: a hot key, or few groups), whose end a
@@ -1875,6 +1933,7 @@ fixup_heads_kernel(Set s, const int* tile_counts, int tiles,
   __syncthreads();
   const int n = s_last + 1;                    // tiles joined
   for (int k = tid >> 5; k < s.count; k += kWarps) {
+    if (derived(s, k)) continue;
     const Partials parts{head, nullptr, t0, kFixTiles, 0};
 #define SRT_HEADS(KIND)                                                     \
   {                                                                         \
@@ -1914,10 +1973,13 @@ __device__ int next_start(const int* offsets, int t, int tiles, int v) {
   return lo;
 }
 
+// chunk: the tiles a block takes, kWarps (a warp a tile: the tile paths,
+// whose tiles mostly hold a start) or kFixTiles (the run path's pieces,
+// which mostly hold none).
 template <bool W128>
 __global__ void __launch_bounds__(kThreads)
 fixup_kernel(Set s, const int* tile_counts, const int* tile_offsets,
-             int tiles, const Acc* head, const Acc* tail,
+             int tiles, int chunk, const Acc* head, const Acc* tail,
              const Acc* block_heads) {
   __shared__ int s_list[kFixTiles], s_wide[kFixTiles];
   __shared__ int s_n, s_nwide, s_end;
@@ -1925,13 +1987,13 @@ fixup_kernel(Set s, const int* tile_counts, const int* tile_offsets,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int w = tid >> 5;
-  const int t0 = blockIdx.x * kFixTiles;
+  const int t0 = blockIdx.x * chunk;
   if (tid < 32) {
     // the block's tiles that hold a start, in order
     int n = 0;
-    for (int c = 0; c < kFixTiles; c += 32) {
+    for (int c = 0; c < chunk; c += 32) {
       const int t = t0 + c + lane;
-      const bool has = t < tiles && tile_counts[t] > 0;
+      const bool has = c + lane < chunk && t < tiles && tile_counts[t] > 0;
       const unsigned m = __ballot_sync(0xffffffffu, has);
       if (has) s_list[n + __popc(m & ((1u << lane) - 1u))] = t;
       n += __popc(m);
@@ -1987,6 +2049,35 @@ __global__ void empty_global_kernel(Set s, int* first_row, int* groups) {
     write_group<true>(s, s.kind[k], k, 0, zero_acc());
 }
 
+// The ops derived from the groups' bounds (mask -1: every row
+// contributes), after the set's fold, a thread a group: group g holds the
+// sorted rows [starts[g], starts[g + 1]), the last group through n - 1,
+// so a count is its length and first and last its first and last rows,
+// mapped through the order to input rows (first is the group's first
+// row, which the fold wrote).  Rows before the first start belong to no
+// group, as in the fold.
+__global__ void __launch_bounds__(kThreads)
+bounds_kernel(Set s, const int* __restrict__ starts,
+              const int* __restrict__ groups,
+              const int* __restrict__ first_row, int n) {
+  const int count = *groups;
+  const int stride = gridDim.x * kThreads;
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < count;
+       g += stride) {
+    for (int k = 0; k < s.count; ++k) {
+      if (!derived(s, k)) continue;
+      int* pick = static_cast<int*>(s.sums[k]);
+      const int lo = starts[g];
+      const int hi = g + 1 < count ? starts[g + 1] : n;
+      s.counts[k][g] = hi - lo;
+      if (s.kind[k] == kFirst)
+        pick[g] = first_row[g];
+      else if (s.kind[k] == kLast)
+        pick[g] = s.order ? __ldg(s.order + hi - 1) : hi - 1;
+    }
+  }
+}
+
 long long up16(long long x) { return (x + 15) / 16 * 16; }
 
 long long tiles_of(int n, int rows_per_thread) {
@@ -1999,11 +2090,11 @@ long long tiles_of(int n, int rows_per_thread) {
 // counts and first slots, the head and tail partials [tiles][ops], the
 // records (n of record_max bytes), on the run path (runs > 0) the
 // pieces' sorted rows [runs][tiles + 1], the counts, slots and partials
-// being the pieces' (runs x tiles), and the fixup's block heads.
-// ops_per_set and record_max are the most any set of the call has.
-// Returns the bytes.
+// being the pieces' (runs x tiles), the fixup's block heads, and with
+// bounds the groups' first sorted positions (n ints).  ops_per_set and
+// record_max are the most any set of the call has.  Returns the bytes.
 long long layout(char* base, int n, int rows_per_thread, int ops_per_set,
-                 int record_max, int runs, Scratch* sc) {
+                 int record_max, int runs, int bounds, Scratch* sc) {
   const long long tiles = tiles_of(n, rows_per_thread);
   const long long parts = runs > 0 ? runs * tiles : tiles;
   const long long ops = ops_per_set > 0 ? ops_per_set : 1;
@@ -2025,11 +2116,13 @@ long long layout(char* base, int n, int rows_per_thread, int ops_per_set,
   s.pieces = reinterpret_cast<int*>(take(runs * (tiles + 1) * 4));
   s.block_heads = reinterpret_cast<Acc*>(
       take((parts + kFixTiles - 1) / kFixTiles * ops * sizeof(Acc)));
+  s.starts = bounds ? reinterpret_cast<int*>(take((long long)n * 4))
+                   : nullptr;
   if (sc) *sc = s;
   return off;
 }
 
-template <int K, bool REC, bool W128>
+template <int K, bool REC, bool W128, bool LIGHT = false>
 int launch_fold(const Set& s, const Keys& keys, const int* order, int n,
                 int global_agg, int first_set, int R, const Scratch& sc,
                 int tiles, int* first_row, int* groups,
@@ -2037,10 +2130,10 @@ int launch_fold(const Set& s, const Keys& keys, const int* order, int n,
   const int smem = stage_bytes(K, REC ? R : 0) +
                    (s.count > 0 ? s.count : 1) * static_cast<int>(sizeof(Defer));
   const cudaError_t err = cudaFuncSetAttribute(
-      fold_kernel<K, REC, W128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fold_kernel<K, REC, W128, LIGHT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fold_kernel<K, REC, W128><<<tiles, kThreads, smem, stream>>>(
+  fold_kernel<K, REC, W128, LIGHT><<<tiles, kThreads, smem, stream>>>(
       s, keys, order, n, global_agg, first_set, R, sc, tiles, first_row,
       groups);
   return static_cast<int>(cudaGetLastError());
@@ -2095,8 +2188,8 @@ int launch_runs(const Set& s, const Keys& keys, const int* order, int n,
   fixup_heads_kernel<W128><<<fix_blocks, kThreads, 0, stream>>>(
       s, sc.tile_counts, pieces, sc.head, sc.block_heads);
   fixup_kernel<W128><<<fix_blocks, kThreads, 0, stream>>>(
-      s, sc.tile_counts, sc.tile_offsets, pieces, sc.head, sc.tail,
-      sc.block_heads);
+      s, sc.tile_counts, sc.tile_offsets, pieces, kFixTiles, sc.head,
+      sc.tail, sc.block_heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2142,17 +2235,18 @@ extern "C" int srt_segment_reduce_varying(const long long* const* words,
 // inputs in input order, sorted row i being input row order[i].  Per op
 // k < nops (<= 16): kind[k] (0 count, 1 int64 sum, 2 float64 sum, 3 / 4
 // int64 min / max, 5 / 6 float64 min / max, 7 128-bit sum, 8 / 9 128-bit
-// min / max, 10 / 11 first / last: the least / greatest sorted position of
-// a contributing row, int32 into sums[k]), op_lane[k] (index into lanes,
-// -1 for a count or a positional kind; a 128-bit kind's low words),
-// op_lane_hi[k] (a 128-bit kind's high words; -2 for a 128-bit sum whose
-// high words are the low words' signs, a DECIMAL64 input; else -1),
-// op_mask[k] (index into masks: its contributor mask, also its bit in
-// a record's mask word), sums[k] (the lane's type, [max(n, 1)], null for
-// a count; min and max write the kept value's bits, 0 where no row
-// contributed; a 128-bit kind the low words), sums_hi[k] (a 128-bit
-// kind's high words, int64[max(n, 1)]), counts[k] (int64[max(n, 1)]).
-// lanes:
+// min / max, 10 / 11 first / last: the input row of the least / greatest
+// sorted position of a contributing row, int32 into sums[k]), op_lane[k]
+// (index into lanes, -1 for a count or a positional kind; a 128-bit
+// kind's low words), op_lane_hi[k] (a 128-bit kind's high words; -2 for
+// a 128-bit sum whose high words are the low words' signs, a DECIMAL64
+// input; else -1), op_mask[k] (index into masks: its contributor mask,
+// also its bit in a record's mask word; -1 for a count, first or last
+// over every row, derived from the group's bounds and never folded),
+// sums[k] (the lane's type, [max(n, 1)], null for a count; min and max
+// write the kept value's bits, 0 where no row contributed; a 128-bit kind
+// the low words), sums_hi[k] (a 128-bit kind's high words,
+// int64[max(n, 1)]), counts[k] (int64[max(n, 1)]).  lanes:
 // nlanes (<= 16) int64 / float64 [n] device pointers, distinct, at
 // lane_off in a record; masks: nmasks (<= 16) bool[n], distinct; the
 // mask word at mask_off.  record_bytes: 16, 32, 64 or 128 (the record
@@ -2161,8 +2255,9 @@ extern "C" int srt_segment_reduce_varying(const long long* const* words,
 // The first set (first_set 1) finds the groups: they fill slots
 // [0, *groups) in key order and first_row[g] is the input row of group
 // g's first sorted row; rows before the first start belong to no group.
-// Later sets read its start bits and slots, so each call of a set passes
-// the same n, rows_per_thread, ops_per_set, record_max and scratch
+// Later sets read its start bits, slots and starts, so each call of a
+// set passes the same n, rows_per_thread, ops_per_set, record_max,
+// bounds_max (1 where any set derives an op from the bounds) and scratch
 // (scratch_bytes, 16-byte aligned, at least what layout() takes for
 // them: exec/aggregate.py k3_scratch_bytes).  run_begin (host, nruns + 1
 // ints, 0 = run_begin[0] < ... < run_begin[nruns] = n) with nruns in
@@ -2181,8 +2276,8 @@ extern "C" int srt_segment_reduce_set(
     void* const* sums_hi, long long* const* counts,
     int nlanes, const void* const* lanes, const int* lane_off, int nmasks,
     const void* const* masks, int mask_off, int record_bytes,
-    int rows_per_thread, int ops_per_set, int record_max, int* first_row,
-    int* groups, void* scratch, long long scratch_bytes,
+    int rows_per_thread, int ops_per_set, int record_max, int bounds_max,
+    int* first_row, int* groups, void* scratch, long long scratch_bytes,
     const int* run_begin, int nruns, cudaStream_t stream) {
   const bool rec = record_bytes > 0;
   const bool sched = nruns > 0 && n > 0;
@@ -2202,11 +2297,14 @@ extern "C" int srt_segment_reduce_set(
     return static_cast<int>(cudaErrorInvalidValue);
   Set s;
   s.count = nops;
+  bool folded = false, bounds = false;
   for (int k = 0; k < nops; ++k) {
+    const bool every = op_mask[k] == -1;
     if (kind[k] < kCount || kind[k] > kLast || op_lane[k] < -1 ||
         op_lane[k] >= nlanes ||
         (kind[k] != kCount && !is_pos(kind[k])) != (op_lane[k] >= 0) ||
-        op_mask[k] < 0 || op_mask[k] >= nmasks ||
+        op_mask[k] < -1 || op_mask[k] >= nmasks ||
+        (every && op_lane[k] >= 0) ||
         (is128(kind[k])
              ? (!sums_hi[k] ||
                 (op_lane_hi[k] == -2
@@ -2222,7 +2320,10 @@ extern "C" int srt_segment_reduce_set(
     s.sums[k] = sums[k];
     s.sums_hi[k] = static_cast<long long*>(sums_hi[k]);
     s.counts[k] = counts[k];
+    bounds |= every;
+    folded |= !every;
   }
+  if (bounds && !bounds_max) return static_cast<int>(cudaErrorInvalidValue);
   // a record holds the lanes from offset 0, the varying key words after
   // them and then the mask word (exec/aggregate.py:_k3_set)
   const int nk = first_set ? nkeys : 0;
@@ -2240,6 +2341,7 @@ extern "C" int srt_segment_reduce_set(
   for (int q = 0; q < nmasks; ++q)
     s.masks[q] = static_cast<const unsigned char*>(masks[q]);
   s.mask_off = rec ? mask_off : 0;
+  s.order = order;
   Keys keys;
   keys.words = Words{words, nwords};
   keys.varying = varying;
@@ -2253,7 +2355,8 @@ extern "C" int srt_segment_reduce_set(
   keys.live = live;
   Scratch sc;
   if (layout(static_cast<char*>(scratch), n, rows_per_thread, ops_per_set,
-             rec ? record_max : 0, sched ? nruns : 0, &sc) > scratch_bytes)
+             rec ? record_max : 0, sched ? nruns : 0, bounds_max, &sc) >
+      scratch_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (n == 0) {
@@ -2266,6 +2369,17 @@ extern "C" int srt_segment_reduce_set(
                      : 0;
   }
   const int tiles = static_cast<int>(tiles_of(n, rows_per_thread));
+  // the ops from the groups' bounds, after the set's fold (the first
+  // set's finds the starts; a later set of such ops alone folds nothing)
+  auto run_bounds = [&]() {
+    if (!bounds) return static_cast<int>(cudaGetLastError());
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    bounds_kernel<<<blocks < 4096 ? static_cast<int>(blocks) : 4096,
+                    kThreads, 0, stream>>>(s, sc.starts, groups,
+                                           first_row, n);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (!first_set && !folded) return run_bounds();
   bool w128 = false;
   for (int k = 0; k < nops; ++k) w128 |= is128(kind[k]);
   if (sched) {
@@ -2280,13 +2394,15 @@ extern "C" int srt_segment_reduce_set(
       runs.begin[r] = run_begin[r];
     }
     bool pos = false;
-    for (int k = 0; k < nops; ++k) pos |= is_pos(kind[k]);
+    for (int k = 0; k < nops; ++k) pos |= is_pos(kind[k]) && !derived(s, k);
 #define SRT_RUNS(W, P)                                                     \
   launch_runs<W, P>(s, keys, order, n, first_set, runs, sc, tiles, first_row, \
                     groups, stream)
-    return w128 ? (pos ? SRT_RUNS(true, true) : SRT_RUNS(true, false))
-                : (pos ? SRT_RUNS(false, true) : SRT_RUNS(false, false));
+    const int rc = w128 ? (pos ? SRT_RUNS(true, true) : SRT_RUNS(true, false))
+                        : (pos ? SRT_RUNS(false, true)
+                               : SRT_RUNS(false, false));
 #undef SRT_RUNS
+    return rc ? rc : run_bounds();
   }
   if (first_set) {
     err = cudaMemsetAsync(sc.state, 0, (1 + (size_t)tiles) * 8, stream);
@@ -2314,7 +2430,11 @@ extern "C" int srt_segment_reduce_set(
         : launch_fold<K, REC, false>(s, keys, order, n, global_agg,         \
                                      first_set, R, sc, tiles, first_row,    \
                                      groups, stream))
-  if (!rec) {
+  if (!rec && nlanes == 0 && !w128) {
+    rc = launch_fold<kDirectRows, false, false, true>(
+        s, keys, order, n, global_agg, first_set, R, sc, tiles, first_row,
+        groups, stream);
+  } else if (!rec) {
     rc = SRT_LAUNCH(kDirectRows, false);
   } else {
     switch (rows_per_thread) {
@@ -2326,19 +2446,138 @@ extern "C" int srt_segment_reduce_set(
   }
 #undef SRT_LAUNCH
   if (rc) return rc;
-  const int fix_blocks = (tiles + kFixTiles - 1) / kFixTiles;
-  if (w128) {
-    fixup_heads_kernel<true><<<fix_blocks, kThreads, 0, stream>>>(
-        s, sc.tile_counts, tiles, sc.head, sc.block_heads);
-    fixup_kernel<true><<<fix_blocks, kThreads, 0, stream>>>(
-        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail,
-        sc.block_heads);
-  } else {
-    fixup_heads_kernel<false><<<fix_blocks, kThreads, 0, stream>>>(
-        s, sc.tile_counts, tiles, sc.head, sc.block_heads);
-    fixup_kernel<false><<<fix_blocks, kThreads, 0, stream>>>(
-        s, sc.tile_counts, sc.tile_offsets, tiles, sc.head, sc.tail,
-        sc.block_heads);
+  if (folded) {
+    const int fix_blocks = (tiles + kFixTiles - 1) / kFixTiles;
+    const int fix_chunks = (tiles + kWarps - 1) / kWarps;
+    if (w128) {
+      fixup_heads_kernel<true><<<fix_blocks, kThreads, 0, stream>>>(
+          s, sc.tile_counts, tiles, sc.head, sc.block_heads);
+      fixup_kernel<true><<<fix_chunks, kThreads, 0, stream>>>(
+          s, sc.tile_counts, sc.tile_offsets, tiles, kWarps, sc.head,
+          sc.tail, sc.block_heads);
+    } else {
+      fixup_heads_kernel<false><<<fix_blocks, kThreads, 0, stream>>>(
+          s, sc.tile_counts, tiles, sc.head, sc.block_heads);
+      fixup_kernel<false><<<fix_chunks, kThreads, 0, stream>>>(
+          s, sc.tile_counts, sc.tile_offsets, tiles, kWarps, sc.head,
+          sc.tail, sc.block_heads);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  return run_bounds();
+}
+
+// srt_segment_reduce_set with its arguments in one block of int64 slots
+// (a pointer as its 64 bits), so the host builds one array a set in
+// place of some forty foreign-call arguments: slots [0, 32) the scalars
+// and single pointers (kArg* below), then fixed-size arrays of key word
+// pointers and their record offsets, the ops' kinds, lanes, high lanes
+// and masks, their results' and counts' pointers, the lanes and their
+// record offsets, the masks, and the runs' beginnings.  This file owns
+// the layout: the host asks each slot's index by name
+// (srt_segment_reduce_slot; exec/aggregate.py _k3_slots).
+namespace {
+enum : int {
+  kArgWords, kArgNwords, kArgVarying, kArgNkeys, kArgLive, kArgOrder,
+  kArgN, kArgGlobal, kArgFirstSet, kArgNops, kArgNlanes, kArgNmasks,
+  kArgMaskOff, kArgRecordBytes, kArgRows, kArgOpsPerSet, kArgRecordMax,
+  kArgBoundsMax, kArgFirstRow, kArgGroups, kArgScratch, kArgScratchBytes,
+  kArgNruns,
+  kArgKeyW = 32,
+  kArgKeyOff = kArgKeyW + kMaxKeys,
+  kArgKind = kArgKeyOff + kMaxKeys,
+  kArgLane = kArgKind + kOpsPerLaunch,
+  kArgLaneHi = kArgLane + kOpsPerLaunch,
+  kArgMask = kArgLaneHi + kOpsPerLaunch,
+  kArgSums = kArgMask + kOpsPerLaunch,
+  kArgSumsHi = kArgSums + kOpsPerLaunch,
+  kArgCounts = kArgSumsHi + kOpsPerLaunch,
+  kArgLanes = kArgCounts + kOpsPerLaunch,
+  kArgLaneOff = kArgLanes + kOpsPerLaunch,
+  kArgMasks = kArgLaneOff + kOpsPerLaunch,
+  kArgRunBegin = kArgMasks + kOpsPerLaunch,
+  kArgSlots = kArgRunBegin + kFewRuns + 1
+};
+
+// Each slot's name; an array's stands for its first slot.
+struct SlotName {
+  const char* name;
+  int at;
+};
+constexpr SlotName kSlotNames[] = {
+    {"words", kArgWords},         {"nwords", kArgNwords},
+    {"varying", kArgVarying},     {"nkeys", kArgNkeys},
+    {"live", kArgLive},           {"order", kArgOrder},
+    {"n", kArgN},                 {"global_agg", kArgGlobal},
+    {"first_set", kArgFirstSet},  {"nops", kArgNops},
+    {"nlanes", kArgNlanes},       {"nmasks", kArgNmasks},
+    {"mask_off", kArgMaskOff},    {"record_bytes", kArgRecordBytes},
+    {"rows", kArgRows},           {"ops_per_set", kArgOpsPerSet},
+    {"record_max", kArgRecordMax}, {"bounds_max", kArgBoundsMax},
+    {"first_row", kArgFirstRow},  {"groups", kArgGroups},
+    {"scratch", kArgScratch},     {"scratch_bytes", kArgScratchBytes},
+    {"nruns", kArgNruns},         {"key_w", kArgKeyW},
+    {"key_off", kArgKeyOff},      {"kind", kArgKind},
+    {"lane", kArgLane},           {"lane_hi", kArgLaneHi},
+    {"mask", kArgMask},           {"sums", kArgSums},
+    {"sums_hi", kArgSumsHi},      {"counts", kArgCounts},
+    {"lanes", kArgLanes},         {"lane_off", kArgLaneOff},
+    {"masks", kArgMasks},         {"run_begin", kArgRunBegin},
+    {"slots", kArgSlots}};
+
+template <class T>
+const T* slots_as(const long long* a, int at) {
+  return reinterpret_cast<const T*>(a + at);
+}
+}  // namespace
+
+// The index of the slot called name (an array's first; "slots": the
+// block's length), or -1 for a name the block has not.
+extern "C" int srt_segment_reduce_slot(const char* name) {
+  for (const SlotName& s : kSlotNames)
+    if (std::strcmp(s.name, name) == 0) return s.at;
+  return -1;
+}
+
+extern "C" int srt_segment_reduce_packed(const long long* a,
+                                         cudaStream_t stream) {
+  const long long nkeys = a[kArgNkeys], nops = a[kArgNops],
+                  nlanes = a[kArgNlanes], nruns = a[kArgNruns];
+  if (nkeys < 0 || nkeys > kMaxKeys || nops < 0 || nops > kOpsPerLaunch ||
+      nlanes < 0 || nlanes > kOpsPerLaunch || nruns < 0 || nruns > kFewRuns)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int key_off[kMaxKeys], kind[kOpsPerLaunch], lane[kOpsPerLaunch],
+      lane_hi[kOpsPerLaunch], mask[kOpsPerLaunch], lane_off[kOpsPerLaunch],
+      run_begin[kFewRuns + 1];
+  for (int k = 0; k < nkeys; ++k)
+    key_off[k] = static_cast<int>(a[kArgKeyOff + k]);
+  for (int k = 0; k < nops; ++k) {
+    kind[k] = static_cast<int>(a[kArgKind + k]);
+    lane[k] = static_cast<int>(a[kArgLane + k]);
+    lane_hi[k] = static_cast<int>(a[kArgLaneHi + k]);
+    mask[k] = static_cast<int>(a[kArgMask + k]);
+  }
+  for (int l = 0; l < nlanes; ++l)
+    lane_off[l] = static_cast<int>(a[kArgLaneOff + l]);
+  for (int r = 0; r <= nruns && nruns > 0; ++r)
+    run_begin[r] = static_cast<int>(a[kArgRunBegin + r]);
+  return srt_segment_reduce_set(
+      reinterpret_cast<const long long* const*>(a[kArgWords]),
+      static_cast<int>(a[kArgNwords]),
+      reinterpret_cast<const int*>(a[kArgVarying]), static_cast<int>(nkeys),
+      slots_as<const void*>(a, kArgKeyW), key_off,
+      reinterpret_cast<const unsigned char*>(a[kArgLive]),
+      reinterpret_cast<const int*>(a[kArgOrder]),
+      static_cast<int>(a[kArgN]), static_cast<int>(a[kArgGlobal]),
+      static_cast<int>(a[kArgFirstSet]), static_cast<int>(nops), kind, lane,
+      lane_hi, mask, slots_as<void*>(a, kArgSums),
+      slots_as<void*>(a, kArgSumsHi), slots_as<long long*>(a, kArgCounts),
+      static_cast<int>(nlanes), slots_as<const void*>(a, kArgLanes), lane_off,
+      static_cast<int>(a[kArgNmasks]), slots_as<const void*>(a, kArgMasks),
+      static_cast<int>(a[kArgMaskOff]), static_cast<int>(a[kArgRecordBytes]),
+      static_cast<int>(a[kArgRows]), static_cast<int>(a[kArgOpsPerSet]),
+      static_cast<int>(a[kArgRecordMax]), static_cast<int>(a[kArgBoundsMax]),
+      reinterpret_cast<int*>(a[kArgFirstRow]),
+      reinterpret_cast<int*>(a[kArgGroups]),
+      reinterpret_cast<void*>(a[kArgScratch]), a[kArgScratchBytes],
+      run_begin, static_cast<int>(nruns), stream);
 }

@@ -18,6 +18,8 @@ group_by over the host-evaluated keys and inputs.
 
 from __future__ import annotations
 
+import array
+import collections
 import decimal
 import functools
 import itertools
@@ -75,15 +77,19 @@ SIGN = _Sign()
 # K3: grouped reduce over rows read in key order
 # ---------------------------------------------------------------------------
 
-def _op_names(values, ops) -> List[str]:
+def _op_names(values, ops, contribs) -> List[str]:
     """Each op's name: ``first`` or ``last`` (a positional op, which reads
     no value), ``count`` for another op with a None value, else
     ``ops[k]`` (sum, min or max; every value sums when ``ops`` is
-    None)."""
+    None).  A None contributor mask (every row) is a count's, a first's
+    or a last's alone."""
     if ops is None:
         ops = ["sum"] * len(values)
     if len(ops) != len(values):
         raise ValueError("segment_reduce_sorted: one op per value lane")
+    if len(contribs) != len(values):
+        raise ValueError("segment_reduce_sorted: one contributor mask per "
+                         "value lane")
     names = []
     for v, op in zip(values, ops):
         if op in _KIND_POS:
@@ -97,6 +103,10 @@ def _op_names(values, ops) -> List[str]:
             names.append(op)
         else:
             raise ValueError(f"segment_reduce_sorted: op {op!r}")
+    if any(c is None and name not in ("count", "first", "last")
+           for c, name in zip(contribs, names)):
+        raise ValueError("segment_reduce_sorted: only a count, first or "
+                         "last takes every row (a None contributor mask)")
     return names
 
 
@@ -116,7 +126,7 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
     ``segment_pick``.  See
     ``segment_reduce_sorted`` for the arguments and the result
     (``varying`` is a hint the plain version does not need)."""
-    names = _op_names(values, ops)
+    names = _op_names(values, ops, contribs)
     his = list(values_hi) if values_hi is not None else [None] * len(values)
     his = [v >> 63 if h is SIGN else h for v, h in zip(values, his)]
     if order is not None:
@@ -126,9 +136,12 @@ def segment_reduce_sorted_plain(words: Sequence[torch.Tensor],
         values = [None if v is None else v.index_select(0, idx)
                   for v in values]
         his = [None if h is None else h.index_select(0, idx) for h in his]
-        contribs = [c.index_select(0, idx) for c in contribs]
+        contribs = [None if c is None else c.index_select(0, idx)
+                    for c in contribs]
     lanes = _lanes(words, live, values, contribs)
     n, dev = int(lanes[0].shape[0]), lanes[0].device
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    contribs = [every if c is None else c for c in contribs]
     if live is None:
         live = torch.ones(n, dtype=torch.bool, device=dev)
     if global_agg:
@@ -233,6 +246,13 @@ _K3_FEW_RUNS = 64
 # many bytes: their reads through the order then mostly hit the 50 MB L2
 # cache.  chip_smoke.py's _k3_sweep times both paths on either side.
 _K3_DIRECT_BYTES = 96 << 20
+# A call of contributor masks and no value lane (first, last and counts)
+# keeps the direct path while its masks are at most this many bytes: a
+# byte of each mask a row read through the order then hits the L2 cache,
+# which also holds the key word's sectors; past it, records (the key word
+# and a word of mask bits) read one sector a row (k3_ab.py's random phase
+# times both paths on either side).
+_K3_MASKS_CACHED = 32 << 20
 
 
 class K3Set(NamedTuple):
@@ -242,9 +262,10 @@ class K3Set(NamedTuple):
     that reads it), each op's lane (-1 for a count), high lane (a
     128-bit op's, -2 for the signs of its low lane, else -1) and mask
     index (also its bit in a record's
-    mask word), and on the record path the record's bytes and the byte
-    offsets of the lanes, of the varying key words (first set only) and
-    of the mask word."""
+    mask word; -1 for a count, first or last over every row, which K3
+    derives from the group's bounds), and on the record path the
+    record's bytes and the byte offsets of the lanes, of the varying key
+    words (first set only) and of the mask word."""
     ops: List[int]
     lanes: List[int]
     masks: List[int]
@@ -264,7 +285,8 @@ class K3Plan(NamedTuple):
     it pulls, the run path's reads once) and the scratch bytes of the
     chosen one; ``run_path``: the direct path folds tiles of input rows
     split by the order's few runs (``csrc/segment_reduce.cu``, "The run
-    path")."""
+    path"); ``bounds``: some op counts or picks over every row, from the
+    groups' bounds."""
     packed: bool
     rows_per_thread: int
     sets: List[K3Set]
@@ -272,14 +294,17 @@ class K3Plan(NamedTuple):
     packed_bytes: int
     scratch_bytes: int
     run_path: bool = False
+    bounds: bool = False
 
 
 def _k3_set(ops, values, masks, nkeys, packed, his) -> Optional[K3Set]:
     """The set of ``ops``; None on the record path when its record would
     exceed 128 bytes.  ``values[k]`` and ``his[k]`` name op k's lane and
     high lane (None: none; SIGN: its lane's signs, no lane) by their
-    index into the call's values then values_hi.  A record holds the distinct lanes (8 bytes each), then
-    the ``nkeys`` key words it carries (8 each), then the mask word."""
+    index into the call's values then values_hi, and ``masks[k]`` its
+    mask (None: every row, no mask).  A record holds the distinct lanes
+    (8 bytes each), then the ``nkeys`` key words it carries (8 each),
+    then the mask word."""
     lanes, mask_keys, mks, op_lane, op_hi, op_mask = [], [], [], [], [], []
 
     def lane(x):
@@ -291,6 +316,9 @@ def _k3_set(ops, values, masks, nkeys, packed, his) -> Optional[K3Set]:
     for k in ops:
         op_lane.append(lane(values[k]))
         op_hi.append(-2 if his[k] is SIGN else lane(his[k]))
+        if masks[k] is None:
+            op_mask.append(-1)
+            continue
         if masks[k] not in mask_keys:
             mask_keys.append(masks[k])
             mks.append(k)
@@ -329,13 +357,13 @@ def _k3_sets(values, masks, nkeys, packed, his) -> List[K3Set]:
 
 def _k3_bytes(n, sets, nkeys, live, ordered, run_path=False) -> int:
     """Device-memory bytes of K3's sets over n rows (the varying pass,
-    the same on both paths, left out).  Record path: the pack reads the
-    inputs and writes the records, the fold reads the order and one
-    record a row, and the key words no record carries one sector a row
-    each.  Direct path: the order and one sector a row for each input,
-    or the inputs alone for rows already in key order; the run path:
-    each input once and the order once a set, and once more for the
-    starts."""
+    the same on both paths, left out; an op over every row reads
+    nothing).  Record path: the pack reads the inputs and writes the
+    records, the fold reads the order and one record a row, and the key
+    words no record carries one sector a row each.  Direct path: the
+    order and one sector a row for each input, or the inputs alone for
+    rows already in key order; the run path: each input once and the
+    order once a set, and once more for the starts."""
     total = 4 * n if run_path and ordered else 0
     for i, s in enumerate(sets):
         keys, lv = (nkeys, int(live)) if i == 0 else (0, 0)
@@ -360,14 +388,17 @@ def _up16(x: int) -> int:
 
 
 def k3_scratch_bytes(n: int, rows_per_thread: int, ops_per_set: int,
-                     record_max: int, runs: int = 0) -> int:
+                     record_max: int, runs: int = 0,
+                     bounds: bool = False) -> int:
     """K3's scratch (``layout`` in ``csrc/segment_reduce.cu``, which
     refuses less): the look-back state, the start bits, the tiles' start
     counts and slots, the head and tail partials of the widest set, the
-    records, on the run path (``runs`` > 0) the pieces' sorted rows, and
-    the fixup's block heads (a head a set's op for each 64 tiles), the
+    records, on the run path (``runs`` > 0) the pieces' sorted rows, the
+    fixup's block heads (a head a set's op for each 64 tiles), the
     counts, slots, partials and block heads on the run path being the
-    pieces' (runs x tiles); each region rounded up to 16 bytes."""
+    pieces' (runs x tiles), and with ``bounds`` (an op derived from the
+    groups' bounds) the groups' first sorted positions; each region
+    rounded up to 16 bytes."""
     tiles = -(-n // (_K3_THREADS * rows_per_thread))
     parts = runs * tiles if runs else tiles
     ops = max(ops_per_set, 1)
@@ -375,18 +406,22 @@ def k3_scratch_bytes(n: int, rows_per_thread: int, ops_per_set: int,
         (1 + tiles) * 8, tiles * _K3_THREADS * 2, parts * 4, parts * 4,
         parts * ops * _K3_ACC_BYTES, parts * ops * _K3_ACC_BYTES,
         n * record_max, runs * (tiles + 1) * 4,
-        -(-parts // _K3_FIX_TILES) * ops * _K3_ACC_BYTES))
+        -(-parts // _K3_FIX_TILES) * ops * _K3_ACC_BYTES,
+        n * 4 if bounds else 0))
 
 
 def k3_may_pack(n: int, values: Sequence, masks: Sequence,
                 ordered: bool, his: Sequence = ()) -> bool:
     """Whether K3's record path can pay before the key words are known:
-    the rows come through an order, some op reads a value lane, and the
-    distinct inputs (``his``: the 128-bit ops' high lanes) outgrow
-    ``_K3_DIRECT_BYTES``."""
+    the rows come through an order, and the distinct inputs (``his``:
+    the 128-bit ops' high lanes; a mask of every row is none) outgrow
+    ``_K3_DIRECT_BYTES``, or, with no value lane, the masks outgrow
+    ``_K3_MASKS_CACHED``."""
     lanes = {v for v in [*values, *his] if v is not None and v is not SIGN}
-    return (ordered and bool(lanes)
-            and n * (8 * len(lanes) + len(set(masks))) > _K3_DIRECT_BYTES)
+    mks = {m for m in masks if m is not None}
+    if not lanes:
+        return ordered and n * len(mks) > _K3_MASKS_CACHED
+    return ordered and n * (8 * len(lanes) + len(mks)) > _K3_DIRECT_BYTES
 
 
 K3_PATHS = (None, "record", "direct", "run")
@@ -399,11 +434,11 @@ def k3_plan(n: int, values: Sequence, masks: Sequence, nkeys: int,
             his: Optional[Sequence] = None) -> K3Plan:
     """See ``_k3_plan``: the inputs reduced to where each is first read
     (each op's lane, then each op's high lane, ``his``: a 128-bit op's,
-    SIGN for the signs of its own lane, else None), so that calls of one
-    shape share a plan.  ``path`` forces K3's path (one of ``K3_PATHS``;
-    None plans it): ``record``, ``direct`` (tiles of sorted rows) or
-    ``run`` (the direct path over an order of few runs takes the run
-    path, whatever the inputs' size)."""
+    SIGN for the signs of its own lane, else None; each op's mask, None
+    for every row), so that calls of one shape share a plan.  ``path``
+    forces K3's path (one of ``K3_PATHS``; None plans it): ``record``,
+    ``direct`` (tiles of sorted rows) or ``run`` (the direct path over an
+    order of few runs takes the run path, whatever the inputs' size)."""
     if path not in K3_PATHS:
         raise ValueError(f"K3's path is one of {K3_PATHS}, not {path!r}")
     his = [None] * len(values) if his is None else list(his)
@@ -426,16 +461,17 @@ def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
              his: Tuple[int, ...] = (), run_path: bool = True) -> K3Plan:
     """K3's plan for n rows and one op per entry of ``values`` (each op's
     value lane by its storage, any hashable, or None for a count) and
-    ``masks`` (its contributor mask's storage), ``nkeys`` key words that
-    vary, rows read through an order (``ordered``) of ``few_runs``
-    increasing runs (0: more than ``_K3_FEW_RUNS``, or not counted) and
-    live flags (``live``).  The record path where ``k3_may_pack`` holds,
-    the order has more runs, and it moves fewer bytes than the direct
-    path; ``packed`` forces a path.  A record tile is 64 KB: K = 65,536 /
-    (256 R) rows a thread for the widest record R of the call; the direct
-    path takes 8, and over an order of few runs takes the run path
-    (unless ``run_path`` is False)."""
+    ``masks`` (its contributor mask's storage; -1: every row),
+    ``nkeys`` key words that vary, rows read through an order
+    (``ordered``) of ``few_runs`` increasing runs (0: more than
+    ``_K3_FEW_RUNS``, or not counted) and live flags (``live``).  The
+    record path where ``k3_may_pack`` holds, the order has more runs, and
+    it moves fewer bytes than the direct path; ``packed`` forces a path.
+    A record tile is 64 KB: K = 65,536 / (256 R) rows a thread for the
+    widest record R of the call; the direct path takes 8, and over an
+    order of few runs takes the run path (unless ``run_path`` is False)."""
     values = [None if v < 0 else v for v in values]
+    masks = [None if m < 0 else m for m in masks]
     his = [None if v == -1 else SIGN if v == -2 else v
            for v in his] or [None] * len(values)
     direct = _k3_sets(values, masks, nkeys, False, his)
@@ -449,13 +485,14 @@ def _k3_plan(n: int, values: Tuple[int, ...], masks: Tuple[int, ...],
     else:
         use = packed
     sets = recs if use else direct
-    rmax = max(s.record_bytes for s in sets)
+    rmax = max(x.record_bytes for x in sets)
     rows = (min(_K3_STAGE_BYTES // (_K3_THREADS * rmax), 16) if use
             else _K3_DIRECT_ROWS)
     runs = 0 if use else runs
+    bounds = None in masks
     return K3Plan(use, rows, sets, direct_bytes, packed_bytes,
-                  k3_scratch_bytes(n, rows, max(len(s.ops) for s in sets),
-                                   rmax, runs), runs > 0)
+                  k3_scratch_bytes(n, rows, max(len(x.ops) for x in sets),
+                                   rmax, runs, bounds), runs > 0, bounds)
 
 
 def _storage(x: torch.Tensor):
@@ -468,7 +505,7 @@ def _storage(x: torch.Tensor):
 def segment_reduce_sorted(words: Sequence[torch.Tensor],
                           live: Optional[torch.Tensor],
                           values: Sequence[Optional[torch.Tensor]],
-                          contribs: Sequence[torch.Tensor],
+                          contribs: Sequence[Optional[torch.Tensor]],
                           global_agg: bool,
                           order: Optional[torch.Tensor] = None,
                           ops: Optional[Sequence[str]] = None,
@@ -483,33 +520,35 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
     (``live`` None: every row) that is the first sorted row or differs
     from the previous one in a key word; rows before the first start
     belong to no group; with ``global_agg`` all rows form one group.  Per
-    op k, ``contribs[k]`` marks the rows that contribute and
-    ``values[k]`` is the int64 or float64 lane to reduce (None for a
-    count) by ``ops[k]``: ``sum`` (every op when ``ops`` is None),
-    ``min`` or ``max``; or ``first`` or ``last`` with a None value: the
-    group's least or greatest sorted position whose contributor flag is
-    set (K3's positional kinds), returned as its input row (int32).  Returns (first_row int32[G], sums, counts
-    int64[G], G), groups in key order, ``first_row[g]`` the input row of
-    group g's first sorted row: int64 sums wrap mod 2^64; float64 sums
-    add the finite values and are NaN if any NaN or both infinities
-    contribute, else +-inf if one does; a min or max is the value, bit
-    for bit, of the group's earliest sorted row whose ordered word
-    (``ops/segmented.py:ordered_word``) is the extreme; a result with no
-    contributor is 0.  ``values_hi[k]``, where given, makes op k a
-    128-bit one over the pair (``values[k]`` the low words, int64 bits of
-    the unsigned word, ``values_hi[k]`` the signed high words: a DECIMAL
-    of more than 18 digits): its sum is exact modulo 2^128, its min or
-    max ordered by (high signed, low unsigned), and its result the pair
-    (low words, high words).  ``values_hi[k] = SIGN`` makes a sum a
-    128-bit one over ``values[k]`` sign-extended (a DECIMAL64 input summed
-    into a DECIMAL128 buffer) without a lane of signs.  ``path`` forces
-    K3's path (``k3_plan``; None plans it, and reads the order's runs
-    only where the inputs outgrow the L2 cache).  ``varying``, where known
-    (K2's histogram, ``sort_order_and_varying``), says which key
-    words hold more than one value; K3 then reads only the order's
-    descents and not the words.  The plain version runs for CPU tensors
-    whatever they say."""
-    names = _op_names(values, ops)
+    op k, ``contribs[k]`` marks the rows that contribute (None: every
+    row, for a count, first or last alone: K3 then reads no mask and
+    takes the result from the group's bounds) and ``values[k]`` is the
+    int64 or float64 lane to reduce (None for a count) by ``ops[k]``:
+    ``sum`` (every op when ``ops`` is None), ``min`` or ``max``; or
+    ``first`` or ``last`` with a None value: the group's least or
+    greatest sorted position whose contributor flag is set (K3's
+    positional kinds), returned as its input row (int32).  Returns
+    (first_row int32[G], sums, counts int64[G], G), groups in key order,
+    ``first_row[g]`` the input row of group g's first sorted row: int64
+    sums wrap mod 2^64; float64 sums add the finite values and are NaN if
+    any NaN or both infinities contribute, else +-inf if one does; a min
+    or max is the value, bit for bit, of the group's earliest sorted row
+    whose ordered word (``ops/segmented.py:ordered_word``) is the
+    extreme; a result with no contributor is 0.  ``values_hi[k]``, where
+    given, makes op k a 128-bit one over the pair (``values[k]`` the low
+    words, int64 bits of the unsigned word, ``values_hi[k]`` the signed
+    high words: a DECIMAL of more than 18 digits): its sum is exact
+    modulo 2^128, its min or max ordered by (high signed, low unsigned),
+    and its result the pair (low words, high words).  ``values_hi[k] =
+    SIGN`` makes a sum a 128-bit one over ``values[k]`` sign-extended (a
+    DECIMAL64 input summed into a DECIMAL128 buffer) without a lane of
+    signs.  ``path`` forces K3's path (``k3_plan``; None plans it, and
+    reads the order's runs only where the inputs outgrow the L2 cache).
+    ``varying``, where known (K2's histogram, ``sort_order_and_varying``),
+    says which key words hold more than one value; K3 then reads the
+    words only where it needs the order's descents.  The plain version
+    runs for CPU tensors whatever they say."""
+    names = _op_names(values, ops, contribs)
     varying_words = varying
     his = [None] * len(values) if values_hi is None else list(values_hi)
     if len(his) != len(values) or any(
@@ -527,17 +566,19 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                                            global_agg, order, ops, his)
     kernels.require_cuda("segment_reduce_sorted", *lanes)
     n = int(lanes[0].shape[0])
-    if any(c.dtype != torch.bool or c.shape != (n,)
-           for c in [*contribs, *([] if live is None else [live])]):
-        raise TypeError("segment_reduce_sorted: live and contributor masks "
-                        f"must be bool[{n}]")
-    if any(w.dtype != torch.int64 or w.shape != (n,) for w in words):
-        raise TypeError(f"segment_reduce_sorted: key words must be int64[{n}]")
-    present = [v for v in values if v is not None]
-    if any(v.dtype not in (torch.int64, torch.float64) or v.shape != (n,)
-           for v in present):
-        raise TypeError("segment_reduce_sorted: values must be int64 or "
-                        f"float64[{n}]")
+    for c in (*contribs, live):
+        if c is not None and (c.dtype != torch.bool or c.shape != (n,)):
+            raise TypeError("segment_reduce_sorted: live and contributor "
+                            f"masks must be bool[{n}]")
+    for w in words:
+        if w.dtype != torch.int64 or w.shape != (n,):
+            raise TypeError(f"segment_reduce_sorted: key words must be "
+                            f"int64[{n}]")
+    for v in values:
+        if v is not None and (v.dtype not in (torch.int64, torch.float64)
+                              or v.shape != (n,)):
+            raise TypeError("segment_reduce_sorted: values must be int64 or "
+                            f"float64[{n}]")
     if any(h is not None and (values[k].dtype != torch.int64 or (
             h is not SIGN and (h.dtype != torch.int64 or h.shape != (n,))))
            for k, h in enumerate(his)):
@@ -548,52 +589,48 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
         raise TypeError(f"segment_reduce_sorted: order must be int32[{n}]")
     dev = lanes[0].device
     st = kernels.stream(lanes[0])
-    m = max(n, 1)
     lib = kernels.library("segment_reduce")
-    kinds = [_KIND_POS[op] if op in _KIND_POS else
-             _KIND_COUNT if op == "count" else
-             _KIND_128[op] if h is not None else
-             _KIND_EXTREME[op, v.dtype == torch.float64]
-             if op in ("min", "max") else
-             _KIND_SUM_FLOAT if v.dtype == torch.float64 else _KIND_SUM_INT
-             for v, h, op in zip(values, his, names)]
+    kinds = tuple(_KIND_POS[op] if op in _KIND_POS else
+                  _KIND_COUNT if op == "count" else
+                  _KIND_128[op] if h is not None else
+                  _KIND_EXTREME[op, v.dtype == torch.float64]
+                  if op in ("min", "max") else
+                  _KIND_SUM_FLOAT if v.dtype == torch.float64
+                  else _KIND_SUM_INT
+                  for v, h, op in zip(values, his, names))
     value_keys = [None if v is None else _storage(v) for v in values]
     hi_keys = [h if h is None or h is SIGN else _storage(h) for h in his]
     by_key = values + his                   # a plan's lane index -> lane
-    mask_keys = [_storage(c) for c in contribs]
-    word_ptrs = kernels.device_int64s([w.data_ptr() for w in words], dev)
+    mask_keys = [None if c is None else _storage(c) for c in contribs]
+    word_ptrs = _word_pointers(words, dev)
+    look = path in ("record", "run") or (path is None and k3_may_pack(
+        n, value_keys, mask_keys, order is not None, hi_keys))
+    look = look and not global_agg and n > 0
     # the varying key words, then the order's descents (up to 64) and
-    # where they are
-    varying = torch.empty(len(words) + 1 + _K3_FEW_RUNS, dtype=torch.int32,
-                          device=dev)
-    if not global_agg:
-        known = varying_words is not None and len(varying_words) == len(words)
+    # where they are: known flags that no launch writes to are a shared,
+    # read-only copy
+    known = varying_words is not None and len(varying_words) == len(words)
+    if global_agg or (known and not look):
+        varying = _shared_varying(
+            () if global_agg else tuple(bool(f) for f in varying_words),
+            dev)
+    else:
+        varying = torch.empty(len(words) + 1 + _K3_FEW_RUNS,
+                              dtype=torch.int32, device=dev)
         if known:
             varying[:len(words)].copy_(torch.tensor(
                 [int(bool(f)) for f in varying_words], dtype=torch.int32,
                 pin_memory=True), non_blocking=True)
-        if order is not None or not known:
-            # the words not known (or none), then the order's descents
-            skip = len(words) if known else 0
-            kernels.check(lib, lib.srt_segment_reduce_varying(
-                word_ptrs.data_ptr(), len(words) - skip,
-                None if order is None else order.data_ptr(), n,
-                varying.data_ptr() + 4 * skip, st), "segment_reduce_sorted")
-    sums = [torch.empty(m, dtype=torch.int32, device=dev) if op in _KIND_POS
-            else None if v is None else torch.empty(m, dtype=v.dtype,
-                                                    device=dev)
-            for v, op in zip(values, names)]
-    sums_hi = [None if h is None else torch.empty(m, dtype=torch.int64,
-                                                  device=dev) for h in his]
-    counts = [torch.empty(m, dtype=torch.int64, device=dev) for _ in values]
-    first_row = torch.empty(m, dtype=torch.int32, device=dev)
-    groups = torch.empty(2, dtype=torch.int32, device=dev)  # and a flag
+        # the words not known (or none), then the order's descents
+        skip = len(words) if known else 0
+        kernels.check(lib, lib.srt_segment_reduce_varying(
+            word_ptrs.data_ptr(), len(words) - skip,
+            None if order is None or not look else order.data_ptr(), n,
+            varying.data_ptr() + 4 * skip, st), "segment_reduce_sorted")
     keys = []       # the varying words, which a record may carry
     runs = None     # the order's increasing runs, where few
     begins = []     # where they begin, and n
-    look = path in ("record", "run") or (path is None and k3_may_pack(
-        n, value_keys, mask_keys, order is not None, hi_keys))
-    if look and not global_agg and n:
+    if look:
         flags = varying.tolist()
         nw = len(words)
         keys = [w for w, f in zip(words, flags[:nw]) if f]
@@ -604,49 +641,190 @@ def segment_reduce_sorted(words: Sequence[torch.Tensor],
                                       flags[nw + 1:nw + runs]) + [n]
     plan = k3_plan(n, value_keys, mask_keys, len(keys), order is not None,
                    live is not None, path, runs if begins else None, hi_keys)
-    scratch = torch.empty(max(plan.scratch_bytes // 8, 2),
-                          dtype=torch.int64, device=dev)
-    ops_per_set = max(len(s.ops) for s in plan.sets)
-    record_max = max(s.record_bytes for s in plan.sets)
-    for i, s in enumerate(plan.sets):
-        rec_keys = keys if i == 0 and s.key_offsets else []
-        kernels.check(lib, lib.srt_segment_reduce_set(
-            word_ptrs.data_ptr(), len(words), varying.data_ptr(),
-            len(rec_keys), kernels.pointers(rec_keys),
-            kernels.ints(s.key_offsets),
-            None if live is None else live.data_ptr(),
-            None if order is None else order.data_ptr(), n,
-            int(global_agg), int(i == 0), len(s.ops),
-            kernels.ints(kinds[k] for k in s.ops), kernels.ints(s.op_lane),
-            kernels.ints(s.op_lane_hi), kernels.ints(s.op_mask),
-            kernels.pointers([sums[k] for k in s.ops]),
-            kernels.pointers([sums_hi[k] for k in s.ops]),
-            kernels.pointers([counts[k] for k in s.ops]),
-            len(s.lanes), kernels.pointers([by_key[x] for x in s.lanes]),
-            kernels.ints(s.lane_offsets), len(s.masks),
-            kernels.pointers([contribs[k] for k in s.masks]),
-            s.mask_offset, s.record_bytes, plan.rows_per_thread,
-            ops_per_set, record_max, first_row.data_ptr(),
-            groups.data_ptr(), scratch.data_ptr(), plan.scratch_bytes,
-            kernels.ints(begins if plan.run_path else []),
-            len(begins) - 1 if plan.run_path else 0, st),
-            "segment_reduce_sorted")
+    blocks = _k3_call_args(plan, kinds, global_agg)
+    # one buffer of every output: a row of m int64 each for the counts,
+    # the results (int32, int64 or float64) and the 128-bit high words,
+    # and one for first_row and groups (int32); the kernels take the rows'
+    # addresses, and the views are made once the group count is known
+    m = max(n, 2)
+    m += m % 2                                  # rows 16-byte aligned
+    nops = len(values)
+    results = [k for k, op in enumerate(names) if op != "count"]
+    wide = [k for k, h in enumerate(his) if h is not None]
+    out = torch.empty(nops + len(results) + len(wide) + 1, m,
+                      dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(plan.scratch_bytes // 8, 2), dtype=torch.int64,
+                          device=dev)
+    base, row = out.data_ptr(), 8 * m
+    sum_row = [None] * nops
+    for r, k in enumerate(results, nops):
+        sum_row[k] = r
+    hi_row = [None] * nops
+    for r, k in enumerate(wide, nops + len(results)):
+        hi_row[k] = r
+    tail = base + row * (out.shape[0] - 1)     # first_row, then groups
+    runs = begins if plan.run_path else []
+    S = _k3_slots()
+    for i, (x, block) in enumerate(zip(plan.sets, blocks)):
+        a = array.array("q", block)
+        a[S.words] = word_ptrs.data_ptr()
+        a[S.nwords] = len(words)
+        a[S.varying] = varying.data_ptr()
+        a[S.n] = n
+        for j, w in enumerate(keys if i == 0 and x.key_offsets else ()):
+            a[S.key_w + j] = w.data_ptr()
+        a[S.live] = 0 if live is None else live.data_ptr()
+        a[S.order] = 0 if order is None else order.data_ptr()
+        for j, k in enumerate(x.ops):
+            a[S.counts + j] = base + row * k
+            if sum_row[k] is not None:
+                a[S.sums + j] = base + row * sum_row[k]
+            if hi_row[k] is not None:
+                a[S.sums_hi + j] = base + row * hi_row[k]
+        for j, lane in enumerate(x.lanes):
+            a[S.lanes + j] = by_key[lane].data_ptr()
+        for j, k in enumerate(x.masks):
+            a[S.masks + j] = contribs[k].data_ptr()
+        a[S.first_row] = tail
+        a[S.groups] = tail + 4 * m
+        a[S.scratch] = scratch.data_ptr()
+        a[S.nruns] = max(len(runs) - 1, 0)
+        a[S.run_begin:S.run_begin + len(runs)] = array.array("q", runs)
+        kernels.check(lib, lib.srt_segment_reduce_packed(
+            a.buffer_info()[0], st), "segment_reduce_sorted")
     segment_reduce_sorted.launches += 1
     segment_reduce_sorted.last_plan = plan
-    g, bad = groups.tolist()
+    # the buffer as each type while the card folds, then every row cut to
+    # the groups at once
+    as32 = out.view(torch.int32)
+    as_f = out.view(torch.float64) if any(
+        r is not None and values[k] is not None
+        and values[k].dtype == torch.float64
+        for k, r in enumerate(sum_row)) else None
+    g, bad = as32[-1, m:m + 2].tolist()
     if plan.run_path and bad:
         raise RuntimeError("segment_reduce_sorted: the run path takes a "
                            "permutation for the order")
-    return (first_row[:g], [
-        None if s is None else
-        _input_rows(s[:g], c[:g], order) if op in _KIND_POS else
-        s[:g] if h is None else (s[:g], h[:g])
-        for s, h, c, op in zip(sums, sums_hi, counts, names)],
-        [c[:g] for c in counts], g)
+    c64 = out.narrow(1, 0, g).unbind(0)
+    c32 = as32.narrow(1, 0, g).unbind(0)
+    cf = None if as_f is None else as_f.narrow(1, 0, g).unbind(0)
+
+    def result(k):
+        r = sum_row[k]
+        if r is None:
+            return None
+        x = (c32 if names[k] in _KIND_POS else c64
+             if values[k].dtype == torch.int64 else cf)[r]
+        return x if hi_row[k] is None else (x, c64[hi_row[k]])
+    return (c32[-1], [result(k) for k in range(nops)], list(c64[:nops]), g)
 
 
 segment_reduce_sorted.launches = 0
 segment_reduce_sorted.last_plan = None     # the plan of the last launch
+
+
+_WORD_POINTERS = collections.OrderedDict()
+_VARYING = collections.OrderedDict()
+
+
+def _shared_varying(flags: Tuple[bool, ...], dev) -> torch.Tensor:
+    """A device copy of the key words' varying flags, kept for the last
+    64 lists, for the calls that read the flags and write nothing there."""
+    key = (dev, flags)
+    got = _VARYING.get(key)
+    if got is None:
+        got = torch.zeros(len(flags) + 1 + _K3_FEW_RUNS, dtype=torch.int32)
+        got[:len(flags)] = torch.tensor(flags, dtype=torch.int32)
+        got = got.to(dev)
+        _VARYING[key] = got
+        if len(_VARYING) > 64:
+            _VARYING.popitem(last=False)
+    return got
+
+
+def _word_pointers(words, dev) -> torch.Tensor:
+    """The key words' device pointers as an int64 array on ``dev``, kept
+    for the last 64 lists: a call over the same words copies none."""
+    key = (dev, tuple(w.data_ptr() for w in words))
+    got = _WORD_POINTERS.get(key)
+    if got is None:
+        got = kernels.device_int64s(key[1], dev)
+        _WORD_POINTERS[key] = got
+        if len(_WORD_POINTERS) > 64:
+            _WORD_POINTERS.popitem(last=False)
+    return got
+
+
+# The slots of srt_segment_reduce_packed's argument block (one int64
+# each) that the host fills, by name: csrc/segment_reduce.cu owns their
+# indices (kSlotNames) and gives each one (srt_segment_reduce_slot); an
+# array's name is its first slot, and ``slots`` the block's length.
+_K3Slots = collections.namedtuple("_K3Slots", (
+    "words", "nwords", "varying", "nkeys", "live", "order", "n",
+    "global_agg", "first_set", "nops", "nlanes", "nmasks", "mask_off",
+    "record_bytes", "rows", "ops_per_set", "record_max", "bounds_max",
+    "first_row", "groups", "scratch", "scratch_bytes", "nruns", "key_w",
+    "key_off", "kind", "lane", "lane_hi", "mask", "sums", "sums_hi",
+    "counts", "lanes", "lane_off", "masks", "run_begin", "slots"))
+
+
+@functools.lru_cache(maxsize=1)
+def _k3_slots() -> _K3Slots:
+    """Each slot's index, as the built library gives it."""
+    lib = kernels.library("segment_reduce")
+    at = {f: lib.srt_segment_reduce_slot(f.encode())
+          for f in _K3Slots._fields}
+    missing = [f for f, i in at.items() if i < 0]
+    if missing:
+        raise RuntimeError(f"segment_reduce_sorted: the library's argument "
+                           f"block has no slot {missing}")
+    return _K3Slots(**at)
+
+
+_K3_BLOCKS: dict = {}
+
+
+def _k3_call_args(plan: K3Plan, kinds: Tuple[int, ...],
+                  global_agg: bool) -> list:
+    """Each set's argument block with what depends on the plan, the ops'
+    kinds and ``global_agg`` alone filled in, kept beside the plan (plans
+    are cached, so a shape's calls share them); a call copies its set's
+    block and adds its pointers."""
+    key = (id(plan), kinds, global_agg)
+    got = _K3_BLOCKS.get(key)
+    if got is None or got[0] is not plan:
+        if len(_K3_BLOCKS) >= 256:
+            _K3_BLOCKS.clear()
+        S = _k3_slots()
+        ops_per_set = max(len(x.ops) for x in plan.sets)
+        record_max = max(x.record_bytes for x in plan.sets)
+        blocks = []
+        for i, x in enumerate(plan.sets):
+            a = array.array("q", bytes(8 * S.slots))
+            a[S.nkeys] = len(x.key_offsets) if i == 0 else 0
+            a[S.global_agg] = int(global_agg)
+            a[S.first_set] = int(i == 0)
+            a[S.nops] = len(x.ops)
+            a[S.nlanes] = len(x.lanes)
+            a[S.nmasks] = len(x.masks)
+            a[S.mask_off] = x.mask_offset
+            a[S.record_bytes] = x.record_bytes
+            a[S.rows] = plan.rows_per_thread
+            a[S.ops_per_set] = ops_per_set
+            a[S.record_max] = record_max
+            a[S.bounds_max] = int(plan.bounds)
+            a[S.scratch_bytes] = plan.scratch_bytes
+            for field, values in ((S.key_off, x.key_offsets),
+                                  (S.kind, [kinds[k] for k in x.ops]),
+                                  (S.lane, x.op_lane),
+                                  (S.lane_hi, x.op_lane_hi),
+                                  (S.mask, x.op_mask),
+                                  (S.lane_off, x.lane_offsets)):
+                a[field:field + len(values)] = array.array("q", values)
+            blocks.append(a)
+        got = (plan, blocks)
+        _K3_BLOCKS[key] = got
+    return got[1]
 
 
 # ---------------------------------------------------------------------------
@@ -734,7 +912,8 @@ _COLLECT = ("collect_list", "collect_set", "collect_concat",
 
 
 def k3_ops(vals: List[DeviceColumn], ops: List[str],
-           wide: Optional[Sequence] = None):
+           wide: Optional[Sequence] = None,
+           every: Optional[Sequence[bool]] = None, keyed: bool = True):
     """K3's value lanes, contributor masks and op names for ``vals``
     reduced by ``ops`` (sum, countvalid, min, max, the positional ops and
     the collects), for each op the index of the K3 op whose result it
@@ -744,14 +923,20 @@ def k3_ops(vals: List[DeviceColumn], ops: List[str],
     of an earlier op over the same validity lane (avg's sum and count),
     so K3 folds that lane once; a min and a max of one column read one
     widened lane.  ``first`` and ``last`` are positional ops over the
-    column's validity, ``first_any`` and ``last_any`` over a mask of
-    every row (one for the call); a collect_list or collect_set counts
-    its valid rows, and a collect's merge sums its arrays' lengths."""
+    column's validity, ``first_any`` and ``last_any`` over every row; a
+    collect_list or collect_set counts its valid rows, and a collect's
+    merge sums its arrays' lengths.  A count, first or last over every
+    row (``first_any``, ``last_any``, or a column whose ``every[i]`` says
+    its validity holds every row: count(*)'s literal) has no mask (None):
+    K3 derives it from the group's bounds.  Without a key (``keyed``
+    False) those take a mask of every row (one for the call), so that
+    K3 has a lane to count the rows by."""
     k3_vals, k3_contribs, k3_names, take, by_lane = [], [], [], [], {}
     k3_his, extreme = [], {}
-    every = None
+    ones = None
     wide = wide or [None] * len(vals)
-    for v, op, w in zip(vals, ops, wide):
+    every = every or [False] * len(vals)
+    for v, op, w, all_valid in zip(vals, ops, wide, every):
         lane = v.validity.data_ptr()
         counts_valid = op in ("countvalid", "collect_list", "collect_set")
         if counts_valid and lane in by_lane:
@@ -759,12 +944,14 @@ def k3_ops(vals: List[DeviceColumn], ops: List[str],
             continue
         take.append(len(k3_vals))
         value, name, mask, hi = None, "sum", v.validity, None
+        bounds = op.endswith("_any") or (all_valid and (
+            counts_valid or op in _POSITIONAL))
+        if bounds:
+            if ones is None and not keyed:
+                ones = torch.ones_like(v.validity)
+            mask = ones
         if op in _POSITIONAL:
             name = _POSITIONAL[op]
-            if op.endswith("_any"):
-                if every is None:
-                    every = torch.ones_like(v.validity)
-                mask = every
         elif op in ("collect_concat", "collect_concat_set"):
             value = (v.offsets[1:] - v.offsets[:-1]).to(torch.int64)
         else:
@@ -853,12 +1040,15 @@ def _group_reduce(key_cols: List[DeviceColumn],
                   value_cols: List[DeviceColumn], ops: List[str],
                   num_rows: int, global_agg: bool,
                   order: Optional[torch.Tensor] = None,
-                  wide: Optional[Sequence] = None
+                  wide: Optional[Sequence] = None,
+                  every: Optional[Sequence[bool]] = None
                   ) -> Tuple[List[DeviceColumn], List[DeviceColumn], int]:
     """Group the first ``num_rows`` rows by ``key_cols`` and reduce each
     value column with its op (``sum``, ``countvalid``, ``min``, ``max``,
     ``first``, ``last``, ``first_any``, ``last_any``, or a collect; a
-    min, max, first or last keeps the column's type; ``wide[i]``, where
+    min, max, first or last keeps the column's type; ``every[i]``, where
+    set, says value column i's validity holds every row: count(*)'s
+    literal, which K3 counts by the groups' bounds; ``wide[i]``, where
     set, is the DECIMAL128 type that the DECIMAL64 column i sums into).
     ``order``, when given, is a permutation that already sorts the rows
     by key; else the rows are sorted here (K2).  Returns (key columns,
@@ -883,7 +1073,8 @@ def _group_reduce(key_cols: List[DeviceColumn],
     if order is None and words:
         order, varying = sort_order_and_varying(words)
     wide = wide or [None] * len(vals)
-    k3_vals, k3_contribs, k3_names, take, k3_his = k3_ops(vals, ops, wide)
+    k3_vals, k3_contribs, k3_names, take, k3_his = k3_ops(
+        vals, ops, wide, every, keyed=bool(words))
     first_row, sums, counts, groups = segment_reduce_sorted(
         words, None, k3_vals, k3_contribs, global_agg, order, k3_names,
         values_hi=k3_his, varying=varying)
@@ -1027,20 +1218,23 @@ class GpuHashAggregateExec(Exec):
         """(grouping key columns, update input columns) of a batch."""
         ctx = EvalContext(batch)
         key_cols = [g.eval(ctx).col for g in self._bound_grouping]
-        val_cols = []
+        val_cols, every = [], []
         for b in self._update_inputs:
             v = b.eval(ctx)
+            # a literal that is not null: valid in every row
+            every.append(not isinstance(v, ColumnValue)
+                         and v.value is not None)
             if not isinstance(v, ColumnValue):
                 v = make_column(ctx, b.data_type(), v.value,
                                 None if v.value is not None else False)
             val_cols.append(v.col)
-        return key_cols, val_cols
+        return key_cols, val_cols, every
 
     def _update_batch(self, batch: DeviceBatch) -> DeviceBatch:
-        key_cols, val_cols = self._update_columns(batch)
+        key_cols, val_cols, every = self._update_columns(batch)
         ok, ov, n = _group_reduce(key_cols, val_cols, self._update_ops,
                                   batch.num_rows, not self.grouping,
-                                  wide=self._update_wide)
+                                  wide=self._update_wide, every=every)
         return DeviceBatch(ok + ov, n, self._group_names + self._buffer_names)
 
     def _merge_batch(self, batch: DeviceBatch) -> DeviceBatch:

@@ -472,8 +472,8 @@ class WindowExec(Exec):
             lo, hi = lay.seg_start, lay.run_end if kind == "range" else None
         else:
             lo, hi = self._frame_bounds(kind, lo_b, hi_b, lay)
-        idx, flag = frame_pick(scol.validity & lay.live_s, lo, hi,
-                               isinstance(f, Last), f.ignore_nulls)
+        idx, flag = frame_pick(scol.validity, lo, hi, isinstance(f, Last),
+                               f.ignore_nulls, lay.n_live)
         col = gather_columns([scol], idx, flag)[0]
         if col.is_flat and col.data_hi is None:
             return col.data, col.validity

@@ -49,10 +49,8 @@ _SIGNATURES = {
     },
     "segment_reduce": {
         "srt_segment_reduce_varying": [_P, _I, _P, _I, _P, _P],
-        "srt_segment_reduce_set": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
-                                   _P, _P, _L, _P, _I, _P],
+        "srt_segment_reduce_packed": [_P, _P],
+        "srt_segment_reduce_slot": [ctypes.c_char_p],
     },
     "key_hash": {
         "srt_key_hash": [_P, _I, _I, _I, _I, _P, _P],
@@ -123,8 +121,8 @@ _SIGNATURES = {
         "srt_date_fields": [_P, _I, _L, _I, _P, _I, _P, _P],
     },
     "frame_pick": {
-        "srt_frame_pick_state_words": [_I],
-        "srt_frame_pick": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "srt_frame_pick_scratch_words": [_I],
+        "srt_frame_pick": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     },
 }
 
@@ -257,10 +255,10 @@ def require_row_lanes(what: str, lanes) -> None:
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:
     """Every tensor a kernel reads or writes: on one CUDA device and
     contiguous."""
-    dev = tensors[0].device
+    at = tensors[0].get_device()
     for x in tensors:
-        if x.device != dev or x.device.type != "cuda":
+        if not x.is_cuda or x.get_device() != at:
             raise ValueError(f"{what}: tensors must share one CUDA device, "
-                             f"got {x.device} and {dev}")
+                             f"got {x.device} and {tensors[0].device}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")

@@ -309,13 +309,18 @@ run_ends.launches = 0
 
 def frame_pick_plain(valid: torch.Tensor, lo: Optional[torch.Tensor],
                      hi: Optional[torch.Tensor], last: bool,
-                     ignore_nulls: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K23, the reference's formula: over the valid-count
-    prefix ``cpre``, first ignoring nulls is ``searchsorted(cpre, cpre[lo]
-    + 1) - 1`` and last ``searchsorted(cpre, cpre[hi + 1]) - 1``; with
-    nulls counted, the bound itself."""
+                     ignore_nulls: bool, n_live: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K23, the reference's formula: a row is valid where
+    ``valid`` holds and it is one of the first ``n_live`` (None: every
+    row); over the valid-count prefix ``cpre``, first ignoring nulls is
+    ``searchsorted(cpre, cpre[lo] + 1) - 1`` and last
+    ``searchsorted(cpre, cpre[hi + 1]) - 1``; with nulls counted, the
+    bound itself."""
     n, dev = int(valid.shape[0]), valid.device
     pos = torch.arange(n, dtype=torch.int64, device=dev)
+    if n_live is not None:
+        valid = valid & (pos < n_live)
     lo_c = torch.clamp(pos if lo is None else lo.to(torch.int64), 0,
                        max(n - 1, 0))
     hi_c = torch.clamp(pos if hi is None else hi.to(torch.int64), -1, n - 1)
@@ -332,16 +337,44 @@ def frame_pick_plain(valid: torch.Tensor, lo: Optional[torch.Tensor],
     return idx.to(torch.int32), flag
 
 
+FRAME_PICK_PLANS = ("bound", "bitmap", "fused")
+
+
+def frame_pick_plan(lo: Optional[torch.Tensor], hi: Optional[torch.Tensor],
+                    last: bool, ignore_nulls: bool) -> str:
+    """K23's launch plan (``csrc/frame_pick.cu``): with nulls counted the
+    bound itself (one launch); ignoring them, ``fused`` (one launch: the
+    scan picks at the row itself, so last takes no ``hi`` and first no
+    ``lo``) where the frames allow it, else ``bitmap`` (the scan writes
+    the valid bits and a nearest valid row a 32-row word, then the
+    pick)."""
+    return _frame_pick_plans(lo, hi, last, ignore_nulls)[0]
+
+
+def _frame_pick_plans(lo, hi, last, ignore_nulls) -> Tuple[str, ...]:
+    """The launch plans that serve a frame, the planned one first: the
+    bitmap plan serves every frame that ignores nulls, the fused one
+    those that fuse."""
+    if not ignore_nulls:
+        return ("bound",)
+    if (hi is None) if last else (lo is None):
+        return ("fused", "bitmap")
+    return ("bitmap",)
+
+
 def frame_pick(valid: torch.Tensor, lo: Optional[torch.Tensor],
-               hi: Optional[torch.Tensor], last: bool, ignore_nulls: bool
+               hi: Optional[torch.Tensor], last: bool, ignore_nulls: bool,
+               n_live: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K23: (idx int32[n], flag bool[n]) of First (``last`` False) or Last
     over each sorted row's inclusive frame [lo, hi] (int32[n] each, or
     None for the row itself): the first valid row at or after lo (last:
     at or before hi) where ``ignore_nulls``, else the bound itself; idx
     clamped into [0, n), flag set where the frame is not empty, the pick
-    lies in it and ``valid`` (the column's validity and the live rows)
-    holds there."""
+    lies in it and is valid: ``valid`` (the column's validity) holds
+    there and the row is one of the first ``n_live`` (the live rows;
+    None: every row), which the kernel ANDs in itself.  The launch plan
+    is ``frame_pick_plan``'s."""
     n = int(valid.shape[0])
     if valid.dtype != torch.bool:
         raise TypeError("frame_pick: valid must be bool")
@@ -349,24 +382,39 @@ def frame_pick(valid: torch.Tensor, lo: Optional[torch.Tensor],
         if b is not None and (b.dtype != torch.int32 or b.shape != (n,)):
             raise TypeError(f"frame_pick: bounds must be int32[{n}]")
     if valid.device.type == "cpu":
-        return frame_pick_plain(valid, lo, hi, last, ignore_nulls)
+        return frame_pick_plain(valid, lo, hi, last, ignore_nulls, n_live)
+    return _frame_pick_launch(valid, lo, hi, last, ignore_nulls, n_live,
+                              frame_pick_plan(lo, hi, last, ignore_nulls))
+
+
+def _frame_pick_launch(valid, lo, hi, last, ignore_nulls, n_live, plan):
+    """K23's launch on the card with the launch plan ``plan``, one of
+    ``_frame_pick_plans``' (chip_smoke.py holds each against the plain
+    version)."""
+    if plan not in _frame_pick_plans(lo, hi, last, ignore_nulls):
+        raise ValueError(f"frame_pick: the {plan} plan does not serve "
+                         f"this frame")
     kernels.require_cuda("frame_pick", valid,
                          *[b for b in (lo, hi) if b is not None])
+    n = int(valid.shape[0])
     dev = valid.device
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     flag = torch.empty(n, dtype=torch.bool, device=dev)
     lib = kernels.library("frame_pick")
-    near = state = None
-    if ignore_nulls:
-        near = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-        state = torch.empty(lib.srt_frame_pick_state_words(n),
-                            dtype=torch.int64, device=dev)
+    scratch = None
+    if plan != "bound":
+        scratch = torch.empty(lib.srt_frame_pick_scratch_words(n),
+                              dtype=torch.int64, device=dev)
+    vec = all(b is None or b.data_ptr() % 16 == 0 for b in (lo, hi, idx)) \
+        and flag.data_ptr() % 4 == 0
     kernels.check(lib, lib.srt_frame_pick(
         valid.data_ptr(), None if lo is None else lo.data_ptr(),
-        None if hi is None else hi.data_ptr(), n, int(last),
-        int(ignore_nulls), None if near is None else near.data_ptr(),
-        None if state is None else state.data_ptr(), idx.data_ptr(),
-        flag.data_ptr(), kernels.stream(valid)), "frame_pick")
+        None if hi is None else hi.data_ptr(), n,
+        n if n_live is None else int(n_live), int(last),
+        FRAME_PICK_PLANS.index(plan),
+        None if scratch is None else scratch.data_ptr(), int(vec),
+        idx.data_ptr(), flag.data_ptr(), kernels.stream(valid)),
+        "frame_pick")
     frame_pick.launches += 1
     return idx, flag
 

@@ -469,19 +469,22 @@ def test_k3_positional_reads_no_value():
 
 def test_k3_ops_positional_and_collect():
     """A first and a last of one column share its validity mask; the
-    _any ops share one mask of every row; a collect_list counts the
-    valid rows, sharing a count of the same lane."""
+    _any ops take every row, which K3 reads from the groups' bounds (no
+    mask), or without a key one shared mask of every row; a collect_list
+    counts the valid rows, sharing a count of the same lane."""
     x = DeviceColumn(pt.LONG, torch.arange(6), torch.tensor(
         [True, False, True, True, False, True]))
-    vals, contribs, names, take, his = pagg.k3_ops(
-        [x, x, x, x, x, x],
-        ["first", "last", "first_any", "last_any", "countvalid",
-         "collect_list"])
+    ops = ["first", "last", "first_any", "last_any", "countvalid",
+           "collect_list"]
+    vals, contribs, names, take, his = pagg.k3_ops([x] * 6, ops)
     assert names == ["first", "last", "first", "last", "sum"]
     assert vals == [None] * 5 and his == [None] * 5
     assert contribs[0] is contribs[1] is x.validity
-    assert contribs[2] is contribs[3] and bool(contribs[2].all())
+    assert contribs[2] is None and contribs[3] is None
+    assert contribs[4] is x.validity
     assert take == [0, 1, 2, 3, 4, 4]
+    _, keyless, _, _, _ = pagg.k3_ops([x] * 6, ops, keyed=False)
+    assert keyless[2] is keyless[3] and bool(keyless[2].all())
 
 
 # ---------------------------------------------------------------------------

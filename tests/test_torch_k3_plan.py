@@ -384,23 +384,95 @@ def test_k3_matches_reference_group_reduce(shape, global_agg, packed):
 # the positional kinds, first and last
 # ---------------------------------------------------------------------------
 
-# qg2's update: first(date) and last(price) over their validity, the
-# collects' counts and count(*): five ops, no value lane
+# qg2's update: first(date) counting nulls and count(*) over every row (no
+# mask: K3 reads them from the groups' bounds), last(price) over its
+# validity and the collects' counts over theirs: five ops, no value lane
 QG2_ROWS = 7_500_000
 QG2_VALUES = [None, None, None, None, None]
-QG2_MASKS = ["date.valid", "price.valid", "keys.valid", "prio.valid",
-             "one.valid"]
+QG2_MASKS = [None, "price.valid", "keys.valid", "prio.valid", None]
 
 
 def test_k3_plan_positional_reads_masks_alone():
-    """A first or last reads no value lane, only its contributor mask:
-    the direct path moves the order and one sector a row for the key
-    word and each of the 5 masks; no lane asks for records."""
+    """A first or last reads no value lane, only its contributor mask, and
+    an op over every row reads none: qg2's set holds three masks, 22.5 MB
+    that stay in the L2 cache, so it keeps the direct path (the order, and
+    a sector a row for the key word and each mask, as the model counts
+    them) over the 16-byte records of the key word and the mask word."""
     plan = pagg.k3_plan(QG2_ROWS, QG2_VALUES, QG2_MASKS, 1, True)
-    assert not plan.packed and plan.sets[0].lanes == []
-    assert plan.sets[0].op_lane == [-1] * 5
-    assert plan.direct_bytes == QG2_ROWS * (4 + 32 * 6)
+    s = plan.sets[0]
+    assert not plan.packed and not plan.run_path and s.lanes == []
+    assert plan.bounds and s.op_lane == [-1] * 5
+    assert [QG2_MASKS[k] for k in s.masks] == ["price.valid", "keys.valid",
+                                               "prio.valid"]
+    assert s.op_mask == [-1, 0, 1, 2, -1]
+    assert plan.direct_bytes == QG2_ROWS * (4 + 32 * 4)
+    assert plan.packed_bytes == QG2_ROWS * (8 + 3 + 16 + 4 + 32)
+    # and the groups' first sorted positions
+    assert plan.scratch_bytes == _scratch(QG2_ROWS, 8, 5, 0) + 4 * QG2_ROWS
     assert not pagg.k3_may_pack(QG2_ROWS, QG2_VALUES, QG2_MASKS, True)
+
+
+@pytest.mark.parametrize("path,packed,record", [
+    (None, False, 0), ("direct", False, 0), ("record", True, 16),
+    ("run", False, 0)])
+def test_k3_plan_masks_alone_direct_or_records_at_qg2(path, packed, record):
+    """Each layout of qg2's set a path asks for: the masks read through
+    the order, or the 16-byte record of the key word and a word of the
+    three mask bits; the planned one is the direct path's, and an order
+    whose runs are not counted gives no run path."""
+    plan = pagg.k3_plan(QG2_ROWS, QG2_VALUES, QG2_MASKS, 1, True, path=path)
+    s = plan.sets[0]
+    assert plan.packed == packed and s.record_bytes == record
+    if record:
+        assert (s.key_offsets, s.mask_offset) == ([0], 8)
+        assert plan.rows_per_thread == 16
+    assert plan.bounds and not plan.run_path
+
+
+@pytest.mark.parametrize("n,masks,packed", [
+    (1 << 23, 3, False),                    # 24 MiB of masks
+    ((32 << 20) // 3, 3, False),            # at the edge
+    ((32 << 20) // 3 + 1, 3, True),
+    (1 << 25, 3, True),                     # 96 MiB: records
+    (1 << 25, 1, False)])                   # 32 MiB
+def test_k3_plan_masks_alone_records_past_l2(n, masks, packed):
+    """A set of masks and no value lane keeps the direct path while its
+    masks fit ``_K3_MASKS_CACHED`` (the L2 cache's share) and takes the
+    records past it, over a random order (runs not counted)."""
+    ms = [f"m{q}" for q in range(masks)]
+    plan = pagg.k3_plan(n, [None] * (masks + 1), ms + [None], 1, True)
+    assert plan.packed == packed
+    assert pagg.k3_may_pack(n, [None] * masks, ms, True) == packed
+    assert not pagg.k3_plan(n, [None] * masks, ms, 1, False).packed
+
+
+def test_k3_may_pack_masks_alone_by_the_l2_edge():
+    """The masks' L2 edge is for sets of masks alone: with a value lane
+    the inputs keep the 96-MiB rule, so nine masks of 4 Mi rows (36 MiB)
+    beside a lane stay direct, and alone take records; masks of every row
+    (None) count nothing."""
+    n, ms = 1 << 22, [f"m{q}" for q in range(9)]
+    assert not pagg.k3_may_pack(n, ["v"] + [None] * 9, ["v.valid"] + ms,
+                                True)
+    assert pagg.k3_may_pack(n, [None] * 9, ms, True)
+    assert not pagg.k3_may_pack(1 << 25, [None] * 3, [None] * 3, True)
+    assert not pagg.k3_may_pack(n, [None] * 9, ms, False)
+
+
+def test_k3_plan_every_row_ops_read_no_mask():
+    """Ops over every row (mask None) add no mask to their set, not even
+    on the record path, and need the starts in the scratch; a set of
+    counts over every row alone reads nothing but the order and keys."""
+    plan = pagg.k3_plan(1 << 20, [None, None, None], [None, None, None], 1,
+                        True)
+    s = plan.sets[0]
+    assert s.masks == [] and s.op_mask == [-1, -1, -1] and plan.bounds
+    assert plan.direct_bytes == (1 << 20) * (4 + 32)
+    assert plan.scratch_bytes == _scratch(1 << 20, 8, 3, 0) + 4 * (1 << 20)
+    rec = pagg.k3_plan(1 << 20, [None, None], [None, "m"], 1, True,
+                       path="record")
+    assert rec.sets[0].masks == [1] and rec.sets[0].op_mask == [-1, 0]
+    assert not pagg.k3_plan(1 << 20, [None], ["m"], 1, True).bounds
 
 
 @pytest.mark.parametrize("shared,masks", [(True, 1), (False, 2)])
@@ -444,3 +516,120 @@ def test_k3_positional_kinds_beside_other_ops():
         assert int(first_row[gi]) == rows[np.flatnonzero(ks == k)[0]]
     assert sums[0].dtype == torch.int32
     assert pagg.segment_reduce_sorted.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# ops over every row, from the groups' bounds, against the reference
+# ---------------------------------------------------------------------------
+
+EVERY_OPS = ["first", "last", "sum", "first", "last", "sum"]
+
+
+@pytest.mark.parametrize("shape", ["span_runs", "one_row_groups",
+                                   "live_head", "global", "rows_in_order"])
+def test_k3_every_row_picks_match_reference_segment_reduce(shape):
+    """first, last and a count over every row (no mask: K3 reads them
+    from the groups' bounds) beside first, last and a count over a mask,
+    through the wrapper, against the reference's ``ops/segmented.py:
+    segment_reduce(np, "first" | "last")`` of the rows' input rows and its
+    counts, per group: groups over two of the order's runs (the order
+    sorts by key then a flag), one-row groups, rows before the first
+    start (the first sorted rows not live), the ungrouped aggregate, and
+    rows already in key order."""
+    from spark_rapids_tpu.ops import segmented as rseg
+    rng = np.random.default_rng(25)
+    n = 6000
+    ngroups = {"one_row_groups": n}.get(shape, 37)
+    keys = rng.integers(0, ngroups, n)
+    flag = rng.integers(0, 2, n)
+    if shape == "one_row_groups":
+        keys = rng.permutation(n)
+    if shape == "rows_in_order":
+        keys = np.sort(keys)
+    mask = rng.random(n) < 0.3
+    glob = shape == "global"
+    order = None if shape == "rows_in_order" else np.lexsort((flag, keys))
+    live = np.ones(n, bool)
+    if shape == "live_head":
+        live[order[:7]] = False
+    rows = np.arange(n) if order is None else order
+    ks, live_s = keys[rows], live[rows]
+    if glob:
+        ids, g = np.zeros(n, np.int64), 1
+    else:
+        new = live_s & np.r_[True, ks[1:] != ks[:-1]]
+        ids, g = np.cumsum(new) - 1, int(new.sum())
+    grouped = ids >= 0
+    t = torch.from_numpy
+    got = pagg.segment_reduce_sorted(
+        [] if glob else [t(keys)], None if shape != "live_head" else
+        t(live), [None] * 6, [None, None, None] + [t(mask)] * 3, glob,
+        None if order is None else t(order.astype(np.int32)), EVERY_OPS)
+    assert got[3] == g
+    for k, (op, valid) in enumerate(zip(EVERY_OPS, [grouped] * 3 + [
+            grouped & mask[rows]] * 3)):
+        out, cnt = rseg.segment_reduce(
+            np, "first" if op == "sum" else op, rows.astype(np.int64),
+            np.maximum(ids, 0), g, valid)
+        assert np.array_equal(got[2][k].numpy(), cnt), (shape, k)
+        if op != "sum":
+            ok = cnt > 0
+            assert np.array_equal(got[1][k].numpy()[ok], out[ok]), (shape, k)
+            assert not got[1][k].numpy()[~ok].any()
+    assert pagg.segment_reduce_sorted.launches == 0
+
+
+@pytest.mark.parametrize("global_agg", [False, True])
+def test_k3_every_row_ops_match_reference_group_reduce(global_agg):
+    """The port's ``_group_reduce`` with first_any, last_any and a count
+    of a column valid in every row (count(*)'s literal: no mask for K3)
+    beside first, last, countvalid and a sum over nullable columns, against
+    the reference's ``_group_reduce`` on the same rows; the K3 call it
+    makes hands every-row ops no mask."""
+    from test_torch_aggregate import _columns
+    rng = np.random.default_rng(32)
+    n = 4000
+    table = _table(rng, n, 12).append_column(
+        "one", pa.array(np.ones(n, dtype=np.int64)))
+    ref, mine = _columns(table, n)
+    spec = [(1, "first_any"), (1, "last_any"), (2, "first"), (2, "last"),
+            (4, "countvalid"), (1, "countvalid"), (3, "sum")]
+    ops = [op for _, op in spec]
+    every = [c == 4 for c, _ in spec]
+    live = jnp.arange(ref.capacity) < ref.num_rows
+    rk, rv, rn = ragg._group_reduce(
+        jnp, [] if global_agg else [ref.columns[0]],
+        [ref.columns[c] for c, _ in spec], ops, ref.capacity, live,
+        global_agg)
+    seen = []
+    orig = pagg.segment_reduce_sorted
+
+    def spy(*args, **kw):
+        seen.append(args[3])
+        return orig(*args, **kw)
+    pagg.segment_reduce_sorted = spy
+    try:
+        pk, pv, pn = pagg._group_reduce(
+            [] if global_agg else [mine.columns[0]],
+            [mine.columns[c] for c, _ in spec], ops, n, global_agg,
+            every=every)
+    finally:
+        pagg.segment_reduce_sorted = orig
+    assert pn == int(rn)
+    masks = seen[0]
+    if global_agg:
+        # no key word: every-row ops take one shared mask of every row
+        assert masks[0] is masks[1] is masks[4]
+    else:
+        assert masks[0] is None and masks[1] is None and masks[4] is None
+    assert masks[2] is not None and masks[5] is not None
+    for k, (c, op) in enumerate(spec):
+        rd = np.asarray(rv[k].data)[:pn]
+        ok = np.asarray(rv[k].validity)[:pn]
+        assert np.array_equal(pv[k].validity[:pn].numpy(), ok), op
+        pd = pv[k].data[:pn].numpy()
+        if rd.dtype == np.float64:
+            np.testing.assert_allclose(pd[ok], rd[ok], rtol=FLOAT_RTOL,
+                                       atol=0.0, equal_nan=True)
+        else:
+            assert np.array_equal(pd[ok], rd[ok]), op

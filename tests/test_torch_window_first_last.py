@@ -325,3 +325,110 @@ def test_frame_pick_rejects_bad_bounds():
                          False, True)
     with pytest.raises(TypeError):
         pscan.frame_pick(valid.to(torch.int32), None, None, False, True)
+
+
+# ---------------------------------------------------------------------------
+# K23 with the live rows as a count, its launch plans
+# ---------------------------------------------------------------------------
+
+def _edge_frames(n):
+    """Bounds on 32-row word edges and 8,192-row tile edges (one row
+    either side), frames reaching across several tiles, and the row
+    itself at one end."""
+    pos = np.arange(n)
+    word, tile = pos // 32 * 32, pos // 8192 * 8192
+    odd = pos % 2
+    return {
+        "word_edges": (word - 1 + odd, word + 32 - odd),
+        "tile_edges": (tile - 1 + odd, tile + 8192 - odd),
+        "across_tiles": (pos - 20_000, pos + 20_000),
+        "running": (np.maximum(pos - 9000, 0), pos),
+        "following": (pos, np.minimum(pos + 9000, n - 1)),
+    }
+
+
+@pytest.mark.parametrize("ignore", [True, False])
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("valid_kind", ["tenth", "null_tiles",
+                                        "word_edges", "none"])
+def test_frame_pick_plain_with_live_count_matches_reference_formula(
+        valid_kind, last, ignore):
+    """K23's plain version over the column's validity and the live rows'
+    count (the live rows are a prefix: the window's padding sorts last)
+    equals the reference's formula over the validity ANDed with the live
+    mask, on bounds at word and tile edges and across all-null stretches
+    longer than a tile; with every row live, too."""
+    rng = np.random.default_rng(7 + 2 * last + ignore)
+    n = 3 * 8192 + 77
+    pos = np.arange(n)
+    valid = {"tenth": rng.random(n) < 0.1,
+             "null_tiles": pos % 20_000 == 17,
+             "word_edges": (pos % 32 == 0) | (pos % 32 == 31),
+             "none": np.zeros(n, bool)}[valid_kind]
+    for n_live in (None, n - 5000):
+        live = pos < (n if n_live is None else n_live)
+        for name, (lo, hi) in _edge_frames(n).items():
+            want_idx, want_flag = _ref_pick(valid & live, lo, hi, last,
+                                            ignore)
+            idx, flag = pscan.frame_pick_plain(
+                torch.from_numpy(valid), torch.from_numpy(lo.astype(np.int32)),
+                torch.from_numpy(hi.astype(np.int32)), last, ignore, n_live)
+            assert np.array_equal(flag.numpy(), want_flag), name
+            assert np.array_equal(idx.numpy()[want_flag],
+                                  want_idx[want_flag]), name
+
+
+@pytest.mark.parametrize("last,ignore,lo,hi,plan", [
+    (True, True, True, False, "fused"),       # the forward fill
+    (True, True, False, False, "fused"),
+    (False, True, False, True, "fused"),      # first with lo the row
+    (False, True, True, True, "bitmap"),      # first over a RANGE frame
+    (True, True, True, True, "bitmap"),       # last over the partition
+    (True, False, True, True, "bound"),
+    (False, False, True, False, "bound")])
+def test_frame_pick_plan(last, ignore, lo, hi, plan):
+    """The fused plan where the scan picks at the row itself, the bitmap
+    plan where a bound may lie ahead of the scan, the bound where nulls
+    count; the bitmap plan also serves the frames that fuse, and a plan
+    that does not serve a frame is refused before any launch."""
+    b = torch.zeros(4, dtype=torch.int32)
+    lo_b, hi_b = (b if lo else None), (b if hi else None)
+    assert pscan.frame_pick_plan(lo_b, hi_b, last, ignore) == plan
+    serve = pscan._frame_pick_plans(lo_b, hi_b, last, ignore)
+    assert serve == (("fused", "bitmap") if plan == "fused" else (plan,))
+    for other in set(pscan.FRAME_PICK_PLANS) - set(serve):
+        with pytest.raises(ValueError, match="does not serve"):
+            pscan._frame_pick_launch(torch.ones(4, dtype=torch.bool), lo_b,
+                                     hi_b, last, ignore, None, other)
+
+
+def test_window_hands_k23_the_validity_and_the_live_count():
+    """The window's first and last hand K23 the sorted column's validity
+    and the live rows' count, which K23 ANDs itself (no combined lane is
+    built first); the answers still equal Spark's with padding rows."""
+    from spark_rapids_tpu_torch.exec import window as pwin
+    table = make_table(seed=11, n=300)
+    seen = []
+    orig = pwin.frame_pick
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return orig(*args, **kw)
+    pwin.frame_pick = spy
+    try:
+        got = _query(GpuSession(device="cpu").create_dataframe(table), PF,
+                     pcol, pwexpr, "last", True,
+                     FRAMES["rows_running"]).collect()
+    finally:
+        pwin.frame_pick = orig
+    (valid, lo, hi, last, ignore, n_live), = seen
+    assert n_live == table.num_rows and valid.shape[0] >= n_live
+    assert last and ignore and hi is None
+    assert pscan.frame_pick_plan(lo, hi, last, ignore) == "fused"
+    want = _oracle(table, "last", True, FRAMES["rows_running"])
+    order = {(k, o): i for i, (k, o) in enumerate(zip(
+        table["k"].to_pylist(), table["o"].to_pylist()))}
+    rows = got.to_pylist()
+    assert len(rows) == table.num_rows
+    for r in rows:
+        assert r["r"] == want[order[(r["k"], r["o"])]]
